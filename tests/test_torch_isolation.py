@@ -1,0 +1,102 @@
+"""The port stands alone: it imports neither JAX nor any module of the JAX
+package, and it never falls back to the CPU on its own."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "pinot_tpu_torch"
+
+_CHILD = r"""
+import importlib.abc
+import sys
+
+sys.modules["jax"] = None  # any `import jax` now raises ImportError
+
+
+class _BlockReference(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path, target=None):
+        if name == "pinot_tpu" or name.startswith("pinot_tpu."):
+            raise ImportError(f"blocked import of the reference package: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _BlockReference())
+
+from pinot_tpu_torch.engine import kernel
+from pinot_tpu_torch.engine.executor import QueryExecutor
+from pinot_tpu_torch.engine.reduce import reduce_to_response
+from pinot_tpu_torch.pql import optimize_request, parse_pql
+from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+
+Q1 = ("SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) "
+      "FROM lineitem WHERE l_shipdate <= '1998-09-02' GROUP BY l_returnflag, l_linestatus TOP 10")
+segs = [synthetic_lineitem_segment(2000, seed=11 + i, name=f"li{i}") for i in range(2)]
+req = optimize_request(parse_pql(Q1))
+resp = reduce_to_response(req, [QueryExecutor(device="cpu").execute(segs, req)])
+groups = resp.aggregation_results[3].group_by_result
+assert sum(int(g.value) for g in groups) == 4000, groups
+leaked = sorted(m for m in sys.modules if m == "pinot_tpu" or m.startswith("pinot_tpu.")
+                or m == "jax" and sys.modules[m] is not None or m.startswith("jax."))
+assert not leaked, leaked
+print("ISOLATED-OK", len(groups))
+"""
+
+
+def test_q1_runs_with_jax_and_the_reference_blocked():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=str(REPO), env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert "ISOLATED-OK 6" in out.stdout
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(module: str) -> bool:
+    return module in ("jax", "pinot_tpu") or module.startswith(("jax.", "pinot_tpu."))
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py")) + ["chip_smoke.py"],
+)
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imports(REPO / path) if _forbidden(m)]
+    assert not bad, (path, bad)
+
+
+def test_no_device_and_no_cuda_raises(monkeypatch):
+    from pinot_tpu_torch.engine.executor import QueryExecutor
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
+        QueryExecutor()
+    with pytest.raises(RuntimeError):
+        QueryExecutor(device="cuda")
+    assert QueryExecutor(device="cpu").device.type == "cpu"
+
+
+def test_precision_mode_is_explicit():
+    from pinot_tpu_torch.engine.config import Precision
+
+    assert Precision("x32").float_dtype == torch.float32
+    assert Precision("x32").key_dtype == torch.int32
+    assert Precision("x64").max_key_space == 2**62
+    with pytest.raises(ValueError):
+        Precision("bf16")
