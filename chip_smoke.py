@@ -1,11 +1,22 @@
 #!/usr/bin/env python3
 """On-card smoke test and measurement of the PyTorch/CUDA port
-(``pinot_tpu_torch``): builds the CUDA kernels from this checkout, holds
-each against its plain torch version, answers TPC-H Q1, the Q3-shaped
-query and an unsorted RANGE over 134,217,728 lineitem rows staged on one
-card through parse -> optimize -> QueryExecutor.execute ->
-reduce_to_response, checks every answer against a float64 numpy oracle,
-and times the queries and the kernel.
+(``pinot_tpu_torch``): builds the CUDA kernels from this checkout (one
+nvcc per source, started together), holds each against its plain torch
+version, and drives the port's paths through parse -> optimize ->
+QueryExecutor.execute -> reduce_to_response on one card:
+
+  1. TPC-H Q1, the Q3-shaped query and an unsorted RANGE (K1) over
+     134,217,728 lineitem rows, against a float64 numpy oracle;
+  2. the value-state queries (distinctcount, percentile, HLL; K2) over the
+     same rows, against exact host oracles;
+  3. a plan outside K1's fused route (OR filter, sum + min), whose group
+     sums go through K1 over the evaluated mask: run twice, bit-identical;
+  4. the north-star HLL group-by (NORTHSTAR_HLL.json) over 134,217,728
+     ad-events rows, against registers built on the host;
+
+and times the queries, the kernels at each query's shapes, their plain
+versions, the torch ops that build their inputs, and the one PyTorch call
+that computes K2's function.
 
     python3 chip_smoke.py [--out results.json] [--profile]
 
@@ -21,6 +32,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +51,27 @@ RANGE = (
     "WHERE l_quantity > 25 GROUP BY l_returnflag TOP 10"
 )
 QUERIES = {"q1": Q1, "q3": Q3, "range_unsorted": RANGE}
+VALUE_QUERIES = {
+    # bench.py:198-201, a BASELINE.md shape: HLL lowered to presence, K = 3 x 2048
+    "hll_groupby": "SELECT distinctcounthll(l_shipdate) FROM lineitem GROUP BY l_returnflag TOP 10",
+    # scalar presence over ~259k global values: K = 2^18, K2's global-memory path
+    "distinct_price": "SELECT distinctcount(l_extendedprice) FROM lineitem WHERE l_quantity > 25",
+    # grouped histogram: K = 7 x 56
+    "pct_quantity": "SELECT percentile90(l_quantity) FROM lineitem GROUP BY l_shipmode TOP 10",
+    # HLL registers from the per-row (bucket, rho) streams: K = 256 x 64
+    "hll_price": "SELECT distinctcounthll(l_extendedprice) FROM lineitem WHERE l_shipmode = 'AIR'",
+}
+# outside K1's fused route (OR tree, min): group sums through K1 over the mask
+TORCH_OP_QUERY = (
+    "SELECT sum(l_extendedprice), min(l_quantity), count(*) FROM lineitem "
+    "WHERE l_quantity > 45 OR l_shipmode = 'AIR' GROUP BY l_returnflag, l_linestatus TOP 10"
+)
+# NORTHSTAR_HLL.json: 4 distinct ad-events segments of 2^23 rows tiled to 16,
+# campaign_card 1024, user_card 2^20 per segment (global ~4.26M users)
+NORTH_STAR = "SELECT distinctcounthll(user_id) FROM adevents GROUP BY campaign_id TOP 10"
+AD_DISTINCT = 4
+AD_CAMPAIGNS = 1024
+AD_USERS = 1 << 20
 # bench.py:1138-1143, the JAX package's on-chip configuration: 134,217,728 rows
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
@@ -230,12 +263,27 @@ def oracle(segments, name):
                 "sum_l_extendedprice": vals("l_extendedprice"),
                 "sum_l_quantity": vals("l_quantity"),
             })
-        else:
+        elif name == "range_unsorted":
             mask = vals("l_quantity") > 25
             rf, rfl = _labels(seg, "l_returnflag")
             add(rf.astype(np.int64), mask, [(x,) for x in rfl], {
                 "sum_l_extendedprice": vals("l_extendedprice"),
             })
+        else:  # torch_op
+            sm = seg.column("l_shipmode")
+            qty = vals("l_quantity")
+            mask = (qty > 45) | np.array([v == "AIR" for v in sm.dictionary.values])[sm.fwd]
+            rf, rfl = _labels(seg, "l_returnflag")
+            ls, lsl = _labels(seg, "l_linestatus")
+            keys = rf.astype(np.int64) * len(lsl) + ls
+            add(keys, mask, [(a, b) for a in rfl for b in lsl], {
+                "sum_l_extendedprice": vals("l_extendedprice"),
+            })
+            for k, lab in enumerate([(a, b) for a in rfl for b in lsl]):
+                sel = qty[mask & (keys == k)]
+                if sel.size:
+                    e = acc[lab]
+                    e["min_l_quantity"] = min(e.get("min_l_quantity", math.inf), float(sel.min()))
     return acc
 
 
@@ -251,6 +299,10 @@ def check_response(resp, want) -> float:
             if ar.function == "count_star":
                 if int(v) != want[key]["count"]:
                     raise AssertionError(f"count {key}: {v} != {want[key]['count']}")
+                continue
+            if ar.function.startswith("min_"):
+                if float(v) != want[key][ar.function]:
+                    raise AssertionError(f"{ar.function} {key}: {v} != {want[key][ar.function]}")
                 continue
             w = want[key][ar.function]
             if not math.isclose(float(v), w, rel_tol=AUDIT_RTOL, abs_tol=AUDIT_ATOL):
@@ -306,6 +358,177 @@ def k1_bound(args: dict):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
 
 
+# ---------------------------------------------------------------------------
+# K2 against its plain version
+# ---------------------------------------------------------------------------
+
+
+def k2_cases(dev):
+    """K = 300, 1024, 6144, 16384 and 2^18 over S = 16 segments with ragged
+    num_docs (the tail past each carries the sentinel) and 5 % sentinel
+    entries; one hot bin at S = 1; an all-sentinel stream; an empty stream;
+    a stream starting 4 bytes past an aligned address, of odd length, with
+    indexes below 0 and above K."""
+    g = torch.Generator(device="cpu").manual_seed(4321)
+    cases = {}
+    S, n = 16, 1 << 16
+    for K in (300, 1024, 6144, 16384, 1 << 18):
+        idx = torch.randint(0, K, (S, n), generator=g, dtype=torch.int32)
+        idx[torch.rand((S, n), generator=g) < 0.05] = K
+        for s in range(S):
+            idx[s, n - (s * 997) % (n // 3 + 1):] = K
+        cases[f"K{K}_S16_ragged_5pct_sentinel"] = (idx.to(dev), K)
+    hot = torch.randint(0, 300, (1, 1 << 22), generator=g, dtype=torch.int32)
+    hot[torch.rand((1, 1 << 22), generator=g) < 0.9] = 7
+    cases["K300_S1_hot_bin"] = (hot.to(dev), 300)
+    cases["K16384_S1_all_sentinel"] = (torch.full((1, 1 << 20), 16384, dtype=torch.int32, device=dev), 16384)
+    cases["K1024_empty"] = (torch.zeros(0, dtype=torch.int32, device=dev), 1024)
+    odd = torch.randint(-3, 6147, ((1 << 20) + 7,), generator=g, dtype=torch.int32).to(dev)
+    cases["K6144_unaligned_odd_out_of_range"] = (odd[1:], 6144)
+    return cases
+
+
+def compare_k2(vsc, idx, K: int) -> float:
+    """Kernel vs torch.bincount over the in-range entries and vs the plain
+    version: bit-equal, and two launches bit-identical.  Returns the
+    largest absolute difference from the plain version (0)."""
+    a = vsc.value_state_counts(idx, K)
+    b = vsc.value_state_counts(idx, K)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("two launches of the value-state kernel differ")
+    flat = idx.reshape(-1)
+    want = torch.bincount(flat[(flat >= 0) & (flat < K)], minlength=K)
+    if not torch.equal(a, want):
+        raise AssertionError(f"counts differ from torch.bincount (K={K})")
+    ref = vsc.value_state_counts_reference(idx, K)
+    if not torch.equal(a, ref):
+        raise AssertionError(f"counts differ from the plain version (K={K})")
+    return float((a - ref).abs().max()) if K else 0.0
+
+
+def k2_bound(idx, K: int):
+    """(bound ms, "bytes" or "operations", bytes, operations): each index
+    read once (4 B) and each int64 count written once; about three integer
+    operations per index (the range test and the add)."""
+    nbytes = 4 * idx.numel() + 8 * K
+    ops = 3 * idx.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+# ---------------------------------------------------------------------------
+# Exact host oracles of the value-state answers
+# ---------------------------------------------------------------------------
+
+
+def _present(column, rows=None) -> List[Any]:
+    """Distinct values of a column over ``rows`` (all rows when None)."""
+    fwd = column.fwd if rows is None else column.fwd[rows]
+    seen = np.bincount(fwd, minlength=column.dictionary.cardinality) > 0
+    return np.asarray(column.dictionary.values)[seen].tolist()
+
+
+def _group_counts(seg, gcol: str, vcol: str, rows=None) -> Dict[Any, Tuple[np.ndarray, List[Any]]]:
+    """{group value: (counts over vcol's dictionary, its values)}."""
+    g, v = seg.column(gcol), seg.column(vcol)
+    gf, vf = (g.fwd, v.fwd) if rows is None else (g.fwd[rows], v.fwd[rows])
+    card = v.dictionary.cardinality
+    cnt = np.bincount(gf.astype(np.int64) * card + vf, minlength=g.dictionary.cardinality * card)
+    cnt = cnt.reshape(-1, card)
+    return {g.dictionary.get(i): (cnt[i], list(v.dictionary.values)) for i in range(cnt.shape[0])}
+
+
+def _rows_where(seg, col: str, pred) -> np.ndarray:
+    c = seg.column(col)
+    return np.array([pred(x) for x in c.dictionary.values], dtype=bool)[c.fwd]
+
+
+def value_oracle(hll_mod, segments, name: str) -> Dict[Tuple[str, ...], Any]:
+    """{group tuple (() when ungrouped): exact answer}: distinct counts from
+    the set of matched values, percentiles as sorted[int(n p / 100)] over
+    the matched values, HLL estimates from registers that the port's own
+    hashing builds over the set of matched values."""
+    if name in ("distinct_price", "hll_price"):
+        seen = set()
+        for seg in segments:
+            if name == "distinct_price":
+                q = seg.column("l_quantity")
+                rows = (np.asarray(q.dictionary.values, dtype=np.float64) > 25)[q.fwd]
+            else:
+                rows = _rows_where(seg, "l_shipmode", lambda v: v == "AIR")
+            seen.update(_present(seg.column("l_extendedprice"), rows))
+        if name == "distinct_price":
+            return {(): len(seen)}
+        return {(): int(hll_mod.estimate_from_registers(hll_mod.registers_from_values(seen)))}
+    if name == "hll_groupby":
+        sets: Dict[Any, set] = {}
+        for seg in segments:
+            for label, (cnt, values) in _group_counts(seg, "l_returnflag", "l_shipdate").items():
+                sets.setdefault(label, set()).update(v for v, c in zip(values, cnt) if c)
+        return {
+            (label,): int(hll_mod.estimate_from_registers(hll_mod.registers_from_values(vals)))
+            for label, vals in sets.items() if vals
+        }
+    if name == "pct_quantity":
+        hists: Dict[Any, Dict[float, int]] = {}
+        for seg in segments:
+            for label, (cnt, values) in _group_counts(seg, "l_shipmode", "l_quantity").items():
+                h = hists.setdefault(label, {})
+                for v, c in zip(values, cnt):
+                    h[float(v)] = h.get(float(v), 0) + int(c)
+        out = {}
+        for label, h in hists.items():
+            vals = sorted(v for v, c in h.items() if c)
+            cum = np.cumsum([h[v] for v in vals])
+            if vals:
+                idx = min(int(cum[-1] * 90 / 100.0), int(cum[-1]) - 1)
+                out[(label,)] = vals[int(np.searchsorted(cum, idx, side="right"))]
+        return out
+    raise ValueError(name)
+
+
+def north_star_oracle(hll_mod, segments) -> Dict[Tuple[str, ...], int]:
+    """Per campaign, HLL registers over the users of its rows (the port's
+    per-dictionary hash tables, max rank per register), then estimates."""
+    m = hll_mod.M
+    present = None
+    for seg in segments:
+        camp = seg.column("campaign_id")
+        user = seg.column("user_id")
+        cvals = np.asarray(camp.dictionary.values, dtype=np.int64)
+        bt, rt = hll_mod.dictionary_tables(user.dictionary)
+        ncamp = int(cvals.max()) + 1
+        key = (cvals[camp.fwd] * m + bt[user.fwd]) * 64 + rt[user.fwd]
+        hit = np.bincount(key, minlength=ncamp * m * 64) > 0
+        present = hit if present is None else present | hit
+    regs = (present.reshape(-1, m, 64) * np.arange(64)).max(axis=2).astype(np.uint8)
+    ests = hll_mod.estimate_from_registers(regs)
+    rows = present.reshape(-1, m * 64).any(axis=1)
+    return {(str(c),): int(ests[c]) for c in np.nonzero(rows)[0]}
+
+
+def check_value_response(resp, want: Dict[Tuple[str, ...], Any], top_n: int = 10) -> None:
+    """The one aggregation's answer equals the oracle exactly: the value
+    when ungrouped, else the top_n groups in the broker's order (value
+    descending, then group key) with their values."""
+    (ar,) = resp.aggregation_results
+    if ar.group_by_result is None:
+        if ar.value != want[()]:
+            raise AssertionError(f"{ar.function}: {ar.value} != oracle {want[()]}")
+        return
+    got = [(tuple(g.group), g.value) for g in ar.group_by_result]
+    exp = sorted(want.items(), key=lambda kv: (-kv[1], kv[0]))[:top_n]
+    if got != exp:
+        raise AssertionError(f"{ar.function}: {got} != oracle {exp}")
+
+
+def partials_of(result) -> list:
+    """Every group's partials as plain values, for a bit-for-bit compare."""
+    return [(k, [sorted(vars(p).items()) for p in ps]) for k, ps in sorted(result.groups.items())]
+
+
 def profile_query(fn, name: str, runs: int = 5) -> dict:
     """Trace ``runs`` calls with torch.profiler: device time per kernel
     name (summed over the runs), the host wall time of the window, and
@@ -343,6 +566,19 @@ def profile_query(fn, name: str, runs: int = 5) -> dict:
             "device_ms_per_query_by_kernel": {k: us / runs / 1e3 for k, us in by_kernel.items()}}
 
 
+def _capture(module, name: str, into: dict, key: str):
+    """Replace module.name by a wrapper that records its arguments in
+    ``into[key]``; returns the function to restore."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **k):
+        into[key] = (a, k)
+        return real(*a, **k)
+
+    setattr(module, name, wrapper)
+    return real
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -358,34 +594,46 @@ def main(argv=None) -> int:
         print(f"chip_smoke: needs exactly one visible card, found {torch.cuda.device_count()} "
               "(set CUDA_VISIBLE_DEVICES)", file=sys.stderr)
         return 2
+    return run(torch.device("cuda", 0), opts)
 
+
+def run(dev: torch.device, opts) -> int:
+    """Every phase on ``dev`` (main() passes the one card)."""
+    from pinot_tpu_torch.engine import hll as hll_mod
     from pinot_tpu_torch.engine import kernel as kernel_mod
     from pinot_tpu_torch.engine import kernels
     from pinot_tpu_torch.engine.executor import QueryExecutor
     from pinot_tpu_torch.engine.kernels import fused_groupby as fg
+    from pinot_tpu_torch.engine.kernels import value_state_counts as vsc
     from pinot_tpu_torch.engine.reduce import reduce_to_response
     from pinot_tpu_torch.pql import optimize_request, parse_pql
-    from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+    from pinot_tpu_torch.tools.datagen import (
+        synthetic_adevents_segment,
+        synthetic_lineitem_segment,
+        tile_segments,
+    )
 
     record = {}
-    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     record["card"] = card
 
-    # 1. build the kernel of the path
+    # 1. build every kernel: one nvcc per source, all started together
     t0 = time.perf_counter()
-    kernels.load("fused_groupby")
+    kernels.build(kernels.KERNELS)
+    for name in kernels.KERNELS:
+        kernels.load(name)
     build_s = time.perf_counter() - t0
-    log(f"build: {build_s:.3f} s for fused_groupby")
+    log(f"build: {build_s:.3f} s for {', '.join(kernels.KERNELS)}")
     for name, text in kernels.build_logs.items():
         usage = sorted({ln.split("info    :")[-1].strip() for ln in text.splitlines() if "Used" in ln})
         spills = sorted({ln.strip() for ln in text.splitlines() if "spill" in ln})
         log(f"  ptxas[{name}]: {usage} {spills}")
     record["build_s"] = build_s
 
-    # 2. K1 against its plain version on the card, both modes
+    # 2. each kernel against its plain version on the card
     record["k1_checks"] = {}
     for mode, dtype, rtol, atol in (
         ("x32", torch.float32, AUDIT_RTOL, AUDIT_ATOL),
@@ -395,9 +643,15 @@ def main(argv=None) -> int:
             err = compare_k1(fg, args, rtol, atol)
             log(f"k1 check {mode} {cname}: ok, deterministic, max_abs_err {err:.6g}")
             record["k1_checks"][f"{mode}/{cname}"] = err
+    record["k2_checks"] = {}
+    for cname, (idx, K) in k2_cases(dev).items():
+        err = compare_k2(vsc, idx, K)
+        log(f"k2 check {cname}: ok, equal to torch.bincount and the plain version, "
+            f"deterministic, max_abs_err {err:.6g}")
+        record["k2_checks"][cname] = err
     torch.cuda.synchronize()
 
-    # 3. the slice at full size, x32 as the TPU served
+    # 3. the paths at full size, x32 as the TPU served
     t0 = time.perf_counter()
     segments = [
         synthetic_lineitem_segment(ROWS_PER_SEGMENT, seed=11 + i, name=f"li{i}")
@@ -407,76 +661,113 @@ def main(argv=None) -> int:
     log(f"datagen: {SEGMENTS} x {ROWS_PER_SEGMENT} = {total_rows} rows "
         f"in {time.perf_counter() - t0:.1f} s")
     ex = QueryExecutor(device=dev, precision="x32")
-    requests = {k: optimize_request(parse_pql(v)) for k, v in QUERIES.items()}
+    parse = lambda pql: optimize_request(parse_pql(pql))  # noqa: E731
+    requests = {k: parse(v) for k, v in QUERIES.items()}
+    value_requests = {k: parse(v) for k, v in VALUE_QUERIES.items()}
+    torch_op_request = parse(TORCH_OP_QUERY)
 
-    # the main path, counted: every count 0 just before, read just after
-    fg.launches = 0
-    kernel_mod.fused_dispatches = 0
-    main_launches = {}
-    responses = {}
-    t0 = time.perf_counter()
-    for name, req in requests.items():
-        before = fg.launches
-        responses[name] = reduce_to_response(req, [ex.execute(segments, req)])
-        main_launches[name] = fg.launches - before
-        if main_launches[name] < 1:
-            raise AssertionError(f"{name}: the fused kernel was not launched")
-    torch.cuda.synchronize()
-    total_launches = fg.launches
-    log(f"main path (staging included): {time.perf_counter() - t0:.1f} s, "
-        f"fused launches per query {main_launches}, total {total_launches}")
-    staged = ex.staged_bytes()
-    log(f"staged on the card: {staged} bytes")
-    record.update(main_launches=main_launches, staged_bytes=staged, total_rows=total_rows)
+    def drive(path: str, reqs: dict, segs, need: dict) -> dict:
+        """One run of a path: every launch count 0 just before, read just
+        after; each query must have launched each kernel in ``need``."""
+        fg.launches = 0
+        vsc.launches = 0
+        kernel_mod.fused_dispatches = 0
+        per_query = {}
+        out = {}
+        t = time.perf_counter()
+        for name, req in reqs.items():
+            k1_before, k2_before = fg.launches, vsc.launches
+            out[name] = reduce_to_response(req, [ex.execute(segs, req)])
+            per_query[name] = {"k1": fg.launches - k1_before, "k2": vsc.launches - k2_before}
+            for kern in need.get(name, ()):
+                if per_query[name][kern] < 1:
+                    raise AssertionError(f"{path}/{name}: kernel {kern} was not launched")
+        torch.cuda.synchronize()
+        totals = {"k1": fg.launches, "k2": vsc.launches}
+        log(f"path {path} (staging included): {time.perf_counter() - t:.1f} s, "
+            f"launches per query {per_query}, total {totals}")
+        record.setdefault("paths", {})[path] = {"launches": per_query, "totals": totals}
+        return out
 
-    # answers against the float64 oracle
+    # 3a. slice 1: Q1, Q3, RANGE through K1's fused route
+    responses = drive("q1_q3_range", requests, segments, {n: ("k1",) for n in QUERIES})
     record["oracle_max_rel_err"] = {}
     for name in QUERIES:
         worst = check_response(responses[name], oracle(segments, name))
         log(f"oracle {name}: ok (max rel sum err {worst:.3g})")
         record["oracle_max_rel_err"][name] = worst
 
-    # 4. timing: whole queries, then K1 at each query's shapes
+    # 3b. slice 2: the value-state queries, every one through K2
+    value_responses = drive("value_state", value_requests, segments,
+                            {n: ("k2",) for n in VALUE_QUERIES})
+    for name in VALUE_QUERIES:
+        check_value_response(value_responses[name], value_oracle(hll_mod, segments, name))
+        log(f"oracle {name}: ok, exact ({value_responses[name].aggregation_results[0].to_json()})"[:400])
+
+    # 3c. the torch-op route: group sums through K1 over the mask, twice
+    first = ex.execute(segments, torch_op_request)
+    drive("torch_op", {"torch_op": torch_op_request}, segments, {"torch_op": ("k1",)})
+    second = ex.execute(segments, torch_op_request)
+    if partials_of(first) != partials_of(second):
+        raise AssertionError("torch_op: two runs differ")
+    worst = check_response(reduce_to_response(torch_op_request, [second]), oracle(segments, "torch_op"))
+    log(f"torch_op: two runs bit-identical; oracle ok (max rel sum err {worst:.3g})")
+    record["oracle_max_rel_err"]["torch_op"] = worst
+
+    # 3d. the north-star HLL group-by: HLL streams, the sort lowering
+    t0 = time.perf_counter()
+    ad_distinct = [
+        synthetic_adevents_segment(ROWS_PER_SEGMENT, seed=7 + i, name=f"ad{i}",
+                                   campaign_card=AD_CAMPAIGNS, user_card=AD_USERS)
+        for i in range(AD_DISTINCT)
+    ]
+    ad_segments = tile_segments(ad_distinct, SEGMENTS)
+    for s in ad_distinct:  # the per-dictionary hashing, once, outside the timed path
+        hll_mod.dictionary_tables(s.column("user_id").dictionary)
+    log(f"datagen + user hashing: {AD_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to "
+        f"{SEGMENTS} segments in {time.perf_counter() - t0:.1f} s")
+    ns_request = parse(NORTH_STAR)
+    ns = drive("north_star", {"north_star": ns_request}, ad_segments, {"north_star": ("k1",)})
+    if record["paths"]["north_star"]["totals"]["k2"]:
+        raise AssertionError("north_star: the sort lowering launched the value-state kernel")
+    check_value_response(ns["north_star"], north_star_oracle(hll_mod, ad_segments))
+    log("oracle north_star: ok, exact")
+    log(f"staged on the card: {ex.staged_bytes()} bytes")
+    record.update(staged_bytes=ex.staged_bytes(), total_rows=total_rows)
+
+    # 4. timing: whole queries, then each kernel at each query's shapes
+    all_requests = {**requests, **value_requests, "torch_op": torch_op_request}
     record["query_ms"] = {}
-    for name, req in requests.items():
-        ms, _ = cuda_ms(lambda: reduce_to_response(req, [ex.execute(segments, req)]), ITERS)
+    for name, req in {**all_requests, "north_star": ns_request}.items():
+        segs = ad_segments if name == "north_star" else segments
+        ms, _ = cuda_ms(lambda: reduce_to_response(req, [ex.execute(segs, req)]), ITERS)
         log(f"query {name}: {ms:.3f} ms median of {ITERS}, {total_rows / (ms / 1e3):.4g} rows/s")
         record["query_ms"][name] = ms
     if opts.profile:
         record["profile"] = {}
-        for name, req in requests.items():
+        for name, req in {**all_requests, "north_star": ns_request}.items():
+            segs = ad_segments if name == "north_star" else segments
             record["profile"][name] = profile_query(
-                lambda: reduce_to_response(req, [ex.execute(segments, req)]), name
+                lambda: reduce_to_response(req, [ex.execute(segs, req)]), name
             )
 
     captured = {}
-    real_k1 = fg.fused_filtered_groupby_sums
-    real_keys = kernel_mod._group_keys
-
-    def capture_k1(*a, **k):
-        names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
-        captured["k1"] = {**dict(zip(names, a)), **k}
-        return real_k1(*a, **k)
-
-    def capture_keys(*a, **k):
-        captured["keys"] = (a, k)
-        return real_keys(*a, **k)
-
     record["k1"] = {}
     for name, req in requests.items():
-        fg.fused_filtered_groupby_sums = capture_k1
-        kernel_mod._group_keys = capture_keys
+        restore = (_capture(fg, "fused_filtered_groupby_sums", captured, "k1"),
+                   _capture(kernel_mod, "_group_keys", captured, "keys"))
         try:
             ex.execute(segments, req)
         finally:
-            fg.fused_filtered_groupby_sums = real_k1
-            kernel_mod._group_keys = real_keys
-        args = captured["k1"]
+            fg.fused_filtered_groupby_sums, kernel_mod._group_keys = restore
+        a, k = captured["k1"]
+        names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
+        args = {**dict(zip(names, a)), **k}
         err = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
         k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
         p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), ITERS)
         ka, kk = captured["keys"]
-        key_ms, _ = cuda_ms(lambda: real_keys(*ka, **kk), ITERS)
+        key_ms, _ = cuda_ms(lambda: restore[1](*ka, **kk), ITERS)
         bound, bound_by, nbytes, ops = k1_bound(args)
         rows_key = args["group_keys"].numel()
         log(f"k1 {name}: {k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, "
@@ -486,21 +777,67 @@ def main(argv=None) -> int:
                                   bytes=nbytes, operations=ops, key_combine_ms=key_ms,
                                   key_bytes=8 * rows_key, max_abs_err=err)
 
-    q1 = record["k1"]["q1"]
-    summary = {"kernels": [{
-        "name": "fused_filtered_groupby_sums",
-        "route": "cuda",
-        "source": "pinot_tpu_torch/csrc/fused_groupby.cu",
-        "replaces": "pinot_tpu/engine/pallas_kernels.py:95",
-        "launches": total_launches,
-        "max_abs_err": q1["max_abs_err"],
-        "ms": q1["ms"],
-        "plain_ms": q1["plain_ms"],
-        "bound_ms": q1["bound_ms"],
-        "bound_by": q1["bound_by"],
-        "library_ms": None,
-    }]}
+    record["k2"] = {}
+    for name, req in value_requests.items():
+        restore = (_capture(vsc, "value_state_counts", captured, "k2"),
+                   _capture(kernel_mod, "_value_state_index", captured, "index"))
+        try:
+            ex.execute(segments, req)
+        finally:
+            vsc.value_state_counts, kernel_mod._value_state_index = restore
+        (idx, K), _ = captured["k2"]
+        err = compare_k2(vsc, idx, K)
+        k_ms, _ = cuda_ms(lambda: vsc.value_state_counts(idx, K), ITERS)
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_counts_reference(idx, K), ITERS)
+        lib_ms, _ = cuda_ms(lambda: torch.bincount(idx.reshape(-1), minlength=K + 1)[:K], ITERS)
+        ia, ik = captured["index"]
+        idx_ms, _ = cuda_ms(lambda: restore[1](*ia, **ik), ITERS)
+        bound, bound_by, nbytes, ops = k2_bound(idx, K)
+        route = "shared" if vsc.uses_shared_memory(K) else "global"
+        log(f"k2 {name}: K={K} ({route}), {idx.numel()} indexes: {k_ms:.4f} ms (bound {bound:.4f} ms "
+            f"by {bound_by}: {nbytes} bytes, {ops} operations; {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), "
+            f"plain {p_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms, index combine {idx_ms:.4f} ms, "
+            f"max_abs_err {err:.6g}")
+        record["k2"][name] = dict(K=K, route=route, indexes=idx.numel(), ms=k_ms, plain_ms=p_ms,
+                                  library_ms=lib_ms, index_combine_ms=idx_ms, bound_ms=bound,
+                                  bound_by=bound_by, bytes=nbytes, operations=ops, max_abs_err=err)
+
+    launches = {"k1": 0, "k2": 0}
+    for path in record["paths"].values():
+        for kern in launches:
+            launches[kern] += path["totals"][kern]
+    q1, hg = record["k1"]["q1"], record["k2"]["hll_groupby"]
+    summary = {"kernels": [
+        {
+            "name": "fused_filtered_groupby_sums",
+            "route": "cuda",
+            "source": "pinot_tpu_torch/csrc/fused_groupby.cu",
+            "replaces": "pinot_tpu/engine/pallas_kernels.py:95",
+            "launches": launches["k1"],
+            "max_abs_err": q1["max_abs_err"],
+            "ms": q1["ms"],
+            "plain_ms": q1["plain_ms"],
+            "bound_ms": q1["bound_ms"],
+            "bound_by": q1["bound_by"],
+            "library_ms": None,
+        },
+        {
+            "name": "value_state_counts",
+            "route": "cuda",
+            "source": "pinot_tpu_torch/csrc/value_state_counts.cu",
+            "replaces": "pinot_tpu/engine/kernel.py:130",
+            "launches": launches["k2"],
+            "max_abs_err": hg["max_abs_err"],
+            "ms": hg["ms"],
+            "plain_ms": hg["plain_ms"],
+            "bound_ms": hg["bound_ms"],
+            "bound_by": hg["bound_by"],
+            "library_ms": hg["library_ms"],
+        },
+    ]}
     record["summary"] = summary
+    record["wall_s"] = time.perf_counter() - t_start
+    log(f"wall: {record['wall_s']:.1f} s")
     if opts.out:
         with open(opts.out, "w") as f:
             json.dump(record, f, indent=1)

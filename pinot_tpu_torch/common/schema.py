@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from enum import Enum
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -100,12 +100,24 @@ class FieldSpec:
 
 
 @dataclass
+class TimeFieldSpec(FieldSpec):
+    """TIME column with a granularity unit (Schema.java timeFieldSpec)."""
+
+    time_unit: str = "DAYS"  # DAYS | HOURS | MINUTES | SECONDS | MILLISECONDS
+
+    def __post_init__(self) -> None:
+        super().__post_init__()
+        self.field_type = FieldType.TIME
+
+
+@dataclass
 class Schema:
-    """Column schema: dimensions + metrics."""
+    """Column schema: dimensions + metrics + optional time column."""
 
     schema_name: str
     dimensions: List[FieldSpec] = field(default_factory=list)
     metrics: List[FieldSpec] = field(default_factory=list)
+    time_field: Optional[TimeFieldSpec] = None
 
     def __post_init__(self) -> None:
         self._by_name: Dict[str, FieldSpec] = {}
@@ -115,7 +127,10 @@ class Schema:
             self._by_name[spec.name] = spec
 
     def all_fields(self) -> List[FieldSpec]:
-        return list(self.dimensions) + list(self.metrics)
+        out: List[FieldSpec] = list(self.dimensions) + list(self.metrics)
+        if self.time_field is not None:
+            out.append(self.time_field)
+        return out
 
     @property
     def column_names(self) -> List[str]:

@@ -31,6 +31,16 @@ MIN_CARD_PAD = 8
 # which is not part of this port yet.
 MAX_GROUP_CAPACITY = 1 << 20
 
+# distinctcount / percentile dense state cap (global dictionary size).
+MAX_VALUE_STATE = 1 << 22
+
+# sort-dedup distinct path (StaticAgg.sort_pairs, a later slice of the
+# port): device output buffer for compacted unique (group, valueId) pairs.
+DISTINCT_PAIR_CAP = 1 << 22
+
+HLL_LOG2M = 8  # HllConstants.java DEFAULT_LOG2M
+HLL_M = 1 << HLL_LOG2M
+
 
 @dataclass(frozen=True)
 class Precision:

@@ -1,5 +1,6 @@
 """Device staging: immutable segments -> device-resident stacked tensors
-(port of ``pinot_tpu.engine.device``, base roles only).
+(port of ``pinot_tpu.engine.device``: the base roles and the HLL
+streams).
 
 Layout (S = number of segments stacked on the leading axis):
 
@@ -7,6 +8,8 @@ Layout (S = number of segments stacked on the leading axis):
   dict_vals  float             [S, card_pad] numeric dictionary values
   raw        float             [S, n_pad]   dictionary-decoded agg input
   gfwd       uint8/int16/int32 [S, n_pad]   global-dictId forward index
+  hll_bucket uint8             [S, n_pad]   HLL register index per row
+  hll_rho    uint8             [S, n_pad]   HLL rank per row
   num_docs   int32             [S]          true doc count per segment
 
 Integer widths are the narrowest that hold the column's dictIds
@@ -27,6 +30,7 @@ import torch
 from pinot_tpu_torch.common.schema import DataType
 from pinot_tpu_torch.engine import config
 from pinot_tpu_torch.engine.config import Precision
+from pinot_tpu_torch.engine.hll import dictionary_tables
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 
 
@@ -41,13 +45,19 @@ class StagedColumn:
     dict_vals: Optional[torch.Tensor] = None
     raw: Optional[torch.Tensor] = None
     gfwd: Optional[torch.Tensor] = None
+    hll_bucket: Optional[torch.Tensor] = None
+    hll_rho: Optional[torch.Tensor] = None
 
     @property
     def is_numeric(self) -> bool:
         return self.stored_type != DataType.STRING
 
     def tensors(self):
-        return [t for t in (self.fwd, self.dict_vals, self.raw, self.gfwd) if t is not None]
+        return [
+            t
+            for t in (self.fwd, self.dict_vals, self.raw, self.gfwd, self.hll_bucket, self.hll_rho)
+            if t is not None
+        ]
 
 
 _stage_tokens = itertools.count()
@@ -104,12 +114,14 @@ def stage_segments(
     gfwd_columns: Sequence[str] = (),
     ctx=None,
     skip_base_columns: Sequence[str] = (),
+    hll_columns: Sequence[str] = (),
 ) -> StagedTable:
     """Stack + pad + transfer the given single-value columns.
 
     ``raw_columns`` (numeric) additionally stage dictionary-decoded value
     arrays; ``gfwd_columns`` (requires ``ctx``) stage global-dictId
-    forward arrays; ``skip_base_columns`` are read only through such a
+    forward arrays; ``hll_columns`` stage per-row HLL (register, rank)
+    uint8 streams; ``skip_base_columns`` are read only through such a
     role array, so their ``fwd``/``dict_vals`` are not uploaded."""
     S = len(segments)
     n_pad = config.pad_docs(max(seg.num_docs for seg in segments))
@@ -169,8 +181,26 @@ def stage_segments(
             for i, c in enumerate(cols):
                 h[i, : c.fwd.size] = gcol.remaps[i][c.fwd]
             sc.gfwd = _put(host, device)
+        if name in hll_columns:
+            hb, hr = _hll_streams(cols, S, n_pad, device)
+            sc.hll_bucket = _put(hb, device)
+            sc.hll_rho = _put(hr, device)
         staged.columns[name] = sc
     return staged
+
+
+def _hll_streams(cols, S: int, n_pad: int, device: torch.device):
+    """Per-row HLL (register index, rank) uint8 streams, computed on the
+    host per dictionary entry and fanned out through the forward index,
+    so the kernel streams them instead of gathering per-dictId tables."""
+    hb = _host_zeros((S, n_pad), np.uint8, device)
+    hr = _host_zeros((S, n_pad), np.uint8, device)
+    b, r = hb.numpy(), hr.numpy()
+    for i, c in enumerate(cols):
+        bt, rt = dictionary_tables(c.dictionary)
+        b[i, : c.fwd.size] = bt[c.fwd]
+        r[i, : c.fwd.size] = rt[c.fwd]
+    return hb, hr
 
 
 def get_staged(
@@ -183,6 +213,7 @@ def get_staged(
     gfwd_columns: Sequence[str] = (),
     ctx=None,
     skip_base_columns: Sequence[str] = (),
+    hll_columns: Sequence[str] = (),
 ) -> StagedTable:
     """Staging cached in the caller's ``cache`` by segment set, column
     set, role sets, device and precision: segments are immutable, so a
@@ -193,6 +224,7 @@ def get_staged(
         tuple(sorted(raw_columns)),
         tuple(sorted(gfwd_columns)),
         tuple(sorted(skip_base_columns)),
+        tuple(sorted(hll_columns)),
         str(device),
         precision.mode,
     )
@@ -207,6 +239,7 @@ def get_staged(
             gfwd_columns=gfwd_columns,
             ctx=ctx,
             skip_base_columns=skip_base_columns,
+            hll_columns=hll_columns,
         )
         cache[key] = st
     return st
@@ -273,5 +306,8 @@ def segment_arrays(staged: StagedTable, needed) -> Dict[str, torch.Tensor]:
             arrays[f"{name}.raw"] = col.raw
         if col.gfwd is not None:
             arrays[f"{name}.gfwd"] = col.gfwd
+        if col.hll_bucket is not None:
+            arrays[f"{name}.hllb"] = col.hll_bucket
+            arrays[f"{name}.hllr"] = col.hll_rho
     arrays["num_docs"] = staged.num_docs_arr
     return arrays

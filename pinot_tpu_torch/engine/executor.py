@@ -28,6 +28,7 @@ from pinot_tpu_torch.engine.device import (
     segment_arrays,
     to_device_inputs,
 )
+from pinot_tpu_torch.engine import hll as hll_mod
 from pinot_tpu_torch.engine.kernel import run_table_kernel
 from pinot_tpu_torch.engine.packing import make_packed_kernel
 from pinot_tpu_torch.engine.plan import (
@@ -35,23 +36,53 @@ from pinot_tpu_torch.engine.plan import (
     _agg_kind,
     build_query_inputs,
     build_static_plan,
+    hll_lowers_to_presence,
     plan_forced_host,
 )
 from pinot_tpu_torch.engine.results import (
     AggPartial,
     AvgPartial,
     CountPartial,
+    DistinctPartial,
+    HistogramPartial,
+    HllPartial,
     IntermediateResult,
     MaxPartial,
     MinMaxRangePartial,
     MinPartial,
     SumPartial,
     make_partial,
+    percentile_of,
     trim_group_candidates,
 )
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.utils.npgroup import scatter_max_2d
 
-_SLICE_AGGS = ("count", "sum", "min", "max", "avg", "minmaxrange")
+
+def _regs_from_value_gids(
+    ctx, column: str, gids: np.ndarray, rows: Optional[np.ndarray] = None, n_rows: int = 0
+) -> np.ndarray:
+    """HLL registers from GLOBAL dictionary value ids (the
+    hll_from_presence finalize: registers depend only on the distinct
+    value set).  Without ``rows``: one uint8[HLL_M] register array; with
+    ``rows`` (same shape as ``gids``) and ``n_rows``: uint8[n_rows, HLL_M],
+    one register array per row."""
+    bt, rt = hll_mod.dictionary_tables(ctx.column(column).global_dict)
+    g = np.asarray(gids, dtype=np.int64)
+    ok = g < bt.size  # padded slots carry no value
+    g = g[ok]
+    if rows is None:
+        return scatter_max_2d(np.zeros(g.size, np.int64), 1, bt[g], rt[g], config.HLL_M)[0]
+    return scatter_max_2d(np.asarray(rows)[ok], n_rows, bt[g], rt[g], config.HLL_M)
+
+
+def _hist_partial(gdict, gids, cnts, p: int) -> HistogramPartial:
+    counts = {
+        float(gdict.get(int(g))): int(c)
+        for g, c in zip(gids, cnts)
+        if g < gdict.cardinality
+    }
+    return HistogramPartial(counts, percentile=p)
 
 
 def prune_segments(
@@ -73,10 +104,10 @@ def check_supported(request: BrokerRequest) -> None:
     if request.is_selection:
         raise NotImplementedError("selection queries are a later slice of the port")
     for a in request.aggregations:
-        if a.is_mv or a.base_function not in _SLICE_AGGS:
+        if a.is_mv:
             raise NotImplementedError(
-                f"aggregation {a.function!r}: value-state (distinctcount, percentile, "
-                "HLL) and MV aggregations are later slices of the port"
+                f"aggregation {a.function!r}: MV aggregations are the MV-column slice "
+                "of the port"
             )
 
 
@@ -130,11 +161,12 @@ class QueryExecutor:
         ctx = get_table_context(live, self._contexts)
         if plan_forced_host(request, ctx, self.precision):
             raise NotImplementedError(
-                "group space beyond the dense device holder: the host tier is a "
-                "later slice of the port"
+                "the query runs only on the host (a group space beyond the dense "
+                "device holder, or distinct values beyond the device pair buffer): "
+                "the host tier is a later slice of the port"
             )
-        raw_cols, gfwd_cols = self._role_columns(request, live)
-        skip_base = self._skip_base_columns(request, live, raw_cols, gfwd_cols)
+        raw_cols, gfwd_cols, hll_cols = self._role_columns(request, live, ctx)
+        skip_base = self._skip_base_columns(request, live, raw_cols, gfwd_cols, hll_cols)
         staged = get_staged(
             self._staged,
             live,
@@ -145,6 +177,7 @@ class QueryExecutor:
             gfwd_columns=gfwd_cols,
             ctx=ctx,
             skip_base_columns=skip_base,
+            hll_columns=hll_cols,
         )
         return self._device_section_staged(live, request, ctx, needed, total_docs, staged)
 
@@ -205,7 +238,9 @@ class QueryExecutor:
             qualifies[col] = qualifies.get(col, True) and ok
         return {c for c, ok in qualifies.items() if ok}
 
-    def _skip_base_columns(self, request: BrokerRequest, live, raw_cols, gfwd_cols) -> set:
+    def _skip_base_columns(
+        self, request: BrokerRequest, live, raw_cols, gfwd_cols, hll_cols
+    ) -> set:
         """Columns the kernel reads only through a role array skip their
         base fwd/dict arrays; filter leaves (other than docrange ones) and
         dictionary-fed agg inputs keep them."""
@@ -219,12 +254,18 @@ class QueryExecutor:
             for a in request.aggregations
             if _agg_kind(a.base_function) in ("scalar", "pair") and a.column not in raw_cols
         }
-        return (set(raw_cols) | set(gfwd_cols)) - filter_cols - gather_agg_cols
+        return (set(raw_cols) | set(gfwd_cols) | set(hll_cols)) - filter_cols - gather_agg_cols
 
-    def _role_columns(self, request: BrokerRequest, live):
+    def _role_columns(self, request: BrokerRequest, live, ctx: TableContext):
         """Aggregation inputs above ``raw_card_min`` get raw value arrays;
-        group-by columns get global-id forward arrays."""
+        group-by columns and presence/hist inputs get global-id forward
+        arrays; HLL inputs get the global-id stream where they lower to
+        presence (``hll_lowers_to_presence``), else the per-row HLL
+        (register, rank) streams."""
         seg = live[0]
+
+        def sv(c: str) -> bool:
+            return c in seg.columns and seg.column(c).metadata.single_value
 
         def big_card(c: str) -> bool:
             card = max(s.column(c).metadata.cardinality for s in live)
@@ -244,12 +285,20 @@ class QueryExecutor:
         }
         gfwd_cols = set()
         if request.is_group_by:
-            gfwd_cols.update(
-                c
-                for c in request.group_by.columns
-                if c in seg.columns and seg.column(c).metadata.single_value
-            )
-        return tuple(sorted(raw_cols)), tuple(sorted(gfwd_cols))
+            gfwd_cols.update(c for c in request.group_by.columns if sv(c))
+        gfwd_cols.update(
+            a.column
+            for a in request.aggregations
+            if _agg_kind(a.base_function) in ("presence", "hist") and sv(a.column)
+        )
+        hll_cols = set()
+        for a in request.aggregations:
+            if _agg_kind(a.base_function) == "hll" and sv(a.column):
+                if hll_lowers_to_presence(request, ctx, a.column):
+                    gfwd_cols.add(a.column)
+                else:
+                    hll_cols.add(a.column)
+        return tuple(sorted(raw_cols)), tuple(sorted(gfwd_cols)), tuple(sorted(hll_cols))
 
     def _empty_result(self, request: BrokerRequest, total_docs: int) -> IntermediateResult:
         res = IntermediateResult(total_docs=total_docs)
@@ -282,11 +331,11 @@ class QueryExecutor:
             res.groups = self._finalize_groups(plan, ctx, outs)
         elif plan.aggs:
             res.aggregations = [
-                self._scalar_partial(agg, outs[f"agg_{i}"]) for i, agg in enumerate(plan.aggs)
+                self._scalar_partial(agg, outs[f"agg_{i}"], ctx) for i, agg in enumerate(plan.aggs)
             ]
         return res
 
-    def _scalar_partial(self, agg, state) -> AggPartial:
+    def _scalar_partial(self, agg, state, ctx: TableContext) -> AggPartial:
         base = agg.base
         if base == "count":
             return CountPartial(float(state))
@@ -300,6 +349,24 @@ class QueryExecutor:
             return AvgPartial(float(state[0]), float(state[1]))
         if base == "minmaxrange":
             return MinMaxRangePartial(float(state[0]), float(state[1]))
+        return self._value_partial(agg, np.asarray(state), ctx)
+
+    def _value_partial(self, agg, row: np.ndarray, ctx: TableContext) -> AggPartial:
+        """The partial of one value-state holder row: presence bits over
+        global value ids, histogram counts over them, or HLL registers."""
+        if agg.kind == "presence":
+            ids = np.nonzero(row)[0]
+            if agg.hll_from_presence:
+                return HllPartial(_regs_from_value_gids(ctx, agg.column, ids))
+            gdict = ctx.column(agg.column).global_dict
+            return DistinctPartial(gdict.value_array()[ids[ids < gdict.cardinality]])
+        if agg.kind == "hist":
+            ids = np.nonzero(row)[0]
+            return _hist_partial(
+                ctx.column(agg.column).global_dict, ids, row[ids], percentile_of(agg.base)
+            )
+        if agg.kind == "hll":
+            return HllPartial(row)
         raise AssertionError(agg)
 
     def _finalize_groups(
@@ -314,7 +381,7 @@ class QueryExecutor:
         if keys.size > max(gb.top_n * 5, 100):
             keep = trim_group_candidates(
                 [
-                    self._group_order_values(agg, outs[f"gb_{i}"], keys)
+                    self._group_order_values(agg, outs[f"gb_{i}"], keys, ctx)
                     for i, agg in enumerate(plan.aggs)
                 ],
                 [group_sort_ascending(agg.func) for agg in plan.aggs],
@@ -338,11 +405,11 @@ class QueryExecutor:
             )
             k = int(keys[row])
             groups[ktup] = [
-                self._group_partial(agg, outs[f"gb_{i}"], k) for i, agg in enumerate(plan.aggs)
+                self._group_partial(agg, outs[f"gb_{i}"], k, ctx) for i, agg in enumerate(plan.aggs)
             ]
         return groups
 
-    def _group_order_values(self, agg, state, keys: np.ndarray) -> np.ndarray:
+    def _group_order_values(self, agg, state, keys: np.ndarray, ctx: TableContext) -> np.ndarray:
         """Exact finalized per-group values, used for trim ordering."""
         base = agg.base
         if base in ("count", "sum", "min", "max"):
@@ -354,9 +421,30 @@ class QueryExecutor:
                 return np.where(c > 0, s / np.maximum(c, 1), -np.inf)
         if base == "minmaxrange":
             return (np.asarray(state[1])[keys] - np.asarray(state[0])[keys]).astype(np.float64)
+        if agg.kind == "presence":
+            occ = np.asarray(state)[keys]  # [k, gcard_pad]
+            if agg.hll_from_presence:
+                r, c = np.nonzero(occ)
+                regs = _regs_from_value_gids(ctx, agg.column, c, r, keys.size)
+                return np.asarray(hll_mod.estimate_from_registers(regs), dtype=np.float64)
+            return occ.sum(axis=1).astype(np.float64)
+        if agg.kind == "hist":
+            # exact percentile from histogram rows, vectorized:
+            # sorted[int(n * p/100)] per group (PercentileUtil.java:50)
+            p = percentile_of(base)
+            vals = np.asarray(ctx.column(agg.column).global_dict.values, dtype=np.float64)
+            cs = np.cumsum(np.asarray(state)[keys], axis=1)
+            n = cs[:, -1]
+            idx = np.minimum((n * p / 100.0).astype(np.int64), np.maximum(n - 1, 0))
+            pos = np.minimum((cs <= idx[:, None]).sum(axis=1), vals.size - 1)
+            return np.where(n > 0, vals[pos], -np.inf)
+        if agg.kind == "hll":
+            return np.asarray(
+                hll_mod.estimate_from_registers(np.asarray(state)[keys]), dtype=np.float64
+            )
         raise AssertionError(agg)
 
-    def _group_partial(self, agg, state, key: int) -> AggPartial:
+    def _group_partial(self, agg, state, key: int, ctx: TableContext) -> AggPartial:
         base = agg.base
         if base == "count":
             return CountPartial(float(state[key]))
@@ -370,4 +458,4 @@ class QueryExecutor:
             return AvgPartial(float(state[0][key]), float(state[1][key]))
         if base == "minmaxrange":
             return MinMaxRangePartial(float(state[0][key]), float(state[1][key]))
-        raise AssertionError(agg)
+        return self._value_partial(agg, np.asarray(state)[key], ctx)

@@ -12,7 +12,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 REPO_ROOT = Path(__file__).resolve().parents[3]
 CSRC = REPO_ROOT / "pinot_tpu_torch" / "csrc"
@@ -21,6 +21,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+KERNELS = ("fused_groupby", "value_state_counts")  # every csrc/<name>.cu
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output (ptxas report included) per kernel built here
@@ -40,23 +42,40 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
+def build(names: Sequence[str]) -> None:
+    """Compile every library of ``names`` that is missing: one ``nvcc``
+    per source, all started together.  Each build writes a per-process
+    temporary file and renames it into place, so concurrent builders
+    never load a half-written library."""
+    procs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs.append((name, out, tmp, proc))
+    failed = []
+    for name, out, tmp, proc in procs:
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(name)
+        else:
+            tmp.replace(out)
+    if failed:
+        raise RuntimeError(
+            "nvcc failed for " + ", ".join(f"{n}:\n{build_logs[n]}" for n in failed)
+        )
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if it is missing.  The
-    build writes a per-process temporary file and renames it into place,
-    so concurrent builders never load a half-written library."""
+    """The kernel's shared library, built first if it is missing."""
     lib = _loaded.get(name)
     if lib is None:
-        out = library_path(name)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            build_logs[name] = proc.stdout
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-            tmp.replace(out)
-        lib = ctypes.CDLL(str(out))
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib

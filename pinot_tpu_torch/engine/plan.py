@@ -1,6 +1,8 @@
 """Query planning: BrokerRequest -> (StaticPlan, query inputs) — port of
 ``pinot_tpu.engine.plan`` restricted to single-value filter leaves,
-AND/OR trees, scalar and pair aggregations, and single-value group-by.
+AND/OR trees, single-value group-by, and scalar, pair and dense
+value-state (distinctcount, percentile, HLL) aggregations on
+single-value columns.
 
 - **StaticPlan** — a hashable description of the kernel's structure:
   filter tree shape, leaf evaluation kinds, aggregation list, group-by
@@ -19,11 +21,17 @@ become vector compares):
   points_none — complement of points (NOT / NOT_IN)
   runs        — union of a few dictId intervals
   table       — bool[card] match table lookup (regex, large IN lists)
+
+Value-state aggregations keep a dense holder per group: presence bits or
+a histogram over the column's global dictionary (``gcard_pad`` wide), or
+``HLL_M`` registers.  Holders too big for the dense path would take the
+reference's sort-dedup pairs (``sort_pairs``), which is a later slice of
+the port: such a plan raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +46,7 @@ from pinot_tpu_torch.engine import config
 from pinot_tpu_torch.engine.config import Precision
 from pinot_tpu_torch.engine.context import TableContext
 from pinot_tpu_torch.engine.device import StagedTable
+from pinot_tpu_torch.engine.hll import dictionary_tables
 from pinot_tpu_torch.segment.dictionary import Dictionary
 
 SV, MV_ANY, MV_NONE = "sv", "mv_any", "mv_none"
@@ -57,11 +66,14 @@ class StaticAgg:
     base: str  # base function e.g. "sum"
     column: str  # "*" for count(*)
     is_mv: bool
-    kind: str  # scalar | pair (presence | hist | hll: a later slice)
-    gcard_pad: int = 0
+    kind: str  # scalar | pair | presence | hist | hll
+    gcard_pad: int = 0  # value-state holder width (padded global cardinality)
     # read values from the staged raw array instead of dict_vals[fwd]
     use_raw: bool = False
-    sort_pairs: bool = False
+    sort_pairs: bool = False  # always False: the pair-sort path is a later slice
+    # an SV HLL over a modest global dictionary computes presence over
+    # global value ids; the finalize hashes the present values into
+    # registers (registers depend only on the distinct value set)
     hll_from_presence: bool = False
 
 
@@ -99,15 +111,66 @@ def group_capacity_forces_host(cap: int, precision: Precision) -> bool:
     return cap > config.MAX_GROUP_CAPACITY or cap > precision.max_key_space
 
 
+def value_state_sort_pairs(kind: str, gcard_pad: int, cap: Optional[int]) -> bool:
+    """Whether a value-state agg (presence/hist/hll) leaves the dense
+    holder for the pair-sort path: per-agg state too big, or (grouped)
+    the [capacity, state] product too big.  Shared by build_static_plan
+    and plan_forced_host so the two can never drift."""
+    if kind in ("presence", "hist") and gcard_pad > config.MAX_VALUE_STATE:
+        return True
+    if cap is not None:
+        state = gcard_pad if kind != "hll" else config.HLL_M
+        return cap * state > config.MAX_VALUE_STATE * 4
+    return False
+
+
 def plan_forced_host(request, ctx, precision: Precision) -> bool:
-    """Host-path decisions decidable before staging (for the shapes this
-    slice supports: the group space)."""
+    """Host-path decisions decidable before staging — a subset of the
+    ``on_device = False`` conditions of ``build_static_plan`` (via the
+    same shared predicates), so a query that could only run on the host
+    never pays device staging."""
     try:
-        if request.is_group_by:
-            return group_capacity_forces_host(group_capacity(request, ctx), precision)
+        cap = group_capacity(request, ctx) if request.is_group_by else None
+        if cap is not None and group_capacity_forces_host(cap, precision):
+            return True
+        if request.filter is None:
+            for a in request.aggregations:
+                if a.column == "*":
+                    continue
+                kind = _agg_kind(a.base_function)
+                if kind not in ("presence", "hist"):
+                    continue
+                gcard = ctx.column(a.column).global_cardinality
+                if gcard <= config.DISTINCT_PAIR_CAP:
+                    continue
+                # with no filter every dictionary entry lands in >= 1
+                # (group, valueId) pair: a sort-pairs agg at this
+                # cardinality would overflow the device pair buffer
+                if value_state_sort_pairs(kind, config.pad_value_card(gcard), cap):
+                    return True
     except KeyError:
         return False  # unknown column: let the normal path raise properly
     return False
+
+
+def hll_lowers_to_presence(request, ctx, column: str) -> bool:
+    """Whether an SV distinctcounthll lowers to a presence holder over
+    global value ids (see ``StaticAgg.hll_from_presence``).  Shared by the
+    planner and the executor's staging-role decision (gfwd stream vs
+    per-row HLL streams): the two must agree or the kernel reads missing
+    arrays.
+
+    Presence wins when the per-group value state (gcard_pad) is no wider
+    than the direct register state (HLL_M * 64 rho lanes); the dense
+    holder must also fit the cap the presence guard applies."""
+    gcard_pad = config.pad_value_card(ctx.column(column).global_cardinality)
+    if gcard_pad > config.HLL_M * 64:
+        return False
+    cap = 1
+    if request.is_group_by:
+        for c in request.group_by.columns:
+            cap *= max(ctx.column(c).global_cardinality, 1)
+    return cap * gcard_pad <= config.MAX_VALUE_STATE * 4
 
 
 def _agg_kind(base: str) -> str:
@@ -237,22 +300,27 @@ def build_static_plan(
     on_device = True
     aggs: List[StaticAgg] = []
     for a in request.aggregations:
-        base = a.base_function
-        kind = _agg_kind(base)
-        if kind not in ("scalar", "pair"):
-            raise NotImplementedError(
-                f"aggregation {a.function!r}: value-state aggregations "
-                "(distinctcount, percentile, HLL) are the next slice of the port"
-            )
         if a.is_mv or (a.column != "*" and not staged.column(a.column).single_value):
             raise NotImplementedError(
-                f"aggregation {a.function}({a.column}): MV aggregations are a later slice"
+                f"aggregation {a.function}({a.column}): MV aggregations are the "
+                "MV-column slice of the port"
             )
+        base = a.base_function
+        kind = _agg_kind(base)
+        gcard_pad = 0
+        hll_from_presence = False
+        if kind == "hll" and a.column != "*" and hll_lowers_to_presence(request, ctx, a.column):
+            kind = "presence"
+            hll_from_presence = True
+        if kind in ("presence", "hist"):
+            gcard_pad = config.pad_value_card(ctx.column(a.column).global_cardinality)
         use_raw = a.column != "*" and staged.column(a.column).raw is not None
         aggs.append(
             StaticAgg(
                 func=a.function, base=base, column=a.column, is_mv=False,
-                kind=kind, use_raw=use_raw,
+                kind=kind, gcard_pad=gcard_pad, use_raw=use_raw,
+                sort_pairs=value_state_sort_pairs(kind, gcard_pad, None),
+                hll_from_presence=hll_from_presence,
             )
         )
 
@@ -268,6 +336,12 @@ def build_static_plan(
         cap = group_capacity(request, ctx)
         if group_capacity_forces_host(cap, staged.precision):
             on_device = False
+        # value-state aggs need [capacity, state] holders: cap the product
+        for ai, a in enumerate(aggs):
+            if a.kind in ("presence", "hist", "hll") and value_state_sort_pairs(
+                a.kind, a.gcard_pad, cap
+            ):
+                aggs[ai] = replace(a, sort_pairs=True)
         group_by = StaticGroupBy(
             columns=cols,
             col_is_mv=tuple(False for _ in cols),
@@ -277,6 +351,13 @@ def build_static_plan(
             use_gfwd=tuple(staged.column(c).gfwd is not None for c in cols),
         )
 
+    for a in aggs:
+        if a.sort_pairs:
+            raise NotImplementedError(
+                f"aggregation {a.func}({a.column}): its value state does not fit a dense "
+                "holder; the sort-dedup (group, valueId) pairs are the exact-distinct-pairs "
+                "slice of the port"
+            )
     return StaticPlan(
         filter_tree=tree,
         leaves=tuple(leaves),
@@ -435,7 +516,26 @@ def build_query_inputs(
         inputs["pts"] = points
         inputs["runs"] = run_arrays
 
-    inputs["agg_aux"] = [{} for _ in plan.aggs]  # scalar/pair aggs need no tables
+    # per-agg auxiliary tables
+    agg_aux: List[Dict[str, np.ndarray]] = []
+    for a in plan.aggs:
+        aux: Dict[str, np.ndarray] = {}
+        if a.kind in ("presence", "hist"):
+            # SV presence/hist read the staged .gfwd stream (kernel
+            # _value_gids); the remap table would be dead H2D weight
+            if staged.column(a.column).gfwd is not None:
+                aux["remap"] = np.zeros((S, 1), dtype=np.int32)
+            else:
+                aux["remap"] = _stacked_remap(ctx, staged, a.column)
+        elif a.kind == "hll":
+            if staged.column(a.column).hll_bucket is not None:
+                # staged per-row streams: the tables would be dead H2D
+                aux["bucket"] = np.zeros((S, 1), dtype=np.int32)
+                aux["rho"] = np.zeros((S, 1), dtype=np.int32)
+            else:
+                aux["bucket"], aux["rho"] = _hll_tables(ctx, staged, a.column)
+        agg_aux.append(aux)
+    inputs["agg_aux"] = agg_aux
 
     # group-by remaps (dummy entry when the staged gfwd array is used)
     if plan.group_by is not None and plan.on_device:
@@ -452,3 +552,17 @@ def _stacked_remap(ctx: TableContext, staged: StagedTable, column: str) -> np.nd
     for i, remap in enumerate(ctx.column(column).remaps):
         out[i, : remap.size] = remap
     return out
+
+
+def _hll_tables(ctx: TableContext, staged: StagedTable, column: str):
+    """Per-dictId (bucket, rho) tables: the HLL hash work happens once
+    per dictionary entry on the host; the device only gathers them."""
+    col = staged.column(column)
+    S = staged.num_segments
+    bucket = np.zeros((S, col.card_pad), dtype=np.int32)
+    rho = np.zeros((S, col.card_pad), dtype=np.int32)
+    for i, seg in enumerate(ctx.segments):
+        bt, rt = dictionary_tables(seg.column(column).dictionary)
+        bucket[i, : bt.size] = bt
+        rho[i, : rt.size] = rt
+    return bucket, rho

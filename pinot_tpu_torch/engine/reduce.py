@@ -11,6 +11,8 @@ from __future__ import annotations
 import math
 from typing import Any, List, Optional, Sequence
 
+import numpy as np
+
 from pinot_tpu_torch.common.request import BrokerRequest, group_sort_ascending
 from pinot_tpu_torch.common.response import (
     AggregationResult,
@@ -18,7 +20,8 @@ from pinot_tpu_torch.common.response import (
     GroupByResult,
     QueryException,
 )
-from pinot_tpu_torch.engine.results import IntermediateResult
+from pinot_tpu_torch.engine import hll as hll_mod
+from pinot_tpu_torch.engine.results import HllPartial, IntermediateResult
 
 
 def merge_results(parts: Sequence[IntermediateResult]) -> Optional[IntermediateResult]:
@@ -73,7 +76,8 @@ def _reduce_group_by(request: BrokerRequest, merged: IntermediateResult):
         for i, agg in enumerate(request.aggregations):
             if h.function == agg.function and (h.column == agg.column or h.column == "*"):
                 having_idx = i
-                having_vals = {k: groups[k][i].finalize() for k in groups}
+                hkeys = list(groups)
+                having_vals = dict(zip(hkeys, _batch_finalize([groups[k][i] for k in hkeys])))
                 passing = {
                     key for key, v in having_vals.items() if _having_ok(v, h.operator, h.value)
                 }
@@ -84,7 +88,7 @@ def _reduce_group_by(request: BrokerRequest, merged: IntermediateResult):
         if i == having_idx:
             vals = [having_vals[k] for k in keys]
         else:
-            vals = [groups[k][i].finalize() for k in keys]
+            vals = _batch_finalize([groups[k][i] for k in keys])
         pairs = list(zip(keys, vals))
         asc = group_sort_ascending(agg.function)
         pairs.sort(key=lambda kv: (kv[1], kv[0]) if asc else (-_num(kv[1]), kv[0]))
@@ -97,6 +101,16 @@ def _reduce_group_by(request: BrokerRequest, merged: IntermediateResult):
             )
         )
     return out
+
+
+def _batch_finalize(partials: List[Any]) -> List[Any]:
+    """Per-group finalize, vectorized where the partial type allows: one
+    stacked estimate over [G, 256] registers instead of one HLL estimator
+    call per group."""
+    if len(partials) > 8 and all(type(p) is HllPartial for p in partials):
+        ests = hll_mod.estimate_from_registers(np.stack([p.registers for p in partials]))
+        return [int(e) for e in np.asarray(ests).ravel()]
+    return [p.finalize() for p in partials]
 
 
 def _num(v: Any) -> float:

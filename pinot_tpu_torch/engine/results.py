@@ -1,10 +1,12 @@
-"""Mergeable aggregation partials (port of ``pinot_tpu.engine.results``,
-without the HLL, distinct and histogram partials of the next slice).
+"""Mergeable aggregation partials (port of ``pinot_tpu.engine.results``).
 
-  count/sum    float        merge = +
-  min / max    float        merge = min / max
-  avg          (sum, count) merge = pairwise +
-  minmaxrange  (min, max)
+  count/sum         float        merge = +
+  min / max         float        merge = min / max
+  avg               (sum, count) merge = pairwise +
+  minmaxrange       (min, max)
+  distinctcount     value set    merge = union
+  distinctcounthll  uint8[m] HLL registers, merge = elementwise max
+  percentile*       value -> count histogram, merge = counter add
 
 Group-by partials are {group key tuple -> per-function partial} maps,
 merged key-wise and trimmed to top_n at the broker reduce.
@@ -15,6 +17,8 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from pinot_tpu_torch.engine import hll as hll_mod
 
 
 class AggPartial:
@@ -97,6 +101,80 @@ class MinMaxRangePartial(AggPartial):
         return self.mx - self.mn
 
 
+class DistinctPartial(AggPartial):
+    """Exact distinct value set for one group: a Python set, or a unique
+    numpy array on the bulk paths (a vectorized gather instead of a
+    per-value set build)."""
+
+    def __init__(self, values: Optional[object] = None) -> None:
+        self.values = values if values is not None else set()
+
+    def merge(self, other: "DistinctPartial") -> None:
+        a, b = self.values, other.values
+        if isinstance(a, set) and isinstance(b, set):
+            a |= b
+            return
+        na = np.asarray(sorted(a, key=repr)) if isinstance(a, set) else a
+        nb = np.asarray(sorted(b, key=repr)) if isinstance(b, set) else b
+        if na.size == 0:
+            self.values = nb
+        elif nb.size == 0:
+            self.values = na
+        else:
+            self.values = np.union1d(na, nb)
+
+    def finalize(self) -> int:
+        return len(self.values) if isinstance(self.values, set) else int(self.values.size)
+
+
+class HllPartial(AggPartial):
+    def __init__(self, registers: Optional[np.ndarray] = None) -> None:
+        self.registers = (
+            registers.astype(np.uint8)
+            if registers is not None
+            else np.zeros(hll_mod.M, dtype=np.uint8)
+        )
+
+    def merge(self, other: "HllPartial") -> None:
+        self.registers = hll_mod.merge_registers(self.registers, other.registers)
+
+    def finalize(self) -> int:
+        return int(hll_mod.estimate_from_registers(self.registers))
+
+
+class HistogramPartial(AggPartial):
+    """Exact value histogram for percentiles."""
+
+    def __init__(self, counts: Optional[Dict[float, int]] = None, percentile: int = 50) -> None:
+        self.counts: Dict[float, int] = counts or {}
+        self.percentile = percentile
+
+    def merge(self, other: "HistogramPartial") -> None:
+        for v, c in other.counts.items():
+            self.counts[v] = self.counts.get(v, 0) + c
+
+    def finalize(self) -> float:
+        """Reference formula sorted[int(n * p/100)]
+        (quantile/PercentileUtil.java:50) over the histogram."""
+        if not self.counts:
+            return -math.inf
+        items = sorted(self.counts.items())
+        n = sum(c for _, c in items)
+        idx = min(int(n * self.percentile / 100.0), n - 1)
+        acc = 0
+        for v, c in items:
+            acc += c
+            if acc > idx:
+                return v
+        return items[-1][0]
+
+
+def percentile_of(base_function: str) -> int:
+    """The NN of percentileNN / percentileestNN."""
+    prefix = "percentileest" if base_function.startswith("percentileest") else "percentile"
+    return int(base_function[len(prefix):])
+
+
 _PARTIALS = {
     "count": CountPartial,
     "sum": SumPartial,
@@ -104,16 +182,19 @@ _PARTIALS = {
     "max": MaxPartial,
     "avg": AvgPartial,
     "minmaxrange": MinMaxRangePartial,
+    "distinctcount": DistinctPartial,
+    "distinctcounthll": HllPartial,
+    "fasthll": HllPartial,
 }
 
 
 def make_partial(base_function: str) -> AggPartial:
+    if base_function.startswith("percentile"):
+        return HistogramPartial(percentile=percentile_of(base_function))
     try:
         return _PARTIALS[base_function]()
     except KeyError:
-        raise NotImplementedError(
-            f"aggregation {base_function!r} is not part of this slice of the port"
-        ) from None
+        raise ValueError(f"unknown aggregation {base_function!r}") from None
 
 
 GroupKey = Tuple[str, ...]

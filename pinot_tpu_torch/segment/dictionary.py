@@ -24,8 +24,10 @@ class Dictionary:
         self.is_string = stored_type == DataType.STRING
         if self.is_string:
             self.values: Union[np.ndarray, List[str]] = list(values)
+            self._np = np.asarray(self.values, dtype=object)
         else:
             self.values = np.asarray(values, dtype=stored_type.to_numpy())
+            self._np = self.values
 
     def __len__(self) -> int:
         return len(self.values)
@@ -33,6 +35,11 @@ class Dictionary:
     @property
     def cardinality(self) -> int:
         return len(self.values)
+
+    def value_array(self) -> np.ndarray:
+        """Values as one reusable numpy array (object dtype for strings),
+        for vectorized gathers on the distinct-partial paths."""
+        return self._np
 
     def get(self, dict_id: int) -> Any:
         v = self.values[dict_id]

@@ -1,5 +1,5 @@
-"""Seeded TPC-H lineitem-shaped data (copy of the lineitem part of
-``pinot_tpu.tools.datagen``).
+"""Seeded TPC-H lineitem-shaped and ad-events data (copy of the lineitem
+and ad-events parts of ``pinot_tpu.tools.datagen``).
 
 The numpy draws are made in the same order as the reference's, so the
 same seed gives the same dictionaries and forward indexes in both
@@ -11,7 +11,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from pinot_tpu_torch.common.schema import DataType, FieldSpec, FieldType, Schema
+from pinot_tpu_torch.common.schema import DataType, FieldSpec, FieldType, Schema, TimeFieldSpec
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.immutable import (
     ColumnData,
@@ -128,3 +128,83 @@ def synthetic_lineitem_segment(num_rows: int, seed: int = 7, name: str = "li0") 
         lineitem_schema(), "lineitem", dict_values, num_rows, seed, name,
         clustered_column="l_shipdate", rng=rng,
     )
+
+
+# ---------------------------------------------------------------------------
+# Synthetic ad-events (the north-star configuration, NORTHSTAR_HLL.json:
+# high-cardinality distinctCountHLL group-by)
+# ---------------------------------------------------------------------------
+
+ADEVENTS_TABLE = "adevents"
+
+
+def adevents_schema() -> Schema:
+    return Schema(
+        ADEVENTS_TABLE,
+        dimensions=[
+            FieldSpec("campaign_id", DataType.INT, FieldType.DIMENSION),
+            FieldSpec("site_id", DataType.INT, FieldType.DIMENSION),
+            FieldSpec("user_id", DataType.LONG, FieldType.DIMENSION),
+        ],
+        metrics=[FieldSpec("clicks", DataType.INT, FieldType.METRIC)],
+        time_field=TimeFieldSpec("event_time", DataType.LONG, time_unit="MILLISECONDS"),
+    )
+
+
+def synthetic_adevents_segment(
+    num_rows: int,
+    seed: int = 7,
+    name: str = "ad0",
+    campaign_card: int = 1024,
+    site_card: int = 128,
+    user_card: int = 1 << 20,
+    user_universe: int = 1 << 26,
+) -> ImmutableSegment:
+    """Fast numpy-path ad-events segment: the high-cardinality HLL
+    workload.  ``user_id`` draws ``user_card`` distinct users per segment
+    from a ``user_universe``-wide population, so segments overlap
+    partially and the global dictionary grows toward the universe size
+    across segments."""
+    rng = np.random.default_rng(seed)
+    users = np.unique(
+        rng.integers(0, user_universe, size=int(user_card * 1.05), dtype=np.int64)
+    )
+    t0 = 1_700_000_000_000 + seed * 3_600_000
+    dict_values = {
+        "campaign_id": np.arange(campaign_card, dtype=np.int64),
+        "site_id": np.arange(site_card, dtype=np.int64),
+        "user_id": users,
+        "clicks": np.arange(16, dtype=np.int64),
+        # clustered: events arrive in time order
+        "event_time": t0 + np.arange(4096, dtype=np.int64) * 1000,
+    }
+    return _synthetic_columnar_segment(
+        adevents_schema(), ADEVENTS_TABLE, dict_values, num_rows, seed, name,
+        clustered_column="event_time", time_column="event_time", rng=rng,
+    )
+
+
+def tile_segments(distinct_segments, total: int) -> List[ImmutableSegment]:
+    """Replicate ``distinct_segments`` round-robin up to ``total``
+    segments under fresh names.  The clones share the originals' numpy
+    arrays (host memory stays O(distinct)) but stage and execute as
+    independent segments.  Answers are those of the tiled data (distinct
+    counts do not grow past the distinct set); scan work is that of
+    ``total`` segments."""
+    out = []
+    for i in range(total):
+        base = distinct_segments[i % len(distinct_segments)]
+        if i < len(distinct_segments):
+            out.append(base)
+            continue
+        m = base.metadata
+        smeta = SegmentMetadata(
+            segment_name=f"{m.segment_name}_t{i}",
+            table_name=m.table_name,
+            num_docs=m.num_docs,
+            columns=dict(m.columns),
+            time_column=m.time_column,
+        )
+        smeta.crc = hash((smeta.segment_name, m.num_docs)) & 0xFFFFFFFF
+        out.append(ImmutableSegment(metadata=smeta, columns=base.columns))
+    return out

@@ -177,9 +177,9 @@ def test_empty_segment_is_pruned():
     "pql",
     [
         "SELECT l_quantity FROM lineitem LIMIT 5",
-        "SELECT distinctcount(l_shipmode) FROM lineitem",
-        "SELECT percentile90(l_quantity) FROM lineitem GROUP BY l_returnflag",
-        "SELECT distinctcounthll(l_shipmode) FROM lineitem",
+        "SELECT distinctcountmv(l_shipmode) FROM lineitem",
+        "SELECT distinctcount(l_receiptdate) FROM lineitem GROUP BY l_shipdate, l_quantity",
+        "SELECT distinctcounthll(l_extendedprice) FROM lineitem GROUP BY l_shipdate, l_quantity",
     ],
 )
 def test_shapes_outside_the_slice_raise(pql):

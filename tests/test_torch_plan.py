@@ -52,6 +52,10 @@ QUERIES = {
     "(1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,30,40) GROUP BY l_returnflag",
     "regex": "SELECT count(*) FROM lineitem WHERE regexp_like(l_receiptdate, '-0[13579]-') "
     "GROUP BY l_returnflag, l_shipmode",
+    "distinct_percentile": "SELECT distinctcount(l_shipdate), percentile90(l_quantity) FROM lineitem "
+    "WHERE l_returnflag = 'R' GROUP BY l_shipmode",
+    "hll_presence": "SELECT distinctcounthll(l_shipdate) FROM lineitem GROUP BY l_returnflag",
+    "hll_streams": "SELECT fasthll(l_extendedprice), count(*) FROM lineitem WHERE l_quantity > 25",
 }
 
 REF_SEGMENTS = [ref_synthetic(3000, seed=11 + i, name=f"li{i}") for i in range(3)]
@@ -95,14 +99,14 @@ def _port_side(pql):
     live = PORT_SEGMENTS
     needed = set(req.referenced_columns()) - ex._docrange_only_columns(req, live)
     ctx = TableContext(live)
-    raw, gfwd = ex._role_columns(req, live)
-    skip = ex._skip_base_columns(req, live, raw, gfwd)
+    raw, gfwd, hll = ex._role_columns(req, live, ctx)
+    skip = ex._skip_base_columns(req, live, raw, gfwd, hll)
     st = stage_segments(
         live, sorted(needed), torch.device("cpu"), Precision("x64"),
-        raw_columns=raw, gfwd_columns=gfwd, ctx=ctx, skip_base_columns=skip,
+        raw_columns=raw, gfwd_columns=gfwd, ctx=ctx, skip_base_columns=skip, hll_columns=hll,
     )
     plan = build_static_plan(req, ctx, st)
-    return req, needed, (raw, gfwd), skip, st, plan, build_query_inputs(req, plan, ctx, st)
+    return req, needed, (raw, gfwd, hll), skip, st, plan, build_query_inputs(req, plan, ctx, st)
 
 
 @pytest.mark.parametrize("fn", ["pad_docs", "pad_card", "pad_value_card"])
@@ -123,7 +127,7 @@ def test_plan_and_inputs_match_reference(name):
 
     assert dataclasses.asdict(p_req) == dataclasses.asdict(r_req)
     assert p_needed == r_needed
-    assert p_roles == r_roles[:2] and r_roles[2] == ()
+    assert p_roles == r_roles
     assert p_skip == r_skip
     assert dataclasses.asdict(p_plan) == dataclasses.asdict(r_plan)
     _assert_tree_equal(r_q, p_q)
@@ -134,7 +138,7 @@ def test_plan_and_inputs_match_reference(name):
     for c, rc in r_st.columns.items():
         pc = p_st.columns[c]
         assert pc.card_pad == rc.card_pad and pc.cards == rc.cards
-        for role in ("fwd", "dict_vals", "raw", "gfwd"):
+        for role in ("fwd", "dict_vals", "raw", "gfwd", "hll_bucket", "hll_rho"):
             ra, pa = getattr(rc, role), getattr(pc, role)
             assert (ra is None) == (pa is None), (c, role)
             if ra is not None:
