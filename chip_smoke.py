@@ -128,25 +128,43 @@ def _close(got, want, rtol, atol) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
-def compare_k1(fg, args: dict, rtol: float, atol: float) -> float:
-    """Kernel vs plain version on the same card tensors: num_docs and
-    counts exact, sums in the band, and two kernel launches bit-identical.
-    Returns the largest absolute sum error."""
-    a = fg.fused_filtered_groupby_sums(**args)
-    b = fg.fused_filtered_groupby_sums(**args)
-    torch.cuda.synchronize()
-    if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-            and all(torch.equal(x, y) for x, y in zip(a[2], b[2]))):
-        raise AssertionError("two launches of the fused kernel differ")
+def k1_shape(fg, args: dict) -> tuple:
+    """(float bytes, K, nv, dict entries, match card, remap entries): what
+    picks and sizes K1's tier."""
+    fb = 8 if args["dtype"] == torch.float64 else 4
+    dicts = sum(d.shape[-1] for d in args["value_dicts"] if d is not None)
+    match = args["match"].shape[-1] if args["match"] is not None else 0
+    remaps = sum(r.shape[-1] for r in (args.get("group_remaps") or []) if r is not None)
+    return fb, args["capacity"], len(args["value_dicts"]), dicts, match, remaps
+
+
+def k1_tiers(fg, args: dict) -> List[str]:
+    """Every accumulation tier that takes these inputs."""
+    return [t for t in fg.TIERS if fg.tier_fits(t, *k1_shape(fg, args))]
+
+
+def compare_k1(fg, args: dict, rtol: float, atol: float) -> Tuple[float, List[str]]:
+    """Kernel vs plain version on the same card tensors, in every tier
+    that takes the inputs: num_docs and counts exact, sums in the band,
+    and two kernel launches bit-identical.  Returns the largest absolute
+    sum error and the tiers checked."""
     ref = fg.fused_filtered_groupby_sums_reference(**args)
-    if int(a[0]) != int(ref[0]):
-        raise AssertionError(f"num_docs {int(a[0])} != {int(ref[0])}")
-    if not torch.equal(a[1].cpu(), ref[1].cpu()):
-        raise AssertionError("group counts differ from the plain version")
     err = 0.0
-    for x, y in zip(a[2], ref[2]):
-        err = max(err, _close(x, y, rtol, atol))
-    return err
+    tiers = k1_tiers(fg, args)
+    for tier in tiers:
+        a = fg.fused_filtered_groupby_sums(**args, tier=tier)
+        b = fg.fused_filtered_groupby_sums(**args, tier=tier)
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                and all(torch.equal(x, y) for x, y in zip(a[2], b[2]))):
+            raise AssertionError(f"two launches of the fused kernel differ (tier {tier})")
+        if int(a[0]) != int(ref[0]):
+            raise AssertionError(f"tier {tier}: num_docs {int(a[0])} != {int(ref[0])}")
+        if not torch.equal(a[1].cpu(), ref[1].cpu()):
+            raise AssertionError(f"tier {tier}: group counts differ from the plain version")
+        for x, y in zip(a[2], ref[2]):
+            err = max(err, _close(x, y, rtol, atol))
+    return err, tiers
 
 
 def k1_cases(fg, dev, dtype):
@@ -206,7 +224,106 @@ def k1_cases(fg, dev, dtype):
         filter_bounds=torch.tensor([[0, n]] * S, dtype=torch.int32, device=dev),
         value_raws=[floats(S, n) for _ in range(3)],
     )
+
+    def unaligned_docrange(S, n):
+        lo = torch.randint(0, n // 4, (S, 1), generator=g, dtype=torch.int32) * 4 + 1
+        hi = lo + torch.randint(n // 4, n // 2, (S, 1), generator=g, dtype=torch.int32) * 4 + 2
+        return torch.cat([lo, hi], dim=1).to(dev)
+
+    def remap(S, card, gcard):
+        return torch.randint(0, gcard, (S, card), generator=g, dtype=torch.int32).to(dev)
+
+    # group columns, combined in the kernel: 1, 2 and 3 columns, uint8 /
+    # int16 / int32 global-id streams and remap-fed local fwd streams
+    S, n = 16, 1 << 16
+    cases["groupcols_u8x2_q1like_docrange_unaligned_S16"] = dict(
+        filter_fwd=None, match=None, num_docs=nd(S, n), group_keys=None,
+        group_cols=[ints(S, n, 3, torch.uint8), ints(S, n, 2, torch.uint8)], group_cards=[3, 2],
+        group_remaps=[None, None], value_fwds=[None] * 3, value_dicts=[None] * 3, capacity=6,
+        dtype=dtype, filter_bounds=unaligned_docrange(S, n),
+        value_raws=[floats(S, n), floats(S, n, 900.0, 105000.0), floats(S, n, 0.0, 0.1)],
+    )
+    cases["groupcols_u8_i16_i32_table_K24_S4"] = dict(
+        filter_fwd=ints(4, n, 7, torch.uint8), match=(torch.rand((4, 8), generator=g) < 0.6).to(dev),
+        num_docs=nd(4, n), group_keys=None,
+        group_cols=[ints(4, n, 3, torch.uint8), ints(4, n, 4, torch.int16), ints(4, n, 2, torch.int32)],
+        group_cards=[3, 4, 2], group_remaps=[None, None, None],
+        value_fwds=[None], value_dicts=[None], capacity=24, dtype=dtype, value_raws=[floats(4, n)],
+    )
+    cases["groupcols_remap_u8_i16_count_only_K350_S4"] = dict(
+        filter_fwd=ints(4, n, 200, torch.int16), match=None, num_docs=nd(4, n), group_keys=None,
+        group_cols=[ints(4, n, 8, torch.uint8), ints(4, n, 300, torch.int16)], group_cards=[7, 50],
+        group_remaps=[remap(4, 8, 7), remap(4, 300, 50)], value_fwds=[], value_dicts=[],
+        capacity=350, dtype=dtype,
+        filter_bounds=torch.tensor([[20, 150]] * 4, dtype=torch.int32, device=dev),
+        value_raws=[],
+    )
+    cases["groupcols_remap_i32_dict_interval_K9_S2"] = dict(
+        filter_fwd=ints(2, n, 50, torch.uint8), match=None, num_docs=nd(2, n), group_keys=None,
+        group_cols=[ints(2, n, 12, torch.int32)], group_cards=[9], group_remaps=[remap(2, 12, 9)],
+        value_fwds=[ints(2, n, 40, torch.uint8)], value_dicts=[floats(2, 40)], capacity=9, dtype=dtype,
+        filter_bounds=torch.tensor([[25, 50], [0, 10]], dtype=torch.int32, device=dev), value_raws=[None],
+    )
+    # the private tier's boundary: the largest K it takes with one value
+    # column, and one more (another tier)
+    kp = max(k for k in range(1, 4096) if fg.shared_bytes("private", fb, k, 1) <= fg.PRIVATE_SHARED_BYTES)
+    for K in (kp, kp + 1):
+        cases[f"private_boundary_K{K}_{fg.choose_tier(fb, K, 1)}_S4"] = dict(
+            filter_fwd=ints(4, n, 7, torch.uint8), match=None, num_docs=nd(4, n),
+            group_keys=ints(4, n, K + 2, torch.int32), value_fwds=[None], value_dicts=[None],
+            capacity=K, dtype=dtype, filter_bounds=torch.tensor([[1, 6]] * 4, dtype=torch.int32, device=dev),
+            value_raws=[floats(4, n)],
+        )
+    # count-only at north_star's K over a mask-as-match-table filter
+    S, n = 16, 1 << 15
+    cases["mask_table_count_only_K1024_S16"] = dict(
+        filter_fwd=ints(S, n, 2, torch.uint8), match=torch.tensor([[False, True]] * S, device=dev),
+        num_docs=nd(S, n), group_keys=ints(S, n, 1024, torch.int32), value_fwds=[], value_dicts=[],
+        capacity=1024, dtype=dtype, value_raws=[],
+    )
+    # n_pad not a multiple of 16 (vector body with a partial chunk) and
+    # not a multiple of 4 (every row through the scalar loop), ragged
+    # num_docs with an empty segment; n_pad = 8
+    for n in (1000, 1001, 8):
+        S = 3
+        docs = torch.tensor([n, max(0, n - 5), 0], dtype=torch.int32, device=dev)
+        cases[f"npad{n}_groupcols_S3_ragged"] = dict(
+            filter_fwd=ints(S, n, 7, torch.int32), match=None, num_docs=docs, group_keys=None,
+            group_cols=[ints(S, n, 3, torch.uint8), ints(S, n, 5, torch.int16)], group_cards=[3, 5],
+            group_remaps=[None, None], value_fwds=[ints(S, n, 20, torch.int16), None],
+            value_dicts=[floats(S, 20), None], capacity=15, dtype=dtype,
+            filter_bounds=torch.tensor([[1, 6]] * S, dtype=torch.int32, device=dev),
+            value_raws=[None, floats(S, n)],
+        )
     return cases
+
+
+def k1_probe_shapes(dev) -> Dict[str, dict]:
+    """K1 inputs at the main path's widths (SEGMENTS x ROWS_PER_SEGMENT,
+    x32), made on the card from a seed: q1's (two uint8 group columns,
+    docrange, three raw floats), the same with a precombined key, and the
+    count-only launches over a {0, 1} mask at K = 3 and 1024."""
+    g = torch.Generator(device=dev).manual_seed(99)
+    S, n = SEGMENTS, ROWS_PER_SEGMENT
+    u8 = lambda hi: torch.randint(0, hi, (S, n), generator=g, device=dev, dtype=torch.uint8)  # noqa: E731
+    f32 = lambda: torch.rand((S, n), generator=g, device=dev, dtype=torch.float32)  # noqa: E731
+    nd = torch.full((S,), n, dtype=torch.int32, device=dev)
+    rf, ls = u8(3), u8(2)
+    q1 = dict(filter_fwd=None, match=None, num_docs=nd, group_keys=None, group_cols=[rf, ls],
+              group_cards=[3, 2], group_remaps=[None, None], value_fwds=[None] * 3,
+              value_dicts=[None] * 3, capacity=6, dtype=torch.float32,
+              filter_bounds=torch.tensor([[0, n - 1000]] * S, dtype=torch.int32, device=dev),
+              value_raws=[f32(), f32(), f32()])
+    keyed = dict(q1, group_keys=(rf.int() * 2 + ls.int()).contiguous(), group_cols=None,
+                 group_cards=None, group_remaps=None)
+    mask = u8(2)
+    match = torch.tensor([[False, True]] * S, device=dev)
+    count = lambda K: dict(  # noqa: E731
+        filter_fwd=mask, match=match, num_docs=nd,
+        group_keys=torch.randint(0, K, (S, n), generator=g, device=dev, dtype=torch.int32),
+        value_fwds=[], value_dicts=[], capacity=K, dtype=torch.float32, value_raws=[])
+    return {"q1_group_cols": q1, "q1_precombined_key": keyed, "count_only_K3": count(3),
+            "count_only_K1024": count(1024)}
 
 
 # ---------------------------------------------------------------------------
@@ -312,12 +429,16 @@ def check_response(resp, want) -> float:
 
 
 def k1_bytes(args: dict):
-    """(rows, bytes) K1 must read and move for these inputs: every row it
+    """(rows, bytes, bytes per row) K1 must read and move for these
+    inputs: every row it
     has to read (rows below num_docs, inside the doc interval for
     docrange) read once per input, each dictionary / match table once,
-    outputs written once."""
+    outputs written once.  The key costs its precombined int32 stream, or,
+    when the kernel combines it, each group column's own width and each
+    remap table once."""
     nd = args["num_docs"].long().cpu()
-    n_pad = args["group_keys"].shape[1]
+    lead = args["group_keys"] if args["group_keys"] is not None else args["group_cols"][0]
+    n_pad = lead.shape[1]
     if args["filter_fwd"] is None:
         b = args["filter_bounds"].long().cpu()
         lo = b[:, 0].clamp(min=0)
@@ -327,8 +448,14 @@ def k1_bytes(args: dict):
     else:
         rows = int(nd.clamp(max=n_pad).sum())
         per_row = args["filter_fwd"].element_size()
-    per_row += 4  # int32 group key
     tables = 0
+    if args["group_keys"] is not None:
+        per_row += 4  # int32 group key
+    else:
+        for g, r in zip(args["group_cols"], args.get("group_remaps") or [None] * len(args["group_cols"])):
+            per_row += g.element_size()
+            if r is not None:
+                tables += r.numel() * r.element_size()
     for f, d, r in zip(args["value_fwds"], args["value_dicts"], args["value_raws"]):
         if r is not None:
             per_row += r.element_size()
@@ -340,7 +467,7 @@ def k1_bytes(args: dict):
     fb = 8 if args["dtype"] == torch.float64 else 4
     K = args["capacity"]
     out = 8 + 8 * K + fb * K * len(args["value_raws"])
-    return rows, rows * per_row + tables + out
+    return rows, rows * per_row + tables + out, per_row
 
 
 def k1_bound(args: dict):
@@ -348,10 +475,12 @@ def k1_bound(args: dict):
     inputs: the larger of the bytes over the memory rate and the scalar
     operations over the non-tensor-core rate.  Operations per row read:
     the filter test (two compares; none for docrange, whose rows outside
-    the interval are never read), the key range check (two), the count
+    the interval are never read), the key combine (a multiply and an add
+    per group column past the first), the key range check (two), the count
     add and one add per value column."""
-    rows, nbytes = k1_bytes(args)
-    per_row = (0 if args["filter_fwd"] is None else 2) + 3 + len(args["value_raws"])
+    rows, nbytes, _ = k1_bytes(args)
+    combine = 0 if args["group_keys"] is not None else 2 * (len(args["group_cols"]) - 1)
+    per_row = (0 if args["filter_fwd"] is None else 2) + combine + 3 + len(args["value_raws"])
     ops = rows * per_row
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
@@ -585,6 +714,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few runs of each query with torch.profiler: "
                     "device time by kernel and the device's busy share")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after building the kernels and checking each against its plain "
+                    "version (no queries, no timings, no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -640,9 +772,9 @@ def run(dev: torch.device, opts) -> int:
         ("x64", torch.float64, X64_RTOL, X64_ATOL),
     ):
         for cname, args in k1_cases(fg, dev, dtype).items():
-            err = compare_k1(fg, args, rtol, atol)
-            log(f"k1 check {mode} {cname}: ok, deterministic, max_abs_err {err:.6g}")
-            record["k1_checks"][f"{mode}/{cname}"] = err
+            err, tiers = compare_k1(fg, args, rtol, atol)
+            log(f"k1 check {mode} {cname}: ok in tiers {tiers}, deterministic, max_abs_err {err:.6g}")
+            record["k1_checks"][f"{mode}/{cname}"] = {"max_abs_err": err, "tiers": tiers}
     record["k2_checks"] = {}
     for cname, (idx, K) in k2_cases(dev).items():
         err = compare_k2(vsc, idx, K)
@@ -650,6 +782,18 @@ def run(dev: torch.device, opts) -> int:
             f"deterministic, max_abs_err {err:.6g}")
         record["k2_checks"][cname] = err
     torch.cuda.synchronize()
+    if opts.kernels_only:
+        # every K1 tier at the main path's widths on data made on the card
+        for pname, args in k1_probe_shapes(dev).items():
+            bound, bound_by, nbytes, _ = k1_bound(args)
+            for tier in k1_tiers(fg, args):
+                ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args, tier=tier), ITERS)
+                log(f"k1 probe {pname} tier {tier}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}, "
+                    f"{nbytes / (ms / 1e3) / 1e12:.3f} TB/s)")
+            del args
+            torch.cuda.empty_cache()
+        log(f"kernels only: build, checks and probes done in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     # 3. the paths at full size, x32 as the TPU served
     t0 = time.perf_counter()
@@ -689,8 +833,18 @@ def run(dev: torch.device, opts) -> int:
         record.setdefault("paths", {})[path] = {"launches": per_query, "totals": totals}
         return out
 
-    # 3a. slice 1: Q1, Q3, RANGE through K1's fused route
-    responses = drive("q1_q3_range", requests, segments, {n: ("k1",) for n in QUERIES})
+    # 3a. slice 1: Q1, Q3, RANGE through K1's fused route, which combines
+    # the group key inside the kernel: no torch-op key combine may run
+    def no_key_combine(*a, **k):
+        raise AssertionError("the fused route combined the group key with torch ops")
+
+    real_group_keys, kernel_mod._group_keys = kernel_mod._group_keys, no_key_combine
+    try:
+        responses = drive("q1_q3_range", requests, segments, {n: ("k1",) for n in QUERIES})
+    finally:
+        kernel_mod._group_keys = real_group_keys
+    if kernel_mod.fused_dispatches != len(QUERIES):
+        raise AssertionError(f"{kernel_mod.fused_dispatches} fused dispatches for {len(QUERIES)} queries")
     record["oracle_max_rel_err"] = {}
     for name in QUERIES:
         worst = check_response(responses[name], oracle(segments, name))
@@ -750,32 +904,60 @@ def run(dev: torch.device, opts) -> int:
             record["profile"][name] = profile_query(
                 lambda: reduce_to_response(req, [ex.execute(segs, req)]), name
             )
+            kernel_names = record["profile"][name]["device_ms_per_query_by_kernel"]
+            if any("fused_groupby_reduce" in kn for kn in kernel_names):
+                raise AssertionError(f"{name}: K1 ran a second reduce kernel")
 
+    # K1 at each of its seven launch shapes on the main path: the fused
+    # route's (the key combined in the kernel) and the torch-op route's
+    # group counts and sums over the evaluated mask
     captured = {}
     record["k1"] = {}
-    for name, req in requests.items():
+    k1_queries = {**requests, "hll_groupby": value_requests["hll_groupby"],
+                  "pct_quantity": value_requests["pct_quantity"], "torch_op": torch_op_request,
+                  "north_star": ns_request}
+    names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
+    for name, req in k1_queries.items():
+        captured.clear()
         restore = (_capture(fg, "fused_filtered_groupby_sums", captured, "k1"),
                    _capture(kernel_mod, "_group_keys", captured, "keys"))
         try:
-            ex.execute(segments, req)
+            ex.execute(ad_segments if name == "north_star" else segments, req)
         finally:
             fg.fused_filtered_groupby_sums, kernel_mod._group_keys = restore
         a, k = captured["k1"]
-        names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
         args = {**dict(zip(names, a)), **k}
-        err = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
+        fused = name in QUERIES
+        if fused and (args["group_keys"] is not None or "keys" in captured):
+            raise AssertionError(f"{name}: the fused route did not hand K1 the group columns")
+        err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
+        tier = fg.choose_tier(*k1_shape(fg, args))
         k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
-        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), ITERS)
-        ka, kk = captured["keys"]
-        key_ms, _ = cuda_ms(lambda: restore[1](*ka, **kk), ITERS)
+        tier_ms = {t: cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args, tier=t), ITERS)[0]
+                   for t in tiers}
+        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
+        key_ms = None
+        if "keys" in captured:  # the torch-op route still combines its key (min/max need it)
+            ka, kk = captured["keys"]
+            key_ms, _ = cuda_ms(lambda: restore[1](*ka, **kk), ITERS)
         bound, bound_by, nbytes, ops = k1_bound(args)
-        rows_key = args["group_keys"].numel()
-        log(f"k1 {name}: {k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, "
-            f"{ops} operations; {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), plain {p_ms:.4f} ms, "
-            f"key combine {key_ms:.4f} ms ({8 * rows_key} bytes written+read), max_abs_err {err:.6g}")
-        record["k1"][name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by,
-                                  bytes=nbytes, operations=ops, key_combine_ms=key_ms,
-                                  key_bytes=8 * rows_key, max_abs_err=err)
+        read_ms = None
+        if name == "q1":  # the practical ceiling: one plain streaming read of a float32 stream
+            raw = args["value_raws"][0]
+            read_ms, _ = cuda_ms(lambda: raw.sum(), ITERS)
+            raw_bytes = raw.numel() * raw.element_size()
+            log(f"k1 q1 yardstick: torch.sum over one {raw_bytes} B float32 stream {read_ms:.4f} ms, "
+                f"{raw_bytes / (read_ms / 1e3) / 1e12:.3f} TB/s")
+        key_form = ("group_cols " + "+".join(str(g.dtype).replace("torch.", "") for g in args["group_cols"])
+                    if fused else "precombined int32 key")
+        log(f"k1 {name} ({key_form}, K={args['capacity']}, nv={len(args['value_dicts'])}, tier {tier}): "
+            f"{k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; "
+            f"{bound / k_ms:.3f} of the bound, {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), tiers "
+            f"{ {t: round(v, 4) for t, v in tier_ms.items()} }, plain {p_ms:.4f} ms, key combine "
+            f"{'none (in the kernel)' if key_ms is None else f'{key_ms:.4f} ms'}, max_abs_err {err:.6g}")
+        record["k1"][name] = dict(ms=k_ms, tier=tier, tier_ms=tier_ms, plain_ms=p_ms, bound_ms=bound,
+                                  bound_by=bound_by, bytes=nbytes, operations=ops, key_combine_ms=key_ms,
+                                  key_form=key_form, max_abs_err=err, stream_read_ms=read_ms)
 
     record["k2"] = {}
     for name, req in value_requests.items():

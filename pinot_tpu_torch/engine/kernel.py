@@ -218,17 +218,22 @@ def _agg_state(agg: StaticAgg, i: int, seg, q, mask, fdt) -> Any:
     raise AssertionError(agg)
 
 
-def _group_keys(plan: StaticPlan, seg, q, kdt) -> torch.Tensor:
-    """Mixed-radix global group keys [S, n_pad] in ``kdt``."""
+def _group_columns(plan: StaticPlan, seg, q) -> Tuple[list, list]:
+    """(id stream, remap or None) per group-by column: the staged
+    global-id stream, else the local fwd with its remap table."""
     gb = plan.group_by
-    keys = None
-    for col, gcard, remap, use_g in zip(gb.columns, gb.gcards, q["group_remap"], gb.use_gfwd):
-        if use_g:
-            g = seg[f"{col}.gfwd"].to(kdt)  # staged global ids
-        else:
-            g = torch.gather(remap, 1, seg[f"{col}.fwd"].long()).to(kdt)
-        keys = g if keys is None else keys * gcard + g
-    return keys
+    cols, remaps = [], []
+    for col, remap, use_g in zip(gb.columns, q["group_remap"], gb.use_gfwd):
+        cols.append(seg[f"{col}.gfwd"] if use_g else seg[f"{col}.fwd"])
+        remaps.append(None if use_g else remap)
+    return cols, remaps
+
+
+def _group_keys(plan: StaticPlan, seg, q, kdt) -> torch.Tensor:
+    """Mixed-radix global group keys [S, n_pad] in ``kdt`` (the torch-op
+    route; the fused route has K1 combine them)."""
+    cols, remaps = _group_columns(plan, seg, q)
+    return fused_groupby.combine_group_keys(cols, plan.group_by.gcards, remaps, dtype=kdt)
 
 
 def _sum_columns(plan: StaticPlan) -> List[str]:
@@ -465,16 +470,25 @@ def fused_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
             if card > fused_groupby.MAX_TABLE_CARD:
                 return False
             dict_cards.append(card)
+    if len(gb.columns) > fused_groupby.MAX_GROUP_COLUMNS:
+        return False
+    # a remap-fed group column's table sits in the kernel's shared memory
+    remap_cards = [staged.column(c).card_pad for c, use_g in zip(gb.columns, gb.use_gfwd) if not use_g]
+    if any(card > fused_groupby.MAX_TABLE_CARD for card in remap_cards):
+        return False
     fbytes = 8 if staged.precision.x64 else 4
-    return fused_groupby.fits_shared_memory(fbytes, gb.capacity, len(cols), dict_cards, match_card)
+    return fused_groupby.fits_shared_memory(
+        fbytes, gb.capacity, len(cols), dict_cards, match_card, remap_cards
+    )
 
 
 def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
     """num_docs, gb_presence and every state from one fused launch —
-    already reduced over the segment axis."""
+    already reduced over the segment axis.  The group key is combined
+    inside the kernel from the group-by columns."""
     leaf = plan.leaves[0]
     fdt = staged.precision.float_dtype
-    keys = _group_keys(plan, seg, q, torch.int32)
+    group_cols, group_remaps = _group_columns(plan, seg, q)
     filter_fwd = match = bounds = None
     if leaf.eval_kind == "table":
         filter_fwd, match = seg[f"{leaf.column}.fwd"], q["match"][0]
@@ -492,8 +506,9 @@ def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, A
     dicts = [None if use_raw[c] else seg[f"{c}.dict"] for c in cols]
     raws = [seg[f"{c}.raw"] if use_raw[c] else None for c in cols]
     docs, count, sums = fused_groupby.fused_filtered_groupby_sums(
-        filter_fwd, match, seg["num_docs"], keys, fwds, dicts, plan.group_by.capacity,
-        dtype=fdt, filter_bounds=bounds, value_raws=raws,
+        filter_fwd, match, seg["num_docs"], None, fwds, dicts, plan.group_by.capacity,
+        dtype=fdt, filter_bounds=bounds, value_raws=raws, group_cols=group_cols,
+        group_cards=plan.group_by.gcards, group_remaps=group_remaps,
     )
     out: Dict[str, Any] = {"num_docs": docs, "gb_presence": (count > 0).to(torch.int32)}
     for i, agg in enumerate(plan.aggs):

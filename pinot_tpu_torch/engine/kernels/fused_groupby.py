@@ -21,7 +21,26 @@ The filter is exactly one of
     ``filter_fwd`` — the interval test applied to the row index.
 A single-value points leaf is the interval [p, p+1); p = -1 matches
 nothing.  Value column j is ``value_dicts[j][s][value_fwds[j][s, i]]`` or
-the raw row ``value_raws[j][s, i]``.  With S = 1 this is the TPU kernel.
+the raw row ``value_raws[j][s, i]``.
+
+The key is exactly one of
+  * ``group_keys``: a precombined int32 [S, n_pad] key (the TPU kernel's
+    argument; with S = 1 this is the TPU kernel);
+  * ``group_cols``: up to ``MAX_GROUP_COLUMNS`` id streams [S, n_pad]
+    (uint8 / int16 / int32), each a global-id stream or, where
+    ``group_remaps[c]`` is given, a local fwd stream read through that
+    per-segment remap table [S, card]; ``group_cards`` are the radices.
+    key = ((g0 * c1 + g1) * c2 + g2) ..., the mixed radix of
+    ``engine/kernel.py::_group_keys``, combined inside the kernel.
+Keys outside [0, capacity) drop.
+
+How the kernel accumulates is its tier, chosen from the shape
+(``choose_tier``; ``tier=`` forces one, for measurement):
+  private       per-thread counts and sums in shared memory [slot][thread]
+                (sums over small K)
+  atomic        count-only: shared-memory integer atomics
+  warp          sums over larger K: per-warp accumulators fed through
+                ``__match_any_sync`` groups
 
 On CUDA tensors the wrapper launches the kernel (or raises); on CPU
 tensors it runs ``fused_filtered_groupby_sums_reference``.  ``launches``
@@ -30,15 +49,21 @@ counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 MAX_TABLE_CARD = 4096  # same contract as the TPU kernel (pallas_kernels.py:61)
 MAX_VALUE_COLUMNS = 8
+MAX_GROUP_COLUMNS = 4
 SHARED_BYTES_LIMIT = 232448  # H100 opt-in dynamic shared memory per block; the launch rechecks the device
 THREADS = 256
 WARPS = THREADS // 32
+ROWS_PER_LANE = 16  # kRows: rows a lane takes per chunk, and the warp tier's lane staging
+TIERS = ("private", "atomic", "warp")
+# the private tier while its [slot][thread] accumulators leave room for
+# two or more resident blocks per SM
+PRIVATE_SHARED_BYTES = 49152
 
 _INDEX_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 _RAW_CODE = 3
@@ -46,38 +71,85 @@ _RAW_CODE = 3
 launches = 0  # kernel launches on CUDA tensors; chip_smoke.py resets and reads it
 
 
-def shared_bytes(float_bytes: int, capacity: int, nv: int, dict_total: int, match_card: int) -> int:
-    """Dynamic shared memory one block of the partial kernel takes, in the
-    layout ``fused_groupby_partial`` carves (the launch is given this
-    count): dictionaries, per-warp sum accumulators, per-warp lane staging,
-    the integer counts and docs, and the match table."""
-    return (
-        float_bytes * (dict_total + WARPS * nv * capacity + WARPS * nv * 32)
-        + 4 * (capacity + 1)
-        + match_card
-    )
+def shared_bytes(
+    tier: str, float_bytes: int, capacity: int, nv: int, dict_total: int = 0,
+    match_card: int = 0, remap_total: int = 0,
+) -> int:
+    """Dynamic shared memory one block takes in ``tier``, in the layout
+    ``carve`` in the kernel makes (the launch is given this count):
+    dictionaries, the tier's float accumulators, remap tables, the
+    integer counts, docs and flag, and the match table."""
+    if tier == "private":
+        floats, ints = nv * capacity * THREADS, capacity * THREADS
+    elif tier == "warp":
+        floats, ints = WARPS * nv * capacity + WARPS * ROWS_PER_LANE * 32, capacity
+    elif tier == "atomic":
+        floats, ints = 0, capacity
+    else:
+        raise ValueError(f"unknown tier {tier!r}: one of {TIERS}")
+    return float_bytes * (dict_total + floats) + 4 * (remap_total + ints + 2) + match_card
+
+
+def tier_fits(
+    tier: str, float_bytes: int, capacity: int, nv: int, dict_total: int = 0,
+    match_card: int = 0, remap_total: int = 0,
+) -> bool:
+    """Whether ``tier`` can run this shape: the count-only tiers take no
+    value columns, and the block's shared memory must fit."""
+    if tier == "atomic" and nv:
+        return False
+    need = shared_bytes(tier, float_bytes, capacity, nv, dict_total, match_card, remap_total)
+    return need <= SHARED_BYTES_LIMIT
+
+
+def choose_tier(
+    float_bytes: int, capacity: int, nv: int, dict_total: int = 0,
+    match_card: int = 0, remap_total: int = 0,
+) -> str:
+    """The tier a shape runs in: atomic when count-only, else private
+    while its accumulators are small, else warp (the fastest of each on
+    the card at the main path's shapes, ``PERF.md``).  Raises when none
+    fits."""
+    shape = (float_bytes, capacity, nv, dict_total, match_card, remap_total)
+    if nv and shared_bytes("private", *shape) <= PRIVATE_SHARED_BYTES:
+        return "private"
+    tier = "atomic" if nv == 0 else "warp"
+    if not tier_fits(tier, *shape):
+        raise ValueError(
+            f"capacity {capacity} with {nv} value columns does not fit the kernel's "
+            f"shared memory (max {max_capacity(float_bytes, nv, dict_total, match_card, remap_total)})"
+        )
+    return tier
 
 
 def fits_shared_memory(
-    float_bytes: int, capacity: int, nv: int, dict_cards: Sequence[int], match_card: int
+    float_bytes: int, capacity: int, nv: int, dict_cards: Sequence[int], match_card: int,
+    remap_cards: Sequence[int] = (),
 ) -> bool:
-    return shared_bytes(float_bytes, capacity, nv, sum(dict_cards), match_card) <= SHARED_BYTES_LIMIT
+    """Whether some tier takes this shape."""
+    shape = (float_bytes, capacity, nv, sum(dict_cards), match_card, sum(remap_cards))
+    return any(tier_fits(t, *shape) for t in TIERS)
 
 
-def max_capacity(float_bytes: int, nv: int, dict_total: int = 0, match_card: int = 0) -> int:
-    """Largest K whose accumulators fit one block's shared memory."""
-    fixed = shared_bytes(float_bytes, 0, nv, dict_total, match_card)
-    per_k = float_bytes * WARPS * nv + 4
+def max_capacity(
+    float_bytes: int, nv: int, dict_total: int = 0, match_card: int = 0, remap_total: int = 0
+) -> int:
+    """Largest K that some tier takes: atomic when count-only, else warp
+    (the private tier's per-thread accumulators hold fewer groups)."""
+    tier = "atomic" if nv == 0 else "warp"
+    fixed = shared_bytes(tier, float_bytes, 0, nv, dict_total, match_card, remap_total)
+    per_k = shared_bytes(tier, float_bytes, 1, nv) - shared_bytes(tier, float_bytes, 0, nv)
     return max(0, (SHARED_BYTES_LIMIT - fixed) // per_k)
 
 
 def _validate(
     filter_fwd, match, num_docs, group_keys, value_fwds, value_dicts, capacity, dtype,
-    filter_bounds, value_raws,
-) -> List[Tuple[Optional[torch.Tensor], Optional[torch.Tensor], Optional[torch.Tensor]]]:
+    filter_bounds, value_raws, group_cols, group_cards, group_remaps,
+) -> Tuple[list, list]:
     """The TPU kernel's ValueError contract (pallas_kernels.py:114-135),
-    plus the shape, dtype, device and layout checks the CUDA kernel needs.
-    Returns per value column (fwd, dict, raw)."""
+    plus the group-column contract and the shape, dtype, device and layout
+    checks the CUDA kernel needs.  Returns (per value column (fwd, dict,
+    raw), per group column (stream, remap))."""
     if (match is None) == (filter_bounds is None):
         raise ValueError("exactly one of match / filter_bounds required")
     if match is not None and filter_fwd is None:
@@ -111,51 +183,99 @@ def _validate(
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
 
-    if group_keys.dim() != 2 or group_keys.dtype != torch.int32:
-        raise ValueError("group_keys must be int32 [S, n_pad]")
-    S, n_pad = group_keys.shape
-    dev = group_keys.device
+    if (group_keys is None) == (group_cols is None):
+        raise ValueError("exactly one of group_keys / group_cols required")
+    groups = []
+    if group_cols is not None:
+        ng = len(group_cols)
+        remaps = list(group_remaps) if group_remaps is not None else [None] * ng
+        if not 1 <= ng <= MAX_GROUP_COLUMNS:
+            raise ValueError(f"{ng} group columns: the kernel takes 1 to {MAX_GROUP_COLUMNS}")
+        if group_cards is None or len(group_cards) != ng or len(remaps) != ng:
+            raise ValueError("group_cols, group_cards and group_remaps must have one entry per column")
+        if any(int(c) < 1 for c in group_cards):
+            raise ValueError("group_cards must be >= 1")
+        for c, r in enumerate(remaps):
+            if r is not None and r.shape[-1] > MAX_TABLE_CARD:
+                raise ValueError(
+                    f"group column {c}: remap card {r.shape[-1]} > {MAX_TABLE_CARD}; "
+                    "stage its global-id stream for the fused path"
+                )
+        groups = list(zip(group_cols, remaps))
+        lead = group_cols[0]
+    else:
+        if group_keys.dim() != 2 or group_keys.dtype != torch.int32:
+            raise ValueError("group_keys must be int32 [S, n_pad]")
+        lead = group_keys
+    if lead.dim() != 2:
+        raise ValueError("group columns must be [S, n_pad]")
+    S, n_pad = lead.shape
+    dev = lead.device
 
-    def check(t, name, dtypes, shape):
+    def check(t, name, dtypes, shape, table=False):
         if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, group_keys on {dev}")
+            raise ValueError(f"{name} is on {t.device}, the key inputs on {dev}")
         if t.dtype not in dtypes:
             raise ValueError(f"{name} dtype {t.dtype} not in {dtypes}")
-        if tuple(t.shape[: len(shape)]) != shape or t.dim() != len(shape) + (name in ("match", "dict")):
+        if tuple(t.shape[: len(shape)]) != shape or t.dim() != len(shape) + table:
             raise ValueError(f"{name} shape {tuple(t.shape)} does not match {shape}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
     check(num_docs, "num_docs", (torch.int32,), (S,))
-    check(group_keys, "group_keys", (torch.int32,), (S, n_pad))
+    if group_keys is not None:
+        check(group_keys, "group_keys", (torch.int32,), (S, n_pad))
+    for g, r in groups:
+        check(g, "group column", tuple(_INDEX_CODES), (S, n_pad))
+        if r is not None:
+            check(r, "group remap", (torch.int32,), (S,), table=True)
     if filter_fwd is not None:
         check(filter_fwd, "filter_fwd", tuple(_INDEX_CODES), (S, n_pad))
     if filter_bounds is not None:
         check(filter_bounds, "filter_bounds", (torch.int32,), (S, 2))
     if match is not None:
-        check(match, "match", (torch.bool, torch.uint8), (S,))
+        check(match, "match", (torch.bool, torch.uint8), (S,), table=True)
     for f, d, r in cols:
         if r is not None:
             check(r, "raw", (dtype,), (S, n_pad))
         else:
             check(f, "fwd", tuple(_INDEX_CODES), (S, n_pad))
-            check(d, "dict", (dtype,), (S,))
+            check(d, "dict", (dtype,), (S,), table=True)
     fbytes = 8 if dtype == torch.float64 else 4
     dict_cards = [d.shape[-1] for _, d, _ in cols if d is not None]
+    remap_cards = [r.shape[-1] for _, r in groups if r is not None]
     mcard = match.shape[-1] if match is not None else 0
-    if not fits_shared_memory(fbytes, capacity, nv, dict_cards, mcard):
+    if not fits_shared_memory(fbytes, capacity, nv, dict_cards, mcard, remap_cards):
         raise ValueError(
             f"capacity {capacity} with {nv} value columns does not fit the kernel's "
-            f"shared-memory accumulators (max {max_capacity(fbytes, nv, sum(dict_cards), mcard)})"
+            f"shared memory (max {max_capacity(fbytes, nv, sum(dict_cards), mcard, sum(remap_cards))})"
         )
-    return cols
+    return cols, groups
+
+
+def combine_group_keys(
+    group_cols: Sequence[torch.Tensor], group_cards: Sequence[int],
+    group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    dtype: torch.dtype = torch.int32,
+) -> torch.Tensor:
+    """The mixed-radix key [S, n_pad] of the group columns in ``dtype``:
+    ((g0 * c1 + g1) * c2 + g2) ..., each g the column's id stream or its
+    local fwd through its remap table.  The kernel combines the same key
+    in int32 registers; the torch-op route (``engine/kernel.py``) combines
+    it here."""
+    remaps = list(group_remaps) if group_remaps is not None else [None] * len(group_cols)
+    keys = None
+    for g, card, r in zip(group_cols, group_cards, remaps):
+        g = (torch.gather(r, 1, g.long()) if r is not None else g).to(dtype)
+        keys = g if keys is None else keys * int(card) + g
+    return keys
 
 
 def fused_filtered_groupby_sums_reference(
     filter_fwd: Optional[torch.Tensor],
     match: Optional[torch.Tensor],
     num_docs: torch.Tensor,
-    group_keys: torch.Tensor,
+    group_keys: Optional[torch.Tensor],
     value_fwds: Sequence[Optional[torch.Tensor]],
     value_dicts: Sequence[Optional[torch.Tensor]],
     capacity: int,
@@ -163,12 +283,19 @@ def fused_filtered_groupby_sums_reference(
     dtype: torch.dtype,
     filter_bounds: Optional[torch.Tensor] = None,
     value_raws: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    group_cols: Optional[Sequence[torch.Tensor]] = None,
+    group_cards: Optional[Sequence[int]] = None,
+    group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    tier: Optional[str] = None,
 ):
     """Plain torch version of the same function (no validation beyond the
-    wrapper's).  Counts in int64; each sum accumulates in float64 and is
-    returned in ``dtype``: ``index_add_`` adds one row at a time into its
-    bucket, and in float32 that loses whole percents once a bucket holds
-    millions of rows, so the yardstick sums at the higher precision."""
+    wrapper's; ``tier`` is the kernel's and changes nothing here).  Counts
+    in int64; each sum accumulates in float64 and is returned in
+    ``dtype``: ``index_add_`` adds one row at a time into its bucket, and
+    in float32 that loses whole percents once a bucket holds millions of
+    rows, so the yardstick sums at the higher precision."""
+    if group_keys is None:
+        group_keys = combine_group_keys(group_cols, group_cards, group_remaps)
     S, n = group_keys.shape
     dev = group_keys.device
     rows = torch.arange(n, device=dev)
@@ -198,15 +325,33 @@ def fused_filtered_groupby_sums_reference(
     return docs, count[:capacity], sums
 
 
-def blocks_per_segment(num_segments: int, n_pad: int, device: torch.device) -> int:
-    """Grid width per segment: about eight blocks per SM in all (64
-    resident warps per SM when shared memory allows), and no more blocks
-    than a segment has row tiles.  A pure function of the shapes and the
-    card, so the reduction order — and thus the result — is the same on
-    every launch."""
+# per (device, stream): the int64 [K + 1] accumulator and the uint32
+# ticket the kernel needs zero at launch and leaves zero (launches on one
+# stream run in order, so they share one)
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+_occupancy: Dict[tuple, int] = {}
+
+
+def _zeroed_scratch(dev: torch.device, stream: int, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream)
+    got = _scratch.get(key)
+    if got is None or got[0].numel() < capacity + 1:
+        size = max(capacity + 1, 1024 if got is None else 2 * got[0].numel())
+        got = (torch.zeros(size, dtype=torch.int64, device=dev),
+               torch.zeros(1, dtype=torch.int32, device=dev))
+        _scratch[key] = got
+    return got
+
+
+def blocks_per_segment(num_segments: int, n_pad: int, device: torch.device, per_sm: int) -> int:
+    """Grid width per segment: one wave of the kernel (``per_sm``
+    resident blocks on every SM) over all segments, and no more blocks
+    than a segment has block-sized row spans.  A pure function of the
+    shapes, the tier and the card, so the reduction order — and thus the
+    result — is the same on every launch."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    per_seg = max(1, -(-8 * sms // num_segments))
-    return max(1, min(per_seg, -(-n_pad // THREADS)))
+    per_seg = max(1, -(-max(1, per_sm) * sms // num_segments))
+    return max(1, min(per_seg, -(-n_pad // (THREADS * ROWS_PER_LANE))))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -219,59 +364,89 @@ def _library():
     lib = kernels.load("fused_groupby")
     fn = lib.fused_groupby_launch
     if fn.argtypes is None:
-        vp, ci = ctypes.c_void_p, ctypes.c_int
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         fn.argtypes = [
-            ci, ci, ci, vp, vp, vp, ci, vp, ci, ctypes.c_longlong, vp, ci, ci,
-            ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(vp), ctypes.POINTER(ci),
-            ci, vp, vp, vp, vp, vp, vp, ctypes.c_longlong, vp,
+            ci, ci, ci, ci, vp, vp, vp, ci, vp, ci, ll, vp, ci, pv, pi, pi, pv, pi,
+            ci, ci, pv, pi, pv, pi, ci, vp, vp, vp, vp, vp, vp, ll, vp,
         ]
         fn.restype = ci
-    return fn
+        occ = lib.fused_groupby_blocks_per_sm
+        occ.argtypes = [ci, ci, ci, ci, ll]
+        occ.restype = ci
+    return lib
 
 
-def _launch(filter_fwd, match, num_docs, group_keys, cols, capacity, dtype, filter_bounds):
-    global launches
-    S, n_pad = group_keys.shape
-    dev = group_keys.device
-    nv = len(cols)
-    bps = blocks_per_segment(S, n_pad, dev)
-    B = S * bps
-    part_docs = torch.empty(B, dtype=torch.int32, device=dev)
-    part_counts = torch.empty((B, capacity), dtype=torch.int32, device=dev)
-    part_sums = torch.empty((B, nv, capacity), dtype=dtype, device=dev)
-    out_docs = torch.empty(1, dtype=torch.int64, device=dev)
-    out_counts = torch.empty(capacity, dtype=torch.int64, device=dev)
-    out_sums = torch.empty((nv, capacity), dtype=dtype, device=dev)
-
+def _filter_codes(filter_fwd, match):
     if match is not None:
-        kind, fcode = 2, _INDEX_CODES[filter_fwd.dtype]
-        mcard = match.shape[-1]
-        match_u8 = match.view(torch.uint8) if match.dtype == torch.bool else match
-    elif filter_fwd is not None:
-        kind, fcode, mcard, match_u8 = 0, _INDEX_CODES[filter_fwd.dtype], 0, None
-    else:
-        kind, fcode, mcard, match_u8 = 1, 0, 0, None
-    vptrs = (ctypes.c_void_p * max(nv, 1))()
-    vcodes = (ctypes.c_int * max(nv, 1))()
-    dptrs = (ctypes.c_void_p * max(nv, 1))()
-    dcards = (ctypes.c_int * max(nv, 1))()
-    for j, (f, d, r) in enumerate(cols):
-        if r is not None:
-            vptrs[j], vcodes[j], dptrs[j], dcards[j] = r.data_ptr(), _RAW_CODE, None, 0
-        else:
-            vptrs[j], vcodes[j] = f.data_ptr(), _INDEX_CODES[f.dtype]
-            dptrs[j], dcards[j] = d.data_ptr(), d.shape[-1]
+        return 2, _INDEX_CODES[filter_fwd.dtype]
+    if filter_fwd is not None:
+        return 0, _INDEX_CODES[filter_fwd.dtype]
+    return 1, 0
+
+
+def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, capacity,
+            dtype, filter_bounds, tier):
+    global launches
+    lead = group_keys if group_keys is not None else groups[0][0]
+    S, n_pad = lead.shape
+    dev = lead.device
+    nv = len(cols)
+    ng = len(groups)
     fbytes = 8 if dtype == torch.float64 else 4
-    smem = shared_bytes(fbytes, capacity, nv, sum(dcards[j] for j in range(nv)), mcard)
-    fn = _library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    kind, fcode = _filter_codes(filter_fwd, match)
+    mcard = match.shape[-1] if match is not None else 0
+    match_u8 = None
+    if match is not None:
+        match_u8 = match.view(torch.uint8) if match.dtype == torch.bool else match
+    dict_total = sum(d.shape[-1] for _, d, _ in cols if d is not None)
+    remap_total = sum(r.shape[-1] for _, r in groups if r is not None)
+    shape = (fbytes, capacity, nv, dict_total, mcard, remap_total)
+    if tier is None:
+        tier = choose_tier(*shape)
+    elif tier not in TIERS or not tier_fits(tier, *shape):
+        raise ValueError(f"tier {tier!r} does not take this shape")
+    smem = shared_bytes(tier, *shape)
+    fcode_f = 1 if dtype == torch.float64 else 0
+    lib = _library()
     with torch.cuda.device(dev):
-        rc = fn(
-            1 if dtype == torch.float64 else 0, kind, fcode,
+        okey = (dev.index, fcode_f, kind, fcode, TIERS.index(tier), smem)  # occupancy of this block
+        per_sm = _occupancy.get(okey)
+        if per_sm is None:
+            per_sm = lib.fused_groupby_blocks_per_sm(fcode_f, kind, fcode, TIERS.index(tier), smem)
+            if per_sm < 1:
+                raise RuntimeError(f"fused_groupby occupancy query failed with code {per_sm}")
+            _occupancy[okey] = per_sm
+        bps = blocks_per_segment(S, n_pad, dev, per_sm)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        acc, ticket = _zeroed_scratch(dev, stream, capacity)
+        part_sums = torch.empty((S * bps, nv, capacity), dtype=dtype, device=dev)
+        out_docs = torch.empty(1, dtype=torch.int64, device=dev)
+        out_counts = torch.empty(capacity, dtype=torch.int64, device=dev)
+        out_sums = torch.empty((nv, capacity), dtype=dtype, device=dev)
+
+        vp = ctypes.c_void_p
+        n1, g1 = max(nv, 1), max(ng, 1)
+        vptrs, vcodes = (vp * n1)(), (ctypes.c_int * n1)()
+        dptrs, dcards = (vp * n1)(), (ctypes.c_int * n1)()
+        for j, (f, d, r) in enumerate(cols):
+            if r is not None:
+                vptrs[j], vcodes[j], dptrs[j], dcards[j] = r.data_ptr(), _RAW_CODE, None, 0
+            else:
+                vptrs[j], vcodes[j] = f.data_ptr(), _INDEX_CODES[f.dtype]
+                dptrs[j], dcards[j] = d.data_ptr(), d.shape[-1]
+        gptrs, gcodes, gcards = (vp * g1)(), (ctypes.c_int * g1)(), (ctypes.c_int * g1)()
+        rptrs, rcards = (vp * g1)(), (ctypes.c_int * g1)()
+        for c, (g, r) in enumerate(groups):
+            gptrs[c], gcodes[c], gcards[c] = g.data_ptr(), _INDEX_CODES[g.dtype], int(group_cards[c])
+            rptrs[c], rcards[c] = _ptr(r), 0 if r is None else r.shape[-1]
+        rc = lib.fused_groupby_launch(
+            fcode_f, kind, fcode, TIERS.index(tier),
             _ptr(filter_fwd), _ptr(filter_bounds), _ptr(match_u8), mcard,
-            num_docs.data_ptr(), S, n_pad, group_keys.data_ptr(), capacity, nv,
+            num_docs.data_ptr(), S, n_pad, _ptr(group_keys), ng,
+            gptrs, gcodes, gcards, rptrs, rcards, capacity, nv,
             vptrs, vcodes, dptrs, dcards, bps,
-            part_docs.data_ptr(), part_counts.data_ptr(), part_sums.data_ptr(),
+            part_sums.data_ptr(), acc.data_ptr(), ticket.data_ptr(),
             out_docs.data_ptr(), out_counts.data_ptr(), out_sums.data_ptr(), smem, stream,
         )
     if rc != 0:
@@ -284,7 +459,7 @@ def fused_filtered_groupby_sums(
     filter_fwd: Optional[torch.Tensor],
     match: Optional[torch.Tensor],
     num_docs: torch.Tensor,
-    group_keys: torch.Tensor,
+    group_keys: Optional[torch.Tensor],
     value_fwds: Sequence[Optional[torch.Tensor]],
     value_dicts: Sequence[Optional[torch.Tensor]],
     capacity: int,
@@ -292,19 +467,27 @@ def fused_filtered_groupby_sums(
     dtype: torch.dtype,
     filter_bounds: Optional[torch.Tensor] = None,
     value_raws: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    group_cols: Optional[Sequence[torch.Tensor]] = None,
+    group_cards: Optional[Sequence[int]] = None,
+    group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    tier: Optional[str] = None,
 ):
     """Returns (num_docs int64 scalar, count int64 [K], [sums [K] per
     value column]).  See the module docstring for the arguments."""
-    cols = _validate(
+    if tier is not None and tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r}: one of {TIERS}")
+    cols, groups = _validate(
         filter_fwd, match, num_docs, group_keys, value_fwds, value_dicts, capacity, dtype,
-        filter_bounds, value_raws,
+        filter_bounds, value_raws, group_cols, group_cards, group_remaps,
     )
-    device_type = group_keys.device.type
-    if device_type == "cuda":
-        return _launch(filter_fwd, match, num_docs, group_keys, cols, capacity, dtype, filter_bounds)
-    if device_type != "cpu":
-        raise ValueError(f"unsupported device {group_keys.device}")
+    device = num_docs.device
+    if device.type == "cuda":
+        return _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards,
+                       capacity, dtype, filter_bounds, tier)
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
     return fused_filtered_groupby_sums_reference(
         filter_fwd, match, num_docs, group_keys, value_fwds, value_dicts, capacity,
         dtype=dtype, filter_bounds=filter_bounds, value_raws=value_raws,
+        group_cols=group_cols, group_cards=group_cards, group_remaps=group_remaps,
     )

@@ -135,6 +135,35 @@ def test_fused_route_matches_reference(name):
     assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (got, want)
 
 
+@pytest.mark.parametrize("name", ["q1_interval", "q3_point", "range_unsorted"])
+def test_fused_route_combines_the_key_in_the_kernel(name, monkeypatch):
+    """Q1, Q3 and RANGE hand K1 the group-by columns (group_cols, no
+    precombined key): ``_group_keys`` never runs on the fused route, and
+    the payload still matches the reference (tolerance as above)."""
+    from pinot_tpu_torch.engine.kernels import fused_groupby
+
+    def no_key_combine(*a, **k):
+        raise AssertionError("the fused route combined the group key with torch ops")
+
+    calls = []
+    real = fused_groupby.fused_filtered_groupby_sums
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    monkeypatch.setattr(port_kernel, "_group_keys", no_key_combine)
+    monkeypatch.setattr(fused_groupby, "fused_filtered_groupby_sums", recording)
+    pql, _ = FUSED_QUERIES[name]
+    before = port_kernel.fused_dispatches
+    got, want = _compare(pql, ROW_BUILT)
+    assert port_kernel.fused_dispatches == before + 1
+    assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (got, want)
+    ((args, kwargs),) = calls
+    assert args[3] is None  # group_keys
+    assert len(kwargs["group_cols"]) == len(kwargs["group_cards"]) >= 1
+
+
 def test_torch_op_path_when_not_fused():
     """min/max aggregations are outside the fused kernel: the torch-op
     path answers, and the route counter stays put."""

@@ -251,7 +251,153 @@ def test_value_error_contract(kind):
 
 @pytest.mark.parametrize("fbytes,nv", [(4, 3), (8, 3), (4, 0), (8, 8)])
 def test_capacity_bound_is_the_shared_memory_bound(fbytes, nv):
+    """max_capacity is the largest K some tier takes: the atomic tier's
+    int32 counts when count-only (every count-only shape runs there), the
+    warp tier's per-warp sums else; with sums the private tier's
+    [slot][thread] accumulators take the small shapes, up to
+    PRIVATE_SHARED_BYTES."""
     k = fg.max_capacity(fbytes, nv)
     assert k >= 1
     assert fg.fits_shared_memory(fbytes, k, nv, [], 0)
     assert not fg.fits_shared_memory(fbytes, k + 1, nv, [], 0)
+    big = "atomic" if nv == 0 else "warp"
+    assert fg.tier_fits(big, fbytes, k, nv) and not fg.tier_fits(big, fbytes, k + 1, nv)
+    assert fg.choose_tier(fbytes, k, nv) == big
+    kp = max(c for c in range(1, k + 1)
+             if fg.shared_bytes("private", fbytes, c, nv) <= fg.PRIVATE_SHARED_BYTES)
+    assert fg.choose_tier(fbytes, kp, nv) == ("private" if nv else "atomic")
+    assert fg.choose_tier(fbytes, kp + 1, nv) == big
+    assert fg.choose_tier(fbytes, 1, nv) == ("private" if nv else "atomic")
+    # a remap table counts against the same budget
+    assert not fg.fits_shared_memory(fbytes, k, nv, [], 0, [fg.MAX_TABLE_CARD])
+
+
+# ---------------------------------------------------------------------------
+# The key combined from group columns (the fused route's form)
+# ---------------------------------------------------------------------------
+
+_WIDTHS = {"u8": (np.uint8, torch.uint8), "i16": (np.int16, torch.int16), "i32": (np.int32, torch.int32)}
+
+
+def _group_case(widths, remapped, seed):
+    """Seeded group columns: global-id streams (remapped False) or local
+    fwd streams with per-segment remap tables, their radices, the key
+    combined with numpy as engine/kernel.py::_group_keys does, and a
+    filter, raw values and a dictionary-fed value column."""
+    rng = np.random.default_rng(seed)
+    S, n = 2, 3000
+    cards = [3, 5, 2][: len(widths)]
+    cols, remaps, gids = [], [], []
+    for w, card in zip(widths, cards):
+        if remapped:
+            local = card + 2  # local dictionaries larger than the global card
+            fwd = rng.integers(0, local, (S, n))
+            rm = rng.integers(0, card, (S, local)).astype(np.int32)
+            gid = np.take_along_axis(rm, fwd, axis=1)
+            remaps.append(rm)
+        else:
+            fwd = gid = rng.integers(0, card, (S, n))
+            remaps.append(None)
+        cols.append(fwd.astype(_WIDTHS[w][0]))
+        gids.append(gid)
+    keys = gids[0].astype(np.int64)
+    for gid, card in zip(gids[1:], cards[1:]):
+        keys = keys * card + gid
+    return dict(
+        S=S, n=n, cols=cols, remaps=remaps, cards=cards, keys=keys.astype(np.int32),
+        capacity=int(np.prod(cards)), num_docs=[n - 17, 1234],
+        filter_fwd=rng.integers(0, 9, (S, n)).astype(np.int32),
+        raw=rng.uniform(0, 100, (S, n)), fwd=rng.integers(0, 30, (S, n)).astype(np.int32),
+        dict=rng.uniform(-3, 3, 30),
+    )
+
+
+def _group_port_args(c, widths):
+    return dict(
+        filter_fwd=torch.as_tensor(c["filter_fwd"]).to(torch.int16), match=None,
+        num_docs=torch.tensor(c["num_docs"], dtype=torch.int32), group_keys=None,
+        value_fwds=[None, torch.as_tensor(c["fwd"]).to(torch.uint8)],
+        value_dicts=[None, torch.as_tensor(np.stack([c["dict"]] * c["S"]))],
+        capacity=c["capacity"], dtype=torch.float64,
+        filter_bounds=torch.tensor([[2, 7]] * c["S"], dtype=torch.int32),
+        value_raws=[torch.as_tensor(c["raw"]), None],
+        group_cols=[torch.as_tensor(g).to(_WIDTHS[w][1]) for g, w in zip(c["cols"], widths)],
+        group_cards=c["cards"],
+        group_remaps=[None if r is None else torch.as_tensor(r) for r in c["remaps"]],
+    )
+
+
+GROUP_FORMS = [
+    (("u8",), False), (("i16",), False), (("i32",), False),
+    (("u8",), True), (("i16",), True), (("i32",), True),
+    (("u8", "u8"), False), (("u8", "i16", "i32"), False), (("i32", "u8", "i16"), True),
+]
+
+
+@pytest.mark.parametrize("widths,remapped", GROUP_FORMS)
+def test_plain_group_cols_form_matches_jax_kernel(widths, remapped):
+    """The plain version's group_cols form (global-id or remap-fed
+    streams of each width, 1-3 columns) against the Pallas K1 in
+    interpret mode fed the numpy-combined key, per segment summed."""
+    c = _group_case(widths, remapped, seed=len(widths) * 10 + remapped)
+    S, n, K = c["S"], c["n"], c["capacity"]
+    want_docs, want_count, want_sums = 0.0, np.zeros(K), [np.zeros(K), np.zeros(K)]
+    for s in range(S):
+        d, cnt, sums = jax_k1(
+            jnp.asarray(c["filter_fwd"][s]), None, jnp.asarray(np.arange(n) < c["num_docs"][s]),
+            jnp.asarray(c["keys"][s]), [None, jnp.asarray(c["fwd"][s])], [None, jnp.asarray(c["dict"])],
+            capacity=K, interpret=True, filter_bounds=(2, 7),
+            value_raws=[jnp.asarray(c["raw"][s]), None],
+        )
+        want_docs += float(d)
+        want_count += np.asarray(cnt)
+        for acc, sm in zip(want_sums, sums):
+            acc += np.asarray(sm)
+    docs, count, sums = fg.fused_filtered_groupby_sums_reference(**_group_port_args(c, widths))
+    assert int(docs) == want_docs
+    np.testing.assert_array_equal(count.numpy(), want_count.astype(np.int64))
+    for got, want in zip(sums, want_sums):
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=1e-9)
+
+
+@pytest.mark.parametrize("widths,remapped", [(("u8", "i16"), False), (("i16", "u8", "i32"), True)])
+def test_group_cols_equal_group_keys(widths, remapped):
+    """The wrapper's two key forms give equal results, and the key it
+    combines is the numpy mixed radix."""
+    c = _group_case(widths, remapped, seed=77)
+    args = _group_port_args(c, widths)
+    a = fg.fused_filtered_groupby_sums(**args)
+    keyed = dict(args, group_keys=torch.as_tensor(c["keys"]), group_cols=None, group_cards=None,
+                 group_remaps=None)
+    b = fg.fused_filtered_groupby_sums(**keyed)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for x, y in zip(a[2], b[2]):
+        assert torch.equal(x, y)
+    combined = fg.combine_group_keys(args["group_cols"], args["group_cards"], args["group_remaps"])
+    np.testing.assert_array_equal(combined.numpy(), c["keys"])
+
+
+@pytest.mark.parametrize(
+    "kind", ["too_many_group_columns", "remap_card", "keys_and_cols", "neither_key", "cards_mismatch",
+             "remap_dtype", "unknown_tier"],
+)
+def test_group_cols_value_error_contract(kind):
+    c = _group_case(("u8", "u8"), True, seed=5)
+    args = _group_port_args(c, ("u8", "u8"))
+    if kind == "too_many_group_columns":
+        g, n = args["group_cols"][0], fg.MAX_GROUP_COLUMNS + 1
+        args.update(group_cols=[g] * n, group_cards=[1] * n, group_remaps=[None] * n)
+    elif kind == "remap_card":
+        args["group_remaps"][0] = torch.zeros((c["S"], fg.MAX_TABLE_CARD + 1), dtype=torch.int32)
+    elif kind == "keys_and_cols":
+        args["group_keys"] = torch.as_tensor(c["keys"])
+    elif kind == "neither_key":
+        args["group_cols"] = None
+    elif kind == "cards_mismatch":
+        args["group_cards"] = c["cards"][:1]
+    elif kind == "remap_dtype":
+        args["group_remaps"][0] = args["group_remaps"][0].to(torch.int64)
+    else:
+        args["tier"] = "fast"
+    with pytest.raises(ValueError):
+        fg.fused_filtered_groupby_sums(**args)
