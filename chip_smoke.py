@@ -18,7 +18,7 @@ and times the queries, the kernels at each query's shapes, their plain
 versions, the torch ops that build their inputs, and the one PyTorch call
 that computes K2's function.
 
-    python3 chip_smoke.py [--out results.json] [--profile]
+    python3 chip_smoke.py [--out results.json] [--profile | --kernels-only]
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -54,7 +54,7 @@ QUERIES = {"q1": Q1, "q3": Q3, "range_unsorted": RANGE}
 VALUE_QUERIES = {
     # bench.py:198-201, a BASELINE.md shape: HLL lowered to presence, K = 3 x 2048
     "hll_groupby": "SELECT distinctcounthll(l_shipdate) FROM lineitem GROUP BY l_returnflag TOP 10",
-    # scalar presence over ~259k global values: K = 2^18, K2's global-memory path
+    # scalar presence over ~259k global values: K = 2^18, a 32 KB bitmap (K2's block tier)
     "distinct_price": "SELECT distinctcount(l_extendedprice) FROM lineitem WHERE l_quantity > 25",
     # grouped histogram: K = 7 x 56
     "pct_quantity": "SELECT percentile90(l_quantity) FROM lineitem GROUP BY l_shipmode TOP 10",
@@ -93,6 +93,36 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(fn, runs: int = 10, expect: str = "value_state_kernel") -> Dict[str, float]:
+    """Device time per call by kernel name (torch.profiler over ``runs``
+    calls after a warm-up): what the card spends, without the host work
+    of the wrapper that per-call event timing includes.  The profiler
+    can lose a window's kernel records: a window without ``expect`` is
+    traced again, up to three times, and then reads NaN."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for ev in prof.key_averages():
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            if us > 0:
+                out[ev.key] = float(us) / runs / 1e3
+        if any(expect in k for k in out):
+            return out
+    return {f"{expect} (no record from the profiler)": float("nan")}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3):
@@ -495,7 +525,8 @@ def k1_bound(args: dict):
 def k2_cases(dev):
     """K = 300, 1024, 6144, 16384 and 2^18 over S = 16 segments with ragged
     num_docs (the tail past each carries the sentinel) and 5 % sentinel
-    entries; one hot bin at S = 1; an all-sentinel stream; an empty stream;
+    entries; one hot bin at S = 1; 8 hot bins at K = 2^18 (device-memory
+    counts, matched across the warp); an all-sentinel stream; an empty stream;
     a stream starting 4 bytes past an aligned address, of odd length, with
     indexes below 0 and above K."""
     g = torch.Generator(device="cpu").manual_seed(4321)
@@ -510,6 +541,11 @@ def k2_cases(dev):
     hot = torch.randint(0, 300, (1, 1 << 22), generator=g, dtype=torch.int32)
     hot[torch.rand((1, 1 << 22), generator=g) < 0.9] = 7
     cases["K300_S1_hot_bin"] = (hot.to(dev), 300)
+    # device-memory counts (K = 2^18), 90 % of the rows on 8 hot bins
+    wide = torch.randint(0, 1 << 18, (1, 1 << 22), generator=g, dtype=torch.int32)
+    on_hot = torch.rand((1, 1 << 22), generator=g) < 0.9
+    wide[on_hot] = torch.randint(0, 8, (int(on_hot.sum()),), generator=g, dtype=torch.int32) * 4099
+    cases["K262144_S1_8_hot_bins"] = (wide.to(dev), 1 << 18)
     cases["K16384_S1_all_sentinel"] = (torch.full((1, 1 << 20), 16384, dtype=torch.int32, device=dev), 16384)
     cases["K1024_empty"] = (torch.zeros(0, dtype=torch.int32, device=dev), 1024)
     odd = torch.randint(-3, 6147, ((1 << 20) + 7,), generator=g, dtype=torch.int32).to(dev)
@@ -517,31 +553,259 @@ def k2_cases(dev):
     return cases
 
 
-def compare_k2(vsc, idx, K: int) -> float:
-    """Kernel vs torch.bincount over the in-range entries and vs the plain
-    version: bit-equal, and two launches bit-identical.  Returns the
-    largest absolute difference from the plain version (0)."""
-    a = vsc.value_state_counts(idx, K)
-    b = vsc.value_state_counts(idx, K)
-    torch.cuda.synchronize()
-    if not torch.equal(a, b):
-        raise AssertionError("two launches of the value-state kernel differ")
+def compare_k2(vsc, idx, K: int) -> Tuple[float, List[str]]:
+    """The precombined form in every tier that takes K vs torch.bincount
+    over the in-range entries and vs the plain version: bit-equal, and
+    two launches bit-identical.  Returns the largest absolute difference
+    from the plain version (0) and the tiers checked."""
     flat = idx.reshape(-1)
     want = torch.bincount(flat[(flat >= 0) & (flat < K)], minlength=K)
-    if not torch.equal(a, want):
-        raise AssertionError(f"counts differ from torch.bincount (K={K})")
     ref = vsc.value_state_counts_reference(idx, K)
-    if not torch.equal(a, ref):
-        raise AssertionError(f"counts differ from the plain version (K={K})")
-    return float((a - ref).abs().max()) if K else 0.0
+    tiers = [t for t in vsc.MODE_TIERS["counts"] if vsc.tier_fits("counts", t, K)]
+    for tier in tiers:
+        a = vsc.value_state_counts(idx, K, tier=tier)
+        b = vsc.value_state_counts(idx, K, tier=tier)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"two launches of the value-state kernel differ (tier {tier})")
+        if not torch.equal(a, want):
+            raise AssertionError(f"counts differ from torch.bincount (K={K}, tier {tier})")
+        if not torch.equal(a, ref):
+            raise AssertionError(f"counts differ from the plain version (K={K}, tier {tier})")
+    return 0.0, tiers
 
 
-def k2_bound(idx, K: int):
-    """(bound ms, "bytes" or "operations", bytes, operations): each index
-    read once (4 B) and each int64 count written once; about three integer
-    operations per index (the range test and the add)."""
+def k2_index_bound(idx, K: int):
+    """The precombined form's (bound ms, "bytes" or "operations", bytes,
+    operations): each index read once (4 B) and each int64 count written
+    once; about three integer operations per index (the range test and
+    the add).  For a query this is the bound of the combined index the
+    route no longer builds ("old bound")."""
     nbytes = 4 * idx.numel() + 8 * K
     ops = 3 * idx.numel()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
+
+
+def k2_tables(args: dict) -> list:
+    """The lookup tables of a value_state call, in the kernel's order."""
+    return [*(args.get("group_remaps") or [])] + [args.get("value_table"), args.get("rho_table")]
+
+
+def k2_tiers(vsc, mode: str, args: dict) -> List[str]:
+    """Every tier of ``mode`` that takes these inputs."""
+    K = vsc.index_space(mode, args.get("capacity", 1), args.get("width"))
+    tb = vsc.shared_table_bytes(k2_tables(args))
+    mc = args["match"].shape[-1] if args.get("match") is not None else 0
+    return [t for t in vsc.MODE_TIERS[mode] if vsc.tier_fits(mode, t, K, tb, mc)]
+
+
+def compare_k2_value(vsc, mode: str, args: dict) -> List[str]:
+    """value_state in every tier that takes the inputs vs its plain
+    version on the same card tensors: docs and holder bit-equal, and two
+    launches bit-identical.  Returns the tiers checked."""
+    ref_docs, ref = vsc.value_state_reference(mode, **args)
+    tiers = k2_tiers(vsc, mode, args)
+    for tier in tiers:
+        a = vsc.value_state(mode, **args, tier=tier)
+        b = vsc.value_state(mode, **args, tier=tier)
+        torch.cuda.synchronize()
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            raise AssertionError(f"two launches of value_state differ ({mode}, tier {tier})")
+        if int(a[0]) != int(ref_docs):
+            raise AssertionError(f"{mode} tier {tier}: docs {int(a[0])} != {int(ref_docs)}")
+        if a[1].dtype != ref.dtype or not torch.equal(a[1], ref):
+            raise AssertionError(f"{mode} tier {tier}: holder differs from the plain version")
+    return tiers
+
+
+def check_k2_empty(vsc, dev) -> None:
+    """value_state over no rows, in each mode: zero holders of the plain
+    version's dtype and shape, and no launch."""
+    nd = torch.zeros(2, dtype=torch.int32, device=dev)
+    v = torch.zeros((2, 0), dtype=torch.uint8, device=dev)
+    for mode, kw in (("counts", dict(width=56, capacity=7)), ("presence", dict(width=64)),
+                     ("registers", dict(rho=v))):
+        before = vsc.launches
+        docs, holder = vsc.value_state(mode, nd, v, **kw)
+        ref_docs, ref = vsc.value_state_reference(mode, nd, v, **kw)
+        if vsc.launches != before:
+            raise AssertionError(f"value_state launched over no rows ({mode})")
+        if int(docs) != int(ref_docs) or holder.dtype != ref.dtype or not torch.equal(holder, ref):
+            raise AssertionError(f"value_state over no rows differs from the plain version ({mode})")
+
+
+def k2_value_cases(dev) -> Dict[str, Tuple[str, dict]]:
+    """value_state in each mode over each filter form (none, interval,
+    docrange with an unaligned start, match table, the {0, 1} mask), group
+    form (none, one uint8 column, two columns with a remap-fed int16) and
+    value form (int16 / int32 global ids, fwd + remap with ids past the
+    table, the uint8 (bucket, rho) streams, fwd + bucket / rho tables in
+    shared and in device memory), over 16 x 2^16 rows with ragged
+    num_docs and an empty segment; and n_pad 1000 / 1001 / 8 (the
+    one-row head and tail loop)."""
+    g = torch.Generator(device="cpu").manual_seed(2468)
+
+    def ints(S, n, hi, dt):
+        return torch.randint(0, hi, (S, n), generator=g, dtype=torch.int64).to(dt).to(dev)
+
+    def table(S, card, hi):
+        return torch.randint(0, hi, (S, card), generator=g, dtype=torch.int32).to(dev)
+
+    def nd(S, n):
+        docs = [n - (i * 997) % (n // 3 + 1) for i in range(S)]
+        if S > 1:
+            docs[S // 2] = 0  # an empty segment
+        return torch.tensor(docs, dtype=torch.int32, device=dev)
+
+    def filters(S, n):
+        mask = (torch.rand((S, n), generator=g) < 0.6).to(dev)
+        lo = torch.randint(0, n // 4, (S, 1), generator=g, dtype=torch.int32) * 4 + 1
+        return {
+            "none": {},
+            "mask": dict(filter_fwd=mask.view(torch.uint8), match=torch.tensor([[False, True]] * S, device=dev)),
+            "docrange": dict(filter_bounds=torch.cat([lo, lo + n // 2 + 3], dim=1).to(dev)),
+            "interval": dict(filter_fwd=ints(S, n, 300, torch.int16),
+                             filter_bounds=torch.tensor([[40, 220]] * S, dtype=torch.int32, device=dev)),
+            "table": dict(filter_fwd=ints(S, n, 7, torch.uint8),
+                          match=(torch.rand((S, 8), generator=g) < 0.5).to(dev)),
+        }
+
+    def groups(S, n):
+        return {
+            "scalar": dict(capacity=1),
+            "g1": dict(group_cols=[ints(S, n, 7, torch.uint8)], group_cards=[7], group_remaps=[None], capacity=7),
+            "g2remap": dict(group_cols=[ints(S, n, 3, torch.uint8), ints(S, n, 310, torch.int16)],
+                            group_cards=[3, 50], group_remaps=[None, table(S, 300, 50)], capacity=150),
+        }
+
+    cases = {}
+    S, n = 16, 1 << 16
+    F, G = filters(S, n), groups(S, n)
+    base = dict(num_docs=nd(S, n))
+    plan = [
+        # (mode, filter, group, value form)
+        ("counts", "none", "scalar", "i16gids_W2560"),
+        ("counts", "mask", "g1", "u8gids_W56"),
+        ("counts", "interval", "g2remap", "fwd_remap_W64"),
+        ("counts", "docrange", "scalar", "i32gids_W131072"),
+        ("counts", "table", "g1", "i16gids_W2560"),
+        ("presence", "interval", "scalar", "i32gids_W262144"),
+        ("presence", "none", "g1", "i16gids_W2560"),
+        ("presence", "table", "g2remap", "fwd_remap_W4096"),
+        ("presence", "docrange", "g1", "i32gids_W524288"),
+        ("presence", "mask", "scalar", "fwd_remap_W64"),
+        ("registers", "table", "scalar", "streams"),
+        ("registers", "mask", "g1", "streams"),
+        ("registers", "interval", "scalar", "fwd_tables_shared"),
+        ("registers", "none", "g2remap", "fwd_tables_global"),
+        ("registers", "docrange", "g1", "fwd_tables_shared"),
+    ]
+
+    def values(form, S, n):
+        if form.startswith(("i16gids", "i32gids", "u8gids")):
+            W = int(form.split("_W")[1])
+            dt = {"i16": torch.int16, "i32": torch.int32, "u8": torch.uint8}[form.split("gids")[0]]
+            return dict(values=ints(S, n, W, dt), width=W)
+        if form.startswith("fwd_remap"):
+            W = int(form.split("_W")[1])
+            return dict(values=ints(S, n, 510, torch.int16), value_table=table(S, 500, W), width=W)
+        if form == "streams":
+            return dict(values=ints(S, n, 256, torch.uint8), rho=ints(S, n, 33, torch.uint8))
+        card = 1000 if form == "fwd_tables_shared" else 8192  # 8 KB of tables in shared memory, 64 KB not
+        return dict(values=ints(S, n, card + 5, torch.int16 if card < 32767 else torch.int32),
+                    value_table=table(S, card, 256), rho_table=table(S, card, 40))
+
+    for mode, f, gr, v in plan:
+        cases[f"{mode}_{f}_{gr}_{v}_S16"] = (mode, {**base, **F[f], **G[gr], **values(v, S, n)})
+    # n_pad not a multiple of 16 (a partial chunk) and not of 4 (every row
+    # through the one-row loop), ragged num_docs with an empty segment
+    for n, mode in ((1000, "counts"), (1001, "presence"), (8, "registers"), (1001, "counts")):
+        S = 3
+        docs = torch.tensor([n, max(0, n - 5), 0], dtype=torch.int32, device=dev)
+        F, G = filters(S, n), groups(S, n)
+        v = values("streams" if mode == "registers" else "fwd_remap_W64", S, n)
+        cases[f"{mode}_npad{n}_interval_g2remap_S3"] = (mode, dict(num_docs=docs, **F["interval"], **G["g2remap"], **v))
+    return cases
+
+
+def k2_probe_shapes(dev) -> Dict[str, Tuple[str, dict]]:
+    """value_state inputs at the main path's four launch shapes
+    (SEGMENTS x ROWS_PER_SEGMENT, the lineitem cardinalities), made on the
+    card from a seed: hll_groupby's presence over int16 dates by a uint8
+    flag, distinct_price's presence over int32 prices under a uint8
+    interval, pct_quantity's histogram over uint8 quantities by a uint8
+    mode, hll_price's registers from the (bucket, rho) streams under a
+    match table; pct_quantity's shape with 90 % of the rows on one
+    quantity (7 hot bins), where the block histogram's shared atomics meet
+    on the same addresses; and the histogram of percentile90(
+    l_extendedprice), int64 counts over 2^18 price ids in device memory
+    (the global tier), uniform and with 90 % of the rows on 8 prices."""
+    g = torch.Generator(device=dev).manual_seed(98)
+    S, n = SEGMENTS, ROWS_PER_SEGMENT
+    ints = lambda hi, dt: torch.randint(0, hi, (S, n), generator=g, device=dev, dtype=torch.int64).to(dt)  # noqa: E731
+    nd = torch.full((S,), n, dtype=torch.int32, device=dev)
+    u8 = lambda hi: torch.randint(0, hi, (S, n), generator=g, device=dev, dtype=torch.uint8)  # noqa: E731
+    rho = torch.clamp(torch.distributions.Geometric(probs=torch.tensor(0.5, device=dev)).sample((S, n)), max=40)
+    match = torch.zeros((S, 8), dtype=torch.bool, device=dev)
+    match[:, 0] = True
+    return {
+        "hll_groupby": ("presence", dict(num_docs=nd, values=ints(2000, torch.int16), width=2048, capacity=3,
+                                         group_cols=[u8(3)], group_cards=[3], group_remaps=[None])),
+        "distinct_price": ("presence", dict(num_docs=nd, values=ints(258838, torch.int32), width=262144,
+                                            filter_fwd=u8(50),
+                                            filter_bounds=torch.tensor([[25, 50]] * S, dtype=torch.int32, device=dev))),
+        "pct_quantity": ("counts", dict(num_docs=nd, values=u8(50), width=56, capacity=7,
+                                        group_cols=[u8(7)], group_cards=[7], group_remaps=[None])),
+        "hll_price": ("registers", dict(num_docs=nd, values=u8(255), rho=(rho + 1).to(torch.uint8),
+                                        filter_fwd=u8(7), match=match)),
+        "pct_quantity_hot_bins": ("counts", dict(
+            num_docs=nd, values=torch.where(torch.rand((S, n), generator=g, device=dev) < 0.9, 0, u8(50)),
+            width=56, capacity=7, group_cols=[u8(7)], group_cards=[7], group_remaps=[None])),
+        "pct_price": ("counts", dict(num_docs=nd, values=ints(258838, torch.int32), width=262144)),
+        "pct_price_hot_bins": ("counts", dict(
+            num_docs=nd, values=torch.where(torch.rand((S, n), generator=g, device=dev) < 0.9,
+                                            ints(8, torch.int32) * 4099, ints(258838, torch.int32)),
+            width=262144)),
+    }
+
+
+def k2_bytes(vsc, mode: str, args: dict):
+    """(rows, bytes, bytes per row) value_state must read and move for
+    these inputs: every row it has to read (rows below num_docs, inside
+    the doc interval for docrange) once per stream it reads (filter,
+    group columns, values, rho), each table once, the holder written
+    once."""
+    nd = args["num_docs"].long().cpu()
+    n_pad = args["values"].shape[1]
+    per_row = 0
+    if args.get("filter_fwd") is None and args.get("filter_bounds") is not None:
+        b = args["filter_bounds"].long().cpu()
+        rows = int((torch.minimum(b[:, 1], nd) - b[:, 0].clamp(min=0)).clamp(min=0).sum())
+    else:
+        rows = int(nd.clamp(max=n_pad).sum())
+    for t in (args.get("filter_fwd"), *(args.get("group_cols") or []), args["values"], args.get("rho")):
+        if t is not None:
+            per_row += t.element_size()
+    tables = sum(t.numel() * t.element_size() for t in k2_tables(args) if t is not None)
+    if args.get("match") is not None:
+        tables += args["match"].numel()
+    K = vsc.index_space(mode, args.get("capacity", 1), args.get("width"))
+    out = 8 + (8 * K if mode == "counts" else 4 * K if mode == "presence" else K // 64)
+    return rows, rows * per_row + tables + out, per_row
+
+
+def k2_bound(vsc, mode: str, args: dict):
+    """(bound ms, "bytes" or "operations", bytes, operations): the bytes of
+    ``k2_bytes`` over the memory rate, or the integer operations per row
+    read (two for the filter test, a multiply and an add per group
+    column and for the value, two more for rho, the range test and the
+    update) over the non-tensor-core rate."""
+    rows, nbytes, _ = k2_bytes(vsc, mode, args)
+    per_row = (2 if args.get("filter_fwd") is not None else 0) + 2 * len(args.get("group_cols") or []) + 2 \
+        + (2 if mode == "registers" else 0) + 2
+    ops = rows * per_row
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -777,10 +1041,16 @@ def run(dev: torch.device, opts) -> int:
             record["k1_checks"][f"{mode}/{cname}"] = {"max_abs_err": err, "tiers": tiers}
     record["k2_checks"] = {}
     for cname, (idx, K) in k2_cases(dev).items():
-        err = compare_k2(vsc, idx, K)
-        log(f"k2 check {cname}: ok, equal to torch.bincount and the plain version, "
-            f"deterministic, max_abs_err {err:.6g}")
-        record["k2_checks"][cname] = err
+        err, tiers = compare_k2(vsc, idx, K)
+        log(f"k2 check precombined {cname}: ok in tiers {tiers}, equal to torch.bincount and the "
+            f"plain version, deterministic, max_abs_err {err:.6g}")
+        record["k2_checks"][f"precombined/{cname}"] = {"max_abs_err": err, "tiers": tiers}
+    for cname, (mode, args) in k2_value_cases(dev).items():
+        tiers = compare_k2_value(vsc, mode, args)
+        log(f"k2 check {cname}: ok in tiers {tiers}, bit-equal to the plain version, deterministic")
+        record["k2_checks"][cname] = {"max_abs_err": 0.0, "tiers": tiers}
+    check_k2_empty(vsc, dev)
+    log("k2 check empty input: zero holders in every mode, no launch")
     torch.cuda.synchronize()
     if opts.kernels_only:
         # every K1 tier at the main path's widths on data made on the card
@@ -790,6 +1060,26 @@ def run(dev: torch.device, opts) -> int:
                 ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args, tier=tier), ITERS)
                 log(f"k1 probe {pname} tier {tier}: {ms:.4f} ms (bound {bound:.4f} ms by {bound_by}, "
                     f"{nbytes / (ms / 1e3) / 1e12:.3f} TB/s)")
+            del args
+            torch.cuda.empty_cache()
+        # every K2 tier at the main path's four launch shapes, and the
+        # wrapper's host time per call
+        for pname, (mode, args) in k2_probe_shapes(dev).items():
+            bound, bound_by, nbytes, _ = k2_bound(vsc, mode, args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(50):
+                vsc.value_state(mode, **args)
+            host_ms = (time.perf_counter() - t) / 50 * 1e3
+            torch.cuda.synchronize()
+            log(f"k2 probe {pname}: host time of the wrapper {host_ms:.4f} ms per call (enqueue only)")
+            for tier in k2_tiers(vsc, mode, args):
+                ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args, tier=tier), ITERS)
+                dev_ms = device_ms(lambda: vsc.value_state(mode, **args, tier=tier))
+                kern = sum(v for k, v in dev_ms.items() if "value_state_kernel" in k)
+                log(f"k2 probe {pname} ({mode}) tier {tier}: {ms:.4f} ms per call, kernel {kern:.4f} ms "
+                    f"on the device, all device work {sum(dev_ms.values()):.4f} ms (bound {bound:.4f} ms by "
+                    f"{bound_by}, {bound / kern:.3f} of it, {nbytes / (kern / 1e3) / 1e12:.3f} TB/s)")
             del args
             torch.cuda.empty_cache()
         log(f"kernels only: build, checks and probes done in {time.perf_counter() - t_start:.1f} s")
@@ -816,6 +1106,7 @@ def run(dev: torch.device, opts) -> int:
         fg.launches = 0
         vsc.launches = 0
         kernel_mod.fused_dispatches = 0
+        kernel_mod.fused_value_dispatches = 0
         per_query = {}
         out = {}
         t = time.perf_counter()
@@ -851,9 +1142,22 @@ def run(dev: torch.device, opts) -> int:
         log(f"oracle {name}: ok (max rel sum err {worst:.3g})")
         record["oracle_max_rel_err"][name] = worst
 
-    # 3b. slice 2: the value-state queries, every one through K2
-    value_responses = drive("value_state", value_requests, segments,
-                            {n: ("k2",) for n in VALUE_QUERIES})
+    # 3b. the value-state queries, every one through K2 on the fused value
+    # route: K2 combines the index (and K1 the group key) inside the
+    # kernel, so neither torch-op combine may run
+    def no_index_combine(*a, **k):
+        raise AssertionError("the fused value route combined the index with torch ops")
+
+    real_combine, vsc.combine_index = vsc.combine_index, no_index_combine
+    kernel_mod._group_keys = no_key_combine
+    try:
+        value_responses = drive("value_state", value_requests, segments,
+                                {n: ("k2",) for n in VALUE_QUERIES})
+    finally:
+        kernel_mod._group_keys, vsc.combine_index = real_group_keys, real_combine
+    if kernel_mod.fused_value_dispatches != len(VALUE_QUERIES):
+        raise AssertionError(f"{kernel_mod.fused_value_dispatches} fused value dispatches for "
+                             f"{len(VALUE_QUERIES)} queries")
     for name in VALUE_QUERIES:
         check_value_response(value_responses[name], value_oracle(hll_mod, segments, name))
         log(f"oracle {name}: ok, exact ({value_responses[name].aggregation_results[0].to_json()})"[:400])
@@ -927,9 +1231,12 @@ def run(dev: torch.device, opts) -> int:
             fg.fused_filtered_groupby_sums, kernel_mod._group_keys = restore
         a, k = captured["k1"]
         args = {**dict(zip(names, a)), **k}
-        fused = name in QUERIES
-        if fused and (args["group_keys"] is not None or "keys" in captured):
-            raise AssertionError(f"{name}: the fused route did not hand K1 the group columns")
+        # the fused routes (and the torch-op route, whose K1 launch takes
+        # the group columns too) hand K1 the group columns; only the fused
+        # routes build no precombined key at all
+        fused = name in QUERIES or name in ("hll_groupby", "pct_quantity")
+        if args["group_keys"] is not None or (fused and "keys" in captured):
+            raise AssertionError(f"{name}: the route did not hand K1 the group columns")
         err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
         tier = fg.choose_tier(*k1_shape(fg, args))
         k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
@@ -949,7 +1256,7 @@ def run(dev: torch.device, opts) -> int:
             log(f"k1 q1 yardstick: torch.sum over one {raw_bytes} B float32 stream {read_ms:.4f} ms, "
                 f"{raw_bytes / (read_ms / 1e3) / 1e12:.3f} TB/s")
         key_form = ("group_cols " + "+".join(str(g.dtype).replace("torch.", "") for g in args["group_cols"])
-                    if fused else "precombined int32 key")
+                    + ("" if fused else ", key combine still run for min/max or the HLL sort"))
         log(f"k1 {name} ({key_form}, K={args['capacity']}, nv={len(args['value_dicts'])}, tier {tier}): "
             f"{k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; "
             f"{bound / k_ms:.3f} of the bound, {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), tiers "
@@ -959,30 +1266,56 @@ def run(dev: torch.device, opts) -> int:
                                   bound_by=bound_by, bytes=nbytes, operations=ops, key_combine_ms=key_ms,
                                   key_form=key_form, max_abs_err=err, stream_read_ms=read_ms)
 
+    # K2 at each of its four launch shapes on the main path, as the fused
+    # value route hands it the streams; beside it the torch-op combine the
+    # route no longer runs, and over that combined index the precombined
+    # form and torch.bincount
     record["k2"] = {}
     for name, req in value_requests.items():
-        restore = (_capture(vsc, "value_state_counts", captured, "k2"),
-                   _capture(kernel_mod, "_value_state_index", captured, "index"))
+        captured.clear()
+        restore = _capture(vsc, "value_state", captured, "k2")
         try:
             ex.execute(segments, req)
         finally:
-            vsc.value_state_counts, kernel_mod._value_state_index = restore
-        (idx, K), _ = captured["k2"]
-        err = compare_k2(vsc, idx, K)
-        k_ms, _ = cuda_ms(lambda: vsc.value_state_counts(idx, K), ITERS)
-        p_ms, _ = cuda_ms(lambda: vsc.value_state_counts_reference(idx, K), ITERS)
+            vsc.value_state = restore
+        (mode, *rest), kw = captured["k2"]
+        args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+        tiers = compare_k2_value(vsc, mode, args)
+        tier = vsc.choose_tier(mode, vsc.index_space(mode, args["capacity"], args.get("width")),
+                               vsc.shared_table_bytes(k2_tables(args)),
+                               args["match"].shape[-1] if args.get("match") is not None else 0)
+        # per-call CUDA events, as for K1 (the wrapper's host work up to
+        # the launch included); beside them the device time (zero fill,
+        # kernel, finish) from torch.profiler, by which the tiers compare
+        k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+        dev_ms = sum(device_ms(lambda: vsc.value_state(mode, **args)).values())
+        tier_ms = {t: sum(device_ms(lambda: vsc.value_state(mode, **args, tier=t)).values()) for t in tiers}
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), ITERS)
+        comb_ms, _ = cuda_ms(lambda: vsc.combine_index(mode, **args), ITERS)
+        idx, K, _ = vsc.combine_index(mode, **args)
+        counts = vsc.value_state_counts(idx, K)
+        if not torch.equal(vsc.holder_from_counts(mode, counts), vsc.value_state(mode, **args)[1]):
+            raise AssertionError(f"k2 {name}: the fused holder differs from the precombined counts")
+        pre_ms, _ = cuda_ms(lambda: vsc.value_state_counts(idx, K), ITERS)
+        pre_dev_ms = sum(device_ms(lambda: vsc.value_state_counts(idx, K)).values())
         lib_ms, _ = cuda_ms(lambda: torch.bincount(idx.reshape(-1), minlength=K + 1)[:K], ITERS)
-        ia, ik = captured["index"]
-        idx_ms, _ = cuda_ms(lambda: restore[1](*ia, **ik), ITERS)
-        bound, bound_by, nbytes, ops = k2_bound(idx, K)
-        route = "shared" if vsc.uses_shared_memory(K) else "global"
-        log(f"k2 {name}: K={K} ({route}), {idx.numel()} indexes: {k_ms:.4f} ms (bound {bound:.4f} ms "
-            f"by {bound_by}: {nbytes} bytes, {ops} operations; {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), "
-            f"plain {p_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms, index combine {idx_ms:.4f} ms, "
-            f"max_abs_err {err:.6g}")
-        record["k2"][name] = dict(K=K, route=route, indexes=idx.numel(), ms=k_ms, plain_ms=p_ms,
-                                  library_ms=lib_ms, index_combine_ms=idx_ms, bound_ms=bound,
-                                  bound_by=bound_by, bytes=nbytes, operations=ops, max_abs_err=err)
+        bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args)
+        old_bound = k2_index_bound(idx, K)[0]
+        del idx, counts
+        log(f"k2 {name} ({mode}, K={K}, tier {tier}): {k_ms:.4f} ms per call, {dev_ms:.4f} ms on the device "
+            f"(bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; per call {bound / k_ms:.3f} "
+            f"of it, on the device {bound / dev_ms:.3f}, {nbytes / (dev_ms / 1e3) / 1e12:.3f} TB/s; old bound "
+            f"over the combined index {old_bound:.4f} ms, {old_bound / dev_ms:.3f} of the device time), tiers "
+            f"on the device { {t: round(v, 4) for t, v in tier_ms.items()} }, plain {p_ms:.4f} ms, plain int64 "
+            f"torch-op combine {comb_ms:.4f} ms (not run by the route), precombined form {pre_ms:.4f} ms per "
+            f"call, {pre_dev_ms:.4f} ms on the device, torch.bincount {lib_ms:.4f} ms, max_abs_err 0")
+        record["k2"][name] = dict(mode=mode, K=K, tier=tier, tier_ms=tier_ms, ms=k_ms, device_ms=dev_ms,
+                                  plain_ms=p_ms, library_ms=lib_ms, precombined_ms=pre_ms,
+                                  precombined_device_ms=pre_dev_ms, combine_ms=comb_ms, bound_ms=bound,
+                                  old_bound_ms=old_bound, bound_by=bound_by, bytes=nbytes, operations=ops,
+                                  max_abs_err=0.0)
+        del args
+        torch.cuda.empty_cache()
 
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():

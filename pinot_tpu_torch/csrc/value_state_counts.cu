@@ -1,150 +1,665 @@
-// Occupancy histogram of an int32 index stream, for Hopper (sm_90a).
+// Value-state holders (occupancy counts, presence bits, HLL registers) over
+// stacked segments, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_value_state_counts_pallas` in
 // pinot_tpu/engine/kernel.py (the function at line 130, whose
-// pl.pallas_call is at line 170):
+// pl.pallas_call is at line 170).  The TPU kernel counts a combined int32
+// index that jnp ops built beforehand; this kernel builds the index itself
+// from the streams the table kernel has staged.  Per segment s of S, per
+// row i below num_docs[s] that passes the filter:
 //
-//   counts[k] = #{ i : idx[i] == k }      for k in [0, K)
+//   filter  = a dictId interval, a uint8 match table over dictIds, or an
+//             interval on the row index (docrange; no filter at all is the
+//             docrange [0, n_pad))
+//   slot    = the mixed radix ((g0*c1 + g1)*c2 + g2)... of up to four group
+//             columns, each a global-id stream or a local fwd stream read
+//             through a per-segment remap table (0 with no group-by)
+//   idx     = slot * width + v                      counts, presence
+//             (slot * HLL_M + bucket) * 64 + rho    registers
+//   where v is the value's global id (its stream, or its fwd through a
+//   remap table) and (bucket, rho) come from the per-row uint8 streams or
+//   from per-dictId tables through the fwd stream.
 //
-// Indexes outside [0, K) are dropped; the callers mark masked rows with the
-// sentinel K.  The stream is a flattened [S, n_pad] stack, so one launch
-// counts every segment: the value-state reducers over the segment axis are
-// max (presence, registers) and sum (histograms), and all three fall out
-// of the summed counts.  Counts are exact 64-bit integers.
+// Indexes outside [0, K) drop, exactly as the sentinel K drops in the TPU
+// kernel, so each holder equals what the occupancy counts of the combined
+// index give:
+//   counts     int64 counts[K]                      (histograms)
+//   presence   int32 [K], 1 where counts > 0        (distinct counts)
+//   registers  uint8 [K / 64], the largest rho whose count is > 0 per
+//              (slot, bucket) register              (HLL)
+// plus the matched-doc total (filter & valid).  The precombined form (one
+// int32 index stream, no filter, no group-by, width K) is the TPU kernel.
 //
-// Bound on the card: memory.  Each element is 4 bytes read and about five
-// integer operations, so the least time is (4 n + 8 K) bytes / 3.35 TB/s.
-// What the design does about it:
-//   * one pass over the stream with 16-byte (int4) loads, so enough bytes
-//     are in flight per thread to approach the memory rate;
-//   * while 4 K bytes fit one block's shared memory (K <= 58112), each
-//     block keeps an int32 sub-histogram there and flushes it once, with
-//     int64 atomics on the nonzero bins only; above that the block adds
-//     straight into the int64 output, which for K = 2^18 is 2 MB and stays
-//     in the 50 MB L2;
-//   * hot bins: a warp groups its lanes by index (__match_any_sync) and the
-//     group's first lane adds the group's size, so 32 equal indexes cost one
-//     atomic, not 32;
-//   * integer atomics only: the result is the same on every launch.
+// Bound on the card: memory.  Each row costs its streams' bytes (1-4 B per
+// stream; 2-5 B per row on the main path) and a handful of integer
+// operations.  What the design does about it:
+//   * the index is combined in registers from the narrow streams: no
+//     int32 index, mask or key is materialised in device memory;
+//   * K1's streaming (csrc/fused_groupby.cu): each lane owns 4 slabs of 4
+//     consecutive rows per iteration, read with one vector load per slab,
+//     and the kernel is compiled for 4 resident 256-thread blocks per SM;
+//     rows past num_docs and outside a docrange are never read, and when a
+//     lane's filter passes none of its 16 rows it reads nothing else;
+//   * no warp collective per row in shared memory: each update is one
+//     shared-memory operation (only the global counts tier matches equal
+//     indexes across the warp, so that a hot bin in device memory takes
+//     one int64 atomic per warp, not one per row), and the idempotent
+//     holders need no atomic per row:
+//       presence   a byte map, each row storing 1 to its byte; or a bitmap,
+//                  where a row reads its word and issues atomicOr only
+//                  when its bit is clear
+//       registers  a byte map over (register, rho), each row storing 1 to
+//                  its byte, the largest rho found when the block
+//                  flushes; or int32 registers, atomicMax only when rho
+//                  is larger
+//     so once a block has seen a value, its later rows issue no atomic;
+//     a dropped row updates the lane's own trash word in shared memory
+//     instead (an address select, not a branch), and a lane's whole
+//     chunks (every slab in range) load with no per-slab test;
+//   * the holder's tier, picked by the wrapper from the mode and K:
+//       byte    presence, registers: a byte per index in shared memory
+//       block   one int32 histogram, bitmap or register file per block in
+//               shared memory (a bitmap of 2^18 bits is 32 KB)
+//       global  the holder in device memory (it stays in the 50 MB L2)
+//     Shared holders are flushed once per block: int64 atomics on nonzero
+//     bins, atomicOr on words and atomicMax on registers that add
+//     something;
+//   * lookup tables (remaps, HLL bucket and rho tables) sit in shared
+//     memory when they are small, else are read from device memory;
+//   * integer add, OR and max only: a launch's holders are the same on
+//     every launch whatever the grid.
 // The TPU version's two generated one-hots contracted on the MXU exist only
 // because the TPU has no scatter; neither is carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kGroupMax = 4;
+constexpr int kTables = kGroupMax + 2;  // group remaps, value table, rho table
+constexpr int kValueTable = kGroupMax;
+constexpr int kRhoTable = kGroupMax + 1;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSlab = 4;                 // rows per lane per slab
+constexpr int kSlabs = 4;                // slabs per lane per iteration
+constexpr int kRows = kSlab * kSlabs;    // rows per lane per iteration
+constexpr int kSlabStride = 32 * kSlab;  // rows between a lane's slabs
+constexpr int kChunk = 32 * kRows;       // rows per warp per iteration
+constexpr unsigned kHllM = 256;          // HLL registers per slot (engine/config.py HLL_M)
+constexpr unsigned kRho = 64;            // rho lanes per register
 
-template <bool kShared>
-__device__ __forceinline__ void count_one(int v, int K, int lane, int* s_hist,
-                                          unsigned long long* out) {
-  if (v < 0 || v >= K) v = -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, v);
-  if (v >= 0 && lane == __ffs(peers) - 1) {
-    const int c = __popc(peers);
-    if (kShared) {
-      atomicAdd(&s_hist[v], c);
-    } else {
-      atomicAdd(&out[v], static_cast<unsigned long long>(c));
+enum FilterKind { kInterval = 0, kDocrange = 1, kTable = 2 };
+enum Code { kU8 = 0, kI16 = 1, kI32 = 2 };
+enum Mode { kCounts = 0, kPresence = 1, kRegisters = 2 };
+enum Tier { kBlock = 0, kGlobal = 1, kByte = 2 };
+
+struct Params {
+  const void* filter_fwd;   // [S, n_pad] F (interval, table)
+  const int32_t* bounds;    // [S, 2] (interval: dictIds, docrange: rows; null: no filter)
+  const uint8_t* match;     // [S, match_card] (table)
+  int match_card;
+  const int32_t* num_docs;  // [S], or null: every row is valid
+  long long n_pad;
+  int ng;
+  const void* gptr[kGroupMax];  // [S, n_pad] group id streams
+  int gcode[kGroupMax];
+  unsigned gcard[kGroupMax];    // radices
+  const void* vptr;             // [S, n_pad] value ids, HLL buckets or fwd
+  int vcode;
+  const uint8_t* rptr;          // [S, n_pad] HLL rho stream, or null
+  const int32_t* tab[kTables];  // [S, tab_card] lookup tables, or null
+  int tab_card[kTables];
+  int tab_off[kTables];         // offset in shared memory when tab_shared
+  int tab_shared;
+  int tab_total;
+  unsigned width;               // values per slot (counts, presence)
+  unsigned K;                   // size of the combined index space
+  int blocks_per_seg;
+  int vec_ok;
+  unsigned long long* counts;   // [K] (counts)
+  unsigned* bits;               // [ceil(K / 32)] zero at launch (presence)
+  int* regs;                    // [K / 64] zero at launch (registers)
+  unsigned long long* docs;     // [1] zero at launch
+};
+
+// Words of the block's holder in shared memory (after the tables); the
+// layout shared_bytes() in engine/kernels/value_state_counts.py counts.
+template <int MODE, int TIER>
+__device__ __forceinline__ unsigned state_words(unsigned K) {
+  if (TIER == kGlobal) return 0;
+  if (MODE == kCounts) return K;
+  if (TIER == kByte) return (K + 3) / 4;
+  if (MODE == kPresence) return (K + 31) / 32;
+  return K / kRho;
+}
+
+// ---- loads: 4 consecutive rows starting at row r (r % 4 == 0, aligned)
+
+__device__ __forceinline__ void load4(const uint8_t* p, long long r, int* out) {
+  const unsigned w = __ldg(reinterpret_cast<const unsigned int*>(p + r));
+  out[0] = w & 0xff;
+  out[1] = (w >> 8) & 0xff;
+  out[2] = (w >> 16) & 0xff;
+  out[3] = w >> 24;
+}
+__device__ __forceinline__ void load4(const int16_t* p, long long r, int* out) {
+  const uint2 w = __ldg(reinterpret_cast<const uint2*>(p + r));
+  out[0] = static_cast<int16_t>(w.x & 0xffff);
+  out[1] = static_cast<int16_t>(w.x >> 16);
+  out[2] = static_cast<int16_t>(w.y & 0xffff);
+  out[3] = static_cast<int16_t>(w.y >> 16);
+}
+__device__ __forceinline__ void load4(const int32_t* p, long long r, int* out) {
+  const int4 w = __ldg(reinterpret_cast<const int4*>(p + r));
+  out[0] = w.x;
+  out[1] = w.y;
+  out[2] = w.z;
+  out[3] = w.w;
+}
+
+// N rows of a stream of type T: N == kRows takes the lane's 4 slabs (slab
+// q starts at r0 + q * kSlabStride, read when bit q of sok is set, or
+// always when FULL), N == 1 the one row r0 (read when bit 0 of sok is
+// set); rows not read are 0.
+template <typename T, int N, bool FULL>
+__device__ __forceinline__ void load_rows(const void* ptr, long long r0, unsigned sok, int (&out)[N]) {
+  const T* p = static_cast<const T*>(ptr);
+  if constexpr (N == 1) {
+    out[0] = (sok & 1) ? static_cast<int>(p[r0]) : 0;
+  } else {
+#pragma unroll
+    for (int q = 0; q < kSlabs; ++q) {
+      if (FULL || (sok >> q & 1)) {
+        load4(p, r0 + q * kSlabStride, &out[q * kSlab]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < kSlab; ++e) out[q * kSlab + e] = 0;
+      }
     }
   }
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kThreads)
-value_state_counts_kernel(const int32_t* __restrict__ idx, long long n, int K,
-                          unsigned long long* __restrict__ out) {
-  extern __shared__ int s_hist[];  // [K], kShared only
+template <int N, bool FULL>
+__device__ __forceinline__ void load_ids(const void* ptr, int code, long long r0, unsigned sok,
+                                         int (&out)[N]) {
+  switch (code) {
+    case kU8: load_rows<uint8_t, N, FULL>(ptr, r0, sok, out); break;
+    case kI16: load_rows<int16_t, N, FULL>(ptr, r0, sok, out); break;
+    default: load_rows<int32_t, N, FULL>(ptr, r0, sok, out); break;
+  }
+}
+
+// The lane's own word of shared memory that a dropped row updates instead
+// of the holder, so that a shared update is never under a branch; its
+// value leaves the test-before-update tiers with nothing to do.
+template <int MODE, int TIER>
+__device__ __forceinline__ int trash_init() {
+  if (TIER == kByte || MODE == kCounts) return 0;
+  return MODE == kPresence ? -1 : static_cast<int>(kRho);  // every bit set / above every rho
+}
+
+// ---- one update of the holder at the combined index idx (used when ok)
+template <int MODE, int TIER>
+__device__ __forceinline__ void update(const Params& p, int* hold, int* trash, unsigned idx, bool ok) {
+  if (TIER == kGlobal) {  // counts: matched across the warp in process()
+    if (!ok) return;
+    if (MODE == kPresence) {
+      const unsigned bit = __funnelshift_l(0u, 1u, idx);  // 1 << (idx % 32)
+      unsigned* w = p.bits + (idx >> 5);
+      if (!(__ldcg(w) & bit)) atomicOr(w, bit);
+    } else {
+      const int rho = static_cast<int>(idx & (kRho - 1));
+      int* reg = p.regs + idx / kRho;
+      if (rho > __ldcg(reg)) atomicMax(reg, rho);
+    }
+  } else if (MODE == kCounts) {
+    atomicAdd(ok ? hold + idx : trash, 1);
+  } else if (TIER == kByte) {  // presence or registers: every writer stores 1, no race to lose
+    *(ok ? reinterpret_cast<uint8_t*>(hold) + idx : reinterpret_cast<uint8_t*>(trash)) = 1;
+  } else if (MODE == kPresence) {
+    const unsigned bit = __funnelshift_l(0u, 1u, idx);
+    unsigned* w = ok ? reinterpret_cast<unsigned*>(hold) + (idx >> 5) : reinterpret_cast<unsigned*>(trash);
+    if (!(*w & bit)) atomicOr(w, bit);
+  } else {
+    const int rho = static_cast<int>(idx & (kRho - 1));
+    int* reg = ok ? hold + idx / kRho : trash;
+    if (rho > *reg) atomicMax(reg, rho);
+  }
+}
+
+// N rows of one lane: filter, combine the index in registers, update the
+// holder.  FULL: every slab of the lane is in range (sok is all ones).
+// Returns the number of rows that passed the filter.
+template <typename F, int FILTER, int MODE, int TIER, int N, bool FULL>
+__device__ __forceinline__ int process(const Params& p, const int32_t* const* tabs, const uint8_t* match,
+                                       int* hold, int* trash, long long r0, unsigned sok, int flo,
+                                       int fhi) {
+  // global counts match equal indexes across the warp before the atomic:
+  // every lane of the warp takes the 16-row path together, the one-row
+  // paths match over the lanes that are there
+  constexpr bool kMatch = MODE == kCounts && TIER == kGlobal;
+  const unsigned warp_mask = (kMatch && N == 1) ? __activemask() : 0xffffffffu;
+  unsigned hit = 0;
+  if (FILTER == kDocrange) {
+    if constexpr (N == 1) {
+      hit = sok & 1;
+    } else if constexpr (FULL) {
+      hit = (1u << N) - 1;
+    } else {
+#pragma unroll
+      for (int q = 0; q < kSlabs; ++q)
+        if (sok >> q & 1) hit |= 0xfu << (q * kSlab);
+    }
+  } else {
+    int f[N];
+    load_rows<F, N, FULL>(p.filter_fwd, r0, sok, f);
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const bool in = FULL || ((N == 1 ? sok : sok >> (e / kSlab)) & 1);
+      bool pass;
+      if (FILTER == kInterval) pass = f[e] >= flo && f[e] < fhi;
+      else pass = f[e] >= 0 && f[e] < p.match_card && match[f[e]] != 0;
+      if (in && pass) hit |= 1u << e;
+    }
+  }
+  // nothing passed: the lane (the warp, where it matches) reads no other stream
+  if (kMatch ? __all_sync(warp_mask, hit == 0) : hit == 0) return 0;
+
+  unsigned idx[N];
+  unsigned bad = 0;
+#pragma unroll
+  for (int e = 0; e < N; ++e) idx[e] = 0;
+  for (int c = 0; c < p.ng; ++c) {
+    int g[N];
+    load_ids<N, FULL>(p.gptr[c], p.gcode[c], r0, sok, g);
+    const int32_t* rm = tabs[c];
+    if (rm != nullptr) {
+      const unsigned rc = p.tab_card[c];
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (static_cast<unsigned>(g[e]) < rc) g[e] = rm[g[e]];
+        else bad |= 1u << e;
+      }
+    }
+    const unsigned card = p.gcard[c];
+#pragma unroll
+    for (int e = 0; e < N; ++e) idx[e] = idx[e] * card + static_cast<unsigned>(g[e]);
+  }
+
+  int x[N];
+  load_ids<N, FULL>(p.vptr, p.vcode, r0, sok, x);
+  const int32_t* ta = tabs[kValueTable];
+  const unsigned tcard = p.tab_card[kValueTable];
+  if (MODE != kRegisters) {
+    if (ta != nullptr) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (static_cast<unsigned>(x[e]) < tcard) x[e] = ta[x[e]];
+        else bad |= 1u << e;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) idx[e] = idx[e] * p.width + static_cast<unsigned>(x[e]);
+  } else {
+    int rho[N];
+    if (p.rptr != nullptr) {
+      load_rows<uint8_t, N, FULL>(p.rptr, r0, sok, rho);
+    } else {  // bucket and rho through the per-dictId tables
+      const int32_t* tb = tabs[kRhoTable];
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        if (static_cast<unsigned>(x[e]) < tcard) {
+          rho[e] = tb[x[e]];
+          x[e] = ta[x[e]];
+        } else {
+          rho[e] = 0;
+          bad |= 1u << e;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e)
+      idx[e] = (idx[e] * kHllM + static_cast<unsigned>(x[e])) * kRho + static_cast<unsigned>(rho[e]);
+  }
+
+  const unsigned ok = hit & ~bad;
+  if constexpr (kMatch) {
+    // one int64 atomic per distinct index of the warp, from its lowest
+    // lane; dropped rows carry 0xffffffff, above every K
+    const unsigned lane = threadIdx.x & 31;
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const bool take = (ok >> e & 1) && idx[e] < p.K;
+      const unsigned peers = __match_any_sync(warp_mask, take ? idx[e] : 0xffffffffu);
+      if (take && static_cast<unsigned>(__ffs(peers) - 1) == lane)
+        atomicAdd(p.counts + idx[e], static_cast<unsigned long long>(__popc(peers)));
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < N; ++e) update<MODE, TIER>(p, hold, trash, idx[e], (ok >> e & 1) && idx[e] < p.K);
+  }
+  return __popc(hit);
+}
+
+template <typename F, int FILTER, int MODE, int TIER>
+__global__ void __launch_bounds__(kThreads, 4)
+value_state_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ const int32_t* s_tab[kTables];
+  __shared__ int s_docs;
+  __shared__ int s_trash[kThreads];
+  int* tabs_smem = reinterpret_cast<int*>(smem);
+  int* state = tabs_smem + (p.tab_shared ? p.tab_total : 0);
+  const unsigned nstate = state_words<MODE, TIER>(p.K);
+  uint8_t* match = reinterpret_cast<uint8_t*>(state + nstate);
+  const int s = blockIdx.y;
+  const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  if (kShared) {
-    for (int k = tid; k < K; k += kThreads) s_hist[k] = 0;
-    __syncthreads();
-  }
 
-  // 4-element vectors; the loop bound depends on the warp only, so every
-  // lane of a warp runs the same iterations and the warp-collective
-  // __match_any_sync calls are converged
-  const int4* idx4 = reinterpret_cast<const int4*>(idx);
-  const long long n4 = n >> 2;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long base = static_cast<long long>(blockIdx.x) * kThreads + warp * 32; base < n4;
-       base += stride) {
-    const long long i = base + lane;
-    int4 q = make_int4(-1, -1, -1, -1);
-    if (i < n4) q = idx4[i];
-    count_one<kShared>(q.x, K, lane, s_hist, out);
-    count_one<kShared>(q.y, K, lane, s_hist, out);
-    count_one<kShared>(q.z, K, lane, s_hist, out);
-    count_one<kShared>(q.w, K, lane, s_hist, out);
+  for (unsigned i = tid; i < nstate; i += kThreads) state[i] = 0;
+  if (tid == 0) s_docs = 0;
+  s_trash[tid] = trash_init<MODE, TIER>();
+  for (int t = 0; t < kTables; ++t) {
+    const int32_t* src = p.tab[t];
+    if (src == nullptr) {
+      if (tid == 0) s_tab[t] = nullptr;
+      continue;
+    }
+    src += (long long)s * p.tab_card[t];
+    if (p.tab_shared) {
+      int* dst = tabs_smem + p.tab_off[t];
+      for (int i = tid; i < p.tab_card[t]; i += kThreads) dst[i] = src[i];
+      if (tid == 0) s_tab[t] = dst;
+    } else if (tid == 0) {
+      s_tab[t] = src;
+    }
   }
-  // the last n % 4 elements: the first warp of the first block
-  if (blockIdx.x == 0 && warp == 0) {
-    const long long i = (n4 << 2) + lane;
-    count_one<kShared>(i < n ? idx[i] : -1, K, lane, s_hist, out);
+  if (FILTER == kTable) {
+    const uint8_t* m = p.match + (long long)s * p.match_card;
+    for (int i = tid; i < p.match_card; i += kThreads) match[i] = m[i];
   }
+  __syncthreads();
 
-  if (kShared) {
-    __syncthreads();
-    for (int k = tid; k < K; k += kThreads) {
-      const int c = s_hist[k];
-      if (c != 0) atomicAdd(&out[k], static_cast<unsigned long long>(c));
+  const long long n_pad = p.n_pad;
+  long long lo = 0;
+  long long hi = p.num_docs ? min((long long)p.num_docs[s], n_pad) : n_pad;
+  int flo = 0, fhi = 0;
+  if (FILTER == kDocrange && p.bounds != nullptr) {
+    lo = max(lo, (long long)p.bounds[2 * s]);
+    hi = min(hi, (long long)p.bounds[2 * s + 1]);
+  } else if (FILTER == kInterval) {
+    flo = p.bounds[2 * s];
+    fhi = p.bounds[2 * s + 1];
+  }
+  if (hi < lo) hi = lo;
+  // [lo, a) head and [bb, hi) tail: one row per lane; [a, bb): 4-row slabs
+  long long a = hi, bb = hi;
+  if (p.vec_ok) {
+    a = min((lo + kSlab - 1) & ~(long long)(kSlab - 1), hi);
+    bb = max(a, hi & ~(long long)(kSlab - 1));
+  }
+  const long long off = (long long)s * n_pad;
+  const int gw = b * kWarps + warp;
+  const int nw = p.blocks_per_seg * kWarps;
+  int* trash = s_trash + tid;
+  int my_docs = 0;
+
+  // whole chunks, every slab in range; then at most one partial chunk
+  long long c0 = a + (long long)gw * kChunk;
+  for (; c0 + kChunk <= bb; c0 += (long long)nw * kChunk)
+    my_docs += process<F, FILTER, MODE, TIER, kRows, true>(p, s_tab, match, state, trash,
+                                                          off + c0 + lane * kSlab, 0xfu, flo, fhi);
+  if (c0 < bb) {
+    unsigned sok = 0;
+#pragma unroll
+    for (int q = 0; q < kSlabs; ++q)
+      if (c0 + lane * kSlab + q * kSlabStride < bb) sok |= 1u << q;
+    my_docs += process<F, FILTER, MODE, TIER, kRows, false>(p, s_tab, match, state, trash,
+                                                           off + c0 + lane * kSlab, sok, flo, fhi);
+  }
+  for (long long r = lo + (long long)gw * 32 + lane; r < a; r += (long long)nw * 32)
+    my_docs += process<F, FILTER, MODE, TIER, 1, false>(p, s_tab, match, state, trash, off + r, 1u, flo, fhi);
+  for (long long r = bb + (long long)gw * 32 + lane; r < hi; r += (long long)nw * 32)
+    my_docs += process<F, FILTER, MODE, TIER, 1, false>(p, s_tab, match, state, trash, off + r, 1u, flo, fhi);
+
+  // ---- flush: docs, then the block's holder into the device holder
+  my_docs = __reduce_add_sync(0xffffffffu, my_docs);
+  if (lane == 0 && my_docs) atomicAdd(&s_docs, my_docs);
+  __syncthreads();
+  if (tid == 0 && s_docs) atomicAdd(p.docs, static_cast<unsigned long long>(s_docs));
+  if (TIER == kGlobal) return;
+  if (MODE == kCounts) {
+    for (unsigned k = tid; k < p.K; k += kThreads) {
+      const unsigned c = state[k];
+      if (c) atomicAdd(p.counts + k, static_cast<unsigned long long>(c));
+    }
+  } else if (MODE == kPresence) {
+    const unsigned* bits = reinterpret_cast<const unsigned*>(state);
+    const uint8_t* bytes = reinterpret_cast<const uint8_t*>(state);
+    for (unsigned w = tid; w < (p.K + 31) / 32; w += kThreads) {
+      unsigned v = 0;
+      if (TIER == kByte) {
+        for (unsigned j = 0; j < 32 && w * 32 + j < p.K; ++j) v |= static_cast<unsigned>(bytes[w * 32 + j]) << j;
+      } else {
+        v = bits[w];
+      }
+      if (v && (v & ~__ldcg(p.bits + w))) atomicOr(p.bits + w, v);
+    }
+  } else {
+    for (unsigned c = tid; c < p.K / kRho; c += kThreads) {
+      int v = 0;
+      if (TIER == kByte) {  // the largest rho whose byte is set: 16 words of 4 bytes per register
+        const unsigned* w = reinterpret_cast<const unsigned*>(state) + c * (kRho / 4);
+        for (int j = kRho / 4 - 1; j >= 0; --j) {
+          if (w[j]) {
+            v = 4 * j + (31 - __clz(w[j])) / 8;
+            break;
+          }
+        }
+      } else {
+        v = state[c];
+      }
+      if (v > 0 && v > __ldcg(p.regs + c)) atomicMax(p.regs + c, v);
     }
   }
 }
 
-template <bool kShared>
-cudaError_t launch(const int32_t* idx, long long n, int K, unsigned long long* out,
-                   size_t smem, cudaStream_t stream) {
-  auto kern = value_state_counts_kernel<kShared>;
-  cudaError_t err = cudaSuccess;
-  if (kShared) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  int dev = 0, sms = 0, per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  // as many blocks as fit the card at once, and no more than the stream
-  // has vectors for (the counts do not depend on the grid)
-  const long long vectors = (n >> 2) > 0 ? (n >> 2) : 1;
-  long long blocks = (vectors + kThreads - 1) / kThreads;
-  const long long resident = static_cast<long long>(per_sm) * sms;
-  if (blocks > resident) blocks = resident;
-  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(idx, n, K, out);
-  return cudaGetLastError();
+// presence bits -> int32 0/1 [K]; registers int32 -> uint8
+__global__ void finish_presence(const unsigned* __restrict__ bits, unsigned K, int32_t* __restrict__ out) {
+  for (unsigned k = blockIdx.x * blockDim.x + threadIdx.x; k < K; k += gridDim.x * blockDim.x)
+    out[k] = (bits[k >> 5] >> (k & 31)) & 1;
 }
+__global__ void finish_registers(const int* __restrict__ regs, unsigned n, uint8_t* __restrict__ out) {
+  for (unsigned c = blockIdx.x * blockDim.x + threadIdx.x; c < n; c += gridDim.x * blockDim.x)
+    out[c] = static_cast<uint8_t>(regs[c]);
+}
+
+typedef void (*KernelFn)(Params);
+
+template <typename F, int FILTER, int MODE>
+KernelFn pick_tier(int tier) {
+  switch (tier) {
+    case kBlock: return value_state_kernel<F, FILTER, MODE, kBlock>;
+    case kGlobal: return value_state_kernel<F, FILTER, MODE, kGlobal>;
+    case kByte:
+      if constexpr (MODE != kCounts) return value_state_kernel<F, FILTER, MODE, kByte>;
+      return nullptr;
+    default: return nullptr;
+  }
+}
+
+template <typename F, int FILTER>
+KernelFn pick_mode(int mode, int tier) {
+  switch (mode) {
+    case kCounts: return pick_tier<F, FILTER, kCounts>(tier);
+    case kPresence: return pick_tier<F, FILTER, kPresence>(tier);
+    case kRegisters: return pick_tier<F, FILTER, kRegisters>(tier);
+    default: return nullptr;
+  }
+}
+
+KernelFn pick(int mode, int tier, int filter_kind, int filter_code) {
+  if (filter_code < kU8 || filter_code > kI32) return nullptr;
+  if (filter_kind == kDocrange) return pick_mode<uint8_t, kDocrange>(mode, tier);
+  if (filter_kind == kInterval) {
+    if (filter_code == kU8) return pick_mode<uint8_t, kInterval>(mode, tier);
+    if (filter_code == kI16) return pick_mode<int16_t, kInterval>(mode, tier);
+    return pick_mode<int32_t, kInterval>(mode, tier);
+  }
+  if (filter_kind == kTable) {
+    if (filter_code == kU8) return pick_mode<uint8_t, kTable>(mode, tier);
+    if (filter_code == kI16) return pick_mode<int16_t, kTable>(mode, tier);
+    return pick_mode<int32_t, kTable>(mode, tier);
+  }
+  return nullptr;
+}
+
+// (device, kernel) pairs already given at least this much dynamic shared
+// memory, so that a launch costs no attribute queries after the first
+struct Prepared {
+  int dev;
+  KernelFn fn;
+  long long smem;
+};
+constexpr int kPreparedMax = 256;
+Prepared g_prepared[kPreparedMax];
+int g_nprepared = 0;
+std::mutex g_prepared_mu;
+
+cudaError_t prepare(KernelFn fn, long long smem_bytes) {
+  int dev = 0, smem_limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(g_prepared_mu);
+  int slot = -1;
+  for (int i = 0; i < g_nprepared; ++i) {
+    if (g_prepared[i].dev == dev && g_prepared[i].fn == fn) {
+      if (smem_bytes >= 0 && smem_bytes <= g_prepared[i].smem) return cudaSuccess;
+      slot = i;
+    }
+  }
+  err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return err;
+  // the dynamic shared memory comes on top of the kernel's static arrays
+  if (smem_bytes < 0 || smem_bytes + static_cast<long long>(attr.sharedSizeBytes) > smem_limit)
+    return cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) return err;
+  if (slot < 0 && g_nprepared < kPreparedMax) slot = g_nprepared++;
+  if (slot >= 0) g_prepared[slot] = Prepared{dev, fn, smem_bytes};
+  return cudaSuccess;
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Adds the occupancy counts of idx[0, n) into out[0, K) (int64, zeroed by
-// the caller).  use_shared selects the shared-memory sub-histogram path
-// (4 K bytes of dynamic shared memory per block).  Returns 0 on success, a
-// cudaError_t code on a launch failure, or -1 for arguments the kernel does
-// not take (idx must be 16-byte aligned for the vector loads).
-int value_state_counts_launch(const int32_t* idx, long long n, int K, unsigned long long* out,
-                              int use_shared, void* stream) {
-  if (n < 1 || K < 1 || idx == nullptr || out == nullptr) return -1;
-  if (reinterpret_cast<uintptr_t>(idx) % 16 != 0) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!use_shared) return static_cast<int>(launch<false>(idx, n, K, out, 0, st));
-  int dev = 0, smem_limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+// Resident blocks per SM of the kernel for these template arguments and
+// this dynamic shared memory (the wrapper sizes a one-wave grid from it);
+// -1 for arguments the kernel does not take, else minus a cudaError_t.
+int value_state_blocks_per_sm(int mode, int tier, int filter_kind, int filter_code, long long smem_bytes) {
+  KernelFn fn = pick(mode, tier, filter_kind, filter_code);
+  if (fn == nullptr) return -1;
+  cudaError_t err = prepare(fn, smem_bytes);
+  int n = 0;
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, kThreads, static_cast<size_t>(smem_bytes));
+  return err == cudaSuccess ? n : -static_cast<int>(err);
+}
+
+// Returns 0 on success, a cudaError_t code on a launch failure, or -1 for
+// arguments the kernel does not take.  smem_bytes is the dynamic shared
+// memory of one block, computed by the caller (shared_bytes in
+// engine/kernels/value_state_counts.py).  docs and the device holder
+// (counts in counts mode, bits in presence, regs in registers) lie in one
+// buffer of zero_bytes bytes starting at docs, which the launch zeroes
+// first; holder receives the int32 presence [K] or the uint8 registers
+// [K / 64].
+int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
+                       const void* filter_fwd, const int32_t* bounds, const uint8_t* match,
+                       int match_card, const int32_t* num_docs, int S, long long n_pad, int ng,
+                       const void* const* group_ptrs, const int* group_codes, const int* group_cards,
+                       const void* values, int value_code, const uint8_t* rho,
+                       const int32_t* const* tables, const int* table_cards, int tab_shared,
+                       unsigned width, unsigned K, int blocks_per_seg,
+                       unsigned long long* counts, unsigned* bits, int* regs,
+                       unsigned long long* docs, long long zero_bytes, void* holder, long long smem_bytes,
+                       void* stream) {
+  if (ng < 0 || ng > kGroupMax || K < 1 || S < 1 || n_pad < 1 || blocks_per_seg < 1 ||
+      values == nullptr || docs == nullptr || zero_bytes < 8)
+    return -1;
+  if ((mode == kCounts && counts == nullptr) || (mode == kPresence && (bits == nullptr || holder == nullptr)) ||
+      (mode == kRegisters && (regs == nullptr || holder == nullptr || K % kRho != 0)))
+    return -1;
+  KernelFn fn = pick(mode, tier, filter_kind, filter_code);
+  if (fn == nullptr) return -1;
+  Params p;
+  p.filter_fwd = filter_fwd;
+  p.bounds = bounds;
+  p.match = match;
+  p.match_card = match_card;
+  p.num_docs = num_docs;
+  p.n_pad = n_pad;
+  p.ng = ng;
+  // the 4-row slabs need every row stream 16-byte aligned, and each
+  // segment's rows starting on a slab (n_pad % 4 == 0, or one segment)
+  bool vec = (S == 1 || n_pad % kSlab == 0) && aligned16(filter_fwd) && aligned16(values) && aligned16(rho);
+  for (int c = 0; c < kGroupMax; ++c) {
+    const bool used = c < ng;
+    p.gptr[c] = used ? group_ptrs[c] : nullptr;
+    p.gcode[c] = used ? group_codes[c] : kI32;
+    p.gcard[c] = used ? static_cast<unsigned>(group_cards[c]) : 1u;
+    if (used) vec = vec && aligned16(p.gptr[c]);
+  }
+  p.vptr = values;
+  p.vcode = value_code;
+  p.rptr = rho;
+  int off = 0;
+  for (int t = 0; t < kTables; ++t) {
+    p.tab[t] = tables[t];
+    p.tab_card[t] = tables[t] != nullptr ? table_cards[t] : 0;
+    p.tab_off[t] = off;
+    off += p.tab_card[t];
+  }
+  p.tab_shared = tab_shared;
+  p.tab_total = off;
+  p.width = width;
+  p.K = K;
+  p.blocks_per_seg = blocks_per_seg;
+  p.vec_ok = vec ? 1 : 0;
+  p.counts = counts;
+  p.bits = bits;
+  p.regs = regs;
+  p.docs = docs;
+  cudaError_t err = prepare(fn, smem_bytes);
+  if (err == cudaErrorInvalidValue) return -1;
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(K) * sizeof(int);
-  if (smem > static_cast<size_t>(smem_limit)) return -1;
-  return static_cast<int>(launch<true>(idx, n, K, out, smem, st));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = cudaMemsetAsync(docs, 0, static_cast<size_t>(zero_bytes), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(blocks_per_seg, S);
+  fn<<<grid, kThreads, static_cast<size_t>(smem_bytes), st>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (mode == kPresence) {
+    const unsigned blocks = (K + kThreads - 1) / kThreads;
+    finish_presence<<<blocks < 4096 ? blocks : 4096, kThreads, 0, st>>>(bits, K, static_cast<int32_t*>(holder));
+  } else if (mode == kRegisters) {
+    const unsigned n = K / kRho;
+    const unsigned blocks = (n + kThreads - 1) / kThreads;
+    finish_registers<<<blocks < 4096 ? blocks : 4096, kThreads, 0, st>>>(regs, n, static_cast<uint8_t*>(holder));
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

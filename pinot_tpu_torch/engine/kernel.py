@@ -11,8 +11,9 @@ out:
   group-by    = count/sum/avg through the fused kernel over key windows,
                 min/max scatters into [capacity] holders keyed by
                 global-id mixed-radix keys
-  value state = occupancy counts of a combined index (presence, histogram
-                or (bucket, rho) registers) through ``value_state_counts``
+  value state = presence bits, a histogram or (bucket, rho) registers of
+                a combined index, through ``value_state_counts.value_state``
+                (K2), which combines the index itself
 
 Per-segment states reduce over the segment axis (``output_reducers`` /
 ``apply_reduce``); group-by and value-state states are computed over
@@ -27,14 +28,22 @@ the card's routes:
     computes ``num_docs``, ``gb_presence`` and every state in one
     ``kernels.fused_groupby`` call with the filter inside (the fused
     route, counted in ``fused_dispatches``);
-  * every other grouped plan evaluates its filter tree with torch ops and
-    hands the mask to the same kernel as a match table over {0, 1}: its
-    group counts and float sums are per-block partials reduced in a fixed
-    order, so they are the same on every run (no float atomics);
-  * every dense presence / histogram holder, scalar HLL registers and the
-    small grouped HLL ("matmul" in ``_grouped_hll_path``) count through
-    ``kernels.value_state_counts``; the "sort" and "scatter" grouped-HLL
-    lowerings are torch ops, as they are jnp in the reference.
+  * a plan whose filter is none or such a leaf, whose value states are
+    dense presence / histogram holders, scalar HLL or the small grouped
+    HLL ("matmul" in ``_grouped_hll_path``), and whose other aggregations
+    are counts (grouped: count / sum / avg that K1 takes) computes each
+    value state in one K2 launch with the leaf, the group-by columns and
+    the value streams, and a grouped plan's counts and sums in one K1
+    launch the same way: no mask, key or index is built in device memory
+    (the fused value route, counted in ``fused_value_dispatches``);
+  * every other plan evaluates its filter tree with torch ops and hands
+    the mask to the same kernels as a match table over {0, 1}, with the
+    group-by columns: group counts and float sums are per-block partials
+    reduced in a fixed order, so they are the same on every run (no
+    float atomics); the precombined group key is built only where min /
+    max holders, key windows, more group-by columns than the kernels take
+    (``MAX_GROUP_COLUMNS``) or the "sort" and "scatter" grouped-HLL
+    lowerings (torch ops, as they are jnp in the reference) need it.
 On the card both kernels are the CUDA kernels; on the CPU their wrappers
 run the plain torch versions.
 """
@@ -50,6 +59,7 @@ from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
 from pinot_tpu_torch.engine.plan import SV, StaticAgg, StaticPlan
 
 fused_dispatches = 0  # table-kernel runs that took the fused route
+fused_value_dispatches = 0  # table-kernel runs that took the fused value route
 
 # grouped HLL lowerings (``_grouped_hll_path``), the reference's gates
 # (pinot_tpu/engine/kernel.py:57,62); module constants so a test can force
@@ -61,6 +71,7 @@ _HLL_SORT_CAP = 1 << 16
 _PAIR_SENTINEL = torch.iinfo(torch.int32).max
 
 _FUSED_LEAF_KINDS = ("interval", "docrange", "table")
+_VALUE_KINDS = ("presence", "hist", "hll")
 
 
 def _valid_mask(seg: Dict[str, Any], n_pad: int) -> torch.Tensor:
@@ -115,16 +126,6 @@ def _row_values(agg: StaticAgg, seg) -> torch.Tensor:
     return torch.gather(seg[f"{agg.column}.dict"], 1, seg[f"{agg.column}.fwd"].long())
 
 
-def _value_gids(agg: StaticAgg, seg, remap) -> torch.Tensor:
-    """Per-row global value ids [S, n_pad] for an SV presence/hist agg:
-    the staged global-id stream (``.gfwd``) when there is one, else a
-    gather of the remap table."""
-    gf = seg.get(f"{agg.column}.gfwd")
-    if gf is not None:
-        return gf
-    return torch.gather(remap, 1, seg[f"{agg.column}.fwd"].long())
-
-
 def _hll_rows(agg: StaticAgg, seg, bucket, rho) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row (register index, rank) [S, n_pad] for an SV HLL agg: the
     staged uint8 streams when there are, else gathers of the per-dictId
@@ -152,54 +153,53 @@ def _grouped_hll_path(capacity: int) -> str:
     return "scatter"
 
 
-def _value_state_index(
-    agg: StaticAgg, aux, seg, mask, slot: Optional[torch.Tensor] = None, capacity: int = 1
-) -> Tuple[torch.Tensor, int]:
-    """The combined int32 index [S, n_pad] that ``value_state_counts``
-    counts, and its size K; masked rows carry the sentinel K.
+_VALUE_MODES = {"presence": "presence", "hist": "counts", "hll": "registers"}
 
-      presence / hist  (slot * gcard_pad + gid)         K = capacity * gcard_pad
-      hll registers    (slot * HLL_M + bucket) * 64 + rho   K = capacity * HLL_M * 64
 
-    ``slot`` is the group key (None for a scalar agg, whose one slot is 0)."""
+def _value_inputs(agg: StaticAgg, aux, seg) -> Dict[str, Any]:
+    """K2's value arguments for an SV value-state agg: the staged
+    global-id stream, else the local fwd through the remap table
+    (presence / hist); the staged (bucket, rho) uint8 streams, else the
+    fwd through the per-dictId tables (hll)."""
     if agg.kind in ("presence", "hist"):
-        K = capacity * agg.gcard_pad
-        key = _value_gids(agg, seg, aux["remap"]).to(torch.int32)
-        if slot is not None:
-            key = slot * agg.gcard_pad + key
-    else:
-        K = capacity * config.HLL_M * 64
-        b, r = _hll_rows(agg, seg, aux["bucket"], aux["rho"])
-        key = b.to(torch.int32)
-        if slot is not None:
-            key = slot * config.HLL_M + key
-        key = key * 64 + r.to(torch.int32)
-    return torch.where(mask, key.to(torch.int32), K), K
+        gf = seg.get(f"{agg.column}.gfwd")
+        if gf is not None:
+            return dict(values=gf, width=agg.gcard_pad)
+        return dict(values=seg[f"{agg.column}.fwd"], value_table=aux["remap"], width=agg.gcard_pad)
+    hb = seg.get(f"{agg.column}.hllb")
+    if hb is not None:
+        return dict(values=hb, rho=seg[f"{agg.column}.hllr"])
+    return dict(values=seg[f"{agg.column}.fwd"], value_table=aux["bucket"], rho_table=aux["rho"])
 
 
-def _value_state_from_counts(agg: StaticAgg, counts: torch.Tensor, capacity: int = 0):
-    """Presence bits, the histogram, or HLL registers (the largest rho
-    seen per bucket) from occupancy counts; ``capacity`` > 0 gives the
-    grouped ``[capacity, ...]`` holder."""
+def _value_state(agg: StaticAgg, aux, seg, filt: Dict[str, Any],
+                 group: Optional[Dict[str, Any]] = None, capacity: int = 0):
+    """(matched-doc total, holder) of one value-state agg from one K2
+    launch over every segment: presence bits, the histogram or HLL
+    registers, ``[capacity, ...]`` when grouped."""
+    docs, holder = value_state_counts.value_state(
+        _VALUE_MODES[agg.kind], seg["num_docs"], **_value_inputs(agg, aux, seg),
+        capacity=max(capacity, 1), **filt, **(group or {}),
+    )
     lead = (capacity,) if capacity else ()
-    if agg.kind == "hll":
-        counts = counts.view(*lead, config.HLL_M, 64)
-        rho = torch.arange(64, device=counts.device)
-        return torch.where(counts > 0, rho, 0).amax(dim=-1).to(torch.uint8)
-    counts = counts.view(*lead, agg.gcard_pad)
-    if agg.kind == "presence":
-        return (counts > 0).to(torch.int32)
-    return counts
+    return docs, holder.view(*lead, config.HLL_M if agg.kind == "hll" else agg.gcard_pad)
+
+
+def _mask_filter(mask: torch.Tensor) -> Dict[str, Any]:
+    """The evaluated [S, n_pad] mask as a kernel filter: a match table
+    over {0, 1}."""
+    S = mask.shape[0]
+    match = torch.arange(2, device=mask.device).bool().expand(S, 2).contiguous()  # [False, True]
+    return dict(filter_fwd=mask.view(torch.uint8), match=match)
 
 
 def _agg_state(agg: StaticAgg, i: int, seg, q, mask, fdt) -> Any:
     """Partial state for one aggregation (no group-by): per segment [S]
     for scalar and pair kinds, over every segment at once for value
-    states (one ``value_state_counts`` call covers all S segments)."""
+    states (one K2 launch covers all S segments)."""
     base = agg.base
     if agg.kind in ("presence", "hist", "hll"):
-        idx, K = _value_state_index(agg, q["agg_aux"][i], seg, mask)
-        return _value_state_from_counts(agg, value_state_counts.value_state_counts(idx, K))
+        return _value_state(agg, q["agg_aux"][i], seg, _mask_filter(mask))[1]
     if base == "count":
         return mask.sum(dim=1, dtype=torch.int64)
     vals = _row_values(agg, seg)
@@ -229,6 +229,12 @@ def _group_columns(plan: StaticPlan, seg, q) -> Tuple[list, list]:
     return cols, remaps
 
 
+def _group_kwargs(plan: StaticPlan, seg, q) -> Dict[str, Any]:
+    """The group-by columns as the kernels take them (they combine the key)."""
+    cols, remaps = _group_columns(plan, seg, q)
+    return dict(group_cols=cols, group_cards=plan.group_by.gcards, group_remaps=remaps)
+
+
 def _group_keys(plan: StaticPlan, seg, q, kdt) -> torch.Tensor:
     """Mixed-radix global group keys [S, n_pad] in ``kdt`` (the torch-op
     route; the fused route has K1 combine them)."""
@@ -246,40 +252,52 @@ def _sum_columns(plan: StaticPlan) -> List[str]:
 
 
 def _group_sums(
-    plan: StaticPlan, staged: StagedTable, seg, mask, keys
+    plan: StaticPlan, staged: StagedTable, seg, q, mask, slot
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Group counts (int64 [capacity]) and float sums per sum/avg column
     over every segment, through the fused kernel with the evaluated mask
-    as its filter (a match table over {0, 1}).  The kernel's group space
-    is bounded by its shared memory, so a wider one runs in key windows,
-    and more value columns than the kernel takes run in column chunks:
-    each call adds per-block partials in a fixed order, so the result is
-    the same on every run."""
+    as its filter (a match table over {0, 1}) and the group-by columns,
+    whose key it combines.  The kernel's group space is bounded by its
+    shared memory and its group columns by ``MAX_GROUP_COLUMNS``, so a
+    wider space or more columns run in key windows over the precombined
+    key (``slot()``), and more value columns than the kernel takes run in
+    column chunks: each call adds per-block partials in a fixed order, so
+    the result is the same on every run."""
     cap = plan.group_by.capacity
     fdt = staged.precision.float_dtype
     fbytes = 8 if staged.precision.x64 else 4
-    S = staged.num_segments
     by_column = {a.column: a for a in plan.aggs if a.base in ("sum", "avg")}
     cols = _sum_columns(plan)
-    filt = mask.view(torch.uint8)
-    match = torch.arange(2, device=mask.device).bool().expand(S, 2).contiguous()  # [False, True]
-    keys = keys.to(torch.int32)  # capacity <= MAX_GROUP_CAPACITY fits int32
+    filt = _mask_filter(mask)
+    group_cols, group_remaps = _group_columns(plan, seg, q)
+    remap_cards = [r.shape[-1] for r in group_remaps if r is not None]
     chunks = [cols[j : j + fused_groupby.MAX_VALUE_COLUMNS]
               for j in range(0, len(cols), fused_groupby.MAX_VALUE_COLUMNS)] or [[]]
     counts: Optional[torch.Tensor] = None
     sums: Dict[str, torch.Tensor] = {}
     for chunk in chunks:
         raws = [_row_values(by_column[c], seg) for c in chunk]
-        window = fused_groupby.max_capacity(fbytes, len(chunk), 0, match.shape[1])
-        parts_c, parts_s = [], []
-        for lo in range(0, cap, window):
-            width = min(window, cap - lo)
+        nones = [None] * len(chunk)
+        if (len(group_cols) <= fused_groupby.MAX_GROUP_COLUMNS
+                and all(c <= fused_groupby.MAX_TABLE_CARD for c in remap_cards)
+                and cap <= fused_groupby.max_capacity(fbytes, len(chunk), 0, 2, sum(remap_cards))):
             _, cnt, sm = fused_groupby.fused_filtered_groupby_sums(
-                filt, match, seg["num_docs"], keys - lo if lo else keys,
-                [None] * len(chunk), [None] * len(chunk), width, dtype=fdt, value_raws=raws,
+                filt["filter_fwd"], filt["match"], seg["num_docs"], None, nones, nones, cap, dtype=fdt,
+                value_raws=raws, group_cols=group_cols, group_cards=plan.group_by.gcards,
+                group_remaps=group_remaps,
             )
-            parts_c.append(cnt)
-            parts_s.append(sm)
+            parts_c, parts_s = [cnt], [sm]
+        else:
+            keys = slot().to(torch.int32)  # capacity <= MAX_GROUP_CAPACITY fits int32
+            window = fused_groupby.max_capacity(fbytes, len(chunk), 0, 2)
+            parts_c, parts_s = [], []
+            for lo in range(0, cap, window):
+                _, cnt, sm = fused_groupby.fused_filtered_groupby_sums(
+                    filt["filter_fwd"], filt["match"], seg["num_docs"], keys - lo if lo else keys,
+                    nones, nones, min(window, cap - lo), dtype=fdt, value_raws=raws,
+                )
+                parts_c.append(cnt)
+                parts_s.append(sm)
         if counts is None:
             counts = torch.cat(parts_c)
         for j, c in enumerate(chunk):
@@ -287,48 +305,65 @@ def _group_sums(
     return counts, sums
 
 
-def _group_value_state(agg: StaticAgg, aux, seg, mask, slot, cap: int) -> Any:
+def _group_value_state(agg: StaticAgg, aux, seg, mask, group, slot, cap: int) -> Any:
     """Grouped value-state holder over every segment: dense presence /
-    histogram grids and small-group HLL registers from occupancy counts,
-    larger group spaces by the reference's sort or scatter lowering."""
+    histogram grids and small-group HLL registers from one K2 launch
+    with the group-by columns (``group``; None when there are more than
+    K2 takes: then the precombined key is its one group column, masked
+    rows carrying ``cap`` and so dropping), larger group spaces by the
+    reference's sort or scatter lowering over the precombined key
+    (``slot()``)."""
     path = _grouped_hll_path(cap) if agg.kind == "hll" else "matmul"
     if path == "matmul":
-        idx, K = _value_state_index(agg, aux, seg, mask, slot.to(torch.int32), cap)
-        return _value_state_from_counts(agg, value_state_counts.value_state_counts(idx, K), cap)
+        if group is None:
+            group = dict(group_cols=[slot().to(torch.int32)], group_cards=[cap], group_remaps=[None])
+        return _value_state(agg, aux, seg, _mask_filter(mask), group, cap)[1]
     b, r = _hll_rows(agg, seg, aux["bucket"], aux["rho"])
+    keys = slot()
     if path == "sort":
         # one packed int32 per row (capacity <= 2^16 keeps it below 2^30),
         # sorted and run-max extracted by the reduce (_reduce_hll_sort)
-        cell = slot.to(torch.int32) * config.HLL_M + b.to(torch.int32)
+        cell = keys.to(torch.int32) * config.HLL_M + b.to(torch.int32)
         return torch.where(mask, (cell << 6) | r.to(torch.int32), _PAIR_SENTINEL)
     # flat scatter-max into [capacity * HLL_M] registers, a spare drop cell
-    cell = slot.long() * config.HLL_M + b.long()
+    cell = keys.long() * config.HLL_M + b.long()
     ncells = cap * config.HLL_M
-    regs = torch.zeros(ncells + 1, dtype=torch.int32, device=slot.device)
+    regs = torch.zeros(ncells + 1, dtype=torch.int32, device=keys.device)
     regs.scatter_reduce_(0, torch.where(mask, cell, ncells).reshape(-1),
                          r.to(torch.int32).reshape(-1), reduce="amax", include_self=True)
     return regs[:ncells].view(cap, config.HLL_M).to(torch.uint8)
 
 
 def _group_outputs(plan: StaticPlan, staged: StagedTable, seg, q, mask) -> Dict[str, Any]:
-    """Grouped states over every segment at once (module docstring)."""
+    """Grouped states over every segment at once (module docstring).  The
+    precombined key is built only where min/max holders, key windows,
+    more group columns than the kernels take or the sort / scatter HLL
+    lowerings need it."""
     cap = plan.group_by.capacity
     fdt = staged.precision.float_dtype
-    keys = _group_keys(plan, seg, q, staged.precision.key_dtype)
-    counts, sums = _group_sums(plan, staged, seg, mask, keys)
+    keys: List[torch.Tensor] = []
+
+    def slot() -> torch.Tensor:
+        """Masked rows -> the spare slot, in the key dtype."""
+        if not keys:
+            keys.append(torch.where(mask, _group_keys(plan, seg, q, staged.precision.key_dtype), cap))
+        return keys[0]
+
+    counts, sums = _group_sums(plan, staged, seg, q, mask, slot)
     out: Dict[str, Any] = {"gb_presence": (counts > 0).to(torch.int32)}
-    slot = torch.where(mask, keys, cap)  # masked rows -> the spare slot, in the key dtype
+    fits = len(plan.group_by.columns) <= value_state_counts.MAX_GROUP_COLUMNS
+    group = _group_kwargs(plan, seg, q) if fits else None
 
     def extreme(agg, reduce, seed):
-        h = torch.full((cap + 1,), seed, dtype=fdt, device=slot.device)
-        h.scatter_reduce_(0, slot.reshape(-1).long(), _row_values(agg, seg).reshape(-1).to(fdt),
+        h = torch.full((cap + 1,), seed, dtype=fdt, device=mask.device)
+        h.scatter_reduce_(0, slot().reshape(-1).long(), _row_values(agg, seg).reshape(-1).to(fdt),
                           reduce=reduce, include_self=True)
         return h[:cap]
 
     for i, agg in enumerate(plan.aggs):
         base = agg.base
         if agg.kind in ("presence", "hist", "hll"):
-            state = _group_value_state(agg, q["agg_aux"][i], seg, mask, slot, cap)
+            state = _group_value_state(agg, q["agg_aux"][i], seg, mask, group, slot, cap)
         elif base == "count":
             state = counts
         elif base == "sum":
@@ -432,86 +467,129 @@ def _segment_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str,
     return out
 
 
-def _fused_value_columns(plan: StaticPlan) -> Optional[List[str]]:
-    """Distinct value columns of a count/sum/avg-only plan, or None."""
+def _fused_value_columns(plan: StaticPlan, value_states: bool = False) -> Optional[List[str]]:
+    """Distinct value columns of the plan's sum / avg aggregations when
+    every other aggregation is a count (or, with ``value_states``, a
+    value state), else None."""
     cols: List[str] = []
     for agg in plan.aggs:
-        if agg.is_mv or agg.base not in ("count", "sum", "avg"):
+        if agg.is_mv:
+            return None
+        if value_states and agg.kind in _VALUE_KINDS:
+            continue
+        if agg.base not in ("count", "sum", "avg"):
             return None
         if agg.base != "count" and agg.column not in cols:
             cols.append(agg.column)
     return cols
 
 
-def fused_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
-    """Whether this plan takes the fused kernel (module docstring)."""
-    gb = plan.group_by
-    if gb is None or any(gb.col_is_mv) or plan.filter_tree != ("leaf", 0):
-        return False
+def _fused_leaf_card(plan: StaticPlan, staged: StagedTable) -> Optional[int]:
+    """For a plan whose filter the fused kernels take (none, or one
+    single-value interval, docrange, single-point or match-table leaf):
+    its match table's card (0 without one).  Else None."""
+    if plan.filter_tree is None:
+        return 0
+    if plan.filter_tree != ("leaf", 0):
+        return None
     leaf = plan.leaves[0]
     if leaf.mode != SV:
-        return False
+        return None
     single_point = leaf.eval_kind == "points" and leaf.k_pad == 1
     if leaf.eval_kind not in _FUSED_LEAF_KINDS and not single_point:
+        return None
+    if leaf.eval_kind != "table":
+        return 0
+    card = staged.column(leaf.column).card_pad
+    return card if card <= fused_groupby.MAX_TABLE_CARD else None
+
+
+def _k1_fits(plan: StaticPlan, staged: StagedTable, cols: List[str], match_card: int) -> bool:
+    """Whether one K1 launch takes the plan's group-by with these sum
+    columns: single-value group columns it combines itself, dictionaries
+    and remap tables in its shared memory."""
+    gb = plan.group_by
+    if any(gb.col_is_mv) or len(gb.columns) > fused_groupby.MAX_GROUP_COLUMNS:
         return False
-    match_card = 0
-    if leaf.eval_kind == "table":
-        match_card = staged.column(leaf.column).card_pad
-        if match_card > fused_groupby.MAX_TABLE_CARD:
-            return False
-    cols = _fused_value_columns(plan)
-    if cols is None or len(cols) > fused_groupby.MAX_VALUE_COLUMNS:
+    if len(cols) > fused_groupby.MAX_VALUE_COLUMNS:
         return False
     use_raw = {a.column: a.use_raw for a in plan.aggs}
-    dict_cards = []
-    for c in cols:
-        if not use_raw[c]:
-            card = staged.column(c).card_pad
-            if card > fused_groupby.MAX_TABLE_CARD:
-                return False
-            dict_cards.append(card)
-    if len(gb.columns) > fused_groupby.MAX_GROUP_COLUMNS:
-        return False
+    dict_cards = [staged.column(c).card_pad for c in cols if not use_raw[c]]
     # a remap-fed group column's table sits in the kernel's shared memory
     remap_cards = [staged.column(c).card_pad for c, use_g in zip(gb.columns, gb.use_gfwd) if not use_g]
-    if any(card > fused_groupby.MAX_TABLE_CARD for card in remap_cards):
+    if any(card > fused_groupby.MAX_TABLE_CARD for card in dict_cards + remap_cards):
         return False
     fbytes = 8 if staged.precision.x64 else 4
-    return fused_groupby.fits_shared_memory(
-        fbytes, gb.capacity, len(cols), dict_cards, match_card, remap_cards
-    )
+    return fused_groupby.fits_shared_memory(fbytes, gb.capacity, len(cols), dict_cards, match_card, remap_cards)
 
 
-def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
-    """num_docs, gb_presence and every state from one fused launch —
-    already reduced over the segment axis.  The group key is combined
-    inside the kernel from the group-by columns."""
-    leaf = plan.leaves[0]
-    fdt = staged.precision.float_dtype
-    group_cols, group_remaps = _group_columns(plan, seg, q)
-    filter_fwd = match = bounds = None
-    if leaf.eval_kind == "table":
-        filter_fwd, match = seg[f"{leaf.column}.fwd"], q["match"][0]
-    elif leaf.eval_kind == "docrange":
-        bounds = q["bounds"][0]
-    elif leaf.eval_kind == "interval":
-        filter_fwd, bounds = seg[f"{leaf.column}.fwd"], q["bounds"][0]
-    else:  # single point p: the interval [p, p+1); p = -1 matches nothing
-        filter_fwd = seg[f"{leaf.column}.fwd"]
-        p = q["pts"][0][:, 0:1]
-        bounds = torch.cat([p, p + 1], dim=1).contiguous()
+def fused_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
+    """Whether this plan takes the fused kernel (module docstring)."""
+    if plan.group_by is None or plan.filter_tree is None:
+        return False
+    match_card = _fused_leaf_card(plan, staged)
     cols = _fused_value_columns(plan)
+    return match_card is not None and cols is not None and _k1_fits(plan, staged, cols, match_card)
+
+
+def fused_value_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
+    """Whether this plan takes the fused value route (module docstring):
+    the fused kernels' filter, value states K2 counts (grouped HLL only
+    in its "matmul" lowering), and beside them counts (or, grouped,
+    count / sum / avg that K1 takes)."""
+    match_card = _fused_leaf_card(plan, staged)
+    cols = _fused_value_columns(plan, value_states=True)
+    values = [a for a in plan.aggs if a.kind in _VALUE_KINDS]
+    if match_card is None or cols is None or not values:
+        return False
+    gb = plan.group_by
+    if gb is None:
+        return not cols
+    if any(a.kind == "hll" and _grouped_hll_path(gb.capacity) != "matmul" for a in values):
+        return False
+    return _k1_fits(plan, staged, cols, match_card)
+
+
+def _leaf_filter(plan: StaticPlan, seg, q) -> Dict[str, Any]:
+    """The fused kernels' filter arguments for the plan's one leaf ({}
+    for a plan with no filter)."""
+    if plan.filter_tree is None:
+        return {}
+    leaf = plan.leaves[0]
+    fwd = seg.get(f"{leaf.column}.fwd")
+    if leaf.eval_kind == "table":
+        return dict(filter_fwd=fwd, match=q["match"][0])
+    if leaf.eval_kind == "docrange":
+        return dict(filter_bounds=q["bounds"][0])
+    if leaf.eval_kind == "interval":
+        return dict(filter_fwd=fwd, filter_bounds=q["bounds"][0])
+    # single point p: the interval [p, p+1); p = -1 matches nothing
+    p = q["pts"][0][:, 0:1]
+    return dict(filter_fwd=fwd, filter_bounds=torch.cat([p, p + 1], dim=1).contiguous())
+
+
+def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols) -> Dict[str, Any]:
+    """num_docs, gb_presence and the count / sum / avg states from one K1
+    launch with the group-by columns (already reduced over the segment
+    axis); a plan with no filter is the docrange of every row."""
+    fdt = staged.precision.float_dtype
+    if not filt:
+        bounds = seg["num_docs"].new_zeros((staged.num_segments, 2))
+        bounds[:, 1] = staged.n_pad
+        filt = dict(filter_bounds=bounds)
     use_raw = {a.column: a.use_raw for a in plan.aggs}
     fwds = [None if use_raw[c] else seg[f"{c}.fwd"] for c in cols]
     dicts = [None if use_raw[c] else seg[f"{c}.dict"] for c in cols]
     raws = [seg[f"{c}.raw"] if use_raw[c] else None for c in cols]
     docs, count, sums = fused_groupby.fused_filtered_groupby_sums(
-        filter_fwd, match, seg["num_docs"], None, fwds, dicts, plan.group_by.capacity,
-        dtype=fdt, filter_bounds=bounds, value_raws=raws, group_cols=group_cols,
-        group_cards=plan.group_by.gcards, group_remaps=group_remaps,
+        filt.get("filter_fwd"), filt.get("match"), seg["num_docs"], None, fwds, dicts,
+        plan.group_by.capacity, dtype=fdt, filter_bounds=filt.get("filter_bounds"), value_raws=raws,
+        **_group_kwargs(plan, seg, q),
     )
     out: Dict[str, Any] = {"num_docs": docs, "gb_presence": (count > 0).to(torch.int32)}
     for i, agg in enumerate(plan.aggs):
+        if agg.kind in _VALUE_KINDS:
+            continue
         if agg.base == "count":
             out[f"gb_{i}"] = count
         elif agg.base == "sum":
@@ -521,14 +599,48 @@ def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, A
     return out
 
 
+def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
+    """Every state from one fused launch (module docstring)."""
+    return _k1_outputs(plan, staged, seg, q, _leaf_filter(plan, seg, q), _fused_value_columns(plan))
+
+
+def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
+    """The fused value route's outputs, already reduced over the segment
+    axis: one K1 launch for a grouped plan's num_docs, gb_presence and
+    count / sum / avg states, one K2 launch per value state, each with
+    the leaf and the group-by columns.  No [S, n_pad] mask, key or index
+    is built in device memory; a scalar plan's num_docs (and counts) are
+    K2's matched-doc total."""
+    filt = _leaf_filter(plan, seg, q)
+    gb = plan.group_by
+    if gb is not None:
+        out = _k1_outputs(plan, staged, seg, q, filt, _fused_value_columns(plan, value_states=True))
+        group = _group_kwargs(plan, seg, q)
+        for i, agg in enumerate(plan.aggs):
+            if agg.kind in _VALUE_KINDS:
+                out[f"gb_{i}"] = _value_state(agg, q["agg_aux"][i], seg, filt, group, gb.capacity)[1]
+        return out
+    out = {}
+    for i, agg in enumerate(plan.aggs):
+        if agg.kind in _VALUE_KINDS:
+            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, filt)
+    for i, agg in enumerate(plan.aggs):
+        if agg.kind not in _VALUE_KINDS:  # count(*)
+            out[f"agg_{i}"] = out["num_docs"]
+    return out
+
+
 def run_table_kernel(
     plan: StaticPlan, staged: StagedTable, seg: Dict[str, torch.Tensor], q: Dict[str, Any]
 ) -> Dict[str, Any]:
     """All segments' outputs, merged over the segment axis."""
-    global fused_dispatches
+    global fused_dispatches, fused_value_dispatches
     if fused_eligible(plan, staged):
         fused_dispatches += 1
         return _fused_outputs(plan, staged, seg, q)
+    if fused_value_eligible(plan, staged):
+        fused_value_dispatches += 1
+        return _fused_value_outputs(plan, staged, seg, q)
     reducers = output_reducers(plan)
     outs = _segment_outputs(plan, staged, seg, q)
     return {k: apply_reduce(reducers[k], v) for k, v in outs.items()}

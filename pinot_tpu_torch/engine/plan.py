@@ -522,7 +522,7 @@ def build_query_inputs(
         aux: Dict[str, np.ndarray] = {}
         if a.kind in ("presence", "hist"):
             # SV presence/hist read the staged .gfwd stream (kernel
-            # _value_gids); the remap table would be dead H2D weight
+            # _value_inputs); the remap table would be dead H2D weight
             if staged.column(a.column).gfwd is not None:
                 aux["remap"] = np.zeros((S, 1), dtype=np.int32)
             else:

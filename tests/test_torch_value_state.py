@@ -90,11 +90,11 @@ class _Spy:
         monkeypatch.setattr(module, name, spy)
 
 
-def _payloads(pql, ref_segments, port_segments):
+def _payloads(pql, ref_segments, port_segments, precision="x64"):
     ref_req = ref_optimize(ref_parse(pql))
     want = canonical_payload(ref_req, RefExecutor().execute(ref_segments, ref_req))
     req = optimize_request(parse_pql(pql))
-    ex = QueryExecutor(device="cpu", precision="x64")
+    ex = QueryExecutor(device="cpu", precision=precision)
     got = strip_accounting(reduce_to_response(req, [ex.execute(port_segments, req)]).to_json())
     return got, want
 
@@ -185,19 +185,175 @@ QUERIES = {
     "GROUP BY l_linestatus",
     "empty_match": "SELECT distinctcount(l_tax), percentile90(l_quantity), distinctcounthll(l_extendedprice) "
     "FROM lineitem WHERE l_shipmode = 'BOAT'",
+    "distinct_grouped_interval": "SELECT distinctcount(l_shipdate) FROM lineitem WHERE l_quantity > 25 "
+    "GROUP BY l_returnflag TOP 10",
+    "percentile_two_groups": "SELECT percentile90(l_quantity) FROM lineitem "
+    "GROUP BY l_shipmode, l_returnflag TOP 30",
 }
 
-# the queries whose holders count through value_state_counts (all but the
+# the queries whose holders come from value_state (all but the
 # grouped HLL whose group space takes the sort lowering)
 _K2_FREE = {"hll_streams_grouped_sort"}
 
 
 @pytest.mark.parametrize("name", sorted(QUERIES))
 def test_value_state_payloads_match_reference(name, reference_k2):
-    spy = _Spy(reference_k2, vsc, "value_state_counts")
+    spy = _Spy(reference_k2, vsc, "value_state")
     got, want = _payloads(QUERIES[name], LINEITEM, PORT_LINEITEM)
     assert got == want, (got, want)
     assert (spy.calls == 0) == (name in _K2_FREE), spy.calls
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_value_state_payloads_match_reference_x32(name, reference_k2):
+    """The same payloads with the port in x32 (float32 sums, int32 keys):
+    value-state answers are integers and dictionary values, so they
+    compare exactly."""
+    got, want = _payloads(QUERIES[name], LINEITEM, PORT_LINEITEM, precision="x32")
+    assert got == want, (got, want)
+
+
+_NO_STREAMS = {
+    "scalar": "SELECT distinctcounthll(l_extendedprice) FROM lineitem WHERE l_shipmode = 'AIR'",
+    "grouped": "SELECT distinctcounthll(l_extendedprice), count(*) FROM lineitem GROUP BY l_returnflag TOP 10",
+}
+
+
+@pytest.mark.parametrize("precision", ["x64", "x32"])
+@pytest.mark.parametrize("shape", sorted(_NO_STREAMS))
+def test_hll_without_streams_matches_reference(shape, precision, reference_k2):
+    """HLL registers over a column staged without its per-row (bucket,
+    rho) streams: K2 reads the fwd stream through the per-dictId bucket
+    and rho tables.  The port's registers path is forced by lowering
+    nothing to presence; the reference's answer is the same either way
+    (registers depend only on the distinct value set)."""
+    from pinot_tpu_torch.engine import executor as port_executor
+    from pinot_tpu_torch.engine import plan as port_plan
+
+    real_roles = QueryExecutor._role_columns
+
+    def no_hll_streams(self, *a):
+        raw, gfwd, _ = real_roles(self, *a)
+        return raw, gfwd, ()
+
+    reference_k2.setattr(QueryExecutor, "_role_columns", no_hll_streams)
+    for mod in (port_plan, port_executor):
+        reference_k2.setattr(mod, "hll_lowers_to_presence", lambda *a: False)
+    calls = []
+    real = vsc.value_state
+
+    def recording(*a, **k):
+        calls.append(k)
+        return real(*a, **k)
+
+    reference_k2.setattr(vsc, "value_state", recording)
+    got, want = _payloads(_NO_STREAMS[shape], LINEITEM, PORT_LINEITEM, precision=precision)
+    assert got == want, (got, want)
+    (kw,) = calls
+    assert kw["rho_table"] is not None and kw.get("rho") is None
+
+
+# the value-state queries of chip_smoke.py, at the tests' small size
+CHIP_QUERIES = {
+    "hll_groupby": "SELECT distinctcounthll(l_shipdate) FROM lineitem GROUP BY l_returnflag TOP 10",
+    "distinct_price": "SELECT distinctcount(l_extendedprice) FROM lineitem WHERE l_quantity > 25",
+    "pct_quantity": "SELECT percentile90(l_quantity) FROM lineitem GROUP BY l_shipmode TOP 10",
+    "hll_price": "SELECT distinctcounthll(l_extendedprice) FROM lineitem WHERE l_shipmode = 'AIR'",
+}
+
+
+def _forbid(monkeypatch, module, names):
+    def forbidden(*a, **k):
+        raise AssertionError("the route built a torch-op mask, key or index")
+
+    for name in names:
+        monkeypatch.setattr(module, name, forbidden)
+
+
+def _record(monkeypatch, module, name) -> list:
+    calls = []
+    real = getattr(module, name)
+
+    def recording(*a, **k):
+        calls.append((a, k))
+        return real(*a, **k)
+
+    monkeypatch.setattr(module, name, recording)
+    return calls
+
+
+@pytest.mark.parametrize("name", sorted(CHIP_QUERIES))
+def test_chip_queries_take_the_fused_value_route(name, reference_k2):
+    """Each value-state query of chip_smoke.py takes the fused value
+    route: K2 gets the leaf and the group-by columns, K1 (grouped) the
+    group-by columns, and no [S, n_pad] mask, key or index is built."""
+    _forbid(reference_k2, port_kernel, ("_group_keys", "_valid_mask", "_eval_tree", "_mask_filter"))
+    k2 = _record(reference_k2, vsc, "value_state")
+    k1 = _record(reference_k2, fused_groupby, "fused_filtered_groupby_sums")
+    before = port_kernel.fused_value_dispatches
+    got, want = _payloads(CHIP_QUERIES[name], LINEITEM, PORT_LINEITEM)
+    assert got == want, (got, want)
+    assert port_kernel.fused_value_dispatches == before + 1
+    grouped = name in ("hll_groupby", "pct_quantity")
+    ((_, kw),) = k2
+    assert (kw.get("group_cols") is not None) == grouped
+    assert len(k1) == grouped and all(a[3] is None and k["group_cols"] for a, k in k1)
+
+
+def test_torch_op_route_hands_k2_the_mask_and_the_group_columns(monkeypatch):
+    """An OR-filtered value state beside a sum: K1 and K2 take the
+    evaluated mask as a {0, 1} match table and combine the group key
+    themselves; no precombined key is built without min/max."""
+    pql = ("SELECT distinctcount(l_tax), sum(l_quantity) FROM lineitem WHERE l_quantity > 45 "
+           "OR l_shipmode = 'AIR' GROUP BY l_returnflag TOP 10")
+    _forbid(monkeypatch, port_kernel, ("_group_keys",))
+    k2 = _record(monkeypatch, vsc, "value_state")
+    before = port_kernel.fused_value_dispatches
+    got, want = _payloads(pql, LINEITEM, PORT_LINEITEM)
+    assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (got, want)
+    assert port_kernel.fused_value_dispatches == before
+    ((_, kw),) = k2
+    assert kw["match"].shape[-1] == 2 and kw["group_cols"] is not None
+
+
+def test_torch_op_route_builds_the_key_once_for_min(monkeypatch):
+    """mixed_or_filter's min needs the precombined key: built once, and
+    the value states still go through K2 with the group columns."""
+    keys = _record(monkeypatch, port_kernel, "_group_keys")
+    k2 = _record(monkeypatch, vsc, "value_state")
+    got, want = _payloads(QUERIES["mixed_or_filter"], LINEITEM, PORT_LINEITEM)
+    assert got == want, (got, want)
+    assert len(keys) == 1
+    assert len(k2) == 2 and all(k["group_cols"] is not None for _, k in k2)
+
+
+FIVE_COLUMNS = (
+    "SELECT distinctcount(l_quantity), percentile90(l_quantity), sum(l_extendedprice), count(*) "
+    "FROM lineitem GROUP BY l_returnflag, l_linestatus, l_shipmode, l_discount, l_tax TOP 20"
+)
+
+
+@pytest.mark.parametrize("precision", ["x64", "x32"])
+def test_more_group_columns_than_the_kernels_take(precision, reference_k2):
+    """A GROUP BY over more columns than K1 and K2 combine
+    (``MAX_GROUP_COLUMNS``) takes the torch-op route: the precombined key
+    is built once, K1 sums over its key windows and K2 takes it as its
+    one group column.  Value states and counts compare exactly; the sums
+    at rel 1e-9 / abs 2e-5 in x64 and, in x32 (float32 sums), within the
+    audit band (``payloads_equivalent``'s defaults, rel 5e-4 / abs 1e-3)."""
+    gb = optimize_request(parse_pql(FIVE_COLUMNS)).group_by
+    assert len(gb.columns) > vsc.MAX_GROUP_COLUMNS
+    keys = _record(reference_k2, port_kernel, "_group_keys")
+    k1 = _record(reference_k2, fused_groupby, "fused_filtered_groupby_sums")
+    k2 = _record(reference_k2, vsc, "value_state")
+    got, want = _payloads(FIVE_COLUMNS, LINEITEM, PORT_LINEITEM, precision=precision)
+    band = dict(rel_tol=REL, abs_tol=ABS) if precision == "x64" else {}
+    assert payloads_equivalent(got, want, **band), (got, want)
+    exact = [r for r in got["aggregationResults"] if not r["function"].startswith("sum_")]
+    assert exact == [r for r in want["aggregationResults"] if not r["function"].startswith("sum_")]
+    assert len(keys) == 1
+    assert k1 and all(a[3] is not None and k.get("group_cols") is None for a, k in k1)
+    assert len(k2) == 2 and all(len(k["group_cols"]) == 1 for _, k in k2)
 
 
 def test_north_star_hll_shape_matches_reference(reference_k2):
@@ -205,7 +361,7 @@ def test_north_star_hll_shape_matches_reference(reference_k2):
     (NORTHSTAR_HLL.json at a small size): per-row HLL streams, the sort
     lowering, no K2."""
     pql = "SELECT distinctcounthll(user_id) FROM adevents GROUP BY campaign_id TOP 10"
-    spy = _Spy(reference_k2, vsc, "value_state_counts")
+    spy = _Spy(reference_k2, vsc, "value_state")
     ref_segs = ref_tile(ADEVENTS, 3)
     got, want = _payloads(pql, ref_segs, tile_segments(PORT_ADEVENTS, 3))
     assert got == want, (got, want)
@@ -228,7 +384,7 @@ def test_grouped_hll_routes_match_reference(route, reference_k2):
     for mod in (ref_kernel, port_kernel):
         reference_k2.setattr(mod, "_MATMUL_HLL_CAP", hll_cap)
         reference_k2.setattr(mod, "_HLL_SORT_CAP", sort_cap)
-    spy = _Spy(reference_k2, vsc, "value_state_counts")
+    spy = _Spy(reference_k2, vsc, "value_state")
     pql = "SELECT fasthll(l_extendedprice), count(*) FROM lineitem GROUP BY l_shipmode, l_returnflag TOP 12"
     got, want = _payloads(pql, LINEITEM, PORT_LINEITEM)
     assert got == want, (got, want)
