@@ -13,10 +13,18 @@ QueryExecutor.execute -> reduce_to_response on one card:
      sums go through K1 over the evaluated mask: run twice, bit-identical;
   4. the north-star HLL group-by (NORTHSTAR_HLL.json) over 134,217,728
      ad-events rows, against registers built on the host;
+  5. selection queries (no sort, a packed ORDER BY key, the lexicographic
+     branch with an offset) over the lineitem rows, against rows picked
+     on the host;
+  6. exact distinct over (group, value) pairs (percentile, distinctcount,
+     the exact reach and a per-site HLL past the dense holders), the group
+     counts through K1 over the evaluated mask, against host oracles;
 
-and times the queries, the kernels at each query's shapes, their plain
-versions, the torch ops that build their inputs, and the one PyTorch call
-that computes K2's function.
+and times the queries (with their host finalize and the bytes of the one
+device-to-host copy), the kernels at each query's shapes, their plain
+versions, the torch ops that build their inputs, the one PyTorch call
+that computes K2's function, and the pair sort-dedup with both fetches of
+its buffers.
 
     python3 chip_smoke.py [--out results.json] [--profile | --kernels-only]
 
@@ -66,6 +74,28 @@ TORCH_OP_QUERY = (
     "SELECT sum(l_extendedprice), min(l_quantity), count(*) FROM lineitem "
     "WHERE l_quantity > 45 OR l_shipmode = 'AIR' GROUP BY l_returnflag, l_linestatus TOP 10"
 )
+# selection: first docs; a packed key (~512 rows share each price per
+# segment, so doc order breaks the ties); a radix product past x32's 2^30
+# key space (262,144 x 2000 x 2000), the lexicographic branch, with an offset
+SELECTION_QUERIES = {
+    "sel_first": "SELECT l_shipmode, l_extendedprice FROM lineitem WHERE l_shipmode = 'AIR' LIMIT 10",
+    "sel_top": "SELECT l_shipdate, l_extendedprice, l_quantity FROM lineitem WHERE l_quantity > 45 "
+    "ORDER BY l_extendedprice DESC LIMIT 10",
+    "sel_wide": "SELECT * FROM lineitem ORDER BY l_extendedprice, l_shipdate, l_receiptdate LIMIT 5, 10",
+}
+# exact distinct over (group, value) pairs past the dense holders (2000 x
+# 2^18 price ids, 1024 x ~4.26M users, 131,072 x 256 HLL registers > 2^24)
+PAIR_QUERIES = {
+    "pairs_pct": "SELECT percentile90(l_extendedprice) FROM lineitem WHERE l_quantity = 1 "
+    "GROUP BY l_shipdate TOP 10",
+    "pairs_distinct": "SELECT distinctcount(l_extendedprice) FROM lineitem WHERE l_quantity = 1 "
+    "GROUP BY l_shipdate TOP 10",
+    # the exact counterpart of the north-star reach
+    "reach_exact": "SELECT distinctcount(user_id) FROM adevents WHERE site_id < 8 GROUP BY campaign_id TOP 10",
+    "reach_hll_site": "SELECT distinctcounthll(user_id) FROM adevents WHERE site_id < 8 "
+    "GROUP BY campaign_id, site_id TOP 10",
+}
+AD_QUERIES = ("north_star", "reach_exact", "reach_hll_site")
 # NORTHSTAR_HLL.json: 4 distinct ad-events segments of 2^23 rows tiled to 16,
 # campaign_card 1024, user_card 2^20 per segment (global ~4.26M users)
 NORTH_STAR = "SELECT distinctcounthll(user_id) FROM adevents GROUP BY campaign_id TOP 10"
@@ -902,6 +932,115 @@ def north_star_oracle(hll_mod, segments) -> Dict[Tuple[str, ...], int]:
     return {(str(c),): int(ests[c]) for c in np.nonzero(rows)[0]}
 
 
+def _column_values(column, docs) -> list:
+    vals = column.dictionary.values
+    return [vals[int(i)] for i in column.fwd[docs]]
+
+
+def selection_oracle(segments, name: str) -> Tuple[List[str], List[list]]:
+    """(columns, rows) of a selection picked on the host: every matched
+    row ordered by its sort values, ties by segment and doc, then the
+    OFFSET / LIMIT window."""
+    seg0 = segments[0]
+    if name == "sel_first":
+        cols, rows = ["l_shipmode", "l_extendedprice"], []
+        for seg in segments:
+            mode = seg.column("l_shipmode")
+            docs = np.nonzero(mode.fwd == mode.dictionary.index_of("AIR"))[0][: 10 - len(rows)]
+            rows += [list(r) for r in zip(*(_column_values(seg.column(c), docs) for c in cols))]
+            if len(rows) == 10:
+                return cols, rows
+        return cols, rows
+    cands = []
+    if name == "sel_top":
+        cols, window = ["l_shipdate", "l_extendedprice", "l_quantity"], (0, 10)
+        for si, seg in enumerate(segments):
+            q, p = seg.column("l_quantity"), seg.column("l_extendedprice")
+            docs = np.nonzero((np.asarray(q.dictionary.values) > 45)[q.fwd])[0]
+            price = np.asarray(p.dictionary.values)[p.fwd[docs]]
+            keep = price >= np.partition(price, price.size - 10)[price.size - 10]
+            cands += [((-v,), si, d) for v, d in zip(price[keep], docs[keep])]
+    elif name == "sel_wide":
+        cols, window = list(seg0.columns), (5, 15)
+        for si, seg in enumerate(segments):
+            p = seg.column("l_extendedprice")
+            price = np.asarray(p.dictionary.values)[p.fwd]
+            docs = np.nonzero(price <= np.partition(price, 14)[14])[0]
+            ship = _column_values(seg.column("l_shipdate"), docs)
+            recv = _column_values(seg.column("l_receiptdate"), docs)
+            cands += [((price[d], a, b), si, d) for d, a, b in zip(docs, ship, recv)]
+    else:
+        raise ValueError(name)
+    cands.sort()
+    rows = []
+    for _, si, d in cands[window[0] : window[1]]:
+        seg = segments[si]
+        rows.append([_column_values(seg.column(c), [d])[0] for c in cols])
+    return cols, rows
+
+
+def _global_ids(columns) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """(sorted union of the columns' dictionary values, per column the
+    global id of each of its dictionary entries)."""
+    union = np.unique(np.concatenate([np.asarray(c.dictionary.values) for c in columns]))
+    return union, [np.searchsorted(union, np.asarray(c.dictionary.values)) for c in columns]
+
+
+def pair_oracle(hll_mod, segments, name: str) -> Tuple[Dict[Tuple[str, ...], Any], int, int]:
+    """({group tuple: exact answer}, unique (group, value) pairs, matched
+    rows) of a pair query, from the host segments: distinct counts and
+    percentiles over the matched (group, value) pairs, HLL estimates from
+    registers of the matched users' (bucket, rho), the port's own hashing."""
+    if name in ("pairs_pct", "pairs_distinct"):
+        dates, date_ids = _global_ids([s.column("l_shipdate") for s in segments])
+        prices, price_ids = _global_ids([s.column("l_extendedprice") for s in segments])
+        keys = []
+        for seg, di, pi in zip(segments, date_ids, price_ids):
+            q = seg.column("l_quantity")
+            rows = (np.asarray(q.dictionary.values) == 1.0)[q.fwd]
+            keys.append(di[seg.column("l_shipdate").fwd[rows]] * prices.size
+                        + pi[seg.column("l_extendedprice").fwd[rows]])
+        keys = np.sort(np.concatenate(keys))
+        uniq = np.unique(keys)
+        if name == "pairs_distinct":
+            counts = np.bincount(uniq // prices.size, minlength=dates.size)
+            want = {(str(dates[g]),): int(c) for g, c in enumerate(counts) if c}
+        else:
+            n = np.bincount(keys // prices.size, minlength=dates.size)
+            start = np.concatenate([[0], np.cumsum(n)[:-1]])
+            want = {}
+            for g in np.nonzero(n)[0]:
+                idx = min(int(n[g] * 90 / 100.0), int(n[g]) - 1)
+                want[(str(dates[g]),)] = float(prices[keys[start[g] + idx] % prices.size])
+        return want, int(uniq.size), int(keys.size)
+    if name in ("reach_exact", "reach_hll_site"):
+        keys = []
+        for seg in segments:
+            camp, site, user = seg.column("campaign_id"), seg.column("site_id"), seg.column("user_id")
+            svals = np.asarray(site.dictionary.values, dtype=np.int64)
+            rows = (svals < 8)[site.fwd]
+            c = np.asarray(camp.dictionary.values, dtype=np.int64)[camp.fwd[rows]]
+            if name == "reach_exact":
+                keys.append(c * (1 << 40) + np.asarray(user.dictionary.values)[user.fwd[rows]])
+            else:
+                bt, rt = hll_mod.dictionary_tables(user.dictionary)
+                group = c * 8 + svals[site.fwd[rows]]
+                keys.append((group * hll_mod.M + bt[user.fwd[rows]]) * 64 + rt[user.fwd[rows]])
+        keys = np.concatenate(keys)
+        uniq = np.unique(keys)
+        if name == "reach_exact":
+            counts = np.bincount(uniq >> 40)
+            return {(str(g),): int(c) for g, c in enumerate(counts) if c}, int(uniq.size), int(keys.size)
+        regs = np.zeros(AD_CAMPAIGNS * 8 * hll_mod.M, dtype=np.uint8)
+        np.maximum.at(regs, uniq >> 6, (uniq & 63).astype(np.uint8))
+        present = np.zeros(AD_CAMPAIGNS * 8, dtype=bool)
+        present[(uniq >> 6) // hll_mod.M] = True
+        ests = hll_mod.estimate_from_registers(regs.reshape(-1, hll_mod.M))
+        want = {(str(g // 8), str(g % 8)): int(ests[g]) for g in np.nonzero(present)[0]}
+        return want, int(uniq.size), int(keys.size)
+    raise ValueError(name)
+
+
 def check_value_response(resp, want: Dict[Tuple[str, ...], Any], top_n: int = 10) -> None:
     """The one aggregation's answer equals the oracle exactly: the value
     when ungrouped, else the top_n groups in the broker's order (value
@@ -995,9 +1134,10 @@ def main(argv=None) -> int:
 
 def run(dev: torch.device, opts) -> int:
     """Every phase on ``dev`` (main() passes the one card)."""
+    from pinot_tpu_torch.engine import config
     from pinot_tpu_torch.engine import hll as hll_mod
     from pinot_tpu_torch.engine import kernel as kernel_mod
-    from pinot_tpu_torch.engine import kernels
+    from pinot_tpu_torch.engine import kernels, packing
     from pinot_tpu_torch.engine.executor import QueryExecutor
     from pinot_tpu_torch.engine.kernels import fused_groupby as fg
     from pinot_tpu_torch.engine.kernels import value_state_counts as vsc
@@ -1190,21 +1330,107 @@ def run(dev: torch.device, opts) -> int:
         raise AssertionError("north_star: the sort lowering launched the value-state kernel")
     check_value_response(ns["north_star"], north_star_oracle(hll_mod, ad_segments))
     log("oracle north_star: ok, exact")
+
+    def segs_of(name: str):
+        return ad_segments if name in AD_QUERIES else segments
+
+    # 3e. selection: the torch-op route (a top-k over a packed key with the
+    # doc id folded in, or stable sorts) over the evaluated mask, no fused
+    # route; every row against the host's pick
+    sel_requests = {k: parse(v) for k, v in SELECTION_QUERIES.items()}
+    selected = drive("selection", sel_requests, segments, {})
+    if kernel_mod.fused_dispatches or kernel_mod.fused_value_dispatches:
+        raise AssertionError("selection: a query took a fused route")
+    for name in SELECTION_QUERIES:
+        cols, rows = selection_oracle(segments, name)
+        got = selected[name].selection_results
+        if got.columns != cols or got.rows != rows:
+            raise AssertionError(f"{name}: {got.columns} {got.rows} != oracle {cols} {rows}")
+        log(f"oracle {name}: ok, exact, {len(rows)} rows, first {got.to_json()['results'][0]}"[:400])
+
+    # 3f. exact distinct over (group, value) pairs: the pairs sort-dedup
+    # (torch ops), the group counts through K1 over the evaluated mask, no
+    # fused route and no K2; the unique pairs beside the device buffer
+    pair_requests = {k: parse(v) for k, v in PAIR_QUERIES.items()}
+    pair_stats = []
+    real_reduce = kernel_mod._reduce_distinct_pairs
+
+    def counting_reduce(value):
+        out = real_reduce(value)
+        pair_stats.append((int(out[3]), int(out[4])))
+        return out
+
+    kernel_mod._reduce_distinct_pairs = counting_reduce
+    try:
+        paired = {}
+        for path, segs in (("pairs_lineitem", segments), ("pairs_adevents", ad_segments)):
+            reqs = {k: r for k, r in pair_requests.items() if segs_of(k) is segs}
+            paired.update(drive(path, reqs, segs, {n: ("k1",) for n in reqs}))
+            if kernel_mod.fused_dispatches or kernel_mod.fused_value_dispatches:
+                raise AssertionError(f"{path}: a query took a fused route")
+            if record["paths"][path]["totals"]["k2"]:
+                raise AssertionError(f"{path}: the pair path launched the value-state kernel")
+    finally:
+        kernel_mod._reduce_distinct_pairs = real_reduce
+    record["pairs_unique"] = {}
+    for (name, resp), (n_unique, kept) in zip(paired.items(), pair_stats):
+        want, want_unique, want_kept = pair_oracle(hll_mod, segs_of(name), name)
+        check_value_response(resp, want)
+        if (n_unique, kept) != (want_unique, want_kept):
+            raise AssertionError(f"{name}: {n_unique} unique of {kept} kept pairs, oracle "
+                                 f"{want_unique} of {want_kept}")
+        log(f"oracle {name}: ok, exact; {kept} kept pairs, {n_unique} unique (the host's count too) "
+            f"of DISTINCT_PAIR_CAP {config.DISTINCT_PAIR_CAP}")
+        record["pairs_unique"][name] = {"kept": kept, "unique": n_unique, "cap": config.DISTINCT_PAIR_CAP}
     log(f"staged on the card: {ex.staged_bytes()} bytes")
     record.update(staged_bytes=ex.staged_bytes(), total_rows=total_rows)
 
-    # 4. timing: whole queries, then each kernel at each query's shapes
-    all_requests = {**requests, **value_requests, "torch_op": torch_op_request}
-    record["query_ms"] = {}
-    for name, req in {**all_requests, "north_star": ns_request}.items():
-        segs = ad_segments if name == "north_star" else segments
-        ms, _ = cuda_ms(lambda: reduce_to_response(req, [ex.execute(segs, req)]), ITERS)
-        log(f"query {name}: {ms:.3f} ms median of {ITERS}, {total_rows / (ms / 1e3):.4g} rows/s")
-        record["query_ms"][name] = ms
+    # 4. timing: whole queries (with the host's finalize and broker reduce,
+    # and the bytes of the one device-to-host copy), then each kernel at
+    # each query's shapes
+    all_requests = {**requests, **value_requests, "torch_op": torch_op_request,
+                    "north_star": ns_request, **sel_requests, **pair_requests}
+    host = {"finalize": [], "reduce": [], "d2h": 0}
+    real_finalize, real_fetch = ex._finalize, packing.fetch_packed
+
+    def timed_finalize(*a, **k):
+        t = time.perf_counter()
+        out = real_finalize(*a, **k)
+        host["finalize"].append(time.perf_counter() - t)
+        return out
+
+    def measured_fetch(outs):
+        leaves = []
+        packing._flatten(outs, leaves)
+        host["d2h"] = sum(-(-x.numel() * x.element_size() // 8) * 8 for x in leaves)
+        return real_fetch(outs)
+
+    def timed_query(req, segs):
+        def fn():
+            res = ex.execute(segs, req)
+            t = time.perf_counter()
+            reduce_to_response(req, [res])
+            host["reduce"].append(time.perf_counter() - t)
+        return fn
+
+    record["query_ms"], record["query_host"] = {}, {}
+    ex._finalize, packing.fetch_packed = timed_finalize, measured_fetch
+    try:
+        for name, req in all_requests.items():
+            host.update(finalize=[], reduce=[])
+            ms, _ = cuda_ms(timed_query(req, segs_of(name)), ITERS)
+            fin_ms = float(np.median(host["finalize"])) * 1e3
+            red_ms = float(np.median(host["reduce"])) * 1e3
+            log(f"query {name}: {ms:.3f} ms median of {ITERS}, {total_rows / (ms / 1e3):.4g} rows/s; host "
+                f"finalize {fin_ms:.3f} ms + broker reduce {red_ms:.3f} ms (medians); D2H {host['d2h']} bytes")
+            record["query_ms"][name] = ms
+            record["query_host"][name] = {"finalize_ms": fin_ms, "reduce_ms": red_ms, "d2h_bytes": host["d2h"]}
+    finally:
+        ex._finalize, packing.fetch_packed = real_finalize, real_fetch
     if opts.profile:
         record["profile"] = {}
-        for name, req in {**all_requests, "north_star": ns_request}.items():
-            segs = ad_segments if name == "north_star" else segments
+        for name, req in all_requests.items():
+            segs = segs_of(name)
             record["profile"][name] = profile_query(
                 lambda: reduce_to_response(req, [ex.execute(segs, req)]), name
             )
@@ -1219,14 +1445,15 @@ def run(dev: torch.device, opts) -> int:
     record["k1"] = {}
     k1_queries = {**requests, "hll_groupby": value_requests["hll_groupby"],
                   "pct_quantity": value_requests["pct_quantity"], "torch_op": torch_op_request,
-                  "north_star": ns_request}
+                  "north_star": ns_request, "pairs_pct": pair_requests["pairs_pct"],
+                  "reach_exact": pair_requests["reach_exact"]}
     names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
     for name, req in k1_queries.items():
         captured.clear()
         restore = (_capture(fg, "fused_filtered_groupby_sums", captured, "k1"),
                    _capture(kernel_mod, "_group_keys", captured, "keys"))
         try:
-            ex.execute(ad_segments if name == "north_star" else segments, req)
+            ex.execute(segs_of(name), req)
         finally:
             fg.fused_filtered_groupby_sums, kernel_mod._group_keys = restore
         a, k = captured["k1"]
@@ -1256,7 +1483,7 @@ def run(dev: torch.device, opts) -> int:
             log(f"k1 q1 yardstick: torch.sum over one {raw_bytes} B float32 stream {read_ms:.4f} ms, "
                 f"{raw_bytes / (read_ms / 1e3) / 1e12:.3f} TB/s")
         key_form = ("group_cols " + "+".join(str(g.dtype).replace("torch.", "") for g in args["group_cols"])
-                    + ("" if fused else ", key combine still run for min/max or the HLL sort"))
+                    + ("" if fused else ", key combine still run for min/max, the HLL sort or the pairs"))
         log(f"k1 {name} ({key_form}, K={args['capacity']}, nv={len(args['value_dicts'])}, tier {tier}): "
             f"{k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; "
             f"{bound / k_ms:.3f} of the bound, {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), tiers "
@@ -1315,6 +1542,41 @@ def run(dev: torch.device, opts) -> int:
                                   old_bound_ms=old_bound, bound_by=bound_by, bytes=nbytes, operations=ops,
                                   max_abs_err=0.0)
         del args
+        torch.cuda.empty_cache()
+
+    # the pair sort-dedup at each pair query's shapes: its time against a
+    # byte bound (each kept pair's 8-byte key written and read once), and
+    # the fetch of its buffers cut to n_unique (the port's) beside the
+    # whole DISTINCT_PAIR_CAP buffers (the reference's)
+    record["pairs"] = {}
+    for name, req in pair_requests.items():
+        captured.clear()
+        restore = _capture(kernel_mod, "_reduce_distinct_pairs", captured, "pairs")
+        try:
+            ex.execute(segs_of(name), req)
+        finally:
+            kernel_mod._reduce_distinct_pairs = restore
+        (value,), _ = captured["pairs"]
+        out = restore(value)
+        n_unique, kept = int(out[3]), int(out[4])
+        red_ms, _ = cuda_ms(lambda: restore(value), ITERS)
+        red_dev = device_ms(lambda: restore(value), expect="Sort")
+        bound = kept * 16 / HBM_BYTES_PER_S * 1e3
+        cap = config.DISTINCT_PAIR_CAP
+        padded = tuple(torch.zeros(cap, dtype=torch.int32, device=dev) for _ in range(3)) + tuple(out[3:])
+        exact_ms, _ = cuda_ms(lambda: packing.fetch_packed(out), ITERS)
+        cap_ms, _ = cuda_ms(lambda: packing.fetch_packed(padded), ITERS)
+        rows = value[0].numel()
+        top = sorted(red_dev.items(), key=lambda kv: -kv[1])[:4]
+        log(f"pairs {name}: sort-dedup of {kept} kept pairs (of {rows} rows, {n_unique} unique) "
+            f"{red_ms:.4f} ms per call, {sum(red_dev.values()):.4f} ms on the device (bound {bound:.4f} ms by "
+            f"bytes, {bound / red_ms:.3f} of it per call); top device work "
+            f"{ {k[:60]: round(v, 4) for k, v in top} }; fetch cut to n_unique "
+            f"({3 * 4 * n_unique + 8} B) {exact_ms:.4f} ms vs whole buffers ({3 * 4 * cap + 8} B) {cap_ms:.4f} ms")
+        record["pairs"][name] = dict(kept=kept, unique=n_unique, rows=rows, ms=red_ms,
+                                     device_ms=sum(red_dev.values()), device_by_kernel=red_dev, bound_ms=bound,
+                                     fetch_exact_ms=exact_ms, fetch_cap_ms=cap_ms)
+        del value, out, padded
         torch.cuda.empty_cache()
 
     launches = {"k1": 0, "k2": 0}

@@ -1,5 +1,5 @@
 """Broker response model (copy of ``pinot_tpu.common.response``, trimmed
-to the aggregation and group-by results the query slice returns).
+to the aggregation, group-by and selection results the port returns).
 
 JSON shape mirrors the reference ``BrokerResponseNative``
 (pinot-common ``common/response/broker/BrokerResponseNative.java``).
@@ -47,6 +47,26 @@ class AggregationResult:
 
 
 @dataclass
+class SelectionResults:
+    columns: List[str]
+    rows: List[List[Any]]
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "columns": list(self.columns),
+            "results": [[_sel_fmt(v) for v in row] for row in self.rows],
+        }
+
+
+def _sel_fmt(v: Any) -> Any:
+    if isinstance(v, list):
+        return [_sel_fmt(x) for x in v]
+    if isinstance(v, float):
+        return _fmt_value(v)
+    return str(v)
+
+
+@dataclass
 class QueryException:
     error_code: int
     message: str
@@ -58,6 +78,7 @@ class QueryException:
 @dataclass
 class BrokerResponse:
     aggregation_results: Optional[List[AggregationResult]] = None
+    selection_results: Optional[SelectionResults] = None
     exceptions: List[QueryException] = field(default_factory=list)
     num_docs_scanned: int = 0
     num_entries_scanned_in_filter: int = 0
@@ -73,6 +94,8 @@ class BrokerResponse:
 
     def to_json(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {}
+        if self.selection_results is not None:
+            d["selectionResults"] = self.selection_results.to_json()
         if self.aggregation_results is not None:
             d["aggregationResults"] = [a.to_json() for a in self.aggregation_results]
         d["exceptions"] = [e.to_json() for e in self.exceptions]

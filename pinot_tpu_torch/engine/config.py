@@ -34,8 +34,8 @@ MAX_GROUP_CAPACITY = 1 << 20
 # distinctcount / percentile dense state cap (global dictionary size).
 MAX_VALUE_STATE = 1 << 22
 
-# sort-dedup distinct path (StaticAgg.sort_pairs, a later slice of the
-# port): device output buffer for compacted unique (group, valueId) pairs.
+# sort-dedup distinct path (StaticAgg.sort_pairs): most unique (group,
+# valueId) pairs the device returns; more go to the host tier.
 DISTINCT_PAIR_CAP = 1 << 22
 
 HLL_LOG2M = 8  # HllConstants.java DEFAULT_LOG2M

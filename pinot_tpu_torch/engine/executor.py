@@ -6,8 +6,10 @@ All segments run in one table kernel over the stacked segment axis with
 the cross-segment merge fused in (``kernel.py``); this class prepares the
 inputs and turns the outputs into mergeable partials.
 
-The port has no host tier: a query shape this slice does not run on the
-device raises ``NotImplementedError`` naming the slice that will.
+The port has no host tier: a query shape the port does not run on the
+device (a group space past the dense holder, more unique (group, value)
+pairs than the device pair buffer returns, MV columns, joins) raises
+``NotImplementedError`` naming the slice that will.
 """
 from __future__ import annotations
 
@@ -76,6 +78,75 @@ def _regs_from_value_gids(
     return scatter_max_2d(np.asarray(rows)[ok], n_rows, bt[g], rt[g], config.HLL_M)
 
 
+class _PairsState:
+    """Host-side index over a compacted (group slot, valueId) pair buffer
+    from the sort reduce (``kernel._reduce_distinct_pairs``): per-slot
+    distinct counts for trim ordering, per-slot gid slices for the
+    partials, and per-pair occurrence counts (run lengths off the carried
+    start positions) for exact percentile histograms."""
+
+    def __init__(self, state, capacity: int) -> None:
+        slots, gids, starts, n, total_valid = state
+        n = int(n)
+        # the reduce leaves the first n entries sorted by (slot, gid)
+        self._slots_sorted = np.asarray(slots)[:n].astype(np.int64)
+        self._gids_sorted = np.asarray(gids)[:n]
+        self._pair_counts = np.diff(
+            np.append(np.asarray(starts)[:n].astype(np.int64), int(total_valid))
+        )
+        self._bounds = np.searchsorted(self._slots_sorted, np.arange(capacity + 1, dtype=np.int64))
+        self.counts = np.diff(self._bounds).astype(np.float64)
+
+    def gids_for(self, key: int) -> np.ndarray:
+        a, b = self._bounds[key], self._bounds[key + 1]
+        return self._gids_sorted[a:b]
+
+    def gid_counts_for(self, key: int):
+        """(gids ascending, occurrence counts) for one group slot."""
+        a, b = self._bounds[key], self._bounds[key + 1]
+        return self._gids_sorted[a:b], self._pair_counts[a:b]
+
+    def gids_rows_for(self, keys: np.ndarray):
+        """Batched slice gather: (gids, rows) where ``rows[i]`` is the
+        position in ``keys`` whose slot owns ``gids[i]``, the input shape
+        ``_regs_from_gids`` batch-decodes."""
+        if not keys.size:
+            empty = np.zeros(0, dtype=np.int64)
+            return empty, empty
+        lo, hi = self._bounds[keys], self._bounds[keys + 1]
+        counts = hi - lo
+        offs = np.concatenate(([0], np.cumsum(counts)[:-1])).astype(np.int64)
+        take = np.arange(int(counts.sum())) - np.repeat(offs, counts) + np.repeat(lo, counts)
+        return self._gids_sorted[take], np.repeat(np.arange(keys.size), counts)
+
+    def percentiles_for(self, keys: np.ndarray, p: int, vals: np.ndarray) -> np.ndarray:
+        """Exact percentile per requested group slot from the sparse
+        (gid, count) runs, the dense-histogram math vectorized."""
+        csum = np.concatenate([[0], np.cumsum(self._pair_counts)])
+        lo, hi = self._bounds[keys], self._bounds[keys + 1]
+        n = csum[hi] - csum[lo]
+        idx = np.minimum((n * p / 100.0).astype(np.int64), np.maximum(n - 1, 0))
+        # global cumulative position of each group's idx-th element
+        pos = np.searchsorted(csum[1:], csum[lo] + idx, side="right")
+        pos = np.minimum(pos, self._gids_sorted.size - 1) if self._gids_sorted.size else pos
+        gid = self._gids_sorted[pos] if self._gids_sorted.size else np.zeros_like(pos)
+        return np.where(n > 0, vals[np.minimum(gid, vals.size - 1)], -np.inf)
+
+
+def _regs_from_gids(
+    gids: np.ndarray, rows: Optional[np.ndarray] = None, n_rows: int = 0
+) -> np.ndarray:
+    """Decode packed (bucket * 64 + rho) pair gids into HLL registers (max
+    rho per bucket).  Without ``rows``: one uint8[HLL_M] register array;
+    with ``rows`` (same shape as ``gids``) and ``n_rows``: uint8[n_rows,
+    HLL_M], one register array per row."""
+    g = np.asarray(gids, dtype=np.int64)
+    rho = (g & 63).astype(np.uint8)
+    if rows is None:
+        return scatter_max_2d(np.zeros(g.size, np.int64), 1, g >> 6, rho, config.HLL_M)[0]
+    return scatter_max_2d(rows, n_rows, g >> 6, rho, config.HLL_M)
+
+
 def _hist_partial(gdict, gids, cnts, p: int) -> HistogramPartial:
     counts = {
         float(gdict.get(int(g))): int(c)
@@ -83,6 +154,13 @@ def _hist_partial(gdict, gids, cnts, p: int) -> HistogramPartial:
         if g < gdict.cardinality
     }
     return HistogramPartial(counts, percentile=p)
+
+
+_HOST_ONLY = (
+    "the query runs only on the host tier (a group space beyond the dense device "
+    "holder, or more unique (group, value) pairs than the device pair buffer "
+    "returns), which is a later slice of the port"
+)
 
 
 def prune_segments(
@@ -101,8 +179,6 @@ def check_supported(request: BrokerRequest) -> None:
     before anything is staged."""
     if request.join is not None:
         raise NotImplementedError("joins are a later slice of the port")
-    if request.is_selection:
-        raise NotImplementedError("selection queries are a later slice of the port")
     for a in request.aggregations:
         if a.is_mv:
             raise NotImplementedError(
@@ -112,8 +188,8 @@ def check_supported(request: BrokerRequest) -> None:
 
 
 class QueryExecutor:
-    """Executes aggregation / group-by queries over a set of immutable
-    segments on one device.
+    """Executes aggregation, group-by and selection queries over a set of
+    immutable segments on one device.
 
     ``device``: where the segments are staged and the kernel runs; None
     means the current CUDA device, and raises when there is none.
@@ -155,16 +231,16 @@ class QueryExecutor:
     ) -> IntermediateResult:
         total_docs = sum(s.num_docs for s in live)
         needed = set(request.referenced_columns())
+        sel_columns: Optional[List[str]] = None
+        if request.is_selection:
+            sel_columns = self._resolve_selection_columns(request, live[0])
+            needed.update(sel_columns)
         # columns used only by doc-range predicates on sorted columns never
         # reach the device (the kernel compares row ids with doc bounds)
-        needed -= self._docrange_only_columns(request, live)
+        needed -= self._docrange_only_columns(request, live, sel_columns)
         ctx = get_table_context(live, self._contexts)
         if plan_forced_host(request, ctx, self.precision):
-            raise NotImplementedError(
-                "the query runs only on the host (a group space beyond the dense "
-                "device holder, or distinct values beyond the device pair buffer): "
-                "the host tier is a later slice of the port"
-            )
+            raise NotImplementedError(_HOST_ONLY)
         raw_cols, gfwd_cols, hll_cols = self._role_columns(request, live, ctx)
         skip_base = self._skip_base_columns(request, live, raw_cols, gfwd_cols, hll_cols)
         staged = get_staged(
@@ -179,7 +255,9 @@ class QueryExecutor:
             skip_base_columns=skip_base,
             hll_columns=hll_cols,
         )
-        return self._device_section_staged(live, request, ctx, needed, total_docs, staged)
+        return self._device_section_staged(
+            live, request, ctx, needed, total_docs, staged, sel_columns
+        )
 
     def _device_section_staged(
         self,
@@ -189,28 +267,41 @@ class QueryExecutor:
         needed: set,
         total_docs: int,
         staged: StagedTable,
+        sel_columns: Optional[List[str]] = None,
     ) -> IntermediateResult:
         scratch: Dict[Any, Any] = {}
         plan = build_static_plan(request, ctx, staged, scratch=scratch)
         if not plan.on_device:
-            raise NotImplementedError(
-                "plan is not on device: the host tier is a later slice of the port"
-            )
+            raise NotImplementedError(_HOST_ONLY)
         q_np = build_query_inputs(request, plan, ctx, staged, scratch=scratch)
         seg = segment_arrays(staged, needed)
         q = to_device_inputs(q_np, self.device)
         outs = self._kernel(plan, staged, seg, q)
-        result = self._finalize(request, plan, ctx, staged, live, outs, total_docs)
+        for i, agg in enumerate(plan.aggs):
+            if agg.sort_pairs:
+                state = outs[f"gb_{i}" if plan.group_by is not None else f"agg_{i}"]
+                if int(state[3]) > config.DISTINCT_PAIR_CAP:
+                    raise NotImplementedError(
+                        f"aggregation {agg.func}({agg.column}): {int(state[3])} unique "
+                        f"(group, value) pairs overflow the device pair buffer "
+                        f"({config.DISTINCT_PAIR_CAP}); {_HOST_ONLY}"
+                    )
+        result = self._finalize(request, plan, ctx, staged, live, outs, total_docs, sel_columns)
         dev_bytes = sum(t.numel() * t.element_size() for t in seg.values())
         result.add_cost(bytesScanned=dev_bytes, deviceBytes=dev_bytes, segmentsFullScan=len(live))
         return result
 
-    def _docrange_only_columns(self, request: BrokerRequest, live) -> set:
+    def _docrange_only_columns(
+        self, request: BrokerRequest, live, sel_columns: Optional[List[str]] = None
+    ) -> set:
         """Filter columns whose every use qualifies for the docrange fast
         path and which appear nowhere else in the query."""
         used_elsewhere = {a.column for a in request.aggregations}
         if request.is_group_by:
             used_elsewhere.update(request.group_by.columns)
+        if request.is_selection:
+            used_elsewhere.update(sel_columns or [])
+            used_elsewhere.update(s.column for s in request.selection.sorts)
         return self._docrange_qualifying_cols(request, live) - used_elsewhere
 
     def _docrange_qualifying_cols(self, request: BrokerRequest, live) -> set:
@@ -242,8 +333,10 @@ class QueryExecutor:
         self, request: BrokerRequest, live, raw_cols, gfwd_cols, hll_cols
     ) -> set:
         """Columns the kernel reads only through a role array skip their
-        base fwd/dict arrays; filter leaves (other than docrange ones) and
-        dictionary-fed agg inputs keep them."""
+        base fwd/dict arrays; filter leaves (other than docrange ones),
+        dictionary-fed agg inputs and a selection's columns keep them."""
+        if request.is_selection:
+            return set()
         filter_cols = (
             {n.column for n in request.filter.walk() if n.is_leaf}
             if request.filter is not None
@@ -256,12 +349,18 @@ class QueryExecutor:
         }
         return (set(raw_cols) | set(gfwd_cols) | set(hll_cols)) - filter_cols - gather_agg_cols
 
+    def _resolve_selection_columns(self, request: BrokerRequest, seg: ImmutableSegment) -> List[str]:
+        cols = request.selection.columns
+        if not cols or cols == ["*"]:
+            return list(seg.columns.keys())
+        return list(cols)
+
     def _role_columns(self, request: BrokerRequest, live, ctx: TableContext):
         """Aggregation inputs above ``raw_card_min`` get raw value arrays;
-        group-by columns and presence/hist inputs get global-id forward
-        arrays; HLL inputs get the global-id stream where they lower to
-        presence (``hll_lowers_to_presence``), else the per-row HLL
-        (register, rank) streams."""
+        group-by columns, selection sort columns and presence/hist inputs
+        get global-id forward arrays; HLL inputs get the global-id stream
+        where they lower to presence (``hll_lowers_to_presence``), else
+        the per-row HLL (register, rank) streams."""
         seg = live[0]
 
         def sv(c: str) -> bool:
@@ -286,6 +385,8 @@ class QueryExecutor:
         gfwd_cols = set()
         if request.is_group_by:
             gfwd_cols.update(c for c in request.group_by.columns if sv(c))
+        if request.is_selection:
+            gfwd_cols.update(s.column for s in request.selection.sorts if sv(s.column))
         gfwd_cols.update(
             a.column
             for a in request.aggregations
@@ -304,8 +405,10 @@ class QueryExecutor:
         res = IntermediateResult(total_docs=total_docs)
         if request.is_group_by:
             res.groups = {}
-        else:
+        elif request.is_aggregation:
             res.aggregations = [make_partial(a.base_function) for a in request.aggregations]
+        else:
+            res.selection_rows = []
         return res
 
     # ------------------------------------------------------------------
@@ -318,6 +421,7 @@ class QueryExecutor:
         live: List[ImmutableSegment],
         outs: Dict[str, Any],
         total_docs: int,
+        sel_columns: Optional[List[str]] = None,
     ) -> IntermediateResult:
         matched = int(outs["num_docs"])
         res = IntermediateResult(
@@ -333,7 +437,32 @@ class QueryExecutor:
             res.aggregations = [
                 self._scalar_partial(agg, outs[f"agg_{i}"], ctx) for i, agg in enumerate(plan.aggs)
             ]
+        if plan.selection is not None:
+            res.selection_rows = self._finalize_selection(request, live, outs, sel_columns)
+            res.selection_columns = sel_columns
         return res
+
+    def _finalize_selection(
+        self,
+        request: BrokerRequest,
+        live: List[ImmutableSegment],
+        outs,
+        sel_columns: List[str],
+    ) -> List[Tuple[list, list]]:
+        """(sort values, row) of every matched candidate, segment by
+        segment in the kernel's order; the broker reduce sorts and cuts
+        the window."""
+        sel = request.selection
+        docids, valid = outs["sel_docids"], outs["sel_valid"]  # [S, k]
+        rows: List[Tuple[list, list]] = []
+        for si, seg in enumerate(live):
+            for j in range(docids.shape[1]):
+                doc = int(docids[si, j])
+                if not valid[si, j] or doc >= seg.num_docs:
+                    continue
+                full = seg.row(doc)
+                rows.append(([full[s.column] for s in sel.sorts], [full[c] for c in sel_columns]))
+        return rows
 
     def _scalar_partial(self, agg, state, ctx: TableContext) -> AggPartial:
         base = agg.base
@@ -349,7 +478,23 @@ class QueryExecutor:
             return AvgPartial(float(state[0]), float(state[1]))
         if base == "minmaxrange":
             return MinMaxRangePartial(float(state[0]), float(state[1]))
+        if agg.sort_pairs:
+            return self._pairs_partial(agg, _PairsState(state, 1), 0, ctx)
         return self._value_partial(agg, np.asarray(state), ctx)
+
+    def _pairs_partial(self, agg, pairs: _PairsState, key: int, ctx: TableContext) -> AggPartial:
+        """The partial of one group slot's sort-dedup pairs: its distinct
+        global value ids, their occurrence counts (percentile), or the HLL
+        registers its (bucket, rho) gids decode to."""
+        if agg.kind == "presence":
+            gdict = ctx.column(agg.column).global_dict
+            ids = pairs.gids_for(key).astype(np.int64)
+            return DistinctPartial(gdict.value_array()[ids[ids < gdict.cardinality]])
+        if agg.kind == "hist":
+            return _hist_partial(
+                ctx.column(agg.column).global_dict, *pairs.gid_counts_for(key), percentile_of(agg.base)
+            )
+        return HllPartial(_regs_from_gids(pairs.gids_for(key)))
 
     def _value_partial(self, agg, row: np.ndarray, ctx: TableContext) -> AggPartial:
         """The partial of one value-state holder row: presence bits over
@@ -376,6 +521,12 @@ class QueryExecutor:
         keys = np.nonzero(np.asarray(outs["gb_presence"]).astype(bool))[0]
         if keys.size == 0:
             return {}
+        # sort-dedup states arrive as compacted (slot, gid) pair buffers:
+        # index each once for the per-group reads
+        outs = dict(outs)
+        for i, agg in enumerate(plan.aggs):
+            if agg.sort_pairs:
+                outs[f"gb_{i}"] = _PairsState(outs[f"gb_{i}"], gb.capacity)
         # trim candidate groups per aggregation (reference trims to
         # topN*5 per server, MCombineGroupByOperator.java:216)
         if keys.size > max(gb.top_n * 5, 100):
@@ -421,6 +572,15 @@ class QueryExecutor:
                 return np.where(c > 0, s / np.maximum(c, 1), -np.inf)
         if base == "minmaxrange":
             return (np.asarray(state[1])[keys] - np.asarray(state[0])[keys]).astype(np.float64)
+        if agg.sort_pairs:
+            if agg.kind == "presence":
+                return state.counts[keys]
+            if agg.kind == "hist":
+                vals = np.asarray(ctx.column(agg.column).global_dict.values, dtype=np.float64)
+                return state.percentiles_for(keys, percentile_of(base), vals)
+            # one batched decode over the concatenated per-slot gid slices
+            regs = _regs_from_gids(*state.gids_rows_for(keys), keys.size)
+            return np.asarray(hll_mod.estimate_from_registers(regs), dtype=np.float64)
         if agg.kind == "presence":
             occ = np.asarray(state)[keys]  # [k, gcard_pad]
             if agg.hll_from_presence:
@@ -458,4 +618,6 @@ class QueryExecutor:
             return AvgPartial(float(state[0][key]), float(state[1][key]))
         if base == "minmaxrange":
             return MinMaxRangePartial(float(state[0][key]), float(state[1][key]))
+        if agg.sort_pairs:
+            return self._pairs_partial(agg, state, key, ctx)
         return self._value_partial(agg, np.asarray(state)[key], ctx)

@@ -15,10 +15,16 @@ out:
                 a combined index, through ``value_state_counts.value_state``
                 (K2), which combines the index itself
 
+  sort pairs  = (group slot, valueId) pairs per row, int32, the sentinel
+                on dropped rows, for value states too wide for a dense
+                holder (``StaticAgg.sort_pairs``)
+  selection   = per segment the k first docs in sort order
+
 Per-segment states reduce over the segment axis (``output_reducers`` /
 ``apply_reduce``); group-by and value-state states are computed over
-every segment at once (reducer "none"), and the packed grouped-HLL keys
-reduce by one sort (``_reduce_hll_sort``).
+every segment at once (reducer "none"), the packed grouped-HLL keys
+reduce by one sort (``_reduce_hll_sort``), the pairs by one sort-dedup
+(``_reduce_distinct_pairs``), and selection candidates stay per segment.
 
 Routing is keyed on the plan, never on the device, so the CPU tests take
 the card's routes:
@@ -36,14 +42,16 @@ the card's routes:
     the value streams, and a grouped plan's counts and sums in one K1
     launch the same way: no mask, key or index is built in device memory
     (the fused value route, counted in ``fused_value_dispatches``);
-  * every other plan evaluates its filter tree with torch ops and hands
+  * every other plan, and every plan with a selection or a sort-pairs
+    aggregation, evaluates its filter tree with torch ops and hands
     the mask to the same kernels as a match table over {0, 1}, with the
     group-by columns: group counts and float sums are per-block partials
     reduced in a fixed order, so they are the same on every run (no
     float atomics); the precombined group key is built only where min /
     max holders, key windows, more group-by columns than the kernels take
-    (``MAX_GROUP_COLUMNS``) or the "sort" and "scatter" grouped-HLL
-    lowerings (torch ops, as they are jnp in the reference) need it.
+    (``MAX_GROUP_COLUMNS``), the "sort" and "scatter" grouped-HLL
+    lowerings or the grouped sort pairs (torch ops, as they are jnp or
+    ``lax.sort`` in the reference) need it.
 On the card both kernels are the CUDA kernels; on the CPU their wrappers
 run the plain torch versions.
 """
@@ -67,7 +75,8 @@ fused_value_dispatches = 0  # table-kernel runs that took the fused value route
 _MATMUL_HLL_CAP = 1 << 18
 _HLL_SORT_CAP = 1 << 16
 
-# int32 sentinel of masked packed HLL keys: sorts past every real key
+# int32 sentinel of masked packed HLL keys and of dropped (slot, gid)
+# pairs: sorts past every real key (slots < MAX_GROUP_CAPACITY, gids < 2^31-1)
 _PAIR_SENTINEL = torch.iinfo(torch.int32).max
 
 _FUSED_LEAF_KINDS = ("interval", "docrange", "table")
@@ -185,6 +194,24 @@ def _value_state(agg: StaticAgg, aux, seg, filt: Dict[str, Any],
     return docs, holder.view(*lead, config.HLL_M if agg.kind == "hll" else agg.gcard_pad)
 
 
+def _sort_pairs(
+    agg: StaticAgg, aux, seg, keep: torch.Tensor, slot: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(group slot, gid) int32 pairs [S, n_pad] of a sort-pairs agg, the
+    sentinel in both where ``keep`` is False: the global value id for
+    presence / hist (its staged global-id stream: ``_role_columns``
+    stages one for every SV presence / hist column), ``bucket * 64 +
+    rho`` for HLL.  ``slot`` is the group slot per row (None when
+    ungrouped: slot 0)."""
+    if agg.kind == "hll":
+        b, r = _hll_rows(agg, seg, aux["bucket"], aux["rho"])
+        gid = b.to(torch.int32) * 64 + r.to(torch.int32)
+    else:
+        gid = seg[f"{agg.column}.gfwd"].to(torch.int32)
+    slot = torch.zeros_like(gid) if slot is None else slot.to(torch.int32)
+    return torch.where(keep, slot, _PAIR_SENTINEL), torch.where(keep, gid, _PAIR_SENTINEL)
+
+
 def _mask_filter(mask: torch.Tensor) -> Dict[str, Any]:
     """The evaluated [S, n_pad] mask as a kernel filter: a match table
     over {0, 1}."""
@@ -198,6 +225,8 @@ def _agg_state(agg: StaticAgg, i: int, seg, q, mask, fdt) -> Any:
     for scalar and pair kinds, over every segment at once for value
     states (one K2 launch covers all S segments)."""
     base = agg.base
+    if agg.sort_pairs:
+        return _sort_pairs(agg, q["agg_aux"][i], seg, mask, None)
     if agg.kind in ("presence", "hist", "hll"):
         return _value_state(agg, q["agg_aux"][i], seg, _mask_filter(mask))[1]
     if base == "count":
@@ -312,7 +341,10 @@ def _group_value_state(agg: StaticAgg, aux, seg, mask, group, slot, cap: int) ->
     K2 takes: then the precombined key is its one group column, masked
     rows carrying ``cap`` and so dropping), larger group spaces by the
     reference's sort or scatter lowering over the precombined key
-    (``slot()``)."""
+    (``slot()``), and states too wide for a dense holder as (slot, gid)
+    pairs."""
+    if agg.sort_pairs:
+        return _sort_pairs(agg, aux, seg, mask, slot())
     path = _grouped_hll_path(cap) if agg.kind == "hll" else "matmul"
     if path == "matmul":
         if group is None:
@@ -382,6 +414,55 @@ def _group_outputs(plan: StaticPlan, staged: StagedTable, seg, q, mask) -> Dict[
     return out
 
 
+def _sort_ordinals(sel, seg, q, dtype):
+    """Per sort column: the global ordinal of each doc's value [S, n_pad]
+    in ``dtype``, flipped for a descending column, with its cardinality."""
+    for col, asc, gcard, remap, use_g in zip(
+        sel.sort_columns, sel.sort_ascending, sel.sort_gcards, q.get("sel_remap", ()), sel.use_gfwd
+    ):
+        if use_g:
+            g = seg[f"{col}.gfwd"].to(dtype)
+        else:
+            g = torch.gather(remap, 1, seg[f"{col}.fwd"].long()).to(dtype)
+        if not asc:
+            g = (gcard - 1) - g
+        yield g, gcard
+
+
+def _selection_outputs(plan: StaticPlan, seg, q, mask) -> Dict[str, Any]:
+    """Per segment the k first docs [S, k] in (matched first, sort key,
+    doc) order, and whether each matched.  The reference takes
+    ``lax.top_k`` of one packed key (ties: the lower doc first) or, for a
+    key space wider than the key dtype, one multi-operand ``lax.sort``.
+    Here the packed key folds the doc id in, so no two scores tie and
+    ``torch.topk`` (which promises no order among ties) picks the same
+    docs in the same order; where the folded key would not fit int64,
+    and for the unpacked plan, successive stable sorts from the least
+    significant key to the mask key do the lexicographic sort, doc order
+    coming from stability."""
+    sel = plan.selection
+    S, n = mask.shape
+    space = 1
+    for g in sel.sort_gcards:
+        space *= g
+    if sel.packed and (space + 1) * n <= 1 << 63:
+        key = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
+        for g, gcard in _sort_ordinals(sel, seg, q, torch.int64):
+            key = key * gcard + g
+        doc = torch.arange(n, dtype=torch.int64, device=mask.device)
+        score = torch.where(mask, key, space) * n + doc
+        idx = torch.topk(score, sel.k, dim=1, largest=False, sorted=True).indices
+    else:
+        keys = [(~mask).to(torch.int32)]  # matches first
+        keys.extend(g for g, _ in _sort_ordinals(sel, seg, q, torch.int32))
+        idx = torch.arange(n, device=mask.device).expand(S, n)
+        for key in reversed(keys):
+            perm = torch.sort(torch.gather(key, 1, idx), dim=1, stable=True).indices
+            idx = torch.gather(idx, 1, perm)
+        idx = idx[:, : sel.k]
+    return {"sel_docids": idx.to(torch.int32), "sel_valid": torch.gather(mask, 1, idx)}
+
+
 def output_reducers(plan: StaticPlan) -> Dict[str, str]:
     """Reduce op over the segment axis per output key."""
     red: Dict[str, str] = {"num_docs": "sum"}
@@ -392,6 +473,9 @@ def output_reducers(plan: StaticPlan) -> Dict[str, str]:
     else:
         for i, agg in enumerate(plan.aggs):
             red[f"agg_{i}"] = _state_reduce(agg)
+    if plan.selection is not None:
+        red["sel_docids"] = "none"
+        red["sel_valid"] = "none"
     return red
 
 
@@ -400,6 +484,8 @@ def _state_reduce(agg: StaticAgg, capacity: int = 0) -> str:
     states, and value states (whose reference reducers — max for presence
     and registers, sum for histograms — the summed counts already
     apply)."""
+    if agg.sort_pairs:
+        return "distinct_pairs"
     if capacity:
         if agg.kind == "hll" and _grouped_hll_path(capacity) == "sort":
             # packed-key states: the reduce sorts and extracts registers;
@@ -433,9 +519,42 @@ def _reduce_hll_sort(value: torch.Tensor, capacity: int) -> torch.Tensor:
     return regs.view(capacity, config.HLL_M).to(torch.uint8)
 
 
+def _reduce_distinct_pairs(value) -> Tuple[torch.Tensor, ...]:
+    """Global sort-dedup of (group slot, valueId) pairs across all
+    segments: the exact distinct / histogram merge without per-pair
+    state.  torch has no multi-operand sort, so each kept pair packs into
+    one int64 key ``slot << 32 | gid`` (both are non-negative int32, so
+    the key order is the lexicographic pair order); the dropped pairs
+    (sentinels, which the reference sorts last) are left out before the
+    sort, and the run starts compact in order by ``torch.nonzero``.
+
+    Returns (slots, gids, starts, n_unique, total_valid) with the
+    reference's contract (``pinot_tpu/engine/kernel.py:879-909``): the
+    first ``n_unique`` entries are the unique pairs in (slot, gid) order
+    and each one's first position in the sorted kept pairs, so per-pair
+    occurrence counts are diff(starts) with ``total_valid`` closing the
+    last run.  The buffers hold min(n_unique, DISTINCT_PAIR_CAP) entries:
+    ``n_unique`` above the cap is the overflow the executor refuses."""
+    s = value[0].reshape(-1)
+    g = value[1].reshape(-1)
+    kept = torch.nonzero(s != _PAIR_SENTINEL).squeeze(1)
+    key = torch.sort((s[kept].long() << 32) | g[kept].long()).values
+    first = torch.ones(key.shape, dtype=torch.bool, device=key.device)
+    first[1:] = key[1:] != key[:-1]
+    starts = torch.nonzero(first).squeeze(1)
+    n_unique = first.sum(dtype=torch.int32)
+    total_valid = torch.full((), key.numel(), dtype=torch.int32, device=key.device)
+    starts = starts[: config.DISTINCT_PAIR_CAP]
+    head = key[starts]
+    return ((head >> 32).to(torch.int32), (head & 0xFFFFFFFF).to(torch.int32),
+            starts.to(torch.int32), n_unique, total_valid)
+
+
 def apply_reduce(op: str, value: Any):
     if op.startswith("hll_sort:"):
         return _reduce_hll_sort(value, int(op.split(":", 1)[1]))
+    if op == "distinct_pairs":
+        return _reduce_distinct_pairs(value)
     if op == "none":
         return value
     if op == "sum":
@@ -464,6 +583,8 @@ def _segment_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str,
     fdt = staged.precision.float_dtype
     for i, agg in enumerate(plan.aggs):
         out[f"agg_{i}"] = _agg_state(agg, i, seg, q, mask, fdt)
+    if plan.selection is not None:
+        out.update(_selection_outputs(plan, seg, q, mask))
     return out
 
 
@@ -523,9 +644,15 @@ def _k1_fits(plan: StaticPlan, staged: StagedTable, cols: List[str], match_card:
     return fused_groupby.fits_shared_memory(fbytes, gb.capacity, len(cols), dict_cards, match_card, remap_cards)
 
 
+def _torch_op_only(plan: StaticPlan) -> bool:
+    """A selection's top-k and a sort-pairs agg's (slot, gid) pairs are
+    torch ops over the evaluated mask: such plans take the torch-op route."""
+    return plan.selection is not None or any(a.sort_pairs for a in plan.aggs)
+
+
 def fused_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
     """Whether this plan takes the fused kernel (module docstring)."""
-    if plan.group_by is None or plan.filter_tree is None:
+    if plan.group_by is None or plan.filter_tree is None or _torch_op_only(plan):
         return False
     match_card = _fused_leaf_card(plan, staged)
     cols = _fused_value_columns(plan)
@@ -537,6 +664,8 @@ def fused_value_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
     the fused kernels' filter, value states K2 counts (grouped HLL only
     in its "matmul" lowering), and beside them counts (or, grouped,
     count / sum / avg that K1 takes)."""
+    if _torch_op_only(plan):
+        return False
     match_card = _fused_leaf_card(plan, staged)
     cols = _fused_value_columns(plan, value_states=True)
     values = [a for a in plan.aggs if a.kind in _VALUE_KINDS]

@@ -1,7 +1,7 @@
 """Query planning: BrokerRequest -> (StaticPlan, query inputs) — port of
 ``pinot_tpu.engine.plan`` restricted to single-value filter leaves,
-AND/OR trees, single-value group-by, and scalar, pair and dense
-value-state (distinctcount, percentile, HLL) aggregations on
+AND/OR trees, single-value group-by, scalar, pair and value-state
+(distinctcount, percentile, HLL) aggregations, and selections, on
 single-value columns.
 
 - **StaticPlan** — a hashable description of the kernel's structure:
@@ -24,9 +24,13 @@ become vector compares):
 
 Value-state aggregations keep a dense holder per group: presence bits or
 a histogram over the column's global dictionary (``gcard_pad`` wide), or
-``HLL_M`` registers.  Holders too big for the dense path would take the
-reference's sort-dedup pairs (``sort_pairs``), which is a later slice of
-the port: such a plan raises ``NotImplementedError``.
+``HLL_M`` registers.  Holders too big for the dense path take the
+sort-dedup (group slot, valueId) pairs instead (``sort_pairs``).
+
+A selection (``StaticSelection``) keeps per segment the ``k = offset +
+size`` first docs in sort order: one packed integer key when the radix
+product of the sort columns' global cardinalities fits the precision's
+key space, else a lexicographic sort over one ordinal per column.
 """
 from __future__ import annotations
 
@@ -70,7 +74,9 @@ class StaticAgg:
     gcard_pad: int = 0  # value-state holder width (padded global cardinality)
     # read values from the staged raw array instead of dict_vals[fwd]
     use_raw: bool = False
-    sort_pairs: bool = False  # always False: the pair-sort path is a later slice
+    # exact distinct / percentile / HLL through a sort-dedup of (group
+    # slot, valueId) pairs instead of the dense [capacity, gcard_pad] holder
+    sort_pairs: bool = False
     # an SV HLL over a modest global dictionary computes presence over
     # global value ids; the finalize hashes the present values into
     # registers (registers depend only on the distinct value set)
@@ -88,13 +94,26 @@ class StaticGroupBy:
 
 
 @dataclass(frozen=True)
+class StaticSelection:
+    columns: Tuple[str, ...]
+    sort_columns: Tuple[str, ...]
+    sort_ascending: Tuple[bool, ...]
+    sort_gcards: Tuple[int, ...]  # global cards = composite-key radices
+    k: int  # per-segment candidates = offset + size
+    # True -> the sort key packs into one integer (radix product fits the
+    # key space); False -> lexicographic sort over one ordinal per column
+    packed: bool = True
+    use_gfwd: Tuple[bool, ...] = ()  # per sort column, as StaticGroupBy
+
+
+@dataclass(frozen=True)
 class StaticPlan:
     # filter tree encoded as nested tuples: ("leaf", i) | ("and"|"or", (...))
     filter_tree: Optional[tuple]
     leaves: Tuple[StaticLeaf, ...]
     aggs: Tuple[StaticAgg, ...]
     group_by: Optional[StaticGroupBy]
-    selection: Optional[Any]  # always None: selection is a later slice
+    selection: Optional[StaticSelection]
     on_device: bool  # False -> the host tier, which this port does not have
 
 
@@ -336,12 +355,18 @@ def build_static_plan(
         cap = group_capacity(request, ctx)
         if group_capacity_forces_host(cap, staged.precision):
             on_device = False
-        # value-state aggs need [capacity, state] holders: cap the product
+        # value-state aggs need [capacity, state] holders: past the cap on
+        # the product every kind sorts pairs instead (presence dedups,
+        # hist counts runs, hll packs (bucket, rho) into the pair gid)
         for ai, a in enumerate(aggs):
             if a.kind in ("presence", "hist", "hll") and value_state_sort_pairs(
                 a.kind, a.gcard_pad, cap
             ):
                 aggs[ai] = replace(a, sort_pairs=True)
+        for a in aggs:
+            # the hll_from_presence finalize reads only the dense holder
+            # (hll_lowers_to_presence admits exactly the shapes it keeps)
+            assert not (a.hll_from_presence and a.sort_pairs), a
         group_by = StaticGroupBy(
             columns=cols,
             col_is_mv=tuple(False for _ in cols),
@@ -351,19 +376,43 @@ def build_static_plan(
             use_gfwd=tuple(staged.column(c).gfwd is not None for c in cols),
         )
 
-    for a in aggs:
-        if a.sort_pairs:
-            raise NotImplementedError(
-                f"aggregation {a.func}({a.column}): its value state does not fit a dense "
-                "holder; the sort-dedup (group, valueId) pairs are the exact-distinct-pairs "
-                "slice of the port"
-            )
+    # guaranteed pair overflow: the global dictionary holds only values
+    # present in the data, so with no filter every entry lands in >= 1
+    # (group, valueId) pair -- more unique pairs than the device buffer
+    # returns (the same condition plan_forced_host applies)
+    if request.filter is None:
+        for a in aggs:
+            if (
+                a.sort_pairs
+                and a.kind in ("presence", "hist")
+                and ctx.column(a.column).global_cardinality > config.DISTINCT_PAIR_CAP
+            ):
+                on_device = False
+
+    selection: Optional[StaticSelection] = None
+    if request.is_selection:
+        sel = request.selection
+        sort_cols = tuple(s.column for s in sel.sorts)
+        sort_gcards = tuple(max(ctx.column(c).global_cardinality, 1) for c in sort_cols)
+        space = 1
+        for g in sort_gcards:
+            space *= g
+        selection = StaticSelection(
+            columns=tuple(sel.columns) if sel.columns and sel.columns != ["*"] else ("*",),
+            sort_columns=sort_cols,
+            sort_ascending=tuple(s.ascending for s in sel.sorts),
+            sort_gcards=sort_gcards,
+            k=int(min(sel.offset + sel.size, staged.n_pad)),
+            packed=space <= staged.precision.max_key_space,
+            use_gfwd=tuple(staged.column(c).gfwd is not None for c in sort_cols),
+        )
+
     return StaticPlan(
         filter_tree=tree,
         leaves=tuple(leaves),
         aggs=tuple(aggs),
         group_by=group_by,
-        selection=None,
+        selection=selection,
         on_device=on_device,
     )
 
@@ -537,11 +586,17 @@ def build_query_inputs(
         agg_aux.append(aux)
     inputs["agg_aux"] = agg_aux
 
-    # group-by remaps (dummy entry when the staged gfwd array is used)
+    # group-by and sort-column remaps (dummy entry when the staged gfwd
+    # array is used)
     if plan.group_by is not None and plan.on_device:
         inputs["group_remap"] = [
             np.zeros((S, 1), dtype=np.int32) if use_g else _stacked_remap(ctx, staged, c)
             for c, use_g in zip(plan.group_by.columns, plan.group_by.use_gfwd)
+        ]
+    if plan.selection is not None and plan.selection.sort_columns:
+        inputs["sel_remap"] = [
+            np.zeros((S, 1), dtype=np.int32) if use_g else _stacked_remap(ctx, staged, c)
+            for c, use_g in zip(plan.selection.sort_columns, plan.selection.use_gfwd)
         ]
     return inputs
 

@@ -1,15 +1,16 @@
-"""Reduce: merged IntermediateResults -> BrokerResponse (port of the
-aggregation and group-by branches of ``pinot_tpu.engine.reduce``).
+"""Reduce: merged IntermediateResults -> BrokerResponse (port of
+``pinot_tpu.engine.reduce``).
 
 The ``BrokerReduceService.reduceOnDataTable`` analog: merge per-server
 partials, finalize aggregation values, sort + trim group-by results
 (ascending iff the function is min, ``AggregationGroupByOperatorService
-.java:146``), apply HAVING, and sum execution stats.
+.java:146``), apply HAVING, window + render selection rows, and sum
+execution stats.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -19,9 +20,26 @@ from pinot_tpu_torch.common.response import (
     BrokerResponse,
     GroupByResult,
     QueryException,
+    SelectionResults,
 )
 from pinot_tpu_torch.engine import hll as hll_mod
 from pinot_tpu_torch.engine.results import HllPartial, IntermediateResult
+
+
+class _SortKey:
+    __slots__ = ("v", "desc")
+
+    def __init__(self, v: Any, desc: bool) -> None:
+        self.v = v
+        self.desc = desc
+
+    def __lt__(self, other: "_SortKey") -> bool:
+        if self.desc:
+            return other.v < self.v
+        return self.v < other.v
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, _SortKey) and self.v == other.v
 
 
 def merge_results(parts: Sequence[IntermediateResult]) -> Optional[IntermediateResult]:
@@ -57,7 +75,7 @@ def reduce_to_response(
             for a, p in zip(request.aggregations, merged.aggregations or [])
         ]
     else:
-        raise NotImplementedError("selection queries are a later slice of the port")
+        resp.selection_results = _reduce_selection(request, merged)
     return resp
 
 
@@ -135,3 +153,29 @@ def _having_ok(value: Any, op: str, target: float) -> bool:
     if op == ">=":
         return v >= target
     return True
+
+
+def _reduce_selection(request: BrokerRequest, merged: IntermediateResult) -> SelectionResults:
+    """Order every server's candidate rows by the sort values (a stable
+    sort: ties keep segment, then doc order) and cut the OFFSET / LIMIT
+    window."""
+    sel = request.selection
+    rows = merged.selection_rows or []
+    if sel.sorts:
+        descs = [not s.ascending for s in sel.sorts]
+
+        def key(entry: Tuple[list, list]):
+            return [_SortKey(v, d) for v, d in zip(entry[0], descs)]
+
+        rows = sorted(rows, key=key)
+    window = rows[sel.offset : sel.offset + sel.size]
+    columns = merged.selection_columns or _selection_columns(request, window)
+    return SelectionResults(columns=columns, rows=[r for _, r in window])
+
+
+def _selection_columns(request: BrokerRequest, window) -> List[str]:
+    cols = request.selection.columns
+    if cols and cols != ["*"]:
+        return list(cols)
+    # '*' with no schema knowledge at reduce: the executor attaches names
+    return [f"col{i}" for i in range(len(window[0][1]))] if window else []

@@ -207,15 +207,19 @@ class IntermediateResult:
         self,
         aggregations: Optional[List[AggPartial]] = None,
         groups: Optional[Dict[GroupKey, List[AggPartial]]] = None,
+        selection_rows: Optional[List[Tuple[list, list]]] = None,  # (sort_key_values, row)
         num_docs_scanned: int = 0,
         total_docs: int = 0,
         num_segments_queried: int = 0,
         num_entries_scanned_in_filter: int = 0,
         num_entries_scanned_post_filter: int = 0,
         cost: Optional[Dict[str, float]] = None,
+        selection_columns: Optional[List[str]] = None,
     ) -> None:
         self.aggregations = aggregations
         self.groups = groups
+        self.selection_rows = selection_rows
+        self.selection_columns = selection_columns
         self.num_docs_scanned = num_docs_scanned
         self.total_docs = total_docs
         self.num_segments_queried = num_segments_queried
@@ -253,6 +257,13 @@ class IntermediateResult:
                     else:
                         for mine, theirs in zip(existing, partials):
                             mine.merge(theirs)
+        if other.selection_rows is not None:
+            if self.selection_rows is None:
+                self.selection_rows = other.selection_rows
+            else:
+                self.selection_rows.extend(other.selection_rows)
+        if self.selection_columns is None:
+            self.selection_columns = other.selection_columns
 
 
 # Cap on boundary-tie groups admitted past the trim (see

@@ -66,6 +66,17 @@ class ColumnData:
     def is_single_value(self) -> bool:
         return self.metadata.single_value
 
+    def dict_ids_for_doc(self, doc_id: int) -> np.ndarray:
+        if self.is_single_value:
+            return self.fwd[doc_id : doc_id + 1]
+        lo, hi = self.mv_offsets[doc_id], self.mv_offsets[doc_id + 1]
+        return self.mv_values[lo:hi]
+
+    def values_for_doc(self, doc_id: int):
+        ids = self.dict_ids_for_doc(doc_id)
+        vals = [self.dictionary.get(int(i)) for i in ids]
+        return vals[0] if self.is_single_value else vals
+
 
 _staging_tokens = itertools.count()
 
@@ -100,3 +111,7 @@ class ImmutableSegment:
 
     def has_column(self, name: str) -> bool:
         return name in self.columns
+
+    def row(self, doc_id: int) -> Dict[str, Any]:
+        """Materialize one row (the selection finalize reads it)."""
+        return {name: col.values_for_doc(doc_id) for name, col in self.columns.items()}

@@ -205,10 +205,11 @@ def test_empty_segment_is_pruned():
 @pytest.mark.parametrize(
     "pql",
     [
-        "SELECT l_quantity FROM lineitem LIMIT 5",
+        # group spaces past the dense holder: the host tier
+        "SELECT count(*) FROM lineitem GROUP BY l_extendedprice, l_shipdate",
         "SELECT distinctcountmv(l_shipmode) FROM lineitem",
-        "SELECT distinctcount(l_receiptdate) FROM lineitem GROUP BY l_shipdate, l_quantity",
-        "SELECT distinctcounthll(l_extendedprice) FROM lineitem GROUP BY l_shipdate, l_quantity",
+        "SELECT distinctcount(l_receiptdate) FROM lineitem GROUP BY l_extendedprice, l_shipdate",
+        "SELECT distinctcounthll(l_extendedprice) FROM lineitem GROUP BY l_extendedprice, l_receiptdate",
     ],
 )
 def test_shapes_outside_the_slice_raise(pql):

@@ -56,6 +56,9 @@ QUERIES = {
     "WHERE l_returnflag = 'R' GROUP BY l_shipmode",
     "hll_presence": "SELECT distinctcounthll(l_shipdate) FROM lineitem GROUP BY l_returnflag",
     "hll_streams": "SELECT fasthll(l_extendedprice), count(*) FROM lineitem WHERE l_quantity > 25",
+    "selection_sorted": "SELECT l_shipdate, l_extendedprice FROM lineitem WHERE l_quantity > 45 "
+    "ORDER BY l_extendedprice DESC, l_returnflag LIMIT 5, 10",
+    "selection_star": "SELECT * FROM lineitem WHERE l_shipdate < '1993-01-01' LIMIT 7",
 }
 
 REF_SEGMENTS = [ref_synthetic(3000, seed=11 + i, name=f"li{i}") for i in range(3)]

@@ -394,9 +394,9 @@ def test_grouped_hll_routes_match_reference(route, reference_k2):
 @pytest.mark.parametrize(
     "pql",
     [
-        # (group, valueId) state beyond the dense holders: sort_pairs
-        "SELECT distinctcount(l_receiptdate) FROM lineitem GROUP BY l_shipdate, l_quantity",
-        "SELECT distinctcounthll(l_extendedprice) FROM lineitem GROUP BY l_shipdate, l_quantity",
+        # group spaces past the dense holder: the host tier
+        "SELECT percentile50(l_quantity) FROM lineitem GROUP BY l_extendedprice, l_shipdate",
+        "SELECT distinctcounthll(l_shipdate) FROM lineitem GROUP BY l_extendedprice, l_receiptdate",
         "SELECT distinctcountmv(l_shipmode) FROM lineitem",
     ],
 )
