@@ -19,7 +19,18 @@ QueryExecutor.execute -> reduce_to_response on one card:
   6. exact distinct over (group, value) pairs (percentile, distinctcount,
      the exact reach and a per-site HLL past the dense holders), the group
      counts through K1 over the evaluated mask, against host oracles;
+  7. the host tier: a group space past the dense holder served by the
+     host before anything is staged, and a pair overflow the host finishes
+     after the device run (K1, the pair reduce), against host oracles,
+     timed apart (medians of 3, with hostMs and segmentsHost);
+  8. multi-value columns over 134,217,728 rows of make_test_schema()'s
+     table (MV_ANY and MV_NONE leaves, the group-by expansion through K1
+     over each row's entries, every MV value state through K2 over the
+     flattened entries), against exact and float64 oracles over the CSR
+     arrays, with K1 and K2 at those launch shapes against their plain
+     versions and their bounds;
 
+every earlier query served by the device (no segmentsHost in its cost);
 and times the queries (with their host finalize and the bytes of the one
 device-to-host copy), the kernels at each query's shapes, their plain
 versions, the torch ops that build their inputs, the one PyTorch call
@@ -102,6 +113,38 @@ NORTH_STAR = "SELECT distinctcounthll(user_id) FROM adevents GROUP BY campaign_i
 AD_DISTINCT = 4
 AD_CAMPAIGNS = 1024
 AD_USERS = 1 << 20
+# the host tier: a group space of 2000 x 2000 ship x receipt dates (4,000,000
+# > MAX_GROUP_CAPACITY) goes to the host before anything is staged; past
+# DISTINCT_PAIR_CAP unique (campaign, user) pairs the device runs (K1, the
+# pair reduce) and the host finishes exactly
+HOST_QUERIES = {
+    "host_groups": "SELECT sum(l_extendedprice), count(*) FROM lineitem WHERE l_quantity > 45 "
+    "GROUP BY l_shipdate, l_receiptdate TOP 10",
+    "reach_overflow": "SELECT distinctcount(user_id) FROM adevents WHERE site_id < 32 "
+    "GROUP BY campaign_id TOP 10",
+}
+HOST_ITERS = 3  # timed runs per host-tier median
+# multi-value columns: make_test_schema()'s table (the reference tests'
+# default schema), cardinality 1000, 1..3 entries a row, 4 distinct seeded
+# segments of 2^23 rows tiled to 16; the queries' pool values are picked
+# from the global dictionaries at run time ({a}, {b}, ...)
+MV_DISTINCT = 4
+MV_CARDINALITY = 1000
+MV_MAX = 3
+MV_QUERIES = {
+    # MV_ANY: K1 over the evaluated mask
+    "mv_filter": "SELECT sum(metDouble), count(*) FROM testTable WHERE dimIntMV IN ({i0}, {i1}, {i2}) "
+    "GROUP BY dimStr TOP 10",
+    # MV_NONE
+    "mv_not": "SELECT count(*), max(metInt) FROM testTable WHERE dimStrMV NOT IN ('{s0}', '{s1}')",
+    # the expansion: K1 over each row's MV entries
+    "mv_groupby": "SELECT sum(metFloat), count(*) FROM testTable GROUP BY dimStrMV, dimStr TOP 10",
+    # K2 over the flattened entries
+    "mv_aggs": "SELECT summv(dimIntMV), countmv(dimIntMV), distinctcountmv(dimIntMV), "
+    "percentile90mv(dimIntMV), distinctcounthllmv(dimStrMV) FROM testTable",
+    # K2 grouped over the flattened entries
+    "mv_grouped_state": "SELECT distinctcountmv(dimIntMV) FROM testTable GROUP BY dimStr TOP 10",
+}
 # bench.py:1138-1143, the JAX package's on-chip configuration: 134,217,728 rows
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
@@ -125,12 +168,15 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(fn, runs: int = 10, expect: str = "value_state_kernel") -> Dict[str, float]:
+def device_ms(fn, runs: int = 10, expect: str = "value_state_kernel", floor_ms: float = 0.0) -> Dict[str, float]:
     """Device time per call by kernel name (torch.profiler over ``runs``
     calls after a warm-up): what the card spends, without the host work
     of the wrapper that per-call event timing includes.  The profiler
-    can lose a window's kernel records: a window without ``expect`` is
-    traced again, up to three times, and then reads NaN."""
+    can lose a window's kernel records: a window that holds fewer than
+    ``runs`` records of ``expect``, or whose device work per call reads
+    below ``floor_ms`` (the call's byte bound: no run can take less, its
+    inputs being far past L2), lost some.  It is traced again, up to
+    three times, and then reads NaN."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -141,7 +187,7 @@ def device_ms(fn, runs: int = 10, expect: str = "value_state_kernel") -> Dict[st
             for _ in range(runs):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out, records = {}, []
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
@@ -150,9 +196,11 @@ def device_ms(fn, runs: int = 10, expect: str = "value_state_kernel") -> Dict[st
                 us = ev.self_cuda_time_total
             if us > 0:
                 out[ev.key] = float(us) / runs / 1e3
-        if any(expect in k for k in out):
+                if expect in ev.key:
+                    records.append(ev.count)
+        if records and min(records) >= runs and sum(out.values()) >= floor_ms:
             return out
-    return {f"{expect} (no record from the profiler)": float("nan")}
+    return {f"{expect} (records lost by the profiler)": float("nan")}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3):
@@ -1013,14 +1061,15 @@ def pair_oracle(hll_mod, segments, name: str) -> Tuple[Dict[Tuple[str, ...], Any
                 idx = min(int(n[g] * 90 / 100.0), int(n[g]) - 1)
                 want[(str(dates[g]),)] = float(prices[keys[start[g] + idx] % prices.size])
         return want, int(uniq.size), int(keys.size)
-    if name in ("reach_exact", "reach_hll_site"):
+    if name in ("reach_exact", "reach_hll_site", "reach_overflow"):
         keys = []
+        sites = 32 if name == "reach_overflow" else 8
         for seg in segments:
             camp, site, user = seg.column("campaign_id"), seg.column("site_id"), seg.column("user_id")
             svals = np.asarray(site.dictionary.values, dtype=np.int64)
-            rows = (svals < 8)[site.fwd]
+            rows = (svals < sites)[site.fwd]
             c = np.asarray(camp.dictionary.values, dtype=np.int64)[camp.fwd[rows]]
-            if name == "reach_exact":
+            if name != "reach_hll_site":
                 keys.append(c * (1 << 40) + np.asarray(user.dictionary.values)[user.fwd[rows]])
             else:
                 bt, rt = hll_mod.dictionary_tables(user.dictionary)
@@ -1028,7 +1077,7 @@ def pair_oracle(hll_mod, segments, name: str) -> Tuple[Dict[Tuple[str, ...], Any
                 keys.append((group * hll_mod.M + bt[user.fwd[rows]]) * 64 + rt[user.fwd[rows]])
         keys = np.concatenate(keys)
         uniq = np.unique(keys)
-        if name == "reach_exact":
+        if name != "reach_hll_site":
             counts = np.bincount(uniq >> 40)
             return {(str(g),): int(c) for g, c in enumerate(counts) if c}, int(uniq.size), int(keys.size)
         regs = np.zeros(AD_CAMPAIGNS * 8 * hll_mod.M, dtype=np.uint8)
@@ -1054,6 +1103,182 @@ def check_value_response(resp, want: Dict[Tuple[str, ...], Any], top_n: int = 10
     exp = sorted(want.items(), key=lambda kv: (-kv[1], kv[0]))[:top_n]
     if got != exp:
         raise AssertionError(f"{ar.function}: {got} != oracle {exp}")
+
+
+def check_top(ar, want: Dict[Tuple[str, ...], float], exact: bool, top_n: int = 10) -> float:
+    """One grouped aggregation against its oracle: the top_n groups in the
+    broker's order (value descending, then group key).  ``exact``: groups
+    and values equal.  Else (float sums) each returned value within the
+    audit band of its oracle value, and each returned group's oracle value
+    no lower than the top_n-th less the band (near-ties may swap).
+    Returns the largest relative error."""
+    got = [(tuple(g.group), float(g.value)) for g in ar.group_by_result]
+    exp = sorted(want.items(), key=lambda kv: (-kv[1], kv[0]))[:top_n]
+    if exact:
+        if got != [(k, float(v)) for k, v in exp]:
+            raise AssertionError(f"{ar.function}: {got} != oracle {exp}")
+        return 0.0
+    if len(got) != len(exp):
+        raise AssertionError(f"{ar.function}: {len(got)} groups, oracle {len(exp)}")
+    nth = exp[-1][1]
+    worst = 0.0
+    for key, v in got:
+        w = want.get(key)
+        if w is None or not math.isclose(v, w, rel_tol=AUDIT_RTOL, abs_tol=AUDIT_ATOL):
+            raise AssertionError(f"{ar.function} {key}: {v} vs oracle {w}")
+        if w < nth - (AUDIT_ATOL + AUDIT_RTOL * abs(nth)):
+            raise AssertionError(f"{ar.function} {key}: oracle {w} is below the top {top_n} ({nth})")
+        worst = max(worst, abs(v - w) / max(abs(w), 1e-30))
+    return worst
+
+
+def host_groups_oracle(segments) -> Tuple[Dict[Tuple[str, ...], float], Dict[Tuple[str, ...], float]]:
+    """(sum of l_extendedprice, count) per (l_shipdate, l_receiptdate) over
+    the rows with l_quantity > 45, in float64 from the host segments."""
+    sums: Dict[Tuple[str, ...], float] = {}
+    counts: Dict[Tuple[str, ...], float] = {}
+    for seg in segments:
+        q, p = seg.column("l_quantity"), seg.column("l_extendedprice")
+        rows = (np.asarray(q.dictionary.values, dtype=np.float64) > 45)[q.fwd]
+        sd, sdl = _labels(seg, "l_shipdate")
+        rd, rdl = _labels(seg, "l_receiptdate")
+        keys = sd[rows].astype(np.int64) * len(rdl) + rd[rows]
+        n = len(sdl) * len(rdl)
+        cnt = np.bincount(keys, minlength=n)
+        tot = np.bincount(keys, weights=np.asarray(p.dictionary.values, dtype=np.float64)[p.fwd[rows]],
+                          minlength=n)
+        for k in np.nonzero(cnt)[0]:
+            label = (sdl[k // len(rdl)], rdl[k % len(rdl)])
+            sums[label] = sums.get(label, 0.0) + float(tot[k])
+            counts[label] = counts.get(label, 0.0) + float(cnt[k])
+    return sums, counts
+
+
+def _mv_entries(column) -> Tuple[np.ndarray, np.ndarray]:
+    """(row of each entry, dictId of each entry) of an MV column's CSR."""
+    counts = np.diff(column.mv_offsets)
+    return np.repeat(np.arange(counts.size), counts), column.mv_values
+
+
+def mv_query_values(segments) -> Dict[str, Any]:
+    """The pool values the MV queries filter on, picked from segment 0's
+    dictionaries at fixed positions."""
+    ints = segments[0].column("dimIntMV").dictionary
+    strs = segments[0].column("dimStrMV").dictionary
+    n, m = ints.cardinality, strs.cardinality
+    return {"i0": ints.get(n // 10), "i1": ints.get(n // 2), "i2": ints.get(9 * n // 10),
+            "s0": strs.get(m // 3), "s1": strs.get(2 * m // 3)}
+
+
+def mv_oracle(hll_mod, distinct, copies: int, name: str, values: Dict[str, Any]):
+    """Exact (counts, distinct sets, percentiles, HLL) or float64 (sums)
+    answers of an MV query over the CSR arrays of the ``distinct``
+    segments, each tiled ``copies`` times: {display name: {group tuple
+    (() ungrouped): value}}."""
+    out: Dict[str, Dict[Tuple[str, ...], Any]] = {}
+
+    def add(fn, key, v):
+        d = out.setdefault(fn, {})
+        d[key] = d.get(key, 0) + v
+
+    if name == "mv_aggs":
+        seen_i, seen_s, hist = set(), set(), {}
+        total, n = 0.0, 0
+        for seg in distinct:
+            c = seg.column("dimIntMV")
+            vals = np.asarray(c.dictionary.values, dtype=np.int64)
+            cnt = np.bincount(c.mv_values, minlength=vals.size)
+            total += float((cnt * vals).sum())
+            n += int(cnt.sum())
+            seen_i.update(vals[cnt > 0].tolist())
+            for v, k in zip(vals, cnt):
+                hist[int(v)] = hist.get(int(v), 0) + int(k) * copies
+            s = seg.column("dimStrMV")
+            seen_s.update(np.asarray(s.dictionary.values, dtype=object)[
+                np.bincount(s.mv_values, minlength=s.dictionary.cardinality) > 0].tolist())
+        vs = sorted(v for v, k in hist.items() if k)
+        cum = np.cumsum([hist[v] for v in vs])
+        idx = min(int(cum[-1] * 90 / 100.0), int(cum[-1]) - 1)
+        return {"summv_dimIntMV": {(): total * copies}, "countmv_dimIntMV": {(): float(n * copies)},
+                "distinctcountmv_dimIntMV": {(): len(seen_i)},
+                "percentile90mv_dimIntMV": {(): float(vs[int(np.searchsorted(cum, idx, side="right"))])},
+                "distinctcounthllmv_dimStrMV": {(): int(hll_mod.estimate_from_registers(
+                    hll_mod.registers_from_values(seen_s)))}}
+    for seg in distinct:
+        if name == "mv_filter":
+            c = seg.column("dimIntMV")
+            rows_e, ids = _mv_entries(c)
+            hit_ids = np.isin(np.asarray(c.dictionary.values), [values["i0"], values["i1"], values["i2"]])
+            rows = np.zeros(seg.num_docs, dtype=bool)
+            rows[rows_e[hit_ids[ids]]] = True
+            g, labels = _labels(seg, "dimStr")
+            met = np.asarray(seg.column("metDouble").dictionary.values, dtype=np.float64)[
+                seg.column("metDouble").fwd]
+            cnt = np.bincount(g[rows], minlength=len(labels))
+            tot = np.bincount(g[rows], weights=met[rows], minlength=len(labels))
+            for k in np.nonzero(cnt)[0]:
+                add("sum_metDouble", (labels[k],), float(tot[k]) * copies)
+                add("count_star", (labels[k],), float(cnt[k]) * copies)
+        elif name == "mv_not":
+            c = seg.column("dimStrMV")
+            rows_e, ids = _mv_entries(c)
+            out_ids = np.isin(np.asarray(c.dictionary.values, dtype=object), [values["s0"], values["s1"]])
+            excluded = np.zeros(seg.num_docs, dtype=bool)
+            excluded[rows_e[out_ids[ids]]] = True
+            rows = ~excluded
+            met = seg.column("metInt")
+            add("count_star", (), float(rows.sum()) * copies)
+            mx = float(np.asarray(met.dictionary.values)[met.fwd[rows]].max())
+            out["max_metInt"] = {(): max(out.get("max_metInt", {}).get((), -math.inf), mx)}
+        elif name == "mv_groupby":
+            c = seg.column("dimStrMV")
+            rows_e, ids = _mv_entries(c)
+            g, labels = _labels(seg, "dimStr")
+            mlabels = list(c.dictionary.values)
+            keys = ids.astype(np.int64) * len(labels) + g[rows_e]
+            met = np.asarray(seg.column("metFloat").dictionary.values, dtype=np.float64)[
+                seg.column("metFloat").fwd]
+            cnt = np.bincount(keys, minlength=len(mlabels) * len(labels))
+            tot = np.bincount(keys, weights=met[rows_e], minlength=len(mlabels) * len(labels))
+            for k in np.nonzero(cnt)[0]:
+                key = (mlabels[k // len(labels)], labels[k % len(labels)])
+                add("sum_metFloat", key, float(tot[k]) * copies)
+                add("count_star", key, float(cnt[k]) * copies)
+        elif name == "mv_grouped_state":
+            c = seg.column("dimIntMV")
+            rows_e, ids = _mv_entries(c)
+            g, labels = _labels(seg, "dimStr")
+            vals = np.asarray(c.dictionary.values, dtype=np.int64)
+            pairs = np.unique(g[rows_e].astype(np.int64) * (1 << 32) + vals[ids])
+            sets = out.setdefault("_sets", {})
+            for k, v in zip((pairs >> 32).tolist(), (pairs & 0xFFFFFFFF).tolist()):
+                sets.setdefault((labels[k],), set()).add(v)
+        else:
+            raise ValueError(name)
+    if name == "mv_grouped_state":
+        return {"distinctcountmv_dimIntMV": {k: len(v) for k, v in out.pop("_sets").items()}}
+    return out
+
+
+def check_mv_response(resp, want) -> float:
+    """Every aggregation of an MV query against ``mv_oracle``'s answer:
+    counts, maxima, distinct counts, percentiles and HLL estimates exact,
+    float sums within the audit band.  Returns the largest relative sum
+    error."""
+    worst = 0.0
+    for ar in resp.aggregation_results:
+        exact = not ar.function.startswith("sum")
+        w = want[ar.function]
+        if ar.group_by_result is not None:
+            worst = max(worst, check_top(ar, w, exact))
+            continue
+        v, wv = float(ar.value), float(w[()])
+        if exact and v != wv:
+            raise AssertionError(f"{ar.function}: {v} != oracle {wv}")
+        if not math.isclose(v, wv, rel_tol=AUDIT_RTOL, abs_tol=AUDIT_ATOL):
+            raise AssertionError(f"{ar.function}: {v} vs oracle {wv}")
+        worst = max(worst, abs(v - wv) / max(abs(wv), 1e-30))
+    return worst
 
 
 def partials_of(result) -> list:
@@ -1146,6 +1371,7 @@ def run(dev: torch.device, opts) -> int:
     from pinot_tpu_torch.tools.datagen import (
         synthetic_adevents_segment,
         synthetic_lineitem_segment,
+        synthetic_mv_segment,
         tile_segments,
     )
 
@@ -1240,9 +1466,12 @@ def run(dev: torch.device, opts) -> int:
     value_requests = {k: parse(v) for k, v in VALUE_QUERIES.items()}
     torch_op_request = parse(TORCH_OP_QUERY)
 
-    def drive(path: str, reqs: dict, segs, need: dict) -> dict:
+    def drive(path: str, reqs: dict, segs, need: dict, host: bool = False, executor=None) -> dict:
         """One run of a path: every launch count 0 just before, read just
-        after; each query must have launched each kernel in ``need``."""
+        after; each query must have launched each kernel in ``need``, and
+        been served by the device (no ``segmentsHost`` in its cost), or
+        with ``host`` by the host tier."""
+        executor = executor or ex
         fg.launches = 0
         vsc.launches = 0
         kernel_mod.fused_dispatches = 0
@@ -1252,16 +1481,21 @@ def run(dev: torch.device, opts) -> int:
         t = time.perf_counter()
         for name, req in reqs.items():
             k1_before, k2_before = fg.launches, vsc.launches
-            out[name] = reduce_to_response(req, [ex.execute(segs, req)])
+            res = executor.execute(segs, req)
+            tier = res._served_tier
+            if (tier == "host") != host or bool(res.cost.get("segmentsHost")) != host:
+                raise AssertionError(f"{path}/{name}: served by the {tier} tier, cost {res.cost}")
+            out[name] = reduce_to_response(req, [res])
             per_query[name] = {"k1": fg.launches - k1_before, "k2": vsc.launches - k2_before}
             for kern in need.get(name, ()):
                 if per_query[name][kern] < 1:
                     raise AssertionError(f"{path}/{name}: kernel {kern} was not launched")
         torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
         totals = {"k1": fg.launches, "k2": vsc.launches}
-        log(f"path {path} (staging included): {time.perf_counter() - t:.1f} s, "
+        log(f"path {path} (staging included): {wall_s:.1f} s, "
             f"launches per query {per_query}, total {totals}")
-        record.setdefault("paths", {})[path] = {"launches": per_query, "totals": totals}
+        record.setdefault("paths", {})[path] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
         return out
 
     # 3a. slice 1: Q1, Q3, RANGE through K1's fused route, which combines
@@ -1577,6 +1811,174 @@ def run(dev: torch.device, opts) -> int:
                                      device_ms=sum(red_dev.values()), device_by_kernel=red_dev, bound_ms=bound,
                                      fetch_exact_ms=exact_ms, fetch_cap_ms=cap_ms)
         del value, out, padded
+        torch.cuda.empty_cache()
+
+    # 7. the host tier, timed apart from the device phases: host_groups
+    # leaves the device before anything is staged; reach_overflow runs on
+    # the device (K1 for the group counts, the pair reduce) and the host
+    # finishes exactly past DISTINCT_PAIR_CAP unique pairs
+    host_requests = {k: parse(v) for k, v in HOST_QUERIES.items()}
+    staged_before = set(ex._staged)
+    hosted = drive("host_groups", {"host_groups": host_requests["host_groups"]}, segments, {}, host=True)
+    if set(ex._staged) != staged_before:
+        raise AssertionError("host_groups: the executor staged a table for a query the host serves")
+    if record["paths"]["host_groups"]["totals"] != {"k1": 0, "k2": 0}:
+        raise AssertionError("host_groups: a kernel launched for a query the host serves")
+    sums, counts = host_groups_oracle(segments)
+    ar_sum, ar_cnt = hosted["host_groups"].aggregation_results
+    worst = max(check_top(ar_sum, sums, exact=False), check_top(ar_cnt, counts, exact=True))
+    log(f"oracle host_groups: ok ({len(counts)} groups; max rel sum err {worst:.3g})")
+    record["oracle_max_rel_err"]["host_groups"] = worst
+    overflow = []
+    kernel_mod._reduce_distinct_pairs = lambda v: overflow.append(real_reduce(v)) or overflow[-1]
+    try:
+        hosted.update(drive("reach_overflow", {"reach_overflow": host_requests["reach_overflow"]},
+                            ad_segments, {"reach_overflow": ("k1",)}, host=True))
+    finally:
+        kernel_mod._reduce_distinct_pairs = real_reduce
+    (out,) = overflow
+    n_unique, kept = int(out[3]), int(out[4])
+    want, want_unique, want_kept = pair_oracle(hll_mod, ad_segments, "reach_overflow")
+    if (n_unique, kept) != (want_unique, want_kept) or n_unique <= config.DISTINCT_PAIR_CAP:
+        raise AssertionError(f"reach_overflow: {n_unique} unique of {kept} kept pairs, oracle "
+                             f"{want_unique} of {want_kept}, cap {config.DISTINCT_PAIR_CAP}")
+    check_value_response(hosted["reach_overflow"], want)
+    log(f"oracle reach_overflow: ok, exact; the device counted {kept} kept pairs, {n_unique} unique "
+        f"(the host's count too) past DISTINCT_PAIR_CAP {config.DISTINCT_PAIR_CAP}; the host finished")
+    record["pairs_unique"]["reach_overflow"] = {"kept": kept, "unique": n_unique, "cap": config.DISTINCT_PAIR_CAP}
+    del out, overflow
+    record["host_ms"] = {}
+    for name, req in host_requests.items():
+        # the path's run above is the first timed run (nothing of it was
+        # staged then: host_groups stages nothing, reach_overflow's table
+        # is reach_exact's, staged in phase 3f)
+        segs = ad_segments if name == "reach_overflow" else segments
+        walls, host_ms = [record["paths"][name]["wall_s"] * 1e3], [hosted[name].cost["hostMs"]]
+        seg_host = hosted[name].cost["segmentsHost"]
+        for _ in range(HOST_ITERS - 1):
+            t = time.perf_counter()
+            res = ex.execute(segs, req)
+            reduce_to_response(req, [res])
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+            host_ms.append(res.cost["hostMs"])
+            seg_host = res.cost["segmentsHost"]
+        wall, hms = float(np.median(walls)), float(np.median(host_ms))
+        log(f"query {name}: {wall:.3f} ms median of {HOST_ITERS} (host clock), hostMs {hms:.3f} (median), "
+            f"segmentsHost {seg_host}, {total_rows / (wall / 1e3):.4g} rows/s")
+        record["host_ms"][name] = {"ms": wall, "host_ms": hms, "segments_host": seg_host, "runs": walls}
+    if opts.profile:
+        for name, req in host_requests.items():
+            segs = ad_segments if name == "reach_overflow" else segments
+            record["profile"][name] = profile_query(
+                lambda: reduce_to_response(req, [ex.execute(segs, req)]), name, runs=1)
+
+    # 8. multi-value columns: the card's memory goes to the mvtest table
+    record["staged_bytes_by_table"] = {"lineitem+adevents": ex.staged_bytes()}
+    ex._staged.clear()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mv_distinct = [
+        synthetic_mv_segment(ROWS_PER_SEGMENT, seed=31 + i, name=f"mv{i}", cardinality=MV_CARDINALITY,
+                             mv_max=MV_MAX)
+        for i in range(MV_DISTINCT)
+    ]
+    mv_segments = tile_segments(mv_distinct, SEGMENTS)
+    for s_ in mv_distinct:  # the per-dictionary hashing, once, outside the timed path
+        hll_mod.dictionary_tables(s_.column("dimStrMV").dictionary)
+    entries = {c: sum(int(s_.column(c).mv_offsets[-1]) for s_ in mv_segments) for c in ("dimStrMV", "dimIntMV")}
+    log(f"datagen mvtest: {MV_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to {SEGMENTS} segments, "
+        f"MV entries {entries} in {time.perf_counter() - t0:.1f} s")
+    values = mv_query_values(mv_segments)
+    mv_requests = {k: parse(v.format(**values)) for k, v in MV_QUERIES.items()}
+    mv_ex = QueryExecutor(device=dev, precision="x32")
+    mv_need = {"mv_filter": ("k1",), "mv_groupby": ("k1",), "mv_aggs": ("k2",), "mv_grouped_state": ("k2",)}
+    mv_answers = drive("mv", mv_requests, mv_segments, mv_need, executor=mv_ex)
+    if kernel_mod.fused_dispatches or kernel_mod.fused_value_dispatches:
+        raise AssertionError("mv: a query took a fused route")
+    for name in MV_QUERIES:
+        worst = check_mv_response(mv_answers[name], mv_oracle(hll_mod, mv_distinct, SEGMENTS // MV_DISTINCT,
+                                                              name, values))
+        log(f"oracle {name}: ok (max rel sum err {worst:.3g}); "
+            f"{json.dumps(mv_answers[name].aggregation_results[0].to_json())[:300]}")
+        record["oracle_max_rel_err"][name] = worst
+    # what the mvtest tables hold on the card, by column and role
+    roles = {}
+    for st in mv_ex._staged.values():
+        for cname, sc in st.columns.items():
+            for role in ("fwd", "dict_vals", "raw", "gfwd", "mv", "mv_counts", "mv_raw"):
+                t = getattr(sc, role)
+                if t is not None:
+                    roles[f"{cname}.{role}"] = (str(t.dtype).replace("torch.", ""), tuple(t.shape),
+                                                t.numel() * t.element_size())
+    record["staged_bytes_by_table"]["mvtest"] = mv_ex.staged_bytes()
+    log(f"staged on the card: lineitem + adevents {record['staged_bytes_by_table']['lineitem+adevents']} bytes "
+        f"(freed before mvtest); mvtest {mv_ex.staged_bytes()} bytes over {len(mv_ex._staged)} staged tables "
+        f"(one per query's column set); by column and role (dtype, shape, bytes): {roles}")
+    record["mvtest_roles"] = {k: list(v) for k, v in roles.items()}
+    for name, req in mv_requests.items():
+        # one warm-up: the path's run above staged and warmed every table
+        ms, _ = cuda_ms(lambda: reduce_to_response(req, [mv_ex.execute(mv_segments, req)]), ITERS, warmup=1)
+        log(f"query {name}: {ms:.3f} ms median of {ITERS}, {total_rows / (ms / 1e3):.4g} rows/s")
+        record["query_ms"][name] = ms
+    if opts.profile:
+        for name, req in mv_requests.items():
+            record["profile"][name] = profile_query(
+                lambda: reduce_to_response(req, [mv_ex.execute(mv_segments, req)]), name)
+
+    # K1 and K2 at the MV launch shapes, each against its plain version
+    # and its bound: the last launch of each kernel in each query
+    record["k1_mv"], record["k2_mv"] = {}, {}
+    for name, req in mv_requests.items():
+        captured.clear()
+        restore = (_capture(fg, "fused_filtered_groupby_sums", captured, "k1"), vsc.value_state)
+
+        def by_mode(mode, *a, **k):
+            captured[f"k2/{mode}"] = ((mode, *a), k)
+            return restore[1](mode, *a, **k)
+
+        vsc.value_state = by_mode
+        try:
+            mv_ex.execute(mv_segments, req)
+        finally:
+            fg.fused_filtered_groupby_sums, vsc.value_state = restore
+        if "k1" in captured:
+            a, k = captured.pop("k1")
+            args = {**dict(zip(names, a)), **k}
+            err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
+            k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
+            # one run, after compare_k1's own call of the plain version
+            p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 1, warmup=0)
+            bound, bound_by, nbytes, ops = k1_bound(args)
+            lead = args["group_keys"] if args["group_keys"] is not None else args["group_cols"][0]
+            form = "group_keys (a key window)" if args["group_keys"] is not None else "group_cols"
+            log(f"k1 {name} ({form}, [S, N] = {list(lead.shape)}, K={args['capacity']}, "
+                f"nv={len(args['value_dicts'])}, tier {fg.choose_tier(*k1_shape(fg, args))}): {k_ms:.4f} ms "
+                f"(bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; {bound / k_ms:.3f} of "
+                f"the bound), plain {p_ms:.4f} ms, tiers checked {tiers}, max_abs_err {err:.6g}")
+            record["k1_mv"][name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                                         operations=ops, shape=list(lead.shape), capacity=args["capacity"],
+                                         key_form=form, max_abs_err=err, tiers=tiers)
+            del args, a, k
+        for key in sorted(k for k in captured if k.startswith("k2/")):
+            (mode, *rest), kw = captured.pop(key)
+            args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+            tiers = compare_k2_value(vsc, mode, args)
+            k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+            bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args)
+            # every row of the entry mask holds a valid entry, so no warp
+            # skips a stream: a device time under the bound lost records
+            dev_ms = sum(device_ms(lambda: vsc.value_state(mode, **args), floor_ms=bound).values())
+            p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 1, warmup=0)
+            K = vsc.index_space(mode, args["capacity"], args.get("width"))
+            log(f"k2 {name}/{mode} ([S, N] = {list(args['values'].shape)}, K={K}): {k_ms:.4f} ms per call, "
+                f"{dev_ms:.4f} ms on the device (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} "
+                f"operations; per call {bound / k_ms:.3f} of it), plain {p_ms:.4f} ms, tiers checked {tiers}, "
+                f"max_abs_err 0")
+            record["k2_mv"][f"{name}/{mode}"] = dict(mode=mode, K=K, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound_ms=bound,
+                                         bound_by=bound_by, bytes=nbytes, operations=ops,
+                                         shape=list(args["values"].shape), tiers=tiers, max_abs_err=0.0)
+            del args, rest, kw
         torch.cuda.empty_cache()
 
     launches = {"k1": 0, "k2": 0}

@@ -27,15 +27,15 @@ DOC_PAD_MULTIPLE = 1024
 MIN_CARD_PAD = 8
 
 # Group-by dense-holder cap (reference caps ARRAY_BASED key space at 1M,
-# DefaultGroupKeyGenerator.java): beyond this the host hash path runs,
-# which is not part of this port yet.
+# DefaultGroupKeyGenerator.java): beyond this the host tier's hash path
+# runs (engine/host_fallback.py).
 MAX_GROUP_CAPACITY = 1 << 20
 
 # distinctcount / percentile dense state cap (global dictionary size).
 MAX_VALUE_STATE = 1 << 22
 
 # sort-dedup distinct path (StaticAgg.sort_pairs): most unique (group,
-# valueId) pairs the device returns; more go to the host tier.
+# valueId) pairs the device returns; past it the host tier finishes.
 DISTINCT_PAIR_CAP = 1 << 22
 
 HLL_LOG2M = 8  # HllConstants.java DEFAULT_LOG2M
@@ -147,3 +147,7 @@ def index_dtype(max_exclusive: int):
     if max_exclusive <= 32767:
         return np.int16
     return np.int32
+
+
+# per-doc count arrays (values <= bound) share the same width ladder
+count_dtype = index_dtype

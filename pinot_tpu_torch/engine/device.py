@@ -1,10 +1,13 @@
 """Device staging: immutable segments -> device-resident stacked tensors
-(port of ``pinot_tpu.engine.device``: the base roles and the HLL
-streams).
+(port of ``pinot_tpu.engine.device``: the base roles, the HLL streams and
+the multi-value roles).
 
 Layout (S = number of segments stacked on the leading axis):
 
   fwd        uint8/int16/int32 [S, n_pad]   SV dictId forward index
+  mv         uint8/int16/int32 [S, n_pad, mv_pad]  MV dictIds (padded)
+  mv_counts  uint8/int16       [S, n_pad]   per-doc MV entry count
+  mv_raw     float             [S, n_pad, mv_pad]  decoded MV agg input
   dict_vals  float             [S, card_pad] numeric dictionary values
   raw        float             [S, n_pad]   dictionary-decoded agg input
   gfwd       uint8/int16/int32 [S, n_pad]   global-dictId forward index
@@ -15,12 +18,16 @@ Layout (S = number of segments stacked on the leading axis):
 Integer widths are the narrowest that hold the column's dictIds
 (``config.index_dtype``): the scans are memory-bound, so a card-3
 column costs 1 byte per row.  Validity is never stored: kernels derive
-it from ``row < num_docs``.  Each array is built once on the host in
-pinned memory and moved with one host-to-device copy.
+it from ``row < num_docs`` and MV entry validity from ``entry <
+mv_counts``.  ``mv_pad`` is the pow2 bucket (``config.pad_card``) of the
+longest row.  Each array is built once on the host in pinned memory and
+moved with one host-to-device copy.
 """
 from __future__ import annotations
 
 import itertools
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, MutableMapping, Optional, Sequence, Tuple
 
@@ -47,6 +54,10 @@ class StagedColumn:
     gfwd: Optional[torch.Tensor] = None
     hll_bucket: Optional[torch.Tensor] = None
     hll_rho: Optional[torch.Tensor] = None
+    mv_pad: int = 0
+    mv: Optional[torch.Tensor] = None
+    mv_counts: Optional[torch.Tensor] = None
+    mv_raw: Optional[torch.Tensor] = None
 
     @property
     def is_numeric(self) -> bool:
@@ -55,7 +66,8 @@ class StagedColumn:
     def tensors(self):
         return [
             t
-            for t in (self.fwd, self.dict_vals, self.raw, self.gfwd, self.hll_bucket, self.hll_rho)
+            for t in (self.fwd, self.dict_vals, self.raw, self.gfwd, self.hll_bucket, self.hll_rho,
+                      self.mv, self.mv_counts, self.mv_raw)
             if t is not None
         ]
 
@@ -105,6 +117,21 @@ def _put(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
+def _csr_scatter(values, offsets, out_row, *extra):
+    """Fill one segment's padded [n_pad, mv_pad] block from CSR (values,
+    offsets): entry j of doc i lands at [i, j], every entry in one masked
+    store (a row-major bool mask lists the slots in CSR order).  ``extra``
+    pairs of (values2, out_row2) fill through the same mask (mv ids and
+    mv_raw share one offsets array).  Returns the per-doc counts."""
+    counts = np.diff(offsets)
+    keep = np.arange(out_row.shape[1]) < counts[:, None]
+    lo, hi = int(offsets[0]), int(offsets[-1])
+    out_row[: counts.size][keep] = values[lo:hi]
+    for v2, o2 in zip(extra[::2], extra[1::2]):
+        o2[: counts.size][keep] = v2[lo:hi]
+    return counts
+
+
 def stage_segments(
     segments: Sequence[ImmutableSegment],
     column_names: Sequence[str],
@@ -116,13 +143,15 @@ def stage_segments(
     skip_base_columns: Sequence[str] = (),
     hll_columns: Sequence[str] = (),
 ) -> StagedTable:
-    """Stack + pad + transfer the given single-value columns.
+    """Stack + pad + transfer the given columns.
 
     ``raw_columns`` (numeric) additionally stage dictionary-decoded value
-    arrays; ``gfwd_columns`` (requires ``ctx``) stage global-dictId
-    forward arrays; ``hll_columns`` stage per-row HLL (register, rank)
-    uint8 streams; ``skip_base_columns`` are read only through such a
-    role array, so their ``fwd``/``dict_vals`` are not uploaded."""
+    arrays (``mv_raw`` for an MV column); ``gfwd_columns`` (SV, requires
+    ``ctx``) stage global-dictId forward arrays; ``hll_columns`` (SV)
+    stage per-row HLL (register, rank) uint8 streams;
+    ``skip_base_columns`` (SV) are read only through such a role array,
+    so their ``fwd``/``dict_vals`` are not uploaded.  An MV column always
+    stages ``mv`` and ``mv_counts``."""
     S = len(segments)
     n_pad = config.pad_docs(max(seg.num_docs for seg in segments))
     num_docs = torch.tensor([s.num_docs for s in segments], dtype=torch.int32)
@@ -139,19 +168,19 @@ def stage_segments(
     for name in column_names:
         cols = [seg.column(name) for seg in segments]
         meta0 = cols[0].metadata
-        if not meta0.single_value:
-            raise NotImplementedError(
-                f"multi-value column {name!r}: MV staging is a later slice of the port"
-            )
         cards = tuple(c.dictionary.cardinality for c in cols)
         card_pad = config.pad_card(max(cards))
         sc = StagedColumn(
             name=name,
             stored_type=meta0.data_type.stored_type,
-            single_value=True,
+            single_value=meta0.single_value,
             card_pad=card_pad,
             cards=cards,
         )
+        if not meta0.single_value:
+            _stage_mv(sc, cols, S, n_pad, device, fdt, name in raw_columns)
+            staged.columns[name] = sc
+            continue
         skip_base = name in skip_base_columns
         if not skip_base:
             host = _host_zeros((S, n_pad), config.index_dtype(card_pad), device)
@@ -160,11 +189,7 @@ def stage_segments(
                 h[i, : c.fwd.size] = c.fwd
             sc.fwd = _put(host, device)
             if sc.is_numeric:
-                host = _host_zeros((S, card_pad), fdt, device)
-                h = host.numpy()
-                for i, c in enumerate(cols):
-                    h[i, : c.dictionary.cardinality] = np.asarray(c.dictionary.values, dtype=fdt)
-                sc.dict_vals = _put(host, device)
+                sc.dict_vals = _put(_dict_vals(cols, S, card_pad, fdt, device), device)
         if name in raw_columns and sc.is_numeric:
             host = _host_zeros((S, n_pad), fdt, device)
             h = host.numpy()
@@ -187,6 +212,47 @@ def stage_segments(
             sc.hll_rho = _put(hr, device)
         staged.columns[name] = sc
     return staged
+
+
+def _dict_vals(cols, S: int, card_pad: int, fdt, device: torch.device) -> torch.Tensor:
+    host = _host_zeros((S, card_pad), fdt, device)
+    h = host.numpy()
+    for i, c in enumerate(cols):
+        h[i, : c.dictionary.cardinality] = np.asarray(c.dictionary.values, dtype=fdt)
+    return host
+
+
+def _stage_mv(sc: StagedColumn, cols, S: int, n_pad: int, device: torch.device, fdt, want_raw: bool) -> None:
+    """An MV column's roles: ``mv`` (local dictIds, zero padded), its
+    per-doc ``mv_counts``, ``dict_vals`` (numeric) and, for a numeric
+    ``raw_columns`` entry, the decoded ``mv_raw``."""
+    mv_pad = config.pad_card(max(1, max(c.metadata.max_num_multi_values for c in cols)))
+    mv = _host_zeros((S, n_pad, mv_pad), config.index_dtype(sc.card_pad), device)
+    mvc = _host_zeros((S, n_pad), config.count_dtype(mv_pad), device)
+    want_raw = want_raw and sc.is_numeric
+    mvr = _host_zeros((S, n_pad, mv_pad), fdt, device) if want_raw else None
+    m, c_host = mv.numpy(), mvc.numpy()
+    r = mvr.numpy() if want_raw else None
+
+    def fill(i: int) -> None:
+        c = cols[i]
+        if want_raw:
+            vals = np.asarray(c.dictionary.values, dtype=fdt)
+            counts = _csr_scatter(c.mv_values, c.mv_offsets, m[i], vals[c.mv_values], r[i])
+        else:
+            counts = _csr_scatter(c.mv_values, c.mv_offsets, m[i])
+        c_host[i, : counts.size] = counts
+
+    # numpy's masked stores release the GIL: one thread a segment
+    with ThreadPoolExecutor(max(1, min(S, os.cpu_count() or 1))) as pool:
+        list(pool.map(fill, range(S)))
+    sc.mv_pad = mv_pad
+    sc.mv = _put(mv, device)
+    sc.mv_counts = _put(mvc, device)
+    if want_raw:
+        sc.mv_raw = _put(mvr, device)
+    if sc.is_numeric:
+        sc.dict_vals = _put(_dict_vals(cols, S, sc.card_pad, fdt, device), device)
 
 
 def _hll_streams(cols, S: int, n_pad: int, device: torch.device):
@@ -300,6 +366,11 @@ def segment_arrays(staged: StagedTable, needed) -> Dict[str, torch.Tensor]:
             continue
         if col.fwd is not None:
             arrays[f"{name}.fwd"] = col.fwd
+        if col.mv is not None:
+            arrays[f"{name}.mv"] = col.mv
+            arrays[f"{name}.mvc"] = col.mv_counts
+        if col.mv_raw is not None:
+            arrays[f"{name}.mvraw"] = col.mv_raw
         if col.dict_vals is not None:
             arrays[f"{name}.dict"] = col.dict_vals
         if col.raw is not None:

@@ -6,10 +6,14 @@ All segments run in one table kernel over the stacked segment axis with
 the cross-segment merge fused in (``kernel.py``); this class prepares the
 inputs and turns the outputs into mergeable partials.
 
-The port has no host tier: a query shape the port does not run on the
-device (a group space past the dense holder, more unique (group, value)
-pairs than the device pair buffer returns, MV columns, joins) raises
-``NotImplementedError`` naming the slice that will.
+The host tier (``host_fallback.execute_host``) serves what the reference
+sends there, on the same three shape conditions: a plan that
+``plan_forced_host`` rules off the device (nothing is staged), a plan
+that is not ``on_device``, and a pair overflow after the device run (the
+host finishes exactly).  Each result carries ``_served_tier`` ("host" or
+"device"), and its cost says which tier served it (``segmentsHost`` /
+``segmentsFullScan``).  Nothing reroutes a failed device run.  Joins
+raise ``NotImplementedError``: they are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from pinot_tpu_torch.engine.device import (
     to_device_inputs,
 )
 from pinot_tpu_torch.engine import hll as hll_mod
+from pinot_tpu_torch.engine.host_fallback import execute_host
 from pinot_tpu_torch.engine.kernel import run_table_kernel
 from pinot_tpu_torch.engine.packing import make_packed_kernel
 from pinot_tpu_torch.engine.plan import (
@@ -156,13 +161,6 @@ def _hist_partial(gdict, gids, cnts, p: int) -> HistogramPartial:
     return HistogramPartial(counts, percentile=p)
 
 
-_HOST_ONLY = (
-    "the query runs only on the host tier (a group space beyond the dense device "
-    "holder, or more unique (group, value) pairs than the device pair buffer "
-    "returns), which is a later slice of the port"
-)
-
-
 def prune_segments(
     segments: Sequence[ImmutableSegment], request: BrokerRequest
 ) -> List[ImmutableSegment]:
@@ -175,16 +173,10 @@ def prune_segments(
 
 
 def check_supported(request: BrokerRequest) -> None:
-    """Raise NotImplementedError for query shapes outside this slice,
-    before anything is staged."""
+    """Raise NotImplementedError for query shapes outside the port, before
+    anything is staged."""
     if request.join is not None:
         raise NotImplementedError("joins are a later slice of the port")
-    for a in request.aggregations:
-        if a.is_mv:
-            raise NotImplementedError(
-                f"aggregation {a.function!r}: MV aggregations are the MV-column slice "
-                "of the port"
-            )
 
 
 class QueryExecutor:
@@ -240,7 +232,10 @@ class QueryExecutor:
         needed -= self._docrange_only_columns(request, live, sel_columns)
         ctx = get_table_context(live, self._contexts)
         if plan_forced_host(request, ctx, self.precision):
-            raise NotImplementedError(_HOST_ONLY)
+            # a plan only the host can run never pays device staging
+            res = execute_host(live, ctx, request, total_docs, sel_columns)
+            res._served_tier = "host"
+            return res
         raw_cols, gfwd_cols, hll_cols = self._role_columns(request, live, ctx)
         skip_base = self._skip_base_columns(request, live, raw_cols, gfwd_cols, hll_cols)
         staged = get_staged(
@@ -255,9 +250,11 @@ class QueryExecutor:
             skip_base_columns=skip_base,
             hll_columns=hll_cols,
         )
-        return self._device_section_staged(
+        res = self._device_section_staged(
             live, request, ctx, needed, total_docs, staged, sel_columns
         )
+        res._served_tier = "host" if res.cost.get("segmentsHost") else "device"
+        return res
 
     def _device_section_staged(
         self,
@@ -272,7 +269,7 @@ class QueryExecutor:
         scratch: Dict[Any, Any] = {}
         plan = build_static_plan(request, ctx, staged, scratch=scratch)
         if not plan.on_device:
-            raise NotImplementedError(_HOST_ONLY)
+            return execute_host(live, ctx, request, total_docs, sel_columns)
         q_np = build_query_inputs(request, plan, ctx, staged, scratch=scratch)
         seg = segment_arrays(staged, needed)
         q = to_device_inputs(q_np, self.device)
@@ -281,11 +278,9 @@ class QueryExecutor:
             if agg.sort_pairs:
                 state = outs[f"gb_{i}" if plan.group_by is not None else f"agg_{i}"]
                 if int(state[3]) > config.DISTINCT_PAIR_CAP:
-                    raise NotImplementedError(
-                        f"aggregation {agg.func}({agg.column}): {int(state[3])} unique "
-                        f"(group, value) pairs overflow the device pair buffer "
-                        f"({config.DISTINCT_PAIR_CAP}); {_HOST_ONLY}"
-                    )
+                    # more unique pairs than the device buffer returns: the
+                    # host finishes exactly
+                    return execute_host(live, ctx, request, total_docs, sel_columns)
         result = self._finalize(request, plan, ctx, staged, live, outs, total_docs, sel_columns)
         dev_bytes = sum(t.numel() * t.element_size() for t in seg.values())
         result.add_cost(bytesScanned=dev_bytes, deviceBytes=dev_bytes, segmentsFullScan=len(live))
@@ -461,7 +456,13 @@ class QueryExecutor:
                 if not valid[si, j] or doc >= seg.num_docs:
                     continue
                 full = seg.row(doc)
-                rows.append(([full[s.column] for s in sel.sorts], [full[c] for c in sel_columns]))
+                sort_vals = []
+                for s in sel.sorts:
+                    v = full[s.column]
+                    if isinstance(v, list):  # an MV column orders by its first value
+                        v = v[0] if v else None
+                    sort_vals.append(v)
+                rows.append((sort_vals, [full[c] for c in sel_columns]))
         return rows
 
     def _scalar_partial(self, agg, state, ctx: TableContext) -> AggPartial:

@@ -99,6 +99,12 @@ def merge_registers(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return np.maximum(a, b)
 
 
+def hll_estimate_exact_values(values: Iterable[Any], log2m: int = DEFAULT_LOG2M) -> int:
+    """The sketch's estimate of a concrete value set (the host tier's
+    row-wise path and any oracle use it, so they agree with the engine)."""
+    return int(estimate_from_registers(registers_from_values(values, log2m)))
+
+
 def dictionary_tables(dictionary):
     """Per-dictId (register index, rank) uint8 tables for a column
     dictionary — the one place the per-entry hashing loop lives (shared

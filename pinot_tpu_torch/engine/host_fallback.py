@@ -1,0 +1,594 @@
+"""The host tier (copy of ``pinot_tpu.engine.host_fallback``): numpy
+execution for the queries the device path does not run.
+
+The executor sends a query here on three shape conditions, as the
+reference does: a plan ``plan_forced_host`` rules off the device before
+anything is staged (a group space past ``MAX_GROUP_CAPACITY`` or the
+key space, a guaranteed pair overflow), a plan ``build_static_plan``
+marks not ``on_device`` (also an MV group-by expanding past 64 entries a
+row), and a pair overflow after the device run (more unique (group,
+value) pairs than the device buffer returns), which the host finishes
+exactly.  It is not a failover: nothing reroutes a failed device run.
+
+The reference's analog is the hash-map group-by storage types
+(``DefaultGroupKeyGenerator.java:60-63`` LONG_MAP_BASED/ARRAY_MAP_BASED)
+that kick in when the dense ARRAY_BASED key space overflows.  Here the
+filter always evaluates vectorized (numpy match-table gathers over the
+forward index), and group-by aggregation over huge key spaces runs a
+vectorized numpy hash pipeline: mixed-radix global-id keys per matched
+row -> ``np.unique`` factorization -> ``bincount``/``reduceat``
+segmented reductions -> trim to topN*5 candidates before any Python
+objects are built.  Only queries outside that shape (MV group columns,
+value-state aggregations, radix overflow) drop to the row-wise
+accumulators (``tools/scan_engine._Accumulator``).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.common.request import (
+    BrokerRequest,
+    FilterOperator,
+    FilterQueryTree,
+    group_sort_ascending,
+)
+from pinot_tpu_torch.common.values import render_value
+from pinot_tpu_torch.engine.context import TableContext
+from pinot_tpu_torch.engine.plan import match_table
+from pinot_tpu_torch.engine.results import (
+    AggPartial,
+    AvgPartial,
+    CountPartial,
+    DistinctPartial,
+    HllPartial,
+    IntermediateResult,
+    MaxPartial,
+    MinMaxRangePartial,
+    MinPartial,
+    SumPartial,
+    make_partial,
+    trim_group_candidates,
+)
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.tools.scan_engine import _Accumulator
+
+
+def _segment_mask(seg: ImmutableSegment, tree: Optional[FilterQueryTree]) -> np.ndarray:
+    n = seg.num_docs
+    if tree is None:
+        return np.ones(n, dtype=bool)
+    if tree.is_leaf:
+        col = seg.column(tree.column)
+        d = col.dictionary
+        table = match_table(tree, d, d.cardinality if d.cardinality else 1)
+        negative = tree.operator in (FilterOperator.NOT, FilterOperator.NOT_IN)
+        if col.is_single_value:
+            if negative:
+                table = ~table
+            return table[col.fwd]
+        hits = table[col.mv_values]
+        any_hit = np.zeros(n, dtype=bool)
+        np.logical_or.at(any_hit, np.repeat(np.arange(n), np.diff(col.mv_offsets)), hits)
+        return ~any_hit if negative else any_hit
+    masks = [_segment_mask(seg, c) for c in tree.children]
+    out = masks[0]
+    for m in masks[1:]:
+        out = (out & m) if tree.operator == FilterOperator.AND else (out | m)
+    return out
+
+
+_VECTOR_AGGS = {"count", "sum", "min", "max", "avg", "minmaxrange"}
+# distinct aggs vectorize in the GROUP-BY path via (group, gid) pair
+# dedup (np.unique); they only touch global dict ids, so strings are
+# fine.  Without this, a beyond-capacity group-by with distinctcount
+# fell to the per-row Python loop — ~30 min at 134M rows vs ~80 s
+# vectorized (NORTHSTAR_HLL.json aux paths).
+_DISTINCT_AGGS = {"distinctcount", "distinctcounthll", "fasthll"}
+
+
+def _vectorizable_groupby(request: BrokerRequest, segments, ctx: TableContext) -> bool:
+    """True when the fast numpy hash path applies: SV group columns,
+    scalar/pair aggregations over SV numeric columns, and a mixed-radix
+    key that fits int64."""
+    seg = segments[0]
+    for c in request.group_by.columns:
+        if c not in seg.columns or not seg.column(c).is_single_value:
+            return False
+    space = 1
+    for c in request.group_by.columns:
+        space *= max(ctx.column(c).global_cardinality, 1)
+        if space >= (1 << 62):
+            return False
+    return _vectorizable_aggs(request, segments, allow_distinct=True)
+
+
+def _default_matched_rows(request: BrokerRequest):
+    """Row-id resolver: full vectorized mask + nonzero (O(n) host scan);
+    ``execute_host(matched_rows=...)`` takes another resolver."""
+
+    def resolve(si: int, seg: ImmutableSegment) -> np.ndarray:
+        return np.nonzero(_segment_mask(seg, request.filter))[0]
+
+    return resolve
+
+
+def _vectorizable_aggs(
+    request: BrokerRequest, segments, allow_distinct: bool = False
+) -> bool:
+    """True when every aggregation fits the numpy fast paths:
+    scalar/pair functions over SV numeric columns (shared check of the
+    group-by and aggregation-only vectorized paths); with
+    ``allow_distinct``, SV distinct/HLL aggs of any stored type too."""
+    seg = segments[0]
+    for a in request.aggregations:
+        base = a.base_function
+        is_distinct = base in _DISTINCT_AGGS
+        if base not in _VECTOR_AGGS and not (allow_distinct and is_distinct):
+            return False
+        if a.column == "*":
+            if is_distinct:
+                return False  # distinctcount(*) has no gid column: per-row path
+            continue
+        if a.column not in seg.columns:
+            return False
+        col = seg.column(a.column)
+        if not col.is_single_value:
+            return False
+        if not is_distinct and col.dictionary.stored_type.name == "STRING":
+            return False
+    return True
+
+
+def _aggregation_vectorized(
+    segments: List[ImmutableSegment],
+    request: BrokerRequest,
+    res: IntermediateResult,
+    matched_rows,
+) -> None:
+    """Scalar/pair aggregations over matched rows via numpy
+    fancy-indexing, O(n) under the default mask resolver."""
+    needed = {
+        a.column
+        for a in request.aggregations
+        if a.base_function != "count" and a.column != "*"
+    }
+    col_sum = {c: 0.0 for c in needed}
+    col_min = {c: float("inf") for c in needed}
+    col_max = {c: float("-inf") for c in needed}
+    total = 0
+    for si, seg in enumerate(segments):
+        matched = matched_rows(si, seg)
+        res.num_docs_scanned += int(matched.size)
+        total += int(matched.size)
+        if matched.size == 0:
+            continue
+        for c in needed:
+            col = seg.column(c)
+            vals = np.asarray(col.dictionary.values, dtype=np.float64)[
+                np.asarray(col.fwd)[matched]
+            ]
+            col_sum[c] += float(vals.sum())
+            col_min[c] = min(col_min[c], float(vals.min()))
+            col_max[c] = max(col_max[c], float(vals.max()))
+    if total == 0:
+        res.aggregations = [make_partial(a.base_function) for a in request.aggregations]
+        return
+    out: List[AggPartial] = []
+    for a in request.aggregations:
+        b = a.base_function
+        if b == "count":
+            out.append(CountPartial(float(total)))
+        elif b == "sum":
+            out.append(SumPartial(col_sum[a.column]))
+        elif b == "avg":
+            out.append(AvgPartial(col_sum[a.column], float(total)))
+        elif b == "min":
+            out.append(MinPartial(col_min[a.column]))
+        elif b == "max":
+            out.append(MaxPartial(col_max[a.column]))
+        else:
+            out.append(MinMaxRangePartial(col_min[a.column], col_max[a.column]))
+    res.aggregations = out
+
+
+def _groupby_vectorized(
+    segments: List[ImmutableSegment],
+    ctx: TableContext,
+    request: BrokerRequest,
+    res: IntermediateResult,
+    matched_rows=None,
+) -> None:
+    """Vectorized LONG_MAP_BASED analog: one int64 key per matched row,
+    factorized with np.unique; sums/counts via bincount, min/max via
+    sorted reduceat; groups trimmed to topN*5 before materializing
+    Python keys (MCombineGroupByOperator.java:216 trim semantics)."""
+    gb = request.group_by
+    gcards = [max(ctx.column(c).global_cardinality, 1) for c in gb.columns]
+    # columns whose decoded values the states actually need (count reads
+    # none); gathered once per (segment, column) even when several
+    # aggregations share a column
+    val_columns = {
+        a.column
+        for a in request.aggregations
+        if a.base_function != "count"
+        and a.column != "*"
+        and a.base_function not in _DISTINCT_AGGS
+    }
+    gid_columns = {
+        a.column
+        for a in request.aggregations
+        if a.base_function in _DISTINCT_AGGS
+    }
+
+    if matched_rows is None:
+        matched_rows = _default_matched_rows(request)
+    all_keys: List[np.ndarray] = []
+    col_vals: Dict[str, List[np.ndarray]] = {c: [] for c in val_columns}
+    col_gids: Dict[str, List[np.ndarray]] = {c: [] for c in gid_columns}
+    for si, seg in enumerate(segments):
+        matched = matched_rows(si, seg)
+        res.num_docs_scanned += int(matched.size)
+        if matched.size == 0:
+            continue
+        keys = np.zeros(matched.size, dtype=np.int64)
+        for c, gcard in zip(gb.columns, gcards):
+            col = seg.column(c)
+            remap = ctx.column(c).remaps[si]
+            keys = keys * gcard + remap[col.fwd[matched]].astype(np.int64)
+        all_keys.append(keys)
+        for c in val_columns:
+            col = seg.column(c)
+            col_vals[c].append(
+                np.asarray(col.dictionary.values, dtype=np.float64)[col.fwd[matched]]
+            )
+        for c in gid_columns:
+            col = seg.column(c)
+            col_gids[c].append(ctx.column(c).remaps[si][col.fwd[matched]])
+
+    if not all_keys:
+        return
+    keys = np.concatenate(all_keys)
+    space = 1
+    for g in gcards:
+        space *= g
+    if space <= (1 << 24) and space <= max(keys.size, 1) * 8:
+        # small DENSE key space (sort-pairs overflow fallbacks group by
+        # a low-card column): factorize with presence + rank gather
+        # instead of np.unique's 134M-row argsort + cumsum (~30s saved
+        # at north-star scale).  The dense-side peak is 5 bytes/slot
+        # (bool presence + int32 cumsum ranks) — the r5 version's two
+        # space-sized int64 arrays cost 16 bytes/slot, a peak-RSS
+        # regression that bit even when only a handful of keys were
+        # live; a space much larger than the matched-row count (sparse)
+        # takes the sort path instead, whose footprint scales with rows.
+        present = np.zeros(space, dtype=bool)
+        present[keys] = True
+        uniq = np.flatnonzero(present).astype(np.int64)
+        rank = np.cumsum(present, dtype=np.int32)  # rank+1 at each live key
+        inv = (rank[keys] - 1).astype(np.int64)
+        del present, rank
+        k = uniq.size
+        counts = np.bincount(inv, minlength=k).astype(np.float64)
+    else:
+        uniq, inv = np.unique(keys, return_inverse=True)
+        k = uniq.size
+        counts = np.bincount(inv, minlength=k).astype(np.float64)
+
+    # per-agg finalized state arrays, each [k]
+    order = None  # lazily computed stable sort of inv, for reduceat
+    boundaries = None
+
+    def seg_minmax(vals: np.ndarray):
+        nonlocal order, boundaries
+        if order is None:
+            order = np.argsort(inv, kind="stable")
+            boundaries = np.searchsorted(inv[order], np.arange(k))
+        sorted_vals = vals[order]
+        return (
+            np.minimum.reduceat(sorted_vals, boundaries),
+            np.maximum.reduceat(sorted_vals, boundaries),
+        )
+
+    cat_vals = {c: np.concatenate(v) for c, v in col_vals.items()}
+    minmax_cache: Dict[str, tuple] = {}
+
+    # distinct/HLL: one (group, gid) pair dedup per column — sorted, so
+    # each group's distinct gids are one contiguous slice
+    distinct_cache: Dict[str, tuple] = {}
+
+    def distinct_pairs(c: str):
+        if c not in distinct_cache:
+            gc = max(ctx.column(c).global_cardinality, 1)
+            gid = np.concatenate(col_gids[c])
+            if k * gc < (1 << 31):
+                # int32 packed pairs sort ~2x faster than int64
+                pair = np.unique(
+                    inv.astype(np.int32) * np.int32(gc) + gid.astype(np.int32)
+                ).astype(np.int64)
+            else:
+                pair = np.unique(inv.astype(np.int64) * gc + gid.astype(np.int64))
+            pg = (pair // gc).astype(np.int64)  # sorted: per-group slices
+            pgid = pair % gc
+            dcounts = np.bincount(pg, minlength=k).astype(np.float64)
+            bounds = np.searchsorted(pg, np.arange(k + 1))
+            distinct_cache[c] = (pgid, bounds, dcounts)
+        return distinct_cache[c]
+
+    states: List[tuple] = []  # (kind, arrays...)
+    order_vals: List[np.ndarray] = []
+    for a in request.aggregations:
+        base = a.base_function
+        if base == "count":
+            states.append(("count", counts))
+            order_vals.append(counts)
+            continue
+        if base in _DISTINCT_AGGS:
+            pgid, bounds, dcounts = distinct_pairs(a.column)
+            if base == "distinctcount":
+                states.append(("distinct", a.column, pgid, bounds))
+                order_vals.append(dcounts)
+            else:
+                # distinctcounthll: ORDER/TRIM by the exact per-group
+                # distinct count (monotone proxy for the estimate —
+                # dense registers for all k >= 2^20 groups would cost
+                # k*256 bytes + a per-group Python estimator before the
+                # trim); registers are built per KEPT group in partial()
+                states.append(("hll", a.column, pgid, bounds))
+                order_vals.append(dcounts)
+            continue
+        vals = cat_vals[a.column]
+        if base == "sum":
+            s = np.bincount(inv, weights=vals, minlength=k)
+            states.append(("sum", s))
+            order_vals.append(s)
+        elif base == "avg":
+            s = np.bincount(inv, weights=vals, minlength=k)
+            states.append(("avg", s, counts))
+            order_vals.append(s / np.maximum(counts, 1))
+        elif base in ("min", "max", "minmaxrange"):
+            if a.column not in minmax_cache:
+                minmax_cache[a.column] = seg_minmax(vals)
+            mn, mx = minmax_cache[a.column]
+            if base == "min":
+                states.append(("min", mn))
+                order_vals.append(mn)
+            elif base == "max":
+                states.append(("max", mx))
+                order_vals.append(mx)
+            else:
+                states.append(("minmaxrange", mn, mx))
+                order_vals.append(mx - mn)
+
+    # trim to topN*5 + boundary ties per agg (union), as the device path
+    keep = trim_group_candidates(
+        order_vals,
+        [group_sort_ascending(a.function) for a in request.aggregations],
+        gb.top_n,
+        k,
+    )
+
+    # decompose kept keys -> per-column global ids -> rendered tuples
+    gids = []
+    rem = uniq[keep].copy()
+    for gcard in reversed(gcards):
+        gids.append(rem % gcard)
+        rem = rem // gcard
+    gids.reverse()
+    gdicts = [ctx.column(c).global_dict for c in gb.columns]
+
+    def partial(state, i: int):
+        kind = state[0]
+        if kind == "count":
+            return CountPartial(float(state[1][i]))
+        if kind == "sum":
+            return SumPartial(float(state[1][i]))
+        if kind == "min":
+            return MinPartial(float(state[1][i]))
+        if kind == "max":
+            return MaxPartial(float(state[1][i]))
+        if kind == "avg":
+            return AvgPartial(float(state[1][i]), float(state[2][i]))
+        if kind == "distinct":
+            _, c, pgid, bounds = state
+            gdict = ctx.column(c).global_dict
+            ids = pgid[bounds[i] : bounds[i + 1]]
+            # pair-dedup'd gids are already unique; one vectorized gather
+            # replaces the per-value Python set build (north-star groups
+            # carry millions of distinct values each)
+            return DistinctPartial(gdict.value_array()[ids])
+        if kind == "hll":
+            from pinot_tpu_torch.engine import hll as hll_mod
+
+            _, c, pgid, bounds = state
+            bt, rt = hll_mod.dictionary_tables(ctx.column(c).global_dict)
+            ids = pgid[bounds[i] : bounds[i + 1]]
+            regs = np.zeros(hll_mod.M, dtype=np.uint8)
+            np.maximum.at(regs, bt[ids], rt[ids])
+            return HllPartial(regs)
+        return MinMaxRangePartial(float(state[1][i]), float(state[2][i]))
+
+    for row, i in enumerate(keep):
+        ktup = tuple(
+            render_value(gdicts[j].stored_type, gdicts[j].get(int(gids[j][row])))
+            for j in range(len(gb.columns))
+        )
+        res.groups[ktup] = [partial(st, int(i)) for st in states]
+
+
+def _referenced_column_bytes(
+    segments: List[ImmutableSegment], request: BrokerRequest
+) -> int:
+    """Column-data bytes the host path reads, upper bound: the full
+    forward index (SV) / MV value stream of every referenced column —
+    the default mask resolver scans every row for the filter, and value
+    columns gather through the same arrays."""
+    total = 0
+    cols = request.referenced_columns()
+    for seg in segments:
+        for name in cols:
+            col = seg.columns.get(name)
+            if col is None:
+                continue
+            fwd = getattr(col, "fwd", None)
+            if fwd is not None:
+                total += np.asarray(fwd).nbytes
+            mv = getattr(col, "mv_values", None)
+            if mv is not None:
+                total += np.asarray(mv).nbytes
+    return total
+
+
+def execute_host(
+    segments: List[ImmutableSegment],
+    ctx: TableContext,
+    request: BrokerRequest,
+    total_docs: int,
+    sel_columns: Optional[List[str]],
+    matched_rows=None,
+) -> IntermediateResult:
+    """Cost-accounted wrapper: every host-served query reports hostMs,
+    bytesScanned, and the host serving tier on its result's cost vector
+    (engine/results.py COST_KEYS)."""
+    import time as _time
+
+    t0 = _time.perf_counter()
+    res = _execute_host_impl(
+        segments, ctx, request, total_docs, sel_columns, matched_rows
+    )
+    res.add_cost(
+        hostMs=round((_time.perf_counter() - t0) * 1000, 3),
+        bytesScanned=_referenced_column_bytes(segments, request),
+        segmentsHost=len(segments),
+    )
+    return res
+
+
+def _execute_host_impl(
+    segments: List[ImmutableSegment],
+    ctx: TableContext,
+    request: BrokerRequest,
+    total_docs: int,
+    sel_columns: Optional[List[str]],
+    matched_rows=None,
+) -> IntermediateResult:
+    res = IntermediateResult(
+        total_docs=total_docs,
+        num_segments_queried=len(segments),
+    )
+    if matched_rows is None:
+        matched_rows = _default_matched_rows(request)
+    if request.is_group_by:
+        res.groups = {}
+        if _vectorizable_groupby(request, segments, ctx):
+            _groupby_vectorized(segments, ctx, request, res, matched_rows)
+            return res
+    elif request.is_aggregation:
+        if _vectorizable_aggs(request, segments):
+            _aggregation_vectorized(segments, request, res, matched_rows)
+            return res
+        # row-wise accumulators (NOT mergeable partials — those have no
+        # .add); _to_partial adapts them below, same as the group-by path
+        res.aggregations = [_Accumulator(a) for a in request.aggregations]
+    else:
+        res.selection_rows = []
+        res.selection_columns = sel_columns
+
+    for si, seg in enumerate(segments):
+        matched = matched_rows(si, seg)
+        res.num_docs_scanned += int(matched.size)
+
+        if request.is_group_by:
+            gb = request.group_by
+            for doc in matched:
+                row = seg.row(int(doc))
+                for key in _group_keys(seg, row, gb.columns):
+                    accs = res.groups.get(key)
+                    if accs is None:
+                        accs = [_Accumulator(a) for a in request.aggregations]
+                        res.groups[key] = accs
+                    for acc in accs:
+                        acc.add(row)
+        elif request.is_aggregation:
+            for doc in matched:
+                row = seg.row(int(doc))
+                for acc, _a in zip(res.aggregations, request.aggregations):
+                    acc.add(row)
+        else:
+            sel = request.selection
+            k = sel.offset + sel.size
+            take = matched[: k] if not sel.sorts else matched
+            for doc in take:
+                row = seg.row(int(doc))
+                sort_vals = []
+                for s in sel.sorts:
+                    v = row[s.column]
+                    if isinstance(v, list):
+                        v = v[0] if v else None
+                    sort_vals.append(v)
+                res.selection_rows.append((sort_vals, [row[c] for c in sel_columns]))
+
+    # adapt oracle accumulators -> mergeable partials
+    if request.is_group_by:
+        res.groups = {
+            key: [_to_partial(acc) for acc in accs] for key, accs in res.groups.items()
+        }
+    elif request.is_aggregation:
+        res.aggregations = [_to_partial(acc) for acc in res.aggregations]
+    return res
+
+
+def _group_keys(seg: ImmutableSegment, row, columns) -> List[Tuple[str, ...]]:
+    keys: List[Tuple[str, ...]] = [()]
+    for col in columns:
+        st = seg.column(col).dictionary.stored_type
+        v = row[col]
+        vals = v if isinstance(v, list) else [v]
+        keys = [k + (render_value(st, x),) for k in keys for x in vals]
+    return keys
+
+
+def _to_partial(acc):
+    """Convert a scan-oracle accumulator (or an already-built partial)
+    into a mergeable AggPartial."""
+    from pinot_tpu_torch.engine.results import (
+        AggPartial,
+        AvgPartial,
+        CountPartial,
+        DistinctPartial,
+        HistogramPartial,
+        HllPartial,
+        MaxPartial,
+        MinMaxRangePartial,
+        MinPartial,
+        SumPartial,
+    )
+    from pinot_tpu_torch.engine import hll as hll_mod
+
+    if isinstance(acc, AggPartial):
+        return acc
+    base = acc.base
+    if base == "count":
+        return CountPartial(acc.count)
+    if base == "sum":
+        return SumPartial(acc.sum)
+    if base == "min":
+        return MinPartial(acc.min)
+    if base == "max":
+        return MaxPartial(acc.max)
+    if base == "avg":
+        return AvgPartial(acc.sum, acc.count)
+    if base == "minmaxrange":
+        return MinMaxRangePartial(acc.min, acc.max)
+    if base == "distinctcount":
+        return DistinctPartial(set(acc.distinct))
+    if base in ("distinctcounthll", "fasthll"):
+        return HllPartial(hll_mod.registers_from_values(acc.distinct))
+    if base.startswith("percentile"):
+        p = int(base[len("percentileest"):]) if base.startswith("percentileest") else int(base[len("percentile"):])
+        counts: Dict[float, int] = {}
+        for v in acc.values:
+            counts[v] = counts.get(v, 0) + 1
+        return HistogramPartial(counts, percentile=p)
+    raise ValueError(base)

@@ -1,12 +1,17 @@
 """The table kernel: StaticPlan + staged segments -> reduced outputs
-(port of ``pinot_tpu.engine.kernel`` for single-value columns).
+(port of ``pinot_tpu.engine.kernel``).
 
 The JAX package writes the pipeline for one segment and lifts it with
 ``vmap``; here every op works on the stacked ``[S, n_pad]`` axis written
 out:
 
-  mask        = filter tree over the leaves & (row < num_docs)
-  values      = raw rows or dict_vals[fwd]
+  mask        = filter tree over the leaves & (row < num_docs); an MV leaf
+                is any (MV_ANY) or none (MV_NONE) of the row's valid
+                entries matching
+  values      = raw rows or dict_vals[fwd]; an MV column's entries
+  MV states   = over the flattened pair space [S, n_pad * E * M]
+                (``_Flat``): each row's E group-key entries times its M
+                value entries, row major, through the same kernels
   scalars     = masked reductions per segment
   group-by    = count/sum/avg through the fused kernel over key windows,
                 min/max scatters into [capacity] holders keyed by
@@ -64,7 +69,7 @@ import torch
 from pinot_tpu_torch.engine import config
 from pinot_tpu_torch.engine.device import StagedTable
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
-from pinot_tpu_torch.engine.plan import SV, StaticAgg, StaticPlan
+from pinot_tpu_torch.engine.plan import MV_ANY, SV, StaticAgg, StaticPlan, group_expansion
 
 fused_dispatches = 0  # table-kernel runs that took the fused route
 fused_value_dispatches = 0  # table-kernel runs that took the fused value route
@@ -90,32 +95,50 @@ def _valid_mask(seg: Dict[str, Any], n_pad: int) -> torch.Tensor:
     return rows[None, :] < nd[:, None]
 
 
-def _leaf_mask(plan: StaticPlan, i: int, seg, q, n_pad: int) -> torch.Tensor:
-    leaf = plan.leaves[i]
-    kind = leaf.eval_kind
-    if leaf.mode != SV:
-        raise NotImplementedError("multi-value filter leaves are a later slice of the port")
-    if kind == "docrange":
-        b = q["bounds"][i]
-        rows = torch.arange(n_pad, device=b.device)[None, :]
-        return (rows >= b[:, 0:1]) & (rows < b[:, 1:2])
-    ids = seg[f"{leaf.column}.fwd"]
+def _mv_valid(seg: Dict[str, Any], column: str) -> torch.Tensor:
+    """[S, n_pad, mv_pad] MV entry validity from the per-doc counts:
+    entry < mvc."""
+    mvc = seg[f"{column}.mvc"]
+    entry = torch.arange(seg[f"{column}.mv"].shape[-1], device=mvc.device)
+    return entry < mvc[..., None]
+
+
+def _ids_match(kind: str, mode: str, q, i: int, ids: torch.Tensor) -> torch.Tensor:
+    """Per-entry truth of leaf ``i`` over dictIds ``ids`` ([S, n_pad] or
+    [S, n_pad, mv_pad]): the leaf's eval kind, SV complements baked in
+    (an MV_NONE leaf's points and tables hold the excluded set)."""
+    S = ids.shape[0]
+    lead = (S,) + (1,) * (ids.dim() - 1)
     if kind == "interval":
         b = q["bounds"][i]
-        return (ids >= b[:, 0:1]) & (ids < b[:, 1:2])
+        return (ids >= b[:, 0].view(lead)) & (ids < b[:, 1].view(lead))
     if kind in ("points", "points_none"):
         pts = q["pts"][i]  # [S, k_pad], -1 padded
         hit = torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
         for k in range(pts.shape[1]):
-            hit |= ids == pts[:, k : k + 1]
-        return ~hit if kind == "points_none" else hit
+            hit |= ids == pts[:, k].view(lead)
+        return ~hit if (kind == "points_none" and mode == SV) else hit
     if kind == "runs":
         rr = q["runs"][i]  # [S, k_pad, 2], SV complements baked in
         hit = torch.zeros(ids.shape, dtype=torch.bool, device=ids.device)
         for k in range(rr.shape[1]):
-            hit |= (ids >= rr[:, k, 0:1]) & (ids < rr[:, k, 1:2])
+            hit |= (ids >= rr[:, k, 0].view(lead)) & (ids < rr[:, k, 1].view(lead))
         return hit
-    return torch.gather(q["match"][i], 1, ids.long())
+    return torch.gather(q["match"][i], 1, ids.reshape(S, -1).long()).view(ids.shape)
+
+
+def _leaf_mask(plan: StaticPlan, i: int, seg, q, n_pad: int) -> torch.Tensor:
+    leaf = plan.leaves[i]
+    kind = leaf.eval_kind
+    if kind == "docrange":
+        b = q["bounds"][i]
+        rows = torch.arange(n_pad, device=b.device)[None, :]
+        return (rows >= b[:, 0:1]) & (rows < b[:, 1:2])
+    if leaf.mode == SV:
+        return _ids_match(kind, leaf.mode, q, i, seg[f"{leaf.column}.fwd"])
+    hit = (_ids_match(kind, leaf.mode, q, i, seg[f"{leaf.column}.mv"])
+           & _mv_valid(seg, leaf.column)).any(dim=-1)
+    return hit if leaf.mode == MV_ANY else ~hit
 
 
 def _eval_tree(plan: StaticPlan, node: tuple, seg, q, n_pad: int) -> torch.Tensor:
@@ -133,6 +156,20 @@ def _row_values(agg: StaticAgg, seg) -> torch.Tensor:
     if agg.use_raw:
         return seg[f"{agg.column}.raw"]  # streamed, no gather
     return torch.gather(seg[f"{agg.column}.dict"], 1, seg[f"{agg.column}.fwd"].long())
+
+
+def _entry_gather(table: torch.Tensor, mv: torch.Tensor) -> torch.Tensor:
+    """``table[s][mv[s, i, j]]``: a per-segment table read at every MV entry."""
+    return torch.gather(table, 1, mv.reshape(mv.shape[0], -1).long()).view(mv.shape)
+
+
+def _entry_values(agg: StaticAgg, seg) -> torch.Tensor:
+    """Per-entry numeric values [S, n_pad, mv_pad] for an MV agg column:
+    the staged decoded values, else the dictionary at each entry."""
+    mvr = seg.get(f"{agg.column}.mvraw")
+    if mvr is not None:
+        return mvr
+    return _entry_gather(seg[f"{agg.column}.dict"], seg[f"{agg.column}.mv"])
 
 
 def _hll_rows(agg: StaticAgg, seg, bucket, rho) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,93 +199,171 @@ def _grouped_hll_path(capacity: int) -> str:
     return "scatter"
 
 
+class _Flat:
+    """The pair space a state is computed over, flattened to [S, n_pad * E
+    * M]: each row's E group-key entries (the product of the MV group
+    columns' ``mv_pad``, 1 without) times the M entries of an MV value
+    column (its ``mv_pad``, 1 for an SV one), row major, so a segment's
+    pairs keep row order (the order the reference scatters them in).  The
+    kernels take such a stream as their row axis, with the row bound
+    ``num_docs * E * M``, an int32: a plan whose ``n_pad * E * M`` passes
+    it runs on the host (``plan.segment_pairs``).  With E = M = 1 every
+    stream is its own [S, n_pad] view: nothing is copied; otherwise a row
+    stream costs E * M times its bytes."""
+
+    def __init__(self, S: int, n: int, E: int = 1, M: int = 1) -> None:
+        self.S, self.n, self.E, self.M = S, n, E, M
+
+    def rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-row stream [S, n_pad] -> [S, N]."""
+        return t[:, :, None, None].expand(self.S, self.n, self.E, self.M).reshape(self.S, -1)
+
+    def keys(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-key-entry stream [S, n_pad, E or 1] -> [S, N]."""
+        return t[..., None].expand(self.S, self.n, self.E, self.M).reshape(self.S, -1)
+
+    def entries(self, t: torch.Tensor) -> torch.Tensor:
+        """A per-value-entry stream [S, n_pad, M] -> [S, N]."""
+        return t[:, :, None, :].expand(self.S, self.n, self.E, self.M).reshape(self.S, -1)
+
+    def num_docs(self, seg) -> torch.Tensor:
+        nd = seg["num_docs"]
+        return nd if self.E * self.M == 1 else nd * (self.E * self.M)
+
+
 _VALUE_MODES = {"presence": "presence", "hist": "counts", "hll": "registers"}
 
 
-def _value_inputs(agg: StaticAgg, aux, seg) -> Dict[str, Any]:
-    """K2's value arguments for an SV value-state agg: the staged
-    global-id stream, else the local fwd through the remap table
-    (presence / hist); the staged (bucket, rho) uint8 streams, else the
-    fwd through the per-dictId tables (hll)."""
+def _value_inputs(agg: StaticAgg, aux, seg, flat: _Flat) -> Dict[str, Any]:
+    """K2's value arguments in ``flat``'s pair space: an MV column's
+    entries through the remap table (presence / hist) or the per-dictId
+    tables (hll); for an SV column the staged global-id stream, else the
+    local fwd through the remap table (presence / hist), the staged
+    (bucket, rho) uint8 streams, else the fwd through the tables (hll)."""
+    if agg.is_mv:
+        values = flat.entries(seg[f"{agg.column}.mv"])
+        if agg.kind in ("presence", "hist"):
+            return dict(values=values, value_table=aux["remap"], width=agg.gcard_pad)
+        return dict(values=values, value_table=aux["bucket"], rho_table=aux["rho"])
     if agg.kind in ("presence", "hist"):
         gf = seg.get(f"{agg.column}.gfwd")
         if gf is not None:
-            return dict(values=gf, width=agg.gcard_pad)
-        return dict(values=seg[f"{agg.column}.fwd"], value_table=aux["remap"], width=agg.gcard_pad)
+            return dict(values=flat.rows(gf), width=agg.gcard_pad)
+        return dict(values=flat.rows(seg[f"{agg.column}.fwd"]), value_table=aux["remap"],
+                    width=agg.gcard_pad)
     hb = seg.get(f"{agg.column}.hllb")
     if hb is not None:
-        return dict(values=hb, rho=seg[f"{agg.column}.hllr"])
-    return dict(values=seg[f"{agg.column}.fwd"], value_table=aux["bucket"], rho_table=aux["rho"])
+        return dict(values=flat.rows(hb), rho=flat.rows(seg[f"{agg.column}.hllr"]))
+    return dict(values=flat.rows(seg[f"{agg.column}.fwd"]), value_table=aux["bucket"],
+                rho_table=aux["rho"])
 
 
-def _value_state(agg: StaticAgg, aux, seg, filt: Dict[str, Any],
+def _value_state(agg: StaticAgg, aux, seg, flat: _Flat, filt: Dict[str, Any],
                  group: Optional[Dict[str, Any]] = None, capacity: int = 0):
-    """(matched-doc total, holder) of one value-state agg from one K2
-    launch over every segment: presence bits, the histogram or HLL
-    registers, ``[capacity, ...]`` when grouped."""
+    """(matched total, holder) of one value-state agg from one K2 launch
+    over every segment: presence bits, the histogram or HLL registers,
+    ``[capacity, ...]`` when grouped.  The filter and group streams are in
+    ``flat``'s pair space."""
     docs, holder = value_state_counts.value_state(
-        _VALUE_MODES[agg.kind], seg["num_docs"], **_value_inputs(agg, aux, seg),
+        _VALUE_MODES[agg.kind], flat.num_docs(seg), **_value_inputs(agg, aux, seg, flat),
         capacity=max(capacity, 1), **filt, **(group or {}),
     )
     lead = (capacity,) if capacity else ()
     return docs, holder.view(*lead, config.HLL_M if agg.kind == "hll" else agg.gcard_pad)
 
 
-def _sort_pairs(
-    agg: StaticAgg, aux, seg, keep: torch.Tensor, slot: Optional[torch.Tensor]
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(group slot, gid) int32 pairs [S, n_pad] of a sort-pairs agg, the
-    sentinel in both where ``keep`` is False: the global value id for
-    presence / hist (its staged global-id stream: ``_role_columns``
-    stages one for every SV presence / hist column), ``bucket * 64 +
-    rho`` for HLL.  ``slot`` is the group slot per row (None when
-    ungrouped: slot 0)."""
+def _pair_gids(agg: StaticAgg, aux, seg, flat: _Flat) -> torch.Tensor:
+    """int32 value ids [S, N] of a sort-pairs agg in ``flat``'s pair space:
+    the global value id (presence / hist: an MV column's entries through
+    the remap table, an SV column's staged global-id stream, which
+    ``_role_columns`` stages for every SV presence / hist column), or
+    ``bucket * 64 + rho`` (hll)."""
     if agg.kind == "hll":
-        b, r = _hll_rows(agg, seg, aux["bucket"], aux["rho"])
-        gid = b.to(torch.int32) * 64 + r.to(torch.int32)
-    else:
-        gid = seg[f"{agg.column}.gfwd"].to(torch.int32)
+        b, r = _pair_hll(agg, aux, seg, flat)
+        return b.to(torch.int32) * 64 + r.to(torch.int32)
+    if agg.is_mv:
+        return flat.entries(_entry_gather(aux["remap"], seg[f"{agg.column}.mv"]))
+    return flat.rows(seg[f"{agg.column}.gfwd"].to(torch.int32))
+
+
+def _pair_hll(agg: StaticAgg, aux, seg, flat: _Flat) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(register index, rank) [S, N] of an HLL agg in ``flat``'s pair space."""
+    if agg.is_mv:
+        mv = seg[f"{agg.column}.mv"]
+        return (flat.entries(_entry_gather(aux["bucket"], mv)),
+                flat.entries(_entry_gather(aux["rho"], mv)))
+    b, r = _hll_rows(agg, seg, aux["bucket"], aux["rho"])
+    return flat.rows(b), flat.rows(r)
+
+
+def _sort_pairs(agg: StaticAgg, aux, seg, flat: _Flat, keep: torch.Tensor,
+                slot: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(group slot, gid) int32 pairs [S, N] of a sort-pairs agg, the
+    sentinel in both where ``keep`` is False.  ``slot`` is the group slot
+    per pair (None when ungrouped: slot 0)."""
+    gid = _pair_gids(agg, aux, seg, flat)
     slot = torch.zeros_like(gid) if slot is None else slot.to(torch.int32)
     return torch.where(keep, slot, _PAIR_SENTINEL), torch.where(keep, gid, _PAIR_SENTINEL)
 
 
 def _mask_filter(mask: torch.Tensor) -> Dict[str, Any]:
-    """The evaluated [S, n_pad] mask as a kernel filter: a match table
-    over {0, 1}."""
+    """An evaluated [S, N] mask as a kernel filter: a match table over
+    {0, 1}."""
     S = mask.shape[0]
     match = torch.arange(2, device=mask.device).bool().expand(S, 2).contiguous()  # [False, True]
     return dict(filter_fwd=mask.view(torch.uint8), match=match)
 
 
+def _agg_flat(agg: StaticAgg, seg, mask: torch.Tensor, E: int = 1,
+              kvalid: Optional[torch.Tensor] = None) -> Tuple[_Flat, torch.Tensor]:
+    """The pair space of a value-state or sort-pairs agg and its validity
+    [S, N]: the key entries (``kvalid`` [S, n_pad, E], else the row mask)
+    times the agg column's valid MV entries."""
+    S, n = mask.shape
+    M = seg[f"{agg.column}.mv"].shape[-1] if agg.is_mv else 1
+    flat = _Flat(S, n, E, M)
+    valid = flat.keys(kvalid) if kvalid is not None else flat.rows(mask)
+    if agg.is_mv:
+        valid = valid & flat.entries(_mv_valid(seg, agg.column))
+    return flat, valid
+
+
 def _agg_state(agg: StaticAgg, i: int, seg, q, mask, fdt) -> Any:
     """Partial state for one aggregation (no group-by): per segment [S]
     for scalar and pair kinds, over every segment at once for value
-    states (one K2 launch covers all S segments)."""
+    states (one K2 launch covers all S segments).  An MV agg reads every
+    valid entry of its matched rows."""
     base = agg.base
-    if agg.sort_pairs:
-        return _sort_pairs(agg, q["agg_aux"][i], seg, mask, None)
-    if agg.kind in ("presence", "hist", "hll"):
-        return _value_state(agg, q["agg_aux"][i], seg, _mask_filter(mask))[1]
+    aux = q["agg_aux"][i]
+    if agg.sort_pairs or agg.kind in _VALUE_KINDS:
+        flat, valid = _agg_flat(agg, seg, mask)
+        if agg.sort_pairs:
+            return _sort_pairs(agg, aux, seg, flat, valid, None)
+        return _value_state(agg, aux, seg, flat, _mask_filter(valid))[1]
+    if agg.is_mv:
+        m, dims = _mv_valid(seg, agg.column) & mask[..., None], (1, 2)
+    else:
+        m, dims = mask, 1
     if base == "count":
-        return mask.sum(dim=1, dtype=torch.int64)
-    vals = _row_values(agg, seg)
+        return m.sum(dim=dims, dtype=torch.int64)
+    vals = _entry_values(agg, seg) if agg.is_mv else _row_values(agg, seg)
     inf = torch.tensor(float("inf"), dtype=fdt, device=vals.device)
     zero = torch.zeros((), dtype=fdt, device=vals.device)
     if base == "sum":
-        return torch.where(mask, vals, zero).sum(dim=1, dtype=fdt)
+        return torch.where(m, vals, zero).sum(dim=dims, dtype=fdt)
     if base == "min":
-        return torch.where(mask, vals, inf).amin(dim=1)
+        return torch.where(m, vals, inf).amin(dim=dims)
     if base == "max":
-        return torch.where(mask, vals, -inf).amax(dim=1)
+        return torch.where(m, vals, -inf).amax(dim=dims)
     if base == "avg":
-        return (torch.where(mask, vals, zero).sum(dim=1, dtype=fdt), mask.sum(dim=1, dtype=torch.int64))
+        return (torch.where(m, vals, zero).sum(dim=dims, dtype=fdt), m.sum(dim=dims, dtype=torch.int64))
     if base == "minmaxrange":
-        return (torch.where(mask, vals, inf).amin(dim=1), torch.where(mask, vals, -inf).amax(dim=1))
+        return (torch.where(m, vals, inf).amin(dim=dims), torch.where(m, vals, -inf).amax(dim=dims))
     raise AssertionError(agg)
 
 
 def _group_columns(plan: StaticPlan, seg, q) -> Tuple[list, list]:
-    """(id stream, remap or None) per group-by column: the staged
+    """(id stream, remap or None) per SV group-by column: the staged
     global-id stream, else the local fwd with its remap table."""
     gb = plan.group_by
     cols, remaps = [], []
@@ -259,149 +374,212 @@ def _group_columns(plan: StaticPlan, seg, q) -> Tuple[list, list]:
 
 
 def _group_kwargs(plan: StaticPlan, seg, q) -> Dict[str, Any]:
-    """The group-by columns as the kernels take them (they combine the key)."""
+    """The SV group-by columns as the kernels take them (they combine the key)."""
     cols, remaps = _group_columns(plan, seg, q)
     return dict(group_cols=cols, group_cards=plan.group_by.gcards, group_remaps=remaps)
 
 
-def _group_keys(plan: StaticPlan, seg, q, kdt) -> torch.Tensor:
-    """Mixed-radix global group keys [S, n_pad] in ``kdt`` (the torch-op
-    route; the fused route has K1 combine them)."""
-    cols, remaps = _group_columns(plan, seg, q)
-    return fused_groupby.combine_group_keys(cols, plan.group_by.gcards, remaps, dtype=kdt)
+def _group_entries(plan: StaticPlan, staged: StagedTable, seg, q, mask):
+    """The group-by columns over each row's E key entries (the MV
+    expansion: each row adds to the group of each of its entries' key,
+    duplicates within a row included, the first MV column major):
+    (id streams [S, n_pad, E or 1], remap or None per column, the entry
+    validity [S, n_pad, E], E)."""
+    gb = plan.group_by
+    S, n = mask.shape
+    pads = [staged.column(c).mv_pad for c, mv in zip(gb.columns, gb.col_is_mv) if mv]
+    E = group_expansion(gb, staged)
+    cols, remaps, valid, p = [], [], mask[:, :, None], 0
+    for col, is_mv, remap, use_g in zip(gb.columns, gb.col_is_mv, q["group_remap"], gb.use_gfwd):
+        if not is_mv:
+            cols.append((seg[f"{col}.gfwd"] if use_g else seg[f"{col}.fwd"])[:, :, None])
+            remaps.append(None if use_g else remap)
+            continue
+        shape = [S, n] + [pads[k] if k == p else 1 for k in range(len(pads))]
+
+        def spread(t):
+            return t.view(shape).expand(S, n, *pads).reshape(S, n, E)
+
+        cols.append(spread(seg[f"{col}.mv"]))
+        remaps.append(remap)
+        valid = valid & spread(_mv_valid(seg, col))
+        p += 1
+    return cols, remaps, valid.expand(S, n, E), E
 
 
-def _sum_columns(plan: StaticPlan) -> List[str]:
-    """Distinct value columns of the plan's sum / avg aggregations."""
-    cols: List[str] = []
+def _group_keys(cols, gcards, remaps, kdt) -> torch.Tensor:
+    """The mixed-radix global group key in ``kdt`` of the group columns'
+    [S, N] streams (the torch-op route; the fused route has K1 combine it)."""
+    return fused_groupby.combine_group_keys(cols, gcards, remaps, dtype=kdt)
+
+
+def _weights(plan: StaticPlan, seg, mask, fdt) -> Dict[Tuple[str, str], torch.Tensor]:
+    """Per-row float weight streams [S, n_pad] of the grouped sums K1 takes:
+    ("v", column) the row's value (SV) or the sum of its valid entries
+    (MV: sum / avg), ("n", column) the count of its valid entries (MV:
+    count / avg).  Each row's weight adds to the group of each of its key
+    entries."""
+    out: Dict[Tuple[str, str], torch.Tensor] = {}
     for agg in plan.aggs:
-        if agg.base in ("sum", "avg") and agg.column not in cols:
-            cols.append(agg.column)
-    return cols
+        if agg.kind not in ("scalar", "pair") or agg.base not in ("count", "sum", "avg"):
+            continue
+        if not agg.is_mv:
+            if agg.base != "count":
+                out.setdefault(("v", agg.column), _row_values(agg, seg))
+            continue
+        m = _mv_valid(seg, agg.column)
+        if agg.base != "sum":
+            out.setdefault(("n", agg.column), m.sum(dim=-1).to(fdt))
+        if agg.base != "count":
+            zero = torch.zeros((), dtype=fdt, device=mask.device)
+            out.setdefault(("v", agg.column),
+                           torch.where(m, _entry_values(agg, seg), zero).sum(dim=-1, dtype=fdt))
+    return out
 
 
 def _group_sums(
-    plan: StaticPlan, staged: StagedTable, seg, q, mask, slot
-) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Group counts (int64 [capacity]) and float sums per sum/avg column
-    over every segment, through the fused kernel with the evaluated mask
-    as its filter (a match table over {0, 1}) and the group-by columns,
-    whose key it combines.  The kernel's group space is bounded by its
-    shared memory and its group columns by ``MAX_GROUP_COLUMNS``, so a
-    wider space or more columns run in key windows over the precombined
-    key (``slot()``), and more value columns than the kernel takes run in
-    column chunks: each call adds per-block partials in a fixed order, so
-    the result is the same on every run."""
+    plan: StaticPlan, staged: StagedTable, seg, weights, flat: _Flat, filt, group_cols, group_remaps, slot
+) -> Tuple[torch.Tensor, Dict[Tuple[str, str], torch.Tensor]]:
+    """Group counts (int64 [capacity]) and float sums per weight stream over
+    every segment's key entries, through the fused kernel with the
+    evaluated entry mask as its filter (a match table over {0, 1}) and
+    the group-by columns, whose key it combines.  The kernel's group space
+    is bounded by its shared memory and its group columns by
+    ``MAX_GROUP_COLUMNS``, so a wider space or more columns run in key
+    windows over the precombined key (``slot()``), and more weight streams
+    than the kernel takes run in chunks: each call adds per-block partials
+    in a fixed order, so the result is the same on every run."""
     cap = plan.group_by.capacity
     fdt = staged.precision.float_dtype
     fbytes = 8 if staged.precision.x64 else 4
-    by_column = {a.column: a for a in plan.aggs if a.base in ("sum", "avg")}
-    cols = _sum_columns(plan)
-    filt = _mask_filter(mask)
-    group_cols, group_remaps = _group_columns(plan, seg, q)
+    keys = list(weights)
+    num_docs = flat.num_docs(seg)
     remap_cards = [r.shape[-1] for r in group_remaps if r is not None]
-    chunks = [cols[j : j + fused_groupby.MAX_VALUE_COLUMNS]
-              for j in range(0, len(cols), fused_groupby.MAX_VALUE_COLUMNS)] or [[]]
+    chunks = [keys[j : j + fused_groupby.MAX_VALUE_COLUMNS]
+              for j in range(0, len(keys), fused_groupby.MAX_VALUE_COLUMNS)] or [[]]
     counts: Optional[torch.Tensor] = None
-    sums: Dict[str, torch.Tensor] = {}
+    sums: Dict[Tuple[str, str], torch.Tensor] = {}
     for chunk in chunks:
-        raws = [_row_values(by_column[c], seg) for c in chunk]
+        raws = [flat.rows(weights[k]) for k in chunk]
         nones = [None] * len(chunk)
         if (len(group_cols) <= fused_groupby.MAX_GROUP_COLUMNS
                 and all(c <= fused_groupby.MAX_TABLE_CARD for c in remap_cards)
                 and cap <= fused_groupby.max_capacity(fbytes, len(chunk), 0, 2, sum(remap_cards))):
             _, cnt, sm = fused_groupby.fused_filtered_groupby_sums(
-                filt["filter_fwd"], filt["match"], seg["num_docs"], None, nones, nones, cap, dtype=fdt,
+                filt["filter_fwd"], filt["match"], num_docs, None, nones, nones, cap, dtype=fdt,
                 value_raws=raws, group_cols=group_cols, group_cards=plan.group_by.gcards,
                 group_remaps=group_remaps,
             )
             parts_c, parts_s = [cnt], [sm]
         else:
-            keys = slot().to(torch.int32)  # capacity <= MAX_GROUP_CAPACITY fits int32
+            keys32 = slot().to(torch.int32)  # capacity <= MAX_GROUP_CAPACITY fits int32
             window = fused_groupby.max_capacity(fbytes, len(chunk), 0, 2)
             parts_c, parts_s = [], []
             for lo in range(0, cap, window):
                 _, cnt, sm = fused_groupby.fused_filtered_groupby_sums(
-                    filt["filter_fwd"], filt["match"], seg["num_docs"], keys - lo if lo else keys,
+                    filt["filter_fwd"], filt["match"], num_docs, keys32 - lo if lo else keys32,
                     nones, nones, min(window, cap - lo), dtype=fdt, value_raws=raws,
                 )
                 parts_c.append(cnt)
                 parts_s.append(sm)
         if counts is None:
             counts = torch.cat(parts_c)
-        for j, c in enumerate(chunk):
-            sums[c] = torch.cat([p[j] for p in parts_s])
+        for j, k in enumerate(chunk):
+            sums[k] = torch.cat([p[j] for p in parts_s])
     return counts, sums
 
 
-def _group_value_state(agg: StaticAgg, aux, seg, mask, group, slot, cap: int) -> Any:
-    """Grouped value-state holder over every segment: dense presence /
-    histogram grids and small-group HLL registers from one K2 launch
-    with the group-by columns (``group``; None when there are more than
-    K2 takes: then the precombined key is its one group column, masked
-    rows carrying ``cap`` and so dropping), larger group spaces by the
-    reference's sort or scatter lowering over the precombined key
-    (``slot()``), and states too wide for a dense holder as (slot, gid)
-    pairs."""
+def _group_value_state(agg: StaticAgg, aux, seg, mask, kvalid, E: int, group, slot, cap: int) -> Any:
+    """Grouped value-state holder over every segment's (key entry, value
+    entry) pairs: dense presence / histogram grids and small-group HLL
+    registers from one K2 launch with the group-by columns (``group``, in
+    key-entry form; None when there are more than K2 takes: then the
+    precombined key is its one group column, masked entries carrying
+    ``cap`` and so dropping), larger group spaces by the reference's sort
+    or scatter lowering over the precombined key (``slot()``), and states
+    too wide for a dense holder as (slot, gid) pairs."""
+    flat, valid = _agg_flat(agg, seg, mask, E, kvalid)
+    S, n = mask.shape
+
+    def pair_slot():
+        return flat.keys(slot().view(S, n, E))
+
     if agg.sort_pairs:
-        return _sort_pairs(agg, aux, seg, mask, slot())
+        return _sort_pairs(agg, aux, seg, flat, valid, pair_slot())
     path = _grouped_hll_path(cap) if agg.kind == "hll" else "matmul"
     if path == "matmul":
         if group is None:
-            group = dict(group_cols=[slot().to(torch.int32)], group_cards=[cap], group_remaps=[None])
-        return _value_state(agg, aux, seg, _mask_filter(mask), group, cap)[1]
-    b, r = _hll_rows(agg, seg, aux["bucket"], aux["rho"])
-    keys = slot()
+            group = dict(group_cols=[pair_slot().to(torch.int32)], group_cards=[cap], group_remaps=[None])
+        else:
+            group = dict(group, group_cols=[flat.keys(c) for c in group["group_cols"]])
+        return _value_state(agg, aux, seg, flat, _mask_filter(valid), group, cap)[1]
+    b, r = _pair_hll(agg, aux, seg, flat)
+    keys = pair_slot()
     if path == "sort":
-        # one packed int32 per row (capacity <= 2^16 keeps it below 2^30),
+        # one packed int32 per pair (capacity <= 2^16 keeps it below 2^30),
         # sorted and run-max extracted by the reduce (_reduce_hll_sort)
         cell = keys.to(torch.int32) * config.HLL_M + b.to(torch.int32)
-        return torch.where(mask, (cell << 6) | r.to(torch.int32), _PAIR_SENTINEL)
+        return torch.where(valid, (cell << 6) | r.to(torch.int32), _PAIR_SENTINEL)
     # flat scatter-max into [capacity * HLL_M] registers, a spare drop cell
     cell = keys.long() * config.HLL_M + b.long()
     ncells = cap * config.HLL_M
     regs = torch.zeros(ncells + 1, dtype=torch.int32, device=keys.device)
-    regs.scatter_reduce_(0, torch.where(mask, cell, ncells).reshape(-1),
+    regs.scatter_reduce_(0, torch.where(valid, cell, ncells).reshape(-1),
                          r.to(torch.int32).reshape(-1), reduce="amax", include_self=True)
     return regs[:ncells].view(cap, config.HLL_M).to(torch.uint8)
 
 
 def _group_outputs(plan: StaticPlan, staged: StagedTable, seg, q, mask) -> Dict[str, Any]:
-    """Grouped states over every segment at once (module docstring).  The
-    precombined key is built only where min/max holders, key windows,
-    more group columns than the kernels take or the sort / scatter HLL
-    lowerings need it."""
+    """Grouped states over every segment's key entries at once (module
+    docstring).  The precombined key is built only where min/max holders,
+    key windows, more group columns than the kernels take or the sort /
+    scatter HLL lowerings need it."""
     cap = plan.group_by.capacity
     fdt = staged.precision.float_dtype
+    cols, remaps, kvalid, E = _group_entries(plan, staged, seg, q, mask)
+    S, n = mask.shape
+    flat = _Flat(S, n, E)
+    group_cols = [flat.keys(c) for c in cols]
+    entry_mask = flat.keys(kvalid)
     keys: List[torch.Tensor] = []
 
     def slot() -> torch.Tensor:
-        """Masked rows -> the spare slot, in the key dtype."""
+        """The key [S, n_pad * E] in the key dtype, masked entries -> the
+        spare slot."""
         if not keys:
-            keys.append(torch.where(mask, _group_keys(plan, seg, q, staged.precision.key_dtype), cap))
+            key = _group_keys(group_cols, plan.group_by.gcards, remaps, staged.precision.key_dtype)
+            keys.append(torch.where(entry_mask, key, cap))
         return keys[0]
 
-    counts, sums = _group_sums(plan, staged, seg, q, mask, slot)
+    weights = _weights(plan, seg, mask, fdt)
+    counts, sums = _group_sums(plan, staged, seg, weights, flat, _mask_filter(entry_mask),
+                               group_cols, remaps, slot)
     out: Dict[str, Any] = {"gb_presence": (counts > 0).to(torch.int32)}
     fits = len(plan.group_by.columns) <= value_state_counts.MAX_GROUP_COLUMNS
-    group = _group_kwargs(plan, seg, q) if fits else None
+    group = dict(group_cols=cols, group_cards=plan.group_by.gcards, group_remaps=remaps) if fits else None
 
     def extreme(agg, reduce, seed):
+        if agg.is_mv:  # the row's extreme over its valid entries
+            vals = torch.where(_mv_valid(seg, agg.column), _entry_values(agg, seg),
+                               torch.tensor(seed, dtype=fdt, device=mask.device))
+            vals = vals.amin(dim=-1) if reduce == "amin" else vals.amax(dim=-1)
+        else:
+            vals = _row_values(agg, seg)
         h = torch.full((cap + 1,), seed, dtype=fdt, device=mask.device)
-        h.scatter_reduce_(0, slot().reshape(-1).long(), _row_values(agg, seg).reshape(-1).to(fdt),
+        h.scatter_reduce_(0, slot().reshape(-1).long(), flat.rows(vals).reshape(-1).to(fdt),
                           reduce=reduce, include_self=True)
         return h[:cap]
 
     for i, agg in enumerate(plan.aggs):
         base = agg.base
-        if agg.kind in ("presence", "hist", "hll"):
-            state = _group_value_state(agg, q["agg_aux"][i], seg, mask, group, slot, cap)
+        if agg.kind in _VALUE_KINDS:
+            state = _group_value_state(agg, q["agg_aux"][i], seg, mask, kvalid, E, group, slot, cap)
         elif base == "count":
-            state = counts
+            state = sums[("n", agg.column)] if agg.is_mv else counts
         elif base == "sum":
-            state = sums[agg.column]
+            state = sums[("v", agg.column)]
         elif base == "avg":
-            state = (sums[agg.column], counts)
+            state = (sums[("v", agg.column)], sums[("n", agg.column)] if agg.is_mv else counts)
         elif base == "min":
             state = extreme(agg, "amin", float("inf"))
         elif base == "max":
@@ -416,14 +594,18 @@ def _group_outputs(plan: StaticPlan, staged: StagedTable, seg, q, mask) -> Dict[
 
 def _sort_ordinals(sel, seg, q, dtype):
     """Per sort column: the global ordinal of each doc's value [S, n_pad]
-    in ``dtype``, flipped for a descending column, with its cardinality."""
+    in ``dtype`` (an MV column's first entry), flipped for a descending
+    column, with its cardinality."""
     for col, asc, gcard, remap, use_g in zip(
         sel.sort_columns, sel.sort_ascending, sel.sort_gcards, q.get("sel_remap", ()), sel.use_gfwd
     ):
         if use_g:
             g = seg[f"{col}.gfwd"].to(dtype)
         else:
-            g = torch.gather(remap, 1, seg[f"{col}.fwd"].long()).to(dtype)
+            ids = seg.get(f"{col}.fwd")
+            if ids is None:  # an MV column orders by its first entry
+                ids = seg[f"{col}.mv"][:, :, 0]
+            g = torch.gather(remap, 1, ids.long()).to(dtype)
         if not asc:
             g = (gcard - 1) - g
         yield g, gcard
@@ -741,18 +923,19 @@ def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[
     is built in device memory; a scalar plan's num_docs (and counts) are
     K2's matched-doc total."""
     filt = _leaf_filter(plan, seg, q)
+    flat = _Flat(staged.num_segments, staged.n_pad)
     gb = plan.group_by
     if gb is not None:
         out = _k1_outputs(plan, staged, seg, q, filt, _fused_value_columns(plan, value_states=True))
         group = _group_kwargs(plan, seg, q)
         for i, agg in enumerate(plan.aggs):
             if agg.kind in _VALUE_KINDS:
-                out[f"gb_{i}"] = _value_state(agg, q["agg_aux"][i], seg, filt, group, gb.capacity)[1]
+                out[f"gb_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, group, gb.capacity)[1]
         return out
     out = {}
     for i, agg in enumerate(plan.aggs):
         if agg.kind in _VALUE_KINDS:
-            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, filt)
+            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt)
     for i, agg in enumerate(plan.aggs):
         if agg.kind not in _VALUE_KINDS:  # count(*)
             out[f"agg_{i}"] = out["num_docs"]

@@ -56,6 +56,7 @@ import torch
 MAX_TABLE_CARD = 4096  # same contract as the TPU kernel (pallas_kernels.py:61)
 MAX_VALUE_COLUMNS = 8
 MAX_GROUP_COLUMNS = 4
+MAX_ROWS = 2**31 - 1  # rows a segment: num_docs is int32 (K2 shares the bound)
 SHARED_BYTES_LIMIT = 232448  # H100 opt-in dynamic shared memory per block; the launch rechecks the device
 THREADS = 256
 WARPS = THREADS // 32
@@ -210,6 +211,8 @@ def _validate(
     if lead.dim() != 2:
         raise ValueError("group columns must be [S, n_pad]")
     S, n_pad = lead.shape
+    if n_pad > MAX_ROWS:
+        raise ValueError(f"{n_pad} rows a segment: the int32 num_docs bounds at most {MAX_ROWS}")
     dev = lead.device
 
     def check(t, name, dtypes, shape, table=False):
@@ -293,35 +296,39 @@ def fused_filtered_groupby_sums_reference(
     in int64; each sum accumulates in float64 and is returned in
     ``dtype``: ``index_add_`` adds one row at a time into its bucket, and
     in float32 that loses whole percents once a bucket holds millions of
-    rows, so the yardstick sums at the higher precision."""
+    rows, so the yardstick sums at the higher precision.  The sums add in
+    the reference's order: each segment's rows in row order into its own
+    partial, then the partials in segment order (``pinot_tpu/engine/
+    kernel.py`` scatter-adds per segment and reduces the segment axis),
+    so equal inputs give bit-equal float64 sums."""
     if group_keys is None:
         group_keys = combine_group_keys(group_cols, group_cards, group_remaps)
     S, n = group_keys.shape
     dev = group_keys.device
     rows = torch.arange(n, device=dev)
-    mask = rows[None, :] < num_docs[:, None]
-    if match is not None:
-        hit = torch.gather(match.to(torch.bool), 1, filter_fwd.long())
-    elif filter_fwd is not None:
-        f = filter_fwd.to(torch.int32)
-        hit = (f >= filter_bounds[:, 0:1]) & (f < filter_bounds[:, 1:2])
-    else:
-        hit = (rows[None, :] >= filter_bounds[:, 0:1]) & (rows[None, :] < filter_bounds[:, 1:2])
-    mask = mask & hit
-    keys = group_keys.long()
-    ok = mask & (keys >= 0) & (keys < capacity)
-    idx = torch.where(ok, keys, capacity).reshape(-1)
-    docs = mask.sum(dtype=torch.int64)
-    count = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
-    count.index_add_(0, idx, torch.ones_like(idx))
     raws = list(value_raws) if value_raws is not None else [None] * len(value_dicts)
-    sums = []
-    for f, d, r in zip(value_fwds, value_dicts, raws):
-        vals = r if r is not None else torch.gather(d, 1, f.long())
-        w = torch.where(ok, vals.to(torch.float64), torch.zeros((), dtype=torch.float64, device=dev))
-        acc = torch.zeros(capacity + 1, dtype=torch.float64, device=dev)
-        acc.index_add_(0, idx, w.reshape(-1))
-        sums.append(acc[:capacity].to(dtype))
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    docs = torch.zeros((), dtype=torch.int64, device=dev)
+    count = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
+    accs = [torch.zeros(capacity + 1, dtype=torch.float64, device=dev) for _ in raws]
+    for s in range(S):  # one segment at a time: its rows in row order, then the next segment
+        mask = rows < num_docs[s]
+        if match is not None:
+            mask = mask & match[s].to(torch.bool)[filter_fwd[s].long()]
+        else:
+            f = filter_fwd[s].to(torch.int32) if filter_fwd is not None else rows
+            mask = mask & (f >= filter_bounds[s, 0]) & (f < filter_bounds[s, 1])
+        docs += mask.sum(dtype=torch.int64)
+        keys = group_keys[s].long()
+        ok = mask & (keys >= 0) & (keys < capacity)
+        idx = torch.where(ok, keys, capacity)
+        count.index_add_(0, idx, torch.ones_like(idx))
+        for acc, f, d, r in zip(accs, value_fwds, value_dicts, raws):
+            vals = r[s] if r is not None else d[s][f[s].long()]
+            part = torch.zeros(capacity + 1, dtype=torch.float64, device=dev)
+            part.index_add_(0, idx, torch.where(ok, vals.to(torch.float64), zero))
+            acc += part
+    sums = [acc[:capacity].to(dtype) for acc in accs]
     return docs, count[:capacity], sums
 
 

@@ -290,6 +290,8 @@ def _validate(mode, num_docs, values, capacity, width, value_table, rho, rho_tab
     if values.dim() != 2:
         raise ValueError("values must be [S, n_pad]")
     S, n_pad = values.shape
+    if n_pad > fused_groupby.MAX_ROWS:
+        raise ValueError(f"{n_pad} rows a segment: the int32 num_docs bounds at most {fused_groupby.MAX_ROWS}")
     dev = values.device
 
     def check(t, name, dtypes, shape, table=False):

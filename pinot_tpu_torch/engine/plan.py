@@ -1,8 +1,8 @@
 """Query planning: BrokerRequest -> (StaticPlan, query inputs) — port of
-``pinot_tpu.engine.plan`` restricted to single-value filter leaves,
-AND/OR trees, single-value group-by, scalar, pair and value-state
-(distinctcount, percentile, HLL) aggregations, and selections, on
-single-value columns.
+``pinot_tpu.engine.plan``: filter trees of single- and multi-value
+leaves, group-by over single- and multi-value columns, scalar, pair and
+value-state (distinctcount, percentile, HLL) aggregations, their MV
+forms, and selections.
 
 - **StaticPlan** — a hashable description of the kernel's structure:
   filter tree shape, leaf evaluation kinds, aggregation list, group-by
@@ -22,6 +22,13 @@ become vector compares):
   runs        — union of a few dictId intervals
   table       — bool[card] match table lookup (regex, large IN lists)
 
+Leaf modes:
+  SV      — mask = match(fwd)
+  MV_ANY  — mask = any(match(mv) & entry valid)     (positive predicates)
+  MV_NONE — mask = ~any(member(mv) & entry valid)   (NOT / NOT_IN: the
+            table or points hold the excluded set, the kernel negates
+            after the any)
+
 Value-state aggregations keep a dense holder per group: presence bits or
 a histogram over the column's global dictionary (``gcard_pad`` wide), or
 ``HLL_M`` registers.  Holders too big for the dense path take the
@@ -36,7 +43,7 @@ from __future__ import annotations
 
 import re
 from dataclasses import dataclass, replace
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -51,6 +58,7 @@ from pinot_tpu_torch.engine.config import Precision
 from pinot_tpu_torch.engine.context import TableContext
 from pinot_tpu_torch.engine.device import StagedTable
 from pinot_tpu_torch.engine.hll import dictionary_tables
+from pinot_tpu_torch.engine.kernels import fused_groupby
 from pinot_tpu_torch.segment.dictionary import Dictionary
 
 SV, MV_ANY, MV_NONE = "sv", "mv_any", "mv_none"
@@ -59,7 +67,7 @@ SV, MV_ANY, MV_NONE = "sv", "mv_any", "mv_none"
 @dataclass(frozen=True)
 class StaticLeaf:
     column: str
-    mode: str  # SV (MV_ANY | MV_NONE: a later slice)
+    mode: str  # SV | MV_ANY | MV_NONE
     eval_kind: str = "table"
     k_pad: int = 0  # static points-array length (pow2-padded)
 
@@ -69,6 +77,8 @@ class StaticAgg:
     func: str  # full function name e.g. "sum"
     base: str  # base function e.g. "sum"
     column: str  # "*" for count(*)
+    # reads every entry of an MV column; an ``…mv`` function over a
+    # single-value column reads its one value a row, the SV plan
     is_mv: bool
     kind: str  # scalar | pair | presence | hist | hll
     gcard_pad: int = 0  # value-state holder width (padded global cardinality)
@@ -114,7 +124,7 @@ class StaticPlan:
     aggs: Tuple[StaticAgg, ...]
     group_by: Optional[StaticGroupBy]
     selection: Optional[StaticSelection]
-    on_device: bool  # False -> the host tier, which this port does not have
+    on_device: bool  # False -> the host tier (``host_fallback.execute_host``)
 
 
 def group_capacity(request, ctx) -> int:
@@ -124,6 +134,14 @@ def group_capacity(request, ctx) -> int:
     for c in request.group_by.columns:
         cap *= max(ctx.column(c).global_cardinality, 1)
     return cap
+
+
+# MV group-by: at most this many expanded keys per row on the device
+MAX_GROUP_EXPANSION = 64
+
+# K1 and K2 bound a segment's rows by an int32 (``num_docs * E * M`` over
+# a flattened pair space): a wider segment stream runs on the host
+MAX_SEGMENT_PAIRS = fused_groupby.MAX_ROWS
 
 
 def group_capacity_forces_host(cap: int, precision: Precision) -> bool:
@@ -274,12 +292,12 @@ def build_static_plan(
         if node.is_leaf:
             # mode from segment metadata, not the staged column: a
             # docrange-only column is dropped from staging entirely
-            if not ctx.segments[0].column(node.column).metadata.single_value:
-                raise NotImplementedError(
-                    f"filter on multi-value column {node.column!r}: MV leaves are "
-                    "a later slice of the port"
-                )
-            mode = SV
+            if ctx.segments[0].column(node.column).metadata.single_value:
+                mode = SV
+            elif node.operator in (FilterOperator.NOT, FilterOperator.NOT_IN):
+                mode = MV_NONE
+            else:
+                mode = MV_ANY
             eval_kind, k_pad = _leaf_eval_kind(node)
             if eval_kind == "table":
                 # a table that is a few contiguous dictId runs evaluates as
@@ -300,7 +318,7 @@ def build_static_plan(
                         max_runs = max(max_runs, len(_table_runs(t)))
                 if max_runs <= _MAX_RUNS:
                     eval_kind, k_pad = "runs", _pad_pow2(max(max_runs, 1))
-            if (
+            if mode == SV and (
                 eval_kind == "interval"
                 or (eval_kind == "points" and len(node.values) == 1
                     and node.operator == FilterOperator.EQUALITY)
@@ -319,24 +337,23 @@ def build_static_plan(
     on_device = True
     aggs: List[StaticAgg] = []
     for a in request.aggregations:
-        if a.is_mv or (a.column != "*" and not staged.column(a.column).single_value):
-            raise NotImplementedError(
-                f"aggregation {a.function}({a.column}): MV aggregations are the "
-                "MV-column slice of the port"
-            )
         base = a.base_function
         kind = _agg_kind(base)
+        # an MV column makes every function over it an MV one; an ``…mv``
+        # function over an SV column is its SV plan (one entry a row)
+        is_mv = a.column != "*" and not staged.column(a.column).single_value
         gcard_pad = 0
         hll_from_presence = False
-        if kind == "hll" and a.column != "*" and hll_lowers_to_presence(request, ctx, a.column):
+        if (kind == "hll" and a.column != "*" and not is_mv
+                and hll_lowers_to_presence(request, ctx, a.column)):
             kind = "presence"
             hll_from_presence = True
         if kind in ("presence", "hist"):
             gcard_pad = config.pad_value_card(ctx.column(a.column).global_cardinality)
-        use_raw = a.column != "*" and staged.column(a.column).raw is not None
+        use_raw = a.column != "*" and not is_mv and staged.column(a.column).raw is not None
         aggs.append(
             StaticAgg(
-                func=a.function, base=base, column=a.column, is_mv=False,
+                func=a.function, base=base, column=a.column, is_mv=is_mv,
                 kind=kind, gcard_pad=gcard_pad, use_raw=use_raw,
                 sort_pairs=value_state_sort_pairs(kind, gcard_pad, None),
                 hll_from_presence=hll_from_presence,
@@ -346,11 +363,7 @@ def build_static_plan(
     group_by: Optional[StaticGroupBy] = None
     if request.is_group_by:
         cols = tuple(request.group_by.columns)
-        for c in cols:
-            if not staged.column(c).single_value:
-                raise NotImplementedError(
-                    f"group-by on multi-value column {c!r}: a later slice of the port"
-                )
+        col_is_mv = tuple(not staged.column(c).single_value for c in cols)
         gcards = tuple(ctx.column(c).global_cardinality for c in cols)
         cap = group_capacity(request, ctx)
         if group_capacity_forces_host(cap, staged.precision):
@@ -369,12 +382,20 @@ def build_static_plan(
             assert not (a.hll_from_presence and a.sort_pairs), a
         group_by = StaticGroupBy(
             columns=cols,
-            col_is_mv=tuple(False for _ in cols),
+            col_is_mv=col_is_mv,
             gcards=gcards,
             capacity=int(cap),
             top_n=request.group_by.top_n,
-            use_gfwd=tuple(staged.column(c).gfwd is not None for c in cols),
+            use_gfwd=tuple(
+                not mv and staged.column(c).gfwd is not None for c, mv in zip(cols, col_is_mv)
+            ),
         )
+        # each row adds to the group of each of its entries' key: past
+        # MAX_GROUP_EXPANSION keys a row, the host tier
+        if group_expansion(group_by, staged) > MAX_GROUP_EXPANSION:
+            on_device = False
+    if segment_pairs(aggs, group_by, staged) > MAX_SEGMENT_PAIRS:
+        on_device = False
 
     # guaranteed pair overflow: the global dictionary holds only values
     # present in the data, so with no filter every entry lands in >= 1
@@ -415,6 +436,27 @@ def build_static_plan(
         selection=selection,
         on_device=on_device,
     )
+
+
+def group_expansion(group_by: StaticGroupBy, staged: StagedTable) -> int:
+    """E, the keys a row expands to: the product of the MV group columns'
+    ``mv_pad`` (1 with none)."""
+    e = 1
+    for c, mv in zip(group_by.columns, group_by.col_is_mv):
+        if mv:
+            e *= staged.column(c).mv_pad
+    return e
+
+
+def segment_pairs(aggs: Sequence[StaticAgg], group_by: Optional[StaticGroupBy],
+                  staged: StagedTable) -> int:
+    """The widest per-segment stream the kernels walk: ``n_pad * E * M``,
+    E the group expansion, M the largest ``mv_pad`` of an MV value-state
+    column (``kernel._Flat``)."""
+    e = group_expansion(group_by, staged) if group_by is not None else 1
+    m = max((staged.column(a.column).mv_pad for a in aggs
+             if a.is_mv and a.kind in ("presence", "hist", "hll")), default=1)
+    return staged.n_pad * e * m
 
 
 # ---------------------------------------------------------------------------

@@ -295,3 +295,31 @@ def trim_group_candidates(
             ties = ties[:MAX_TRIM_TIES]
         candidates.update(ties.tolist())
     return np.asarray(sorted(candidates), dtype=np.int64)
+
+
+# Cost-vector keys the port emits (the reference's ``COST_KEYS``,
+# pinot_tpu/engine/results.py:260-286, trimmed to these).  Every value is
+# additive, so the merge is a key-wise sum:
+#
+#   bytesScanned       column bytes the serving path read (device: the
+#                      staged arrays handed to the kernel; host: forward-
+#                      index and MV value bytes of the referenced columns)
+#   hostMs             wall ms of the host tier's execution
+#   deviceBytes        the device tier's share of bytesScanned
+#   segmentsPruned     segments dropped before execution (empty, or
+#                      missing a referenced column)
+#   segmentsFullScan   segments scanned by the device's table kernel
+#   segmentsHost       segments served by the host tier (forced before
+#                      staging, a plan off the device, or pair overflow)
+COST_KEYS = (
+    "bytesScanned",
+    "hostMs",
+    "deviceBytes",
+    "segmentsPruned",
+    "segmentsFullScan",
+    "segmentsHost",
+)
+
+# Serving-tier subset of COST_KEYS: all but segmentsPruned partition the
+# segments a query was served from.
+SEGMENT_TIER_KEYS = tuple(k for k in COST_KEYS if k.startswith("segments"))

@@ -3,8 +3,7 @@
 
 A segment is per-column metadata + a sorted dictionary + a forward index
 of dictIds (``fwd`` int32 [num_docs] for single-value columns; CSR
-``mv_values``/``mv_offsets`` for multi-value columns, which the query
-slice does not execute).  The device-resident, padded and stacked form
+``mv_values``/``mv_offsets`` for multi-value columns).  The device-resident, padded and stacked form
 is produced by ``pinot_tpu_torch.engine.device``.
 """
 from __future__ import annotations

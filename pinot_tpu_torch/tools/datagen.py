@@ -1,9 +1,13 @@
 """Seeded TPC-H lineitem-shaped and ad-events data (copy of the lineitem
-and ad-events parts of ``pinot_tpu.tools.datagen``).
+and ad-events parts of ``pinot_tpu.tools.datagen``), and the reference
+tests' mixed-type schema with multi-value columns.
 
-The numpy draws are made in the same order as the reference's, so the
-same seed gives the same dictionaries and forward indexes in both
-packages.
+The lineitem and ad-events numpy draws are made in the same order as the
+reference's, so the same seed gives the same dictionaries and forward
+indexes in both packages.  ``synthetic_mv_segment`` draws
+``make_test_schema()`` rows by the law of the reference's ``random_rows``
+(fixed value pools, 1..``mv_max`` entries a multi-value row) with numpy,
+column by column, at sizes the row-at-a-time segment build cannot reach.
 """
 from __future__ import annotations
 
@@ -19,6 +23,116 @@ from pinot_tpu_torch.segment.immutable import (
     ImmutableSegment,
     SegmentMetadata,
 )
+
+def make_test_schema(with_mv: bool = True) -> Schema:
+    """A small mixed-type schema exercising every stored type (copy of
+    ``pinot_tpu.tools.datagen.make_test_schema``)."""
+    dims = [
+        FieldSpec("dimStr", DataType.STRING, FieldType.DIMENSION),
+        FieldSpec("dimInt", DataType.INT, FieldType.DIMENSION),
+        FieldSpec("dimLong", DataType.LONG, FieldType.DIMENSION),
+    ]
+    if with_mv:
+        dims.append(FieldSpec("dimStrMV", DataType.STRING_ARRAY, FieldType.DIMENSION, single_value=False))
+        dims.append(FieldSpec("dimIntMV", DataType.INT_ARRAY, FieldType.DIMENSION, single_value=False))
+    metrics = [
+        FieldSpec("metInt", DataType.INT, FieldType.METRIC),
+        FieldSpec("metFloat", DataType.FLOAT, FieldType.METRIC),
+        FieldSpec("metDouble", DataType.DOUBLE, FieldType.METRIC),
+    ]
+    time_field = TimeFieldSpec("daysSinceEpoch", DataType.INT, time_unit="DAYS")
+    return Schema("testTable", dimensions=dims, metrics=metrics, time_field=time_field)
+
+
+def _value_pool(rng, stored: DataType, cardinality: int):
+    """``cardinality`` pool values of a stored type, drawn as the reference's
+    ``random_rows`` draws them: lowercase strings of 3 to 8 letters, ints in
+    [0, 10000], floats in [-100, 100) rounded to 3 places (FLOAT through
+    float32, as it is stored)."""
+    if stored == DataType.STRING:
+        letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+        lengths = rng.integers(3, 9, size=cardinality)
+        chars = letters[rng.integers(0, 26, size=int(lengths.sum()))]
+        ends = np.cumsum(lengths)
+        return np.array(["".join(chars[e - n : e]) for e, n in zip(ends, lengths)], dtype=object)
+    if stored in (DataType.INT, DataType.LONG):
+        return rng.integers(0, 10_001, size=cardinality, dtype=np.int64)
+    vals = np.round(rng.uniform(-100.0, 100.0, size=cardinality), 3)
+    return vals.astype(np.float32).astype(np.float64) if stored == DataType.FLOAT else vals
+
+
+def _dictionary_of(pool, stored: DataType, drawn: np.ndarray):
+    """(dictionary of the pool values present in ``drawn``, dictId per draw)."""
+    values, pool_ids = np.unique(pool, return_inverse=True)
+    ids = pool_ids.reshape(-1)[drawn]
+    hit = np.bincount(ids, minlength=values.size) > 0
+    rank = (np.cumsum(hit) - 1).astype(np.int32)
+    vals = values[hit]
+    d = Dictionary(stored, list(vals) if stored == DataType.STRING else vals)
+    return d, rank[ids]
+
+
+def synthetic_mv_segment(
+    num_rows: int,
+    seed: int = 7,
+    name: str = "mv0",
+    cardinality: int = 20,
+    mv_max: int = 3,
+) -> ImmutableSegment:
+    """A ``make_test_schema()`` segment drawn column by column with numpy:
+    one fixed pool of ``cardinality`` values per column, the same for
+    every ``seed`` (the segments of one table share their pools, as one
+    ``random_rows`` call's rows do); a single-value column draws each row
+    uniformly from its pool, a multi-value column draws 1..``mv_max``
+    entries a row (duplicates within a row kept), each uniformly from its
+    pool, from ``seed``.  Dictionaries hold the values present."""
+    pools = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
+    schema = make_test_schema()
+    columns = {}
+    for spec in schema.all_fields():
+        st = spec.stored_type
+        pool = _value_pool(pools, st, cardinality)
+        if spec.single_value:
+            d, fwd = _dictionary_of(pool, st, rng.integers(0, cardinality, size=num_rows))
+            mv_values = mv_offsets = None
+            entries, max_mv, is_sorted = num_rows, 0, bool(num_rows == 0 or np.all(fwd[1:] >= fwd[:-1]))
+        else:
+            counts = rng.integers(1, mv_max + 1, size=num_rows)
+            d, mv_values = _dictionary_of(pool, st, rng.integers(0, cardinality, size=int(counts.sum())))
+            fwd = None
+            mv_offsets = np.zeros(num_rows + 1, dtype=np.int32)
+            np.cumsum(counts, out=mv_offsets[1:])
+            entries, max_mv, is_sorted = int(counts.sum()), int(counts.max(initial=0)), False
+        columns[spec.name] = ColumnData(
+            metadata=ColumnMetadata(
+                name=spec.name,
+                data_type=spec.data_type,
+                field_type=spec.field_type,
+                single_value=spec.single_value,
+                cardinality=d.cardinality,
+                total_docs=num_rows,
+                is_sorted=is_sorted,
+                max_num_multi_values=max_mv,
+                total_number_of_entries=entries,
+                min_value=d.min_value,
+                max_value=d.max_value,
+            ),
+            dictionary=d,
+            fwd=fwd,
+            mv_values=mv_values,
+            mv_offsets=mv_offsets,
+        )
+    smeta = SegmentMetadata(
+        segment_name=name,
+        table_name=schema.schema_name,
+        num_docs=num_rows,
+        columns={c.metadata.name: c.metadata for c in columns.values()},
+        time_column="daysSinceEpoch",
+    )
+    smeta.crc = hash((name, num_rows, seed)) & 0xFFFFFFFF
+    return ImmutableSegment(metadata=smeta, columns=columns)
+
 
 _SHIP_MODES = ["RAIL", "FOB", "MAIL", "SHIP", "TRUCK", "AIR", "REG AIR"]
 _RETURN_FLAGS = ["R", "A", "N"]

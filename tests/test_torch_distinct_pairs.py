@@ -224,24 +224,40 @@ def test_grouped_pairs_take_the_torch_op_route_with_k1(monkeypatch, shrink):
     assert port_kernel.fused_dispatches == 0 and port_kernel.fused_value_dispatches == 1
 
 
-def test_pair_overflow_raises_for_the_host_tier(shrink):
-    """More unique pairs than the device buffer returns: the reference
-    finishes on its host tier, the port raises before any finalize."""
+def _host_payloads(table, pql):
+    """(port payload, reference payload, port result) of one query."""
+    ref_req = ref_optimize(ref_parse(pql))
+    want = canonical_payload(ref_req, RefExecutor().execute(SEGMENTS[table], ref_req))
+    req = optimize_request(parse_pql(pql))
+    res = QueryExecutor(device="cpu").execute(PORT[table], req)
+    return strip_accounting(reduce_to_response(req, [res]).to_json()), want, res
+
+
+def test_pair_overflow_raises_for_the_host_tier(shrink, monkeypatch):
+    """More unique pairs than the device buffer returns: after the device
+    run (K1 launched, the pair reduce counted the pairs) the host tier
+    finishes exactly, in both packages, with equal answers."""
     shrink("MAX_VALUE_STATE", 1 << 10)
     shrink("DISTINCT_PAIR_CAP", 64)
     pql = ("SELECT distinctcount(l_extendedprice) FROM lineitem WHERE l_shipdate > '1993-01-01' "
            "GROUP BY l_returnflag TOP 10")
     ref_plan, plan = _plans("lineitem", pql)
     assert plan.on_device and ref_plan.on_device
-    req = optimize_request(parse_pql(pql))
-    with pytest.raises(NotImplementedError, match="overflow the device pair buffer.*host tier"):
-        QueryExecutor(device="cpu").execute(PORT["lineitem"], req)
+    reduced = []
+    real = port_kernel._reduce_distinct_pairs
+    monkeypatch.setattr(port_kernel, "_reduce_distinct_pairs", lambda v: reduced.append(real(v)) or reduced[-1])
+    got, want, res = _host_payloads("lineitem", pql)
+    assert got == want, (got, want)
+    (out,) = reduced
+    assert int(out[3]) > config.DISTINCT_PAIR_CAP
+    assert res._served_tier == "host" and res.cost["segmentsHost"] == 3 and "hostMs" in res.cost
 
 
 def test_forced_host_raises_before_staging(shrink):
     """No filter and more global values than the pair buffer: every value
     lands in a pair, so the plan leaves the device in both packages, and
-    the port raises before it stages anything."""
+    the port's host tier answers before it stages anything, as the
+    reference's does."""
     shrink("MAX_VALUE_STATE", 1 << 10)
     shrink("DISTINCT_PAIR_CAP", 64)
     pql = "SELECT distinctcount(l_extendedprice) FROM lineitem GROUP BY l_returnflag TOP 10"
@@ -252,6 +268,8 @@ def test_forced_host_raises_before_staging(shrink):
     req = optimize_request(parse_pql(pql))
     assert plan_forced_host(req, TableContext(PORT["lineitem"]), config.Precision("x64"))
     ex = QueryExecutor(device="cpu")
-    with pytest.raises(NotImplementedError, match="host tier"):
-        ex.execute(PORT["lineitem"], req)
+    res = ex.execute(PORT["lineitem"], req)
     assert ex.staged_bytes() == 0 and not ex._staged
+    assert res._served_tier == "host"
+    got, want, _ = _host_payloads("lineitem", pql)
+    assert got == want, (got, want)

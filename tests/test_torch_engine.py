@@ -205,7 +205,7 @@ def test_empty_segment_is_pruned():
 @pytest.mark.parametrize(
     "pql",
     [
-        # group spaces past the dense holder: the host tier
+        # group spaces past the dense holder: the host tier (and a one-entry MV)
         "SELECT count(*) FROM lineitem GROUP BY l_extendedprice, l_shipdate",
         "SELECT distinctcountmv(l_shipmode) FROM lineitem",
         "SELECT distinctcount(l_receiptdate) FROM lineitem GROUP BY l_extendedprice, l_shipdate",
@@ -213,9 +213,27 @@ def test_empty_segment_is_pruned():
     ],
 )
 def test_shapes_outside_the_slice_raise(pql):
-    req = optimize_request(parse_pql(pql))
-    with pytest.raises(NotImplementedError):
-        QueryExecutor(device="cpu").execute(_port(SYNTHETIC), req)
+    """Shapes outside the device's dense path answer as the reference
+    does: group spaces past the dense holder from the host tier, before
+    anything is staged; an ``…mv``
+    function over a single-value column on the device, planned as its SV
+    function (each row a one-entry MV), where the reference reaches its
+    host tier through its device section."""
+    got, want = _compare(pql, SYNTHETIC)
+    assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (got, want)
+    ex = QueryExecutor(device="cpu")
+    res = ex.execute(_port(SYNTHETIC), optimize_request(parse_pql(pql)))
+    host = "GROUP BY" in pql
+    assert res._served_tier == ("host" if host else "device")
+    assert bool(res.cost.get("segmentsHost")) == host
+    assert (ex.staged_bytes() == 0) == host
+
+
+def test_joins_raise():
+    """Joins are the one query shape the port does not run yet."""
+    pql = "SELECT sum(f.l_quantity) FROM lineitem f JOIN shipmodes d ON f.l_shipmode = d.mode"
+    with pytest.raises(NotImplementedError, match="joins"):
+        QueryExecutor(device="cpu").execute(_port(SYNTHETIC), optimize_request(parse_pql(pql)))
 
 
 @pytest.mark.parametrize("seed,rows", [(7, 1000), (11, 4096), (23, 0)])

@@ -401,9 +401,14 @@ def test_grouped_hll_routes_match_reference(route, reference_k2):
     ],
 )
 def test_shapes_of_later_slices_raise(pql):
-    req = optimize_request(parse_pql(pql))
-    with pytest.raises(NotImplementedError):
-        QueryExecutor(device="cpu").execute(PORT_LINEITEM, req)
+    """Value states outside the device's dense path answer exactly as the
+    reference does: group
+    spaces past the dense holder from the host tier, an ``…mv`` function
+    over a single-value column on the device as its SV function."""
+    got, want = _payloads(pql, LINEITEM, PORT_LINEITEM)
+    assert got == want, (got, want)
+    res = QueryExecutor(device="cpu").execute(PORT_LINEITEM, optimize_request(parse_pql(pql)))
+    assert res._served_tier == ("host" if "GROUP BY" in pql else "device")
 
 
 @pytest.mark.parametrize(
@@ -419,7 +424,8 @@ def test_plan_forced_host_matches_reference(pql, monkeypatch):
     """The pre-staging host decision for value states, with the caps
     shrunk in both packages so the small segments cross them: a
     no-filter presence/hist agg past the device pair buffer needs the
-    host tier, and the port raises before staging."""
+    host tier, which the port takes before staging anything, with the
+    reference's answer."""
     from pinot_tpu.engine import config as ref_config
     from pinot_tpu.engine.context import TableContext as RefContext
     from pinot_tpu.engine.plan import plan_forced_host as ref_forced
@@ -434,8 +440,11 @@ def test_plan_forced_host_matches_reference(pql, monkeypatch):
     req = optimize_request(parse_pql(pql))
     assert plan_forced_host(req, TableContext(PORT_LINEITEM), config.Precision("x64")) == want
     if want:
-        with pytest.raises(NotImplementedError, match="host"):
-            QueryExecutor(device="cpu").execute(PORT_LINEITEM, req)
+        ex = QueryExecutor(device="cpu")
+        res = ex.execute(PORT_LINEITEM, req)
+        assert res._served_tier == "host" and ex.staged_bytes() == 0
+        got, want_payload = _payloads(pql, LINEITEM, PORT_LINEITEM)
+        assert got == want_payload, (got, want_payload)
 
 
 # ---------------------------------------------------------------------------
