@@ -29,6 +29,17 @@ QueryExecutor.execute -> reduce_to_response on one card:
      flattened entries), against exact and float64 oracles over the CSR
      arrays, with K1 and K2 at those launch shapes against their plain
      versions and their bounds;
+  9. serving: the lineitem table split over two port ServerInstances (8
+     segments each, each server's launches on its own device lane and
+     CUDA stream) behind the port's broker over TCP on localhost: q1, q3,
+     hll_groupby, distinct_price, sel_top and pairs_distinct against the
+     same oracles, broker p50 / p99 over 50 requests each with the
+     servers' queue / lane-wait / finalize split and the DataTable bytes
+     per reply; 8 concurrent identical q1s (byte-identical answers, the
+     lanes coalesce) and 8 concurrent q1s at distinct literals (each
+     against its own oracle); then on a reduced table (2 segments of 2^20
+     rows) a device fault injector's transient (one device retry),
+     poisoned plan and stalled launch (the host tier answers);
 
 every earlier query served by the device (no segmentsHost in its cost);
 and times the queries (with their host finalize and the bytes of the one
@@ -50,6 +61,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from typing import Any, Dict, List, Tuple
 
@@ -145,6 +157,23 @@ MV_QUERIES = {
     # K2 grouped over the flattened entries
     "mv_grouped_state": "SELECT distinctcountmv(dimIntMV) FROM testTable GROUP BY dimStr TOP 10",
 }
+# 9. serving: the lineitem table split over two servers (8 segments each)
+# behind the port's broker over TCP on localhost; 8 concurrent clients send
+# the same q1, then q1 at eight distinct l_shipdate literals; the failover
+# checks run on a reduced table (2 segments of 2^20 rows) so the host tier
+# answers in seconds
+SERVE_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price", "sel_top", "pairs_distinct")
+SERVE_ITERS = 50  # timed broker requests per query, after warm-up
+SERVE_WARMUP = 3
+SERVE_CLIENTS = 8
+SERVE_BURSTS = 10  # at most this many bursts of identical q1s until one coalesces
+SERVE_DISTINCT_ROUNDS = 3
+SERVE_DATES = ("1992-06-15", "1993-03-01", "1993-11-20", "1994-08-08",
+               "1995-05-05", "1996-02-14", "1996-10-31", "1997-07-04")
+FAILOVER_SEGMENTS = 2
+FAILOVER_ROWS = 1 << 20
+FAILOVER_STALL_S = 3.0
+FAILOVER_STALL_TIMEOUT_S = 1.0
 # bench.py:1138-1143, the JAX package's on-chip configuration: 134,217,728 rows
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
@@ -1090,6 +1119,35 @@ def pair_oracle(hll_mod, segments, name: str) -> Tuple[Dict[Tuple[str, ...], Any
     raise ValueError(name)
 
 
+def served_distinct_oracle(covers: List[list], top_n: int = 10) -> Dict[Tuple[str, ...], int]:
+    """pairs_distinct as the broker answers it over servers that each trim
+    their candidate groups first (``results.trim_group_candidates``, the
+    reference's per-server topN*5 trim, MCombineGroupByOperator.java:216):
+    a server keeps the groups whose local distinct count reaches its
+    max(5 top_n, 100)-th largest, and a group's answer is the size of the
+    union of the value sets of the servers that kept it."""
+    segments = [s for cover in covers for s in cover]
+    dates, date_ids = _global_ids([s.column("l_shipdate") for s in segments])
+    prices, price_ids = _global_ids([s.column("l_extendedprice") for s in segments])
+    trim = max(top_n * 5, 100)
+    kept, i = [], 0
+    for cover in covers:
+        keys = []
+        for seg in cover:
+            q = seg.column("l_quantity")
+            rows = (np.asarray(q.dictionary.values) == 1.0)[q.fwd]
+            keys.append(date_ids[i][seg.column("l_shipdate").fwd[rows]] * prices.size
+                        + price_ids[i][seg.column("l_extendedprice").fwd[rows]])
+            i += 1
+        uniq = np.unique(np.concatenate(keys))
+        counts = np.bincount(uniq // prices.size, minlength=dates.size)
+        present = counts[counts > 0]
+        boundary = np.sort(present)[-trim] if present.size > trim else 1
+        kept.append(uniq[counts[uniq // prices.size] >= boundary])
+    counts = np.bincount(np.unique(np.concatenate(kept)) // prices.size, minlength=dates.size)
+    return {(str(dates[g]),): int(c) for g, c in enumerate(counts) if c}
+
+
 def check_value_response(resp, want: Dict[Tuple[str, ...], Any], top_n: int = 10) -> None:
     """The one aggregation's answer equals the oracle exactly: the value
     when ungrouped, else the top_n groups in the broker's order (value
@@ -1336,6 +1394,343 @@ def _capture(module, name: str, into: dict, key: str):
     return real
 
 
+class CountingTransport:
+    """A transport that records the DataTable bytes of every reply."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.reply_bytes: List[int] = []
+        self._lock = threading.Lock()
+
+    def request(self, address, payload: bytes, timeout: float = 15.0) -> bytes:
+        reply = self.inner.request(address, payload, timeout=timeout)
+        with self._lock:
+            self.reply_bytes.append(len(reply))
+        return reply
+
+
+def q1_at(date: str) -> str:
+    return Q1.replace("'1998-09-02'", f"'{date}'")
+
+
+def q1_oracles(segments, dates) -> Dict[str, dict]:
+    """``oracle(segments, "q1")`` at each l_shipdate literal in ``dates``,
+    from one pass over the rows: the counts and float64 sums by (group,
+    l_shipdate id), then summed over the ids at or below each date."""
+    acc: Dict[str, dict] = {d: {} for d in dates}
+    sums_of = ("l_quantity", "l_extendedprice", "l_discount")
+    for seg in segments:
+        ship = seg.column("l_shipdate")
+        card = len(ship.dictionary.values)
+        rf, rfl = _labels(seg, "l_returnflag")
+        ls, lsl = _labels(seg, "l_linestatus")
+        keys = (rf.astype(np.int64) * len(lsl) + ls) * card + ship.fwd
+        n = len(rfl) * len(lsl) * card
+        cnt = np.bincount(keys, minlength=n).reshape(-1, card)
+        sums = {}
+        for col in sums_of:
+            c = seg.column(col)
+            v = np.asarray(c.dictionary.values, dtype=np.float64)[c.fwd]
+            sums[f"sum_{col}"] = np.bincount(keys, weights=v, minlength=n).reshape(-1, card)
+        labels = [(a, b) for a in rfl for b in lsl]
+        for d in dates:
+            ok = np.array([v <= d for v in ship.dictionary.values])
+            for i, lab in enumerate(labels):
+                c_ = int(cnt[i, ok].sum())
+                if not c_:
+                    continue
+                e = acc[d].setdefault(lab, {"count": 0, **{k: 0.0 for k in sums}})
+                e["count"] += c_
+                for k in sums:
+                    e[k] += float(sums[k][i, ok].sum())
+    return acc
+
+
+def check_served(name: str, resp, want) -> None:
+    """A broker reply of the serving phase against the same oracle as the
+    in-process run: counts, distinct, HLL and selection exact, sums in the
+    audit band, served by the device (no segmentsHost)."""
+    if resp.exceptions:
+        raise AssertionError(f"serve {name}: {[e.to_json() for e in resp.exceptions]}")
+    if resp.cost.get("segmentsHost"):
+        raise AssertionError(f"serve {name}: served by the host tier, cost {resp.cost}")
+    if name in QUERIES:
+        check_response(resp, want)
+    elif name in VALUE_QUERIES:
+        check_value_response(resp, want)
+    elif name in SELECTION_QUERIES:
+        cols, rows = want
+        got = resp.selection_results
+        if got.columns != cols or got.rows != rows:
+            raise AssertionError(f"serve {name}: {got.columns} {got.rows} != oracle {cols} {rows}")
+    else:  # pairs_distinct: the oracle of the servers' trim (served_distinct_oracle)
+        check_value_response(resp, want)
+
+
+class _Fleet:
+    """Port servers on ``dev``, each on a TcpServer on localhost, behind a
+    port broker whose transport counts the reply bytes."""
+
+    def __init__(self, dev, cover: Dict[str, list], **server_kw) -> None:
+        from pinot_tpu_torch.broker.broker import BrokerRequestHandler
+        from pinot_tpu_torch.broker.routing import RoutingTableProvider
+        from pinot_tpu_torch.server.instance import ServerInstance
+        from pinot_tpu_torch.transport.tcp import TcpServer, TcpTransport
+
+        self.servers, self.tcp = {}, {}
+        for name, segs in cover.items():
+            server = self.servers[name] = ServerInstance(name, device=dev, precision="x32", **server_kw)
+            for seg in segs:
+                server.add_segment("lineitem", seg)
+            self.tcp[name] = TcpServer(server.handle_request)
+            self.tcp[name].start()
+        routing = RoutingTableProvider()
+        routing.update("lineitem", {s.segment_name: {n: "ONLINE"} for n, segs in cover.items() for s in segs})
+        self.transport = CountingTransport(TcpTransport())
+        self.broker = BrokerRequestHandler(self.transport, {n: t.address for n, t in self.tcp.items()},
+                                           routing=routing, timeout_ms=600_000)
+
+    def timers(self, name: str, last: int) -> List[float]:
+        """The last ``last`` samples of a server phase timer, every server."""
+        out = []
+        for server in self.servers.values():
+            out += list(server.metrics.timer(name)._samples)[-last:]
+        return out
+
+    def close(self) -> None:
+        self.broker.shutdown()
+        for t in self.tcp.values():
+            t.stop()
+        for server in self.servers.values():
+            server.shutdown()
+
+
+def burst(broker, pqls: List[str]) -> list:
+    """Send ``pqls`` at once, one client thread each."""
+    out: List[Any] = [None] * len(pqls)
+    errors: List[BaseException] = []
+    gate = threading.Barrier(len(pqls))
+
+    def client(i: int) -> None:
+        try:
+            gate.wait()
+            out[i] = broker.handle_pql(pqls[i])
+        except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(pqls))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
+    """9. The same queries through two servers and the broker over TCP,
+    then concurrency, then failover on a reduced table."""
+    from pinot_tpu_torch.common.faults import DeviceFaultInjector
+    from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+
+    pqls = {**QUERIES, **VALUE_QUERIES, **SELECTION_QUERIES, **PAIR_QUERIES}
+    half = len(segments) // 2
+    covers = {"server0": segments[:half], "server1": segments[half:]}
+    # every oracle as in the in-process phases, but pairs_distinct's: each
+    # server trims its 2000 groups to its own top 100 before the broker
+    # merges them, so the served answer is that of the trim
+    wants = dict(wants)
+    exact, _, _ = wants["pairs_distinct"]
+    wants["pairs_distinct"] = served_distinct_oracle(list(covers.values()))
+    top = lambda w: sorted(w.items(), key=lambda kv: (-kv[1], kv[0]))[:10]  # noqa: E731
+    differ = [g for (g, v), (h, u) in zip(top(wants["pairs_distinct"]), top(exact)) if (g, v) != (h, u)]
+    log(f"serve pairs_distinct: the trimmed oracle's top 10 differs from the exact one in {len(differ)} "
+        f"places {top(wants['pairs_distinct'])[:3]} vs {top(exact)[:3]}")
+    fleet = _Fleet(dev, covers)
+    rec = record["serving"] = {"queries": {}, "pairs_distinct_top10_differs_from_exact": len(differ)}
+    try:
+        # the path: one request per query, every launch count 0 just before
+        fg.launches = 0
+        vsc.launches = 0
+        per_query = {}
+        t = time.perf_counter()
+        need = {"q1": ("k1",), "q3": ("k1",), "hll_groupby": ("k2",), "distinct_price": ("k2",),
+                "pairs_distinct": ("k1",)}
+        for name in SERVE_QUERIES:
+            k1_before, k2_before = fg.launches, vsc.launches
+            check_served(name, fleet.broker.handle_pql(pqls[name]), wants[name])
+            per_query[name] = {"k1": fg.launches - k1_before, "k2": vsc.launches - k2_before}
+            for kern in need.get(name, ()):
+                if per_query[name][kern] < 1:
+                    raise AssertionError(f"serve {name}: kernel {kern} was not launched")
+        torch.cuda.synchronize()
+        totals = {"k1": fg.launches, "k2": vsc.launches}
+        wall_s = time.perf_counter() - t
+        record["paths"]["serving"] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
+        staged = sum(s.executor.staged_bytes() for s in fleet.servers.values())
+        peak = max(record["staged_bytes_by_table"].values())
+        log(f"path serving (staging included): {wall_s:.1f} s, launches per query {per_query}, total "
+            f"{totals}; every answer equal to its oracle through 2 servers and the broker over TCP; staged "
+            f"on the card {staged} bytes over both servers (the direct executors' peak {peak})")
+        if staged > peak:
+            raise AssertionError(f"serving staged {staged} bytes, past the earlier peak {peak}")
+        rec.update(staged_bytes=staged, launches=per_query, totals=totals)
+
+        # broker-side latency over SERVE_ITERS requests after warm-up, the
+        # servers' split and the DataTable bytes of each reply
+        for name in SERVE_QUERIES:
+            for _ in range(SERVE_WARMUP):
+                check_served(name, fleet.broker.handle_pql(pqls[name]), wants[name])
+            fleet.transport.reply_bytes.clear()
+            broker_ms, client_ms = [], []
+            for _ in range(SERVE_ITERS):
+                t = time.perf_counter()
+                resp = fleet.broker.handle_pql(pqls[name])
+                client_ms.append((time.perf_counter() - t) * 1e3)
+                broker_ms.append(resp.time_used_ms)
+                if resp.exceptions or resp.cost.get("segmentsHost"):
+                    raise AssertionError(f"serve {name}: {resp.exceptions} {resp.cost}")
+            check_served(name, resp, wants[name])
+            split = {k: float(np.median(fleet.timers(f"phase.{k}", SERVE_ITERS)))
+                     for k in ("schedulerWait", "staging", "planBuild", "laneWait", "planExec", "finalize")}
+            dt_bytes = sorted(fleet.transport.reply_bytes)
+            q = dict(p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
+                     client_p50_ms=float(np.percentile(client_ms, 50)), server_ms=split,
+                     datatable_bytes_per_reply=float(np.median(dt_bytes)), replies=len(dt_bytes),
+                     direct_ms=record["query_ms"].get(name))
+            rec["queries"][name] = q
+            log(f"serve {name}: broker p50 {q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over {SERVE_ITERS} "
+                f"(client p50 {q['client_p50_ms']:.3f}; in-process median {q['direct_ms']:.3f}); server medians "
+                f"{ {k: round(v, 4) for k, v in split.items()} } ms; DataTable {q['datatable_bytes_per_reply']:.0f} "
+                f"bytes per reply (median of {len(dt_bytes)})")
+
+        # concurrency: 8 clients send the same q1 at once; the answers are
+        # byte-identical and the lanes coalesce identical dispatches
+        hits0 = sum(s.lane.coalesce_hits for s in fleet.servers.values())
+        bursts = 0
+        for bursts in range(1, SERVE_BURSTS + 1):
+            out = burst(fleet.broker, [Q1] * SERVE_CLIENTS)
+            answers = {json.dumps([a.to_json() for a in r.aggregation_results]) for r in out}
+            if len(answers) != 1 or any(r.exceptions or r.cost.get("segmentsHost") for r in out):
+                raise AssertionError(f"serve concurrent q1: {len(answers)} distinct answers")
+            check_response(out[0], wants["q1"])
+            hits = sum(s.lane.coalesce_hits for s in fleet.servers.values()) - hits0
+            if hits > 0:
+                break
+        if hits <= 0:
+            raise AssertionError(f"serve concurrent q1: no coalesced dispatch in {bursts} bursts")
+        log(f"serve concurrent q1: {SERVE_CLIENTS} clients at once, answers byte-identical, lane.coalesced "
+            f"{hits} over the two servers after {bursts} burst(s)")
+        rec["coalesced"] = {"hits": hits, "bursts": bursts, "clients": SERVE_CLIENTS}
+
+        # 8 clients at once, each with its own l_shipdate literal, each held
+        # to its own oracle (stream and allocator races show here)
+        t = time.perf_counter()
+        want_at = q1_oracles(segments, SERVE_DATES)
+        log(f"serve distinct q1 oracles: {len(SERVE_DATES)} dates in {time.perf_counter() - t:.1f} s")
+        worst = 0.0
+        for _ in range(SERVE_DISTINCT_ROUNDS):
+            out = burst(fleet.broker, [q1_at(d) for d in SERVE_DATES])
+            for d, resp in zip(SERVE_DATES, out):
+                if resp.exceptions or resp.cost.get("segmentsHost"):
+                    raise AssertionError(f"serve q1 <= {d}: {resp.exceptions} {resp.cost}")
+                worst = max(worst, check_response(resp, want_at[d]))
+        log(f"serve concurrent distinct q1: {SERVE_DISTINCT_ROUNDS} rounds of {len(SERVE_DATES)} clients at "
+            f"once, each equal to its own oracle (max rel sum err {worst:.3g})")
+        rec["distinct"] = {"rounds": SERVE_DISTINCT_ROUNDS, "clients": len(SERVE_DATES), "max_rel_err": worst}
+        rec["lanes"] = {n: s.lane.stats() for n, s in fleet.servers.items()}
+        rec["heal"] = {n: s.executor.healing_stats() for n, s in fleet.servers.items()}
+        if any(h["hostFailovers"] or h["deviceFailures"] for h in rec["heal"].values()):
+            raise AssertionError(f"serve: a device error in the serving phase {rec['heal']}")
+    finally:
+        fleet.close()
+    for server in fleet.servers.values():
+        server.executor.free_staging()
+    del fleet
+    torch.cuda.empty_cache()
+
+    # q1 through one server that holds all the segments: one server a
+    # process, as a deployment runs it (the two servers above share one
+    # interpreter, and their lane threads its lock)
+    fleet = _Fleet(dev, {"server0": segments})
+    server = fleet.servers["server0"]
+    try:
+        for _ in range(SERVE_WARMUP):
+            check_served("q1", fleet.broker.handle_pql(pqls["q1"]), wants["q1"])
+        broker_ms = []
+        for _ in range(SERVE_ITERS):
+            resp = fleet.broker.handle_pql(pqls["q1"])
+            broker_ms.append(resp.time_used_ms)
+            if resp.exceptions or resp.cost.get("segmentsHost"):
+                raise AssertionError(f"serve one server q1: {resp.exceptions} {resp.cost}")
+        check_served("q1", resp, wants["q1"])
+        heal = server.executor.healing_stats()
+        if heal["hostFailovers"] or heal["deviceFailures"]:
+            raise AssertionError(f"serve one server: a device error {heal}")
+        split = {k: float(np.median(fleet.timers(f"phase.{k}", SERVE_ITERS)))
+                 for k in ("schedulerWait", "planBuild", "laneWait", "laneDispatch", "planExec", "finalize")}
+        one = rec["one_server"] = dict(p50_ms=float(np.percentile(broker_ms, 50)),
+                                       p99_ms=float(np.percentile(broker_ms, 99)), server_ms=split)
+        log(f"serve one server q1 (all {len(segments)} segments): broker p50 {one['p50_ms']:.3f} ms, p99 "
+            f"{one['p99_ms']:.3f} ms over {SERVE_ITERS}; server medians "
+            f"{ {k: round(v, 4) for k, v in split.items()} } ms")
+    finally:
+        fleet.close()
+        server.executor.free_staging()
+        del fleet, server
+        torch.cuda.empty_cache()
+
+    # failover on a reduced table, through one server with a fault injector
+    small = [synthetic_lineitem_segment(FAILOVER_ROWS, seed=101 + i, name=f"fo{i}")
+             for i in range(FAILOVER_SEGMENTS)]
+    want = oracle(small, "q1")
+    inj = DeviceFaultInjector()
+    fleet = _Fleet(dev, {"failover": small}, lane_stall_timeout_s=FAILOVER_STALL_TIMEOUT_S,
+                   device_fault_injector=inj)
+    server = fleet.servers["failover"]
+    rec["failover"] = {}
+
+    def ask(label: str, host: bool) -> None:
+        t = time.perf_counter()
+        resp = fleet.broker.handle_pql(Q1)
+        wall = (time.perf_counter() - t) * 1e3
+        if resp.exceptions:
+            raise AssertionError(f"failover {label}: {[e.to_json() for e in resp.exceptions]}")
+        check_response(resp, want)
+        if bool(resp.cost.get("segmentsHost")) != host:
+            raise AssertionError(f"failover {label}: served by the wrong tier, cost {resp.cost}")
+        heal = server.executor.healing_stats()
+        rec["failover"][label] = {"ms": wall, "broker_ms": resp.time_used_ms, "cost": dict(resp.cost),
+                                  "heal": heal, "restarts": server.lane.restart_count}
+        log(f"failover {label}: {wall:.3f} ms, oracle ok, tier {'host' if host else 'device'}, "
+            f"segmentsHost {resp.cost.get('segmentsHost', 0)}, heal {heal}, lane restarts "
+            f"{server.lane.restart_count}")
+
+    try:
+        ask("warm", host=False)
+        inj.fail_next(1, retryable=True)
+        ask("transient", host=False)
+        if server.executor.healing_stats()["deviceRetries"] != 1:
+            raise AssertionError("failover transient: no device retry")
+        inj.poison_plan(inj.launches[-1].digest)
+        ask("poison", host=True)
+        if server.executor.healing_stats()["hostFailovers"] != 1:
+            raise AssertionError("failover poison: hostFailovers not marked")
+        inj.heal()
+        server.executor.clear_poisoned()
+        ask("healed", host=False)
+        inj.stall_next(1, FAILOVER_STALL_S)
+        ask("stall", host=True)
+        if server.lane.restart_count != 1:
+            raise AssertionError("failover stall: the lane did not restart")
+        time.sleep(FAILOVER_STALL_S)  # the wedged launch returns and is discarded
+    finally:
+        fleet.close()
+        server.executor.free_staging()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -1384,9 +1779,7 @@ def run(dev: torch.device, opts) -> int:
 
     # 1. build every kernel: one nvcc per source, all started together
     t0 = time.perf_counter()
-    kernels.build(kernels.KERNELS)
-    for name in kernels.KERNELS:
-        kernels.load(name)
+    kernels.load_all()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s for {', '.join(kernels.KERNELS)}")
     for name, text in kernels.build_logs.items():
@@ -1511,8 +1904,10 @@ def run(dev: torch.device, opts) -> int:
     if kernel_mod.fused_dispatches != len(QUERIES):
         raise AssertionError(f"{kernel_mod.fused_dispatches} fused dispatches for {len(QUERIES)} queries")
     record["oracle_max_rel_err"] = {}
+    wants = {}  # the host oracles, kept for the serving phase
     for name in QUERIES:
-        worst = check_response(responses[name], oracle(segments, name))
+        wants[name] = oracle(segments, name)
+        worst = check_response(responses[name], wants[name])
         log(f"oracle {name}: ok (max rel sum err {worst:.3g})")
         record["oracle_max_rel_err"][name] = worst
 
@@ -1533,7 +1928,8 @@ def run(dev: torch.device, opts) -> int:
         raise AssertionError(f"{kernel_mod.fused_value_dispatches} fused value dispatches for "
                              f"{len(VALUE_QUERIES)} queries")
     for name in VALUE_QUERIES:
-        check_value_response(value_responses[name], value_oracle(hll_mod, segments, name))
+        wants[name] = value_oracle(hll_mod, segments, name)
+        check_value_response(value_responses[name], wants[name])
         log(f"oracle {name}: ok, exact ({value_responses[name].aggregation_results[0].to_json()})"[:400])
 
     # 3c. the torch-op route: group sums through K1 over the mask, twice
@@ -1576,7 +1972,7 @@ def run(dev: torch.device, opts) -> int:
     if kernel_mod.fused_dispatches or kernel_mod.fused_value_dispatches:
         raise AssertionError("selection: a query took a fused route")
     for name in SELECTION_QUERIES:
-        cols, rows = selection_oracle(segments, name)
+        cols, rows = wants[name] = selection_oracle(segments, name)
         got = selected[name].selection_results
         if got.columns != cols or got.rows != rows:
             raise AssertionError(f"{name}: {got.columns} {got.rows} != oracle {cols} {rows}")
@@ -1608,7 +2004,7 @@ def run(dev: torch.device, opts) -> int:
         kernel_mod._reduce_distinct_pairs = real_reduce
     record["pairs_unique"] = {}
     for (name, resp), (n_unique, kept) in zip(paired.items(), pair_stats):
-        want, want_unique, want_kept = pair_oracle(hll_mod, segs_of(name), name)
+        want, want_unique, want_kept = wants[name] = pair_oracle(hll_mod, segs_of(name), name)
         check_value_response(resp, want)
         if (n_unique, kept) != (want_unique, want_kept):
             raise AssertionError(f"{name}: {n_unique} unique of {kept} kept pairs, oracle "
@@ -1625,7 +2021,7 @@ def run(dev: torch.device, opts) -> int:
     all_requests = {**requests, **value_requests, "torch_op": torch_op_request,
                     "north_star": ns_request, **sel_requests, **pair_requests}
     host = {"finalize": [], "reduce": [], "d2h": 0}
-    real_finalize, real_fetch = ex._finalize, packing.fetch_packed
+    real_finalize, real_dispatch = ex._finalize, packing.dispatch_packed
 
     def timed_finalize(*a, **k):
         t = time.perf_counter()
@@ -1633,11 +2029,10 @@ def run(dev: torch.device, opts) -> int:
         host["finalize"].append(time.perf_counter() - t)
         return out
 
-    def measured_fetch(outs):
-        leaves = []
-        packing._flatten(outs, leaves)
-        host["d2h"] = sum(-(-x.numel() * x.element_size() // 8) * 8 for x in leaves)
-        return real_fetch(outs)
+    def measured_dispatch(outs):
+        handle = real_dispatch(outs)
+        host["d2h"] = handle.nbytes
+        return handle
 
     def timed_query(req, segs):
         def fn():
@@ -1648,7 +2043,7 @@ def run(dev: torch.device, opts) -> int:
         return fn
 
     record["query_ms"], record["query_host"] = {}, {}
-    ex._finalize, packing.fetch_packed = timed_finalize, measured_fetch
+    ex._finalize, packing.dispatch_packed = timed_finalize, measured_dispatch
     try:
         for name, req in all_requests.items():
             host.update(finalize=[], reduce=[])
@@ -1660,7 +2055,7 @@ def run(dev: torch.device, opts) -> int:
             record["query_ms"][name] = ms
             record["query_host"][name] = {"finalize_ms": fin_ms, "reduce_ms": red_ms, "d2h_bytes": host["d2h"]}
     finally:
-        ex._finalize, packing.fetch_packed = real_finalize, real_fetch
+        ex._finalize, packing.dispatch_packed = real_finalize, real_dispatch
     if opts.profile:
         record["profile"] = {}
         for name, req in all_requests.items():
@@ -1980,6 +2375,14 @@ def run(dev: torch.device, opts) -> int:
                                          shape=list(args["values"].shape), tiers=tiers, max_abs_err=0.0)
             del args, rest, kw
         torch.cuda.empty_cache()
+
+    # 9. serving: the direct executors' tables are freed first, so the card
+    # never holds two copies
+    mv_ex.free_staging()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_phase(dev, segments, wants, record, fg, vsc)
+    log(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():

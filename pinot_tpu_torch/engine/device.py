@@ -323,6 +323,11 @@ def _leaves(tree, out):
     return out
 
 
+def tree_leaves(tree: Any) -> list:
+    """The leaves of a nested dict / list / tuple tree, in order."""
+    return _leaves(tree, [])
+
+
 def _rebuild(tree, it):
     if isinstance(tree, dict):
         return {k: _rebuild(v, it) for k, v in tree.items()}

@@ -12,11 +12,29 @@ sends there, on the same three shape conditions: a plan that
 that is not ``on_device``, and a pair overflow after the device run (the
 host finishes exactly).  Each result carries ``_served_tier`` ("host" or
 "device"), and its cost says which tier served it (``segmentsHost`` /
-``segmentsFullScan``).  Nothing reroutes a failed device run.  Joins
-raise ``NotImplementedError``: they are a later slice of the port.
+``segmentsFullScan``).  Joins raise ``NotImplementedError``: they are a
+later slice of the port.
+
+SELF-HEALING (the reference's ladder, around the launch and the fetch):
+a device fault (``dispatch.is_device_fault``: a typed
+``DeviceExecutionError`` from the lane's watchdog or the fault injector,
+a CUDA allocation failure, a sticky CUDA fault) is classified; a
+transient gets one more device attempt, a poison quarantines the (plan
+digest, segment set) and fails over to the host tier
+(``heal.hostFailovers``), a stall goes straight to the host, and a
+sticky fault takes the device off for good.  An OOM retries once with no
+demotion (residency, which would demote cold tables first, is a later
+slice) and then fails over, never poisoning the plan.  Everything else
+propagates: a failed kernel build, a wrapper's own launch error, or an
+error in staging, planning or finalize is the program's fault, never
+answered by the host tier.  On a CUDA device the constructor builds and
+loads both kernels, so a failed build raises there, not in a query.
 """
 from __future__ import annotations
 
+import hashlib
+import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -33,8 +51,19 @@ from pinot_tpu_torch.engine.device import (
     get_staged,
     segment_arrays,
     to_device_inputs,
+    tree_leaves,
+)
+from pinot_tpu_torch.engine.dispatch import (
+    DeviceExecutionError,
+    LaneClosedError,
+    classify_device_error,
+    is_device_fault,
+    plan_digest,
+    ready_event,
+    stream_handoff,
 )
 from pinot_tpu_torch.engine import hll as hll_mod
+from pinot_tpu_torch.engine import kernels
 from pinot_tpu_torch.engine.host_fallback import execute_host
 from pinot_tpu_torch.engine.kernel import run_table_kernel
 from pinot_tpu_torch.engine.packing import make_packed_kernel
@@ -63,7 +92,10 @@ from pinot_tpu_torch.engine.results import (
     trim_group_candidates,
 )
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.server.scheduler import QueryAbandonedError
+from pinot_tpu_torch.utils.metrics import ServerMetrics
 from pinot_tpu_torch.utils.npgroup import scatter_max_2d
+from pinot_tpu_torch.utils.trace import current_trace
 
 
 def _regs_from_value_gids(
@@ -179,32 +211,147 @@ def check_supported(request: BrokerRequest) -> None:
         raise NotImplementedError("joins are a later slice of the port")
 
 
+# how long a quarantined (plan digest, segment set) stays off the device: a
+# plan poisoned by a transient burst is re-admitted after it
+POISON_TTL_S = 300.0
+
+
+def _inputs_digest(inputs: Any) -> str:
+    """Content digest of the numpy query-inputs tree: the lane's coalesce
+    key.  Each leaf is length-prefixed so adjacent contributions cannot
+    re-split into the same byte stream."""
+    h = hashlib.blake2b(digest_size=16)
+    for leaf in tree_leaves(inputs):
+        if isinstance(leaf, np.ndarray):
+            part = str((leaf.shape, str(leaf.dtype))).encode() + leaf.tobytes()
+        else:
+            part = repr(leaf).encode()
+        h.update(len(part).to_bytes(8, "little"))
+        h.update(part)
+    return h.hexdigest()
+
+
 class QueryExecutor:
     """Executes aggregation, group-by and selection queries over a set of
     immutable segments on one device.
 
     ``device``: where the segments are staged and the kernel runs; None
     means the current CUDA device, and raises when there is none.
-    ``precision``: "x64" or "x32" (``engine/config.py``)."""
+    ``precision``: "x64" or "x32" (``engine/config.py``).
+    ``metrics``: the registry for the phase timers and the ``heal.*``
+    counters (a private one when None).
+    ``lane`` / ``lanes``: the server's device lane (or its one-lane
+    ``LaneGroup``); None runs launch and fetch inline."""
+
+    _HEAL_COUNTERS = (
+        "deviceFailures",
+        "deviceRetries",
+        "hostFailovers",
+        "poisonSkips",
+        "resourceExhausted",
+        "stickyFaults",
+    )
 
     def __init__(
         self,
         device: Optional[Union[str, torch.device]] = None,
         precision: Union[str, Precision] = "x64",
+        metrics=None,
+        lane=None,
+        lanes=None,
     ) -> None:
         self.device = config.resolve_device(device)
+        if self.device.type == "cuda":
+            kernels.load_all()
         self.precision = config.as_precision(precision)
+        self.lanes = lanes
+        if lanes is not None and lane is None:
+            lane = lanes.primary
+        self.lane = lane
+        self.metrics = metrics if metrics is not None else ServerMetrics("executor")
+        for name in self._HEAL_COUNTERS:
+            self.metrics.meter(f"heal.{name}")
         self._staged: Dict[Tuple, StagedTable] = {}
         self._contexts: Dict[Tuple, TableContext] = {}
+        # staging and the table contexts are shared by the scheduler's
+        # workers: one lock, so a table is staged once
+        self._stage_lock = threading.Lock()
         self._kernel = make_packed_kernel(run_table_kernel)
+        self._heal_lock = threading.Lock()
+        # poison key -> (reason, expiry monotonic seconds)
+        self._poisoned: Dict[Any, Tuple[str, float]] = {}
+        # the sticky CUDA fault that took the device off, if any
+        self._sticky: Optional[DeviceExecutionError] = None
 
     def staged_bytes(self) -> int:
         """Bytes the staging cache holds on the device."""
-        return sum(st.nbytes() for st in self._staged.values())
+        with self._stage_lock:
+            return sum(st.nbytes() for st in self._staged.values())
+
+    def free_staging(self) -> None:
+        """Drop every staged table (the caller frees the cached memory)."""
+        with self._stage_lock:
+            self._staged.clear()
+            self._contexts.clear()
+
+    # -- self-healing bookkeeping --------------------------------------
+    def _heal_mark(self, name: str, **tags) -> None:
+        self.metrics.meter(f"heal.{name}").mark()
+        tr = current_trace()
+        if tr is not None and tr.enabled:
+            tr.event(name, **tags)
+
+    def healing_stats(self) -> Dict[str, int]:
+        now = time.monotonic()
+        stats = {name: self.metrics.meter(f"heal.{name}").count for name in self._HEAL_COUNTERS}
+        with self._heal_lock:
+            stats["poisonedPlans"] = sum(1 for _, exp in self._poisoned.values() if now < exp)
+        stats["deviceOff"] = self._sticky is not None
+        return stats
+
+    def _is_poisoned(self, key: Any) -> bool:
+        with self._heal_lock:
+            entry = self._poisoned.get(key)
+            if entry is None:
+                return False
+            if time.monotonic() >= entry[1]:
+                self._poisoned.pop(key, None)  # TTL expired: re-admit
+                return False
+            return True
+
+    def _poison(self, key: Any, reason: str) -> None:
+        expiry = time.monotonic() + POISON_TTL_S
+        with self._heal_lock:
+            self._poisoned[key] = (reason, expiry)
+            if len(self._poisoned) > 1024:  # runaway-workload backstop
+                self._poisoned.clear()
+                self._poisoned[key] = (reason, expiry)
+
+    def clear_poisoned(self) -> None:
+        """Re-admit quarantined plans to the device."""
+        with self._heal_lock:
+            self._poisoned.clear()
+
+    def _phase(self, name: str, t0: float, **tags) -> float:
+        """Record a phase timer and, when the request is traced, a span;
+        returns a fresh t0."""
+        now = time.perf_counter()
+        ms = (now - t0) * 1000
+        self.metrics.timer(f"phase.{name}").update(ms)
+        tr = current_trace()
+        if tr is not None and tr.enabled:
+            tr.add(name, ms, **tags)
+        return now
 
     def execute(
-        self, segments: Sequence[ImmutableSegment], request: BrokerRequest
+        self,
+        segments: Sequence[ImmutableSegment],
+        request: BrokerRequest,
+        deadline: Optional[float] = None,
     ) -> IntermediateResult:
+        """``deadline`` (monotonic seconds) is the broker-propagated
+        budget: the lane sheds a query whose budget drained while queued
+        there, and the fetch never waits past it."""
         check_supported(request)
         total_docs = sum(s.num_docs for s in segments)
         live = prune_segments(segments, request)
@@ -213,14 +360,25 @@ class QueryExecutor:
             res = self._empty_result(request, total_docs)
             res.add_cost(segmentsPruned=pruned)
             return res
-        result = self._execute_engine(live, request)
+        result = self._execute_engine(live, request, deadline)
         result.total_docs = total_docs
         result.add_cost(segmentsPruned=pruned)
         return result
 
+    def _host(self, live, ctx, request, total_docs, sel_columns, phase: str) -> IntermediateResult:
+        t0 = time.perf_counter()
+        res = execute_host(live, ctx, request, total_docs, sel_columns)
+        self._phase(phase, t0)
+        res._served_tier = "host"
+        return res
+
     def _execute_engine(
-        self, live: List[ImmutableSegment], request: BrokerRequest
+        self,
+        live: List[ImmutableSegment],
+        request: BrokerRequest,
+        deadline: Optional[float] = None,
     ) -> IntermediateResult:
+        t0 = time.perf_counter()
         total_docs = sum(s.num_docs for s in live)
         needed = set(request.referenced_columns())
         sel_columns: Optional[List[str]] = None
@@ -230,61 +388,152 @@ class QueryExecutor:
         # columns used only by doc-range predicates on sorted columns never
         # reach the device (the kernel compares row ids with doc bounds)
         needed -= self._docrange_only_columns(request, live, sel_columns)
-        ctx = get_table_context(live, self._contexts)
+        with self._stage_lock:
+            ctx = get_table_context(live, self._contexts)
         if plan_forced_host(request, ctx, self.precision):
             # a plan only the host can run never pays device staging
-            res = execute_host(live, ctx, request, total_docs, sel_columns)
-            res._served_tier = "host"
-            return res
+            return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
+        if self._sticky is not None:
+            # a sticky CUDA fault corrupted the context: the device is
+            # not tried again
+            self._heal_mark("hostFailovers", reason="deviceOff")
+            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
+
         raw_cols, gfwd_cols, hll_cols = self._role_columns(request, live, ctx)
         skip_base = self._skip_base_columns(request, live, raw_cols, gfwd_cols, hll_cols)
-        staged = get_staged(
-            self._staged,
-            live,
-            sorted(needed),
-            self.device,
-            self.precision,
-            raw_columns=raw_cols,
-            gfwd_columns=gfwd_cols,
-            ctx=ctx,
-            skip_base_columns=skip_base,
-            hll_columns=hll_cols,
-        )
-        res = self._device_section_staged(
-            live, request, ctx, needed, total_docs, staged, sel_columns
-        )
-        res._served_tier = "host" if res.cost.get("segmentsHost") else "device"
-        return res
-
-    def _device_section_staged(
-        self,
-        live: List[ImmutableSegment],
-        request: BrokerRequest,
-        ctx: TableContext,
-        needed: set,
-        total_docs: int,
-        staged: StagedTable,
-        sel_columns: Optional[List[str]] = None,
-    ) -> IntermediateResult:
+        with self._stage_lock:
+            staged = get_staged(
+                self._staged,
+                live,
+                sorted(needed),
+                self.device,
+                self.precision,
+                raw_columns=raw_cols,
+                gfwd_columns=gfwd_cols,
+                ctx=ctx,
+                skip_base_columns=skip_base,
+                hll_columns=hll_cols,
+            )
+        t0 = self._phase("staging", t0)
         scratch: Dict[Any, Any] = {}
         plan = build_static_plan(request, ctx, staged, scratch=scratch)
         if not plan.on_device:
-            return execute_host(live, ctx, request, total_docs, sel_columns)
+            return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
+        pdigest = plan_digest(plan)
+        poison_key = (pdigest, staged.segment_names)
+        if self._is_poisoned(poison_key):
+            self._heal_mark("poisonSkips")
+            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
         q_np = build_query_inputs(request, plan, ctx, staged, scratch=scratch)
         seg = segment_arrays(staged, needed)
-        q = to_device_inputs(q_np, self.device)
-        outs = self._kernel(plan, staged, seg, q)
+        t0 = self._phase("planBuild", t0)
+        cost: Dict[str, float] = {}
+        outs = self._run_healing(plan, staged, seg, q_np, deadline, pdigest, cost, poison_key)
+        if outs is None:
+            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
+        t0 = time.perf_counter()
         for i, agg in enumerate(plan.aggs):
             if agg.sort_pairs:
                 state = outs[f"gb_{i}" if plan.group_by is not None else f"agg_{i}"]
                 if int(state[3]) > config.DISTINCT_PAIR_CAP:
                     # more unique pairs than the device buffer returns: the
                     # host finishes exactly
-                    return execute_host(live, ctx, request, total_docs, sel_columns)
+                    return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
         result = self._finalize(request, plan, ctx, staged, live, outs, total_docs, sel_columns)
         dev_bytes = sum(t.numel() * t.element_size() for t in seg.values())
-        result.add_cost(bytesScanned=dev_bytes, deviceBytes=dev_bytes, segmentsFullScan=len(live))
+        result.add_cost(
+            bytesScanned=dev_bytes, deviceBytes=dev_bytes, segmentsFullScan=len(live), **cost
+        )
+        self._phase("finalize", t0)
+        result._served_tier = "device"
         return result
+
+    def _run_healing(
+        self,
+        plan: StaticPlan,
+        staged: StagedTable,
+        seg: Dict[str, torch.Tensor],
+        q_np: Any,
+        deadline: Optional[float],
+        pdigest: str,
+        cost: Dict[str, float],
+        poison_key: Tuple,
+    ) -> Optional[Dict[str, Any]]:
+        """``_run_kernel`` under the self-healing ladder: the fetched
+        outputs, or None when the query must fail over to the host tier.
+        Only device faults are caught; every other error propagates."""
+        last: Optional[DeviceExecutionError] = None
+        for attempt in (0, 1):
+            if attempt:
+                if not last.retryable:
+                    break  # poison / stall / sticky: a device retry would
+                    # fail (or wedge the fresh lane) identically
+                if last.resource_exhausted:
+                    self._heal_mark("resourceExhausted")
+                self._heal_mark("deviceRetries")
+            try:
+                return self._run_kernel(plan, staged, seg, q_np, deadline, pdigest, cost)
+            except (QueryAbandonedError, LaneClosedError, TimeoutError):
+                raise
+            except Exception as e:
+                if not is_device_fault(e):
+                    raise
+                last = classify_device_error(e)
+                self._heal_mark("deviceFailures", retryable=last.retryable, error=str(last)[:200])
+                if last.sticky:
+                    self._sticky = last
+                    self._heal_mark("stickyFaults")
+                    if self.lane is not None:
+                        self.lane.mark_dead(last)
+        # device exhausted: quarantine the plan (an OOM never: the plan is
+        # healthy, the card was full) and fail over to the host tier
+        if not last.resource_exhausted:
+            self._poison(poison_key, str(last))
+        self._heal_mark("hostFailovers", reason=str(last)[:200])
+        return None
+
+    def _run_kernel(
+        self,
+        plan: StaticPlan,
+        staged: StagedTable,
+        seg: Dict[str, torch.Tensor],
+        q_np: Any,
+        deadline: Optional[float],
+        pdigest: str,
+        cost: Dict[str, float],
+    ) -> Dict[str, Any]:
+        """DISPATCH + the packed fetch.  Direct (no lane): launch and
+        fetch inline.  With a lane: the query inputs upload on this
+        worker's stream, the launch runs on the lane's stream (coalesced
+        with an identical in-flight dispatch), and this worker waits on
+        the dispatch's event."""
+        t0 = time.perf_counter()
+        q = to_device_inputs(q_np, self.device)
+        lane = self.lane
+        if lane is None:
+            handle = self._kernel.dispatch(plan, staged, seg, q)
+        else:
+            ready = ready_event(self.device)
+            tensors = list(seg.values()) + tree_leaves(q)
+
+            def launch():
+                stream_handoff(ready, tensors)
+                return self._kernel.dispatch(plan, staged, seg, q)
+
+            # identical (plan, staged-table token, inputs digest) means
+            # identical device outputs; the token is process-unique, so a
+            # re-staged table never aliases an in-flight dispatch
+            ticket = lane.submit(
+                (plan, staged.token, _inputs_digest(q_np)), launch, deadline, plan_digest=pdigest
+            )
+            handle = ticket.result(deadline)
+            t0 = self._phase("laneWait", t0, coalesced=ticket.coalesced)
+            if ticket.coalesced:
+                cost["coalesceHits"] = cost.get("coalesceHits", 0) + 1
+        outs = self._kernel.fetch(handle, deadline)
+        cost["deviceMs"] = cost.get("deviceMs", 0.0) + round((time.perf_counter() - t0) * 1000, 3)
+        self._phase("planExec", t0)
+        return outs
 
     def _docrange_only_columns(
         self, request: BrokerRequest, live, sel_columns: Optional[List[str]] = None

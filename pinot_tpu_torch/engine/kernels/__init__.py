@@ -79,3 +79,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
     return lib
+
+
+def load_all() -> None:
+    """Build every kernel that is missing (all ``nvcc`` at once) and load
+    each: a failed build raises here, before any query runs."""
+    build(KERNELS)
+    for name in KERNELS:
+        load(name)

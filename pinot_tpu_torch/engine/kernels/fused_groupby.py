@@ -49,6 +49,7 @@ counts kernel launches only.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -70,6 +71,7 @@ _INDEX_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 _RAW_CODE = 3
 
 launches = 0  # kernel launches on CUDA tensors; chip_smoke.py resets and reads it
+_launches_lock = threading.Lock()  # lanes of two servers launch at once
 
 
 def shared_bytes(
@@ -458,7 +460,8 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
         )
     if rc != 0:
         raise RuntimeError(f"fused_groupby launch failed with code {rc}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return out_docs[0], out_counts, [out_sums[j] for j in range(nv)]
 
 

@@ -61,6 +61,7 @@ they run ``value_state_reference`` / ``value_state_counts_reference``.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
@@ -91,6 +92,7 @@ _INDEX_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 _TABLES = MAX_GROUP_COLUMNS + 2  # group remaps, value table, rho table
 
 launches = 0  # kernel launches on CUDA tensors; chip_smoke.py resets and reads it
+_launches_lock = threading.Lock()  # lanes of two servers launch at once
 
 
 def index_space(mode: str, capacity: int, width: Optional[int]) -> int:
@@ -415,7 +417,8 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
         )
     if rc != 0:
         raise RuntimeError(f"value_state launch failed with code {rc}")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return buf[0], holder
 
 

@@ -6,11 +6,14 @@ at a time pays one synchronizing copy each.  Instead every output is
 viewed as bytes on the device, concatenated into ONE contiguous uint8
 buffer (8-byte aligned parts), moved with one non-blocking copy into
 pinned host memory, and the host waits on one CUDA event before it
-slices the buffer back into numpy arrays of the same tree shape.
+slices the buffer back into numpy arrays of the same tree shape.  The
+two halves are apart (``dispatch`` / ``fetch``) so the device lane
+launches and the worker that submitted waits.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, Tuple
+import time
+from typing import Any, Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +41,29 @@ def _np_dtype(dt: torch.dtype) -> np.dtype:
     return torch.empty(0, dtype=dt).numpy().dtype
 
 
-def fetch_packed(outs: Any) -> Any:
-    """Tree of device tensors -> same tree of host numpy arrays, through
-    one packed device-to-host transfer."""
+class PackedHandle:
+    """One dispatched packed fetch: the layout, the pinned host buffer
+    the non-blocking copy lands in, and the CUDA event recorded after it
+    (None on the CPU, where the buffer is complete at dispatch)."""
+
+    __slots__ = ("spec", "layout", "host", "event")
+
+    def __init__(self, spec, layout, host: torch.Tensor, event) -> None:
+        self.spec = spec
+        self.layout = layout
+        self.host = host
+        self.event = event
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.host.numel())
+
+
+def dispatch_packed(outs: Any) -> PackedHandle:
+    """Tree of device tensors -> a handle, without waiting: the byte
+    packing ``torch.cat`` and the non-blocking copy into pinned memory are
+    enqueued on the current stream, and one CUDA event is recorded after
+    them."""
     leaves: List[torch.Tensor] = []
     spec = _flatten(outs, leaves)
     parts = []
@@ -57,26 +80,59 @@ def fetch_packed(outs: Any) -> Any:
         off += b.numel() + pad
     dev = leaves[0].device if leaves else torch.device("cpu")
     buf = torch.cat(parts) if parts else torch.zeros(0, dtype=torch.uint8)
+    event = None
     if dev.type == "cuda":
         host = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
         host.copy_(buf, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(dev))
-        done.synchronize()
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(dev))
     else:
         host = buf
-    h = host.numpy()
+    return PackedHandle(spec, layout, host, event)
+
+
+def fetch_handle(handle: PackedHandle, deadline: Optional[float] = None) -> Any:
+    """Wait for a dispatched packed fetch and slice it back into numpy
+    arrays of the original tree shape.  With a ``deadline`` (monotonic
+    seconds) a query whose budget is already spent raises
+    ``TimeoutError`` instead of waiting; otherwise the wait synchronizes
+    on the event (the GIL released).  Safe from any thread, and from
+    several waiters of one coalesced dispatch (each gets its own
+    arrays)."""
+    event = handle.event
+    if event is not None:
+        if deadline is not None and not event.query() and time.monotonic() >= deadline:
+            raise TimeoutError("packed fetch exceeded the query deadline")
+        event.synchronize()
+    h = handle.host.numpy()
     arrays = []
-    for shape, dt, o, n in layout:
+    for shape, dt, o, n in handle.layout:
         arrays.append(h[o : o + n].copy().view(dt).reshape(shape) if n else np.zeros(shape, dt))
-    return _unflatten(spec, iter(arrays))
+    return _unflatten(handle.spec, iter(arrays))
+
+
+def fetch_packed(outs: Any) -> Any:
+    """Tree of device tensors -> same tree of host numpy arrays, through
+    one packed device-to-host transfer."""
+    return fetch_handle(dispatch_packed(outs))
 
 
 def make_packed_kernel(fn: Callable) -> Callable:
     """Wrap a kernel-like callable (tree of device tensors out) so a call
-    returns the same tree as host numpy arrays via one packed transfer."""
+    returns the same tree as host numpy arrays via one packed transfer.
+
+    The returned callable also exposes the two pipeline halves:
+    ``.dispatch(*args) -> PackedHandle`` runs the kernel and enqueues the
+    packed copy on the current stream without waiting (the device lane
+    calls it on its own stream), and ``.fetch(handle, deadline=None)``
+    waits on the handle's event and unpacks (FINALIZE, on the worker)."""
+
+    def dispatch(*args, **kwargs) -> PackedHandle:
+        return dispatch_packed(fn(*args, **kwargs))
 
     def call(*args, **kwargs):
-        return fetch_packed(fn(*args, **kwargs))
+        return fetch_handle(dispatch(*args, **kwargs))
 
+    call.dispatch = dispatch
+    call.fetch = fetch_handle
     return call

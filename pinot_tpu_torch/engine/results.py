@@ -126,6 +126,12 @@ class DistinctPartial(AggPartial):
     def finalize(self) -> int:
         return len(self.values) if isinstance(self.values, set) else int(self.values.size)
 
+    def iter_sorted(self):
+        """Values in a deterministic order (the DataTable serde contract)."""
+        if isinstance(self.values, set):
+            return sorted(self.values, key=repr)
+        return np.sort(self.values).tolist()
+
 
 class HllPartial(AggPartial):
     def __init__(self, registers: Optional[np.ndarray] = None) -> None:
@@ -213,19 +219,39 @@ class IntermediateResult:
         num_segments_queried: int = 0,
         num_entries_scanned_in_filter: int = 0,
         num_entries_scanned_post_filter: int = 0,
-        cost: Optional[Dict[str, float]] = None,
+        trace: Optional[Dict[str, Any]] = None,
         selection_columns: Optional[List[str]] = None,
+        exceptions: Optional[List[Tuple[int, str]]] = None,
+        unserved_segments: Optional[List[str]] = None,
+        cost: Optional[Dict[str, float]] = None,
+        plan_info: Optional[List[Dict[str, Any]]] = None,
     ) -> None:
+        self.selection_columns = selection_columns
+        # (error code, message) pairs the server reports with its reply
+        self.exceptions: List[Tuple[int, str]] = exceptions or []
+        # requested segments this server could not serve; the broker
+        # re-covers them on a replica or reports a partial response
+        self.unserved_segments: List[str] = unserved_segments or []
         self.aggregations = aggregations
         self.groups = groups
         self.selection_rows = selection_rows
-        self.selection_columns = selection_columns
         self.num_docs_scanned = num_docs_scanned
         self.total_docs = total_docs
         self.num_segments_queried = num_segments_queried
         self.num_entries_scanned_in_filter = num_entries_scanned_in_filter
         self.num_entries_scanned_post_filter = num_entries_scanned_post_filter
+        # {scope: [span dicts]} (utils/trace.py), concatenated on merge
+        self.trace = trace or {}
         self.cost: Dict[str, float] = dict(cost or {})
+        # the answering server's saturation snapshot ({"pending",
+        # "maxPending", "laneDepth"}): per reply, never merged
+        self.backpressure: Dict[str, float] = {}
+        # EXPLAIN plan nodes, one per server, concatenated on merge (the
+        # port's servers send none; the wire carries them)
+        self.plan_info: List[Dict[str, Any]] = list(plan_info or [])
+        # event-time freshness stamp ({"minEventMs": ...}), merged with
+        # MIN; None for offline tables (all the port serves)
+        self.freshness: Optional[Dict[str, Any]] = None
 
     def add_cost(self, **kv: float) -> None:
         for k, v in kv.items():
@@ -233,6 +259,16 @@ class IntermediateResult:
                 self.cost[k] = self.cost.get(k, 0) + v
 
     def merge(self, other: "IntermediateResult") -> None:
+        self.exceptions.extend(other.exceptions)
+        self.unserved_segments.extend(other.unserved_segments)
+        self.plan_info.extend(other.plan_info)
+        of = other.freshness
+        if of is not None and of.get("minEventMs") is not None:
+            mine = self.freshness
+            if mine is None or mine.get("minEventMs") is None:
+                self.freshness = dict(of)
+            else:
+                mine["minEventMs"] = min(mine["minEventMs"], of["minEventMs"])
         for k, v in other.cost.items():
             self.cost[k] = self.cost.get(k, 0) + v
         self.num_docs_scanned += other.num_docs_scanned
@@ -240,6 +276,14 @@ class IntermediateResult:
         self.num_segments_queried += other.num_segments_queried
         self.num_entries_scanned_in_filter += other.num_entries_scanned_in_filter
         self.num_entries_scanned_post_filter += other.num_entries_scanned_post_filter
+        # trace values are span lists keyed by scope: two partials from
+        # the same scope concatenate
+        for scope, spans in other.trace.items():
+            mine = self.trace.get(scope)
+            if isinstance(mine, list) and isinstance(spans, list):
+                self.trace[scope] = mine + spans
+            else:
+                self.trace[scope] = spans
         if other.aggregations is not None:
             if self.aggregations is None:
                 self.aggregations = other.aggregations
@@ -304,8 +348,12 @@ def trim_group_candidates(
 #   bytesScanned       column bytes the serving path read (device: the
 #                      staged arrays handed to the kernel; host: forward-
 #                      index and MV value bytes of the referenced columns)
+#   deviceMs           wall ms of the device section: the launch (direct
+#                      path) or the lane wait's end to the packed fetch
 #   hostMs             wall ms of the host tier's execution
 #   deviceBytes        the device tier's share of bytesScanned
+#   coalesceHits       queries served by riding an identical in-flight
+#                      device dispatch (engine/dispatch.py)
 #   segmentsPruned     segments dropped before execution (empty, or
 #                      missing a referenced column)
 #   segmentsFullScan   segments scanned by the device's table kernel
@@ -313,8 +361,10 @@ def trim_group_candidates(
 #                      staging, a plan off the device, or pair overflow)
 COST_KEYS = (
     "bytesScanned",
+    "deviceMs",
     "hostMs",
     "deviceBytes",
+    "coalesceHits",
     "segmentsPruned",
     "segmentsFullScan",
     "segmentsHost",

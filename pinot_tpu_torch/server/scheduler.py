@@ -1,0 +1,462 @@
+"""Query scheduler: per-table weighted fair-share queues in front of
+the executor.
+
+The reference bounds query concurrency with runner/worker pools
+(``QueryScheduler.java:35``, ``FCFSQueryScheduler``) and offers
+table-aware variants (``TableBasedSchedulerGroupMapper`` +
+resource-limited scheduler).  The r5 version here was ONE global FCFS
+queue with a single ``max_pending`` bound — correct under uniform load,
+but one flooding tenant could fill all 64 slots and starve every other
+table behind a wall of its own queries.
+
+FAIR-SHARE POLICY (r7): each table gets its own FCFS queue; workers
+dequeue by deficit-round-robin over the active (non-empty) queues, so
+a table with weight ``w`` drains ``w`` queries per DRR cycle no matter
+how deep another table's queue is.  Admission is work-conserving:
+
+- total queued-or-running is still bounded by ``max_pending`` — beyond
+  it submits shed immediately with ``SchedulerSaturatedError`` (210);
+- a table alone on the server may fill the whole ``max_pending``
+  (idle capacity is never wasted); but when OTHER tables hold pending
+  work, a table cannot occupy more than its weighted share
+  ``max_pending * w / W_active`` — submits beyond that shed with the
+  same typed 210 (per-queue saturation: the error names the queue, and
+  the broker fails over to a replica that may have room).
+
+DEADLINE PROPAGATION: unchanged from r5 — the broker serializes its
+*remaining* budget into each (re-)issued InstanceRequest and ``run``
+pins it as a monotonic deadline checked at worker-dequeue time
+(``QueryAbandonedError``).  Additionally, deadline-expired entries are
+PURGED at submit time whenever a cap would shed: a queue full of
+already-abandoned work must never pin its table at the cap and shed
+live traffic.
+
+(Copy of ``pinot_tpu.server.scheduler``.)
+"""
+from __future__ import annotations
+
+import concurrent.futures
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional
+
+# fair-share default queue for table-less submits (unit tests, internal
+# work): behaves exactly like any other table queue
+DEFAULT_QUEUE = ""
+
+
+class SchedulerSaturatedError(RuntimeError):
+    """Raised on submit when the global bound or the submitting table's
+    fair-share cap is hit (shed).  Broker-side this is a RETRYABLE
+    failure: another replica may have capacity right now."""
+
+
+class SchedulerShutdownError(RuntimeError):
+    """Raised on submit after shutdown.  Broker-side this is RETRYABLE:
+    the server is draining for restart, its replicas are not."""
+
+
+class QueryAbandonedError(RuntimeError):
+    """Raised when a queued query's deadline expired before a worker
+    picked it up — the broker already gave up on this reply."""
+
+
+class _Entry:
+    __slots__ = ("fn", "future", "deadline", "table", "t_submit")
+
+    def __init__(self, fn, future, deadline, table, t_submit) -> None:
+        self.fn = fn
+        self.future = future
+        self.deadline = deadline
+        self.table = table
+        self.t_submit = t_submit
+
+
+# live worker-thread registry for the conftest leak guard (same pattern
+# as engine/dispatch.py lane threads): shutdown schedulers must not
+# strand workers
+_worker_threads: List[threading.Thread] = []
+_worker_threads_lock = threading.Lock()
+
+
+def leaked_scheduler_threads(grace_s: float = 2.0) -> List[threading.Thread]:
+    """Worker threads of SHUT-DOWN schedulers still alive after a grace
+    period (running schedulers' workers are exempt)."""
+    deadline = time.monotonic() + grace_s
+    while True:
+        with _worker_threads_lock:
+            leaked = [
+                t
+                for t in _worker_threads
+                if t.is_alive() and getattr(t, "_sched_shutdown", lambda: False)()
+            ]
+            _worker_threads[:] = [t for t in _worker_threads if t.is_alive()]
+        if not leaked or time.monotonic() >= deadline:
+            return leaked
+        time.sleep(0.05)
+
+
+class QueryScheduler:
+    def __init__(
+        self,
+        num_workers: int = 4,
+        max_pending: int = 64,
+        metrics=None,
+        weights: Optional[Dict[str, float]] = None,
+    ) -> None:
+        self._max_pending = max_pending
+        self._num_workers = num_workers
+        # per-table FCFS queues + DRR state (all under _cv's lock)
+        self._queues: Dict[str, deque] = {}
+        self._rr: deque = deque()  # active (non-empty) tables, DRR order
+        self._deficit: Dict[str, float] = {}
+        self._weights: Dict[str, float] = dict(weights or {})
+        # pending = queued + running, maintained by future done-callbacks
+        self._pending_total = 0
+        self._table_pending: Dict[str, int] = {}
+        self._queued_total = 0  # entries sitting in queues (worker wakeup)
+        self._running = 0  # workers currently executing an entry
+        self._shed = 0
+        self._table_shed: Dict[str, int] = {}
+        self._abandoned = 0
+        self._shutdown = False
+        # Condition() uses an RLock: done-callbacks fired while this
+        # thread holds the lock (purge/shutdown cancels) re-enter safely
+        self._cv = threading.Condition()
+        # optional ServerMetrics: pending-depth gauge + the
+        # ServerQueryPhase-style queue-wait timer (phase.schedulerWait)
+        self.metrics = metrics
+        if metrics is not None:
+            metrics.gauge("fairshare.activeTables").set_fn(
+                lambda: len(self._rr)
+            )
+            metrics.meter("fairshare.shed")
+        self._workers: List[threading.Thread] = []
+        for i in range(num_workers):
+            t = threading.Thread(
+                target=self._worker, name=f"sched-worker-{i}", daemon=True
+            )
+            t._sched_shutdown = lambda: self._shutdown  # leak-guard hook
+            t.start()
+            self._workers.append(t)
+        with _worker_threads_lock:
+            _worker_threads.extend(self._workers)
+
+    # -- weights -------------------------------------------------------
+    def set_weight(self, table: str, weight: float) -> None:
+        """Fair-share weight for a table (default 1.0, clamped > 0)."""
+        with self._cv:
+            self._weights[table] = max(float(weight), 0.01)
+
+    def _weight(self, table: str) -> float:
+        return max(self._weights.get(table, 1.0), 0.01)
+
+    # -- bookkeeping ---------------------------------------------------
+    def _note_pending_locked(self) -> None:
+        if self.metrics is not None:
+            self.metrics.gauge("scheduler.pending").set(self._pending_total)
+
+    @property
+    def pending(self) -> int:
+        return self._pending_total
+
+    @property
+    def max_pending(self) -> int:
+        return self._max_pending
+
+    def pending_of(self, table: str) -> int:
+        with self._cv:
+            return self._table_pending.get(table, 0)
+
+    @property
+    def shed_count(self) -> int:
+        return self._shed
+
+    @property
+    def abandoned_count(self) -> int:
+        return self._abandoned
+
+    def stats(self) -> dict:
+        """Status-surface snapshot (ServerInstance.status)."""
+        with self._cv:
+            return {
+                "pending": self._pending_total,
+                "maxPending": self._max_pending,
+                "shed": self._shed,
+                "abandoned": self._abandoned,
+                "shutdown": self._shutdown,
+                "tablePending": {
+                    t: n for t, n in sorted(self._table_pending.items()) if n
+                },
+                "tableShed": dict(sorted(self._table_shed.items())),
+                "weights": dict(sorted(self._weights.items())),
+            }
+
+    # -- fair-share admission ------------------------------------------
+    def _table_cap_locked(self, table: str) -> int:
+        """Pending cap for ``table`` right now: the full ``max_pending``
+        while it is alone (work-conserving — idle capacity is usable),
+        its weighted share of ``max_pending`` once any OTHER table holds
+        pending work."""
+        others = self._pending_total - self._table_pending.get(table, 0)
+        if others <= 0:
+            return self._max_pending
+        active = {t for t, n in self._table_pending.items() if n > 0}
+        active.add(table)
+        w = self._weight(table)
+        total_w = sum(self._weight(t) for t in active)
+        return max(1, int(self._max_pending * w / total_w))
+
+    def _purge_expired_locked(self, now: Optional[float] = None) -> int:
+        """Complete deadline-expired QUEUED entries with the typed
+        abandon error and free their slots — expired work must never pin
+        a queue at its cap.  Returns entries purged."""
+        now = time.monotonic() if now is None else now
+        purged = 0
+        for q in self._queues.values():
+            keep = deque()
+            while q:
+                entry = q.popleft()
+                if entry.deadline is not None and now >= entry.deadline:
+                    self._queued_total -= 1
+                    if entry.future.set_running_or_notify_cancel():
+                        self._abandoned += 1
+                        entry.future.set_exception(
+                            QueryAbandonedError(
+                                "deadline expired while queued; broker "
+                                "already gave up"
+                            )
+                        )
+                    purged += 1
+                elif entry.future.cancelled():
+                    self._queued_total -= 1
+                    purged += 1
+                else:
+                    keep.append(entry)
+            q.extend(keep)
+        return purged
+
+    def _shed_locked(self, table: str, msg: str) -> None:
+        self._shed += 1
+        self._table_shed[table] = self._table_shed.get(table, 0) + 1
+        if self.metrics is not None:
+            self.metrics.meter("fairshare.shed").mark()
+        raise SchedulerSaturatedError(msg)
+
+    def submit(
+        self,
+        fn: Callable[[], Any],
+        table: str = DEFAULT_QUEUE,
+        deadline: Optional[float] = None,
+    ) -> concurrent.futures.Future:
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        with self._cv:
+            if self._shutdown:
+                raise SchedulerShutdownError("scheduler is shut down")
+            if self._pending_total >= self._max_pending:
+                # before shedding, reclaim slots pinned by expired work
+                self._purge_expired_locked()
+            if self._pending_total >= self._max_pending:
+                self._shed_locked(
+                    table,
+                    f"scheduler saturated: {self._pending_total} pending >= "
+                    f"{self._max_pending} cap",
+                )
+            cap = self._table_cap_locked(table)
+            if self._table_pending.get(table, 0) >= cap:
+                self._purge_expired_locked()
+                cap = self._table_cap_locked(table)
+            if self._table_pending.get(table, 0) >= cap:
+                self._shed_locked(
+                    table,
+                    f"scheduler saturated for table {table or '<default>'}: "
+                    f"{self._table_pending.get(table, 0)} pending >= "
+                    f"fair-share cap {cap} "
+                    f"({self._pending_total}/{self._max_pending} total)",
+                )
+            entry = _Entry(fn, fut, deadline, table, time.monotonic())
+            q = self._queues.get(table)
+            if q is None:
+                q = self._queues[table] = deque()
+            if not q and table not in self._rr:
+                self._rr.append(table)
+                self._deficit.setdefault(table, 0.0)
+            q.append(entry)
+            self._queued_total += 1
+            self._pending_total += 1
+            self._table_pending[table] = self._table_pending.get(table, 0) + 1
+            self._note_pending_locked()
+            self._cv.notify()
+
+        def _done(_f) -> None:
+            with self._cv:
+                self._pending_total -= 1
+                n = self._table_pending.get(table, 0) - 1
+                if n > 0:
+                    self._table_pending[table] = n
+                else:
+                    self._table_pending.pop(table, None)
+                self._note_pending_locked()
+                # a freed slot may unblock a worker waiting for work
+                # (cancel of a queued twin) — cheap, so always notify
+                self._cv.notify()
+
+        fut.add_done_callback(_done)
+        return fut
+
+    # -- DRR dequeue ---------------------------------------------------
+    def _next_entry_locked(self) -> Optional[_Entry]:
+        """One deficit-round-robin pick over the active tables; None if
+        every queue is empty.  Unit cost per query: a table earns its
+        weight in credit each cycle and spends 1 per dequeue, so over
+        any window tables drain proportionally to weight."""
+        while self._rr:
+            table = self._rr[0]
+            q = self._queues.get(table)
+            if not q:
+                self._rr.popleft()
+                self._deficit.pop(table, None)
+                continue
+            if self._deficit.get(table, 0.0) < 1.0:
+                self._deficit[table] = (
+                    self._deficit.get(table, 0.0) + self._weight(table)
+                )
+                self._rr.rotate(-1)
+                continue
+            self._deficit[table] -= 1.0
+            entry = q.popleft()
+            self._queued_total -= 1
+            if not q:
+                # queue drained: leave DRR (deficit resets — classic DRR
+                # forgets credit when a flow goes idle)
+                if self._rr and self._rr[0] == table:
+                    self._rr.popleft()
+                else:
+                    try:
+                        self._rr.remove(table)
+                    except ValueError:
+                        pass
+                self._deficit.pop(table, None)
+            return entry
+        return None
+
+    def _worker(self) -> None:
+        while True:
+            with self._cv:
+                while not self._shutdown and self._queued_total == 0:
+                    self._cv.wait()
+                if self._shutdown and self._queued_total == 0:
+                    return
+                entry = self._next_entry_locked()
+                if entry is None:
+                    continue
+                self._running += 1
+            try:
+                self._run_entry(entry)
+            finally:
+                with self._cv:
+                    self._running -= 1
+
+    def _run_entry(self, entry: _Entry) -> None:
+        fut = entry.future
+        if not fut.set_running_or_notify_cancel():
+            return  # cancelled while queued; done-callback freed the slot
+        now = time.monotonic()
+        if self.metrics is not None:
+            # FCFS queue wait — the ServerQueryPhase SCHEDULER_WAIT
+            # analog, measured submit -> worker dequeue
+            self.metrics.timer("phase.schedulerWait").update(
+                (now - entry.t_submit) * 1000.0
+            )
+        if entry.deadline is not None and now >= entry.deadline:
+            with self._cv:
+                self._abandoned += 1
+            fut.set_exception(
+                QueryAbandonedError(
+                    "deadline expired while queued; broker already gave up"
+                )
+            )
+            return
+        try:
+            result = entry.fn()
+        except BaseException as e:
+            fut.set_exception(e)
+        else:
+            fut.set_result(result)
+
+    def run(
+        self,
+        fn: Callable[[], Any],
+        timeout_s: float,
+        deadline: Optional[float] = None,
+        table: str = DEFAULT_QUEUE,
+    ) -> Any:
+        """Run ``fn`` with at most ``timeout_s`` of wall budget on
+        ``table``'s fair-share queue.
+
+        ``deadline`` (monotonic seconds) defaults to now+timeout_s; it is
+        checked at dequeue time so a query whose budget drained in the
+        queue is shed instead of executed (the broker that sent it has
+        already failed over or timed out).
+        """
+        if deadline is None:
+            deadline = time.monotonic() + timeout_s
+        if time.monotonic() >= deadline:
+            # already expired at submit: abandon without queueing (the
+            # dequeue-time check would reach the same verdict later, at
+            # the cost of a queue slot meanwhile)
+            with self._cv:
+                self._abandoned += 1
+            raise QueryAbandonedError(
+                "deadline expired while queued; broker already gave up"
+            )
+        fut = self.submit(fn, table=table, deadline=deadline)
+        try:
+            return fut.result(timeout=max(0.0, deadline - time.monotonic()))
+        except concurrent.futures.TimeoutError as e:
+            # the client is gone: a still-QUEUED query cancels (its
+            # done-callback frees the pending slot immediately) so
+            # abandoned work cannot pin the scheduler at max_pending
+            # and shed live traffic; a RUNNING one must drain.
+            # Re-raised as the builtin TimeoutError (on 3.11+ they are
+            # the same class; on 3.10 the futures one is distinct).
+            fut.cancel()
+            raise TimeoutError(str(e) or "query timed out") from e
+
+    def shutdown(self) -> None:
+        """Idempotent: the first call cancels every queued entry across
+        ALL per-table queues and stops accepting submits; later calls
+        are no-ops.  Running queries drain; workers then exit."""
+        with self._cv:
+            if self._shutdown:
+                return
+            self._shutdown = True
+            # entries a currently-free worker is about to pick up keep
+            # their slot (matches the old pool's cancel_futures contract:
+            # work already claimed by a worker still runs); everything
+            # beyond that cancels — tail-first so queue heads survive
+            keep = min(
+                self._queued_total, max(0, self._num_workers - self._running)
+            )
+            to_cancel = self._queued_total - keep
+            while to_cancel > 0:
+                table = max(
+                    (t for t, q in self._queues.items() if q),
+                    key=lambda t: len(self._queues[t]),
+                    default=None,
+                )
+                if table is None:
+                    break
+                entry = self._queues[table].pop()
+                self._queued_total -= 1
+                entry.future.cancel()
+                to_cancel -= 1
+            self._cv.notify_all()
+
+    def join(self, timeout_s: float = 5.0) -> None:
+        """After ``shutdown()``: wait (bounded) for the workers to exit."""
+        deadline = time.monotonic() + timeout_s
+        for t in self._workers:
+            if t is not threading.current_thread():
+                t.join(max(0.0, deadline - time.monotonic()))

@@ -186,6 +186,8 @@ def test_pair_payloads_match_reference(name, precision, shrink):
     req = optimize_request(parse_pql(pql))
     ex = QueryExecutor(device="cpu", precision=precision)
     got = strip_accounting(reduce_to_response(req, [ex.execute(PORT[table], req)]).to_json())
+    heal = ex.healing_stats()
+    assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over
     rel, abs_ = TOL[precision]
     assert payloads_equivalent(got, want, rel_tol=rel, abs_tol=abs_), (got, want)
 

@@ -93,6 +93,8 @@ def _compare(pql, ref_segments, executor=None):
     req = optimize_request(parse_pql(pql))
     ex = executor or QueryExecutor(device="cpu", precision="x64")
     got = strip_accounting(reduce_to_response(req, [ex.execute(_port(ref_segments), req)]).to_json())
+    heal = ex.healing_stats()
+    assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over
     return got, want
 
 

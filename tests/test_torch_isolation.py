@@ -41,6 +41,29 @@ req = optimize_request(parse_pql(Q1))
 resp = reduce_to_response(req, [QueryExecutor(device="cpu").execute(segs, req)])
 groups = resp.aggregation_results[3].group_by_result
 assert sum(int(g.value) for g in groups) == 4000, groups
+
+# the serving path: a port server behind the port broker over TCP
+from pinot_tpu_torch.broker.broker import BrokerRequestHandler
+from pinot_tpu_torch.broker.routing import RoutingTableProvider
+from pinot_tpu_torch.common.faults import DeviceFaultInjector
+from pinot_tpu_torch.server.instance import ServerInstance
+from pinot_tpu_torch.transport.tcp import TcpServer, TcpTransport
+
+server = ServerInstance("iso", device="cpu", device_fault_injector=DeviceFaultInjector())
+for s in segs:
+    server.add_segment("lineitem", s)
+tcp = TcpServer(server.handle_request)
+tcp.start()
+routing = RoutingTableProvider()
+routing.update("lineitem", {s.segment_name: {"iso": "ONLINE"} for s in segs})
+broker = BrokerRequestHandler(TcpTransport(), {"iso": tcp.address}, routing=routing)
+served = broker.handle_pql(Q1)
+assert not served.exceptions, served.exceptions
+assert served.aggregation_results[3].group_by_result == groups
+assert server.status()["lane"]["dispatches"] == 1
+broker.shutdown()
+tcp.stop()
+server.shutdown()
 leaked = sorted(m for m in sys.modules if m == "pinot_tpu" or m.startswith("pinot_tpu.")
                 or m == "jax" and sys.modules[m] is not None or m.startswith("jax."))
 assert not leaked, leaked

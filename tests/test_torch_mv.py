@@ -117,7 +117,10 @@ def _payloads(pql, table, precision):
     ref_req = ref_optimize(ref_parse(pql))
     want = canonical_payload(ref_req, RefExecutor().execute(SEGMENTS[table], ref_req))
     req = optimize_request(parse_pql(pql))
-    res = QueryExecutor(device="cpu", precision=precision).execute(PORT[table], req)
+    ex = QueryExecutor(device="cpu", precision=precision)
+    res = ex.execute(PORT[table], req)
+    heal = ex.healing_stats()
+    assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over
     return strip_accounting(reduce_to_response(req, [res]).to_json()), want, res
 
 

@@ -45,4 +45,6 @@ def test_query_mix_matches_reference(i):
     want = canonical_payload(ref_req, REF.execute(SEGMENTS, ref_req))
     req = optimize_request(parse_pql(pql))
     got = strip_accounting(reduce_to_response(req, [PORT_EX.execute(PORT, req)]).to_json())
+    heal = PORT_EX.healing_stats()
+    assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over
     assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (pql, got, want)

@@ -54,6 +54,8 @@ def _payloads(pql):
     want = canonical_payload(ref_req, REF.execute(SEGMENTS, ref_req))
     req = optimize_request(parse_pql(pql))
     got = strip_accounting(reduce_to_response(req, [PORT_EX.execute(PORT, req)]).to_json())
+    heal = PORT_EX.healing_stats()
+    assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over
     return got, want
 
 

@@ -82,7 +82,10 @@ def _reference(pql: str, segs: str):
 def _port(pql: str, segs: str, precision: str):
     req = optimize_request(parse_pql(pql))
     ex = QueryExecutor(device="cpu", precision=precision)
-    return strip_accounting(reduce_to_response(req, [ex.execute(PORT[segs], req)]).to_json())
+    got = strip_accounting(reduce_to_response(req, [ex.execute(PORT[segs], req)]).to_json())
+    heal = ex.healing_stats()
+    assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over
+    return got
 
 
 @pytest.mark.parametrize(
