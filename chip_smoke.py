@@ -40,6 +40,22 @@ QueryExecutor.execute -> reduce_to_response on one card:
      against its own oracle); then on a reduced table (2 segments of 2^20
      rows) a device fault injector's transient (one device retry),
      poisoned plan and stalled launch (the host tier answers);
+ 10. zone maps and the deployed cluster: zone_in (Q1's aggregations over
+     three dates of the clustered l_shipdate, K1's fused route) and
+     zone_distinct (distinctcount under the same filter, K2's) in
+     process over the candidate zone blocks only (the kernels read the
+     block table in place), then as full scans (zone_maps=False), each
+     against its oracle, with K1 and K2 at both launch shapes against
+     their plain versions and bounds; then the lineitem segments written
+     as segment files, a controller, two servers and a broker started
+     as processes of ``python -m pinot_tpu_torch.tools.admin``, the
+     files uploaded through the controller (8 segments a server), and
+     q1, q3, hll_groupby, distinct_price, sel_top, pairs_distinct,
+     zone_in and zone_distinct sent to the broker's HTTP ``/query``:
+     each answer against its oracle, the servers' kernel launches read
+     from their ``/debug/metrics``, broker p50 / p99 over 50 requests,
+     the servers' own phase medians, and the write, upload, upload to
+     ONLINE and segment load times; every role stopped with SIGTERM;
 
 every earlier query served by the device (no segmentsHost in its cost);
 and times the queries (with their host finalize and the bytes of the one
@@ -57,13 +73,18 @@ line is the ``{"kernels": [...]}`` summary.
 from __future__ import annotations
 
 import argparse
+import atexit
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Tuple
+import urllib.request
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -175,6 +196,32 @@ FAILOVER_ROWS = 1 << 20
 FAILOVER_STALL_S = 3.0
 FAILOVER_STALL_TIMEOUT_S = 1.0
 # bench.py:1138-1143, the JAX package's on-chip configuration: 134,217,728 rows
+# 10. zone maps and the deployed cluster: a three-date point list on the
+# clustered l_shipdate (about 4,194 contiguous rows a date a segment, so at
+# most 6 of a segment's 128 zone blocks), through K1 (zone_in) and K2
+# (zone_distinct) over the candidate blocks only
+ZONE_DATES = ("1993-03-14", "1995-06-14", "1997-09-14")
+_ZONE_IN = "('" + "','".join(ZONE_DATES) + "')"
+ZONE_QUERIES = {
+    "zone_in": "SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) FROM lineitem "
+    f"WHERE l_shipdate IN {_ZONE_IN} GROUP BY l_returnflag, l_linestatus TOP 10",
+    "zone_distinct": f"SELECT distinctcount(l_extendedprice) FROM lineitem WHERE l_shipdate IN {_ZONE_IN}",
+}
+# the block path's switch (config.ZONE_MAX_FRACTION) measured on both
+# sides: zone_in's and zone_distinct's select lists over clusters of
+# l_shipdate dates, each over the blocks (the switch forced open) and as a
+# full scan.  (period, dates a cluster): a cluster of every other date
+# starts each period dates, so every list has over 64 dictId runs and
+# stays a match table (the fused routes' filter), and the candidate
+# window grows from 16 of a segment's 128 blocks to all of them
+# (zone_in's three dates: 4)
+ZONE_SWEEP = ((512, 17), (128, 5), (64, 3), (32, 3), (2, 1))
+DEPLOY_QUERIES = SERVE_QUERIES + tuple(ZONE_QUERIES)
+DEPLOY_DEVICE = "cuda"  # the role processes' -device
+DEPLOY_READY_S = 300.0  # a role process's start, kernel load included
+DEPLOY_ONLINE_S = 600.0  # upload to every segment ONLINE in the broker's routing
+DEPLOY_REQUEST_S = 600.0  # one HTTP request
+
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
 ITERS = 20  # timed runs per median, after warm-up
@@ -247,6 +294,21 @@ def cuda_ms(fn, iters: int, warmup: int = 3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times)), times
+
+
+def zone_sweep_queries(segment) -> Dict[str, str]:
+    """{name: pql}: zone_in's and zone_distinct's select lists filtered on
+    the date clusters of ZONE_SWEEP over ``segment``'s l_shipdate
+    dictionary."""
+    dates = list(segment.column("l_shipdate").dictionary.values)
+    out = {}
+    for period, count in ZONE_SWEEP:
+        pick = [dates[i + 2 * j] for i in range(period // 2, len(dates), period)
+                for j in range(count) if i + 2 * j < len(dates)]
+        in_list = "('" + "','".join(str(v) for v in pick) + "')"
+        for name, pql in ZONE_QUERIES.items():
+            out[f"{name}/{period}x{count}"] = pql.replace(_ZONE_IN, in_list)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -435,6 +497,57 @@ def k1_cases(fg, dev, dtype):
     return cases
 
 
+def block_table(S: int, n_pad: int, block: int, g, dev) -> torch.Tensor:
+    """A random block table: per segment an ascending subset of the
+    n_pad // block zone blocks (at most half of them, -1 padded), the
+    second segment with none."""
+    nb = n_pad // block
+    nb_pad = max(1, nb // 2)
+    ids = torch.full((S, nb_pad), -1, dtype=torch.int32)
+    for s_ in range(S):
+        if s_ == 1:
+            continue
+        k = int(torch.randint(1, nb_pad + 1, (1,), generator=g))
+        ids[s_, :k] = torch.sort(torch.randperm(nb, generator=g)[:k]).values.to(torch.int32)
+    return ids.to(dev)
+
+
+# K1 and K2 cases that also run over a block table, with its block size:
+# a multiple of the kernels' 512-row warp chunk, a smaller one, and
+# blocks at n_pad % 4 != 0 (every row through the one-row loop)
+K1_BLOCK_CASES = {
+    "table_raw_K6_S16_ragged": 4096,
+    "groupcols_u8x2_q1like_docrange_unaligned_S16": 256,
+    "groupcols_remap_u8_i16_count_only_K350_S4": 1024,
+    "interval_dict_raw_K6_S1": 65536,
+    "npad1000_groupcols_S3_ragged": 200,
+    "npad1001_groupcols_S3_ragged": 143,
+}
+K2_BLOCK_CASES = {
+    "counts_mask_g1_u8gids_W56_S16": 4096,
+    "presence_docrange_g1_i32gids_W524288_S16": 256,
+    "registers_table_scalar_streams_S16": 2048,
+    "presence_interval_scalar_i32gids_W262144_S16": 8192,
+    "counts_npad1000_interval_g2remap_S3": 200,
+    "presence_npad1001_interval_g2remap_S3": 143,
+}
+
+
+def with_block_tables(cases: dict, picks: Dict[str, int], dev, k2: bool = False) -> dict:
+    """``cases`` plus, for each picked case, the same arguments over a
+    random block table."""
+    g = torch.Generator(device="cpu").manual_seed(97)
+    out = dict(cases)
+    for name, block in picks.items():
+        mode, args = cases[name] if k2 else (None, cases[name])
+        lead = args["values"] if k2 else (args["group_keys"] if args["group_keys"] is not None
+                                         else args["group_cols"][0])
+        S, n_pad = lead.shape
+        blk = dict(args, block_ids=block_table(S, n_pad, block, g, dev), block_rows=block)
+        out[f"{name}_blocks{block}"] = (mode, blk) if k2 else blk
+    return out
+
+
 def k1_probe_shapes(dev) -> Dict[str, dict]:
     """K1 inputs at the main path's widths (SEGMENTS x ROWS_PER_SEGMENT,
     x32), made on the card from a seed: q1's (two uint8 group columns,
@@ -517,6 +630,17 @@ def oracle(segments, name):
                 "sum_l_extendedprice": vals("l_extendedprice"),
                 "sum_l_quantity": vals("l_quantity"),
             })
+        elif name == "zone_in":
+            c = seg.column("l_shipdate")
+            mask = np.isin(np.asarray(c.dictionary.values, dtype=object), list(ZONE_DATES))[c.fwd]
+            rf, rfl = _labels(seg, "l_returnflag")
+            ls, lsl = _labels(seg, "l_linestatus")
+            keys = rf.astype(np.int64) * len(lsl) + ls
+            add(keys, mask, [(a, b) for a in rfl for b in lsl], {
+                "sum_l_quantity": vals("l_quantity"),
+                "sum_l_extendedprice": vals("l_extendedprice"),
+                "sum_l_discount": vals("l_discount"),
+            })
         elif name == "range_unsorted":
             mask = vals("l_quantity") > 25
             rf, rfl = _labels(seg, "l_returnflag")
@@ -565,11 +689,37 @@ def check_response(resp, want) -> float:
     return worst
 
 
+def response_as_want(resp) -> Dict[Tuple[str, ...], Dict[str, Any]]:
+    """A grouped response in ``oracle``'s form, to hold another response
+    to it with ``check_response``."""
+    want: Dict[Tuple[str, ...], Dict[str, Any]] = {}
+    for ar in resp.aggregation_results:
+        for g in ar.group_by_result:
+            count = ar.function == "count_star"
+            want.setdefault(tuple(g.group), {})["count" if count else ar.function] = \
+                int(g.value) if count else float(g.value)
+    return want
+
+
+def rows_read(args: dict, lo: torch.Tensor, hi: torch.Tensor) -> int:
+    """Rows a kernel must read: per segment the rows in [lo, hi), and with
+    a block table only those inside its candidate blocks."""
+    lo, hi = lo.long().cpu(), hi.long().cpu()
+    ids = args.get("block_ids")
+    if ids is None:
+        return int((hi - lo).clamp(min=0).sum())
+    blk = int(args["block_rows"])
+    b = ids.long().cpu()
+    start, end = b * blk, (b + 1) * blk
+    span = (torch.minimum(end, hi[:, None]) - torch.maximum(start, lo[:, None])).clamp(min=0)
+    return int(torch.where(b >= 0, span, 0).sum())
+
+
 def k1_bytes(args: dict):
     """(rows, bytes, bytes per row) K1 must read and move for these
-    inputs: every row it
-    has to read (rows below num_docs, inside the doc interval for
-    docrange) read once per input, each dictionary / match table once,
+    inputs: every row it has to read (rows below num_docs, inside the doc
+    interval for docrange, inside the candidate blocks with a block
+    table) read once per input, each dictionary / match table once,
     outputs written once.  The key costs its precombined int32 stream, or,
     when the kernel combines it, each group column's own width and each
     remap table once."""
@@ -578,14 +728,12 @@ def k1_bytes(args: dict):
     n_pad = lead.shape[1]
     if args["filter_fwd"] is None:
         b = args["filter_bounds"].long().cpu()
-        lo = b[:, 0].clamp(min=0)
-        hi = torch.minimum(b[:, 1], nd)
-        rows = int((hi - lo).clamp(min=0).sum())
+        rows = rows_read(args, b[:, 0].clamp(min=0), torch.minimum(b[:, 1], nd))
         per_row = 0
     else:
-        rows = int(nd.clamp(max=n_pad).sum())
+        rows = rows_read(args, torch.zeros_like(nd), nd.clamp(max=n_pad))
         per_row = args["filter_fwd"].element_size()
-    tables = 0
+    tables = 0 if args.get("block_ids") is None else args["block_ids"].numel() * 4
     if args["group_keys"] is not None:
         per_row += 4  # int32 group key
     else:
@@ -607,18 +755,33 @@ def k1_bytes(args: dict):
     return rows, rows * per_row + tables + out, per_row
 
 
-def k1_bound(args: dict):
+def data_bound(rows: int, nbytes: int, per_row: int, ops: int, row_ops: int, args: dict,
+               matched: Optional[int]) -> Tuple[int, int]:
+    """(bytes, operations) this run's data needs.  With ``matched``, the
+    call's matched-row count: the filter stream and its test for every row
+    read, every other stream and operation for the matched rows only (a
+    kernel that reads a row's other streams only where its filter passes
+    needs no more).  Without it, every stream of every row read."""
+    if matched is None:
+        return nbytes, ops
+    has_filter = args.get("filter_fwd") is not None
+    fb = args["filter_fwd"].element_size() if has_filter else 0
+    skipped = rows - matched
+    return nbytes - skipped * (per_row - fb), ops - skipped * (row_ops - (2 if has_filter else 0))
+
+
+def k1_bound(args: dict, matched: Optional[int] = None):
     """(bound ms, "bytes" or "operations", bytes, operations) for these
     inputs: the larger of the bytes over the memory rate and the scalar
-    operations over the non-tensor-core rate.  Operations per row read:
-    the filter test (two compares; none for docrange, whose rows outside
-    the interval are never read), the key combine (a multiply and an add
-    per group column past the first), the key range check (two), the count
-    add and one add per value column."""
-    rows, nbytes, _ = k1_bytes(args)
+    operations over the non-tensor-core rate, for the rows ``data_bound``
+    counts.  Operations per row: the filter test (two compares; none for
+    docrange, whose rows outside the interval are never read), the key
+    combine (a multiply and an add per group column past the first), the
+    key range check (two), the count add and one add per value column."""
+    rows, nbytes, per_row = k1_bytes(args)
     combine = 0 if args["group_keys"] is not None else 2 * (len(args["group_cols"]) - 1)
-    per_row = (0 if args["filter_fwd"] is None else 2) + combine + 3 + len(args["value_raws"])
-    ops = rows * per_row
+    row_ops = (0 if args["filter_fwd"] is None else 2) + combine + 3 + len(args["value_raws"])
+    nbytes, ops = data_bound(rows, nbytes, per_row, rows * row_ops, row_ops, args, matched)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -881,7 +1044,8 @@ def k2_probe_shapes(dev) -> Dict[str, Tuple[str, dict]]:
 def k2_bytes(vsc, mode: str, args: dict):
     """(rows, bytes, bytes per row) value_state must read and move for
     these inputs: every row it has to read (rows below num_docs, inside
-    the doc interval for docrange) once per stream it reads (filter,
+    the doc interval for docrange, inside the candidate blocks with a
+    block table) once per stream it reads (filter,
     group columns, values, rho), each table once, the holder written
     once."""
     nd = args["num_docs"].long().cpu()
@@ -889,13 +1053,15 @@ def k2_bytes(vsc, mode: str, args: dict):
     per_row = 0
     if args.get("filter_fwd") is None and args.get("filter_bounds") is not None:
         b = args["filter_bounds"].long().cpu()
-        rows = int((torch.minimum(b[:, 1], nd) - b[:, 0].clamp(min=0)).clamp(min=0).sum())
+        rows = rows_read(args, b[:, 0].clamp(min=0), torch.minimum(b[:, 1], nd))
     else:
-        rows = int(nd.clamp(max=n_pad).sum())
+        rows = rows_read(args, torch.zeros_like(nd), nd.clamp(max=n_pad))
     for t in (args.get("filter_fwd"), *(args.get("group_cols") or []), args["values"], args.get("rho")):
         if t is not None:
             per_row += t.element_size()
     tables = sum(t.numel() * t.element_size() for t in k2_tables(args) if t is not None)
+    if args.get("block_ids") is not None:
+        tables += args["block_ids"].numel() * 4
     if args.get("match") is not None:
         tables += args["match"].numel()
     K = vsc.index_space(mode, args.get("capacity", 1), args.get("width"))
@@ -903,16 +1069,16 @@ def k2_bytes(vsc, mode: str, args: dict):
     return rows, rows * per_row + tables + out, per_row
 
 
-def k2_bound(vsc, mode: str, args: dict):
+def k2_bound(vsc, mode: str, args: dict, matched: Optional[int] = None):
     """(bound ms, "bytes" or "operations", bytes, operations): the bytes of
     ``k2_bytes`` over the memory rate, or the integer operations per row
-    read (two for the filter test, a multiply and an add per group
-    column and for the value, two more for rho, the range test and the
-    update) over the non-tensor-core rate."""
-    rows, nbytes, _ = k2_bytes(vsc, mode, args)
-    per_row = (2 if args.get("filter_fwd") is not None else 0) + 2 * len(args.get("group_cols") or []) + 2 \
+    (two for the filter test, a multiply and an add per group column and
+    for the value, two more for rho, the range test and the update) over
+    the non-tensor-core rate, for the rows ``data_bound`` counts."""
+    rows, nbytes, per_row = k2_bytes(vsc, mode, args)
+    row_ops = (2 if args.get("filter_fwd") is not None else 0) + 2 * len(args.get("group_cols") or []) + 2 \
         + (2 if mode == "registers" else 0) + 2
-    ops = rows * per_row
+    nbytes, ops = data_bound(rows, nbytes, per_row, rows * row_ops, row_ops, args, matched)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SCALAR_OPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops
@@ -950,16 +1116,18 @@ def value_oracle(hll_mod, segments, name: str) -> Dict[Tuple[str, ...], Any]:
     the set of matched values, percentiles as sorted[int(n p / 100)] over
     the matched values, HLL estimates from registers that the port's own
     hashing builds over the set of matched values."""
-    if name in ("distinct_price", "hll_price"):
+    if name in ("distinct_price", "hll_price", "zone_distinct"):
         seen = set()
         for seg in segments:
-            if name == "distinct_price":
+            if name == "zone_distinct":
+                rows = _rows_where(seg, "l_shipdate", lambda v: v in ZONE_DATES)
+            elif name == "distinct_price":
                 q = seg.column("l_quantity")
                 rows = (np.asarray(q.dictionary.values, dtype=np.float64) > 25)[q.fwd]
             else:
                 rows = _rows_where(seg, "l_shipmode", lambda v: v == "AIR")
             seen.update(_present(seg.column("l_extendedprice"), rows))
-        if name == "distinct_price":
+        if name in ("distinct_price", "zone_distinct"):
             return {(): len(seen)}
         return {(): int(hll_mod.estimate_from_registers(hll_mod.registers_from_values(seen)))}
     if name == "hll_groupby":
@@ -1494,7 +1662,7 @@ class _Fleet:
         """The last ``last`` samples of a server phase timer, every server."""
         out = []
         for server in self.servers.values():
-            out += list(server.metrics.timer(name)._samples)[-last:]
+            out += server.metrics.timer(name).samples()[-last:]
         return out
 
     def close(self) -> None:
@@ -1731,6 +1899,296 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 10. the deployed cluster: a controller, two servers and a broker, each
+# its own process, through the admin CLI
+# ---------------------------------------------------------------------------
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+_ROLES: List["_Role"] = []  # every role process started, stopped at exit too
+
+
+class _Role:
+    """One role process: ``python -m pinot_tpu_torch.tools.admin <args>``
+    from the checkout, its output in a log file."""
+
+    def __init__(self, name: str, args: List[str], log_dir: str) -> None:
+        self.name = name
+        self.log = open(os.path.join(log_dir, f"{name}.log"), "w+")
+        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.proc = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args],
+                                     cwd=REPO_DIR, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True)
+        _ROLES.append(self)
+
+    def tail(self, n: int = 3000) -> str:
+        self.log.flush()
+        self.log.seek(0)
+        return self.log.read()[-n:]
+
+    def check_alive(self) -> None:
+        if self.proc.poll() is not None:
+            raise AssertionError(f"deployed {self.name} exited with {self.proc.returncode}:\n{self.tail()}")
+
+    def ready(self, deadline_s: float) -> List[str]:
+        """The words of its ``READY`` line; raises when it exits first or
+        prints none within ``deadline_s``."""
+        end = time.monotonic() + deadline_s
+        while time.monotonic() < end:
+            self.check_alive()
+            for line in self.tail(1 << 20).splitlines():
+                if line.startswith("READY "):
+                    return line.split()
+            time.sleep(0.2)
+        raise AssertionError(f"deployed {self.name}: not READY within {deadline_s} s:\n{self.tail()}")
+
+    def stop(self) -> int:
+        """SIGTERM and a wait (a kill past 60 s); the exit code."""
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        self.log.close()
+        return self.proc.returncode
+
+
+def _stop_roles() -> Dict[str, int]:
+    codes = {}
+    while _ROLES:
+        role = _ROLES.pop()
+        codes[role.name] = role.stop()
+    return codes
+
+
+atexit.register(_stop_roles)
+
+
+def http_json(url: str, data: bytes = None, ctype: str = "application/json") -> Any:
+    req = urllib.request.Request(url, data=data, headers={"Content-Type": ctype} if data is not None else {})
+    with urllib.request.urlopen(req, timeout=DEPLOY_REQUEST_S) as r:
+        return json.loads(r.read())
+
+
+def response_from_json(d: dict):
+    """A broker reply's JSON as a ``BrokerResponse`` (values as the client
+    reads them: integers, else floats of the printed decimals)."""
+    from pinot_tpu_torch.common.response import (
+        AggregationResult,
+        BrokerResponse,
+        GroupByResult,
+        QueryException,
+        SelectionResults,
+    )
+
+    def num(v):
+        try:
+            return int(v)
+        except (TypeError, ValueError):
+            return float(v)
+
+    aggs = None
+    if "aggregationResults" in d:
+        aggs = []
+        for a in d["aggregationResults"]:
+            if "groupByResult" in a:
+                aggs.append(AggregationResult(a["function"], group_by_columns=a["groupByColumns"], group_by_result=[
+                    GroupByResult(list(g["group"]), num(g["value"])) for g in a["groupByResult"]]))
+            else:
+                aggs.append(AggregationResult(a["function"], value=num(a["value"])))
+    sel = d.get("selectionResults")
+    return BrokerResponse(
+        aggregation_results=aggs,
+        selection_results=None if sel is None else SelectionResults(sel["columns"], sel["results"]),
+        exceptions=[QueryException(e["errorCode"], e["message"]) for e in d["exceptions"]],
+        cost=d.get("cost", {}), time_used_ms=d.get("timeUsedMs", 0.0),
+    )
+
+
+def check_deployed(name: str, d: dict, want) -> None:
+    """A reply of the deployed broker against its oracle, as phase 9
+    holds its replies (selection rows as the client reads them)."""
+    from pinot_tpu_torch.common.response import SelectionResults
+
+    if name in SELECTION_QUERIES:
+        if d["exceptions"] or d.get("cost", {}).get("segmentsHost"):
+            raise AssertionError(f"deployed {name}: {d['exceptions']} {d.get('cost')}")
+        cols, rows = want
+        if d.get("selectionResults") != SelectionResults(cols, rows).to_json():
+            raise AssertionError(f"deployed {name}: {d.get('selectionResults')} != oracle {cols} {rows}")
+        return
+    if name in ZONE_QUERIES:
+        resp = response_from_json(d)
+        if resp.exceptions or resp.cost.get("segmentsHost"):
+            raise AssertionError(f"deployed {name}: {d['exceptions']} {resp.cost}")
+        (check_response if name == "zone_in" else check_value_response)(resp, want)
+        return
+    check_served(name, response_from_json(d), want)
+
+
+def require_launch(label: str, launches: Dict[str, int], kernel: str) -> None:
+    """A query of the path must have launched ``kernel`` (None: no need)."""
+    if kernel is not None and launches[kernel] < 1:
+        raise AssertionError(f"{label}: kernel {kernel} was not launched")
+
+
+def deployed_phase(segments, wants, record) -> None:
+    """10. The lineitem table as a deployment runs it: the segments written
+    as files, a controller, two servers and a broker started as processes
+    of the admin CLI, the files uploaded through the controller, and the
+    queries sent to the broker's HTTP endpoint."""
+    from pinot_tpu_torch.common.tableconfig import TableConfig
+    from pinot_tpu_torch.segment.format import write_segment
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    rec = record["deployed"] = {"queries": {}}
+    tmp = tempfile.mkdtemp(prefix="pinot-deployed-")
+    t_phase = time.perf_counter()
+    try:
+        # the segment files
+        files, write_s = [], []
+        for seg in segments:
+            t = time.perf_counter()
+            files.append(write_segment(seg, os.path.join(tmp, "files", seg.segment_name)))
+            write_s.append(time.perf_counter() - t)
+        file_bytes = sum(os.path.getsize(f) for f in files)
+        log(f"deployed: wrote {len(files)} segment files ({file_bytes} bytes, zone maps included) in "
+            f"{sum(write_s):.1f} s, {float(np.median(write_s)):.3f} s per segment (median)")
+        rec.update(write_s_per_segment=float(np.median(write_s)), write_s=sum(write_s), file_bytes=file_bytes)
+
+        # the role processes
+        t = time.perf_counter()
+        ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
+                                    "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
+        url = ctrl.ready(DEPLOY_READY_S)[2]
+        servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
+                                                      "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp)
+                   for i in range(2)}
+        admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
+        broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
+                                  "-device", DEPLOY_DEVICE], tmp)
+        broker_url = broker.ready(DEPLOY_READY_S)[2]
+        start_s = time.perf_counter() - t
+        log(f"deployed: controller {url}, servers {admin}, broker {broker_url}: every role READY in {start_s:.1f} s")
+        rec["start_s"] = start_s
+
+        def alive():
+            for role in (ctrl, broker, *servers.values()):
+                role.check_alive()
+
+        # schema, table, then the files through the controller
+        http_json(url + "/schemas", json.dumps(lineitem_schema().to_json()).encode())
+        http_json(url + "/tables", json.dumps(TableConfig("lineitem").to_json()).encode())
+        table = "lineitem_OFFLINE"
+        t = time.perf_counter()
+        held = {n: 0 for n in servers}
+        for path in files:
+            with open(path, "rb") as f:
+                reply = http_json(f"{url}/segments/{table}", f.read(), "application/octet-stream")
+            for n in reply["servers"]:
+                held[n] += 1
+        upload_s = time.perf_counter() - t
+        if sorted(held.values()) != [len(files) // 2] * 2:
+            raise AssertionError(f"deployed: assignment {held}, not {len(files) // 2} segments a server")
+        t = time.perf_counter()
+        end = t + DEPLOY_ONLINE_S
+        while True:
+            alive()
+            view = http_json(broker_url + "/debug/routing").get(table) or {}
+            if len(view) == len(files) and all(r and all(v == "ONLINE" for v in r.values()) for r in view.values()):
+                break
+            bad = {s_: r for s_, r in http_json(f"{url}/tables/{table}/externalview").items()
+                   if "ERROR" in r.values()}
+            if bad:
+                raise AssertionError(f"deployed: segments in ERROR {bad}")
+            if time.monotonic() > end:
+                raise AssertionError(f"deployed: not every segment ONLINE in {DEPLOY_ONLINE_S} s: {view}")
+            time.sleep(0.2)
+        online_s = time.perf_counter() - t
+        loads = {n: http_json(a + "/debug/samples?timer=segmentLoad")["samples"] for n, a in admin.items()}
+        if any(len(v) != len(files) // 2 for v in loads.values()):
+            raise AssertionError(f"deployed: segment loads {loads}")
+        log(f"deployed: upload of {len(files)} files {upload_s:.1f} s; from the last upload to every segment "
+            f"ONLINE in the broker's routing {online_s:.1f} s; each server holds {held}; segment load ms per "
+            f"server (median, max) { {n: (round(float(np.median(v)), 1), round(max(v), 1)) for n, v in loads.items()} }")
+        rec.update(upload_s=upload_s, online_s=online_s, held=held,
+                   load_ms={n: {"median": float(np.median(v)), "max": max(v), "all": v} for n, v in loads.items()})
+
+        # pairs_distinct: each server trims its own groups first
+        ideal = http_json(f"{url}/tables/{table}/idealstate")
+        by_name = {s_.segment_name: s_ for s_ in segments}
+        covers = [[by_name[s_] for s_ in sorted(ideal, key=lambda x: int(x[2:])) if n in ideal[s_]] for n in servers]
+        wants = dict(wants, pairs_distinct=served_distinct_oracle(covers))
+        pqls = {**QUERIES, **VALUE_QUERIES, **SELECTION_QUERIES, **PAIR_QUERIES, **ZONE_QUERIES}
+        need = {"q1": "k1", "q3": "k1", "hll_groupby": "k2", "distinct_price": "k2", "pairs_distinct": "k1",
+                "zone_in": "k1", "zone_distinct": "k2"}
+
+        def launches():
+            out = {"k1": 0, "k2": 0}
+            for a in admin.values():
+                got = http_json(a + "/debug/metrics")["kernelLaunches"]
+                out = {k: out[k] + got[k] for k in out}
+            return out
+
+        # the path: one request a query, the servers' launches read just
+        # before and just after each
+        per_query, totals = {}, {"k1": 0, "k2": 0}
+        t = time.perf_counter()
+        for name in DEPLOY_QUERIES:
+            before = launches()
+            d = http_json(broker_url + "/query", json.dumps({"pql": pqls[name]}).encode())
+            after = launches()
+            check_deployed(name, d, wants[name])
+            per_query[name] = {k: after[k] - before[k] for k in after}
+            totals = {k: totals[k] + per_query[name][k] for k in totals}
+            require_launch(f"deployed {name}", per_query[name], need.get(name))
+        wall_s = time.perf_counter() - t
+        record["paths"]["deployed"] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
+        log(f"path deployed (staging included): {wall_s:.1f} s, launches on the servers per query {per_query}, "
+            f"total {totals}; every answer equal to its oracle through the broker's HTTP endpoint")
+
+        # broker latency over SERVE_ITERS requests after warm-up, and the
+        # servers' own medians of those requests
+        phases = ("schedulerWait", "staging", "planBuild", "laneWait", "laneDispatch", "planExec", "finalize")
+        for name in DEPLOY_QUERIES:
+            body = json.dumps({"pql": pqls[name]}).encode()
+            for _ in range(SERVE_WARMUP):
+                check_deployed(name, http_json(broker_url + "/query", body), wants[name])
+            broker_ms, client_ms = [], []
+            for _ in range(SERVE_ITERS):
+                t = time.perf_counter()
+                d = http_json(broker_url + "/query", body)
+                client_ms.append((time.perf_counter() - t) * 1e3)
+                broker_ms.append(d["timeUsedMs"])
+                if d["exceptions"] or d.get("cost", {}).get("segmentsHost"):
+                    raise AssertionError(f"deployed {name}: {d['exceptions']} {d.get('cost')}")
+            check_deployed(name, d, wants[name])
+            split = {}
+            for ph in phases:
+                samples = []
+                for a in admin.values():
+                    samples += http_json(f"{a}/debug/samples?timer=phase.{ph}&last={SERVE_ITERS}")["samples"]
+                split[ph] = float(np.median(samples)) if samples else None
+            q = dict(p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
+                     client_p50_ms=float(np.percentile(client_ms, 50)),
+                     client_p99_ms=float(np.percentile(client_ms, 99)), server_ms=split,
+                     in_process_ms=record["query_ms"].get(name),
+                     phase9_p50_ms=record.get("serving", {}).get("queries", {}).get(name, {}).get("p50_ms"))
+            rec["queries"][name] = q
+            log(f"deployed {name}: broker p50 {q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over {SERVE_ITERS} "
+                f"(HTTP client p50 {q['client_p50_ms']:.3f}, p99 {q['client_p99_ms']:.3f}); server medians "
+                f"{ {k: (None if v is None else round(v, 4)) for k, v in split.items()} } ms")
+        alive()
+    finally:
+        codes = _stop_roles()
+        rec["exit_codes"] = codes
+        log(f"deployed: every role stopped with SIGTERM, exit codes {codes}; phase {time.perf_counter() - t_phase:.1f} s")
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(codes.values()):
+        raise AssertionError(f"deployed: a role did not exit cleanly {codes}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -1794,7 +2252,7 @@ def run(dev: torch.device, opts) -> int:
         ("x32", torch.float32, AUDIT_RTOL, AUDIT_ATOL),
         ("x64", torch.float64, X64_RTOL, X64_ATOL),
     ):
-        for cname, args in k1_cases(fg, dev, dtype).items():
+        for cname, args in with_block_tables(k1_cases(fg, dev, dtype), K1_BLOCK_CASES, dev).items():
             err, tiers = compare_k1(fg, args, rtol, atol)
             log(f"k1 check {mode} {cname}: ok in tiers {tiers}, deterministic, max_abs_err {err:.6g}")
             record["k1_checks"][f"{mode}/{cname}"] = {"max_abs_err": err, "tiers": tiers}
@@ -1804,7 +2262,7 @@ def run(dev: torch.device, opts) -> int:
         log(f"k2 check precombined {cname}: ok in tiers {tiers}, equal to torch.bincount and the "
             f"plain version, deterministic, max_abs_err {err:.6g}")
         record["k2_checks"][f"precombined/{cname}"] = {"max_abs_err": err, "tiers": tiers}
-    for cname, (mode, args) in k2_value_cases(dev).items():
+    for cname, (mode, args) in with_block_tables(k2_value_cases(dev), K2_BLOCK_CASES, dev, k2=True).items():
         tiers = compare_k2_value(vsc, mode, args)
         log(f"k2 check {cname}: ok in tiers {tiers}, bit-equal to the plain version, deterministic")
         record["k2_checks"][cname] = {"max_abs_err": 0.0, "tiers": tiers}
@@ -2103,7 +2561,8 @@ def run(dev: torch.device, opts) -> int:
         if "keys" in captured:  # the torch-op route still combines its key (min/max need it)
             ka, kk = captured["keys"]
             key_ms, _ = cuda_ms(lambda: restore[1](*ka, **kk), ITERS)
-        bound, bound_by, nbytes, ops = k1_bound(args)
+        matched = int(fg.fused_filtered_groupby_sums(**args)[0])
+        bound, bound_by, nbytes, ops = k1_bound(args, matched)
         read_ms = None
         if name == "q1":  # the practical ceiling: one plain streaming read of a float32 stream
             raw = args["value_raws"][0]
@@ -2113,8 +2572,8 @@ def run(dev: torch.device, opts) -> int:
                 f"{raw_bytes / (read_ms / 1e3) / 1e12:.3f} TB/s")
         key_form = ("group_cols " + "+".join(str(g.dtype).replace("torch.", "") for g in args["group_cols"])
                     + ("" if fused else ", key combine still run for min/max, the HLL sort or the pairs"))
-        log(f"k1 {name} ({key_form}, K={args['capacity']}, nv={len(args['value_dicts'])}, tier {tier}): "
-            f"{k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; "
+        log(f"k1 {name} ({key_form}, K={args['capacity']}, nv={len(args['value_dicts'])}, tier {tier}, "
+            f"{matched} rows matched): {k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; "
             f"{bound / k_ms:.3f} of the bound, {nbytes / (k_ms / 1e3) / 1e12:.3f} TB/s), tiers "
             f"{ {t: round(v, 4) for t, v in tier_ms.items()} }, plain {p_ms:.4f} ms, key combine "
             f"{'none (in the kernel)' if key_ms is None else f'{key_ms:.4f} ms'}, max_abs_err {err:.6g}")
@@ -2155,10 +2614,12 @@ def run(dev: torch.device, opts) -> int:
         pre_ms, _ = cuda_ms(lambda: vsc.value_state_counts(idx, K), ITERS)
         pre_dev_ms = sum(device_ms(lambda: vsc.value_state_counts(idx, K)).values())
         lib_ms, _ = cuda_ms(lambda: torch.bincount(idx.reshape(-1), minlength=K + 1)[:K], ITERS)
-        bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args)
+        matched = int(vsc.value_state(mode, **args)[0])
+        bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
         old_bound = k2_index_bound(idx, K)[0]
         del idx, counts
-        log(f"k2 {name} ({mode}, K={K}, tier {tier}): {k_ms:.4f} ms per call, {dev_ms:.4f} ms on the device "
+        log(f"k2 {name} ({mode}, K={K}, tier {tier}, {matched} rows matched): {k_ms:.4f} ms per call, "
+            f"{dev_ms:.4f} ms on the device "
             f"(bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; per call {bound / k_ms:.3f} "
             f"of it, on the device {bound / dev_ms:.3f}, {nbytes / (dev_ms / 1e3) / 1e12:.3f} TB/s; old bound "
             f"over the combined index {old_bound:.4f} ms, {old_bound / dev_ms:.3f} of the device time), tiers "
@@ -2384,11 +2845,193 @@ def run(dev: torch.device, opts) -> int:
     serve_phase(dev, segments, wants, record, fg, vsc)
     log(f"serving phase: {time.perf_counter() - t0:.1f} s")
 
+    # 10a. zone maps in process: zone_in through K1's fused route and
+    # zone_distinct through K2's over the candidate zone blocks only (the
+    # kernels read them in place), then the same queries as full scans
+    # (zone_maps=False), each against its host oracle
+    t0 = time.perf_counter()
+    zone_requests = {k: parse(v) for k, v in ZONE_QUERIES.items()}
+    wants["zone_in"] = oracle(segments, "zone_in")
+    wants["zone_distinct"] = value_oracle(hll_mod, segments, "zone_distinct")
+    zex = QueryExecutor(device=dev, precision="x32")
+    zfull = QueryExecutor(device=dev, precision="x32", zone_maps=False)
+    zone_need = {"zone_in": ("k1",), "zone_distinct": ("k2",)}
+    record["zone"] = {}
+    for path, executor, blocks in (("zone_blocks", zex, 2), ("zone_full", zfull, 0)):
+        b0 = kernel_mod.block_dispatches
+        answers = drive(path, zone_requests, segments, zone_need, executor=executor)
+        routes = (kernel_mod.fused_dispatches, kernel_mod.fused_value_dispatches,
+                  kernel_mod.block_dispatches - b0)
+        if routes != (1, 1, blocks):
+            raise AssertionError(f"{path}: fused, fused value and block dispatches {routes}, not (1, 1, {blocks})")
+        worst = check_response(answers["zone_in"], wants["zone_in"])
+        check_value_response(answers["zone_distinct"], wants["zone_distinct"])
+        log(f"oracle {path}: zone_in ok (max rel sum err {worst:.3g}), zone_distinct ok, exact "
+            f"({answers['zone_distinct'].aggregation_results[0].value})")
+    for name, req in zone_requests.items():
+        on, off = zex.execute(segments, req), zfull.execute(segments, req)
+        ms_on, _ = cuda_ms(lambda: reduce_to_response(req, [zex.execute(segments, req)]), ITERS)
+        ms_off, _ = cuda_ms(lambda: reduce_to_response(req, [zfull.execute(segments, req)]), ITERS)
+        z = record["zone"][name] = dict(blocks_ms=ms_on, full_ms=ms_off,
+                                        scanned_rows=on.num_entries_scanned_in_filter,
+                                        full_rows=off.num_entries_scanned_in_filter,
+                                        segments_zonemap=on.cost.get("segmentsZonemap"))
+        log(f"query {name}: {ms_on:.3f} ms median of {ITERS} over the candidate blocks "
+            f"({z['scanned_rows']} rows scanned in the filter, segmentsZonemap {z['segments_zonemap']}); "
+            f"{ms_off:.3f} ms as a full scan ({z['full_rows']} rows)")
+    # the switch on both sides: each sweep query over the blocks with the
+    # switch forced open (its window: nb_pad over a segment's blocks), and
+    # as a full scan; answers equal (counts and distinct counts exactly,
+    # sums within the audit band), the host time of the decision
+    # (candidate map and block table), and the query's K1 or K2 launch
+    # timed alone on each path
+    record["zone_sweep"] = {}
+    skip_ms, window = [], {}
+
+    def kernel_ms(executor, req, key: str) -> float:
+        """Per-call ms of the query's K1 (``key`` "k1") or K2 launch, as
+        ``executor`` hands it the inputs."""
+        captured.clear()
+        restore = (_capture(fg, "fused_filtered_groupby_sums", captured, "k1"),
+                   _capture(vsc, "value_state", captured, "k2"))
+        try:
+            executor.execute(segments, req)
+        finally:
+            fg.fused_filtered_groupby_sums, vsc.value_state = restore
+        if key == "k1":
+            a, k = captured.pop("k1")
+            args = {**dict(zip(names, a)), **k}
+            return cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)[0]
+        (mode, *rest), kw = captured.pop("k2")
+        args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+        return cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)[0]
+
+    real_skip = zex._block_skip_ids
+
+    def timed_skip(plan, q_np, live, staged):
+        t = time.perf_counter()
+        rows = real_skip(plan, q_np, live, staged)
+        skip_ms.append((time.perf_counter() - t) * 1e3)
+        window["nb_pad"] = None if rows is None else q_np["block_ids"].shape[1]
+        window["blocks"] = staged.n_pad // config.ZONE_BLOCK
+        return rows
+
+    zex._block_skip_ids = timed_skip
+    fraction, config.ZONE_MAX_FRACTION = config.ZONE_MAX_FRACTION, 1.0
+    try:
+        for name, pql in zone_sweep_queries(segments[0]).items():
+            req = parse(pql)
+            b0 = kernel_mod.block_dispatches
+            on, off = zex.execute(segments, req), zfull.execute(segments, req)
+            if kernel_mod.block_dispatches != b0 + 1:
+                raise AssertionError(f"zone sweep {name}: the block path did not engage")
+            r_on, r_off = reduce_to_response(req, [on]), reduce_to_response(req, [off])
+            if name.startswith("zone_in"):
+                check_response(r_on, response_as_want(r_off))
+            elif r_on.aggregation_results[0].value != r_off.aggregation_results[0].value:
+                raise AssertionError(f"zone sweep {name}: {r_on.aggregation_results[0].value} over the "
+                                     f"blocks != {r_off.aggregation_results[0].value} as a full scan")
+            skip_ms.clear()
+            ms_on, _ = cuda_ms(lambda: reduce_to_response(req, [zex.execute(segments, req)]), ITERS)
+            ms_off, _ = cuda_ms(lambda: reduce_to_response(req, [zfull.execute(segments, req)]), ITERS)
+            key = "k1" if name.startswith("zone_in") else "k2"
+            z = record["zone_sweep"][name] = dict(
+                blocks_ms=ms_on, full_ms=ms_off, window=window["nb_pad"] / window["blocks"],
+                scanned_share=on.num_entries_scanned_in_filter / off.num_entries_scanned_in_filter,
+                decision_ms=float(np.median(skip_ms)), kernel=key,
+                kernel_blocks_ms=kernel_ms(zex, req, key), kernel_full_ms=kernel_ms(zfull, req, key))
+            log(f"zone sweep {name}: window {window['nb_pad']} of {window['blocks']} blocks a segment "
+                f"({z['window']:.4f}), candidate rows {z['scanned_share']:.4f} of the table; {ms_on:.3f} ms "
+                f"median of {ITERS} over the blocks (decision {z['decision_ms']:.4f} ms on the host), "
+                f"{ms_off:.3f} ms as a full scan; {key} {z['kernel_blocks_ms']:.4f} ms per call over the "
+                f"blocks, {z['kernel_full_ms']:.4f} ms as a full scan")
+    finally:
+        config.ZONE_MAX_FRACTION = fraction
+        zex._block_skip_ids = real_skip
+
+    # K1 and K2 at the block path's launch shapes and the full scan's
+    record["k1_zone"], record["k2_zone"] = {}, {}
+    for label, executor in (("blocks", zex), ("full", zfull)):
+        captured.clear()
+        restore = (_capture(fg, "fused_filtered_groupby_sums", captured, "k1"),
+                   _capture(vsc, "value_state", captured, "k2"))
+        try:
+            executor.execute(segments, zone_requests["zone_in"])
+            executor.execute(segments, zone_requests["zone_distinct"])
+        finally:
+            fg.fused_filtered_groupby_sums, vsc.value_state = restore
+        a, k = captured["k1"]
+        args = {**dict(zip(names, a)), **k}
+        if (args.get("block_ids") is not None) != (label == "blocks"):
+            raise AssertionError(f"k1 zone_in {label}: block table {args.get('block_ids') is not None}")
+        err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
+        k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
+        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
+        rows = k1_bytes(args)[0]
+        matched = int(fg.fused_filtered_groupby_sums(**args)[0])
+        bound, bound_by, nbytes, ops = k1_bound(args, matched)
+        all_rows = k1_bound(args)[0]
+        shape = list(args["block_ids"].shape) + [args["block_rows"]] if label == "blocks" else \
+            list(args["group_cols"][0].shape)
+        log(f"k1 zone_in {label} ({'[S, nb_pad, block]' if label == 'blocks' else '[S, n_pad]'} = {shape}, "
+            f"{rows} rows read, {matched} matched, tier {fg.choose_tier(*k1_shape(fg, args))}): {k_ms:.4f} ms "
+            f"(bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; {bound / k_ms:.3f} of the "
+            f"bound; {all_rows:.4f} ms charging every stream of every row read), plain {p_ms:.4f} ms, "
+            f"tiers checked {tiers}, max_abs_err {err:.6g}")
+        record["k1_zone"][label] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                                        operations=ops, rows=rows, matched=matched, all_rows_bound_ms=all_rows,
+                                        shape=shape, max_abs_err=err, tiers=tiers)
+        (mode, *rest), kw = captured["k2"]
+        args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+        tiers = compare_k2_value(vsc, mode, args)
+        k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+        dev_ms = sum(device_ms(lambda: vsc.value_state(mode, **args)).values())
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+        rows = k2_bytes(vsc, mode, args)[0]
+        matched = int(vsc.value_state(mode, **args)[0])
+        bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
+        all_rows = k2_bound(vsc, mode, args)[0]
+        idx, K, _ = vsc.combine_index(mode, **args)
+        lib_ms, _ = cuda_ms(lambda: torch.bincount(idx.reshape(-1), minlength=K + 1)[:K], ITERS)
+        del idx
+        shape = list(args["block_ids"].shape) + [args["block_rows"]] if label == "blocks" else \
+            list(args["values"].shape)
+        log(f"k2 zone_distinct {label} ({mode}, K={K}, shape {shape}, {rows} rows read, {matched} matched): "
+            f"{k_ms:.4f} ms per call, {dev_ms:.4f} ms on the device (bound {bound:.4f} ms by {bound_by}: {nbytes} "
+            f"bytes, {ops} operations; per call {bound / k_ms:.3f} of it; {all_rows:.4f} ms charging every stream "
+            f"of every row read), plain {p_ms:.4f} ms, torch.bincount over the combined index "
+            f"{lib_ms:.4f} ms, tiers checked {tiers}, max_abs_err 0")
+        record["k2_zone"][label] = dict(mode=mode, K=K, ms=k_ms, device_ms=dev_ms, plain_ms=p_ms, bound_ms=bound,
+                                        bound_by=bound_by, bytes=nbytes, operations=ops, rows=rows, matched=matched,
+                                        all_rows_bound_ms=all_rows, shape=shape, library_ms=lib_ms, tiers=tiers,
+                                        max_abs_err=0.0)
+        del args
+    zex.free_staging()
+    zfull.free_staging()
+    del zex, zfull
+    torch.cuda.empty_cache()
+    log(f"zone phase: {time.perf_counter() - t0:.1f} s")
+
+    # 10b. the deployed cluster, each role its own process
+    t0 = time.perf_counter()
+    deployed_phase(segments, wants, record)
+    log(f"deployed phase: {time.perf_counter() - t0:.1f} s")
+
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():
         for kern in launches:
             launches[kern] += path["totals"][kern]
     q1, hg = record["k1"]["q1"], record["k2"]["hll_groupby"]
+    zk1, zk2 = record["k1_zone"], record["k2_zone"]
+
+    def block_path(query: str, z: dict) -> dict:
+        b, f = z["blocks"], z["full"]
+        return {"query": query, "shape_S_nb_pad_block": b["shape"], "rows": b["rows"], "matched": b["matched"],
+                "ms": b["ms"],
+                "plain_ms": b["plain_ms"], "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "full_scan_ms": f["ms"], "full_scan_bound_ms": f["bound_ms"],
+                "launches": record["paths"]["zone_blocks"]["launches"][query]}
+
     summary = {"kernels": [
         {
             "name": "fused_filtered_groupby_sums",
@@ -2402,6 +3045,7 @@ def run(dev: torch.device, opts) -> int:
             "bound_ms": q1["bound_ms"],
             "bound_by": q1["bound_by"],
             "library_ms": None,
+            "block_path": block_path("zone_in", zk1),
         },
         {
             "name": "value_state_counts",
@@ -2415,6 +3059,7 @@ def run(dev: torch.device, opts) -> int:
             "bound_ms": hg["bound_ms"],
             "bound_by": hg["bound_by"],
             "library_ms": hg["library_ms"],
+            "block_path": dict(block_path("zone_distinct", zk2), library_ms=zk2["blocks"]["library_ms"]),
         },
     ]}
     record["summary"] = summary

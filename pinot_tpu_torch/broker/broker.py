@@ -18,20 +18,26 @@ gave up on; a per-server circuit breaker (``broker/health.py``) steers
 routing off repeat offenders; segments still unserved after retries
 flip ``partialResponse`` and count into ``numSegmentsUnserved``.
 
+``BrokerHttpServer`` is the client's endpoint: ``GET /query?pql=`` and
+``POST /query {"pql": ...}`` answer the broker response JSON.
+
 Left out of the port, for later slices: admission and quota, hedging,
 the SLO / tail-sample / flight-recorder / history planes, the slow-query
-log, plan statistics, EXPLAIN, joins, the freshness stamp, the HTTP
-server and the replica auditor.
+log, plan statistics, EXPLAIN, joins, the freshness stamp and the
+replica auditor.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import json
 import logging
 import math
 import threading
 import time
 import uuid
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Set, Tuple
+from urllib.parse import parse_qs, urlparse
 
 from pinot_tpu_torch.broker.health import ServerHealthTracker
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
@@ -42,7 +48,7 @@ from pinot_tpu_torch.common.response import BrokerResponse, ErrorCode, QueryExce
 from pinot_tpu_torch.engine.reduce import reduce_to_response
 from pinot_tpu_torch.engine.results import IntermediateResult
 from pinot_tpu_torch.pql import PqlParseError, optimize_request, parse_pql
-from pinot_tpu_torch.utils.metrics import BrokerMetrics
+from pinot_tpu_torch.utils.metrics import BrokerMetrics, prometheus_text
 from pinot_tpu_torch.utils.trace import NULL_TRACE, TraceContext, merge_scope
 
 logger = logging.getLogger(__name__)
@@ -662,3 +668,96 @@ def _parse_timeout(v) -> Optional[float]:
     if math.isnan(t) or math.isinf(t) or t <= 0:
         raise InvalidTimeoutError(f"timeoutMs must be a positive number, got {v!r}")
     return t
+
+
+def _parse_debug_options(s: str) -> Optional[Dict[str, str]]:
+    """``"k=v;k2=v2"`` -> dict (the reference's debug option string)."""
+    out: Dict[str, str] = {}
+    for part in (s or "").split(";"):
+        k, sep, v = part.strip().partition("=")
+        if sep and k.strip():
+            out[k.strip()] = v.strip()
+    return out or None
+
+
+class BrokerHttpServer:
+    """HTTP endpoint: GET /query?pql=... and POST /query {"pql": ...}
+    (``PinotClientRequestServlet.java:54/:73``), plus ``/health``,
+    ``/metrics``, ``/debug/metrics`` and ``/debug/routing`` (each table's
+    view of segment -> {server: state}, as this broker routes it)."""
+
+    def __init__(self, handler: BrokerRequestHandler, host: str = "127.0.0.1", port: int = 0):
+        broker = handler
+
+        class _Handler(BaseHTTPRequestHandler):
+            def log_message(self, *args):
+                pass
+
+            def _send(self, body: bytes, ctype: str, status: int = 200) -> None:
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def _respond(self, payload: Dict[str, Any], status: int = 200) -> None:
+                self._send(json.dumps(payload).encode("utf-8"), "application/json", status)
+
+            def _query(self, pql: str, trace: bool, debug, timeout_raw) -> None:
+                try:
+                    timeout_ms = _parse_timeout(timeout_raw)
+                except InvalidTimeoutError as e:
+                    resp = BrokerResponse(exceptions=[QueryException(ErrorCode.QUERY_VALIDATION, str(e))])
+                    return self._respond(resp.to_json())
+                resp = broker.handle_pql(pql, trace=trace, debug_options=debug, timeout_ms=timeout_ms)
+                self._respond(resp.to_json())
+
+            def do_GET(self):
+                url = urlparse(self.path)
+                if url.path not in ("/query", "/"):
+                    if url.path == "/health":
+                        return self._respond({"status": "ok"})
+                    if url.path == "/metrics":
+                        return self._send(prometheus_text(broker.metrics).encode("utf-8"),
+                                          "text/plain; version=0.0.4")
+                    if url.path == "/debug/metrics":
+                        return self._respond(broker.metrics.snapshot())
+                    if url.path == "/debug/routing":
+                        return self._respond({t: broker.routing.view_of(t) for t in broker.routing.tables()})
+                    return self._respond({"error": "not found"}, 404)
+                qs = parse_qs(url.query)
+                pql = (qs.get("pql") or qs.get("bql") or [""])[0]
+                trace = (qs.get("trace") or ["false"])[0].lower() == "true"
+                debug = _parse_debug_options((qs.get("debugOptions") or [""])[0])
+                self._query(pql, trace, debug, (qs.get("timeoutMs") or [""])[0])
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", "0"))
+                try:
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                except json.JSONDecodeError as e:
+                    return self._respond({"exceptions": [{"errorCode": ErrorCode.JSON_PARSING, "message": str(e)}]})
+                debug = body.get("debugOptions") or ""
+                if isinstance(debug, dict):
+                    debug = {str(k): str(v) for k, v in debug.items()}
+                else:
+                    debug = _parse_debug_options(debug if isinstance(debug, str) else "")
+                self._query(body.get("pql") or body.get("bql") or "", bool(body.get("trace")), debug,
+                            body.get("timeoutMs"))
+
+        self._httpd = ThreadingHTTPServer((host, port), _Handler)
+        self.host = host
+        self.port = self._httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def url(self) -> str:
+        return f"http://{self.host}:{self.port}"
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()

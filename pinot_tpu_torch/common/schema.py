@@ -8,6 +8,7 @@ is a set of DIMENSION / METRIC / TIME columns over five stored types
 """
 from __future__ import annotations
 
+import json
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, Dict, List, Optional
@@ -87,6 +88,7 @@ class FieldSpec:
     data_type: DataType
     field_type: FieldType = FieldType.DIMENSION
     single_value: bool = True
+    default_null_value: Optional[Any] = None
 
     def __post_init__(self) -> None:
         self.data_type = DataType(self.data_type)
@@ -98,6 +100,28 @@ class FieldSpec:
     def stored_type(self) -> DataType:
         return self.data_type.stored_type
 
+    def to_json(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "name": self.name,
+            "dataType": self.data_type.value,
+            "fieldType": self.field_type.value,
+            "singleValueField": self.single_value,
+        }
+        if self.default_null_value is not None:
+            d["defaultNullValue"] = self.default_null_value
+        return d
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any], field_type: Optional[FieldType] = None) -> "FieldSpec":
+        ft = field_type or FieldType(d.get("fieldType", "DIMENSION"))
+        return cls(
+            name=d["name"],
+            data_type=DataType(d["dataType"]),
+            field_type=ft,
+            single_value=d.get("singleValueField", True),
+            default_null_value=d.get("defaultNullValue"),
+        )
+
 
 @dataclass
 class TimeFieldSpec(FieldSpec):
@@ -108,6 +132,32 @@ class TimeFieldSpec(FieldSpec):
     def __post_init__(self) -> None:
         super().__post_init__()
         self.field_type = FieldType.TIME
+
+    def to_json(self) -> Dict[str, Any]:
+        d = super().to_json()
+        d["timeUnit"] = self.time_unit
+        return d
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any], field_type: Optional[FieldType] = None) -> "TimeFieldSpec":
+        # the flat form this package writes, or the reference's nested
+        # TimeGranularitySpec form (``incomingGranularitySpec``)
+        g = d.get("incomingGranularitySpec")
+        if g is not None:
+            return cls(
+                name=g["name"],
+                data_type=DataType(g["dataType"]),
+                single_value=g.get("singleValueField", True),
+                default_null_value=d.get("defaultNullValue"),
+                time_unit=g.get("timeType", d.get("timeUnit", "DAYS")),
+            )
+        return cls(
+            name=d["name"],
+            data_type=DataType(d["dataType"]),
+            single_value=d.get("singleValueField", True),
+            default_null_value=d.get("defaultNullValue"),
+            time_unit=d.get("timeUnit", "DAYS"),
+        )
 
 
 @dataclass
@@ -141,3 +191,28 @@ class Schema:
             return self._by_name[name]
         except KeyError:
             raise KeyError(f"unknown column {name!r} in schema {self.schema_name!r}") from None
+
+    def to_json(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {
+            "schemaName": self.schema_name,
+            "dimensionFieldSpecs": [s.to_json() for s in self.dimensions],
+            "metricFieldSpecs": [s.to_json() for s in self.metrics],
+        }
+        if self.time_field is not None:
+            d["timeFieldSpec"] = self.time_field.to_json()
+        return d
+
+    def to_json_str(self) -> str:
+        return json.dumps(self.to_json(), indent=2)
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "Schema":
+        dims = [FieldSpec.from_json(x, FieldType.DIMENSION) for x in d.get("dimensionFieldSpecs", [])]
+        mets = [FieldSpec.from_json(x, FieldType.METRIC) for x in d.get("metricFieldSpecs", [])]
+        tf = d.get("timeFieldSpec")
+        return cls(
+            schema_name=d.get("schemaName", d.get("name", "unknown")),
+            dimensions=dims,
+            metrics=mets,
+            time_field=TimeFieldSpec.from_json(tf) if tf else None,
+        )

@@ -21,6 +21,16 @@
 // Keys outside [0, K) drop.  With S == 1 and precombined keys this is
 // exactly the TPU kernel.
 //
+// Zone-map blocks: with a block table (block_ids [S, nb_pad], ids of
+// `block`-row zone blocks, -1 padded) only the rows of those blocks count.
+// Each candidate block is scanned as a segment of its own: the grid's y
+// axis runs over the S x nb_pad table entries, an entry reads its
+// segment's tables and the block's rows (a padded entry reads none), and
+// row bounds stay the segment's (num_docs, the doc interval).  So the grid
+// covers only the candidate rows, no other row is loaded, the scan loop is
+// the full scan's, and the partials keep their fixed order (entry-major).
+// A runtime branch on a null table: no template is added.
+//
 // Bound on the card: memory.  Q1 reads per row two uint8 group ids and
 // three float32 raws (14 B) and does about a dozen integer and float
 // operations, far below the card's compute rate, so the least time is
@@ -114,6 +124,9 @@ struct Params {
   int dcard[kNvMax];
   int doff[kNvMax];          // offset of column j's dictionary in shared memory
   int dict_total;
+  const int32_t* block_ids;  // [S, nb_pad] candidate zone blocks, or null
+  int nb_pad;
+  long long block;           // rows per zone block
   int blocks_per_seg;
   int vec_ok;
   void* part_sums;                 // [B, nv, K]
@@ -290,7 +303,8 @@ __global__ void __launch_bounds__(kThreads, MinBlocks<TIER>::value)
 fused_groupby(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Smem<T> sm = carve<T, TIER>(p, smem);
-  const int s = blockIdx.y;
+  const int v = blockIdx.y;  // the segment, or with a block table one of its entries
+  const int s = p.block_ids == nullptr ? v : v / p.nb_pad;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -322,12 +336,20 @@ fused_groupby(Params p) {
   __syncthreads();
 
   const long long n_pad = p.n_pad;
+  // rows [base, base + span) of the segment: all of it, or one zone block
+  long long base = 0, span = n_pad;
+  if (p.block_ids != nullptr) {
+    const long long id = p.block_ids[v];
+    base = id < 0 ? 0 : id * p.block;
+    span = id < 0 ? 0 : p.block;
+  }
+  // [lo, hi) relative to base
   long long lo = 0;
-  long long hi = min((long long)p.num_docs[s], n_pad);
+  long long hi = min((long long)p.num_docs[s] - base, span);
   int flo = 0, fhi = 0;
   if (MODE == kDocrange) {
-    lo = max(lo, (long long)p.bounds[2 * s]);
-    hi = min(hi, (long long)p.bounds[2 * s + 1]);
+    lo = max(lo, (long long)p.bounds[2 * s] - base);
+    hi = min(hi, (long long)p.bounds[2 * s + 1] - base);
   } else if (MODE == kInterval) {
     flo = p.bounds[2 * s];
     fhi = p.bounds[2 * s + 1];
@@ -339,7 +361,7 @@ fused_groupby(Params p) {
     a = min((lo + kSlab - 1) & ~(long long)(kSlab - 1), hi);
     bb = max(a, hi & ~(long long)(kSlab - 1));
   }
-  const long long off = (long long)s * n_pad;
+  const long long off = (long long)s * n_pad + base;
   const int gw = b * kWarps + warp;
   const int nw = p.blocks_per_seg * kWarps;
   const F* fcol = static_cast<const F*>(p.filter_fwd) + off;
@@ -532,7 +554,7 @@ fused_groupby(Params p) {
   unsigned long long* acc = p.acc;
   if (tid == 0 && sm.misc[0]) atomicAdd(acc + K, static_cast<unsigned long long>(sm.misc[0]));
   const int B = p.blocks_per_seg * gridDim.y;
-  const long long gb = (long long)s * p.blocks_per_seg + b;
+  const long long gb = (long long)v * p.blocks_per_seg + b;
   const int C = nv * K;
   T* psum = static_cast<T*>(p.part_sums) + gb * C;
   if (TIER == kPrivate) {
@@ -676,11 +698,14 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
                          const int* remap_cards, int K, int nv,
                          const void* const* value_ptrs, const int* value_codes,
                          const void* const* dict_ptrs, const int* dict_cards,
+                         const int32_t* block_ids, int nb_pad, long long block_rows,
                          int blocks_per_seg, void* part_sums, unsigned long long* acc,
                          unsigned int* ticket, long long* out_docs, long long* out_counts,
                          void* out_sums, long long smem_bytes, void* stream) {
   if (nv < 0 || nv > kNvMax || ng < 0 || ng > kGroupMax || K < 1 || S < 1 ||
-      blocks_per_seg < 1 || (ng == 0) == (keys == nullptr))
+      blocks_per_seg < 1 || (ng == 0) == (keys == nullptr) ||
+      (block_ids != nullptr && (nb_pad < 1 || block_rows < 1 || n_pad % block_rows != 0 ||
+                                (long long)S * nb_pad > 65535)))
     return -1;
   KernelFn fn = pick(float_code, filter_kind, filter_code, tier);
   if (fn == nullptr) return -1;
@@ -693,8 +718,10 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
   p.n_pad = n_pad;
   p.keys = keys;
   p.ng = ng;
-  // the 4-row slabs need every row stream 16-byte aligned, and n_pad % 4 == 0
-  bool vec = n_pad % kSlab == 0 && aligned16(filter_fwd) && aligned16(keys);
+  // the 4-row slabs need every row stream 16-byte aligned, and n_pad % 4 ==
+  // 0 (and a zone block's rows % 4 == 0)
+  bool vec = n_pad % kSlab == 0 && (block_ids == nullptr || block_rows % kSlab == 0) &&
+             aligned16(filter_fwd) && aligned16(keys);
   int roff = 0;
   for (int c = 0; c < kGroupMax; ++c) {
     const bool used = c < ng;
@@ -722,6 +749,9 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
     if (used) vec = vec && aligned16(p.vptr[j]);
   }
   p.dict_total = off;
+  p.block_ids = block_ids;
+  p.nb_pad = block_ids != nullptr ? nb_pad : 0;
+  p.block = block_rows;
   p.blocks_per_seg = blocks_per_seg;
   p.vec_ok = vec ? 1 : 0;
   p.part_sums = part_sums;
@@ -733,7 +763,7 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
   cudaError_t err = prepare(fn, smem_bytes);
   if (err == cudaErrorInvalidValue) return -1;
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(blocks_per_seg, S);
+  dim3 grid(blocks_per_seg, block_ids != nullptr ? S * nb_pad : S);
   fn<<<grid, kThreads, static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

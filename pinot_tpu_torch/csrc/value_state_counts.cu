@@ -30,6 +30,16 @@
 // plus the matched-doc total (filter & valid).  The precombined form (one
 // int32 index stream, no filter, no group-by, width K) is the TPU kernel.
 //
+// Zone-map blocks: with a block table (block_ids [S, nb_pad], ids of
+// `block`-row zone blocks, -1 padded) only those blocks' rows count, each
+// candidate block scanned as a segment of its own, as in
+// csrc/fused_groupby.cu: the grid covers only the candidate rows and no
+// other row is loaded.  The table is a template flag (BLOCKS), so the
+// full scan's code is the same as without one: a runtime branch on a null
+// table slowed the registers-mode full scan by 6 % on the H100.  The
+// source builds two libraries, -DBLOCK_TABLE=0 (full scans) and =1 (block
+// tables), each with half the instantiations, compiled in parallel.
+//
 // Bound on the card: memory.  Each row costs its streams' bytes (1-4 B per
 // stream; 2-5 B per row on the main path) and a handful of integer
 // operations.  What the design does about it:
@@ -118,6 +128,9 @@ struct Params {
   int tab_total;
   unsigned width;               // values per slot (counts, presence)
   unsigned K;                   // size of the combined index space
+  const int32_t* block_ids;     // [S, nb_pad] candidate zone blocks, or null
+  int nb_pad;
+  long long block;              // rows per zone block
   int blocks_per_seg;
   int vec_ok;
   unsigned long long* counts;   // [K] (counts)
@@ -345,7 +358,7 @@ __device__ __forceinline__ int process(const Params& p, const int32_t* const* ta
   return __popc(hit);
 }
 
-template <typename F, int FILTER, int MODE, int TIER>
+template <typename F, int FILTER, int MODE, int TIER, bool BLOCKS>
 __global__ void __launch_bounds__(kThreads, 4)
 value_state_kernel(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -356,7 +369,8 @@ value_state_kernel(Params p) {
   int* state = tabs_smem + (p.tab_shared ? p.tab_total : 0);
   const unsigned nstate = state_words<MODE, TIER>(p.K);
   uint8_t* match = reinterpret_cast<uint8_t*>(state + nstate);
-  const int s = blockIdx.y;
+  // the segment, or with a block table the segment of entry blockIdx.y
+  const int s = BLOCKS ? blockIdx.y / p.nb_pad : blockIdx.y;
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -387,12 +401,20 @@ value_state_kernel(Params p) {
   __syncthreads();
 
   const long long n_pad = p.n_pad;
+  // rows [base, base + span) of the segment: all of it, or one zone block
+  long long base = 0, span = n_pad;
+  if (BLOCKS) {
+    const long long id = p.block_ids[blockIdx.y];
+    base = id < 0 ? 0 : id * p.block;
+    span = id < 0 ? 0 : p.block;
+  }
+  // [lo, hi) relative to base
   long long lo = 0;
-  long long hi = p.num_docs ? min((long long)p.num_docs[s], n_pad) : n_pad;
+  long long hi = p.num_docs ? min((long long)p.num_docs[s] - base, span) : span;
   int flo = 0, fhi = 0;
   if (FILTER == kDocrange && p.bounds != nullptr) {
-    lo = max(lo, (long long)p.bounds[2 * s]);
-    hi = min(hi, (long long)p.bounds[2 * s + 1]);
+    lo = max(lo, (long long)p.bounds[2 * s] - base);
+    hi = min(hi, (long long)p.bounds[2 * s + 1] - base);
   } else if (FILTER == kInterval) {
     flo = p.bounds[2 * s];
     fhi = p.bounds[2 * s + 1];
@@ -404,7 +426,7 @@ value_state_kernel(Params p) {
     a = min((lo + kSlab - 1) & ~(long long)(kSlab - 1), hi);
     bb = max(a, hi & ~(long long)(kSlab - 1));
   }
-  const long long off = (long long)s * n_pad;
+  const long long off = (long long)s * n_pad + base;
   const int gw = b * kWarps + warp;
   const int nw = p.blocks_per_seg * kWarps;
   int* trash = s_trash + tid;
@@ -482,40 +504,45 @@ __global__ void finish_registers(const int* __restrict__ regs, unsigned n, uint8
 
 typedef void (*KernelFn)(Params);
 
-template <typename F, int FILTER, int MODE>
+template <typename F, int FILTER, int MODE, bool BLOCKS>
 KernelFn pick_tier(int tier) {
   switch (tier) {
-    case kBlock: return value_state_kernel<F, FILTER, MODE, kBlock>;
-    case kGlobal: return value_state_kernel<F, FILTER, MODE, kGlobal>;
+    case kBlock: return value_state_kernel<F, FILTER, MODE, kBlock, BLOCKS>;
+    case kGlobal: return value_state_kernel<F, FILTER, MODE, kGlobal, BLOCKS>;
     case kByte:
-      if constexpr (MODE != kCounts) return value_state_kernel<F, FILTER, MODE, kByte>;
+      if constexpr (MODE != kCounts) return value_state_kernel<F, FILTER, MODE, kByte, BLOCKS>;
       return nullptr;
     default: return nullptr;
   }
 }
 
-template <typename F, int FILTER>
+template <typename F, int FILTER, bool BLOCKS>
 KernelFn pick_mode(int mode, int tier) {
   switch (mode) {
-    case kCounts: return pick_tier<F, FILTER, kCounts>(tier);
-    case kPresence: return pick_tier<F, FILTER, kPresence>(tier);
-    case kRegisters: return pick_tier<F, FILTER, kRegisters>(tier);
+    case kCounts: return pick_tier<F, FILTER, kCounts, BLOCKS>(tier);
+    case kPresence: return pick_tier<F, FILTER, kPresence, BLOCKS>(tier);
+    case kRegisters: return pick_tier<F, FILTER, kRegisters, BLOCKS>(tier);
     default: return nullptr;
   }
 }
 
+#ifndef BLOCK_TABLE
+#define BLOCK_TABLE 0
+#endif
+constexpr bool kBlockTable = BLOCK_TABLE != 0;  // this library's instantiations
+
 KernelFn pick(int mode, int tier, int filter_kind, int filter_code) {
   if (filter_code < kU8 || filter_code > kI32) return nullptr;
-  if (filter_kind == kDocrange) return pick_mode<uint8_t, kDocrange>(mode, tier);
+  if (filter_kind == kDocrange) return pick_mode<uint8_t, kDocrange, kBlockTable>(mode, tier);
   if (filter_kind == kInterval) {
-    if (filter_code == kU8) return pick_mode<uint8_t, kInterval>(mode, tier);
-    if (filter_code == kI16) return pick_mode<int16_t, kInterval>(mode, tier);
-    return pick_mode<int32_t, kInterval>(mode, tier);
+    if (filter_code == kU8) return pick_mode<uint8_t, kInterval, kBlockTable>(mode, tier);
+    if (filter_code == kI16) return pick_mode<int16_t, kInterval, kBlockTable>(mode, tier);
+    return pick_mode<int32_t, kInterval, kBlockTable>(mode, tier);
   }
   if (filter_kind == kTable) {
-    if (filter_code == kU8) return pick_mode<uint8_t, kTable>(mode, tier);
-    if (filter_code == kI16) return pick_mode<int16_t, kTable>(mode, tier);
-    return pick_mode<int32_t, kTable>(mode, tier);
+    if (filter_code == kU8) return pick_mode<uint8_t, kTable, kBlockTable>(mode, tier);
+    if (filter_code == kI16) return pick_mode<int16_t, kTable, kBlockTable>(mode, tier);
+    return pick_mode<int32_t, kTable, kBlockTable>(mode, tier);
   }
   return nullptr;
 }
@@ -591,12 +618,15 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
                        const void* const* group_ptrs, const int* group_codes, const int* group_cards,
                        const void* values, int value_code, const uint8_t* rho,
                        const int32_t* const* tables, const int* table_cards, int tab_shared,
-                       unsigned width, unsigned K, int blocks_per_seg,
+                       unsigned width, unsigned K, const int32_t* block_ids, int nb_pad,
+                       long long block_rows, int blocks_per_seg,
                        unsigned long long* counts, unsigned* bits, int* regs,
                        unsigned long long* docs, long long zero_bytes, void* holder, long long smem_bytes,
                        void* stream) {
   if (ng < 0 || ng > kGroupMax || K < 1 || S < 1 || n_pad < 1 || blocks_per_seg < 1 ||
-      values == nullptr || docs == nullptr || zero_bytes < 8)
+      values == nullptr || docs == nullptr || zero_bytes < 8 || (block_ids != nullptr) != kBlockTable ||
+      (block_ids != nullptr && (nb_pad < 1 || block_rows < 1 || n_pad % block_rows != 0 ||
+                                (long long)S * nb_pad > 65535)))
     return -1;
   if ((mode == kCounts && counts == nullptr) || (mode == kPresence && (bits == nullptr || holder == nullptr)) ||
       (mode == kRegisters && (regs == nullptr || holder == nullptr || K % kRho != 0)))
@@ -612,8 +642,10 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
   p.n_pad = n_pad;
   p.ng = ng;
   // the 4-row slabs need every row stream 16-byte aligned, and each
-  // segment's rows starting on a slab (n_pad % 4 == 0, or one segment)
-  bool vec = (S == 1 || n_pad % kSlab == 0) && aligned16(filter_fwd) && aligned16(values) && aligned16(rho);
+  // segment's rows starting on a slab (n_pad % 4 == 0, or one segment;
+  // a zone block's rows % 4 == 0)
+  bool vec = (S == 1 || n_pad % kSlab == 0) && (block_ids == nullptr || block_rows % kSlab == 0) &&
+             aligned16(filter_fwd) && aligned16(values) && aligned16(rho);
   for (int c = 0; c < kGroupMax; ++c) {
     const bool used = c < ng;
     p.gptr[c] = used ? group_ptrs[c] : nullptr;
@@ -635,6 +667,9 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
   p.tab_total = off;
   p.width = width;
   p.K = K;
+  p.block_ids = block_ids;
+  p.nb_pad = block_ids != nullptr ? nb_pad : 0;
+  p.block = block_rows;
   p.blocks_per_seg = blocks_per_seg;
   p.vec_ok = vec ? 1 : 0;
   p.counts = counts;
@@ -647,7 +682,7 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(docs, 0, static_cast<size_t>(zero_bytes), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(blocks_per_seg, S);
+  dim3 grid(blocks_per_seg, block_ids != nullptr ? S * nb_pad : S);
   fn<<<grid, kThreads, static_cast<size_t>(smem_bytes), st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -24,6 +24,12 @@ import torch
 # stays small (the reference's analog is its fixed 10k/5k block sizes,
 # DocIdSetPlanNode.java:33).
 DOC_PAD_MULTIPLE = 1024
+# rows per zone-map block (engine/zonemap.py): the reference's
+# PINOT_TPU_ZONE_BLOCK default; segment files record the block they hold
+ZONE_BLOCK = 1 << 16
+# the block path engages while its padded window of candidate blocks is
+# at most this share of the table (engine/executor._block_skip_ids)
+ZONE_MAX_FRACTION = 0.5
 MIN_CARD_PAD = 8
 
 # Group-by dense-holder cap (reference caps ARRAY_BASED key space at 1M,

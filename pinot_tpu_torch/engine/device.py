@@ -88,6 +88,7 @@ class StagedTable:
     precision: Precision
     columns: Dict[str, StagedColumn] = field(default_factory=dict)
     token: int = field(default_factory=lambda: next(_stage_tokens))
+    zones: Dict[Any, Any] = field(default_factory=dict)  # host zone maps by (column, block): engine/zonemap
 
     def column(self, name: str) -> StagedColumn:
         return self.columns[name]

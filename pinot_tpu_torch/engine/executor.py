@@ -15,6 +15,13 @@ host finishes exactly).  Each result carries ``_served_tier`` ("host" or
 ``segmentsFullScan``).  Joins raise ``NotImplementedError``: they are a
 later slice of the port.
 
+ZONE MAPS (``engine/zonemap.py``): a filtered plan whose candidate zone
+blocks are under half the table runs over those blocks only
+(``_block_skip_ids``; ``kernel.run_table_kernel`` hands them to K1 and
+K2, which read them in place); its ``numEntriesScannedInFilter`` counts
+the candidate rows and its cost ``segmentsZonemap``.  ``zone_maps=False``
+turns this off (the reference's ``PINOT_TPU_ZONEMAP=0``).
+
 SELF-HEALING (the reference's ladder, around the launch and the fetch):
 a device fault (``dispatch.is_device_fault``: a typed
 ``DeviceExecutionError`` from the lane's watchdog or the fault injector,
@@ -63,7 +70,8 @@ from pinot_tpu_torch.engine.dispatch import (
     stream_handoff,
 )
 from pinot_tpu_torch.engine import hll as hll_mod
-from pinot_tpu_torch.engine import kernels
+from pinot_tpu_torch.engine import kernels, zonemap
+from pinot_tpu_torch.engine.kernels import fused_groupby
 from pinot_tpu_torch.engine.host_fallback import execute_host
 from pinot_tpu_torch.engine.kernel import run_table_kernel
 from pinot_tpu_torch.engine.packing import make_packed_kernel
@@ -241,7 +249,8 @@ class QueryExecutor:
     ``metrics``: the registry for the phase timers and the ``heal.*``
     counters (a private one when None).
     ``lane`` / ``lanes``: the server's device lane (or its one-lane
-    ``LaneGroup``); None runs launch and fetch inline."""
+    ``LaneGroup``); None runs launch and fetch inline.
+    ``zone_maps``: False always scans every row (no block skipping)."""
 
     _HEAL_COUNTERS = (
         "deviceFailures",
@@ -259,8 +268,10 @@ class QueryExecutor:
         metrics=None,
         lane=None,
         lanes=None,
+        zone_maps: bool = True,
     ) -> None:
         self.device = config.resolve_device(device)
+        self.zone_maps = zone_maps
         if self.device.type == "cuda":
             kernels.load_all()
         self.precision = config.as_precision(precision)
@@ -426,6 +437,7 @@ class QueryExecutor:
             return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
         q_np = build_query_inputs(request, plan, ctx, staged, scratch=scratch)
         seg = segment_arrays(staged, needed)
+        scanned_rows = self._block_skip_ids(plan, q_np, live, staged)
         t0 = self._phase("planBuild", t0)
         cost: Dict[str, float] = {}
         outs = self._run_healing(plan, staged, seg, q_np, deadline, pdigest, cost, poison_key)
@@ -441,9 +453,22 @@ class QueryExecutor:
                     return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
         result = self._finalize(request, plan, ctx, staged, live, outs, total_docs, sel_columns)
         dev_bytes = sum(t.numel() * t.element_size() for t in seg.values())
-        result.add_cost(
-            bytesScanned=dev_bytes, deviceBytes=dev_bytes, segmentsFullScan=len(live), **cost
-        )
+        if scanned_rows is None:
+            result.add_cost(segmentsFullScan=len(live))
+        else:
+            # the block path scans the candidate rows only: each row
+            # stream ([S, n_pad, ...]) over the rows of the candidate
+            # blocks, every other array (dictionaries, tables) whole
+            result.num_entries_scanned_in_filter = len(plan.leaves) * scanned_rows
+            rows = zonemap.block_rows_read(q_np["block_ids"], staged.num_docs, zonemap.zone_block_rows())
+            dev_bytes = 0
+            for t in seg.values():
+                nbytes = t.numel() * t.element_size()
+                if t.dim() >= 2 and tuple(t.shape[:2]) == (staged.num_segments, staged.n_pad):
+                    nbytes = nbytes // (staged.num_segments * staged.n_pad) * rows
+                dev_bytes += nbytes
+            result.add_cost(segmentsZonemap=len(live))
+        result.add_cost(bytesScanned=dev_bytes, deviceBytes=dev_bytes, **cost)
         self._phase("finalize", t0)
         result._served_tier = "device"
         return result
@@ -509,16 +534,17 @@ class QueryExecutor:
         the dispatch's event."""
         t0 = time.perf_counter()
         q = to_device_inputs(q_np, self.device)
+        block = zonemap.zone_block_rows() if "block_ids" in q_np else 0
         lane = self.lane
         if lane is None:
-            handle = self._kernel.dispatch(plan, staged, seg, q)
+            handle = self._kernel.dispatch(plan, staged, seg, q, block)
         else:
             ready = ready_event(self.device)
             tensors = list(seg.values()) + tree_leaves(q)
 
             def launch():
                 stream_handoff(ready, tensors)
-                return self._kernel.dispatch(plan, staged, seg, q)
+                return self._kernel.dispatch(plan, staged, seg, q, block)
 
             # identical (plan, staged-table token, inputs digest) means
             # identical device outputs; the token is process-unique, so a
@@ -534,6 +560,36 @@ class QueryExecutor:
         cost["deviceMs"] = cost.get("deviceMs", 0.0) + round((time.perf_counter() - t0) * 1000, 3)
         self._phase("planExec", t0)
         return outs
+
+    def _block_skip_ids(
+        self, plan: StaticPlan, q_np: Dict[str, Any], live: List[ImmutableSegment], staged: StagedTable
+    ) -> Optional[int]:
+        """The zone-map block-pruning decision: puts ``block_ids`` [S,
+        nb_pad] into the query inputs and returns the candidate rows, or
+        returns None (full scan).  Engages when the padded candidate
+        window is at most ``config.ZONE_MAX_FRACTION`` of the table and
+        its S x nb_pad entries fit one launch's grid.  A selection's
+        window grows to hold its k rows, since top-k needs k rows a
+        segment."""
+        if not self.zone_maps:
+            return None
+        cand = zonemap.candidate_blocks(plan, q_np, live, staged.n_pad, cache=staged.zones)
+        if cand is None:
+            return None
+        block = zonemap.zone_block_rows()
+        nb_total = staged.num_segments * (staged.n_pad // block)
+        per_seg = cand.sum(axis=1)
+        nb_max = int(per_seg.max()) if per_seg.size else 0
+        if plan.selection is not None:
+            nb_max = max(nb_max, -(-plan.selection.k // block))
+        nb_pad = 1
+        while nb_pad < nb_max:
+            nb_pad *= 2
+        entries = nb_pad * staged.num_segments
+        if entries > nb_total * config.ZONE_MAX_FRACTION or entries > fused_groupby.MAX_GRID_Y:
+            return None
+        q_np["block_ids"] = zonemap.block_ids_input(cand, nb_pad)
+        return int(per_seg.sum()) * block
 
     def _docrange_only_columns(
         self, request: BrokerRequest, live, sel_columns: Optional[List[str]] = None

@@ -33,7 +33,9 @@ reduce by one sort (``_reduce_hll_sort``), the pairs by one sort-dedup
 
 Routing is keyed on the plan, never on the device, so the CPU tests take
 the card's routes:
-  * a plan whose filter is one single-value leaf the fused kernel takes,
+  * a plan whose filter is one single-value leaf the fused kernel takes
+    (an interval, a doc interval, a match table, or a point list, which
+    becomes a match table of the column's padded card),
     whose group-by is single-value and fits the kernel's shared-memory
     accumulators, and whose aggregations are all count / sum / avg,
     computes ``num_docs``, ``gb_presence`` and every state in one
@@ -59,9 +61,18 @@ the card's routes:
     ``lax.sort`` in the reference) need it.
 On the card both kernels are the CUDA kernels; on the CPU their wrappers
 run the plain torch versions.
+
+Zone-map block skipping (``engine/zonemap.py``): when the executor puts
+``block_ids`` (int32 [S, nb_pad], candidate zone blocks, -1 padded) in the
+query inputs, the fused routes hand them to K1 and K2, which read those
+blocks in place and nothing else; the torch-op route gathers the
+candidate blocks first (``gather_blocks``, the reference's
+``_gather_blocks``) and runs on the gathered rows, with their validity and
+original doc ids (docrange leaves, selection doc ids) beside them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -73,6 +84,7 @@ from pinot_tpu_torch.engine.plan import MV_ANY, SV, StaticAgg, StaticPlan, group
 
 fused_dispatches = 0  # table-kernel runs that took the fused route
 fused_value_dispatches = 0  # table-kernel runs that took the fused value route
+block_dispatches = 0  # table-kernel runs over zone-map candidate blocks
 
 # grouped HLL lowerings (``_grouped_hll_path``), the reference's gates
 # (pinot_tpu/engine/kernel.py:57,62); module constants so a test can force
@@ -84,12 +96,16 @@ _HLL_SORT_CAP = 1 << 16
 # pairs: sorts past every real key (slots < MAX_GROUP_CAPACITY, gids < 2^31-1)
 _PAIR_SENTINEL = torch.iinfo(torch.int32).max
 
-_FUSED_LEAF_KINDS = ("interval", "docrange", "table")
+_FUSED_LEAF_KINDS = ("interval", "docrange", "table", "points")
 _VALUE_KINDS = ("presence", "hist", "hll")
 
 
 def _valid_mask(seg: Dict[str, Any], n_pad: int) -> torch.Tensor:
-    """[S, n_pad] doc validity from ``row < num_docs`` — no stored column."""
+    """[S, n_pad] doc validity from ``row < num_docs`` — no stored column
+    (gathered blocks carry theirs)."""
+    valid = seg.get("valid")
+    if valid is not None:
+        return valid
     nd = seg["num_docs"]
     rows = torch.arange(n_pad, device=nd.device)
     return rows[None, :] < nd[:, None]
@@ -132,7 +148,9 @@ def _leaf_mask(plan: StaticPlan, i: int, seg, q, n_pad: int) -> torch.Tensor:
     kind = leaf.eval_kind
     if kind == "docrange":
         b = q["bounds"][i]
-        rows = torch.arange(n_pad, device=b.device)[None, :]
+        rows = seg.get("rowid")  # gathered blocks: the original doc ids
+        if rows is None:
+            rows = torch.arange(n_pad, device=b.device)[None, :]
         return (rows >= b[:, 0:1]) & (rows < b[:, 1:2])
     if leaf.mode == SV:
         return _ids_match(kind, leaf.mode, q, i, seg[f"{leaf.column}.fwd"])
@@ -263,7 +281,8 @@ def _value_state(agg: StaticAgg, aux, seg, flat: _Flat, filt: Dict[str, Any],
     """(matched total, holder) of one value-state agg from one K2 launch
     over every segment: presence bits, the histogram or HLL registers,
     ``[capacity, ...]`` when grouped.  The filter and group streams are in
-    ``flat``'s pair space."""
+    ``flat``'s pair space; ``group`` also carries the fused route's block
+    ids (``block_ids`` / ``block_rows``)."""
     docs, holder = value_state_counts.value_state(
         _VALUE_MODES[agg.kind], flat.num_docs(seg), **_value_inputs(agg, aux, seg, flat),
         capacity=max(capacity, 1), **filt, **(group or {}),
@@ -767,6 +786,34 @@ def _segment_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str,
         out[f"agg_{i}"] = _agg_state(agg, i, seg, q, mask, fdt)
     if plan.selection is not None:
         out.update(_selection_outputs(plan, seg, q, mask))
+        rowid = seg.get("rowid")
+        if rowid is not None:  # gathered positions -> doc ids
+            out["sel_docids"] = torch.gather(rowid, 1, out["sel_docids"].long()).to(torch.int32)
+    return out
+
+
+# row-shaped staged roles: gathered by ``gather_blocks``
+_ROW_ROLES = (".fwd", ".raw", ".gfwd", ".mv", ".mvc", ".hllb", ".hllr", ".mvraw")
+
+
+def gather_blocks(seg: Dict[str, Any], block_ids: torch.Tensor, block: int) -> Dict[str, Any]:
+    """The candidate row blocks of every row-shaped array ([S, n_pad, ...]
+    -> [S, nb_pad * block, ...]), the gathered rows' ``valid`` mask (a
+    real block, a row below num_docs) and original doc ids (``rowid``),
+    and ``num_docs`` set to the gathered width, since ``valid`` now
+    carries the rows' validity (the reference's ``_gather_blocks``)."""
+    rowid, live = fused_groupby.candidate_rows(block_ids, block)
+    out: Dict[str, Any] = {}
+    for k, v in seg.items():
+        if k.endswith(_ROW_ROLES):
+            idx = rowid if v.dim() == 2 else rowid[:, :, None].expand(-1, -1, v.shape[-1])
+            out[k] = torch.gather(v, 1, idx)
+        else:
+            out[k] = v
+    nd = seg["num_docs"]
+    out["valid"] = live & (rowid < nd[:, None])
+    out["rowid"] = rowid
+    out["num_docs"] = torch.full_like(nd, rowid.shape[1])
     return out
 
 
@@ -789,8 +836,9 @@ def _fused_value_columns(plan: StaticPlan, value_states: bool = False) -> Option
 
 def _fused_leaf_card(plan: StaticPlan, staged: StagedTable) -> Optional[int]:
     """For a plan whose filter the fused kernels take (none, or one
-    single-value interval, docrange, single-point or match-table leaf):
-    its match table's card (0 without one).  Else None."""
+    single-value interval, docrange, point-list or match-table leaf):
+    its match table's card (0 without one; a list of two or more points
+    is a match table).  Else None."""
     if plan.filter_tree is None:
         return 0
     if plan.filter_tree != ("leaf", 0):
@@ -798,10 +846,9 @@ def _fused_leaf_card(plan: StaticPlan, staged: StagedTable) -> Optional[int]:
     leaf = plan.leaves[0]
     if leaf.mode != SV:
         return None
-    single_point = leaf.eval_kind == "points" and leaf.k_pad == 1
-    if leaf.eval_kind not in _FUSED_LEAF_KINDS and not single_point:
+    if leaf.eval_kind not in _FUSED_LEAF_KINDS:
         return None
-    if leaf.eval_kind != "table":
+    if leaf.eval_kind in ("interval", "docrange") or (leaf.eval_kind == "points" and leaf.k_pad == 1):
         return 0
     card = staged.column(leaf.column).card_pad
     return card if card <= fused_groupby.MAX_TABLE_CARD else None
@@ -861,9 +908,10 @@ def fused_value_eligible(plan: StaticPlan, staged: StagedTable) -> bool:
     return _k1_fits(plan, staged, cols, match_card)
 
 
-def _leaf_filter(plan: StaticPlan, seg, q) -> Dict[str, Any]:
+def _leaf_filter(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
     """The fused kernels' filter arguments for the plan's one leaf ({}
-    for a plan with no filter)."""
+    for a plan with no filter).  A list of points becomes a match table
+    of the column's padded card (the dictionary it was staged with)."""
     if plan.filter_tree is None:
         return {}
     leaf = plan.leaves[0]
@@ -874,15 +922,22 @@ def _leaf_filter(plan: StaticPlan, seg, q) -> Dict[str, Any]:
         return dict(filter_bounds=q["bounds"][0])
     if leaf.eval_kind == "interval":
         return dict(filter_fwd=fwd, filter_bounds=q["bounds"][0])
+    pts = q["pts"][0]  # [S, k_pad], -1 padded
+    if pts.shape[1] > 1:
+        card = staged.column(leaf.column).card_pad
+        match = torch.zeros((pts.shape[0], card + 1), dtype=torch.bool, device=pts.device)
+        match.scatter_(1, torch.where(pts >= 0, pts, card).long(), True)
+        return dict(filter_fwd=fwd, match=match[:, :card].contiguous())
     # single point p: the interval [p, p+1); p = -1 matches nothing
-    p = q["pts"][0][:, 0:1]
+    p = pts[:, 0:1]
     return dict(filter_fwd=fwd, filter_bounds=torch.cat([p, p + 1], dim=1).contiguous())
 
 
-def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols) -> Dict[str, Any]:
+def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols, blocks) -> Dict[str, Any]:
     """num_docs, gb_presence and the count / sum / avg states from one K1
     launch with the group-by columns (already reduced over the segment
-    axis); a plan with no filter is the docrange of every row."""
+    axis), over the candidate blocks when ``blocks`` names them; a plan
+    with no filter is the docrange of every row."""
     fdt = staged.precision.float_dtype
     if not filt:
         bounds = seg["num_docs"].new_zeros((staged.num_segments, 2))
@@ -895,7 +950,7 @@ def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols) -> Di
     docs, count, sums = fused_groupby.fused_filtered_groupby_sums(
         filt.get("filter_fwd"), filt.get("match"), seg["num_docs"], None, fwds, dicts,
         plan.group_by.capacity, dtype=fdt, filter_bounds=filt.get("filter_bounds"), value_raws=raws,
-        **_group_kwargs(plan, seg, q),
+        **_group_kwargs(plan, seg, q), **blocks,
     )
     out: Dict[str, Any] = {"num_docs": docs, "gb_presence": (count > 0).to(torch.int32)}
     for i, agg in enumerate(plan.aggs):
@@ -910,24 +965,24 @@ def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols) -> Di
     return out
 
 
-def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
+def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks) -> Dict[str, Any]:
     """Every state from one fused launch (module docstring)."""
-    return _k1_outputs(plan, staged, seg, q, _leaf_filter(plan, seg, q), _fused_value_columns(plan))
+    return _k1_outputs(plan, staged, seg, q, _leaf_filter(plan, staged, seg, q), _fused_value_columns(plan), blocks)
 
 
-def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any]:
+def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks) -> Dict[str, Any]:
     """The fused value route's outputs, already reduced over the segment
     axis: one K1 launch for a grouped plan's num_docs, gb_presence and
     count / sum / avg states, one K2 launch per value state, each with
     the leaf and the group-by columns.  No [S, n_pad] mask, key or index
     is built in device memory; a scalar plan's num_docs (and counts) are
     K2's matched-doc total."""
-    filt = _leaf_filter(plan, seg, q)
+    filt = _leaf_filter(plan, staged, seg, q)
     flat = _Flat(staged.num_segments, staged.n_pad)
     gb = plan.group_by
     if gb is not None:
-        out = _k1_outputs(plan, staged, seg, q, filt, _fused_value_columns(plan, value_states=True))
-        group = _group_kwargs(plan, seg, q)
+        out = _k1_outputs(plan, staged, seg, q, filt, _fused_value_columns(plan, value_states=True), blocks)
+        group = dict(_group_kwargs(plan, seg, q), **blocks)
         for i, agg in enumerate(plan.aggs):
             if agg.kind in _VALUE_KINDS:
                 out[f"gb_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, group, gb.capacity)[1]
@@ -935,7 +990,7 @@ def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[
     out = {}
     for i, agg in enumerate(plan.aggs):
         if agg.kind in _VALUE_KINDS:
-            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt)
+            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, blocks)
     for i, agg in enumerate(plan.aggs):
         if agg.kind not in _VALUE_KINDS:  # count(*)
             out[f"agg_{i}"] = out["num_docs"]
@@ -943,16 +998,27 @@ def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[
 
 
 def run_table_kernel(
-    plan: StaticPlan, staged: StagedTable, seg: Dict[str, torch.Tensor], q: Dict[str, Any]
+    plan: StaticPlan, staged: StagedTable, seg: Dict[str, torch.Tensor], q: Dict[str, Any],
+    block_rows: int = 0,
 ) -> Dict[str, Any]:
-    """All segments' outputs, merged over the segment axis."""
-    global fused_dispatches, fused_value_dispatches
+    """All segments' outputs, merged over the segment axis; over the
+    zone-map candidate blocks of ``block_rows`` rows when the inputs hold
+    ``block_ids`` (module docstring)."""
+    global fused_dispatches, fused_value_dispatches, block_dispatches
+    ids = q.get("block_ids")
+    blocks: Dict[str, Any] = {}
+    if ids is not None:
+        block_dispatches += 1
+        blocks = dict(block_ids=ids, block_rows=block_rows)
     if fused_eligible(plan, staged):
         fused_dispatches += 1
-        return _fused_outputs(plan, staged, seg, q)
+        return _fused_outputs(plan, staged, seg, q, blocks)
     if fused_value_eligible(plan, staged):
         fused_value_dispatches += 1
-        return _fused_value_outputs(plan, staged, seg, q)
+        return _fused_value_outputs(plan, staged, seg, q, blocks)
+    if ids is not None:
+        seg = gather_blocks(seg, ids, block_rows)
+        staged = dataclasses.replace(staged, n_pad=seg["rowid"].shape[1])
     reducers = output_reducers(plan)
     outs = _segment_outputs(plan, staged, seg, q)
     return {k: apply_reduce(reducers[k], v) for k, v in outs.items()}

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels and their build.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled
+Each kernel is one ``csrc/<source>.cu`` with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at first
-use and loaded with ``ctypes``.
+use and loaded with ``ctypes``.  A source may build more than one library
+(``LIBRARIES``: the source and its extra ``nvcc`` flags), so that the
+halves of a large set of template instantiations compile in parallel.
 """
 from __future__ import annotations
 
@@ -22,7 +24,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-KERNELS = ("fused_groupby", "value_state_counts")  # every csrc/<name>.cu
+# every library: (its csrc source, extra nvcc flags).  K2's full-scan and
+# block-table instantiations are two libraries of one source.
+LIBRARIES = {
+    "fused_groupby": ("fused_groupby", ()),
+    "value_state_counts": ("value_state_counts", ("-DBLOCK_TABLE=0",)),
+    "value_state_counts_blocks": ("value_state_counts", ("-DBLOCK_TABLE=1",)),
+}
+KERNELS = tuple(LIBRARIES)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # nvcc's output (ptxas report included) per kernel built here
@@ -36,9 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Build output for a source, keyed by the hash of source and flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """Build output for a library, keyed by the hash of source and flags."""
+    source, extra = LIBRARIES[name]
+    src = CSRC / f"{source}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + extra).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
@@ -54,7 +64,8 @@ def build(names: Sequence[str]) -> None:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        source, extra = LIBRARIES[name]
+        cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{source}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs.append((name, out, tmp, proc))
     failed = []

@@ -34,6 +34,15 @@ The key is exactly one of
     ``engine/kernel.py::_group_keys``, combined inside the kernel.
 Keys outside [0, capacity) drop.
 
+``block_ids`` (int32 [S, nb_pad], zone-block ids, -1 padded) with
+``block_rows`` restricts the function to the rows of those blocks (the
+zone-map path, ``engine/zonemap.py``): the kernel scans each table entry
+as a segment of its own (its grid's y axis is S x nb_pad), so it covers
+only the candidate rows and reads nothing else; row bounds stay the
+segment's doc ids (docrange filters compare them); the plain version
+gathers the blocks' rows with torch ops and runs the full-scan function
+on them.
+
 How the kernel accumulates is its tier, chosen from the shape
 (``choose_tier``; ``tier=`` forces one, for measurement):
   private       per-thread counts and sums in shared memory [slot][thread]
@@ -58,6 +67,7 @@ MAX_TABLE_CARD = 4096  # same contract as the TPU kernel (pallas_kernels.py:61)
 MAX_VALUE_COLUMNS = 8
 MAX_GROUP_COLUMNS = 4
 MAX_ROWS = 2**31 - 1  # rows a segment: num_docs is int32 (K2 shares the bound)
+MAX_GRID_Y = 65535  # segments, or block table entries, of one launch
 SHARED_BYTES_LIMIT = 232448  # H100 opt-in dynamic shared memory per block; the launch rechecks the device
 THREADS = 256
 WARPS = THREADS // 32
@@ -145,9 +155,37 @@ def max_capacity(
     return max(0, (SHARED_BYTES_LIMIT - fixed) // per_k)
 
 
+def candidate_rows(block_ids: torch.Tensor, block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rows of the candidate blocks, in block order: (row ids int64
+    [S, nb_pad * block], live bool [S, nb_pad * block]; padded blocks
+    read row ``offset`` of block 0 and are not live)."""
+    S, nb = block_ids.shape
+    safe = block_ids.clamp(min=0).long()
+    offs = torch.arange(block, device=block_ids.device)
+    rowid = (safe[:, :, None] * block + offs).reshape(S, nb * block)
+    live = (block_ids >= 0)[:, :, None].expand(S, nb, block).reshape(S, nb * block)
+    return rowid, live
+
+
+def check_blocks(block_ids: Optional[torch.Tensor], block: int, S: int, n_pad: int, dev) -> None:
+    """The block-table contract both kernels share."""
+    if block_ids is None:
+        return
+    if block < 1 or n_pad % block:
+        raise ValueError(f"block_rows {block} must be >= 1 and divide n_pad {n_pad}")
+    if block_ids.device != dev:
+        raise ValueError(f"block_ids is on {block_ids.device}, the row streams on {dev}")
+    if block_ids.dtype != torch.int32 or block_ids.dim() != 2 or block_ids.shape[0] != S:
+        raise ValueError(f"block_ids must be int32 [{S}, nb_pad], got {block_ids.dtype} {tuple(block_ids.shape)}")
+    if block_ids.shape[1] < 1 or not block_ids.is_contiguous():
+        raise ValueError("block_ids must be contiguous with at least one column")
+    if block_ids.numel() > MAX_GRID_Y:
+        raise ValueError(f"{block_ids.numel()} block table entries > {MAX_GRID_Y} (the grid's y axis)")
+
+
 def _validate(
     filter_fwd, match, num_docs, group_keys, value_fwds, value_dicts, capacity, dtype,
-    filter_bounds, value_raws, group_cols, group_cards, group_remaps,
+    filter_bounds, value_raws, group_cols, group_cards, group_remaps, block_ids=None, block=0,
 ) -> Tuple[list, list]:
     """The TPU kernel's ValueError contract (pallas_kernels.py:114-135),
     plus the group-column contract and the shape, dtype, device and layout
@@ -228,6 +266,7 @@ def _validate(
             raise ValueError(f"{name} must be contiguous")
 
     check(num_docs, "num_docs", (torch.int32,), (S,))
+    check_blocks(block_ids, block, S, n_pad, dev)
     if group_keys is not None:
         check(group_keys, "group_keys", (torch.int32,), (S, n_pad))
     for g, r in groups:
@@ -292,9 +331,13 @@ def fused_filtered_groupby_sums_reference(
     group_cards: Optional[Sequence[int]] = None,
     group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
     tier: Optional[str] = None,
+    block_ids: Optional[torch.Tensor] = None,
+    block_rows: int = 0,
 ):
     """Plain torch version of the same function (no validation beyond the
-    wrapper's; ``tier`` is the kernel's and changes nothing here).  Counts
+    wrapper's; ``tier`` is the kernel's and changes nothing here).  With
+    ``block_ids`` every row stream is gathered to the candidate blocks'
+    rows first, which then run in block order.  Counts
     in int64; each sum accumulates in float64 and is returned in
     ``dtype``: ``index_add_`` adds one row at a time into its bucket, and
     in float32 that loses whole percents once a bucket holds millions of
@@ -307,14 +350,27 @@ def fused_filtered_groupby_sums_reference(
         group_keys = combine_group_keys(group_cols, group_cards, group_remaps)
     S, n = group_keys.shape
     dev = group_keys.device
-    rows = torch.arange(n, device=dev)
     raws = list(value_raws) if value_raws is not None else [None] * len(value_dicts)
+    if block_ids is not None:
+        rowid, live = candidate_rows(block_ids, block_rows)
+
+        def take(t):
+            return None if t is None else torch.gather(t, 1, rowid)
+
+        filter_fwd, group_keys = take(filter_fwd), take(group_keys)
+        value_fwds, raws = [take(f) for f in value_fwds], [take(r) for r in raws]
+    else:
+        rowid = torch.arange(n, device=dev).expand(S, n)
+        live = None
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     docs = torch.zeros((), dtype=torch.int64, device=dev)
     count = torch.zeros(capacity + 1, dtype=torch.int64, device=dev)
     accs = [torch.zeros(capacity + 1, dtype=torch.float64, device=dev) for _ in raws]
     for s in range(S):  # one segment at a time: its rows in row order, then the next segment
+        rows = rowid[s]
         mask = rows < num_docs[s]
+        if live is not None:
+            mask = mask & live[s]
         if match is not None:
             mask = mask & match[s].to(torch.bool)[filter_fwd[s].long()]
         else:
@@ -377,7 +433,7 @@ def _library():
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         fn.argtypes = [
             ci, ci, ci, ci, vp, vp, vp, ci, vp, ci, ll, vp, ci, pv, pi, pi, pv, pi,
-            ci, ci, pv, pi, pv, pi, ci, vp, vp, vp, vp, vp, vp, ll, vp,
+            ci, ci, pv, pi, pv, pi, vp, ci, ll, ci, vp, vp, vp, vp, vp, vp, ll, vp,
         ]
         fn.restype = ci
         occ = lib.fused_groupby_blocks_per_sm
@@ -395,7 +451,7 @@ def _filter_codes(filter_fwd, match):
 
 
 def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, capacity,
-            dtype, filter_bounds, tier):
+            dtype, filter_bounds, tier, block_ids=None, block=0):
     global launches
     lead = group_keys if group_keys is not None else groups[0][0]
     S, n_pad = lead.shape
@@ -426,10 +482,13 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
             if per_sm < 1:
                 raise RuntimeError(f"fused_groupby occupancy query failed with code {per_sm}")
             _occupancy[okey] = per_sm
-        bps = blocks_per_segment(S, n_pad, dev, per_sm)
+        # with a block table each entry is a segment of ``block`` rows
+        nb_pad = 0 if block_ids is None else block_ids.shape[1]
+        segs = S * nb_pad if nb_pad else S
+        bps = blocks_per_segment(segs, block if nb_pad else n_pad, dev, per_sm)
         stream = torch.cuda.current_stream(dev).cuda_stream
         acc, ticket = _zeroed_scratch(dev, stream, capacity)
-        part_sums = torch.empty((S * bps, nv, capacity), dtype=dtype, device=dev)
+        part_sums = torch.empty((segs * bps, nv, capacity), dtype=dtype, device=dev)
         out_docs = torch.empty(1, dtype=torch.int64, device=dev)
         out_counts = torch.empty(capacity, dtype=torch.int64, device=dev)
         out_sums = torch.empty((nv, capacity), dtype=dtype, device=dev)
@@ -454,7 +513,7 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
             _ptr(filter_fwd), _ptr(filter_bounds), _ptr(match_u8), mcard,
             num_docs.data_ptr(), S, n_pad, _ptr(group_keys), ng,
             gptrs, gcodes, gcards, rptrs, rcards, capacity, nv,
-            vptrs, vcodes, dptrs, dcards, bps,
+            vptrs, vcodes, dptrs, dcards, _ptr(block_ids), nb_pad, block, bps,
             part_sums.data_ptr(), acc.data_ptr(), ticket.data_ptr(),
             out_docs.data_ptr(), out_counts.data_ptr(), out_sums.data_ptr(), smem, stream,
         )
@@ -481,6 +540,8 @@ def fused_filtered_groupby_sums(
     group_cards: Optional[Sequence[int]] = None,
     group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
     tier: Optional[str] = None,
+    block_ids: Optional[torch.Tensor] = None,
+    block_rows: int = 0,
 ):
     """Returns (num_docs int64 scalar, count int64 [K], [sums [K] per
     value column]).  See the module docstring for the arguments."""
@@ -488,16 +549,17 @@ def fused_filtered_groupby_sums(
         raise ValueError(f"unknown tier {tier!r}: one of {TIERS}")
     cols, groups = _validate(
         filter_fwd, match, num_docs, group_keys, value_fwds, value_dicts, capacity, dtype,
-        filter_bounds, value_raws, group_cols, group_cards, group_remaps,
+        filter_bounds, value_raws, group_cols, group_cards, group_remaps, block_ids, block_rows,
     )
     device = num_docs.device
     if device.type == "cuda":
         return _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards,
-                       capacity, dtype, filter_bounds, tier)
+                       capacity, dtype, filter_bounds, tier, block_ids, block_rows)
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return fused_filtered_groupby_sums_reference(
         filter_fwd, match, num_docs, group_keys, value_fwds, value_dicts, capacity,
         dtype=dtype, filter_bounds=filter_bounds, value_raws=value_raws,
         group_cols=group_cols, group_cards=group_cards, group_remaps=group_remaps,
+        block_ids=block_ids, block_rows=block_rows,
     )

@@ -38,7 +38,9 @@ or none (every valid row).  The group key is K1's ``group_cols`` /
                     ``rho_table``
 
 A remap- or table-fed row whose id is outside its table drops.  The
-matched-doc total (int64) comes back beside the holder.
+matched-doc total (int64) comes back beside the holder.  ``block_ids`` /
+``block_rows`` restrict it to the rows of candidate zone blocks, as in
+``fused_groupby``.
 
 ``value_state_counts(flat_idx, K)`` is the precombined form, the TPU
 kernel's own contract: int64 occupancy counts of an int32 stream of any
@@ -155,8 +157,10 @@ def holder_from_counts(mode: str, counts: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _filter_mask(num_docs, n_pad, filter_fwd, match, filter_bounds) -> torch.Tensor:
-    rows = torch.arange(n_pad, device=num_docs.device)[None, :]
+def _filter_mask(num_docs, n_pad, filter_fwd, match, filter_bounds, rows=None) -> torch.Tensor:
+    """``rows``: the doc id of each row (gathered blocks), else 0..n_pad."""
+    if rows is None:
+        rows = torch.arange(n_pad, device=num_docs.device)[None, :]
     mask = rows < num_docs[:, None]
     if match is not None:
         m = match.to(torch.bool)
@@ -195,14 +199,28 @@ def combine_index(
     group_cards: Optional[Sequence[int]] = None,
     group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
     tier: Optional[str] = None,
+    block_ids: Optional[torch.Tensor] = None,
+    block_rows: int = 0,
 ) -> Tuple[torch.Tensor, int, torch.Tensor]:
     """The combine with torch ops: (int32 index [S, n_pad] with the
     sentinel K on dropped rows, K, matched-doc total int64).  Its counts
     are what ``value_state_counts`` / the TPU kernel count.  ``tier`` is
-    the kernel's and changes nothing here."""
+    the kernel's and changes nothing here.  With ``block_ids`` every row
+    stream is gathered to the candidate blocks' rows first (the index is
+    then [S, nb_pad * block_rows])."""
     K = index_space(mode, capacity, width)
+    rows = None
+    if block_ids is not None:
+        rowid, live = fused_groupby.candidate_rows(block_ids, block_rows)
+
+        def take(t):
+            return None if t is None else torch.gather(t, 1, rowid)
+
+        values, rho, filter_fwd = take(values), take(rho), take(filter_fwd)
+        group_cols = None if group_cols is None else [take(g) for g in group_cols]
+        rows = torch.where(live, rowid, torch.iinfo(torch.int64).max)  # dead rows fail row < num_docs
     S, n_pad = values.shape
-    mask = _filter_mask(num_docs, n_pad, filter_fwd, match, filter_bounds)
+    mask = _filter_mask(num_docs, n_pad, filter_fwd, match, filter_bounds, rows)
     docs = mask.sum(dtype=torch.int64)
     slot = torch.zeros((S, n_pad), dtype=torch.int64, device=values.device)
     for c, g in enumerate(group_cols or ()):
@@ -252,7 +270,8 @@ def value_state_reference(mode: str, num_docs: torch.Tensor, values: torch.Tenso
 
 
 def _validate(mode, num_docs, values, capacity, width, value_table, rho, rho_table, filter_fwd, match,
-              filter_bounds, group_cols, group_cards, group_remaps, tier) -> int:
+              filter_bounds, group_cols, group_cards, group_remaps, tier, block_ids=None,
+              block_rows=0) -> int:
     """The shape, dtype, device and layout contract; returns K."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}: one of {MODES}")
@@ -308,6 +327,7 @@ def _validate(mode, num_docs, values, capacity, width, value_table, rho, rho_tab
 
     check(values, "values", tuple(_INDEX_CODES), (S, n_pad))
     check(num_docs, "num_docs", (torch.int32,), (S,))
+    fused_groupby.check_blocks(block_ids, block_rows, S, n_pad, dev)
     if rho is not None:
         check(rho, "rho", (torch.uint8,), (S, n_pad))
     for t, name in ((value_table, "value_table"), (rho_table, "rho_table")):
@@ -335,17 +355,19 @@ def _validate(mode, num_docs, values, capacity, width, value_table, rho, rho_tab
 _grid: Dict[tuple, int] = {}  # blocks per segment by device, kernel, shared memory and shape
 
 
-def _library():
+def _library(blocks: bool):
+    """The full-scan library, or with ``blocks`` the block-table one (two
+    builds of ``csrc/value_state_counts.cu``)."""
     from pinot_tpu_torch.engine import kernels
 
-    lib = kernels.load("value_state_counts")
+    lib = kernels.load("value_state_counts_blocks" if blocks else "value_state_counts")
     fn = lib.value_state_launch
     if fn.argtypes is None:
         vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         fn.argtypes = [
             ci, ci, ci, ci, vp, vp, vp, ci, vp, ci, ll, ci, pv, pi, pi, vp, ci, vp,
-            pv, pi, ci, cu, cu, ci, vp, vp, vp, vp, ll, vp, ll, vp,
+            pv, pi, ci, cu, cu, vp, ci, ll, ci, vp, vp, vp, vp, ll, vp, ll, vp,
         ]
         fn.restype = ci
         occ = lib.value_state_blocks_per_sm
@@ -359,7 +381,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho_table, filter_fwd,
-            match, filter_bounds, group_cols, group_cards, group_remaps, tier):
+            match, filter_bounds, group_cols, group_cards, group_remaps, tier, block_ids=None,
+            block_rows=0):
     global launches
     S, n_pad = values.shape
     dev = values.device
@@ -376,15 +399,18 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
     kind, fcode = fused_groupby._filter_codes(filter_fwd, match)
     match_u8 = match.view(torch.uint8) if match is not None and match.dtype == torch.bool else match
     mcode, tcode = MODES.index(mode), TIERS.index(tier)
-    lib = _library()
+    lib = _library(block_ids is not None)
     with torch.cuda.device(dev):
-        gkey = (dev.index, mcode, tcode, kind, fcode, smem, S, n_pad)
+        # with a block table each entry is a segment of ``block_rows`` rows
+        nb_pad = 0 if block_ids is None else block_ids.shape[1]
+        segs, rows = (S * nb_pad, block_rows) if nb_pad else (S, n_pad)
+        gkey = (dev.index, mcode, tcode, kind, fcode, nb_pad > 0, smem, segs, rows)
         bps = _grid.get(gkey)
         if bps is None:
             per_sm = lib.value_state_blocks_per_sm(mcode, tcode, kind, fcode, smem)
             if per_sm < 1:
                 raise RuntimeError(f"value_state occupancy query failed with code {per_sm}")
-            bps = _grid[gkey] = fused_groupby.blocks_per_segment(S, n_pad, dev, per_sm)
+            bps = _grid[gkey] = fused_groupby.blocks_per_segment(segs, rows, dev, per_sm)
         # one buffer, which the launch zeroes: the matched-doc total, then
         # the device holder (int64 counts, presence bits or int32 registers)
         if mode == "counts":
@@ -410,7 +436,7 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
             mcode, tcode, kind, fcode, _ptr(filter_fwd), _ptr(filter_bounds), _ptr(match_u8), mcard,
             _ptr(num_docs), S, n_pad, ng, gptrs, gcodes, gcards,
             values.data_ptr(), _INDEX_CODES[values.dtype], _ptr(rho), tptrs, tcards, int(table_bytes > 0),
-            0 if mode == "registers" else int(width), K, bps,
+            0 if mode == "registers" else int(width), K, _ptr(block_ids), nb_pad, block_rows, bps,
             state if mode == "counts" else None, state if mode == "presence" else None,
             state if mode == "registers" else None, docs, buf.numel() * 8, holder.data_ptr(), smem,
             torch.cuda.current_stream(dev).cuda_stream,
@@ -439,12 +465,15 @@ def value_state(
     group_cards: Optional[Sequence[int]] = None,
     group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
     tier: Optional[str] = None,
+    block_ids: Optional[torch.Tensor] = None,
+    block_rows: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(matched-doc total int64 scalar, flat holder) for ``mode``; see
     the module docstring for the arguments."""
     kw = dict(capacity=capacity, width=width, value_table=value_table, rho=rho, rho_table=rho_table,
               filter_fwd=filter_fwd, match=match, filter_bounds=filter_bounds, group_cols=group_cols,
-              group_cards=group_cards, group_remaps=group_remaps, tier=tier)
+              group_cards=group_cards, group_remaps=group_remaps, tier=tier, block_ids=block_ids,
+              block_rows=block_rows)
     K = _validate(mode, num_docs, values, **kw)
     if values.device.type == "cuda":
         if values.numel() == 0:  # nothing to count: no launch

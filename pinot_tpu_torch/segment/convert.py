@@ -111,9 +111,12 @@ def segment_arrays_of(segment: Any) -> Dict[str, Any]:
         "num_docs": int(m.num_docs),
         "columns": cols,
         "time_column": m.time_column,
+        "time_unit": m.time_unit,
         "start_time": m.start_time,
         "end_time": m.end_time,
         "crc": int(m.crc),
+        "creation_time_ms": int(getattr(m, "creation_time_ms", 0)),
+        "custom": dict(getattr(m, "custom", {}) or {}),
     }
 
 
@@ -126,6 +129,9 @@ def segment_from_arrays(
     start_time: Optional[int] = None,
     end_time: Optional[int] = None,
     crc: int = 0,
+    time_unit: str = "DAYS",
+    creation_time_ms: int = 0,
+    custom: Optional[Mapping[str, Any]] = None,
 ) -> ImmutableSegment:
     """One ``ImmutableSegment`` from per-column array dicts (module doc)."""
     cols: Dict[str, ColumnData] = {
@@ -137,8 +143,11 @@ def segment_from_arrays(
         num_docs=num_docs,
         columns={n: c.metadata for n, c in cols.items()},
         time_column=time_column,
+        time_unit=time_unit,
         start_time=start_time,
         end_time=end_time,
         crc=crc,
+        creation_time_ms=creation_time_ms,
+        custom=dict(custom or {}),
     )
     return ImmutableSegment(metadata=meta, columns=cols)

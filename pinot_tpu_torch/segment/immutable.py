@@ -9,13 +9,16 @@ is produced by ``pinot_tpu_torch.engine.device``.
 from __future__ import annotations
 
 import itertools
+import zlib
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from pinot_tpu_torch.common.schema import DataType, FieldType
 from pinot_tpu_torch.segment.dictionary import Dictionary
+
+SEGMENT_FORMAT_VERSION = "tpu1"  # analog of SegmentVersion v1/v2/v3
 
 
 @dataclass
@@ -35,10 +38,46 @@ class ColumnMetadata:
     min_value: Any = None
     max_value: Any = None
 
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "name": self.name,
+            "dataType": self.data_type.value,
+            "fieldType": self.field_type.value,
+            "singleValue": self.single_value,
+            "cardinality": self.cardinality,
+            "totalDocs": self.total_docs,
+            "isSorted": self.is_sorted,
+            "hasInvertedIndex": self.has_inverted_index,
+            "maxNumMultiValues": self.max_num_multi_values,
+            "totalNumberOfEntries": self.total_number_of_entries,
+            "minValue": self.min_value,
+            "maxValue": self.max_value,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "ColumnMetadata":
+        return cls(
+            name=d["name"],
+            data_type=DataType(d["dataType"]),
+            field_type=FieldType(d["fieldType"]),
+            single_value=d["singleValue"],
+            cardinality=d["cardinality"],
+            total_docs=d["totalDocs"],
+            is_sorted=d["isSorted"],
+            has_inverted_index=d.get("hasInvertedIndex", False),
+            max_num_multi_values=d.get("maxNumMultiValues", 0),
+            total_number_of_entries=d.get("totalNumberOfEntries", 0),
+            min_value=d.get("minValue"),
+            max_value=d.get("maxValue"),
+        )
+
 
 @dataclass
 class SegmentMetadata:
-    """Segment-level metadata (reference: SegmentMetadataImpl)."""
+    """Segment-level metadata (reference: SegmentMetadataImpl +
+    creation.meta: crc + creation time).  ``custom["dataCrc"]`` marks a
+    crc that was computed over the column data (``format.verify_segment_crc``
+    holds such a segment to it)."""
 
     segment_name: str
     table_name: str
@@ -49,6 +88,42 @@ class SegmentMetadata:
     start_time: Optional[int] = None
     end_time: Optional[int] = None
     crc: int = 0
+    creation_time_ms: int = 0
+    format_version: str = SEGMENT_FORMAT_VERSION
+    custom: Dict[str, Any] = field(default_factory=dict)
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "segmentName": self.segment_name,
+            "tableName": self.table_name,
+            "numDocs": self.num_docs,
+            "columns": {k: v.to_json() for k, v in self.columns.items()},
+            "timeColumn": self.time_column,
+            "timeUnit": self.time_unit,
+            "startTime": self.start_time,
+            "endTime": self.end_time,
+            "crc": self.crc,
+            "creationTimeMs": self.creation_time_ms,
+            "formatVersion": self.format_version,
+            "custom": self.custom,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "SegmentMetadata":
+        return cls(
+            segment_name=d["segmentName"],
+            table_name=d["tableName"],
+            num_docs=d["numDocs"],
+            columns={k: ColumnMetadata.from_json(v) for k, v in d["columns"].items()},
+            time_column=d.get("timeColumn"),
+            time_unit=d.get("timeUnit", "DAYS"),
+            start_time=d.get("startTime"),
+            end_time=d.get("endTime"),
+            crc=d.get("crc", 0),
+            creation_time_ms=d.get("creationTimeMs", 0),
+            format_version=d.get("formatVersion", SEGMENT_FORMAT_VERSION),
+            custom=d.get("custom", {}),
+        )
 
 
 @dataclass
@@ -114,3 +189,21 @@ class ImmutableSegment:
     def row(self, doc_id: int) -> Dict[str, Any]:
         """Materialize one row (the selection finalize reads it)."""
         return {name: col.values_for_doc(doc_id) for name, col in self.columns.items()}
+
+    def rows(self) -> List[Dict[str, Any]]:
+        return [self.row(i) for i in range(self.num_docs)]
+
+    def compute_crc(self) -> int:
+        """CRC over the column data: forward indexes, then the dictionary,
+        column by column in name order (the reference's byte stream)."""
+        crc = 0
+        for name in sorted(self.columns):
+            col = self.columns[name]
+            for arr in (col.fwd, col.mv_values, col.mv_offsets):
+                if arr is not None:
+                    crc = zlib.crc32(np.ascontiguousarray(arr).tobytes(), crc)
+            if col.dictionary.is_string:
+                crc = zlib.crc32("\x00".join(col.dictionary.values).encode(), crc)
+            else:
+                crc = zlib.crc32(np.ascontiguousarray(col.dictionary.values).tobytes(), crc)
+        return crc & 0xFFFFFFFF

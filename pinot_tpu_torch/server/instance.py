@@ -9,11 +9,14 @@ the server's device lane on its own CUDA stream -> DataTable bytes.
 Errors come back as a DataTable whose ``exceptions`` are set (the broker
 still reduces the healthy servers' partials).
 
+The controller wiring is ``starter.py`` (in process) and
+``network_starter.py`` (a server process); they load segment files,
+verify their CRCs and quarantine a bad copy through this class.
+
 Left out of the port, for later slices: EXPLAIN, the result cache,
 joins, the roofline window, plan stats, the profiler and the occupancy
-sampler, residency, prewarm, the shadow auditor, CRC quarantine, schema
-evolution, leases, the controller wiring (``starter.py``) and the
-ingest planes.
+sampler, residency, prewarm, the shadow auditor, schema evolution and
+the ingest planes.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
 from pinot_tpu_torch.engine.dispatch import LaneGroup
 from pinot_tpu_torch.engine.executor import QueryExecutor
+from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
 from pinot_tpu_torch.engine.results import SEGMENT_TIER_KEYS, IntermediateResult
 from pinot_tpu_torch.pql import optimize_request, parse_pql
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
@@ -103,7 +107,7 @@ class ServerInstance:
         # pre-register the serving series (zero > absent on a scrape);
         # lane.* and heal.* register in their constructors
         for m in ("queries", "queriesShed", "queriesAbandoned", "segmentsMissedServing",
-                  "cost.docsScanned", "cost.bytesScanned"):
+                  "cost.docsScanned", "cost.bytesScanned", "crcFailures", "quarantinedSegments"):
             self.metrics.meter(m)
         for t in ("cost.deviceMs", "cost.hostMs"):
             self.metrics.timer(t)
@@ -118,6 +122,15 @@ class ServerInstance:
         tdm = self.data_manager.table(table)
         if tdm is not None:
             tdm.remove_segment(name)
+
+    def record_crc_failure(self, table: str, name: str) -> None:
+        """A copy of ``name`` failed its CRC check."""
+        self.metrics.meter("crcFailures").mark()
+
+    def quarantine_segment(self, table: str, name: str) -> None:
+        """Pull a segment whose copy failed verification from serving."""
+        self.remove_segment(table, name)
+        self.metrics.meter("quarantinedSegments").mark()
 
     # -- query path ---------------------------------------------------
     def handle_request(self, payload: bytes) -> bytes:
@@ -266,6 +279,8 @@ class ServerInstance:
             "lane": None if self.lanes is None else self.lanes.stats(),
             "selfHealing": heal,
             "stagedBytes": self.executor.staged_bytes(),
+            # the kernel wrappers' launch counts in this process
+            "kernelLaunches": {"k1": fused_groupby.launches, "k2": value_state_counts.launches},
             "metrics": self.metrics.snapshot(),
         }
 

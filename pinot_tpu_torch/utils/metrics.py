@@ -138,6 +138,11 @@ class Timer:
     def mean_ms(self) -> float:
         return self.total_ms / self.count if self.count else 0.0
 
+    def samples(self) -> List[float]:
+        """The samples in the window, oldest first."""
+        with self._lock:
+            return list(self._samples)
+
 
 class Gauge:
     def __init__(self) -> None:
@@ -250,6 +255,12 @@ class BrokerMetrics(MetricsRegistry):
     """BrokerMeter/BrokerQueryPhase namespace."""
 
     role = "broker"
+
+
+class ControllerMetrics(MetricsRegistry):
+    """ControllerMeter/ControllerGauge namespace."""
+
+    role = "controller"
 
 
 # ---------------------------------------------------------------------------

@@ -64,6 +64,26 @@ assert server.status()["lane"]["dispatches"] == 1
 broker.shutdown()
 tcp.stop()
 server.shutdown()
+# the deployment path: segment files with zone maps, the controller, the
+# two network starters and the admin CLI
+import os
+import tempfile
+
+from pinot_tpu_torch.broker.network_starter import NetworkedBrokerStarter
+from pinot_tpu_torch.controller.controller import Controller, ControllerHttpServer
+from pinot_tpu_torch.engine import zonemap
+from pinot_tpu_torch.segment.format import read_segment, write_segment
+from pinot_tpu_torch.server.network_starter import NetworkedServerStarter
+from pinot_tpu_torch.tools import admin
+
+with tempfile.TemporaryDirectory() as td:
+    path = write_segment(segs[0], os.path.join(td, "seg"))
+    assert read_segment(path).num_docs == 2000
+    assert zonemap.column_zones(segs[0], "l_shipdate", 1024) is not None
+    ctrl_http = ControllerHttpServer(Controller(os.path.join(td, "ctrl")))
+    ctrl_http.start()
+    ctrl_http.stop()
+
 leaked = sorted(m for m in sys.modules if m == "pinot_tpu" or m.startswith("pinot_tpu.")
                 or m == "jax" and sys.modules[m] is not None or m.startswith("jax."))
 assert not leaked, leaked
