@@ -37,9 +37,15 @@ QueryExecutor.execute -> reduce_to_response on one card:
      servers' queue / lane-wait / finalize split and the DataTable bytes
      per reply; 8 concurrent identical q1s (byte-identical answers, the
      lanes coalesce) and 8 concurrent q1s at distinct literals (each
-     against its own oracle); then on a reduced table (2 segments of 2^20
-     rows) a device fault injector's transient (one device retry),
-     poisoned plan and stalled launch (the host tier answers);
+     against its own oracle); the micro-batching tier: eight-literal
+     bursts of q1 (dates), range_unsorted and distinct_price (l_quantity
+     thresholds), each answer against its own oracle, at the batching
+     defaults (the batched kernels' launches counted) and again with
+     config.BATCH_MAX = 1 (broker p50 / p99, the lanes' batchLaunches /
+     batchedQueries, the replies' batchHits, the members on the block
+     path); then on a reduced table (2 segments of 2^20 rows) a device
+     fault injector's transient (one device retry), poisoned plan and
+     stalled launch (the host tier answers);
  10. zone maps and the deployed cluster: zone_in (Q1's aggregations over
      three dates of the clustered l_shipdate, K1's fused route) and
      zone_distinct (distinctcount under the same filter, K2's) in
@@ -57,6 +63,16 @@ QueryExecutor.execute -> reduce_to_response on one card:
      the servers' own phase medians, and the write, upload, upload to
      ONLINE and segment load times; every role stopped with SIGTERM;
 
+and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
+over ladders of 16 same-plan queries at distinct literals (q1 over
+l_shipdate, range_unsorted and distinct_price over l_quantity, hll_price
+over l_shipmode), at B = 1, 2, 4, 8, 16 members, every member torch.equal
+to its one-member launch, with ms per launch and per member, B
+one-member launches, the bound and the plain version; the chunked phase
+(config.CHUNK_ROWS = 2^26: q1, torch_op, hll_groupby and pct_quantity in
+two chunks of 8 segments against their oracles and the unchunked run);
+and the zone-map decision's host ms per query;
+
 every earlier query served by the device (no segmentsHost in its cost);
 and times the queries (with their host finalize and the bytes of the one
 device-to-host copy), the kernels at each query's shapes, their plain
@@ -65,6 +81,9 @@ that computes K2's function, and the pair sort-dedup with both fetches of
 its buffers.
 
     python3 chip_smoke.py [--out results.json] [--profile | --kernels-only]
+
+``--kernels-only`` stops after the build, the kernel checks, the tier
+probes and the batched probes (ladders over streams made on the card).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -225,6 +244,7 @@ DEPLOY_REQUEST_S = 600.0  # one HTTP request
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
 ITERS = 20  # timed runs per median, after warm-up
+MV_ITERS = 5  # timed runs per mvtest query median (mv_groupby takes seconds a run)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM published float32 rate outside the tensor cores
@@ -1085,6 +1105,306 @@ def k2_bound(vsc, mode: str, args: dict, matched: Optional[int] = None):
 
 
 # ---------------------------------------------------------------------------
+# Batched K1 / K2: B same-plan members in one launch
+# ---------------------------------------------------------------------------
+
+# the member counts each batched probe launches (every member torch.equal
+# to its own one-member launch at each)
+BATCH_SIZES = (1, 2, 4, 8, 16)
+BATCH_LINE = 8  # the member count the kernels line reports (a burst's eight clients)
+# 16 l_shipdate literals: SERVE_DATES, then eight more
+BATCH_DATES = SERVE_DATES + ("1992-03-10", "1992-11-11", "1993-07-07", "1994-04-01",
+                             "1995-01-15", "1996-06-30", "1997-03-03", "1998-02-02")
+# l_quantity > t: the serving burst's eight (5, 10, ..., 40), then eight more
+QTY_LADDER = (5, 10, 15, 20, 25, 30, 35, 40, 2, 7, 12, 17, 22, 27, 32, 37)
+SHIP_MODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
+SERVE_BATCH_ROUNDS = 6  # rounds of each eight-literal burst per batching setting
+_K1_BATCHED_ARGS = ("filter_fwd", "match", "num_docs", "value_fwds", "value_dicts", "capacity", "dtype",
+                    "filter_bounds", "value_raws", "group_cols", "group_cards", "group_remaps")
+
+
+def range_at(t: int) -> str:
+    return RANGE.replace("l_quantity > 25", f"l_quantity > {t}")
+
+
+def distinct_at(t: int) -> str:
+    return VALUE_QUERIES["distinct_price"].replace("l_quantity > 25", f"l_quantity > {t}")
+
+
+def hll_at(mode: str) -> str:
+    return VALUE_QUERIES["hll_price"].replace("'AIR'", f"'{mode}'")
+
+
+def _same(vals) -> bool:
+    a = vals[0]
+    if isinstance(a, torch.Tensor):
+        return all(isinstance(v, torch.Tensor) and v.data_ptr() == a.data_ptr() and v.shape == a.shape
+                   for v in vals)
+    return all(v is a or v == a for v in vals)
+
+
+def member_stack(members: List[dict]) -> Tuple[dict, List[str]]:
+    """The batched call's arguments from its members' one-member
+    arguments: a tensor every member shares (a staged stream or
+    dictionary, one object) passes once, the tables each member's
+    literals made stack on a leading member axis; also the names of the
+    stacked ones."""
+    out, stacked = {}, []
+    for key, v0 in members[0].items():
+        vals = [m[key] for m in members]
+        if isinstance(v0, (list, tuple)):
+            cols = []
+            for j, col in enumerate(zip(*vals)):
+                if col[0] is None or _same(col):
+                    cols.append(col[0])
+                else:
+                    cols.append(torch.stack(col).contiguous())
+                    stacked.append(f"{key}[{j}]")
+            out[key] = cols
+        elif isinstance(v0, torch.Tensor) and not _same(vals):
+            out[key] = torch.stack(vals).contiguous()
+            stacked.append(key)
+        else:
+            out[key] = v0
+    return out, stacked
+
+
+def member_rows(members: List[dict]) -> Tuple[List[int], int]:
+    """(rows each member matches, rows any member matches), one segment
+    at a time on the card."""
+    a0 = members[0]
+    lead = a0["values"] if "values" in a0 else a0["group_cols"][0]
+    S, n = lead.shape
+    rows = torch.arange(n, device=lead.device)
+    matched, union = [0] * len(members), 0
+    for s in range(S):
+        hit = torch.zeros(n, dtype=torch.bool, device=lead.device)
+        for i, a in enumerate(members):
+            m = rows < a["num_docs"][s]
+            f, b, mt = a.get("filter_fwd"), a.get("filter_bounds"), a.get("match")
+            if mt is not None:
+                fl = f[s].long()
+                m &= (fl >= 0) & (fl < mt.shape[-1]) & mt[s].bool()[fl.clamp(0, mt.shape[-1] - 1)]
+            elif f is not None:
+                fi = f[s].int()
+                m &= (fi >= b[s, 0]) & (fi < b[s, 1])
+            elif b is not None:
+                m &= (rows >= b[s, 0]) & (rows < b[s, 1])
+            matched[i] += int(m.sum())
+            hit |= m
+        union += int(hit.sum())
+    return matched, union
+
+
+def batched_bound(kind: str, members: List[dict], stacked: List[str], vsc=None, mode: Optional[str] = None):
+    """(bound ms, "bytes" or "operations", bytes, operations, rows any
+    member matches, the members' own bytes summed) of one batched launch:
+    it must read the filter stream of every row once, the other row
+    streams of the rows any member matches once, the shared tables once
+    and each member's own tables, and write each member's outputs; and do
+    each member's operations (``k1_bound`` / ``k2_bound`` on its matched
+    rows).  The last is what B one-member launches must move: a batched
+    launch past that over the memory rate read some of it from L2."""
+    matched, union = member_rows(members)
+    a0 = members[0]
+    if kind == "k1":
+        rows0, nbytes0, per_row = k1_bytes(a0)
+        ops = sum(k1_bound(a, m)[3] for a, m in zip(members, matched))
+        solo_bytes = sum(k1_bound(a, m)[2] for a, m in zip(members, matched))
+        fbytes = 8 if a0["dtype"] == torch.float64 else 4
+        out = 8 + 8 * a0["capacity"] + fbytes * a0["capacity"] * len(a0["value_raws"])
+    else:
+        rows0, nbytes0, per_row = k2_bytes(vsc, mode, a0)
+        ops = sum(k2_bound(vsc, mode, a, m)[3] for a, m in zip(members, matched))
+        solo_bytes = sum(k2_bound(vsc, mode, a, m)[2] for a, m in zip(members, matched))
+        K = vsc.index_space(mode, a0.get("capacity", 1), a0.get("width"))
+        out = 8 + (8 * K if mode == "counts" else 4 * K if mode == "presence" else K // 64)
+    fb = a0["filter_fwd"].element_size() if a0.get("filter_fwd") is not None else 0
+    batched, _ = member_stack(members)
+    own = 0
+    for name in stacked:
+        key, _, j = name.partition("[")
+        t = batched[key][int(j[:-1])] if j else batched[key]
+        own += t[0].numel() * t.element_size()
+    nbytes = (rows0 if fb else 0) * fb + union * (per_row - fb) + (nbytes0 - rows0 * per_row) \
+        + (len(members) - 1) * (own + out)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, ops, union, solo_bytes
+
+
+def batched_probe(label: str, kind: str, members: List[dict], fg, vsc, mode: Optional[str] = None,
+                  plain: bool = True) -> dict:
+    """One ladder of B = BATCH_SIZES members: each member's one-member
+    launch against its plain version (counts and holders exact, sums in
+    the audit band), then at each B the batched launch, every member
+    torch.equal to its one-member launch; per launch ms (CUDA events),
+    per member, B one-member launches back to back, one one-member
+    launch, and the batched launch's bound; at BATCH_LINE members also
+    the batched plain version and, for K2, one torch.bincount over the
+    members' combined indexes (each member's bins apart)."""
+    if kind == "k1":
+        solo = lambda a: fg.fused_filtered_groupby_sums(**a)  # noqa: E731
+
+        def batch(args, B):
+            return fg.fused_filtered_groupby_sums_batched(**{k: args[k] for k in _K1_BATCHED_ARGS}, members=B)
+
+        def parts(out, m=None):
+            docs, count, sums = out
+            if m is None:
+                return [docs, count, torch.stack(list(sums)) if len(sums) else count.new_zeros((0,))]
+            return [docs[m], count[m], sums[m] if sums.shape[1] else count.new_zeros((0,))]
+    else:
+        solo = lambda a: vsc.value_state(mode, **a)  # noqa: E731
+        batch = lambda args, B: vsc.value_state_batched(mode, **args, members=B)  # noqa: E731
+
+        def parts(out, m=None):
+            return list(out) if m is None else [out[0][m], out[1][m]]
+    solos = [parts(solo(a)) for a in members]
+    worst = 0.0
+    if plain:
+        for a, got in zip(members, solos):
+            if kind == "k1":
+                d, c, sm = fg.fused_filtered_groupby_sums_reference(**a)
+                if int(d) != int(got[0]) or not torch.equal(c, got[1]):
+                    raise AssertionError(f"{label}: a member's counts differ from the plain version")
+                if len(sm):
+                    worst = max(worst, _close(got[2], torch.stack(sm), AUDIT_RTOL, AUDIT_ATOL))
+            else:
+                d, h = vsc.value_state_reference(mode, **a)
+                if int(d) != int(got[0]) or not torch.equal(h, got[1]):
+                    raise AssertionError(f"{label}: a member's holder differs from the plain version")
+    one_ms, _ = cuda_ms(lambda: solo(members[0]), ITERS)
+    rec = {"one_member_ms": one_ms, "max_abs_err": worst, "by_B": {}}
+    counter = fg if kind == "k1" else vsc
+    for B in BATCH_SIZES:
+        if B > len(members):
+            break
+        args, stacked = member_stack(members[:B])
+        b0 = counter.batched_launches
+        out = batch(args, B)
+        torch.cuda.synchronize()
+        if B > 1 and counter.batched_launches != b0 + 1:
+            raise AssertionError(f"{label}: the batched launch was not counted")
+        for m in range(B):
+            if not all(torch.equal(x, y) for x, y in zip(parts(out, m), solos[m])):
+                raise AssertionError(f"{label} B={B}: member {m} differs from its one-member launch")
+        ms, _ = cuda_ms(lambda: batch(args, B), ITERS)
+        solo_ms, _ = cuda_ms(lambda: [solo(a) for a in members[:B]], ITERS)
+        bound, by, nbytes, ops, union, solo_bytes = batched_bound(kind, members[:B], stacked, vsc, mode)
+        r = rec["by_B"][B] = dict(ms=ms, per_member_ms=ms / B, solo_total_ms=solo_ms, bound_ms=bound,
+                                  bound_by=by, bytes=nbytes, operations=ops, union_rows=union, stacked=stacked,
+                                  members_bytes=solo_bytes, members_tbps=solo_bytes / (ms / 1e3) / 1e12)
+        if B == BATCH_LINE and plain:
+            if kind == "k1":
+                kw = {k: args[k] for k in _K1_BATCHED_ARGS}
+                r["plain_ms"] = cuda_ms(lambda: fg.fused_filtered_groupby_sums_batched_reference(**kw, members=B),
+                                        1, warmup=0)[0]
+            else:
+                r["plain_ms"] = cuda_ms(lambda: vsc.value_state_batched_reference(mode, **args, members=B),
+                                        1, warmup=0)[0]
+                idx, K = None, None
+                parts_ = []
+                for m, a in enumerate(members[:B]):
+                    one, K, _ = vsc.combine_index(mode, **a)
+                    parts_.append(one.reshape(-1) + m * (K + 1))  # int32: B * (K + 1) < 2^31
+                idx = torch.cat(parts_)
+                del parts_
+                r["library_ms"] = cuda_ms(lambda: torch.bincount(idx, minlength=B * (K + 1)), ITERS)[0]
+                del idx
+            log(f"{kind} batched {label} B={B}: plain version {r['plain_ms']:.4f} ms"
+                + (f", torch.bincount over the members' combined indexes {r['library_ms']:.4f} ms"
+                   if "library_ms" in r else ""))
+        log(f"{kind} batched {label} B={B}: {ms:.4f} ms per launch, {ms / B:.4f} ms per member; {B} one-member "
+            f"launches {solo_ms:.4f} ms ({solo_ms / ms:.3f}x the batched launch); one {one_ms:.4f} ms; bound "
+            f"{bound:.4f} ms by {by} ({union} rows matched by any member, {nbytes} bytes, {ops} operations; "
+            f"{bound / ms:.3f} of it); the members' own bytes {solo_bytes} at {r['members_tbps']:.3f} TB/s "
+            f"({'above' if r['members_tbps'] * 1e12 > HBM_BYTES_PER_S else 'under'} the memory rate"
+            f"{': some reads came from L2' if r['members_tbps'] * 1e12 > HBM_BYTES_PER_S else ''}); members' own "
+            f"tables {stacked}; every member torch.equal to its one-member launch")
+        del args, out
+    log(f"{kind} batched {label}: every member's one-member launch equal to its plain version "
+        f"(max_abs_err {worst:.6g})" if plain else f"{kind} batched {label}: plain versions not run")
+    return rec
+
+
+def k1_ladder_members(args: dict, dev) -> List[dict]:
+    """Sixteen one-member K1 argument sets over one set of streams,
+    differing in their filter's literals: a docrange's upper bound, or an
+    interval's, as a date or threshold ladder makes them."""
+    S, n = args["group_cols"][0].shape
+    out = []
+    for i in range(max(BATCH_SIZES)):
+        b = args["filter_bounds"].clone()
+        b[:, 1] = int(n * (i + 1) / (max(BATCH_SIZES) + 1))
+        out.append(dict(args, filter_bounds=b.contiguous()))
+    return out
+
+
+def k2_ladder_members(mode: str, args: dict) -> List[dict]:
+    """Sixteen one-member K2 argument sets over one set of streams: an
+    interval's lower bound stepping (distinct_price's threshold ladder),
+    or a one-entry match table stepping over the filter ids (hll_price's
+    ship modes, repeating past seven)."""
+    out = []
+    for i in range(max(BATCH_SIZES)):
+        if args.get("match") is not None:
+            card = args["match"].shape[-1]
+            mt = torch.zeros_like(args["match"])
+            mt[:, i % min(card, 7)] = True
+            out.append(dict(args, match=mt))
+        else:
+            b = args["filter_bounds"].clone()
+            b[:, 0] = QTY_LADDER[i]
+            out.append(dict(args, filter_bounds=b.contiguous()))
+    return out
+
+
+def range_oracles(segments, ts) -> Dict[int, dict]:
+    """``oracle(segments, "range_unsorted")`` at each threshold of ``ts``,
+    from one pass over the rows: counts and float64 sums by (group,
+    l_quantity id), then summed over the ids above each threshold."""
+    acc: Dict[int, dict] = {t: {} for t in ts}
+    for seg in segments:
+        q = seg.column("l_quantity")
+        qv = np.asarray(q.dictionary.values, dtype=np.float64)
+        rf, rfl = _labels(seg, "l_returnflag")
+        keys = rf.astype(np.int64) * qv.size + q.fwd
+        n = len(rfl) * qv.size
+        cnt = np.bincount(keys, minlength=n).reshape(-1, qv.size)
+        p = seg.column("l_extendedprice")
+        price = np.asarray(p.dictionary.values, dtype=np.float64)[p.fwd]
+        sums = np.bincount(keys, weights=price, minlength=n).reshape(-1, qv.size)
+        for t in ts:
+            ok = qv > t
+            for i, lab in enumerate(rfl):
+                c = int(cnt[i, ok].sum())
+                if c:
+                    e = acc[t].setdefault((lab,), {"count": 0, "sum_l_extendedprice": 0.0})
+                    e["count"] += c
+                    e["sum_l_extendedprice"] += float(sums[i, ok].sum())
+    return acc
+
+
+def distinct_oracles(segments, ts) -> Dict[int, Dict[Tuple[str, ...], int]]:
+    """``value_oracle(.., "distinct_price")`` at each threshold of ``ts``:
+    a price counts where the largest quantity of its rows passes the
+    threshold (one bincount over (price id, quantity id) a segment)."""
+    seen: Dict[int, list] = {t: [] for t in ts}
+    for seg in segments:
+        q, p = seg.column("l_quantity"), seg.column("l_extendedprice")
+        qv = np.asarray(q.dictionary.values, dtype=np.float64)
+        pv = np.asarray(p.dictionary.values, dtype=np.float64)
+        occ = np.bincount(p.fwd.astype(np.int64) * qv.size + q.fwd, minlength=pv.size * qv.size)
+        present = occ.reshape(pv.size, qv.size) > 0
+        top = np.where(present.any(axis=1), qv.size - 1 - np.argmax(present[:, ::-1], axis=1), -1)
+        top_q = np.where(top >= 0, qv[np.maximum(top, 0)], -np.inf)
+        for t in ts:
+            seen[t].append(pv[top_q > t])
+    return {t: {(): int(np.unique(np.concatenate(v)).size)} for t, v in seen.items()}
+
+
+# ---------------------------------------------------------------------------
 # Exact host oracles of the value-state answers
 # ---------------------------------------------------------------------------
 
@@ -1696,10 +2016,72 @@ def burst(broker, pqls: List[str]) -> list:
     return out
 
 
+def batch_bursts(fleet, ladders: Dict[str, Tuple[List[str], List[Any], Any]], label: str) -> dict:
+    """The eight-literal bursts of one batching setting through ``fleet``:
+    per ladder (name: (pqls, oracles, checker)) SERVE_BATCH_ROUNDS rounds of
+    eight clients at once, every answer against its own oracle and none
+    from the host tier; the broker's p50 / p99 over the rounds, the lanes'
+    batchLaunches / batchedQueries, the replies' batchHits and the members
+    that took the block path, after one untimed burst; then one held
+    round, the lanes held until every member has queued (the batch the
+    tier forms under a backlog)."""
+    out = {}
+    for name, (pqls, oracles, check) in ladders.items():
+        # one untimed burst first: a ladder's first queries on a server
+        # stage its columns (hundreds of ms), which is not burst latency
+        burst(fleet.broker, pqls)
+        before = [s.lane.stats() for s in fleet.servers.values()]
+        broker_ms, hits, block = [], 0, set()
+        for _ in range(SERVE_BATCH_ROUNDS):
+            replies = burst(fleet.broker, pqls)
+            for i, (resp, want) in enumerate(zip(replies, oracles)):
+                if resp.exceptions or resp.cost.get("segmentsHost"):
+                    raise AssertionError(f"serve {label} {name}[{i}]: {resp.exceptions} {resp.cost}")
+                check(resp, want)
+                broker_ms.append(resp.time_used_ms)
+                hits += int(resp.cost.get("batchHits", 0))
+                if resp.cost.get("segmentsZonemap"):
+                    block.add(i)
+        after = [s.lane.stats() for s in fleet.servers.values()]
+        launches = sum(a["batchLaunches"] - b["batchLaunches"] for a, b in zip(after, before))
+        queries = sum(a["batchedQueries"] - b["batchedQueries"] for a, b in zip(after, before))
+        # one held round: each lane busy until all eight queued
+        gate = threading.Event()
+        for srv in fleet.servers.values():
+            srv.lane.submit(("hold", name, time.monotonic()), lambda: gate.wait(60))
+        held = []
+        t = threading.Thread(target=lambda: held.extend(burst(fleet.broker, pqls)))
+        t.start()
+        time.sleep(1.0)
+        gate.set()
+        t.join()
+        held_hits = 0
+        for i, (resp, want) in enumerate(zip(held, oracles)):
+            if resp.exceptions or resp.cost.get("segmentsHost"):
+                raise AssertionError(f"serve {label} {name} held [{i}]: {resp.exceptions} {resp.cost}")
+            check(resp, want)
+            held_hits += int(resp.cost.get("batchHits", 0))
+        final = [s.lane.stats() for s in fleet.servers.values()]
+        r = out[name] = dict(
+            p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
+            samples=len(broker_ms), batch_launches=launches, batched_queries=queries, batch_hits=hits,
+            block_path_members=sorted(block),
+            held_batch_launches=sum(f["batchLaunches"] - a["batchLaunches"] for f, a in zip(final, after)),
+            held_batch_hits=held_hits)
+        log(f"serve {label} {name}: broker p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms over "
+            f"{len(broker_ms)} replies ({SERVE_BATCH_ROUNDS} rounds of {len(pqls)} clients at once); lanes "
+            f"batchLaunches {launches}, batchedQueries {queries}; replies' batchHits {hits}; members on the "
+            f"block path {sorted(block)}; held round: batchLaunches {r['held_batch_launches']}, batchHits "
+            f"{held_hits}; every answer equal to its own oracle")
+    return out
+
+
 def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
     """9. The same queries through two servers and the broker over TCP,
-    then concurrency, then failover on a reduced table."""
+    then concurrency, the batching tier's bursts with and without it,
+    then failover on a reduced table."""
     from pinot_tpu_torch.common.faults import DeviceFaultInjector
+    from pinot_tpu_torch.engine import config
     from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
 
     pqls = {**QUERIES, **VALUE_QUERIES, **SELECTION_QUERIES, **PAIR_QUERIES}
@@ -1796,7 +2178,10 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         # to its own oracle (stream and allocator races show here)
         t = time.perf_counter()
         want_at = q1_oracles(segments, SERVE_DATES)
-        log(f"serve distinct q1 oracles: {len(SERVE_DATES)} dates in {time.perf_counter() - t:.1f} s")
+        qtys = QTY_LADDER[:len(SERVE_DATES)]
+        want_range, want_distinct = range_oracles(segments, qtys), distinct_oracles(segments, qtys)
+        log(f"serve distinct q1, range and distinct_price oracles: {len(SERVE_DATES)} literals each in "
+            f"{time.perf_counter() - t:.1f} s")
         worst = 0.0
         for _ in range(SERVE_DISTINCT_ROUNDS):
             out = burst(fleet.broker, [q1_at(d) for d in SERVE_DATES])
@@ -1807,6 +2192,28 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         log(f"serve concurrent distinct q1: {SERVE_DISTINCT_ROUNDS} rounds of {len(SERVE_DATES)} clients at "
             f"once, each equal to its own oracle (max rel sum err {worst:.3g})")
         rec["distinct"] = {"rounds": SERVE_DISTINCT_ROUNDS, "clients": len(SERVE_DATES), "max_rel_err": worst}
+
+        # the micro-batching tier: three eight-literal bursts at the
+        # defaults (BATCH_MAX, BATCH_WINDOW_MS); the batched kernels'
+        # launch counts 0 just before, read just after
+        ladders = {
+            "q1_dates": ([q1_at(d) for d in SERVE_DATES], [want_at[d] for d in SERVE_DATES], check_response),
+            "range_qty": ([range_at(t) for t in qtys], [want_range[t] for t in qtys], check_response),
+            "distinct_price_qty": ([distinct_at(t) for t in qtys], [want_distinct[t] for t in qtys],
+                                   check_value_response),
+        }
+        fg.batched_launches = 0
+        vsc.batched_launches = 0
+        t = time.perf_counter()
+        rec["batching"] = {"defaults": batch_bursts(fleet, ladders, "batched")}
+        torch.cuda.synchronize()
+        totals = {"k1_batched": fg.batched_launches, "k2_batched": vsc.batched_launches}
+        record["batched_paths"] = {"serving": {"totals": totals, "wall_s": time.perf_counter() - t}}
+        log(f"path serving_batched: batched launches {totals} over the three bursts at BATCH_MAX "
+            f"{config.BATCH_MAX}, BATCH_WINDOW_MS {config.BATCH_WINDOW_MS}")
+        for kern, n in totals.items():
+            if n < 1:
+                raise AssertionError(f"serve: the batched kernel {kern} was not launched by the bursts")
         rec["lanes"] = {n: s.lane.stats() for n, s in fleet.servers.items()}
         rec["heal"] = {n: s.executor.healing_stats() for n, s in fleet.servers.items()}
         if any(h["hostFailovers"] or h["deviceFailures"] for h in rec["heal"].values()):
@@ -1817,6 +2224,26 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         server.executor.free_staging()
     del fleet
     torch.cuda.empty_cache()
+
+    # the same bursts with the tier off (config.BATCH_MAX = 1; the lanes
+    # read it when they are made)
+    batch_max, config.BATCH_MAX = config.BATCH_MAX, 1
+    try:
+        fleet = _Fleet(dev, covers)
+        try:
+            for pql in (Q1, RANGE, VALUE_QUERIES["distinct_price"]):  # staging and first launches
+                fleet.broker.handle_pql(pql)
+            rec["batching"]["batch_max_1"] = batch_bursts(fleet, ladders, "unbatched")
+            if any(s.lane.stats()["batchLaunches"] for s in fleet.servers.values()):
+                raise AssertionError("serve: a batch formed with BATCH_MAX = 1")
+        finally:
+            fleet.close()
+            for server in fleet.servers.values():
+                server.executor.free_staging()
+            del fleet
+            torch.cuda.empty_cache()
+    finally:
+        config.BATCH_MAX = batch_max
 
     # q1 through one server that holds all the segments: one server a
     # process, as a deployment runs it (the two servers above share one
@@ -2147,6 +2574,11 @@ def deployed_phase(segments, wants, record) -> None:
         record["paths"]["deployed"] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
         log(f"path deployed (staging included): {wall_s:.1f} s, launches on the servers per query {per_query}, "
             f"total {totals}; every answer equal to its oracle through the broker's HTTP endpoint")
+        status = {n: http_json(a + "/debug/metrics") for n, a in admin.items()}
+        rec["batching"] = {n: dict(batchLaunches=st["lane"]["batchLaunches"],
+                                   batchedQueries=st["lane"]["batchedQueries"],
+                                   kernelLaunches=st["kernelLaunches"]) for n, st in status.items()}
+        log(f"deployed: the servers' lanes at the batching defaults {rec['batching']}")
 
         # broker latency over SERVE_ITERS requests after warm-up, and the
         # servers' own medians of those requests
@@ -2299,6 +2731,16 @@ def run(dev: torch.device, opts) -> int:
                     f"{bound_by}, {bound / kern:.3f} of it, {nbytes / (kern / 1e3) / 1e12:.3f} TB/s)")
             del args
             torch.cuda.empty_cache()
+        # the batched kernels: ladders of members over on-card streams at
+        # the main path's widths (the full run takes the lineitem ladders)
+        q1 = k1_probe_shapes(dev)["q1_group_cols"]
+        batched_probe("q1_group_cols_docrange", "k1", k1_ladder_members(q1, dev), fg, vsc)
+        del q1
+        for pname in ("distinct_price", "hll_price"):
+            mode, args = k2_probe_shapes(dev)[pname]
+            batched_probe(pname, "k2", k2_ladder_members(mode, args), fg, vsc, mode)
+            del args
+            torch.cuda.empty_cache()
         log(f"kernels only: build, checks and probes done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
@@ -2396,7 +2838,9 @@ def run(dev: torch.device, opts) -> int:
     second = ex.execute(segments, torch_op_request)
     if partials_of(first) != partials_of(second):
         raise AssertionError("torch_op: two runs differ")
-    worst = check_response(reduce_to_response(torch_op_request, [second]), oracle(segments, "torch_op"))
+    wants["torch_op"] = oracle(segments, "torch_op")
+    torch_op_response = reduce_to_response(torch_op_request, [second])
+    worst = check_response(torch_op_response, wants["torch_op"])
     log(f"torch_op: two runs bit-identical; oracle ok (max rel sum err {worst:.3g})")
     record["oracle_max_rel_err"]["torch_op"] = worst
 
@@ -2669,6 +3113,110 @@ def run(dev: torch.device, opts) -> int:
         del value, out, padded
         torch.cuda.empty_cache()
 
+    # the zone-map decision's host time (candidate map, window, block table)
+    # on the full-scan queries, which pay it before they run whole
+    def decision_ms(executor, reqs: dict, label: str) -> None:
+        real = executor._block_skip_ids
+        times = []
+
+        def timed(*a):
+            t = time.perf_counter()
+            rows = real(*a)
+            times.append(((time.perf_counter() - t) * 1e3, rows is not None))
+            return rows
+
+        executor._block_skip_ids = timed
+        try:
+            for name, req in reqs.items():
+                times.clear()
+                for _ in range(ITERS):
+                    executor.execute(segments, req)
+                ms = float(np.median([t for t, _ in times]))
+                engaged = times[-1][1]
+                record.setdefault("zone_decision", {})[name] = {"ms": ms, "block_path": engaged}
+                log(f"zone decision {name} ({label}): {ms:.4f} ms on the host, median of {ITERS}; block path "
+                    f"{'engaged' if engaged else 'not engaged (full scan)'}")
+        finally:
+            executor._block_skip_ids = real
+
+    decision_ms(ex, {**requests, **value_requests}, "full scans")
+
+    # 4b. the batched kernels over lineitem ladders: same-plan queries at
+    # distinct literals, each member's K1 / K2 arguments as the executor
+    # hands them over (full scans: the batching tier takes no block path)
+    record["batched"] = {}
+    ladders = {
+        "q1_dates": ("k1", [q1_at(d) for d in BATCH_DATES]),
+        "range_qty": ("k1", [range_at(t) for t in QTY_LADDER]),
+        "distinct_price_qty": ("k2", [distinct_at(t) for t in QTY_LADDER]),
+        "hll_price_modes": ("k2", [hll_at(SHIP_MODES[i % len(SHIP_MODES)]) for i in range(max(BATCH_SIZES))]),
+    }
+    ex.zone_maps = False
+    try:
+        for label, (kind, pqls) in ladders.items():
+            members, mode = [], None
+            for pql in pqls:
+                captured.clear()
+                mod, fname = (fg, "fused_filtered_groupby_sums") if kind == "k1" else (vsc, "value_state")
+                restore = _capture(mod, fname, captured, kind)
+                try:
+                    ex.execute(segments, parse(pql))
+                finally:
+                    setattr(mod, fname, restore)
+                if kind == "k1":
+                    a, k = captured["k1"]
+                    members.append({**dict(zip(names, a)), **k})
+                else:
+                    (mode, *rest), kw = captured["k2"]
+                    members.append({**dict(zip(("num_docs", "values"), rest)), **kw})
+            record["batched"][label] = batched_probe(label, kind, members, fg, vsc, mode)
+            record["batched"][label]["kind"] = kind
+            del members
+            torch.cuda.empty_cache()
+    finally:
+        ex.zone_maps = True
+
+    # 4c. the chunked phase: the whole table past a per-dispatch row budget
+    # of 2^26 rows, two chunks of 8 segments; each answer against its
+    # oracle, and against the unchunked run (counts exact; sums
+    # bit-identical, or within the audit band)
+    chunk_requests = {"q1": requests["q1"], "torch_op": torch_op_request,
+                      "hll_groupby": value_requests["hll_groupby"], "pct_quantity": value_requests["pct_quantity"]}
+    unchunked = {"q1": responses["q1"], "torch_op": torch_op_response,
+                 "hll_groupby": value_responses["hll_groupby"], "pct_quantity": value_responses["pct_quantity"]}
+    record["chunked"] = {}
+    # half the table a dispatch: 2^26 rows at the full size
+    budget, config.CHUNK_ROWS = config.CHUNK_ROWS, SEGMENTS * ROWS_PER_SEGMENT // 2
+    try:
+        c0 = kernel_mod.chunked_dispatches
+        chunked = drive("chunked", chunk_requests, segments, {"q1": ("k1",), "torch_op": ("k1",),
+                                                              "hll_groupby": ("k1", "k2"),
+                                                              "pct_quantity": ("k1", "k2")})
+        if kernel_mod.chunked_dispatches - c0 != len(chunk_requests):
+            raise AssertionError(f"chunked: {kernel_mod.chunked_dispatches - c0} chunked dispatches for "
+                                 f"{len(chunk_requests)} queries")
+        for name, resp in chunked.items():
+            if name in ("q1", "torch_op"):
+                check_response(resp, wants[name])
+            else:
+                check_value_response(resp, wants[name])
+            same = json.dumps([a.to_json() for a in resp.aggregation_results], sort_keys=True) == \
+                json.dumps([a.to_json() for a in unchunked[name].aggregation_results], sort_keys=True)
+            if not same:
+                if name not in ("q1", "torch_op"):
+                    raise AssertionError(f"chunked {name}: the value states differ from the unchunked run")
+                check_response(resp, response_as_want(unchunked[name]))
+            ms, _ = cuda_ms(lambda: reduce_to_response(chunk_requests[name], [ex.execute(segments, chunk_requests[name])]),
+                            ITERS)
+            launched = record["paths"]["chunked"]["launches"][name]
+            record["chunked"][name] = dict(ms=ms, unchunked_ms=record["query_ms"][name], launches=launched,
+                                           vs_unchunked="bit-identical" if same else "within the audit band")
+            log(f"chunked {name}: oracle ok; {'bit-identical to' if same else 'within the audit band of'} the "
+                f"unchunked run; {ms:.3f} ms median of {ITERS} (unchunked {record['query_ms'][name]:.3f}); "
+                f"launches {launched} over 2 chunks")
+    finally:
+        config.CHUNK_ROWS = budget
+
     # 7. the host tier, timed apart from the device phases: host_groups
     # leaves the device before anything is staged; reach_overflow runs on
     # the device (K1 for the group counts, the pair reduce) and the host
@@ -2774,8 +3322,8 @@ def run(dev: torch.device, opts) -> int:
     record["mvtest_roles"] = {k: list(v) for k, v in roles.items()}
     for name, req in mv_requests.items():
         # one warm-up: the path's run above staged and warmed every table
-        ms, _ = cuda_ms(lambda: reduce_to_response(req, [mv_ex.execute(mv_segments, req)]), ITERS, warmup=1)
-        log(f"query {name}: {ms:.3f} ms median of {ITERS}, {total_rows / (ms / 1e3):.4g} rows/s")
+        ms, _ = cuda_ms(lambda: reduce_to_response(req, [mv_ex.execute(mv_segments, req)]), MV_ITERS, warmup=1)
+        log(f"query {name}: {ms:.3f} ms median of {MV_ITERS}, {total_rows / (ms / 1e3):.4g} rows/s")
         record["query_ms"][name] = ms
     if opts.profile:
         for name, req in mv_requests.items():
@@ -2879,6 +3427,8 @@ def run(dev: torch.device, opts) -> int:
         log(f"query {name}: {ms_on:.3f} ms median of {ITERS} over the candidate blocks "
             f"({z['scanned_rows']} rows scanned in the filter, segmentsZonemap {z['segments_zonemap']}); "
             f"{ms_off:.3f} ms as a full scan ({z['full_rows']} rows)")
+    decision_ms(zex, zone_requests, "the block path")
+
     # the switch on both sides: each sweep query over the blocks with the
     # switch forced open (its window: nb_pad over a segment's blocks), and
     # as a full scan; answers equal (counts and distinct counts exactly,
@@ -3032,6 +3582,20 @@ def run(dev: torch.device, opts) -> int:
                 "full_scan_ms": f["ms"], "full_scan_bound_ms": f["bound_ms"],
                 "launches": record["paths"]["zone_blocks"]["launches"][query]}
 
+    def batched_entry(name: str, base: dict, ladder: str, counter: str) -> dict:
+        """The kernels line's entry of a batched wrapper: its q1 / distinct
+        ladder at BATCH_LINE members, the bursts' launches, every B."""
+        probe = record["batched"][ladder]
+        at = probe["by_B"][BATCH_LINE]
+        return {"name": name, "route": "cuda", "source": base["source"], "replaces": base["replaces"],
+                "launches": record["batched_paths"]["serving"]["totals"][counter],
+                "max_abs_err": probe["max_abs_err"], "ms": at["ms"], "plain_ms": at["plain_ms"],
+                "bound_ms": at["bound_ms"], "bound_by": at["bound_by"], "library_ms": at.get("library_ms"),
+                "ladder": ladder, "members": BATCH_LINE, "one_member_ms": probe["one_member_ms"],
+                "by_B": {lab: {B: {k: r[k] for k in ("ms", "per_member_ms", "solo_total_ms", "bound_ms")}
+                               for B, r in record["batched"][lab]["by_B"].items()}
+                         for lab in record["batched"] if record["batched"][lab]["kind"] == probe["kind"]}}
+
     summary = {"kernels": [
         {
             "name": "fused_filtered_groupby_sums",
@@ -3062,6 +3626,10 @@ def run(dev: torch.device, opts) -> int:
             "block_path": dict(block_path("zone_distinct", zk2), library_ms=zk2["blocks"]["library_ms"]),
         },
     ]}
+    summary["kernels"] += [
+        batched_entry("fused_filtered_groupby_sums_batched", summary["kernels"][0], "q1_dates", "k1_batched"),
+        batched_entry("value_state_batched", summary["kernels"][1], "distinct_price_qty", "k2_batched"),
+    ]
     record["summary"] = summary
     record["wall_s"] = time.perf_counter() - t_start
     log(f"wall: {record['wall_s']:.1f} s")

@@ -31,6 +31,17 @@
 // the full scan's, and the partials keep their fixed order (entry-major).
 // A runtime branch on a null table: no template is added.
 //
+// Member axis (cross-query batching, engine/dispatch.py): one launch can
+// serve `members` queries of one plan that differ only in their literals.
+// The row streams and dictionaries are shared; each member has its own
+// filter bounds or match table and group remap tables (a member stride of
+// 0 shares one), its own int64 accumulator, ticket, per-block partials and
+// outputs.  The member is the innermost index of grid.x, so the members'
+// blocks over one row range are scheduled together and the first to read
+// a range from device memory leaves it in L2 for the others.  Each block
+// runs the one-member code with the one-member grid partition, so member
+// m's outputs are bit-identical to a launch of member m alone.
+//
 // Bound on the card: memory.  Q1 reads per row two uint8 group ids and
 // three float32 raws (14 B) and does about a dozen integer and float
 // operations, far below the card's compute rate, so the least time is
@@ -102,9 +113,12 @@ template <> struct MinBlocks<kAtomic> { static constexpr int value = 4; };
 
 struct Params {
   const void* filter_fwd;   // [S, n_pad] F (interval, table)
-  const int32_t* bounds;    // [S, 2] (interval: dictIds, docrange: rows)
-  const uint8_t* match;     // [S, match_card] (table)
+  const int32_t* bounds;    // [members][S, 2] (interval: dictIds, docrange: rows)
+  const uint8_t* match;     // [members][S, match_card] (table)
   int match_card;
+  int members;              // queries served by the launch (grid.x = blocks_per_seg * members)
+  long long bounds_mstride; // elements between two members' bounds (0: shared)
+  long long match_mstride;  // bytes between two members' match tables (0: shared)
   const int32_t* num_docs;  // [S]
   long long n_pad;
   const int32_t* keys;      // [S, n_pad] precombined keys, or null (ng > 0)
@@ -112,8 +126,9 @@ struct Params {
   const void* gptr[kGroupMax];      // [S, n_pad] group id streams
   int gcode[kGroupMax];
   int gcard[kGroupMax];             // radices
-  const int32_t* gremap[kGroupMax]; // [S, gremap_card] or null
+  const int32_t* gremap[kGroupMax]; // [members][S, gremap_card] or null
   int gremap_card[kGroupMax];
+  long long gremap_mstride[kGroupMax]; // elements between two members' remaps (0: shared)
   int goff[kGroupMax];              // offset of column c's remap in shared memory
   int remap_total;
   int K;
@@ -129,12 +144,12 @@ struct Params {
   long long block;           // rows per zone block
   int blocks_per_seg;
   int vec_ok;
-  void* part_sums;                 // [B, nv, K]
-  unsigned long long* acc;         // [K + 1] zero between launches
-  unsigned int* ticket;            // zero between launches
-  long long* out_docs;
-  long long* out_counts;
-  void* out_sums;
+  void* part_sums;                 // [members][blocks, nv, K]
+  unsigned long long* acc;         // [members][K + 1] zero between launches
+  unsigned int* ticket;            // [members] zero between launches
+  long long* out_docs;             // [members]
+  long long* out_counts;           // [members][K]
+  void* out_sums;                  // [members][nv, K]
 };
 
 template <typename T>
@@ -305,7 +320,8 @@ fused_groupby(Params p) {
   const Smem<T> sm = carve<T, TIER>(p, smem);
   const int v = blockIdx.y;  // the segment, or with a block table one of its entries
   const int s = p.block_ids == nullptr ? v : v / p.nb_pad;
-  const int b = blockIdx.x;
+  const int m = blockIdx.x % p.members;  // the member, innermost
+  const int b = blockIdx.x / p.members;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -326,12 +342,12 @@ fused_groupby(Params p) {
   }
   for (int c = 0; c < p.ng; ++c) {
     if (p.gremap[c] == nullptr) continue;
-    const int32_t* r = p.gremap[c] + (long long)s * p.gremap_card[c];
+    const int32_t* r = p.gremap[c] + m * p.gremap_mstride[c] + (long long)s * p.gremap_card[c];
     for (int i = tid; i < p.gremap_card[c]; i += kThreads) sm.remap[p.goff[c] + i] = r[i];
   }
   if (MODE == kTable) {
-    const uint8_t* m = p.match + (long long)s * p.match_card;
-    for (int i = tid; i < p.match_card; i += kThreads) sm.match[i] = m[i];
+    const uint8_t* mt = p.match + m * p.match_mstride + (long long)s * p.match_card;
+    for (int i = tid; i < p.match_card; i += kThreads) sm.match[i] = mt[i];
   }
   __syncthreads();
 
@@ -348,11 +364,13 @@ fused_groupby(Params p) {
   long long hi = min((long long)p.num_docs[s] - base, span);
   int flo = 0, fhi = 0;
   if (MODE == kDocrange) {
-    lo = max(lo, (long long)p.bounds[2 * s] - base);
-    hi = min(hi, (long long)p.bounds[2 * s + 1] - base);
+    const int32_t* bd = p.bounds + m * p.bounds_mstride;
+    lo = max(lo, (long long)bd[2 * s] - base);
+    hi = min(hi, (long long)bd[2 * s + 1] - base);
   } else if (MODE == kInterval) {
-    flo = p.bounds[2 * s];
-    fhi = p.bounds[2 * s + 1];
+    const int32_t* bd = p.bounds + m * p.bounds_mstride;
+    flo = bd[2 * s];
+    fhi = bd[2 * s + 1];
   }
   if (hi < lo) hi = lo;
   // [lo, a) head and [bb, hi) tail: scalar; [a, bb): 4-row slabs
@@ -551,12 +569,14 @@ fused_groupby(Params p) {
   my_docs = __reduce_add_sync(0xffffffffu, my_docs);
   if (lane == 0) atomicAdd(&sm.misc[0], my_docs);
   __syncthreads();
-  unsigned long long* acc = p.acc;
+  // this member's accumulator, ticket, partials and outputs
+  unsigned long long* acc = p.acc + (long long)m * (K + 1);
   if (tid == 0 && sm.misc[0]) atomicAdd(acc + K, static_cast<unsigned long long>(sm.misc[0]));
-  const int B = p.blocks_per_seg * gridDim.y;
+  const int B = p.blocks_per_seg * gridDim.y;  // blocks of one member
   const long long gb = (long long)v * p.blocks_per_seg + b;
   const int C = nv * K;
-  T* psum = static_cast<T*>(p.part_sums) + gb * C;
+  T* const parts_m = static_cast<T*>(p.part_sums) + (long long)m * B * C;
+  T* psum = parts_m + gb * C;
   if (TIER == kPrivate) {
     for (int kk = warp; kk < K; kk += kWarps) {
       int c = 0;
@@ -587,17 +607,17 @@ fused_groupby(Params p) {
   // ---- the last block to finish writes the outputs
   __threadfence();
   __syncthreads();
-  if (tid == 0) sm.misc[1] = atomicAdd(p.ticket, 1u) == static_cast<unsigned>(B - 1);
+  if (tid == 0) sm.misc[1] = atomicAdd(p.ticket + m, 1u) == static_cast<unsigned>(B - 1);
   __syncthreads();
   if (!sm.misc[1]) return;
   __threadfence();
   for (int kk = tid; kk <= K; kk += kThreads) {
     const unsigned long long v = atomicExch(acc + kk, 0ull);  // read and re-zero
-    if (kk < K) p.out_counts[kk] = static_cast<long long>(v);
-    else *p.out_docs = static_cast<long long>(v);
+    if (kk < K) p.out_counts[(long long)m * K + kk] = static_cast<long long>(v);
+    else p.out_docs[m] = static_cast<long long>(v);
   }
-  const T* parts = static_cast<const T*>(p.part_sums);
-  T* out = static_cast<T*>(p.out_sums);
+  const T* parts = parts_m;
+  T* out = static_cast<T*>(p.out_sums) + (long long)m * C;
   if (C < kThreads) {
     // one warp per output: lane l sums a fixed contiguous range of blocks,
     // then a fixed shuffle tree
@@ -617,7 +637,7 @@ fused_groupby(Params p) {
       out[col] = v;
     }
   }
-  if (tid == 0) atomicExch(p.ticket, 0u);
+  if (tid == 0) atomicExch(p.ticket + m, 0u);
 }
 
 typedef void (*KernelFn)(Params);
@@ -688,8 +708,13 @@ int fused_groupby_blocks_per_sm(int float_code, int filter_kind, int filter_code
 // arguments the kernel does not take.  smem_bytes is the dynamic shared
 // memory of one block, computed by the caller (shared_bytes in
 // engine/kernels/fused_groupby.py) in the layout carve() makes.  acc
-// ([K + 1] int64) and ticket must be zero; the launch leaves them zero.
+// ([members][K + 1] int64) and ticket ([members]) must be zero; the launch
+// leaves them zero.  The outputs and part_sums lead with the member axis;
+// bounds, match and each remap table are a member's own at member m times
+// its stride (0: one shared by every member).
 int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int tier,
+                         int members, long long bounds_mstride, long long match_mstride,
+                         const long long* remap_mstrides,
                          const void* filter_fwd, const int32_t* bounds,
                          const uint8_t* match, int match_card, const int32_t* num_docs,
                          int S, long long n_pad, const int32_t* keys, int ng,
@@ -702,8 +727,9 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
                          int blocks_per_seg, void* part_sums, unsigned long long* acc,
                          unsigned int* ticket, long long* out_docs, long long* out_counts,
                          void* out_sums, long long smem_bytes, void* stream) {
-  if (nv < 0 || nv > kNvMax || ng < 0 || ng > kGroupMax || K < 1 || S < 1 ||
-      blocks_per_seg < 1 || (ng == 0) == (keys == nullptr) ||
+  if (nv < 0 || nv > kNvMax || ng < 0 || ng > kGroupMax || K < 1 || S < 1 || members < 1 ||
+      blocks_per_seg < 1 || (long long)blocks_per_seg * members > 2147483647LL ||
+      (ng == 0) == (keys == nullptr) ||
       (block_ids != nullptr && (nb_pad < 1 || block_rows < 1 || n_pad % block_rows != 0 ||
                                 (long long)S * nb_pad > 65535)))
     return -1;
@@ -714,6 +740,9 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
   p.bounds = bounds;
   p.match = match;
   p.match_card = match_card;
+  p.members = members;
+  p.bounds_mstride = bounds_mstride;
+  p.match_mstride = match_mstride;
   p.num_docs = num_docs;
   p.n_pad = n_pad;
   p.keys = keys;
@@ -730,6 +759,7 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
     p.gcard[c] = used ? group_cards[c] : 1;
     p.gremap[c] = used ? static_cast<const int32_t*>(remap_ptrs[c]) : nullptr;
     p.gremap_card[c] = used && remap_ptrs[c] != nullptr ? remap_cards[c] : 0;
+    p.gremap_mstride[c] = used ? remap_mstrides[c] : 0;
     p.goff[c] = roff;
     roff += p.gremap_card[c];
     if (used) vec = vec && aligned16(p.gptr[c]);
@@ -763,7 +793,7 @@ int fused_groupby_launch(int float_code, int filter_kind, int filter_code, int t
   cudaError_t err = prepare(fn, smem_bytes);
   if (err == cudaErrorInvalidValue) return -1;
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(blocks_per_seg, block_ids != nullptr ? S * nb_pad : S);
+  dim3 grid(blocks_per_seg * members, block_ids != nullptr ? S * nb_pad : S);
   fn<<<grid, kThreads, static_cast<size_t>(smem_bytes), static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

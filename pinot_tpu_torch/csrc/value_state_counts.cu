@@ -78,6 +78,17 @@
 //     memory when they are small, else are read from device memory;
 //   * integer add, OR and max only: a launch's holders are the same on
 //     every launch whatever the grid.
+//
+// Member axis (cross-query batching, engine/dispatch.py): one launch can
+// serve `members` queries of one plan that differ only in their literals,
+// as in csrc/fused_groupby.cu.  The row streams are shared; each member has
+// its own filter bounds or match table and lookup tables (a member stride
+// of 0 shares one) and its own matched-doc total and holder (one zeroed
+// buffer of member_words int64 words each).  The member is the innermost
+// index of grid.x, so the members' blocks over one row range run together
+// and read it from L2 after the first; each block runs the one-member code
+// and grid partition, and the holders are integer add / OR / max, so
+// member m's holder equals a launch of member m alone.
 // The TPU version's two generated one-hots contracted on the MXU exist only
 // because the TPU has no scatter; neither is carried over.
 
@@ -109,9 +120,13 @@ enum Tier { kBlock = 0, kGlobal = 1, kByte = 2 };
 
 struct Params {
   const void* filter_fwd;   // [S, n_pad] F (interval, table)
-  const int32_t* bounds;    // [S, 2] (interval: dictIds, docrange: rows; null: no filter)
-  const uint8_t* match;     // [S, match_card] (table)
+  const int32_t* bounds;    // [members][S, 2] (interval: dictIds, docrange: rows; null: no filter)
+  const uint8_t* match;     // [members][S, match_card] (table)
   int match_card;
+  int members;              // queries served by the launch (grid.x = blocks_per_seg * members)
+  long long bounds_mstride; // elements between two members' bounds (0: shared)
+  long long match_mstride;  // bytes between two members' match tables (0: shared)
+  long long member_words;   // int64 words of one member's docs + holder buffer
   const int32_t* num_docs;  // [S], or null: every row is valid
   long long n_pad;
   int ng;
@@ -121,8 +136,9 @@ struct Params {
   const void* vptr;             // [S, n_pad] value ids, HLL buckets or fwd
   int vcode;
   const uint8_t* rptr;          // [S, n_pad] HLL rho stream, or null
-  const int32_t* tab[kTables];  // [S, tab_card] lookup tables, or null
+  const int32_t* tab[kTables];  // [members][S, tab_card] lookup tables, or null
   int tab_card[kTables];
+  long long tab_mstride[kTables];  // elements between two members' tables (0: shared)
   int tab_off[kTables];         // offset in shared memory when tab_shared
   int tab_shared;
   int tab_total;
@@ -133,10 +149,17 @@ struct Params {
   long long block;              // rows per zone block
   int blocks_per_seg;
   int vec_ok;
-  unsigned long long* counts;   // [K] (counts)
-  unsigned* bits;               // [ceil(K / 32)] zero at launch (presence)
-  int* regs;                    // [K / 64] zero at launch (registers)
-  unsigned long long* docs;     // [1] zero at launch
+  unsigned long long* counts;   // [K] (counts), member 0's
+  unsigned* bits;               // [ceil(K / 32)] zero at launch (presence), member 0's
+  int* regs;                    // [K / 64] zero at launch (registers), member 0's
+  unsigned long long* docs;     // [1] zero at launch, member 0's
+};
+
+// One member's device holder (the Params pointers moved to the member).
+struct Holder {
+  unsigned long long* counts;
+  unsigned* bits;
+  int* regs;
 };
 
 // Words of the block's holder in shared memory (after the tables); the
@@ -217,16 +240,16 @@ __device__ __forceinline__ int trash_init() {
 
 // ---- one update of the holder at the combined index idx (used when ok)
 template <int MODE, int TIER>
-__device__ __forceinline__ void update(const Params& p, int* hold, int* trash, unsigned idx, bool ok) {
+__device__ __forceinline__ void update(const Holder& hd, int* hold, int* trash, unsigned idx, bool ok) {
   if (TIER == kGlobal) {  // counts: matched across the warp in process()
     if (!ok) return;
     if (MODE == kPresence) {
       const unsigned bit = __funnelshift_l(0u, 1u, idx);  // 1 << (idx % 32)
-      unsigned* w = p.bits + (idx >> 5);
+      unsigned* w = hd.bits + (idx >> 5);
       if (!(__ldcg(w) & bit)) atomicOr(w, bit);
     } else {
       const int rho = static_cast<int>(idx & (kRho - 1));
-      int* reg = p.regs + idx / kRho;
+      int* reg = hd.regs + idx / kRho;
       if (rho > __ldcg(reg)) atomicMax(reg, rho);
     }
   } else if (MODE == kCounts) {
@@ -248,9 +271,9 @@ __device__ __forceinline__ void update(const Params& p, int* hold, int* trash, u
 // holder.  FULL: every slab of the lane is in range (sok is all ones).
 // Returns the number of rows that passed the filter.
 template <typename F, int FILTER, int MODE, int TIER, int N, bool FULL>
-__device__ __forceinline__ int process(const Params& p, const int32_t* const* tabs, const uint8_t* match,
-                                       int* hold, int* trash, long long r0, unsigned sok, int flo,
-                                       int fhi) {
+__device__ __forceinline__ int process(const Params& p, const Holder& hd, const int32_t* const* tabs,
+                                       const uint8_t* match, int* hold, int* trash, long long r0,
+                                       unsigned sok, int flo, int fhi) {
   // global counts match equal indexes across the warp before the atomic:
   // every lane of the warp takes the 16-row path together, the one-row
   // paths match over the lanes that are there
@@ -349,11 +372,11 @@ __device__ __forceinline__ int process(const Params& p, const int32_t* const* ta
       const bool take = (ok >> e & 1) && idx[e] < p.K;
       const unsigned peers = __match_any_sync(warp_mask, take ? idx[e] : 0xffffffffu);
       if (take && static_cast<unsigned>(__ffs(peers) - 1) == lane)
-        atomicAdd(p.counts + idx[e], static_cast<unsigned long long>(__popc(peers)));
+        atomicAdd(hd.counts + idx[e], static_cast<unsigned long long>(__popc(peers)));
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < N; ++e) update<MODE, TIER>(p, hold, trash, idx[e], (ok >> e & 1) && idx[e] < p.K);
+    for (int e = 0; e < N; ++e) update<MODE, TIER>(hd, hold, trash, idx[e], (ok >> e & 1) && idx[e] < p.K);
   }
   return __popc(hit);
 }
@@ -371,7 +394,11 @@ value_state_kernel(Params p) {
   uint8_t* match = reinterpret_cast<uint8_t*>(state + nstate);
   // the segment, or with a block table the segment of entry blockIdx.y
   const int s = BLOCKS ? blockIdx.y / p.nb_pad : blockIdx.y;
-  const int b = blockIdx.x;
+  const int m = blockIdx.x % p.members;  // the member, innermost
+  const int b = blockIdx.x / p.members;
+  const long long mw = m * p.member_words;
+  unsigned long long* const docs = p.docs + mw;
+  const Holder hd{p.counts + mw, p.bits + 2 * mw, p.regs + 2 * mw};
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -385,7 +412,7 @@ value_state_kernel(Params p) {
       if (tid == 0) s_tab[t] = nullptr;
       continue;
     }
-    src += (long long)s * p.tab_card[t];
+    src += m * p.tab_mstride[t] + (long long)s * p.tab_card[t];
     if (p.tab_shared) {
       int* dst = tabs_smem + p.tab_off[t];
       for (int i = tid; i < p.tab_card[t]; i += kThreads) dst[i] = src[i];
@@ -395,8 +422,8 @@ value_state_kernel(Params p) {
     }
   }
   if (FILTER == kTable) {
-    const uint8_t* m = p.match + (long long)s * p.match_card;
-    for (int i = tid; i < p.match_card; i += kThreads) match[i] = m[i];
+    const uint8_t* mt = p.match + m * p.match_mstride + (long long)s * p.match_card;
+    for (int i = tid; i < p.match_card; i += kThreads) match[i] = mt[i];
   }
   __syncthreads();
 
@@ -413,11 +440,13 @@ value_state_kernel(Params p) {
   long long hi = p.num_docs ? min((long long)p.num_docs[s] - base, span) : span;
   int flo = 0, fhi = 0;
   if (FILTER == kDocrange && p.bounds != nullptr) {
-    lo = max(lo, (long long)p.bounds[2 * s] - base);
-    hi = min(hi, (long long)p.bounds[2 * s + 1] - base);
+    const int32_t* bd = p.bounds + m * p.bounds_mstride;
+    lo = max(lo, (long long)bd[2 * s] - base);
+    hi = min(hi, (long long)bd[2 * s + 1] - base);
   } else if (FILTER == kInterval) {
-    flo = p.bounds[2 * s];
-    fhi = p.bounds[2 * s + 1];
+    const int32_t* bd = p.bounds + m * p.bounds_mstride;
+    flo = bd[2 * s];
+    fhi = bd[2 * s + 1];
   }
   if (hi < lo) hi = lo;
   // [lo, a) head and [bb, hi) tail: one row per lane; [a, bb): 4-row slabs
@@ -435,31 +464,31 @@ value_state_kernel(Params p) {
   // whole chunks, every slab in range; then at most one partial chunk
   long long c0 = a + (long long)gw * kChunk;
   for (; c0 + kChunk <= bb; c0 += (long long)nw * kChunk)
-    my_docs += process<F, FILTER, MODE, TIER, kRows, true>(p, s_tab, match, state, trash,
+    my_docs += process<F, FILTER, MODE, TIER, kRows, true>(p, hd, s_tab, match, state, trash,
                                                           off + c0 + lane * kSlab, 0xfu, flo, fhi);
   if (c0 < bb) {
     unsigned sok = 0;
 #pragma unroll
     for (int q = 0; q < kSlabs; ++q)
       if (c0 + lane * kSlab + q * kSlabStride < bb) sok |= 1u << q;
-    my_docs += process<F, FILTER, MODE, TIER, kRows, false>(p, s_tab, match, state, trash,
+    my_docs += process<F, FILTER, MODE, TIER, kRows, false>(p, hd, s_tab, match, state, trash,
                                                            off + c0 + lane * kSlab, sok, flo, fhi);
   }
   for (long long r = lo + (long long)gw * 32 + lane; r < a; r += (long long)nw * 32)
-    my_docs += process<F, FILTER, MODE, TIER, 1, false>(p, s_tab, match, state, trash, off + r, 1u, flo, fhi);
+    my_docs += process<F, FILTER, MODE, TIER, 1, false>(p, hd, s_tab, match, state, trash, off + r, 1u, flo, fhi);
   for (long long r = bb + (long long)gw * 32 + lane; r < hi; r += (long long)nw * 32)
-    my_docs += process<F, FILTER, MODE, TIER, 1, false>(p, s_tab, match, state, trash, off + r, 1u, flo, fhi);
+    my_docs += process<F, FILTER, MODE, TIER, 1, false>(p, hd, s_tab, match, state, trash, off + r, 1u, flo, fhi);
 
   // ---- flush: docs, then the block's holder into the device holder
   my_docs = __reduce_add_sync(0xffffffffu, my_docs);
   if (lane == 0 && my_docs) atomicAdd(&s_docs, my_docs);
   __syncthreads();
-  if (tid == 0 && s_docs) atomicAdd(p.docs, static_cast<unsigned long long>(s_docs));
+  if (tid == 0 && s_docs) atomicAdd(docs, static_cast<unsigned long long>(s_docs));
   if (TIER == kGlobal) return;
   if (MODE == kCounts) {
     for (unsigned k = tid; k < p.K; k += kThreads) {
       const unsigned c = state[k];
-      if (c) atomicAdd(p.counts + k, static_cast<unsigned long long>(c));
+      if (c) atomicAdd(hd.counts + k, static_cast<unsigned long long>(c));
     }
   } else if (MODE == kPresence) {
     const unsigned* bits = reinterpret_cast<const unsigned*>(state);
@@ -471,7 +500,7 @@ value_state_kernel(Params p) {
       } else {
         v = bits[w];
       }
-      if (v && (v & ~__ldcg(p.bits + w))) atomicOr(p.bits + w, v);
+      if (v && (v & ~__ldcg(hd.bits + w))) atomicOr(hd.bits + w, v);
     }
   } else {
     for (unsigned c = tid; c < p.K / kRho; c += kThreads) {
@@ -487,17 +516,24 @@ value_state_kernel(Params p) {
       } else {
         v = state[c];
       }
-      if (v > 0 && v > __ldcg(p.regs + c)) atomicMax(p.regs + c, v);
+      if (v > 0 && v > __ldcg(hd.regs + c)) atomicMax(hd.regs + c, v);
     }
   }
 }
 
-// presence bits -> int32 0/1 [K]; registers int32 -> uint8
-__global__ void finish_presence(const unsigned* __restrict__ bits, unsigned K, int32_t* __restrict__ out) {
+// presence bits -> int32 0/1 [K]; registers int32 -> uint8; member
+// blockIdx.y's bits or registers lie 2 * member_words words after member 0's
+__global__ void finish_presence(const unsigned* __restrict__ bits, unsigned K, long long member_words,
+                                int32_t* __restrict__ out) {
+  bits += 2 * member_words * blockIdx.y;
+  out += (long long)K * blockIdx.y;
   for (unsigned k = blockIdx.x * blockDim.x + threadIdx.x; k < K; k += gridDim.x * blockDim.x)
     out[k] = (bits[k >> 5] >> (k & 31)) & 1;
 }
-__global__ void finish_registers(const int* __restrict__ regs, unsigned n, uint8_t* __restrict__ out) {
+__global__ void finish_registers(const int* __restrict__ regs, unsigned n, long long member_words,
+                                 uint8_t* __restrict__ out) {
+  regs += 2 * member_words * blockIdx.y;
+  out += (long long)n * blockIdx.y;
   for (unsigned c = blockIdx.x * blockDim.x + threadIdx.x; c < n; c += gridDim.x * blockDim.x)
     out[c] = static_cast<uint8_t>(regs[c]);
 }
@@ -610,9 +646,13 @@ int value_state_blocks_per_sm(int mode, int tier, int filter_kind, int filter_co
 // engine/kernels/value_state_counts.py).  docs and the device holder
 // (counts in counts mode, bits in presence, regs in registers) lie in one
 // buffer of zero_bytes bytes starting at docs, which the launch zeroes
-// first; holder receives the int32 presence [K] or the uint8 registers
-// [K / 64].
+// first: member_words int64 words per member, member m's at m times that;
+// holder receives the int32 presence [members][K] or the uint8 registers
+// [members][K / 64].  bounds, match and each table are a member's own at
+// member m times its stride (0: one shared by every member).
 int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
+                       int members, long long bounds_mstride, long long match_mstride,
+                       const long long* table_mstrides, long long member_words,
                        const void* filter_fwd, const int32_t* bounds, const uint8_t* match,
                        int match_card, const int32_t* num_docs, int S, long long n_pad, int ng,
                        const void* const* group_ptrs, const int* group_codes, const int* group_cards,
@@ -623,8 +663,9 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
                        unsigned long long* counts, unsigned* bits, int* regs,
                        unsigned long long* docs, long long zero_bytes, void* holder, long long smem_bytes,
                        void* stream) {
-  if (ng < 0 || ng > kGroupMax || K < 1 || S < 1 || n_pad < 1 || blocks_per_seg < 1 ||
-      values == nullptr || docs == nullptr || zero_bytes < 8 || (block_ids != nullptr) != kBlockTable ||
+  if (ng < 0 || ng > kGroupMax || K < 1 || S < 1 || n_pad < 1 || blocks_per_seg < 1 || members < 1 ||
+      (long long)blocks_per_seg * members > 2147483647LL || members > 65535 || member_words < 1 ||
+      values == nullptr || docs == nullptr || zero_bytes < 8 * members * member_words || (block_ids != nullptr) != kBlockTable ||
       (block_ids != nullptr && (nb_pad < 1 || block_rows < 1 || n_pad % block_rows != 0 ||
                                 (long long)S * nb_pad > 65535)))
     return -1;
@@ -638,6 +679,10 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
   p.bounds = bounds;
   p.match = match;
   p.match_card = match_card;
+  p.members = members;
+  p.bounds_mstride = bounds_mstride;
+  p.match_mstride = match_mstride;
+  p.member_words = member_words;
   p.num_docs = num_docs;
   p.n_pad = n_pad;
   p.ng = ng;
@@ -660,6 +705,7 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
   for (int t = 0; t < kTables; ++t) {
     p.tab[t] = tables[t];
     p.tab_card[t] = tables[t] != nullptr ? table_cards[t] : 0;
+    p.tab_mstride[t] = tables[t] != nullptr ? table_mstrides[t] : 0;
     p.tab_off[t] = off;
     off += p.tab_card[t];
   }
@@ -682,17 +728,19 @@ int value_state_launch(int mode, int tier, int filter_kind, int filter_code,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(docs, 0, static_cast<size_t>(zero_bytes), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid(blocks_per_seg, block_ids != nullptr ? S * nb_pad : S);
+  dim3 grid(blocks_per_seg * members, block_ids != nullptr ? S * nb_pad : S);
   fn<<<grid, kThreads, static_cast<size_t>(smem_bytes), st>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (mode == kPresence) {
     const unsigned blocks = (K + kThreads - 1) / kThreads;
-    finish_presence<<<blocks < 4096 ? blocks : 4096, kThreads, 0, st>>>(bits, K, static_cast<int32_t*>(holder));
+    const dim3 fgrid(blocks < 4096 ? blocks : 4096, members);
+    finish_presence<<<fgrid, kThreads, 0, st>>>(bits, K, member_words, static_cast<int32_t*>(holder));
   } else if (mode == kRegisters) {
     const unsigned n = K / kRho;
     const unsigned blocks = (n + kThreads - 1) / kThreads;
-    finish_registers<<<blocks < 4096 ? blocks : 4096, kThreads, 0, st>>>(regs, n, static_cast<uint8_t*>(holder));
+    const dim3 fgrid(blocks < 4096 ? blocks : 4096, members);
+    finish_registers<<<fgrid, kThreads, 0, st>>>(regs, n, member_words, static_cast<uint8_t*>(holder));
   }
   return static_cast<int>(cudaGetLastError());
 }

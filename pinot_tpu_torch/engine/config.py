@@ -32,6 +32,21 @@ ZONE_BLOCK = 1 << 16
 ZONE_MAX_FRACTION = 0.5
 MIN_CARD_PAD = 8
 
+# The per-dispatch row budget: a table of more than this many rows (S x
+# n_pad) runs as segment-axis chunks (``kernel.make_chunked_table_kernel``),
+# which bounds the torch-op route's per-row temporaries ([S, n_pad] masks
+# and int64 keys); 0 turns chunking off.  The reference's
+# PINOT_TPU_CHUNK_ROWS default (pinot_tpu/engine/kernel.py:1081-1087).
+CHUNK_ROWS = 1 << 28
+
+# The lane's micro-batching tier (engine/dispatch.py): at most this many
+# same-plan queries a batched launch (<= 1 turns the tier off), and the
+# window that queued same-key demand holds open for more, in ms.  The
+# reference's PINOT_TPU_BATCH_MAX / PINOT_TPU_BATCH_WINDOW_MS defaults
+# (pinot_tpu/engine/dispatch.py:93-107).
+BATCH_MAX = 16
+BATCH_WINDOW_MS = 2.0
+
 # Group-by dense-holder cap (reference caps ARRAY_BASED key space at 1M,
 # DefaultGroupKeyGenerator.java): beyond this the host tier's hash path
 # runs (engine/host_fallback.py).

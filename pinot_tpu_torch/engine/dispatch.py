@@ -36,10 +36,29 @@ CUDA event has completed (``outputs_pending``): past that point handing
 out the buffer would be result caching, which this deliberately is not.
 A CPU launch is never pending.
 
+BATCHING: coalescing merges only identical dispatches; the micro-batching
+tier merges similar ones.  Dispatches that share a batch key (one
+StaticPlan, which buckets the literals so ``a > 5`` and ``a > 999`` share
+it; one staged-table token; one query-input signature) and carry a
+``BatchSpec`` are collected at dequeue time into ONE launch
+(``kernel.run_batched_table_kernel``): the batched K1 / K2 read the
+resident columns once while every member's literals ride a stacked
+member axis, the members' inputs go up in one stacked upload on the
+lane's stream, and the outputs come back in one packed fetch
+(``_BatchFetch``) from which each member's FINALIZE slices its own row:
+payloads stay byte-identical to unbatched execution.  The window is
+adaptive: an idle lane launches at once (batching never adds latency when
+the card is free), while queued same-key demand (two or more members
+already gathered) holds it open up to ``config.BATCH_WINDOW_MS`` for
+more, filling to ``config.BATCH_MAX`` or the spec's ``max_members`` (the
+row budget's cap).  A batched launch is one in-flight unit for the
+watchdog, and its error reaches every member, typed as any launch error.
+
 DEADLINES: each waiter carries the broker-propagated monotonic deadline
 (server/scheduler.py semantics).  A waiter whose deadline expired while
-its dispatch sat in the lane queue is shed with ``QueryAbandonedError``
-before any device work happens on its behalf; a dispatch all of whose
+its dispatch sat in the lane queue, or while its batch was forming, is
+shed with ``QueryAbandonedError`` before any device work happens on its
+behalf, its batchmates launching unaffected; a dispatch all of whose
 waiters expired is dropped without launching.
 
 SUPERVISION: a launch exception that is a device fault
@@ -58,10 +77,14 @@ exits), the stalled dispatch's waiters get a ``stalled`` error (the
 executor fails them over to the host tier), and a fresh lane thread
 re-drives everything still queued.
 
-Left out of the port, for later slices: the micro-batching tier
-(``BatchSpec`` / ``_BatchFetch``; it needs the batched kernel), the
-compile cache, the cost-analysis thread, ``OccupancySampler`` and
-multi-lane meshes (``LaneGroup`` holds one lane).
+Counters (``stats()``): depth, open dispatches, dispatches, coalesce
+hits, sheds, device failures, restarts, stale completions, and the
+batching tier's ``batchLaunches`` / ``batchedQueries`` (occupancy =
+batchedQueries / batchLaunches) and how its windows closed.
+
+Left out of the port, for later slices: the compile cache, the
+cost-analysis thread, ``OccupancySampler`` and multi-lane meshes
+(``LaneGroup`` holds one lane).
 """
 from __future__ import annotations
 
@@ -243,13 +266,15 @@ class LaneTicket:
     """One waiter's slot: the submitting worker blocks on ``result`` and
     resumes FINALIZE when the lane delivers outputs (or an error).
     ``coalesced`` marks a ticket that attached to an identical in-flight
-    dispatch instead of enqueueing its own."""
+    dispatch instead of enqueueing its own; ``batch_size`` is the number
+    of members of the (batched) launch it rode."""
 
-    __slots__ = ("deadline", "coalesced", "_event", "_value", "_error")
+    __slots__ = ("deadline", "coalesced", "batch_size", "_event", "_value", "_error")
 
     def __init__(self, deadline: Optional[float]) -> None:
         self.deadline = deadline
         self.coalesced = False
+        self.batch_size = 1
         self._event = threading.Event()
         self._value: Any = None
         self._error: Optional[BaseException] = None
@@ -272,10 +297,78 @@ class LaneTicket:
         return self._value
 
 
+class BatchSpec:
+    """One dispatch's micro-batching contract (built by the executor).
+
+    ``key``: dispatches with equal keys stack into one launch; the
+    executor keys on (StaticPlan, staged-table token, query-input
+    signature): one device program, one resident table, identically
+    shaped inputs.
+    ``inputs``: what this member hands ``launch_batched`` (the
+    executor's: its host inputs, which go up in one stacked upload with
+    its batchmates', and the event recorded after its PREP).
+    ``launch_batched``: callable(list of member inputs) -> ``(fetch,
+    handle)`` launching the batched kernel on the lane's stream; ``fetch(
+    handle, deadline)`` returns the whole batch's host outputs from one
+    packed device-to-host copy.
+    ``max_members``: the plan's cap under ``config.BATCH_MAX`` (the
+    executor keeps batch x rows under the per-dispatch row budget); 0
+    for none."""
+
+    __slots__ = ("key", "inputs", "launch_batched", "max_members")
+
+    def __init__(
+        self,
+        key: Hashable,
+        inputs: Any,
+        launch_batched: Callable[[List[Any]], Any],
+        max_members: int = 0,
+    ) -> None:
+        self.key = key
+        self.inputs = inputs
+        self.launch_batched = launch_batched
+        self.max_members = max_members
+
+
+class _BatchFetch:
+    """The shared FINALIZE handle of one batched launch: the first member
+    to need its outputs makes the ONE packed fetch for the whole batch;
+    every member slices its own row of the host outputs.  Members finalize on their own workers at once, so the
+    fetch is under a lock."""
+
+    def __init__(self, fetch: Callable) -> None:
+        self._fetch = fetch
+        self._lock = threading.Lock()
+        self._outs: Any = None
+        self._error: Optional[BaseException] = None
+
+    def _resolve(self, handle, deadline: Optional[float]) -> Any:
+        with self._lock:
+            if self._error is not None:
+                raise self._error
+            if self._outs is None:
+                try:
+                    self._outs = self._fetch(handle, deadline)
+                except TimeoutError:
+                    raise  # this member's budget ran out; a batchmate may still fetch
+                except BaseException as e:
+                    self._error = e
+                    raise
+            return self._outs
+
+    def member(self, index: int) -> Callable:
+        def fetch_member(handle, deadline: Optional[float] = None) -> Any:
+            from pinot_tpu_torch.engine.packing import slice_batched_outputs
+
+            return slice_batched_outputs(self._resolve(handle, deadline), index)
+
+        return fetch_member
+
+
 class _Dispatch:
     __slots__ = (
         "key", "launch", "pending", "waiters", "completed", "value",
-        "error", "plan_digest",
+        "error", "plan_digest", "batch", "batch_size",
     )
 
     def __init__(
@@ -284,11 +377,14 @@ class _Dispatch:
         launch: Callable[[], Any],
         pending: Callable[[Any], bool],
         plan_digest: Optional[str] = None,
+        batch: Optional[BatchSpec] = None,
     ) -> None:
         self.key = key
         self.launch = launch
         self.pending = pending
         self.plan_digest = plan_digest
+        self.batch = batch
+        self.batch_size = 1  # members of the launch this dispatch rode
         self.waiters: List[LaneTicket] = []
         self.completed = False
         self.value: Any = None
@@ -306,7 +402,10 @@ class DeviceLane:
     ``stall_timeout_s`` arms the watchdog (default 120 s, well above a
     first launch that builds the kernels; <= 0 disables it).
     ``fault_injector`` is an optional ``common.faults``
-    ``DeviceFaultInjector`` consulted before every launch."""
+    ``DeviceFaultInjector`` consulted before every launch.
+    ``batch_max`` / ``batch_window_s`` are the micro-batching tier's cap
+    and window, from ``config.BATCH_MAX`` / ``config.BATCH_WINDOW_MS`` at
+    construction."""
 
     def __init__(
         self,
@@ -337,7 +436,8 @@ class DeviceLane:
         # its spawn-time generation against this and, when stale, drops
         # its result and exits without touching lane state
         self._generation = 0
-        # (dispatch, started_at) while a launch is in flight
+        # (leader dispatch, started_at, members) while a launch (possibly
+        # batched) is in flight
         self._inflight: Optional[tuple] = None
         self._closed = False
         # the sticky fault that took this lane off the device, if any
@@ -348,10 +448,18 @@ class DeviceLane:
         self.device_failure_count = 0
         self.restart_count = 0
         self.stale_completions = 0
+        self.batch_max = config.BATCH_MAX
+        self.batch_window_s = config.BATCH_WINDOW_MS / 1000.0
+        self.batch_launches = 0
+        self.batched_queries = 0
+        self.batch_window_full = 0
+        self.batch_window_timeout = 0
         if metrics is not None:
             # pre-register the lane series so /metrics shows them at zero
             for name in ("lane.dispatches", "lane.coalesced", "lane.shed",
-                         "lane.deviceFailures", "lane.restarts"):
+                         "lane.deviceFailures", "lane.restarts", "batch.launches",
+                         "batch.queries", "batch.windowClosedFull",
+                         "batch.windowClosedTimeout", "batch.windowClosedIdle"):
                 metrics.meter(name)
             metrics.gauge("lane.depth").set(0)
             metrics.gauge("lane.open").set(0)
@@ -370,11 +478,14 @@ class DeviceLane:
         deadline: Optional[float] = None,
         pending: Callable[[Any], bool] = outputs_pending,
         plan_digest: Optional[str] = None,
+        batch: Optional[BatchSpec] = None,
     ) -> LaneTicket:
         """Enqueue a kernel launch, or coalesce onto an identical one
         that is queued, launching, or still executing on the card.
         Returns immediately; the caller blocks on ``ticket.result`` when
-        FINALIZE needs the outputs."""
+        FINALIZE needs the outputs.  ``batch`` marks the dispatch
+        stackable with same-key peers into one batched launch; a batched
+        member's value is ``(fetch, handle)``, its row of the batch."""
         ticket = LaneTicket(deadline)
         with self._cv:
             if self._closed:
@@ -389,6 +500,8 @@ class DeviceLane:
                 if d.error is None and self._still_pending(d):
                     self._hit()
                     ticket.coalesced = True
+                    # a late rider of a batched member rode that batch too
+                    ticket.batch_size = d.batch_size
                     ticket._deliver(value=d.value)
                     return ticket
                 self._close_open(d)
@@ -398,7 +511,7 @@ class DeviceLane:
                 ticket.coalesced = True
                 self._hit()
             else:
-                d = _Dispatch(key, launch, pending, plan_digest)
+                d = _Dispatch(key, launch, pending, plan_digest, batch)
                 d.waiters.append(ticket)
                 self._by_key[key] = d
                 self._queue.append(d)
@@ -424,6 +537,12 @@ class DeviceLane:
             "restarts": self.restart_count,
             "staleCompletions": self.stale_completions,
             "dead": self.dead is not None,
+            # the micro-batching tier: batched launches, the queries they
+            # carried, and how the formation windows closed
+            "batchLaunches": self.batch_launches,
+            "batchedQueries": self.batched_queries,
+            "batchWindowFull": self.batch_window_full,
+            "batchWindowTimeout": self.batch_window_timeout,
         }
 
     def mark_dead(self, error: DeviceExecutionError) -> None:
@@ -527,7 +646,8 @@ class DeviceLane:
                         timeout=infl[1] + self.stall_timeout_s - now + 0.005
                     )
                 else:
-                    d = infl[0]
+                    # a batched launch wedges as a unit: every member's
+                    # waiters get the stall verdict
                     self._inflight = None
                     self._generation += 1
                     self.restart_count += 1
@@ -538,12 +658,13 @@ class DeviceLane:
                         retryable=False,
                         stalled=True,
                     )
-                    d.completed = True
-                    if self._by_key.get(d.key) is d:
-                        self._by_key.pop(d.key)
-                    victims = d.waiters
-                    d.waiters = []
-                    d.error = err
+                    for d in infl[2]:
+                        d.completed = True
+                        if self._by_key.get(d.key) is d:
+                            self._by_key.pop(d.key)
+                        victims.extend(d.waiters)
+                        d.waiters = []
+                        d.error = err
                     self._spawn_lane_locked()
             if victims:
                 self._lane_mark("restarts")
@@ -589,6 +710,48 @@ class DeviceLane:
         while len(self._open) > _MAX_OPEN:
             self._close_open(self._open[0])
 
+    # -- micro-batching formation (lock held) --------------------------
+    def _gather_peers_locked(self, spec: BatchSpec, members: List[_Dispatch], cap: int) -> None:
+        """Move queued dispatches whose batch key equals ``spec.key`` into
+        ``members``, up to ``cap``.  Coalescing already folded identical
+        dispatches together, so every peer has its own inputs."""
+        taken = []
+        for peer in self._queue:
+            if len(members) + len(taken) >= cap:
+                break
+            if peer.batch is not None and peer.batch.key == spec.key:
+                taken.append(peer)
+        for peer in taken:
+            self._queue.remove(peer)
+            members.append(peer)
+        if taken:
+            self._set_depth()
+
+    def _form_batch_locked(self, d: _Dispatch, members: List[_Dispatch], gen: int) -> str:
+        """The adaptive window: gather queued same-key peers at once; with
+        fewer than 2 members (no same-shape demand) close at once, else
+        hold the window up to ``batch_window_s`` for more arrivals, to the
+        cap.  Returns how it closed: "full", "timeout" or "idle"."""
+        spec = d.batch
+        cap = self.batch_max
+        if spec.max_members:
+            cap = max(1, min(cap, spec.max_members))
+        self._gather_peers_locked(spec, members, cap)
+        if len(members) >= cap:
+            return "full"
+        if len(members) < 2 or self.batch_window_s <= 0:
+            return "idle"
+        end = time.monotonic() + self.batch_window_s
+        while len(members) < cap and not self._closed and gen == self._generation:
+            remaining = end - time.monotonic()
+            if remaining <= 0:
+                return "timeout"
+            # the wait releases the lock: submits keep landing, and the
+            # next gather picks up fresh same-key arrivals
+            self._cv.wait(remaining)
+            self._gather_peers_locked(spec, members, cap)
+        return "full" if len(members) >= cap else "timeout"
+
     def _launch_context(self):
         """The lane's stream (and its card) for everything a launch
         enqueues; nothing on the CPU."""
@@ -620,21 +783,51 @@ class DeviceLane:
                     return
                 d = self._queue.popleft()
                 self._set_depth()
+                # micro-batching: gather same-key peers (and, under
+                # demand, hold the window open for more) before the
+                # deadline sweep, so members expiring meanwhile shed too
+                members = [d]
+                window_close = None
+                if d.batch is not None and self.batch_max > 1:
+                    window_close = self._form_batch_locked(d, members, gen)
+                if self._closed or gen != self._generation:
+                    # closed or restarted while forming: these members
+                    # left the queue, so close()'s drain missed them
+                    closing = LaneClosedError("device lane closed while a batch was forming")
+                    victims: List[LaneTicket] = []
+                    for m in members:
+                        m.completed = True
+                        m.error = closing
+                        if self._by_key.get(m.key) is m:
+                            self._by_key.pop(m.key)
+                        victims.extend(m.waiters)
+                        m.waiters = []
+                    for w in victims:
+                        w._deliver(error=closing)
+                    return
                 # deadline shed at lane-dequeue time, mirroring the
                 # scheduler's dequeue check: the broker already failed
-                # over or timed out
+                # over or timed out.  A member expiring out of a forming
+                # batch sheds alone; its batchmates launch.
                 now = time.monotonic()
-                dead = [w for w in d.waiters if w.deadline is not None and now >= w.deadline]
-                d.waiters = [w for w in d.waiters if w.deadline is None or now < w.deadline]
-                if not d.waiters:
-                    d.completed = True
-                    if self._by_key.get(d.key) is d:
-                        self._by_key.pop(d.key)
-                else:
+                dead: List[LaneTicket] = []
+                live: List[_Dispatch] = []
+                for m in members:
+                    dead.extend(w for w in m.waiters if w.deadline is not None and now >= w.deadline)
+                    m.waiters = [w for w in m.waiters if w.deadline is None or now < w.deadline]
+                    if m.waiters:
+                        live.append(m)
+                    else:
+                        m.completed = True
+                        if self._by_key.get(m.key) is m:
+                            self._by_key.pop(m.key)
+                members = live
+                if members:
                     # watchdog window opens BEFORE the launch call: a
                     # wedge inside the fault injector or the launch
-                    # itself both count as in-flight stalls
-                    self._inflight = (d, now)
+                    # itself both count as in-flight stalls; a batched
+                    # launch is ONE in-flight unit
+                    self._inflight = (members[0], now, tuple(members))
             if dead:
                 self.shed_count += len(dead)
                 self._lane_mark("shed", len(dead))
@@ -644,20 +837,30 @@ class DeviceLane:
                 )
                 for w in dead:
                     w._deliver(error=err)
-            if not d.waiters:
+            if not members:
                 continue
+            d = members[0]
+            batched = len(members) > 1
             # launch OUTSIDE the lock: coalescing submits must not block
             # behind a launch
             t0 = time.perf_counter()
             self._set_inflight(1)
             error: Optional[BaseException] = None
             value: Any = None
+            values: List[Any] = []
             try:
                 inj = self.fault_injector
                 if inj is not None:
+                    # one launch: the injector sees it once (members share
+                    # the plan digest by construction)
                     inj.on_launch(d.plan_digest, d.key)
                 with self._launch_context():
-                    value = d.launch()
+                    if batched:
+                        fetch, handle = d.batch.launch_batched([m.batch.inputs for m in members])
+                        shared = _BatchFetch(fetch)
+                        values = [(shared.member(i), handle) for i in range(len(members))]
+                    else:
+                        value = d.launch()
             except Exception as e:  # a device fault is typed; the rest is delivered as raised
                 error = classify_device_error(e) if is_device_fault(e) else e
             except BaseException as e:  # deliver raw, keep the lane alive
@@ -680,24 +883,42 @@ class DeviceLane:
                 fault = isinstance(error, DeviceExecutionError)
                 if fault:
                     self.device_failure_count += 1
-                d.completed = True
-                d.error = error
-                d.value = None if error is not None else value
-                waiters = list(d.waiters)
-                d.waiters = []
-                if error is None and not self._closed and self._still_pending(d):
-                    # kernels still running: keep coalescible
-                    self._open.append(d)
-                elif self._by_key.get(d.key) is d:
-                    self._by_key.pop(d.key)
+                if batched:
+                    self.batch_launches += 1
+                    self.batched_queries += len(members)
+                    if window_close == "full":
+                        self.batch_window_full += 1
+                    elif window_close == "timeout":
+                        self.batch_window_timeout += 1
+                deliveries = []
+                for i, m in enumerate(members):
+                    m.completed = True
+                    m.error = error
+                    m.batch_size = len(members)
+                    m.value = None if error is not None else (values[i] if batched else value)
+                    deliveries.append((m.value, list(m.waiters)))
+                    m.waiters = []
+                    if error is None and not self._closed and self._still_pending(m):
+                        # kernels still running: keep coalescible
+                        self._open.append(m)
+                    elif self._by_key.get(m.key) is m:
+                        self._by_key.pop(m.key)
                 self._sweep_open_locked()
             if self.metrics is not None:
                 self._lane_mark("dispatches")
                 if fault:
                     self._lane_mark("deviceFailures")
+                if batched:
+                    self.metrics.meter("batch.launches").mark()
+                    self.metrics.meter("batch.queries").mark(len(members))
+                    self.metrics.meter({"full": "batch.windowClosedFull",
+                                        "timeout": "batch.windowClosedTimeout"}
+                                       .get(window_close, "batch.windowClosedIdle")).mark()
                 self.metrics.timer("phase.laneDispatch").update(launch_ms)
-            for w in waiters:
-                w._deliver(value=d.value, error=error)
+            for mvalue, waiters in deliveries:
+                for w in waiters:
+                    w.batch_size = len(members)
+                    w._deliver(value=mvalue, error=error)
 
 
 class LaneGroup:

@@ -22,6 +22,19 @@ K2, which read them in place); its ``numEntriesScannedInFilter`` counts
 the candidate rows and its cost ``segmentsZonemap``.  ``zone_maps=False``
 turns this off (the reference's ``PINOT_TPU_ZONEMAP=0``).
 
+THE ROW BUDGET (``config.CHUNK_ROWS``): a table of more rows than the
+budget runs a chunkable plan as segment-axis chunks
+(``kernel.make_chunked_table_kernel``), and takes no block path (the block
+table has no chunked form).
+
+BATCHING (the lane's micro-batching tier, ``engine/dispatch.py``): a
+full-scan dispatch on a lane, neither on the block path nor chunked,
+carries a ``BatchSpec`` (``_batch_spec``): same-plan queries queued
+together launch as one batched kernel, their inputs going up in one
+stacked upload.  Such a dispatch uploads its own inputs inside its launch,
+on the lane's stream, so a member that rides a batch never uploads twice.
+A query that rode a batch counts ``batchHits`` in its cost.
+
 SELF-HEALING (the reference's ladder, around the launch and the fetch):
 a device fault (``dispatch.is_device_fault``: a typed
 ``DeviceExecutionError`` from the lane's watchdog or the fault injector,
@@ -61,6 +74,7 @@ from pinot_tpu_torch.engine.device import (
     tree_leaves,
 )
 from pinot_tpu_torch.engine.dispatch import (
+    BatchSpec,
     DeviceExecutionError,
     LaneClosedError,
     classify_device_error,
@@ -73,8 +87,19 @@ from pinot_tpu_torch.engine import hll as hll_mod
 from pinot_tpu_torch.engine import kernels, zonemap
 from pinot_tpu_torch.engine.kernels import fused_groupby
 from pinot_tpu_torch.engine.host_fallback import execute_host
-from pinot_tpu_torch.engine.kernel import run_table_kernel
-from pinot_tpu_torch.engine.packing import make_packed_kernel
+from pinot_tpu_torch.engine.kernel import (
+    chunk_rows_limit,
+    make_chunked_table_kernel,
+    run_batched_table_kernel,
+    run_table_kernel,
+)
+from pinot_tpu_torch.engine.packing import (
+    batch_input_signature,
+    dispatch_packed,
+    fetch_handle,
+    make_packed_kernel,
+    stack_query_inputs,
+)
 from pinot_tpu_torch.engine.plan import (
     StaticPlan,
     _agg_kind,
@@ -529,37 +554,101 @@ class QueryExecutor:
     ) -> Dict[str, Any]:
         """DISPATCH + the packed fetch.  Direct (no lane): launch and
         fetch inline.  With a lane: the query inputs upload on this
-        worker's stream, the launch runs on the lane's stream (coalesced
-        with an identical in-flight dispatch), and this worker waits on
-        the dispatch's event."""
+        worker's stream (a batch-eligible dispatch's inside its launch,
+        on the lane's), the launch runs on the lane's stream (coalesced
+        with an identical in-flight dispatch, or batched with same-plan
+        peers), and this worker waits on the dispatch's event."""
         t0 = time.perf_counter()
-        q = to_device_inputs(q_np, self.device)
         block = zonemap.zone_block_rows() if "block_ids" in q_np else 0
+        kernel = self._table_kernel(plan, staged)
         lane = self.lane
         if lane is None:
-            handle = self._kernel.dispatch(plan, staged, seg, q, block)
+            q = to_device_inputs(q_np, self.device)
+            outs = kernel.fetch(kernel.dispatch(plan, staged, seg, q, block), deadline)
         else:
-            ready = ready_event(self.device)
-            tensors = list(seg.values()) + tree_leaves(q)
+            spec = None
+            if not block and kernel is self._kernel and lane.batch_max > 1:
+                spec = self._batch_spec(plan, staged, seg, q_np)
+            if spec is None:
+                q = to_device_inputs(q_np, self.device)
+                ready = ready_event(self.device)
+                tensors = list(seg.values()) + tree_leaves(q)
 
-            def launch():
-                stream_handoff(ready, tensors)
-                return self._kernel.dispatch(plan, staged, seg, q, block)
+                def launch():
+                    stream_handoff(ready, tensors)
+                    return kernel.dispatch(plan, staged, seg, q, block)
+            else:
+                ready = spec.inputs[1]
+
+                def launch():
+                    # alone after all: the upload goes on the lane's stream
+                    stream_handoff(ready, seg.values())
+                    return kernel.dispatch(plan, staged, seg, to_device_inputs(q_np, self.device), block)
 
             # identical (plan, staged-table token, inputs digest) means
             # identical device outputs; the token is process-unique, so a
             # re-staged table never aliases an in-flight dispatch
             ticket = lane.submit(
-                (plan, staged.token, _inputs_digest(q_np)), launch, deadline, plan_digest=pdigest
+                (plan, staged.token, _inputs_digest(q_np)), launch, deadline, plan_digest=pdigest,
+                batch=spec,
             )
-            handle = ticket.result(deadline)
-            t0 = self._phase("laneWait", t0, coalesced=ticket.coalesced)
+            value = ticket.result(deadline)
+            t0 = self._phase("laneWait", t0, coalesced=ticket.coalesced, batchSize=ticket.batch_size)
             if ticket.coalesced:
                 cost["coalesceHits"] = cost.get("coalesceHits", 0) + 1
-        outs = self._kernel.fetch(handle, deadline)
+            if ticket.batch_size > 1:
+                # this query's literals rode a batched launch with
+                # batch_size - 1 same-plan peers
+                cost["batchHits"] = cost.get("batchHits", 0) + 1
+            if isinstance(value, tuple):  # a member of a batched launch: its row of the batch
+                fetch, handle = value
+                outs = fetch(handle, deadline)
+            else:
+                outs = kernel.fetch(value, deadline)
         cost["deviceMs"] = cost.get("deviceMs", 0.0) + round((time.perf_counter() - t0) * 1000, 3)
         self._phase("planExec", t0)
         return outs
+
+    def _table_kernel(self, plan: StaticPlan, staged: StagedTable):
+        """The packed table kernel, or past the per-dispatch row budget
+        (``config.CHUNK_ROWS``) a chunkable plan's segment-axis chunks."""
+        chunked = make_chunked_table_kernel(plan, staged.num_segments, staged.n_pad)
+        return self._kernel if chunked is None else chunked
+
+    def _batch_spec(self, plan: StaticPlan, staged: StagedTable, seg: Dict[str, torch.Tensor],
+                    q_np: Dict[str, Any]) -> Optional[BatchSpec]:
+        """The dispatch's ``BatchSpec`` for the lane's micro-batching tier,
+        keyed on (StaticPlan, staging token, input signature): one device
+        program over one resident table with identically shaped inputs.
+        ``max_members`` keeps batch x rows under the per-dispatch row
+        budget: the largest power of two at most budget / rows (the
+        reference's rule, ``pinot_tpu/engine/executor.py:1175-1206``;
+        the port launches exactly the members it has).  None when one
+        member already fills the budget.  Its inputs are the host inputs
+        and the event recorded after this query's PREP."""
+        limit = chunk_rows_limit()
+        rows = max(1, staged.num_segments * staged.n_pad)
+        max_members = 0
+        if limit:
+            max_members = 1
+            while max_members * 2 <= limit // rows:
+                max_members *= 2
+        if max_members == 1:
+            return None
+        device = self.device
+        tensors = list(seg.values())
+
+        def launch_batched(inputs_list):
+            # on the lane's stream: wait for every member's PREP, one
+            # stacked upload, one batched launch, one packed copy back
+            for _, ready in inputs_list:
+                stream_handoff(ready, tensors)
+            qb = to_device_inputs(stack_query_inputs([q for q, _ in inputs_list]), device)
+            return fetch_handle, dispatch_packed(
+                run_batched_table_kernel(plan, staged, seg, qb, len(inputs_list)))
+
+        key = (plan, staged.token, batch_input_signature(q_np))
+        return BatchSpec(key, (q_np, ready_event(device)), launch_batched, max_members=max_members)
 
     def _block_skip_ids(
         self, plan: StaticPlan, q_np: Dict[str, Any], live: List[ImmutableSegment], staged: StagedTable
@@ -570,8 +659,12 @@ class QueryExecutor:
         window is at most ``config.ZONE_MAX_FRACTION`` of the table and
         its S x nb_pad entries fit one launch's grid.  A selection's
         window grows to hold its k rows, since top-k needs k rows a
-        segment."""
+        segment.  Past the per-dispatch row budget there is no block path
+        (the block table has no chunked form): the chunked full scan runs."""
         if not self.zone_maps:
+            return None
+        limit = chunk_rows_limit()
+        if limit and staged.num_segments * staged.n_pad > limit:
             return None
         cand = zonemap.candidate_blocks(plan, q_np, live, staged.n_pad, cache=staged.zones)
         if cand is None:

@@ -69,6 +69,21 @@ blocks in place and nothing else; the torch-op route gathers the
 candidate blocks first (``gather_blocks``, the reference's
 ``_gather_blocks``) and runs on the gathered rows, with their validity and
 original doc ids (docrange leaves, selection doc ids) beside them.
+
+Past the per-dispatch row budget (``config.CHUNK_ROWS``) a chunkable plan
+runs as segment-axis chunks (``make_chunked_table_kernel``): each chunk is
+one ``run_table_kernel`` over a slice of the segment axis (on the fused
+routes one K1 or K2 launch), and the chunks' reduced outputs combine
+elementwise in chunk order (``combine_reduced``).
+
+Cross-query batching (``run_batched_table_kernel``, the lane's
+micro-batching tier): B queries of one plan over the same staged segments,
+each query-input leaf with a leading [B] axis.  On the fused routes one
+batched K1 (and K2) launch serves every member, the row streams read once
+and each member's literals as its own tables; the torch-op route and
+selections run their members one after another inside the one launch
+call (no hand kernel to batch there: they do not share the read).  Every
+output gains a leading [B] axis.
 """
 from __future__ import annotations
 
@@ -85,6 +100,8 @@ from pinot_tpu_torch.engine.plan import MV_ANY, SV, StaticAgg, StaticPlan, group
 fused_dispatches = 0  # table-kernel runs that took the fused route
 fused_value_dispatches = 0  # table-kernel runs that took the fused value route
 block_dispatches = 0  # table-kernel runs over zone-map candidate blocks
+batched_dispatches = 0  # batched table-kernel runs (run_batched_table_kernel)
+chunked_dispatches = 0  # table-kernel runs split into segment-axis chunks
 
 # grouped HLL lowerings (``_grouped_hll_path``), the reference's gates
 # (pinot_tpu/engine/kernel.py:57,62); module constants so a test can force
@@ -277,18 +294,22 @@ def _value_inputs(agg: StaticAgg, aux, seg, flat: _Flat) -> Dict[str, Any]:
 
 
 def _value_state(agg: StaticAgg, aux, seg, flat: _Flat, filt: Dict[str, Any],
-                 group: Optional[Dict[str, Any]] = None, capacity: int = 0):
+                 group: Optional[Dict[str, Any]] = None, capacity: int = 0, members: int = 0):
     """(matched total, holder) of one value-state agg from one K2 launch
     over every segment: presence bits, the histogram or HLL registers,
     ``[capacity, ...]`` when grouped.  The filter and group streams are in
     ``flat``'s pair space; ``group`` also carries the fused route's block
-    ids (``block_ids`` / ``block_rows``)."""
-    docs, holder = value_state_counts.value_state(
-        _VALUE_MODES[agg.kind], flat.num_docs(seg), **_value_inputs(agg, aux, seg, flat),
-        capacity=max(capacity, 1), **filt, **(group or {}),
-    )
-    lead = (capacity,) if capacity else ()
-    return docs, holder.view(*lead, config.HLL_M if agg.kind == "hll" else agg.gcard_pad)
+    ids (``block_ids`` / ``block_rows``).  With ``members`` one batched
+    launch serves every member (the per-member tables lead with
+    ``[members]``), and both outputs lead with that axis."""
+    kw = dict(_value_inputs(agg, aux, seg, flat), capacity=max(capacity, 1), **filt, **(group or {}))
+    mode = _VALUE_MODES[agg.kind]
+    if members:
+        docs, holder = value_state_counts.value_state_batched(mode, flat.num_docs(seg), members=members, **kw)
+    else:
+        docs, holder = value_state_counts.value_state(mode, flat.num_docs(seg), **kw)
+    lead = ((members,) if members else ()) + ((capacity,) if capacity else ())
+    return docs, holder.reshape(*lead, config.HLL_M if agg.kind == "hll" else agg.gcard_pad)
 
 
 def _pair_gids(agg: StaticAgg, aux, seg, flat: _Flat) -> torch.Tensor:
@@ -922,22 +943,25 @@ def _leaf_filter(plan: StaticPlan, staged: StagedTable, seg, q) -> Dict[str, Any
         return dict(filter_bounds=q["bounds"][0])
     if leaf.eval_kind == "interval":
         return dict(filter_fwd=fwd, filter_bounds=q["bounds"][0])
-    pts = q["pts"][0]  # [S, k_pad], -1 padded
-    if pts.shape[1] > 1:
+    pts = q["pts"][0]  # [(B,) S, k_pad], -1 padded
+    if pts.shape[-1] > 1:
         card = staged.column(leaf.column).card_pad
-        match = torch.zeros((pts.shape[0], card + 1), dtype=torch.bool, device=pts.device)
-        match.scatter_(1, torch.where(pts >= 0, pts, card).long(), True)
-        return dict(filter_fwd=fwd, match=match[:, :card].contiguous())
+        match = torch.zeros((*pts.shape[:-1], card + 1), dtype=torch.bool, device=pts.device)
+        match.scatter_(-1, torch.where(pts >= 0, pts, card).long(), True)
+        return dict(filter_fwd=fwd, match=match[..., :card].contiguous())
     # single point p: the interval [p, p+1); p = -1 matches nothing
-    p = pts[:, 0:1]
-    return dict(filter_fwd=fwd, filter_bounds=torch.cat([p, p + 1], dim=1).contiguous())
+    p = pts[..., 0:1]
+    return dict(filter_fwd=fwd, filter_bounds=torch.cat([p, p + 1], dim=-1).contiguous())
 
 
-def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols, blocks) -> Dict[str, Any]:
+def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols, blocks,
+                members: int = 0) -> Dict[str, Any]:
     """num_docs, gb_presence and the count / sum / avg states from one K1
     launch with the group-by columns (already reduced over the segment
     axis), over the candidate blocks when ``blocks`` names them; a plan
-    with no filter is the docrange of every row."""
+    with no filter is the docrange of every row.  With ``members`` one
+    batched launch serves every member and each output leads with that
+    axis."""
     fdt = staged.precision.float_dtype
     if not filt:
         bounds = seg["num_docs"].new_zeros((staged.num_segments, 2))
@@ -947,11 +971,19 @@ def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols, block
     fwds = [None if use_raw[c] else seg[f"{c}.fwd"] for c in cols]
     dicts = [None if use_raw[c] else seg[f"{c}.dict"] for c in cols]
     raws = [seg[f"{c}.raw"] if use_raw[c] else None for c in cols]
-    docs, count, sums = fused_groupby.fused_filtered_groupby_sums(
-        filt.get("filter_fwd"), filt.get("match"), seg["num_docs"], None, fwds, dicts,
-        plan.group_by.capacity, dtype=fdt, filter_bounds=filt.get("filter_bounds"), value_raws=raws,
-        **_group_kwargs(plan, seg, q), **blocks,
-    )
+    if members:
+        docs, count, sums = fused_groupby.fused_filtered_groupby_sums_batched(
+            filt.get("filter_fwd"), filt.get("match"), seg["num_docs"], fwds, dicts,
+            plan.group_by.capacity, members=members, dtype=fdt, filter_bounds=filt.get("filter_bounds"),
+            value_raws=raws, **_group_kwargs(plan, seg, q),
+        )
+        sums = sums.unbind(1)
+    else:
+        docs, count, sums = fused_groupby.fused_filtered_groupby_sums(
+            filt.get("filter_fwd"), filt.get("match"), seg["num_docs"], None, fwds, dicts,
+            plan.group_by.capacity, dtype=fdt, filter_bounds=filt.get("filter_bounds"), value_raws=raws,
+            **_group_kwargs(plan, seg, q), **blocks,
+        )
     out: Dict[str, Any] = {"num_docs": docs, "gb_presence": (count > 0).to(torch.int32)}
     for i, agg in enumerate(plan.aggs):
         if agg.kind in _VALUE_KINDS:
@@ -965,12 +997,14 @@ def _k1_outputs(plan: StaticPlan, staged: StagedTable, seg, q, filt, cols, block
     return out
 
 
-def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks) -> Dict[str, Any]:
+def _fused_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks, members: int = 0) -> Dict[str, Any]:
     """Every state from one fused launch (module docstring)."""
-    return _k1_outputs(plan, staged, seg, q, _leaf_filter(plan, staged, seg, q), _fused_value_columns(plan), blocks)
+    return _k1_outputs(plan, staged, seg, q, _leaf_filter(plan, staged, seg, q), _fused_value_columns(plan),
+                       blocks, members)
 
 
-def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks) -> Dict[str, Any]:
+def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks,
+                         members: int = 0) -> Dict[str, Any]:
     """The fused value route's outputs, already reduced over the segment
     axis: one K1 launch for a grouped plan's num_docs, gb_presence and
     count / sum / avg states, one K2 launch per value state, each with
@@ -981,16 +1015,19 @@ def _fused_value_outputs(plan: StaticPlan, staged: StagedTable, seg, q, blocks) 
     flat = _Flat(staged.num_segments, staged.n_pad)
     gb = plan.group_by
     if gb is not None:
-        out = _k1_outputs(plan, staged, seg, q, filt, _fused_value_columns(plan, value_states=True), blocks)
+        out = _k1_outputs(plan, staged, seg, q, filt, _fused_value_columns(plan, value_states=True), blocks,
+                          members)
         group = dict(_group_kwargs(plan, seg, q), **blocks)
         for i, agg in enumerate(plan.aggs):
             if agg.kind in _VALUE_KINDS:
-                out[f"gb_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, group, gb.capacity)[1]
+                out[f"gb_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, group, gb.capacity,
+                                              members)[1]
         return out
     out = {}
     for i, agg in enumerate(plan.aggs):
         if agg.kind in _VALUE_KINDS:
-            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, blocks)
+            out["num_docs"], out[f"agg_{i}"] = _value_state(agg, q["agg_aux"][i], seg, flat, filt, blocks,
+                                                            members=members)
     for i, agg in enumerate(plan.aggs):
         if agg.kind not in _VALUE_KINDS:  # count(*)
             out[f"agg_{i}"] = out["num_docs"]
@@ -1022,3 +1059,201 @@ def run_table_kernel(
     reducers = output_reducers(plan)
     outs = _segment_outputs(plan, staged, seg, q)
     return {k: apply_reduce(reducers[k], v) for k, v in outs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Segment-axis chunking past the per-dispatch row budget
+# (pinot_tpu/engine/kernel.py:1073-1190)
+# ---------------------------------------------------------------------------
+
+_ELEMENTWISE_REDUCERS = ("sum", "min", "max", "sum_pair", "minmax_pair")
+
+
+def chunk_rows_limit() -> int:
+    """Most rows (S x n_pad) one dispatch runs over; 0: no chunking
+    (``config.CHUNK_ROWS``, read at each call)."""
+    return config.CHUNK_ROWS
+
+
+def _combine_op(agg: StaticAgg, capacity: int = 0) -> str:
+    """How two chunks' reduced states of ``agg`` merge: the reference's
+    reducer for it (``pinot_tpu/engine/kernel.py:823-847``).  The port
+    computes grouped and value states over every segment of a launch at
+    once (``_state_reduce``'s "none"), so the merge of two chunks is the
+    reference's segment reduce."""
+    base = agg.base
+    if base in ("count", "sum"):
+        return "sum"
+    if base in ("min", "max"):
+        return base
+    if base == "avg":
+        return "sum_pair"
+    if base == "minmaxrange":
+        return "minmax_pair"
+    if agg.sort_pairs:
+        return "distinct_pairs"
+    if agg.kind == "hist":
+        return "sum"
+    if agg.kind == "hll" and capacity and _grouped_hll_path(capacity) == "sort":
+        return f"hll_sort:{capacity}"
+    return "max"  # presence bits, HLL registers
+
+
+def chunk_reducers(plan: StaticPlan) -> Dict[str, str]:
+    """Per output key, how two chunks' reduced outputs combine."""
+    red: Dict[str, str] = {"num_docs": "sum"}
+    if plan.group_by is not None:
+        red["gb_presence"] = "max"
+        for i, agg in enumerate(plan.aggs):
+            red[f"gb_{i}"] = _combine_op(agg, plan.group_by.capacity)
+    else:
+        for i, agg in enumerate(plan.aggs):
+            red[f"agg_{i}"] = _combine_op(agg)
+    if plan.selection is not None:
+        red["sel_docids"] = "none"
+        red["sel_valid"] = "none"
+    return red
+
+
+def plan_chunkable(plan: StaticPlan) -> bool:
+    """Every output combines elementwise across chunks (the grouped-HLL
+    sort lowering's registers too); pair buffers and per-segment
+    selection candidates need the whole segment axis in one dispatch."""
+    return all(op in _ELEMENTWISE_REDUCERS or op.startswith("hll_sort:")
+               for op in chunk_reducers(plan).values())
+
+
+def combine_reduced(op: str, a, b):
+    if op.startswith("hll_sort:"):
+        return torch.maximum(a, b)  # chunk-reduced register states
+    if op == "sum":
+        return a + b
+    if op == "max":
+        return torch.maximum(a, b)
+    if op == "min":
+        return torch.minimum(a, b)
+    if op == "sum_pair":
+        return (a[0] + b[0], a[1] + b[1])
+    if op == "minmax_pair":
+        return (torch.minimum(a[0], b[0]), torch.maximum(a[1], b[1]))
+    raise ValueError(op)
+
+
+def _pick_chunk(num_segments: int, n_pad: int, limit: int, granularity: int = 1) -> int:
+    """Segments per dispatch under the row budget, in multiples of
+    ``granularity``.  Prefers a divisor of num_segments (every dispatch
+    then has one shape) but never shrinks below half the budget chasing
+    one (the reference's rule)."""
+    chunk = max(1, limit // max(n_pad, 1)) if limit else num_segments
+    chunk = max(granularity, (chunk // granularity) * granularity)
+    divisor = chunk
+    while divisor > max(granularity, chunk // 2) and (
+        num_segments % divisor or divisor % granularity
+    ):
+        divisor -= granularity
+    if (
+        divisor >= max(granularity, chunk // 2)
+        and num_segments % divisor == 0
+        and divisor % granularity == 0
+    ):
+        chunk = divisor
+    return chunk
+
+
+def _map_tensors(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def _chunked_run(reducers: Dict[str, str], num_segments: int, chunk: int):
+    """The table kernel over segments [s, s + chunk), chunk after chunk,
+    the reduced outputs combined elementwise in chunk order; the combined
+    outputs leave in one packed fetch, and the dispatch / fetch halves
+    stay apart for the lane (``run.dispatch`` / ``run.fetch``)."""
+    from pinot_tpu_torch.engine import packing
+
+    def outputs(plan: StaticPlan, staged: StagedTable, seg, q, block_rows: int = 0):
+        global chunked_dispatches
+        chunked_dispatches += 1
+        outs = None
+        for s in range(0, num_segments, chunk):
+            e = min(s + chunk, num_segments)
+            part = dataclasses.replace(staged, num_segments=e - s, num_docs=staged.num_docs[s:e],
+                                       num_docs_arr=staged.num_docs_arr[s:e])
+            o = run_table_kernel(plan, part, _map_tensors(lambda t: t[s:e], seg),
+                                 _map_tensors(lambda t: t[s:e], q))
+            outs = o if outs is None else {k: combine_reduced(reducers[k], outs[k], o[k]) for k in o}
+        return outs
+
+    def dispatch(*args):
+        return packing.dispatch_packed(outputs(*args))
+
+    def run(*args):
+        return packing.fetch_handle(dispatch(*args))
+
+    run.dispatch = dispatch
+    run.fetch = packing.fetch_handle
+    return run
+
+
+def make_chunked_table_kernel(plan: StaticPlan, num_segments: int, n_pad: int):
+    """The table kernel dispatched over segment-axis chunks when the
+    table passes the per-dispatch row budget; None when chunking is off,
+    not needed, or the plan is not chunk-combinable (the caller then runs
+    the plain packed table kernel)."""
+    limit = chunk_rows_limit()
+    chunk = _pick_chunk(num_segments, n_pad, limit)
+    if not limit or num_segments <= chunk or not plan_chunkable(plan):
+        return None
+    return _chunked_run(chunk_reducers(plan), num_segments, chunk)
+
+
+# ---------------------------------------------------------------------------
+# Cross-query batching: B same-plan queries in one launch
+# (make_packed_batched_table_kernel, pinot_tpu/engine/kernel.py:1236-1267)
+# ---------------------------------------------------------------------------
+
+
+def _stack_outputs(outs: List[Dict[str, Any]]) -> Dict[str, Any]:
+    """Member outputs stacked on a new leading axis; a leaf whose length
+    differs between members (the pair buffers, cut to each member's
+    unique pairs) is zero-padded to the longest first."""
+
+    def stack(*leaves):
+        if isinstance(leaves[0], (tuple, list)):
+            return type(leaves[0])(stack(*parts) for parts in zip(*leaves))
+        shape = [max(t.shape[d] for t in leaves) for d in range(leaves[0].dim())]
+        padded = []
+        for t in leaves:
+            if list(t.shape) != shape:
+                z = t.new_zeros(shape)
+                z[tuple(slice(0, n) for n in t.shape)] = t
+                t = z
+            padded.append(t)
+        return torch.stack(padded)
+
+    return {k: stack(*(o[k] for o in outs)) for k in outs[0]}
+
+
+def run_batched_table_kernel(plan: StaticPlan, staged: StagedTable, seg: Dict[str, torch.Tensor],
+                             q: Dict[str, Any], members: int) -> Dict[str, Any]:
+    """``members`` queries of one plan over the same staged segments, each
+    query-input leaf leading with the member axis; every output leads
+    with it too, member m's equal to ``run_table_kernel`` of member m
+    alone (module docstring).  Full scans only: no block table."""
+    global batched_dispatches, fused_dispatches, fused_value_dispatches
+    if "block_ids" in q:
+        raise ValueError("a batched launch takes no block table: block-path dispatches run alone")
+    batched_dispatches += 1
+    if fused_eligible(plan, staged):
+        fused_dispatches += 1
+        return _fused_outputs(plan, staged, seg, q, {}, members)
+    if fused_value_eligible(plan, staged):
+        fused_value_dispatches += 1
+        return _fused_value_outputs(plan, staged, seg, q, {}, members)
+    # the torch-op route: one member after another, the outputs stacked
+    return _stack_outputs([run_table_kernel(plan, staged, seg, _map_tensors(lambda t: t[m], q))
+                           for m in range(members)])

@@ -54,6 +54,16 @@ How the kernel accumulates is its tier, chosen from the shape
 On CUDA tensors the wrapper launches the kernel (or raises); on CPU
 tensors it runs ``fused_filtered_groupby_sums_reference``.  ``launches``
 counts kernel launches only.
+
+``fused_filtered_groupby_sums_batched`` serves ``members`` queries of one
+plan in one launch (the lane's micro-batching tier): the row streams and
+dictionaries are shared, while ``match``, ``filter_bounds`` and each of
+``group_remaps`` may lead with a ``[members]`` axis (each member its own)
+or not (one shared by all).  It returns num_docs [B], count [B, K] and
+sums [B, nv, K]; member m's are bit-identical to a launch of member m
+alone (the same tier and grid partition per member; the member is the
+innermost index of the grid).  Its plain version loops over the one-member
+plain version.  ``batched_launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -81,6 +91,7 @@ _INDEX_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 _RAW_CODE = 3
 
 launches = 0  # kernel launches on CUDA tensors; chip_smoke.py resets and reads it
+batched_launches = 0  # launches of the batched wrapper on CUDA tensors
 _launches_lock = threading.Lock()  # lanes of two servers launch at once
 
 
@@ -390,20 +401,23 @@ def fused_filtered_groupby_sums_reference(
     return docs, count[:capacity], sums
 
 
-# per (device, stream): the int64 [K + 1] accumulator and the uint32
-# ticket the kernel needs zero at launch and leaves zero (launches on one
-# stream run in order, so they share one)
+# per (device, stream): the int64 [members][K + 1] accumulators and the
+# uint32 [members] tickets the kernel needs zero at launch and leaves zero
+# (launches on one stream run in order, so they share one)
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _occupancy: Dict[tuple, int] = {}
 
 
-def _zeroed_scratch(dev: torch.device, stream: int, capacity: int) -> Tuple[torch.Tensor, torch.Tensor]:
+def _zeroed_scratch(dev: torch.device, stream: int, capacity: int,
+                    members: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     key = (dev.index, stream)
     got = _scratch.get(key)
-    if got is None or got[0].numel() < capacity + 1:
-        size = max(capacity + 1, 1024 if got is None else 2 * got[0].numel())
+    need = members * (capacity + 1)
+    if got is None or got[0].numel() < need or got[1].numel() < members:
+        size = max(need, 1024 if got is None else 2 * got[0].numel())
+        tickets = max(members, 1 if got is None else got[1].numel())
         got = (torch.zeros(size, dtype=torch.int64, device=dev),
-               torch.zeros(1, dtype=torch.int32, device=dev))
+               torch.zeros(tickets, dtype=torch.int32, device=dev))
         _scratch[key] = got
     return got
 
@@ -432,7 +446,8 @@ def _library():
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         fn.argtypes = [
-            ci, ci, ci, ci, vp, vp, vp, ci, vp, ci, ll, vp, ci, pv, pi, pi, pv, pi,
+            ci, ci, ci, ci, ci, ll, ll, ctypes.POINTER(ll),
+            vp, vp, vp, ci, vp, ci, ll, vp, ci, pv, pi, pi, pv, pi,
             ci, ci, pv, pi, pv, pi, vp, ci, ll, ci, vp, vp, vp, vp, vp, vp, ll, vp,
         ]
         fn.restype = ci
@@ -450,9 +465,19 @@ def _filter_codes(filter_fwd, match):
     return 1, 0
 
 
+def _mstride(t: Optional[torch.Tensor], solo_dim: int, members: int) -> int:
+    """Elements between two members' copies of a per-member table (0 for
+    one shared by every member, or none)."""
+    if t is None or members == 1 or t.dim() == solo_dim:
+        return 0
+    return t[0].numel()
+
+
 def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, capacity,
-            dtype, filter_bounds, tier, block_ids=None, block=0):
-    global launches
+            dtype, filter_bounds, tier, block_ids=None, block=0, members=1):
+    """One launch for ``members`` queries (1: the one-member kernel); the
+    outputs lead with the member axis."""
+    global launches, batched_launches
     lead = group_keys if group_keys is not None else groups[0][0]
     S, n_pad = lead.shape
     dev = lead.device
@@ -487,11 +512,12 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
         segs = S * nb_pad if nb_pad else S
         bps = blocks_per_segment(segs, block if nb_pad else n_pad, dev, per_sm)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        acc, ticket = _zeroed_scratch(dev, stream, capacity)
-        part_sums = torch.empty((segs * bps, nv, capacity), dtype=dtype, device=dev)
-        out_docs = torch.empty(1, dtype=torch.int64, device=dev)
-        out_counts = torch.empty(capacity, dtype=torch.int64, device=dev)
-        out_sums = torch.empty((nv, capacity), dtype=dtype, device=dev)
+        acc, ticket = _zeroed_scratch(dev, stream, capacity, members)
+        part_sums = torch.empty((members, segs * bps, nv, capacity), dtype=dtype, device=dev)
+        out_docs = torch.empty(members, dtype=torch.int64, device=dev)
+        out_counts = torch.empty((members, capacity), dtype=torch.int64, device=dev)
+        out_sums = torch.empty((members, nv, capacity), dtype=dtype, device=dev)
+        rstrides = (ctypes.c_longlong * MAX_GROUP_COLUMNS)()
 
         vp = ctypes.c_void_p
         n1, g1 = max(nv, 1), max(ng, 1)
@@ -508,8 +534,10 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
         for c, (g, r) in enumerate(groups):
             gptrs[c], gcodes[c], gcards[c] = g.data_ptr(), _INDEX_CODES[g.dtype], int(group_cards[c])
             rptrs[c], rcards[c] = _ptr(r), 0 if r is None else r.shape[-1]
+            rstrides[c] = _mstride(r, 2, members)
         rc = lib.fused_groupby_launch(
-            fcode_f, kind, fcode, TIERS.index(tier),
+            fcode_f, kind, fcode, TIERS.index(tier), members,
+            _mstride(filter_bounds, 2, members), _mstride(match_u8, 2, members), rstrides,
             _ptr(filter_fwd), _ptr(filter_bounds), _ptr(match_u8), mcard,
             num_docs.data_ptr(), S, n_pad, _ptr(group_keys), ng,
             gptrs, gcodes, gcards, rptrs, rcards, capacity, nv,
@@ -520,8 +548,11 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
     if rc != 0:
         raise RuntimeError(f"fused_groupby launch failed with code {rc}")
     with _launches_lock:
-        launches += 1
-    return out_docs[0], out_counts, [out_sums[j] for j in range(nv)]
+        if members == 1:
+            launches += 1
+        else:
+            batched_launches += 1
+    return out_docs, out_counts, out_sums
 
 
 def fused_filtered_groupby_sums(
@@ -553,8 +584,9 @@ def fused_filtered_groupby_sums(
     )
     device = num_docs.device
     if device.type == "cuda":
-        return _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards,
-                       capacity, dtype, filter_bounds, tier, block_ids, block_rows)
+        docs, count, sums = _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards,
+                                    capacity, dtype, filter_bounds, tier, block_ids, block_rows)
+        return docs[0], count[0], [sums[0, j] for j in range(len(cols))]
     if device.type != "cpu":
         raise ValueError(f"unsupported device {device}")
     return fused_filtered_groupby_sums_reference(
@@ -562,4 +594,100 @@ def fused_filtered_groupby_sums(
         dtype=dtype, filter_bounds=filter_bounds, value_raws=value_raws,
         group_cols=group_cols, group_cards=group_cards, group_remaps=group_remaps,
         block_ids=block_ids, block_rows=block_rows,
+    )
+
+
+def _member(t: Optional[torch.Tensor], solo_dim: int, m: int) -> Optional[torch.Tensor]:
+    """Member ``m``'s copy of a per-member table, or the shared one."""
+    return t if t is None or t.dim() == solo_dim else t[m]
+
+
+def _member_args(members: int, match, filter_bounds, group_remaps, m: int) -> dict:
+    remaps = None if group_remaps is None else [_member(r, 2, m) for r in group_remaps]
+    return dict(match=_member(match, 2, m), filter_bounds=_member(filter_bounds, 2, m),
+                group_remaps=remaps)
+
+
+def fused_filtered_groupby_sums_batched_reference(
+    filter_fwd: Optional[torch.Tensor],
+    match: Optional[torch.Tensor],
+    num_docs: torch.Tensor,
+    value_fwds: Sequence[Optional[torch.Tensor]],
+    value_dicts: Sequence[Optional[torch.Tensor]],
+    capacity: int,
+    *,
+    members: int,
+    dtype: torch.dtype,
+    filter_bounds: Optional[torch.Tensor] = None,
+    value_raws: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    group_cols: Optional[Sequence[torch.Tensor]] = None,
+    group_cards: Optional[Sequence[int]] = None,
+    group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    tier: Optional[str] = None,
+):
+    """Plain torch version of the batched function: the one-member plain
+    version, one member at a time, stacked."""
+    docs, counts, sums = [], [], []
+    for m in range(members):
+        d, c, s = fused_filtered_groupby_sums_reference(
+            filter_fwd, num_docs=num_docs, group_keys=None, value_fwds=value_fwds, value_dicts=value_dicts,
+            capacity=capacity, dtype=dtype, value_raws=value_raws, group_cols=group_cols,
+            group_cards=group_cards, **_member_args(members, match, filter_bounds, group_remaps, m),
+        )
+        docs.append(d)
+        counts.append(c)
+        sums.append(torch.stack(s) if s else c.new_zeros((0, capacity), dtype=dtype))
+    return torch.stack(docs), torch.stack(counts), torch.stack(sums)
+
+
+def fused_filtered_groupby_sums_batched(
+    filter_fwd: Optional[torch.Tensor],
+    match: Optional[torch.Tensor],
+    num_docs: torch.Tensor,
+    value_fwds: Sequence[Optional[torch.Tensor]],
+    value_dicts: Sequence[Optional[torch.Tensor]],
+    capacity: int,
+    *,
+    members: int,
+    dtype: torch.dtype,
+    filter_bounds: Optional[torch.Tensor] = None,
+    value_raws: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    group_cols: Optional[Sequence[torch.Tensor]] = None,
+    group_cards: Optional[Sequence[int]] = None,
+    group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    tier: Optional[str] = None,
+):
+    """(num_docs int64 [B], count int64 [B, K], sums [B, nv, K]) of
+    ``members`` queries in one launch; see the module docstring.  Each
+    member's arguments pass the one-member contract, and the launch takes
+    the tier the one-member launch would take."""
+    if members < 1:
+        raise ValueError("members must be >= 1")
+    if tier is not None and tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r}: one of {TIERS}")
+    for name, t in (("match", match), ("filter_bounds", filter_bounds),
+                    *((f"group_remaps[{c}]", r) for c, r in enumerate(group_remaps or ()))):
+        if t is not None and t.dim() == 3 and t.shape[0] != members:
+            raise ValueError(f"{name} leads with {t.shape[0]} members, not {members}")
+        if t is not None and t.dim() not in (2, 3):
+            raise ValueError(f"{name} must be [S, ...] (shared) or [members, S, ...]")
+    first = _member_args(members, match, filter_bounds, group_remaps, 0)
+    cols, groups = _validate(
+        filter_fwd, first["match"], num_docs, None, value_fwds, value_dicts, capacity, dtype,
+        first["filter_bounds"], value_raws, group_cols, group_cards, first["group_remaps"],
+    )
+    for t in (match, filter_bounds, *(group_remaps or ())):
+        if t is not None and not t.is_contiguous():
+            raise ValueError("the per-member tables must be contiguous")
+    device = num_docs.device
+    if device.type == "cuda":
+        groups = [(g, r) for (g, _), r in zip(groups, group_remaps or [None] * len(groups))]
+        return _launch(filter_fwd, match, num_docs, None, cols, groups, group_cards, capacity, dtype,
+                       filter_bounds, tier, members=members)
+    if device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+    return fused_filtered_groupby_sums_batched_reference(
+        filter_fwd, match, num_docs, value_fwds, value_dicts, capacity, members=members, dtype=dtype,
+        filter_bounds=filter_bounds, value_raws=value_raws, group_cols=group_cols,
+        group_cards=group_cards, group_remaps=group_remaps,
     )

@@ -59,6 +59,16 @@ How the kernel holds its state is its tier, chosen from the mode and K
 On CUDA tensors the wrappers launch the kernel (or raise); on CPU tensors
 they run ``value_state_reference`` / ``value_state_counts_reference``.
 ``launches`` counts kernel launches only.
+
+``value_state_batched`` serves ``members`` queries of one plan in one
+launch (the lane's micro-batching tier): the row streams are shared,
+while ``match``, ``filter_bounds``, each of ``group_remaps``,
+``value_table`` and ``rho_table`` may lead with a ``[members]`` axis (each
+member its own) or not (one shared by all).  It returns the matched-doc
+totals [B] and the holders [B, ...]; member m's equal a launch of member m
+alone (the same tier and grid partition per member, integer holders).
+Its plain version loops over the one-member plain version.
+``batched_launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -94,6 +104,7 @@ _INDEX_CODES = {torch.uint8: 0, torch.int16: 1, torch.int32: 2}
 _TABLES = MAX_GROUP_COLUMNS + 2  # group remaps, value table, rho table
 
 launches = 0  # kernel launches on CUDA tensors; chip_smoke.py resets and reads it
+batched_launches = 0  # launches of the batched wrapper on CUDA tensors
 _launches_lock = threading.Lock()  # lanes of two servers launch at once
 
 
@@ -366,7 +377,8 @@ def _library(blocks: bool):
         vp, ci, ll, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
         pv, pi = ctypes.POINTER(vp), ctypes.POINTER(ci)
         fn.argtypes = [
-            ci, ci, ci, ci, vp, vp, vp, ci, vp, ci, ll, ci, pv, pi, pi, vp, ci, vp,
+            ci, ci, ci, ci, ci, ll, ll, ctypes.POINTER(ll), ll,
+            vp, vp, vp, ci, vp, ci, ll, ci, pv, pi, pi, vp, ci, vp,
             pv, pi, ci, cu, cu, vp, ci, ll, ci, vp, vp, vp, vp, ll, vp, ll, vp,
         ]
         fn.restype = ci
@@ -382,8 +394,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho_table, filter_fwd,
             match, filter_bounds, group_cols, group_cards, group_remaps, tier, block_ids=None,
-            block_rows=0):
-    global launches
+            block_rows=0, members=1):
+    """One launch for ``members`` queries (1: the one-member kernel): the
+    matched-doc totals [members] and holders [members, ...]."""
+    global launches, batched_launches
     S, n_pad = values.shape
     dev = values.device
     ng = len(group_cols) if group_cols is not None else 0
@@ -411,16 +425,17 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
             if per_sm < 1:
                 raise RuntimeError(f"value_state occupancy query failed with code {per_sm}")
             bps = _grid[gkey] = fused_groupby.blocks_per_segment(segs, rows, dev, per_sm)
-        # one buffer, which the launch zeroes: the matched-doc total, then
-        # the device holder (int64 counts, presence bits or int32 registers)
+        # one buffer, which the launch zeroes: per member the matched-doc
+        # total, then the device holder (int64 counts, presence bits or
+        # int32 registers)
         if mode == "counts":
-            buf = torch.empty(K + 1, dtype=torch.int64, device=dev)
-            holder = buf[1:]
+            buf = torch.empty((members, K + 1), dtype=torch.int64, device=dev)
+            holder = buf[:, 1:]
         else:
             words = -(-K // 32) if mode == "presence" else K // RHO
-            buf = torch.empty(1 + -(-words // 2), dtype=torch.int64, device=dev)
-            holder = torch.empty(K, dtype=torch.int32, device=dev) if mode == "presence" else \
-                torch.empty(K // RHO, dtype=torch.uint8, device=dev)
+            buf = torch.empty((members, 1 + -(-words // 2)), dtype=torch.int64, device=dev)
+            holder = torch.empty((members, K), dtype=torch.int32, device=dev) if mode == "presence" else \
+                torch.empty((members, K // RHO), dtype=torch.uint8, device=dev)
         docs = buf.data_ptr()
         state = docs + 8
         vp = ctypes.c_void_p
@@ -430,10 +445,13 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
             g = group_cols[c]
             gptrs[c], gcodes[c], gcards[c] = g.data_ptr(), _INDEX_CODES[g.dtype], int(group_cards[c])
         tptrs, tcards = (vp * _TABLES)(), (ctypes.c_int * _TABLES)()
+        tstrides = (ctypes.c_longlong * _TABLES)()
         for t, tab in enumerate(tables):
             tptrs[t], tcards[t] = _ptr(tab), 0 if tab is None else tab.shape[-1]
+            tstrides[t] = fused_groupby._mstride(tab, 2, members)
         rc = lib.value_state_launch(
-            mcode, tcode, kind, fcode, _ptr(filter_fwd), _ptr(filter_bounds), _ptr(match_u8), mcard,
+            mcode, tcode, kind, fcode, members, fused_groupby._mstride(filter_bounds, 2, members),
+            fused_groupby._mstride(match_u8, 2, members), tstrides, buf.shape[1], _ptr(filter_fwd), _ptr(filter_bounds), _ptr(match_u8), mcard,
             _ptr(num_docs), S, n_pad, ng, gptrs, gcodes, gcards,
             values.data_ptr(), _INDEX_CODES[values.dtype], _ptr(rho), tptrs, tcards, int(table_bytes > 0),
             0 if mode == "registers" else int(width), K, _ptr(block_ids), nb_pad, block_rows, bps,
@@ -444,8 +462,11 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
     if rc != 0:
         raise RuntimeError(f"value_state launch failed with code {rc}")
     with _launches_lock:
-        launches += 1
-    return buf[0], holder
+        if members == 1:
+            launches += 1
+        else:
+            batched_launches += 1
+    return buf[:, 0], holder
 
 
 def value_state(
@@ -481,7 +502,8 @@ def value_state(
                         "registers": (torch.uint8, K // RHO)}[mode]
             return torch.zeros((), dtype=torch.int64, device=values.device), \
                 torch.zeros(n, dtype=dtype, device=values.device)
-        return _launch(mode, num_docs, values, K, **kw)
+        docs, holder = _launch(mode, num_docs, values, K, **kw)
+        return docs[0], holder[0]
     if values.device.type != "cpu":
         raise ValueError(f"unsupported device {values.device}")
     return value_state_reference(mode, num_docs, values, **kw)
@@ -508,4 +530,76 @@ def value_state_counts(flat_idx: torch.Tensor, K: int, tier: Optional[str] = Non
         return torch.zeros(K, dtype=torch.int64, device=dev)  # nothing to count: no launch
     return _launch("counts", None, flat_idx.view(1, -1), K, capacity=1, width=K, value_table=None,
                    rho=None, rho_table=None, filter_fwd=None, match=None, filter_bounds=None,
-                   group_cols=None, group_cards=None, group_remaps=None, tier=tier)[1]
+                   group_cols=None, group_cards=None, group_remaps=None, tier=tier)[1][0]
+
+
+_MEMBER_TABLES = ("match", "filter_bounds", "value_table", "rho_table")
+
+
+def _member_kw(kw: dict, m: int) -> dict:
+    """Member ``m``'s one-member arguments: its copy of each per-member
+    table ([members, S, ...]), the shared ones as they are."""
+    out = dict(kw)
+    for name in _MEMBER_TABLES:
+        out[name] = fused_groupby._member(kw.get(name), 2, m)
+    if kw.get("group_remaps") is not None:
+        out["group_remaps"] = [fused_groupby._member(r, 2, m) for r in kw["group_remaps"]]
+    return out
+
+
+def value_state_batched_reference(mode: str, num_docs: torch.Tensor, values: torch.Tensor, *,
+                                  members: int, **kw):
+    """Plain torch version of ``value_state_batched``: the one-member
+    plain version, one member at a time, stacked."""
+    kw.pop("tier", None)
+    out = [value_state_reference(mode, num_docs, values, **_member_kw(kw, m)) for m in range(members)]
+    return torch.stack([d for d, _ in out]), torch.stack([h for _, h in out])
+
+
+def value_state_batched(
+    mode: str,
+    num_docs: torch.Tensor,
+    values: torch.Tensor,
+    *,
+    members: int,
+    capacity: int = 1,
+    width: Optional[int] = None,
+    value_table: Optional[torch.Tensor] = None,
+    rho: Optional[torch.Tensor] = None,
+    rho_table: Optional[torch.Tensor] = None,
+    filter_fwd: Optional[torch.Tensor] = None,
+    match: Optional[torch.Tensor] = None,
+    filter_bounds: Optional[torch.Tensor] = None,
+    group_cols: Optional[Sequence[torch.Tensor]] = None,
+    group_cards: Optional[Sequence[int]] = None,
+    group_remaps: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    tier: Optional[str] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(matched-doc totals int64 [B], holders [B, ...]) of ``members``
+    queries in one launch; see the module docstring.  Each member's
+    arguments pass the one-member contract, and the launch takes the tier
+    the one-member launch would take."""
+    if members < 1:
+        raise ValueError("members must be >= 1")
+    kw = dict(capacity=capacity, width=width, value_table=value_table, rho=rho, rho_table=rho_table,
+              filter_fwd=filter_fwd, match=match, filter_bounds=filter_bounds, group_cols=group_cols,
+              group_cards=group_cards, group_remaps=group_remaps, tier=tier)
+    for name, t in [(n, kw[n]) for n in _MEMBER_TABLES] + \
+            [(f"group_remaps[{c}]", r) for c, r in enumerate(group_remaps or ())]:
+        if t is None:
+            continue
+        if t.dim() not in (2, 3) or (t.dim() == 3 and t.shape[0] != members):
+            raise ValueError(f"{name} must be [S, ...] (shared) or [{members}, S, ...], got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    K = _validate(mode, num_docs, values, **_member_kw(kw, 0))
+    if values.device.type == "cuda":
+        if values.numel() == 0:  # nothing to count: no launch
+            dtype, n = {"counts": (torch.int64, K), "presence": (torch.int32, K),
+                        "registers": (torch.uint8, K // RHO)}[mode]
+            return torch.zeros(members, dtype=torch.int64, device=values.device), \
+                torch.zeros((members, n), dtype=dtype, device=values.device)
+        return _launch(mode, num_docs, values, K, members=members, **kw)
+    if values.device.type != "cpu":
+        raise ValueError(f"unsupported device {values.device}")
+    return value_state_batched_reference(mode, num_docs, values, members=members, **kw)

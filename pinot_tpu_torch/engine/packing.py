@@ -136,3 +136,65 @@ def make_packed_kernel(fn: Callable) -> Callable:
     call.dispatch = dispatch
     call.fetch = fetch_handle
     return call
+
+
+# ---------------------------------------------------------------------------
+# Cross-query batching helpers (engine/dispatch.py micro-batching tier):
+# stack B queries' host input trees along a new leading axis before the
+# one batched launch, and slice one member's outputs back out of the
+# fetched batch (pinot_tpu/engine/packing.py:214-246).  Trees are nested
+# dicts / lists / tuples; leaves are visited with dict keys sorted, the
+# order the reference's pytrees use, so signatures compare across the two.
+# ---------------------------------------------------------------------------
+
+
+def _sorted_leaves(tree, out: list) -> list:
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            _sorted_leaves(tree[k], out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _sorted_leaves(v, out)
+    elif tree is not None:
+        out.append(tree)
+    return out
+
+
+def _tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the same leaves of each
+    tree in ``rest``), the same tree shape out."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(tree, *rest)
+
+
+def stack_query_inputs(inputs_list):
+    """Stack B structurally identical numpy query-input trees into one
+    tree whose array leaves lead with the batch axis.  The batch key
+    guarantees the identity (one StaticPlan, one input signature); a
+    leaf that is not an array must be equal across members and passes
+    through unstacked."""
+    return _tree_map(
+        lambda leaf, *others: np.stack([leaf, *others]) if isinstance(leaf, np.ndarray) else leaf,
+        inputs_list[0], *inputs_list[1:],
+    )
+
+
+def batch_input_signature(inputs) -> tuple:
+    """Hashable (shape, dtype) signature of a query-input tree, part of
+    the lane's batch key: two dispatches stack only when their leaves
+    agree exactly."""
+    return tuple(
+        (tuple(leaf.shape), str(leaf.dtype)) if isinstance(leaf, np.ndarray) else ("scalar", repr(leaf))
+        for leaf in _sorted_leaves(inputs, [])
+    )
+
+
+def slice_batched_outputs(outs, index: int):
+    """Member ``index``'s output tree from a batched launch's fetched host
+    outputs (every array leaf leads with the batch axis)."""
+    return _tree_map(lambda x: x[index], outs)

@@ -354,9 +354,13 @@ def trim_group_candidates(
 #   deviceBytes        the device tier's share of bytesScanned
 #   coalesceHits       queries served by riding an identical in-flight
 #                      device dispatch (engine/dispatch.py)
+#   batchHits          queries that rode a batched launch with other
+#                      same-plan queries (the lane's micro-batching tier)
 #   segmentsPruned     segments dropped before execution (empty, or
 #                      missing a referenced column)
-#   segmentsFullScan   segments scanned by the device's table kernel
+#   segmentsZonemap    segments scanned over their zone-map candidate
+#                      blocks only (engine/zonemap.py)
+#   segmentsFullScan   segments scanned whole by the device's table kernel
 #   segmentsHost       segments served by the host tier (forced before
 #                      staging, a plan off the device, or pair overflow)
 COST_KEYS = (
@@ -365,7 +369,9 @@ COST_KEYS = (
     "hostMs",
     "deviceBytes",
     "coalesceHits",
+    "batchHits",
     "segmentsPruned",
+    "segmentsZonemap",
     "segmentsFullScan",
     "segmentsHost",
 )

@@ -83,9 +83,11 @@ def _stacked_zones(
     live: Sequence[ImmutableSegment], column: str, nb: int, block: int, cache: Optional[Dict] = None
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(zmin, zmax) int64 [S, nb] of a column over ``live`` and known
-    bool [S]: False where a segment has no zones (all-candidate there).
-    Blocks past a segment's zones hold the empty zone [0, -1].  Kept in
-    ``cache`` (the staged table's, whose segments are ``live``)."""
+    bool [S] (False where a segment has no zones: all-candidate there),
+    or None for known when every segment has zones.  Blocks past a
+    segment's zones hold the empty zone [0, -1], which no interval,
+    point, run or match table takes.  Kept in ``cache`` (the staged
+    table's, whose segments are ``live``)."""
     if cache is not None and (column, block) in cache:
         return cache[(column, block)]
     S = len(live)
@@ -100,50 +102,49 @@ def _stacked_zones(
         n = min(z[0].shape[0], nb)
         zmin[si, :n] = z[0][:n]
         zmax[si, :n] = z[1][:n]
+    out = (zmin, zmax, None if known.all() else known)
     if cache is not None:
-        cache[(column, block)] = (zmin, zmax, known)
-    return zmin, zmax, known
+        cache[(column, block)] = out
+    return out
 
 
 def _leaf_candidates(
     leaf, i: int, q_np: Dict, live: Sequence[ImmutableSegment], nb: int, block: int,
     cache: Optional[Dict] = None,
-) -> Optional[np.ndarray]:
-    """bool [S, nb] conservative candidacy of one filter leaf over every
-    segment at once (blocks past a segment's rows are masked by the
-    caller); None = cannot tell (all-candidate)."""
+) -> Tuple[Optional[np.ndarray], bool]:
+    """(bool [S, nb] conservative candidacy of one filter leaf over every
+    segment at once, or None = cannot tell (all-candidate); exact: True
+    when no block past a segment's rows is a candidate, so the caller
+    need not mask them).  Each kind is a few array operations over the
+    stacked zones, the literals broadcast on an axis of their own."""
     if leaf.mode != SV:
-        return None
+        return None, False
     kind = leaf.eval_kind
     if kind == "docrange":
         # exact block overlap with the doc interval: no zones needed
-        lo_doc, hi_doc = (q_np["bounds"][i][:, j, None].astype(np.int64) for j in (0, 1))
-        blk = np.arange(nb, dtype=np.int64)[None, :]
-        return (blk * block < hi_doc) & ((blk + 1) * block > lo_doc)
+        b = q_np["bounds"][i]
+        start = np.arange(0, nb * block, block, dtype=np.int64)
+        return (start < b[:, 1:2]) & (start + block > b[:, 0:1]), False
     zmin, zmax, known = _stacked_zones(live, leaf.column, nb, block, cache)
+    exact = known is None
     if kind == "interval":
-        lo, hi = (q_np["bounds"][i][:, j, None].astype(np.int64) for j in (0, 1))
-        out = (zmax >= lo) & (zmin < hi)
+        b = q_np["bounds"][i]
+        out = (zmax >= b[:, 0:1]) & (zmin < b[:, 1:2])
     elif kind in ("points", "points_none"):
-        pts = q_np["pts"][i].astype(np.int64)  # [S, P], -1 padded; P <= 16
-        hit = np.zeros(zmin.shape, dtype=bool)
-        for j in range(pts.shape[1]):
-            p = pts[:, j, None]
-            if (p < 0).all():
-                continue  # padding
-            if kind == "points":
-                hit |= (p >= 0) & (zmin <= p) & (p <= zmax)
-            else:
-                hit |= (p >= 0) & (zmin == p)
-        # NOT IN: a block drops only when every row is in the point set,
-        # provable from zones only for single-value blocks
-        out = hit if kind == "points" else ~((zmin == zmax) & hit)
+        # points [S, P, 1] against the zones [S, 1, nb]; -1 padding lies
+        # below every zone (dictIds and empty zones start at 0)
+        p = q_np["pts"][i][:, :, None]
+        if kind == "points":
+            out = ((zmin[:, None, :] <= p) & (p <= zmax[:, None, :])).any(axis=1)
+        else:
+            # NOT IN: a block drops only when every row is in the point
+            # set, provable from zones only for single-value blocks
+            out = ~((zmin == zmax) & (zmin[:, None, :] == p).any(axis=1))
+            exact = False
     elif kind == "runs":
-        rr = q_np["runs"][i].astype(np.int64)  # [S, k, 2], empty runs lo == hi == 0
-        out = np.zeros(zmin.shape, dtype=bool)
-        for r in range(rr.shape[1]):
-            lo, hi = rr[:, r, 0, None], rr[:, r, 1, None]
-            out |= (hi > lo) & (zmax >= lo) & (zmin < hi)
+        rr = q_np["runs"][i]  # [S, k, 2], empty runs lo == hi == 0
+        lo, hi = rr[:, :, 0:1], rr[:, :, 1:2]
+        out = ((hi > lo) & (zmax[:, None, :] >= lo) & (zmin[:, None, :] < hi)).any(axis=1)
     else:
         # match table: any matching dictId within [zmin, zmax], from the
         # table's prefix counts (one flat gather per zone end)
@@ -155,20 +156,29 @@ def _leaf_candidates(
         row = (np.arange(S, dtype=np.int64) * (top + 1))[:, None]
         flat = csum.ravel()
         out = flat[row + np.minimum(zmax + 1, top)] > flat[row + np.minimum(zmin, top)]
-    if not known.all():
+    if known is not None:
         out[~known] = True
-    return out
+    return out, exact
 
 
-def _tree_candidates(plan: StaticPlan, node, q_np, live, nb: int, block: int, cache=None) -> np.ndarray:
+def _tree_candidates(plan: StaticPlan, node, q_np, live, nb: int, block: int, cache=None):
+    """(candidacy [S, nb] or None for all-candidate, exact) of a filter
+    subtree: AND is exact when any part is, OR when every part is."""
     if node[0] == "leaf":
-        c = _leaf_candidates(plan.leaves[node[1]], node[1], q_np, live, nb, block, cache)
-        return np.ones((len(live), nb), dtype=bool) if c is None else c
+        return _leaf_candidates(plan.leaves[node[1]], node[1], q_np, live, nb, block, cache)
     parts = [_tree_candidates(plan, ch, q_np, live, nb, block, cache) for ch in node[1]]
-    out = parts[0]
-    for p in parts[1:]:
-        out = (out & p) if node[0] == "and" else (out | p)
-    return out
+    if node[0] == "and":
+        maps = [c for c, _ in parts if c is not None]
+        out = None
+        for c in maps:
+            out = c if out is None else out & c
+        return out, any(e for _, e in parts)
+    if any(c is None for c, _ in parts):
+        return None, False
+    out = parts[0][0]
+    for c, _ in parts[1:]:
+        out = out | c
+    return out, all(e for _, e in parts)
 
 
 def candidate_blocks(
@@ -182,15 +192,17 @@ def candidate_blocks(
     """bool [len(live), n_pad // block] candidate map, or None when block
     pruning does not apply (no filter, or segments under two blocks).
     Every segment is tested at once: the host cost is a few array
-    operations per leaf, not per segment.  ``cache`` keeps the stacked
-    zones (``StagedTable.zones`` of ``live``)."""
+    operations per leaf, not per segment or per literal.  ``cache`` keeps
+    the stacked zones (``StagedTable.zones`` of ``live``)."""
     if plan.filter_tree is None:
         return None
     block = block or zone_block_rows()
     if n_pad < 2 * block or n_pad % block:
         return None
     nb = n_pad // block
-    cand = _tree_candidates(plan, plan.filter_tree, q_np, live, nb, block, cache)
+    cand, exact = _tree_candidates(plan, plan.filter_tree, q_np, live, nb, block, cache)
+    if exact:
+        return cand  # the empty zones past each segment's rows took no block
     # blocks past each segment's rows stay dead
     real = None if cache is None else cache.get(("real", block))
     if real is None:
@@ -198,7 +210,7 @@ def candidate_blocks(
         real = np.arange(nb)[None, :] < real_blocks[:, None]
         if cache is not None:
             cache[("real", block)] = real
-    return cand & real
+    return real.copy() if cand is None else cand & real
 
 
 def block_ids_input(cand: np.ndarray, nb_pad: int) -> np.ndarray:

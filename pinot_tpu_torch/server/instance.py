@@ -267,7 +267,8 @@ class ServerInstance:
     # -- observability -------------------------------------------------
     def status(self) -> dict:
         """Serving-surface snapshot: scheduler depth/shed, device-lane
-        depth and coalesce/dispatch/shed counters, the phase timers
+        depth and coalesce/dispatch/shed counters and its micro-batching
+        counters (``batchLaunches``, ``batchedQueries``), the phase timers
         (staging, planBuild, laneWait, planExec, finalize) inside the
         metrics snapshot, and the self-healing counters."""
         heal = self.executor.healing_stats()
@@ -279,8 +280,11 @@ class ServerInstance:
             "lane": None if self.lanes is None else self.lanes.stats(),
             "selfHealing": heal,
             "stagedBytes": self.executor.staged_bytes(),
-            # the kernel wrappers' launch counts in this process
-            "kernelLaunches": {"k1": fused_groupby.launches, "k2": value_state_counts.launches},
+            # the kernel wrappers' launch counts in this process (one-member
+            # and batched launches apart)
+            "kernelLaunches": {"k1": fused_groupby.launches, "k2": value_state_counts.launches,
+                               "k1Batched": fused_groupby.batched_launches,
+                               "k2Batched": value_state_counts.batched_launches},
             "metrics": self.metrics.snapshot(),
         }
 
