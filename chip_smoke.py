@@ -62,6 +62,21 @@ QueryExecutor.execute -> reduce_to_response on one card:
      from their ``/debug/metrics``, broker p50 / p99 over 50 requests,
      the servers' own phase medians, and the write, upload, upload to
      ONLINE and segment load times; every role stopped with SIGTERM;
+ 11. joins over the Star Schema Benchmark's lineorder (16 segments of
+     2^22 rows = 67,108,864, partitioned on lo_partkey), part (800,000
+     rows, partitioned on p_partkey) and date (2,556 rows): ssb_q1_1
+     (scalar, broadcast), ssb_q2_1 (a build-side group, colocated) and
+     ssb_q2_1_mode (probe x build group, build-side min), each against a
+     float64 numpy oracle: in process through a server's join phases
+     (each strategy's exec phase, medians of 3 on the host clock), the
+     stages apart (host extraction, packing, upload, the device program
+     with its build and probe rounds by CUDA events, finalize), the
+     program against its plain version, K1 at the join's shape against
+     its plain version and bound, a poisoned join plan healing to the
+     host join; then two servers and the broker over TCP (broker p50 /
+     p99, ssb_q1_1 forced to shuffle, the join cost keys); then a
+     deployed cluster (role processes, partitioning through AddTable,
+     ssb_q2_1 colocated over HTTP);
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -80,10 +95,11 @@ versions, the torch ops that build their inputs, the one PyTorch call
 that computes K2's function, and the pair sort-dedup with both fetches of
 its buffers.
 
-    python3 chip_smoke.py [--out results.json] [--profile | --kernels-only]
+    python3 chip_smoke.py [--out results.json] [--profile | --kernels-only | --joins-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
-probes and the batched probes (ladders over streams made on the card).
+probes and the batched probes (ladders over streams made on the card);
+``--joins-only`` runs the build, the kernel checks and phase 11 alone.
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -2460,6 +2476,49 @@ def require_launch(label: str, launches: Dict[str, int], kernel: str) -> None:
         raise AssertionError(f"{label}: kernel {kernel} was not launched")
 
 
+def start_roles(tmp: str, rec: dict):
+    """A controller, two servers and a broker, each its own process of the
+    admin CLI: (controller URL, {server: admin URL}, broker URL, a check
+    that raises when a role exited)."""
+    t = time.perf_counter()
+    ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
+                                "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
+    url = ctrl.ready(DEPLOY_READY_S)[2]
+    servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
+                                                  "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp)
+               for i in range(2)}
+    admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
+    broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
+                              "-device", DEPLOY_DEVICE], tmp)
+    broker_url = broker.ready(DEPLOY_READY_S)[2]
+    start_s = time.perf_counter() - t
+    log(f"deployed: controller {url}, servers {admin}, broker {broker_url}: every role READY in {start_s:.1f} s")
+    rec["start_s"] = start_s
+
+    def alive():
+        for role in (ctrl, broker, *servers.values()):
+            role.check_alive()
+
+    return url, admin, broker_url, alive
+
+
+def wait_online(url: str, broker_url: str, table: str, n: int, alive) -> float:
+    """Seconds until the broker routes all ``n`` segments of ``table`` ONLINE."""
+    t = time.perf_counter()
+    end = time.monotonic() + DEPLOY_ONLINE_S
+    while True:
+        alive()
+        view = http_json(broker_url + "/debug/routing").get(table) or {}
+        if len(view) == n and all(r and all(v == "ONLINE" for v in r.values()) for r in view.values()):
+            return time.perf_counter() - t
+        bad = {s_: r for s_, r in http_json(f"{url}/tables/{table}/externalview").items() if "ERROR" in r.values()}
+        if bad:
+            raise AssertionError(f"deployed: segments in ERROR {bad}")
+        if time.monotonic() > end:
+            raise AssertionError(f"deployed: not every segment of {table} ONLINE in {DEPLOY_ONLINE_S} s: {view}")
+        time.sleep(0.2)
+
+
 def deployed_phase(segments, wants, record) -> None:
     """10. The lineitem table as a deployment runs it: the segments written
     as files, a controller, two servers and a broker started as processes
@@ -2485,24 +2544,8 @@ def deployed_phase(segments, wants, record) -> None:
         rec.update(write_s_per_segment=float(np.median(write_s)), write_s=sum(write_s), file_bytes=file_bytes)
 
         # the role processes
-        t = time.perf_counter()
-        ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
-                                    "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
-        url = ctrl.ready(DEPLOY_READY_S)[2]
-        servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
-                                                      "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp)
-                   for i in range(2)}
-        admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
-        broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
-                                  "-device", DEPLOY_DEVICE], tmp)
-        broker_url = broker.ready(DEPLOY_READY_S)[2]
-        start_s = time.perf_counter() - t
-        log(f"deployed: controller {url}, servers {admin}, broker {broker_url}: every role READY in {start_s:.1f} s")
-        rec["start_s"] = start_s
-
-        def alive():
-            for role in (ctrl, broker, *servers.values()):
-                role.check_alive()
+        url, admin, broker_url, alive = start_roles(tmp, rec)
+        servers = admin
 
         # schema, table, then the files through the controller
         http_json(url + "/schemas", json.dumps(lineitem_schema().to_json()).encode())
@@ -2518,21 +2561,7 @@ def deployed_phase(segments, wants, record) -> None:
         upload_s = time.perf_counter() - t
         if sorted(held.values()) != [len(files) // 2] * 2:
             raise AssertionError(f"deployed: assignment {held}, not {len(files) // 2} segments a server")
-        t = time.perf_counter()
-        end = t + DEPLOY_ONLINE_S
-        while True:
-            alive()
-            view = http_json(broker_url + "/debug/routing").get(table) or {}
-            if len(view) == len(files) and all(r and all(v == "ONLINE" for v in r.values()) for r in view.values()):
-                break
-            bad = {s_: r for s_, r in http_json(f"{url}/tables/{table}/externalview").items()
-                   if "ERROR" in r.values()}
-            if bad:
-                raise AssertionError(f"deployed: segments in ERROR {bad}")
-            if time.monotonic() > end:
-                raise AssertionError(f"deployed: not every segment ONLINE in {DEPLOY_ONLINE_S} s: {view}")
-            time.sleep(0.2)
-        online_s = time.perf_counter() - t
+        online_s = wait_online(url, broker_url, table, len(files), alive)
         loads = {n: http_json(a + "/debug/samples?timer=segmentLoad")["samples"] for n, a in admin.items()}
         if any(len(v) != len(files) // 2 for v in loads.values()):
             raise AssertionError(f"deployed: segment loads {loads}")
@@ -2621,6 +2650,543 @@ def deployed_phase(segments, wants, record) -> None:
         raise AssertionError(f"deployed: a role did not exit cleanly {codes}")
 
 
+# ---------------------------------------------------------------------------
+# 11. joins: the Star Schema Benchmark's lineorder / part / date (O'Neil,
+# O'Neil, Chen, Revilak, TPCTC 2009) at lineorder SF ~11.2, three queries
+# ---------------------------------------------------------------------------
+
+SSB_PARTITIONS = 16  # lineorder and part partitioned on their part key, one segment a partition
+SSB_ROWS_PER_SEGMENT = 1 << 22  # 16 x 2^22 = 67,108,864 lineorder rows: 6,000,000 x SF at SF ~11.2
+SSB_PARTS = 800_000  # 200,000 x floor(1 + log2 SF)
+JOIN_QUERIES = {
+    "ssb_q1_1": "SELECT count(*), sum(l.lo_extendedprice), sum(l.lo_discount) FROM lineorder l "
+                "JOIN date d ON l.lo_orderdate = d.d_datekey WHERE d.d_year = 1993 "
+                "AND l.lo_discount >= 1 AND l.lo_discount <= 3 AND l.lo_quantity < 25",
+    "ssb_q2_1": "SELECT sum(l.lo_revenue), count(*) FROM lineorder l JOIN part p ON l.lo_partkey = p.p_partkey "
+                "WHERE p.p_category = 'MFGR#12' GROUP BY p.p_brand1 TOP 40",
+    "ssb_q2_1_mode": "SELECT sum(l.lo_revenue), min(p.p_size), max(l.lo_quantity) FROM lineorder l "
+                     "JOIN part p ON l.lo_partkey = p.p_partkey WHERE p.p_category = 'MFGR#12' "
+                     "GROUP BY p.p_brand1, l.lo_shipmode TOP 280",
+}
+# the strategy each query takes by the planner's own choice: date is small
+# (broadcast), lineorder and part colocate on the part key
+JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
+JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
+JOIN_ITERS = 3  # in-process medians on the host clock (each run extracts up to 67M rows)
+JOIN_SERVE_ITERS = 10  # broker requests a query over TCP
+JOIN_SHUFFLE_ITERS = 5
+JOIN_DEPLOY_ITERS = 3
+JOIN_PROGRAM_ITERS = 5  # CUDA-event medians of the device program
+
+
+def ssb_tables() -> Dict[str, list]:
+    """{table: segments}: lineorder (SSB_PARTITIONS segments lineorder_pN),
+    part (one segment a partition) and date, made from their seeds (the
+    lineorder segments in threads: numpy releases the GIL in its draws and
+    sorts)."""
+    import concurrent.futures
+
+    from pinot_tpu_torch.tools.datagen import ssb_date_segment, ssb_lineorder_segment, ssb_part_segments
+
+    def lineorder(p: int):
+        return ssb_lineorder_segment(SSB_ROWS_PER_SEGMENT, p, SSB_PARTITIONS, SSB_PARTS, seed=100 + p)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        lo = list(pool.map(lineorder, range(SSB_PARTITIONS)))
+    return {"lineorder": lo, "part": ssb_part_segments(SSB_PARTS, SSB_PARTITIONS), "date": [ssb_date_segment()]}
+
+
+def _decoded(seg, col: str) -> np.ndarray:
+    c = seg.column(col)
+    return c.dictionary.value_array()[c.fwd]
+
+
+def join_oracles(ssb: Dict[str, list]) -> Dict[str, Dict[Tuple[str, ...], Dict[str, float]]]:
+    """Every join's answer by brute force over the generated arrays, in
+    float64 numpy: part's columns looked up by part key (p_partkey is
+    unique), date's by date key; {query: {group: {function: value}}}."""
+    part_size = SSB_PARTS + 1
+    cat_of = np.full(part_size, -1, np.int64)
+    brand_of = np.full(part_size, -1, np.int64)
+    size_of = np.zeros(part_size, np.int64)
+    brands = sorted({str(b) for seg in ssb["part"] for b in seg.column("p_brand1").dictionary.values})
+    brand_ix = {b: i for i, b in enumerate(brands)}
+    cats = {c: i for i, c in enumerate(sorted({str(c) for seg in ssb["part"]
+                                               for c in seg.column("p_category").dictionary.values}))}
+    for seg in ssb["part"]:
+        pk = _decoded(seg, "p_partkey").astype(np.int64)
+        cat_of[pk] = [cats[str(c)] for c in _decoded(seg, "p_category")]
+        brand_of[pk] = [brand_ix[str(b)] for b in _decoded(seg, "p_brand1")]
+        size_of[pk] = _decoded(seg, "p_size")
+    year_of = {int(k): int(y) for seg in ssb["date"]
+               for k, y in zip(_decoded(seg, "d_datekey"), _decoded(seg, "d_year"))}
+    years = np.zeros(max(year_of) + 1, np.int64)
+    years[list(year_of)] = list(year_of.values())
+    modes = sorted({str(m) for seg in ssb["lineorder"] for m in seg.column("lo_shipmode").dictionary.values})
+    nb, nm = len(brands), len(modes)
+    q11 = np.zeros(3)
+    q21_sum, q21_cnt = np.zeros(nb), np.zeros(nb, np.int64)
+    m_sum, m_cnt = np.zeros(nb * nm), np.zeros(nb * nm, np.int64)
+    m_min, m_max = np.full(nb * nm, np.iinfo(np.int64).max), np.full(nb * nm, np.iinfo(np.int64).min)
+    for seg in ssb["lineorder"]:
+        od = _decoded(seg, "lo_orderdate").astype(np.int64)
+        qty = _decoded(seg, "lo_quantity").astype(np.int64)
+        disc = _decoded(seg, "lo_discount").astype(np.int64)
+        m = (years[od] == 1993) & (disc >= 1) & (disc <= 3) & (qty < 25)
+        q11 += [m.sum(), _decoded(seg, "lo_extendedprice")[m].astype(np.float64).sum(),
+                disc[m].astype(np.float64).sum()]
+        pk = _decoded(seg, "lo_partkey").astype(np.int64)
+        hit = cat_of[pk] == cats["MFGR#12"]
+        b = brand_of[pk[hit]]
+        rev = _decoded(seg, "lo_revenue")[hit].astype(np.float64)
+        q21_sum += np.bincount(b, weights=rev, minlength=nb)
+        q21_cnt += np.bincount(b, minlength=nb)
+        mode_ix = {str(v): i for i, v in enumerate(seg.column("lo_shipmode").dictionary.values)}
+        remap = np.asarray([modes.index(v) for v in mode_ix])
+        key = b * nm + remap[seg.column("lo_shipmode").fwd[hit]]
+        m_sum += np.bincount(key, weights=rev, minlength=nb * nm)
+        m_cnt += np.bincount(key, minlength=nb * nm)
+        np.minimum.at(m_min, key, size_of[pk[hit]])
+        np.maximum.at(m_max, key, qty[hit])
+    out = {"ssb_q1_1": {(): {"count_star": int(q11[0]), "sum_lo_extendedprice": float(q11[1]),
+                             "sum_lo_discount": float(q11[2])}},
+           "ssb_q2_1": {(brands[i],): {"sum_lo_revenue": float(q21_sum[i]), "count_star": int(q21_cnt[i])}
+                        for i in np.nonzero(q21_cnt)[0]},
+           "ssb_q2_1_mode": {(brands[k // nm], modes[k % nm]): {
+               "sum_lo_revenue": float(m_sum[k]), "min_part.p_size": float(m_min[k]),
+               "max_lo_quantity": float(m_max[k])} for k in np.nonzero(m_cnt)[0]}}
+    return out
+
+
+def check_join(label: str, resp, want) -> float:
+    """A join's answer against its oracle: every group, counts, min and max
+    exact, sums within the audit band; returns the largest relative sum
+    error."""
+    if resp.exceptions:
+        raise AssertionError(f"{label}: {[e.to_json() for e in resp.exceptions]}")
+    worst = 0.0
+    for ar in resp.aggregation_results:
+        got = ({(): ar.value} if ar.group_by_result is None
+               else {tuple(g.group): g.value for g in ar.group_by_result})
+        if set(got) != set(want):
+            raise AssertionError(f"{label} {ar.function}: groups {sorted(got)[:5]} != {sorted(want)[:5]} "
+                                 f"({len(got)} vs {len(want)})")
+        for key, v in got.items():
+            w = want[key][ar.function]
+            if ar.function.startswith(("count", "min", "max")):
+                if float(v) != float(w):
+                    raise AssertionError(f"{label} {ar.function} {key}: {v} != {w}")
+                continue
+            if not math.isclose(float(v), w, rel_tol=AUDIT_RTOL, abs_tol=AUDIT_ATOL):
+                raise AssertionError(f"{label} {ar.function} {key}: {v} vs oracle {w}")
+            worst = max(worst, abs(float(v) - w) / max(abs(w), 1e-30))
+    return worst
+
+
+def check_join_device(label: str, resp) -> None:
+    """Served by the device program: deviceBytes in the cost."""
+    if not resp.cost.get("deviceBytes"):
+        raise AssertionError(f"{label}: not served by the device program, cost {resp.cost}")
+
+
+def join_request(name: str, table: str, jctx: dict, strategy: Optional[str] = None) -> dict:
+    """A server's decoded join-phase request (``ServerInstance._process``)."""
+    return {"requestId": f"join-{name}", "pql": JOIN_QUERIES[name], "table": table, "segments": [],
+            "timeoutMs": 600_000.0, "trace": False, "debugOptions": {}, "join": jctx}
+
+
+def join_data():
+    """The SSB tables and their oracles, timed."""
+    t = time.perf_counter()
+    ssb = ssb_tables()
+    log(f"joins datagen: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    wants = join_oracles(ssb)
+    log(f"joins oracles (float64 numpy over the generated arrays): {time.perf_counter() - t:.1f} s; groups "
+        f"{ {k: len(v) for k, v in wants.items()} }")
+    return ssb, wants
+
+
+def join_phase(dev, ssb, wants, record, fg, vsc) -> None:
+    """11. Joins in process through a server's join phases (every
+    strategy's exec phase), the stages timed apart, the program against
+    its plain version and K1 at the join's shape; then through two servers
+    and the broker over TCP; then a poisoned join plan."""
+    from pinot_tpu_torch.common.faults import DeviceFaultInjector
+    from pinot_tpu_torch.engine import join as jm
+    from pinot_tpu_torch.engine import kernel as kernel_mod
+    from pinot_tpu_torch.engine.device import to_device_inputs
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.server.instance import ServerInstance
+
+    rec = record["joins"] = {"queries": {}, "stages": {}, "serve": {}}
+    lo_rows = sum(s.num_docs for s in ssb["lineorder"])
+    log(f"joins: lineorder {len(ssb['lineorder'])} x {SSB_ROWS_PER_SEGMENT} = {lo_rows} rows, part "
+        f"{sum(s.num_docs for s in ssb['part'])} rows in {len(ssb['part'])} segments, date "
+        f"{ssb['date'][0].num_docs} rows")
+    injector = DeviceFaultInjector()
+    server = ServerInstance("joins", device=dev, precision="x32", device_fault_injector=injector)
+    for table, segs in ssb.items():
+        for seg in segs:
+            server.add_segment(table, seg)
+    requests = {k: optimize_request(parse_pql(v)) for k, v in JOIN_QUERIES.items()}
+
+    def extract(name: str, side: str) -> dict:
+        table = "lineorder" if side == "probe" else JOIN_BUILD_TABLE[name]
+        res = server._process(join_request(name, table, {"phase": "extract", "side": side}))
+        if res.exceptions:
+            raise AssertionError(f"join {name} extract {side}: {res.exceptions}")
+        return res.join_payload
+
+    def jctx(name: str, strategy: str) -> dict:
+        if strategy == "colocated":
+            return {"phase": "exec", "strategy": "colocated", "buildTable": JOIN_BUILD_TABLE[name],
+                    "buildSegments": [s.segment_name for s in ssb[JOIN_BUILD_TABLE[name]]]}
+        if strategy == "broadcast":
+            return {"phase": "exec", "strategy": "broadcast", "build": extract(name, "build")}
+        return {"phase": "exec", "strategy": "shuffle", "build": extract(name, "build"),
+                "probe": extract(name, "probe")}
+
+    def run(name: str, ctx: dict, label: str):
+        res = server._process(join_request(name, "lineorder", ctx))
+        resp = reduce_to_response(requests[name], [res], [])
+        err = check_join(label, resp, wants[name])
+        check_join_device(label, res)
+        return res, err
+
+    try:
+        # the path: each query once under its strategy, every launch count 0
+        # just before and read just after; the grouped sums launch K1, no K2
+        ctxs = {name: jctx(name, JOIN_STRATEGY[name]) for name in JOIN_QUERIES}
+        fg.launches = 0
+        vsc.launches = 0
+        kernel_mod.join_dispatches = 0
+        per_query = {}
+        t = time.perf_counter()
+        for name in JOIN_QUERIES:
+            before = fg.launches, vsc.launches
+            _, err = run(name, ctxs[name], f"join {name}")
+            per_query[name] = {"k1": fg.launches - before[0], "k2": vsc.launches - before[1]}
+            if name != "ssb_q1_1" and per_query[name]["k1"] < 1:
+                raise AssertionError(f"join {name}: K1 was not launched for the grouped sums")
+            rec["queries"].setdefault(name, {})["max_rel_err"] = err
+        torch.cuda.synchronize()
+        totals = {"k1": fg.launches, "k2": vsc.launches}
+        if totals["k2"] or kernel_mod.join_dispatches != len(JOIN_QUERIES):
+            raise AssertionError(f"joins: K2 launched {totals['k2']}, join programs {kernel_mod.join_dispatches}")
+        wall_s = time.perf_counter() - t
+        record.setdefault("paths", {})["joins"] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
+        log(f"path joins (extraction included): {wall_s:.1f} s, launches per query {per_query}, total {totals}; "
+            f"every answer equal to its float64 oracle, from the device program")
+
+        # each strategy's exec phase, timed (host clock, median of JOIN_ITERS)
+        for name, strategies in (("ssb_q1_1", ("broadcast", "shuffle")), ("ssb_q2_1", ("colocated",)),
+                                 ("ssb_q2_1_mode", ("colocated",))):
+            for strategy in strategies:
+                ctx = ctxs[name] if strategy == JOIN_STRATEGY[name] else jctx(name, strategy)
+                walls, costs = [], []
+                for _ in range(JOIN_ITERS):
+                    t = time.perf_counter()
+                    res, err = run(name, ctx, f"join {name} {strategy}")
+                    walls.append((time.perf_counter() - t) * 1e3)
+                    costs.append(res.cost)
+                # the server's own timer of the local extraction (probe, and
+                # build when colocated) in each of these runs
+                ext_ms = (server.metrics.timer("phase.joinExtract").samples()[-JOIN_ITERS:]
+                          if strategy != "shuffle" else [])
+                q = rec["queries"][name].setdefault("exec", {})[strategy] = dict(
+                    ms=float(np.median(walls)), runs=walls, cost=costs[-1], max_rel_err=err,
+                    extract_ms=float(np.median(ext_ms)) if ext_ms else None)
+                log(f"join {name} {strategy} exec phase in process: {q['ms']:.1f} ms (median of {JOIN_ITERS}, host "
+                    f"clock; runs {[round(w, 1) for w in walls]}), local extraction "
+                    f"{q['extract_ms'] if ext_ms else 0.0:.1f} ms of it (median), cost {costs[-1]}")
+
+        # the stages apart: host extraction, packing, upload, the program
+        # (CUDA events), finalize; the program against its plain version;
+        # K1 at the join's shape against its plain version and its bound
+        for name in JOIN_QUERIES:
+            req = requests[name]
+            spec = req.join
+            left_f, right_f = jm.split_join_filter(req)
+            left_cols, right_cols = jm.side_columns(req)
+            bsegs, psegs = ssb[JOIN_BUILD_TABLE[name]], ssb["lineorder"]
+            t = time.perf_counter()
+            build, _ = jm.extract_side(bsegs, right_f, spec.right_key, [spec.strip_right(c) for c in right_cols],
+                                       {spec.strip_right(c): c for c in right_cols})
+            build_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            probe, _ = jm.extract_side(psegs, left_f, spec.left_key, left_cols)
+            probe_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            plan, inputs, meta = jm.build_join_plan(req, build, probe, "x32")
+            pack_ms = (time.perf_counter() - t) * 1e3
+            up_bytes = sum(a.nbytes for a in inputs.values())
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            q = to_device_inputs(inputs, dev)
+            torch.cuda.synchronize()
+            up_ms = (time.perf_counter() - t) * 1e3
+            stats: Dict[str, int] = {}
+            prog_ms, _ = cuda_ms(lambda: kernel_mod.run_join_kernel(plan, q, stats), JOIN_PROGRAM_ITERS, warmup=1)
+            outs = kernel_mod.run_join_kernel(plan, q)
+            plain = kernel_mod.join_kernel_reference(plan, q)
+            plain_ms, _ = cuda_ms(lambda: kernel_mod.join_kernel_reference(plan, q), 1, warmup=0)
+            prog_err = compare_join_outputs(name, plan, outs, plain)
+            fetched = {k: (tuple(x.cpu().numpy() for x in v) if isinstance(v, tuple) else v.cpu().numpy())
+                       for k, v in outs.items()}
+            fins = []
+            for _ in range(JOIN_PROGRAM_ITERS):
+                t = time.perf_counter()
+                res = jm.finalize_device_join(req, plan, meta, build, probe, fetched)
+                fins.append((time.perf_counter() - t) * 1e3)
+            check_join(f"join {name} stages", reduce_to_response(req, [res], []), wants[name])
+            st = rec["stages"][name] = dict(
+                build_extract_ms=build_ms, probe_extract_ms=probe_ms,
+                build_rows=build.n, probe_rows=probe.n, pack_ms=pack_ms, upload_bytes=up_bytes, upload_ms=up_ms,
+                program_ms=prog_ms, plain_ms=plain_ms, program_max_abs_err=prog_err,
+                build_rounds=stats["build_rounds"], probe_rounds=stats["probe_rounds"],
+                finalize_ms=float(np.median(fins)), n_probe_pad=plan.n_probe_pad, cap=plan.cap,
+                n_groups=plan.n_groups, joined_rows=int(outs["num_docs"]))
+            log(f"join {name} stages: extraction build {st['build_extract_ms']:.1f} ms ({build.n} rows), probe "
+                f"{st['probe_extract_ms']:.1f} ms ({probe.n} rows) (one run, host clock); packing "
+                f"{pack_ms:.1f} ms; upload {up_bytes} bytes in {up_ms:.1f} ms; program {prog_ms:.3f} ms (CUDA events, "
+                f"median of {JOIN_PROGRAM_ITERS}; {stats['build_rounds']} build rounds, {stats['probe_rounds']} "
+                f"probe rounds over {plan.n_probe_pad} lanes, cap {plan.cap}); plain version {plain_ms:.3f} ms, "
+                f"max_abs_err {prog_err:.6g}; finalize {st['finalize_ms']:.3f} ms; {st['joined_rows']} joined rows")
+            if plan.n_groups:
+                st["k1"] = k1_at_join(fg, kernel_mod, plan, q, name)
+            del q, outs, plain
+            torch.cuda.empty_cache()
+
+        heal = server.executor.healing_stats()
+        if heal["hostFailovers"] or heal["deviceFailures"]:
+            raise AssertionError(f"joins: the device path healed {heal}")
+        # a poisoned join plan: the next launch fails deterministically, the
+        # plan is quarantined and the host join answers the same
+        injector.fail_next(1, retryable=False)
+        resp_res = server._process(join_request("ssb_q1_1", "lineorder", ctxs["ssb_q1_1"]))
+        check_join("join ssb_q1_1 poisoned", reduce_to_response(requests["ssb_q1_1"], [resp_res], []),
+                   wants["ssb_q1_1"])
+        heal = server.executor.healing_stats()
+        if resp_res.cost.get("deviceBytes") or heal["hostFailovers"] != 1 or heal["poisonedPlans"] != 1:
+            raise AssertionError(f"joins poisoned: cost {resp_res.cost}, heal {heal}")
+        log(f"join ssb_q1_1 poisoned plan: healed to the host join, equal to its oracle (hostMs "
+            f"{resp_res.cost.get('hostMs')}), heal {heal}")
+        rec["poisoned"] = {"heal": heal, "host_ms": resp_res.cost.get("hostMs")}
+    finally:
+        server.shutdown()
+    torch.cuda.empty_cache()
+    join_serve_phase(dev, ssb, wants, record)
+
+
+def compare_join_outputs(name: str, plan, outs, plain) -> float:
+    """The program against its plain version on the same card tensors:
+    num_docs, counts, min and max exact, sums within the audit band (K1's
+    order against float64 ``index_add_``); the largest absolute sum error."""
+    if int(outs["num_docs"]) != int(plain["num_docs"]) or not bool(outs["join_ok"]):
+        raise AssertionError(f"join {name}: num_docs {int(outs['num_docs'])} != {int(plain['num_docs'])}")
+    err = 0.0
+    if plan.n_groups and not torch.equal(outs["gb_cnt"], plain["gb_cnt"]):
+        raise AssertionError(f"join {name}: group counts differ from the plain version")
+    for i, (kind, _s, _x) in enumerate(plan.aggs):
+        key = f"gb_{i}" if plan.n_groups else f"agg_{i}"
+        got, want = outs[key], plain[key]
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        for g, w in pairs:
+            if kind in ("sum", "avg"):
+                err = max(err, _close(g.reshape(-1), w.reshape(-1), AUDIT_RTOL, AUDIT_ATOL))
+            elif not torch.equal(g, w):
+                raise AssertionError(f"join {name}: {key} ({kind}) differs from the plain version")
+    return err
+
+
+def k1_at_join(fg, kernel_mod, plan, q, name: str) -> dict:
+    """K1 at the join's launch shape (the {0, 1} match over the matched
+    lanes, the precombined key, the weight streams), captured from one
+    program run: against its plain version and the bound on this data."""
+    captured: dict = {}
+    restore = _capture(fg, "fused_filtered_groupby_sums", captured, "k1")
+    try:
+        kernel_mod.run_join_kernel(plan, q)
+    finally:
+        fg.fused_filtered_groupby_sums = restore
+    names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
+    a, k = captured["k1"]
+    args = {**dict(zip(names, a)), **k}
+    args.setdefault("filter_bounds", None)
+    args.setdefault("group_cols", None)
+    err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
+    tier = fg.choose_tier(*k1_shape(fg, args))
+    k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
+    p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
+    matched = int(fg.fused_filtered_groupby_sums(**args)[0])
+    bound, bound_by, nbytes, ops = k1_bound(args, matched)
+    n = args["group_keys"].shape[1]
+    log(f"k1 join {name} (group_keys int32 [1, {n}], {{0, 1}} match, K={args['capacity']}, "
+        f"nv={len(args['value_raws'])}, tier {tier}, {matched} lanes matched): {k_ms:.4f} ms (bound {bound:.4f} ms "
+        f"by {bound_by}: {nbytes} bytes, {ops} operations; {bound / k_ms:.3f} of the bound), plain {p_ms:.4f} ms, "
+        f"tiers checked {tiers}, max_abs_err {err:.6g}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
+                tier=tier, shape=[1, n], capacity=args["capacity"], matched=matched, max_abs_err=err)
+
+
+def join_serve_phase(dev, ssb, wants, record) -> None:
+    """11b. Two port servers behind the broker over TCP (phase 9's layout:
+    lineorder split 8 + 8, part and date on both): each query by the
+    planner's own choice, ssb_q1_1 forced to shuffle, broker p50 / p99,
+    the join cost keys."""
+    from pinot_tpu_torch.broker.broker import BrokerRequestHandler
+    from pinot_tpu_torch.broker.routing import RoutingTableProvider
+    from pinot_tpu_torch.server.instance import ServerInstance
+    from pinot_tpu_torch.transport.tcp import TcpServer, TcpTransport
+
+    rec = record["joins"]["serve"]
+    half = len(ssb["lineorder"]) // 2
+    covers = {"server0": ssb["lineorder"][:half], "server1": ssb["lineorder"][half:]}
+    servers, tcp = {}, {}
+    routing = RoutingTableProvider()
+    for name, segs in covers.items():
+        server = servers[name] = ServerInstance(name, device=dev, precision="x32")
+        for seg in segs:
+            server.add_segment("lineorder", seg)
+        for table in ("part", "date"):
+            for seg in ssb[table]:
+                server.add_segment(table, seg)
+        tcp[name] = TcpServer(server.handle_request)
+        tcp[name].start()
+    routing.update("lineorder", {s.segment_name: {n: "ONLINE"} for n, segs in covers.items() for s in segs})
+    for table in ("part", "date"):
+        routing.update(table, {s.segment_name: {n: "ONLINE" for n in covers} for s in ssb[table]})
+    broker = BrokerRequestHandler(TcpTransport(), {n: t.address for n, t in tcp.items()}, routing=routing,
+                                  timeout_ms=600_000)
+    broker.joinplan.partitions.set_partitioning("lineorder", "lo_partkey", SSB_PARTITIONS)
+    broker.joinplan.partitions.set_partitioning("part", "p_partkey", SSB_PARTITIONS)
+    try:
+        for name, strategy, iters in (("ssb_q1_1", None, JOIN_SERVE_ITERS), ("ssb_q2_1", None, JOIN_SERVE_ITERS),
+                                      ("ssb_q2_1_mode", None, JOIN_DEPLOY_ITERS),
+                                      ("ssb_q1_1", "shuffle", JOIN_SHUFFLE_ITERS)):
+            want_strategy = strategy or JOIN_STRATEGY[name]
+            meter = broker.metrics.meter(f"join.strategy.{want_strategy}")
+            before = meter.count
+            opts = {"joinStrategy": strategy} if strategy else None
+            broker_ms, client_ms, worst = [], [], 0.0
+            for _ in range(iters + 1):  # one warm-up
+                t = time.perf_counter()
+                resp = broker.handle_pql(JOIN_QUERIES[name], debug_options=opts)
+                client_ms.append((time.perf_counter() - t) * 1e3)
+                broker_ms.append(resp.time_used_ms)
+                worst = max(worst, check_join(f"serve join {name} {want_strategy}", resp, wants[name]))
+                check_join_device(f"serve join {name}", resp)
+            if meter.count - before != iters + 1:
+                raise AssertionError(f"serve join {name}: strategy {want_strategy} taken "
+                                     f"{meter.count - before} of {iters + 1} times")
+            broker_ms, client_ms = broker_ms[1:], client_ms[1:]
+            keys = {k: resp.cost.get(k) for k in ("buildRows", "probeRows", "broadcastBytes", "shuffleBytes",
+                                                  "deviceBytes", "deviceMs", "hostMs")}
+            q = rec[f"{name}/{want_strategy}"] = dict(
+                p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
+                client_p50_ms=float(np.percentile(client_ms, 50)), requests=iters, cost=keys, max_rel_err=worst,
+                runs=broker_ms)
+            log(f"serve join {name} {want_strategy}: broker p50 {q['p50_ms']:.1f} ms, p99 {q['p99_ms']:.1f} ms over "
+                f"{iters} requests (client p50 {q['client_p50_ms']:.1f}); every answer equal to its oracle; cost {keys}")
+        heal = {n: s.executor.healing_stats() for n, s in servers.items()}
+        if any(h["hostFailovers"] or h["deviceFailures"] for h in heal.values()):
+            raise AssertionError(f"serve joins: the device path healed {heal}")
+        rec["heal"] = heal
+    finally:
+        broker.shutdown()
+        for t in tcp.values():
+            t.stop()
+        for s in servers.values():
+            s.shutdown()
+        torch.cuda.empty_cache()
+
+
+def deployed_join_phase(ssb, wants, record) -> None:
+    """11c. ssb_q2_1 through a deployed cluster (phase 10's layout: a
+    controller, two servers and a broker, each a process of the admin
+    CLI): lineorder and part declared partitioned on their part keys
+    through ``AddTable`` (part on both servers), the segment files
+    uploaded through the controller, the query over HTTP: colocated, each
+    answer against the oracle, K1 launched on the servers."""
+    from pinot_tpu_torch.common.tableconfig import PartitionConfig, TableConfig
+    from pinot_tpu_torch.segment.format import write_segment
+    from pinot_tpu_torch.tools.datagen import lineorder_schema, part_schema
+
+    rec = record["joins"]["deployed"] = {}
+    tmp = tempfile.mkdtemp(prefix="pinot-joins-")
+    t_phase = time.perf_counter()
+    try:
+        url, admin, broker_url, alive = start_roles(tmp, rec)
+        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        for table, schema, key, replication in (("lineorder", lineorder_schema(), "lo_partkey", 1),
+                                                ("part", part_schema(), "p_partkey", 2)):
+            http_json(url + "/schemas", json.dumps(schema.to_json()).encode())
+            config_file = os.path.join(tmp, f"{table}.json")
+            with open(config_file, "w") as f:
+                json.dump(TableConfig(table, replication=replication,
+                                      partitioning=PartitionConfig(key, SSB_PARTITIONS)).to_json(), f)
+            subprocess.run([sys.executable, "-m", "pinot_tpu_torch.tools.admin", "AddTable", "-controller", url,
+                            "-config-file", config_file], cwd=REPO_DIR, env=env, check=True, timeout=120,
+                           capture_output=True)
+        t = time.perf_counter()
+        for table in ("lineorder", "part"):
+            for seg in ssb[table]:
+                path = write_segment(seg, os.path.join(tmp, "files", seg.segment_name))
+                with open(path, "rb") as f:
+                    http_json(f"{url}/segments/{table}_OFFLINE", f.read(), "application/octet-stream")
+        upload_s = time.perf_counter() - t
+        online_s = max(wait_online(url, broker_url, f"{t_}_OFFLINE", len(ssb[t_]), alive)
+                       for t_ in ("lineorder", "part"))
+        log(f"deployed joins: {len(ssb['lineorder'])} lineorder and {len(ssb['part'])} part segment files written "
+            f"and uploaded in {upload_s:.1f} s, every segment ONLINE {online_s:.1f} s after")
+
+        def meters(u: str) -> dict:
+            return http_json(u + "/debug/metrics")["meters"]
+
+        def launches() -> int:
+            return sum(http_json(a + "/debug/metrics")["kernelLaunches"]["k1"] for a in admin.values())
+
+        body = json.dumps({"pql": JOIN_QUERIES["ssb_q2_1"]}).encode()
+        # the broker learns the partitioning from the cluster state it polls
+        end = time.monotonic() + 60
+        while meters(broker_url).get("join.strategy.colocated", {}).get("count", 0) == 0:
+            if time.monotonic() > end:
+                raise AssertionError(f"deployed joins: never colocated {meters(broker_url)}")
+            d = http_json(broker_url + "/query", body)
+            check_join("deployed join ssb_q2_1", response_from_json(d), wants["ssb_q2_1"])
+        before, k1_before = meters(broker_url)["join.strategy.colocated"]["count"], launches()
+        broker_ms, client_ms = [], []
+        for _ in range(JOIN_DEPLOY_ITERS):
+            t = time.perf_counter()
+            d = http_json(broker_url + "/query", body)
+            client_ms.append((time.perf_counter() - t) * 1e3)
+            broker_ms.append(d["timeUsedMs"])
+            resp = response_from_json(d)
+            check_join("deployed join ssb_q2_1", resp, wants["ssb_q2_1"])
+            check_join_device("deployed join ssb_q2_1", resp)
+        colocated = meters(broker_url)["join.strategy.colocated"]["count"] - before
+        k1 = launches() - k1_before
+        if colocated != JOIN_DEPLOY_ITERS:
+            raise AssertionError(f"deployed joins: {colocated} of {JOIN_DEPLOY_ITERS} requests colocated")
+        require_launch("deployed join ssb_q2_1", {"k1": k1}, "k1")
+        rec.update(p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
+                   client_p50_ms=float(np.percentile(client_ms, 50)), runs=broker_ms, upload_s=upload_s,
+                   online_s=online_s, k1_launches=k1, cost=resp.cost)
+        log(f"deployed join ssb_q2_1 colocated over HTTP: broker p50 {rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} "
+            f"ms over {JOIN_DEPLOY_ITERS} (client p50 {rec['client_p50_ms']:.1f}); K1 launches on the servers {k1}; "
+            f"cost {resp.cost}")
+        alive()
+    finally:
+        codes = _stop_roles()
+        rec["exit_codes"] = codes
+        log(f"deployed joins: every role stopped, exit codes {codes}; phase {time.perf_counter() - t_phase:.1f} s")
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(codes.values()):
+        raise AssertionError(f"deployed joins: a role did not exit cleanly {codes}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -2630,6 +3196,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after building the kernels and checking each against its plain "
                     "version (no queries, no timings, no result line)")
+    ap.add_argument("--joins-only", action="store_true",
+                    help="after the build and the kernel checks run only phase 11, the joins "
+                    "(no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -2701,6 +3270,15 @@ def run(dev: torch.device, opts) -> int:
     check_k2_empty(vsc, dev)
     log("k2 check empty input: zero holders in every mode, no launch")
     torch.cuda.synchronize()
+    if opts.joins_only:
+        ssb, join_wants = join_data()
+        join_phase(dev, ssb, join_wants, record, fg, vsc)
+        deployed_join_phase(ssb, join_wants, record)
+        log(f"joins only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1)
+        return 0
     if opts.kernels_only:
         # every K1 tier at the main path's widths on data made on the card
         for pname, args in k1_probe_shapes(dev).items():
@@ -3567,6 +4145,14 @@ def run(dev: torch.device, opts) -> int:
     deployed_phase(segments, wants, record)
     log(f"deployed phase: {time.perf_counter() - t0:.1f} s")
 
+    # 11. joins: SSB lineorder / part / date in process, through two servers
+    # and the broker over TCP, and through a deployed cluster
+    t0 = time.perf_counter()
+    ssb, join_wants = join_data()
+    join_phase(dev, ssb, join_wants, record, fg, vsc)
+    deployed_join_phase(ssb, join_wants, record)
+    log(f"joins phase: {time.perf_counter() - t0:.1f} s")
+
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():
         for kern in launches:
@@ -3610,6 +4196,9 @@ def run(dev: torch.device, opts) -> int:
             "bound_by": q1["bound_by"],
             "library_ms": None,
             "block_path": block_path("zone_in", zk1),
+            "join_shape": {name: dict(record["joins"]["stages"][name]["k1"],
+                                      launches=record["paths"]["joins"]["launches"][name]["k1"])
+                           for name in JOIN_QUERIES if "k1" in record["joins"]["stages"][name]},
         },
         {
             "name": "value_state_counts",

@@ -18,13 +18,17 @@ gave up on; a per-server circuit breaker (``broker/health.py``) steers
 routing off repeat offenders; segments still unserved after retries
 flip ``partialResponse`` and count into ``numSegmentsUnserved``.
 
+A two-table join goes to the join coordinator (``broker/joinplan.py``):
+the colocated, broadcast or shuffle strategy, each phase a scatter-gather
+whose requests carry the phase's join context (``extra_fn``).
+
 ``BrokerHttpServer`` is the client's endpoint: ``GET /query?pql=`` and
 ``POST /query {"pql": ...}`` answer the broker response JSON.
 
 Left out of the port, for later slices: admission and quota, hedging,
 the SLO / tail-sample / flight-recorder / history planes, the slow-query
-log, plan statistics, EXPLAIN, joins, the freshness stamp and the
-replica auditor.
+log, plan statistics, EXPLAIN, the freshness stamp and the replica
+auditor.
 """
 from __future__ import annotations
 
@@ -40,6 +44,7 @@ from typing import Any, Dict, List, Optional, Set, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from pinot_tpu_torch.broker.health import ServerHealthTracker
+from pinot_tpu_torch.broker.joinplan import JoinCoordinator
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
 from pinot_tpu_torch.broker.time_boundary import TimeBoundaryService
 from pinot_tpu_torch.common.datatable import deserialize_result, serialize_instance_request
@@ -144,6 +149,9 @@ class BrokerRequestHandler:
             self.metrics.meter(m)
         for t in ("cost.deviceMs", "cost.hostMs"):
             self.metrics.timer(t)
+        # the distributed join plane: strategy planner and multi-phase
+        # exchange coordinator (registers its join.* meters)
+        self.joinplan = JoinCoordinator(self)
 
     def set_server_address(self, server: str, address: Tuple[str, int]) -> None:
         self.server_addresses[server] = address
@@ -228,16 +236,15 @@ class BrokerRequestHandler:
                 request_id=request_id,
             )
         timeout_ms = self.timeout_ms if timeout_ms is None else min(timeout_ms, self.timeout_ms)
-        if request.join is not None:
-            return BrokerResponse(
-                exceptions=[
-                    QueryException(
-                        ErrorCode.QUERY_VALIDATION, "joins are a later slice of the port"
-                    )
-                ],
-                request_id=request_id,
-            )
         table = request.table_name
+        if request.join is not None:
+            # a broker-planned distributed join: strategy choice and a
+            # scatter-gather per phase
+            with ctx.span("joinPlan", table=table):
+                resp = self.joinplan.handle(request, pql, timeout_ms, request_id, ctx, table)
+            resp.request_id = request_id
+            resp._server_traces = getattr(resp, "_server_traces", [])
+            return resp
         t_route = time.perf_counter()
         try:
             with ctx.span("route", table=table):
@@ -301,6 +308,10 @@ class BrokerRequestHandler:
             ms = resp.cost.get(key)
             if ms:
                 self.metrics.timer(timer).update(float(ms))
+        # the join planner's size estimator learns table totals from every
+        # merged scan reply
+        if resp.total_docs:
+            self.joinplan.stats.observe(table, resp.total_docs)
         resp.num_servers_queried = len(sg["servers_queried"])
         resp.num_servers_responded = len(sg["servers_responded"])
         resp.num_segments_unserved = len(sg["unserved"])
@@ -329,7 +340,11 @@ class BrokerRequestHandler:
         timeout_ms: float,
         request_id: str,
         ctx: TraceContext,
+        extra_fn=None,
     ) -> Tuple[List[IntermediateResult], Dict[str, Any]]:
+        """``extra_fn(server)``: the join context of a join phase's request
+        to ``server``, derived at send time, so a failover child carries
+        the context of its own server (``broker/joinplan.py``)."""
         deadline = time.monotonic() + timeout_ms / 1000.0
         # (batch.order, result): parts merge in BATCH CREATION order, not
         # completion order — ties in sort keys must not depend on which
@@ -383,6 +398,7 @@ class BrokerRequestHandler:
                 remaining_ms,
                 attempt_ms,
                 request_id,
+                extra_fn(server) if extra_fn is not None else None,
             )
             batch.inflight += 1
             pending[fut] = (batch, server, now, time.time() * 1000.0)
@@ -637,13 +653,15 @@ class BrokerRequestHandler:
         timeout_ms: float,
         attempt_timeout_ms: Optional[float],
         request_id: str,
+        join: Optional[Dict[str, Any]] = None,
     ) -> IntermediateResult:
         # timeout_ms is the REMAINING budget at (re-)issue time (the
         # server pins it as its dequeue deadline); attempt_timeout_ms caps
         # how long the broker waits on this one attempt
         address = self.server_addresses[server]
         payload = serialize_instance_request(
-            request_id, pql, table, segments, timeout_ms, trace=trace, debug_options=debug_options
+            request_id, pql, table, segments, timeout_ms, trace=trace, debug_options=debug_options,
+            join=join,
         )
         wait_ms = timeout_ms if attempt_timeout_ms is None else attempt_timeout_ms
         reply = self.transport.request(address, payload, timeout=wait_ms / 1000.0)

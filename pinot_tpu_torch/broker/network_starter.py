@@ -4,11 +4,13 @@
 It registers, heartbeats, and polls the controller's versioned cluster
 state (the ZK-watch analog) to rebuild the per-table routing, the server
 name -> TCP address map, the circuit breaker's dead servers and the
-hybrid time boundaries.  Queries go HTTP front -> ``BrokerRequestHandler``
--> TCP scatter-gather -> reduce.  While the controller is unreachable
-the broker keeps routing from its last snapshot.  Left out, ROADMAP
-queue 1 item 28: quotas, SLO objectives and join partitioning from the
-snapshot, the link fault injector.
+hybrid time boundaries, and each table's declared key partitioning
+(``TableConfig.partitioning``, given through ``AddTable``), which the join
+planner's colocation check reads.  Queries go HTTP front ->
+``BrokerRequestHandler`` -> TCP scatter-gather -> reduce.  While the
+controller is unreachable the broker keeps routing from its last
+snapshot.  Left out, ROADMAP queue 1 item 28: quotas and SLO objectives
+from the snapshot, the link fault injector.
 """
 from __future__ import annotations
 
@@ -149,3 +151,10 @@ class NetworkedBrokerStarter:
             self.handler.time_boundary.remove(stale)
         for table, (col, value) in state.get("timeBoundaries", {}).items():
             self.handler.time_boundary.set(table, col, value)
+        # declared partitioning feeds the join planner's colocation check
+        # (an absent block clears it)
+        for q in state.get("quotas", {}).values():
+            p = q.get("partitioning") or {}
+            self.handler.joinplan.partitions.set_partitioning(
+                q["rawName"], p.get("column"), p.get("numPartitions")
+            )

@@ -218,6 +218,14 @@ class JoinSpec:
     def right_prefix(self) -> str:
         return self.right_table + "."
 
+    def is_right_column(self, column: Optional[str]) -> bool:
+        return bool(column) and column.startswith(self.right_prefix())
+
+    def strip_right(self, column: str) -> str:
+        """``"<right_table>.<col>"`` -> ``"<col>"``."""
+        p = self.right_prefix()
+        return column[len(p):] if column.startswith(p) else column
+
 
 @dataclass
 class BrokerRequest:

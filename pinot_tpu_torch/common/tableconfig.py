@@ -2,8 +2,9 @@
 trimmed to offline tables).
 
 The reference's JSON table config: table type, replication, retention,
-indexing, quota and tenants.  A table's ``slo`` and ``partitioning``
-blocks ride along as the JSON they are; a REALTIME table's
+indexing, quota and tenants, and the declared key partitioning
+(``PartitionConfig``) the broker's join planner reads.  A table's ``slo``
+block rides along as the JSON it is; a REALTIME table's
 ``streamConfigs`` is refused (realtime ingestion is a later item of the
 port, ROADMAP queue 1 item 29).
 """
@@ -46,6 +47,25 @@ class IndexingConfig:
 
 
 @dataclass
+class PartitionConfig:
+    """Declared key partitioning: segments of the table carry their
+    partition id in the segment name (``..._pN``), and the broker's join
+    planner picks the COLOCATED strategy when both join sides declare
+    partitioning on their join keys with equal partition counts and the
+    covers align (``broker/joinplan.py``)."""
+
+    column: Optional[str] = None
+    num_partitions: Optional[int] = None
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"column": self.column, "numPartitions": self.num_partitions}
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "PartitionConfig":
+        return cls(column=d.get("column"), num_partitions=d.get("numPartitions"))
+
+
+@dataclass
 class QuotaConfig:
     storage: Optional[str] = None
     max_queries_per_second: Optional[float] = None
@@ -67,7 +87,7 @@ class TableConfig:
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
     quota: QuotaConfig = field(default_factory=QuotaConfig)
     slo: Optional[Dict[str, Any]] = None
-    partitioning: Optional[Dict[str, Any]] = None
+    partitioning: Optional[PartitionConfig] = None
     broker_tenant: str = "DefaultTenant"
     server_tenant: str = "DefaultTenant"
 
@@ -97,7 +117,7 @@ class TableConfig:
         if self.slo is not None:
             d["slo"] = dict(self.slo)
         if self.partitioning is not None:
-            d["partitioning"] = dict(self.partitioning)
+            d["partitioning"] = self.partitioning.to_json()
         return d
 
     @classmethod
@@ -131,5 +151,7 @@ class TableConfig:
                 startree_max_leaf_records=idx.get("starTreeMaxLeafRecords", 10_000),
             ),
             slo=d.get("slo") or None,
-            partitioning=d.get("partitioning") or None,
+            partitioning=(
+                PartitionConfig.from_json(d["partitioning"]) if d.get("partitioning") else None
+            ),
         )

@@ -238,7 +238,11 @@ class ParticipantGateway:
                     "maxQueriesPerSecond": config.quota.max_queries_per_second,
                     "burstQueries": config.quota.burst_queries,
                     "slo": config.slo,
-                    "partitioning": config.partitioning,
+                    # declared key partitioning feeds the remote broker's
+                    # join planner (colocated strategy eligibility)
+                    "partitioning": (
+                        config.partitioning.to_json() if config.partitioning is not None else None
+                    ),
                 }
             if table.endswith("_OFFLINE"):
                 metas = []

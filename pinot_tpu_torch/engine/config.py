@@ -47,6 +47,23 @@ CHUNK_ROWS = 1 << 28
 BATCH_MAX = 16
 BATCH_WINDOW_MS = 2.0
 
+# Distributed joins (engine/join.py, broker/joinplan.py), the reference's
+# environment defaults as constants that read no environment:
+# PINOT_TPU_JOIN_DEVICE (False: every join takes the exact host join),
+# PINOT_TPU_JOIN_GROUP_CAP (group spaces past it take the host join),
+# PINOT_TPU_JOIN_BROADCAST_ROWS / _BYTES (a build side within both is
+# broadcast, else shuffled), PINOT_TPU_JOIN_SPLIT and
+# PINOT_TPU_JOIN_HEAVY_FACTOR (a shuffle key whose probe rows pass this
+# share of the per-owner mean is split across owners and its build rows
+# replicated).  pinot_tpu/engine/join.py:551-555, :600;
+# pinot_tpu/broker/joinplan.py:146-169.
+JOIN_DEVICE = True
+JOIN_GROUP_CAP = 1 << 16
+JOIN_BROADCAST_ROWS = 100_000
+JOIN_BROADCAST_BYTES = 4 << 20
+JOIN_SPLIT = True
+JOIN_HEAVY_FACTOR = 0.5
+
 # Group-by dense-holder cap (reference caps ARRAY_BASED key space at 1M,
 # DefaultGroupKeyGenerator.java): beyond this the host tier's hash path
 # runs (engine/host_fallback.py).

@@ -12,8 +12,17 @@ sends there, on the same three shape conditions: a plan that
 that is not ``on_device``, and a pair overflow after the device run (the
 host finishes exactly).  Each result carries ``_served_tier`` ("host" or
 "device"), and its cost says which tier served it (``segmentsHost`` /
-``segmentsFullScan``).  Joins raise ``NotImplementedError``: they are a
-later slice of the port.
+``segmentsFullScan``).
+
+JOINS (``execute_join``, reached from a server's join phase): the device
+hash join (``kernel.run_join_kernel``, the grouped sums through K1) over
+the two sides' packed inputs (``join.build_join_plan``), under the same
+ladder as a scan; a plan the device does not take, a poisoned join plan
+(key ``(join plan digest, "join")``) and a failed-over one run the exact
+host join (``join.host_join``).  A join request without a join phase
+context goes through ``execute`` as in the reference, which does not
+read the join clause: a segment missing a referenced right-side column is
+pruned, and the rest are scanned as the left table.
 
 ZONE MAPS (``engine/zonemap.py``): a filtered plan whose candidate zone
 blocks are under half the table runs over those blocks only
@@ -87,10 +96,12 @@ from pinot_tpu_torch.engine import hll as hll_mod
 from pinot_tpu_torch.engine import kernels, zonemap
 from pinot_tpu_torch.engine.kernels import fused_groupby
 from pinot_tpu_torch.engine.host_fallback import execute_host
+from pinot_tpu_torch.engine import join as join_mod
 from pinot_tpu_torch.engine.kernel import (
     chunk_rows_limit,
     make_chunked_table_kernel,
     run_batched_table_kernel,
+    run_join_kernel,
     run_table_kernel,
 )
 from pinot_tpu_torch.engine.packing import (
@@ -237,13 +248,6 @@ def prune_segments(
     ]
 
 
-def check_supported(request: BrokerRequest) -> None:
-    """Raise NotImplementedError for query shapes outside the port, before
-    anything is staged."""
-    if request.join is not None:
-        raise NotImplementedError("joins are a later slice of the port")
-
-
 # how long a quarantined (plan digest, segment set) stays off the device: a
 # plan poisoned by a transient burst is re-admitted after it
 POISON_TTL_S = 300.0
@@ -313,6 +317,7 @@ class QueryExecutor:
         # workers: one lock, so a table is staged once
         self._stage_lock = threading.Lock()
         self._kernel = make_packed_kernel(run_table_kernel)
+        self._join_kernel = make_packed_kernel(run_join_kernel)
         self._heal_lock = threading.Lock()
         # poison key -> (reason, expiry monotonic seconds)
         self._poisoned: Dict[Any, Tuple[str, float]] = {}
@@ -388,7 +393,6 @@ class QueryExecutor:
         """``deadline`` (monotonic seconds) is the broker-propagated
         budget: the lane sheds a query whose budget drained while queued
         there, and the fetch never waits past it."""
-        check_supported(request)
         total_docs = sum(s.num_docs for s in segments)
         live = prune_segments(segments, request)
         pruned = len(segments) - len(live)
@@ -465,7 +469,9 @@ class QueryExecutor:
         scanned_rows = self._block_skip_ids(plan, q_np, live, staged)
         t0 = self._phase("planBuild", t0)
         cost: Dict[str, float] = {}
-        outs = self._run_healing(plan, staged, seg, q_np, deadline, pdigest, cost, poison_key)
+        outs = self._run_healing(
+            lambda: self._run_kernel(plan, staged, seg, q_np, deadline, pdigest, cost), poison_key
+        )
         if outs is None:
             return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
         t0 = time.perf_counter()
@@ -498,19 +504,10 @@ class QueryExecutor:
         result._served_tier = "device"
         return result
 
-    def _run_healing(
-        self,
-        plan: StaticPlan,
-        staged: StagedTable,
-        seg: Dict[str, torch.Tensor],
-        q_np: Any,
-        deadline: Optional[float],
-        pdigest: str,
-        cost: Dict[str, float],
-        poison_key: Tuple,
-    ) -> Optional[Dict[str, Any]]:
-        """``_run_kernel`` under the self-healing ladder: the fetched
-        outputs, or None when the query must fail over to the host tier.
+    def _run_healing(self, run, poison_key: Tuple) -> Any:
+        """``run()`` (a device section: ``_run_kernel`` of a scan,
+        ``_join_device_section`` of a join) under the self-healing ladder:
+        its value, or None when the query must fail over to the host tier.
         Only device faults are caught; every other error propagates."""
         last: Optional[DeviceExecutionError] = None
         for attempt in (0, 1):
@@ -522,7 +519,7 @@ class QueryExecutor:
                     self._heal_mark("resourceExhausted")
                 self._heal_mark("deviceRetries")
             try:
-                return self._run_kernel(plan, staged, seg, q_np, deadline, pdigest, cost)
+                return run()
             except (QueryAbandonedError, LaneClosedError, TimeoutError):
                 raise
             except Exception as e:
@@ -803,6 +800,97 @@ class QueryExecutor:
         else:
             res.selection_rows = []
         return res
+
+    # ------------------------------------------------------------------
+    # distributed joins (engine/join.py): the device hash join under the
+    # scans' self-healing ladder — a device fault is classified, a
+    # transient retried once, a poison quarantines the join plan digest
+    # (the poison map and heal.* counters shared with scans), and the
+    # exact host join answers
+    # ------------------------------------------------------------------
+    def execute_join(
+        self,
+        request: BrokerRequest,
+        build,
+        probe,
+        deadline: Optional[float] = None,
+    ) -> IntermediateResult:
+        """Hash join of two extracted sides (``join.SideRows``) -> mergeable
+        partials, with ``buildRows`` / ``probeRows`` in the cost and
+        ``deviceBytes`` where the device program served it."""
+        t0 = time.perf_counter()
+        planned = join_mod.build_join_plan(request, build, probe, self.precision)
+        if planned is None:
+            return self._host_join(request, build, probe, "hostPath", t0)
+        plan, inputs, meta = planned
+        jdigest = join_mod.join_plan_digest(plan)
+        poison_key = (jdigest, "join")
+        if self._is_poisoned(poison_key):
+            self._heal_mark("poisonSkips")
+            return self._host_join(request, build, probe, "hostFailover", t0)
+        if self._sticky is not None:
+            self._heal_mark("hostFailovers", reason="deviceOff")
+            return self._host_join(request, build, probe, "hostFailover", t0)
+        result = self._run_healing(
+            lambda: self._join_device_section(request, plan, inputs, meta, build, probe, deadline, jdigest),
+            poison_key,
+        )
+        if result is None:
+            return self._host_join(request, build, probe, "hostFailover", time.perf_counter())
+        return result
+
+    def _host_join(self, request: BrokerRequest, build, probe, phase: str, t0: float) -> IntermediateResult:
+        res = join_mod.host_join(request, build, probe)
+        res.add_cost(buildRows=build.n, probeRows=probe.n)
+        self._phase(phase, t0)
+        res._served_tier = "host"
+        return res
+
+    def _join_device_section(self, request, plan, inputs, meta, build, probe, deadline, jdigest) -> IntermediateResult:
+        """Upload, launch through the lane (inline without one), the packed
+        fetch, finalize.  Join dispatches never coalesce or batch: their
+        lane key is unique (hashing a probe side of millions of rows for a
+        content key costs more than the program), and they carry no
+        ``BatchSpec`` (the reference's ``batch_spec=None``)."""
+        t0 = time.perf_counter()
+        kernel = self._join_kernel
+        cost: Dict[str, float] = {}
+        q = to_device_inputs(inputs, self.device)
+        lane = self.lane
+        if lane is None:
+            outs = kernel.fetch(kernel.dispatch(plan, q), deadline)
+        else:
+            ready = ready_event(self.device)
+            tensors = tree_leaves(q)
+
+            def launch():
+                stream_handoff(ready, tensors)
+                return kernel.dispatch(plan, q)
+
+            ticket = lane.submit(("join", object()), launch, deadline, plan_digest=jdigest)
+            value = ticket.result(deadline)
+            t0 = self._phase("laneWait", t0)
+            outs = kernel.fetch(value, deadline)
+        cost["deviceMs"] = round((time.perf_counter() - t0) * 1000, 3)
+        self._phase("planExec", t0)
+        if not bool(outs["join_ok"]):
+            # the parallel-claim build ran out of rounds (it cannot with
+            # unique keys and a half-full table, but a wrong answer must
+            # never ship): poison the plan and heal to the host join
+            raise DeviceExecutionError("join hash-table build did not converge", retryable=False)
+        t_fin = time.perf_counter()
+        result = join_mod.finalize_device_join(request, plan, meta, build, probe, outs)
+        dev_bytes = sum(a.nbytes for a in inputs.values())
+        result.add_cost(
+            buildRows=build.n,
+            probeRows=probe.n,
+            bytesScanned=build.nbytes() + probe.nbytes(),
+            deviceBytes=dev_bytes,
+            **cost,
+        )
+        result._served_tier = "device"
+        self._phase("finalize", t_fin)
+        return result
 
     # ------------------------------------------------------------------
     def _finalize(

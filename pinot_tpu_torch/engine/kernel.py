@@ -88,6 +88,7 @@ output gains a leading [B] axis.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -1257,3 +1258,328 @@ def run_batched_table_kernel(plan: StaticPlan, staged: StagedTable, seg: Dict[st
     # the torch-op route: one member after another, the outputs stacked
     return _stack_outputs([run_table_kernel(plan, staged, seg, _map_tensors(lambda t: t[m], q))
                            for m in range(members)])
+
+
+# ---------------------------------------------------------------------------
+# Device hash join (engine/join.py JoinPlan -> one device program)
+# ---------------------------------------------------------------------------
+
+join_dispatches = 0  # join programs run (run_join_kernel)
+
+_KNUTH = 2654435761
+
+
+def _join_hash(k: torch.Tensor, cap: int) -> torch.Tensor:
+    """Knuth multiplicative hash of int32 key ids, masked to the pow2
+    open-addressing capacity: ``(k * 2654435761 mod 2^32) >> 8 & (cap -
+    1)``, the reference's uint32 arithmetic (``pinot_tpu/engine/
+    kernel.py:1448-1452``).  Torch has no uint32 multiply on CUDA, so the
+    product is formed in int64 from the key's two 16-bit halves (each
+    partial product stays below 2^48) and wrapped to 32 bits."""
+    kk = k.long() & 0xFFFFFFFF
+    lo = (kk & 0xFFFF) * _KNUTH
+    hi = ((kk >> 16) * _KNUTH) & 0xFFFF
+    h = (lo + (hi << 16)) & 0xFFFFFFFF
+    return ((h >> 8) & (cap - 1)).to(torch.int32)
+
+
+def _join_build(bk: torch.Tensor, cap: int) -> Tuple[torch.Tensor, torch.Tensor, bool, int]:
+    """BUILD: unique build keys insert in parallel-claim rounds.  Each
+    unplaced lane proposes slot ``(hash + r) & (cap - 1)``; the lanes
+    whose proposed slot is empty claim it with an int32 ``amin`` scatter
+    of their lane index (the lowest lane wins a contested slot, the same
+    in any order), the winners write (key, lane), everyone else advances
+    ``r``.  Rounds end when every lane is placed or at ``2 * cap``.  Only
+    the unplaced lanes take part in a round (the reference's program
+    masks them in place over every lane; the placements are the same).
+    Returns (table keys [cap], table rows [cap], every lane placed, rounds)."""
+    dev = bk.device
+    U = bk.numel()
+    bh = _join_hash(bk, cap)
+    lanes = torch.arange(U, dtype=torch.int32, device=dev)
+    # one spare slot past the table: the drop target of losing lanes
+    table_key = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+    table_row = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    active = torch.nonzero(bk >= 0).view(-1)  # padded lanes never insert
+    r = 0
+    while active.numel() and r < 2 * cap:
+        lane = lanes[active]
+        slot = (bh[active] + r) & (cap - 1)
+        attempt = table_key[slot] == -1
+        claims = torch.full((cap + 1,), U, dtype=torch.int32, device=dev)
+        claims.scatter_reduce_(0, torch.where(attempt, slot, cap).long(), lane, reduce="amin")
+        won = attempt & (claims[slot] == lane)
+        win_slot = torch.where(won, slot, cap).long()
+        table_key[win_slot] = bk[active]
+        table_row[win_slot] = lane
+        active = active[~won]
+        r += 1
+    return table_key[:cap], table_row[:cap], active.numel() == 0, r
+
+
+def _join_probe(pk: torch.Tensor, table_key: torch.Tensor, table_row: torch.Tensor,
+                cap: int) -> Tuple[torch.Tensor, int]:
+    """PROBE: every probe lane walks its linear probe sequence until its
+    key matches (the matched build lane) or an empty slot ends it (no
+    match), all live lanes in lockstep, at most ``cap + 1`` offsets; a
+    finished lane leaves the live set.  Returns (build lane of each probe
+    lane, -1 where none; rounds)."""
+    dev = pk.device
+    ph = _join_hash(pk, cap)
+    midx = torch.full((pk.numel(),), -1, dtype=torch.int32, device=dev)
+    active = torch.nonzero(pk >= 0).view(-1)  # padded lanes: no match
+    off = 0
+    while active.numel() and off <= cap:
+        slot = ((ph[active] + off) & (cap - 1)).long()
+        at = table_key[slot]
+        key = pk[active]
+        found = at == key
+        midx.index_copy_(0, active, torch.where(found, table_row[slot], midx[active]))
+        active = active[~(found | (at == -1))]
+        off += 1
+    return midx, off
+
+
+def _join_weights(jplan, inputs, safe: torch.Tensor, cntf: torch.Tensor) -> Dict[Tuple[str, int], torch.Tensor]:
+    """The float weight stream [n_probe_pad] of each summed value column:
+    ``v * cnt`` for a probe-side column (a probe row meets ``cnt`` build
+    rows), the build side's per-key sum gathered at the matched lane for
+    a build-side one."""
+    out: Dict[Tuple[str, int], torch.Tensor] = {}
+    for kind, side, idx in jplan.aggs:
+        if kind not in ("sum", "avg") or (side, idx) in out:
+            continue
+        out[(side, idx)] = inputs["pv"][idx] * cntf if side == "p" else inputs["bs"][idx][safe]
+    return out
+
+
+def _join_group_sums(weights: Dict[Tuple[str, int], torch.Tensor], matched: torch.Tensor,
+                     gid: torch.Tensor, G: int, fdt: torch.dtype) -> Dict[Tuple[str, int], torch.Tensor]:
+    """Grouped float sums of the matched lanes through K1: the filter is
+    the ``{0, 1}`` match table over ``matched``, the key the precombined
+    group id, the weight streams K1's raw value columns, all [1,
+    n_probe_pad].  A group space past one launch's shared memory runs in
+    key windows (keys outside a window drop), more streams than a launch
+    takes in chunks, as ``_group_sums`` does: per-block partials added in
+    a fixed order, so the same on every run and free of float atomics."""
+    if not weights:
+        return {}
+    n = matched.numel()
+    filt = _mask_filter(matched.view(1, n))
+    num_docs = torch.full((1,), n, dtype=torch.int32, device=matched.device)
+    keys32 = gid.view(1, n)
+    fbytes = 8 if fdt == torch.float64 else 4
+    names = list(weights)
+    sums: Dict[Tuple[str, int], torch.Tensor] = {}
+    for j in range(0, len(names), fused_groupby.MAX_VALUE_COLUMNS):
+        chunk = names[j : j + fused_groupby.MAX_VALUE_COLUMNS]
+        raws = [weights[k].view(1, n).contiguous() for k in chunk]
+        nones = [None] * len(chunk)
+        window = fused_groupby.max_capacity(fbytes, len(chunk), 0, 2)
+        parts = []
+        for lo in range(0, G, window):
+            _, _, sm = fused_groupby.fused_filtered_groupby_sums(
+                filt["filter_fwd"], filt["match"], num_docs, keys32 - lo if lo else keys32,
+                nones, nones, min(window, G - lo), dtype=fdt, value_raws=raws,
+            )
+            parts.append(sm)
+        for c, k in enumerate(chunk):
+            sums[k] = torch.cat([p[c] for p in parts])
+    return sums
+
+
+def run_join_kernel(jplan, inputs: Dict[str, torch.Tensor],
+                    stats: Optional[Dict[str, int]] = None) -> Dict[str, Any]:
+    """The build + probe hash-join program for one ``engine/join.py``
+    JoinPlan (the counterpart of ``make_join_kernel``, ``pinot_tpu/engine/
+    kernel.py:1455-1640``, which is jnp lowered by XLA, not a Pallas
+    kernel): torch ops for the build (``_join_build``) and the probe
+    (``_join_probe``), then the aggregation of the matched lanes.  A probe
+    row matching a duplicated build key contributes ``cnt`` joined rows,
+    so a sum weights by ``cnt`` and a count adds ``cnt``: the inner join's
+    multiplicity.
+
+      num_docs, counts   int64 adds of ``cnt`` (exact, the same in any
+                         order: integer atomics on the card)
+      grouped sums       through K1 (``_join_group_sums``): no float atomics
+      min / max          ``scatter_reduce_`` amin / amax over the ±inf
+                         seeds (order-free)
+      scalar sums        ``torch.sum`` over the masked lanes
+
+    Group mode keys dense ``[n_groups]`` holders by the mixed-radix
+    (probe group, build group) id; K1 drops the unmatched lanes through
+    its filter, and the counts and min / max scatter the matched lanes
+    only.  ``join_ok`` is False when the build ran out of
+    rounds.  ``stats`` (when given) receives the build and probe rounds:
+    each round's end is one host sync on the card.  On CPU tensors K1's
+    wrapper runs its plain version."""
+    global join_dispatches
+    join_dispatches += 1
+    cap = jplan.cap
+    bk, bc = inputs["bk"], inputs["bc"]
+    table_key, table_row, join_ok, b_rounds = _join_build(bk, cap)
+    pk = inputs["pk"]
+    midx, p_rounds = _join_probe(pk, table_key, table_row, cap)
+    if stats is not None:
+        stats["build_rounds"], stats["probe_rounds"] = b_rounds, p_rounds
+    dev = pk.device
+    pv, bs, bmn, bmx = inputs["pv"], inputs["bs"], inputs["bmn"], inputs["bmx"]
+    fdt = pv.dtype
+    matched = midx >= 0
+    safe = midx.clamp_min(0).long()
+    cnt = torch.where(matched, bc[safe], 0).long()
+    cntf = cnt.to(fdt)
+    inf = torch.tensor(float("inf"), dtype=fdt, device=dev)
+    outs: Dict[str, Any] = {
+        "num_docs": cnt.sum(),
+        "join_ok": torch.tensor(join_ok, device=dev),
+    }
+    weights = _join_weights(jplan, inputs, safe, cntf)
+
+    def extremes(side: str, idx: int):
+        if side == "p":
+            return pv[idx], pv[idx]
+        return bmn[idx][safe], bmx[idx][safe]
+
+    if jplan.n_groups:
+        G = jplan.n_groups
+        gid = (inputs["pg"] * jplan.bg_space + inputs["bg"][safe]).to(torch.int32)
+        sums = _join_group_sums(weights, matched, gid, G, fdt)
+        # the counts and min / max scatter the matched lanes only: an
+        # unmatched lane has no group, and sending each to a spare slot
+        # would funnel millions of atomics into one address
+        live = torch.nonzero(matched).view(-1)
+        gl = gid[live].long()
+        gcnt = torch.zeros(G, dtype=torch.int64, device=dev).index_add_(0, gl, cnt[live])
+        outs["gb_cnt"] = gcnt
+
+        def holder(side: str, idx: int, table: torch.Tensor, reduce: str, seed: float) -> torch.Tensor:
+            vals = pv[idx][live] if side == "p" else table[idx][safe[live]]
+            return torch.full((G,), seed, dtype=fdt, device=dev).scatter_reduce_(0, gl, vals, reduce=reduce)
+
+        for i, (kind, side, idx) in enumerate(jplan.aggs):
+            if kind == "count":
+                outs[f"gb_{i}"] = gcnt
+            elif kind == "sum":
+                outs[f"gb_{i}"] = sums[(side, idx)]
+            elif kind == "avg":
+                outs[f"gb_{i}"] = (sums[(side, idx)], gcnt)
+            elif kind == "min":
+                outs[f"gb_{i}"] = holder(side, idx, bmn, "amin", math.inf)
+            elif kind == "max":
+                outs[f"gb_{i}"] = holder(side, idx, bmx, "amax", -math.inf)
+            else:  # minmaxrange
+                outs[f"gb_{i}"] = (holder(side, idx, bmn, "amin", math.inf),
+                                   holder(side, idx, bmx, "amax", -math.inf))
+        return outs
+
+    total_cnt = outs["num_docs"]
+    zero = torch.zeros((), dtype=fdt, device=dev)
+    for i, (kind, side, idx) in enumerate(jplan.aggs):
+        if kind == "count":
+            outs[f"agg_{i}"] = total_cnt
+            continue
+        vmin, vmax = extremes(side, idx)
+        live = matched & (cnt > 0) if side == "p" else matched
+        ssum = torch.where(matched, weights[(side, idx)], zero).sum() if (side, idx) in weights else None
+        smin = torch.where(live, vmin, inf).min()
+        smax = torch.where(live, vmax, -inf).max()
+        if kind == "sum":
+            outs[f"agg_{i}"] = ssum
+        elif kind == "avg":
+            outs[f"agg_{i}"] = (ssum, total_cnt)
+        elif kind == "min":
+            outs[f"agg_{i}"] = smin
+        elif kind == "max":
+            outs[f"agg_{i}"] = smax
+        else:
+            outs[f"agg_{i}"] = (smin, smax)
+    return outs
+
+
+def join_kernel_reference(jplan, inputs: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Plain torch version of the join program, the jnp program step by
+    step (``pinot_tpu/engine/kernel.py:1483-1636``): the build and probe
+    loops mask every lane in place, and every sum is a float
+    ``index_add_`` / ``torch.sum`` (``.at[].add``), the grouped ones in
+    float64 and cast back.  Its outputs are the program's."""
+    cap = jplan.cap
+    bk, bc, pk = inputs["bk"], inputs["bc"], inputs["pk"]
+    dev = pk.device
+    U, N = bk.numel(), pk.numel()
+    bh = _join_hash(bk, cap)
+    lane_ids = torch.arange(U, dtype=torch.int32, device=dev)
+    table_key = torch.full((cap + 1,), -1, dtype=torch.int32, device=dev)
+    table_row = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    placed = bk < 0
+    r = 0
+    while bool((~placed).any()) and r < 2 * cap:
+        slot = (bh + r) & (cap - 1)
+        attempt = ~placed & (table_key[slot] == -1)
+        claims = torch.full((cap + 1,), U, dtype=torch.int32, device=dev)
+        claims.scatter_reduce_(0, torch.where(attempt, slot, cap).long(), lane_ids, reduce="amin")
+        won = attempt & (claims[slot] == lane_ids)
+        win_slot = torch.where(won, slot, cap).long()
+        table_key[win_slot] = bk
+        table_row[win_slot] = lane_ids
+        placed = placed | won
+        r += 1
+    join_ok = bool(placed.all())
+    ph = _join_hash(pk, cap)
+    midx = torch.full((N,), -1, dtype=torch.int32, device=dev)
+    done = pk < 0
+    off = 0
+    while bool((~done).any()) and off <= cap:
+        slot = ((ph + off) & (cap - 1)).long()
+        at = table_key[slot]
+        found = ~done & (at == pk)
+        empty = ~done & (at == -1)
+        midx = torch.where(found, table_row[slot], midx)
+        done = done | found | empty
+        off += 1
+    matched = midx >= 0
+    safe = midx.clamp_min(0).long()
+    pv, bs, bmn, bmx = inputs["pv"], inputs["bs"], inputs["bmn"], inputs["bmx"]
+    fdt = pv.dtype
+    cnt = torch.where(matched, bc[safe], 0).long()
+    cntf = cnt.to(fdt)
+    inf = torch.tensor(float("inf"), dtype=fdt, device=dev)
+    outs: Dict[str, Any] = {"num_docs": cnt.sum(), "join_ok": torch.tensor(join_ok, device=dev)}
+
+    def vals(side, idx):
+        if side == "p":
+            v = pv[idx]
+            return v * cntf, v, v
+        return bs[idx][safe], bmn[idx][safe], bmx[idx][safe]
+
+    if jplan.n_groups:
+        G = jplan.n_groups
+        gid = inputs["pg"].long() * jplan.bg_space + inputs["bg"][safe].long()
+        gslot = torch.where(matched, gid, G)
+        gcnt = torch.zeros(G + 1, dtype=torch.int64, device=dev).index_add_(0, gslot, cnt)[:G]
+        outs["gb_cnt"] = gcnt
+        for i, (kind, side, idx) in enumerate(jplan.aggs):
+            if kind == "count":
+                outs[f"gb_{i}"] = gcnt
+                continue
+            vsum, vmin, vmax = vals(side, idx)
+            s = torch.zeros(G + 1, dtype=torch.float64, device=dev)
+            s = s.index_add_(0, gslot, torch.where(matched, vsum, 0.0).double())[:G].to(fdt)
+            mn = torch.full((G + 1,), float("inf"), dtype=fdt, device=dev)
+            mn = mn.scatter_reduce_(0, gslot, torch.where(matched, vmin, inf), reduce="amin")[:G]
+            mx = torch.full((G + 1,), float("-inf"), dtype=fdt, device=dev)
+            mx = mx.scatter_reduce_(0, gslot, torch.where(matched, vmax, -inf), reduce="amax")[:G]
+            outs[f"gb_{i}"] = {"sum": s, "avg": (s, gcnt), "min": mn, "max": mx,
+                               "minmaxrange": (mn, mx)}[kind]
+        return outs
+    total = outs["num_docs"]
+    for i, (kind, side, idx) in enumerate(jplan.aggs):
+        if kind == "count":
+            outs[f"agg_{i}"] = total
+            continue
+        vsum, vmin, vmax = vals(side, idx)
+        live = matched & (cnt > 0) if side == "p" else matched
+        s = torch.where(matched, vsum, 0.0).sum()
+        mn, mx = torch.where(live, vmin, inf).min(), torch.where(live, vmax, -inf).max()
+        outs[f"agg_{i}"] = {"sum": s, "avg": (s, total), "min": mn, "max": mx, "minmaxrange": (mn, mx)}[kind]
+    return outs

@@ -249,6 +249,11 @@ class IntermediateResult:
         # EXPLAIN plan nodes, one per server, concatenated on merge (the
         # port's servers send none; the wire carries them)
         self.plan_info: List[Dict[str, Any]] = list(plan_info or [])
+        # join-extract payload (engine/join.py SideRows wire dict): the
+        # columnar key / value arrays a join-extract phase returns to the
+        # broker's exchange.  Not additive: the broker drains it before
+        # the result joins the reduce merge; None on every scan reply.
+        self.join_payload: Optional[Dict[str, Any]] = None
         # event-time freshness stamp ({"minEventMs": ...}), merged with
         # MIN; None for offline tables (all the port serves)
         self.freshness: Optional[Dict[str, Any]] = None
@@ -356,6 +361,15 @@ def trim_group_candidates(
 #                      device dispatch (engine/dispatch.py)
 #   batchHits          queries that rode a batched launch with other
 #                      same-plan queries (the lane's micro-batching tier)
+#   buildRows          join build-side rows extracted / hash-table
+#                      inserted (engine/join.py: dim-side work)
+#   probeRows          join probe-side rows extracted / probed against
+#                      the build hash table (fact-side work)
+#   shuffleBytes       serialized join-exchange bytes a server RECEIVED
+#                      in a shuffle join (the skew-balance observable:
+#                      no server should receive > 2x the mean)
+#   broadcastBytes     serialized build-side bytes a server received in
+#                      a broadcast join (one copy per probe server)
 #   segmentsPruned     segments dropped before execution (empty, or
 #                      missing a referenced column)
 #   segmentsZonemap    segments scanned over their zone-map candidate
@@ -370,6 +384,10 @@ COST_KEYS = (
     "deviceBytes",
     "coalesceHits",
     "batchHits",
+    "buildRows",
+    "probeRows",
+    "shuffleBytes",
+    "broadcastBytes",
     "segmentsPruned",
     "segmentsZonemap",
     "segmentsFullScan",

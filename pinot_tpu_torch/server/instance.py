@@ -9,12 +9,18 @@ the server's device lane on its own CUDA stream -> DataTable bytes.
 Errors come back as a DataTable whose ``exceptions`` are set (the broker
 still reduces the healthy servers' partials).
 
+A request carrying a join context (``broker/joinplan.py``) runs its join
+phase instead of a scan (``_process_join``), in the same scheduler slot:
+``extract`` returns one side's matched rows as the exchange payload,
+``exec`` runs the hash join (``QueryExecutor.execute_join``) under the
+colocated, broadcast or shuffle strategy.
+
 The controller wiring is ``starter.py`` (in process) and
 ``network_starter.py`` (a server process); they load segment files,
 verify their CRCs and quarantine a bad copy through this class.
 
-Left out of the port, for later slices: EXPLAIN, the result cache,
-joins, the roofline window, plan stats, the profiler and the occupancy
+Left out of the port, for later slices: EXPLAIN, the result cache (of
+scans and joins), the roofline window, plan stats, the profiler and the occupancy
 sampler, residency, prewarm, the shadow auditor, schema evolution and
 the ingest planes.
 """
@@ -30,6 +36,7 @@ import torch
 from pinot_tpu_torch.common.datatable import deserialize_instance_request, serialize_result
 from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
+from pinot_tpu_torch.engine import join as join_mod
 from pinot_tpu_torch.engine.dispatch import LaneGroup
 from pinot_tpu_torch.engine.executor import QueryExecutor
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
@@ -113,6 +120,10 @@ class ServerInstance:
             self.metrics.timer(t)
         for k in self._TIER_KEYS:
             self.metrics.meter(f"cost.tier.{k}")
+        # the distributed-join plane: extraction and hash-join counters
+        for m in ("join.extracts", "join.execs", "join.buildRows",
+                  "join.probeRows", "join.shuffleBytes", "join.broadcastBytes"):
+            self.metrics.meter(m)
 
     # -- segment lifecycle -------------------------------------------
     def add_segment(self, table: str, segment: ImmutableSegment) -> None:
@@ -255,14 +266,148 @@ class ServerInstance:
                     if missing:
                         self.metrics.meter("segmentsMissedServing").mark(len(missing))
                 views = [a.query_view() for a in acquired]
-                with trace.span("planAndExecute", segments=len(acquired)):
-                    result = self.executor.execute(views, request, deadline=deadline)
+                if req.get("join"):
+                    # a distributed-join phase over the local views, in the
+                    # scheduler slot this request already holds
+                    result = self._process_join(req, request, req["join"], views, deadline, trace)
+                else:
+                    with trace.span("planAndExecute", segments=len(acquired)):
+                        result = self.executor.execute(views, request, deadline=deadline)
                 result.unserved_segments = missing
             finally:
                 tdm.release_segments(acquired)
         if trace.enabled:
             result.trace.update(trace.to_dict())
         return result
+
+    # -- distributed joins (engine/join.py + broker/joinplan.py) ------
+    def _extract_bytes(self, views, columns) -> int:
+        total = 0
+        for seg in views:
+            for c in columns:
+                col = seg.columns.get(c)
+                if col is not None and getattr(col, "fwd", None) is not None:
+                    total += col.fwd.nbytes
+        return total
+
+    def _process_join(self, req: dict, request, jctx: dict, views, deadline, trace) -> IntermediateResult:
+        """One join-phase request: ``extract`` returns the side's matched
+        rows as a dict-encoded exchange payload; ``exec`` runs the hash
+        join (device program, host heal) over local and / or shipped
+        sides and returns normal mergeable partials."""
+        spec = request.join
+        if spec is None:
+            return IntermediateResult(
+                exceptions=[(ErrorCode.QUERY_EXECUTION, "join context on a non-join query")]
+            )
+        phase = jctx.get("phase")
+        t0 = time.perf_counter()
+        try:
+            left_f, right_f = join_mod.split_join_filter(request)
+            left_cols, right_cols = join_mod.side_columns(request)
+            if phase == "extract":
+                side_name = jctx.get("side")
+                if side_name == "build":
+                    stripped = [spec.strip_right(c) for c in right_cols]
+                    name_of = {spec.strip_right(c): c for c in right_cols}
+                    rows, matched = join_mod.extract_side(views, right_f, spec.right_key, stripped, name_of)
+                    read_cols = [spec.right_key, *stripped]
+                else:
+                    rows, matched = join_mod.extract_side(views, left_f, spec.left_key, left_cols)
+                    read_cols = [spec.left_key, *left_cols]
+                res = IntermediateResult(
+                    num_docs_scanned=matched,
+                    total_docs=sum(v.num_docs for v in views),
+                    num_segments_queried=len(views),
+                )
+                res.add_cost(
+                    hostMs=round((time.perf_counter() - t0) * 1000, 3),
+                    bytesScanned=self._extract_bytes(views, read_cols),
+                )
+                res.join_payload = join_mod.encode_side(rows)
+                self.metrics.meter("join.extracts").mark()
+                self.executor._phase("joinExtract", t0, side=side_name, segments=len(views))
+                return res
+
+            if phase != "exec":
+                raise join_mod.JoinValidationError(f"unknown join phase {phase!r}")
+            strategy = jctx.get("strategy")
+            if strategy == "colocated":
+                build_table = jctx.get("buildTable") or ""
+                build_names = list(jctx.get("buildSegments") or ())
+                tdm_b = self.data_manager.table(build_table)
+                if tdm_b is None:
+                    return IntermediateResult(exceptions=[(
+                        ErrorCode.SERVER_SEGMENT_MISSING, f"build table {build_table} not on server {self.name}",
+                    )])
+                b_acquired = tdm_b.acquire_segments(build_names or None)
+                try:
+                    held = {a.name for a in b_acquired}
+                    miss_b = [n for n in build_names if n not in held]
+                    if miss_b:
+                        return IntermediateResult(exceptions=[(
+                            ErrorCode.SERVER_SEGMENT_MISSING,
+                            f"server {self.name}: build segments unavailable: {sorted(miss_b)}",
+                        )])
+                    b_views = [a.query_view() for a in b_acquired]
+                    # failover re-check: a child batch may land on a replica
+                    # whose local build segments cover other partitions —
+                    # serve only if every probe partition is locally
+                    # buildable, else 230 so the broker re-covers elsewhere
+                    probe_parts = {join_mod.partition_of_segment(v.segment_name) for v in views}
+                    build_parts = {join_mod.partition_of_segment(v.segment_name) for v in b_views}
+                    if None in probe_parts or not probe_parts <= build_parts:
+                        return IntermediateResult(exceptions=[(
+                            ErrorCode.SERVER_SEGMENT_MISSING,
+                            f"server {self.name}: local build side does not cover probe partitions",
+                        )])
+                    result = self._join_exec(request, spec, right_f, right_cols, b_views,
+                                             left_f, left_cols, views, deadline, trace)
+                    result.num_segments_queried = len(views) + len(b_views)
+                finally:
+                    tdm_b.release_segments(b_acquired)
+            elif strategy == "broadcast":
+                build = join_mod.decode_side(jctx["build"])
+                result = self._join_exec(request, spec, None, right_cols, None,
+                                         left_f, left_cols, views, deadline, trace, build=build)
+                result.num_segments_queried = len(views)
+                bbytes = build.nbytes()
+                result.add_cost(broadcastBytes=bbytes)
+                self.metrics.meter("join.broadcastBytes").mark(bbytes)
+            elif strategy == "shuffle":
+                build = join_mod.decode_side(jctx["build"])
+                probe = join_mod.decode_side(jctx["probe"])
+                sbytes = build.nbytes() + probe.nbytes()
+                with trace.span("joinExec", strategy="shuffle", buildRows=build.n, probeRows=probe.n):
+                    result = self.executor.execute_join(request, build, probe, deadline=deadline)
+                result.add_cost(shuffleBytes=sbytes)
+                self.metrics.meter("join.shuffleBytes").mark(sbytes)
+            else:
+                raise join_mod.JoinValidationError(f"unknown join strategy {strategy!r}")
+            self.metrics.meter("join.execs").mark()
+            self.metrics.meter("join.buildRows").mark(int(result.cost.get("buildRows", 0)))
+            self.metrics.meter("join.probeRows").mark(int(result.cost.get("probeRows", 0)))
+            return result
+        except join_mod.JoinValidationError as e:
+            # a typed client error, never a crash: the broker surfaces it
+            # as QUERY_VALIDATION (4xx), and it is not retried
+            return IntermediateResult(exceptions=[(ErrorCode.QUERY_VALIDATION, str(e))])
+
+    def _join_exec(self, request, spec, right_f, right_cols, b_views,
+                   left_f, left_cols, views, deadline, trace, build=None) -> IntermediateResult:
+        """Local probe-side extraction (and the build side for colocated),
+        then the healed hash join."""
+        t0 = time.perf_counter()
+        if build is None:
+            stripped = [spec.strip_right(c) for c in right_cols]
+            name_of = {spec.strip_right(c): c for c in right_cols}
+            with trace.span("joinBuildLocal", segments=len(b_views)):
+                build, _m = join_mod.extract_side(b_views, right_f, spec.right_key, stripped, name_of)
+        with trace.span("joinProbeLocal", segments=len(views)):
+            probe, _matched = join_mod.extract_side(views, left_f, spec.left_key, left_cols)
+        self.metrics.timer("phase.joinExtract").update((time.perf_counter() - t0) * 1000)
+        with trace.span("joinExec", buildRows=build.n, probeRows=probe.n):
+            return self.executor.execute_join(request, build, probe, deadline=deadline)
 
     # -- observability -------------------------------------------------
     def status(self) -> dict:

@@ -9,7 +9,9 @@ Commands:
   StartServer       a server process joining a controller
   StartBroker       a broker process joining a controller
   AddSchema         POST a schema JSON file to a controller
-  AddTable          POST a table config JSON file to a controller
+  AddTable          POST a table config JSON file to a controller (its
+                    "partitioning" block, {"column", "numPartitions"},
+                    declares the key partitioning joins colocate on)
   UploadSegment     POST a segment file to a controller
   PostQuery         run PQL against a broker
 

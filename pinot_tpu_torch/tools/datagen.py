@@ -322,3 +322,176 @@ def tile_segments(distinct_segments, total: int) -> List[ImmutableSegment]:
         smeta.crc = hash((smeta.segment_name, m.num_docs)) & 0xFFFFFFFF
         out.append(ImmutableSegment(metadata=smeta, columns=base.columns))
     return out
+
+
+# ---------------------------------------------------------------------------
+# Star Schema Benchmark tables (O'Neil, O'Neil, Chen, Revilak, TPCTC 2009):
+# lineorder, part and date, for the join path.  lineorder and part are
+# partitioned on their part key (partition = key % partitions, segment
+# names ``..._pN``), so the two tables colocate.
+# ---------------------------------------------------------------------------
+
+SSB_YEARS = (1992, 1998)
+SSB_DATES = 2556  # rows of SSB's date table
+SSB_CATEGORIES = [f"MFGR#{m}{c}" for m in range(1, 6) for c in range(1, 6)]
+SSB_BRANDS_PER_CATEGORY = 40
+
+
+def lineorder_schema() -> Schema:
+    return Schema(
+        "lineorder",
+        dimensions=[
+            FieldSpec("lo_orderdate", DataType.INT),
+            FieldSpec("lo_partkey", DataType.INT),
+            FieldSpec("lo_shipmode", DataType.STRING),
+        ],
+        metrics=[
+            FieldSpec("lo_quantity", DataType.INT, FieldType.METRIC),
+            FieldSpec("lo_discount", DataType.INT, FieldType.METRIC),
+            FieldSpec("lo_extendedprice", DataType.INT, FieldType.METRIC),
+            FieldSpec("lo_revenue", DataType.INT, FieldType.METRIC),
+        ],
+    )
+
+
+def part_schema() -> Schema:
+    return Schema(
+        "part",
+        dimensions=[
+            FieldSpec("p_partkey", DataType.INT),
+            FieldSpec("p_category", DataType.STRING),
+            FieldSpec("p_brand1", DataType.STRING),
+        ],
+        metrics=[FieldSpec("p_size", DataType.INT, FieldType.METRIC)],
+    )
+
+
+def date_schema() -> Schema:
+    return Schema(
+        "date",
+        dimensions=[FieldSpec("d_datekey", DataType.INT), FieldSpec("d_year", DataType.INT)],
+    )
+
+
+def _segment_of_values(schema: Schema, table_name: str, name: str, values: Dict[str, Any]) -> ImmutableSegment:
+    """A segment whose single-value columns hold ``values`` row by row: each
+    dictionary the sorted distinct values, each forward index their ids.
+    A column given as (sorted distinct pool, pool index per row) is
+    encoded from the draws in linear time."""
+    columns = {}
+    num_rows = 0
+    for spec in schema.all_fields():
+        vals = values[spec.name]
+        if isinstance(vals, tuple):
+            pool, drawn = vals
+            present = np.bincount(drawn, minlength=len(pool)) > 0
+            rank = (np.cumsum(present) - 1).astype(np.int32)
+            uniq, fwd = np.asarray(pool)[present], rank[drawn]
+        else:
+            uniq, fwd = np.unique(np.asarray(vals), return_inverse=True)
+        num_rows = len(fwd)
+        if spec.stored_type == DataType.STRING:
+            d = Dictionary(DataType.STRING, [str(v) for v in uniq])
+        else:
+            d = Dictionary(spec.stored_type, uniq)
+        fwd = fwd.reshape(-1).astype(np.int32)
+        columns[spec.name] = ColumnData(
+            metadata=ColumnMetadata(
+                name=spec.name,
+                data_type=spec.data_type,
+                field_type=spec.field_type,
+                single_value=True,
+                cardinality=d.cardinality,
+                total_docs=num_rows,
+                is_sorted=bool(num_rows == 0 or np.all(fwd[1:] >= fwd[:-1])),
+                total_number_of_entries=num_rows,
+                min_value=d.min_value,
+                max_value=d.max_value,
+            ),
+            dictionary=d,
+            fwd=fwd,
+        )
+    smeta = SegmentMetadata(
+        segment_name=name,
+        table_name=table_name,
+        num_docs=num_rows,
+        columns={c.metadata.name: c.metadata for c in columns.values()},
+    )
+    seg = ImmutableSegment(metadata=smeta, columns=columns)
+    smeta.crc = hash((name, num_rows)) & 0xFFFFFFFF  # cheap identity
+    return seg
+
+
+def ssb_datekeys(n: int = SSB_DATES) -> np.ndarray:
+    """The first ``n`` days from 1992-01-01 as yyyymmdd ints (d_datekey)."""
+    days = np.arange(np.datetime64("1992-01-01"), np.datetime64("1992-01-01") + n)
+    ymd = days.astype("datetime64[D]").astype(str)
+    return np.asarray([int(s.replace("-", "")) for s in ymd], dtype=np.int64)
+
+
+def ssb_date_segment(name: str = "date_0") -> ImmutableSegment:
+    """SSB's date table: 2556 days from 1992-01-01, d_datekey and d_year."""
+    keys = ssb_datekeys()
+    return _segment_of_values(date_schema(), "date", name, {"d_datekey": keys, "d_year": keys // 10000})
+
+
+def ssb_retailprice(partkey: np.ndarray) -> np.ndarray:
+    """SSB / TPC-H dbgen's p_retailprice in cents: 90000 + ((k / 10) mod
+    20001) + 100 * (k mod 1000)."""
+    k = np.asarray(partkey, dtype=np.int64)
+    return 90000 + (k // 10) % 20001 + 100 * (k % 1000)
+
+
+def ssb_part_segments(num_parts: int, partitions: int, seed: int = 3) -> List[ImmutableSegment]:
+    """SSB's part table, ``num_parts`` rows (p_partkey 1..num_parts, unique),
+    one segment ``part_pN`` per partition of p_partkey % ``partitions``:
+    p_category one of 25 (MFGR#11 .. MFGR#55), p_brand1 one of 40 in its
+    category (MFGR#<category>01 .. 40), p_size 1-50."""
+    rng = np.random.default_rng(seed)
+    keys = np.arange(1, num_parts + 1, dtype=np.int64)
+    cat = rng.integers(0, len(SSB_CATEGORIES), size=num_parts)
+    brand = rng.integers(1, SSB_BRANDS_PER_CATEGORY + 1, size=num_parts)
+    size = rng.integers(1, 51, size=num_parts)
+    cats = np.asarray(SSB_CATEGORIES)
+    out = []
+    for p in range(partitions):
+        rows = np.nonzero(keys % partitions == p)[0]
+        c = cats[cat[rows]]
+        out.append(_segment_of_values(part_schema(), "part", f"part_p{p}", {
+            "p_partkey": keys[rows],
+            "p_category": c,
+            "p_brand1": np.char.add(c.astype(str), np.char.zfill(brand[rows].astype(str), 2)),
+            "p_size": size[rows],
+        }))
+    return out
+
+
+def ssb_lineorder_segment(num_rows: int, partition: int, partitions: int, num_parts: int,
+                          seed: int = 7) -> ImmutableSegment:
+    """One ``lineorder_pN`` segment: ``num_rows`` rows whose lo_partkey is
+    drawn uniformly from the part keys of partition ``partition`` (key %
+    ``partitions``), lo_orderdate uniformly from the d_datekeys,
+    lo_quantity 1-50, lo_discount 0-10, lo_shipmode one of 7;
+    lo_extendedprice = lo_quantity x p_retailprice and lo_revenue =
+    lo_extendedprice x (100 - lo_discount) / 100, as SSB's dbgen makes them."""
+    rng = np.random.default_rng(seed)
+    first = partition if partition > 0 else partitions
+    part_keys = np.arange(first, num_parts + 1, partitions, dtype=np.int64)
+    pk = rng.integers(0, part_keys.size, size=num_rows)
+    datekeys = ssb_datekeys()
+    od = rng.integers(0, datekeys.size, size=num_rows)
+    qty = rng.integers(0, 50, size=num_rows)
+    disc = rng.integers(0, 11, size=num_rows)
+    modes = sorted(_SHIP_MODES)
+    ship = rng.integers(0, len(modes), size=num_rows)
+    quantity, discount = np.arange(1, 51), np.arange(0, 11)
+    extended = quantity[qty] * ssb_retailprice(part_keys)[pk]
+    return _segment_of_values(lineorder_schema(), "lineorder", f"lineorder_p{partition}", {
+        "lo_orderdate": (datekeys, od),
+        "lo_partkey": (part_keys, pk),
+        "lo_shipmode": (modes, ship),
+        "lo_quantity": (quantity, qty),
+        "lo_discount": (discount, disc),
+        "lo_extendedprice": extended,
+        "lo_revenue": extended * (100 - discount[disc]) // 100,
+    })

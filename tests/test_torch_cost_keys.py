@@ -1,6 +1,6 @@
 """The port's cost-vector keys: each is one of the JAX package's
-``COST_KEYS`` (``pinot_tpu/engine/results.py:260-280``), the serving-tier
-subset carries ``segmentsZonemap``, and a port server marks
+``COST_KEYS`` (``pinot_tpu/engine/results.py:260-280``), the join keys
+among them, the serving-tier subset carries ``segmentsZonemap``, and a port server marks
 ``cost.tier.segmentsZonemap`` for a query served over zone-map candidate
 blocks, as the reference server does (``cost.tier.<key>`` for every key of
 ``SEGMENT_TIER_KEYS``)."""
@@ -25,6 +25,8 @@ def test_every_port_cost_key_is_a_reference_cost_key():
     assert set(COST_KEYS) <= set(REF_COST_KEYS)
     assert set(SEGMENT_TIER_KEYS) <= set(REF_TIER_KEYS)
     assert "segmentsZonemap" in SEGMENT_TIER_KEYS and "batchHits" in COST_KEYS
+    # the join plane's additive keys (engine/join.py, broker/joinplan.py)
+    assert {"buildRows", "probeRows", "shuffleBytes", "broadcastBytes"} <= set(COST_KEYS)
     # the reference's order, trimmed
     assert list(COST_KEYS) == [k for k in REF_COST_KEYS if k in COST_KEYS]
 
@@ -53,3 +55,16 @@ def test_a_server_marks_the_tier_meter_of_the_blocks_it_scanned(pql, meter, monk
     finally:
         broker.shutdown()
         server.shutdown()
+
+
+def test_a_join_extract_payload_is_not_a_merged_result_field():
+    """``join_payload`` rides one extract reply to the broker's exchange;
+    it is None on a fresh result and not merged."""
+    from pinot_tpu_torch.engine.results import IntermediateResult
+
+    a, b = IntermediateResult(), IntermediateResult()
+    assert a.join_payload is None
+    b.join_payload = {"n": 1}
+    b.add_cost(buildRows=3, probeRows=5)
+    a.merge(b)
+    assert a.join_payload is None and a.cost == {"buildRows": 3, "probeRows": 5}

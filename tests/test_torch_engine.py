@@ -232,10 +232,18 @@ def test_shapes_outside_the_slice_raise(pql):
 
 
 def test_joins_raise():
-    """Joins are the one query shape the port does not run yet."""
+    """A join runs through ``execute_join`` from a server's join phase
+    (``tests/test_torch_join*.py``); a join request that reaches
+    ``execute`` without one no longer raises: it gets the reference
+    executor's answer (here a scan of the left table, since no right-side
+    column is referenced and none prunes a segment)."""
     pql = "SELECT sum(f.l_quantity) FROM lineitem f JOIN shipmodes d ON f.l_shipmode = d.mode"
-    with pytest.raises(NotImplementedError, match="joins"):
-        QueryExecutor(device="cpu").execute(_port(SYNTHETIC), optimize_request(parse_pql(pql)))
+    got = QueryExecutor(device="cpu").execute(_port(SYNTHETIC), optimize_request(parse_pql(pql)))
+    req = ref_optimize(ref_parse(pql))
+    want = canonical_payload(req, RefExecutor().execute(SYNTHETIC, req))
+    port = strip_accounting(reduce_to_response(optimize_request(parse_pql(pql)), [got], []).to_json())
+    assert payloads_equivalent(port, want, rel_tol=1e-9, abs_tol=2e-5), (port, want)
+    assert got.num_docs_scanned == sum(s.num_docs for s in SYNTHETIC)
 
 
 @pytest.mark.parametrize("seed,rows", [(7, 1000), (11, 4096), (23, 0)])

@@ -61,6 +61,23 @@ served = broker.handle_pql(Q1)
 assert not served.exceptions, served.exceptions
 assert served.aggregation_results[3].group_by_result == groups
 assert server.status()["lane"]["dispatches"] == 1
+# a join through the same broker: SSB lineorder / date, every strategy
+from pinot_tpu_torch.tools.datagen import ssb_date_segment, ssb_lineorder_segment
+
+for p in range(2):
+    server.add_segment("lineorder", ssb_lineorder_segment(3000, p, 2, 1000, seed=p))
+server.add_segment("date", ssb_date_segment())
+routing.update("lineorder", {f"lineorder_p{p}": {"iso": "ONLINE"} for p in range(2)})
+routing.update("date", {"date_0": {"iso": "ONLINE"}})
+JOIN = ("SELECT count(*), sum(l.lo_revenue) FROM lineorder l JOIN date d "
+        "ON l.lo_orderdate = d.d_datekey WHERE d.d_year = 1993")
+counts = set()
+for strategy in ("broadcast", "shuffle"):
+    joined = broker.handle_pql(JOIN, debug_options={"joinStrategy": strategy})
+    assert not joined.exceptions, joined.exceptions
+    assert "deviceBytes" in joined.cost, joined.cost
+    counts.add(joined.aggregation_results[0].value)
+assert len(counts) == 1 and int(counts.pop()) > 0
 broker.shutdown()
 tcp.stop()
 server.shutdown()

@@ -15,6 +15,8 @@ package.
 - A port server serves behind the reference ``Controller``: the
   control-plane JSON is the reference's.
 - A segment whose stored copy fails its CRC is not served.
+- A join over the networked cluster, its tables' partitioning given
+  through ``AddTable``, colocates and equals the reference executor.
 Every wait has a deadline.
 """
 import json
@@ -367,3 +369,49 @@ def test_in_process_starter_heals_a_corrupt_local_copy_and_drops_on_delete(tmp_p
         assert not ctrl.store.exists("testTable_OFFLINE", "good0")
     finally:
         server.shutdown()
+
+
+def test_a_join_over_the_networked_cluster_colocates(cluster, tmp_path):
+    """factT / dimT of tests/test_join.py, partitioned on ``k`` through the
+    ``partitioning`` block of the configs ``AddTable`` posts (dimT on both
+    servers): the networked broker learns the partitioning from the
+    cluster state, colocates the join over HTTP, and answers as the
+    reference executor does over the same segments."""
+    from pinot_tpu.engine import join as rjm
+    from pinot_tpu_torch.common.tableconfig import PartitionConfig
+    from pinot_tpu_torch.tools import admin
+    from test_torch_join_cluster import FACT, DIM, NPART, _dim_schema, _fact_schema, _segments
+
+    _, http, _, broker = cluster
+    tables = _segments(FACT, DIM, prefix="net")
+    for name, replication in (("netfactT", 1), ("netdimT", 2)):
+        schema = (_fact_schema if "fact" in name else _dim_schema)(name)
+        _post(http.url + "/schemas", json.dumps(schema.to_json()).encode())
+        config = TableConfig(name, replication=replication, partitioning=PartitionConfig("k", NPART))
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps(config.to_json()))
+        admin.main(["AddTable", "-controller", http.url, "-config-file", str(path)])
+    for table, segs in tables.items():
+        for s in segs:
+            _post(f"{http.url}/segments/{table}",
+                  _segment_bytes(segment_from_arrays(**segment_arrays_of(s)), str(tmp_path)),
+                  "application/octet-stream")
+        _wait(lambda: _all_online(broker.handler.routing.view_of(table) or {}, NPART), f"{table} ONLINE")
+    _wait(lambda: broker.handler.joinplan.partitions.get("netdimT_OFFLINE") == ("k", NPART),
+          "the broker's partitioning")
+    pql = ("SELECT sum(f.v), count(*), max(d.w) FROM netfactT f JOIN netdimT d ON f.k = d.k "
+           "WHERE d.cat <> 'c4' GROUP BY d.cat TOP 10")
+    colocated = broker.handler.metrics.meter("join.strategy.colocated").count
+    got = _broker_answer(broker, pql)
+    assert broker.handler.metrics.meter("join.strategy.colocated").count == colocated + 1
+
+    req = ref_optimize(ref_parse(pql))
+    spec = req.join
+    left_f, right_f = rjm.split_join_filter(req)
+    left_cols, right_cols = rjm.side_columns(req)
+    build, _ = rjm.extract_side(tables["netdimT_OFFLINE"], right_f, spec.right_key,
+                                [spec.strip_right(c) for c in right_cols],
+                                {spec.strip_right(c): c for c in right_cols})
+    probe, _ = rjm.extract_side(tables["netfactT_OFFLINE"], left_f, spec.left_key, left_cols)
+    want = canonical_payload(req, RefExecutor().execute_join(req, build, probe))
+    assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (got, want)
