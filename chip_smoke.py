@@ -77,6 +77,29 @@ QueryExecutor.execute -> reduce_to_response on one card:
      p99, ssb_q1_1 forced to shuffle, the join cost keys); then a
      deployed cluster (role processes, partitioning through AddTable,
      ssb_q2_1 colocated over HTTP);
+ 12. star-tree tables, the reference's two cube configurations
+     (pinot_tpu/tools/startree_scale.py:81-127) at full size:
+     baseball_cube (8 x 2^23 = 67,108,864 baseballStats rows,
+     StarTreeBuilderConfig defaults) and adevents_hll_cube (phase 4's 4
+     distinct ad-events segments tiled to 16, one tree per distinct
+     segment: split campaign_id, site_id, HLL registers of user_id, 64
+     records a leaf): the tree builds on the host (seconds and cube rows
+     per segment); sum / count by teamID, filtered by league and yearID,
+     and the north-star HLL, from the cube (host clock, median of 20)
+     and from K1 / K2 with the trees detached (CUDA events, median of
+     20), each against a host oracle and the two against each other (HLL
+     and counts identical, sums in the audit band); a max() that is not
+     star-fit falls back to K1; a mixed table (trees on half the
+     segments) merging the cube's partials with the card's, with the
+     staged bytes before and after; the trees written as segment files,
+     read back equal and served by two port servers behind the broker
+     over TCP (broker p50 / p99 over 50 requests, the cube table and a
+     mixed one); ``python -m pinot_tpu_torch.tools.admin CreateSegment
+     -startree`` on a 10,000-row CSV and JSONL and ``ShowSegment``, the
+     built segment answering against an oracle of the rows; and the
+     repairs: EXPLAIN refused by the broker with no request sent and no
+     launch, and a time filter past every ad-events segment pruned to the
+     empty shapes with no launch;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -95,11 +118,12 @@ versions, the torch ops that build their inputs, the one PyTorch call
 that computes K2's function, and the pair sort-dedup with both fetches of
 its buffers.
 
-    python3 chip_smoke.py [--out results.json] [--profile | --kernels-only | --joins-only]
+    python3 chip_smoke.py [--out results.json] [--profile | --kernels-only | --joins-only | --startree-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
-``--joins-only`` runs the build, the kernel checks and phase 11 alone.
+``--joins-only`` runs the build, the kernel checks and phase 11 alone,
+``--startree-only`` phase 12 alone.
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -109,6 +133,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import concurrent.futures
 import json
 import math
 import os
@@ -1975,24 +2000,29 @@ class _Fleet:
     """Port servers on ``dev``, each on a TcpServer on localhost, behind a
     port broker whose transport counts the reply bytes."""
 
-    def __init__(self, dev, cover: Dict[str, list], **server_kw) -> None:
+    def __init__(self, dev, cover: Dict[str, list], table: str = "lineitem", **server_kw) -> None:
         from pinot_tpu_torch.broker.broker import BrokerRequestHandler
         from pinot_tpu_torch.broker.routing import RoutingTableProvider
         from pinot_tpu_torch.server.instance import ServerInstance
         from pinot_tpu_torch.transport.tcp import TcpServer, TcpTransport
 
         self.servers, self.tcp = {}, {}
-        for name, segs in cover.items():
+        for name in cover:
             server = self.servers[name] = ServerInstance(name, device=dev, precision="x32", **server_kw)
-            for seg in segs:
-                server.add_segment("lineitem", seg)
             self.tcp[name] = TcpServer(server.handle_request)
             self.tcp[name].start()
-        routing = RoutingTableProvider()
-        routing.update("lineitem", {s.segment_name: {n: "ONLINE"} for n, segs in cover.items() for s in segs})
+        self.routing = RoutingTableProvider()
+        self.add_table(table, cover)
         self.transport = CountingTransport(TcpTransport())
         self.broker = BrokerRequestHandler(self.transport, {n: t.address for n, t in self.tcp.items()},
-                                           routing=routing, timeout_ms=600_000)
+                                           routing=self.routing, timeout_ms=600_000)
+
+    def add_table(self, table: str, cover: Dict[str, list]) -> None:
+        """Each server's segments of ``table``, routed ONLINE."""
+        for name, segs in cover.items():
+            for seg in segs:
+                self.servers[name].add_segment(table, seg)
+        self.routing.update(table, {s.segment_name: {n: "ONLINE"} for n, segs in cover.items() for s in segs})
 
     def timers(self, name: str, last: int) -> List[float]:
         """The last ``last`` samples of a server phase timer, every server."""
@@ -3001,14 +3031,14 @@ def compare_join_outputs(name: str, plan, outs, plain) -> float:
     return err
 
 
-def k1_at_join(fg, kernel_mod, plan, q, name: str) -> dict:
-    """K1 at the join's launch shape (the {0, 1} match over the matched
-    lanes, the precombined key, the weight streams), captured from one
-    program run: against its plain version and the bound on this data."""
+def k1_captured(fg, label: str, run) -> dict:
+    """K1 at the shape a path hands it: its last launch in ``run()``,
+    captured, against its plain version in every tier that takes it, timed
+    (CUDA events) and beside its bound on this data."""
     captured: dict = {}
     restore = _capture(fg, "fused_filtered_groupby_sums", captured, "k1")
     try:
-        kernel_mod.run_join_kernel(plan, q)
+        run()
     finally:
         fg.fused_filtered_groupby_sums = restore
     names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
@@ -3022,13 +3052,24 @@ def k1_at_join(fg, kernel_mod, plan, q, name: str) -> dict:
     p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
     matched = int(fg.fused_filtered_groupby_sums(**args)[0])
     bound, bound_by, nbytes, ops = k1_bound(args, matched)
-    n = args["group_keys"].shape[1]
-    log(f"k1 join {name} (group_keys int32 [1, {n}], {{0, 1}} match, K={args['capacity']}, "
-        f"nv={len(args['value_raws'])}, tier {tier}, {matched} lanes matched): {k_ms:.4f} ms (bound {bound:.4f} ms "
-        f"by {bound_by}: {nbytes} bytes, {ops} operations; {bound / k_ms:.3f} of the bound), plain {p_ms:.4f} ms, "
-        f"tiers checked {tiers}, max_abs_err {err:.6g}")
+    form = "group_keys" if args["group_keys"] is not None else "group_cols"
+    lead = next(t for t in (args["group_keys"], *(args["group_cols"] or ()), args["filter_fwd"],
+                            *args["value_fwds"], *args["value_raws"]) if t is not None)
+    filt = "none" if args["filter_fwd"] is None else ("match" if args["match"] is not None else "interval")
+    log(f"k1 {label} ({form} {str(lead.dtype).replace('torch.', '')} {list(lead.shape)}, filter {filt}, "
+        f"K={args['capacity']}, nv={len(args['value_raws'])}, tier {tier}, {matched} rows matched): {k_ms:.4f} ms "
+        f"(bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; {bound / k_ms:.3f} of the bound), "
+        f"plain {p_ms:.4f} ms, tiers checked {tiers}, max_abs_err {err:.6g}")
     return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
-                tier=tier, shape=[1, n], capacity=args["capacity"], matched=matched, max_abs_err=err)
+                tier=tier, tiers=tiers, shape=list(lead.shape), key_form=form, filter=filt,
+                capacity=args["capacity"], matched=matched, max_abs_err=err)
+
+
+def k1_at_join(fg, kernel_mod, plan, q, name: str) -> dict:
+    """K1 at the join's launch shape (the {0, 1} match over the matched
+    lanes, the precombined key, the weight streams), captured from one
+    program run."""
+    return k1_captured(fg, f"join {name}", lambda: kernel_mod.run_join_kernel(plan, q))
 
 
 def join_serve_phase(dev, ssb, wants, record) -> None:
@@ -3187,6 +3228,537 @@ def deployed_join_phase(ssb, wants, record) -> None:
         raise AssertionError(f"deployed joins: a role did not exit cleanly {codes}")
 
 
+# ---------------------------------------------------------------------------
+# 12. star-tree tables: the reference's two cube configurations
+# (pinot_tpu/tools/startree_scale.py:81-127, STARTREE_SCALE_r5.json) at
+# full size
+# ---------------------------------------------------------------------------
+
+ST_BASEBALL_SEGMENTS = 8  # 8 x 2^23 = 67,108,864 baseballStats rows
+ST_BASEBALL_SEED = 200  # segment i draws from seed 200 + i
+ST_ITERS = 20  # timed runs per cube / scan median
+ST_SERVE_ITERS = 50  # broker requests per served query, after warm-up
+ST_CLI_ROWS = 10_000
+ST_QUERIES = {
+    "bb_cube": "SELECT sum(runs), count(*) FROM baseballStats GROUP BY teamID TOP 20",
+    "bb_cube_filtered": ("SELECT sum(runs), count(*) FROM baseballStats WHERE league = 'AL' "
+                         "AND yearID BETWEEN 1990 AND 2005 GROUP BY teamID TOP 20"),
+    "bb_not_fit": "SELECT max(runs), count(*) FROM baseballStats GROUP BY teamID TOP 20",
+}
+ST_FIT = ("bb_cube", "bb_cube_filtered", "ns_cube")
+# adevents_hll_cube: one tree per distinct ad-events segment
+ST_AD_CONFIG = dict(split_order=["campaign_id", "site_id"], hll_columns=["user_id"], max_leaf_records=64)
+ST_PRUNED = {  # past every segment's event_time range: the time pruner drops them all
+    "pruned_count": "SELECT count(*) FROM adevents WHERE event_time > 1800000000000",
+    "pruned_select": "SELECT * FROM adevents WHERE event_time > 1800000000000 LIMIT 5",
+}
+ST_EXPLAIN = ("EXPLAIN SELECT sum(runs) FROM baseballStats GROUP BY teamID TOP 20",
+              "EXPLAIN PLAN FOR SELECT count(*) FROM baseballStats",
+              "EXPLAIN ANALYZE SELECT sum(runs), count(*) FROM baseballStats GROUP BY teamID TOP 20")
+
+
+def baseball_oracle(segments, name: str) -> Dict[Tuple[str, ...], Dict[str, float]]:
+    """{(teamID,): {"count", "sum_runs", "max_runs"}} in float64 numpy
+    over the host segments, independently of the engine and the cube."""
+    acc: Dict[Tuple[str, ...], Dict[str, float]] = {}
+    for seg in segments:
+        team, runs = seg.column("teamID"), seg.column("runs")
+        mask = np.ones(seg.num_docs, dtype=bool)
+        if name == "bb_cube_filtered":
+            lg, yr = seg.column("league"), seg.column("yearID")
+            years = np.asarray(yr.dictionary.values)[yr.fwd]
+            mask = (np.asarray(lg.dictionary.values, dtype=object) == "AL")[lg.fwd]
+            mask &= (years >= 1990) & (years <= 2005)
+        k, r = team.fwd[mask].astype(np.int64), runs.fwd[mask].astype(np.int64)
+        values = np.asarray(runs.dictionary.values, dtype=np.float64)
+        n_t, n_r = team.dictionary.cardinality, runs.dictionary.cardinality
+        cnt = np.bincount(k, minlength=n_t)
+        tot = np.bincount(k, weights=values[r], minlength=n_t)
+        hit = np.bincount(k * n_r + r, minlength=n_t * n_r).reshape(n_t, n_r) > 0
+        for t, lab in enumerate(team.dictionary.values):
+            if cnt[t]:
+                e = acc.setdefault((lab,), {"count": 0, "sum_runs": 0.0, "max_runs": -math.inf})
+                e["count"] += int(cnt[t])
+                e["sum_runs"] += float(tot[t])
+                e["max_runs"] = max(e["max_runs"], float(values[np.nonzero(hit[t])[0][-1]]))
+    return acc
+
+
+def rows_oracle(rows: List[dict], name: str) -> Dict[Tuple[str, ...], Dict[str, float]]:
+    """``baseball_oracle`` over plain rows (the CLI's input, before any build)."""
+    acc: Dict[Tuple[str, ...], Dict[str, float]] = {}
+    for r in rows:
+        if name == "bb_cube_filtered" and not (r["league"] == "AL" and 1990 <= r["yearID"] <= 2005):
+            continue
+        e = acc.setdefault((r["teamID"],), {"count": 0, "sum_runs": 0.0, "max_runs": -math.inf})
+        e["count"] += 1
+        e["sum_runs"] += float(r["runs"])
+        e["max_runs"] = max(e["max_runs"], float(r["runs"]))
+    return acc
+
+
+def _trees_equal(a, b) -> bool:
+    return (a.split_order == b.split_order and np.array_equal(a.dims, b.dims)
+            and np.array_equal(a.sums, b.sums) and np.array_equal(a.counts, b.counts)
+            and json.dumps(a.root.to_json()) == json.dumps(b.root.to_json())
+            and sorted(a.hll_registers) == sorted(b.hll_registers)
+            and all(np.array_equal(a.hll_registers[c], b.hll_registers[c]) for c in a.hll_registers))
+
+
+def _detach(segments) -> list:
+    """Each segment's tree, set to None on the segment (``_attach`` undoes it)."""
+    trees = [getattr(s, "star_tree", None) for s in segments]
+    for s in segments:
+        s.star_tree = None
+    return trees
+
+
+def _attach(segments, trees) -> None:
+    for s, t in zip(segments, trees):
+        s.star_tree = t
+
+
+def host_ms(fn, iters: int) -> Tuple[float, List[float]]:
+    """Median ms of ``iters`` calls on the host clock, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(iters):
+        t = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(times)), times
+
+
+def cube_profile(executor_mod, ex, segs, req, iters: int) -> dict:
+    """Where a cube query's host time goes: the per-segment operator
+    (``execute_star_tree``: traversal, cube-row gathers, group states)
+    against the rest of ``execute`` (the merge of the partials) and the
+    broker reduce, medians of ``iters`` on the host clock; then the
+    functions of one call under cProfile by their own time."""
+    import cProfile
+    import pstats
+
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+
+    real, spent = executor_mod.execute_star_tree, []
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            spent.append(time.perf_counter() - t)
+
+    parts: Dict[str, List[float]] = {"operator_ms": [], "merge_ms": [], "reduce_ms": []}
+    executor_mod.execute_star_tree = timed
+    try:
+        for _ in range(iters):
+            spent.clear()
+            t0 = time.perf_counter()
+            res = ex.execute(segs, req)
+            t1 = time.perf_counter()
+            reduce_to_response(req, [res])
+            t2 = time.perf_counter()
+            parts["operator_ms"].append(sum(spent) * 1e3)
+            parts["merge_ms"].append((t1 - t0 - sum(spent)) * 1e3)
+            parts["reduce_ms"].append((t2 - t1) * 1e3)
+    finally:
+        executor_mod.execute_star_tree = real
+    prof = cProfile.Profile()
+    prof.enable()
+    reduce_to_response(req, [ex.execute(segs, req)])
+    prof.disable()
+    rows = [(v[2] * 1e3, v[3] * 1e3, v[1], f"{os.path.basename(fn)}:{line}({fname})")
+            for (fn, line, fname), v in pstats.Stats(prof).stats.items()]
+    total = sum(r[0] for r in rows)
+    top = [dict(fn=r[3], own_ms=r[0], cum_ms=r[1], calls=r[2]) for r in sorted(rows, reverse=True)[:10]]
+    return {**{k: float(np.median(v)) for k, v in parts.items()}, "profiled_ms": total, "top_own": top}
+
+
+def _plain_copy(seg, name: str):
+    """A segment of the same column arrays under ``name``, with no tree."""
+    import dataclasses
+
+    from pinot_tpu_torch.segment.immutable import ImmutableSegment
+
+    return ImmutableSegment(metadata=dataclasses.replace(seg.metadata, segment_name=name), columns=seg.columns)
+
+
+def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None:
+    """12. baseball_cube (8 x 2^23 rows, StarTreeBuilderConfig defaults) and
+    adevents_hll_cube (phase 4's 4 distinct ad-events segments tiled to 16,
+    one tree per distinct segment): the builds, every query from the cube
+    and from K1 / K2 with the trees detached, a mixed table, the files
+    served over TCP, the CLI's row builder, and the pruner / EXPLAIN
+    repairs.  ``ad_distinct`` / ``ns_want``: phase 4's segments and
+    north-star oracle, made here when None."""
+    import csv
+
+    from pinot_tpu_torch.common.response import ErrorCode
+    from pinot_tpu_torch.engine import executor as executor_mod
+    from pinot_tpu_torch.engine import hll as hll_mod
+    from pinot_tpu_torch.engine.executor import QueryExecutor
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.segment.format import read_segment, write_segment
+    from pinot_tpu_torch.startree import StarTreeBuilderConfig, build_star_tree
+    from pinot_tpu_torch.tools.datagen import (
+        adevents_schema,
+        baseball_rows,
+        baseball_schema,
+        synthetic_adevents_segment,
+        synthetic_baseball_segment,
+        tile_segments,
+    )
+
+    parse = lambda pql: optimize_request(parse_pql(pql))  # noqa: E731
+    paths = record.setdefault("paths", {})
+    rec = record["startree"] = {"cpu_count": os.cpu_count()}
+
+    # 12.1 the data and the tree builds (host numpy)
+    t0 = time.perf_counter()
+    bb = [synthetic_baseball_segment(ROWS_PER_SEGMENT, seed=ST_BASEBALL_SEED + i, name=f"bb{i}")
+          for i in range(ST_BASEBALL_SEGMENTS)]
+    if ad_distinct is None:
+        ad_distinct = [synthetic_adevents_segment(ROWS_PER_SEGMENT, seed=7 + i, name=f"ad{i}",
+                                                  campaign_card=AD_CAMPAIGNS, user_card=AD_USERS)
+                       for i in range(AD_DISTINCT)]
+        for s in ad_distinct:  # the per-dictionary hashing, outside the timed builds
+            hll_mod.dictionary_tables(s.column("user_id").dictionary)
+    ad = tile_segments(ad_distinct, SEGMENTS)
+    log(f"startree datagen: baseball {ST_BASEBALL_SEGMENTS} x {ROWS_PER_SEGMENT} rows, ad-events {AD_DISTINCT} "
+        f"distinct tiled to {SEGMENTS}, in {time.perf_counter() - t0:.1f} s")
+    builds = {}
+    for config, segs, schema, cfg in (
+        ("baseball_cube", bb, baseball_schema(), StarTreeBuilderConfig()),
+        ("adevents_hll_cube", ad_distinct, adevents_schema(), StarTreeBuilderConfig(**ST_AD_CONFIG)),
+    ):
+        secs, cube_rows = [], []
+        for s in segs:
+            t = time.perf_counter()
+            build_star_tree(s, schema, cfg)
+            secs.append(time.perf_counter() - t)
+            cube_rows.append(s.star_tree.num_records)
+        builds[config] = {"build_s": secs, "cube_rows": cube_rows, "raw_rows": ROWS_PER_SEGMENT,
+                          "split_order": segs[0].star_tree.split_order}
+        log(f"startree build {config}: {[round(x, 3) for x in secs]} s per segment (median "
+            f"{float(np.median(secs)):.3f}) on the host ({os.cpu_count()} CPUs), cube rows per segment "
+            f"{cube_rows} of {ROWS_PER_SEGMENT} raw, split order {segs[0].star_tree.split_order}")
+    # a tile shares its base segment's column arrays (tile_segments), so the
+    # base's tree is a sound tree of the tile: each tile gets its base's
+    for i, s in enumerate(ad):
+        s.star_tree = ad_distinct[i % AD_DISTINCT].star_tree
+    rec["build"] = builds
+
+    # 12.2 every query from the cube, then from K1 / K2 with the trees detached
+    tables = {"bb_cube": bb, "bb_cube_filtered": bb, "bb_not_fit": bb, "ns_cube": ad}
+    reqs = {k: parse(v) for k, v in {**ST_QUERIES, "ns_cube": NORTH_STAR}.items()}
+    t0 = time.perf_counter()
+    wants = {k: baseball_oracle(bb, k) for k in ST_QUERIES}
+    wants["ns_cube"] = ns_want if ns_want is not None else north_star_oracle(hll_mod, ad)
+    log(f"startree oracles: {time.perf_counter() - t0:.1f} s")
+
+    def check(label: str, name: str, resp, want=None) -> float:
+        want = wants[name] if want is None else want
+        if resp.exceptions:
+            raise AssertionError(f"{label}: {[e.to_json() for e in resp.exceptions]}")
+        if name == "ns_cube":
+            check_value_response(resp, want)
+            return 0.0
+        return check_response(resp, want)
+
+    def run_path(path: str, names, ex, segs_of=None, pqls=None) -> Dict[str, Any]:
+        """One run of each query, every launch count 0 just before and read
+        just after: {name: (partial, response)}."""
+        fg.launches = 0
+        vsc.launches = 0
+        per, out = {}, {}
+        t = time.perf_counter()
+        for name in names:
+            k1, k2 = fg.launches, vsc.launches
+            req = parse(pqls[name]) if pqls else reqs[name]
+            res = ex.execute((segs_of or tables)[name], req)
+            out[name] = (res, reduce_to_response(req, [res]))
+            per[name] = {"k1": fg.launches - k1, "k2": vsc.launches - k2}
+        torch.cuda.synchronize()
+        totals = {"k1": fg.launches, "k2": vsc.launches}
+        paths[path] = {"launches": per, "totals": totals, "wall_s": time.perf_counter() - t}
+        log(f"path {path}: launches per query {per}, total {totals}")
+        return out
+
+    ex = QueryExecutor(device=dev, precision="x32")
+    cube = run_path("startree_cube", ["bb_cube", "bb_cube_filtered", "ns_cube", "bb_not_fit"], ex)
+    rec["queries"] = {}
+    for name, (res, resp) in cube.items():
+        n_segs = len(tables[name])
+        worst = check(f"cube {name}", name, resp)
+        if name in ST_FIT:
+            if res._served_tier != "starTree" or res.cost.get("segmentsStarTree") != n_segs \
+                    or paths["startree_cube"]["launches"][name] != {"k1": 0, "k2": 0}:
+                raise AssertionError(f"cube {name}: tier {res._served_tier}, cost {res.cost}, launches "
+                                     f"{paths['startree_cube']['launches'][name]}")
+        else:  # max() is not star-fit: the scan serves it, through K1
+            require_launch(f"cube {name}", paths["startree_cube"]["launches"][name], "k1")
+            if res._served_tier != "device" or res.cost.get("segmentsStarTree"):
+                raise AssertionError(f"cube {name}: tier {res._served_tier}, cost {res.cost}")
+        rec["queries"][name] = {"cube_docs_scanned": res.num_docs_scanned, "cube_max_rel_err": worst,
+                                "cube_cost": dict(res.cost)}
+        log(f"startree {name} from the {res._served_tier} tier: equal to its oracle (max rel sum err "
+            f"{worst:.3g}), numDocsScanned {res.num_docs_scanned} of {res.total_docs}, cost {res.cost}")
+    for name in ST_FIT:
+        segs, req = tables[name], reqs[name]
+        ms, _ = host_ms(lambda: reduce_to_response(req, [ex.execute(segs, req)]), ST_ITERS)
+        rec["queries"][name]["cube_ms"] = ms
+        prof = rec["queries"][name]["cube_profile"] = cube_profile(executor_mod, ex, segs, req, ST_ITERS)
+        log(f"startree {name} cube host time (medians of {ST_ITERS}): execute_star_tree over {len(segs)} segments "
+            f"{prof['operator_ms']:.3f} ms, the rest of execute (the merge of the partials) {prof['merge_ms']:.3f} "
+            f"ms, broker reduce {prof['reduce_ms']:.3f} ms; one call under cProfile {prof['profiled_ms']:.3f} ms, "
+            f"by own time:")
+        for r in prof["top_own"]:
+            log(f"  {r['own_ms']:9.3f} ms own {r['cum_ms']:9.3f} ms cumulative {r['calls']:7d} calls  {r['fn']}")
+    # K1 at the shapes only this phase hands it, each against its plain
+    # version: the max() fallback over the 8 baseball segments
+    rec["k1"] = {"bb_not_fit": dict(k1_captured(fg, "startree bb_not_fit",
+                                                lambda: ex.execute(bb, reqs["bb_not_fit"])),
+                                    path="startree_cube",
+                                    launches=paths["startree_cube"]["launches"]["bb_not_fit"]["k1"])}
+    saved_bb, saved_ad = _detach(bb), _detach(ad)
+    try:
+        scan = run_path("startree_scan", list(ST_FIT), ex)
+        for name in ST_FIT:
+            res, resp = scan[name]
+            require_launch(f"scan {name}", paths["startree_scan"]["launches"][name], "k1")
+            if res._served_tier != "device" or res.cost.get("segmentsStarTree"):
+                raise AssertionError(f"scan {name}: tier {res._served_tier}, cost {res.cost}")
+            worst = check(f"scan {name}", name, resp)
+            cube_resp = cube[name][1]
+            if name == "ns_cube":  # the cube's registers are the max over the same raw rows
+                same = [a.to_json() for a in resp.aggregation_results] == \
+                    [a.to_json() for a in cube_resp.aggregation_results]
+                if not same:
+                    raise AssertionError("ns_cube: the cube's HLL answer differs from the scan's")
+            else:  # counts exact, sums in the audit band
+                check_response(resp, response_as_want(cube_resp))
+            segs, req = tables[name], reqs[name]
+            ms, _ = cuda_ms(lambda: reduce_to_response(req, [ex.execute(segs, req)]), ST_ITERS)
+            q = rec["queries"][name]
+            q.update(scan_ms=ms, scan_docs_scanned=res.num_docs_scanned, scan_max_rel_err=worst,
+                     launches=paths["startree_scan"]["launches"][name])
+            log(f"startree {name}: cube {q['cube_ms']:.3f} ms (host clock, median of {ST_ITERS}) over "
+                f"{q['cube_docs_scanned']} cube rows; scan {ms:.3f} ms (CUDA events, median of {ST_ITERS}) "
+                f"over {res.num_docs_scanned} rows, launches {q['launches']}; scan / cube "
+                f"{ms / q['cube_ms']:.3f}; the answers agree (HLL and counts exact, sums in the audit band)")
+            if name != "ns_cube":  # ns_cube's scan is phase 4's north_star shape
+                rec["k1"][f"scan {name}"] = dict(k1_captured(fg, f"startree scan {name}",
+                                                             lambda: ex.execute(segs, req)),
+                                                 path="startree_scan", launches=q["launches"]["k1"])
+        rec["staged_bytes_scan"] = ex.staged_bytes()
+    finally:
+        _attach(bb, saved_bb)
+        _attach(ad, saved_ad)
+    ex.free_staging()
+    del ex
+    torch.cuda.empty_cache()
+
+    # 12.3 a mixed table: trees on half the segments; the cube's partials
+    # merge with K1's / K2's from the card
+    mex = QueryExecutor(device=dev, precision="x32")
+    half_bb, half_ad = _detach(bb[len(bb) // 2:]), _detach(ad[len(ad) // 2:])
+    try:
+        run_path("startree_mixed_full", ["bb_not_fit"], mex)  # stages all 8 baseball segments
+        staged_full = mex.staged_bytes()
+        mixed = run_path("startree_mixed", list(ST_FIT), mex)
+        staged_after = mex.staged_bytes()
+        # each staged table: (segments, columns, bytes); the star-fit
+        # queries stage their plain halves as tables of their own
+        tables_staged = sorted((len(key[0]), list(key[1]), st.nbytes()) for key, st in mex._staged.items())
+        for name, (res, resp) in mixed.items():
+            n = len(tables[name])
+            require_launch(f"mixed {name}", paths["startree_mixed"]["launches"][name], "k1")
+            tiers = {k: v for k, v in res.cost.items() if k.startswith("segments")}
+            if tiers.get("segmentsStarTree") != n // 2 or sum(tiers.values()) != n:
+                raise AssertionError(f"mixed {name}: tiers {tiers} over {n} live segments")
+            worst = check(f"mixed {name}", name, resp)
+            rec["queries"][name]["mixed"] = {"tiers": tiers, "docs_scanned": res.num_docs_scanned,
+                                             "max_rel_err": worst}
+            log(f"startree mixed {name}: cube and scan partials merged, tiers {tiers} over {n} live segments, "
+                f"equal to its oracle (max rel sum err {worst:.3g})")
+        # K1 over the plain halves: 4 baseball segments, 8 ad-events tiles
+        for name in ST_FIT:
+            rec["k1"][f"mixed {name}"] = dict(
+                k1_captured(fg, f"startree mixed {name}", lambda: mex.execute(tables[name], reqs[name])),
+                path="startree_mixed", launches=paths["startree_mixed"]["launches"][name]["k1"])
+        rec["mixed_staged_bytes"] = {"full_set": staged_full, "with_the_split_subsets": staged_after,
+                                     "tables": tables_staged}
+        log(f"startree mixed staging: {staged_full} bytes with the 8 baseball segments staged for bb_not_fit, "
+            f"{staged_after} after the star-fit queries staged their plain halves (+{staged_after - staged_full}); "
+            f"staged tables (segments, columns, bytes) {tables_staged}")
+    finally:
+        _attach(bb[len(bb) // 2:], half_bb)
+        _attach(ad[len(ad) // 2:], half_ad)
+    mex.free_staging()
+    del mex
+    torch.cuda.empty_cache()
+
+    # 12.4 the star-tree files, read back and served by two port servers
+    # behind the port broker over TCP
+    tmp = tempfile.mkdtemp(prefix="startree_")
+    fleet = None
+    try:
+        # one file a thread: the bit packing and unpacking run in numpy
+        with concurrent.futures.ThreadPoolExecutor(len(bb)) as pool:
+            t = time.perf_counter()
+            files = list(pool.map(lambda s: write_segment(s, os.path.join(tmp, s.segment_name)), bb))
+            write_s = time.perf_counter() - t
+            t = time.perf_counter()
+            loaded = list(pool.map(read_segment, files))
+            read_s = time.perf_counter() - t
+        for a, b in zip(loaded, bb):
+            if not _trees_equal(a.star_tree, b.star_tree):
+                raise AssertionError(f"startree file {b.segment_name}: the tree read back differs")
+        nbytes = sum(os.path.getsize(p) for p in files)
+        log(f"startree files: {len(files)} written in {write_s:.1f} s ({nbytes} bytes), read back in "
+            f"{read_s:.1f} s (one thread a file), every tree equal to the one written")
+        rec["files"] = {"write_s": write_s, "read_s": read_s, "bytes": nbytes}
+        half = len(loaded) // 2
+        fleet = _Fleet(dev, {"server0": loaded[:half], "server1": loaded[half:]}, table="baseballStats")
+        # baseballMixed: on each server half its files with their trees,
+        # half as tree-less segments of the same arrays
+        fleet.add_table("baseballMixed", {
+            n: segs[:len(segs) // 2] + [_plain_copy(s, f"{s.segment_name}_plain") for s in segs[len(segs) // 2:]]
+            for n, segs in (("server0", loaded[:half]), ("server1", loaded[half:]))})
+        served = {"bb_cube": ST_QUERIES["bb_cube"],
+                  "bb_mixed": ST_QUERIES["bb_cube"].replace("FROM baseballStats", "FROM baseballMixed")}
+        fg.launches = 0
+        vsc.launches = 0
+        per = {}
+        for name, pql in served.items():
+            k1 = fg.launches
+            resp = fleet.broker.handle_pql(pql)
+            per[name] = {"k1": fg.launches - k1, "k2": 0}
+            check(f"serve {name}", "bb_cube", resp)
+            star = resp.cost.get("segmentsStarTree")
+            if (name == "bb_cube" and (star != len(bb) or per[name]["k1"])) or \
+                    (name == "bb_mixed" and (star != len(bb) // 2 or not per[name]["k1"])):
+                raise AssertionError(f"serve {name}: cost {resp.cost}, launches {per[name]}")
+        torch.cuda.synchronize()
+        paths["startree_serving"] = {"launches": per, "totals": {"k1": fg.launches, "k2": vsc.launches}}
+        log(f"path startree_serving: launches per query {per}; both answers equal to the oracle")
+        rec["serving"] = {}
+        for name, pql in served.items():
+            for _ in range(SERVE_WARMUP):
+                fleet.broker.handle_pql(pql)
+            broker_ms = []
+            for _ in range(ST_SERVE_ITERS):
+                resp = fleet.broker.handle_pql(pql)
+                broker_ms.append(resp.time_used_ms)
+            check(f"serve {name}", "bb_cube", resp)
+            q = {"p50_ms": float(np.percentile(broker_ms, 50)), "p99_ms": float(np.percentile(broker_ms, 99)),
+                 "cost": dict(resp.cost)}
+            rec["serving"][name] = q
+            log(f"serve startree {name}: broker p50 {q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over "
+                f"{ST_SERVE_ITERS} requests, cost {resp.cost}")
+
+        # the EXPLAIN repair: a typed refusal from the broker, no request
+        # reaches a server, no kernel launches
+        fg.launches = 0
+        vsc.launches = 0
+        replies = len(fleet.transport.reply_bytes)
+        for pql in ST_EXPLAIN:
+            resp = fleet.broker.handle_pql(pql)
+            codes = [e.error_code for e in resp.exceptions]
+            if codes != [ErrorCode.QUERY_VALIDATION] or "item 24" not in resp.exceptions[0].message \
+                    or resp.aggregation_results or resp.selection_results:
+                raise AssertionError(f"explain {pql!r}: {resp.to_json()}")
+        if fg.launches or vsc.launches or len(fleet.transport.reply_bytes) != replies:
+            raise AssertionError(f"explain: {fg.launches} / {vsc.launches} launches, "
+                                 f"{len(fleet.transport.reply_bytes) - replies} server replies")
+        paths["startree_explain"] = {"launches": {}, "totals": {"k1": 0, "k2": 0}}
+        log(f"startree explain: {len(ST_EXPLAIN)} EXPLAIN forms refused with QUERY_VALIDATION (item 24) by the "
+            f"broker, no server request, no kernel launch")
+    finally:
+        if fleet is not None:
+            fleet.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 12.5 the CLI: CreateSegment -startree on a CSV and a JSONL of baseball
+    # rows, ShowSegment, and the phase's queries from the built segment
+    tmp = tempfile.mkdtemp(prefix="startree_cli_")
+    try:
+        rows = baseball_rows(ST_CLI_ROWS, seed=99)
+        schema_file = os.path.join(tmp, "schema.json")
+        with open(schema_file, "w") as f:
+            json.dump(baseball_schema().to_json(), f)
+        with open(os.path.join(tmp, "rows.csv"), "w", newline="") as f:
+            w = csv.DictWriter(f, fieldnames=list(rows[0]))
+            w.writeheader()
+            w.writerows(rows)
+        with open(os.path.join(tmp, "rows.jsonl"), "w") as f:
+            f.writelines(json.dumps(r) + "\n" for r in rows)
+        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+        def admin(*args) -> str:
+            p = subprocess.run([sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args], cwd=REPO_DIR,
+                               env=env, capture_output=True, text=True, timeout=600)
+            if p.returncode != 0:
+                raise AssertionError(f"admin {args[0]}: exit {p.returncode}\n{p.stdout[-2000:]}{p.stderr[-2000:]}")
+            return p.stdout
+
+        cex = QueryExecutor(device=dev, precision="x32")
+        rec["cli"] = {}
+        for fmt in ("csv", "jsonl"):
+            out_dir = os.path.join(tmp, f"bb_cli_{fmt}")
+            t = time.perf_counter()
+            said = admin("CreateSegment", "-schema-file", schema_file, "-data-file", os.path.join(tmp, f"rows.{fmt}"),
+                         "-table", "baseballStats", "-segment-name", f"bb_cli_{fmt}", "-out-dir", out_dir, "-startree")
+            create_s = time.perf_counter() - t
+            meta = json.loads(admin("ShowSegment", "-segment-dir", out_dir))
+            if meta["numDocs"] != ST_CLI_ROWS or "starTree" not in meta["custom"]:
+                raise AssertionError(f"cli {fmt}: ShowSegment {meta}")
+            seg = read_segment(out_dir)
+            out = run_path(f"startree_cli_{fmt}", list(ST_QUERIES), cex, segs_of={k: [seg] for k in ST_QUERIES})
+            for name, (res, resp) in out.items():
+                check(f"cli {fmt} {name}", name, resp, rows_oracle(rows, name))
+                fit = name in ST_FIT
+                if (res._served_tier == "starTree") != fit:
+                    raise AssertionError(f"cli {fmt} {name}: tier {res._served_tier}")
+            require_launch(f"cli {fmt} bb_not_fit", paths[f"startree_cli_{fmt}"]["launches"]["bb_not_fit"], "k1")
+            if fmt == "csv":  # K1 over the one 10,000-row segment (the JSONL build is the same shape)
+                rec["k1"]["cli bb_not_fit"] = dict(
+                    k1_captured(fg, "startree cli bb_not_fit", lambda: cex.execute([seg], reqs["bb_not_fit"])),
+                    path="startree_cli_csv", launches=paths["startree_cli_csv"]["launches"]["bb_not_fit"]["k1"])
+            rec["cli"][fmt] = {"create_s": create_s, "cube_rows": meta["custom"]["starTree"]["numRecords"]}
+            log(f"startree cli {fmt}: {said.strip()} in {create_s:.1f} s (process start included); ShowSegment "
+                f"{meta['numDocs']} docs, {meta['custom']['starTree']['numRecords']} cube rows; every query equal "
+                f"to the oracle of the rows")
+        del cex
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 12.6 the time pruner on the card: event_time is the ad-events
+    # table's time column; its [start, end] as the row builder stamps it
+    for s in ad:
+        d = s.column("event_time").dictionary
+        s.metadata.start_time, s.metadata.end_time = int(d.min_value), int(d.max_value)
+    pex = QueryExecutor(device=dev, precision="x32")
+    pruned = run_path("startree_pruned", list(ST_PRUNED), pex, segs_of={k: ad for k in ST_PRUNED}, pqls=ST_PRUNED)
+    for name, (res, resp) in pruned.items():
+        d = resp.to_json()
+        if res.cost != {"segmentsPruned": len(ad)} or d["numSegmentsQueried"] != 0 or pex.staged_bytes():
+            raise AssertionError(f"pruned {name}: cost {res.cost}, {d}")
+        if name == "pruned_count" and int(resp.aggregation_results[0].value) != 0:
+            raise AssertionError(f"pruned {name}: {d}")
+        if name == "pruned_select" and (d["selectionResults"]["columns"] or d["selectionResults"]["results"]):
+            raise AssertionError(f"pruned {name}: {d}")
+    if paths["startree_pruned"]["totals"] != {"k1": 0, "k2": 0}:
+        raise AssertionError(f"pruned: kernels launched {paths['startree_pruned']['totals']}")
+    log(f"startree pruned: {len(ST_PRUNED)} queries past every event_time range: segmentsPruned {len(ad)}, "
+        f"numSegmentsQueried 0, the empty shapes (count 0, no columns), nothing staged, no kernel launch")
+    for s in ad_distinct:
+        s.star_tree = None
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -3199,6 +3771,9 @@ def main(argv=None) -> int:
     ap.add_argument("--joins-only", action="store_true",
                     help="after the build and the kernel checks run only phase 11, the joins "
                     "(no result line)")
+    ap.add_argument("--startree-only", action="store_true",
+                    help="after the build and the kernel checks run only phase 12, the star-tree "
+                    "tables (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3270,11 +3845,14 @@ def run(dev: torch.device, opts) -> int:
     check_k2_empty(vsc, dev)
     log("k2 check empty input: zero holders in every mode, no launch")
     torch.cuda.synchronize()
-    if opts.joins_only:
-        ssb, join_wants = join_data()
-        join_phase(dev, ssb, join_wants, record, fg, vsc)
-        deployed_join_phase(ssb, join_wants, record)
-        log(f"joins only: done in {time.perf_counter() - t_start:.1f} s")
+    if opts.joins_only or opts.startree_only:
+        if opts.joins_only:
+            ssb, join_wants = join_data()
+            join_phase(dev, ssb, join_wants, record, fg, vsc)
+            deployed_join_phase(ssb, join_wants, record)
+        else:
+            startree_phase(dev, record, fg, vsc)
+        log(f"{'joins' if opts.joins_only else 'startree'} only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1)
@@ -3438,7 +4016,8 @@ def run(dev: torch.device, opts) -> int:
     ns = drive("north_star", {"north_star": ns_request}, ad_segments, {"north_star": ("k1",)})
     if record["paths"]["north_star"]["totals"]["k2"]:
         raise AssertionError("north_star: the sort lowering launched the value-state kernel")
-    check_value_response(ns["north_star"], north_star_oracle(hll_mod, ad_segments))
+    ns_want = north_star_oracle(hll_mod, ad_segments)
+    check_value_response(ns["north_star"], ns_want)
     log("oracle north_star: ok, exact")
 
     def segs_of(name: str):
@@ -4153,6 +4732,14 @@ def run(dev: torch.device, opts) -> int:
     deployed_join_phase(ssb, join_wants, record)
     log(f"joins phase: {time.perf_counter() - t0:.1f} s")
 
+    # 12. star-tree tables: baseball_cube and adevents_hll_cube (phase 4's
+    # ad-events segments), from the cube and from K1 / K2
+    t0 = time.perf_counter()
+    ex.free_staging()
+    torch.cuda.empty_cache()
+    startree_phase(dev, record, fg, vsc, ad_distinct=ad_distinct, ns_want=ns_want)
+    log(f"startree phase: {time.perf_counter() - t0:.1f} s")
+
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():
         for kern in launches:
@@ -4199,6 +4786,7 @@ def run(dev: torch.device, opts) -> int:
             "join_shape": {name: dict(record["joins"]["stages"][name]["k1"],
                                       launches=record["paths"]["joins"]["launches"][name]["k1"])
                            for name in JOIN_QUERIES if "k1" in record["joins"]["stages"][name]},
+            "startree_shape": record["startree"]["k1"],
         },
         {
             "name": "value_state_counts",

@@ -48,7 +48,7 @@ from pinot_tpu_torch.broker.joinplan import JoinCoordinator
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
 from pinot_tpu_torch.broker.time_boundary import TimeBoundaryService
 from pinot_tpu_torch.common.datatable import deserialize_result, serialize_instance_request
-from pinot_tpu_torch.common.request import BrokerRequest
+from pinot_tpu_torch.common.request import EXPLAIN_ITEM, BrokerRequest
 from pinot_tpu_torch.common.response import BrokerResponse, ErrorCode, QueryException
 from pinot_tpu_torch.engine.reduce import reduce_to_response
 from pinot_tpu_torch.engine.results import IntermediateResult
@@ -237,6 +237,13 @@ class BrokerRequestHandler:
             )
         timeout_ms = self.timeout_ms if timeout_ms is None else min(timeout_ms, self.timeout_ms)
         table = request.table_name
+        if request.explain is not None:
+            # no plan introspection yet: a typed refusal, and nothing is
+            # scattered to a server
+            return BrokerResponse(
+                exceptions=[QueryException(ErrorCode.QUERY_VALIDATION, EXPLAIN_ITEM)],
+                request_id=request_id,
+            )
         if request.join is not None:
             # a broker-planned distributed join: strategy choice and a
             # scatter-gather per phase

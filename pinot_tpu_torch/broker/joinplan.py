@@ -37,8 +37,8 @@ fair-share scheduler under its own table.
 
 The strategy size estimator learns table totals from every merged
 response (``TableStatsRegistry``) and measured build sizes after each
-join.  EXPLAIN of a join is item 24 of the port: ``_explain_shell``
-raises, and the broker answers QUERY_VALIDATION.
+join.  EXPLAIN, of a join as of a scan, is refused by the broker before
+it gets here (``common/request.EXPLAIN_ITEM``).
 """
 from __future__ import annotations
 
@@ -63,8 +63,6 @@ from pinot_tpu_torch.engine.results import IntermediateResult
 
 OFFLINE_SUFFIX = "_OFFLINE"
 REALTIME_SUFFIX = "_REALTIME"
-
-EXPLAIN_ITEM = "EXPLAIN of a join is item 24 of the port (ROADMAP queue 1)"
 
 
 def _raw(table: str) -> str:
@@ -186,11 +184,6 @@ class JoinCoordinator:
             )
         m = self.broker.metrics
         m.meter("join.queries").mark()
-        if request.explain is not None:
-            try:
-                self._explain_shell(request, request.explain)
-            except NotImplementedError as e:
-                return BrokerResponse(exceptions=[QueryException(ErrorCode.QUERY_VALIDATION, str(e))])
         colo = self._colocated_plan(left_phys, right_phys, spec)
 
         if forced == "colocated" and not colo["eligible"]:
@@ -315,11 +308,6 @@ class JoinCoordinator:
             est["rows"] <= self._budget_rows() and est["bytes"] <= self._budget_bytes()
         )
         return "broadcast" if within else "shuffle"
-
-    def _explain_shell(self, request, mode: str) -> Dict[str, Any]:
-        """EXPLAIN / EXPLAIN ANALYZE of a join: the plan digest and summary
-        come with ``engine/explain.py`` (item 24)."""
-        raise NotImplementedError(EXPLAIN_ITEM)
 
     # -- execution -----------------------------------------------------
     def _remaining_ms(self, deadline: float) -> float:

@@ -20,6 +20,11 @@ from enum import Enum
 from typing import Any, Dict, List, Optional, Tuple
 
 
+# the refusal every EXPLAIN form gets, from the broker and from a server
+# (QUERY_VALIDATION): no plan is built and no scan runs
+EXPLAIN_ITEM = "EXPLAIN is item 24 of the port (ROADMAP queue 1): not served yet"
+
+
 class FilterOperator(str, Enum):
     AND = "AND"
     OR = "OR"
@@ -245,6 +250,8 @@ class BrokerRequest:
     # "plan" (return the physical plan, NO execution), or "analyze"
     # (execute AND annotate the plan with actuals).  Rides the wire
     # inside the PQL text itself, so servers re-derive it on re-parse.
+    # The port refuses both modes (EXPLAIN_ITEM) until its plan
+    # introspection lands.
     explain: Optional[str] = None
 
     @property

@@ -5,6 +5,9 @@ Semantics mirror the reference data model (pinot-common
 ``common/data/FieldSpec.java`` and ``common/data/Schema.java``): a schema
 is a set of DIMENSION / METRIC / TIME columns over five stored types
 (INT, LONG, FLOAT, DOUBLE, STRING) plus their multi-value variants.
+Missing input values become per-type default null values
+(``FieldSpec.java:37-47``): dimensions get min-int / min-long / -inf /
+``"null"``; metrics get 0 / 0.0 / ``"null"``.
 """
 from __future__ import annotations
 
@@ -82,6 +85,23 @@ class FieldType(str, Enum):
     TIME = "TIME"
 
 
+# Default null values, FieldSpec.java:37-47.
+_DIM_NULL = {
+    DataType.INT: -(2**31),
+    DataType.LONG: -(2**63),
+    DataType.FLOAT: float("-inf"),
+    DataType.DOUBLE: float("-inf"),
+    DataType.STRING: "null",
+}
+_METRIC_NULL = {
+    DataType.INT: 0,
+    DataType.LONG: 0,
+    DataType.FLOAT: 0.0,
+    DataType.DOUBLE: 0.0,
+    DataType.STRING: "null",
+}
+
+
 @dataclass
 class FieldSpec:
     name: str
@@ -99,6 +119,12 @@ class FieldSpec:
     @property
     def stored_type(self) -> DataType:
         return self.data_type.stored_type
+
+    def get_default_null_value(self) -> Any:
+        if self.default_null_value is not None:
+            return self.stored_type.convert(self.default_null_value)
+        table = _METRIC_NULL if self.field_type == FieldType.METRIC else _DIM_NULL
+        return table[self.stored_type]
 
     def to_json(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {
@@ -191,6 +217,10 @@ class Schema:
             return self._by_name[name]
         except KeyError:
             raise KeyError(f"unknown column {name!r} in schema {self.schema_name!r}") from None
+
+    @property
+    def time_column_name(self) -> Optional[str]:
+        return self.time_field.name if self.time_field is not None else None
 
     def to_json(self) -> Dict[str, Any]:
         d: Dict[str, Any] = {

@@ -1,10 +1,20 @@
 """Per-server query executor: segments + BrokerRequest -> IntermediateResult
 (lean port of ``pinot_tpu.engine.executor.QueryExecutor``).
 
-prune -> stage -> plan -> table kernel -> one packed fetch -> finalize.
+prune -> star-tree split -> stage -> plan -> table kernel -> one packed
+fetch -> finalize.
 All segments run in one table kernel over the stacked segment axis with
 the cross-segment merge fused in (``kernel.py``); this class prepares the
 inputs and turns the outputs into mergeable partials.
+
+PRUNING (``engine/pruner.py``, the reference's three pruners: empty,
+missing column, time range) runs first; a fully pruned query answers
+``_empty_result`` with ``segmentsPruned``.  STAR-TREE: of the segments
+left, each whose star-tree fits the query (``startree.operator.
+is_fit_for_star_tree``) is answered from its pre-aggregated cube in host
+numpy (``execute_star_tree``, cost ``segmentsStarTree``); only the rest
+reach ``_execute_engine``, so staging, the lane's batching and
+coalescing never see a star-fit segment.  Their partials merge.
 
 The host tier (``host_fallback.execute_host``) serves what the reference
 sends there, on the same three shape conditions: a plan that
@@ -119,6 +129,7 @@ from pinot_tpu_torch.engine.plan import (
     hll_lowers_to_presence,
     plan_forced_host,
 )
+from pinot_tpu_torch.engine.pruner import prune_segments
 from pinot_tpu_torch.engine.results import (
     AggPartial,
     AvgPartial,
@@ -137,6 +148,7 @@ from pinot_tpu_torch.engine.results import (
 )
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.server.scheduler import QueryAbandonedError
+from pinot_tpu_torch.startree.operator import execute_star_tree, is_fit_for_star_tree
 from pinot_tpu_torch.utils.metrics import ServerMetrics
 from pinot_tpu_torch.utils.npgroup import scatter_max_2d
 from pinot_tpu_torch.utils.trace import current_trace
@@ -235,17 +247,6 @@ def _hist_partial(gdict, gids, cnts, p: int) -> HistogramPartial:
         if g < gdict.cardinality
     }
     return HistogramPartial(counts, percentile=p)
-
-
-def prune_segments(
-    segments: Sequence[ImmutableSegment], request: BrokerRequest
-) -> List[ImmutableSegment]:
-    """Drop empty segments (ValidSegmentPruner) and segments missing a
-    referenced column (DataSchemaSegmentPruner)."""
-    needed = request.referenced_columns()
-    return [
-        s for s in segments if s.num_docs > 0 and all(s.has_column(c) for c in needed)
-    ]
 
 
 # how long a quarantined (plan digest, segment set) stays off the device: a
@@ -400,6 +401,26 @@ class QueryExecutor:
             res = self._empty_result(request, total_docs)
             res.add_cost(segmentsPruned=pruned)
             return res
+
+        # star-tree routing: a fit segment answers from its pre-aggregated
+        # cube on the host (startree/operator.py), the rest take the
+        # engine; the partials merge below
+        star = [s for s in live if is_fit_for_star_tree(request, s)]
+        if star:
+            normal = [s for s in live if s not in star]
+            parts = [execute_star_tree(s, request) for s in star]
+            if normal:
+                parts.append(self._execute_engine(normal, request, deadline))
+            merged = parts[0]
+            for p in parts[1:]:
+                merged.merge(p)
+            merged.total_docs = total_docs
+            merged.add_cost(segmentsPruned=pruned)
+            merged._served_tier = (
+                "starTree" if not normal else getattr(parts[-1], "_served_tier", "starTree")
+            )
+            return merged
+
         result = self._execute_engine(live, request, deadline)
         result.total_docs = total_docs
         result.add_cost(segmentsPruned=pruned)

@@ -370,13 +370,15 @@ def trim_group_candidates(
 #                      no server should receive > 2x the mean)
 #   broadcastBytes     serialized build-side bytes a server received in
 #                      a broadcast join (one copy per probe server)
-#   segmentsPruned     segments dropped before execution (empty, or
-#                      missing a referenced column)
+#   segmentsPruned     segments dropped before execution (empty, missing
+#                      a referenced column, or outside the time filter)
 #   segmentsZonemap    segments scanned over their zone-map candidate
 #                      blocks only (engine/zonemap.py)
 #   segmentsFullScan   segments scanned whole by the device's table kernel
 #   segmentsHost       segments served by the host tier (forced before
 #                      staging, a plan off the device, or pair overflow)
+#   segmentsStarTree   segments answered from their star-tree cube
+#                      (startree/operator.py)
 COST_KEYS = (
     "bytesScanned",
     "deviceMs",
@@ -392,6 +394,7 @@ COST_KEYS = (
     "segmentsZonemap",
     "segmentsFullScan",
     "segmentsHost",
+    "segmentsStarTree",
 )
 
 # Serving-tier subset of COST_KEYS: all but segmentsPruned partition the

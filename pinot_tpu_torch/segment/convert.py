@@ -18,6 +18,10 @@ indexes::
         # optional: has_inverted_index, max_num_multi_values,
         #           total_number_of_entries, min_value, max_value
     }
+
+A segment's star-tree travels as one more plain dict (``star_tree``,
+None without one): its cube arrays, its node tree as JSON and its
+config fields; ``metadata.custom["starTree"]`` rides in ``custom``.
 """
 from __future__ import annotations
 
@@ -33,6 +37,7 @@ from pinot_tpu_torch.segment.immutable import (
     ImmutableSegment,
     SegmentMetadata,
 )
+from pinot_tpu_torch.startree.index import StarTreeIndex, StarTreeNode
 
 
 def _int_array(a: Optional[Any]) -> Optional[np.ndarray]:
@@ -78,6 +83,39 @@ def column_from_arrays(name: str, num_docs: int, spec: Mapping[str, Any]) -> Col
     )
 
 
+def star_tree_arrays_of(tree: Any) -> Optional[Dict[str, Any]]:
+    """The plain arrays and values of any object shaped like a
+    ``StarTreeIndex`` (None passes through)."""
+    if tree is None:
+        return None
+    return {
+        "split_order": list(tree.split_order),
+        "metric_columns": list(tree.metric_columns),
+        "dims": np.asarray(tree.dims),
+        "sums": np.asarray(tree.sums),
+        "counts": np.asarray(tree.counts),
+        "root": tree.root.to_json(),
+        "max_leaf_records": int(tree.max_leaf_records),
+        "hll_columns": list(tree.hll_columns),
+        "hll_registers": {c: np.asarray(r) for c, r in tree.hll_registers.items()},
+    }
+
+
+def star_tree_from_arrays(spec: Mapping[str, Any]) -> StarTreeIndex:
+    return StarTreeIndex(
+        split_order=list(spec["split_order"]),
+        metric_columns=list(spec["metric_columns"]),
+        dims=np.ascontiguousarray(spec["dims"], dtype=np.int32),
+        sums=np.ascontiguousarray(spec["sums"], dtype=np.float64),
+        counts=np.ascontiguousarray(spec["counts"], dtype=np.int64),
+        root=StarTreeNode.from_json(spec["root"]),
+        max_leaf_records=int(spec["max_leaf_records"]),
+        hll_columns=list(spec["hll_columns"]),
+        hll_registers={c: np.ascontiguousarray(r, dtype=np.uint8)
+                       for c, r in spec["hll_registers"].items()},
+    )
+
+
 def segment_arrays_of(segment: Any) -> Dict[str, Any]:
     """The plain arrays and values of any object shaped like an
     ``ImmutableSegment`` (``metadata``, ``columns`` of ``metadata`` /
@@ -117,6 +155,7 @@ def segment_arrays_of(segment: Any) -> Dict[str, Any]:
         "crc": int(m.crc),
         "creation_time_ms": int(getattr(m, "creation_time_ms", 0)),
         "custom": dict(getattr(m, "custom", {}) or {}),
+        "star_tree": star_tree_arrays_of(getattr(segment, "star_tree", None)),
     }
 
 
@@ -132,6 +171,7 @@ def segment_from_arrays(
     time_unit: str = "DAYS",
     creation_time_ms: int = 0,
     custom: Optional[Mapping[str, Any]] = None,
+    star_tree: Optional[Mapping[str, Any]] = None,
 ) -> ImmutableSegment:
     """One ``ImmutableSegment`` from per-column array dicts (module doc)."""
     cols: Dict[str, ColumnData] = {
@@ -150,4 +190,7 @@ def segment_from_arrays(
         creation_time_ms=creation_time_ms,
         custom=dict(custom or {}),
     )
-    return ImmutableSegment(metadata=meta, columns=cols)
+    segment = ImmutableSegment(metadata=meta, columns=cols)
+    if star_tree is not None:
+        segment.star_tree = star_tree_from_arrays(star_tree)
+    return segment

@@ -9,7 +9,7 @@ become dictId-space comparisons on the device
 from __future__ import annotations
 
 import bisect
-from typing import Any, List, Union
+from typing import Any, List, Sequence, Union
 
 import numpy as np
 
@@ -28,6 +28,14 @@ class Dictionary:
         else:
             self.values = np.asarray(values, dtype=stored_type.to_numpy())
             self._np = self.values
+
+    @classmethod
+    def build(cls, stored_type: DataType, raw_values: Sequence[Any]) -> "Dictionary":
+        """The sorted, deduplicated dictionary of a column's raw values."""
+        if stored_type == DataType.STRING:
+            return cls(stored_type, sorted(set(str(v) for v in raw_values)))
+        arr = np.asarray(list(raw_values), dtype=stored_type.to_numpy())
+        return cls(stored_type, np.unique(arr))
 
     def __len__(self) -> int:
         return len(self.values)
@@ -64,6 +72,14 @@ class Dictionary:
         if self.is_string:
             return a == str(b)
         return bool(a == b)
+
+    def index_array(self, raw: np.ndarray) -> np.ndarray:
+        """Vectorized ``index_of`` for building forward indexes (every
+        value must be present)."""
+        if self.is_string:
+            lookup = {v: i for i, v in enumerate(self.values)}
+            return np.fromiter((lookup[v] for v in raw), dtype=np.int32, count=len(raw))
+        return np.searchsorted(self.values, raw).astype(np.int32)
 
     @property
     def min_value(self) -> Any:

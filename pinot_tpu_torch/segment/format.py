@@ -15,7 +15,10 @@ Buffer codecs:
 Per SV column longer than one zone block the file holds its per-block
 dictId min / max (``<column>.zmin`` / ``.zmax``, int32); ``read_segment``
 preloads them into the segment's zone cache (``engine/zonemap.py``).
-Star-tree buffers are item 21 of the port and raise here.
+A segment with a star-tree (``startree/index.py``) adds its cube as raw
+buffers ``__startree__.dims`` / ``.sums`` / ``.counts`` / ``.hll.<col>``
+and the header a ``starTree`` object (split order, metric and HLL
+columns, leaf cap, record count, the node tree as JSON).
 """
 from __future__ import annotations
 
@@ -27,14 +30,13 @@ import numpy as np
 
 from pinot_tpu_torch.engine.zonemap import column_zones, zone_block_rows
 from pinot_tpu_torch.segment.bitpack import bits_required, pack_bits, unpack_bits
+from pinot_tpu_torch.segment.convert import star_tree_from_arrays
 from pinot_tpu_torch.segment.dictionary import Dictionary
 from pinot_tpu_torch.segment.immutable import ColumnData, ImmutableSegment, SegmentMetadata
 
 MAGIC = b"PNTPUSEG"
 
 SEGMENT_FILE_NAME = "columns.pnt"  # analog of v3's columns.psf
-
-_STAR_TREE = "star-tree segments are item 21 of the port (ROADMAP queue 1)"
 
 
 class SegmentIntegrityError(RuntimeError):
@@ -66,8 +68,6 @@ def verify_segment_crc(segment: ImmutableSegment, source: str = "") -> None:
 
 def write_segment(segment: ImmutableSegment, directory: str) -> str:
     """Write a segment directory: one data file, index map inside."""
-    if getattr(segment, "star_tree", None) is not None:
-        raise NotImplementedError(_STAR_TREE)
     os.makedirs(directory, exist_ok=True)
     buffers: List[bytes] = []
     index_map: Dict[str, Dict[str, Any]] = {}
@@ -110,6 +110,21 @@ def write_segment(segment: ImmutableSegment, directory: str) -> str:
         add(f"{name}.zmax", zmax.tobytes(), "raw", dtype="int32", count=int(zmax.size))
 
     header = {"metadata": segment.metadata.to_json(), "indexMap": index_map, "zoneBlock": zblock}
+    star_tree = getattr(segment, "star_tree", None)
+    if star_tree is not None:
+        cube = {"dims": star_tree.dims, "sums": star_tree.sums, "counts": star_tree.counts}
+        cube.update({f"hll.{c}": r for c, r in star_tree.hll_registers.items()})
+        for key, arr in cube.items():
+            arr = np.ascontiguousarray(arr)
+            add(f"__startree__.{key}", arr.tobytes(), "raw", dtype=str(arr.dtype), count=int(arr.size))
+        header["starTree"] = {
+            "splitOrder": star_tree.split_order,
+            "metricColumns": star_tree.metric_columns,
+            "maxLeafRecords": star_tree.max_leaf_records,
+            "numRecords": star_tree.num_records,
+            "hllColumns": list(star_tree.hll_columns),
+            "root": star_tree.root.to_json(),
+        }
     hdr = json.dumps(header).encode("utf-8")
     path = os.path.join(directory, SEGMENT_FILE_NAME)
     with open(path, "wb") as f:
@@ -153,10 +168,7 @@ def read_segment(directory: str) -> ImmutableSegment:
     with open(path, "rb") as f:
         data = f.read()
     header = _read_header(data, path)
-    hlen = int.from_bytes(data[8:16], "little")
-    if header.get("starTree") is not None:
-        raise NotImplementedError(_STAR_TREE)
-    base = 16 + hlen
+    base = 16 + int.from_bytes(data[8:16], "little")
     index_map = header["indexMap"]
     metadata = SegmentMetadata.from_json(header["metadata"])
 
@@ -184,4 +196,20 @@ def read_segment(directory: str) -> ImmutableSegment:
         }
         if cache:
             object.__setattr__(segment, "_zone_cache", cache)
+
+    st = header.get("starTree")
+    if st is not None:
+        n_rec = st["numRecords"]
+        hll_cols = list(st.get("hllColumns", []))
+        segment.star_tree = star_tree_from_arrays({
+            "split_order": st["splitOrder"],
+            "metric_columns": st["metricColumns"],
+            "dims": load("__startree__.dims").reshape(n_rec, len(st["splitOrder"])),
+            "sums": load("__startree__.sums").reshape(n_rec, len(st["metricColumns"])),
+            "counts": load("__startree__.counts"),
+            "root": st["root"],
+            "max_leaf_records": st["maxLeafRecords"],
+            "hll_columns": hll_cols,
+            "hll_registers": {c: load(f"__startree__.hll.{c}").reshape(n_rec, -1) for c in hll_cols},
+        })
     return segment

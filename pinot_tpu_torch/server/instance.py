@@ -19,7 +19,10 @@ The controller wiring is ``starter.py`` (in process) and
 ``network_starter.py`` (a server process); they load segment files,
 verify their CRCs and quarantine a bad copy through this class.
 
-Left out of the port, for later slices: EXPLAIN, the result cache (of
+An EXPLAIN (a reference broker in a mixed fleet forwards it) is refused
+with QUERY_VALIDATION before any segment is touched.
+
+Left out of the port, for later slices: EXPLAIN itself, the result cache (of
 scans and joins), the roofline window, plan stats, the profiler and the occupancy
 sampler, residency, prewarm, the shadow auditor, schema evolution and
 the ingest planes.
@@ -34,6 +37,7 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from pinot_tpu_torch.common.datatable import deserialize_instance_request, serialize_result
+from pinot_tpu_torch.common.request import EXPLAIN_ITEM
 from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
 from pinot_tpu_torch.engine import join as join_mod
@@ -215,6 +219,8 @@ class ServerInstance:
         request = parse_pql(req["pql"])
         request.debug_options = dict(req.get("debugOptions") or {})
         request = optimize_request(request)
+        if request.explain is not None:
+            return IntermediateResult(exceptions=[(ErrorCode.QUERY_VALIDATION, EXPLAIN_ITEM)])
         request.enable_trace = bool(req.get("trace"))
         # untraced requests share the NULL context: no span allocation
         if request.enable_trace:

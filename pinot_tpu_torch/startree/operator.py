@@ -1,0 +1,277 @@
+"""Star-tree query execution (copy of ``pinot_tpu.startree.operator``).
+
+Reference: eligibility gate ``RequestUtils.isFitForStarTreeIndex``
+(used at ``FilterPlanNode.java:66-69``) + traversal operator
+``StarTreeIndexOperator.java:53``.
+
+Eligible queries — aggregation (optionally group-by) where every
+function is count/sum/avg over metrics, the filter is a conjunction of
+EQ/IN/RANGE predicates on split-order dimensions (cube rows live in
+sorted-dictId space, so a range is a contiguous dictId interval —
+``StarTreeIndexOperator.java:53`` handles the same mixed shapes), and
+group-by columns are split-order dimensions — are answered from the
+pre-aggregated cube:
+host traversal picks [start, end) ranges (star rows wherever a
+dimension is unconstrained), residual predicates and the aggregation
+itself run vectorized over those rows.  ``numDocsScanned`` reports
+pre-agg rows visited — the reference's headline star-tree effect
+(3 docs scanned instead of 6M, BASELINE.md).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Set, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.common.request import BrokerRequest, FilterOperator, FilterQueryTree
+from pinot_tpu_torch.common.values import render_value
+from pinot_tpu_torch.engine.plan import leaf_interval
+from pinot_tpu_torch.engine.results import (
+    AvgPartial,
+    CountPartial,
+    HllPartial,
+    IntermediateResult,
+    SumPartial,
+)
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.startree.index import StarTreeIndex, StarTreeNode
+
+_FIT_AGGS = ("count", "sum", "avg")
+
+
+class _Constraint:
+    """Predicate constraint on one dimension in local dictId space:
+    either an explicit id set (EQ/IN) or a half-open interval (RANGE —
+    kept as an interval so a wide range on a high-cardinality split
+    dimension costs two compares, not an O(card) materialized set)."""
+
+    __slots__ = ("ids", "lo", "hi")
+
+    def __init__(self, ids: Optional[Set[int]] = None, lo: int = 0, hi: int = 0):
+        self.ids = ids
+        self.lo = lo
+        self.hi = hi
+
+    def intersect(self, other: "_Constraint") -> "_Constraint":
+        if self.ids is not None and other.ids is not None:
+            return _Constraint(ids=self.ids & other.ids)
+        if self.ids is None and other.ids is None:
+            return _Constraint(lo=max(self.lo, other.lo), hi=min(self.hi, other.hi))
+        ids = self.ids if self.ids is not None else other.ids
+        iv = other if self.ids is not None else self
+        return _Constraint(ids={i for i in ids if iv.lo <= i < iv.hi})
+
+    def contains(self, dict_id: int) -> bool:
+        if self.ids is not None:
+            return dict_id in self.ids
+        return self.lo <= dict_id < self.hi
+
+    def matching_children(self, children: Dict[int, "StarTreeNode"]):
+        if self.ids is not None and len(self.ids) < len(children):
+            return (children[i] for i in self.ids if i in children)
+        return (c for i, c in children.items() if self.contains(i))
+
+    def mask(self, vals: np.ndarray) -> np.ndarray:
+        if self.ids is not None:
+            if not self.ids:
+                return np.zeros(vals.size, bool)
+            return np.isin(vals, np.asarray(sorted(self.ids), dtype=np.int64))
+        return (vals >= self.lo) & (vals < self.hi)
+
+
+def _conjunctive_eq_leaves(tree: Optional[FilterQueryTree]) -> Optional[List[FilterQueryTree]]:
+    """Flatten an AND-only tree of EQ/IN/RANGE leaves; None otherwise."""
+    if tree is None:
+        return []
+    if tree.is_leaf:
+        if tree.operator in (
+            FilterOperator.EQUALITY,
+            FilterOperator.IN,
+            FilterOperator.RANGE,
+        ):
+            return [tree]
+        return None
+    if tree.operator != FilterOperator.AND:
+        return None
+    out: List[FilterQueryTree] = []
+    for c in tree.children:
+        sub = _conjunctive_eq_leaves(c)
+        if sub is None:
+            return None
+        out.extend(sub)
+    return out
+
+
+def is_fit_for_star_tree(request: BrokerRequest, segment: ImmutableSegment) -> bool:
+    tree: Optional[StarTreeIndex] = getattr(segment, "star_tree", None)
+    if tree is None or not request.is_aggregation:
+        return False
+    for agg in request.aggregations:
+        if agg.is_mv:
+            return False
+        base = agg.base_function
+        if base in ("distinctcounthll", "fasthll"):
+            if agg.column not in tree.hll_columns:
+                return False
+        elif base not in _FIT_AGGS:
+            return False
+        elif agg.column != "*" and agg.column not in tree.metric_columns:
+            return False
+    leaves = _conjunctive_eq_leaves(request.filter)
+    if leaves is None:
+        return False
+    split = set(tree.split_order)
+    for leaf in leaves:
+        if leaf.column not in split:
+            return False
+    if request.is_group_by:
+        for col in request.group_by.columns:
+            if col not in split:
+                return False
+    return True
+
+
+def _traverse(
+    node: StarTreeNode,
+    split_order: List[str],
+    constraints: Dict[str, "_Constraint"],
+    group_dims: Set[str],
+) -> List[Tuple[int, int]]:
+    if node.is_leaf:
+        return [(node.start, node.end)]
+    dim = split_order[node.level]
+    ranges: List[Tuple[int, int]] = []
+    if dim in constraints:
+        for child in constraints[dim].matching_children(node.children):
+            ranges.extend(_traverse(child, split_order, constraints, group_dims))
+    elif dim in group_dims:
+        for child in node.children.values():
+            ranges.extend(_traverse(child, split_order, constraints, group_dims))
+    elif node.star_child is not None:
+        ranges.extend(_traverse(node.star_child, split_order, constraints, group_dims))
+    else:
+        for child in node.children.values():
+            ranges.extend(_traverse(child, split_order, constraints, group_dims))
+    return ranges
+
+
+def execute_star_tree(segment: ImmutableSegment, request: BrokerRequest) -> IntermediateResult:
+    tree: StarTreeIndex = segment.star_tree
+    split = tree.split_order
+
+    # predicate constraints in local dictId space; RANGE leaves stay
+    # contiguous dictId intervals (dictionaries are sorted)
+    constraints: Dict[str, _Constraint] = {}
+    for leaf in _conjunctive_eq_leaves(request.filter) or []:
+        d = segment.column(leaf.column).dictionary
+        if leaf.operator == FilterOperator.RANGE:
+            lo, hi = leaf_interval(leaf, d)
+            c = _Constraint(lo=lo, hi=hi)
+        else:
+            ids = {d.index_of(d.stored_type.convert(v)) for v in leaf.values}
+            ids.discard(-1)
+            c = _Constraint(ids=ids)
+        prev = constraints.get(leaf.column)
+        constraints[leaf.column] = c if prev is None else prev.intersect(c)
+
+    group_cols = list(request.group_by.columns) if request.is_group_by else []
+    ranges = _traverse(tree.root, split, constraints, set(group_cols))
+
+    if ranges:
+        rows = np.concatenate([np.arange(s, e) for s, e in ranges])
+    else:
+        rows = np.zeros(0, dtype=np.int64)
+
+    # residual predicate masks (idempotent over already-descended dims)
+    mask = np.ones(rows.size, dtype=bool)
+    level_of = {c: i for i, c in enumerate(split)}
+    for col, c in constraints.items():
+        vals = tree.dims[rows, level_of[col]]
+        mask &= c.mask(vals)
+    rows = rows[mask]
+
+    counts = tree.counts[rows]
+    res = IntermediateResult(
+        num_docs_scanned=int(rows.size),
+        total_docs=segment.num_docs,
+        num_segments_queried=1,
+    )
+    # cost vector: cube rows touched (dims + counts), star-tree tier
+    res.add_cost(
+        segmentsStarTree=1,
+        bytesScanned=int(rows.size)
+        * (tree.dims.shape[1] * tree.dims.itemsize + tree.counts.itemsize),
+    )
+
+    def scalar_partial(agg, sel=slice(None)):
+        base = agg.base_function
+        if base == "count":
+            return CountPartial(float(counts[sel].sum()))
+        if base in ("distinctcounthll", "fasthll"):
+            regs = tree.hll_registers[agg.column][rows[sel]]
+            merged = regs.max(axis=0) if regs.shape[0] else np.zeros(regs.shape[1], np.uint8)
+            return HllPartial(merged)
+        mi = tree.metric_columns.index(agg.column)
+        s = float(tree.sums[rows[sel], mi].sum())
+        if base == "sum":
+            return SumPartial(s)
+        return AvgPartial(s, float(counts[sel].sum()))
+
+    if not request.is_group_by:
+        res.aggregations = [scalar_partial(a) for a in request.aggregations]
+        return res
+
+    # group-by: keys from the dims matrix (real values — traversal never
+    # stars group-by dims), rendered via the segment dictionaries.
+    # States build VECTORIZED over the inverse index — a per-group
+    # boolean mask would re-scan all pre-agg rows per group (O(R x G),
+    # ~0.4 ms/group in Python at cube scale)
+    glevels = [level_of[c] for c in group_cols]
+    gdicts = [segment.column(c).dictionary for c in group_cols]
+    key_matrix = tree.dims[rows][:, glevels] if rows.size else np.zeros((0, len(glevels)), np.int32)
+    groups: Dict[Tuple[str, ...], list] = {}
+    if rows.size:
+        uniq, inverse = np.unique(key_matrix, axis=0, return_inverse=True)
+        G = uniq.shape[0]
+        cnt_g = np.bincount(inverse, weights=counts, minlength=G)
+        order = boundaries = None  # lazily built for register merges
+        agg_states = []
+        for a in request.aggregations:
+            base = a.base_function
+            if base == "count":
+                agg_states.append(("count",))
+            elif base in ("distinctcounthll", "fasthll"):
+                if order is None:
+                    order = np.argsort(inverse, kind="stable")
+                    rows_sorted = rows[order]
+                    boundaries = np.searchsorted(inverse[order], np.arange(G))
+                # one gather in sorted order + reduceat (ufunc.at runs an
+                # element-wise Python-speed loop)
+                regs_g = np.maximum.reduceat(
+                    tree.hll_registers[a.column][rows_sorted], boundaries, axis=0
+                )
+                agg_states.append(("hll", regs_g))
+            else:
+                mi = tree.metric_columns.index(a.column)
+                sums_g = np.bincount(
+                    inverse, weights=tree.sums[rows, mi], minlength=G
+                )
+                agg_states.append(("sum" if base == "sum" else "avg", sums_g))
+        for gi in range(G):
+            key = tuple(
+                render_value(gdicts[j].stored_type, gdicts[j].get(int(uniq[gi, j])))
+                for j in range(len(group_cols))
+            )
+            parts = []
+            for st in agg_states:
+                if st[0] == "count":
+                    parts.append(CountPartial(float(cnt_g[gi])))
+                elif st[0] == "hll":
+                    parts.append(HllPartial(st[1][gi]))
+                elif st[0] == "sum":
+                    parts.append(SumPartial(float(st[1][gi])))
+                else:
+                    parts.append(AvgPartial(float(st[1][gi]), float(cnt_g[gi])))
+            groups[key] = parts
+    res.groups = groups
+    return res

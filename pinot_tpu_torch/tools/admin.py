@@ -1,5 +1,5 @@
 """Admin CLI (port of ``pinot_tpu.tools.admin``, trimmed to the
-deployment commands).  Usage::
+deployment and segment commands).  Usage::
 
     python -m pinot_tpu_torch.tools.admin <command> [args]
 
@@ -14,6 +14,9 @@ Commands:
                     declares the key partitioning joins colocate on)
   UploadSegment     POST a segment file to a controller
   PostQuery         run PQL against a broker
+  CreateSegment     build a segment file from CSV or JSONL rows (the row
+                    builder; -startree adds a star-tree at its defaults)
+  ShowSegment       print a segment file's metadata
 
 Each Start* command prints ``READY <role> <address>`` once it serves, then
 serves until SIGTERM or SIGINT, when it stops its threads and exits 0.
@@ -117,6 +120,32 @@ def cmd_post_query(args) -> None:
     print(json.dumps(out, indent=2))
 
 
+def cmd_create_segment(args) -> None:
+    """Rows -> the two-pass row builder -> a segment file.  A CSV is parsed
+    by the row path too (the reference's native columnar CSV path is
+    item 31 of the port)."""
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.segment.format import write_segment
+    from pinot_tpu_torch.segment.readers import read_for_path
+    from pinot_tpu_torch.startree.builder import StarTreeBuilderConfig
+
+    with open(args.schema_file) as f:
+        schema = Schema.from_json(json.load(f))
+    cfg = StarTreeBuilderConfig() if args.startree else None
+    rows = read_for_path(args.data_file, schema)
+    seg = build_segment(schema, rows, args.table, args.segment_name, startree_config=cfg)
+    path = write_segment(seg, args.out_dir)
+    print(f"built segment {seg.segment_name}: {seg.num_docs} docs -> {path}")
+
+
+def cmd_show_segment(args) -> None:
+    from pinot_tpu_torch.segment.format import read_segment
+
+    seg = read_segment(args.segment_dir)
+    print(json.dumps(seg.metadata.to_json(), indent=2, default=str))
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     p = argparse.ArgumentParser(prog="pinot_tpu_torch-admin", description=__doc__,
@@ -168,6 +197,22 @@ def main(argv=None) -> None:
     pq.add_argument("-query", required=True)
     pq.add_argument("-trace", action="store_true")
     pq.set_defaults(fn=cmd_post_query)
+
+    cs = sub.add_parser("CreateSegment", help="build a segment file from .csv or .jsonl rows "
+                        "(a CSV is parsed by the row path)")
+    cs.add_argument("-schema-file", required=True, dest="schema_file")
+    cs.add_argument("-data-file", required=True, dest="data_file",
+                    help=".csv (parsed row by row) or .jsonl")
+    cs.add_argument("-table", required=True)
+    cs.add_argument("-segment-name", required=True, dest="segment_name")
+    cs.add_argument("-out-dir", required=True, dest="out_dir")
+    cs.add_argument("-startree", action="store_true",
+                    help="also build a star-tree (StarTreeBuilderConfig defaults)")
+    cs.set_defaults(fn=cmd_create_segment)
+
+    ss = sub.add_parser("ShowSegment")
+    ss.add_argument("-segment-dir", required=True, dest="segment_dir")
+    ss.set_defaults(fn=cmd_show_segment)
 
     args = p.parse_args(argv)
     args.fn(args)

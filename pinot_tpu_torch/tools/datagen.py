@@ -1,6 +1,8 @@
-"""Seeded TPC-H lineitem-shaped and ad-events data (copy of the lineitem
-and ad-events parts of ``pinot_tpu.tools.datagen``), and the reference
-tests' mixed-type schema with multi-value columns.
+"""Seeded TPC-H lineitem-shaped, ad-events and baseballStats data (copy
+of those parts of ``pinot_tpu.tools.datagen``), and the reference tests'
+mixed-type schema with multi-value columns.  ``baseball_rows`` draws with
+``random.Random`` as the reference's does, so the same seed gives the
+same rows.
 
 The lineitem and ad-events numpy draws are made in the same order as the
 reference's, so the same seed gives the same dictionaries and forward
@@ -11,6 +13,7 @@ column by column, at sizes the row-at-a-time segment build cannot reach.
 """
 from __future__ import annotations
 
+import random
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -132,6 +135,57 @@ def synthetic_mv_segment(
     )
     smeta.crc = hash((name, num_rows, seed)) & 0xFFFFFFFF
     return ImmutableSegment(metadata=smeta, columns=columns)
+
+
+# ---------------------------------------------------------------------------
+# baseballStats-shaped quickstart data (Quickstart.java:33 /
+# sample_data/baseball.schema; synthetic, shape- and type-faithful)
+# ---------------------------------------------------------------------------
+
+_TEAMS = ["BOS", "NYA", "CHA", "SFN", "LAN", "SLN", "ATL", "SEA", "OAK", "TEX"]
+_LEAGUES = ["AL", "NL"]
+_FIRST = ["hank", "babe", "ty", "willie", "ted", "lou", "joe", "mickey", "stan", "cal"]
+_LAST = ["aaron", "ruth", "cobb", "mays", "williams", "gehrig", "dimaggio", "mantle", "musial", "ripken"]
+
+
+def baseball_schema() -> Schema:
+    return Schema(
+        "baseballStats",
+        dimensions=[
+            FieldSpec("playerName", DataType.STRING),
+            FieldSpec("teamID", DataType.STRING),
+            FieldSpec("league", DataType.STRING),
+            FieldSpec("yearID", DataType.INT),
+        ],
+        metrics=[
+            FieldSpec("runs", DataType.INT, FieldType.METRIC),
+            FieldSpec("hits", DataType.INT, FieldType.METRIC),
+            FieldSpec("homeRuns", DataType.INT, FieldType.METRIC),
+            FieldSpec("atBats", DataType.INT, FieldType.METRIC),
+        ],
+    )
+
+
+def baseball_rows(num_rows: int = 10_000, seed: int = 42) -> List[Dict[str, Any]]:
+    rng = random.Random(seed)
+    players = [f"{f} {l}" for f in _FIRST for l in _LAST]
+    rows: List[Dict[str, Any]] = []
+    for _ in range(num_rows):
+        at_bats = rng.randint(50, 650)
+        hits = rng.randint(0, at_bats // 2)
+        rows.append(
+            {
+                "playerName": rng.choice(players),
+                "teamID": rng.choice(_TEAMS),
+                "league": rng.choice(_LEAGUES),
+                "yearID": rng.randint(1980, 2015),
+                "runs": rng.randint(0, 140),
+                "hits": hits,
+                "homeRuns": rng.randint(0, 60),
+                "atBats": at_bats,
+            }
+        )
+    return rows
 
 
 _SHIP_MODES = ["RAIL", "FOB", "MAIL", "SHIP", "TRUCK", "AIR", "REG AIR"]
@@ -295,6 +349,25 @@ def synthetic_adevents_segment(
     return _synthetic_columnar_segment(
         adevents_schema(), ADEVENTS_TABLE, dict_values, num_rows, seed, name,
         clustered_column="event_time", time_column="event_time", rng=rng,
+    )
+
+
+def synthetic_baseball_segment(num_rows: int, seed: int = 7, name: str = "bb0") -> ImmutableSegment:
+    """A baseballStats segment built column by column: the schema and
+    cardinalities of ``baseball_rows`` at sizes the row build cannot
+    reach."""
+    dict_values = {
+        "playerName": sorted(f"{f} {l}" for f in _FIRST for l in _LAST),
+        "teamID": sorted(_TEAMS),
+        "league": sorted(_LEAGUES),
+        "yearID": np.arange(1980, 2016, dtype=np.int64),
+        "runs": np.arange(0, 141, dtype=np.int64),
+        "hits": np.arange(0, 326, dtype=np.int64),
+        "homeRuns": np.arange(0, 61, dtype=np.int64),
+        "atBats": np.arange(50, 651, dtype=np.int64),
+    }
+    return _synthetic_columnar_segment(
+        baseball_schema(), "baseballStats", dict_values, num_rows, seed, name
     )
 
 

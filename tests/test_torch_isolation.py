@@ -96,6 +96,21 @@ from pinot_tpu_torch.tools import admin
 with tempfile.TemporaryDirectory() as td:
     path = write_segment(segs[0], os.path.join(td, "seg"))
     assert read_segment(path).num_docs == 2000
+    # star-tree segments: the row builder, the readers, the cube, its file
+    # buffers and the executor's star split; the time pruner
+    from pinot_tpu_torch.engine import pruner
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.segment.readers import read_jsonl
+    from pinot_tpu_torch.startree import StarTreeBuilderConfig
+    from pinot_tpu_torch.tools.datagen import baseball_rows, baseball_schema, synthetic_baseball_segment
+
+    bb = build_segment(baseball_schema(), baseball_rows(300, seed=1), "baseballStats", "bb",
+                       startree_config=StarTreeBuilderConfig())
+    bb = read_segment(write_segment(bb, os.path.join(td, "bb")))
+    bb_req = optimize_request(parse_pql("SELECT sum(runs) FROM baseballStats GROUP BY teamID TOP 5"))
+    bb_res = QueryExecutor(device="cpu").execute([bb, synthetic_baseball_segment(500, seed=2)], bb_req)
+    assert bb_res.cost["segmentsStarTree"] == 1 and bb_res.cost["segmentsFullScan"] == 1, bb_res.cost
+    assert pruner.prune_segments(segs, req) == segs and callable(read_jsonl)
     assert zonemap.column_zones(segs[0], "l_shipdate", 1024) is not None
     ctrl_http = ControllerHttpServer(Controller(os.path.join(td, "ctrl")))
     ctrl_http.start()

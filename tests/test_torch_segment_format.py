@@ -2,7 +2,8 @@
 the zone maps of ``engine/zonemap.py``) against the JAX package's: the
 port writes the reference's bytes, each package reads the other's file
 to equal columns and zones, a flipped byte fails the CRC check in both,
-and zones re-blocked from a file's persisted ones equal the reference's.
+zones re-blocked from a file's persisted ones equal the reference's, and a
+star-tree segment's cube buffers round-trip beside its zones.
 
 Segments: a seeded synthetic lineitem segment from each package's
 ``datagen`` (the same numpy draws), and a ``make_test_schema()`` segment
@@ -25,6 +26,9 @@ from pinot_tpu.segment.format import SegmentIntegrityError as RefIntegrityError
 from pinot_tpu.segment.format import read_segment as ref_read
 from pinot_tpu.segment.format import verify_segment_crc as ref_verify
 from pinot_tpu.segment.format import write_segment as ref_write
+from pinot_tpu.startree import StarTreeBuilderConfig as RefStarTreeConfig
+from pinot_tpu.startree import build_star_tree as ref_build_star_tree
+from pinot_tpu.tools.datagen import lineitem_schema as ref_lineitem_schema
 from pinot_tpu.tools.datagen import make_test_schema, random_rows
 from pinot_tpu.tools.datagen import synthetic_lineitem_segment as ref_synthetic
 
@@ -33,7 +37,8 @@ from pinot_tpu_torch.segment.bitpack import pack_bits, unpack_bits
 from pinot_tpu_torch.segment.convert import segment_arrays_of, segment_from_arrays
 from pinot_tpu_torch.segment.format import SEGMENT_FILE_NAME, SegmentIntegrityError
 from pinot_tpu_torch.segment.format import read_segment, read_segment_metadata, verify_segment_crc, write_segment
-from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+from pinot_tpu_torch.startree import StarTreeBuilderConfig, build_star_tree
+from pinot_tpu_torch.tools.datagen import lineitem_schema, synthetic_lineitem_segment
 
 SMALL_BLOCK = 1024
 
@@ -177,8 +182,22 @@ def test_bitpack_writes_the_reference_bytes(nbits, n):
     np.testing.assert_array_equal(ref_unpack_bits(got, nbits, n), v)
 
 
-def test_star_tree_segments_raise(tmp_path):
-    _, port = _lineitem(2000, 1)
-    port.star_tree = object()
-    with pytest.raises(NotImplementedError, match="item 21"):
-        write_segment(port, str(tmp_path / "seg"))
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_star_tree_segments_round_trip_with_their_zones(writer, zone_block, tmp_path):
+    """A star-tree segment file beside its zone maps: each package's
+    tree (built by its own builder) is written as the same bytes and read
+    back by the other with an equal cube, node tree and zones."""
+    zone_block(SMALL_BLOCK)
+    ref, port = _lineitem(6000, 5)
+    cfg = dict(split_order=["l_returnflag", "l_linestatus", "l_shipmode"], max_leaf_records=8)
+    ref_build_star_tree(ref, ref_lineitem_schema(), RefStarTreeConfig(**cfg))
+    build_star_tree(port, lineitem_schema(), StarTreeBuilderConfig(**cfg))
+    want = _file_bytes(ref_write(ref, str(tmp_path / "ref")))
+    assert _file_bytes(write_segment(port, str(tmp_path / "port"))) == want
+    src, read = (ref_write, read_segment) if writer == "reference" else (write_segment, ref_read)
+    back = read(src(ref if writer == "reference" else port, str(tmp_path / "x")))
+    for arr in ("dims", "sums", "counts"):
+        np.testing.assert_array_equal(getattr(back.star_tree, arr), getattr(ref.star_tree, arr))
+    assert back.star_tree.root.to_json() == ref.star_tree.root.to_json()
+    assert back.metadata.custom["starTree"] == ref.metadata.custom["starTree"]
+    assert any(key[0] == "l_shipdate" for key in back._zone_cache)
