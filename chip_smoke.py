@@ -100,6 +100,24 @@ QueryExecutor.execute -> reduce_to_response on one card:
      repairs: EXPLAIN refused by the broker with no request sent and no
      launch, and a time filter past every ad-events segment pruned to the
      empty shapes with no launch;
+ 13. the two filter tiers ahead of the scan over phase 1's lineitem:
+     postings for l_shipdate, l_quantity and l_extendedprice built and
+     warmed as a server loads its segments (seconds a segment, bytes by
+     column, run against packed containers); two ladders with zone_in's
+     select list, l_shipdate IN 1, 3, 16, 64 dates (sorted) and
+     l_extendedprice BETWEEN one price up to 1/80 of the table
+     (unsorted), each at the default route, with postings off (zone
+     blocks / a full scan) and with zone maps off too (K1's full scan),
+     answers equal, medians of 20, and the measured postings / scan
+     crossover; bsi_count_sum and bsi_or_minmax from the bit-sliced tier
+     (both decisions taken) against the scan tier exactly, the program by
+     CUDA events against its byte bound, its planes' staging and the
+     host syncs of one call; batched bit-sliced launches at B = 1, 4, 8,
+     each member torch.equal to its solo launch; then the routes line,
+     the tier the default executor serves each query of phases 1-13
+     from (phases 8 and 10 pass postings=False: mv_filter and the two
+     three-date lists route to postings, and those phases hold K1 / K2;
+     the deployed cluster serves the three-date lists from postings);
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -118,16 +136,18 @@ versions, the torch ops that build their inputs, the one PyTorch call
 that computes K2's function, and the pair sort-dedup with both fetches of
 its buffers.
 
-    python3 chip_smoke.py [--out results.json] [--profile | --kernels-only | --joins-only | --startree-only]
+    python3 chip_smoke.py [--out results.json]
+        [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
 ``--joins-only`` runs the build, the kernel checks and phase 11 alone,
-``--startree-only`` phase 12 alone.
+``--startree-only`` phase 12 alone, ``--tiers-only`` phase 13 alone (after
+lineitem's datagen).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
-line is the ``{"kernels": [...]}`` summary.
+line is the ``{"kernels": [...], "tiers": {...}}`` summary.
 """
 from __future__ import annotations
 
@@ -216,7 +236,7 @@ HOST_QUERIES = {
     "reach_overflow": "SELECT distinctcount(user_id) FROM adevents WHERE site_id < 32 "
     "GROUP BY campaign_id TOP 10",
 }
-HOST_ITERS = 3  # timed runs per host-tier median
+HOST_ITERS = 1  # timed runs per host-tier query: the path's run (3 before phase 13)
 # multi-value columns: make_test_schema()'s table (the reference tests'
 # default schema), cardinality 1000, 1..3 entries a row, 4 distinct seeded
 # segments of 2^23 rows tiled to 16; the queries' pool values are picked
@@ -281,6 +301,10 @@ DEPLOY_DEVICE = "cuda"  # the role processes' -device
 DEPLOY_READY_S = 300.0  # a role process's start, kernel load included
 DEPLOY_ONLINE_S = 600.0  # upload to every segment ONLINE in the broker's routing
 DEPLOY_REQUEST_S = 600.0  # one HTTP request
+# timed requests of zone_distinct, which the servers answer from postings
+# through the host tier's row-wise value states (seconds a request): a
+# median and a maximum of these few, no p99
+DEPLOY_FEW_ITERS = 5
 
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
@@ -2189,7 +2213,8 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
                     raise AssertionError(f"serve {name}: {resp.exceptions} {resp.cost}")
             check_served(name, resp, wants[name])
             split = {k: float(np.median(fleet.timers(f"phase.{k}", SERVE_ITERS)))
-                     for k in ("schedulerWait", "staging", "planBuild", "laneWait", "planExec", "finalize")}
+                     for k in ("schedulerWait", "tierDecision", "staging", "planBuild", "laneWait", "planExec",
+                               "finalize")}
             dt_bytes = sorted(fleet.transport.reply_bytes)
             q = dict(p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
                      client_p50_ms=float(np.percentile(client_ms, 50)), server_ms=split,
@@ -2310,7 +2335,8 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         if heal["hostFailovers"] or heal["deviceFailures"]:
             raise AssertionError(f"serve one server: a device error {heal}")
         split = {k: float(np.median(fleet.timers(f"phase.{k}", SERVE_ITERS)))
-                 for k in ("schedulerWait", "planBuild", "laneWait", "laneDispatch", "planExec", "finalize")}
+                 for k in ("schedulerWait", "tierDecision", "planBuild", "laneWait", "laneDispatch", "planExec",
+                           "finalize")}
         one = rec["one_server"] = dict(p50_ms=float(np.percentile(broker_ms, 50)),
                                        p99_ms=float(np.percentile(broker_ms, 99)), server_ms=split)
         log(f"serve one server q1 (all {len(segments)} segments): broker p50 {one['p50_ms']:.3f} ms, p99 "
@@ -2514,12 +2540,13 @@ def start_roles(tmp: str, rec: dict):
     ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
                                 "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
     url = ctrl.ready(DEPLOY_READY_S)[2]
+    # the servers and the broker need only the controller: they start together
     servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
                                                   "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp)
                for i in range(2)}
-    admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
     broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
                               "-device", DEPLOY_DEVICE], tmp)
+    admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
     broker_url = broker.ready(DEPLOY_READY_S)[2]
     start_s = time.perf_counter() - t
     log(f"deployed: controller {url}, servers {admin}, broker {broker_url}: every role READY in {start_s:.1f} s")
@@ -2562,16 +2589,23 @@ def deployed_phase(segments, wants, record) -> None:
     tmp = tempfile.mkdtemp(prefix="pinot-deployed-")
     t_phase = time.perf_counter()
     try:
-        # the segment files
-        files, write_s = [], []
-        for seg in segments:
+        # the segment files, one thread a file (the bit packing runs in numpy)
+        def write(seg):
             t = time.perf_counter()
-            files.append(write_segment(seg, os.path.join(tmp, "files", seg.segment_name)))
-            write_s.append(time.perf_counter() - t)
+            path = write_segment(seg, os.path.join(tmp, "files", seg.segment_name))
+            return path, time.perf_counter() - t
+
+        threads = max(1, min(len(segments), os.cpu_count() or 1))
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            files, write_s = map(list, zip(*pool.map(write, segments)))
+        write_wall = time.perf_counter() - t
         file_bytes = sum(os.path.getsize(f) for f in files)
         log(f"deployed: wrote {len(files)} segment files ({file_bytes} bytes, zone maps included) in "
-            f"{sum(write_s):.1f} s, {float(np.median(write_s)):.3f} s per segment (median)")
-        rec.update(write_s_per_segment=float(np.median(write_s)), write_s=sum(write_s), file_bytes=file_bytes)
+            f"{write_wall:.1f} s wall in {threads} threads, {float(np.median(write_s)):.3f} s a segment (median, "
+            f"in its thread)")
+        rec.update(write_s_per_segment=float(np.median(write_s)), write_s=write_wall, write_threads=threads,
+                   file_bytes=file_bytes)
 
         # the role processes
         url, admin, broker_url, alive = start_roles(tmp, rec)
@@ -2607,8 +2641,9 @@ def deployed_phase(segments, wants, record) -> None:
         covers = [[by_name[s_] for s_ in sorted(ideal, key=lambda x: int(x[2:])) if n in ideal[s_]] for n in servers]
         wants = dict(wants, pairs_distinct=served_distinct_oracle(covers))
         pqls = {**QUERIES, **VALUE_QUERIES, **SELECTION_QUERIES, **PAIR_QUERIES, **ZONE_QUERIES}
-        need = {"q1": "k1", "q3": "k1", "hll_groupby": "k2", "distinct_price": "k2", "pairs_distinct": "k1",
-                "zone_in": "k1", "zone_distinct": "k2"}
+        need = {"q1": "k1", "q3": "k1", "hll_groupby": "k2", "distinct_price": "k2", "pairs_distinct": "k1"}
+        # the default servers answer the three-date lists from host postings,
+        # as the reference's servers do: no launch, segmentsPostings
 
         def launches():
             out = {"k1": 0, "k2": 0}
@@ -2629,6 +2664,10 @@ def deployed_phase(segments, wants, record) -> None:
             per_query[name] = {k: after[k] - before[k] for k in after}
             totals = {k: totals[k] + per_query[name][k] for k in totals}
             require_launch(f"deployed {name}", per_query[name], need.get(name))
+            if name in ZONE_QUERIES and (d.get("cost", {}).get("segmentsPostings") != len(files)
+                                         or any(per_query[name].values())):
+                raise AssertionError(f"deployed {name}: not served from postings: cost {d.get('cost')}, "
+                                     f"launches {per_query[name]}")
         wall_s = time.perf_counter() - t
         record["paths"]["deployed"] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
         log(f"path deployed (staging included): {wall_s:.1f} s, launches on the servers per query {per_query}, "
@@ -2639,15 +2678,20 @@ def deployed_phase(segments, wants, record) -> None:
                                    kernelLaunches=st["kernelLaunches"]) for n, st in status.items()}
         log(f"deployed: the servers' lanes at the batching defaults {rec['batching']}")
 
-        # broker latency over SERVE_ITERS requests after warm-up, and the
-        # servers' own medians of those requests
-        phases = ("schedulerWait", "staging", "planBuild", "laneWait", "laneDispatch", "planExec", "finalize")
+        # broker latency over SERVE_ITERS requests after warm-up (zone_distinct:
+        # DEPLOY_FEW_ITERS), and the servers' own medians of those requests
         for name in DEPLOY_QUERIES:
+            postings = name in ZONE_QUERIES
+            few = name == "zone_distinct"
+            iters, warmup = (DEPLOY_FEW_ITERS, 1) if few else (SERVE_ITERS, SERVE_WARMUP)
+            phases = ("schedulerWait", "indexPath") if postings else \
+                ("schedulerWait", "tierDecision", "staging", "planBuild", "laneWait", "laneDispatch", "planExec",
+                 "finalize")
             body = json.dumps({"pql": pqls[name]}).encode()
-            for _ in range(SERVE_WARMUP):
+            for _ in range(warmup):
                 check_deployed(name, http_json(broker_url + "/query", body), wants[name])
             broker_ms, client_ms = [], []
-            for _ in range(SERVE_ITERS):
+            for _ in range(iters):
                 t = time.perf_counter()
                 d = http_json(broker_url + "/query", body)
                 client_ms.append((time.perf_counter() - t) * 1e3)
@@ -2659,16 +2703,18 @@ def deployed_phase(segments, wants, record) -> None:
             for ph in phases:
                 samples = []
                 for a in admin.values():
-                    samples += http_json(f"{a}/debug/samples?timer=phase.{ph}&last={SERVE_ITERS}")["samples"]
+                    samples += http_json(f"{a}/debug/samples?timer=phase.{ph}&last={iters}")["samples"]
                 split[ph] = float(np.median(samples)) if samples else None
-            q = dict(p50_ms=float(np.percentile(broker_ms, 50)), p99_ms=float(np.percentile(broker_ms, 99)),
-                     client_p50_ms=float(np.percentile(client_ms, 50)),
-                     client_p99_ms=float(np.percentile(client_ms, 99)), server_ms=split,
-                     in_process_ms=record["query_ms"].get(name),
-                     phase9_p50_ms=record.get("serving", {}).get("queries", {}).get(name, {}).get("p50_ms"))
+            # a p99 of a few requests is their maximum: name it so
+            tail = "max" if few else "p99"
+            top = max if few else (lambda v: np.percentile(v, 99))
+            q = {"n": iters, "p50_ms": float(np.percentile(broker_ms, 50)), f"{tail}_ms": float(top(broker_ms)),
+                 "client_p50_ms": float(np.percentile(client_ms, 50)), f"client_{tail}_ms": float(top(client_ms)),
+                 "server_ms": split, "in_process_ms": record["query_ms"].get(name),
+                 "phase9_p50_ms": record.get("serving", {}).get("queries", {}).get(name, {}).get("p50_ms")}
             rec["queries"][name] = q
-            log(f"deployed {name}: broker p50 {q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over {SERVE_ITERS} "
-                f"(HTTP client p50 {q['client_p50_ms']:.3f}, p99 {q['client_p99_ms']:.3f}); server medians "
+            log(f"deployed {name}: broker p50 {q['p50_ms']:.3f} ms, {tail} {q[f'{tail}_ms']:.3f} ms over {iters} "
+                f"(HTTP client p50 {q['client_p50_ms']:.3f}, {tail} {q[f'client_{tail}_ms']:.3f}); server medians "
                 f"{ {k: (None if v is None else round(v, 4)) for k, v in split.items()} } ms")
         alive()
     finally:
@@ -2703,8 +2749,8 @@ JOIN_QUERIES = {
 JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
 JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
 JOIN_ITERS = 3  # in-process medians on the host clock (each run extracts up to 67M rows)
-JOIN_SERVE_ITERS = 10  # broker requests a query over TCP
-JOIN_SHUFFLE_ITERS = 5
+JOIN_SERVE_ITERS = 6  # broker requests a query over TCP (10 before phase 13)
+JOIN_SHUFFLE_ITERS = 3  # (5 before phase 13)
 JOIN_DEPLOY_ITERS = 3
 JOIN_PROGRAM_ITERS = 5  # CUDA-event medians of the device program
 
@@ -3172,11 +3218,14 @@ def deployed_join_phase(ssb, wants, record) -> None:
                             "-config-file", config_file], cwd=REPO_DIR, env=env, check=True, timeout=120,
                            capture_output=True)
         t = time.perf_counter()
-        for table in ("lineorder", "part"):
-            for seg in ssb[table]:
-                path = write_segment(seg, os.path.join(tmp, "files", seg.segment_name))
-                with open(path, "rb") as f:
-                    http_json(f"{url}/segments/{table}_OFFLINE", f.read(), "application/octet-stream")
+        tables = [(table, seg) for table in ("lineorder", "part") for seg in ssb[table]]
+        # one thread a file (the bit packing runs in numpy), uploaded in order
+        with concurrent.futures.ThreadPoolExecutor(max(1, os.cpu_count() or 1)) as pool:
+            paths = list(pool.map(lambda ts: write_segment(ts[1], os.path.join(tmp, "files", ts[1].segment_name)),
+                                  tables))
+        for (table, _), path in zip(tables, paths):
+            with open(path, "rb") as f:
+                http_json(f"{url}/segments/{table}_OFFLINE", f.read(), "application/octet-stream")
         upload_s = time.perf_counter() - t
         online_s = max(wait_online(url, broker_url, f"{t_}_OFFLINE", len(ssb[t_]), alive)
                        for t_ in ("lineorder", "part"))
@@ -3449,6 +3498,9 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
     for i, s in enumerate(ad):
         s.star_tree = ad_distinct[i % AD_DISTINCT].star_tree
     rec["build"] = builds
+
+    # the routes line's entries (star-fit segments take the cube first)
+    record_routes(record, "startree", ST_QUERIES, bb, parse)
 
     # 12.2 every query from the cube, then from K1 / K2 with the trees detached
     tables = {"bb_cube": bb, "bb_cube_filtered": bb, "bb_not_fit": bb, "ns_cube": ad}
@@ -3759,6 +3811,406 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
         s.star_tree = None
 
 
+# ---------------------------------------------------------------------------
+# 13. the two filter tiers ahead of the scan: host postings (inverted
+# indexes) and the bit-sliced tier's bitwise passes over bit-planes, on
+# phase 1's lineitem; where they route, what they cost against the scan
+# they replace, and the crossovers on the card
+# ---------------------------------------------------------------------------
+
+TIER_COLUMNS = ("l_shipdate", "l_quantity", "l_extendedprice")  # postings built and warmed at load
+TIER_DATES = (1, 3, 16, 64)  # l_shipdate IN lists (the last past the 1/64 crossover)
+# l_extendedprice BETWEEN ranges holding about these shares of the table
+# (the last just under the 1/64 crossover); 0 is one price, the needle
+TIER_PRICE_SHARES = (0.0, 1 / 4096, 1 / 1024, 1 / 256, 1 / 80)
+TIER_ITERS = 20
+_ZONE_SELECT = ("SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) FROM lineitem "
+                "WHERE {where} GROUP BY l_returnflag, l_linestatus TOP 10")
+BSI_QUERIES = {
+    "bsi_count_sum": "SELECT count(*), sum(l_quantity) FROM lineitem "
+    "WHERE l_quantity IN (5, 10, 15) AND l_shipmode = 'AIR'",
+    # an OR at the root with a negated points leaf: not postings-drivable
+    "bsi_or_minmax": "SELECT count(*), min(l_quantity), max(l_quantity) FROM lineitem "
+    "WHERE l_quantity NOT IN (1, 2) OR l_shipmode = 'AIR'",
+}
+BSI_BATCH_LITERALS = ((5, 10, 15), (1, 2, 3), (20, 25, 30), (4, 8, 12), (33, 36, 39), (41, 44, 47),
+                      (6, 7, 9), (11, 13, 17))
+BSI_BATCH_SIZES = (1, 4, 8)
+
+
+def default_route(req, segs) -> Tuple[str, str]:
+    """The tier the default executor serves ``req`` over ``segs`` from, by
+    the two tiers' own decisions ahead of the scan: "postings",
+    "bitsliced" or "scan" (zone blocks, a full scan or the host tier), with
+    the deciding reason."""
+    from pinot_tpu_torch.engine.bitsliced import bitsliced_decision
+    from pinot_tpu_torch.engine.context import TableContext
+    from pinot_tpu_torch.engine.invindex_path import index_path_decision
+
+    ctx, total = TableContext(segs), sum(s.num_docs for s in segs)
+    post, _ = index_path_decision(req, segs, ctx, total)
+    if post["taken"]:
+        return "postings", post["reason"]
+    bsi, _ = bitsliced_decision(req, segs, ctx, total)
+    if bsi["taken"]:
+        return "bitsliced", bsi["reason"]
+    return "scan", f"postings: {post['reason']}; bitsliced: {bsi['reason']}"
+
+
+def record_routes(record, label: str, pqls: Dict[str, str], segs, parse) -> None:
+    routes = record.setdefault("routes", {})
+    for name, pql in pqls.items():
+        routes[f"{label}/{name}"] = default_route(parse(pql), segs)
+
+
+def _share(col, ids) -> float:
+    """The share of the segment's rows whose dictId is in ``ids``."""
+    counts = np.bincount(np.asarray(col.fwd), minlength=col.dictionary.cardinality)
+    return float(counts[list(ids)].sum() / counts.sum())
+
+
+def _price_range(segments, share: float) -> Tuple[str, float]:
+    """A BETWEEN over l_extendedprice holding about ``share`` of segment 0's
+    rows, from its median price up; returns the filter and the share it
+    holds there."""
+    col = segments[0].column("l_extendedprice")
+    counts = np.bincount(np.asarray(col.fwd), minlength=col.dictionary.cardinality)
+    cum = np.cumsum(counts) / counts.sum()
+    lo = int(np.searchsorted(cum, 0.5))
+    start = cum[lo - 1] if lo else 0.0
+    hi = min(max(lo, int(np.searchsorted(cum, start + share))), counts.size - 1)
+    d = col.dictionary
+    return f"l_extendedprice BETWEEN {d.get(lo)!r} AND {d.get(hi)!r}", _share(col, range(lo, hi + 1))
+
+
+def _crossover(rows: List[int], post_ms: List[float], other_ms: List[float], total: int) -> dict:
+    """Where the postings query and the other route take the same time,
+    from the ladder's points (ascending matched rows): linear between the
+    last point postings wins and the first it loses; below the first point
+    or above the last when it never changes sides there.  Beside it the
+    least-squares slope of the postings ms over the matched rows."""
+    slope = float(np.polyfit(np.asarray(rows, dtype=np.float64), np.asarray(post_ms), 1)[0]) if len(rows) > 1 \
+        else float("nan")
+    diff = [p - o for p, o in zip(post_ms, other_ms)]
+    out = {"ms_per_million_rows": slope * 1e6, "points": list(zip(rows, post_ms, other_ms))}
+    if diff[0] >= 0:
+        out.update(where="below the smallest point", crossover_rows=None, crossover_share=None,
+                   below_rows=rows[0], below_share=rows[0] / total)
+    elif all(d < 0 for d in diff):
+        out.update(where="above the largest point", crossover_rows=None, crossover_share=None,
+                   above_rows=rows[-1], above_share=rows[-1] / total)
+    else:
+        i = next(i for i, d in enumerate(diff) if d >= 0)
+        at = rows[i - 1] + (rows[i] - rows[i - 1]) * -diff[i - 1] / (diff[i] - diff[i - 1])
+        out.update(where="between two points", crossover_rows=float(at), crossover_share=float(at / total))
+    return out
+
+
+def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
+    """13. postings and the bit-sliced tier over phase 1's lineitem (16 x
+    2^23 rows, x32): postings built and warmed at load, the postings
+    ladders against the zone blocks and K1's full scan, the two bit-sliced
+    queries against the scan tier, batched bit-sliced launches, and the
+    bit-sliced programs against their byte bounds."""
+    import warnings
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pinot_tpu_torch.engine import bitsliced as bsl
+    from pinot_tpu_torch.engine import config
+    from pinot_tpu_torch.engine import device as device_mod
+    from pinot_tpu_torch.engine import kernel as kernel_mod
+    from pinot_tpu_torch.engine.context import TableContext
+    from pinot_tpu_torch.engine.device import to_device_inputs
+    from pinot_tpu_torch.engine.executor import QueryExecutor
+    from pinot_tpu_torch.engine.invindex_path import index_path_decision
+    from pinot_tpu_torch.engine.packing import stack_query_inputs
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.segment import invindex as ii
+
+    parse = lambda pql: optimize_request(parse_pql(pql))  # noqa: E731
+    rec = record["tiers"] = {}
+    total = sum(s.num_docs for s in segments)
+    S = len(segments)
+    t_phase = time.perf_counter()
+
+    # 13.1 postings built and warmed as a server loads its segments
+    # (invertedIndexColumns), one thread a segment
+    before = ii.postings_bytes_in_use()
+
+    def warm(seg):
+        t = time.perf_counter()
+        ii.warm_inverted_indexes(seg, TIER_COLUMNS)
+        return time.perf_counter() - t
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(max(1, min(S, os.cpu_count() or 1))) as pool:
+        secs = list(pool.map(warm, segments))
+    wall = time.perf_counter() - t
+    by_col = {}
+    for c in TIER_COLUMNS:
+        idx = [s._inv_cache[c] for s in segments]
+        if any(not isinstance(i, ii.InvertedIndex) for i in idx):
+            raise AssertionError(f"postings for {c} were refused: {[type(i).__name__ for i in idx]}")
+        kinds = np.bincount([b.kind for i in idx for b in (i.blocks or ())], minlength=3)
+        by_col[c] = {"bytes": sum(i.nbytes for i in idx), "run_blocks": int(kinds[ii._RUN]),
+                     "packed_blocks": int(kinds[ii._PACKED]), "raw_bytes": 4 * total}
+    rec["postings_build"] = {"wall_s": wall, "s_per_segment": secs, "by_column": by_col,
+                             "budget_bytes": ii._budget_bytes(),
+                             "in_use_bytes": ii.postings_bytes_in_use() - before, "threads": pool._max_workers}
+    log(f"tiers postings build: {wall:.1f} s wall over {S} segments in {pool._max_workers} threads, "
+        f"{float(np.median(secs)):.3f} s a segment (median; {min(secs):.3f}-{max(secs):.3f}) for "
+        f"{len(TIER_COLUMNS)} columns; by column {by_col}; {rec['postings_build']['in_use_bytes']} bytes of "
+        f"the {ii._budget_bytes()}-byte budget")
+
+    # 13.2 the postings ladders, each query three ways: the default route,
+    # postings off (zone blocks on the sorted l_shipdate, a full scan on the
+    # unsorted l_extendedprice), and postings and zone maps off (K1's full
+    # scan); every answer equal to the full scan's
+    col = segments[0].column("l_shipdate")
+    step = col.dictionary.cardinality // max(TIER_DATES)
+    ladder = {}
+    for n in TIER_DATES:
+        ids = [col.dictionary.index_of(ZONE_DATES[1])] if n == 1 else [i * step for i in range(n)]
+        where = "l_shipdate IN ('" + "','".join(col.dictionary.get(i) for i in ids) + "')"
+        ladder[f"dates_{n}"] = (_ZONE_SELECT.format(where=where), _share(col, ids))
+    for share in TIER_PRICE_SHARES:
+        where, held = _price_range(segments, share)
+        ladder["price_needle" if not share else f"price_1/{round(1 / share)}"] = (_ZONE_SELECT.format(where=where),
+                                                                                  held)
+    tex = QueryExecutor(device=dev, precision="x32")
+    routes = {"default": (True, True), "blocks": (False, True), "full": (False, False)}
+    answers: Dict[str, Dict[str, Any]] = {}
+    rec["ladder"] = {}
+    for route, (postings, zone_maps) in routes.items():
+        tex.postings, tex.zone_maps = postings, zone_maps
+        reqs = {k: parse(v[0]) for k, v in ladder.items()}
+        need = {} if route == "default" else {k: ("k1",) for k in reqs}
+        answers[route] = drive(f"tiers_{route}", reqs, segments, need, executor=tex)
+        decisions = tex.metrics.timer("phase.tierDecision")
+        for name, req in reqs.items():
+            res = tex.execute(segments, req)
+            before = decisions.count
+            ms, _ = cuda_ms(lambda: reduce_to_response(req, [tex.execute(segments, req)]), TIER_ITERS)
+            # the two tiers' decisions where both declined (host clock)
+            took = decisions.samples()[-(decisions.count - before):] if decisions.count > before else []
+            tiers = {k: v for k, v in res.cost.items() if k.startswith("segments")}
+            rec["ladder"].setdefault(name, {"pql": ladder[name][0], "share": ladder[name][1]})[route] = dict(
+                ms=ms, tier=res._served_tier, cost_tiers=tiers, matched=res.num_docs_scanned,
+                entries_in_filter=res.num_entries_scanned_in_filter,
+                tier_decision_ms=float(np.median(took)) if took else None,
+                launches=record["paths"][f"tiers_{route}"]["launches"][name])
+    # K1 at the ladders' shapes (a 16-date match table over the block table,
+    # a price BETWEEN over the full scan), held against its plain version in
+    # every tier; these launches are not the path's
+    rec["k1"] = {}
+    for name, (postings, zone_maps) in (("dates_16", (False, True)), ("price_1/80", (False, False))):
+        tex.postings, tex.zone_maps = postings, zone_maps
+        req = parse(ladder[name][0])
+        rec["k1"][name] = dict(k1_captured(fg, f"tiers {name} {'blocks' if zone_maps else 'full scan'}",
+                                           lambda: tex.execute(segments, req)),
+                               route="blocks" if zone_maps else "full")
+    tex.postings, tex.zone_maps = True, True
+    for name in ladder:
+        r = rec["ladder"][name]
+        for route in ("default", "blocks"):
+            check_response(answers[route][name], response_as_want(answers["full"][name]))
+        if r["default"]["tier"] == "postings" and any(r["default"]["launches"].values()):
+            raise AssertionError(f"tiers {name}: the postings route launched {r['default']['launches']}")
+        log(f"tiers ladder {name} (about {r['share']:.3g} of the table, {r['full']['matched']} rows matched): "
+            + "; ".join(f"{route} {r[route]['ms']:.3f} ms by {r[route]['tier']} {r[route]['cost_tiers']}, "
+                        f"{r[route]['entries_in_filter']} entries in the filter, tier decisions "
+                        + ("none (a tier served)" if r[route]["tier_decision_ms"] is None else
+                           f"{r[route]['tier_decision_ms']:.4f} ms") for route in routes)
+            + "; answers equal (counts exact, sums in the audit band)")
+    price = [n for n in ladder if n.startswith("price_")]
+    dates = [n for n in ladder if n.startswith("dates_")]
+    cross = {}
+    for label, names, other in (("unsorted_vs_full_scan", price, "full"), ("sorted_vs_blocks", dates, "blocks"),
+                                ("sorted_vs_full_scan", dates, "full")):
+        served = sorted((n for n in names if rec["ladder"][n]["default"]["tier"] == "postings"),
+                        key=lambda n: rec["ladder"][n]["full"]["matched"])
+        if not served:
+            continue
+        c = cross[label] = _crossover([rec["ladder"][n]["full"]["matched"] for n in served],
+                                      [rec["ladder"][n]["default"]["ms"] for n in served],
+                                      [rec["ladder"][n][other]["ms"] for n in served], total)
+        at = (f"at {c['crossover_rows']:.0f} rows, {c['crossover_share']:.3g} of the table"
+              if c["crossover_rows"] is not None else
+              f"{c['where']} ({c.get('below_rows', c.get('above_rows'))} rows, "
+              f"{c.get('below_share', c.get('above_share')):.3g} of the table)")
+        log(f"tiers crossover {label}: postings take {c['ms_per_million_rows']:.3f} ms per million matched rows "
+            f"(least squares); postings and {other} take the same time {at} (the model's crossover: 1/64 = "
+            f"0.0156); points (rows, postings ms, {other} ms) {[(r, round(a, 3), round(b, 3)) for r, a, b in c['points']]}")
+    rec["crossover"] = cross
+
+    # 13.3 the bit-sliced tier: both decisions taken (postings declined
+    # first), the answers exactly the scan tier's, the program against its
+    # byte bound, its planes' staging, and the host syncs of one call
+    ctx = TableContext(segments)
+    bex = QueryExecutor(device=dev, precision="x32", bitsliced=False)
+    captured: Dict[str, Any] = {}
+    real_maker = bsl.make_packed_bitsliced_kernel
+
+    def capturing(spec):
+        k = real_maker(spec)
+
+        class Capture:
+            fetch = staticmethod(k.fetch)
+
+            @staticmethod
+            def dispatch(segs, q):
+                captured["bsi"] = (spec, segs, q)
+                return k.dispatch(segs, q)
+
+        return Capture
+
+    rec["bitsliced"] = {}
+    staging_seen: Dict[str, dict] = {}
+    bsl.make_packed_bitsliced_kernel = capturing
+    try:
+        bsi_answers = drive("tiers_bitsliced", {k: parse(v) for k, v in BSI_QUERIES.items()}, segments, {},
+                            executor=tex)
+    finally:
+        bsl.make_packed_bitsliced_kernel = real_maker
+    for name, pql in BSI_QUERIES.items():
+        req = parse(pql)
+        post, _ = index_path_decision(req, segments, ctx, total)
+        decision, state = bsl.bitsliced_decision(req, segments, ctx, total)
+        log(f"tiers {name}: postings {post}; bit-sliced {decision}")
+        if post["taken"] or not decision["taken"]:
+            raise AssertionError(f"tiers {name}: the bit-sliced tier does not serve it")
+        res = tex.execute(segments, req)
+        scan = bex.execute(segments, parse(pql))
+        if res._served_tier != "bitsliced" or res.cost.get("segmentsBitsliced") != S:
+            raise AssertionError(f"tiers {name}: served by {res._served_tier}, cost {res.cost}")
+        got = [a.value for a in bsi_answers[name].aggregation_results]
+        want = [a.value for a in reduce_to_response(req, [scan]).aggregation_results]
+        if got != want:
+            raise AssertionError(f"tiers {name}: bit-sliced {got} != scan {want}")
+        spec, leaves, agg_descs, planes_total, filter_planes = state
+        # the program's inputs as the tier hands them over: capture one call
+        captured.clear()
+        bsl.make_packed_bitsliced_kernel = capturing
+        try:
+            tex.execute(segments, req)
+        finally:
+            bsl.make_packed_bitsliced_kernel = real_maker
+        _, segs_in, q_in = captured["bsi"]
+        program = kernel_mod.make_single_segment_bitsliced_kernel(spec)
+        packed = real_maker(spec)
+        prog_ms, _ = cuda_ms(lambda: program(segs_in, q_in), TIER_ITERS)
+        call_ms, _ = cuda_ms(lambda: packed(segs_in, q_in), TIER_ITERS)
+        q_ms, _ = cuda_ms(lambda: reduce_to_response(req, [tex.execute(segments, req)]), TIER_ITERS)
+        scan_ms, _ = cuda_ms(lambda: reduce_to_response(req, [bex.execute(segments, req)]), TIER_ITERS)
+        n_words = int(segs_in[next(k for k in segs_in if k.startswith("p:"))].shape[-1])
+        # the bound reads each staged plane once (a column's planes serve the
+        # filter, min and max alike); beside it the plane reads the program
+        # makes, planes_total (a plane per use)
+        distinct = sum(t.numel() * 4 for k, t in segs_in.items() if k != "nd")
+        bound = distinct / HBM_BYTES_PER_S * 1e3
+        reads_bound = planes_total * n_words * 4 * S / HBM_BYTES_PER_S * 1e3
+        # the scan it replaces: K1 launches of one scan-route run
+        k1_before = fg.launches
+        bex.execute(segments, req)
+        scan_k1 = fg.launches - k1_before
+        # staging of its planes: host encode, bytes, the upload (each
+        # column's planes measured once over both queries)
+        stage = {}
+        n_pad = config.pad_docs(max(s_.num_docs for s_ in segments))
+        cols_all = sorted({c for _, c, _, _ in spec[0]} | {c for c, _, _ in spec[3]})
+        for col in cols_all + [f"{c}:value" for c, _ in spec[2]]:
+            if col in staging_seen:
+                stage[col] = staging_seen[col]
+                continue
+            base = col.split(":")[0]
+            cols = [s.column(base) for s in segments]
+            t = time.perf_counter()
+            if col.endswith(":value"):
+                width, vmins = device_mod.bsiv_value_spec(cols)
+                host = device_mod._bsiv_planes(cols, S, n_pad, width, vmins, dev)
+            else:
+                host = device_mod._bsi_planes(cols, S, n_pad, device_mod.bsi_filter_width(cols), dev)
+            enc_s = time.perf_counter() - t
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            host.to(dev, non_blocking=True)
+            torch.cuda.synchronize()
+            stage[col] = staging_seen[col] = {"bytes": host.numel() * 4, "encode_s": enc_s,
+                                              "h2d_s": time.perf_counter() - t}
+            del host
+        # host syncs in one warm call: the sync debugger flags every
+        # synchronizing op; the packed fetch's event wait is the one by design
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                tex.execute(segments, req)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # (the debugger's own "prototype feature" notice is not a sync)
+        syncs = [str(w.message)[:120] for w in caught if "called a synchronizing" in str(w.message)]
+        r = rec["bitsliced"][name] = dict(
+            decision=decision, answers=got, query_ms=q_ms, scan_query_ms=scan_ms, scan_k1_launches=scan_k1,
+            program_ms=prog_ms, packed_call_ms=call_ms, bound_ms=bound, bound_by="bytes",
+            planes=planes_total, filter_planes=filter_planes, n_words=n_words,
+            distinct_plane_bytes=distinct, plane_reads_bound_ms=reads_bound,
+            staging=stage, sync_debug_warnings=syncs, fetch_event_waits=1,
+            entries_in_filter=res.num_entries_scanned_in_filter, bytes_scanned=res.cost["bytesScanned"])
+        log(f"tiers {name}: answers {got} equal the scan tier's exactly; query {q_ms:.3f} ms against the scan "
+            f"tier's {scan_ms:.3f} ms ({scan_k1} K1 launches there); the program {prog_ms:.4f} ms, with the packed "
+            f"fetch {call_ms:.4f} ms (bound {bound:.4f} ms by bytes: the staged planes read once, {distinct} B; "
+            f"{bound / prog_ms:.3f} of the bound; a read a use, {planes_total} planes x {n_words} words x 4 B x {S} "
+            f"segments, {reads_bound:.4f} ms); staging {stage}; {len(syncs)} synchronizing ops flagged in one "
+            f"call {syncs[:3]} "
+            f"besides the packed fetch's one event wait; numEntriesScannedInFilter "
+            f"{r['entries_in_filter']}, bytesScanned {r['bytes_scanned']}")
+
+    # 13.4 batched bit-sliced launches: bsi_count_sum at 8 IN literals, each
+    # member torch.equal to its own solo launch, at B = 1, 4, 8
+    base = BSI_QUERIES["bsi_count_sum"]
+    members, spec = [], None
+    for lits in BSI_BATCH_LITERALS:
+        req = parse(base.replace("(5, 10, 15)", "(" + ", ".join(map(str, lits)) + ")"))
+        _, state = bsl.bitsliced_decision(req, segments, ctx, total)
+        if state is None or (spec is not None and state[0] != spec):
+            raise AssertionError(f"tiers batched {lits}: not the same bit-sliced spec")
+        spec = state[0]
+        members.append(bsl._query_inputs(state[1], segments, S))
+    captured.clear()
+    bsl.make_packed_bitsliced_kernel = capturing
+    try:
+        tex.execute(segments, parse(base))
+    finally:
+        bsl.make_packed_bitsliced_kernel = real_maker
+    _, segs_in, _ = captured["bsi"]
+    program = kernel_mod.make_single_segment_bitsliced_kernel(spec)
+    solo_q = [to_device_inputs(m, dev) for m in members]
+    solo_out = [program(segs_in, q) for q in solo_q]
+    # a member against one solo launch (the loop of B solo launches below
+    # also times the host's back-to-back launch of B programs)
+    one_ms, _ = cuda_ms(lambda: program(segs_in, solo_q[0]), TIER_ITERS)
+    rec["batched"] = {}
+    for B in BSI_BATCH_SIZES:
+        qb = to_device_inputs(stack_query_inputs(members[:B]), dev)
+        out = program(segs_in, qb)
+        for b in range(B):
+            for k, v in solo_out[b].items():
+                if not torch.equal(out[k][b], v):
+                    raise AssertionError(f"tiers batched B={B} member {b} {k}: differs from its solo launch")
+        ms, _ = cuda_ms(lambda: program(segs_in, qb), TIER_ITERS)
+        solo_ms, _ = cuda_ms(lambda: [program(segs_in, q) for q in solo_q[:B]], TIER_ITERS)
+        rec["batched"][B] = {"ms": ms, "per_member_ms": ms / B, "solo_total_ms": solo_ms, "one_solo_ms": one_ms,
+                             "member_over_one_solo": ms / B / one_ms}
+        log(f"tiers batched bsi_count_sum B={B}: every member torch.equal to its solo launch; {ms:.4f} ms a "
+            f"launch, {ms / B:.4f} ms a member, {ms / B / one_ms:.3f} of one solo launch ({one_ms:.4f} ms); {B} "
+            f"solo launches {solo_ms:.4f} ms")
+    tex.free_staging()
+    bex.free_staging()
+    torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -3774,6 +4226,9 @@ def main(argv=None) -> int:
     ap.add_argument("--startree-only", action="store_true",
                     help="after the build and the kernel checks run only phase 12, the star-tree "
                     "tables (no result line)")
+    ap.add_argument("--tiers-only", action="store_true",
+                    help="after the build, the kernel checks and lineitem's datagen run only phase 13, "
+                    "the postings and bit-sliced tiers (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -3811,7 +4266,40 @@ def run(dev: torch.device, opts) -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     record["card"] = card
 
-    # 1. build every kernel: one nvcc per source, all started together
+    # 1. build every kernel: one nvcc per source, all started together. The
+    # main run's tables are made meanwhile, in threads: the build only waits
+    # on its nvcc processes
+    def made(make):
+        t = time.perf_counter()
+        return make(), time.perf_counter() - t
+
+    def lineitem():
+        return [synthetic_lineitem_segment(ROWS_PER_SEGMENT, seed=11 + i, name=f"li{i}") for i in range(SEGMENTS)]
+
+    def adevents():
+        distinct = [synthetic_adevents_segment(ROWS_PER_SEGMENT, seed=7 + i, name=f"ad{i}",
+                                               campaign_card=AD_CAMPAIGNS, user_card=AD_USERS)
+                    for i in range(AD_DISTINCT)]
+        for s in distinct:  # the per-dictionary hashing, once, outside the timed path
+            hll_mod.dictionary_tables(s.column("user_id").dictionary)
+        return distinct
+
+    def mvtest():
+        distinct = [synthetic_mv_segment(ROWS_PER_SEGMENT, seed=31 + i, name=f"mv{i}", cardinality=MV_CARDINALITY,
+                                         mv_max=MV_MAX)
+                    for i in range(MV_DISTINCT)]
+        for s in distinct:  # the per-dictionary hashing, once, outside the timed path
+            hll_mod.dictionary_tables(s.column("dimStrMV").dictionary)
+        return distinct
+
+    makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
+    if opts.kernels_only or opts.joins_only or opts.startree_only:
+        makers = {}
+    elif opts.tiers_only:
+        makers = {"lineitem": lineitem}
+    datagen = concurrent.futures.ThreadPoolExecutor(max(1, len(makers)))
+    tables = {name: datagen.submit(made, make) for name, make in makers.items()}
+    datagen.shutdown(wait=False)
     t0 = time.perf_counter()
     kernels.load_all()
     build_s = time.perf_counter() - t0
@@ -3900,15 +4388,13 @@ def run(dev: torch.device, opts) -> int:
         log(f"kernels only: build, checks and probes done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
-    # 3. the paths at full size, x32 as the TPU served
-    t0 = time.perf_counter()
-    segments = [
-        synthetic_lineitem_segment(ROWS_PER_SEGMENT, seed=11 + i, name=f"li{i}")
-        for i in range(SEGMENTS)
-    ]
+    # 3. the paths at full size, x32 as the TPU served; every table is made
+    # before the first timing, so no datagen thread runs beside one
+    tables = {name: fut.result() for name, fut in tables.items()}
+    segments, gen_s = tables["lineitem"]
     total_rows = sum(s.num_docs for s in segments)
-    log(f"datagen: {SEGMENTS} x {ROWS_PER_SEGMENT} = {total_rows} rows "
-        f"in {time.perf_counter() - t0:.1f} s")
+    log(f"datagen: {SEGMENTS} x {ROWS_PER_SEGMENT} = {total_rows} rows in {gen_s:.1f} s (in a thread, beside the "
+        f"build)")
     ex = QueryExecutor(device=dev, precision="x32")
     parse = lambda pql: optimize_request(parse_pql(pql))  # noqa: E731
     requests = {k: parse(v) for k, v in QUERIES.items()}
@@ -3946,6 +4432,16 @@ def run(dev: torch.device, opts) -> int:
             f"launches per query {per_query}, total {totals}")
         record.setdefault("paths", {})[path] = {"launches": per_query, "totals": totals, "wall_s": wall_s}
         return out
+
+    if opts.tiers_only:
+        tiers_phase(dev, segments, record, fg, vsc, drive)
+        record_routes(record, "lineitem", {**ZONE_QUERIES, **BSI_QUERIES}, segments, parse)
+        log(f"routes: {record['routes']}")
+        log(f"tiers only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
 
     # 3a. slice 1: Q1, Q3, RANGE through K1's fused route, which combines
     # the group key inside the kernel: no torch-op key combine may run
@@ -4001,17 +4497,10 @@ def run(dev: torch.device, opts) -> int:
     record["oracle_max_rel_err"]["torch_op"] = worst
 
     # 3d. the north-star HLL group-by: HLL streams, the sort lowering
-    t0 = time.perf_counter()
-    ad_distinct = [
-        synthetic_adevents_segment(ROWS_PER_SEGMENT, seed=7 + i, name=f"ad{i}",
-                                   campaign_card=AD_CAMPAIGNS, user_card=AD_USERS)
-        for i in range(AD_DISTINCT)
-    ]
+    ad_distinct, gen_s = tables["adevents"]
     ad_segments = tile_segments(ad_distinct, SEGMENTS)
-    for s in ad_distinct:  # the per-dictionary hashing, once, outside the timed path
-        hll_mod.dictionary_tables(s.column("user_id").dictionary)
     log(f"datagen + user hashing: {AD_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to "
-        f"{SEGMENTS} segments in {time.perf_counter() - t0:.1f} s")
+        f"{SEGMENTS} segments in {gen_s:.1f} s (in a thread, beside the build)")
     ns_request = parse(NORTH_STAR)
     ns = drive("north_star", {"north_star": ns_request}, ad_segments, {"north_star": ("k1",)})
     if record["paths"]["north_star"]["totals"]["k2"]:
@@ -4438,21 +4927,17 @@ def run(dev: torch.device, opts) -> int:
     record["staged_bytes_by_table"] = {"lineitem+adevents": ex.staged_bytes()}
     ex._staged.clear()
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    mv_distinct = [
-        synthetic_mv_segment(ROWS_PER_SEGMENT, seed=31 + i, name=f"mv{i}", cardinality=MV_CARDINALITY,
-                             mv_max=MV_MAX)
-        for i in range(MV_DISTINCT)
-    ]
+    mv_distinct, gen_s = tables["mvtest"]
     mv_segments = tile_segments(mv_distinct, SEGMENTS)
-    for s_ in mv_distinct:  # the per-dictionary hashing, once, outside the timed path
-        hll_mod.dictionary_tables(s_.column("dimStrMV").dictionary)
     entries = {c: sum(int(s_.column(c).mv_offsets[-1]) for s_ in mv_segments) for c in ("dimStrMV", "dimIntMV")}
     log(f"datagen mvtest: {MV_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to {SEGMENTS} segments, "
-        f"MV entries {entries} in {time.perf_counter() - t0:.1f} s")
+        f"MV entries {entries} in {gen_s:.1f} s (in a thread, beside the build)")
     values = mv_query_values(mv_segments)
     mv_requests = {k: parse(v.format(**values)) for k, v in MV_QUERIES.items()}
-    mv_ex = QueryExecutor(device=dev, precision="x32")
+    # past the postings tier: mv_filter's three-value IN would be answered
+    # from host postings (phase 13's routes line), and this phase holds K1 at
+    # its shape
+    mv_ex = QueryExecutor(device=dev, precision="x32", postings=False)
     mv_need = {"mv_filter": ("k1",), "mv_groupby": ("k1",), "mv_aggs": ("k2",), "mv_grouped_state": ("k2",)}
     mv_answers = drive("mv", mv_requests, mv_segments, mv_need, executor=mv_ex)
     if kernel_mod.fused_dispatches or kernel_mod.fused_value_dispatches:
@@ -4558,8 +5043,10 @@ def run(dev: torch.device, opts) -> int:
     zone_requests = {k: parse(v) for k, v in ZONE_QUERIES.items()}
     wants["zone_in"] = oracle(segments, "zone_in")
     wants["zone_distinct"] = value_oracle(hll_mod, segments, "zone_distinct")
-    zex = QueryExecutor(device=dev, precision="x32")
-    zfull = QueryExecutor(device=dev, precision="x32", zone_maps=False)
+    # past the postings tier, which serves both three-date lists by default
+    # (phase 13 and the deployed cluster); this phase holds the block path
+    zex = QueryExecutor(device=dev, precision="x32", postings=False)
+    zfull = QueryExecutor(device=dev, precision="x32", postings=False, zone_maps=False)
     zone_need = {"zone_in": ("k1",), "zone_distinct": ("k2",)}
     record["zone"] = {}
     for path, executor, blocks in (("zone_blocks", zex, 2), ("zone_full", zfull, 0)):
@@ -4740,6 +5227,33 @@ def run(dev: torch.device, opts) -> int:
     startree_phase(dev, record, fg, vsc, ad_distinct=ad_distinct, ns_want=ns_want)
     log(f"startree phase: {time.perf_counter() - t0:.1f} s")
 
+    # 13. the postings and bit-sliced tiers over phase 1's lineitem
+    t0 = time.perf_counter()
+    tiers_phase(dev, segments, record, fg, vsc, drive)
+    log(f"tiers phase: {time.perf_counter() - t0:.1f} s")
+
+    # the routes line: the tier the default executor serves each query of
+    # phases 1-13 from (the mvtest queries decided on one distinct segment:
+    # the shares are the same, and its postings are built once, then freed)
+    from pinot_tpu_torch.segment.invindex import release_postings
+
+    t0 = time.perf_counter()
+    lineitem_pqls = {**QUERIES, **VALUE_QUERIES, "torch_op": TORCH_OP_QUERY, **SELECTION_QUERIES,
+                     **{k: PAIR_QUERIES[k] for k in ("pairs_pct", "pairs_distinct")},
+                     "host_groups": HOST_QUERIES["host_groups"], **ZONE_QUERIES, **BSI_QUERIES,
+                     **{f"q1_at/{d_}": q1_at(d_) for d_ in BATCH_DATES},
+                     **{f"range_at/{t_}": range_at(t_) for t_ in QTY_LADDER},
+                     **{f"distinct_at/{t_}": distinct_at(t_) for t_ in QTY_LADDER},
+                     **{f"hll_at/{m_}": hll_at(m_) for m_ in SHIP_MODES}}
+    record_routes(record, "lineitem", lineitem_pqls, segments, parse)
+    record_routes(record, "adevents", {k: PAIR_QUERIES[k] for k in ("reach_exact", "reach_hll_site")}
+                  | {"north_star": NORTH_STAR, "reach_overflow": HOST_QUERIES["reach_overflow"]}, ad_segments, parse)
+    record_routes(record, "mvtest", {k: v.format(**values) for k, v in MV_QUERIES.items()}, mv_distinct[:1], parse)
+    release_postings(mv_distinct[0])
+    routes = {k: v[0] for k, v in record["routes"].items()}
+    log(f"routes ({time.perf_counter() - t0:.1f} s; the joins take the join phase, neither tier): "
+        f"{json.dumps(routes)}")
+
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():
         for kern in launches:
@@ -4787,6 +5301,7 @@ def run(dev: torch.device, opts) -> int:
                                       launches=record["paths"]["joins"]["launches"][name]["k1"])
                            for name in JOIN_QUERIES if "k1" in record["joins"]["stages"][name]},
             "startree_shape": record["startree"]["k1"],
+            "tiers_shape": record["tiers"]["k1"],
         },
         {
             "name": "value_state_counts",
@@ -4807,6 +5322,18 @@ def run(dev: torch.device, opts) -> int:
         batched_entry("fused_filtered_groupby_sums_batched", summary["kernels"][0], "q1_dates", "k1_batched"),
         batched_entry("value_state_batched", summary["kernels"][1], "distinct_price_qty", "k2_batched"),
     ]
+    tr = record["tiers"]
+    summary["tiers"] = {
+        "postings_build_s_per_segment": float(np.median(tr["postings_build"]["s_per_segment"])),
+        "postings_bytes": {c: v["bytes"] for c, v in tr["postings_build"]["by_column"].items()},
+        "crossover": {k: {f: v.get(f) for f in ("where", "crossover_share", "below_share", "above_share")}
+                      for k, v in tr["crossover"].items()},
+        "bitsliced": {n: {k: r[k] for k in ("program_ms", "packed_call_ms", "bound_ms", "query_ms", "scan_query_ms",
+                                            "planes")} for n, r in tr["bitsliced"].items()},
+        "batched_ms": {B: r["ms"] for B, r in tr["batched"].items()},
+        "batched_member_over_one_solo": {B: r["member_over_one_solo"] for B, r in tr["batched"].items()},
+        "routes": {t: sum(1 for v in routes.values() if v == t) for t in sorted(set(routes.values()))},
+    }
     record["summary"] = summary
     record["wall_s"] = time.perf_counter() - t_start
     log(f"wall: {record['wall_s']:.1f} s")

@@ -64,6 +64,26 @@ JOIN_BROADCAST_BYTES = 4 << 20
 JOIN_SPLIT = True
 JOIN_HEAVY_FACTOR = 0.5
 
+# The filter tiers (engine/tiercost.py, engine/invindex_path.py,
+# engine/bitsliced.py): the reference's PINOT_TPU_TIER_COST_* defaults
+# (pinot_tpu/engine/tiercost.py:20-46) as constants that read no
+# environment.  They come from the reference's own calibration, not from
+# the card: a postings / scan crossover at 1/64 of the table, host
+# postings at 10 ns a row, the scan at 0.35 ns a row plus a 200 us
+# dispatch floor, a bit-sliced pass at 0.011 ns a row a plane, at most
+# 24 planes.
+POSTINGS_MATCH_FRACTION = 1.0 / 64.0
+POSTINGS_NS_PER_ROW = 10.0
+SCAN_NS_PER_ROW = 0.35
+DISPATCH_FLOOR_NS = 200_000.0
+BSI_NS_PER_ROW_PER_PLANE = 0.011
+BSI_MAX_PLANES = 24
+# the postings tier's process-wide byte budget (PINOT_TPU_INVINDEX_BUDGET_BYTES)
+# and a fixed match limit in place of the cost model's
+# (PINOT_TPU_INDEX_MAX_MATCHES; None: the cost model's)
+INVINDEX_BUDGET_BYTES = 2 << 30
+INDEX_MAX_MATCHES: Optional[int] = None
+
 # Group-by dense-holder cap (reference caps ARRAY_BASED key space at 1M,
 # DefaultGroupKeyGenerator.java): beyond this the host tier's hash path
 # runs (engine/host_fallback.py).

@@ -13,6 +13,8 @@ Layout (S = number of segments stacked on the leading axis):
   gfwd       uint8/int16/int32 [S, n_pad]   global-dictId forward index
   hll_bucket uint8             [S, n_pad]   HLL register index per row
   hll_rho    uint8             [S, n_pad]   HLL rank per row
+  bsi        int32             [S, W, nw]   dictId bit-planes (bit-sliced tier)
+  bsiv       int32             [S, Wv, nw]  value-offset bit-planes (fused SUM)
   num_docs   int32             [S]          true doc count per segment
 
 Integer widths are the narrowest that hold the column's dictIds
@@ -22,6 +24,13 @@ it from ``row < num_docs`` and MV entry validity from ``entry <
 mv_counts``.  ``mv_pad`` is the pow2 bucket (``config.pad_card``) of the
 longest row.  Each array is built once on the host in pinned memory and
 moved with one host-to-device copy.
+
+The bit-sliced tier's planes (``engine/bitsliced.py``) pack row r of plane
+b at bit r % 32 of word r // 32 (``nw = ceil(n_pad / 32)`` words), encoded
+on the host by ``packing.bitslice_encode``.  They are int32 on the card
+where the reference stages uint32: torch shifts only signed words (no
+``>>`` for uint32), and the bits are the same.  Like every other role they
+can be attached to a table already staged (``get_staged``).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from pinot_tpu_torch.common.schema import DataType
 from pinot_tpu_torch.engine import config
 from pinot_tpu_torch.engine.config import Precision
 from pinot_tpu_torch.engine.hll import dictionary_tables
+from pinot_tpu_torch.engine.packing import bit_width, bitslice_encode, integral_dictionary_values
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 
 
@@ -58,6 +68,13 @@ class StagedColumn:
     mv: Optional[torch.Tensor] = None
     mv_counts: Optional[torch.Tensor] = None
     mv_raw: Optional[torch.Tensor] = None
+    # bit-sliced tier planes: dictId planes for the bitwise filter and
+    # min / max, value-offset planes (value - per-segment vmin) for SUM
+    bsi: Optional[torch.Tensor] = None  # int32 [S, W, nw]
+    bsiv: Optional[torch.Tensor] = None  # int32 [S, Wv, nw]
+    bsi_width: int = 0
+    bsiv_width: int = 0
+    bsiv_min: Optional[Tuple[int, ...]] = None  # per-segment integer vmin
 
     @property
     def is_numeric(self) -> bool:
@@ -67,7 +84,7 @@ class StagedColumn:
         return [
             t
             for t in (self.fwd, self.dict_vals, self.raw, self.gfwd, self.hll_bucket, self.hll_rho,
-                      self.mv, self.mv_counts, self.mv_raw)
+                      self.mv, self.mv_counts, self.mv_raw, self.bsi, self.bsiv)
             if t is not None
         ]
 
@@ -143,6 +160,8 @@ def stage_segments(
     ctx=None,
     skip_base_columns: Sequence[str] = (),
     hll_columns: Sequence[str] = (),
+    bsi_columns: Sequence[str] = (),
+    bsiv_columns: Sequence[str] = (),
 ) -> StagedTable:
     """Stack + pad + transfer the given columns.
 
@@ -151,8 +170,10 @@ def stage_segments(
     ``ctx``) stage global-dictId forward arrays; ``hll_columns`` (SV)
     stage per-row HLL (register, rank) uint8 streams;
     ``skip_base_columns`` (SV) are read only through such a role array,
-    so their ``fwd``/``dict_vals`` are not uploaded.  An MV column always
-    stages ``mv`` and ``mv_counts``."""
+    so their ``fwd``/``dict_vals`` are not uploaded; ``bsi_columns`` /
+    ``bsiv_columns`` (SV) stage the bit-sliced tier's planes
+    (``attach_bsi``).  An MV column always stages ``mv`` and
+    ``mv_counts``."""
     S = len(segments)
     n_pad = config.pad_docs(max(seg.num_docs for seg in segments))
     num_docs = torch.tensor([s.num_docs for s in segments], dtype=torch.int32)
@@ -212,6 +233,7 @@ def stage_segments(
             sc.hll_bucket = _put(hb, device)
             sc.hll_rho = _put(hr, device)
         staged.columns[name] = sc
+    attach_bsi(staged, segments, bsi_columns, bsiv_columns)
     return staged
 
 
@@ -270,6 +292,110 @@ def _hll_streams(cols, S: int, n_pad: int, device: torch.device):
     return hb, hr
 
 
+# ---------------------------------------------------------------------------
+# Bit-sliced tier staging (engine/bitsliced.py; pinot_tpu/engine/device.py:
+# 315-380 and its _augment_staged): the planes are built on the host with
+# the packing encoder, stacked [S, W, nw] and attached as role arrays.
+# ---------------------------------------------------------------------------
+
+
+def bsi_filter_width(cols) -> int:
+    """Uniform dictId plane count across segments: enough planes for the
+    widest per-segment dictionary."""
+    return max(bit_width(max(c.dictionary.cardinality - 1, 0)) for c in cols)
+
+
+def bsiv_value_spec(cols) -> "Optional[Tuple[int, Tuple[int, ...]]]":
+    """(plane count, per-segment integer vmin) for value-offset planes, or
+    None when any segment's dictionary is not exactly integral: a fused
+    SUM is offered only where it is bit-exact against the scan tier."""
+    vmins = []
+    width = 1
+    for c in cols:
+        iv = integral_dictionary_values(c.dictionary.values)
+        if iv is None:
+            return None
+        vmin, vmax = int(iv.min()), int(iv.max())
+        vmins.append(vmin)
+        width = max(width, bit_width(vmax - vmin))
+    if width > 32:
+        return None
+    return width, tuple(vmins)
+
+
+def _plane_words(n_pad: int) -> int:
+    # round up: a segment smaller than one 32-row word still needs a word
+    return max(1, (n_pad + 31) // 32)
+
+
+def _encode_planes(rows, S: int, n_pad: int, width: int, device: torch.device) -> torch.Tensor:
+    """int32 [S, width, nw] planes of S per-segment value arrays (a
+    callable ``rows(i)`` each), encoded a segment a thread (numpy's bit
+    packing releases the GIL) into one pinned host buffer."""
+    nw = _plane_words(n_pad)
+    host = _host_zeros((S, width, nw), np.int32, device)
+    h = host.numpy()
+
+    def fill(i: int) -> None:
+        h[i] = bitslice_encode(rows(i), width, nw).view(np.int32)
+
+    with ThreadPoolExecutor(max(1, min(S, os.cpu_count() or 1))) as pool:
+        list(pool.map(fill, range(S)))
+    return host
+
+
+def _bsi_planes(cols, S: int, n_pad: int, width: int, device: torch.device) -> torch.Tensor:
+    return _encode_planes(lambda i: np.asarray(cols[i].fwd), S, n_pad, width, device)
+
+
+def _bsiv_planes(cols, S: int, n_pad: int, width: int, vmins: Tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    def rows(i: int) -> np.ndarray:
+        iv = integral_dictionary_values(cols[i].dictionary.values)
+        return iv[cols[i].fwd] - vmins[i]
+
+    return _encode_planes(rows, S, n_pad, width, device)
+
+
+def attach_bsi(
+    staged: StagedTable,
+    segments: Sequence[ImmutableSegment],
+    bsi_columns: Sequence[str] = (),
+    bsiv_columns: Sequence[str] = (),
+) -> int:
+    """Attach the bit-sliced planes a staged table lacks: dictId planes for
+    each SV column of ``bsi_columns``, value-offset planes for each
+    numeric SV column of ``bsiv_columns`` whose dictionaries are integral.
+    Returns the bytes attached (they count in ``StagedTable.nbytes``)."""
+    S, n_pad, device = staged.num_segments, staged.n_pad, staged.device
+    attached = 0
+    for name in bsi_columns:
+        sc = staged.columns.get(name)
+        if sc is None or sc.bsi is not None or not sc.single_value:
+            continue
+        cols = [seg.column(name) for seg in segments]
+        width = bsi_filter_width(cols)
+        planes = _put(_bsi_planes(cols, S, n_pad, width, device), device)
+        # the width first: a reader guards on the planes
+        sc.bsi_width = width
+        sc.bsi = planes
+        attached += planes.numel() * 4
+    for name in bsiv_columns:
+        sc = staged.columns.get(name)
+        if sc is None or sc.bsiv is not None or not sc.single_value or not sc.is_numeric:
+            continue
+        cols = [seg.column(name) for seg in segments]
+        spec = bsiv_value_spec(cols)
+        if spec is None:
+            continue
+        width, vmins = spec
+        planes = _put(_bsiv_planes(cols, S, n_pad, width, vmins, device), device)
+        sc.bsiv_width, sc.bsiv_min = width, vmins
+        sc.bsiv = planes
+        attached += planes.numel() * 4
+    return attached
+
+
 def get_staged(
     cache: MutableMapping[Tuple, StagedTable],
     segments: Sequence[ImmutableSegment],
@@ -281,10 +407,14 @@ def get_staged(
     ctx=None,
     skip_base_columns: Sequence[str] = (),
     hll_columns: Sequence[str] = (),
+    bsi_columns: Sequence[str] = (),
+    bsiv_columns: Sequence[str] = (),
 ) -> StagedTable:
     """Staging cached in the caller's ``cache`` by segment set, column
     set, role sets, device and precision: segments are immutable, so a
-    staged table is reusable for every later query that needs it."""
+    staged table is reusable for every later query that needs it.  The
+    bit-sliced planes (``bsi_columns`` / ``bsiv_columns``) are not part of
+    the key: a cached table that lacks them gets them attached."""
     key = (
         tuple((s.segment_name, s.metadata.crc, s.staging_token) for s in segments),
         tuple(sorted(column_names)),
@@ -307,8 +437,12 @@ def get_staged(
             ctx=ctx,
             skip_base_columns=skip_base_columns,
             hll_columns=hll_columns,
+            bsi_columns=bsi_columns,
+            bsiv_columns=bsiv_columns,
         )
         cache[key] = st
+    elif bsi_columns or bsiv_columns:
+        attach_bsi(st, segments, bsi_columns, bsiv_columns)
     return st
 
 

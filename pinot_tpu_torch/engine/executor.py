@@ -1,8 +1,8 @@
 """Per-server query executor: segments + BrokerRequest -> IntermediateResult
 (lean port of ``pinot_tpu.engine.executor.QueryExecutor``).
 
-prune -> star-tree split -> stage -> plan -> table kernel -> one packed
-fetch -> finalize.
+prune -> star-tree split -> postings -> bit-sliced -> stage -> plan ->
+table kernel -> one packed fetch -> finalize.
 All segments run in one table kernel over the stacked segment axis with
 the cross-segment merge fused in (``kernel.py``); this class prepares the
 inputs and turns the outputs into mergeable partials.
@@ -15,6 +15,17 @@ is_fit_for_star_tree``) is answered from its pre-aggregated cube in host
 numpy (``execute_star_tree``, cost ``segmentsStarTree``); only the rest
 reach ``_execute_engine``, so staging, the lane's batching and
 coalescing never see a star-fit segment.  Their partials merge.
+
+THE FILTER TIERS, in the reference's order (``_execute_engine``):
+postings (``engine/invindex_path.py``: a needle filter's row ids from host
+postings, aggregated with numpy, nothing staged or launched; cost
+``segmentsPostings``), then the bit-sliced tier (``engine/bitsliced.py``:
+a filtered scalar COUNT / SUM / MIN / MAX / AVG as bitwise passes over
+bit-planes on the lane; cost ``segmentsBitsliced``), then the zone-map
+blocks and the full scan below.  ``postings=False`` / ``bitsliced=False``
+turn the first two off (the reference's ``PINOT_TPU_INVINDEX=0`` /
+``PINOT_TPU_BITSLICED=0``); an error in the bit-sliced tier counts
+``heal.bitslicedFallbacks`` and falls through to the scan.
 
 The host tier (``host_fallback.execute_host``) serves what the reference
 sends there, on the same three shape conditions: a plan that
@@ -105,7 +116,9 @@ from pinot_tpu_torch.engine.dispatch import (
 from pinot_tpu_torch.engine import hll as hll_mod
 from pinot_tpu_torch.engine import kernels, zonemap
 from pinot_tpu_torch.engine.kernels import fused_groupby
+from pinot_tpu_torch.engine.bitsliced import try_bitsliced_path
 from pinot_tpu_torch.engine.host_fallback import execute_host
+from pinot_tpu_torch.engine.invindex_path import try_index_path
 from pinot_tpu_torch.engine import join as join_mod
 from pinot_tpu_torch.engine.kernel import (
     chunk_rows_limit,
@@ -280,7 +293,12 @@ class QueryExecutor:
     counters (a private one when None).
     ``lane`` / ``lanes``: the server's device lane (or its one-lane
     ``LaneGroup``); None runs launch and fetch inline.
-    ``zone_maps``: False always scans every row (no block skipping)."""
+    ``zone_maps``: False always scans every row (no block skipping).
+    ``postings``: False never answers from host postings (the reference's
+    ``PINOT_TPU_INVINDEX=0``).
+    ``bitsliced``: False never takes the bit-sliced tier, "force" takes it
+    wherever it is eligible, skipping the cost model (the reference's
+    ``PINOT_TPU_BITSLICED`` "0" / "force")."""
 
     _HEAL_COUNTERS = (
         "deviceFailures",
@@ -299,9 +317,15 @@ class QueryExecutor:
         lane=None,
         lanes=None,
         zone_maps: bool = True,
+        postings: bool = True,
+        bitsliced: Union[bool, str] = True,
     ) -> None:
         self.device = config.resolve_device(device)
         self.zone_maps = zone_maps
+        self.postings = postings
+        if bitsliced not in (True, False, "force"):
+            raise ValueError(f"bitsliced must be True, False or 'force', got {bitsliced!r}")
+        self.bitsliced = bitsliced
         if self.device.type == "cuda":
             kernels.load_all()
         self.precision = config.as_precision(precision)
@@ -451,6 +475,25 @@ class QueryExecutor:
         needed -= self._docrange_only_columns(request, live, sel_columns)
         with self._stage_lock:
             ctx = get_table_context(live, self._contexts)
+        # selective predicates answer from host postings in O(matches)
+        # (engine/invindex_path.py); unselective ones fall through
+        t_tier = time.perf_counter()
+        res = try_index_path(request, live, ctx, total_docs, sel_columns, self.postings)
+        if res is not None:
+            self._phase("indexPath", t0)
+            res._served_tier = "postings"
+            return res
+        if self._sticky is None:
+            # mid-selectivity scalar aggregations that postings declined
+            # run as bitwise passes over bit-planes (engine/bitsliced.py)
+            res = self._try_bitsliced(request, live, ctx, total_docs, deadline)
+            if res is not None:
+                self._phase("bitslicedPath", t0)
+                res._served_tier = "bitsliced"
+                return res
+        # both tiers declined: their decisions are a phase of their own, and
+        # staging goes on timing the context and the upload only
+        t0 += self._phase("tierDecision", t_tier) - t_tier
         if plan_forced_host(request, ctx, self.precision):
             # a plan only the host can run never pays device staging
             return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
@@ -525,6 +568,20 @@ class QueryExecutor:
         result._served_tier = "device"
         return result
 
+    def _try_bitsliced(self, request, live, ctx, total_docs: int, deadline) -> Optional[IntermediateResult]:
+        """The bit-sliced tier (``bitsliced.try_bitsliced_path``), or None.
+        As in the reference, an optimization tier never fails the query:
+        deadline, lane-closed and abandon errors propagate, and any other
+        error counts ``heal.bitslicedFallbacks`` and falls through to the
+        scan section."""
+        try:
+            return try_bitsliced_path(self, request, live, ctx, total_docs, deadline)
+        except (QueryAbandonedError, LaneClosedError, TimeoutError):
+            raise
+        except Exception as e:
+            self._heal_mark("bitslicedFallbacks", error=str(e)[:200])
+            return None
+
     def _run_healing(self, run, poison_key: Tuple) -> Any:
         """``run()`` (a device section: ``_run_kernel`` of a scan,
         ``_join_device_section`` of a join) under the self-healing ladder:
@@ -570,59 +627,83 @@ class QueryExecutor:
         pdigest: str,
         cost: Dict[str, float],
     ) -> Dict[str, Any]:
-        """DISPATCH + the packed fetch.  Direct (no lane): launch and
-        fetch inline.  With a lane: the query inputs upload on this
-        worker's stream (a batch-eligible dispatch's inside its launch,
-        on the lane's), the launch runs on the lane's stream (coalesced
-        with an identical in-flight dispatch, or batched with same-plan
-        peers), and this worker waits on the dispatch's event."""
-        t0 = time.perf_counter()
+        """The table kernel's DISPATCH + the packed fetch (``_dispatch``);
+        a batch-eligible dispatch (a full scan, not chunked) carries its
+        ``BatchSpec``."""
         block = zonemap.zone_block_rows() if "block_ids" in q_np else 0
         kernel = self._table_kernel(plan, staged)
+        spec = None
+        lane = self.lane
+        if lane is not None and not block and kernel is self._kernel and lane.batch_max > 1:
+            spec = self._batch_spec(plan, staged, seg, q_np)
+        return self._dispatch(
+            (plan, staged.token),
+            lambda q: kernel.dispatch(plan, staged, seg, q, block),
+            kernel.fetch, list(seg.values()), q_np, deadline, pdigest, cost, spec,
+        )
+
+    def _dispatch(
+        self,
+        program_key: Tuple,
+        dispatch,
+        fetch,
+        tensors: List[torch.Tensor],
+        q_np: Any,
+        deadline: Optional[float],
+        pdigest: str,
+        cost: Dict[str, float],
+        spec: Optional[BatchSpec] = None,
+    ) -> Dict[str, Any]:
+        """DISPATCH + the packed fetch of one device program:
+        ``dispatch(q)`` launches it over the device query inputs ``q`` and
+        returns its packed handle, ``fetch(handle, deadline)`` reads it
+        back.  Direct (no lane): launch and fetch inline.  With a lane:
+        the query inputs upload on this worker's stream (a dispatch with a
+        ``BatchSpec`` uploads inside its launch, on the lane's), the
+        launch runs on the lane's stream (coalesced with an identical
+        in-flight dispatch, or batched with same-key peers), and this
+        worker waits on the dispatch's event.  ``program_key`` is (the
+        program's identity, the staged table's token): with the inputs'
+        digest it is the coalesce key, since identical keys mean identical
+        device outputs (the token is process-unique, so a re-staged table
+        never aliases an in-flight dispatch).  ``tensors`` are the
+        resident arrays the launch reads."""
+        t0 = time.perf_counter()
         lane = self.lane
         if lane is None:
-            q = to_device_inputs(q_np, self.device)
-            outs = kernel.fetch(kernel.dispatch(plan, staged, seg, q, block), deadline)
+            outs = fetch(dispatch(to_device_inputs(q_np, self.device)), deadline)
         else:
-            spec = None
-            if not block and kernel is self._kernel and lane.batch_max > 1:
-                spec = self._batch_spec(plan, staged, seg, q_np)
             if spec is None:
                 q = to_device_inputs(q_np, self.device)
                 ready = ready_event(self.device)
-                tensors = list(seg.values()) + tree_leaves(q)
+                handed = tensors + tree_leaves(q)
 
                 def launch():
-                    stream_handoff(ready, tensors)
-                    return kernel.dispatch(plan, staged, seg, q, block)
+                    stream_handoff(ready, handed)
+                    return dispatch(q)
             else:
                 ready = spec.inputs[1]
 
                 def launch():
                     # alone after all: the upload goes on the lane's stream
-                    stream_handoff(ready, seg.values())
-                    return kernel.dispatch(plan, staged, seg, to_device_inputs(q_np, self.device), block)
+                    stream_handoff(ready, tensors)
+                    return dispatch(to_device_inputs(q_np, self.device))
 
-            # identical (plan, staged-table token, inputs digest) means
-            # identical device outputs; the token is process-unique, so a
-            # re-staged table never aliases an in-flight dispatch
-            ticket = lane.submit(
-                (plan, staged.token, _inputs_digest(q_np)), launch, deadline, plan_digest=pdigest,
-                batch=spec,
-            )
+            ticket = lane.submit(program_key + (_inputs_digest(q_np),), launch, deadline, plan_digest=pdigest,
+                                 batch=spec)
             value = ticket.result(deadline)
             t0 = self._phase("laneWait", t0, coalesced=ticket.coalesced, batchSize=ticket.batch_size)
             if ticket.coalesced:
                 cost["coalesceHits"] = cost.get("coalesceHits", 0) + 1
             if ticket.batch_size > 1:
                 # this query's literals rode a batched launch with
-                # batch_size - 1 same-plan peers
+                # batch_size - 1 same-key peers
                 cost["batchHits"] = cost.get("batchHits", 0) + 1
             if isinstance(value, tuple):  # a member of a batched launch: its row of the batch
-                fetch, handle = value
-                outs = fetch(handle, deadline)
+                member_fetch, handle = value
+                outs = member_fetch(handle, deadline)
             else:
-                outs = kernel.fetch(value, deadline)
+                outs = fetch(value, deadline)
         cost["deviceMs"] = cost.get("deviceMs", 0.0) + round((time.perf_counter() - t0) * 1000, 3)
         self._phase("planExec", t0)
         return outs

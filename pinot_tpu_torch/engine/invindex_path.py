@@ -1,0 +1,247 @@
+"""Selective-query fast path: host postings instead of a device scan (port
+of ``pinot_tpu.engine.invindex_path``).
+
+The reference picks its filter operator per predicate by selectivity:
+``BitmapBasedFilterOperator.java:34`` walks the inverted index in
+O(matches); ``ScanBasedFilterOperator.java:38`` scans.  Here a predicate
+matching a few rows resolves its row ids from host-resident CSR postings
+(``segment/invindex.py``) and aggregates those rows with numpy
+fancy-indexing (``host_fallback.execute_host(matched_rows=...)``), never
+touching the device.
+
+Shape: one *driving* leaf (EQ / IN / RANGE / REGEX, not negated) resolves
+row ids from postings; every other predicate of a root-level AND
+evaluates as a *residual* on just those rows (recursive subset masks,
+``host_fallback``'s mask semantics).  Estimated and actual match counts
+above the crossover (``engine/tiercost.py``, the reference's constants)
+bail back to the device scan.  The accounting is the reference's:
+``cost.segmentsPostings``, ``numEntriesScannedInFilter = matches x
+(residuals + 1)`` and ``bytesScanned`` 8 bytes an entry.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+
+from pinot_tpu_torch.common.request import BrokerRequest, FilterOperator, FilterQueryTree
+from pinot_tpu_torch.engine import config, tiercost
+from pinot_tpu_torch.engine.context import TableContext
+from pinot_tpu_torch.engine.host_fallback import execute_host
+from pinot_tpu_torch.engine.plan import cached_match_table
+from pinot_tpu_torch.engine.results import IntermediateResult
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.invindex import inverted_index
+
+_DRIVING_OPS = (
+    FilterOperator.EQUALITY,
+    FilterOperator.IN,
+    FilterOperator.RANGE,
+    FilterOperator.REGEX,
+)
+
+
+def _max_matches(total_docs: int) -> int:
+    """The postings / scan crossover in rows: ``config.INDEX_MAX_MATCHES``
+    when set, else the tier cost model's share of the table (1/64 by
+    default), which keeps unselective predicates on the device even for
+    small tables: this is a needle-query path, not a general fallback."""
+    if config.INDEX_MAX_MATCHES is not None:
+        return int(config.INDEX_MAX_MATCHES)
+    return tiercost.postings_max_matches(total_docs)
+
+
+def _mv_subset_hits(col, table: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    offs = np.asarray(col.mv_offsets)
+    starts = offs[rows]
+    counts = offs[rows + 1] - starts
+    total = int(counts.sum())
+    if total == 0:
+        return np.zeros(rows.size, dtype=bool)
+    reps = np.repeat(np.arange(rows.size), counts)
+    base = np.repeat(starts, counts)
+    cum = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    pos = np.arange(total) - np.repeat(cum, counts)
+    hits = table[np.asarray(col.mv_values)[base + pos]]
+    any_hit = np.zeros(rows.size, dtype=bool)
+    np.logical_or.at(any_hit, reps, hits)
+    return any_hit
+
+
+def _subset_mask(
+    seg: ImmutableSegment, tree: FilterQueryTree, rows: np.ndarray
+) -> np.ndarray:
+    """Evaluate a filter tree over a row-id subset — bool[rows.size].
+    Semantics mirror host_fallback._segment_mask exactly."""
+    if tree.is_leaf:
+        col = seg.column(tree.column)
+        d = col.dictionary
+        table = cached_match_table(
+            tree, d, d.cardinality if d.cardinality else 1,
+            cache_key=(seg.segment_name, seg.metadata.crc, tree.column),
+        )
+        negative = tree.operator in (FilterOperator.NOT, FilterOperator.NOT_IN)
+        if col.is_single_value:
+            m = table[np.asarray(col.fwd)[rows]]
+            return ~m if negative else m
+        any_hit = _mv_subset_hits(col, table, rows)
+        return ~any_hit if negative else any_hit
+    masks = [_subset_mask(seg, c, rows) for c in tree.children]
+    out = masks[0]
+    for m in masks[1:]:
+        out = (out & m) if tree.operator == FilterOperator.AND else (out | m)
+    return out
+
+
+def _decompose(tree: FilterQueryTree):
+    """-> (driving candidates, all conjuncts) or None.  The filter must
+    be a single leaf or a root-level AND of subtrees; the driving leaf
+    is any direct-child positive leaf, the rest evaluate as residuals."""
+    if tree.is_leaf:
+        return ([tree], [tree]) if tree.operator in _DRIVING_OPS else None
+    if tree.operator != FilterOperator.AND:
+        return None
+    cands = [
+        c for c in tree.children if c.is_leaf and c.operator in _DRIVING_OPS
+    ]
+    return (cands, list(tree.children)) if cands else None
+
+
+def index_path_decision(
+    request: BrokerRequest,
+    live: List[ImmutableSegment],
+    ctx: TableContext,
+    total_docs: int,
+    enabled: bool = True,
+):
+    """The operator-choice verdict, separated from execution so the
+    EXPLAIN plane can report it without serving the query.  ``enabled``
+    is the executor's ``postings`` switch.
+
+    Returns ``(decision, state)``: ``decision`` is a JSON-safe record
+    (``taken`` plus the reason/estimates that justify it); ``state`` is
+    the resolved ``(best leaf, indexes, residuals, est)`` execution
+    handoff, present only when ``taken`` is True."""
+    if not enabled:
+        return {"taken": False, "reason": "postings path disabled (postings=False)"}, None
+    tree = request.filter
+    if tree is None:
+        return {"taken": False, "reason": "no filter: nothing selective to drive postings"}, None
+    dec = _decompose(tree)
+    if dec is None:
+        return {
+            "taken": False,
+            "reason": "filter shape not postings-drivable (needs a root-level "
+            "AND / single positive leaf)",
+        }, None
+    cands, conjuncts = dec
+    live_docs = sum(s.num_docs for s in live)
+    limit = _max_matches(live_docs)
+
+    # cheap pre-estimate (uniform assumption: matched dict fraction *
+    # rows) picks ONE candidate before any postings build; tables are
+    # kept for the confirm/resolve stages (REGEX tables cost O(card)
+    # regex evaluations — never compute them twice)
+    best = None
+    best_frac = None
+    best_tables = None
+    for leaf in cands:
+        frac = 0.0
+        ok = True
+        tables = []
+        for seg in live:
+            col = seg.columns.get(leaf.column)
+            if col is None or col.dictionary.cardinality <= 0:
+                ok = False
+                break
+            d = col.dictionary
+            t = cached_match_table(
+                leaf, d, d.cardinality,
+                cache_key=(seg.segment_name, seg.metadata.crc, leaf.column),
+            )
+            tables.append(t)
+            frac = max(frac, float(t.sum()) / d.cardinality)
+        if ok and (best_frac is None or frac < best_frac):
+            best, best_frac, best_tables = leaf, frac, tables
+    if best is None or best_frac * live_docs > limit:
+        return {
+            "taken": False,
+            "reason": "estimated matches above the postings/scan crossover",
+            "column": None if best is None else best.column,
+            "estMatches": None
+            if best is None
+            else int(best_frac * live_docs),
+            "maxMatches": int(limit),
+        }, None
+
+    # real postings counts confirm (skew can defeat the uniform guess)
+    indexes = []
+    est = 0
+    for seg, t in zip(live, best_tables):
+        idx = inverted_index(seg, best.column)
+        if idx is None:
+            return {
+                "taken": False,
+                "reason": f"no inverted index for driving column {best.column!r}",
+                "column": best.column,
+            }, None
+        est += idx.count_for_table(t)
+        indexes.append((idx, t))
+    if est > limit:
+        return {
+            "taken": False,
+            "reason": "postings count above the postings/scan crossover "
+            "(skew defeated the uniform estimate)",
+            "column": best.column,
+            "estMatches": int(est),
+            "maxMatches": int(limit),
+        }, None
+
+    residuals = [c for c in conjuncts if c is not best]
+    decision = {
+        "taken": True,
+        "reason": "selective driving leaf answers from host postings in O(matches)",
+        "column": best.column,
+        "estMatches": int(est),
+        "maxMatches": int(limit),
+        "residuals": len(residuals),
+    }
+    return decision, (best, indexes, residuals, est)
+
+
+def try_index_path(
+    request: BrokerRequest,
+    live: List[ImmutableSegment],
+    ctx: TableContext,
+    total_docs: int,
+    sel_columns: Optional[List[str]],
+    enabled: bool = True,
+) -> Optional[IntermediateResult]:
+    """O(matches) host path, or None to take the device scan."""
+    decision, state = index_path_decision(request, live, ctx, total_docs, enabled)
+    if state is None:
+        return None
+    best, indexes, residuals, est = state
+
+    def matched_rows(si: int, seg: ImmutableSegment) -> np.ndarray:
+        idx, t = indexes[si]
+        rows = idx.resolve_table(t)
+        if rows.size and residuals:
+            keep = np.ones(rows.size, dtype=bool)
+            for r in residuals:
+                keep &= _subset_mask(seg, r, rows)
+            rows = rows[keep]
+        return rows
+
+    res = execute_host(
+        live, ctx, request, total_docs, sel_columns, matched_rows=matched_rows
+    )
+    # filter work was O(postings), not O(n): report candidate rows like
+    # the zone-map path does (num_entries_scanned contract)
+    res.num_entries_scanned_in_filter = est * max(1, len(residuals) + 1)
+    # cost re-attribution: this is the postings tier, and its bytes are
+    # O(matches) — the wrapper's full-column upper bound does not apply
+    res.cost.pop("segmentsHost", None)
+    res.cost["segmentsPostings"] = len(live)
+    res.cost["bytesScanned"] = est * max(1, len(residuals) + 1) * 8
+    return res

@@ -88,6 +88,7 @@ output gains a leading [B] axis.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -1258,6 +1259,192 @@ def run_batched_table_kernel(plan: StaticPlan, staged: StagedTable, seg: Dict[st
     # the torch-op route: one member after another, the outputs stacked
     return _stack_outputs([run_table_kernel(plan, staged, seg, _map_tensors(lambda t: t[m], q))
                            for m in range(members)])
+
+
+# ---------------------------------------------------------------------------
+# Bit-sliced tier programs (engine/bitsliced.py; pinot_tpu/engine/kernel.py:
+# 1297-1446).  torch ops over the whole stack, the reference's per-segment
+# vmap written out.  A spec is
+#   (leaves, tree, sums, extremes)
+#   leaves   = ((kind, col, width, k_pad), ...)  kind in
+#              {"interval", "points", "points_none"}
+#   tree     = ("leaf", i) | ("and"|"or", child, ...)
+#   sums     = ((col, value_width), ...)         value-offset planes
+#   extremes = ((col, width, is_max), ...)       dictId planes
+# Inputs: segs = {"nd": int32 [S],
+#                 "p:<col>": int32 [S, W, nw], "v:<col>": int32 [S, Wv, nw]}
+#         q    = {"bounds:<i>": int32 [..., S, 2], "pts:<i>": int32 [..., S, k_pad]}
+# The leading "..." of q is the member axis of a batched launch (empty
+# solo); the planes broadcast over it and are never copied.
+# Outputs, per segment (the host finalize merges them, applying each
+# segment's vmin and dictionary):
+#   "count": int64 [..., S]; "psum:<col>": int64 [..., S, Wv];
+#   "ext:mx:<col>" / "ext:mn:<col>": int32 [..., S]
+# Words are int32 (the reference's uint32 bits; torch shifts only signed
+# words): an all-ones word is -1, ">>" is arithmetic, so every shifted
+# value is masked before it is used.
+# ---------------------------------------------------------------------------
+
+bitsliced_dispatches = 0  # bit-sliced programs run (solo or batched)
+batched_bitsliced_dispatches = 0  # of them, batched launches
+
+_M1, _M2, _M4 = 0x55555555, 0x33333333, 0x0F0F0F0F
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """SWAR population count of int32 words (torch has none).  Each
+    shifted term is masked, so the arithmetic shift's sign fill never
+    counts; the result (0..32) is non-negative int32."""
+    x = x - ((x >> 1) & _M1)
+    x = (x & _M2) + ((x >> 2) & _M2)
+    x = (x + (x >> 4)) & _M4
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def _bsi_valid_words(num_docs: torch.Tensor, n_words: int) -> torch.Tensor:
+    """int32 [..., S, n_words] validity words from the doc counts: word j
+    keeps the bits of rows j*32 .. j*32+31 below num_docs."""
+    j = torch.arange(n_words, device=num_docs.device, dtype=torch.int64)
+    bits = (num_docs.to(torch.int64)[..., None] - j * 32).clamp(0, 32)
+    base = (torch.ones_like(bits) << bits.clamp(0, 31)) - 1  # < 2^31: fits int32
+    return torch.where(bits >= 32, torch.full_like(bits, -1), base).to(torch.int32)
+
+
+def _bsi_ge(planes: torch.Tensor, t: torch.Tensor, width: int) -> torch.Tensor:
+    """Bitmap of rows whose value >= t (int32 [..., S]) over planes
+    [S, W, nw]: the bit-serial MSB->LSB descent, ``gt`` the rows already
+    proven greater, ``eq`` the rows still matching t's prefix."""
+    t = t[..., None]
+    gt = None
+    eq = None
+    for b in range(width - 1, -1, -1):
+        tmask = -((t >> b) & 1)  # 0 or -1 (all ones)
+        p = planes[:, b]
+        if gt is None:
+            gt = p & ~tmask
+            eq = ~(p ^ tmask)
+        else:
+            gt = gt | (eq & p & ~tmask)
+            eq = eq & ~(p ^ tmask)
+    ge = gt | eq
+    if width < 31:
+        # t at or above 2^W would otherwise truncate to GE(t mod 2^W)
+        ge = torch.where(t >= (1 << width), torch.zeros_like(ge), ge)
+    return ge
+
+
+def _bsi_points(planes: torch.Tensor, pts: torch.Tensor, width: int) -> torch.Tensor:
+    """Bitmap of rows whose value is in ``pts`` (int32 [..., S, k], -1
+    padded): a per-point XNOR descent, OR-reduced over the points."""
+    out = None
+    for i in range(pts.shape[-1]):
+        pt = pts[..., i, None]
+        eq = None
+        for b in range(width):
+            m = ~(planes[:, b] ^ -((pt >> b) & 1))
+            eq = m if eq is None else eq & m
+        # -1 padding shifts to all ones and would alias dictId 2^W - 1:
+        # padded (and out-of-width) points match nothing
+        ok = pt >= 0
+        if width < 31:
+            ok = ok & (pt < (1 << width))
+        eq = torch.where(ok, eq, torch.zeros_like(eq))
+        out = eq if out is None else out | eq
+    return out
+
+
+def _bsi_extreme(planes: torch.Tensor, bitmap: torch.Tensor, width: int, is_max: bool) -> torch.Tensor:
+    """Bit-serial candidate descent: the extreme dictId among the bitmap's
+    rows, int32 [..., S] (garbage for an empty bitmap; the finalize masks
+    on count).  Each plane's "any row left" stays on the device."""
+    cand = bitmap
+    out = torch.zeros(bitmap.shape[:-1], dtype=torch.int32, device=bitmap.device)
+    for b in range(width - 1, -1, -1):
+        t = cand & planes[:, b] if is_max else cand & ~planes[:, b]
+        any_t = (t != 0).any(dim=-1)
+        cand = torch.where(any_t[..., None], t, cand)
+        taken = any_t if is_max else ~any_t
+        out = out | (taken.to(torch.int32) << b)
+    return out
+
+
+def _bsi_eval_tree(node, bms):
+    if node[0] == "leaf":
+        return bms[node[1]]
+    acc = _bsi_eval_tree(node[1], bms)
+    for child in node[2:]:
+        m = _bsi_eval_tree(child, bms)
+        acc = (acc & m) if node[0] == "and" else (acc | m)
+    return acc
+
+
+def _bsi_popsum(words: torch.Tensor) -> torch.Tensor:
+    return _popcount32(words).sum(dim=-1, dtype=torch.int64)
+
+
+def make_single_segment_bitsliced_kernel(spec):
+    """The bit-sliced program of ``spec``: (segs, q) -> outputs, over the
+    whole segment stack at once (and q's member axis, if any)."""
+    leaves, tree, sums, extremes = spec
+
+    def program(segs: Dict[str, torch.Tensor], q: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        bms = []
+        n_words = None
+        for i, (kind, col, width, _k_pad) in enumerate(leaves):
+            planes = segs[f"p:{col}"]
+            n_words = planes.shape[-1]
+            if kind == "interval":
+                b = q[f"bounds:{i}"]
+                bm = _bsi_ge(planes, b[..., 0], width) & ~_bsi_ge(planes, b[..., 1], width)
+            else:
+                bm = _bsi_points(planes, q[f"pts:{i}"], width)
+                if kind == "points_none":
+                    bm = ~bm  # the complement; padding cleared by the valid words
+            bms.append(bm)
+        bitmap = _bsi_eval_tree(tree, bms) & _bsi_valid_words(segs["nd"], n_words)
+        outs: Dict[str, torch.Tensor] = {"count": _bsi_popsum(bitmap)}
+        for col, vwidth in sums:
+            v = segs[f"v:{col}"]
+            outs[f"psum:{col}"] = torch.stack([_bsi_popsum(v[:, b] & bitmap) for b in range(vwidth)], dim=-1)
+        for col, width, is_max in extremes:
+            outs[f"ext:{'mx' if is_max else 'mn'}:{col}"] = _bsi_extreme(segs[f"p:{col}"], bitmap, width, is_max)
+        return outs
+
+    return program
+
+
+def _counted(program, batched: bool):
+    def run(segs, q):
+        global bitsliced_dispatches, batched_bitsliced_dispatches
+        bitsliced_dispatches += 1
+        batched_bitsliced_dispatches += int(batched)
+        return program(segs, q)
+
+    return run
+
+
+@functools.lru_cache(maxsize=256)
+def make_packed_bitsliced_kernel(spec):
+    """The bit-sliced program with the one packed fetch
+    (``packing.make_packed_kernel``: ``.dispatch`` / ``.fetch``)."""
+    from pinot_tpu_torch.engine.packing import make_packed_kernel
+
+    return make_packed_kernel(_counted(make_single_segment_bitsliced_kernel(spec), False))
+
+
+@functools.lru_cache(maxsize=128)
+def make_packed_batched_bitsliced_kernel(spec):
+    """Cross-query batched bit-sliced program: B same-spec queries over the
+    same resident planes in one launch, each member's ``bounds:<i>`` /
+    ``pts:<i>`` stacked on a new leading axis.  The planes broadcast over
+    that axis (never copied): each op reads a plane once for all the
+    members.  Every output leads with [B], member b's equal to its solo
+    launch."""
+    from pinot_tpu_torch.engine.packing import make_packed_kernel
+
+    return make_packed_kernel(_counted(make_single_segment_bitsliced_kernel(spec), True))
 
 
 # ---------------------------------------------------------------------------

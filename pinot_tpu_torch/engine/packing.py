@@ -198,3 +198,63 @@ def slice_batched_outputs(outs, index: int):
     """Member ``index``'s output tree from a batched launch's fetched host
     outputs (every array leaf leads with the batch axis)."""
     return _tree_map(lambda x: x[index], outs)
+
+
+# ---------------------------------------------------------------------------
+# Bit-sliced index (BSI) encoding, the bit-sliced tier's staging layout
+# (engine/bitsliced.py, engine/kernel.py; pinot_tpu/engine/packing.py:
+# 141-200).  A width-W non-negative integer column becomes W bit-planes of
+# packed 32-bit words: row r lands in word r // 32 at bit r % 32 (LSB
+# first within a word; plane b holds bit b of every row).  The encoder
+# writes uint32 words; staging views them as int32 (the same bits), the
+# dtype torch shifts and popcounts on every device.
+# ---------------------------------------------------------------------------
+
+
+def bit_width(max_value: int) -> int:
+    """Planes needed for values in [0, max_value], at least 1 so a constant
+    column still round-trips through the encoder."""
+    return max(1, int(max_value).bit_length())
+
+
+def bitslice_encode(values: np.ndarray, width: int, n_words: int) -> np.ndarray:
+    """uint32 [width, n_words] bit-planes of a non-negative int array.
+
+    Rows beyond ``values.size`` (up to ``n_words * 32``) encode as 0; the
+    programs mask padding through the validity words."""
+    v = np.ascontiguousarray(values, dtype=np.int64)
+    if v.size and (int(v.min()) < 0 or bit_width(int(v.max())) > width):
+        raise ValueError(f"values out of range for {width}-plane bit-slice encoding")
+    planes = np.zeros((width, n_words), dtype=np.uint32)
+    n = min(v.size, n_words * 32)
+    for b in range(width):
+        bits = np.zeros(n_words * 32, dtype=np.uint8)
+        bits[:n] = (v[:n] >> b) & 1
+        planes[b] = np.packbits(bits, bitorder="little").view(np.uint32)
+    return planes
+
+
+def bitslice_decode(planes: np.ndarray, num_rows: int) -> np.ndarray:
+    """Inverse of bitslice_encode: int64 [num_rows] values (int32 planes
+    decode the same as their uint32 view)."""
+    width, _ = planes.shape
+    out = np.zeros(num_rows, dtype=np.int64)
+    for b in range(width):
+        bits = np.unpackbits(np.ascontiguousarray(planes[b]).view(np.uint8), bitorder="little")[:num_rows]
+        out |= bits.astype(np.int64) << b
+    return out
+
+
+def integral_dictionary_values(values) -> "np.ndarray | None":
+    """Dictionary values as exact int64, or None when the dictionary is not
+    exactly integral (a fused SUM must be bit-exact against the scan
+    tier's float sums, which it is for integral values below 2**53)."""
+    vals = np.asarray(values)
+    if not np.issubdtype(vals.dtype, np.number) or vals.size == 0:
+        return None
+    v = np.asarray(vals, dtype=np.float64)
+    if not np.all(np.isfinite(v)):
+        return None
+    if np.any(np.abs(v) >= 2.0**53) or not np.all(v == np.floor(v)):
+        return None
+    return v.astype(np.int64)

@@ -42,6 +42,8 @@ key space, else a lexicographic sort over one ordinal per column.
 from __future__ import annotations
 
 import re
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -535,6 +537,35 @@ def match_table(node: FilterQueryTree, dictionary: Dictionary, card_pad: int) ->
     else:
         raise ValueError(f"unsupported leaf operator {op}")
     return table
+
+
+# regex tables are the one plan-time cost that scans a dictionary (re over
+# every value); identical regex leaves across queries hit this LRU
+# instead, keyed by segment identity so a reload cannot alias
+# (pinot_tpu/engine/plan.py:245-266).  The scheduler's workers share it.
+_regex_tables: "OrderedDict[tuple, np.ndarray]" = OrderedDict()
+_regex_lock = threading.Lock()
+
+
+def cached_match_table(
+    leaf_node: FilterQueryTree, d: Dictionary, card_pad: int, cache_key: Optional[tuple]
+) -> np.ndarray:
+    """``match_table`` with the regex LRU in front (the postings tier's
+    tables; regex is the only operator whose table scans the dictionary)."""
+    if cache_key is None or leaf_node.operator != FilterOperator.REGEX:
+        return match_table(leaf_node, d, card_pad)
+    key = ("raw", cache_key, card_pad, tuple(leaf_node.values))
+    with _regex_lock:
+        cached = _regex_tables.get(key)
+        if cached is not None:
+            _regex_tables.move_to_end(key)
+            return cached
+    t = match_table(leaf_node, d, card_pad)
+    with _regex_lock:
+        _regex_tables[key] = t
+        if len(_regex_tables) > 256:
+            _regex_tables.popitem(last=False)
+    return t
 
 
 # ---------------------------------------------------------------------------

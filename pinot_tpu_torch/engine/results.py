@@ -372,6 +372,10 @@ def trim_group_candidates(
 #                      a broadcast join (one copy per probe server)
 #   segmentsPruned     segments dropped before execution (empty, missing
 #                      a referenced column, or outside the time filter)
+#   segmentsPostings   segments answered from host postings in O(matches)
+#                      (engine/invindex_path.py)
+#   segmentsBitsliced  segments answered by the bit-sliced tier's bitwise
+#                      pass over bit-planes (engine/bitsliced.py)
 #   segmentsZonemap    segments scanned over their zone-map candidate
 #                      blocks only (engine/zonemap.py)
 #   segmentsFullScan   segments scanned whole by the device's table kernel
@@ -391,6 +395,8 @@ COST_KEYS = (
     "shuffleBytes",
     "broadcastBytes",
     "segmentsPruned",
+    "segmentsPostings",
+    "segmentsBitsliced",
     "segmentsZonemap",
     "segmentsFullScan",
     "segmentsHost",

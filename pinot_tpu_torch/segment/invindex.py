@@ -1,0 +1,358 @@
+"""Host-resident inverted index: compressed CSR postings per dictId (port
+of ``pinot_tpu.segment.invindex``, numpy only).
+
+Reference capability: ``BitmapInvertedIndexReader.java:28`` (dictId ->
+RoaringBitmap of docIds), read on the host by
+``BitmapBasedFilterOperator.java:34`` to answer selective predicates in
+O(matches) whatever the doc order.
+
+The postings stay in host memory.  The executor resolves the matched row
+ids from them and aggregates exactly those rows with numpy
+fancy-indexing (``engine/invindex_path.py``), with no device dispatch;
+unselective predicates stay on the device scan.  Where the crossover lies
+is the tier cost model's (``engine/tiercost.py``), kept at the
+reference's constants.
+
+Representation: row ids stably argsorted by dictId, so the postings for
+one dictId are one contiguous slice, and a dictId *range* (the sorted
+dictionary makes value ranges dictId ranges) is also one contiguous
+slice: EQ / RANGE resolve to slices and IN to a few of them.
+
+Compression: the stream is cut into 4096-posting blocks, each stored as
+the smaller of two containers (the roaring-container idea re-cut for this
+layout):
+
+- **run container**: maximal consecutive-int runs as (start, len)
+  pairs; a clustered column collapses to a handful of runs a block;
+- **packed container**: absolute row ids bitpacked at
+  ``ceil(log2(num_docs))`` bits (``segment/bitpack.py``), the bound for
+  shuffled high-cardinality columns.
+
+Queries decode only the blocks their slices touch, so O(matches) holds.
+
+A process-wide byte budget (``config.INVINDEX_BUDGET_BYTES``, 2 GiB)
+bounds the postings memory: past it further builds are refused and those
+predicates fall back to the zone-map / device-scan paths (the reference's
+behavior when no inverted index is configured).  A refusal is stamped with
+the release epoch and re-evaluated once bytes have been released.
+"""
+from __future__ import annotations
+
+import logging
+import threading
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from pinot_tpu_torch.engine import config
+from pinot_tpu_torch.segment.bitpack import bits_required, pack_bits, unpack_bits
+from pinot_tpu_torch.segment.immutable import ImmutableSegment
+
+logger = logging.getLogger(__name__)
+
+BLOCK = 4096  # postings per compression block
+
+_RUN, _PACKED, _RAW = 0, 1, 2
+
+
+@dataclass
+class _Block:
+    kind: int
+    # _RUN: starts/lens int32 pairs; _PACKED: uint8 bitstream; _RAW: int32
+    a: np.ndarray
+    b: Optional[np.ndarray] = None
+
+    @property
+    def nbytes(self) -> int:
+        return self.a.nbytes + (self.b.nbytes if self.b is not None else 0)
+
+
+def _encode_block(vals: np.ndarray, width: int) -> _Block:
+    """Pick the smaller container for one block of postings."""
+    n = vals.size
+    breaks = np.nonzero(np.diff(vals) != 1)[0]
+    n_runs = breaks.size + 1
+    run_bytes = n_runs * 8
+    packed_bytes = (n * width + 7) // 8
+    if run_bytes <= packed_bytes:
+        starts_idx = np.concatenate(([0], breaks + 1))
+        ends_idx = np.concatenate((breaks + 1, [n]))
+        return _Block(
+            _RUN,
+            vals[starts_idx].astype(np.int32),
+            (ends_idx - starts_idx).astype(np.int32),
+        )
+    return _Block(_PACKED, pack_bits(vals, width))
+
+
+def _decode_block(blk: _Block, width: int, count: int) -> np.ndarray:
+    if blk.kind == _RUN:
+        return np.repeat(blk.a, blk.b) + _run_ramps(blk.b)
+    if blk.kind == _PACKED:
+        return unpack_bits(blk.a, width, count)
+    return blk.a
+
+
+def _shrink(offsets: np.ndarray) -> np.ndarray:
+    """int32 offsets when the stream fits — at card 1M this halves the
+    per-dictId overhead (8 MB -> 4 MB), which dominates for
+    high-cardinality columns with short posting runs."""
+    return offsets.astype(np.int32) if offsets[-1] < 2**31 else offsets
+
+
+def _sort_keys(ids: np.ndarray, cardinality: int) -> np.ndarray:
+    """The dictIds in the narrowest unsigned width that holds them: numpy's
+    stable argsort of 16-bit and narrower keys is a radix sort, several
+    times faster than its int32 merge sort, and a stable sort of the same
+    keys gives the same order."""
+    ids = np.asarray(ids)
+    if cardinality <= 1 << 8:
+        return ids.astype(np.uint8)
+    if cardinality <= 1 << 16:
+        return ids.astype(np.uint16)
+    return ids
+
+
+def _run_ramps(lens: np.ndarray) -> np.ndarray:
+    """[0..l0-1, 0..l1-1, ...] for run lengths lens (vectorized)."""
+    total = int(lens.sum())
+    out = np.arange(total, dtype=np.int32)
+    starts = np.concatenate(([0], np.cumsum(lens)[:-1]))
+    return out - np.repeat(starts.astype(np.int32), lens)
+
+
+class InvertedIndex:
+    """Compressed CSR postings: rows of dictId d live at stream
+    positions ``offsets[d]:offsets[d+1]`` (ascending within a run)."""
+
+    def __init__(self, offsets: np.ndarray, rows: np.ndarray, compress: bool = True):
+        self.offsets = offsets
+        self.n_entries = int(rows.size)
+        # width covers the largest row id (num_docs is not passed in;
+        # max() is exact and cheaper than carrying metadata through)
+        self.width = bits_required(int(rows.max()) + 1 if rows.size else 1)
+        if compress and rows.size >= BLOCK:
+            self.blocks: Optional[List[_Block]] = [
+                _encode_block(rows[i : i + BLOCK], self.width)
+                for i in range(0, rows.size, BLOCK)
+            ]
+            self._raw: Optional[np.ndarray] = None
+        else:
+            self.blocks = None
+            self._raw = np.ascontiguousarray(rows, dtype=np.int32)
+
+    @property
+    def rows(self) -> np.ndarray:
+        """Full decoded posting stream (tests/debug; queries use
+        _decode_range on touched blocks only)."""
+        if self._raw is not None:
+            return self._raw
+        return self._decode_range(0, self.n_entries)
+
+    @property
+    def nbytes(self) -> int:
+        body = (
+            sum(b.nbytes for b in self.blocks)
+            if self.blocks is not None
+            else self._raw.nbytes
+        )
+        return body + self.offsets.nbytes
+
+    # -- build ---------------------------------------------------------
+    @classmethod
+    def build_sv(
+        cls, fwd: np.ndarray, cardinality: int, compress: bool = True
+    ) -> "InvertedIndex":
+        order = np.argsort(_sort_keys(fwd, cardinality), kind="stable")
+        counts = np.bincount(fwd, minlength=cardinality)
+        offsets = np.zeros(cardinality + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return cls(_shrink(offsets), order.astype(np.int32), compress)
+
+    @classmethod
+    def build_mv(
+        cls,
+        mv_values: np.ndarray,
+        mv_offsets: np.ndarray,
+        cardinality: int,
+        compress: bool = True,
+    ) -> "InvertedIndex":
+        doc_ids = np.repeat(
+            np.arange(mv_offsets.size - 1, dtype=np.int32), np.diff(mv_offsets)
+        )
+        order = np.argsort(_sort_keys(mv_values, cardinality), kind="stable")
+        counts = np.bincount(mv_values, minlength=cardinality)
+        offsets = np.zeros(cardinality + 1, dtype=np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return cls(_shrink(offsets), doc_ids[order], compress)
+
+    # -- decode --------------------------------------------------------
+    def _decode_range(self, s: int, e: int) -> np.ndarray:
+        """Postings stream positions [s, e) — decodes only touched
+        blocks, so selective queries stay O(matches)."""
+        if self._raw is not None:
+            return self._raw[s:e]
+        first, last = s // BLOCK, (e - 1) // BLOCK
+        parts = []
+        for bi in range(first, last + 1):
+            lo = bi * BLOCK
+            count = min(BLOCK, self.n_entries - lo)
+            dec = _decode_block(self.blocks[bi], self.width, count)
+            parts.append(dec[max(s - lo, 0) : e - lo])
+        return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+    # -- query side ----------------------------------------------------
+    def slices_for_table(self, table: np.ndarray) -> List[Tuple[int, int]]:
+        """Contiguous posting slices for a bool[>=card] dictId match
+        table (plan.match_table): maximal True runs -> (start, end)
+        posting ranges."""
+        card = self.offsets.size - 1
+        t = np.asarray(table[:card], dtype=bool)
+        if not t.any():
+            return []
+        d = np.diff(t.astype(np.int8))
+        starts = list(np.nonzero(d == 1)[0] + 1)
+        ends = list(np.nonzero(d == -1)[0] + 1)
+        if t[0]:
+            starts.insert(0, 0)
+        if t[-1]:
+            ends.append(card)
+        return [
+            (int(self.offsets[a]), int(self.offsets[b])) for a, b in zip(starts, ends)
+        ]
+
+    def count_for_table(self, table: np.ndarray) -> int:
+        return sum(e - s for s, e in self.slices_for_table(table))
+
+    def resolve_table(self, table: np.ndarray) -> np.ndarray:
+        """Matched row ids (sorted ascending, deduplicated) for a dictId
+        match table.  Dedup matters for MV postings: one posting per
+        (doc, value) occurrence, and a doc matching several predicate
+        values must count once — the RoaringBitmap OR the reference does
+        dedupes inherently."""
+        sl = self.slices_for_table(table)
+        if not sl:
+            return np.zeros(0, dtype=np.int32)
+        nonempty = [(s, e) for s, e in sl if e > s]
+        if not nonempty:
+            return np.zeros(0, dtype=np.int32)
+        return np.unique(np.concatenate([self._decode_range(s, e) for s, e in nonempty]))
+
+
+# ---------------------------------------------------------------- budget
+_budget_lock = threading.Lock()
+_postings_bytes = 0
+# Refusals are epoch-stamped, not permanent: a build refused during a
+# budget spike retries once bytes have been RELEASED since (each
+# release_postings bumps the epoch).  The cache stores ("refused",
+# epoch) tuples.
+_release_epoch = 0
+
+
+def _budget_bytes() -> int:
+    return int(config.INVINDEX_BUDGET_BYTES)
+
+
+def postings_bytes_in_use() -> int:
+    with _budget_lock:
+        return _postings_bytes
+
+
+def inverted_index(seg: ImmutableSegment, column: str) -> Optional[InvertedIndex]:
+    """Per-(segment, column) index, cached on the immutable segment
+    (the ``SoftReference`` cache of ``BitmapInvertedIndexReader.java:32``
+    analog — here the build is one argsort, so lazy build-on-first-use
+    replaces persistence).  Builds that would push total postings
+    memory past the process budget are refused — the engine then falls
+    back to the zone-map / device-scan paths."""
+    global _postings_bytes
+    col = seg.columns.get(column)
+    if col is None:
+        return None
+    with _budget_lock:
+        cache = getattr(seg, "_inv_cache", None)
+        if cache is None:
+            cache = {}
+            object.__setattr__(seg, "_inv_cache", cache)
+        idx = cache.get(column)
+        if isinstance(idx, tuple):  # ("refused", epoch)
+            if idx[1] == _release_epoch:
+                return None  # nothing released since: don't retry per query
+            cache.pop(column, None)
+            idx = None
+        if isinstance(idx, InvertedIndex):
+            return idx
+    card = col.dictionary.cardinality
+    if card <= 0:
+        return None
+    if col.metadata.single_value:
+        if col.fwd is None:
+            return None
+        built = InvertedIndex.build_sv(np.asarray(col.fwd), card)
+    else:
+        built = InvertedIndex.build_mv(
+            np.asarray(col.mv_values),
+            np.asarray(col.mv_offsets),
+            card,
+        )
+    with _budget_lock:
+        # re-check under the lock: a concurrent query may have built and
+        # ACCOUNTED the same index; double-accounting would permanently
+        # inflate the budget and eventually refuse all builds
+        existing = cache.get(column)
+        if isinstance(existing, InvertedIndex):
+            return existing
+        if _postings_bytes + built.nbytes > _budget_bytes():
+            cache[column] = ("refused", _release_epoch)
+            logger.warning(
+                "postings budget exhausted (%d + %d > %d bytes): %s.%s "
+                "falls back to zone-map/scan paths "
+                "(raise config.INVINDEX_BUDGET_BYTES to index more)",
+                _postings_bytes,
+                built.nbytes,
+                _budget_bytes(),
+                seg.segment_name,
+                column,
+            )
+            return None
+        _postings_bytes += built.nbytes
+        cache[column] = built
+    return built
+
+
+def release_postings(seg: ImmutableSegment) -> None:
+    """Return a segment's postings bytes to the budget (segment unload).
+    Bumps the release epoch so budget refusals elsewhere re-evaluate."""
+    global _postings_bytes, _release_epoch
+    cache = getattr(seg, "_inv_cache", None)
+    if not cache:
+        return
+    with _budget_lock:
+        freed = sum(
+            idx.nbytes for idx in cache.values() if isinstance(idx, InvertedIndex)
+        )
+        cache.clear()
+        _postings_bytes = max(0, _postings_bytes - freed)
+        if freed:
+            _release_epoch += 1
+
+
+def warm_inverted_indexes(seg: ImmutableSegment, columns) -> None:
+    """Best-effort postings pre-build for configured columns at segment
+    load (invertedIndexColumns parity) — shared by both server
+    starters.  A configured column that cannot index (typo, no
+    dictionary) warns instead of silently no-opping."""
+    for col in columns or ():
+        try:
+            if inverted_index(seg, col) is None:
+                logger.warning(
+                    "invertedIndexColumns: %r cannot be indexed on segment %s "
+                    "(unknown column, no dictionary, or postings budget)",
+                    col,
+                    seg.segment_name,
+                )
+        except Exception:
+            logger.exception(
+                "inverted-index warm failed for %s.%s", seg.segment_name, col
+            )

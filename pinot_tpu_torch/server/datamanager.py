@@ -16,6 +16,7 @@ import threading
 from typing import Dict, List, Optional, Sequence
 
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.invindex import release_postings
 
 
 class SegmentDataManager:
@@ -44,7 +45,12 @@ class SegmentDataManager:
     def release(self) -> int:
         with self._lock:
             self._refcount -= 1
-            return self._refcount
+            rc = self._refcount
+        if rc == 0:
+            # the last reference is gone: its postings bytes go back to the
+            # process-wide inverted-index budget
+            release_postings(self.segment)
+        return rc
 
 
 class TableDataManager:

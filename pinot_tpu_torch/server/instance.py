@@ -72,7 +72,9 @@ class ServerInstance:
     the worker); False launches inline on each worker.
     ``lane_stall_timeout_s`` arms the lane's watchdog;
     ``device_fault_injector`` (``common/faults.py``) is consulted before
-    every lane launch."""
+    every lane launch.
+    ``postings`` / ``bitsliced``: the executor's filter-tier switches
+    (``QueryExecutor``)."""
 
     # serving-tier cost-vector keys mirrored into cost.tier.* meters
     _TIER_KEYS = SEGMENT_TIER_KEYS
@@ -87,6 +89,8 @@ class ServerInstance:
         pipeline: bool = True,
         lane_stall_timeout_s: Optional[float] = None,
         device_fault_injector=None,
+        postings: bool = True,
+        bitsliced: Union[bool, str] = True,
     ) -> None:
         self.name = name
         self.device = config.resolve_device(device)
@@ -111,6 +115,8 @@ class ServerInstance:
             precision=precision,
             metrics=self.metrics,
             lanes=self.lanes,
+            postings=postings,
+            bitsliced=bitsliced,
         )
         self.scheduler = QueryScheduler(
             num_workers=num_workers, max_pending=max_pending, metrics=self.metrics

@@ -37,6 +37,7 @@ import torch
 from pinot_tpu_torch.common.fencing import ServingLease
 from pinot_tpu_torch.controller.resource_manager import DROPPED, OFFLINE, ONLINE
 from pinot_tpu_torch.segment.fetcher import DEFAULT_FACTORY
+from pinot_tpu_torch.segment.invindex import warm_inverted_indexes
 from pinot_tpu_torch.segment.format import (
     SEGMENT_FILE_NAME,
     SegmentIntegrityError,
@@ -258,7 +259,8 @@ class NetworkedServerStarter:
         table, segment, target = msg["table"], msg["segment"], msg["target"]
         try:
             if target == ONLINE:
-                ok = self._load(table, segment, msg.get("crc"), msg.get("downloadUri"))
+                ok = self._load(table, segment, msg.get("crc"), msg.get("downloadUri"),
+                                msg.get("invertedIndexColumns"))
             elif target in (OFFLINE, DROPPED):
                 self.server.remove_segment(table, segment)
                 self._local_crcs.pop(segment, None)
@@ -277,7 +279,8 @@ class NetworkedServerStarter:
             # the message stays on the board and comes again
             logger.warning("ack failed for %s/%s: %s", table, segment, e)
 
-    def _load(self, table: str, segment: str, crc: Optional[int], download_uri: Optional[str] = None) -> bool:
+    def _load(self, table: str, segment: str, crc: Optional[int], download_uri: Optional[str] = None,
+              inv_columns=None) -> bool:
         tdm = self.server.data_manager.table(table)
         if tdm is not None and segment in tdm.segment_names() and crc is not None \
                 and self._local_crcs.get(segment) == crc:
@@ -318,6 +321,8 @@ class NetworkedServerStarter:
                 logger.exception("downloaded copy of %s/%s failed integrity verification", table, segment)
                 return False
         self.server.add_segment(table, seg_obj)
+        # the table config's invertedIndexColumns: postings built at load
+        warm_inverted_indexes(seg_obj, inv_columns)
         self.server.metrics.timer("segmentLoad").update((time.perf_counter() - t0) * 1000)
         if crc is not None:
             self._local_crcs[segment] = crc

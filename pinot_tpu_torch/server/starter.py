@@ -37,6 +37,7 @@ from pinot_tpu_torch.segment.format import (
     verify_segment_crc,
 )
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.invindex import warm_inverted_indexes
 from pinot_tpu_torch.server.instance import ServerInstance
 
 logger = logging.getLogger(__name__)
@@ -81,6 +82,8 @@ class ServerStarter:
         if seg_obj is None:
             return False
         self.server.add_segment(table, seg_obj)
+        # the table config's invertedIndexColumns: postings built at load
+        warm_inverted_indexes(seg_obj, info.get("invertedIndexColumns"))
         self.server.metrics.timer("segmentLoad").update((time.perf_counter() - t0) * 1000)
         if crc is not None:
             self._local_crcs[segment] = crc

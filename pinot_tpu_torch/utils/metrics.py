@@ -384,8 +384,9 @@ SERVER_METRIC_CATALOG: Dict[str, str] = {
     "phase.schedulerWait": "time from submit to worker dequeue",
     "fairshare.activeTables": "tables with a non-empty scheduler queue",
     "fairshare.shed": "submits shed by the global or per-table cap",
-    "phase.*": "per-stage executor phase timers (staging, planBuild, "
-    "laneWait, planExec, finalize, hostPath, hostFailover)",
+    "phase.*": "per-stage executor phase timers (indexPath, bitslicedPath, "
+    "tierDecision, staging, planBuild, laneWait, planExec, finalize, hostPath, "
+    "hostFailover)",
     "heal.deviceFailures": "device launch failures (classified)",
     "heal.deviceRetries": "transient device failures retried on the device",
     "heal.hostFailovers": "queries served by the host tier after a device error",

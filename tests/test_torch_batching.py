@@ -155,8 +155,10 @@ def _run_concurrently_batched(stack, queries, settle_s: float = 0.8):
 # ------------------------------------------------------- through a server
 @pytest.mark.parametrize("shape", BATCH_SHAPES, ids=SHAPE_IDS)
 def test_batched_matches_unbatched_payloads(shape, stacks):
-    serial = stacks(pipeline=False)
-    pipelined = stacks(pipeline=True)
+    # the scalar-agg shape would otherwise take the bit-sliced tier, as in
+    # the reference's test (PINOT_TPU_BITSLICED=0 there)
+    serial = stacks(pipeline=False, bitsliced=False)
+    pipelined = stacks(pipeline=True, bitsliced=False)
     queries = _ladder(shape)
     for s in (serial, pipelined):
         r = s.handle_pql(queries[0])

@@ -37,7 +37,10 @@ def test_every_port_cost_key_is_a_reference_cost_key():
 ])
 def test_a_server_marks_the_tier_meter_of_the_blocks_it_scanned(pql, meter, monkeypatch):
     monkeypatch.setattr(config, "ZONE_BLOCK", 1024)
-    server = ServerInstance("s0", device="cpu")
+    # past the postings and bit-sliced tiers, which would answer the
+    # one-date filter ahead of the blocks (test_torch_invindex.py holds
+    # the default route)
+    server = ServerInstance("s0", device="cpu", postings=False, bitsliced=False)
     transport = LocalTransport()
     transport.register(("s0", 0), server.handle_request)
     routing = RoutingTableProvider()

@@ -308,8 +308,22 @@ def test_a_sticky_fault_found_by_the_fetch_stops_the_lane(healing, monkeypatch):
     assert lane.dead is not None and lane.dead.sticky
 
 
-def test_concurrent_identical_queries_coalesce_and_stage_once(healing, monkeypatch):
-    ex, lane, inj = healing
+@pytest.fixture
+def coalescing():
+    """The heal ladder's executor with the watchdog far above the test's
+    0.15 s held launch: on a loaded host the held launch plus the plain
+    kernel's own run passed the 0.3 s watchdog of ``healing`` now and
+    then, the lane failed every attached waiter as a stall, they failed
+    over to the host tier, and their results carried no coalesceHits."""
+    inj = DeviceFaultInjector()
+    lane = DeviceLane("cpu", stall_timeout_s=30.0, fault_injector=inj)
+    ex = QueryExecutor(device="cpu", lane=lane)
+    yield ex, lane, inj
+    lane.close()
+
+
+def test_concurrent_identical_queries_coalesce_and_stage_once(coalescing, monkeypatch):
+    ex, lane, inj = coalescing
     staged = []
     real_stage = device_mod.stage_segments
 

@@ -157,8 +157,8 @@ def test_device_results_carry_the_device_tier():
     assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS)
     assert res._served_tier == "device" and res.cost["segmentsFullScan"] == 3
     assert "segmentsHost" not in res.cost and "hostMs" not in res.cost
-    assert SEGMENT_TIER_KEYS == ("segmentsPruned", "segmentsZonemap", "segmentsFullScan", "segmentsHost",
-                                 "segmentsStarTree")
+    assert SEGMENT_TIER_KEYS == ("segmentsPruned", "segmentsPostings", "segmentsBitsliced", "segmentsZonemap",
+                                 "segmentsFullScan", "segmentsHost", "segmentsStarTree")
 
 
 @pytest.mark.parametrize("pql", [

@@ -41,6 +41,18 @@ req = optimize_request(parse_pql(Q1))
 resp = reduce_to_response(req, [QueryExecutor(device="cpu").execute(segs, req)])
 groups = resp.aggregation_results[3].group_by_result
 assert sum(int(g.value) for g in groups) == 4000, groups
+# the two filter tiers ahead of the scan: host postings, bit-sliced planes
+from pinot_tpu_torch.engine import bitsliced, invindex_path, tiercost
+from pinot_tpu_torch.segment import invindex
+
+assert callable(bitsliced.bitsliced_decision) and callable(invindex_path.index_path_decision)
+assert tiercost.postings_max_matches(6400) == 100
+needle = optimize_request(parse_pql("SELECT count(*) FROM lineitem WHERE l_shipdate = '1995-06-14'"))
+assert QueryExecutor(device="cpu").execute(segs, needle)._served_tier == "postings"
+assert isinstance(segs[0]._inv_cache["l_shipdate"], invindex.InvertedIndex)
+fused = optimize_request(parse_pql("SELECT count(*), sum(l_quantity) FROM lineitem "
+                                   "WHERE l_quantity IN (5, 10, 15) AND l_shipmode = 'AIR'"))
+assert QueryExecutor(device="cpu").execute(segs, fused)._served_tier == "bitsliced"
 
 # the serving path: a port server behind the port broker over TCP
 from pinot_tpu_torch.broker.broker import BrokerRequestHandler

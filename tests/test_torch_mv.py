@@ -117,7 +117,9 @@ def _payloads(pql, table, precision):
     ref_req = ref_optimize(ref_parse(pql))
     want = canonical_payload(ref_req, RefExecutor().execute(SEGMENTS[table], ref_req))
     req = optimize_request(parse_pql(pql))
-    ex = QueryExecutor(device="cpu", precision=precision)
+    # the device's MV path: past the postings tier, which answers the
+    # selective MV filters from host postings (test_torch_invindex.py)
+    ex = QueryExecutor(device="cpu", precision=precision, postings=False, bitsliced=False)
     res = ex.execute(PORT[table], req)
     heal = ex.healing_stats()
     assert heal["deviceFailures"] == heal["hostFailovers"] == 0, heal  # no device run failed over

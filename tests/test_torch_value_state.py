@@ -94,7 +94,9 @@ def _payloads(pql, ref_segments, port_segments, precision="x64"):
     ref_req = ref_optimize(ref_parse(pql))
     want = canonical_payload(ref_req, RefExecutor().execute(ref_segments, ref_req))
     req = optimize_request(parse_pql(pql))
-    ex = QueryExecutor(device="cpu", precision=precision)
+    # K2's path: past the postings tier, which answers the empty match
+    # from host postings
+    ex = QueryExecutor(device="cpu", precision=precision, postings=False, bitsliced=False)
     got = strip_accounting(reduce_to_response(req, [ex.execute(port_segments, req)]).to_json())
     return got, want
 

@@ -6,7 +6,9 @@ over the same 3 x 20,000-row lineitem segments, at a 1024-row block.
 
 The reference reads its block size from ``PINOT_TPU_ZONE_BLOCK`` and
 answers selective queries from postings unless ``PINOT_TPU_INVINDEX=0``,
-so both are set and both packages take the block path.  Candidate maps
+so both are set; the port's executors take ``postings=False,
+bitsliced=False``, its switches for the two tiers ahead of the blocks, so
+both packages take the block path.  Candidate maps
 compare exactly; answers compare with the audit comparison at rel 1e-9 /
 abs 2e-5 (both sides sum in float64 over the same rows in the same
 order); ``numEntriesScannedInFilter`` compares exactly.
@@ -64,6 +66,12 @@ REF_SEGMENTS = [ref_synthetic(20000, seed=7 + i, name=f"li{i}") for i in range(3
 PORT_SEGMENTS = [synthetic_lineitem_segment(20000, seed=7 + i, name=f"li{i}") for i in range(3)]
 
 
+def _executor(**kw):
+    """A port executor past the postings and bit-sliced tiers (the
+    reference side runs with ``PINOT_TPU_INVINDEX=0``)."""
+    return QueryExecutor(device="cpu", precision="x64", postings=False, bitsliced=False, **kw)
+
+
 @pytest.fixture(autouse=True)
 def small_zone_block(monkeypatch):
     monkeypatch.setenv("PINOT_TPU_ZONE_BLOCK", str(BLOCK))
@@ -86,7 +94,7 @@ def _ref_candidates(pql):
 
 def _port_candidates(pql):
     req = optimize_request(parse_pql(pql))
-    ex = QueryExecutor(device="cpu", precision="x64")
+    ex = _executor()
     live = PORT_SEGMENTS
     needed = set(req.referenced_columns()) - ex._docrange_only_columns(req, live)
     ctx = TableContext(live)
@@ -145,7 +153,7 @@ def test_block_path_answers_equal_the_reference(pql):
     want = canonical_payload(ref_req, ref_part)
     req = optimize_request(parse_pql(pql))
     before = kernel.block_dispatches
-    part = QueryExecutor(device="cpu", precision="x64").execute(PORT_SEGMENTS, req)
+    part = _executor().execute(PORT_SEGMENTS, req)
     got = strip_accounting(reduce_to_response(req, [part]).to_json())
     assert payloads_equivalent(got, want, rel_tol=REL, abs_tol=ABS), (pql, got, want)
     # the block path engaged: one block dispatch, candidate rows scanned
@@ -158,9 +166,9 @@ def test_block_path_answers_equal_the_reference(pql):
 @pytest.mark.parametrize("pql", [QUERIES[1], QUERIES[6]] + KERNEL_QUERIES)
 def test_zone_maps_off_scans_every_row(pql):
     req = optimize_request(parse_pql(pql))
-    on = QueryExecutor(device="cpu", precision="x64").execute(PORT_SEGMENTS, req)
+    on = _executor().execute(PORT_SEGMENTS, req)
     before = kernel.block_dispatches
-    off = QueryExecutor(device="cpu", precision="x64", zone_maps=False).execute(
+    off = _executor(zone_maps=False).execute(
         PORT_SEGMENTS, optimize_request(parse_pql(pql)))
     assert kernel.block_dispatches == before
     assert off.cost.get("segmentsFullScan") == len(PORT_SEGMENTS) and not off.cost.get("segmentsZonemap")
@@ -183,10 +191,10 @@ def test_a_block_table_past_a_limit_is_a_full_scan(pql, limit, monkeypatch):
         monkeypatch.setattr(config, "ZONE_MAX_FRACTION", 0.0)
     req = optimize_request(parse_pql(pql))
     before = kernel.block_dispatches
-    part = QueryExecutor(device="cpu", precision="x64").execute(PORT_SEGMENTS, req)
+    part = _executor().execute(PORT_SEGMENTS, req)
     assert kernel.block_dispatches == before
     assert part.cost.get("segmentsFullScan") == len(PORT_SEGMENTS) and not part.cost.get("segmentsZonemap")
-    full = QueryExecutor(device="cpu", precision="x64", zone_maps=False).execute(PORT_SEGMENTS, req)
+    full = _executor(zone_maps=False).execute(PORT_SEGMENTS, req)
     assert part.num_entries_scanned_in_filter == full.num_entries_scanned_in_filter
     a = strip_accounting(reduce_to_response(req, [part]).to_json())
     b = strip_accounting(reduce_to_response(req, [full]).to_json())
@@ -360,7 +368,7 @@ def test_the_fused_routes_hand_the_kernels_the_block_table(i, route, kernel_name
 
     monkeypatch.setattr(module, fn, spy)
     before = getattr(kernel, route)
-    QueryExecutor(device="cpu", precision="x64").execute(PORT_SEGMENTS, optimize_request(parse_pql(KERNEL_QUERIES[i])))
+    _executor().execute(PORT_SEGMENTS, optimize_request(parse_pql(KERNEL_QUERIES[i])))
     assert getattr(kernel, route) == before + 1
     ((args, kw),) = calls
     ids = kw["block_ids"]
