@@ -309,7 +309,7 @@ DEPLOY_FEW_ITERS = 5
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
 ITERS = 20  # timed runs per median, after warm-up
-MV_ITERS = 5  # timed runs per mvtest query median (mv_groupby takes seconds a run)
+MV_ITERS = 3  # timed runs per mvtest query median (mv_groupby takes seconds a run; 5 before phase 14)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM published float32 rate outside the tensor cores
@@ -2411,10 +2411,10 @@ class _Role:
     """One role process: ``python -m pinot_tpu_torch.tools.admin <args>``
     from the checkout, its output in a log file."""
 
-    def __init__(self, name: str, args: List[str], log_dir: str) -> None:
+    def __init__(self, name: str, args: List[str], log_dir: str, env: Optional[Dict[str, str]] = None) -> None:
         self.name = name
         self.log = open(os.path.join(log_dir, f"{name}.log"), "w+")
-        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {}))
         self.proc = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args],
                                      cwd=REPO_DIR, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True)
         _ROLES.append(self)
@@ -2532,17 +2532,19 @@ def require_launch(label: str, launches: Dict[str, int], kernel: str) -> None:
         raise AssertionError(f"{label}: kernel {kernel} was not launched")
 
 
-def start_roles(tmp: str, rec: dict):
-    """A controller, two servers and a broker, each its own process of the
-    admin CLI: (controller URL, {server: admin URL}, broker URL, a check
-    that raises when a role exited)."""
+def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None):
+    """A controller, two servers (``server_env`` added to their environment)
+    and a broker, each its own process of the admin CLI: (controller URL,
+    {server: admin URL}, broker URL, a check that raises when a role
+    exited)."""
     t = time.perf_counter()
     ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
                                 "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
     url = ctrl.ready(DEPLOY_READY_S)[2]
     # the servers and the broker need only the controller: they start together
     servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
-                                                  "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp)
+                                                  "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp,
+                                   env=server_env)
                for i in range(2)}
     broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
                               "-device", DEPLOY_DEVICE], tmp)
@@ -2749,9 +2751,9 @@ JOIN_QUERIES = {
 JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
 JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
 JOIN_ITERS = 3  # in-process medians on the host clock (each run extracts up to 67M rows)
-JOIN_SERVE_ITERS = 6  # broker requests a query over TCP (10 before phase 13)
-JOIN_SHUFFLE_ITERS = 3  # (5 before phase 13)
-JOIN_DEPLOY_ITERS = 3
+JOIN_SERVE_ITERS = 3  # broker requests a query over TCP (10 before phase 13, 6 before phase 14)
+JOIN_SHUFFLE_ITERS = 2  # (5 before phase 13, 3 before phase 14)
+JOIN_DEPLOY_ITERS = 2  # (3 before phase 14)
 JOIN_PROGRAM_ITERS = 5  # CUDA-event medians of the device program
 
 
@@ -4210,6 +4212,296 @@ def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
     torch.cuda.empty_cache()
     rec["wall_s"] = time.perf_counter() - t_phase
 
+# ---------------------------------------------------------------------------
+# 14. realtime ingestion: lineitem as a REALTIME table consumed from the
+# port's TCP stream broker by two server processes, queried at watermarks
+# ---------------------------------------------------------------------------
+
+RT_PARTITIONS = 2
+RT_SEGMENT_ROWS = 1 << 23  # rowsPerSegment: the offline cells' segment size
+RT_PARTITION_ROWS = 3 * (1 << 22)  # 1.5 x 2^23 a partition: one sealed segment, one consuming of 2^22
+RT_BLOCK = 1 << 16  # rows a produced columnar block (and a server's fetch: PINOT_TPU_INGEST_BATCH_ROWS)
+RT_STAGES = (4, 2, 1)  # the watermarks: a quarter, a half and the whole of the data
+RT_QUERIES = {"q1": Q1, "count_star": "SELECT count(*) FROM lineitem", "distinct_price": VALUE_QUERIES["distinct_price"]}
+RT_NEED = {"q1": "k1", "count_star": None, "distinct_price": "k2"}
+RT_ITERS = 20  # timed broker requests a query at each watermark, after one checked request
+RT_VISIBLE_S = 600.0  # from a stage's last produce to every row counted
+# the count polls' period: each poll at a new watermark snapshots both
+# consuming segments (200-370 ms of host remap at 2^22 rows), which takes
+# the server process's interpreter from its consumer
+RT_POLL_S = 0.25
+
+
+def head_segment(seg, n: int):
+    """The first ``n`` rows of ``seg`` (its dictionaries kept): the rows of
+    a partition produced so far, for the oracles."""
+    from pinot_tpu_torch.segment.immutable import ColumnData, ImmutableSegment, SegmentMetadata
+
+    cols = {c: ColumnData(metadata=col.metadata, dictionary=col.dictionary, fwd=col.fwd[:n])
+            for c, col in seg.columns.items()}
+    return ImmutableSegment(metadata=SegmentMetadata(segment_name=f"{seg.segment_name}_head{n}",
+                                                     table_name=seg.metadata.table_name, num_docs=n), columns=cols)
+
+
+def value_columns(seg) -> Dict[str, np.ndarray]:
+    """A segment's rows as one value array a column, as a producer sends
+    them (strings as fixed-width ``str``, numbers as float64)."""
+    out = {}
+    for c, col in seg.columns.items():
+        d = col.dictionary
+        vals = np.asarray(list(d.values)) if d.is_string else np.asarray(d.values, dtype=np.float64)
+        out[c] = vals[col.fwd]
+    return out
+
+
+def rt_check(name: str, d: dict, wants: dict) -> None:
+    """A broker reply at a watermark against the oracle over the rows
+    produced so far: counts, groups and distinct values exact, sums in the
+    audit band, served by the device."""
+    resp = response_from_json(d)
+    if resp.exceptions or resp.cost.get("segmentsHost"):
+        raise AssertionError(f"realtime {name}: {d['exceptions']} {resp.cost}")
+    if name == "q1":
+        check_response(resp, wants["q1"])
+    elif name == "count_star":
+        if int(resp.aggregation_results[0].value) != wants["count_star"]:
+            raise AssertionError(f"realtime count_star: {resp.aggregation_results[0].value} != "
+                                 f"{wants['count_star']}")
+    else:
+        check_value_response(resp, wants[name])
+
+
+def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
+    """14. lineitem as a REALTIME table (replication 1, two stream
+    partitions of a columnar topic on the port's StreamBrokerServer,
+    rowsPerSegment 2^23), a controller, two server processes running
+    RemoteConsumers and the broker: produced to a quarter, a half and the
+    whole of 1.5 x 2^23 rows a partition, the queries at each watermark
+    against the oracles over the rows produced so far; then K1 and K2 at a
+    server's final shape (its sealed segment and its consuming snapshot)
+    against their plain versions."""
+    from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
+    from pinot_tpu_torch.engine.executor import QueryExecutor
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.realtime.llc import make_segment_name
+    from pinot_tpu_torch.realtime.mutable import MutableSegment
+    from pinot_tpu_torch.realtime.netstream import NetworkStreamProvider, StreamBrokerServer
+    from pinot_tpu_torch.segment.format import SEGMENT_FILE_NAME, read_segment
+    from pinot_tpu_torch.tools.datagen import lineitem_schema, synthetic_lineitem_segment
+
+    rec = record["realtime"] = {"card": card_line(), "stages": {}}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pinot-realtime-")
+    t = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(RT_PARTITIONS) as pool:
+        sources = list(pool.map(lambda p: synthetic_lineitem_segment(RT_PARTITION_ROWS, seed=101 + p,
+                                                                     name=f"rt{p}"), range(RT_PARTITIONS)))
+        columns = list(pool.map(value_columns, sources))
+    log(f"realtime: {RT_PARTITIONS} partitions x {RT_PARTITION_ROWS} rows made in {time.perf_counter() - t:.1f} s "
+        f"({sum(a.nbytes for c in columns for a in c.values())} bytes of columns)")
+    # partition 0's consuming rows as an in-process mutable segment, for
+    # K1 and K2 at its final shape; built while the roles start, joined
+    # before the first produce
+    indexer = concurrent.futures.ThreadPoolExecutor(1)
+
+    def consuming_of_partition0():
+        m = MutableSegment(lineitem_schema(), make_segment_name(physical, 0, 1), physical)
+        for lo in range(RT_SEGMENT_ROWS, RT_PARTITION_ROWS, RT_BLOCK):
+            m.index_columns({c: a[lo:lo + RT_BLOCK] for c, a in columns[0].items()})
+        return m
+
+    physical = "lineitem_REALTIME"
+    stream = StreamBrokerServer()
+    stream.start()
+    try:
+        building = indexer.submit(consuming_of_partition0)
+        host, port = stream.address
+        producers = [NetworkStreamProvider(host, port, "lineitem") for _ in range(RT_PARTITIONS)]
+        producers[0].create_topic(RT_PARTITIONS)
+        url, admin, broker_url, alive = start_roles(tmp, rec, server_env={"PINOT_TPU_INGEST_BATCH_ROWS": str(RT_BLOCK)})
+        http_json(url + "/schemas", json.dumps(lineitem_schema().to_json()).encode())
+        config = TableConfig("lineitem", table_type="REALTIME", stream=StreamConfig(
+            stream_type="network", topic="lineitem", rows_per_segment=RT_SEGMENT_ROWS,
+            properties={"host": host, "port": port}))
+        http_json(url + "/tables", json.dumps(config.to_json()).encode())
+        mutable = building.result()
+
+        def launches():
+            out = {"k1": 0, "k2": 0}
+            for a in admin.values():
+                got = http_json(a + "/debug/metrics")["kernelLaunches"]
+                out = {k: out[k] + got[k] for k in out}
+            return out
+
+        def samples(timer: str, last: int = 0) -> Dict[str, List[float]]:
+            return {n: http_json(f"{a}/debug/samples?timer={timer}&last={last}")["samples"] for n, a in admin.items()}
+
+        def count() -> int:
+            d = http_json(broker_url + "/query", json.dumps({"pql": RT_QUERIES["count_star"]}).encode())
+            return int(response_from_json(d).aggregation_results[0].value) if not d["exceptions"] else -1
+
+        per_query, totals = {}, {"k1": 0, "k2": 0}
+        done = 0
+        for share in RT_STAGES:
+            target = RT_PARTITION_ROWS // share
+            label = f"1/{share}" if share > 1 else "all"
+            st = rec["stages"][label] = {"rows_per_partition": target}
+            t0 = time.perf_counter()
+
+            def produce(p):
+                for lo in range(done, target, RT_BLOCK):
+                    producers[p].produce_columns({c: a[lo:lo + RT_BLOCK] for c, a in columns[p].items()},
+                                                 partition=p)
+                return time.perf_counter()
+
+            with concurrent.futures.ThreadPoolExecutor(RT_PARTITIONS) as pool:
+                produced_at = max(pool.map(produce, range(RT_PARTITIONS)))
+            polls = 0
+            end = time.monotonic() + RT_VISIBLE_S
+            while True:
+                alive()
+                polls += 1
+                if count() == RT_PARTITIONS * target:
+                    break
+                if time.monotonic() > end:
+                    raise AssertionError(f"realtime {label}: rows not visible in {RT_VISIBLE_S} s")
+                time.sleep(RT_POLL_S)
+            visible_at = time.perf_counter()
+            st.update(produce_s=produced_at - t0, ingest_rows_per_s_per_partition=(target - done) / (visible_at - t0),
+                      produce_to_visible_ms=(visible_at - produced_at) * 1e3, count_polls=polls,
+                      snapshot_ms={n: v[-1] if v else None for n, v in samples("phase.snapshot", 1).items()})
+            log(f"realtime {label}: {target - done} rows a partition produced in {st['produce_s']:.1f} s, all "
+                f"counted {st['produce_to_visible_ms']:.1f} ms after the last produce_columns returned "
+                f"({polls} count polls, each at its own watermark); ingest "
+                f"{st['ingest_rows_per_s_per_partition']:.0f} rows/s a partition; the last snapshot ms by server "
+                f"{st['snapshot_ms']}")
+            done = target
+            heads = [head_segment(s, target) for s in sources]
+            wants = {"q1": oracle(heads, "q1"), "count_star": RT_PARTITIONS * target,
+                     "distinct_price": value_oracle(hll_mod, heads, "distinct_price")}
+            st["queries"] = {}
+            for name, pql in RT_QUERIES.items():
+                body = json.dumps({"pql": pql}).encode()
+                before = launches()
+                d = http_json(broker_url + "/query", body)
+                after = launches()
+                rt_check(name, d, wants)
+                got = {k: after[k] - before[k] for k in after}
+                require_launch(f"realtime {label} {name}", got, RT_NEED[name])
+                per_query[f"{label}/{name}"] = got
+                totals = {k: totals[k] + got[k] for k in totals}
+                staging = {n: v[-1] if v else None for n, v in samples("phase.staging", 1).items()}
+                broker_ms = []
+                for _ in range(RT_ITERS):
+                    d = http_json(broker_url + "/query", body)
+                    if d["exceptions"]:
+                        raise AssertionError(f"realtime {label} {name}: {d['exceptions']}")
+                    broker_ms.append(d["timeUsedMs"])
+                rt_check(name, d, wants)
+                q = st["queries"][name] = {"p50_ms": float(np.percentile(broker_ms, 50)),
+                                           "p99_ms": float(np.percentile(broker_ms, 99)), "n": RT_ITERS,
+                                           "first_staging_ms": staging, "launches": got}
+                log(f"realtime {label} {name}: equal to the oracle over the rows produced; broker p50 "
+                    f"{q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over {RT_ITERS}; the first request's staging "
+                    f"ms by server {staging}; launches {got}")
+            status = {n: http_json(a + "/debug/metrics") for n, a in admin.items()}
+            st["staged_bytes"] = {n: s_["stagedBytes"] for n, s_ in status.items()}
+            st["staged_tables"] = {n: s_["stagedTables"] for n, s_ in status.items()}
+            log(f"realtime {label}: staged bytes by server {st['staged_bytes']}, staged segment sets "
+                f"{st['staged_tables']}")
+            # one staged set a query shape, whatever the watermarks polled
+            if any(v > len(RT_QUERIES) for v in st["staged_tables"].values()):
+                raise AssertionError(f"realtime {label}: staged sets {st['staged_tables']} grow with the watermarks")
+        record["paths"]["realtime"] = {"launches": per_query, "totals": totals}
+        first, last = rec["stages"]["1/4"], rec["stages"]["all"]
+        # bytes a row hosted stay put from the first watermark to the last
+        for n in admin:
+            ratio = (last["staged_bytes"][n] / last["rows_per_partition"]) / \
+                (first["staged_bytes"][n] / first["rows_per_partition"])
+            if ratio > 1.5:
+                raise AssertionError(f"realtime: {n}'s staged bytes a row grew {ratio:.2f}x across the watermarks")
+
+        # the commits: one a partition, at 2^23 rows
+        ideal = http_json(f"{url}/tables/{physical}/idealstate")
+        want_ideal = {make_segment_name(physical, p, s): st_ for p in range(RT_PARTITIONS)
+                      for s, st_ in ((0, "ONLINE"), (1, "CONSUMING"))}
+        if {s_: set(r.values()) for s_, r in ideal.items()} != {s_: {v} for s_, v in want_ideal.items()}:
+            raise AssertionError(f"realtime: ideal state {ideal}")
+        commit = rec["commit"] = {n: {k: samples(f"ingest.commit{k}Ms")[n] for k in ("Convert", "File", "Upload", "")}
+                                  for n in admin}
+        commit_loads = samples("segmentLoad")
+        ctrl_ms = http_json(url + "/debug/metrics")["controller"]["timers"].get("segmentCommitMs")
+        rec["commit_load_ms"], rec["controller_commit"] = commit_loads, ctrl_ms
+        log(f"realtime commits: by server convert / file / upload / all ms {commit}; the ONLINE transition's load "
+            f"of the committed copy ms {commit_loads}; the controller's persistence {ctrl_ms}")
+        alive()
+
+        # K1 and K2 at partition 0's final shape, as its server holds it:
+        # the sealed segment (the controller's committed file) and the
+        # consuming snapshot
+        os.makedirs(os.path.join(tmp, "sealed"))
+        sealed_name = make_segment_name(physical, 0, 0)
+        with urllib.request.urlopen(f"{url}/segments/{physical}/{sealed_name}/file", timeout=DEPLOY_REQUEST_S) as r:
+            with open(os.path.join(tmp, "sealed", SEGMENT_FILE_NAME), "wb") as f:
+                shutil.copyfileobj(r, f)
+        sealed = read_segment(os.path.join(tmp, "sealed"))
+        t = time.perf_counter()
+        snap = mutable.snapshot()
+        rec["in_process_snapshot_ms"] = (time.perf_counter() - t) * 1e3
+        segs = [sealed, snap]
+        ex = QueryExecutor(device=dev, precision="x32")
+        heads = [head_segment(sources[0], RT_PARTITION_ROWS)]
+        rec["k1"] = k1_captured(fg, "realtime q1 (sealed + consuming snapshot)",
+                                lambda: ex.execute(segs, optimize_request(parse_pql(Q1))))
+        check_response(reduce_to_response(optimize_request(parse_pql(Q1)),
+                                          [ex.execute(segs, optimize_request(parse_pql(Q1)))]), oracle(heads, "q1"))
+        captured: dict = {}
+        restore = _capture(vsc, "value_state", captured, "k2")
+        req = optimize_request(parse_pql(RT_QUERIES["distinct_price"]))
+        try:
+            res = ex.execute(segs, req)
+        finally:
+            vsc.value_state = restore
+        check_value_response(reduce_to_response(req, [res]), value_oracle(hll_mod, heads, "distinct_price"))
+        (mode, *rest), kw = captured["k2"]
+        args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+        tiers = compare_k2_value(vsc, mode, args)
+        k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+        matched = int(vsc.value_state(mode, **args)[0])
+        bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
+        rec["k2"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
+                         tiers=tiers, mode=mode, shape=list(args["values"].shape), matched=matched, max_abs_err=0.0,
+                         num_docs=args["num_docs"].tolist())
+        log(f"k2 realtime distinct_price (sealed + consuming snapshot, {mode}, values {list(args['values'].shape)}, "
+            f"num_docs {rec['k2']['num_docs']}, {matched} rows matched): {k_ms:.4f} ms (bound {bound:.4f} ms by "
+            f"{bound_by}: {nbytes} bytes; {bound / k_ms:.3f} of the bound), plain {p_ms:.4f} ms, bit-equal in tiers "
+            f"{tiers}; the in-process snapshot of {snap.num_docs} rows {rec['in_process_snapshot_ms']:.1f} ms")
+        # the phase's measurements in one line, beside the card they were taken on
+        summary = {label: {"ingest_rows_per_s_per_partition": st["ingest_rows_per_s_per_partition"],
+                           "produce_to_visible_ms": st["produce_to_visible_ms"], "snapshot_ms": st["snapshot_ms"],
+                           "staging_ms": {q: v["first_staging_ms"] for q, v in st["queries"].items()},
+                           "broker_p50_p99_ms": {q: [v["p50_ms"], v["p99_ms"]] for q, v in st["queries"].items()},
+                           "staged_bytes": st["staged_bytes"]}
+                   for label, st in rec["stages"].items()}
+        summary.update(commit_ms=rec["commit"], commit_load_ms=rec["commit_load_ms"],
+                       k1_ms_bound_ms=[rec["k1"]["ms"], rec["k1"]["bound_ms"]],
+                       k2_ms_bound_ms=[rec["k2"]["ms"], rec["k2"]["bound_ms"]])
+        log(f"realtime summary on {rec['card']}: {json.dumps(summary)}")
+        ex.free_staging()
+        del ex, segs, snap, sealed, mutable
+        torch.cuda.empty_cache()
+    finally:
+        codes = _stop_roles()
+        stream.stop()
+        indexer.shutdown(wait=True)
+        rec["exit_codes"] = codes
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"realtime: every role stopped with SIGTERM, exit codes {codes}; phase {time.perf_counter() - t_phase:.1f} s")
+    if any(codes.values()):
+        raise AssertionError(f"realtime: a role did not exit cleanly {codes}")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4229,6 +4521,9 @@ def main(argv=None) -> int:
     ap.add_argument("--tiers-only", action="store_true",
                     help="after the build, the kernel checks and lineitem's datagen run only phase 13, "
                     "the postings and bit-sliced tiers (no result line)")
+    ap.add_argument("--realtime-only", action="store_true",
+                    help="after the build and the kernel checks run only phase 14, realtime ingestion "
+                    "(no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4293,7 +4588,7 @@ def run(dev: torch.device, opts) -> int:
         return distinct
 
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
-    if opts.kernels_only or opts.joins_only or opts.startree_only:
+    if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
         makers = {}
     elif opts.tiers_only:
         makers = {"lineitem": lineitem}
@@ -4333,6 +4628,14 @@ def run(dev: torch.device, opts) -> int:
     check_k2_empty(vsc, dev)
     log("k2 check empty input: zero holders in every mode, no launch")
     torch.cuda.synchronize()
+    if opts.realtime_only:
+        record["paths"] = {}
+        realtime_phase(dev, record, fg, vsc, hll_mod)
+        log(f"realtime only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
     if opts.joins_only or opts.startree_only:
         if opts.joins_only:
             ssb, join_wants = join_data()
@@ -4695,7 +4998,7 @@ def run(dev: torch.device, opts) -> int:
         k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
         dev_ms = sum(device_ms(lambda: vsc.value_state(mode, **args)).values())
         tier_ms = {t: sum(device_ms(lambda: vsc.value_state(mode, **args, tier=t)).values()) for t in tiers}
-        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), ITERS)
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)  # ITERS before phase 14
         comb_ms, _ = cuda_ms(lambda: vsc.combine_index(mode, **args), ITERS)
         idx, K, _ = vsc.combine_index(mode, **args)
         counts = vsc.value_state_counts(idx, K)
@@ -5232,6 +5535,14 @@ def run(dev: torch.device, opts) -> int:
     tiers_phase(dev, segments, record, fg, vsc, drive)
     log(f"tiers phase: {time.perf_counter() - t0:.1f} s")
 
+    # 14. realtime ingestion: lineitem as a REALTIME table, consumed by two
+    # server processes from the stream broker, queried at its watermarks
+    t0 = time.perf_counter()
+    ex.free_staging()
+    torch.cuda.empty_cache()
+    realtime_phase(dev, record, fg, vsc, hll_mod)
+    log(f"realtime phase: {time.perf_counter() - t0:.1f} s")
+
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
     # the shares are the same, and its postings are built once, then freed)
@@ -5302,6 +5613,7 @@ def run(dev: torch.device, opts) -> int:
                            for name in JOIN_QUERIES if "k1" in record["joins"]["stages"][name]},
             "startree_shape": record["startree"]["k1"],
             "tiers_shape": record["tiers"]["k1"],
+            "realtime_shape": record["realtime"]["k1"],
         },
         {
             "name": "value_state_counts",
@@ -5316,6 +5628,7 @@ def run(dev: torch.device, opts) -> int:
             "bound_by": hg["bound_by"],
             "library_ms": hg["library_ms"],
             "block_path": dict(block_path("zone_distinct", zk2), library_ms=zk2["blocks"]["library_ms"]),
+            "realtime_shape": record["realtime"]["k2"],
         },
     ]}
     summary["kernels"] += [

@@ -77,6 +77,11 @@ class ServingLease:
         with self._lock:
             return self._epoch
 
+    @property
+    def granted(self) -> bool:
+        with self._lock:
+            return self._granted
+
     def snapshot(self) -> Dict[str, Any]:
         held = self.held()
         with self._lock:

@@ -1,19 +1,23 @@
 """Table configuration (copy of ``pinot_tpu.common.tableconfig``,
-trimmed to offline tables).
+trimmed).
 
-The reference's JSON table config: table type, replication, retention,
-indexing, quota and tenants, and the declared key partitioning
-(``PartitionConfig``) the broker's join planner reads.  A table's ``slo``
-block rides along as the JSON it is; a REALTIME table's
-``streamConfigs`` is refused (realtime ingestion is a later item of the
-port, ROADMAP queue 1 item 29).
+The reference's JSON table config: table type (OFFLINE or REALTIME),
+replication, retention, indexing, quota and tenants, the declared key
+partitioning (``PartitionConfig``) the broker's join planner reads, and a
+REALTIME table's stream (``StreamConfig``, ``streamConfigs`` in the JSON).
+A table's ``slo`` block rides along as the JSON it is.  Realtime tables
+consume through the low-level consumers (``realtime/llc.py``) from a
+network, file or memory stream; a high-level consumer group or a Kafka
+stream is refused (ROADMAP queue 1 item 29).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
-REALTIME_ITEM = "realtime tables are item 29 of the port (ROADMAP queue 1)"
+REALTIME_ITEM = ("high-level consumer groups and Kafka streams are item 29 of the port "
+                 "(ROADMAP queue 1)")
+STREAM_TYPES = ("network", "file", "memory")  # the stream types the port consumes
 
 
 @dataclass
@@ -66,6 +70,25 @@ class PartitionConfig:
 
 
 @dataclass
+class StreamConfig:
+    """Realtime ingestion config (the kafka.* stream properties analog).
+
+    ``stream_type`` selects the provider: ``network`` (the TCP stream
+    broker, ``realtime/netstream.py``; properties host, port), ``file``
+    (JSONL a partition; properties paths) or ``memory`` (in process;
+    properties partitions).  ``rows_per_segment`` is the flush threshold
+    of a consuming segment.  ``consumer_type`` "lowlevel" is one
+    controller-coordinated consumer a stream partition (LLC)."""
+
+    stream_type: str = "file"
+    topic: str = ""
+    decoder: str = "json"
+    rows_per_segment: int = 100_000
+    consumer_type: str = "lowlevel"
+    properties: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
 class QuotaConfig:
     storage: Optional[str] = None
     max_queries_per_second: Optional[float] = None
@@ -88,6 +111,7 @@ class TableConfig:
     quota: QuotaConfig = field(default_factory=QuotaConfig)
     slo: Optional[Dict[str, Any]] = None
     partitioning: Optional[PartitionConfig] = None
+    stream: Optional[StreamConfig] = None
     broker_tenant: str = "DefaultTenant"
     server_tenant: str = "DefaultTenant"
 
@@ -118,12 +142,32 @@ class TableConfig:
             d["slo"] = dict(self.slo)
         if self.partitioning is not None:
             d["partitioning"] = self.partitioning.to_json()
+        if self.stream is not None:
+            d["streamConfigs"] = {
+                "streamType": self.stream.stream_type,
+                "topic": self.stream.topic,
+                "decoder": self.stream.decoder,
+                "rowsPerSegment": self.stream.rows_per_segment,
+                "consumerType": self.stream.consumer_type,
+                "properties": self.stream.properties,
+            }
         return d
 
     @classmethod
     def from_json(cls, d: Dict[str, Any]) -> "TableConfig":
-        if "streamConfigs" in d or d.get("tableType", "OFFLINE") != "OFFLINE":
-            raise NotImplementedError(REALTIME_ITEM)
+        stream = None
+        if "streamConfigs" in d:
+            sc = d["streamConfigs"]
+            stream = StreamConfig(
+                stream_type=sc.get("streamType", "file"),
+                topic=sc.get("topic", ""),
+                decoder=sc.get("decoder", "json"),
+                rows_per_segment=sc.get("rowsPerSegment", 100_000),
+                consumer_type=sc.get("consumerType", "lowlevel"),
+                properties=sc.get("properties", {}),
+            )
+            if stream.consumer_type != "lowlevel" or stream.stream_type not in STREAM_TYPES:
+                raise NotImplementedError(REALTIME_ITEM)
         seg = d.get("segmentsConfig", {})
         idx = d.get("tableIndexConfig", {})
         tenants = d.get("tenants", {})
@@ -154,4 +198,5 @@ class TableConfig:
             partitioning=(
                 PartitionConfig.from_json(d["partitioning"]) if d.get("partitioning") else None
             ),
+            stream=stream,
         )

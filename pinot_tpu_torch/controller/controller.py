@@ -1,10 +1,12 @@
 """Controller: cluster CRUD facade and REST API (port of
-``pinot_tpu.controller.controller``, trimmed to serving offline tables).
+``pinot_tpu.controller.controller``, trimmed).
 
 ``Controller`` keeps schemas, table configs and the ideal state
 (``ClusterResourceManager``), the durable segment copies
-(``SegmentStore``) and the remote-instance control plane
-(``ParticipantGateway``).  ``ControllerHttpServer`` serves the routes the
+(``SegmentStore``), the remote-instance control plane
+(``ParticipantGateway``) and the LLC realtime manager
+(``realtime/llc.py RealtimeSegmentManager``: REALTIME tables, their
+CONSUMING segments and the completion protocol).  ``ControllerHttpServer`` serves the routes the
 server and broker starters and the admin CLI call, with the reference's
 paths and JSON:
 
@@ -12,32 +14,43 @@ paths and JSON:
          /instances/<name>/messages  /segments/<table>/<segment>/file
          /tables  /tables/<table>/segments|idealstate|externalview
          /schemas/<name>  /brokers
-  POST   /instances  /instances/<name>/heartbeat|ack  /schemas  /tables
+  POST   /instances  /instances/<name>/heartbeat|ack  /schemas
+         /tables   (a REALTIME config's streamConfigs name its stream)
          /segments/<table>   (the segment file's bytes)
+         /realtime/consumed   (segmentConsumed: {segment, server, offset, epoch})
+         /realtime/commit/<segment>/<server>?epoch=   (segmentCommit: the
+                              committed segment file's bytes)
   DELETE /tables/<table>  /tables/<table>/segments/<segment>
 
 Left out, ROADMAP queue 1 item 30: the property store, journal and
-recovery, the stabilizer, the retention / validation / status-checker
-managers, the dashboard, tenants, rebalance and drain, quotas, the LLC
-realtime manager and the cluster-wide ``collect_*`` planes.
+recovery (a restarted controller does not resume a table's consumption
+from its checkpointed offsets), the stabilizer, the retention /
+validation / status-checker managers (``realtime_manager.
+ensure_consuming_segments`` is the validation repair, called directly),
+the dashboard, tenants, rebalance and drain, quotas and the cluster-wide
+``collect_*`` planes.
 """
 from __future__ import annotations
 
 import json
 import logging
 import os
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 from urllib.parse import parse_qs, unquote, urlparse
 
+from pinot_tpu_torch.common.fencing import StaleEpochError
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.common.tableconfig import TableConfig
 from pinot_tpu_torch.controller.network import ParticipantGateway
 from pinot_tpu_torch.controller.resource_manager import ClusterResourceManager
 from pinot_tpu_torch.controller.store import SegmentStore
-from pinot_tpu_torch.segment.format import read_segment_metadata
+from pinot_tpu_torch.realtime.llc import RealtimeSegmentManager
+from pinot_tpu_torch.realtime.stream import stream_provider_from_config
+from pinot_tpu_torch.segment.format import SEGMENT_FILE_NAME, read_segment, read_segment_metadata
 from pinot_tpu_torch.segment.immutable import ImmutableSegment, SegmentMetadata
 from pinot_tpu_torch.utils.metrics import ControllerMetrics, prometheus_text
 
@@ -56,13 +69,20 @@ class Controller:
         self.store = SegmentStore(os.path.join(data_dir, "segments"))
         self.metrics = ControllerMetrics("controller")
         for m in ("instanceRegistrations", "heartbeats", "instancesMarkedDead", "transitionAcks",
-                  "clusterStatePolls", "segmentUploads", "lease.granted"):
+                  "clusterStatePolls", "segmentUploads", "lease.granted", "fence.staleEpochRejections",
+                  "fence.leaseRejections", "fence.committerReElections"):
             self.metrics.meter(m)
         self.metrics.gauge("fence.epoch").set(self.epoch)
+        self.realtime_manager = RealtimeSegmentManager(self.resources, self.store, metrics=self.metrics)
+        # arms the commit plane's epoch fence: segmentConsumed and
+        # segmentCommit carry the caller's lease epoch
+        self.realtime_manager.epoch = self.epoch
         self.gateway = ParticipantGateway(
             self.resources, heartbeat_timeout_s=heartbeat_timeout_s, metrics=self.metrics,
             epoch=self.epoch, lease_s=lease_s,
         )
+        # a committer whose lease expired mid-protocol is re-electable
+        self.realtime_manager.completion.lease_checker = self.gateway.server_lease_valid
 
     def add_schema(self, schema: Schema) -> None:
         self.resources.add_schema(schema)
@@ -71,6 +91,14 @@ class Controller:
         if self.resources.get_schema(config.raw_name) is None:
             raise ValueError(f"no schema named {config.raw_name!r}; upload the schema first")
         return self.resources.add_table(config)
+
+    def add_realtime_table(self, config: TableConfig, stream) -> str:
+        """Create a REALTIME table and open its first CONSUMING segments,
+        one a stream partition (PinotLLCRealtimeSegmentManager)."""
+        schema = self.resources.get_schema(config.raw_name)
+        if schema is None:
+            raise ValueError(f"no schema named {config.raw_name!r}; upload the schema first")
+        return self.realtime_manager.setup_table(config, schema, stream)
 
     def _assign(self, table_physical: str, meta: SegmentMetadata, stored: str,
                 servers: Optional[List[str]] = None) -> List[str]:
@@ -159,6 +187,33 @@ class ControllerHttpServer:
                 n = int(self.headers.get("Content-Length", "0"))
                 return json.loads(self.rfile.read(n) or b"{}")
 
+            def _respond_stale(self, e: StaleEpochError) -> None:
+                # a typed fencing rejection (409): nothing was changed
+                return self._respond({"error": str(e), "errorType": "StaleEpochError",
+                                      "staleEpoch": e.stale, "currentEpoch": e.current}, 409)
+
+            def _commit(self, segment: str, server: str, epoch) -> None:
+                """segmentCommit: fenced before the body is parsed (a
+                fenced-off committer retrying must not cost a segment's
+                bytes a rejection; the body is still drained so the client
+                reads the verdict)."""
+                n = int(self.headers.get("Content-Length", "0"))
+                completion = ctrl.realtime_manager.completion
+                try:
+                    fenced = completion.commit_fence_check(segment, server, epoch=epoch)
+                except StaleEpochError:
+                    self.rfile.read(n)
+                    raise
+                if fenced is not None:
+                    self.rfile.read(n)
+                    return self._respond({"response": fenced})
+                data = self.rfile.read(n)
+                with tempfile.TemporaryDirectory() as td:
+                    with open(os.path.join(td, SEGMENT_FILE_NAME), "wb") as f:
+                        f.write(data)
+                    committed = read_segment(td)
+                return self._respond({"response": completion.segment_commit(segment, server, committed, epoch=epoch)})
+
             def do_GET(self):
                 url = urlparse(self.path)
                 parts = _split_path(url.path)
@@ -224,8 +279,24 @@ class ControllerHttpServer:
                         ctrl.add_schema(schema)
                         return self._respond({"status": "ok", "schema": schema.schema_name})
                     if parts == ["tables"]:
-                        physical = ctrl.add_table(TableConfig.from_json(self._read_json()))
+                        config = TableConfig.from_json(self._read_json())
+                        if config.table_type == "REALTIME":
+                            if config.stream is None:
+                                return self._respond({"error": "REALTIME table needs streamConfigs"}, 400)
+                            physical = ctrl.add_realtime_table(config, stream_provider_from_config(config.stream))
+                        else:
+                            physical = ctrl.add_table(config)
                         return self._respond({"status": "ok", "table": physical})
+                    if parts == ["realtime", "consumed"]:
+                        # segmentConsumed; the caller's lease epoch rides the
+                        # body and is fence-checked (409 on a mismatch)
+                        body = self._read_json()
+                        resp, target = ctrl.realtime_manager.completion.segment_consumed(
+                            body["segment"], body["server"], int(body["offset"]), epoch=body.get("epoch"))
+                        return self._respond({"response": resp, "targetOffset": target})
+                    if len(parts) == 4 and parts[:2] == ["realtime", "commit"]:
+                        epoch = (parse_qs(url.query).get("epoch") or [None])[0]
+                        return self._commit(parts[2], parts[3], epoch)
                     if len(parts) == 2 and parts[0] == "segments":
                         n = int(self.headers.get("Content-Length", "0"))
                         body = self.rfile.read(n)
@@ -233,6 +304,8 @@ class ControllerHttpServer:
                         servers = ctrl.upload_segment_bytes(parts[1], body, servers=pin)
                         return self._respond({"status": "ok", "servers": servers})
                     return self._respond({"error": "not found"}, 404)
+                except StaleEpochError as e:
+                    return self._respond_stale(e)
                 except Exception as e:
                     logger.warning("REST handler error", exc_info=True)
                     return self._respond({"error": str(e)}, 400)

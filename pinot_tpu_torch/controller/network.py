@@ -11,8 +11,8 @@
 
 The JSON of every call is the reference's, so a port server registers
 with the reference controller and the other way round.  Left out,
-ROADMAP queue 1 item 30: flap hysteresis, the link fault injector,
-CONSUMING messages, the snapshot cache.
+ROADMAP queue 1 item 30: flap hysteresis, the link fault injector, the
+snapshot cache.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from typing import Any, Dict, List, Optional
 from pinot_tpu_torch.broker.time_boundary import compute_boundary
 from pinot_tpu_torch.common.fencing import default_lease_s, epoch_int
 from pinot_tpu_torch.controller.resource_manager import (
+    CONSUMING,
     ERROR,
     ClusterResourceManager,
     InstanceState,
@@ -92,6 +93,22 @@ class RemoteParticipant(Participant):
             msg["invertedIndexColumns"] = list(info["invertedIndexColumns"])
         if info.get("schema") is not None:
             msg["schemaJson"] = info["schema"].to_json()
+        if target == CONSUMING:
+            # the whole consume spec: the server process runs the consumer
+            # and the completion protocol on its own
+            desc = info.get("streamDescriptor")
+            if desc is None:
+                logger.warning("remote participant %s cannot host CONSUMING %s/%s: "
+                               "the stream is not network-describable", self.name, table, segment)
+                return False
+            msg.update({
+                "streamDescriptor": desc,
+                "partition": info.get("partition", 0),
+                "startOffset": info.get("startOffset", 0),
+                "rowsPerSegment": info.get("rowsPerSegment", 100_000),
+                "schemaJson": info.get("schemaJson"),
+                "consumerType": info.get("consumerType", "lowlevel"),
+            })
         self.board.post(self.name, msg)
         return None
 
@@ -152,6 +169,15 @@ class ParticipantGateway:
     @property
     def fencing_epoch(self) -> int:
         return epoch_int(self.epoch)
+
+    def server_lease_valid(self, name: str) -> bool:
+        """True while ``name`` holds an unexpired serving lease; an
+        instance never granted one (an in-process participant) keeps its
+        authority."""
+        inst = self.resources.instances.get(name)
+        if inst is None or inst.lease_until is None:
+            return inst is not None
+        return time.monotonic() < inst.lease_until
 
     def _grant_lease(self, name: str) -> Dict[str, Any]:
         inst = self.resources.instances.get(name)

@@ -1,5 +1,5 @@
 """Cluster resource manager: ideal state and external view (port of
-``pinot_tpu.controller.resource_manager``, trimmed to offline tables).
+``pinot_tpu.controller.resource_manager``, trimmed).
 
 - **ideal state** per table: ``{segment -> {server -> target_state}}``,
   what the controller wants (N replicas a segment, round-robin over the
@@ -7,16 +7,18 @@
 - **external view** per table: ``{segment -> {server -> actual_state}}``,
   what the servers report after running their transitions;
 - **participants**: server callbacks running OFFLINE->ONLINE,
-  ONLINE->OFFLINE and ->DROPPED (a remote participant answers "pending"
-  and reports the state later, ``report_state``).
+  ->CONSUMING (a realtime segment's consumer starts), CONSUMING->ONLINE
+  (the committed copy replaces it), ONLINE->OFFLINE and ->DROPPED (a
+  remote participant answers "pending" and reports the state later,
+  ``report_state``).
 
 Every change of a view or an instance bumps ``version``; remote brokers
-poll the cluster state when it moves.
+poll the cluster state when it moves, and an in-process broker's view
+listener (``add_view_listener``) is called with the table's view.
 
 Left out, ROADMAP queue 1 item 30: the property store and recovery,
 tenants beyond the default tag, drain and warming, rebalance, quota
-updates, per-replica surgery for the stabilizer, CONSUMING segments, the
-view and instance listeners of in-process brokers.
+updates, per-replica surgery for the stabilizer, instance listeners.
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from pinot_tpu_torch.segment.immutable import SegmentMetadata
 logger = logging.getLogger(__name__)
 
 ONLINE = "ONLINE"
+CONSUMING = "CONSUMING"
 OFFLINE = "OFFLINE"
 DROPPED = "DROPPED"
 ERROR = "ERROR"
@@ -73,6 +76,11 @@ class ClusterResourceManager:
         self._assign_rr = 0
         # bumped on every view or instance change; remote brokers poll it
         self.version = 0
+        # fn(table, {segment: {server: state}}) on every view change
+        self._view_listeners: List[Callable[[str, Dict[str, Dict[str, str]]], None]] = []
+        # fn(segment) after a segment is deleted (the realtime manager
+        # stops its consumers)
+        self.segment_deleted_listeners: List[Callable[[str], None]] = []
 
     def bump_version(self) -> int:
         with self._lock:
@@ -109,17 +117,39 @@ class ClusterResourceManager:
             self.reconcile_instance(name)
 
     def reconcile_instance(self, name: str) -> None:
-        """Replay this instance's ONLINE ideal-state transitions (a server
-        joining or rejoining)."""
+        """Replay this instance's ONLINE and CONSUMING ideal-state
+        transitions (a server joining or rejoining)."""
         with self._lock:
             tables = list(self.ideal_states.keys())
         for table in tables:
             with self._lock:
                 ideal = dict(self.ideal_states.get(table, {}))
             for seg, replicas in ideal.items():
-                if replicas.get(name) == ONLINE:
-                    self._execute_transition(table, seg, name, ONLINE)
-            self.bump_version()
+                if replicas.get(name) in (ONLINE, CONSUMING):
+                    self._execute_transition(table, seg, name, replicas[name])
+            self._notify_view(table)
+
+    # -- listeners ----------------------------------------------------
+    def add_view_listener(self, fn: Callable[[str, Dict[str, Dict[str, str]]], None]) -> None:
+        with self._lock:
+            self._view_listeners.append(fn)
+
+    def _notify_view(self, table: str) -> None:
+        """Bump the version and hand the table's view of live servers to
+        every view listener."""
+        self.bump_version()
+        with self._lock:
+            view = {
+                seg: {srv: st for srv, st in replicas.items()
+                      if self.instances.get(srv) is not None and self.instances[srv].alive}
+                for seg, replicas in self.external_views.get(table, {}).items()
+            }
+            listeners = list(self._view_listeners)
+        for fn in listeners:
+            try:
+                fn(table, view)
+            except Exception:
+                logger.exception("view listener failed for %s", table)
 
     # -- schema / table CRUD ------------------------------------------
     def add_schema(self, schema: Schema) -> None:
@@ -152,7 +182,7 @@ class ClusterResourceManager:
             self.table_configs.pop(physical, None)
             self.ideal_states.pop(physical, None)
             self.external_views.pop(physical, None)
-        self.bump_version()
+        self._notify_view(physical)
 
     def tables(self) -> List[str]:
         with self._lock:
@@ -192,7 +222,7 @@ class ClusterResourceManager:
             }
         for server in chosen:
             self._execute_transition(physical_table, metadata.segment_name, server, target_state)
-        self.bump_version()
+        self._notify_view(physical_table)
         return chosen
 
     def _execute_transition(self, table: str, segment: str, server: str, target: str) -> None:
@@ -229,7 +259,9 @@ class ClusterResourceManager:
             self._execute_transition(physical_table, segment, server, DROPPED)
         with self._lock:
             self.external_views.get(physical_table, {}).pop(segment, None)
-        self.bump_version()
+        for fn in list(self.segment_deleted_listeners):
+            fn(segment)
+        self._notify_view(physical_table)
 
     def report_state(self, server: str, table: str, segment: str, state: str) -> None:
         """A remote participant's state after it ran a queued transition
@@ -243,7 +275,7 @@ class ClusterResourceManager:
                 tbl_view.get(segment, {}).pop(server, None)
             else:
                 tbl_view.setdefault(segment, {})[server] = state
-        self.bump_version()
+        self._notify_view(table)
 
     # -- views --------------------------------------------------------
     def get_ideal_state(self, table: str) -> Dict[str, Dict[str, str]]:

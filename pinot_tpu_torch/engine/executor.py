@@ -341,6 +341,9 @@ class QueryExecutor:
         # staging and the table contexts are shared by the scheduler's
         # workers: one lock, so a table is staged once
         self._stage_lock = threading.Lock()
+        # consuming-segment name -> the (crc, staging token) of its newest
+        # snapshot seen by a query (``_retire_superseded``)
+        self._snapshots: Dict[str, Tuple[int, int]] = {}
         self._kernel = make_packed_kernel(run_table_kernel)
         self._join_kernel = make_packed_kernel(run_join_kernel)
         self._heal_lock = threading.Lock()
@@ -354,11 +357,64 @@ class QueryExecutor:
         with self._stage_lock:
             return sum(st.nbytes() for st in self._staged.values())
 
+    def staged_tables(self) -> int:
+        """Segment sets the staging cache holds on the device."""
+        with self._stage_lock:
+            return len(self._staged)
+
     def free_staging(self) -> None:
         """Drop every staged table (the caller frees the cached memory)."""
         with self._stage_lock:
             self._staged.clear()
             self._contexts.clear()
+            self._snapshots.clear()
+
+    def _drop_entries(self, stale) -> None:
+        """Drop the staged tables and contexts whose segment set
+        (``((name, crc, token), ...)``) ``stale`` accepts; the caller holds
+        ``_stage_lock``.  A query running over a dropped table keeps its
+        own reference to the tensors: they are freed when it lets go,
+        never under it."""
+        for key in [k for k in self._staged if stale(k[0])]:
+            del self._staged[key]
+        for key in [k for k in self._contexts if stale(k)]:
+            del self._contexts[key]
+
+    def _retire_superseded(self, segments: Sequence[ImmutableSegment]) -> None:
+        """A consuming segment's snapshot (``metadata.custom["realtime"]``)
+        is a new segment at every watermark: the tables staged for its
+        older snapshots would stay on the card until it ran out of memory.
+        When a query brings a newer snapshot of a name, the cached sets
+        that hold another snapshot of that name go, and so do the cached
+        sets of fewer segments that hold a snapshot (a consuming segment
+        was empty and pruned then, or not yet created).  The caller holds
+        ``_stage_lock``.  (A stand-in for the residency manager's
+        eviction, ROADMAP queue 1 item 22.)"""
+        newer = {}
+        for s in segments:
+            if s.metadata.custom.get("realtime"):
+                ident = (s.metadata.crc, s.staging_token)
+                if self._snapshots.get(s.segment_name) != ident:
+                    self._snapshots[s.segment_name] = ident
+                    newer[s.segment_name] = ident
+        if not newer:
+            return
+        names = {s.segment_name for s in segments}
+
+        def stale(idents) -> bool:
+            held = {i[0] for i in idents}
+            if any(i[0] in newer and (i[1], i[2]) != newer[i[0]] for i in idents):
+                return True
+            return held < names and any(n in self._snapshots for n in held)
+
+        self._drop_entries(stale)
+
+    def evict_segment(self, name: str) -> None:
+        """Drop every staged table and context that holds segment ``name``
+        (it was replaced, committed or dropped on the server)."""
+        with self._stage_lock:
+            self._snapshots.pop(name, None)
+            self._drop_entries(lambda idents: any(i[0] == name for i in idents))
 
     # -- self-healing bookkeeping --------------------------------------
     def _heal_mark(self, name: str, **tags) -> None:
@@ -474,6 +530,7 @@ class QueryExecutor:
         # reach the device (the kernel compares row ids with doc bounds)
         needed -= self._docrange_only_columns(request, live, sel_columns)
         with self._stage_lock:
+            self._retire_superseded(live)
             ctx = get_table_context(live, self._contexts)
         # selective predicates answer from host postings in O(matches)
         # (engine/invindex_path.py); unselective ones fall through

@@ -1207,8 +1207,13 @@ def make_chunked_table_kernel(plan: StaticPlan, num_segments: int, n_pad: int):
     not needed, or the plan is not chunk-combinable (the caller then runs
     the plain packed table kernel)."""
     limit = chunk_rows_limit()
+    if not limit or num_segments * n_pad <= limit:
+        # within the budget (and the divisor search below would walk
+        # limit / n_pad candidates for a small n_pad, such as a consuming
+        # segment's early snapshot)
+        return None
     chunk = _pick_chunk(num_segments, n_pad, limit)
-    if not limit or num_segments <= chunk or not plan_chunkable(plan):
+    if num_segments <= chunk or not plan_chunkable(plan):
         return None
     return _chunked_run(chunk_reducers(plan), num_segments, chunk)
 

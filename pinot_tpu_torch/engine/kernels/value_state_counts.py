@@ -363,7 +363,10 @@ def _validate(mode, num_docs, values, capacity, width, value_table, rho, rho_tab
 # The launch
 # ---------------------------------------------------------------------------
 
-_grid: Dict[tuple, int] = {}  # blocks per segment by device, kernel, shared memory and shape
+# resident blocks per SM by device, kernel and shared memory (the grid is
+# derived from it at each launch: a cache keyed on the shape would grow
+# with every watermark of a consuming segment, whose n_pad moves)
+_occupancy: Dict[tuple, int] = {}
 
 
 def _library(blocks: bool):
@@ -418,13 +421,14 @@ def _launch(mode, num_docs, values, K, *, capacity, width, value_table, rho, rho
         # with a block table each entry is a segment of ``block_rows`` rows
         nb_pad = 0 if block_ids is None else block_ids.shape[1]
         segs, rows = (S * nb_pad, block_rows) if nb_pad else (S, n_pad)
-        gkey = (dev.index, mcode, tcode, kind, fcode, nb_pad > 0, smem, segs, rows)
-        bps = _grid.get(gkey)
-        if bps is None:
+        okey = (dev.index, mcode, tcode, kind, fcode, nb_pad > 0, smem)
+        per_sm = _occupancy.get(okey)
+        if per_sm is None:
             per_sm = lib.value_state_blocks_per_sm(mcode, tcode, kind, fcode, smem)
             if per_sm < 1:
                 raise RuntimeError(f"value_state occupancy query failed with code {per_sm}")
-            bps = _grid[gkey] = fused_groupby.blocks_per_segment(segs, rows, dev, per_sm)
+            _occupancy[okey] = per_sm
+        bps = fused_groupby.blocks_per_segment(segs, rows, dev, per_sm)
         # one buffer, which the launch zeroes: per member the matched-doc
         # total, then the device holder (int64 counts, presence bits or
         # int32 registers)

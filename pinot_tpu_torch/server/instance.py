@@ -17,15 +17,21 @@ colocated, broadcast or shuffle strategy.
 
 The controller wiring is ``starter.py`` (in process) and
 ``network_starter.py`` (a server process); they load segment files,
-verify their CRCs and quarantine a bad copy through this class.
+verify their CRCs and quarantine a bad copy through this class, and host
+a realtime table's consuming segments (``realtime/mutable.py``) beside
+the sealed ones: a query reads a consuming segment through its snapshot
+at the row watermark, staged and launched as any segment.  The
+instance's ingest governor (``ingest_backpressure``,
+``realtime/backpressure.py``) watches the executor's staged bytes and
+the consuming segments' host bytes.  Replacing, committing or dropping a
+segment drops the executor's staged tables that hold it.
 
 An EXPLAIN (a reference broker in a mixed fleet forwards it) is refused
 with QUERY_VALIDATION before any segment is touched.
 
 Left out of the port, for later slices: EXPLAIN itself, the result cache (of
 scans and joins), the roofline window, plan stats, the profiler and the occupancy
-sampler, residency, prewarm, the shadow auditor, schema evolution and
-the ingest planes.
+sampler, residency, prewarm, the shadow auditor and schema evolution.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from pinot_tpu_torch.engine.executor import QueryExecutor
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
 from pinot_tpu_torch.engine.results import SEGMENT_TIER_KEYS, IntermediateResult
 from pinot_tpu_torch.pql import optimize_request, parse_pql
+from pinot_tpu_torch.realtime.backpressure import IngestBackpressure, instance_mutable_bytes
+from pinot_tpu_torch.realtime.mutable import MutableSegment
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.server.datamanager import InstanceDataManager
 from pinot_tpu_torch.server.scheduler import (
@@ -134,15 +142,26 @@ class ServerInstance:
         for m in ("join.extracts", "join.execs", "join.buildRows",
                   "join.probeRows", "join.shuffleBytes", "join.broadcastBytes"):
             self.metrics.meter(m)
+        # ingest backpressure, shared by every realtime consumer hosted
+        # here: its device pool is the executor's staging cache
+        self.ingest_backpressure = IngestBackpressure(
+            metrics=self.metrics,
+            hbm_bytes_fn=self.executor.staged_bytes,
+            mutable_bytes_fn=lambda: instance_mutable_bytes(self),
+        )
 
     # -- segment lifecycle -------------------------------------------
-    def add_segment(self, table: str, segment: ImmutableSegment) -> None:
+    def add_segment(self, table: str, segment) -> None:
+        """Host ``segment`` (an ``ImmutableSegment``, or a consuming
+        ``MutableSegment``); one of the same name is replaced."""
         self.data_manager.add_segment(table, segment)
+        self.executor.evict_segment(segment.segment_name)
 
     def remove_segment(self, table: str, name: str) -> None:
         tdm = self.data_manager.table(table)
         if tdm is not None:
             tdm.remove_segment(name)
+        self.executor.evict_segment(name)
 
     def record_crc_failure(self, table: str, name: str) -> None:
         """A copy of ``name`` failed its CRC check."""
@@ -277,7 +296,14 @@ class ServerInstance:
                     missing = [n for n in names if n not in held]
                     if missing:
                         self.metrics.meter("segmentsMissedServing").mark(len(missing))
-                views = [a.query_view() for a in acquired]
+                views = []
+                for a in acquired:
+                    before = getattr(a.segment, "_snapshot", None)
+                    t_view = time.perf_counter()
+                    views.append(a.query_view())
+                    if isinstance(a.segment, MutableSegment) and views[-1] is not before:
+                        # a consuming segment's snapshot at a new watermark
+                        self.metrics.timer("phase.snapshot").update((time.perf_counter() - t_view) * 1000)
                 if req.get("join"):
                     # a distributed-join phase over the local views, in the
                     # scheduler slot this request already holds
@@ -437,6 +463,8 @@ class ServerInstance:
             "lane": None if self.lanes is None else self.lanes.stats(),
             "selfHealing": heal,
             "stagedBytes": self.executor.staged_bytes(),
+            "stagedTables": self.executor.staged_tables(),
+            "ingest": self.ingest_backpressure.snapshot(),
             # the kernel wrappers' launch counts in this process (one-member
             # and batched launches apart)
             "kernelLaunches": {"k1": fused_groupby.launches, "k2": value_state_counts.launches,

@@ -1,6 +1,5 @@
 """Networked server starter: a server process joining a remote controller
-(port of ``pinot_tpu.server.network_starter``, trimmed to offline
-segments).
+(port of ``pinot_tpu.server.network_starter``, trimmed).
 
 - ``start`` initializes the device on the main thread and builds and
   loads both kernels (``ServerInstance`` does, on the card) BEFORE the
@@ -8,16 +7,21 @@ segments).
 - it registers over HTTP (the participant join) and heartbeats for
   liveness, renewing its serving lease on each reply;
 - it polls transition messages, runs them (download the segment file
-  from the controller with a CRC check and load it, or drop it) and acks
-  the resulting state;
+  from the controller with a CRC check and load it, start a consuming
+  segment's ``RemoteConsumer``, or drop it) and acks the resulting state;
+- its ``IngestConsumerPool`` drives every realtime consumer it hosts:
+  each pulls its stream partition from the stream broker, indexes into a
+  mutable segment that queries read at its watermark, and at the flush
+  threshold runs the completion protocol against the controller over
+  HTTP (the committer uploads its segment file);
 - it serves broker queries on a length-framed TCP socket, and
   ``/health``, ``/metrics`` and ``/debug/metrics`` on its admin HTTP port.
 
 The heartbeat and message loops back off with full jitter while the
 controller is unreachable and keep serving from local state.  Left out,
-ROADMAP queue 1 item 29: the realtime consumers (``RemoteConsumer``,
-``HLRemoteConsumer``), the ingest pool and prewarm; a CONSUMING message
-fails its transition.
+ROADMAP queue 1 item 29: the high-level consumer (``HLRemoteConsumer``);
+a CONSUMING message of a highlevel table fails its transition.  Prewarm
+is a later slice.
 """
 from __future__ import annotations
 
@@ -35,7 +39,12 @@ from urllib.parse import parse_qs, urlparse
 import torch
 
 from pinot_tpu_torch.common.fencing import ServingLease
-from pinot_tpu_torch.controller.resource_manager import DROPPED, OFFLINE, ONLINE
+from pinot_tpu_torch.common.schema import Schema
+from pinot_tpu_torch.controller.resource_manager import CONSUMING, DROPPED, OFFLINE, ONLINE
+from pinot_tpu_torch.realtime.llc import fetch_and_index
+from pinot_tpu_torch.realtime.mutable import MutableSegment
+from pinot_tpu_torch.realtime.pool import IngestConsumerPool
+from pinot_tpu_torch.realtime.stream import LagProbe, stream_from_descriptor
 from pinot_tpu_torch.segment.fetcher import DEFAULT_FACTORY
 from pinot_tpu_torch.segment.invindex import warm_inverted_indexes
 from pinot_tpu_torch.segment.format import (
@@ -44,6 +53,7 @@ from pinot_tpu_torch.segment.format import (
     SegmentStaleError,
     read_segment,
     verify_segment_crc,
+    write_segment,
 )
 from pinot_tpu_torch.server.instance import ServerInstance
 from pinot_tpu_torch.server.starter import quarantine_local_copy
@@ -52,7 +62,7 @@ from pinot_tpu_torch.utils.retry import FullJitterBackoff, tighten_liveness_budg
 
 logger = logging.getLogger(__name__)
 
-CONSUMING_ITEM = "CONSUMING segments are item 29 of the port (ROADMAP queue 1)"
+HLC_ITEM = "high-level consumer groups are item 29 of the port (ROADMAP queue 1)"
 
 
 class ServerAdminHttpServer:
@@ -116,6 +126,187 @@ class ServerAdminHttpServer:
         self._httpd.server_close()
 
 
+class RemoteConsumer:
+    """A server process's LLC consumer: pulls its stream partition by
+    offset, indexes into a mutable segment that queries read at once (at
+    its watermark), and runs the completion protocol against the
+    controller over HTTP (the ``LLRealtimeSegmentDataManager.java:68``
+    consume loop and the ``SegmentCompletionProtocol`` client).
+
+    Cooperative: ``step()`` is one bounded unit of consume / commit work
+    that never blocks, driven by the starter's ``IngestConsumerPool``.  A
+    backpressure pause, an empty stream, a HOLD or an unreachable
+    controller is the step's return delay.  A columnar topic is read a
+    whole block a fetch (``realtime/llc.py fetch_and_index``; the
+    reference's networked consumer reads row topics only)."""
+
+    def __init__(self, starter: "NetworkedServerStarter", table: str, segment: str, msg: Dict[str, Any],
+                 poll_interval_s: float = 0.2) -> None:
+        self.starter = starter
+        self.table = table
+        self.segment = segment
+        self.partition = int(msg.get("partition", 0))
+        self.offset = int(msg.get("startOffset", 0))
+        self.rows_per_segment = int(msg.get("rowsPerSegment", 100_000))
+        self.poll_interval_s = poll_interval_s
+        self.stream = stream_from_descriptor(msg["streamDescriptor"])
+        self.mutable = MutableSegment(Schema.from_json(msg["schemaJson"]), segment, table)
+        self.mutable.start_offset = self.offset
+        self._columnar: Optional[bool] = None
+        self._stop = threading.Event()
+        # an unreachable controller freezes the round (offsets hold, the
+        # consumer lives) and parks it for a full-jitter backoff
+        self._ctrl_backoff = FullJitterBackoff(initial_s=max(0.1, poll_interval_s), cap_s=5.0)
+        # seconds the next pool step waits, set by the protocol paths
+        self._park_s = poll_interval_s
+        self._metrics = starter.server.metrics
+        self._lag_probe = LagProbe(self.stream, self.partition, lambda: self.offset)
+        self._lag_gauge_name = f"ingest.lag.{table}.p{self.partition}"
+        self._governor = starter.server.ingest_backpressure
+        self._paused = False
+        self._paused_gauge_name = f"ingest.paused.{table}.p{self.partition}"
+        self._paused_fn = lambda: 1 if self._paused else 0
+        self._metrics.gauge(self._lag_gauge_name).set_fn(self._lag_probe)
+        self._metrics.gauge(self._paused_gauge_name).set_fn(self._paused_fn)
+
+    def _detach_gauges(self) -> None:
+        """A finished consumer's frozen offset must not report lag; the
+        equality guard of clear_fn keeps a rolled successor's series."""
+        self._metrics.gauge(self._lag_gauge_name).clear_fn(self._lag_probe)
+        self._metrics.gauge(self._paused_gauge_name).clear_fn(self._paused_fn)
+
+    def start(self) -> None:
+        self.starter.server.add_segment(self.table, self.mutable)
+        self.starter.ingest_pool.add(self, key=self.segment)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._detach_gauges()
+
+    def _mark_rows(self, n: int) -> None:
+        if n:
+            self._metrics.meter("ingest.rowsConsumed").mark(int(n))
+
+    # -- consume loop ---------------------------------------------------
+    def _consume_to(self, limit_rows: int) -> int:
+        budget = limit_rows - self.mutable.num_docs
+        if budget <= 0:
+            return 0
+        # one governor decision covers at most max_batch_rows
+        return fetch_and_index(self, self._governor.clamp_batch(budget))
+
+    def step(self) -> Optional[float]:
+        """One pool unit: a bounded consume batch and, at the row threshold,
+        one completion round.  Returns the seconds until this consumer is
+        eligible again, or None when its segment is finished."""
+        if self._stop.is_set():
+            self._detach_gauges()
+            return None
+        allowed = self._governor.consume_allowed()
+        self._paused = not allowed
+        if not allowed:
+            # held above a watermark: the offset freezes, lag grows
+            return self.poll_interval_s
+        try:
+            got = self._consume_to(self.rows_per_segment)
+        except Exception as e:
+            logger.warning("stream fetch failed for %s: %s", self.segment, e)
+            return self.poll_interval_s
+        if self.mutable.num_docs >= self.rows_per_segment:
+            self._park_s = self.poll_interval_s
+            if self._completion_round():
+                self._detach_gauges()
+                return None
+            return self._park_s
+        return 0.0 if got else self.poll_interval_s
+
+    def _freeze(self, why: str, err) -> bool:
+        """The controller is unreachable (or authority lost) mid-protocol:
+        the round freezes and parks for a full-jitter backoff."""
+        self._park_s = self._ctrl_backoff.next_delay()
+        logger.warning("%s for %s frozen (retry in %.2fs): %s", why, self.segment, self._park_s, err)
+        return False
+
+    def _completion_round(self) -> bool:
+        """One segmentConsumed exchange; True when this consumer is done.
+        Idle verdicts (HOLD, a freeze, a failed commit) set ``_park_s``."""
+        lease = self.starter.lease
+        if not lease.held():
+            # no write authority while the lease is expired
+            self._metrics.meter("lease.blockedCommits").mark()
+            return self._freeze("completion round", "serving lease expired")
+        epoch = lease.epoch if lease.granted else None
+        try:
+            out = self.starter._post("/realtime/consumed", {
+                "segment": self.segment, "server": self.starter.name, "offset": self.offset, "epoch": epoch,
+            })
+        except Exception as e:
+            return self._freeze("segmentConsumed", e)
+        self._ctrl_backoff.reset()
+        resp = out.get("response")
+        target = out.get("targetOffset")
+        if resp == "COMMIT":
+            try:
+                return self._commit(epoch)
+            except Exception as e:
+                # a conversion or serialization failure: the next round retries
+                logger.warning("commit of %s failed: %s", self.segment, e)
+                self._park_s = self.poll_interval_s
+                return False
+        if resp == "CATCH_UP" and target is not None:
+            while self.offset < int(target) and not self._stop.is_set():
+                try:
+                    got = self._consume_to(self.rows_per_segment + int(target) - self.offset)
+                except Exception as e:
+                    logger.warning("catch-up fetch failed for %s: %s", self.segment, e)
+                    self._park_s = self.poll_interval_s
+                    return False
+                if got == 0:
+                    self._park_s = self.poll_interval_s
+                    return False
+            return False
+        if resp == "DISCARD":
+            # another replica committed another offset range: drop the
+            # local rows; the ONLINE transition downloads the committed copy
+            self.starter.server.remove_segment(self.table, self.segment)
+            return True
+        if resp == "KEEP":
+            # committed at exactly this offset; the local rows serve until
+            # the ONLINE transition replaces them
+            return True
+        self._park_s = self.poll_interval_s  # HOLD
+        return False
+
+    def _commit(self, epoch=None) -> bool:
+        """Convert, write the file, upload it (``ingest.commitConvertMs``,
+        ``ingest.commitFileMs``, ``ingest.commitUploadMs``; the three in
+        ``ingest.commitMs``); the ONLINE transition that follows loads the
+        committed copy (``segmentLoad``)."""
+        t0 = time.perf_counter()
+        committed = self.mutable.to_committed_segment()
+        t1 = time.perf_counter()
+        path = f"/realtime/commit/{self.segment}/{self.starter.name}"
+        if epoch is not None:
+            # the lease epoch fences the upload: a controller failover
+            # mid-upload rejects it (409) instead of committing twice
+            path += f"?epoch={epoch}"
+        try:
+            data = self.starter.segment_file_bytes(committed)
+            t2 = time.perf_counter()
+            out = self.starter.upload_file_bytes(path, data)
+        except Exception as e:
+            # the controller may have stored the copy and lost the reply:
+            # the next segmentConsumed answers KEEP or DISCARD
+            return self._freeze("segmentCommit", e)
+        if out.get("response") != "KEEP":
+            return False  # NOT_LEADER / HOLD: the next round retries
+        t3 = time.perf_counter()
+        for name, a, b in (("Convert", t0, t1), ("File", t1, t2), ("Upload", t2, t3), ("", t0, t3)):
+            self._metrics.timer(f"ingest.commit{name}Ms").update((b - a) * 1000)
+        logger.info("committed %s at offset %d", self.segment, self.offset)
+        return True
+
+
 class NetworkedServerStarter:
     """``device``: the card the server stages and launches on (None: the
     current CUDA device; ``"cpu"`` for tests).  ``data_dir`` keeps a local
@@ -151,6 +342,9 @@ class NetworkedServerStarter:
         self._hb_timeout_s = 10.0
         self._msg_backoff = FullJitterBackoff(initial_s=max(0.1, poll_interval_s), cap_s=10.0)
         self._local_crcs: Dict[str, int] = {}
+        self._consumers: Dict[str, RemoteConsumer] = {}  # segment -> consumer
+        # one bounded worker pool drives every LLC consumer of this server
+        self.ingest_pool = IngestConsumerPool(metrics=self.server.metrics, name=name)
         self._stop = threading.Event()
         # a heartbeat that succeeds while the message poll is deep in
         # backoff wakes the poll (queued transitions land at once)
@@ -200,9 +394,27 @@ class NetworkedServerStarter:
             t.start()
             self._threads.append(t)
 
+    @staticmethod
+    def segment_file_bytes(segment) -> bytes:
+        """A segment's file (``segment/format.py``) as bytes."""
+        with tempfile.TemporaryDirectory() as td:
+            write_segment(segment, td)
+            with open(os.path.join(td, SEGMENT_FILE_NAME), "rb") as f:
+                return f.read()
+
+    def upload_file_bytes(self, path: str, data: bytes) -> Dict[str, Any]:
+        """POST segment-file bytes to the controller."""
+        req = urllib.request.Request(self.controller_url + path, data=data,
+                                     headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            return json.loads(r.read())
+
     def stop(self) -> None:
         self._stop.set()
         self._msg_wake.set()
+        for consumer in list(self._consumers.values()):
+            consumer.stop()
+        self.ingest_pool.stop()
         for t in self._threads:
             t.join(timeout=5)
         self.tcp.stop()
@@ -221,8 +433,11 @@ class NetworkedServerStarter:
                     reg = self._post("/instances", self._register_payload(), timeout_s=self._hb_timeout_s)
                     self.lease.renew(reg.get("lease"))
                 if self._hb_backoff.failures:
+                    # the controller is back: queued transitions land at
+                    # once, and frozen consumers leave their backoff
                     self._msg_backoff.reset()
                     self._msg_wake.set()
+                    self.ingest_pool.kick()
                 self._hb_backoff.reset()
                 unreachable.set(0)
                 wait_s = self.heartbeat_interval_s
@@ -255,18 +470,36 @@ class NetworkedServerStarter:
                 self._handle(msg)
 
     # -- transitions ---------------------------------------------------
+    def _retire_consumer(self, segment: str) -> None:
+        consumer = self._consumers.pop(segment, None)
+        if consumer is not None:
+            consumer.stop()
+            self.ingest_pool.remove(segment)
+
     def _handle(self, msg: Dict[str, Any]) -> None:
         table, segment, target = msg["table"], msg["segment"], msg["target"]
+        if target == CONSUMING and not self.lease.held():
+            # no new consuming role without write authority: not acked, the
+            # message comes again once the lease renews
+            self.server.metrics.meter("lease.blockedTransitions").mark()
+            logger.warning("deferring CONSUMING %s/%s: serving lease expired", table, segment)
+            return
         try:
             if target == ONLINE:
+                # CONSUMING -> ONLINE: the consumer retires before the
+                # committed copy replaces its mutable segment
+                self._retire_consumer(segment)
                 ok = self._load(table, segment, msg.get("crc"), msg.get("downloadUri"),
                                 msg.get("invertedIndexColumns"))
+            elif target == CONSUMING:
+                ok = self._start_consumer(table, segment, msg)
             elif target in (OFFLINE, DROPPED):
+                self._retire_consumer(segment)
                 self.server.remove_segment(table, segment)
                 self._local_crcs.pop(segment, None)
                 ok = True
             else:
-                logger.error("transition %s/%s -> %s: %s", table, segment, target, CONSUMING_ITEM)
+                logger.error("unsupported transition target %s", target)
                 ok = False
         except Exception:
             logger.exception("transition %s/%s -> %s failed", table, segment, target)
@@ -278,6 +511,20 @@ class NetworkedServerStarter:
         except Exception as e:
             # the message stays on the board and comes again
             logger.warning("ack failed for %s/%s: %s", table, segment, e)
+
+    def _start_consumer(self, table: str, segment: str, msg: Dict[str, Any]) -> bool:
+        if segment in self._consumers:
+            return True  # a redelivered message: don't reset the offset
+        if not msg.get("streamDescriptor") or not msg.get("schemaJson"):
+            logger.error("CONSUMING message for %s lacks a consume spec", segment)
+            return False
+        if msg.get("consumerType", "lowlevel") != "lowlevel":
+            logger.error("CONSUMING %s/%s: %s", table, segment, HLC_ITEM)
+            return False
+        consumer = RemoteConsumer(self, table, segment, msg)
+        self._consumers[segment] = consumer
+        consumer.start()
+        return True
 
     def _load(self, table: str, segment: str, crc: Optional[int], download_uri: Optional[str] = None,
               inv_columns=None) -> bool:

@@ -1,6 +1,5 @@
 """Server starter: a ``ServerInstance`` joined to an in-process controller
-as a participant (port of ``pinot_tpu.server.starter``, trimmed to
-offline segments).
+as a participant (port of ``pinot_tpu.server.starter``, trimmed).
 
 An ONLINE transition loads the segment file from the controller's store
 (``dir``, or ``downloadUri`` through ``segment/fetcher.py``) and verifies
@@ -9,8 +8,11 @@ its column-data CRC; a matching CRC already loaded is skipped
 the starter keeps its own copy per segment; a copy that fails its CRC is
 quarantined (moved aside, pulled from serving) and fetched again from the
 controller's copy, so a bad local copy costs a download, never a wrong
-answer.  OFFLINE and DROPPED unload.  CONSUMING (realtime) is ROADMAP
-queue 1 item 29 and fails the transition.
+answer.  CONSUMING starts the segment's consumer through the realtime
+manager's ``consuming_starter`` (``realtime/llc.py``); the ONLINE
+transition that follows a commit takes the committed segment in memory
+(``info["segment"]``, built and CRC'd in this process).  OFFLINE and
+DROPPED unload.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import time
 from typing import Any, Dict, Optional
 
 from pinot_tpu_torch.controller.resource_manager import (
+    CONSUMING,
     DROPPED,
     OFFLINE,
     ONLINE,
@@ -64,6 +67,9 @@ class ServerStarter:
     def on_transition(self, table: str, segment: str, target: str, info: Dict[str, Any]) -> bool:
         if target == ONLINE:
             return self._load(table, segment, info)
+        if target == CONSUMING:
+            starter = info.get("consuming_starter")
+            return starter is not None and bool(starter(self.server, table, segment, info))
         if target in (OFFLINE, DROPPED):
             self.server.remove_segment(table, segment)
             self._local_crcs.pop(segment, None)
@@ -78,9 +84,11 @@ class ServerStarter:
                 and self._local_crcs.get(segment) == crc:
             return True  # this CRC is already loaded
         t0 = time.perf_counter()
-        seg_obj = self._load_from_store(table, segment, info, crc)
+        seg_obj = info.get("segment")  # a realtime commit, handed over in memory
         if seg_obj is None:
-            return False
+            seg_obj = self._load_from_store(table, segment, info, crc)
+            if seg_obj is None:
+                return False
         self.server.add_segment(table, seg_obj)
         # the table config's invertedIndexColumns: postings built at load
         warm_inverted_indexes(seg_obj, info.get("invertedIndexColumns"))

@@ -17,6 +17,10 @@ Commands:
   CreateSegment     build a segment file from CSV or JSONL rows (the row
                     builder; -startree adds a star-tree at its defaults)
   ShowSegment       print a segment file's metadata
+  RealtimeQuickstart         a meetupRsvp stream ingested into a REALTIME
+                             table of an in-process cluster, then queried
+  NetworkRealtimeQuickstart  the same across processes: a TCP stream
+                             broker, a controller, a server and a broker
 
 Each Start* command prints ``READY <role> <address>`` once it serves, then
 serves until SIGTERM or SIGINT, when it stops its threads and exits 0.
@@ -146,6 +150,23 @@ def cmd_show_segment(args) -> None:
     print(json.dumps(seg.metadata.to_json(), indent=2, default=str))
 
 
+def cmd_realtime_quickstart(args) -> None:
+    from pinot_tpu_torch.tools.quickstart import run_realtime_quickstart
+
+    cluster = run_realtime_quickstart(num_events=args.events, device=_device(args))
+    cluster.stop()
+    print("DONE realtime quickstart", flush=True)
+
+
+def cmd_network_realtime_quickstart(args) -> None:
+    from pinot_tpu_torch.tools.quickstart import run_network_realtime_quickstart
+
+    count = run_network_realtime_quickstart(num_events=args.events, device=str(_device(args)))
+    print(f"DONE networked realtime quickstart: {count} events ingested", flush=True)
+    if count < args.events:
+        raise SystemExit(1)
+
+
 def main(argv=None) -> None:
     logging.basicConfig(level=logging.WARNING, format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     p = argparse.ArgumentParser(prog="pinot_tpu_torch-admin", description=__doc__,
@@ -213,6 +234,13 @@ def main(argv=None) -> None:
     ss = sub.add_parser("ShowSegment")
     ss.add_argument("-segment-dir", required=True, dest="segment_dir")
     ss.set_defaults(fn=cmd_show_segment)
+
+    for cmd, fn in (("RealtimeQuickstart", cmd_realtime_quickstart),
+                    ("NetworkRealtimeQuickstart", cmd_network_realtime_quickstart)):
+        rq = sub.add_parser(cmd)
+        rq.add_argument("-events", type=int, default=2000)
+        rq.add_argument("-device", default="cuda")
+        rq.set_defaults(fn=fn)
 
     args = p.parse_args(argv)
     args.fn(args)

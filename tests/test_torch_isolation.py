@@ -127,6 +127,18 @@ with tempfile.TemporaryDirectory() as td:
     ctrl_http = ControllerHttpServer(Controller(os.path.join(td, "ctrl")))
     ctrl_http.start()
     ctrl_http.stop()
+    # realtime ingestion: a REALTIME table of an in-process cluster over a
+    # memory stream, consumed, committed and queried; the stream broker
+    from pinot_tpu_torch.realtime import backpressure, llc, mutable, netstream, pool, stream
+    from pinot_tpu_torch.tools import cluster_harness, quickstart
+
+    rt = quickstart.run_realtime_quickstart(num_events=600, device="cpu", verbose=False)
+    assert rt.query("SELECT count(*) FROM meetupRsvp").num_docs_scanned == 600
+    rt.stop()
+    sb = netstream.StreamBrokerServer()
+    sb.start()
+    sb.stop()
+    assert callable(backpressure.instance_mutable_bytes) and callable(pool.leaked_pool_threads)
 
 leaked = sorted(m for m in sys.modules if m == "pinot_tpu" or m.startswith("pinot_tpu.")
                 or m == "jax" and sys.modules[m] is not None or m.startswith("jax."))
@@ -177,6 +189,26 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         QueryExecutor(device="cuda")
     assert QueryExecutor(device="cpu").device.type == "cpu"
+
+
+def test_realtime_config_accepted_and_hlc_or_kafka_refused():
+    """A REALTIME LLC config round-trips as the reference writes it; a
+    high-level consumer group or a Kafka stream is still item 29."""
+    from pinot_tpu.common.tableconfig import StreamConfig as RefStreamConfig
+    from pinot_tpu.common.tableconfig import TableConfig as RefTableConfig
+    from pinot_tpu_torch.common.tableconfig import REALTIME_ITEM, TableConfig
+
+    ref = RefTableConfig("rt", table_type="REALTIME", replication=2, stream=RefStreamConfig(
+        stream_type="network", topic="rt", rows_per_segment=5000, properties={"host": "127.0.0.1", "port": 9}))
+    port = TableConfig.from_json(ref.to_json())
+    assert port.to_json() == ref.to_json() and port.physical_name == "rt_REALTIME"
+    assert port.stream.rows_per_segment == 5000 and port.stream.consumer_type == "lowlevel"
+    for change in ({"consumerType": "highlevel"}, {"streamType": "kafka"}):
+        d = ref.to_json()
+        d["streamConfigs"].update(change)
+        with pytest.raises(NotImplementedError, match="item 29"):
+            TableConfig.from_json(d)
+    assert "item 29" in REALTIME_ITEM
 
 
 def test_precision_mode_is_explicit():
