@@ -33,7 +33,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      segments each, each server's launches on its own device lane and
      CUDA stream) behind the port's broker over TCP on localhost: q1, q3,
      hll_groupby, distinct_price, sel_top and pairs_distinct against the
-     same oracles, broker p50 / p99 over 50 requests each with the
+     same oracles, broker p50 / p99 over 20 requests each with the
      servers' queue / lane-wait / finalize split and the DataTable bytes
      per reply; 8 concurrent identical q1s (byte-identical answers, the
      lanes coalesce) and 8 concurrent q1s at distinct literals (each
@@ -59,16 +59,21 @@ QueryExecutor.execute -> reduce_to_response on one card:
      q1, q3, hll_groupby, distinct_price, sel_top, pairs_distinct,
      zone_in and zone_distinct sent to the broker's HTTP ``/query``:
      each answer against its oracle, the servers' kernel launches read
-     from their ``/debug/metrics``, broker p50 / p99 over 50 requests,
+     from their ``/debug/metrics``, broker p50 / p99 over 20 requests,
      the servers' own phase medians, and the write, upload, upload to
-     ONLINE and segment load times; every role stopped with SIGTERM;
+     ONLINE and segment load times; EXPLAIN through the broker of q1, a
+     zone-block q1, zone_in (postings) and bsi_count_sum (``explain_checks``:
+     plain EXPLAIN moves no launch, dispatch, staged or allocated byte on
+     the servers, its tiers are the executed ones, its device digests the
+     ones the lanes record, ANALYZE's actualCost the reply's cost); every
+     role stopped with SIGTERM;
  11. joins over the Star Schema Benchmark's lineorder (16 segments of
      2^22 rows = 67,108,864, partitioned on lo_partkey), part (800,000
      rows, partitioned on p_partkey) and date (2,556 rows): ssb_q1_1
      (scalar, broadcast), ssb_q2_1 (a build-side group, colocated) and
      ssb_q2_1_mode (probe x build group, build-side min), each against a
      float64 numpy oracle: in process through a server's join phases
-     (each strategy's exec phase, medians of 3 on the host clock), the
+     (each strategy's exec phase, medians of 2 on the host clock), the
      stages apart (host extraction, packing, upload, the device program
      with its build and probe rounds by CUDA events, finalize), the
      program against its plain version, K1 at the join's shape against
@@ -76,7 +81,8 @@ QueryExecutor.execute -> reduce_to_response on one card:
      host join; then two servers and the broker over TCP (broker p50 /
      p99, ssb_q1_1 forced to shuffle, the join cost keys); then a
      deployed cluster (role processes, partitioning through AddTable,
-     ssb_q2_1 colocated over HTTP);
+     ssb_q2_1 colocated over HTTP; its EXPLAIN, the colocated plan with
+     nothing sent to a server, and EXPLAIN ANALYZE);
  12. star-tree tables, the reference's two cube configurations
      (pinot_tpu/tools/startree_scale.py:81-127) at full size:
      baseball_cube (8 x 2^23 = 67,108,864 baseballStats rows,
@@ -85,21 +91,21 @@ QueryExecutor.execute -> reduce_to_response on one card:
      segment: split campaign_id, site_id, HLL registers of user_id, 64
      records a leaf): the tree builds on the host (seconds and cube rows
      per segment); sum / count by teamID, filtered by league and yearID,
-     and the north-star HLL, from the cube (host clock, median of 20)
+     and the north-star HLL, from the cube (host clock, median of 10)
      and from K1 / K2 with the trees detached (CUDA events, median of
-     20), each against a host oracle and the two against each other (HLL
+     10), each against a host oracle and the two against each other (HLL
      and counts identical, sums in the audit band); a max() that is not
      star-fit falls back to K1; a mixed table (trees on half the
      segments) merging the cube's partials with the card's, with the
      staged bytes before and after; the trees written as segment files,
      read back equal and served by two port servers behind the broker
-     over TCP (broker p50 / p99 over 50 requests, the cube table and a
-     mixed one); ``python -m pinot_tpu_torch.tools.admin CreateSegment
-     -startree`` on a 10,000-row CSV and JSONL and ``ShowSegment``, the
-     built segment answering against an oracle of the rows; and the
-     repairs: EXPLAIN refused by the broker with no request sent and no
-     launch, and a time filter past every ad-events segment pruned to the
-     empty shapes with no launch;
+     over TCP (broker p50 / p99 over 20 requests, the cube table and a
+     mixed one, and their EXPLAIN, ``explain_checks``);
+     ``python -m pinot_tpu_torch.tools.admin CreateSegment -startree`` on
+     a 10,000-row CSV and JSONL and ``ShowSegment``, the built segment
+     answering against an oracle of the rows; and the pruner's repair: a
+     time filter past every ad-events segment pruned to the empty shapes
+     with no launch;
  13. the two filter tiers ahead of the scan over phase 1's lineitem:
      postings for l_shipdate, l_quantity and l_extendedprice built and
      warmed as a server loads its segments (seconds a segment, bytes by
@@ -108,7 +114,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      l_extendedprice BETWEEN one price up to 1/80 of the table
      (unsorted), each at the default route, with postings off (zone
      blocks / a full scan) and with zone maps off too (K1's full scan),
-     answers equal, medians of 20, and the measured postings / scan
+     answers equal, medians of 10, and the measured postings / scan
      crossover; bsi_count_sum and bsi_or_minmax from the bit-sliced tier
      (both decisions taken) against the scan tier exactly, the program by
      CUDA events against its byte bound, its planes' staging and the
@@ -118,6 +124,20 @@ QueryExecutor.execute -> reduce_to_response on one card:
      from (phases 8 and 10 pass postings=False: mv_filter and the two
      three-date lists route to postings, and those phases hold K1 / K2;
      the deployed cluster serves the three-date lists from postings);
+ 14. realtime ingestion: lineitem as a REALTIME table consumed by two
+     server processes from the port's stream broker, queried at three
+     watermarks against oracles of the rows produced, K1 and K2 at a
+     server's final shape;
+ 15. residency: one server of the lineitem table behind the broker over
+     TCP; q1, distinct_price and hll_groupby staged, then an HBM cap that
+     holds two of their three sets: round-robin rounds with every answer
+     bit-equal to the uncapped one, K1 / K2 on each promoted table
+     against their plain versions, the hot bytes within the cap, each
+     promotion against a fresh staging and the copies' rates; the warm
+     set spilled to disk and reloaded; a real CUDA out-of-memory error
+     (the card filled with filler tensors) healed by demotion on the
+     card; EXPLAIN over the tiers and EXPLAIN ANALYZE with K1 / K2 held
+     against their plain versions;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -137,13 +157,15 @@ that computes K2's function, and the pair sort-dedup with both fetches of
 its buffers.
 
     python3 chip_smoke.py [--out results.json]
-        [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only]
+        [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
+         | --realtime-only | --residency-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
 ``--joins-only`` runs the build, the kernel checks and phase 11 alone,
 ``--startree-only`` phase 12 alone, ``--tiers-only`` phase 13 alone (after
-lineitem's datagen).
+lineitem's datagen), ``--realtime-only`` phase 14 alone,
+``--residency-only`` phase 15 alone (after lineitem's datagen).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -154,6 +176,7 @@ from __future__ import annotations
 import argparse
 import atexit
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -264,7 +287,7 @@ MV_QUERIES = {
 # checks run on a reduced table (2 segments of 2^20 rows) so the host tier
 # answers in seconds
 SERVE_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price", "sel_top", "pairs_distinct")
-SERVE_ITERS = 50  # timed broker requests per query, after warm-up
+SERVE_ITERS = 20  # timed broker requests per query, after warm-up (50 before phase 15)
 SERVE_WARMUP = 3
 SERVE_CLIENTS = 8
 SERVE_BURSTS = 10  # at most this many bursts of identical q1s until one coalesces
@@ -304,12 +327,13 @@ DEPLOY_REQUEST_S = 600.0  # one HTTP request
 # timed requests of zone_distinct, which the servers answer from postings
 # through the host tier's row-wise value states (seconds a request): a
 # median and a maximum of these few, no p99
-DEPLOY_FEW_ITERS = 5
+DEPLOY_FEW_ITERS = 2  # (5 before phase 15)
 
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
 ITERS = 20  # timed runs per median, after warm-up
-MV_ITERS = 3  # timed runs per mvtest query median (mv_groupby takes seconds a run; 5 before phase 14)
+QUERY_ITERS = 10  # timed runs per whole-query median (ITERS before phase 15)
+MV_ITERS = 2  # timed runs per mvtest query median (mv_groupby takes seconds a run; 5 before phase 14, 3 before 15)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM published float32 rate outside the tensor cores
@@ -2680,6 +2704,18 @@ def deployed_phase(segments, wants, record) -> None:
                                    kernelLaunches=st["kernelLaunches"]) for n, st in status.items()}
         log(f"deployed: the servers' lanes at the batching defaults {rec['batching']}")
 
+        # EXPLAIN through the deployed broker: the full scan, the zone
+        # blocks, postings and the bit-sliced tier
+        explained = {"q1": Q1, "zone_blocks": q1_at(SERVE_DATES[0]), "zone_in": ZONE_QUERIES["zone_in"],
+                     "bsi_count_sum": BSI_QUERIES["bsi_count_sum"]}
+        before = launches()
+        rec["explain"] = explain_checks(
+            "deployed", lambda pql: http_json(broker_url + "/query", json.dumps({"pql": pql}).encode()),
+            lambda: {n: http_json(a + "/debug/metrics") for n, a in admin.items()}, explained,
+            lambda name, d: check_deployed(name, d, wants[name]) if name in ("q1", "zone_in") else None)
+        after = launches()
+        record["paths"]["deployed_explain"] = {"launches": {}, "totals": {k: after[k] - before[k] for k in after}}
+
         # broker latency over SERVE_ITERS requests after warm-up (zone_distinct:
         # DEPLOY_FEW_ITERS), and the servers' own medians of those requests
         for name in DEPLOY_QUERIES:
@@ -2750,9 +2786,9 @@ JOIN_QUERIES = {
 # (broadcast), lineorder and part colocate on the part key
 JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
 JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
-JOIN_ITERS = 3  # in-process medians on the host clock (each run extracts up to 67M rows)
+JOIN_ITERS = 2  # in-process medians on the host clock (each run extracts up to 67M rows; 3 before phase 15)
 JOIN_SERVE_ITERS = 3  # broker requests a query over TCP (10 before phase 13, 6 before phase 14)
-JOIN_SHUFFLE_ITERS = 2  # (5 before phase 13, 3 before phase 14)
+JOIN_SHUFFLE_ITERS = 1  # (5 before phase 13, 3 before phase 14, 2 before phase 15)
 JOIN_DEPLOY_ITERS = 2  # (3 before phase 14)
 JOIN_PROGRAM_ITERS = 5  # CUDA-event medians of the device program
 
@@ -3269,6 +3305,29 @@ def deployed_join_phase(ssb, wants, record) -> None:
         log(f"deployed join ssb_q2_1 colocated over HTTP: broker p50 {rec['p50_ms']:.1f} ms, p99 {rec['p99_ms']:.1f} "
             f"ms over {JOIN_DEPLOY_ITERS} (client p50 {rec['client_p50_ms']:.1f}); K1 launches on the servers {k1}; "
             f"cost {resp.cost}")
+        # the join's EXPLAIN: the coordinator's shell, nothing sent to a
+        # server; ANALYZE executes, its actuals the reply's cost
+        def marks() -> dict:
+            return {n: _server_marks(http_json(a + "/debug/metrics")) for n, a in admin.items()}
+
+        def ask(prefix: str) -> dict:
+            return http_json(broker_url + "/query", json.dumps({"pql": prefix + JOIN_QUERIES["ssb_q2_1"]}).encode())
+
+        before = marks()
+        plan = ask("EXPLAIN ")
+        if plan["exceptions"] or plan["explain"]["join"]["strategy"] != "colocated" or marks() != before:
+            raise AssertionError(f"deployed join explain: {plan}, servers {before} -> {marks()}")
+        k1_before = launches()
+        an = ask("EXPLAIN ANALYZE ")
+        check_join("deployed join explain analyze ssb_q2_1", response_from_json(an), wants["ssb_q2_1"])
+        if an["explain"]["join"]["actual"]["strategy"] != "colocated" or an["explain"]["actualCost"] != an["cost"]:
+            raise AssertionError(f"deployed join explain analyze: {an['explain']} against cost {an['cost']}")
+        require_launch("deployed join explain analyze ssb_q2_1", {"k1": launches() - k1_before}, "k1")
+        ms = [ask("EXPLAIN ")["timeUsedMs"] for _ in range(EXPLAIN_ITERS)]
+        rec["explain"] = {"strategy": "colocated", "explain_p50_ms": float(np.percentile(ms, 50)),
+                          "explain_max_ms": float(max(ms)), "analyze_cost": an["cost"]}
+        log(f"deployed join explain ssb_q2_1: the colocated plan with nothing sent to a server; ANALYZE equal to the "
+            f"oracle, actualCost = cost; broker EXPLAIN p50 {rec['explain']['explain_p50_ms']:.3f} ms")
         alive()
     finally:
         codes = _stop_roles()
@@ -3287,8 +3346,8 @@ def deployed_join_phase(ssb, wants, record) -> None:
 
 ST_BASEBALL_SEGMENTS = 8  # 8 x 2^23 = 67,108,864 baseballStats rows
 ST_BASEBALL_SEED = 200  # segment i draws from seed 200 + i
-ST_ITERS = 20  # timed runs per cube / scan median
-ST_SERVE_ITERS = 50  # broker requests per served query, after warm-up
+ST_ITERS = 10  # timed runs per cube / scan median (20 before phase 15)
+ST_SERVE_ITERS = 20  # broker requests per served query, after warm-up (50 before phase 15)
 ST_CLI_ROWS = 10_000
 ST_QUERIES = {
     "bb_cube": "SELECT sum(runs), count(*) FROM baseballStats GROUP BY teamID TOP 20",
@@ -3303,9 +3362,6 @@ ST_PRUNED = {  # past every segment's event_time range: the time pruner drops th
     "pruned_count": "SELECT count(*) FROM adevents WHERE event_time > 1800000000000",
     "pruned_select": "SELECT * FROM adevents WHERE event_time > 1800000000000 LIMIT 5",
 }
-ST_EXPLAIN = ("EXPLAIN SELECT sum(runs) FROM baseballStats GROUP BY teamID TOP 20",
-              "EXPLAIN PLAN FOR SELECT count(*) FROM baseballStats",
-              "EXPLAIN ANALYZE SELECT sum(runs), count(*) FROM baseballStats GROUP BY teamID TOP 20")
 
 
 def baseball_oracle(segments, name: str) -> Dict[Tuple[str, ...], Dict[str, float]]:
@@ -3440,12 +3496,11 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
     adevents_hll_cube (phase 4's 4 distinct ad-events segments tiled to 16,
     one tree per distinct segment): the builds, every query from the cube
     and from K1 / K2 with the trees detached, a mixed table, the files
-    served over TCP, the CLI's row builder, and the pruner / EXPLAIN
-    repairs.  ``ad_distinct`` / ``ns_want``: phase 4's segments and
+    served over TCP and their EXPLAIN, the CLI's row builder, and the
+    pruner's repair.  ``ad_distinct`` / ``ns_want``: phase 4's segments and
     north-star oracle, made here when None."""
     import csv
 
-    from pinot_tpu_torch.common.response import ErrorCode
     from pinot_tpu_torch.engine import executor as executor_mod
     from pinot_tpu_torch.engine import hll as hll_mod
     from pinot_tpu_torch.engine.executor import QueryExecutor
@@ -3713,23 +3768,15 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
             log(f"serve startree {name}: broker p50 {q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over "
                 f"{ST_SERVE_ITERS} requests, cost {resp.cost}")
 
-        # the EXPLAIN repair: a typed refusal from the broker, no request
-        # reaches a server, no kernel launches
+        # EXPLAIN over the cube and the mixed table: plain EXPLAIN moves
+        # nothing, its tiers are the executed ones, ANALYZE's actuals the cost
         fg.launches = 0
         vsc.launches = 0
-        replies = len(fleet.transport.reply_bytes)
-        for pql in ST_EXPLAIN:
-            resp = fleet.broker.handle_pql(pql)
-            codes = [e.error_code for e in resp.exceptions]
-            if codes != [ErrorCode.QUERY_VALIDATION] or "item 24" not in resp.exceptions[0].message \
-                    or resp.aggregation_results or resp.selection_results:
-                raise AssertionError(f"explain {pql!r}: {resp.to_json()}")
-        if fg.launches or vsc.launches or len(fleet.transport.reply_bytes) != replies:
-            raise AssertionError(f"explain: {fg.launches} / {vsc.launches} launches, "
-                                 f"{len(fleet.transport.reply_bytes) - replies} server replies")
-        paths["startree_explain"] = {"launches": {}, "totals": {"k1": 0, "k2": 0}}
-        log(f"startree explain: {len(ST_EXPLAIN)} EXPLAIN forms refused with QUERY_VALIDATION (item 24) by the "
-            f"broker, no server request, no kernel launch")
+        rec["explain"] = explain_checks(
+            "startree", lambda pql: fleet.broker.handle_pql(pql).to_json(),
+            lambda: {n: s_.status() for n, s_ in fleet.servers.items()}, served,
+            lambda name, d: check(f"explain {name}", "bb_cube", response_from_json(d)))
+        paths["startree_explain"] = {"launches": {}, "totals": {"k1": fg.launches, "k2": vsc.launches}}
     finally:
         if fleet is not None:
             fleet.close()
@@ -3825,7 +3872,7 @@ TIER_DATES = (1, 3, 16, 64)  # l_shipdate IN lists (the last past the 1/64 cross
 # l_extendedprice BETWEEN ranges holding about these shares of the table
 # (the last just under the 1/64 crossover); 0 is one price, the needle
 TIER_PRICE_SHARES = (0.0, 1 / 4096, 1 / 1024, 1 / 256, 1 / 80)
-TIER_ITERS = 20
+TIER_ITERS = 10  # medians of the ladders' routes (20 before phase 15)
 _ZONE_SELECT = ("SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) FROM lineitem "
                 "WHERE {where} GROUP BY l_returnflag, l_linestatus TOP 10")
 BSI_QUERIES = {
@@ -4224,7 +4271,7 @@ RT_BLOCK = 1 << 16  # rows a produced columnar block (and a server's fetch: PINO
 RT_STAGES = (4, 2, 1)  # the watermarks: a quarter, a half and the whole of the data
 RT_QUERIES = {"q1": Q1, "count_star": "SELECT count(*) FROM lineitem", "distinct_price": VALUE_QUERIES["distinct_price"]}
 RT_NEED = {"q1": "k1", "count_star": None, "distinct_price": "k2"}
-RT_ITERS = 20  # timed broker requests a query at each watermark, after one checked request
+RT_ITERS = 10  # timed broker requests a query at each watermark, after one checked request (20 before phase 15)
 RT_VISIBLE_S = 600.0  # from a stage's last produce to every row counted
 # the count polls' period: each poll at a new watermark snapshots both
 # consuming segments (200-370 ms of host remap at 2^22 rows), which takes
@@ -4503,6 +4550,411 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
         raise AssertionError(f"realtime: a role did not exit cleanly {codes}")
 
 
+# ---------------------------------------------------------------------------
+# EXPLAIN over what the servers hold (phases 10, 11, 12 and 15): plain
+# EXPLAIN moves nothing, its plan is the one executed, ANALYZE's actuals
+# are the reply's cost
+# ---------------------------------------------------------------------------
+
+EXPLAIN_ITERS = 20  # plain EXPLAINs timed a query through the broker
+
+
+def _server_marks(st: dict) -> dict:
+    """What a plain EXPLAIN must leave unchanged on a server, off its
+    ``status()`` (in process or ``/debug/metrics``)."""
+    return {"kernelLaunches": st["kernelLaunches"], "laneDispatches": (st.get("lane") or {}).get("dispatches"),
+            "stagedBytes": st["stagedBytes"], "allocatedBytes": st["memory"]["allocatedBytes"]}
+
+
+def _answer(d: dict) -> dict:
+    return {k: d.get(k) for k in ("aggregationResults", "selectionResults")}
+
+
+def explain_checks(label: str, ask, status, queries: Dict[str, str], check=None) -> dict:
+    """EXPLAIN, the query, EXPLAIN again and EXPLAIN ANALYZE of each query
+    through a broker: ``ask(pql)`` returns the response JSON, ``status()``
+    each server's status.  Plain EXPLAIN leaves every server's kernel
+    launches, lane dispatches, staged bytes and allocated card bytes as
+    they were; the tier counts it predicts are the executed cost's; each
+    device node's plan digest is the one the server's lane then records
+    (its compile entry counts the execution's launch); ANALYZE's
+    ``actualCost`` is the reply's cost and its answer the query's
+    (``check(name, d)`` holds both against an oracle).  Returns a record a
+    query, with the broker's EXPLAIN ms (p50 of ``EXPLAIN_ITERS``)."""
+    out = {}
+    for name, pql in queries.items():
+        before = {n: _server_marks(st) for n, st in status().items()}
+        plan = ask("EXPLAIN " + pql)
+        after = {n: _server_marks(st) for n, st in status().items()}
+        if plan["exceptions"] or "explain" not in plan or "aggregationResults" in plan:
+            raise AssertionError(f"{label} explain {name}: {plan}")
+        if after != before:
+            raise AssertionError(f"{label} explain {name}: plain EXPLAIN moved the servers {before} -> {after}")
+        ex = plan["explain"]
+        devices = {n["server"]: n["device"] for n in ex["servers"] if "device" in n}
+        d = ask(pql)
+        if d["exceptions"]:
+            raise AssertionError(f"{label} {name}: {d['exceptions']}")
+        if check is not None:
+            check(name, d)
+        executed = {k: v for k, v in d.get("cost", {}).items() if k.startswith("segments") and v}
+        if executed != ex["tierCounts"]:
+            raise AssertionError(f"{label} explain {name}: predicted tiers {ex['tierCounts']}, executed {executed}")
+        again = ask("EXPLAIN " + pql)["explain"]
+        for node in again["servers"]:
+            was = devices.get(node["server"])
+            if was is None:
+                continue
+            dev, comp = node["device"], node["device"]["compile"]
+            if dev["planDigest"] != was["planDigest"] or comp["state"] != "warm" or \
+                    comp["launches"] != was["compile"].get("launches", 0) + 1:
+                raise AssertionError(f"{label} explain {name}: the lane did not record EXPLAIN's digest for the "
+                                     f"execution: before {was}, after {dev}")
+        an = ask("EXPLAIN ANALYZE " + pql)
+        if an["exceptions"] or an["explain"]["actualCost"] != an.get("cost", {}) or \
+                an["explain"]["actualDocsScanned"] != an["numDocsScanned"]:
+            raise AssertionError(f"{label} explain analyze {name}: {an.get('explain')} against cost {an.get('cost')}")
+        if check is not None:
+            check(name, an)
+        if _answer(an) != _answer(d):
+            raise AssertionError(f"{label} explain analyze {name}: the answer differs from the query's")
+        ms = [ask("EXPLAIN " + pql)["timeUsedMs"] for _ in range(EXPLAIN_ITERS)]
+        out[name] = {"tiers": ex["tierCounts"], "devices": {n: {"planDigest": v["planDigest"],
+                                                                "compile": v["compile"]["state"]}
+                                                            for n, v in devices.items()},
+                     "staged": {n["server"]: n["staged"]["residency"] for n in ex["servers"]},
+                     "explain_p50_ms": float(np.percentile(ms, 50)), "explain_max_ms": float(max(ms))}
+        log(f"{label} explain {name}: plain EXPLAIN moved nothing on the servers (launches, dispatches, staged and "
+            f"allocated bytes); predicted tiers {ex['tierCounts']} = executed; device digests honest "
+            f"{ {n: v['planDigest'] for n, v in devices.items()} }; ANALYZE actualCost = cost; broker EXPLAIN p50 "
+            f"{out[name]['explain_p50_ms']:.3f} ms, max {out[name]['explain_max_ms']:.3f} over {EXPLAIN_ITERS}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 15. residency: the hot / warm / cold tiers of one server's staging at
+# full size, the OOM heal by demotion, EXPLAIN ANALYZE on promoted tables
+# ---------------------------------------------------------------------------
+
+RES_QUERIES = ("q1", "distinct_price", "hll_groupby")  # three staged sets of different columns
+RES_ROUNDS = 2  # round-robin rounds under the two-set cap
+
+
+def _k_calls(fg, vsc):
+    """Record every K1 / K2 wrapper call (the arguments) until the
+    returned function restores the wrappers."""
+    calls: List[tuple] = []
+    real_k1, real_k2 = fg.fused_filtered_groupby_sums, vsc.value_state
+
+    def k1(*a, **k):
+        calls.append(("k1", a, k))
+        return real_k1(*a, **k)
+
+    def k2(*a, **k):
+        calls.append(("k2", a, k))
+        return real_k2(*a, **k)
+
+    fg.fused_filtered_groupby_sums, vsc.value_state = k1, k2
+
+    def restore():
+        fg.fused_filtered_groupby_sums, vsc.value_state = real_k1, real_k2
+
+    return calls, restore
+
+
+def check_k_calls(fg, vsc, calls) -> float:
+    """Each recorded K1 / K2 call against its plain version on the same
+    card tensors (in the tier the path chose): K1's counts exact and sums
+    in the audit band, K2 bit-equal.  Returns K1's largest sum error."""
+    err = 0.0
+    for kind, a, k in calls:
+        if kind == "k1":
+            names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
+            args = {**dict(zip(names, a)), **k}
+            got, want = fg.fused_filtered_groupby_sums(**args), fg.fused_filtered_groupby_sums_reference(**args)
+            if int(got[0]) != int(want[0]) or not torch.equal(got[1].cpu(), want[1].cpu()):
+                raise AssertionError("K1 disagrees with its plain version (docs or counts)")
+            for x, y in zip(got[2], want[2]):
+                err = max(err, _close(x, y, AUDIT_RTOL, AUDIT_ATOL))
+        else:
+            (mode, *rest), kw = a, k
+            args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+            got, (docs, holder) = vsc.value_state(mode, **args), vsc.value_state_reference(mode, **args)
+            if int(got[0]) != int(docs) or got[1].dtype != holder.dtype or not torch.equal(got[1], holder):
+                raise AssertionError(f"K2 ({mode}) disagrees with its plain version")
+    return err
+
+
+def residency_phase(dev, segments, record, fg, vsc, wants) -> None:
+    """15. One server (the lineitem table, 16 x 2^23 rows, x32) behind the
+    broker over TCP: q1, distinct_price and hll_groupby staged uncapped
+    (fresh staging ms, each set's ledger bytes), then an HBM cap that holds
+    two of the three sets and RES_ROUNDS round-robin rounds: every answer
+    bit-equal to the uncapped one, K1 and K2 on each promoted table equal
+    to their plain versions, the hot bytes within the cap after each
+    query, each promotion's staging ms against the fresh staging and the
+    device-to-host / host-to-device copies of each demotion and promotion
+    (the card's rates); a host cap that spills the warm set to disk, then
+    its reload; a real torch.cuda.OutOfMemoryError healed by demotion (the
+    card filled with filler tensors until less than the warm set is free,
+    then its query); EXPLAIN over the tiers and EXPLAIN ANALYZE with K1 /
+    K2 held against their plain versions."""
+    from pinot_tpu_torch.engine import executor as executor_mod
+    from pinot_tpu_torch.engine import residency as residency_mod
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+
+    rec = record["residency"] = {"card": card_line(), "queries": {}, "rounds": []}
+    t_phase = time.perf_counter()
+    spool = tempfile.mkdtemp(prefix="pinot-residency-")
+    pqls = {n: {**QUERIES, **VALUE_QUERIES}[n] for n in RES_QUERIES}
+    reqs = {n: optimize_request(parse_pql(p)) for n, p in pqls.items()}
+    fleet = _Fleet(dev, {"res0": segments}, residency_dir=spool)
+    server = fleet.servers["res0"]
+    ex, tiers = server.executor, server.executor.residency
+    copies: Dict[str, List[Tuple[float, int]]] = {"d2h": [], "h2d": []}
+    real_snap, real_restore = residency_mod.snapshot_staged, residency_mod.restore_staged
+
+    def timed_snap(st):
+        t = time.perf_counter()
+        out = real_snap(st)
+        copies["d2h"].append((time.perf_counter() - t, out[1]))
+        return out
+
+    def timed_restore(snap, device, precision):
+        t = time.perf_counter()
+        out = real_restore(snap, device, precision)
+        copies["h2d"].append((time.perf_counter() - t, out.nbytes()))
+        return out
+
+    residency_mod.snapshot_staged, residency_mod.restore_staged = timed_snap, timed_restore
+    fg.launches = vsc.launches = 0
+    per_query: Dict[str, Dict[str, int]] = {}
+    keys: Dict[str, Tuple] = {}
+
+    def run(name: str, label: str, check_kernels: bool) -> dict:
+        """One query on the server's executor: its answer (accounting
+        stripped), its launches, whether it promoted, its staging ms."""
+        before = dict(tiers.counters)
+        k1, k2 = fg.launches, vsc.launches
+        calls, restore = _k_calls(fg, vsc)
+        try:
+            res = ex.execute(segments, reqs[name])
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        launches = {"k1": fg.launches - k1, "k2": vsc.launches - k2}
+        per_query[f"{label}/{name}"] = launches
+        if res._served_tier != "device" or res.cost.get("segmentsHost"):
+            raise AssertionError(f"residency {label} {name}: served by the {res._served_tier} tier, cost {res.cost}")
+        resp = reduce_to_response(reqs[name], [res])
+        (check_response if name in QUERIES else check_value_response)(resp, wants[name])
+        err = check_k_calls(fg, vsc, calls) if check_kernels else None
+        return {"answer": _answer(resp.to_json()), "launches": launches,
+                "promoted": tiers.counters["promotions"] - before["promotions"],
+                "demoted": tiers.counters["demotions"] - before["demotions"],
+                "staging_ms": server.metrics.timer("phase.staging").samples()[-1], "k1_err": err,
+                "kernel_calls": [c[0] for c in calls]}
+
+    filler: List[torch.Tensor] = []
+    try:
+        # uncapped: each set staged fresh, its bytes off the ledger
+        for name in RES_QUERIES:
+            staged_keys = set(ex._staged)
+            bytes_before = ex.ledger.total_bytes()
+            r = run(name, "uncapped", check_kernels=False)
+            (keys[name],) = set(ex._staged) - staged_keys
+            q = rec["queries"][name] = {"answer": r["answer"], "bytes": ex.ledger.total_bytes() - bytes_before,
+                                        "fresh_staging_ms": r["staging_ms"], "promotions_ms": []}
+            log(f"residency uncapped {name}: {q['bytes']} bytes staged fresh in {q['fresh_staging_ms']:.1f} ms "
+                f"(phase.staging), launches {r['launches']}")
+        total = sum(q["bytes"] for q in rec["queries"].values())
+        cap = total - min(q["bytes"] for q in rec["queries"].values())
+        rec["cap_bytes"] = tiers.hbm_cap_bytes = cap
+        tiers.enforce()
+        log(f"residency cap {cap} bytes (every two sets, not three: {total} in all); tiers "
+            f"{ {n: tiers.state_of(k) for n, k in keys.items()} }")
+
+        # the capped cycle: round-robin, answers bit-equal, kernels on the
+        # promoted tables held against their plain versions
+        for rnd in range(RES_ROUNDS):
+            rr = {"promoted": [], "demoted": 0}
+            for name in RES_QUERIES:
+                promoting = tiers.state_of(keys[name]) != "hot"
+                r = run(name, f"round{rnd}", check_kernels=promoting)
+                if r["answer"] != rec["queries"][name]["answer"]:
+                    raise AssertionError(f"residency round {rnd} {name}: the answer differs from the uncapped one")
+                if tiers.hot_bytes() > cap or ex.ledger.total_bytes() > cap:
+                    raise AssertionError(f"residency round {rnd} {name}: hot {tiers.hot_bytes()} / ledger "
+                                         f"{ex.ledger.total_bytes()} bytes past the cap {cap}")
+                if r["promoted"] != int(promoting):
+                    raise AssertionError(f"residency round {rnd} {name}: {r['promoted']} promotions, expected "
+                                         f"{int(promoting)}")
+                rr["demoted"] += r["demoted"]
+                if promoting:
+                    (h2d_s, h2d_bytes), (d2h_s, d2h_bytes) = copies["h2d"][-1], copies["d2h"][-1]
+                    p = {"staging_ms": r["staging_ms"], "h2d_ms": h2d_s * 1e3, "h2d_bytes": h2d_bytes,
+                         "d2h_ms": d2h_s * 1e3, "d2h_bytes": d2h_bytes, "k1_max_abs_err": r["k1_err"],
+                         "kernels_checked": r["kernel_calls"]}
+                    rec["queries"][name]["promotions_ms"].append(p)
+                    rr["promoted"].append(name)
+                    log(f"residency round {rnd} {name}: promoted in {r['staging_ms']:.1f} ms (phase.staging; fresh "
+                        f"staging {rec['queries'][name]['fresh_staging_ms']:.1f}), its copy {h2d_bytes} bytes "
+                        f"{p['h2d_ms']:.1f} ms ({h2d_bytes / h2d_s / 1e9:.2f} GB/s); the demotion it forced "
+                        f"{d2h_bytes} bytes {p['d2h_ms']:.1f} ms ({d2h_bytes / d2h_s / 1e9:.2f} GB/s); "
+                        f"kernels {r['kernel_calls']} equal to their plain versions; answer bit-equal")
+            if not rr["promoted"] or not rr["demoted"]:
+                raise AssertionError(f"residency round {rnd}: no promotion or no demotion {rr}")
+            rec["rounds"].append(rr)
+        rec["counters"] = dict(tiers.counters)
+
+        # cold: a host cap that spills the warm set, then its reload
+        (warm,) = [n for n, k in keys.items() if tiers.state_of(k) == "warm"]
+        tiers.host_cap_bytes = 1
+        t = time.perf_counter()
+        tiers.enforce()
+        spill_s = time.perf_counter() - t
+        tiers.host_cap_bytes = 0
+        files = [os.path.join(spool, f) for f in os.listdir(spool) if f.endswith(".npz")]
+        if tiers.state_of(keys[warm]) != "cold" or len(files) != 1:
+            raise AssertionError(f"residency cold: {warm} is {tiers.state_of(keys[warm])}, spool {files}")
+        file_bytes = os.path.getsize(files[0])
+        loads = tiers.counters["coldLoads"]
+        r = run(warm, "cold", check_kernels=True)
+        if r["answer"] != rec["queries"][warm]["answer"] or tiers.counters["coldLoads"] != loads + 1:
+            raise AssertionError(f"residency cold {warm}: reload {r}")
+        rec["cold"] = {"query": warm, "spill_s": spill_s, "file_bytes": file_bytes, "reload_ms": r["staging_ms"],
+                       "fresh_staging_ms": rec["queries"][warm]["fresh_staging_ms"]}
+        log(f"residency cold {warm}: spilled {file_bytes} bytes to disk in {spill_s:.3f} s; reloaded and promoted "
+            f"in {r['staging_ms']:.1f} ms (phase.staging; fresh staging "
+            f"{rec['queries'][warm]['fresh_staging_ms']:.1f}); answer bit-equal, kernels equal to their plain versions")
+
+        # a real OOM: no cap, two sets hot, the card filled until less than
+        # the warm set is left for the allocator; its query OOMs while
+        # promoting, the ladder demotes and the retry answers from the card
+        tiers.hbm_cap_bytes = 0
+        (third,) = [n for n, k in keys.items() if tiers.state_of(k) != "hot"]
+        need = rec["queries"][third]["bytes"]
+        # short of the set by half the smallest hot set: one demotion
+        # makes room
+        short = min(q["bytes"] for n, q in rec["queries"].items() if n != third) // 2
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        # fill the card to the last MiB, by allocation failures (what the
+        # allocator can get, whatever the driver's free count says), twice:
+        # blocks whose frees were deferred (stream events) come back between
+        for _ in range(2):
+            chunk = 1 << 30
+            while chunk >= 1 << 20:
+                try:
+                    filler.append(torch.empty(chunk, dtype=torch.uint8, device=dev))
+                except torch.cuda.OutOfMemoryError:
+                    chunk //= 2
+            gc.collect()
+            torch.cuda.synchronize()
+        stats = torch.cuda.memory_stats(dev)
+        cached_free = torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+        log(f"residency oom fill: {sum(f.numel() for f in filler)} bytes of filler; the allocator's cached free "
+            f"{cached_free} bytes (inactive split {stats.get('inactive_split_bytes.all.current')}), driver free "
+            f"{torch.cuda.mem_get_info(dev)[0]}")
+        # ... then give back need - short of it to the allocator's cache
+        given = 0
+        while given < need - short and filler:
+            given += filler.pop().numel()
+        if given > need - short:  # the allocator splits its cached block for the rest
+            filler.append(torch.empty(given - (need - short), dtype=torch.uint8, device=dev))
+            given = need - short
+        free_before = torch.cuda.mem_get_info(dev)[0] + given
+        seen: List[str] = []
+        real_classify = executor_mod.classify_device_error
+
+        def classify(e):
+            seen.append(type(e).__name__)
+            return real_classify(e)
+
+        executor_mod.classify_device_error = classify
+        heal0 = ex.healing_stats()
+        pressure0 = tiers.counters["pressureDemotions"]
+        t = time.perf_counter()
+        try:
+            r = run(third, "oom", check_kernels=False)
+        finally:
+            executor_mod.classify_device_error = real_classify
+        oom_ms = (time.perf_counter() - t) * 1e3
+        heal = ex.healing_stats()
+        grew = {k: heal[k] - heal0[k] for k in ("resourceExhausted", "hostFailovers", "deviceRetries")}
+        if "OutOfMemoryError" not in seen or grew["resourceExhausted"] < 1 or grew["hostFailovers"] != 0 \
+                or tiers.counters["pressureDemotions"] <= pressure0:
+            raise AssertionError(f"residency oom {third}: errors {seen}, heal {grew}, pressure demotions "
+                                 f"{tiers.counters['pressureDemotions'] - pressure0}, promoted {r['promoted']}, "
+                                 f"need {need}, given back {given}, filler {sum(f.numel() for f in filler)}, "
+                                 f"driver free {torch.cuda.mem_get_info(dev)}, allocated "
+                                 f"{torch.cuda.memory_allocated(dev)}, reserved {torch.cuda.memory_reserved(dev)}")
+        if r["answer"] != rec["queries"][third]["answer"]:
+            raise AssertionError(f"residency oom {third}: the answer differs from the uncapped one")
+        rec["oom"] = {"query": third, "need_bytes": need, "free_bytes_before": free_before, "given_back": given,
+                      "filler_bytes": sum(f.numel() for f in filler), "errors": seen, "heal": grew,
+                      "pressure_demotions": tiers.counters["pressureDemotions"] - pressure0, "ms": oom_ms}
+        log(f"residency oom {third}: {free_before} bytes free of the {need} it needs (the card filled with "
+            f"{rec['oom']['filler_bytes']} bytes of filler, {given} given back); errors {seen}; healed on the card by "
+            f"{rec['oom']['pressure_demotions']} pressure demotion(s), heal {grew}, {oom_ms:.1f} ms; answer bit-equal")
+        filler.clear()
+        torch.cuda.empty_cache()
+
+        # EXPLAIN over what the server holds, and ANALYZE with K1 / K2
+        # held against their plain versions
+        def ask(pql):
+            return fleet.broker.handle_pql(pql).to_json()
+
+        def check(name, d):
+            if _answer(d) != rec["queries"][name]["answer"]:
+                raise AssertionError(f"residency explain {name}: the answer differs from the uncapped one")
+
+        k1, k2 = fg.launches, vsc.launches
+        rec["explain"] = explain_checks("residency", ask, lambda: {"res0": server.status()}, pqls, check)
+        per_query["explain"] = {"k1": fg.launches - k1, "k2": vsc.launches - k2}
+        for name in ("q1", "distinct_price"):
+            calls, restore = _k_calls(fg, vsc)
+            try:
+                k1, k2 = fg.launches, vsc.launches
+                d = ask("EXPLAIN ANALYZE " + pqls[name])
+                per_query[f"analyze/{name}"] = {"k1": fg.launches - k1, "k2": vsc.launches - k2}
+            finally:
+                restore()
+            check(name, d)
+            need_k = "k1" if name == "q1" else "k2"
+            if need_k not in [c[0] for c in calls]:
+                raise AssertionError(f"residency analyze {name}: {need_k} did not launch")
+            err = check_k_calls(fg, vsc, calls)
+            rec["explain"][name]["analyze_kernels"] = {"calls": [c[0] for c in calls], "k1_max_abs_err": err}
+            log(f"residency analyze {name}: kernels {[c[0] for c in calls]} equal to their plain versions "
+                f"(K1 max_abs_err {err:.6g}); staged tiers {d['explain']['servers'][0]['staged']['residency']}")
+        rec["transfers"] = ex.transfers.snapshot()
+        h2d = [(s_, b) for s_, b in copies["h2d"]]
+        d2h = [(s_, b) for s_, b in copies["d2h"]]
+        rec["rates_gb_s"] = {"h2d": [b / s_ / 1e9 for s_, b in h2d], "d2h": [b / s_ / 1e9 for s_, b in d2h]}
+        record["paths"]["residency"] = {"launches": per_query,
+                                        "totals": {k: sum(v[k] for v in per_query.values()) for k in ("k1", "k2")}}
+        summary = {"cap_bytes": cap, "set_bytes": {n: q["bytes"] for n, q in rec["queries"].items()},
+                   "fresh_staging_ms": {n: q["fresh_staging_ms"] for n, q in rec["queries"].items()},
+                   "promotion_staging_ms": {n: [p["staging_ms"] for p in q["promotions_ms"]]
+                                            for n, q in rec["queries"].items()},
+                   "h2d_gb_s": rec["rates_gb_s"]["h2d"], "d2h_gb_s": rec["rates_gb_s"]["d2h"],
+                   "cold": rec["cold"], "oom_ms": rec["oom"]["ms"],
+                   "explain_p50_ms": {n: v["explain_p50_ms"] for n, v in rec["explain"].items()},
+                   "counters": rec["counters"]}
+        log(f"residency summary on {rec['card']}: {json.dumps(summary)}")
+    finally:
+        residency_mod.snapshot_staged, residency_mod.restore_staged = real_snap, real_restore
+        filler.clear()
+        fleet.close()
+        ex.free_staging()
+        shutil.rmtree(spool, ignore_errors=True)
+        torch.cuda.empty_cache()
+        log(f"residency phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -4524,6 +4976,9 @@ def main(argv=None) -> int:
     ap.add_argument("--realtime-only", action="store_true",
                     help="after the build and the kernel checks run only phase 14, realtime ingestion "
                     "(no result line)")
+    ap.add_argument("--residency-only", action="store_true",
+                    help="after the build, the kernel checks and lineitem's datagen run only phase 15, "
+                    "residency (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -4590,7 +5045,7 @@ def run(dev: torch.device, opts) -> int:
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
     if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
         makers = {}
-    elif opts.tiers_only:
+    elif opts.tiers_only or opts.residency_only:
         makers = {"lineitem": lineitem}
     datagen = concurrent.futures.ThreadPoolExecutor(max(1, len(makers)))
     tables = {name: datagen.submit(made, make) for name, make in makers.items()}
@@ -4691,6 +5146,7 @@ def run(dev: torch.device, opts) -> int:
         log(f"kernels only: build, checks and probes done in {time.perf_counter() - t_start:.1f} s")
         return 0
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: build and kernel checks done")
     # 3. the paths at full size, x32 as the TPU served; every table is made
     # before the first timing, so no datagen thread runs beside one
     tables = {name: fut.result() for name, fut in tables.items()}
@@ -4741,6 +5197,16 @@ def run(dev: torch.device, opts) -> int:
         record_routes(record, "lineitem", {**ZONE_QUERIES, **BSI_QUERIES}, segments, parse)
         log(f"routes: {record['routes']}")
         log(f"tiers only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
+    if opts.residency_only:
+        record["paths"] = {}
+        res_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
+                     for n in RES_QUERIES}
+        residency_phase(dev, segments, record, fg, vsc, res_wants)
+        log(f"residency only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1, default=str)
@@ -4866,6 +5332,7 @@ def run(dev: torch.device, opts) -> int:
     log(f"staged on the card: {ex.staged_bytes()} bytes")
     record.update(staged_bytes=ex.staged_bytes(), total_rows=total_rows)
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phases 3a-3f done")
     # 4. timing: whole queries (with the host's finalize and broker reduce,
     # and the bytes of the one device-to-host copy), then each kernel at
     # each query's shapes
@@ -4898,10 +5365,10 @@ def run(dev: torch.device, opts) -> int:
     try:
         for name, req in all_requests.items():
             host.update(finalize=[], reduce=[])
-            ms, _ = cuda_ms(timed_query(req, segs_of(name)), ITERS)
+            ms, _ = cuda_ms(timed_query(req, segs_of(name)), QUERY_ITERS)
             fin_ms = float(np.median(host["finalize"])) * 1e3
             red_ms = float(np.median(host["reduce"])) * 1e3
-            log(f"query {name}: {ms:.3f} ms median of {ITERS}, {total_rows / (ms / 1e3):.4g} rows/s; host "
+            log(f"query {name}: {ms:.3f} ms median of {QUERY_ITERS}, {total_rows / (ms / 1e3):.4g} rows/s; host "
                 f"finalize {fin_ms:.3f} ms + broker reduce {red_ms:.3f} ms (medians); D2H {host['d2h']} bytes")
             record["query_ms"][name] = ms
             record["query_host"][name] = {"finalize_ms": fin_ms, "reduce_ms": red_ms, "d2h_bytes": host["d2h"]}
@@ -5090,6 +5557,7 @@ def run(dev: torch.device, opts) -> int:
 
     decision_ms(ex, {**requests, **value_requests}, "full scans")
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 4 timings done")
     # 4b. the batched kernels over lineitem ladders: same-plan queries at
     # distinct literals, each member's K1 / K2 arguments as the executor
     # hands them over (full scans: the batching tier takes no block path)
@@ -5125,6 +5593,7 @@ def run(dev: torch.device, opts) -> int:
     finally:
         ex.zone_maps = True
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 4b done")
     # 4c. the chunked phase: the whole table past a per-dispatch row budget
     # of 2^26 rows, two chunks of 8 segments; each answer against its
     # oracle, and against the unchunked run (counts exact; sums
@@ -5156,16 +5625,17 @@ def run(dev: torch.device, opts) -> int:
                     raise AssertionError(f"chunked {name}: the value states differ from the unchunked run")
                 check_response(resp, response_as_want(unchunked[name]))
             ms, _ = cuda_ms(lambda: reduce_to_response(chunk_requests[name], [ex.execute(segments, chunk_requests[name])]),
-                            ITERS)
+                            QUERY_ITERS)
             launched = record["paths"]["chunked"]["launches"][name]
             record["chunked"][name] = dict(ms=ms, unchunked_ms=record["query_ms"][name], launches=launched,
                                            vs_unchunked="bit-identical" if same else "within the audit band")
             log(f"chunked {name}: oracle ok; {'bit-identical to' if same else 'within the audit band of'} the "
-                f"unchunked run; {ms:.3f} ms median of {ITERS} (unchunked {record['query_ms'][name]:.3f}); "
+                f"unchunked run; {ms:.3f} ms median of {QUERY_ITERS} (unchunked {record['query_ms'][name]:.3f}); "
                 f"launches {launched} over 2 chunks")
     finally:
         config.CHUNK_ROWS = budget
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 4c done")
     # 7. the host tier, timed apart from the device phases: host_groups
     # leaves the device before anything is staged; reach_overflow runs on
     # the device (K1 for the group counts, the pair reduce) and the host
@@ -5226,9 +5696,12 @@ def run(dev: torch.device, opts) -> int:
             record["profile"][name] = profile_query(
                 lambda: reduce_to_response(req, [ex.execute(segs, req)]), name, runs=1)
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 7 done")
     # 8. multi-value columns: the card's memory goes to the mvtest table
     record["staged_bytes_by_table"] = {"lineitem+adevents": ex.staged_bytes()}
-    ex._staged.clear()
+    record["phases_1_7_residency"] = ex.residency.snapshot()
+    log(f"residency of phases 1-7's executor (default caps): {json.dumps(record['phases_1_7_residency'])}")
+    ex.free_staging()
     torch.cuda.empty_cache()
     mv_distinct, gen_s = tables["mvtest"]
     mv_segments = tile_segments(mv_distinct, SEGMENTS)
@@ -5330,6 +5803,7 @@ def run(dev: torch.device, opts) -> int:
             del args, rest, kw
         torch.cuda.empty_cache()
 
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 8 done")
     # 9. serving: the direct executors' tables are freed first, so the card
     # never holds two copies
     mv_ex.free_staging()
@@ -5365,13 +5839,13 @@ def run(dev: torch.device, opts) -> int:
             f"({answers['zone_distinct'].aggregation_results[0].value})")
     for name, req in zone_requests.items():
         on, off = zex.execute(segments, req), zfull.execute(segments, req)
-        ms_on, _ = cuda_ms(lambda: reduce_to_response(req, [zex.execute(segments, req)]), ITERS)
-        ms_off, _ = cuda_ms(lambda: reduce_to_response(req, [zfull.execute(segments, req)]), ITERS)
+        ms_on, _ = cuda_ms(lambda: reduce_to_response(req, [zex.execute(segments, req)]), QUERY_ITERS)
+        ms_off, _ = cuda_ms(lambda: reduce_to_response(req, [zfull.execute(segments, req)]), QUERY_ITERS)
         z = record["zone"][name] = dict(blocks_ms=ms_on, full_ms=ms_off,
                                         scanned_rows=on.num_entries_scanned_in_filter,
                                         full_rows=off.num_entries_scanned_in_filter,
                                         segments_zonemap=on.cost.get("segmentsZonemap"))
-        log(f"query {name}: {ms_on:.3f} ms median of {ITERS} over the candidate blocks "
+        log(f"query {name}: {ms_on:.3f} ms median of {QUERY_ITERS} over the candidate blocks "
             f"({z['scanned_rows']} rows scanned in the filter, segmentsZonemap {z['segments_zonemap']}); "
             f"{ms_off:.3f} ms as a full scan ({z['full_rows']} rows)")
     decision_ms(zex, zone_requests, "the block path")
@@ -5429,8 +5903,8 @@ def run(dev: torch.device, opts) -> int:
                 raise AssertionError(f"zone sweep {name}: {r_on.aggregation_results[0].value} over the "
                                      f"blocks != {r_off.aggregation_results[0].value} as a full scan")
             skip_ms.clear()
-            ms_on, _ = cuda_ms(lambda: reduce_to_response(req, [zex.execute(segments, req)]), ITERS)
-            ms_off, _ = cuda_ms(lambda: reduce_to_response(req, [zfull.execute(segments, req)]), ITERS)
+            ms_on, _ = cuda_ms(lambda: reduce_to_response(req, [zex.execute(segments, req)]), QUERY_ITERS)
+            ms_off, _ = cuda_ms(lambda: reduce_to_response(req, [zfull.execute(segments, req)]), QUERY_ITERS)
             key = "k1" if name.startswith("zone_in") else "k2"
             z = record["zone_sweep"][name] = dict(
                 blocks_ms=ms_on, full_ms=ms_off, window=window["nb_pad"] / window["blocks"],
@@ -5439,7 +5913,7 @@ def run(dev: torch.device, opts) -> int:
                 kernel_blocks_ms=kernel_ms(zex, req, key), kernel_full_ms=kernel_ms(zfull, req, key))
             log(f"zone sweep {name}: window {window['nb_pad']} of {window['blocks']} blocks a segment "
                 f"({z['window']:.4f}), candidate rows {z['scanned_share']:.4f} of the table; {ms_on:.3f} ms "
-                f"median of {ITERS} over the blocks (decision {z['decision_ms']:.4f} ms on the host), "
+                f"median of {QUERY_ITERS} over the blocks (decision {z['decision_ms']:.4f} ms on the host), "
                 f"{ms_off:.3f} ms as a full scan; {key} {z['kernel_blocks_ms']:.4f} ms per call over the "
                 f"blocks, {z['kernel_full_ms']:.4f} ms as a full scan")
     finally:
@@ -5542,6 +6016,12 @@ def run(dev: torch.device, opts) -> int:
     torch.cuda.empty_cache()
     realtime_phase(dev, record, fg, vsc, hll_mod)
     log(f"realtime phase: {time.perf_counter() - t0:.1f} s")
+
+    # 15. residency: one server's staging under an HBM cap, the cold spool,
+    # a real OOM healed by demotion, EXPLAIN over the tiers
+    t0 = time.perf_counter()
+    residency_phase(dev, segments, record, fg, vsc, wants)
+    log(f"residency phase: {time.perf_counter() - t0:.1f} s")
 
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:

@@ -25,10 +25,17 @@ whose requests carry the phase's join context (``extra_fn``).
 ``BrokerHttpServer`` is the client's endpoint: ``GET /query?pql=`` and
 ``POST /query {"pql": ...}`` answer the broker response JSON.
 
+EXPLAIN: every response carries the literal-erased plan digest
+(``engine/plandigest.py``).  ``EXPLAIN`` / ``EXPLAIN PLAN FOR`` scatters
+as any query; each server answers its plan node instead of executing, and
+the broker returns the assembled tree (``_assemble_explain``) INSTEAD of
+results.  ``EXPLAIN ANALYZE`` reduces the results as usual and adds the
+tree, whose actual cost is the response's.  A join's EXPLAIN is the join
+coordinator's shell (``broker/joinplan.py``).
+
 Left out of the port, for later slices: admission and quota, hedging,
 the SLO / tail-sample / flight-recorder / history planes, the slow-query
-log, plan statistics, EXPLAIN, the freshness stamp and the replica
-auditor.
+log, plan statistics, the freshness stamp and the replica auditor.
 """
 from __future__ import annotations
 
@@ -48,8 +55,9 @@ from pinot_tpu_torch.broker.joinplan import JoinCoordinator
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
 from pinot_tpu_torch.broker.time_boundary import TimeBoundaryService
 from pinot_tpu_torch.common.datatable import deserialize_result, serialize_instance_request
-from pinot_tpu_torch.common.request import EXPLAIN_ITEM, BrokerRequest
+from pinot_tpu_torch.common.request import BrokerRequest
 from pinot_tpu_torch.common.response import BrokerResponse, ErrorCode, QueryException
+from pinot_tpu_torch.engine.plandigest import plan_shape_digest, plan_shape_summary
 from pinot_tpu_torch.engine.reduce import reduce_to_response
 from pinot_tpu_torch.engine.results import IntermediateResult
 from pinot_tpu_torch.pql import PqlParseError, optimize_request, parse_pql
@@ -145,7 +153,7 @@ class BrokerRequestHandler:
         # token + a per-broker sequence
         self._id_prefix = f"{name}-{uuid.uuid4().hex[:6]}"
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=16)
-        for m in ("queries", "failoverRetries", "cost.docsScanned", "cost.bytesScanned"):
+        for m in ("queries", "failoverRetries", "cost.docsScanned", "cost.bytesScanned", "explain.queries"):
             self.metrics.meter(m)
         for t in ("cost.deviceMs", "cost.hostMs"):
             self.metrics.timer(t)
@@ -192,6 +200,8 @@ class BrokerRequestHandler:
                     if debug_options:
                         request.debug_options = dict(debug_options)
                     request = optimize_request(request)
+                if request.explain:
+                    self.metrics.meter("explain.queries").mark()
             except PqlParseError as e:
                 resp = BrokerResponse(exceptions=[QueryException(ErrorCode.PQL_PARSING, str(e))])
             self.metrics.timer("phase.parse").update((time.perf_counter() - t_parse) * 1000)
@@ -200,6 +210,8 @@ class BrokerRequestHandler:
                 resp = self.handle_request(
                     request, pql, timeout_ms=timeout_ms, request_id=request_id, trace_ctx=ctx
                 )
+                # the literal-erased shape digest rides every response
+                resp.plan_digest = plan_shape_digest(request)
         if trace:
             # the per-server span trees re-parented under the scatter
             # attempts that carried them, next to this broker's own tree
@@ -237,13 +249,6 @@ class BrokerRequestHandler:
             )
         timeout_ms = self.timeout_ms if timeout_ms is None else min(timeout_ms, self.timeout_ms)
         table = request.table_name
-        if request.explain is not None:
-            # no plan introspection yet: a typed refusal, and nothing is
-            # scattered to a server
-            return BrokerResponse(
-                exceptions=[QueryException(ErrorCode.QUERY_VALIDATION, EXPLAIN_ITEM)],
-                request_id=request_id,
-            )
         if request.join is not None:
             # a broker-planned distributed join: strategy choice and a
             # scatter-gather per phase
@@ -300,11 +305,21 @@ class BrokerRequestHandler:
         for p in parts:
             for code, msg in p.exceptions:
                 exceptions.append(QueryException(code, msg))
-        with ctx.span("reduce", parts=len(parts)):
-            resp = reduce_to_response(request, parts, exceptions)
+        # the plan nodes are collected BEFORE the reduce, which folds the
+        # parts in place: each server's node must survive it
+        plan_nodes = [n for p in parts for n in (p.plan_info or [])] if request.explain else []
+        if request.explain == "plan":
+            # EXPLAIN returns the plan INSTEAD of results: the servers
+            # executed nothing, there is nothing to reduce
+            resp = BrokerResponse(exceptions=exceptions)
+        else:
+            with ctx.span("reduce", parts=len(parts)):
+                resp = reduce_to_response(request, parts, exceptions)
         red_ms = (time.perf_counter() - t_red) * 1000
         self.metrics.timer("reduce").update(red_ms)
         resp.request_id = request_id
+        if request.explain:
+            resp.explain = self._assemble_explain(request, plan_nodes, resp)
         self.metrics.meter("cost.docsScanned").mark(int(resp.num_docs_scanned))
         self.metrics.meter("cost.bytesScanned").mark(int(resp.cost.get("bytesScanned", 0)))
         self.metrics.meter(f"table.{table}.docsScanned").mark(int(resp.num_docs_scanned))
@@ -339,6 +354,33 @@ class BrokerRequestHandler:
             min(self.retry_backoff_ms * (2 ** max(0, reissues - 1)), self.retry_backoff_cap_ms)
             / 1000.0
         )
+
+    def _assemble_explain(
+        self, request: BrokerRequest, nodes: List[Dict[str, Any]], resp: BrokerResponse
+    ) -> Dict[str, Any]:
+        """The broker's EXPLAIN tree: the servers' plan nodes under one roof,
+        with the tier counts and estimated bytes summed.  For ANALYZE the top
+        level carries the merged actuals (equal to ``BrokerResponse.cost``:
+        only merged replies' nodes reach here)."""
+        tier_counts: Dict[str, int] = {}
+        est_bytes = 0.0
+        for n in nodes:
+            for k, v in (n.get("tierCounts") or {}).items():
+                tier_counts[k] = tier_counts.get(k, 0) + int(v)
+            est_bytes += float((n.get("estimatedCost") or {}).get("bytesScanned", 0))
+        out: Dict[str, Any] = {
+            "mode": request.explain,
+            "planDigest": plan_shape_digest(request),
+            "summary": plan_shape_summary(request),
+            "numServers": len(nodes),
+            "tierCounts": tier_counts,
+            "estimatedCost": {"bytesScanned": int(est_bytes)},
+            "servers": nodes,
+        }
+        if request.explain == "analyze":
+            out["actualCost"] = {k: (round(v, 3) if isinstance(v, float) else v) for k, v in sorted(resp.cost.items())}
+            out["actualDocsScanned"] = resp.num_docs_scanned
+        return out
 
     def _scatter_gather(
         self,

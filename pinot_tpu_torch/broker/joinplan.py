@@ -37,8 +37,11 @@ fair-share scheduler under its own table.
 
 The strategy size estimator learns table totals from every merged
 response (``TableStatsRegistry``) and measured build sizes after each
-join.  EXPLAIN, of a join as of a scan, is refused by the broker before
-it gets here (``common/request.EXPLAIN_ITEM``).
+join.  EXPLAIN of a join answers the coordinator's plan node in an
+EXPLAIN shell (``_explain_shell``: no server node, nothing scattered):
+the strategy real execution would pick, the colocation verdict, the build
+side's estimate and the budgets; EXPLAIN ANALYZE executes and adds what
+ran (``actual``) and the response's cost.
 """
 from __future__ import annotations
 
@@ -48,6 +51,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.common.response import BrokerResponse, ErrorCode, QueryException
 from pinot_tpu_torch.engine import config
+from pinot_tpu_torch.engine.plandigest import plan_shape_digest, plan_shape_summary
 from pinot_tpu_torch.engine.join import (
     JoinValidationError,
     decode_side,
@@ -185,6 +189,14 @@ class JoinCoordinator:
         m = self.broker.metrics
         m.meter("join.queries").mark()
         colo = self._colocated_plan(left_phys, right_phys, spec)
+        est = self.stats.estimate(spec.right_table)
+
+        if request.explain == "plan":
+            node = self._plan_node(spec, colo, est, forced, executed=None)
+            resp = BrokerResponse()
+            resp.explain = self._explain_shell(request, "plan", node)
+            m.timer("join.planMs").update((time.perf_counter() - t0) * 1000)
+            return resp
 
         if forced == "colocated" and not colo["eligible"]:
             return BrokerResponse(
@@ -215,6 +227,13 @@ class JoinCoordinator:
             m.meter("join.heavyHitterSplits").mark(int(executed["heavyHitterSplits"]))
         if resp.exceptions:
             m.meter("join.failed").mark()
+        if request.explain == "analyze":
+            node = self._plan_node(spec, colo, est, forced, executed=executed)
+            resp.explain = self._explain_shell(request, "analyze", node)
+            resp.explain["actualCost"] = {
+                k: (round(v, 3) if isinstance(v, float) else v) for k, v in sorted(resp.cost.items())
+            }
+            resp.explain["actualDocsScanned"] = resp.num_docs_scanned
         m.timer("join.planMs").update((time.perf_counter() - t0) * 1000)
         return resp
 
@@ -308,6 +327,55 @@ class JoinCoordinator:
             est["rows"] <= self._budget_rows() and est["bytes"] <= self._budget_bytes()
         )
         return "broadcast" if within else "shuffle"
+
+    def _plan_node(self, spec, colo, est, forced, executed: Optional[Dict[str, Any]]) -> Dict[str, Any]:
+        """The join's EXPLAIN node: the strategy (what ran, else what was
+        forced, else colocated when eligible, else the size estimate's
+        pick), the colocation verdict, the build side's estimate, the
+        broadcast budget and the skew settings; with ``executed``, what
+        ran."""
+        if executed is not None:
+            strategy = executed["strategy"]
+        elif forced:
+            strategy = forced
+        elif colo["eligible"]:
+            strategy = "colocated"
+        else:
+            strategy = self._size_strategy(est) or "broadcast|shuffle (size probe at execution)"
+        node: Dict[str, Any] = {
+            "strategy": strategy,
+            "forced": bool(forced),
+            "on": f"{spec.left_key} = {spec.right_table}.{spec.right_key}",
+            "colocated": {"eligible": colo["eligible"], "reason": colo["reason"]},
+            "build": {
+                "table": spec.right_table,
+                "estRows": est["rows"] if est else None,
+                "estBytes": est["bytes"] if est else None,
+                "estSource": est["source"] if est else None,
+            },
+            "budget": {"broadcastRows": self._budget_rows(), "broadcastBytes": self._budget_bytes()},
+            "skew": {"splitEnabled": self._split_enabled(), "heavyFactor": self._heavy_factor()},
+        }
+        if executed is not None:
+            node["actual"] = {
+                k: executed[k]
+                for k in ("strategy", "buildRows", "probeRows", "broadcastBytes", "shuffleBytes",
+                          "heavyHitterSplits", "shuffleBytesPerServer", "owners")
+                if k in executed
+            }
+        return node
+
+    def _explain_shell(self, request, mode: str, node: Dict[str, Any]) -> Dict[str, Any]:
+        return {
+            "mode": mode,
+            "planDigest": plan_shape_digest(request),
+            "summary": plan_shape_summary(request),
+            "numServers": 0,
+            "tierCounts": {},
+            "estimatedCost": {"bytesScanned": int(node["build"].get("estBytes") or 0)},
+            "join": node,
+            "servers": [],
+        }
 
     # -- execution -----------------------------------------------------
     def _remaining_ms(self, deadline: float) -> float:
@@ -404,6 +472,7 @@ class JoinCoordinator:
             for p in bparts:
                 p.join_payload = None
             all_parts.extend(bparts)
+            executed["buildRows"] = build.n
             self.stats.observe_build(spec.right_table, build.n, build.nbytes())
             if strategy is None:
                 # the JUST-measured extract is exact and in hand: it
@@ -466,6 +535,7 @@ class JoinCoordinator:
                 for p in pparts:
                     p.join_payload = None
                 all_parts.extend(pparts)
+                executed["probeRows"] = probe.n
 
                 # -- phase 2: skew-aware exchange + owner execution -------
                 assignments, n_heavy = plan_shuffle_partitions(
@@ -476,6 +546,7 @@ class JoinCoordinator:
                     heavy_factor=self._heavy_factor(),
                 )
                 executed["heavyHitterSplits"] = n_heavy
+                executed["owners"] = len(owners)
                 eparts, per_server, shuffle_excs = self._dispatch_shuffle(
                     request, pql, left_phys, owners, assignments, build, probe,
                     deadline, request_id, ctx, sg_union,
@@ -483,6 +554,7 @@ class JoinCoordinator:
                 exceptions.extend(shuffle_excs)
                 all_parts.extend(eparts)
                 executed["shuffleBytes"] = sum(per_server.values())
+                executed["shuffleBytesPerServer"] = per_server
 
         for code, msg in [
             (c, m) for p in all_parts for c, m in p.exceptions
@@ -500,6 +572,10 @@ class JoinCoordinator:
         resp.partial_response = bool(sg_union["unserved"])
         resp.num_retries = sg_union["retries"]
         resp._server_traces = sg_union["server_traces"]
+        # the actuals off the merged cost (covers colocated, whose rows
+        # are known on the servers only)
+        executed.setdefault("buildRows", int(resp.cost.get("buildRows", 0)))
+        executed.setdefault("probeRows", int(resp.cost.get("probeRows", 0)))
         # per-table cost attribution, as the single-table path does
         self.broker.metrics.meter("cost.docsScanned").mark(int(resp.num_docs_scanned))
         self.broker.metrics.meter("cost.bytesScanned").mark(

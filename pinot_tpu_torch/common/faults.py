@@ -17,6 +17,8 @@ import time
 from dataclasses import dataclass
 from typing import Any, List, Optional
 
+import torch
+
 
 @dataclass
 class LaunchRecord:
@@ -35,8 +37,9 @@ class DeviceFaultInjector:
     - ``fail_next(n, retryable=True)`` — the next ``n`` launches raise a
       typed ``DeviceExecutionError`` (transient blip or hard fault).
     - ``alloc_fail_next(n)`` — the next ``n`` launches raise a RAW
-      RuntimeError in CUDA's out-of-memory wording, so the executor's
-      real ``classify_device_error`` path gives ``resource_exhausted``.
+      ``torch.cuda.OutOfMemoryError`` (what the caching allocator raises
+      on the card), so the executor's real ``classify_device_error``
+      path gives ``resource_exhausted``.
     - ``sticky_fail_next(n)`` — the next ``n`` launches raise a RAW
       RuntimeError in CUDA's illegal-memory-access wording: the
       ``sticky`` class, which takes the lane off the device for good.
@@ -109,7 +112,7 @@ class DeviceFaultInjector:
                 self.launches.append(LaunchRecord(digest, "alloc_fail"))
                 # a RAW error: the executor must exercise its real
                 # classification path (classify_device_error)
-                raise RuntimeError(
+                raise torch.cuda.OutOfMemoryError(
                     "injected: CUDA out of memory. Tried to allocate 2.00 GiB"
                 )
             if self._sticky_next > 0:

@@ -327,9 +327,8 @@ def try_bitsliced_path(
     bsiv_cols = sorted({c for (c, _) in sums})
     all_cols = sorted(set(bsi_cols) | set(bsiv_cols))
     # the planes are this tier's whole column layout: the base fwd / dict
-    # streams are not staged for it.  The reference pins the staged table
-    # in its residency manager for the launch; the port has no residency
-    # tier yet (ROADMAP item 22), so there is nothing to pin.
+    # streams are not staged for it.  The staged table is pinned for the
+    # launch, so no residency demotion takes it meanwhile
     t0 = time.perf_counter()
     with executor._stage_lock:
         staged = get_staged(
@@ -341,12 +340,17 @@ def try_bitsliced_path(
             skip_base_columns=all_cols,
             bsi_columns=bsi_cols,
             bsiv_columns=bsiv_cols,
+            residency=executor.residency,
+            pin=True,
         )
     executor._phase("staging", t0)
-    return _dispatch_bitsliced(
-        executor, request, live, total_docs, deadline, staged, spec, leaves, agg_descs,
-        planes_total, filter_planes, bsi_cols, bsiv_cols,
-    )
+    try:
+        return _dispatch_bitsliced(
+            executor, request, live, total_docs, deadline, staged, spec, leaves, agg_descs,
+            planes_total, filter_planes, bsi_cols, bsiv_cols,
+        )
+    finally:
+        executor.residency.unpin(staged.token)
 
 
 def _dispatch_bitsliced(

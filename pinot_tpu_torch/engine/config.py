@@ -78,6 +78,19 @@ SCAN_NS_PER_ROW = 0.35
 DISPATCH_FLOOR_NS = 200_000.0
 BSI_NS_PER_ROW_PER_PLANE = 0.011
 BSI_MAX_PLANES = 24
+# residency (engine/residency.py): the victim score's reload cost a byte
+# and the heat's halflife, the reference's (pinot_tpu/engine/tiercost.py:
+# 39-45).  0.0625 ns a byte is the reference's "~16 GB/s effective H2D"
+# of a TPU host, kept so that the port demotes in the reference's order;
+# it is not the card's rate (PERF.md records the card's).
+H2D_NS_PER_BYTE = 0.0625
+RESIDENCY_HALFLIFE_S = 30.0
+# the residency caps' defaults (the reference's PINOT_TPU_HBM_CAP_BYTES,
+# PINOT_TPU_HOST_CAP_BYTES, PINOT_TPU_STAGE_CACHE_ENTRIES): no byte cap on
+# the card or the host, at most 32 staged tables hot
+HBM_CAP_BYTES = 0
+HOST_CAP_BYTES = 0
+STAGE_CACHE_ENTRIES = 32
 # the postings tier's process-wide byte budget (PINOT_TPU_INVINDEX_BUDGET_BYTES)
 # and a fixed match limit in place of the cost model's
 # (PINOT_TPU_INDEX_MAX_MATCHES; None: the cost model's)

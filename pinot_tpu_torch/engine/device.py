@@ -31,11 +31,22 @@ on the host by ``packing.bitslice_encode``.  They are int32 on the card
 where the reference stages uint32: torch shifts only signed words (no
 ``>>`` for uint32), and the bits are the same.  Like every other role they
 can be attached to a table already staged (``get_staged``).
+
+RESIDENCY (``engine/residency.py``): the staging cache belongs to one
+``QueryExecutor`` with its ``StagingLedger`` (the live staged tensors'
+bytes by table, column and role: not ``torch.cuda.memory_reserved()``,
+whose freed blocks are not the tables') and its ``TransferStats`` (the
+bytes staging, promotion and demotion moved).  Given the executor's
+``ResidencyManager``, ``get_staged`` promotes a demoted table from its
+host snapshot on a miss (a new token, no re-encode), registers every
+insert, and lets the manager demote the coldest unpinned tables past the
+caps.
 """
 from __future__ import annotations
 
 import itertools
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, MutableMapping, Optional, Sequence, Tuple
@@ -396,6 +407,11 @@ def attach_bsi(
     return attached
 
 
+def _table_of(segments: Sequence[ImmutableSegment]) -> str:
+    meta = getattr(segments[0], "metadata", None) if segments else None
+    return getattr(meta, "table_name", "") or ""
+
+
 def get_staged(
     cache: MutableMapping[Tuple, StagedTable],
     segments: Sequence[ImmutableSegment],
@@ -409,12 +425,24 @@ def get_staged(
     hll_columns: Sequence[str] = (),
     bsi_columns: Sequence[str] = (),
     bsiv_columns: Sequence[str] = (),
+    residency=None,
+    pin: bool = False,
 ) -> StagedTable:
-    """Staging cached in the caller's ``cache`` by segment set, column
-    set, role sets, device and precision: segments are immutable, so a
-    staged table is reusable for every later query that needs it.  The
-    bit-sliced planes (``bsi_columns`` / ``bsiv_columns``) are not part of
-    the key: a cached table that lacks them gets them attached."""
+    """Staging cached in the caller's ``cache`` by segment set ((name, crc,
+    staging token) each: a re-loaded copy of a segment is a new key),
+    column set, role sets, device and precision: segments are immutable,
+    so a staged table is reusable for every later query that needs it.
+    The bit-sliced planes (``bsi_columns`` / ``bsiv_columns``) are not
+    part of the key: a cached table that lacks them gets them attached.
+
+    ``residency`` (the executor's ``ResidencyManager``, whose cache
+    ``cache`` is; the caller holds its guard): a miss first promotes the
+    key's warm or cold snapshot, with one host-to-device copy an array and
+    a new token; every insert is registered with the ledger and the
+    manager, which then demotes the coldest unpinned tables past its caps
+    (never this one).  ``pin=True`` refcounts the returned table's token
+    so no demotion takes it while the caller uses it: the caller MUST
+    ``residency.unpin(st.token)`` when done."""
     key = (
         tuple((s.segment_name, s.metadata.crc, s.staging_token) for s in segments),
         tuple(sorted(column_names)),
@@ -427,23 +455,190 @@ def get_staged(
     )
     st = cache.get(key)
     if st is None:
-        st = stage_segments(
-            segments,
-            sorted(column_names),
-            device,
-            precision,
-            raw_columns=raw_columns,
-            gfwd_columns=gfwd_columns,
-            ctx=ctx,
-            skip_base_columns=skip_base_columns,
-            hll_columns=hll_columns,
-            bsi_columns=bsi_columns,
-            bsiv_columns=bsiv_columns,
-        )
+        snap = residency.take_resident(key) if residency is not None else None
+        promoted = snap is not None
+        if promoted:
+            st = residency.restore(snap)
+            # planes the snapshot was demoted without
+            attach_bsi(st, segments, bsi_columns, bsiv_columns)
+        else:
+            st = stage_segments(
+                segments,
+                sorted(column_names),
+                device,
+                precision,
+                raw_columns=raw_columns,
+                gfwd_columns=gfwd_columns,
+                ctx=ctx,
+                skip_base_columns=skip_base_columns,
+                hll_columns=hll_columns,
+                bsi_columns=bsi_columns,
+                bsiv_columns=bsiv_columns,
+            )
         cache[key] = st
-    elif bsi_columns or bsiv_columns:
-        attach_bsi(st, segments, bsi_columns, bsiv_columns)
+        if residency is not None:
+            residency.register(key, st, _table_of(segments), promoted)
+    else:
+        attached = attach_bsi(st, segments, bsi_columns, bsiv_columns) if bsi_columns or bsiv_columns else 0
+        if residency is not None:
+            residency.touch(key)
+            if attached:
+                residency.remeasure(key, st, attached)
+    if pin and residency is not None:
+        # under the guard: no demotion runs between staging and the pin
+        residency.pin(st.token)
     return st
+
+
+# ---------------------------------------------------------------------------
+# The staging ledger and the transfer accounting (pinot_tpu/engine/
+# device.py:377-590): what the staging cache holds on the device, measured
+# off the live tensors, and what moved between the host and the device.
+# ---------------------------------------------------------------------------
+
+# StagedColumn tensor attributes -> ledger role names; the residency
+# snapshot walks the same list
+_ROLE_ATTRS = (
+    ("fwd", "fwd"),
+    ("mv", "mv"),
+    ("mv_counts", "mvCounts"),
+    ("dict_vals", "dict"),
+    ("raw", "raw"),
+    ("gfwd", "gfwd"),
+    ("hll_bucket", "hll"),
+    ("hll_rho", "hll"),
+    ("mv_raw", "mvRaw"),
+    ("bsi", "bsi"),
+    ("bsiv", "bsi"),
+)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return int(t.numel() * t.element_size())
+
+
+def _measure_staged(staged: StagedTable) -> Tuple[int, Dict[str, int], Dict[str, int]]:
+    """(total bytes, bytes a column, bytes a role) of a staged table's
+    tensors: the total equals ``StagedTable.nbytes()``."""
+    total = _nbytes(staged.num_docs_arr)
+    by_role: Dict[str, int] = {"meta": total}
+    by_column: Dict[str, int] = {}
+    for name, sc in staged.columns.items():
+        col_bytes = 0
+        for attr, role in _ROLE_ATTRS:
+            t = getattr(sc, attr)
+            if t is None:
+                continue
+            n = _nbytes(t)
+            col_bytes += n
+            by_role[role] = by_role.get(role, 0) + n
+        by_column[name] = col_bytes
+        total += col_bytes
+    return total, by_column, by_role
+
+
+class StagingLedger:
+    """Ledger of the device-resident staged tables of one executor: byte
+    totals, breakdowns by table, column and role, a high watermark and the
+    evictions.  Entries key on the table's process-unique ``token`` and
+    are re-measured when planes attach, so the totals stay byte-exact."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._entries: Dict[int, Dict] = {}  # token -> entry
+        self.high_watermark = 0
+        self.evictions = 0
+        self.evicted_bytes = 0
+
+    def update(self, staged: StagedTable, table: str) -> int:
+        total, by_column, by_role = _measure_staged(staged)
+        with self._lock:
+            self._entries[staged.token] = {
+                "table": table,
+                "segments": list(staged.segment_names),
+                "bytes": total,
+                "columns": by_column,
+                "roles": by_role,
+                "device": str(staged.device),
+            }
+            now = sum(e["bytes"] for e in self._entries.values())
+            self.high_watermark = max(self.high_watermark, now)
+        return total
+
+    def drop(self, staged: StagedTable) -> None:
+        with self._lock:
+            entry = self._entries.pop(staged.token, None)
+            if entry is not None:
+                self.evictions += 1
+                self.evicted_bytes += entry["bytes"]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
+
+    def total_bytes(self) -> int:
+        with self._lock:
+            return sum(e["bytes"] for e in self._entries.values())
+
+    def table_count(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """JSON-safe view (server ``status()["hbm"]``, EXPLAIN's staged
+        record)."""
+        with self._lock:
+            by_table: Dict[str, int] = {}
+            by_role: Dict[str, int] = {}
+            entries = []
+            for e in self._entries.values():
+                by_table[e["table"]] = by_table.get(e["table"], 0) + e["bytes"]
+                for role, n in e["roles"].items():
+                    by_role[role] = by_role.get(role, 0) + n
+                entries.append({"table": e["table"], "segments": list(e["segments"]), "bytes": e["bytes"],
+                                "columns": dict(e["columns"]), "device": e["device"]})
+            return {
+                "stagedBytes": sum(e["bytes"] for e in self._entries.values()),
+                "highWatermarkBytes": self.high_watermark,
+                "stagedTables": len(self._entries),
+                "evictions": self.evictions,
+                "evictedBytes": self.evicted_bytes,
+                "byTable": by_table,
+                "byRole": by_role,
+                "entries": entries,
+            }
+
+
+class TransferStats:
+    """Cumulative host <-> device transfer accounting of one executor's
+    staging: host-to-device marks from staging, plane attachment and
+    promotion, device-to-host marks from demotion.  (The reference also
+    counts the query inputs and the packed fetch; the port's serving
+    path does not mark them.)"""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.h2d_bytes = 0
+        self.h2d_transfers = 0
+        self.d2h_bytes = 0
+        self.d2h_transfers = 0
+
+    def record_h2d(self, nbytes: int) -> None:
+        if nbytes > 0:
+            with self._lock:
+                self.h2d_bytes += int(nbytes)
+                self.h2d_transfers += 1
+
+    def record_d2h(self, nbytes: int) -> None:
+        if nbytes > 0:
+            with self._lock:
+                self.d2h_bytes += int(nbytes)
+                self.d2h_transfers += 1
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return {"h2dBytes": self.h2d_bytes, "h2dTransfers": self.h2d_transfers,
+                    "d2hBytes": self.d2h_bytes, "d2hTransfers": self.d2h_transfers}
 
 
 def _leaves(tree, out):

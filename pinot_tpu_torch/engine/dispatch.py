@@ -82,9 +82,20 @@ hits, sheds, device failures, restarts, stale completions, and the
 batching tier's ``batchLaunches`` / ``batchedQueries`` (occupancy =
 batchedQueries / batchLaunches) and how its windows closed.
 
-Left out of the port, for later slices: the compile cache, the
-cost-analysis thread, ``OccupancySampler`` and multi-lane meshes
-(``LaneGroup`` holds one lane).
+COMPILE TIMELINE (``compile_info``): per device-plan digest, the first
+successful launch's wall ms (``firstCallMs``, ``firstAt``), the launch
+count and their summed ms.  The card compiles nothing at a first launch
+(the kernels are built once, when the executor is made), so here
+``firstCallMs`` measures what a digest's first launch pays on the card:
+the extension's first call at that shape and the caching allocator's
+first blocks.  EXPLAIN reads it for its cold / warm verdict; the
+``compile.cold`` / ``compile.warm`` meters and the
+``compile.firstCallMs`` timer count the same launches.
+
+Left out of the port, for later slices: the compile cache (so no digest
+is ever "persistent"), the cost-analysis thread (no ``costAnalysis``),
+``OccupancySampler`` and multi-lane meshes (``LaneGroup`` holds one
+lane).
 """
 from __future__ import annotations
 
@@ -93,7 +104,7 @@ import hashlib
 import threading
 import time
 import weakref
-from collections import deque
+from collections import deque, namedtuple
 from typing import Any, Callable, Deque, Dict, Hashable, Iterable, List, Optional, Union
 
 import torch
@@ -454,13 +465,18 @@ class DeviceLane:
         self.batched_queries = 0
         self.batch_window_full = 0
         self.batch_window_timeout = 0
+        # the compile timeline (module docstring): digest -> {firstCallMs,
+        # firstAt, launches, launchMsTotal}
+        self._compile: Dict[str, Dict[str, float]] = {}
         if metrics is not None:
             # pre-register the lane series so /metrics shows them at zero
             for name in ("lane.dispatches", "lane.coalesced", "lane.shed",
                          "lane.deviceFailures", "lane.restarts", "batch.launches",
                          "batch.queries", "batch.windowClosedFull",
-                         "batch.windowClosedTimeout", "batch.windowClosedIdle"):
+                         "batch.windowClosedTimeout", "batch.windowClosedIdle",
+                         "compile.cold", "compile.warm"):
                 metrics.meter(name)
+            metrics.timer("compile.firstCallMs")
             metrics.gauge("lane.depth").set(0)
             metrics.gauge("lane.open").set(0)
             metrics.gauge("lane.inflight").set(0)
@@ -543,7 +559,18 @@ class DeviceLane:
             "batchedQueries": self.batched_queries,
             "batchWindowFull": self.batch_window_full,
             "batchWindowTimeout": self.batch_window_timeout,
+            "compiledPlans": len(self._compile),
         }
+
+    def compile_info(self, digest: Optional[str]) -> Optional[Dict[str, float]]:
+        """The compile-timeline entry of a device-plan digest: None when
+        it never launched here, else {firstCallMs, firstAt, launches,
+        launchMsTotal}."""
+        if digest is None:
+            return None
+        with self._cv:
+            entry = self._compile.get(digest)
+            return dict(entry) if entry is not None else None
 
     def mark_dead(self, error: DeviceExecutionError) -> None:
         """Take the lane off the device after a sticky CUDA fault (found
@@ -642,9 +669,11 @@ class DeviceLane:
                 if infl is None:
                     self._cv.wait(timeout=idle_poll)
                 elif now - infl[1] <= self.stall_timeout_s:
-                    self._cv.wait(
-                        timeout=infl[1] + self.stall_timeout_s - now + 0.005
-                    )
+                    wait_s = infl[1] + self.stall_timeout_s - now + 0.005
+                    # asleep, never hold the launch (its closures keep the
+                    # staged tensors of a table that may be demoted meanwhile)
+                    infl = None
+                    self._cv.wait(timeout=wait_s)
                 else:
                     # a batched launch wedges as a unit: every member's
                     # waiters get the stall verdict
@@ -764,6 +793,10 @@ class DeviceLane:
 
     def _run(self, gen: int) -> None:
         while True:
+            # drop the last launch's references before waiting for the next:
+            # the thread's frame would keep the dispatch, its closures and
+            # the staged tensors they hold alive (a demoted table's memory)
+            d = m = members = live = dead = value = values = deliveries = mvalue = waiters = w = error = None
             with self._cv:
                 if gen != self._generation:
                     return  # restarted away while we held no work
@@ -883,6 +916,25 @@ class DeviceLane:
                 fault = isinstance(error, DeviceExecutionError)
                 if fault:
                     self.device_failure_count += 1
+                cold = False
+                if error is None and d.plan_digest is not None:
+                    entry = self._compile.get(d.plan_digest)
+                    if entry is None:
+                        cold = True
+                        if len(self._compile) > 4096:
+                            # bounded: evict the OLDEST entry only, so every
+                            # other digest keeps its measured first call
+                            victim = min(self._compile, key=lambda k: self._compile[k]["firstAt"])
+                            self._compile.pop(victim, None)
+                        self._compile[d.plan_digest] = {
+                            "firstCallMs": round(launch_ms, 3),
+                            "firstAt": round(time.time(), 3),
+                            "launches": 1,
+                            "launchMsTotal": round(launch_ms, 3),
+                        }
+                    else:
+                        entry["launches"] += 1
+                        entry["launchMsTotal"] = round(entry["launchMsTotal"] + launch_ms, 3)
                 if batched:
                     self.batch_launches += 1
                     self.batched_queries += len(members)
@@ -914,11 +966,22 @@ class DeviceLane:
                     self.metrics.meter({"full": "batch.windowClosedFull",
                                         "timeout": "batch.windowClosedTimeout"}
                                        .get(window_close, "batch.windowClosedIdle")).mark()
+                if error is None and d.plan_digest is not None:
+                    if cold:
+                        self.metrics.meter("compile.cold").mark()
+                        self.metrics.timer("compile.firstCallMs").update(launch_ms)
+                    else:
+                        self.metrics.meter("compile.warm").mark()
                 self.metrics.timer("phase.laneDispatch").update(launch_ms)
             for mvalue, waiters in deliveries:
                 for w in waiters:
                     w.batch_size = len(members)
                     w._deliver(value=mvalue, error=error)
+
+
+# the lane a query's shape executes on (the reference's LaneSelection,
+# less the chip group: one lane, one card)
+LaneSelection = namedtuple("LaneSelection", ["index", "lane"])
 
 
 class LaneGroup:
@@ -950,6 +1013,10 @@ class LaneGroup:
     @property
     def restart_count(self) -> int:
         return sum(l.restart_count for l in self.lanes)
+
+    def select(self, shape_key=None) -> LaneSelection:
+        """The lane for a query shape: the one lane."""
+        return LaneSelection(0, self.lanes[0])
 
     def stats(self) -> Dict[str, Any]:
         return self.lanes[0].stats()

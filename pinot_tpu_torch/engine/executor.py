@@ -65,20 +65,29 @@ stacked upload.  Such a dispatch uploads its own inputs inside its launch,
 on the lane's stream, so a member that rides a batch never uploads twice.
 A query that rode a batch counts ``batchHits`` in its cost.
 
-SELF-HEALING (the reference's ladder, around the launch and the fetch):
-a device fault (``dispatch.is_device_fault``: a typed
-``DeviceExecutionError`` from the lane's watchdog or the fault injector,
-a CUDA allocation failure, a sticky CUDA fault) is classified; a
-transient gets one more device attempt, a poison quarantines the (plan
-digest, segment set) and fails over to the host tier
-(``heal.hostFailovers``), a stall goes straight to the host, and a
-sticky fault takes the device off for good.  An OOM retries once with no
-demotion (residency, which would demote cold tables first, is a later
-slice) and then fails over, never poisoning the plan.  Everything else
-propagates: a failed kernel build, a wrapper's own launch error, or an
-error in staging, planning or finalize is the program's fault, never
-answered by the host tier.  On a CUDA device the constructor builds and
-loads both kernels, so a failed build raises there, not in a query.
+RESIDENCY (``engine/residency.py``): the staging cache is bounded by the
+executor's ``ResidencyManager`` (hot byte and entry caps: the coldest
+unpinned tables are demoted to host snapshots, spilled to disk past the
+host cap, and promoted back with a new token).  A query pins its staged
+table for its whole device section.  ``staged_bytes()`` is the ledger's
+count of the live staged tensors.
+
+SELF-HEALING (the reference's ladder, around the whole device section:
+staging, planning, the launch, the fetch and finalize): a device fault
+(``dispatch.is_device_fault``: a typed ``DeviceExecutionError`` from the
+lane's watchdog or the fault injector, a CUDA allocation failure, a
+sticky CUDA fault) is classified; a transient gets one more device
+attempt, a poison quarantines the (plan digest, segment set) and fails
+over to the host tier (``heal.hostFailovers``), a stall goes straight to
+the host, and a sticky fault takes the device off for good.  An
+allocation failure gets up to two more attempts, each after
+``ResidencyManager.demote_for_pressure`` frees the coldest unpinned
+tables (``heal.resourceExhausted``, tagged with the freed bytes), and
+never poisons the plan.  Everything else propagates: a failed kernel
+build, a wrapper's own launch error, or an error in planning or finalize
+is the program's fault, never answered by the host tier.  On a CUDA
+device the constructor builds and loads both kernels, so a failed build
+raises there, not in a query.
 """
 from __future__ import annotations
 
@@ -98,6 +107,8 @@ from pinot_tpu_torch.engine.config import Precision
 from pinot_tpu_torch.engine.context import TableContext, get_table_context
 from pinot_tpu_torch.engine.device import (
     StagedTable,
+    StagingLedger,
+    TransferStats,
     get_staged,
     segment_arrays,
     to_device_inputs,
@@ -143,6 +154,7 @@ from pinot_tpu_torch.engine.plan import (
     plan_forced_host,
 )
 from pinot_tpu_torch.engine.pruner import prune_segments
+from pinot_tpu_torch.engine.residency import ResidencyManager
 from pinot_tpu_torch.engine.results import (
     AggPartial,
     AvgPartial,
@@ -298,7 +310,11 @@ class QueryExecutor:
     ``PINOT_TPU_INVINDEX=0``).
     ``bitsliced``: False never takes the bit-sliced tier, "force" takes it
     wherever it is eligible, skipping the cost model (the reference's
-    ``PINOT_TPU_BITSLICED`` "0" / "force")."""
+    ``PINOT_TPU_BITSLICED`` "0" / "force").
+    ``hbm_cap_bytes`` / ``host_cap_bytes`` / ``stage_cache_entries`` /
+    ``residency_dir``: the residency manager's caps and cold spool (the
+    reference's ``PINOT_TPU_HBM_CAP_BYTES``, ``PINOT_TPU_HOST_CAP_BYTES``,
+    ``PINOT_TPU_STAGE_CACHE_ENTRIES``, ``PINOT_TPU_RESIDENCY_DIR``)."""
 
     _HEAL_COUNTERS = (
         "deviceFailures",
@@ -319,6 +335,10 @@ class QueryExecutor:
         zone_maps: bool = True,
         postings: bool = True,
         bitsliced: Union[bool, str] = True,
+        hbm_cap_bytes: int = config.HBM_CAP_BYTES,
+        host_cap_bytes: int = config.HOST_CAP_BYTES,
+        stage_cache_entries: int = config.STAGE_CACHE_ENTRIES,
+        residency_dir: Optional[str] = None,
     ) -> None:
         self.device = config.resolve_device(device)
         self.zone_maps = zone_maps
@@ -339,8 +359,16 @@ class QueryExecutor:
         self._staged: Dict[Tuple, StagedTable] = {}
         self._contexts: Dict[Tuple, TableContext] = {}
         # staging and the table contexts are shared by the scheduler's
-        # workers: one lock, so a table is staged once
-        self._stage_lock = threading.Lock()
+        # workers: one lock, so a table is staged once; re-entrant, as the
+        # residency manager takes it again to demote under a staging
+        self._stage_lock = threading.RLock()
+        self.ledger = StagingLedger()
+        self.transfers = TransferStats()
+        self.residency = ResidencyManager(
+            self._staged, self.ledger, self.transfers, self._stage_lock, self.device, self.precision,
+            hbm_cap_bytes=hbm_cap_bytes, host_cap_bytes=host_cap_bytes,
+            stage_cache_entries=stage_cache_entries, spool_dir=residency_dir,
+        )
         # consuming-segment name -> the (crc, staging token) of its newest
         # snapshot seen by a query (``_retire_superseded``)
         self._snapshots: Dict[str, Tuple[int, int]] = {}
@@ -353,30 +381,29 @@ class QueryExecutor:
         self._sticky: Optional[DeviceExecutionError] = None
 
     def staged_bytes(self) -> int:
-        """Bytes the staging cache holds on the device."""
-        with self._stage_lock:
-            return sum(st.nbytes() for st in self._staged.values())
+        """Bytes of the staged tables on the device (the ledger's count of
+        their live tensors)."""
+        return self.ledger.total_bytes()
 
     def staged_tables(self) -> int:
         """Segment sets the staging cache holds on the device."""
-        with self._stage_lock:
-            return len(self._staged)
+        return self.ledger.table_count()
 
     def free_staging(self) -> None:
-        """Drop every staged table (the caller frees the cached memory)."""
+        """Drop every staged table from every tier (the caller frees the
+        cached memory)."""
         with self._stage_lock:
-            self._staged.clear()
+            self.residency.reset()
             self._contexts.clear()
             self._snapshots.clear()
 
     def _drop_entries(self, stale) -> None:
-        """Drop the staged tables and contexts whose segment set
-        (``((name, crc, token), ...)``) ``stale`` accepts; the caller holds
-        ``_stage_lock``.  A query running over a dropped table keeps its
-        own reference to the tensors: they are freed when it lets go,
-        never under it."""
-        for key in [k for k in self._staged if stale(k[0])]:
-            del self._staged[key]
+        """Drop, from every residency tier, the staged tables whose segment
+        set (``((name, crc, token), ...)``) ``stale`` accepts, and the
+        contexts of such sets; the caller holds ``_stage_lock``.  A query
+        running over a dropped table keeps its own reference to the
+        tensors: they are freed when it lets go, never under it."""
+        self.residency.drop_where(stale)
         for key in [k for k in self._contexts if stale(k)]:
             del self._contexts[key]
 
@@ -384,12 +411,13 @@ class QueryExecutor:
         """A consuming segment's snapshot (``metadata.custom["realtime"]``)
         is a new segment at every watermark: the tables staged for its
         older snapshots would stay on the card until it ran out of memory.
-        When a query brings a newer snapshot of a name, the cached sets
-        that hold another snapshot of that name go, and so do the cached
-        sets of fewer segments that hold a snapshot (a consuming segment
-        was empty and pruned then, or not yet created).  The caller holds
-        ``_stage_lock``.  (A stand-in for the residency manager's
-        eviction, ROADMAP queue 1 item 22.)"""
+        When a query brings a newer snapshot of a name, the sets that hold
+        another snapshot of that name leave every residency tier, and so
+        do the sets of fewer segments that hold a snapshot (a consuming
+        segment was empty and pruned then, or not yet created).  The
+        caller holds ``_stage_lock``.  (The reference demotes such a set to
+        the warm tier, where it stays until its segment is dropped though
+        its token can never be staged again; the port drops it.)"""
         newer = {}
         for s in segments:
             if s.metadata.custom.get("realtime"):
@@ -410,11 +438,14 @@ class QueryExecutor:
         self._drop_entries(stale)
 
     def evict_segment(self, name: str) -> None:
-        """Drop every staged table and context that holds segment ``name``
-        (it was replaced, committed or dropped on the server)."""
+        """Drop every staged table (from every residency tier) and context
+        that holds segment ``name`` (it was replaced, committed or dropped
+        on the server)."""
         with self._stage_lock:
             self._snapshots.pop(name, None)
-            self._drop_entries(lambda idents: any(i[0] == name for i in idents))
+            self.residency.drop_segment(name)
+            for key in [k for k in self._contexts if any(i[0] == name for i in k)]:
+                del self._contexts[key]
 
     # -- self-healing bookkeeping --------------------------------------
     def _heal_mark(self, name: str, **tags) -> None:
@@ -430,6 +461,22 @@ class QueryExecutor:
             stats["poisonedPlans"] = sum(1 for _, exp in self._poisoned.values() if now < exp)
         stats["deviceOff"] = self._sticky is not None
         return stats
+
+    def poisoned_entry(self, key: Any) -> Optional[Dict[str, Any]]:
+        """The live quarantine record of a (plan digest, segment set) key,
+        or None: EXPLAIN reports the host tier a poisoned plan will
+        actually serve from."""
+        now = time.monotonic()
+        with self._heal_lock:
+            entry = self._poisoned.get(key)
+            if entry is None or now >= entry[1]:
+                return None
+            return {"reason": entry[0], "ttlRemainingS": round(entry[1] - now, 3)}
+
+    def lane_selection(self, request: BrokerRequest):
+        """The lane this query's shape executes on (``LaneGroup.select``),
+        or None without a lane group."""
+        return self.lanes.select(request) if self.lanes is not None else None
 
     def _is_poisoned(self, key: Any) -> bool:
         with self._heal_lock:
@@ -560,6 +607,31 @@ class QueryExecutor:
             self._heal_mark("hostFailovers", reason="deviceOff")
             return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
 
+        ref: Dict[str, Any] = {}
+        result = self._run_healing(
+            lambda: self._device_section(live, request, deadline, ctx, needed, sel_columns, total_docs, t0, ref),
+            ref,
+        )
+        if result is None:
+            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
+        return result
+
+    def _device_section(
+        self,
+        live: List[ImmutableSegment],
+        request: BrokerRequest,
+        deadline: Optional[float],
+        ctx: TableContext,
+        needed: set,
+        sel_columns: Optional[List[str]],
+        total_docs: int,
+        t0: float,
+        ref: Dict[str, Any],
+    ) -> IntermediateResult:
+        """Staging (pinned for the section), then ``_device_section_staged``:
+        one attempt of the healing ladder.  ``ref`` tells the ladder the
+        staged token (the OOM heal's demotion spares it), the poison key,
+        and ``host`` once the section has left the device path."""
         raw_cols, gfwd_cols, hll_cols = self._role_columns(request, live, ctx)
         skip_base = self._skip_base_columns(request, live, raw_cols, gfwd_cols, hll_cols)
         with self._stage_lock:
@@ -574,27 +646,48 @@ class QueryExecutor:
                 ctx=ctx,
                 skip_base_columns=skip_base,
                 hll_columns=hll_cols,
+                residency=self.residency,
+                pin=True,
             )
+        ref["token"] = staged.token
+        try:
+            return self._device_section_staged(live, request, deadline, ctx, needed, sel_columns, total_docs,
+                                               t0, ref, staged)
+        finally:
+            self.residency.unpin(staged.token)
+
+    def _device_section_staged(
+        self,
+        live: List[ImmutableSegment],
+        request: BrokerRequest,
+        deadline: Optional[float],
+        ctx: TableContext,
+        needed: set,
+        sel_columns: Optional[List[str]],
+        total_docs: int,
+        t0: float,
+        ref: Dict[str, Any],
+        staged: StagedTable,
+    ) -> IntermediateResult:
         t0 = self._phase("staging", t0)
         scratch: Dict[Any, Any] = {}
         plan = build_static_plan(request, ctx, staged, scratch=scratch)
         if not plan.on_device:
+            ref["host"] = True  # the host path from here: not a device fault
             return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
         pdigest = plan_digest(plan)
-        poison_key = (pdigest, staged.segment_names)
-        if self._is_poisoned(poison_key):
+        ref["key"] = (pdigest, staged.segment_names)
+        if self._is_poisoned(ref["key"]):
             self._heal_mark("poisonSkips")
+            ref["host"] = True
             return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
         q_np = build_query_inputs(request, plan, ctx, staged, scratch=scratch)
         seg = segment_arrays(staged, needed)
         scanned_rows = self._block_skip_ids(plan, q_np, live, staged)
         t0 = self._phase("planBuild", t0)
         cost: Dict[str, float] = {}
-        outs = self._run_healing(
-            lambda: self._run_kernel(plan, staged, seg, q_np, deadline, pdigest, cost), poison_key
-        )
-        if outs is None:
-            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
+        info: Dict[str, Any] = {}
+        outs = self._run_kernel(plan, staged, seg, q_np, deadline, pdigest, cost, info)
         t0 = time.perf_counter()
         for i, agg in enumerate(plan.aggs):
             if agg.sort_pairs:
@@ -602,6 +695,7 @@ class QueryExecutor:
                 if int(state[3]) > config.DISTINCT_PAIR_CAP:
                     # more unique pairs than the device buffer returns: the
                     # host finishes exactly
+                    ref["host"] = True
                     return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
         result = self._finalize(request, plan, ctx, staged, live, outs, total_docs, sel_columns)
         dev_bytes = sum(t.numel() * t.element_size() for t in seg.values())
@@ -621,6 +715,9 @@ class QueryExecutor:
                 dev_bytes += nbytes
             result.add_cost(segmentsZonemap=len(live))
         result.add_cost(bytesScanned=dev_bytes, deviceBytes=dev_bytes, **cost)
+        # how many same-shape queries this member's launch carried
+        # (EXPLAIN ANALYZE's batching actual)
+        result._batch_size = int(info.get("batchSize", 1) or 1)
         self._phase("finalize", t0)
         result._served_tier = "device"
         return result
@@ -639,28 +736,42 @@ class QueryExecutor:
             self._heal_mark("bitslicedFallbacks", error=str(e)[:200])
             return None
 
-    def _run_healing(self, run, poison_key: Tuple) -> Any:
-        """``run()`` (a device section: ``_run_kernel`` of a scan,
+    def _run_healing(self, run, ref: Dict[str, Any]) -> Any:
+        """``run()`` (a device section: ``_device_section`` of a scan,
         ``_join_device_section`` of a join) under the self-healing ladder:
         its value, or None when the query must fail over to the host tier.
-        Only device faults are caught; every other error propagates."""
+        ``ref`` carries what the section learned: ``key`` (the poison key),
+        ``token`` (its staged table: an OOM's demotion spares it) and
+        ``host`` (it had left the device path, so its error is not a
+        device fault).  Only device faults are caught; every other error
+        propagates.  Three attempts: a transient gets one retry, an
+        allocation failure two, each after demoting the coldest unpinned
+        tables (the reference's ladder, ``pinot_tpu/engine/executor.py``
+        ``_execute_engine``)."""
         last: Optional[DeviceExecutionError] = None
-        for attempt in (0, 1):
+        for attempt in (0, 1, 2):
             if attempt:
-                if not last.retryable:
+                if last is None or not last.retryable:
                     break  # poison / stall / sticky: a device retry would
                     # fail (or wedge the fresh lane) identically
                 if last.resource_exhausted:
-                    self._heal_mark("resourceExhausted")
+                    exclude = tuple(t for t in (ref.get("token"),) if t is not None)
+                    freed = self.residency.demote_for_pressure(exclude_tokens=exclude)
+                    self._heal_mark("resourceExhausted", freedBytes=freed)
+                elif attempt > 1:
+                    break  # a plain transient gets exactly one retry
                 self._heal_mark("deviceRetries")
             try:
                 return run()
             except (QueryAbandonedError, LaneClosedError, TimeoutError):
                 raise
             except Exception as e:
-                if not is_device_fault(e):
+                if ref.pop("host", False) or not is_device_fault(e):
                     raise
                 last = classify_device_error(e)
+                # the failed attempt's frames (a half-restored table, say)
+                # must not stay alive through the traceback while it retries
+                e.__traceback__ = None
                 self._heal_mark("deviceFailures", retryable=last.retryable, error=str(last)[:200])
                 if last.sticky:
                     self._sticky = last
@@ -669,8 +780,8 @@ class QueryExecutor:
                         self.lane.mark_dead(last)
         # device exhausted: quarantine the plan (an OOM never: the plan is
         # healthy, the card was full) and fail over to the host tier
-        if not last.resource_exhausted:
-            self._poison(poison_key, str(last))
+        if ref.get("key") is not None and not last.resource_exhausted:
+            self._poison(ref["key"], str(last))
         self._heal_mark("hostFailovers", reason=str(last)[:200])
         return None
 
@@ -683,6 +794,7 @@ class QueryExecutor:
         deadline: Optional[float],
         pdigest: str,
         cost: Dict[str, float],
+        info: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, Any]:
         """The table kernel's DISPATCH + the packed fetch (``_dispatch``);
         a batch-eligible dispatch (a full scan, not chunked) carries its
@@ -696,7 +808,7 @@ class QueryExecutor:
         return self._dispatch(
             (plan, staged.token),
             lambda q: kernel.dispatch(plan, staged, seg, q, block),
-            kernel.fetch, list(seg.values()), q_np, deadline, pdigest, cost, spec,
+            kernel.fetch, list(seg.values()), q_np, deadline, pdigest, cost, spec, info,
         )
 
     def _dispatch(
@@ -710,6 +822,7 @@ class QueryExecutor:
         pdigest: str,
         cost: Dict[str, float],
         spec: Optional[BatchSpec] = None,
+        info: Optional[Dict[str, Any]] = None,
     ) -> Dict[str, Any]:
         """DISPATCH + the packed fetch of one device program:
         ``dispatch(q)`` launches it over the device query inputs ``q`` and
@@ -756,6 +869,8 @@ class QueryExecutor:
                 # this query's literals rode a batched launch with
                 # batch_size - 1 same-key peers
                 cost["batchHits"] = cost.get("batchHits", 0) + 1
+            if info is not None:
+                info["batchSize"] = ticket.batch_size
             if isinstance(value, tuple):  # a member of a batched launch: its row of the batch
                 member_fetch, handle = value
                 outs = member_fetch(handle, deadline)
@@ -992,7 +1107,7 @@ class QueryExecutor:
             return self._host_join(request, build, probe, "hostFailover", t0)
         result = self._run_healing(
             lambda: self._join_device_section(request, plan, inputs, meta, build, probe, deadline, jdigest),
-            poison_key,
+            {"key": poison_key},
         )
         if result is None:
             return self._host_join(request, build, probe, "hostFailover", time.perf_counter())

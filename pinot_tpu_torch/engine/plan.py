@@ -335,6 +335,10 @@ def build_static_plan(
         return (op, tuple(encode(c) for c in node.children))
 
     tree = encode(request.filter) if request.filter is not None else None
+    # the recursive closure holds itself through its cell: dropping it
+    # breaks the cycle, which would keep ``staged`` (and its tensors on the
+    # card) alive after a demotion until the garbage collector ran
+    del encode
 
     on_device = True
     aggs: List[StaticAgg] = []

@@ -406,3 +406,10 @@ COST_KEYS = (
 # Serving-tier subset of COST_KEYS: all but segmentsPruned partition the
 # segments a query was served from.
 SEGMENT_TIER_KEYS = tuple(k for k in COST_KEYS if k.startswith("segments"))
+
+# cost-vector key -> the short tier name of EXPLAIN's segment records
+# ("segmentsFullScan" -> "fullScan"): the one mapping, so EXPLAIN's tier
+# counts line up key for key with the cost vector
+SEGMENT_TIER_NAMES = {
+    k: k[len("segments"):][0].lower() + k[len("segments"):][1:] for k in SEGMENT_TIER_KEYS
+}

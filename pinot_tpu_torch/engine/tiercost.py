@@ -1,5 +1,6 @@
 """Per-tier filter cost model: the crossover constants that pick between
-the four filter tiers (port of ``pinot_tpu.engine.tiercost``).
+the four filter tiers, and the residency manager's reload cost (port of
+``pinot_tpu.engine.tiercost``).
 
 The tiers (engine/invindex_path.py, engine/bitsliced.py, the zone-map
 blocks of engine/zonemap.py, the full scan of engine/kernel.py) each win a
@@ -38,3 +39,14 @@ def bitsliced_cost_ns(total_docs: int, planes: int) -> float:
 
 def bsi_max_planes() -> int:
     return int(config.BSI_MAX_PLANES)
+
+
+def h2d_cost_ns(nbytes: int) -> float:
+    """Cost of re-promoting ``nbytes`` from the host to the device: the
+    reload half of the residency heat score (engine/residency.py)."""
+    return nbytes * config.H2D_NS_PER_BYTE + config.DISPATCH_FLOOR_NS
+
+
+def residency_halflife_s() -> float:
+    """Heat-decay halflife for the residency victim choice."""
+    return float(config.RESIDENCY_HALFLIFE_S)

@@ -22,9 +22,14 @@ Watermarks default off (0 = unlimited) and come from the environment:
 ``PINOT_TPU_INGEST_HBM_HIGH_BYTES`` / ``..._LOW_BYTES`` (low defaults to
 80% of high) and ``PINOT_TPU_INGEST_MUTABLE_HIGH_BYTES`` /
 ``..._LOW_BYTES``; ``PINOT_TPU_INGEST_BATCH_ROWS`` bounds one fetch
-(default 4096).  Left out until the residency manager (ROADMAP queue 1
-item 22): the reference's third pool, residency pressure against an HBM
-cap, which it reads only when ``PINOT_TPU_HBM_CAP_BYTES`` is set.
+(default 4096).
+
+Residency pressure (the third pool): with an HBM cap set on the
+server's residency manager (``engine/residency.py``) the governor also
+watches its ``pressure()``, hot bytes as a fraction of the cap, pausing
+at ``PINOT_TPU_INGEST_RESIDENCY_HIGH_FRAC`` (default 0.95) and resuming
+below ``..._LOW_FRAC`` (default 0.8): a working set pushing the hot tier
+against its cap throttles new rows before allocation failures do.
 """
 from __future__ import annotations
 
@@ -61,6 +66,7 @@ class IngestBackpressure:
         poll_interval_s: float = 0.2,
         max_batch_rows: Optional[int] = None,
         event_capacity: int = 64,
+        residency=None,
     ) -> None:
         self.hbm_high = float(hbm_high_bytes if hbm_high_bytes is not None
                               else _env_bytes("PINOT_TPU_INGEST_HBM_HIGH_BYTES"))
@@ -72,6 +78,12 @@ class IngestBackpressure:
                                  else _env_bytes("PINOT_TPU_INGEST_MUTABLE_LOW_BYTES", 0.8 * self.mutable_high))
         self._hbm_bytes = hbm_bytes_fn or (lambda: 0.0)
         self._mutable_bytes = mutable_bytes_fn or (lambda: 0.0)
+        # the residency pool: fractions of the manager's HBM cap, inert
+        # (pressure reads 0.0) while no cap is set
+        self._residency = residency
+        self.residency_high_frac = _env_bytes("PINOT_TPU_INGEST_RESIDENCY_HIGH_FRAC", 0.95)
+        self.residency_low_frac = _env_bytes("PINOT_TPU_INGEST_RESIDENCY_LOW_FRAC",
+                                             0.8 if self.residency_high_frac > 0 else 0.0)
         # one decision a poll interval: the watermark reads (the staging
         # lock, the data-manager walk) stay off the per-batch path
         self.poll_interval_s = poll_interval_s
@@ -92,7 +104,13 @@ class IngestBackpressure:
 
     @property
     def enabled(self) -> bool:
-        return self.hbm_high > 0 or self.mutable_high > 0
+        return self.hbm_high > 0 or self.mutable_high > 0 or self._residency_enabled()
+
+    def _residency_enabled(self) -> bool:
+        """The residency pool is live only while the manager has an HBM
+        cap (read at each poll: an operator may set it at run time)."""
+        return (self._residency is not None and self.residency_high_frac > 0
+                and self._residency.hbm_cap_bytes > 0)
 
     @property
     def paused(self) -> bool:
@@ -115,12 +133,16 @@ class IngestBackpressure:
             self._last_poll = now
             hbm = self._read(self._hbm_bytes)
             mutable = self._read(self._mutable_bytes)
+            res_on = self._residency_enabled()
+            pressure = self._read(self._residency.pressure) if res_on else 0.0
             if not self._paused:
                 reason = None
                 if self.hbm_high > 0 and hbm >= self.hbm_high:
                     reason = f"hbm {int(hbm)}B >= high watermark {int(self.hbm_high)}B"
                 elif self.mutable_high > 0 and mutable >= self.mutable_high:
                     reason = f"mutable {int(mutable)}B >= high watermark {int(self.mutable_high)}B"
+                elif res_on and pressure >= self.residency_high_frac:
+                    reason = f"residency pressure {pressure:.2f} >= {self.residency_high_frac:.2f} of HBM cap"
                 if reason is not None:
                     self._paused = True
                     self._reason = reason
@@ -132,7 +154,8 @@ class IngestBackpressure:
             else:
                 hbm_ok = self.hbm_high <= 0 or hbm <= self.hbm_low
                 mutable_ok = self.mutable_high <= 0 or mutable <= self.mutable_low
-                if hbm_ok and mutable_ok:
+                residency_ok = not res_on or pressure <= self.residency_low_frac
+                if hbm_ok and mutable_ok and residency_ok:
                     self._paused = False
                     self._reason = ""
                     self._resumes += 1
@@ -172,6 +195,8 @@ class IngestBackpressure:
                     "hbmLowBytes": self.hbm_low,
                     "mutableHighBytes": self.mutable_high,
                     "mutableLowBytes": self.mutable_low,
+                    "residencyHighFrac": self.residency_high_frac,
+                    "residencyLowFrac": self.residency_low_frac,
                 },
                 "maxBatchRows": self.max_batch_rows,
                 "events": list(self._events),

@@ -23,15 +23,25 @@ the sealed ones: a query reads a consuming segment through its snapshot
 at the row watermark, staged and launched as any segment.  The
 instance's ingest governor (``ingest_backpressure``,
 ``realtime/backpressure.py``) watches the executor's staged bytes and
-the consuming segments' host bytes.  Replacing, committing or dropping a
-segment drops the executor's staged tables that hold it.
+the consuming segments' host bytes (and, with an HBM cap, the residency
+pressure).  Replacing, committing or dropping a segment drops the
+executor's staged tables that hold it from every residency tier.
 
-An EXPLAIN (a reference broker in a mixed fleet forwards it) is refused
-with QUERY_VALIDATION before any segment is touched.
+RESIDENCY (``engine/residency.py``): the executor's staging keeps the
+card within ``hbm_cap_bytes`` and ``stage_cache_entries``, demoting the
+coldest tables to host snapshots (spilled to disk past
+``host_cap_bytes``); ``residency.*`` gauges, ``status()["residency"]``
+and ``status()["hbm"]`` (the staging ledger) show the tiers.
 
-Left out of the port, for later slices: EXPLAIN itself, the result cache (of
-scans and joins), the roofline window, plan stats, the profiler and the occupancy
-sampler, residency, prewarm, the shadow auditor and schema evolution.
+EXPLAIN (``engine/explain.py``): ``EXPLAIN`` / ``EXPLAIN PLAN FOR``
+returns this server's plan node INSTEAD of executing (no lane submission,
+no cost, nothing staged; ``plan.explains``); ``EXPLAIN ANALYZE`` executes,
+then builds the node and annotates it with the reply's cost
+(``actualCost``, ``actualDocsScanned``, the batching actual).
+
+Left out of the port, for later slices: the result cache (of scans and
+joins), the roofline window, plan stats, the profiler and the occupancy
+sampler, prewarm, the shadow auditor and schema evolution.
 """
 from __future__ import annotations
 
@@ -43,12 +53,12 @@ from typing import List, Optional, Sequence, Union
 import torch
 
 from pinot_tpu_torch.common.datatable import deserialize_instance_request, serialize_result
-from pinot_tpu_torch.common.request import EXPLAIN_ITEM
 from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
 from pinot_tpu_torch.engine import join as join_mod
 from pinot_tpu_torch.engine.dispatch import LaneGroup
 from pinot_tpu_torch.engine.executor import QueryExecutor
+from pinot_tpu_torch.engine.explain import _json_safe, build_explain_node
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
 from pinot_tpu_torch.engine.results import SEGMENT_TIER_KEYS, IntermediateResult
 from pinot_tpu_torch.pql import optimize_request, parse_pql
@@ -82,7 +92,9 @@ class ServerInstance:
     ``device_fault_injector`` (``common/faults.py``) is consulted before
     every lane launch.
     ``postings`` / ``bitsliced``: the executor's filter-tier switches
-    (``QueryExecutor``)."""
+    (``QueryExecutor``).
+    ``hbm_cap_bytes`` / ``host_cap_bytes`` / ``stage_cache_entries`` /
+    ``residency_dir``: the executor's residency caps and cold spool."""
 
     # serving-tier cost-vector keys mirrored into cost.tier.* meters
     _TIER_KEYS = SEGMENT_TIER_KEYS
@@ -99,6 +111,10 @@ class ServerInstance:
         device_fault_injector=None,
         postings: bool = True,
         bitsliced: Union[bool, str] = True,
+        hbm_cap_bytes: int = config.HBM_CAP_BYTES,
+        host_cap_bytes: int = config.HOST_CAP_BYTES,
+        stage_cache_entries: int = config.STAGE_CACHE_ENTRIES,
+        residency_dir: Optional[str] = None,
     ) -> None:
         self.name = name
         self.device = config.resolve_device(device)
@@ -125,6 +141,10 @@ class ServerInstance:
             lanes=self.lanes,
             postings=postings,
             bitsliced=bitsliced,
+            hbm_cap_bytes=hbm_cap_bytes,
+            host_cap_bytes=host_cap_bytes,
+            stage_cache_entries=stage_cache_entries,
+            residency_dir=residency_dir,
         )
         self.scheduler = QueryScheduler(
             num_workers=num_workers, max_pending=max_pending, metrics=self.metrics
@@ -132,7 +152,8 @@ class ServerInstance:
         # pre-register the serving series (zero > absent on a scrape);
         # lane.* and heal.* register in their constructors
         for m in ("queries", "queriesShed", "queriesAbandoned", "segmentsMissedServing",
-                  "cost.docsScanned", "cost.bytesScanned", "crcFailures", "quarantinedSegments"):
+                  "cost.docsScanned", "cost.bytesScanned", "crcFailures", "quarantinedSegments",
+                  "plan.explains"):
             self.metrics.meter(m)
         for t in ("cost.deviceMs", "cost.hostMs"):
             self.metrics.timer(t)
@@ -142,12 +163,29 @@ class ServerInstance:
         for m in ("join.extracts", "join.execs", "join.buildRows",
                   "join.probeRows", "join.shuffleBytes", "join.broadcastBytes"):
             self.metrics.meter(m)
+        # the staging ledger and the residency tiers (the executor's own)
+        ledger, residency = self.executor.ledger, self.executor.residency
+        self.metrics.gauge("hbm.stagedBytes").set_fn(ledger.total_bytes)
+        self.metrics.gauge("hbm.highWatermarkBytes").set_fn(lambda: ledger.high_watermark)
+        self.metrics.gauge("hbm.stagedTables").set_fn(ledger.table_count)
+        self.metrics.gauge("hbm.evictedBytes").set_fn(lambda: ledger.evicted_bytes)
+        self.metrics.gauge("residency.hotBytes").set_fn(residency.hot_bytes)
+        self.metrics.gauge("residency.warmBytes").set_fn(residency.warm_bytes)
+        self.metrics.gauge("residency.coldBytes").set_fn(residency.cold_bytes)
+        self.metrics.gauge("residency.pressure").set_fn(residency.pressure)
+        for name in ("demotions", "promotions", "coldDemotions", "coldLoads", "pressureDemotions", "prefetches"):
+            self.metrics.gauge(f"residency.{name}").set_fn((lambda n: lambda: residency.counter(n))(name))
+        for tier in ("hot", "warm", "cold"):
+            self.metrics.gauge(f"residency.{tier}Tables").set_fn(
+                (lambda t: lambda: residency.snapshot()[f"{t}Tables"])(tier))
         # ingest backpressure, shared by every realtime consumer hosted
-        # here: its device pool is the executor's staging cache
+        # here: its device pool is the executor's staging ledger, and with
+        # an HBM cap its residency pool the manager's pressure
         self.ingest_backpressure = IngestBackpressure(
             metrics=self.metrics,
             hbm_bytes_fn=self.executor.staged_bytes,
             mutable_bytes_fn=lambda: instance_mutable_bytes(self),
+            residency=residency,
         )
 
     # -- segment lifecycle -------------------------------------------
@@ -244,8 +282,6 @@ class ServerInstance:
         request = parse_pql(req["pql"])
         request.debug_options = dict(req.get("debugOptions") or {})
         request = optimize_request(request)
-        if request.explain is not None:
-            return IntermediateResult(exceptions=[(ErrorCode.QUERY_VALIDATION, EXPLAIN_ITEM)])
         request.enable_trace = bool(req.get("trace"))
         # untraced requests share the NULL context: no span allocation
         if request.enable_trace:
@@ -308,15 +344,40 @@ class ServerInstance:
                     # a distributed-join phase over the local views, in the
                     # scheduler slot this request already holds
                     result = self._process_join(req, request, req["join"], views, deadline, trace)
+                elif request.explain == "plan":
+                    # EXPLAIN: the plan INSTEAD of execution, with no lane
+                    # submission, no cost and nothing staged
+                    with trace.span("explainPlan", segments=len(acquired)):
+                        node = build_explain_node(self.executor, views, request, req["table"], self.name)
+                    node["mode"] = "plan"
+                    self.metrics.meter("plan.explains").mark()
+                    result = IntermediateResult(total_docs=int(node.get("totalDocs") or 0), plan_info=[node])
                 else:
                     with trace.span("planAndExecute", segments=len(acquired)):
                         result = self.executor.execute(views, request, deadline=deadline)
+                    if request.explain == "analyze":
+                        result.plan_info = [self._analyze_node(views, request, req["table"], result)]
                 result.unserved_segments = missing
             finally:
                 tdm.release_segments(acquired)
         if trace.enabled:
             result.trace.update(trace.to_dict())
         return result
+
+    def _analyze_node(self, views, request, table: str, result: IntermediateResult) -> dict:
+        """EXPLAIN ANALYZE's node: the prediction built AFTER the execution
+        (so the quarantine and compile state say what just happened),
+        annotated with this reply's cost: the per-server actuals sum
+        exactly to the broker's merged cost."""
+        node = build_explain_node(self.executor, views, request, table, self.name)
+        node["mode"] = "analyze"
+        node["actualCost"] = _json_safe(dict(result.cost))
+        node["actualDocsScanned"] = int(result.num_docs_scanned)
+        dev_node = node.get("device")
+        if isinstance(dev_node, dict) and "batching" in dev_node:
+            # how many same-shape queries this execution's launch carried
+            dev_node["batching"]["actualBatchSize"] = int(getattr(result, "_batch_size", 1) or 1)
+        return node
 
     # -- distributed joins (engine/join.py + broker/joinplan.py) ------
     def _extract_bytes(self, views, columns) -> int:
@@ -464,6 +525,12 @@ class ServerInstance:
             "selfHealing": heal,
             "stagedBytes": self.executor.staged_bytes(),
             "stagedTables": self.executor.staged_tables(),
+            "hbm": self.executor.ledger.snapshot(),
+            # the caching allocator's bytes on the card, the staged tables'
+            # and everything else (0 on the CPU)
+            "memory": self._device_memory(),
+            "residency": self.executor.residency.snapshot(),
+            "transfers": self.executor.transfers.snapshot(),
             "ingest": self.ingest_backpressure.snapshot(),
             # the kernel wrappers' launch counts in this process (one-member
             # and batched launches apart)
@@ -472,6 +539,12 @@ class ServerInstance:
                                "k2Batched": value_state_counts.batched_launches},
             "metrics": self.metrics.snapshot(),
         }
+
+    def _device_memory(self) -> dict:
+        if self.device.type != "cuda":
+            return {"allocatedBytes": 0, "reservedBytes": 0}
+        return {"allocatedBytes": torch.cuda.memory_allocated(self.device),
+                "reservedBytes": torch.cuda.memory_reserved(self.device)}
 
     def metrics_text(self) -> str:
         """Prometheus exposition of this server's registry."""

@@ -15,7 +15,10 @@
   threshold runs the completion protocol against the controller over
   HTTP (the committer uploads its segment file);
 - it serves broker queries on a length-framed TCP socket, and
-  ``/health``, ``/metrics`` and ``/debug/metrics`` on its admin HTTP port.
+  ``/health``, ``/metrics``, ``/debug/metrics`` and ``/debug/residency``
+  on its admin HTTP port;
+- its residency caps come from the environment
+  (``starter.residency_options``).
 
 The heartbeat and message loops back off with full jitter while the
 controller is unreachable and keep serving from local state.  Left out,
@@ -56,7 +59,7 @@ from pinot_tpu_torch.segment.format import (
     write_segment,
 )
 from pinot_tpu_torch.server.instance import ServerInstance
-from pinot_tpu_torch.server.starter import quarantine_local_copy
+from pinot_tpu_torch.server.starter import quarantine_local_copy, residency_options
 from pinot_tpu_torch.transport.tcp import TcpServer
 from pinot_tpu_torch.utils.retry import FullJitterBackoff, tighten_liveness_budget
 
@@ -70,7 +73,9 @@ class ServerAdminHttpServer:
     ``/metrics``, the status and metrics JSON at ``/debug/metrics``, and
     ``/debug/samples?timer=<name>&last=<n>``, the last n samples of one
     timer (per-query phase medians for a client that sends one query shape
-    at a time).  The query data plane stays on the TCP socket."""
+    at a time), and ``/debug/residency``, the residency tiers (bytes and
+    tables a tier, the cap pressure, the demotion and promotion
+    counters).  The query data plane stays on the TCP socket."""
 
     def __init__(self, server: ServerInstance, host: str = "127.0.0.1", port: int = 0):
         inst = server
@@ -97,6 +102,8 @@ class ServerAdminHttpServer:
                     return self._send(inst.metrics_text().encode("utf-8"), "text/plain; version=0.0.4")
                 if url.path == "/debug/metrics":
                     return self._send_json(inst.status())
+                if url.path == "/debug/residency":
+                    return self._send_json(inst.executor.residency.snapshot())
                 if url.path == "/debug/samples":
                     qs = parse_qs(url.query)
                     name = (qs.get("timer") or [""])[0]
@@ -328,7 +335,7 @@ class NetworkedServerStarter:
     ) -> None:
         self.controller_url = controller_url.rstrip("/")
         self.name = name
-        self.server = ServerInstance(name, device=device, precision=precision)
+        self.server = ServerInstance(name, device=device, precision=precision, **residency_options())
         self.tcp = TcpServer(self.server.handle_request, host=host, port=port)
         self.admin = ServerAdminHttpServer(self.server, host=host, port=admin_port)
         self.data_dir = data_dir

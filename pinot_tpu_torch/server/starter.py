@@ -13,6 +13,11 @@ manager's ``consuming_starter`` (``realtime/llc.py``); the ONLINE
 transition that follows a commit takes the committed segment in memory
 (``info["segment"]``, built and CRC'd in this process).  OFFLINE and
 DROPPED unload.
+
+``residency_options`` reads the residency caps a server is started with
+from the reference's environment names (``PINOT_TPU_HBM_CAP_BYTES``,
+``PINOT_TPU_HOST_CAP_BYTES``, ``PINOT_TPU_STAGE_CACHE_ENTRIES``,
+``PINOT_TPU_RESIDENCY_DIR``), with ``engine/config.py``'s defaults.
 """
 from __future__ import annotations
 
@@ -31,6 +36,7 @@ from pinot_tpu_torch.controller.resource_manager import (
     InstanceState,
     Participant,
 )
+from pinot_tpu_torch.engine import config
 from pinot_tpu_torch.segment.fetcher import DEFAULT_FACTORY
 from pinot_tpu_torch.segment.format import (
     SEGMENT_FILE_NAME,
@@ -44,6 +50,28 @@ from pinot_tpu_torch.segment.invindex import warm_inverted_indexes
 from pinot_tpu_torch.server.instance import ServerInstance
 
 logger = logging.getLogger(__name__)
+
+
+def _int_env(name: str, default: int) -> int:
+    """An integer knob from the environment; unset or junk is the default."""
+    raw = os.environ.get(name)
+    if raw:
+        try:
+            return int(float(raw))
+        except ValueError:
+            pass
+    return default
+
+
+def residency_options() -> Dict[str, Any]:
+    """``ServerInstance`` keyword arguments for the residency caps, from
+    the environment (module docstring)."""
+    return {
+        "hbm_cap_bytes": _int_env("PINOT_TPU_HBM_CAP_BYTES", config.HBM_CAP_BYTES),
+        "host_cap_bytes": _int_env("PINOT_TPU_HOST_CAP_BYTES", config.HOST_CAP_BYTES),
+        "stage_cache_entries": _int_env("PINOT_TPU_STAGE_CACHE_ENTRIES", config.STAGE_CACHE_ENTRIES),
+        "residency_dir": os.environ.get("PINOT_TPU_RESIDENCY_DIR") or None,
+    }
 
 
 class ServerStarter:

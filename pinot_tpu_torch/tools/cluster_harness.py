@@ -30,7 +30,7 @@ from pinot_tpu_torch.controller.controller import Controller
 from pinot_tpu_torch.controller.resource_manager import InstanceState
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.server.instance import ServerInstance
-from pinot_tpu_torch.server.starter import ServerStarter
+from pinot_tpu_torch.server.starter import ServerStarter, residency_options
 from pinot_tpu_torch.transport.local import LocalTransport
 
 
@@ -79,7 +79,7 @@ class InProcessCluster:
     def add_server(self, name: Optional[str] = None) -> ServerInstance:
         """Join a new server into the running cluster."""
         name = name or f"server{len(self.servers)}"
-        server = ServerInstance(name, device=self.device, max_pending=self.max_pending)
+        server = ServerInstance(name, device=self.device, max_pending=self.max_pending, **residency_options())
         address = (server.name, 0)
         self.transport.register(address, server.handle_request)
         self.broker.set_server_address(server.name, address)

@@ -263,11 +263,17 @@ def test_a_poisoned_plan_is_served_by_the_host(healing):
 
 
 def test_an_allocation_failure_retries_once_and_never_poisons(healing):
+    # each allocation failure is retried once more on the device, after a
+    # demotion round: two in a row are healed too (the reference's three
+    # attempts), a third fails over
     ex, lane, inj = healing
     inj.alloc_fail_next(1)
     assert _run(ex)._served_tier == "device"
     assert _heal(ex)["resourceExhausted"] == 1 and _heal(ex)["deviceRetries"] == 1
     inj.alloc_fail_next(2)
+    assert _run(ex)._served_tier == "device"
+    assert _heal(ex)["resourceExhausted"] == 3 and _heal(ex)["deviceRetries"] == 3
+    inj.alloc_fail_next(3)
     res = _run(ex)
     assert res._served_tier == "host" and res.cost["segmentsHost"] > 0
     assert _heal(ex)["hostFailovers"] == 1 and _heal(ex)["poisonedPlans"] == 0

@@ -73,6 +73,18 @@ served = broker.handle_pql(Q1)
 assert not served.exceptions, served.exceptions
 assert served.aggregation_results[3].group_by_result == groups
 assert server.status()["lane"]["dispatches"] == 1
+# EXPLAIN over what the server holds, then a demotion and a promotion
+from pinot_tpu_torch.tools.explain_dump import render_explain
+
+plan = broker.handle_pql("EXPLAIN " + Q1)
+assert not plan.exceptions and plan.explain["servers"][0]["device"]["compile"]["state"] == "warm"
+assert render_explain(plan.to_json()).startswith("EXPLAIN ")
+tiers = server.executor.residency
+tiers.hbm_cap_bytes = 1
+assert tiers.enforce() > 0 and tiers.snapshot()["warmTables"] == 1
+tiers.hbm_cap_bytes = 0
+assert broker.handle_pql(Q1).aggregation_results[3].group_by_result == groups
+assert tiers.counter("promotions") == 1
 # a join through the same broker: SSB lineorder / date, every strategy
 from pinot_tpu_torch.tools.datagen import ssb_date_segment, ssb_lineorder_segment
 
