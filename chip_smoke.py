@@ -138,6 +138,27 @@ QueryExecutor.execute -> reduce_to_response on one card:
      (the card filled with filler tensors) healed by demotion on the
      card; EXPLAIN over the tiers and EXPLAIN ANALYZE with K1 / K2 held
      against their plain versions;
+ 16. the offline build path and schema evolution: 4 of phase 1's lineitem
+     segments written as CSV files (2^23 rows each, vectorized numpy), a
+     grown-schema CSV file (2^22 rows, three new columns with values) and
+     an Avro file (2^18 rows, deflate); ``BatchCreateSegments -workers 4``
+     builds the CSV files (the columnar path, the native parser) and
+     pushes them to a deployed cluster (phase 10's roles), each segment's
+     CRC equal to ``build_segment_from_columns`` over the file's source
+     arrays, with a file's parse / materialization / dictionary and
+     forward index / write seconds; q1, count(*) and distinct_price over
+     HTTP against their oracles; ``AddSchema`` of the grown schema
+     (l_newflag STRING, l_newtags INT_ARRAY, l_newmetric DOUBLE) and the
+     reload's wall until every server answers with the default columns
+     (no segment loaded again), five queries on them against their
+     oracles; two ``StartBuildWorker`` processes build and push the grown
+     file and the Avro file, the first killed while it builds and its
+     shard retried on the other; the mixed-age table against its
+     oracles, the servers' kernel launches moving for each query; then
+     the grown schema set on a server over shallow copies of phase 1's
+     16 segments: q1 by l_returnflag x l_newflag (K1's fused route with a
+     cardinality-1 group column) and distinctcount(l_newflag) (K2) against
+     their oracles and plain versions, the default column's staged bytes;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -158,14 +179,15 @@ its buffers.
 
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
-         | --realtime-only | --residency-only]
+         | --realtime-only | --residency-only | --build-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
 ``--joins-only`` runs the build, the kernel checks and phase 11 alone,
 ``--startree-only`` phase 12 alone, ``--tiers-only`` phase 13 alone (after
 lineitem's datagen), ``--realtime-only`` phase 14 alone,
-``--residency-only`` phase 15 alone (after lineitem's datagen).
+``--residency-only`` phase 15 alone and ``--build-only`` phase 16 alone
+(each after lineitem's datagen).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -175,6 +197,7 @@ from __future__ import annotations
 
 import argparse
 import atexit
+import bisect
 import concurrent.futures
 import gc
 import json
@@ -327,13 +350,13 @@ DEPLOY_REQUEST_S = 600.0  # one HTTP request
 # timed requests of zone_distinct, which the servers answer from postings
 # through the host tier's row-wise value states (seconds a request): a
 # median and a maximum of these few, no p99
-DEPLOY_FEW_ITERS = 2  # (5 before phase 15)
+DEPLOY_FEW_ITERS = 1  # (5 before phase 15, 2 before 16)
 
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
 ITERS = 20  # timed runs per median, after warm-up
-QUERY_ITERS = 10  # timed runs per whole-query median (ITERS before phase 15)
-MV_ITERS = 2  # timed runs per mvtest query median (mv_groupby takes seconds a run; 5 before phase 14, 3 before 15)
+QUERY_ITERS = 5  # timed runs per whole-query median (ITERS before phase 15, 10 before 16)
+MV_ITERS = 1  # timed runs per mvtest query (mv_groupby takes seconds a run; 5 before phase 14, 3 before 15, 2 before 16)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 SCALAR_OPS_PER_S = 67e12  # H100 SXM published float32 rate outside the tensor cores
@@ -341,8 +364,14 @@ AUDIT_RTOL, AUDIT_ATOL = 5e-4, 1e-3  # pinot_tpu/utils/audit.py:189-203, float32
 X64_RTOL, X64_ATOL = 1e-12, 1e-9
 
 
+LOG_TIMES: List[Tuple[float, str]] = []  # (seconds since import, a log line's head): --out's "log_times"
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    msg = " ".join(str(x) for x in a)
+    LOG_TIMES.append((round(time.perf_counter() - _T0, 1), msg[:120]))
+    print(msg, flush=True)
 
 
 def card_line() -> str:
@@ -1207,7 +1236,7 @@ BATCH_DATES = SERVE_DATES + ("1992-03-10", "1992-11-11", "1993-07-07", "1994-04-
 # l_quantity > t: the serving burst's eight (5, 10, ..., 40), then eight more
 QTY_LADDER = (5, 10, 15, 20, 25, 30, 35, 40, 2, 7, 12, 17, 22, 27, 32, 37)
 SHIP_MODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
-SERVE_BATCH_ROUNDS = 6  # rounds of each eight-literal burst per batching setting
+SERVE_BATCH_ROUNDS = 3  # rounds of each eight-literal burst per batching setting (6 before phase 16)
 _K1_BATCHED_ARGS = ("filter_fwd", "match", "num_docs", "value_fwds", "value_dicts", "capacity", "dtype",
                     "filter_bounds", "value_raws", "group_cols", "group_cards", "group_remaps")
 
@@ -1670,7 +1699,18 @@ def pair_oracle(hll_mod, segments, name: str) -> Tuple[Dict[Tuple[str, ...], Any
     if name in ("reach_exact", "reach_hll_site", "reach_overflow"):
         keys = []
         sites = 32 if name == "reach_overflow" else 8
+        # a tile shares its base segment's columns (tile_segments): its pairs
+        # are its base's, so each base is keyed once and its rows counted
+        # once a tile
+        tiles: Dict[Tuple[int, ...], int] = {}
+        bases = []
         for seg in segments:
+            ident = tuple(id(seg.column(c)) for c in ("campaign_id", "site_id", "user_id"))
+            if ident not in tiles:
+                bases.append(seg)
+            tiles[ident] = tiles.get(ident, 0) + 1
+        matched = 0
+        for seg in bases:
             camp, site, user = seg.column("campaign_id"), seg.column("site_id"), seg.column("user_id")
             svals = np.asarray(site.dictionary.values, dtype=np.int64)
             rows = (svals < sites)[site.fwd]
@@ -1681,18 +1721,18 @@ def pair_oracle(hll_mod, segments, name: str) -> Tuple[Dict[Tuple[str, ...], Any
                 bt, rt = hll_mod.dictionary_tables(user.dictionary)
                 group = c * 8 + svals[site.fwd[rows]]
                 keys.append((group * hll_mod.M + bt[user.fwd[rows]]) * 64 + rt[user.fwd[rows]])
-        keys = np.concatenate(keys)
-        uniq = np.unique(keys)
+            matched += keys[-1].size * tiles[tuple(id(seg.column(c_)) for c_ in ("campaign_id", "site_id", "user_id"))]
+        uniq = np.unique(np.concatenate(keys))
         if name != "reach_hll_site":
             counts = np.bincount(uniq >> 40)
-            return {(str(g),): int(c) for g, c in enumerate(counts) if c}, int(uniq.size), int(keys.size)
+            return {(str(g),): int(c) for g, c in enumerate(counts) if c}, int(uniq.size), matched
         regs = np.zeros(AD_CAMPAIGNS * 8 * hll_mod.M, dtype=np.uint8)
         np.maximum.at(regs, uniq >> 6, (uniq & 63).astype(np.uint8))
         present = np.zeros(AD_CAMPAIGNS * 8, dtype=bool)
         present[(uniq >> 6) // hll_mod.M] = True
         ests = hll_mod.estimate_from_registers(regs.reshape(-1, hll_mod.M))
         want = {(str(g // 8), str(g % 8)): int(ests[g]) for g in np.nonzero(present)[0]}
-        return want, int(uniq.size), int(keys.size)
+        return want, int(uniq.size), matched
     raise ValueError(name)
 
 
@@ -1767,26 +1807,44 @@ def check_top(ar, want: Dict[Tuple[str, ...], float], exact: bool, top_n: int = 
     return worst
 
 
-def host_groups_oracle(segments) -> Tuple[Dict[Tuple[str, ...], float], Dict[Tuple[str, ...], float]]:
+def host_groups_oracle(segments):
     """(sum of l_extendedprice, count) per (l_shipdate, l_receiptdate) over
-    the rows with l_quantity > 45, in float64 from the host segments."""
-    sums: Dict[Tuple[str, ...], float] = {}
-    counts: Dict[Tuple[str, ...], float] = {}
+    the rows with l_quantity > 45, in float64 from the host segments: two
+    arrays over the key space of the sorted unions of the two dictionaries
+    (key k is (ship[k // len(receipt)], receipt[k % len(receipt)]), so key
+    order is label order), summed segment by segment, and the two label
+    lists."""
+    ship = sorted(set().union(*(seg.column("l_shipdate").dictionary.values for seg in segments)))
+    receipt = sorted(set().union(*(seg.column("l_receiptdate").dictionary.values for seg in segments)))
+    n = len(ship) * len(receipt)
+    sums, counts = np.zeros(n), np.zeros(n)
     for seg in segments:
         q, p = seg.column("l_quantity"), seg.column("l_extendedprice")
         rows = (np.asarray(q.dictionary.values, dtype=np.float64) > 45)[q.fwd]
-        sd, sdl = _labels(seg, "l_shipdate")
-        rd, rdl = _labels(seg, "l_receiptdate")
-        keys = sd[rows].astype(np.int64) * len(rdl) + rd[rows]
-        n = len(sdl) * len(rdl)
-        cnt = np.bincount(keys, minlength=n)
-        tot = np.bincount(keys, weights=np.asarray(p.dictionary.values, dtype=np.float64)[p.fwd[rows]],
-                          minlength=n)
-        for k in np.nonzero(cnt)[0]:
-            label = (sdl[k // len(rdl)], rdl[k % len(rdl)])
-            sums[label] = sums.get(label, 0.0) + float(tot[k])
-            counts[label] = counts.get(label, 0.0) + float(cnt[k])
-    return sums, counts
+        sd, rd = seg.column("l_shipdate"), seg.column("l_receiptdate")
+        sd_ids = np.searchsorted(np.asarray(ship), np.asarray(sd.dictionary.values))[sd.fwd[rows]]
+        rd_ids = np.searchsorted(np.asarray(receipt), np.asarray(rd.dictionary.values))[rd.fwd[rows]]
+        keys = sd_ids.astype(np.int64) * len(receipt) + rd_ids
+        counts += np.bincount(keys, minlength=n)
+        sums += np.bincount(keys, weights=np.asarray(p.dictionary.values, dtype=np.float64)[p.fwd[rows]],
+                            minlength=n)
+    return sums, counts, ship, receipt
+
+
+def host_groups_want(ar, values, counts, ship, receipt, top_n: int = 10) -> Dict[Tuple[str, ...], float]:
+    """The part of ``host_groups_oracle``'s answer that ``check_top`` reads:
+    the top_n groups in the broker's order (value descending, then key) and
+    every group ``ar`` returned, so ``check_top`` over it checks what it
+    would over all of the groups."""
+    present = np.nonzero(counts)[0]
+    top = present[np.lexsort((present, -values[present]))][:top_n]
+    want = {(ship[k // len(receipt)], receipt[k % len(receipt)]): float(values[k]) for k in top.tolist()}
+    for g in ar.group_by_result:
+        a, b = g.group
+        i, j = bisect.bisect_left(ship, a), bisect.bisect_left(receipt, b)
+        if i < len(ship) and ship[i] == a and j < len(receipt) and receipt[j] == b and counts[i * len(receipt) + j]:
+            want[(a, b)] = float(values[i * len(receipt) + j])
+    return want
 
 
 def _mv_entries(column) -> Tuple[np.ndarray, np.ndarray]:
@@ -1865,34 +1923,38 @@ def mv_oracle(hll_mod, distinct, copies: int, name: str, values: Dict[str, Any])
             add("count_star", (), float(rows.sum()) * copies)
             mx = float(np.asarray(met.dictionary.values)[met.fwd[rows]].max())
             out["max_metInt"] = {(): max(out.get("max_metInt", {}).get((), -math.inf), mx)}
-        elif name == "mv_groupby":
-            c = seg.column("dimStrMV")
-            rows_e, ids = _mv_entries(c)
-            g, labels = _labels(seg, "dimStr")
-            mlabels = list(c.dictionary.values)
-            keys = ids.astype(np.int64) * len(labels) + g[rows_e]
-            met = np.asarray(seg.column("metFloat").dictionary.values, dtype=np.float64)[
-                seg.column("metFloat").fwd]
-            cnt = np.bincount(keys, minlength=len(mlabels) * len(labels))
-            tot = np.bincount(keys, weights=met[rows_e], minlength=len(mlabels) * len(labels))
-            for k in np.nonzero(cnt)[0]:
-                key = (mlabels[k // len(labels)], labels[k % len(labels)])
-                add("sum_metFloat", key, float(tot[k]) * copies)
-                add("count_star", key, float(cnt[k]) * copies)
-        elif name == "mv_grouped_state":
-            c = seg.column("dimIntMV")
-            rows_e, ids = _mv_entries(c)
-            g, labels = _labels(seg, "dimStr")
-            vals = np.asarray(c.dictionary.values, dtype=np.int64)
-            pairs = np.unique(g[rows_e].astype(np.int64) * (1 << 32) + vals[ids])
-            sets = out.setdefault("_sets", {})
-            for k, v in zip((pairs >> 32).tolist(), (pairs & 0xFFFFFFFF).tolist()):
-                sets.setdefault((labels[k],), set()).add(v)
+        elif name in ("mv_groupby", "mv_grouped_state"):
+            break  # over the global key space below
         else:
             raise ValueError(name)
-    if name == "mv_grouped_state":
-        return {"distinctcountmv_dimIntMV": {k: len(v) for k, v in out.pop("_sets").items()}}
-    return out
+    if name not in ("mv_groupby", "mv_grouped_state"):
+        return out
+    # the group labels as ids into the sorted unions of the segments'
+    # dictionaries (key order is label order), summed segment by segment
+    mv_col = "dimStrMV" if name == "mv_groupby" else "dimIntMV"
+    labels, label_ids = _global_ids([seg.column("dimStr") for seg in distinct])
+    if name == "mv_grouped_state":  # distinct (label, value) pairs over every segment
+        values_g, value_ids = _global_ids([seg.column(mv_col) for seg in distinct])
+        pairs = []
+        for seg, li, vi in zip(distinct, label_ids, value_ids):
+            rows_e, ids = _mv_entries(seg.column(mv_col))
+            pairs.append(li[seg.column("dimStr").fwd[rows_e]].astype(np.int64) * values_g.size + vi[ids])
+        uniq = np.unique(np.concatenate(pairs))
+        per_label = np.bincount(uniq // values_g.size, minlength=labels.size)
+        return {"distinctcountmv_dimIntMV": {(str(labels[k]),): int(per_label[k]) for k in np.nonzero(per_label)[0]}}
+    mlabels, mlabel_ids = _global_ids([seg.column(mv_col) for seg in distinct])
+    n = mlabels.size * labels.size
+    cnt_all, tot_all = np.zeros(n), np.zeros(n)
+    for seg, li, mi in zip(distinct, label_ids, mlabel_ids):
+        rows_e, ids = _mv_entries(seg.column(mv_col))
+        keys = mi[ids].astype(np.int64) * labels.size + li[seg.column("dimStr").fwd[rows_e]]
+        met = np.asarray(seg.column("metFloat").dictionary.values, dtype=np.float64)[seg.column("metFloat").fwd]
+        cnt_all += np.bincount(keys, minlength=n) * float(copies)
+        tot_all += np.bincount(keys, weights=met[rows_e], minlength=n) * copies
+    present = np.nonzero(cnt_all)[0]
+    keys = [(str(mlabels[k // labels.size]), str(labels[k % labels.size])) for k in present.tolist()]
+    return {"sum_metFloat": dict(zip(keys, tot_all[present].tolist())),
+            "count_star": dict(zip(keys, cnt_all[present].tolist()))}
 
 
 def check_mv_response(resp, want) -> float:
@@ -2556,22 +2618,22 @@ def require_launch(label: str, launches: Dict[str, int], kernel: str) -> None:
         raise AssertionError(f"{label}: kernel {kernel} was not launched")
 
 
-def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None):
+def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None, device: str = DEPLOY_DEVICE):
     """A controller, two servers (``server_env`` added to their environment)
-    and a broker, each its own process of the admin CLI: (controller URL,
-    {server: admin URL}, broker URL, a check that raises when a role
-    exited)."""
+    and a broker, each its own process of the admin CLI on ``device``:
+    (controller URL, {server: admin URL}, broker URL, a check that raises
+    when a role exited)."""
     t = time.perf_counter()
     ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
-                                "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
+                                "-heartbeat-timeout", "60", "-device", device], tmp)
     url = ctrl.ready(DEPLOY_READY_S)[2]
     # the servers and the broker need only the controller: they start together
     servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
-                                                  "-port", "0", "-device", DEPLOY_DEVICE, "-precision", "x32"], tmp,
+                                                  "-port", "0", "-device", device, "-precision", "x32"], tmp,
                                    env=server_env)
                for i in range(2)}
     broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
-                              "-device", DEPLOY_DEVICE], tmp)
+                              "-device", device], tmp)
     admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
     broker_url = broker.ready(DEPLOY_READY_S)[2]
     start_s = time.perf_counter() - t
@@ -2786,7 +2848,7 @@ JOIN_QUERIES = {
 # (broadcast), lineorder and part colocate on the part key
 JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
 JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
-JOIN_ITERS = 2  # in-process medians on the host clock (each run extracts up to 67M rows; 3 before phase 15)
+JOIN_ITERS = 1  # in-process runs on the host clock (each extracts up to 67M rows; 3 before phase 15, 2 before 16)
 JOIN_SERVE_ITERS = 3  # broker requests a query over TCP (10 before phase 13, 6 before phase 14)
 JOIN_SHUFFLE_ITERS = 1  # (5 before phase 13, 3 before phase 14, 2 before phase 15)
 JOIN_DEPLOY_ITERS = 2  # (3 before phase 14)
@@ -3806,15 +3868,21 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
                 raise AssertionError(f"admin {args[0]}: exit {p.returncode}\n{p.stdout[-2000:]}{p.stderr[-2000:]}")
             return p.stdout
 
-        cex = QueryExecutor(device=dev, precision="x32")
-        rec["cli"] = {}
-        for fmt in ("csv", "jsonl"):
+        def create(fmt: str):
             out_dir = os.path.join(tmp, f"bb_cli_{fmt}")
             t = time.perf_counter()
             said = admin("CreateSegment", "-schema-file", schema_file, "-data-file", os.path.join(tmp, f"rows.{fmt}"),
                          "-table", "baseballStats", "-segment-name", f"bb_cli_{fmt}", "-out-dir", out_dir, "-startree")
             create_s = time.perf_counter() - t
-            meta = json.loads(admin("ShowSegment", "-segment-dir", out_dir))
+            return out_dir, said, create_s, json.loads(admin("ShowSegment", "-segment-dir", out_dir))
+
+        # both formats' CLI processes at once (each pays its interpreter's start)
+        with concurrent.futures.ThreadPoolExecutor(2) as cli_pool:
+            made = dict(zip(("csv", "jsonl"), cli_pool.map(create, ("csv", "jsonl"))))
+        cex = QueryExecutor(device=dev, precision="x32")
+        rec["cli"] = {}
+        for fmt in ("csv", "jsonl"):
+            out_dir, said, create_s, meta = made[fmt]
             if meta["numDocs"] != ST_CLI_ROWS or "starTree" not in meta["custom"]:
                 raise AssertionError(f"cli {fmt}: ShowSegment {meta}")
             seg = read_segment(out_dir)
@@ -3830,7 +3898,8 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
                     k1_captured(fg, "startree cli bb_not_fit", lambda: cex.execute([seg], reqs["bb_not_fit"])),
                     path="startree_cli_csv", launches=paths["startree_cli_csv"]["launches"]["bb_not_fit"]["k1"])
             rec["cli"][fmt] = {"create_s": create_s, "cube_rows": meta["custom"]["starTree"]["numRecords"]}
-            log(f"startree cli {fmt}: {said.strip()} in {create_s:.1f} s (process start included); ShowSegment "
+            log(f"startree cli {fmt}: {said.strip()} in {create_s:.1f} s (process start included, both formats at "
+                f"once); ShowSegment "
                 f"{meta['numDocs']} docs, {meta['custom']['starTree']['numRecords']} cube rows; every query equal "
                 f"to the oracle of the rows")
         del cex
@@ -3872,7 +3941,7 @@ TIER_DATES = (1, 3, 16, 64)  # l_shipdate IN lists (the last past the 1/64 cross
 # l_extendedprice BETWEEN ranges holding about these shares of the table
 # (the last just under the 1/64 crossover); 0 is one price, the needle
 TIER_PRICE_SHARES = (0.0, 1 / 4096, 1 / 1024, 1 / 256, 1 / 80)
-TIER_ITERS = 10  # medians of the ladders' routes (20 before phase 15)
+TIER_ITERS = 5  # medians of the ladders' routes (20 before phase 15, 10 before 16)
 _ZONE_SELECT = ("SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) FROM lineitem "
                 "WHERE {where} GROUP BY l_returnflag, l_linestatus TOP 10")
 BSI_QUERIES = {
@@ -4955,6 +5024,650 @@ def residency_phase(dev, segments, record, fg, vsc, wants) -> None:
         log(f"residency phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 16. build and evolve: lineitem written as CSV and Avro files, built into
+# segments by the admin CLI's BatchCreateSegments on a local pool and on
+# remote build workers, pushed to a deployed cluster, then the table's
+# schema grown under it
+# ---------------------------------------------------------------------------
+
+# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^22
+# rows, the first half of phase 1's li0 and li1 (4 files of its 2^23 rows
+# took 117-135 s on 4 workers: the reference's build path is host Python)
+BUILD_FILES = 2
+BUILD_ROWS = 1 << 22  # rows a CSV file (~0.23 GB of text)
+BUILD_WORKERS = 4  # BatchCreateSegments -workers (the CSV files and the Avro file, one worker each)
+BUILD_GROWN_ROWS = 1 << 21  # the CSV file built against the grown schema, with real values
+BUILD_AVRO_ROWS = 1 << 18  # the Avro file (deflate): the reference's codec is pure Python
+BUILD_SEEDS = {"grown": 97, "avro": 89}  # the CSV files are phase 1's li0.. (seeds 11, 12, ..)
+BUILD_CHUNK = 1 << 20  # rows a vectorized CSV write step
+GROWN_FIELDS = {
+    "dimensionFieldSpecs": [{"name": "l_newflag", "dataType": "STRING"},
+                            {"name": "l_newtags", "dataType": "INT_ARRAY", "singleValueField": False}],
+    "metricFieldSpecs": [{"name": "l_newmetric", "dataType": "DOUBLE"}],
+}
+NEW_FLAGS = ("A", "B", "C")  # the grown file's l_newflag values
+NEW_TAGS = (3, 5, 8, 13, 21, 34, 55, 89)  # its l_newtags pool: 1..3 distinct tags a row
+EVOLVE_QUERIES = {
+    "newflag_groups": "SELECT count(*) FROM lineitem GROUP BY l_newflag TOP 10",
+    "newmetric_sum": "SELECT sum(l_newmetric) FROM lineitem",
+    "newflag_null": "SELECT count(*) FROM lineitem WHERE l_newflag = 'null'",
+    "newflag_distinct": "SELECT distinctcount(l_newflag) FROM lineitem",
+    "newtags_groups": "SELECT count(*) FROM lineitem GROUP BY l_newtags TOP 10",
+}
+BUILD_BASE_QUERIES = {"q1": Q1, "count_star": "SELECT count(*) FROM lineitem",
+                      "distinct_price": VALUE_QUERIES["distinct_price"]}
+# the kernel each query must launch on the servers: the ungrouped count and
+# sum run the table kernel's torch-op reductions (phase 14's count(*) too)
+BUILD_NEED = {"q1": "k1", "distinct_price": "k2", "newflag_groups": "k1", "newtags_groups": "k1",
+              "newflag_distinct": "k2"}
+# K1's fused route with a cardinality-1 group column, and K2 over it (in process)
+EVOLVED_Q1 = ("SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) FROM lineitem "
+              "WHERE l_shipdate <= '1998-09-02' GROUP BY l_returnflag, l_newflag TOP 10")
+EVOLVED_DISTINCT = "SELECT distinctcount(l_newflag) FROM lineitem"
+
+
+def grown_schema_json() -> dict:
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    d = lineitem_schema().to_json()
+    for k, extra in GROWN_FIELDS.items():
+        d[k] = d[k] + extra
+    return d
+
+
+def _cells(values) -> Tuple[np.ndarray, np.ndarray]:
+    """A dictionary's CSV cell texts as a byte matrix and their lengths:
+    strings as they are, numbers in ``repr`` (which parses back exactly)."""
+    texts = [(v if isinstance(v, str) else repr(float(v))).encode() for v in values]
+    lens = np.array([len(t) for t in texts], dtype=np.int64)
+    mat = np.zeros((len(texts), int(lens.max())), dtype=np.uint8)
+    for i, t in enumerate(texts):
+        mat[i, :len(t)] = np.frombuffer(t, dtype=np.uint8)
+    return mat, lens
+
+
+def write_csv_columns(path: str, names: List[str], cols: List[Tuple[list, np.ndarray]]) -> int:
+    """Rows given column by column as (dictionary values, ids) written as
+    CSV with vectorized numpy: each chunk of rows is one byte buffer, each
+    cell copied in byte k of every row at once.  Returns the file's bytes."""
+    cells = [_cells(vals) for vals, _ in cols]
+    n = cols[0][1].size
+    with open(path, "wb") as f:
+        f.write((",".join(names) + "\n").encode())
+        for lo in range(0, n, BUILD_CHUNK):
+            hi = min(n, lo + BUILD_CHUNK)
+            ids = [c[1][lo:hi] for c in cols]
+            lens = [L[i] for (_, L), i in zip(cells, ids)]
+            starts = np.zeros(hi - lo + 1, dtype=np.int64)
+            np.cumsum(sum(lens) + len(names), out=starts[1:])
+            buf = np.full(int(starts[-1]), ord(","), dtype=np.uint8)
+            buf[starts[1:] - 1] = ord("\n")
+            pos = starts[:-1].copy()
+            for (mat, L), i, ln in zip(cells, ids, lens):
+                shortest = int(L.min())
+                for k in range(mat.shape[1]):
+                    if k < shortest:
+                        buf[pos + k] = mat[i, k]
+                    else:
+                        m = ln > k
+                        buf[pos[m] + k] = mat[i[m], k]
+                pos += ln + 1
+            f.write(buf.tobytes())
+    return os.path.getsize(path)
+
+
+def build_source(kind: str, index: int, rows: int):
+    """The rows of one input file, from seeds: a ``csv`` file is the first
+    ``rows`` rows of phase 1's segment li<index> (its dictionaries and
+    forward index), ``grown`` adds the three new columns with real values
+    to lineitem at its own seed, ``avro`` is lineitem at its own seed.
+    (segment, {new column: (dictionary values, ids)})."""
+    from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+
+    if kind == "csv":  # the head of phase 1's segment (its dictionaries kept)
+        return head_segment(synthetic_lineitem_segment(ROWS_PER_SEGMENT, seed=11 + index, name=f"li{index}"),
+                            rows), {}
+    seg = synthetic_lineitem_segment(rows, seed=BUILD_SEEDS[kind], name=kind)
+    if kind == "avro":
+        return seg, {}
+    rng = np.random.default_rng(BUILD_SEEDS[kind] + 1)
+    flags = rng.integers(0, len(NEW_FLAGS), size=rows)
+    metric_vals = np.round(np.arange(0.0, 100.0, 0.25), 2)
+    metric = rng.integers(0, metric_vals.size, size=rows)
+    # a row's tags: 1..3 consecutive pool entries from a start, so distinct
+    start = rng.integers(0, len(NEW_TAGS), size=rows)
+    count = rng.integers(1, 4, size=rows)
+    combos = [";".join(str(NEW_TAGS[(s + j) % len(NEW_TAGS)]) for j in range(c))
+              for s in range(len(NEW_TAGS)) for c in range(1, 4)]
+    return seg, {"l_newflag": (list(NEW_FLAGS), flags), "l_newtags": (combos, start * 3 + count - 1),
+                 "l_newmetric": (list(metric_vals), metric)}
+
+
+def source_arrays(kind: str, index: int, rows: int) -> Dict[str, Any]:
+    """The file's rows as the arrays ``build_segment_from_columns`` takes:
+    SV columns one typed array (object for strings), the MV column (flat
+    values, offsets)."""
+    seg, extra = build_source(kind, index, rows)
+    out = {}
+    for name, col in seg.columns.items():
+        d = col.dictionary
+        out[name] = (np.asarray(d.values, dtype=object) if d.is_string else np.asarray(d.values))[col.fwd]
+    for name, (vals, ids) in extra.items():
+        if name == "l_newtags":  # ids = start * 3 + count - 1 (build_source)
+            start, count = ids // 3, ids % 3 + 1
+            offsets = np.zeros(rows + 1, dtype=np.int64)
+            np.cumsum(count, out=offsets[1:])
+            j = np.arange(3)
+            tags = np.asarray(NEW_TAGS, dtype=np.int32)[(start[:, None] + j[None, :]) % len(NEW_TAGS)]
+            out[name] = (tags[j[None, :] < count[:, None]], offsets)
+        elif name == "l_newflag":
+            out[name] = np.asarray(vals, dtype=object)[ids]
+        else:
+            out[name] = np.asarray(vals, dtype=np.float64)[ids]
+    return out
+
+
+def write_build_file(kind: str, index: int, rows: int, path: str) -> dict:
+    """A spawned worker's task: one input file, written from its seeds."""
+    t = time.perf_counter()
+    seg, extra = build_source(kind, index, rows)
+    gen_s = time.perf_counter() - t
+    t = time.perf_counter()
+    if kind == "avro":
+        from pinot_tpu_torch.segment.avro import pinot_to_avro_schema, write_avro
+        from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+        schema = lineitem_schema()
+        vals = {n: (list(c.dictionary.values) if c.dictionary.is_string
+                    else np.asarray(c.dictionary.values, dtype=np.float64).tolist())
+                for n, c in seg.columns.items()}
+        names = list(vals)
+        cols = [[vals[n][i] for i in seg.column(n).fwd.tolist()] for n in names]
+        records = [dict(zip(names, r)) for r in zip(*cols)]
+        write_avro(path, pinot_to_avro_schema(schema), records, codec="deflate")
+        size = os.path.getsize(path)
+    else:
+        names = [f.name for f in grown_or_base(kind)]
+        cols = [(list(seg.column(n).dictionary.values), seg.column(n).fwd) if n in seg.columns else extra[n]
+                for n in names]
+        size = write_csv_columns(path, names, cols)
+    return {"kind": kind, "index": index, "rows": rows, "path": path, "bytes": size, "gen_s": gen_s,
+            "write_s": time.perf_counter() - t}
+
+
+def grown_or_base(kind: str):
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    return (Schema.from_json(grown_schema_json()) if kind == "grown" else lineitem_schema()).all_fields()
+
+
+def oracle_build(kind: str, index: int, rows: int, path: str, stages: bool = False) -> dict:
+    """A spawned worker's task: the segment a file must build into, and the
+    build's stages timed apart.  A CSV: ``build_segment_from_columns`` over
+    the SOURCE arrays the file was written from, then the segment file's
+    write; with ``stages`` first the native parse and the cells'
+    materialization of the file itself (the parsed arrays must equal the
+    source arrays).  An Avro file: its decode by ``read_for_path`` and the
+    row builder.  Returns the segment's CRC and the stage seconds."""
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.segment import columnar, native
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.segment.format import write_segment
+    from pinot_tpu_torch.segment.readers import read_for_path
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    schema = Schema.from_json(grown_schema_json()) if kind == "grown" else lineitem_schema()
+    out = {"kind": kind, "index": index, "rows": rows}
+    tmp = tempfile.mkdtemp(prefix="pinot-oracle-")
+    try:
+        if kind == "avro":
+            t = time.perf_counter()
+            rows_in = read_for_path(path, schema)
+            out["decode_s"] = time.perf_counter() - t
+            t = time.perf_counter()
+            seg = build_segment(schema, rows_in, "lineitem_OFFLINE", "oracle")
+            out["dict_fwd_s"] = time.perf_counter() - t
+        elif stages:
+            native.load()
+            parse = []
+            real = native.csv_parse
+
+            def timed(*a, **k):
+                t0 = time.perf_counter()
+                try:
+                    return real(*a, **k)
+                finally:
+                    parse.append(time.perf_counter() - t0)
+
+            native.csv_parse = timed
+            try:
+                t = time.perf_counter()
+                parsed, n = columnar.read_csv_columnar(path, schema)
+                read_s = time.perf_counter() - t
+            finally:
+                native.csv_parse = real
+            if parsed is None or n != rows:
+                raise AssertionError(f"build {path}: the native parse did not take the file ({n} rows)")
+            out["parse_s"], out["materialize_s"] = parse[0], read_s - parse[0]
+            for name, want in source_arrays(kind, index, rows).items():
+                got = parsed[name]
+                same = all(np.array_equal(g, w) for g, w in zip(got, want)) if isinstance(want, tuple) \
+                    else (got.dtype == want.dtype and np.array_equal(got, want))
+                if not same:
+                    raise AssertionError(f"build {path}: column {name} parsed back differs from its source")
+            del parsed
+        if kind != "avro":
+            source = source_arrays(kind, index, rows)
+            t = time.perf_counter()
+            seg = columnar.build_segment_from_columns(schema, source, rows, "lineitem_OFFLINE", "oracle")
+            out["dict_fwd_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        write_segment(seg, os.path.join(tmp, "seg"))
+        out["write_s"] = time.perf_counter() - t
+        out["crc"] = seg.metadata.crc
+        out["file_bytes"] = os.path.getsize(os.path.join(tmp, "seg", os.listdir(os.path.join(tmp, "seg"))[0]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _cpu_ticks(pid: int) -> int:
+    """utime + stime of a process, in clock ticks (/proc/<pid>/stat)."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return int(fields[11]) + int(fields[12])
+
+
+def _admin(args: List[str], timeout_s: float) -> Tuple[float, str]:
+    """One admin CLI command as its own process: (wall seconds, stdout)."""
+    env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args], cwd=REPO_DIR, env=env,
+                         capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t
+    if out.returncode != 0:
+        raise AssertionError(f"admin {args[0]} exited {out.returncode}:\n{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    return wall, out.stdout
+
+
+def _segment_crc(path: str) -> int:
+    from pinot_tpu_torch.segment.format import read_segment_metadata
+
+    with open(path, "rb") as f:
+        return read_segment_metadata(f.read(), path).crc
+
+
+def evolve_wants(hll_mod, old_segs, grown: Optional[dict]) -> Dict[str, Any]:
+    """The oracles of phase 16's queries over the rows built before the
+    schema grew (``old_segs``: the CSV-built and Avro-built rows, which
+    take the default values) and the grown file's rows (``grown``: its
+    segment and new columns, or None before it is pushed)."""
+    segs = list(old_segs) + ([grown["segment"]] if grown else [])
+    old_rows = sum(s.num_docs for s in old_segs)
+    wants: Dict[str, Any] = {"q1": oracle(segs, "q1"), "count_star": sum(s.num_docs for s in segs),
+                             "distinct_price": value_oracle(hll_mod, segs, "distinct_price")}
+    flags = {("null",): {"count": old_rows}}
+    tags = {(str(-(1 << 31)),): {"count": old_rows}}
+    metric = 0.0
+    if grown:
+        fv, fid = grown["l_newflag"]
+        for i, c in enumerate(np.bincount(fid, minlength=len(fv))):
+            if c:
+                flags[(fv[i],)] = {"count": int(c)}
+        tv, tid = grown["l_newtags"]
+        per_combo = np.bincount(tid, minlength=len(tv))
+        acc: Dict[str, int] = {}
+        for combo, c in zip(tv, per_combo):
+            for t in combo.split(";"):
+                acc[t] = acc.get(t, 0) + int(c)
+        tags.update({(t,): {"count": c} for t, c in acc.items() if c})
+        mv, mid = grown["l_newmetric"]
+        metric = float(np.asarray(mv, dtype=np.float64)[mid].sum())
+    wants.update(newflag_groups=flags, newtags_groups=tags, newmetric_sum=metric,
+                 newflag_null=old_rows, newflag_distinct=len(flags))
+    return wants
+
+
+def check_evolved(name: str, d: dict, wants: dict) -> None:
+    """A deployed reply of phase 16 against its oracle: counts, groups and
+    distinct values exact, sums in the audit band, every row scanned,
+    served by the device."""
+    resp = response_from_json(d)
+    if resp.exceptions or resp.cost.get("segmentsHost"):
+        raise AssertionError(f"build {name}: {d['exceptions']} {resp.cost}")
+    if name == "q1":
+        check_response(resp, wants["q1"])
+        return
+    if name == "distinct_price":
+        check_value_response(resp, wants["distinct_price"])
+        return
+    docs = wants["newflag_null"] if name == "newflag_null" else wants["count_star"]
+    if d.get("numDocsScanned") != docs:
+        raise AssertionError(f"build {name}: {d.get('numDocsScanned')} docs scanned, want {docs}")
+    ar = resp.aggregation_results[0]
+    if name in ("newflag_groups", "newtags_groups"):
+        check_response(resp, wants[name])
+    elif name == "newmetric_sum":
+        if not math.isclose(float(ar.value), wants[name], rel_tol=AUDIT_RTOL, abs_tol=AUDIT_ATOL):
+            raise AssertionError(f"build newmetric_sum: {ar.value} vs oracle {wants[name]}")
+    elif int(ar.value) != wants[name]:
+        raise AssertionError(f"build {name}: {ar.value} != oracle {wants[name]}")
+
+
+def build_phase(dev, segments, record, fg, vsc, hll_mod, files: int = BUILD_FILES, rows: int = BUILD_ROWS,
+                grown_rows: int = BUILD_GROWN_ROWS, avro_rows: int = BUILD_AVRO_ROWS,
+                workers: int = BUILD_WORKERS) -> None:
+    """16. The offline build path and schema evolution (module docstring).
+    ``segments``: phase 1's lineitem segments; the CSV files are the first
+    ``rows`` rows of the first ``files`` of them, and the in-process check
+    runs over shallow copies of all of them.  On the CPU (a rehearsal at small
+    sizes) the roles run with ``-device cpu`` and nothing counts launches."""
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.common.tableconfig import TableConfig
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.server.instance import ServerInstance
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    on_card = dev.type == "cuda"
+    rec = record["build"] = {"card": card_line() if on_card else "cpu"}
+    tmp = tempfile.mkdtemp(prefix="pinot-build-")
+    fdir = os.path.join(tmp, "files")
+    os.makedirs(fdir)
+    base_file = os.path.join(tmp, "lineitem.json")
+    grown_file = os.path.join(tmp, "lineitem_grown.json")
+    with open(base_file, "w") as f:
+        json.dump(lineitem_schema().to_json(), f)
+    with open(grown_file, "w") as f:
+        json.dump(grown_schema_json(), f)
+    # the local pool's inputs in the order its glob sorts them: the CSV files,
+    # then the Avro file; the remote workers' input: the grown CSV file
+    local_in = [("csv", i, rows, os.path.join(fdir, f"lineitem_{i}.csv")) for i in range(files)]
+    local_in.append(("avro", 0, avro_rows, os.path.join(fdir, f"lineitem_{files}.avro")))
+    grown_in = ("grown", 0, grown_rows, os.path.join(fdir, "grown.csv"))
+    table = "lineitem_OFFLINE"
+    t_phase = time.perf_counter()
+    import multiprocessing
+
+    # spawned, never forked: the workers never touch the card this process holds
+    pool = concurrent.futures.ProcessPoolExecutor(max_workers=len(local_in) + 1,
+                                                  mp_context=multiprocessing.get_context("spawn"))
+    threads = concurrent.futures.ThreadPoolExecutor(2)
+    try:
+        # a. the files, in the pool's processes; the deployed roles and two
+        # build workers start meanwhile
+        t = time.perf_counter()
+        written = {spec[3]: pool.submit(write_build_file, *spec) for spec in [grown_in] + local_in}
+        roles = threads.submit(start_roles, tmp, rec, None, "cuda" if on_card else "cpu")
+        build_workers = [_Role(f"buildworker{i}", ["StartBuildWorker", "-host", "127.0.0.1", "-port", "0"], tmp)
+                         for i in range(2)]
+        addrs = []
+        for w in build_workers:
+            end = time.monotonic() + DEPLOY_READY_S
+            while not any(ln.startswith("build worker listening on ") for ln in w.tail(1 << 16).splitlines()):
+                w.check_alive()
+                if time.monotonic() > end:
+                    raise AssertionError(f"{w.name}: not listening:\n{w.tail()}")
+                time.sleep(0.1)
+            line = next(ln for ln in w.tail(1 << 16).splitlines() if ln.startswith("build worker listening on "))
+            addrs.append(line.rsplit(" ", 1)[1])
+
+        # b. the remote pass as soon as its file is written: BatchCreateSegments
+        # -remote-workers over the grown CSV file (no push yet: it joins the
+        # table after the evolution), the worker holding it killed while it
+        # builds and the shard retried on the other
+        written[grown_in[3]].result()
+        remote_oracle = pool.submit(oracle_build, *grown_in)
+
+        def remote_run() -> dict:
+            env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+            t = time.perf_counter()
+            coord = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin", "BatchCreateSegments",
+                                      "-schema-file", grown_file, "-inputs", grown_in[3], "-table", table,
+                                      "-out-dir", os.path.join(tmp, "built_remote"), "-remote-workers",
+                                      ",".join(addrs), "-segment-name-prefix", "grown"],
+                                     cwd=REPO_DIR, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            victim = build_workers[0].proc  # shard 0 is dealt to the first address
+            base_ticks, half_s = _cpu_ticks(victim.pid), os.sysconf("SC_CLK_TCK") // 2
+            while _cpu_ticks(victim.pid) - base_ticks < half_s and coord.poll() is None:
+                time.sleep(0.05)  # until it has spent 0.5 s of CPU on the shard
+            killed_after_s = time.perf_counter() - t
+            mid_run = coord.poll() is None
+            victim.kill()
+            victim.wait(timeout=60)
+            out, err = coord.communicate(timeout=1800)
+            if coord.returncode != 0:
+                raise AssertionError(f"build remote: BatchCreateSegments exited {coord.returncode}:\n{err[-4000:]}")
+            return dict(out=out, wall_s=time.perf_counter() - t, killed_after_s=killed_after_s, mid_run=mid_run)
+
+        remote = threads.submit(remote_run)
+        url, admin, broker_url, alive = roles.result()
+        rec["files"] = {os.path.basename(p): {k: w.result()[k] for k in ("rows", "bytes", "gen_s", "write_s")}
+                        for p, w in written.items()}
+        log(f"build: wrote {len(written)} files in {time.perf_counter() - t:.1f} s wall (vectorized numpy for the "
+            f"CSV, the pure-Python codec for Avro, one spawned process each) beside the roles' start: "
+            f"{json.dumps(rec['files'])}")
+        http_json(url + "/schemas", json.dumps(lineitem_schema().to_json()).encode())
+        http_json(url + "/tables", json.dumps(TableConfig("lineitem").to_json()).encode())
+
+        # c. the local pool: BatchCreateSegments -workers builds the CSV files
+        # (the columnar path) and the Avro file (the row builder) and pushes
+        # them, while the pool builds each file's oracle segment (the first
+        # CSV file's also times the parse and the materialization)
+        oracles = [pool.submit(oracle_build, *spec, stages=spec[:2] == ("csv", 0)) for spec in local_in]
+        wall, out = _admin(["BatchCreateSegments", "-schema-file", base_file, "-inputs",
+                            os.path.join(fdir, "lineitem_*"), "-table", table, "-out-dir",
+                            os.path.join(tmp, "built"), "-workers", str(workers), "-controller", url,
+                            "-segment-name-prefix", "built"], timeout_s=1800)
+        results = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+        oracles = [f.result() for f in oracles]
+        if [(r["segment"], r["input"], r["docs"]) for r in results] != \
+                [(f"built_{i}", spec[3], spec[2]) for i, spec in enumerate(local_in)] or \
+                not all(r["pushed"] for r in results):
+            raise AssertionError(f"build: BatchCreateSegments results {results}")
+        for r, o in zip(results, oracles):
+            crc = _segment_crc(r["path"])
+            if crc != o["crc"]:
+                raise AssertionError(f"build {r['segment']} ({o['kind']}): CRC {crc} != the oracle build's {o['crc']}")
+        stages = {k: round(oracles[0][k], 3) for k in ("parse_s", "materialize_s", "dict_fwd_s", "write_s")}
+        avro = {k: round(oracles[-1][k], 3) for k in ("decode_s", "dict_fwd_s", "write_s")}
+        local_rows = rows * files + avro_rows
+        rec["local"] = dict(wall_s=wall, workers=workers, files=len(local_in), rows=local_rows,
+                            rows_per_s_per_worker=local_rows / wall / min(workers, len(local_in)), stages=stages,
+                            csv_rows_per_s=rows / sum(stages.values()), avro_stages=avro,
+                            avro_rows_per_s=avro_rows / sum(avro.values()),
+                            dict_fwd_s=[o["dict_fwd_s"] for o in oracles])
+        log(f"build local pool: BatchCreateSegments -workers {workers}, {files} CSV files of {rows} rows and the Avro "
+            f"file of {avro_rows} built and pushed in {wall:.1f} s wall ({rec['local']['rows_per_s_per_worker']:.0f} "
+            f"rows/s per worker); each CSV segment's CRC equal to build_segment_from_columns over the file's source "
+            f"arrays, the Avro segment's to the row builder's; a CSV file's stages (native parse / cell "
+            f"materialization / dictionary and forward index / file write, s) {stages}, "
+            f"{rec['local']['csv_rows_per_s']:.0f} rows/s; the Avro file's (decode / row build / write) {avro}, "
+            f"{rec['local']['avro_rows_per_s']:.0f} rows/s")
+
+        # d. the deployed table against oracles of those rows
+        online_s = wait_online(url, broker_url, table, len(local_in), alive)
+
+        def launches():
+            got = {"k1": 0, "k2": 0}
+            if not on_card:
+                return got
+            for a in admin.values():
+                k = http_json(a + "/debug/metrics")["kernelLaunches"]
+                got = {n: got[n] + k[n] for n in got}
+            return got
+
+        avro_seg, _ = build_source("avro", 0, avro_rows)
+        old_segs = [build_source("csv", i, rows)[0] for i in range(files)] + [avro_seg]
+        per_query: Dict[str, Dict[str, int]] = {}
+
+        def ask(label: str, pqls: Dict[str, str], wants: dict) -> None:
+            for name, pql in pqls.items():
+                before = launches()
+                d = http_json(broker_url + "/query", json.dumps({"pql": pql}).encode())
+                after = launches()
+                check_evolved(name, d, wants)
+                moved = {k: after[k] - before[k] for k in after}
+                per_query[f"{label}/{name}"] = moved
+                if on_card:
+                    require_launch(f"build {label}/{name}", moved, BUILD_NEED.get(name))
+
+        wants = evolve_wants(hll_mod, old_segs, None)
+        ask("pushed", BUILD_BASE_QUERIES, wants)
+        log(f"build: {len(local_in)} segments ONLINE {online_s:.1f} s after the last push; q1, count(*) and "
+            f"distinct_price over the {wants['count_star']} rows equal their oracles")
+
+        # e. the grown schema through AddSchema: the controller reloads the
+        # table, each server patches its loaded segments on the CRC skip
+        t = time.perf_counter()
+        add_s, _ = _admin(["AddSchema", "-controller", url, "-schema-file", grown_file], timeout_s=300)
+        end = time.monotonic() + DEPLOY_ONLINE_S
+        while True:
+            alive()
+            d = http_json(broker_url + "/query", json.dumps({"pql": EVOLVE_QUERIES["newflag_groups"]}).encode())
+            if not d["exceptions"] and d.get("numDocsScanned") == wants["count_star"]:
+                break
+            if time.monotonic() > end:
+                raise AssertionError(f"build: the grown schema did not reach every server: {d}")
+            time.sleep(0.05)
+        reload_s = time.perf_counter() - t
+        loads = {n: http_json(a + "/debug/metrics")["metrics"]["timers"]["segmentLoad"]["count"]
+                 for n, a in admin.items()}
+        if sum(loads.values()) != len(local_in):
+            raise AssertionError(f"build: the reload loaded segments again {loads}")
+        ask("evolved", EVOLVE_QUERIES, wants)
+        rec["reload"] = dict(reload_s=reload_s, add_schema_process_s=add_s, segment_loads=loads)
+        log(f"build: AddSchema of the grown schema to every server answering with the default columns "
+            f"{reload_s:.3f} s (the AddSchema process {add_s:.3f} s of it), no segment loaded again {loads}; "
+            f"the five evolved queries equal their oracles (one null group, sum 0.0, every row 'null', "
+            f"distinctcount 1, the INT default -2^31)")
+
+        # f. the remote pass's segment, then its push with UploadSegment
+        rr = remote.result()
+        if on_card and not rr["mid_run"]:
+            raise AssertionError("build remote: the run ended before its first worker could be killed")
+        (result,) = [json.loads(ln) for ln in rr["out"].splitlines() if ln.startswith("{")]
+        oracle_grown = remote_oracle.result()
+        if (result["segment"], result["docs"], result["pushed"]) != ("grown_0", grown_rows, False):
+            raise AssertionError(f"build remote: result {result}")
+        crc = _segment_crc(result["path"])
+        if crc != oracle_grown["crc"]:
+            raise AssertionError(f"build grown_0: CRC {crc} != build_segment_from_columns' {oracle_grown['crc']}")
+        t = time.perf_counter()
+        _admin(["UploadSegment", "-controller", url, "-table", table, "-segment-file", result["path"]], timeout_s=600)
+        push_s = time.perf_counter() - t
+        rec["remote"] = dict(wall_s=rr["wall_s"], killed_after_s=rr["killed_after_s"], killed_mid_run=rr["mid_run"],
+                             rows=grown_rows, push_s=push_s, rows_per_s=grown_rows / rr["wall_s"],
+                             stages={k: round(v, 3) for k, v in oracle_grown.items() if k.endswith("_s")})
+        log(f"build remote (beside the local pool): BatchCreateSegments -remote-workers over two StartBuildWorker "
+            f"processes, the one given the grown CSV file ({grown_rows} rows) killed {rr['killed_after_s']:.1f} s "
+            f"into it (0.5 s of its CPU spent) and the shard retried on the other: built in {rr['wall_s']:.1f} s "
+            f"wall ({rec['remote']['rows_per_s']:.0f} rows/s), its CRC equal to build_segment_from_columns'; "
+            f"pushed with UploadSegment in {push_s:.1f} s; the oracle build's stages (s) {rec['remote']['stages']}")
+
+        # g. the mixed-age table: old rows with defaults, new rows with values
+        wait_online(url, broker_url, table, len(local_in) + 1, alive)
+        grown_seg, extra = build_source("grown", 0, grown_rows)
+        wants = evolve_wants(hll_mod, old_segs, dict(extra, segment=grown_seg))
+        ask("mixed", {**BUILD_BASE_QUERIES, **EVOLVE_QUERIES}, wants)
+        record["paths"]["build_deployed"] = {"launches": per_query, "totals": {
+            k: sum(v[k] for v in per_query.values()) for k in ("k1", "k2")}}
+        log(f"build: the mixed-age table ({wants['count_star']} rows: {files} CSV-built segments and the Avro-built "
+            f"one with defaults, the grown file's with values) equal to its oracles; launches on the servers per "
+            f"query {per_query}")
+        alive()
+    finally:
+        codes = _stop_roles()  # first: a remote pass still running ends with its workers
+        threads.shutdown(wait=True)
+        pool.shutdown(wait=True, cancel_futures=True)
+        rec["exit_codes"] = codes
+        shutil.rmtree(tmp, ignore_errors=True)
+        log(f"build: every role stopped with SIGTERM, exit codes {codes}; phase {time.perf_counter() - t_phase:.1f} s")
+    if any(v for n, v in codes.items() if n != "buildworker0"):  # the killed worker exits -9
+        raise AssertionError(f"build: a role did not exit cleanly {codes}")
+
+    # h. K1 and K2 at the evolved shapes in process: the grown schema set on
+    # a server over shallow copies of phase 1's segments (theirs untouched)
+    import copy
+
+    copies = []
+    for s in segments:
+        c = copy.copy(s)
+        c.metadata = copy.copy(s.metadata)
+        copies.append(c)
+    server = ServerInstance("evolve", device=dev, precision="x32", pipeline=False)
+    try:
+        for c in copies:
+            server.add_segment("lineitem_OFFLINE", c)
+        server.set_table_schema("lineitem_OFFLINE", Schema.from_json(grown_schema_json()))
+        if not all(c.has_column("l_newflag") for c in copies) or any(s.has_column("l_newflag") for s in segments):
+            raise AssertionError("evolve: the copies were not patched, or phase 1's segments were")
+        ex = server.executor
+        q1_req, dc_req = optimize_request(parse_pql(EVOLVED_Q1)), optimize_request(parse_pql(EVOLVED_DISTINCT))
+        fg.launches = 0
+        vsc.launches = 0
+        q1_resp = reduce_to_response(q1_req, [ex.execute(copies, q1_req)])
+        after_q1 = {"k1": fg.launches, "k2": vsc.launches}
+        dc_resp = reduce_to_response(dc_req, [ex.execute(copies, dc_req)])
+        totals = {"k1": fg.launches, "k2": vsc.launches}
+        record["paths"]["build_inprocess"] = {"totals": totals, "launches": {
+            "evolved_q1": after_q1, "evolved_distinct": {k: totals[k] - after_q1[k] for k in totals}}}
+        want_q1: Dict[Tuple[str, ...], Dict[str, Any]] = {}  # q1's oracle, l_linestatus folded into "null"
+        for (rf, _ls), v in oracle(segments, "q1").items():
+            e = want_q1.setdefault((rf, "null"), {k: 0 if k == "count" else 0.0 for k in v})
+            for k in v:
+                e[k] += v[k]
+        check_response(q1_resp, want_q1)
+        check_value_response(dc_resp, {(): 1})
+        if on_card and (totals["k1"] < 1 or totals["k2"] < 1):
+            raise AssertionError(f"evolve: launches {totals}")
+        staged = 0
+        for st in ex._staged.values():
+            col = st.columns.get("l_newflag")
+            if col is not None:
+                staged = max(staged, sum(t.numel() * t.element_size() for t in col.tensors()))
+        rec["default_column_staged_bytes"] = staged
+        rec["inprocess_rows"] = sum(c.num_docs for c in copies)
+        if on_card:
+            rec["k1"] = k1_captured(fg, "evolved q1 (l_returnflag x the default l_newflag)",
+                                    lambda: ex.execute(copies, q1_req))
+            captured: dict = {}
+            restore = _capture(vsc, "value_state", captured, "k2")
+            try:
+                ex.execute(copies, dc_req)
+            finally:
+                vsc.value_state = restore
+            (mode, *rest), kw = captured["k2"]
+            args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+            tiers = compare_k2_value(vsc, mode, args)
+            k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+            p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+            matched = int(vsc.value_state(mode, **args)[0])
+            bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
+            idx, K, _ = vsc.combine_index(mode, **args)
+            lib_ms, _ = cuda_ms(lambda: torch.bincount(idx.reshape(-1), minlength=K + 1)[:K], ITERS)
+            del idx
+            rec["k2"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes,
+                             operations=ops, tiers=tiers, mode=mode, K=K, shape=list(args["values"].shape),
+                             matched=matched, library_ms=lib_ms, max_abs_err=0.0)
+            log(f"k2 evolved distinctcount(l_newflag) ({mode}, K={K}, values {list(args['values'].shape)}, "
+                f"{matched} rows matched): {k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes; "
+                f"{bound / k_ms:.3f} of the bound), plain {p_ms:.4f} ms, torch.bincount {lib_ms:.4f} ms, bit-equal "
+                f"in tiers {tiers}")
+            del args
+        log(f"evolve in process: the grown schema set on a server over {rec['inprocess_rows']} rows of phase 1's "
+            f"segments (shallow copies): q1 by l_returnflag x l_newflag and distinctcount(l_newflag) equal their "
+            f"oracles, launches {totals}; the default column staged {staged} bytes")
+        ex.free_staging()
+    finally:
+        server.shutdown()
+        del copies
+        if on_card:
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -4979,6 +5692,9 @@ def main(argv=None) -> int:
     ap.add_argument("--residency-only", action="store_true",
                     help="after the build, the kernel checks and lineitem's datagen run only phase 15, "
                     "residency (no result line)")
+    ap.add_argument("--build-only", action="store_true",
+                    help="after the build, the kernel checks and lineitem's datagen run only phase 16, "
+                    "the offline build path and schema evolution (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5045,7 +5761,7 @@ def run(dev: torch.device, opts) -> int:
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
     if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
         makers = {}
-    elif opts.tiers_only or opts.residency_only:
+    elif opts.tiers_only or opts.residency_only or opts.build_only:
         makers = {"lineitem": lineitem}
     datagen = concurrent.futures.ThreadPoolExecutor(max(1, len(makers)))
     tables = {name: datagen.submit(made, make) for name, make in makers.items()}
@@ -5088,6 +5804,7 @@ def run(dev: torch.device, opts) -> int:
         realtime_phase(dev, record, fg, vsc, hll_mod)
         log(f"realtime only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
+            record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1, default=str)
         return 0
@@ -5100,6 +5817,7 @@ def run(dev: torch.device, opts) -> int:
             startree_phase(dev, record, fg, vsc)
         log(f"{'joins' if opts.joins_only else 'startree'} only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
+            record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1)
         return 0
@@ -5198,6 +5916,16 @@ def run(dev: torch.device, opts) -> int:
         log(f"routes: {record['routes']}")
         log(f"tiers only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
+    if opts.build_only:
+        record["paths"] = {}
+        build_phase(dev, segments, record, fg, vsc, hll_mod)
+        log(f"build only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1, default=str)
         return 0
@@ -5208,6 +5936,7 @@ def run(dev: torch.device, opts) -> int:
         residency_phase(dev, segments, record, fg, vsc, res_wants)
         log(f"residency only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
+            record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1, default=str)
         return 0
@@ -5647,10 +6376,11 @@ def run(dev: torch.device, opts) -> int:
         raise AssertionError("host_groups: the executor staged a table for a query the host serves")
     if record["paths"]["host_groups"]["totals"] != {"k1": 0, "k2": 0}:
         raise AssertionError("host_groups: a kernel launched for a query the host serves")
-    sums, counts = host_groups_oracle(segments)
+    sums, counts, ship, receipt = host_groups_oracle(segments)
     ar_sum, ar_cnt = hosted["host_groups"].aggregation_results
-    worst = max(check_top(ar_sum, sums, exact=False), check_top(ar_cnt, counts, exact=True))
-    log(f"oracle host_groups: ok ({len(counts)} groups; max rel sum err {worst:.3g})")
+    worst = max(check_top(ar_sum, host_groups_want(ar_sum, sums, counts, ship, receipt), exact=False),
+                check_top(ar_cnt, host_groups_want(ar_cnt, counts, counts, ship, receipt), exact=True))
+    log(f"oracle host_groups: ok ({int(np.count_nonzero(counts))} groups; max rel sum err {worst:.3g})")
     record["oracle_max_rel_err"]["host_groups"] = worst
     overflow = []
     kernel_mod._reduce_distinct_pairs = lambda v: overflow.append(real_reduce(v)) or overflow[-1]
@@ -6023,6 +6753,17 @@ def run(dev: torch.device, opts) -> int:
     residency_phase(dev, segments, record, fg, vsc, wants)
     log(f"residency phase: {time.perf_counter() - t0:.1f} s")
 
+    # 16. the offline build path and schema evolution: CSV and Avro files
+    # built by BatchCreateSegments (a local pool, remote workers), pushed to
+    # a deployed cluster, the schema grown under it; K1 / K2 at the evolved
+    # shapes in process over copies of phase 1's segments
+    t0 = time.perf_counter()
+    ex.free_staging()
+    torch.cuda.empty_cache()
+    build_phase(dev, segments, record, fg, vsc, hll_mod)
+    log(f"build phase: {time.perf_counter() - t0:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phases 1-16 done")
+
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
     # the shares are the same, and its postings are built once, then freed)
@@ -6094,6 +6835,7 @@ def run(dev: torch.device, opts) -> int:
             "startree_shape": record["startree"]["k1"],
             "tiers_shape": record["tiers"]["k1"],
             "realtime_shape": record["realtime"]["k1"],
+            "build_shape": record["build"]["k1"],
         },
         {
             "name": "value_state_counts",
@@ -6109,6 +6851,7 @@ def run(dev: torch.device, opts) -> int:
             "library_ms": hg["library_ms"],
             "block_path": dict(block_path("zone_distinct", zk2), library_ms=zk2["blocks"]["library_ms"]),
             "realtime_shape": record["realtime"]["k2"],
+            "build_shape": record["build"]["k2"],
         },
     ]}
     summary["kernels"] += [
@@ -6131,6 +6874,7 @@ def run(dev: torch.device, opts) -> int:
     record["wall_s"] = time.perf_counter() - t_start
     log(f"wall: {record['wall_s']:.1f} s")
     if opts.out:
+        record["log_times"] = LOG_TIMES
         with open(opts.out, "w") as f:
             json.dump(record, f, indent=1)
     log(json.dumps(summary))

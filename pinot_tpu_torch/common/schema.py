@@ -218,6 +218,9 @@ class Schema:
         except KeyError:
             raise KeyError(f"unknown column {name!r} in schema {self.schema_name!r}") from None
 
+    def has_column(self, name: str) -> bool:
+        return name in self._by_name
+
     @property
     def time_column_name(self) -> Optional[str]:
         return self.time_field.name if self.time_field is not None else None

@@ -85,7 +85,17 @@ class Controller:
         self.realtime_manager.completion.lease_checker = self.gateway.server_lease_valid
 
     def add_schema(self, schema: Schema) -> None:
+        existing = self.resources.get_schema(schema.schema_name)
+        evolving = existing is not None and existing != schema
         self.resources.add_schema(schema)
+        if evolving:
+            # schema evolution: the realtime manager's stored schema is
+            # swapped, so the next consuming segment's rollover ingests the
+            # new columns, and every table on the schema is reloaded, so its
+            # loaded segments get default columns for the added fields
+            self.realtime_manager.update_schema(schema.schema_name, schema)
+            for physical in self.resources.tables_of_schema(schema.schema_name):
+                self.resources.reload_table(physical)
 
     def add_table(self, config: TableConfig) -> str:
         if self.resources.get_schema(config.raw_name) is None:

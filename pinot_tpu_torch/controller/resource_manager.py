@@ -251,6 +251,23 @@ class ClusterResourceManager:
             else:
                 view[server] = target if ok else ERROR
 
+    def reload_table(self, physical: str) -> None:
+        """Run every ONLINE transition of a table's ideal state again (the
+        reference's segment reload).  The servers' CRC skip makes it cheap
+        on metadata; it is how schema evolution reaches segments loaded
+        before the schema grew."""
+        with self._lock:
+            ideal = dict(self.ideal_states.get(physical, {}))
+        for seg, replicas in ideal.items():
+            for server, state in replicas.items():
+                if state == ONLINE:
+                    self._execute_transition(physical, seg, server, ONLINE)
+        self._notify_view(physical)
+
+    def tables_of_schema(self, raw_name: str) -> List[str]:
+        with self._lock:
+            return [phys for phys, cfg in self.table_configs.items() if cfg.raw_name == raw_name]
+
     def delete_segment(self, physical_table: str, segment: str) -> None:
         with self._lock:
             replicas = self.ideal_states.get(physical_table, {}).pop(segment, {})

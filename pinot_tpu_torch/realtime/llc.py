@@ -370,6 +370,20 @@ class RealtimeSegmentManager:
             self._create_consuming_segment(physical, partition, seq=0, start_offset=0)
         return physical
 
+    def update_schema(self, raw_name: str, schema: Schema) -> List[str]:
+        """Schema evolution of the realtime tables on ``raw_name``: the
+        stored schema is swapped, so the NEXT segment's rollover consumes
+        with the grown schema (CONSUMING transitions carry it as
+        schemaJson).  The consuming segment keeps its frozen schema; its
+        rows get default columns when it seals, as in the reference."""
+        updated = []
+        with self._lock:
+            for physical, tinfo in self._tables.items():
+                if tinfo["config"].raw_name == raw_name:
+                    tinfo["schema"] = schema
+                    updated.append(physical)
+        return updated
+
     def physical_table_of(self, segment: str) -> str:
         return parse_segment_name(segment)[0]
 

@@ -1,8 +1,9 @@
-"""Record readers: CSV / JSON-lines -> rows for the segment builder
+"""Record readers: CSV / JSON-lines / Avro -> rows for the segment builder
 (copy of ``pinot_tpu.segment.readers``).
 
-Reference: pinot-core ``data/readers/`` (CSV/JSON record readers).  Avro
-containers are item 31 of the port: ``read_for_path`` raises for them.
+Reference: pinot-core ``data/readers/`` (Avro/CSV/JSON record readers).
+Avro containers decode via the pure-Python codec in
+``pinot_tpu_torch.segment.avro`` (re-exported here as ``read_avro``).
 
 Multi-value CSV cells use ';' as the value separator (the reference's
 CSVRecordReaderConfig default multi-value delimiter).
@@ -49,13 +50,20 @@ def read_csv(path: str, schema: Schema, delimiter: str = ",") -> List[Row]:
     return rows
 
 
+def read_avro(path: str, schema: Schema) -> List[Row]:
+    """Avro object container -> rows (AvroRecordReader analog)."""
+    from pinot_tpu_torch.segment.avro import read_avro as _read_avro
+
+    return _read_avro(path, schema)
+
+
 def read_for_path(path: str, schema: Schema) -> List[Row]:
-    """Pick the reader by file extension (csv, else jsonl)."""
+    """Pick the reader by file extension (csv / jsonl / avro[.gz])."""
     lower = path.lower()
     if lower.endswith(".csv"):
         return read_csv(path, schema)
     if lower.endswith((".avro", ".avro.gz")):
-        raise NotImplementedError(f"{path}: avro input is item 31 of the port (ROADMAP queue 1)")
+        return read_avro(path, schema)
     return read_jsonl(path, schema)
 
 

@@ -39,9 +39,14 @@ no cost, nothing staged; ``plan.explains``); ``EXPLAIN ANALYZE`` executes,
 then builds the node and annotates it with the reply's cost
 (``actualCost``, ``actualDocsScanned``, the batching actual).
 
+SCHEMA EVOLUTION (``segment/default_column.py``): ``set_table_schema``
+registers a table's schema and patches the loaded sealed segments with
+default columns for the fields they lack; ``add_segment`` patches each
+sealed segment it hosts the same way.
+
 Left out of the port, for later slices: the result cache (of scans and
 joins), the roofline window, plan stats, the profiler and the occupancy
-sampler, prewarm, the shadow auditor and schema evolution.
+sampler, prewarm and the shadow auditor.
 """
 from __future__ import annotations
 
@@ -60,10 +65,12 @@ from pinot_tpu_torch.engine.dispatch import LaneGroup
 from pinot_tpu_torch.engine.executor import QueryExecutor
 from pinot_tpu_torch.engine.explain import _json_safe, build_explain_node
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
+from pinot_tpu_torch.engine.plandigest import _raw_table
 from pinot_tpu_torch.engine.results import SEGMENT_TIER_KEYS, IntermediateResult
 from pinot_tpu_torch.pql import optimize_request, parse_pql
 from pinot_tpu_torch.realtime.backpressure import IngestBackpressure, instance_mutable_bytes
 from pinot_tpu_torch.realtime.mutable import MutableSegment
+from pinot_tpu_torch.segment.default_column import inject_default_columns
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.server.datamanager import InstanceDataManager
 from pinot_tpu_torch.server.scheduler import (
@@ -122,6 +129,7 @@ class ServerInstance:
             # a failed kernel build raises here, before any thread starts
             kernels.load_all()
         self.data_manager = InstanceDataManager()
+        self._table_schemas = {}  # raw table name -> Schema (set_table_schema)
         self.metrics = ServerMetrics(name)
         self.lanes = (
             LaneGroup(
@@ -189,9 +197,40 @@ class ServerInstance:
         )
 
     # -- segment lifecycle -------------------------------------------
+    def set_table_schema(self, table: str, schema) -> None:
+        """Register (or evolve) the table's schema.  The loaded sealed
+        segments get default columns for the fields they lack, so old rows
+        keep answering after the schema grew instead of being pruned (the
+        reference's SegmentPreProcessor -> BaseDefaultColumnHandler)."""
+        raw = _raw_table(table)
+        if self._table_schemas.get(raw) == schema:
+            return  # unchanged: no retro-patch pass (a reload's CRC-skip path)
+        self._table_schemas[raw] = schema
+        for tname in self.data_manager.table_names():
+            if _raw_table(tname) != raw:
+                continue
+            tdm = self.data_manager.table(tname)
+            acquired = tdm.acquire_segments()
+            try:
+                for sdm in acquired:
+                    # sealed segments only: a consuming MutableSegment keeps
+                    # the schema it was created with until it seals (the
+                    # reference applies a schema change to consuming
+                    # segments at the next rollover)
+                    if isinstance(sdm.segment, ImmutableSegment):
+                        inject_default_columns(sdm.segment, schema)
+            finally:
+                tdm.release_segments(acquired)
+
     def add_segment(self, table: str, segment) -> None:
         """Host ``segment`` (an ``ImmutableSegment``, or a consuming
-        ``MutableSegment``); one of the same name is replaced."""
+        ``MutableSegment``); one of the same name is replaced.  A sealed
+        segment gets default columns for the table schema's fields it
+        lacks.  The starters verify a copy's CRC before they call this:
+        injected columns are not part of the on-disk CRC."""
+        schema = self._table_schemas.get(_raw_table(table))
+        if schema is not None and isinstance(segment, ImmutableSegment):
+            inject_default_columns(segment, schema)
         self.data_manager.add_segment(table, segment)
         self.executor.evict_segment(segment.segment_name)
 

@@ -497,7 +497,7 @@ class NetworkedServerStarter:
                 # committed copy replaces its mutable segment
                 self._retire_consumer(segment)
                 ok = self._load(table, segment, msg.get("crc"), msg.get("downloadUri"),
-                                msg.get("invertedIndexColumns"))
+                                msg.get("invertedIndexColumns"), msg.get("schemaJson"))
             elif target == CONSUMING:
                 ok = self._start_consumer(table, segment, msg)
             elif target in (OFFLINE, DROPPED):
@@ -534,7 +534,11 @@ class NetworkedServerStarter:
         return True
 
     def _load(self, table: str, segment: str, crc: Optional[int], download_uri: Optional[str] = None,
-              inv_columns=None) -> bool:
+              inv_columns=None, schema_json=None) -> bool:
+        # the schema applies on the CRC-skip path too: a reload after schema
+        # evolution patches the loaded segments without reading any bytes
+        if schema_json is not None:
+            self.server.set_table_schema(table, Schema.from_json(schema_json))
         tdm = self.server.data_manager.table(table)
         if tdm is not None and segment in tdm.segment_names() and crc is not None \
                 and self._local_crcs.get(segment) == crc:

@@ -12,7 +12,10 @@ answer.  CONSUMING starts the segment's consumer through the realtime
 manager's ``consuming_starter`` (``realtime/llc.py``); the ONLINE
 transition that follows a commit takes the committed segment in memory
 (``info["segment"]``, built and CRC'd in this process).  OFFLINE and
-DROPPED unload.
+DROPPED unload.  The table's schema (``info["schema"]``) is applied first
+on every ONLINE transition, so a reload broadcast after schema evolution
+patches segments already loaded with default columns
+(``ServerInstance.set_table_schema``).
 
 ``residency_options`` reads the residency caps a server is started with
 from the reference's environment names (``PINOT_TPU_HBM_CAP_BYTES``,
@@ -107,6 +110,11 @@ class ServerStarter:
     def _load(self, table: str, segment: str, info: Dict[str, Any]) -> bool:
         meta = info.get("metadata")
         crc = meta.crc if meta is not None else None
+        # the schema applies on the CRC-skip path too: a reload after schema
+        # evolution patches the loaded segments without reading any bytes
+        schema = info.get("schema")
+        if schema is not None:
+            self.server.set_table_schema(table, schema)
         tdm = self.server.data_manager.table(table)
         if tdm is not None and segment in tdm.segment_names() and crc is not None \
                 and self._local_crcs.get(segment) == crc:

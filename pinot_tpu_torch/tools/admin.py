@@ -4,29 +4,49 @@ deployment and segment commands).  Usage::
     python -m pinot_tpu_torch.tools.admin <command> [args]
 
 Commands:
+  Quickstart        offline baseballStats demo: 4 segments in an in-process
+                    cluster, the sample queries, then the broker over HTTP
+                    (-no-http: print and exit)
+  StartCluster      an in-process cluster with the broker and the
+                    controller over HTTP
   StartController   a controller process: segment store, cluster state,
                     REST and control plane
   StartServer       a server process joining a controller
   StartBroker       a broker process joining a controller
-  AddSchema         POST a schema JSON file to a controller
+  AddSchema         POST a schema JSON file to a controller (a grown schema
+                    evolves the deployed tables on it: their loaded
+                    segments get default columns)
   AddTable          POST a table config JSON file to a controller (its
                     "partitioning" block, {"column", "numPartitions"},
                     declares the key partitioning joins colocate on)
   UploadSegment     POST a segment file to a controller
   PostQuery         run PQL against a broker
-  CreateSegment     build a segment file from CSV or JSONL rows (the row
-                    builder; -startree adds a star-tree at its defaults)
+  CreateSegment     build a segment file from CSV, JSONL or Avro rows (a
+                    CSV through the columnar path and its native parser;
+                    -startree adds a star-tree at its defaults)
+  BatchCreateSegments  one segment per input file on a process pool, or on
+                    remote build workers (-remote-workers), optionally
+                    pushed to a controller
+  StartBuildWorker  serve segment-build jobs over TCP
   ShowSegment       print a segment file's metadata
+  ConvertSegment    export a segment's rows as CSV or JSONL
+  ShowStarTree      print a segment's star-tree summary
+  GenerateData      seeded random rows for a schema, as JSONL
   RealtimeQuickstart         a meetupRsvp stream ingested into a REALTIME
                              table of an in-process cluster, then queried
   NetworkRealtimeQuickstart  the same across processes: a TCP stream
                              broker, a controller, a server and a broker
 
-Each Start* command prints ``READY <role> <address>`` once it serves, then
-serves until SIGTERM or SIGINT, when it stops its threads and exits 0.
+StartController, StartServer and StartBroker print ``READY <role>
+<address>`` once they serve; StartCluster, StartBuildWorker and Quickstart
+print the reference's lines.  Each serves until SIGTERM or SIGINT, when
+it stops its threads and exits 0.
 ``-device`` names the device of the role (default ``cuda``, the card;
 ``cpu`` runs the port's plain torch versions, for tests): a server stages
-its segments and launches its kernels there.
+its segments and launches its kernels there, and so do the quickstarts'
+and StartCluster's servers.  The build commands (CreateSegment,
+BatchCreateSegments, StartBuildWorker) run on the host and never touch
+the card, as the reference's run on the host.
 """
 from __future__ import annotations
 
@@ -125,11 +145,11 @@ def cmd_post_query(args) -> None:
 
 
 def cmd_create_segment(args) -> None:
-    """Rows -> the two-pass row builder -> a segment file.  A CSV is parsed
-    by the row path too (the reference's native columnar CSV path is
-    item 31 of the port)."""
+    """A data file -> a segment file: a CSV through the columnar path (the
+    native one-pass parse), Avro or JSONL through the row builder."""
     from pinot_tpu_torch.common.schema import Schema
     from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.segment.columnar import build_segment_from_csv
     from pinot_tpu_torch.segment.format import write_segment
     from pinot_tpu_torch.segment.readers import read_for_path
     from pinot_tpu_torch.startree.builder import StarTreeBuilderConfig
@@ -137,10 +157,131 @@ def cmd_create_segment(args) -> None:
     with open(args.schema_file) as f:
         schema = Schema.from_json(json.load(f))
     cfg = StarTreeBuilderConfig() if args.startree else None
-    rows = read_for_path(args.data_file, schema)
-    seg = build_segment(schema, rows, args.table, args.segment_name, startree_config=cfg)
+    if args.data_file.endswith(".csv"):
+        seg = build_segment_from_csv(schema, args.data_file, args.table, args.segment_name, startree_config=cfg)
+    else:
+        rows = read_for_path(args.data_file, schema)  # avro / jsonl
+        seg = build_segment(schema, rows, args.table, args.segment_name, startree_config=cfg)
     path = write_segment(seg, args.out_dir)
     print(f"built segment {seg.segment_name}: {seg.num_docs} docs -> {path}")
+
+
+def _worker_addresses(spec: str):
+    addrs = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue  # tolerate trailing commas
+        host, sep, port = part.rpartition(":")
+        if not sep or not host or not port.isdigit():
+            raise SystemExit(f"-remote-workers: {part!r} is not host:port "
+                             "(expected e.g. 10.0.0.5:9600,10.0.0.6:9600)")
+        addrs.append((host, int(port)))
+    if not addrs:
+        raise SystemExit("-remote-workers: no worker addresses given")
+    return addrs
+
+
+def cmd_batch_create_segments(args) -> None:
+    """pinot-hadoop analog: one segment build per input file on a
+    worker-process pool or on remote build workers, optionally pushed
+    (SegmentCreationJob.java)."""
+    import glob
+    import os
+
+    from pinot_tpu_torch.tools.batch_build import BatchBuildSpec, run_batch_build, run_distributed_build
+
+    inputs = sorted(f for pat in args.inputs for f in glob.glob(pat) if os.path.isfile(f))
+    if not inputs:
+        raise SystemExit(f"no input files matched {args.inputs}")
+    spec = BatchBuildSpec(
+        schema_file=args.schema_file,
+        table=args.table,
+        input_files=inputs,
+        out_dir=args.out_dir,
+        controller=args.controller,
+        startree=args.startree,
+        segment_name_prefix=args.segment_name_prefix,
+    )
+    if args.remote_workers:
+        results = run_distributed_build(spec, _worker_addresses(args.remote_workers))
+    else:
+        results = run_batch_build(spec, workers=args.workers)
+    for r in results:
+        print(json.dumps(r))
+
+
+def cmd_start_build_worker(args) -> None:
+    """Serve segment-build jobs over TCP (the SegmentCreationJob mapper
+    analog) until SIGTERM or SIGINT."""
+    from pinot_tpu_torch.tools.batch_build import serve_build_worker
+
+    server = serve_build_worker(host=args.host, port=args.port)
+    print(f"build worker listening on {server.host}:{server.port}", flush=True)
+    _serve_until_signal([server.stop])
+
+
+def cmd_convert_segment(args) -> None:
+    from pinot_tpu_torch.tools.converters import segment_to_csv, segment_to_jsonl
+
+    if args.format == "csv":
+        n = segment_to_csv(args.segment_dir, args.out_file)
+    else:
+        n = segment_to_jsonl(args.segment_dir, args.out_file)
+    print(f"exported {n} rows -> {args.out_file}")
+
+
+def cmd_show_star_tree(args) -> None:
+    from pinot_tpu_torch.tools.converters import star_tree_summary
+
+    print(json.dumps(star_tree_summary(args.segment_dir, max_nodes=args.max_nodes), indent=2))
+
+
+def cmd_generate_data(args) -> None:
+    from pinot_tpu_torch.common.schema import Schema
+    from pinot_tpu_torch.tools.datagen import random_rows
+
+    with open(args.schema_file) as f:
+        schema = Schema.from_json(json.load(f))
+    rows = random_rows(schema, args.num_rows, seed=args.seed)
+    with open(args.out_file, "w") as f:
+        for r in rows:
+            f.write(json.dumps(r) + "\n")
+    print(f"generated {len(rows)} rows -> {args.out_file}")
+
+
+def cmd_quickstart(args) -> None:
+    """The offline baseballStats demo (Quickstart.java:33)."""
+    from pinot_tpu_torch.tools.quickstart import run_offline_quickstart
+
+    cluster = run_offline_quickstart(num_rows=args.rows, startree=args.startree, http=not args.no_http,
+                                     device=_device(args))
+    if args.no_http:
+        cluster.stop()
+        return
+    print("Ctrl-C to exit.", flush=True)
+    _serve_until_signal([cluster.stop])
+
+
+def cmd_start_cluster(args) -> None:
+    """An in-process cluster with the broker and the controller over HTTP."""
+    from pinot_tpu_torch.broker.broker import BrokerHttpServer
+    from pinot_tpu_torch.controller.controller import ControllerHttpServer
+    from pinot_tpu_torch.tools.cluster_harness import InProcessCluster
+
+    cluster = InProcessCluster(num_servers=args.servers, data_dir=args.data_dir, device=_device(args))
+    broker_http = BrokerHttpServer(cluster.broker, port=args.broker_port)
+    broker_http.start()
+    controller_http = ControllerHttpServer(cluster.controller, port=args.controller_port)
+    controller_http.start()
+    # the broker's URL, for client discovery
+    inst = cluster.controller.resources.instances.get(cluster.broker.name)
+    if inst is not None:
+        inst.url = f"http://127.0.0.1:{broker_http.port}"
+    print(f"controller: http://127.0.0.1:{controller_http.port}", flush=True)
+    print(f"broker:     http://127.0.0.1:{broker_http.port}/query", flush=True)
+    print("Ctrl-C to exit.", flush=True)
+    _serve_until_signal([broker_http.stop, controller_http.stop, cluster.stop])
 
 
 def cmd_show_segment(args) -> None:
@@ -219,11 +360,26 @@ def main(argv=None) -> None:
     pq.add_argument("-trace", action="store_true")
     pq.set_defaults(fn=cmd_post_query)
 
-    cs = sub.add_parser("CreateSegment", help="build a segment file from .csv or .jsonl rows "
-                        "(a CSV is parsed by the row path)")
+    q = sub.add_parser("Quickstart")
+    q.add_argument("-rows", type=int, default=10_000)
+    q.add_argument("-startree", action="store_true")
+    q.add_argument("-no-http", action="store_true")
+    q.add_argument("-device", default="cuda")
+    q.set_defaults(fn=cmd_quickstart)
+
+    sc = sub.add_parser("StartCluster")
+    sc.add_argument("-servers", type=int, default=2)
+    sc.add_argument("-data-dir", default=None)
+    sc.add_argument("-broker-port", type=int, default=8099)
+    sc.add_argument("-controller-port", type=int, default=9000)
+    sc.add_argument("-device", default="cuda")
+    sc.set_defaults(fn=cmd_start_cluster)
+
+    cs = sub.add_parser("CreateSegment", help="build a segment file from .csv, .jsonl or .avro rows "
+                        "(a CSV through the columnar path)")
     cs.add_argument("-schema-file", required=True, dest="schema_file")
     cs.add_argument("-data-file", required=True, dest="data_file",
-                    help=".csv (parsed row by row) or .jsonl")
+                    help=".csv (the native columnar parse), .jsonl or .avro[.gz]")
     cs.add_argument("-table", required=True)
     cs.add_argument("-segment-name", required=True, dest="segment_name")
     cs.add_argument("-out-dir", required=True, dest="out_dir")
@@ -231,9 +387,47 @@ def main(argv=None) -> None:
                     help="also build a star-tree (StarTreeBuilderConfig defaults)")
     cs.set_defaults(fn=cmd_create_segment)
 
+    bcs = sub.add_parser("BatchCreateSegments")
+    bcs.add_argument("-schema-file", required=True, dest="schema_file")
+    bcs.add_argument("-inputs", required=True, nargs="+",
+                     help="input files/globs (csv/jsonl/avro), one segment each")
+    bcs.add_argument("-table", required=True)
+    bcs.add_argument("-out-dir", required=True, dest="out_dir")
+    bcs.add_argument("-controller", default=None, help="push built segments here when set")
+    bcs.add_argument("-workers", type=int, default=0)
+    bcs.add_argument("-remote-workers", default=None, dest="remote_workers",
+                     help="comma-separated host:port build workers (StartBuildWorker); "
+                     "fans shards out over TCP instead of the local process pool")
+    bcs.add_argument("-startree", action="store_true")
+    bcs.add_argument("-segment-name-prefix", default=None, dest="segment_name_prefix")
+    bcs.set_defaults(fn=cmd_batch_create_segments)
+
+    sbw = sub.add_parser("StartBuildWorker", help="long-lived remote segment-build worker (Hadoop-mapper analog)")
+    sbw.add_argument("-host", default="0.0.0.0")
+    sbw.add_argument("-port", type=int, default=9600)
+    sbw.set_defaults(fn=cmd_start_build_worker)
+
     ss = sub.add_parser("ShowSegment")
     ss.add_argument("-segment-dir", required=True, dest="segment_dir")
     ss.set_defaults(fn=cmd_show_segment)
+
+    cv = sub.add_parser("ConvertSegment")
+    cv.add_argument("-segment-dir", required=True, dest="segment_dir")
+    cv.add_argument("-format", choices=["csv", "jsonl"], default="jsonl")
+    cv.add_argument("-out-file", required=True, dest="out_file")
+    cv.set_defaults(fn=cmd_convert_segment)
+
+    sst = sub.add_parser("ShowStarTree")
+    sst.add_argument("-segment-dir", required=True, dest="segment_dir")
+    sst.add_argument("-max-nodes", type=int, default=50, dest="max_nodes")
+    sst.set_defaults(fn=cmd_show_star_tree)
+
+    gd = sub.add_parser("GenerateData")
+    gd.add_argument("-schema-file", required=True, dest="schema_file")
+    gd.add_argument("-num-rows", type=int, default=1000, dest="num_rows")
+    gd.add_argument("-seed", type=int, default=0)
+    gd.add_argument("-out-file", required=True, dest="out_file")
+    gd.set_defaults(fn=cmd_generate_data)
 
     for cmd, fn in (("RealtimeQuickstart", cmd_realtime_quickstart),
                     ("NetworkRealtimeQuickstart", cmd_network_realtime_quickstart)):

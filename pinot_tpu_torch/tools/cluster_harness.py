@@ -22,7 +22,7 @@ from typing import Dict, List, Optional, Union
 
 import torch
 
-from pinot_tpu_torch.broker.broker import OFFLINE_SUFFIX, BrokerRequestHandler
+from pinot_tpu_torch.broker.broker import OFFLINE_SUFFIX, BrokerHttpServer, BrokerRequestHandler
 from pinot_tpu_torch.common.response import BrokerResponse
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
@@ -36,12 +36,15 @@ from pinot_tpu_torch.transport.local import LocalTransport
 
 class InProcessCluster:
     """``device``: the servers' device (None: the current CUDA device;
-    ``"cpu"`` for tests)."""
+    ``"cpu"`` for tests).  ``http=True`` also serves the broker over HTTP
+    (``BrokerHttpServer``, ``self.http``), its URL registered on the
+    broker's instance."""
 
     def __init__(
         self,
         num_servers: int = 2,
         data_dir: Optional[str] = None,
+        http: bool = False,
         timeout_ms: float = 15_000.0,
         max_pending: int = 64,
         device: Optional[Union[str, torch.device]] = None,
@@ -54,8 +57,14 @@ class InProcessCluster:
         self.servers: List[ServerInstance] = []
         self.server_starters: List[ServerStarter] = []
         self.broker = BrokerRequestHandler(self.transport, {}, name="broker0", timeout_ms=timeout_ms)
+        self.http: Optional[BrokerHttpServer] = None
+        broker_url = None
+        if http:
+            self.http = BrokerHttpServer(self.broker)
+            self.http.start()
+            broker_url = f"http://{self.http.host}:{self.http.port}"
         resources = self.controller.resources
-        resources.register_instance(InstanceState(self.broker.name, role="broker"))
+        resources.register_instance(InstanceState(self.broker.name, role="broker", url=broker_url))
         resources.add_view_listener(self._on_view_change)
         for _ in range(num_servers):
             self.add_server()
@@ -113,8 +122,11 @@ class InProcessCluster:
         return self.broker.handle_pql(pql, trace=trace)
 
     def stop(self) -> None:
-        """Stop the ingest pool and every consumer, the broker and the
-        servers (their scheduler workers and device lanes)."""
+        """Stop the broker's HTTP front, the ingest pool and every
+        consumer, the broker and the servers (their scheduler workers and
+        device lanes)."""
+        if self.http is not None:
+            self.http.stop()
         rm = self.controller.realtime_manager
         if rm.ingest_pool is not None:
             rm.ingest_pool.stop()

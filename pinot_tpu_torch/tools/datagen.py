@@ -2,7 +2,7 @@
 of those parts of ``pinot_tpu.tools.datagen``), and the reference tests'
 mixed-type schema with multi-value columns.  ``baseball_rows`` draws with
 ``random.Random`` as the reference's does, so the same seed gives the
-same rows.
+same rows; so does ``random_rows`` (``GenerateData``'s rows).
 
 The lineitem and ad-events numpy draws are made in the same order as the
 reference's, so the same seed gives the same dictionaries and forward
@@ -14,6 +14,7 @@ column by column, at sizes the row-at-a-time segment build cannot reach.
 from __future__ import annotations
 
 import random
+import string
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -26,6 +27,43 @@ from pinot_tpu_torch.segment.immutable import (
     ImmutableSegment,
     SegmentMetadata,
 )
+
+
+def random_rows(
+    schema: Schema,
+    num_rows: int,
+    seed: int = 0,
+    cardinality: int = 20,
+    mv_max: int = 3,
+) -> List[Dict[str, Any]]:
+    """Random rows for a schema with bounded per-column cardinality: a
+    fixed value pool a column, drawn from ``random.Random(seed)``."""
+    rng = random.Random(seed)
+    pools: Dict[str, List[Any]] = {}
+    for spec in schema.all_fields():
+        st = spec.stored_type
+        if st == DataType.STRING:
+            pools[spec.name] = [
+                "".join(rng.choices(string.ascii_lowercase, k=rng.randint(3, 8)))
+                for _ in range(cardinality)
+            ]
+        elif st in (DataType.INT, DataType.LONG):
+            pools[spec.name] = [rng.randint(0, 10_000) for _ in range(cardinality)]
+        else:
+            pools[spec.name] = [round(rng.uniform(-100, 100), 3) for _ in range(cardinality)]
+
+    rows: List[Dict[str, Any]] = []
+    for _ in range(num_rows):
+        row: Dict[str, Any] = {}
+        for spec in schema.all_fields():
+            pool = pools[spec.name]
+            if spec.single_value:
+                row[spec.name] = rng.choice(pool)
+            else:
+                row[spec.name] = [rng.choice(pool) for _ in range(rng.randint(1, mv_max))]
+        rows.append(row)
+    return rows
+
 
 def make_test_schema(with_mv: bool = True) -> Schema:
     """A small mixed-type schema exercising every stored type (copy of

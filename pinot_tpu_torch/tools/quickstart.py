@@ -1,8 +1,9 @@
-"""Realtime quickstarts (port of ``pinot_tpu.tools.quickstart``'s two
-realtime runs; the ``RealtimeQuickStart.java`` analog): a meetupRsvp-shaped
-stream of seeded events ingested into a REALTIME table, then counted and
-summed through the broker.
+"""Quickstarts (port of ``pinot_tpu.tools.quickstart``; the
+``Quickstart.java:33`` and ``RealtimeQuickStart.java`` analogs).
 
+- ``run_offline_quickstart``: baseballStats rows built into 4 segments
+  (optionally with star-trees), uploaded to an in-process cluster and
+  queried, optionally through the broker's HTTP front;
 - ``run_realtime_quickstart``: an in-process cluster over a memory stream,
   consumed and committed in this process;
 - ``run_network_realtime_quickstart``: a stream broker in this process, a
@@ -25,6 +26,57 @@ import urllib.request
 from typing import Any, Dict, List, Optional
 
 from pinot_tpu_torch.common.schema import DataType, FieldSpec, FieldType, Schema, TimeFieldSpec
+
+OFFLINE_SAMPLE_QUERIES = [
+    "SELECT count(*) FROM baseballStats",
+    "SELECT sum(runs) FROM baseballStats GROUP BY playerName TOP 5",
+    "SELECT sum(hits), sum(homeRuns) FROM baseballStats WHERE teamID = 'BOS'",
+    "SELECT avg(runs) FROM baseballStats GROUP BY league",
+    "SELECT playerName, runs FROM baseballStats ORDER BY runs DESC LIMIT 5",
+]
+
+# the demo cluster serves interactively after the samples print, so the
+# broker's timeout only caps the worst case
+_DEMO_TIMEOUT_MS = 300_000.0
+
+
+def run_offline_quickstart(
+    num_rows: int = 10_000,
+    num_segments: int = 4,
+    startree: bool = False,
+    http: bool = False,
+    verbose: bool = True,
+    device=None,
+):
+    """baseballStats offline quickstart: rows -> segments -> cluster -> PQL
+    (over HTTP with ``http``).  Returns the running ``InProcessCluster``
+    (the caller stops it)."""
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.startree.builder import StarTreeBuilderConfig
+    from pinot_tpu_torch.tools.cluster_harness import InProcessCluster
+    from pinot_tpu_torch.tools.datagen import baseball_rows, baseball_schema
+
+    schema = baseball_schema()
+    rows = baseball_rows(num_rows)
+    cluster = InProcessCluster(num_servers=2, http=http, timeout_ms=_DEMO_TIMEOUT_MS, device=device)
+    physical = cluster.add_offline_table(schema)
+
+    chunk = max(1, len(rows) // num_segments)
+    cfg = StarTreeBuilderConfig(max_leaf_records=100) if startree else None
+    for i in range(num_segments):
+        part = rows[i * chunk : (i + 1) * chunk if i < num_segments - 1 else len(rows)]
+        seg = build_segment(schema, part, physical, f"baseballStats_{i}", startree_config=cfg)
+        cluster.upload(physical, seg)
+
+    if verbose:
+        for pql in OFFLINE_SAMPLE_QUERIES:
+            resp = cluster.query(pql)
+            print(f"\n>>> {pql}")
+            print(json.dumps(resp.to_json(), indent=2)[:1200])
+        if http:
+            print(f"\nbroker listening on http://127.0.0.1:{cluster.http.port}/query")
+    return cluster
+
 
 SAMPLE_QUERIES = (
     "SELECT count(*) FROM meetupRsvp",

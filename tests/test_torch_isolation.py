@@ -151,6 +151,28 @@ with tempfile.TemporaryDirectory() as td:
     sb.start()
     sb.stop()
     assert callable(backpressure.instance_mutable_bytes) and callable(pool.leaked_pool_threads)
+    # the offline build path: default columns, the columnar CSV build with
+    # its native parser, Avro, the converters and the batch build
+    from pinot_tpu_torch.segment import avro, columnar, default_column, native
+    from pinot_tpu_torch.tools import batch_build, converters
+    from pinot_tpu_torch.tools.datagen import lineitem_schema, random_rows
+
+    li_rows = random_rows(lineitem_schema(), 50, seed=1)
+    csv_path = os.path.join(td, "li.csv")
+    names = [f.name for f in lineitem_schema().all_fields()]
+    with open(csv_path, "w") as f:
+        f.write(",".join(names) + "\n" + "".join(",".join(str(r[n]) for n in names) + "\n" for r in li_rows))
+    built = columnar.build_segment_from_csv(lineitem_schema(), csv_path, "lineitem", "csv0")
+    assert built.metadata.crc == build_segment(lineitem_schema(), li_rows, "lineitem", "csv0").metadata.crc
+    avro_path = os.path.join(td, "li.avro")
+    avro.write_avro(avro_path, avro.pinot_to_avro_schema(lineitem_schema()), li_rows, codec="deflate")
+    assert avro.read_avro(avro_path, lineitem_schema()) == li_rows
+    assert converters.segment_to_jsonl(built, os.path.join(td, "li.jsonl")) == 50
+    assert default_column.inject_default_columns(built, lineitem_schema()) == 0
+    assert callable(batch_build.run_batch_build) and native.csv_available()
+    with open("/proc/self/maps") as f:
+        maps = f.read()
+    assert "libcsvread-" in maps and "libpinotnative" not in maps, "the port loaded native/"
 
 leaked = sorted(m for m in sys.modules if m == "pinot_tpu" or m.startswith("pinot_tpu.")
                 or m == "jax" and sys.modules[m] is not None or m.startswith("jax."))

@@ -17,9 +17,12 @@ import os
 import numpy as np
 import pytest
 
+from pinot_tpu.segment.avro import pinot_to_avro_schema as ref_pinot_to_avro_schema
+from pinot_tpu.segment.avro import write_avro as ref_write_avro
 from pinot_tpu.segment.builder import build_segment as ref_build_segment
 from pinot_tpu.segment.format import read_segment as ref_read
 from pinot_tpu.segment.readers import read_csv as ref_read_csv
+from pinot_tpu.segment.readers import read_for_path as ref_read_for_path
 from pinot_tpu.segment.readers import read_jsonl as ref_read_jsonl
 from pinot_tpu.startree import StarTreeBuilderConfig as RefConfig
 from pinot_tpu.tools import admin as ref_admin
@@ -119,8 +122,11 @@ def test_readers_give_the_reference_rows(table, tmp_path):
     assert read_jsonl(str(tmp_path / "rows.jsonl"), schema) == \
         ref_read_jsonl(str(tmp_path / "rows.jsonl"), ref_schema)
     assert read_for_path(str(tmp_path / "rows.jsonl"), schema) == read_jsonl(str(tmp_path / "rows.jsonl"), schema)
-    with pytest.raises(NotImplementedError, match="item 31"):
-        read_for_path(str(tmp_path / "rows.avro"), schema)
+    # an Avro container goes through the Avro reader
+    avro_path = str(tmp_path / "rows.avro")
+    ref_write_avro(avro_path, ref_pinot_to_avro_schema(ref_schema), ref_read_jsonl(str(tmp_path / "rows.jsonl"),
+                                                                                    ref_schema))
+    assert read_for_path(avro_path, schema) == ref_read_for_path(avro_path, ref_schema)
 
 
 @pytest.mark.parametrize("fmt", ["csv", "jsonl"])
