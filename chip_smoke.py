@@ -138,9 +138,9 @@ QueryExecutor.execute -> reduce_to_response on one card:
      (the card filled with filler tensors) healed by demotion on the
      card; EXPLAIN over the tiers and EXPLAIN ANALYZE with K1 / K2 held
      against their plain versions;
- 16. the offline build path and schema evolution: 4 of phase 1's lineitem
-     segments written as CSV files (2^23 rows each, vectorized numpy), a
-     grown-schema CSV file (2^22 rows, three new columns with values) and
+ 16. the offline build path and schema evolution: 2 of phase 1's lineitem
+     segments' first 2^21 rows written as CSV files (vectorized numpy), a
+     grown-schema CSV file (2^20 rows, three new columns with values) and
      an Avro file (2^18 rows, deflate); ``BatchCreateSegments -workers 4``
      builds the CSV files (the columnar path, the native parser) and
      pushes them to a deployed cluster (phase 10's roles), each segment's
@@ -159,6 +159,27 @@ QueryExecutor.execute -> reduce_to_response on one card:
      16 segments: q1 by l_returnflag x l_newflag (K1's fused route with a
      cardinality-1 group column) and distinctcount(l_newflag) (K2) against
      their oracles and plain versions, the default column's staged bytes;
+ 17. the warm start and the utilization planes: phase 1's 16 segments as
+     files through a deployed cluster (phase 10's roles) with
+     ``PINOT_TPU_COMPILE_CACHE_DIR`` set to a fresh directory, one server
+     holding one segment and the other fifteen: q1, q3, hll_groupby,
+     distinct_price and pct_quantity through the broker against their
+     oracles; the servers' ``/debug/plans`` and ``/debug/device``, the
+     broker's and the controller's ``/debug/workload`` and the
+     controller's ``/debug/utilization`` (equal digests and counts across
+     the roles, every roofline fraction at most 1 against the card's
+     declared peaks, each digest's static bytes beside ``data_bound``'s
+     bytes for its launch over the same segments in process); a
+     ``/debug/profile`` capture around queries that must hold K1's and
+     K2's kernels by name; the lane's occupancy 0 idle and above 0 under
+     queries, from the status reader and the sampler; then the one-segment
+     server killed and restarted three times (a fresh plan ledger, the
+     same cache root, prewarming from the controller's ``/debug/workload``),
+     EXPLAIN's compile state before the first query (cold, persistent,
+     prewarmed; ``compile.cold`` 0 after the first restart) and each
+     digest's first query (broker ``timeUsedMs``, ``compile.firstCallMs``)
+     against the warm p50.  The cache roots hold copies of the main
+     build's libraries;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -179,15 +200,15 @@ its buffers.
 
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
-         | --realtime-only | --residency-only | --build-only]
+         | --realtime-only | --residency-only | --build-only | --warmstart-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
 ``--joins-only`` runs the build, the kernel checks and phase 11 alone,
 ``--startree-only`` phase 12 alone, ``--tiers-only`` phase 13 alone (after
 lineitem's datagen), ``--realtime-only`` phase 14 alone,
-``--residency-only`` phase 15 alone and ``--build-only`` phase 16 alone
-(each after lineitem's datagen).
+``--residency-only`` phase 15 alone, ``--build-only`` phase 16 alone and
+``--warmstart-only`` phase 17 alone (each after lineitem's datagen).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -310,7 +331,7 @@ MV_QUERIES = {
 # checks run on a reduced table (2 segments of 2^20 rows) so the host tier
 # answers in seconds
 SERVE_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price", "sel_top", "pairs_distinct")
-SERVE_ITERS = 20  # timed broker requests per query, after warm-up (50 before phase 15)
+SERVE_ITERS = 10  # timed broker requests per query, after warm-up (50 before phase 15, 20 before 17)
 SERVE_WARMUP = 3
 SERVE_CLIENTS = 8
 SERVE_BURSTS = 10  # at most this many bursts of identical q1s until one coalesces
@@ -1236,6 +1257,7 @@ BATCH_DATES = SERVE_DATES + ("1992-03-10", "1992-11-11", "1993-07-07", "1994-04-
 # l_quantity > t: the serving burst's eight (5, 10, ..., 40), then eight more
 QTY_LADDER = (5, 10, 15, 20, 25, 30, 35, 40, 2, 7, 12, 17, 22, 27, 32, 37)
 SHIP_MODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
+LIBRARY_LADDER_ITERS = 3  # torch.bincount over a ladder's B members (ITERS, 20 after 3 warm-ups, before phase 17)
 SERVE_BATCH_ROUNDS = 3  # rounds of each eight-literal burst per batching setting (6 before phase 16)
 _K1_BATCHED_ARGS = ("filter_fwd", "match", "num_docs", "value_fwds", "value_dicts", "capacity", "dtype",
                     "filter_bounds", "value_raws", "group_cols", "group_cards", "group_remaps")
@@ -1428,7 +1450,9 @@ def batched_probe(label: str, kind: str, members: List[dict], fg, vsc, mode: Opt
                     parts_.append(one.reshape(-1) + m * (K + 1))  # int32: B * (K + 1) < 2^31
                 idx = torch.cat(parts_)
                 del parts_
-                r["library_ms"] = cuda_ms(lambda: torch.bincount(idx, minlength=B * (K + 1)), ITERS)[0]
+                # hundreds of ms a call: LIBRARY_LADDER_ITERS, not ITERS
+                r["library_ms"] = cuda_ms(lambda: torch.bincount(idx, minlength=B * (K + 1)),
+                                          LIBRARY_LADDER_ITERS, warmup=1)[0]
                 del idx
             log(f"{kind} batched {label} B={B}: plain version {r['plain_ms']:.4f} ms"
                 + (f", torch.bincount over the members' combined indexes {r['library_ms']:.4f} ms"
@@ -2503,6 +2527,7 @@ class _Role:
         env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {}))
         self.proc = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args],
                                      cwd=REPO_DIR, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True)
+        self.terminated = False
         _ROLES.append(self)
 
     def tail(self, n: int = 3000) -> str:
@@ -2526,10 +2551,17 @@ class _Role:
             time.sleep(0.2)
         raise AssertionError(f"deployed {self.name}: not READY within {deadline_s} s:\n{self.tail()}")
 
+    def terminate(self) -> None:
+        """SIGTERM, once (a second one during the interpreter's exit, when
+        the default action is back, would kill the role), no wait."""
+        if self.proc.poll() is None and not self.terminated:
+            self.terminated = True
+            self.proc.terminate()
+
     def stop(self) -> int:
         """SIGTERM and a wait (a kill past 60 s); the exit code."""
         if self.proc.poll() is None:
-            self.proc.terminate()
+            self.terminate()
             try:
                 self.proc.wait(timeout=60)
             except subprocess.TimeoutExpired:
@@ -2540,10 +2572,17 @@ class _Role:
 
 
 def _stop_roles() -> Dict[str, int]:
+    """Every role stopped: the brokers, servers and workers together
+    (SIGTERM to each, then the waits), then the controllers they talk to."""
+    roles = _ROLES[::-1]
+    _ROLES.clear()
     codes = {}
-    while _ROLES:
-        role = _ROLES.pop()
-        codes[role.name] = role.stop()
+    first = [r for r in roles if not r.name.startswith("controller")]
+    for group in (first, [r for r in roles if r not in first]):
+        for role in group:
+            role.terminate()
+        for role in group:
+            codes[role.name] = role.stop()
     return codes
 
 
@@ -2849,9 +2888,9 @@ JOIN_QUERIES = {
 JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
 JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
 JOIN_ITERS = 1  # in-process runs on the host clock (each extracts up to 67M rows; 3 before phase 15, 2 before 16)
-JOIN_SERVE_ITERS = 3  # broker requests a query over TCP (10 before phase 13, 6 before phase 14)
+JOIN_SERVE_ITERS = 2  # broker requests a query over TCP (10 before phase 13, 6 before 14, 3 before 17)
 JOIN_SHUFFLE_ITERS = 1  # (5 before phase 13, 3 before phase 14, 2 before phase 15)
-JOIN_DEPLOY_ITERS = 2  # (3 before phase 14)
+JOIN_DEPLOY_ITERS = 1  # (3 before phase 14, 2 before 17)
 JOIN_PROGRAM_ITERS = 5  # CUDA-event medians of the device program
 
 
@@ -3307,6 +3346,7 @@ def deployed_join_phase(ssb, wants, record) -> None:
     try:
         url, admin, broker_url, alive = start_roles(tmp, rec)
         env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        adds = []  # the two AddTable processes run at once
         for table, schema, key, replication in (("lineorder", lineorder_schema(), "lo_partkey", 1),
                                                 ("part", part_schema(), "p_partkey", 2)):
             http_json(url + "/schemas", json.dumps(schema.to_json()).encode())
@@ -3314,9 +3354,13 @@ def deployed_join_phase(ssb, wants, record) -> None:
             with open(config_file, "w") as f:
                 json.dump(TableConfig(table, replication=replication,
                                       partitioning=PartitionConfig(key, SSB_PARTITIONS)).to_json(), f)
-            subprocess.run([sys.executable, "-m", "pinot_tpu_torch.tools.admin", "AddTable", "-controller", url,
-                            "-config-file", config_file], cwd=REPO_DIR, env=env, check=True, timeout=120,
-                           capture_output=True)
+            adds.append(subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin", "AddTable",
+                                          "-controller", url, "-config-file", config_file], cwd=REPO_DIR, env=env,
+                                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for p in adds:
+            out = p.communicate(timeout=120)[0]
+            if p.returncode != 0:
+                raise AssertionError(f"deployed joins: AddTable exited with {p.returncode}:\n{out[-3000:]}")
         t = time.perf_counter()
         tables = [(table, seg) for table in ("lineorder", "part") for seg in ssb[table]]
         # one thread a file (the bit packing runs in numpy), uploaded in order
@@ -3408,8 +3452,8 @@ def deployed_join_phase(ssb, wants, record) -> None:
 
 ST_BASEBALL_SEGMENTS = 8  # 8 x 2^23 = 67,108,864 baseballStats rows
 ST_BASEBALL_SEED = 200  # segment i draws from seed 200 + i
-ST_ITERS = 10  # timed runs per cube / scan median (20 before phase 15)
-ST_SERVE_ITERS = 20  # broker requests per served query, after warm-up (50 before phase 15)
+ST_ITERS = 5  # timed runs per cube / scan median (20 before phase 15, 10 before 17)
+ST_SERVE_ITERS = 10  # broker requests per served query, after warm-up (50 before phase 15, 20 before 17)
 ST_CLI_ROWS = 10_000
 ST_QUERIES = {
     "bb_cube": "SELECT sum(runs), count(*) FROM baseballStats GROUP BY teamID TOP 20",
@@ -3601,17 +3645,25 @@ def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None
         ("baseball_cube", bb, baseball_schema(), StarTreeBuilderConfig()),
         ("adevents_hll_cube", ad_distinct, adevents_schema(), StarTreeBuilderConfig(**ST_AD_CONFIG)),
     ):
-        secs, cube_rows = [], []
-        for s in segs:
+        def build(seg, schema=schema, cfg=cfg):
             t = time.perf_counter()
-            build_star_tree(s, schema, cfg)
-            secs.append(time.perf_counter() - t)
-            cube_rows.append(s.star_tree.num_records)
-        builds[config] = {"build_s": secs, "cube_rows": cube_rows, "raw_rows": ROWS_PER_SEGMENT,
-                          "split_order": segs[0].star_tree.split_order}
-        log(f"startree build {config}: {[round(x, 3) for x in secs]} s per segment (median "
-            f"{float(np.median(secs)):.3f}) on the host ({os.cpu_count()} CPUs), cube rows per segment "
-            f"{cube_rows} of {ROWS_PER_SEGMENT} raw, split order {segs[0].star_tree.split_order}")
+            build_star_tree(seg, schema, cfg)
+            return time.perf_counter() - t
+
+        # one thread a segment (the builds are numpy, mostly outside the
+        # GIL; one after another before phase 17)
+        threads = max(1, min(len(segs), os.cpu_count() or 1))
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+            secs = list(pool.map(build, segs))
+        wall = time.perf_counter() - t
+        cube_rows = [seg.star_tree.num_records for seg in segs]
+        builds[config] = {"build_s": secs, "wall_s": wall, "threads": threads, "cube_rows": cube_rows,
+                          "raw_rows": ROWS_PER_SEGMENT, "split_order": segs[0].star_tree.split_order}
+        log(f"startree build {config}: {wall:.1f} s wall in {threads} threads, {[round(x, 3) for x in secs]} s "
+            f"per segment in its thread (median {float(np.median(secs)):.3f}) on the host ({os.cpu_count()} "
+            f"CPUs), cube rows per segment {cube_rows} of {ROWS_PER_SEGMENT} raw, split order "
+            f"{segs[0].star_tree.split_order}")
     # a tile shares its base segment's column arrays (tile_segments), so the
     # base's tree is a sound tree of the tile: each tile gets its base's
     for i, s in enumerate(ad):
@@ -5031,13 +5083,14 @@ def residency_phase(dev, segments, record, fg, vsc, wants) -> None:
 # schema grown under it
 # ---------------------------------------------------------------------------
 
-# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^22
-# rows, the first half of phase 1's li0 and li1 (4 files of its 2^23 rows
-# took 117-135 s on 4 workers: the reference's build path is host Python)
+# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^21
+# rows, the first quarter of phase 1's li0 and li1 (4 files of its 2^23 rows
+# took 117-135 s on 4 workers: the reference's build path is host Python;
+# 2^22 rows a file before phase 17)
 BUILD_FILES = 2
-BUILD_ROWS = 1 << 22  # rows a CSV file (~0.23 GB of text)
+BUILD_ROWS = 1 << 21  # rows a CSV file (~0.11 GB of text)
 BUILD_WORKERS = 4  # BatchCreateSegments -workers (the CSV files and the Avro file, one worker each)
-BUILD_GROWN_ROWS = 1 << 21  # the CSV file built against the grown schema, with real values
+BUILD_GROWN_ROWS = 1 << 20  # the grown-schema CSV file, with real values (2^21 before phase 17)
 BUILD_AVRO_ROWS = 1 << 18  # the Avro file (deflate): the reference's codec is pure Python
 BUILD_SEEDS = {"grown": 97, "avro": 89}  # the CSV files are phase 1's li0.. (seeds 11, 12, ..)
 BUILD_CHUNK = 1 << 20  # rows a vectorized CSV write step
@@ -5668,6 +5721,375 @@ def build_phase(dev, segments, record, fg, vsc, hll_mod, files: int = BUILD_FILE
             torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 17. warm start and utilization: a deployed cluster with the compile cache
+# on; the utilization planes read across the three roles; a torch.profiler
+# capture; the occupancy sampler; a server killed and restarted three times
+# ---------------------------------------------------------------------------
+
+WARM_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price", "pct_quantity")
+WARM_NEED = {"q1": "k1", "q3": "k1", "hll_groupby": "k2", "distinct_price": "k2", "pct_quantity": "k2"}
+# the restarted server hosts this many of the table's 16 segments (the
+# other server the rest): a restart reloads them, ~3.6 s a segment (cut:
+# the reload's length; the table stays 16 x 2^23 rows)
+WARM_RESTART_SEGMENTS = 1
+WARM_ITERS = 3  # warm requests a digest after each restart's first, for the warm p50
+WARM_BUSY_S = 1.0  # the query burst the occupancy sampler reads busy under (1.5 before the cuts of phase 17)
+# the restarts in order: (label, cache root index, prewarm on, the compile
+# state EXPLAIN must read before the first query)
+WARM_RESTARTS = (("fresh", 1, False, "cold"), ("same root", 1, False, "persistent"),
+                 ("prewarm", 1, True, "prewarmed"))
+
+
+def seed_library_roots(roots: List[str]) -> None:
+    """The kernels' libraries of the main build copied under each
+    compile-cache root (``<root>/ext/<fingerprint>``, under the names the
+    servers look for): phase 17's servers then start without nvcc, and its
+    restarts measure the first query, not the build (the build line's
+    seconds are what a root without them pays at a server's start).  The
+    same source, flags and toolkit build the same library, so the copy
+    stands for a build."""
+    from pinot_tpu_torch.engine import compilecache, kernels
+
+    for root in roots:
+        dst = compilecache.library_dir(root)
+        os.makedirs(dst, exist_ok=True)
+        for name in kernels.KERNELS:
+            src = kernels.library_path(name)
+            shutil.copy2(src, os.path.join(dst, src.name))
+
+
+def capture_kernels(kern: Dict[str, Any]) -> Tuple[List[str], List[str]]:
+    """K1's and K2's kernel names in a capture's device-kernel summary;
+    raises unless both are there."""
+    k1 = sorted(k for k in kern if "fused_groupby" in k)
+    k2 = sorted(k for k in kern if "value_state_kernel" in k)
+    if not k1 or not k2:
+        raise AssertionError(f"warm start (c): the capture lacks K1 or K2 by name: {sorted(kern)}")
+    return k1, k2
+
+
+def launch_bytes(fg, vsc, ex, segs, req) -> Dict[str, int]:
+    """``data_bound``'s bytes of the K1 / K2 launches one in-process run of
+    ``req`` over ``segs`` makes (each wrapper's last launch, captured)."""
+    captured: dict = {}
+    r1 = _capture(fg, "fused_filtered_groupby_sums", captured, "k1")
+    r2 = _capture(vsc, "value_state", captured, "k2")
+    try:
+        ex.execute(segs, req)
+    finally:
+        fg.fused_filtered_groupby_sums = r1
+        vsc.value_state = r2
+    out = {}
+    if "k1" in captured:
+        names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
+        a, k = captured["k1"]
+        args = {**dict(zip(names, a)), **k}
+        args.setdefault("filter_bounds", None)
+        args.setdefault("group_cols", None)
+        matched = int(fg.fused_filtered_groupby_sums(**args)[0])
+        out["k1"] = k1_bound(args, matched)[2]
+    if "k2" in captured:
+        (mode, *rest), kw = captured["k2"]
+        args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+        matched = int(vsc.value_state(mode, **args)[0])
+        out["k2"] = k2_bound(vsc, mode, args, matched)[2]
+    return out
+
+
+def warmstart_phase(dev, segments, wants, record, roots: List[str], fg, vsc) -> None:
+    """17. The lineitem table deployed with ``PINOT_TPU_COMPILE_CACHE_DIR``
+    on (a controller, two servers and a broker, each its own process):
+    (a) five queries through the broker against their oracles; (b) the
+    servers' ``/debug/plans`` and ``/debug/device``, the broker's and the
+    controller's ``/debug/workload`` and the controller's
+    ``/debug/utilization``: equal digests and counts across the roles, each
+    roofline fraction at most 1 against the card's declared peaks, each
+    digest's static bytes beside ``data_bound``'s bytes for its launch;
+    (c) a ``/debug/profile`` capture around the queries holding K1's and
+    K2's kernels by name; (d) the occupancy reading 0 idle and more than 0
+    under queries; (e) one server killed and restarted three times (a
+    fresh ledger, the same root, prewarming fed by the controller's
+    ``/debug/workload``), each digest's first query against the warm p50
+    and EXPLAIN's compile state before it."""
+    from pinot_tpu_torch.common.tableconfig import TableConfig
+    from pinot_tpu_torch.engine.executor import QueryExecutor
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.segment.format import write_segment
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    rec = record["warmstart"] = {"restarts": {}}
+    pqls = {n: {**QUERIES, **VALUE_QUERIES}[n] for n in WARM_QUERIES}
+    tmp = tempfile.mkdtemp(prefix="pinot-warmstart-")
+    t_phase = time.perf_counter()
+    table = "lineitem_OFFLINE"
+    nrs = WARM_RESTART_SEGMENTS
+    restart_env = {"PINOT_TPU_PREWARM_TOP_K": "0"}
+
+    def query(pql: str) -> dict:
+        return http_json(broker_url + "/query", json.dumps({"pql": pql}).encode())
+
+    def launches(admins) -> Dict[str, int]:
+        out = {"k1": 0, "k2": 0}
+        for a in admins:
+            got = http_json(a + "/debug/metrics")["kernelLaunches"]
+            out = {k: out[k] + got[k] for k in out}
+        return out
+
+    def meters(a: str) -> Dict[str, int]:
+        snap = http_json(a + "/debug/metrics")["metrics"]["meters"]
+        return {k: int(snap.get(k, {}).get("count", 0)) for k in (
+            "compile.cold", "compile.warm", "compile.persistentHit", "compile.persistentMiss", "compile.prewarmed",
+            "prewarm.compiled", "prewarm.failed")}
+
+    try:
+        def write(seg):
+            return write_segment(seg, os.path.join(tmp, "files", seg.segment_name))
+
+        # the files are written beside the roles' start
+        t = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(max(1, min(len(segments), os.cpu_count() or 1))) as pool:
+            written = pool.map(write, segments)
+            env = {"PINOT_TPU_COMPILE_CACHE_DIR": roots[0], **restart_env}
+            url, admin, broker_url, alive = start_roles(tmp, rec, server_env=env, device=DEPLOY_DEVICE)
+            files = list(written)
+        rec["write_s"] = time.perf_counter() - t
+        log(f"warm start: {len(files)} segment files written beside the roles' start, both done in "
+            f"{rec['write_s']:.1f} s")
+        http_json(url + "/schemas", json.dumps(lineitem_schema().to_json()).encode())
+        http_json(url + "/tables", json.dumps(TableConfig("lineitem").to_json()).encode())
+        # the restarted server (server1) hosts the first segments, server0 the rest
+        for i, path in enumerate(files):
+            with open(path, "rb") as f:
+                http_json(f"{url}/segments/{table}?server={'server1' if i < nrs else 'server0'}", f.read(),
+                          "application/octet-stream")
+        online_s = wait_online(url, broker_url, table, len(files), alive)
+        log(f"warm start: {len(files)} segments ONLINE in {online_s:.1f} s after the upload (server1 {nrs}, "
+            f"server0 {len(files) - nrs}), the servers' cache root {roots[0]}")
+
+        # (a) the queries through the broker, against their oracles
+        per_query = {}
+        for name in WARM_QUERIES:
+            b = launches(admin.values())
+            d = query(pqls[name])
+            check_deployed(name, d, wants[name])
+            per_query[name] = {k: v - b[k] for k, v in launches(admin.values()).items()}
+            require_launch(f"warm start {name}", per_query[name], WARM_NEED[name])
+        log(f"warm start (a): every answer equal to its oracle through the broker; launches on the servers "
+            f"{per_query}")
+
+        # (b) the planes across the three roles.  A digest's static cost
+        # lands on a helper thread after its first launch and joins the
+        # plan statistics at a later query: the queries run again (checked)
+        # until every server's entries carry it
+        for _ in range(10):
+            plans = {n: http_json(a + "/debug/plans?top=100")["plans"] for n, a in admin.items()}
+            if all((p["roofline"] or {}).get("staticBytesPerExec") for v in plans.values() for p in v):
+                break
+            time.sleep(0.2)
+            for name in WARM_QUERIES:
+                check_deployed(name, query(pqls[name]), wants[name])
+        bw = http_json(broker_url + "/debug/workload?top=100")
+        cw = http_json(url + "/debug/workload?n=100&tables=lineitem")
+        util = http_json(url + "/debug/utilization")
+        counts = {"broker": {p["digest"]: p["count"] for p in bw["topByCount"]},
+                  "controller": {p["digest"]: p["count"] for p in cw["topByCount"]},
+                  **{n: {p["digest"]: p["count"] for p in v} for n, v in plans.items()}}
+        if len({json.dumps(c, sort_keys=True) for c in counts.values()}) != 1 or len(counts["broker"]) != len(
+                WARM_QUERIES):
+            raise AssertionError(f"warm start (b): digests and counts differ across the roles {counts}")
+        if sorted(util["servers"]) != sorted(admin) or util["unreachable"]:
+            raise AssertionError(f"warm start (b): /debug/utilization {util['unreachable']} {sorted(util['servers'])}")
+        ex = QueryExecutor(device=dev, precision="x32")
+        roofs = {}
+        for n, v in plans.items():
+            for p in v:
+                roof = p["roofline"]
+                frac = None if roof is None else roof.get("rooflineFraction")
+                if frac is None or not 0 < frac <= 1.0:
+                    raise AssertionError(f"warm start (b): {n} {p['summary']}: roofline {roof}")
+                # the servers' registries carry no query text: the broker's does
+                pql = next(b["exemplarPql"] for b in bw["topByCount"] if b["digest"] == p["digest"])
+                name = next(k for k, q in pqls.items() if q == pql)
+                # data_bound's bytes of server1's launch, in process over its
+                # segments (server0's fifteen would stage 1.8 GB a query)
+                host = segments[:nrs] if n == "server1" else None
+                bound_bytes = None
+                if host is not None:
+                    bound_bytes = launch_bytes(fg, vsc, ex, host, optimize_request(parse_pql(pql)))
+                    ex.free_staging()
+                roofs[f"{n}/{name}"] = dict(rooflineFraction=frac, bandwidthFraction=roof.get("bandwidthFraction"),
+                                            flopsFraction=roof.get("flopsFraction"),
+                                            achievedBytesPerSec=roof["achievedBytesPerSec"],
+                                            staticBytes=roof.get("staticBytesPerExec"),
+                                            staticFlops=roof.get("staticFlopsPerExec"), dataBoundBytes=bound_bytes,
+                                            deviceMs=roof["deviceMs"], deviceBytes=roof["deviceBytes"],
+                                            deviceDigest=roof.get("deviceDigest"))
+                log(f"warm start (b) {n} {name}: rooflineFraction {frac:.6f} (bandwidth "
+                    f"{roof.get('bandwidthFraction')}, flops {roof.get('flopsFraction')}; {roof['deviceMs']} ms, "
+                    f"{roof['deviceBytes']} bytes), static bytesAccessed {roof.get('staticBytesPerExec')}"
+                    + ("" if bound_bytes is None else f" beside data_bound's {bound_bytes} for the same launch "
+                                                      f"(in process over its {nrs} segment(s))")
+                    + f", static flops {roof.get('staticFlopsPerExec')}")
+        del ex
+        torch.cuda.empty_cache()
+        rec.update(online_s=online_s, counts=counts, roofline=roofs, peaks=util["servers"]["server0"]["device"][
+            "platform"], fleet_roofline=util["rooflineFraction"], fleet_totals=util["totals"])
+        log(f"warm start (b): digests and counts equal on both servers, the broker and the controller "
+            f"{counts['broker']}; declared peaks {rec['peaks']}; fleet rooflineFraction {util['rooflineFraction']}")
+
+        # (c) + (d) a profile capture around the queries on server0, the
+        # sampler bracketed to it; the status reader idle, then busy
+        a0 = admin["server0"]
+        http_json(a0 + "/debug/device")
+        http_json(a0 + "/debug/profile/start", json.dumps({"timeoutS": 120}).encode())
+        t_idle = time.time()
+        time.sleep(0.8)
+        idle = http_json(a0 + "/debug/device")["occupancy"]["busyFraction"]
+        t_busy = time.time()
+        n_burst = 0
+        while time.time() - t_busy < WARM_BUSY_S:
+            for name in WARM_QUERIES:
+                check_deployed(name, query(pqls[name]), wants[name])
+                n_burst += 1
+        busy = http_json(a0 + "/debug/device")["occupancy"]["busyFraction"]
+        t_end = time.time()
+        cap = http_json(a0 + "/debug/profile/stop", b"{}")
+        dev_snap = http_json(a0 + "/debug/device")
+        kern = (cap.get("lastCapture") or {}).get("kernels") or {}
+        k1_names, k2_names = capture_kernels(kern)
+        samples = (dev_snap.get("sampler") or {}).get("samples") or []
+        idle_s = [s["busyFraction"] for s in samples if t_idle + 0.3 < s["ts"] < t_busy]
+        busy_s = [s["busyFraction"] for s in samples if t_busy < s["ts"] <= t_end]
+        if idle != 0.0 or busy <= 0.0 or any(idle_s) or not any(busy_s):
+            raise AssertionError(f"warm start (d): occupancy idle {idle} {idle_s}, busy {busy} {busy_s}")
+        # the roofline of each digest again, now over its warm runs too
+        warm_roofs = {}
+        for n, a in admin.items():
+            for p in http_json(a + "/debug/plans?top=100")["plans"]:
+                roof = p["roofline"] or {}
+                frac = roof.get("rooflineFraction")
+                if frac is None or not 0 < frac <= 1.0:
+                    raise AssertionError(f"warm start (b): {n} {p['summary']}: roofline after the burst {roof}")
+                warm_roofs[f"{n}/{p['summary']}"] = dict(count=p["count"], rooflineFraction=frac,
+                                                          deviceMs=roof["deviceMs"], deviceBytes=roof["deviceBytes"],
+                                                          achievedBytesPerSec=roof["achievedBytesPerSec"])
+        rec["roofline_after_burst"] = warm_roofs
+        log(f"warm start (b) after the burst: per server and shape (count, rooflineFraction, achieved TB/s) "
+            f"{ {k: (v['count'], v['rooflineFraction'], round(v['achievedBytesPerSec'] / 1e12, 4)) for k, v in warm_roofs.items()} }")
+        rec["profile"] = {"kernels": kern, "queries": n_burst, "dir": cap["lastCapture"]["dir"]}
+        rec["occupancy"] = {"idle": idle, "busy": busy, "sampler_idle": idle_s, "sampler_busy": busy_s}
+        log(f"warm start (c): the capture around {n_burst} queries holds K1 {[(k, kern[k]) for k in k1_names]} "
+            f"and K2 {[(k, kern[k]) for k in k2_names]}")
+        log(f"warm start (d): busyFraction idle {idle} (sampler {idle_s}), under the queries {busy:.6f} "
+            f"(sampler {busy_s})")
+
+        # (e) server1 killed and restarted three times; the launches of
+        # every server process of the phase (each counts from 0 at its
+        # start) are summed, its incarnations' read before each kill
+        role = next(r for r in _ROLES if r.name == "server1")
+        killed = {"k1": 0, "k2": 0}
+        for label, root_i, prewarm, want_state in WARM_RESTARTS:
+            got = launches([admin["server1"]])
+            killed = {k: killed[k] + got[k] for k in killed}
+            role.proc.kill()
+            role.proc.wait(timeout=60)
+            _ROLES.remove(role)
+            role.log.close()
+            env = {"PINOT_TPU_COMPILE_CACHE_DIR": roots[root_i], **({} if prewarm else restart_env)}
+            t = time.perf_counter()
+            role = _Role(f"server1-{label.replace(' ', '-')}", [
+                "StartServer", "-controller", url, "-name", "server1", "-port", "0", "-device", DEPLOY_DEVICE,
+                "-precision", "x32"], tmp, env=env)
+            words = role.ready(DEPLOY_READY_S)
+            ready_s = time.perf_counter() - t
+            a1 = admin["server1"] = words[-1]
+            tcp = words[2]
+            end = time.monotonic() + DEPLOY_ONLINE_S
+            while len(http_json(a1 + "/debug/samples?timer=segmentLoad")["samples"]) < nrs:
+                for r in list(_ROLES):  # the roles of now: the killed server1 left them
+                    r.check_alive()
+                if time.monotonic() > end:
+                    raise AssertionError(f"warm start {label}: server1 did not load its segments")
+                time.sleep(0.1)
+            load_s = time.perf_counter() - t - ready_s
+            while True:  # the broker routes to the new address
+                st = http_json(url + "/clusterstate?ifNewer=-1")
+                if ":".join(map(str, st["servers"].get("server1", []))) == tcp:
+                    break
+                time.sleep(0.1)
+            time.sleep(1.0)  # the broker's poll (0.3 s) picks it up
+            pw = None
+            if prewarm:
+                end = time.monotonic() + 120
+                while True:
+                    pw = http_json(a1 + "/debug/prewarm")
+                    if not pw["warming"] and pw["compiled"] >= len(WARM_QUERIES):
+                        break
+                    if time.monotonic() > end:
+                        raise AssertionError(f"warm start {label}: prewarm did not finish {pw}")
+                    time.sleep(0.1)
+            states, firsts = {}, {}
+            for name in WARM_QUERIES:
+                node = next(n for n in query("EXPLAIN " + pqls[name])["explain"]["servers"]
+                            if n["server"] == "server1")
+                states[name] = node["device"]["compile"]["state"]
+            if set(states.values()) != {want_state}:
+                raise AssertionError(f"warm start {label}: EXPLAIN's compile states {states}, not {want_state}")
+            for name in WARM_QUERIES:
+                d = query(pqls[name])
+                check_deployed(name, d, wants[name])
+                first = d["timeUsedMs"]
+                warm = []
+                for _ in range(WARM_ITERS):
+                    d = query(pqls[name])
+                    warm.append(d["timeUsedMs"])
+                check_deployed(name, d, wants[name])
+                node = next(n for n in query("EXPLAIN " + pqls[name])["explain"]["servers"]
+                            if n["server"] == "server1")
+                comp = node["device"]["compile"]
+                firsts[name] = dict(first_ms=first, warm_p50_ms=float(np.median(warm)), firstCallMs=comp.get(
+                    "firstCallMs"), launches=comp.get("launches"), launchMsTotal=comp.get("launchMsTotal"),
+                    state_after=comp["state"])
+            m = meters(a1)
+            staging = http_json(a1 + "/debug/samples?timer=phase.staging")["samples"]
+            dispatch = http_json(a1 + "/debug/samples?timer=phase.laneDispatch")["samples"]
+            if want_state == "cold" and (m["compile.cold"] != len(WARM_QUERIES) or m["compile.persistentMiss"]
+                                         != len(WARM_QUERIES)):
+                raise AssertionError(f"warm start {label}: meters {m}")
+            if want_state != "cold" and m["compile.cold"] != 0:
+                raise AssertionError(f"warm start {label}: compile.cold {m['compile.cold']} != 0 ({m})")
+            if want_state == "persistent" and m["compile.persistentHit"] != len(WARM_QUERIES):
+                raise AssertionError(f"warm start {label}: meters {m}")
+            if want_state == "prewarmed" and (m["compile.prewarmed"] != len(WARM_QUERIES) or m["prewarm.failed"]):
+                raise AssertionError(f"warm start {label}: meters {m} prewarm {pw}")
+            rec["restarts"][label] = dict(ready_s=ready_s, load_s=load_s, states=states, queries=firsts, meters=m,
+                                          prewarm=pw, staging_ms=staging, lane_dispatch_ms=dispatch)
+            log(f"warm start (e) {label}: READY {ready_s:.1f} s, {nrs} segment(s) loaded {load_s:.1f} s after; "
+                f"EXPLAIN before the first query {want_state} for every digest; meters {m}"
+                + (f"; prewarm pass {pw['lastPassMs']} ms, {pw['compiled']} shapes" if pw else ""))
+            for name, f in firsts.items():
+                log(f"warm start (e) {label} {name}: first query {f['first_ms']:.3f} ms (broker timeUsedMs; "
+                    f"compile.firstCallMs {f['firstCallMs']}, the lane's launches {f['launchMsTotal']} ms over "
+                    f"{f['launches']}) against the warm p50 {f['warm_p50_ms']:.3f} ms of {WARM_ITERS}")
+            log(f"warm start (e) {label}: server1's phase.staging ms {[round(x, 3) for x in staging]}, "
+                f"phase.laneDispatch ms {[round(x, 3) for x in dispatch]}")
+        got = launches(admin.values())
+        totals = {k: killed[k] + got[k] for k in killed}
+        record["paths"]["warmstart"] = {"launches": per_query, "totals": totals}
+        log(f"path warmstart: launches per query {per_query}, total over the phase {totals}")
+        for r in list(_ROLES):
+            r.check_alive()
+    finally:
+        codes = _stop_roles()
+        rec["exit_codes"] = codes
+        log(f"warm start: every role stopped, exit codes {codes}; phase {time.perf_counter() - t_phase:.1f} s")
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = {n: c for n, c in codes.items() if c}
+    if bad:
+        raise AssertionError(f"warm start: a role did not exit cleanly {codes}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -5695,6 +6117,9 @@ def main(argv=None) -> int:
     ap.add_argument("--build-only", action="store_true",
                     help="after the build, the kernel checks and lineitem's datagen run only phase 16, "
                     "the offline build path and schema evolution (no result line)")
+    ap.add_argument("--warmstart-only", action="store_true",
+                    help="after the build, the kernel checks and lineitem's datagen run only phase 17, "
+                    "the warm start and the utilization planes (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -5761,7 +6186,7 @@ def run(dev: torch.device, opts) -> int:
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
     if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
         makers = {}
-    elif opts.tiers_only or opts.residency_only or opts.build_only:
+    elif opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only:
         makers = {"lineitem": lineitem}
     datagen = concurrent.futures.ThreadPoolExecutor(max(1, len(makers)))
     tables = {name: datagen.submit(made, make) for name, make in makers.items()}
@@ -5770,6 +6195,14 @@ def run(dev: torch.device, opts) -> int:
     kernels.load_all()
     build_s = time.perf_counter() - t0
     log(f"build: {build_s:.3f} s for {', '.join(kernels.KERNELS)}")
+    # phase 17's compile-cache roots, given the main build's libraries
+    warm_roots = []
+    if not (opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.tiers_only
+            or opts.residency_only or opts.build_only):
+        warm_base = tempfile.mkdtemp(prefix="pinot-compile-cache-")
+        atexit.register(shutil.rmtree, warm_base, True)
+        warm_roots = [os.path.join(warm_base, "cluster"), os.path.join(warm_base, "restart")]
+        seed_library_roots(warm_roots)
     for name, text in kernels.build_logs.items():
         usage = sorted({ln.split("info    :")[-1].strip() for ln in text.splitlines() if "Used" in ln})
         spills = sorted({ln.strip() for ln in text.splitlines() if "spill" in ln})
@@ -5929,6 +6362,18 @@ def run(dev: torch.device, opts) -> int:
             with open(opts.out, "w") as f:
                 json.dump(record, f, indent=1, default=str)
         return 0
+    if opts.warmstart_only:
+        record["paths"] = {}
+        warm_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
+                      for n in WARM_QUERIES}
+        warmstart_phase(dev, segments, warm_wants, record, warm_roots, fg, vsc)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
+        log(f"warm start only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
     if opts.residency_only:
         record["paths"] = {}
         res_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
@@ -5955,8 +6400,13 @@ def run(dev: torch.device, opts) -> int:
         raise AssertionError(f"{kernel_mod.fused_dispatches} fused dispatches for {len(QUERIES)} queries")
     record["oracle_max_rel_err"] = {}
     wants = {}  # the host oracles, kept for the serving phase
+    # the float64 oracles of phases 3a-3c in threads (numpy releases the
+    # interpreter), each checked below in turn
+    oracles = concurrent.futures.ThreadPoolExecutor(4)
+    pending = {n: oracles.submit(oracle, segments, n) for n in (*QUERIES, "torch_op")}
+    pending.update({n: oracles.submit(value_oracle, hll_mod, segments, n) for n in VALUE_QUERIES})
     for name in QUERIES:
-        wants[name] = oracle(segments, name)
+        wants[name] = pending[name].result()
         worst = check_response(responses[name], wants[name])
         log(f"oracle {name}: ok (max rel sum err {worst:.3g})")
         record["oracle_max_rel_err"][name] = worst
@@ -5978,7 +6428,7 @@ def run(dev: torch.device, opts) -> int:
         raise AssertionError(f"{kernel_mod.fused_value_dispatches} fused value dispatches for "
                              f"{len(VALUE_QUERIES)} queries")
     for name in VALUE_QUERIES:
-        wants[name] = value_oracle(hll_mod, segments, name)
+        wants[name] = pending[name].result()
         check_value_response(value_responses[name], wants[name])
         log(f"oracle {name}: ok, exact ({value_responses[name].aggregation_results[0].to_json()})"[:400])
 
@@ -5988,7 +6438,7 @@ def run(dev: torch.device, opts) -> int:
     second = ex.execute(segments, torch_op_request)
     if partials_of(first) != partials_of(second):
         raise AssertionError("torch_op: two runs differ")
-    wants["torch_op"] = oracle(segments, "torch_op")
+    wants["torch_op"] = pending["torch_op"].result()
     torch_op_response = reduce_to_response(torch_op_request, [second])
     worst = check_response(torch_op_response, wants["torch_op"])
     log(f"torch_op: two runs bit-identical; oracle ok (max rel sum err {worst:.3g})")
@@ -6000,10 +6450,14 @@ def run(dev: torch.device, opts) -> int:
     log(f"datagen + user hashing: {AD_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to "
         f"{SEGMENTS} segments in {gen_s:.1f} s (in a thread, beside the build)")
     ns_request = parse(NORTH_STAR)
+    # north_star's and the pairs' oracles in the threads, beside the paths
+    pending["north_star"] = oracles.submit(north_star_oracle, hll_mod, ad_segments)
+    for name in PAIR_QUERIES:
+        pending[name] = oracles.submit(pair_oracle, hll_mod, ad_segments if name in AD_QUERIES else segments, name)
     ns = drive("north_star", {"north_star": ns_request}, ad_segments, {"north_star": ("k1",)})
     if record["paths"]["north_star"]["totals"]["k2"]:
         raise AssertionError("north_star: the sort lowering launched the value-state kernel")
-    ns_want = north_star_oracle(hll_mod, ad_segments)
+    ns_want = pending["north_star"].result()
     check_value_response(ns["north_star"], ns_want)
     log("oracle north_star: ok, exact")
 
@@ -6050,7 +6504,7 @@ def run(dev: torch.device, opts) -> int:
         kernel_mod._reduce_distinct_pairs = real_reduce
     record["pairs_unique"] = {}
     for (name, resp), (n_unique, kept) in zip(paired.items(), pair_stats):
-        want, want_unique, want_kept = wants[name] = pair_oracle(hll_mod, segs_of(name), name)
+        want, want_unique, want_kept = wants[name] = pending[name].result()
         check_value_response(resp, want)
         if (n_unique, kept) != (want_unique, want_kept):
             raise AssertionError(f"{name}: {n_unique} unique of {kept} kept pairs, oracle "
@@ -6445,12 +6899,14 @@ def run(dev: torch.device, opts) -> int:
     # its shape
     mv_ex = QueryExecutor(device=dev, precision="x32", postings=False)
     mv_need = {"mv_filter": ("k1",), "mv_groupby": ("k1",), "mv_aggs": ("k2",), "mv_grouped_state": ("k2",)}
+    mv_wants = {n: oracles.submit(mv_oracle, hll_mod, mv_distinct, SEGMENTS // MV_DISTINCT, n, values)
+                for n in MV_QUERIES}  # in the threads, beside the path
+    oracles.shutdown(wait=False)
     mv_answers = drive("mv", mv_requests, mv_segments, mv_need, executor=mv_ex)
     if kernel_mod.fused_dispatches or kernel_mod.fused_value_dispatches:
         raise AssertionError("mv: a query took a fused route")
     for name in MV_QUERIES:
-        worst = check_mv_response(mv_answers[name], mv_oracle(hll_mod, mv_distinct, SEGMENTS // MV_DISTINCT,
-                                                              name, values))
+        worst = check_mv_response(mv_answers[name], mv_wants[name].result())
         log(f"oracle {name}: ok (max rel sum err {worst:.3g}); "
             f"{json.dumps(mv_answers[name].aggregation_results[0].to_json())[:300]}")
         record["oracle_max_rel_err"][name] = worst
@@ -6764,6 +7220,16 @@ def run(dev: torch.device, opts) -> int:
     log(f"build phase: {time.perf_counter() - t0:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phases 1-16 done")
 
+    # 17. the warm start and the utilization planes: a deployed cluster
+    # with the compile cache on, the planes read across the roles, a
+    # profiler capture, one server restarted three times
+    t0 = time.perf_counter()
+    ex.free_staging()
+    torch.cuda.empty_cache()
+    warmstart_phase(dev, segments, wants, record, warm_roots, fg, vsc)
+    log(f"warm start phase: {time.perf_counter() - t0:.1f} s")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
+
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
     # the shares are the same, and its postings are built once, then freed)
@@ -6836,6 +7302,7 @@ def run(dev: torch.device, opts) -> int:
             "tiers_shape": record["tiers"]["k1"],
             "realtime_shape": record["realtime"]["k1"],
             "build_shape": record["build"]["k1"],
+            "warmstart_launches": record["paths"]["warmstart"]["totals"]["k1"],
         },
         {
             "name": "value_state_counts",
@@ -6852,6 +7319,7 @@ def run(dev: torch.device, opts) -> int:
             "block_path": dict(block_path("zone_distinct", zk2), library_ms=zk2["blocks"]["library_ms"]),
             "realtime_shape": record["realtime"]["k2"],
             "build_shape": record["build"]["k2"],
+            "warmstart_launches": record["paths"]["warmstart"]["totals"]["k2"],
         },
     ]}
     summary["kernels"] += [

@@ -33,9 +33,21 @@ results.  ``EXPLAIN ANALYZE`` reduces the results as usual and adds the
 tree, whose actual cost is the response's.  A join's EXPLAIN is the join
 coordinator's shell (``broker/joinplan.py``).
 
-Left out of the port, for later slices: admission and quota, hedging,
-the SLO / tail-sample / flight-recorder / history planes, the slow-query
-log, plan statistics, the freshness stamp and the replica auditor.
+QUOTA: a table's query-rate quota (``broker/quota.py``, fed from the
+table configs) sheds a query past the rate with ``TOO_MANY_REQUESTS``
+(429) before any scatter.
+
+WORKLOAD: every merged response lands in a per-plan-digest registry
+(``utils/planstats.py``; plain EXPLAIN left out), behind
+``/debug/workload`` (top-K by frequency and by cost, each with an
+exemplar query): the fleet feed a prewarming server pulls through the
+controller.  Its roofline is suppressed: a fleet-merged rate over this
+process's peak is not a roofline.
+
+Left out of the port, for later slices: the rest of admission
+(``broker/admission.py``: in-flight caps, AIMD windows; ROADMAP queue 1
+item 28), hedging, the SLO / tail-sample / flight-recorder / history
+planes, the slow-query log, the freshness stamp and the replica auditor.
 """
 from __future__ import annotations
 
@@ -52,6 +64,7 @@ from urllib.parse import parse_qs, urlparse
 
 from pinot_tpu_torch.broker.health import ServerHealthTracker
 from pinot_tpu_torch.broker.joinplan import JoinCoordinator
+from pinot_tpu_torch.broker.quota import QueryQuotaManager
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
 from pinot_tpu_torch.broker.time_boundary import TimeBoundaryService
 from pinot_tpu_torch.common.datatable import deserialize_result, serialize_instance_request
@@ -61,6 +74,7 @@ from pinot_tpu_torch.engine.plandigest import plan_shape_digest, plan_shape_summ
 from pinot_tpu_torch.engine.reduce import reduce_to_response
 from pinot_tpu_torch.engine.results import IntermediateResult
 from pinot_tpu_torch.pql import PqlParseError, optimize_request, parse_pql
+from pinot_tpu_torch.utils.planstats import PlanStatsStore
 from pinot_tpu_torch.utils.metrics import BrokerMetrics, prometheus_text
 from pinot_tpu_torch.utils.trace import NULL_TRACE, TraceContext, merge_scope
 
@@ -153,7 +167,13 @@ class BrokerRequestHandler:
         # token + a per-broker sequence
         self._id_prefix = f"{name}-{uuid.uuid4().hex[:6]}"
         self._pool = concurrent.futures.ThreadPoolExecutor(max_workers=16)
-        for m in ("queries", "failoverRetries", "cost.docsScanned", "cost.bytesScanned", "explain.queries"):
+        # per-table query-rate quotas (QuotaConfig.maxQueriesPerSecond),
+        # fed by the controller's table configs
+        self.quota = QueryQuotaManager()
+        # the workload plane (module docstring)
+        self.planstats = PlanStatsStore()
+        for m in ("queries", "failoverRetries", "cost.docsScanned", "cost.bytesScanned", "explain.queries",
+                  "admission.shedQuota", "queriesDropped", "workload.recorded"):
             self.metrics.meter(m)
         for t in ("cost.deviceMs", "cost.hostMs"):
             self.metrics.timer(t)
@@ -192,6 +212,7 @@ class BrokerRequestHandler:
             else NULL_TRACE
         )
         resp: Optional[BrokerResponse] = None
+        request: Optional[BrokerRequest] = None
         with ctx.span("query", requestId=request_id, pql=pql[:200]):
             t_parse = time.perf_counter()
             try:
@@ -225,7 +246,30 @@ class BrokerRequestHandler:
         resp.request_id = request_id
         resp.time_used_ms = (time.perf_counter() - t0) * 1000
         self.metrics.timer("queryTotal").update(resp.time_used_ms)
+        if request is not None and resp.plan_digest and request.explain != "plan":
+            # every executed query lands in the per-digest registry (plain
+            # EXPLAIN did no work and must not skew the rankings)
+            shed = any(e.error_code == ErrorCode.TOO_MANY_REQUESTS for e in resp.exceptions)
+            self.planstats.record(
+                resp.plan_digest, summary=plan_shape_summary(request), table=request.table_name or "",
+                latency_ms=resp.time_used_ms, cost=resp.cost, num_docs=resp.num_docs_scanned, shed=shed,
+                failed=bool(resp.exceptions) and not shed, pql=pql,
+            )
+            self.metrics.meter("workload.recorded").mark()
         return resp
+
+    def workload_snapshot(self, top: int = 20, tables=None) -> Dict[str, Any]:
+        """``/debug/workload``: the per-plan-digest roll-up, top-K by
+        frequency and by total cost.  ``top`` at the registry's capacity
+        returns all of it (the controller's fleet roll-up merges whole
+        registries); ``tables`` narrows it to the shapes of those tables
+        (the feed of a prewarming server)."""
+        return {
+            "digests": self.planstats.digest_count(),
+            "totalRecorded": self.planstats.total_recorded,
+            "topByCount": self.planstats.top(top, by="count", tables=tables),
+            "topByCost": self.planstats.top(top, by="cost", tables=tables),
+        }
 
     def handle_request(
         self,
@@ -249,6 +293,15 @@ class BrokerRequestHandler:
             )
         timeout_ms = self.timeout_ms if timeout_ms is None else min(timeout_ms, self.timeout_ms)
         table = request.table_name
+        # the query-rate quota, before any scatter: a shed is a typed 429
+        if not self.quota.allow(table):
+            self.metrics.meter("admission.shedQuota").mark()
+            self.metrics.meter("queriesDropped").mark()
+            return BrokerResponse(
+                exceptions=[QueryException(
+                    ErrorCode.TOO_MANY_REQUESTS, f"query rate on table {table} exceeds the configured quota")],
+                request_id=request_id,
+            )
         if request.join is not None:
             # a broker-planned distributed join: strategy choice and a
             # scatter-gather per phase
@@ -750,8 +803,9 @@ def _parse_debug_options(s: str) -> Optional[Dict[str, str]]:
 class BrokerHttpServer:
     """HTTP endpoint: GET /query?pql=... and POST /query {"pql": ...}
     (``PinotClientRequestServlet.java:54/:73``), plus ``/health``,
-    ``/metrics``, ``/debug/metrics`` and ``/debug/routing`` (each table's
-    view of segment -> {server: state}, as this broker routes it)."""
+    ``/metrics``, ``/debug/metrics``, ``/debug/routing`` (each table's
+    view of segment -> {server: state}, as this broker routes it) and
+    ``/debug/workload?top=&n=&tables=`` (``workload_snapshot``)."""
 
     def __init__(self, handler: BrokerRequestHandler, host: str = "127.0.0.1", port: int = 0):
         broker = handler
@@ -791,6 +845,15 @@ class BrokerHttpServer:
                         return self._respond(broker.metrics.snapshot())
                     if url.path == "/debug/routing":
                         return self._respond({t: broker.routing.view_of(t) for t in broker.routing.tables()})
+                    if url.path == "/debug/workload":
+                        qs = parse_qs(url.query)
+                        # ?n= is the prewarm feed's alias of ?top=
+                        try:
+                            top = int((qs.get("n") or qs.get("top") or ["20"])[0])
+                        except ValueError:
+                            top = 20
+                        tables = [t.strip() for t in (qs.get("tables") or [""])[0].split(",") if t.strip()]
+                        return self._respond(broker.workload_snapshot(top=max(1, top), tables=tables or None))
                     return self._respond({"error": "not found"}, 404)
                 qs = parse_qs(url.query)
                 pql = (qs.get("pql") or qs.get("bql") or [""])[0]

@@ -4,13 +4,14 @@
 It registers, heartbeats, and polls the controller's versioned cluster
 state (the ZK-watch analog) to rebuild the per-table routing, the server
 name -> TCP address map, the circuit breaker's dead servers and the
-hybrid time boundaries, and each table's declared key partitioning
+hybrid time boundaries, each table's query-rate quota (updates and
+removals included) and its declared key partitioning
 (``TableConfig.partitioning``, given through ``AddTable``), which the join
 planner's colocation check reads.  Queries go HTTP front ->
 ``BrokerRequestHandler`` -> TCP scatter-gather -> reduce.  While the
 controller is unreachable the broker keeps routing from its last
-snapshot.  Left out, ROADMAP queue 1 item 28: quotas and SLO objectives
-from the snapshot, the link fault injector.
+snapshot.  Left out, ROADMAP queue 1 item 28: SLO objectives from the
+snapshot, the link fault injector.
 """
 from __future__ import annotations
 
@@ -151,10 +152,19 @@ class NetworkedBrokerStarter:
             self.handler.time_boundary.remove(stale)
         for table, (col, value) in state.get("timeBoundaries", {}).items():
             self.handler.time_boundary.set(table, col, value)
-        # declared partitioning feeds the join planner's colocation check
-        # (an absent block clears it)
+        # per table: the query-rate quota (an update reconfigures the live
+        # bucket in place, so a re-poll never refills a flooding table) and
+        # the declared partitioning the join planner's colocation check
+        # reads (an absent block clears it)
+        quota_raw_names = set()
         for q in state.get("quotas", {}).values():
+            raw = q["rawName"]
+            quota_raw_names.add(raw)
+            self.handler.quota.set_quota(raw, q.get("maxQueriesPerSecond"), q.get("burstQueries"))
             p = q.get("partitioning") or {}
             self.handler.joinplan.partitions.set_partitioning(
-                q["rawName"], p.get("column"), p.get("numPartitions")
+                raw, p.get("column"), p.get("numPartitions")
             )
+        # a removed table's quota leaves with it
+        for stale in set(self.handler.quota.tables()) - quota_raw_names:
+            self.handler.quota.set_quota(stale, None)

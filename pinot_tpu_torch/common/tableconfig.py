@@ -12,6 +12,7 @@ stream is refused (ROADMAP queue 1 item 29).
 """
 from __future__ import annotations
 
+import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -93,6 +94,18 @@ class QuotaConfig:
     storage: Optional[str] = None
     max_queries_per_second: Optional[float] = None
     burst_queries: Optional[float] = None
+
+    _UNITS = {"": 1, "K": 2**10, "M": 2**20, "G": 2**30, "T": 2**40}
+
+    def storage_bytes(self) -> Optional[int]:
+        """The storage quota ("128M", "2.5G", "1024") in bytes; None when
+        unset."""
+        if not self.storage:
+            return None
+        m = re.fullmatch(r"(\d+(?:\.\d+)?)\s*([kKmMgGtT]?)[bB]?", self.storage.strip())
+        if m is None:
+            raise ValueError(f"bad storage quota {self.storage!r}")
+        return int(float(m.group(1)) * self._UNITS[m.group(2).upper()])
 
     def to_json(self) -> Dict[str, Any]:
         d = {"storage": self.storage, "maxQueriesPerSecond": self.max_queries_per_second}

@@ -223,6 +223,9 @@ class ParticipantGateway:
             self._heartbeats[name] = time.monotonic()
         if not inst.alive:
             self.resources.set_instance_alive(name, True)
+        # a payload without the key (a broker's) leaves the flag alone
+        if payload is not None and "warming" in payload:
+            self.resources.set_instance_warming(name, bool(payload["warming"]))
         return {"status": "ok", "draining": False, "lease": self._grant_lease(name)}
 
     def messages(self, name: str) -> List[Dict[str, Any]]:
@@ -291,7 +294,11 @@ class ParticipantGateway:
             "servers": servers,
             "deadServers": dead,
             "drainingServers": [],
-            "warmingServers": [],
+            # warming servers stay routable: brokers only deprioritize them
+            "warmingServers": sorted(
+                name for name, inst in instances.items()
+                if inst.role == "server" and inst.alive and inst.warming
+            ),
             "quotas": quotas,
             "timeBoundaries": boundaries,
         }

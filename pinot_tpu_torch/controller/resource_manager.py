@@ -16,9 +16,13 @@ Every change of a view or an instance bumps ``version``; remote brokers
 poll the cluster state when it moves, and an in-process broker's view
 listener (``add_view_listener``) is called with the table's view.
 
+Tables on a tenant with no live members are refused
+(``validate_tenants``); a table's query-rate quota updates live
+(``update_table_quota``); servers report whether they are warming.
+
 Left out, ROADMAP queue 1 item 30: the property store and recovery,
-tenants beyond the default tag, drain and warming, rebalance, quota
-updates, per-replica surgery for the stabilizer, instance listeners.
+creating tenants beyond the default tag, drain, rebalance, per-replica
+surgery for the stabilizer, instance listeners.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 from pinot_tpu_torch.common.schema import Schema
-from pinot_tpu_torch.common.tableconfig import TableConfig
+from pinot_tpu_torch.common.tableconfig import QuotaConfig, TableConfig
 from pinot_tpu_torch.segment.immutable import SegmentMetadata
 
 logger = logging.getLogger(__name__)
@@ -51,6 +55,10 @@ class InstanceState:
     # serving-lease expiry (the gateway's monotonic clock); None = never
     # leased (an in-process participant)
     lease_until: Optional[float] = None
+    # heartbeat-reported: the server is still prewarming its hot plan
+    # shapes (``server/prewarm.py``).  A warming server serves; brokers
+    # only deprioritize it
+    warming: bool = False
 
 
 class Participant:
@@ -150,6 +158,58 @@ class ClusterResourceManager:
                 fn(table, view)
             except Exception:
                 logger.exception("view listener failed for %s", table)
+
+    def set_instance_warming(self, name: str, warming: bool) -> None:
+        """Warm-start readiness flip (heartbeat-reported).  Routing covers
+        are untouched (a warming server serves), but the version bump
+        makes remote brokers refetch the cluster state, whose
+        ``warmingServers`` list feeds their deprioritization."""
+        with self._lock:
+            inst = self.instances.get(name)
+            if inst is None or inst.warming == warming:
+                return
+            inst.warming = warming
+        self.bump_version()
+
+    def is_instance_warming(self, name: str) -> bool:
+        with self._lock:
+            inst = self.instances.get(name)
+            return inst is not None and inst.warming
+
+    def _live_tenant_members(self, tag: str, role: str) -> List[str]:
+        with self._lock:
+            return sorted(
+                i.name for i in self.instances.values() if tag in i.tags and i.role == role and i.alive
+            )
+
+    def validate_tenants(self, config: TableConfig) -> None:
+        """Refuse a table whose non-default tenant has no live members
+        (the reference validates tenants before writing the table
+        config)."""
+        if config.server_tenant != "DefaultTenant" and not self._live_tenant_members(
+            config.server_tenant, "server"
+        ):
+            raise ValueError(f"server tenant {config.server_tenant!r} has no live servers")
+        if config.broker_tenant != "DefaultTenant" and not self._live_tenant_members(
+            config.broker_tenant, "broker"
+        ):
+            raise ValueError(f"broker tenant {config.broker_tenant!r} has no live brokers")
+
+    def update_table_quota(self, physical: str, max_queries_per_second, burst_queries=None) -> None:
+        """Live query-rate quota update or removal (None) for a running
+        table: the view re-notify re-applies it in in-process brokers at
+        once, and the version bump reaches networked brokers on their next
+        cluster-state poll."""
+        with self._lock:
+            config = self.table_configs.get(physical)
+            if config is None:
+                raise KeyError(f"no such table {physical}")
+            config.quota = QuotaConfig(
+                storage=config.quota.storage,
+                max_queries_per_second=max_queries_per_second,
+                burst_queries=burst_queries,
+            )
+        self._notify_view(physical)
 
     # -- schema / table CRUD ------------------------------------------
     def add_schema(self, schema: Schema) -> None:

@@ -34,6 +34,22 @@ class SegmentStore:
         atomic_write(os.path.join(d, SEGMENT_FILE_NAME), data, binary=True)
         return d
 
+    @staticmethod
+    def _dir_bytes(d: str) -> int:
+        total = 0
+        for root, _dirs, files in os.walk(d):
+            for f in files:
+                total += os.path.getsize(os.path.join(root, f))
+        return total
+
+    def segment_size_bytes(self, table: str, segment_name: str) -> int:
+        return self._dir_bytes(self.segment_dir(table, segment_name))
+
+    def table_size_bytes(self, table: str) -> int:
+        """On-disk bytes of a table's durable copies (the storage quota's
+        input)."""
+        return self._dir_bytes(os.path.join(self.base_dir, table))
+
     def exists(self, table: str, segment_name: str) -> bool:
         return os.path.exists(self.segment_file_path(table, segment_name))
 

@@ -86,6 +86,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// SUM_WIDTH: the sums' type this library instantiates (0: float, 1:
+// double).  The two widths build as two libraries, so their halves of the
+// template instantiations compile in parallel (engine/kernels LIBRARIES).
+#if !defined(SUM_WIDTH) || (SUM_WIDTH != 0 && SUM_WIDTH != 1)
+#error "build with -DSUM_WIDTH=0 (float sums) or -DSUM_WIDTH=1 (double sums)"
+#endif
+
 namespace {
 
 constexpr int kNvMax = 8;
@@ -666,10 +673,14 @@ KernelFn pick_filter(int filter_kind, int filter_code, int tier) {
 }
 
 KernelFn pick(int float_code, int filter_kind, int filter_code, int tier) {
-  if (filter_kind < kInterval || filter_kind > kTable || filter_code < kU8 || filter_code > kI32)
+  if (float_code != SUM_WIDTH || filter_kind < kInterval || filter_kind > kTable ||
+      filter_code < kU8 || filter_code > kI32)
     return nullptr;
-  return float_code == 1 ? pick_filter<double>(filter_kind, filter_code, tier)
-                         : pick_filter<float>(filter_kind, filter_code, tier);
+#if SUM_WIDTH == 1
+  return pick_filter<double>(filter_kind, filter_code, tier);
+#else
+  return pick_filter<float>(filter_kind, filter_code, tier);
+#endif
 }
 
 cudaError_t prepare(KernelFn fn, long long smem_bytes) {

@@ -52,7 +52,7 @@ from pinot_tpu_torch.engine.kernel import (
     make_packed_batched_bitsliced_kernel,
     make_packed_bitsliced_kernel,
 )
-from pinot_tpu_torch.engine.packing import batch_input_signature, stack_query_inputs
+from pinot_tpu_torch.engine.packing import batch_input_signature, kernel_cost_analysis, output_bytes, stack_query_inputs
 from pinot_tpu_torch.engine.plan import leaf_interval, leaf_points
 from pinot_tpu_torch.engine.results import (
     AvgPartial,
@@ -392,10 +392,17 @@ def _dispatch_bitsliced(
     if lane is not None and lane.batch_max > 1:
         batch_spec = _bsi_batch_spec(executor, spec, staged, q_np, segs)
     cost: Dict[str, float] = {}
+    tensors = list(segs.values())
+
+    def cost_provider(value):
+        # the static roofline numerator: the bitwise pass does one word
+        # operation for each 32-bit plane word it reads
+        return kernel_cost_analysis((tensors, q_np), output_bytes(value), dev_bytes // 4, 1)
+
     outs = executor._dispatch(
         (key, staged.token),
         lambda q: kernel.dispatch(segs, q),
-        kernel.fetch, list(segs.values()), q_np, deadline, plan_digest(key), cost, batch_spec,
+        kernel.fetch, tensors, q_np, deadline, plan_digest(key), cost, batch_spec, cost_provider=cost_provider,
     )
 
     partials, matched = _finalize(agg_descs, staged, live, outs)

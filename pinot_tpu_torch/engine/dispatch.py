@@ -84,21 +84,35 @@ batchedQueries / batchLaunches) and how its windows closed.
 
 COMPILE TIMELINE (``compile_info``): per device-plan digest, the first
 successful launch's wall ms (``firstCallMs``, ``firstAt``), the launch
-count and their summed ms.  The card compiles nothing at a first launch
-(the kernels are built once, when the executor is made), so here
-``firstCallMs`` measures what a digest's first launch pays on the card:
-the extension's first call at that shape and the caching allocator's
-first blocks.  EXPLAIN reads it for its cold / warm verdict; the
-``compile.cold`` / ``compile.warm`` meters and the
-``compile.firstCallMs`` timer count the same launches.
+count and their summed ms, how the digest's first launch found its
+kernels (``via``: "cold", "persistent" when the compile cache's plan
+ledger shows this topology ran it before, "prewarmed" when the prewarm
+worker launched it ahead, ``record_prewarmed``) and, once a helper thread
+has computed it, the digest's static cost (``costAnalysis``,
+``packing.kernel_cost_analysis``: a dict, or None for "unavailable").
+The card compiles nothing at a first launch (the kernels are built once,
+when the executor is made), so ``firstCallMs`` measures what a digest's
+first launch pays on the card: the CUDA module's lazy load at that
+kernel's first launch in the process and the caching allocator's first
+blocks.  EXPLAIN reads it for its compile state; the ``compile.cold`` /
+``.warm`` / ``.persistentHit`` / ``.persistentMiss`` / ``.prewarmed``
+meters and the ``compile.firstCallMs`` timer count the same launches.
 
-Left out of the port, for later slices: the compile cache (so no digest
-is ever "persistent"), the cost-analysis thread (no ``costAnalysis``),
-``OccupancySampler`` and multi-lane meshes (``LaneGroup`` holds one
-lane).
+OCCUPANCY (``occupancy_read``): busy seconds (wall time inside launch
+calls) and queue-depth seconds accumulate as plain floats at each state
+change, so a launch allocates nothing for them; each reader (the
+``device.util.*`` gauges, ``status()``, an ``OccupancySampler``) reads
+the busy fraction and the mean queue depth over its own window.
+``OccupancySampler`` is opt-in (the profiler brackets it), and
+``OCCUPANCY_ALLOCATIONS`` counts its samples: with no sampler running it
+stays 0.
+
+Left out of the port, for later slices: multi-lane meshes (``LaneGroup``
+holds one lane).
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import hashlib
 import threading
@@ -109,7 +123,7 @@ from typing import Any, Callable, Deque, Dict, Hashable, Iterable, List, Optiona
 
 import torch
 
-from pinot_tpu_torch.engine import config
+from pinot_tpu_torch.engine import compilecache, config
 from pinot_tpu_torch.server.scheduler import QueryAbandonedError
 
 # completed dispatches kept open (still coalescible) at once; beyond
@@ -124,6 +138,33 @@ _SWEEP_S = 0.005
 # every lane ever constructed, for the thread-leak check: a CLOSED lane
 # must not keep threads alive
 _all_lanes: "weakref.WeakSet[DeviceLane]" = weakref.WeakSet()
+
+# the occupancy plane's zero-overhead contract: incremented ONLY when an
+# OccupancySampler records a sample.  The lane's own busy / depth
+# accounting is float accumulation at state changes, so with no sampler
+# running a launch allocates nothing for occupancy and this stays 0.
+OCCUPANCY_ALLOCATIONS = 0
+
+# the shutdown fence of the cost-analysis helper threads: at exit no new
+# analysis starts and the running ones are joined (bounded), so none is
+# still inside torch while the interpreter tears down
+_shutting_down = False
+_cost_threads_lock = threading.Lock()
+_cost_threads: List[threading.Thread] = []
+
+
+def _drain_cost_analysis_threads() -> None:
+    global _shutting_down
+    _shutting_down = True
+    with _cost_threads_lock:
+        pending = [t for t in _cost_threads if t.is_alive()]
+        _cost_threads.clear()
+    deadline = time.monotonic() + 10.0
+    for t in pending:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+atexit.register(_drain_cost_analysis_threads)
 
 
 class DeviceExecutionError(RuntimeError):
@@ -278,14 +319,18 @@ class LaneTicket:
     resumes FINALIZE when the lane delivers outputs (or an error).
     ``coalesced`` marks a ticket that attached to an identical in-flight
     dispatch instead of enqueueing its own; ``batch_size`` is the number
-    of members of the (batched) launch it rode."""
+    of members of the (batched) launch it rode; ``device_start`` is the
+    timing CUDA event the lane recorded on its stream just before the
+    launch (None on the CPU), from which the launch's device span is
+    read once its outputs are fetched."""
 
-    __slots__ = ("deadline", "coalesced", "batch_size", "_event", "_value", "_error")
+    __slots__ = ("deadline", "coalesced", "batch_size", "device_start", "_event", "_value", "_error")
 
     def __init__(self, deadline: Optional[float]) -> None:
         self.deadline = deadline
         self.coalesced = False
         self.batch_size = 1
+        self.device_start = None
         self._event = threading.Event()
         self._value: Any = None
         self._error: Optional[BaseException] = None
@@ -379,7 +424,7 @@ class _BatchFetch:
 class _Dispatch:
     __slots__ = (
         "key", "launch", "pending", "waiters", "completed", "value",
-        "error", "plan_digest", "batch", "batch_size",
+        "error", "plan_digest", "cost_provider", "batch", "batch_size", "device_start",
     )
 
     def __init__(
@@ -388,14 +433,17 @@ class _Dispatch:
         launch: Callable[[], Any],
         pending: Callable[[Any], bool],
         plan_digest: Optional[str] = None,
+        cost_provider: Optional[Callable[[Any], Optional[dict]]] = None,
         batch: Optional[BatchSpec] = None,
     ) -> None:
         self.key = key
         self.launch = launch
         self.pending = pending
         self.plan_digest = plan_digest
+        self.cost_provider = cost_provider
         self.batch = batch
         self.batch_size = 1  # members of the launch this dispatch rode
+        self.device_start = None  # the launch's timing start event (LaneTicket)
         self.waiters: List[LaneTicket] = []
         self.completed = False
         self.value: Any = None
@@ -416,7 +464,9 @@ class DeviceLane:
     ``DeviceFaultInjector`` consulted before every launch.
     ``batch_max`` / ``batch_window_s`` are the micro-batching tier's cap
     and window, from ``config.BATCH_MAX`` / ``config.BATCH_WINDOW_MS`` at
-    construction."""
+    construction.
+    ``precision`` ("x64" / "x32", the executor's) is the x64 axis of the
+    compile cache's topology fingerprint."""
 
     def __init__(
         self,
@@ -424,6 +474,7 @@ class DeviceLane:
         metrics=None,
         stall_timeout_s: Optional[float] = None,
         fault_injector=None,
+        precision: str = "x64",
     ) -> None:
         self.device = config.resolve_device(device)
         self.stream = (
@@ -434,6 +485,14 @@ class DeviceLane:
             stall_timeout_s = 120.0
         self.stall_timeout_s = stall_timeout_s
         self.fault_injector = fault_injector
+        # the persistent compile cache (engine/compilecache.py): its root
+        # at construction (None: off, the plain cold / warm accounting),
+        # and the topology fingerprint of its plan ledger, read at the
+        # first launch that needs it (reading the card's name initializes
+        # CUDA, which a lane must not do before it launches)
+        self.persistent_cache_dir = compilecache.cache_root()
+        self._x64 = config.Precision(precision).x64
+        self._fingerprint: Optional[str] = None
         self._cv = threading.Condition()
         self._queue: Deque[_Dispatch] = deque()
         self._by_key: Dict[Hashable, _Dispatch] = {}
@@ -466,15 +525,26 @@ class DeviceLane:
         self.batch_window_full = 0
         self.batch_window_timeout = 0
         # the compile timeline (module docstring): digest -> {firstCallMs,
-        # firstAt, launches, launchMsTotal}
-        self._compile: Dict[str, Dict[str, float]] = {}
+        # firstAt, launches, launchMsTotal, via[, costAnalysis]}
+        self._compile: Dict[str, Dict[str, Any]] = {}
+        # occupancy (module docstring): busy = wall seconds inside launch
+        # calls, depth seconds integrate the queue depth over time; each
+        # reader diffs against its own last checkpoint
+        self._busy_s = 0.0
+        self._busy_since: Optional[float] = None
+        self._depth_s = 0.0
+        self._depth_mark = time.monotonic()
+        self._created_at = self._depth_mark
+        self._occ_reads: Dict[str, tuple] = {}  # reader -> (t, busy, depth_s, last result)
         if metrics is not None:
             # pre-register the lane series so /metrics shows them at zero
             for name in ("lane.dispatches", "lane.coalesced", "lane.shed",
                          "lane.deviceFailures", "lane.restarts", "batch.launches",
                          "batch.queries", "batch.windowClosedFull",
                          "batch.windowClosedTimeout", "batch.windowClosedIdle",
-                         "compile.cold", "compile.warm"):
+                         "compile.cold", "compile.warm", "compile.persistentHit",
+                         "compile.persistentMiss", "compile.prewarmed",
+                         "compile.costAnalyses", "compile.costAnalysisUnavailable"):
                 metrics.meter(name)
             metrics.timer("compile.firstCallMs")
             metrics.gauge("lane.depth").set(0)
@@ -494,6 +564,7 @@ class DeviceLane:
         deadline: Optional[float] = None,
         pending: Callable[[Any], bool] = outputs_pending,
         plan_digest: Optional[str] = None,
+        cost_provider: Optional[Callable[[Any], Optional[dict]]] = None,
         batch: Optional[BatchSpec] = None,
     ) -> LaneTicket:
         """Enqueue a kernel launch, or coalesce onto an identical one
@@ -501,7 +572,11 @@ class DeviceLane:
         Returns immediately; the caller blocks on ``ticket.result`` when
         FINALIZE needs the outputs.  ``batch`` marks the dispatch
         stackable with same-key peers into one batched launch; a batched
-        member's value is ``(fetch, handle)``, its row of the batch."""
+        member's value is ``(fetch, handle)``, its row of the batch.
+        ``cost_provider(value)`` (the utilization plane) returns the
+        plan's static cost from the launch's value, or None; it runs once
+        per plan digest, after the digest's first successful launch, on a
+        helper thread, never on the lane thread."""
         ticket = LaneTicket(deadline)
         with self._cv:
             if self._closed:
@@ -518,6 +593,7 @@ class DeviceLane:
                     ticket.coalesced = True
                     # a late rider of a batched member rode that batch too
                     ticket.batch_size = d.batch_size
+                    ticket.device_start = d.device_start
                     ticket._deliver(value=d.value)
                     return ticket
                 self._close_open(d)
@@ -527,9 +603,10 @@ class DeviceLane:
                 ticket.coalesced = True
                 self._hit()
             else:
-                d = _Dispatch(key, launch, pending, plan_digest, batch)
+                d = _Dispatch(key, launch, pending, plan_digest, cost_provider, batch)
                 d.waiters.append(ticket)
                 self._by_key[key] = d
+                self._depth_tick_locked()
                 self._queue.append(d)
                 self._set_depth()
                 # notify_all: the WATCHDOG also sleeps on this condition
@@ -562,15 +639,102 @@ class DeviceLane:
             "compiledPlans": len(self._compile),
         }
 
-    def compile_info(self, digest: Optional[str]) -> Optional[Dict[str, float]]:
+    def compile_info(self, digest: Optional[str]) -> Optional[Dict[str, Any]]:
         """The compile-timeline entry of a device-plan digest: None when
-        it never launched here, else {firstCallMs, firstAt, launches,
-        launchMsTotal}."""
+        it never launched (nor was prewarmed) here, else {firstCallMs,
+        firstAt, launches, launchMsTotal, via[, costAnalysis]}.
+        ``costAnalysis`` is absent while the helper thread runs, a dict
+        once it landed, and None when it gave nothing ("unavailable")."""
         if digest is None:
             return None
         with self._cv:
             entry = self._compile.get(digest)
             return dict(entry) if entry is not None else None
+
+    def record_prewarmed(self, digest: Optional[str], compile_ms: float) -> bool:
+        """Register a digest the prewarm worker (server/prewarm.py)
+        launched ahead on its own stream, without touching the serving
+        meters: ``compile.prewarmed`` only, never ``compile.cold`` or
+        ``firstCallMs``.  No-op when the digest already launched or was
+        prewarmed here."""
+        if digest is None:
+            return False
+        with self._cv:
+            if digest in self._compile:
+                return False
+            self._evict_compile_locked()
+            self._compile[digest] = {
+                # the prewarm launch's wall ms: what the serving path did
+                # NOT pay
+                "firstCallMs": round(compile_ms, 3),
+                "firstAt": round(time.time(), 3),
+                "launches": 0,
+                "launchMsTotal": 0.0,
+                "via": "prewarmed",
+            }
+        if self.metrics is not None:
+            self.metrics.meter("compile.prewarmed").mark()
+        if self.persistent_cache_dir is not None:
+            compilecache.record_plan(digest, self._ledger_fingerprint(), root=self.persistent_cache_dir)
+        return True
+
+    def _evict_compile_locked(self) -> None:
+        """Bounded registry: evict the OLDEST entry only, so every other
+        digest keeps its measured first call."""
+        if len(self._compile) > 4096:
+            victim = min(self._compile, key=lambda k: self._compile[k]["firstAt"])
+            self._compile.pop(victim, None)
+
+    def _ledger_fingerprint(self) -> str:
+        if self._fingerprint is None:
+            self._fingerprint = compilecache.topology_fingerprint(x64=self._x64)
+        return self._fingerprint
+
+    # -- occupancy (utilization plane) --------------------------------
+    def _depth_tick_locked(self, now: Optional[float] = None) -> None:
+        """Integrate the queue depth over time (lock held, called BEFORE
+        every queue change): float accumulation, no allocation."""
+        if now is None:
+            now = time.monotonic()
+        self._depth_s += len(self._queue) * (now - self._depth_mark)
+        self._depth_mark = now
+
+    def occupancy_read(self, key: str = "default", min_interval_s: float = 0.0) -> Dict[str, float]:
+        """Windowed occupancy: the busy fraction and the time-weighted
+        mean queue depth since THIS reader's previous call (the first call
+        windows from the lane's construction).  Readers pass distinct keys
+        so their windows never clobber each other; ``min_interval_s``
+        returns the cached last result for a rapid re-read (two gauges on
+        one key read one window).  An idle lane reads 0.0."""
+        now = time.monotonic()
+        with self._cv:
+            prev = self._occ_reads.get(key)
+            if prev is not None and min_interval_s > 0 and now - prev[0] < min_interval_s:
+                return dict(prev[3])
+            busy = self._busy_s
+            if self._busy_since is not None:
+                # the launch in flight counts as busy so far
+                busy += max(0.0, now - self._busy_since)
+            self._depth_tick_locked(now)
+            depth_s = self._depth_s
+            if prev is None:
+                prev_t, prev_busy, prev_depth = self._created_at, 0.0, 0.0
+            else:
+                prev_t, prev_busy, prev_depth = prev[0], prev[1], prev[2]
+            dt = max(now - prev_t, 1e-9)
+            result = {
+                "windowS": round(dt, 6),
+                "busyFraction": round(min(max((busy - prev_busy) / dt, 0.0), 1.0), 6),
+                "avgQueueDepth": round(max((depth_s - prev_depth) / dt, 0.0), 6),
+                "depth": len(self._queue),
+                "inflight": 1 if self._busy_since is not None else 0,
+            }
+            if len(self._occ_reads) > 32 and key not in self._occ_reads:
+                # bounded reader registry: evict the least recently read
+                oldest = min(self._occ_reads.items(), key=lambda kv: kv[1][0])[0]
+                del self._occ_reads[oldest]
+            self._occ_reads[key] = (now, busy, depth_s, result)
+        return dict(result)
 
     def mark_dead(self, error: DeviceExecutionError) -> None:
         """Take the lane off the device after a sticky CUDA fault (found
@@ -581,6 +745,7 @@ class DeviceLane:
             if self.dead is None:
                 self.dead = error
             drained = list(self._queue)
+            self._depth_tick_locked()
             self._queue.clear()
             for d in drained:
                 d.completed = True
@@ -601,6 +766,7 @@ class DeviceLane:
                 return
             self._closed = True
             drained = list(self._queue)
+            self._depth_tick_locked()
             self._queue.clear()
             self._open.clear()
             self._by_key.clear()
@@ -640,6 +806,38 @@ class DeviceLane:
         self._track_thread(t)
         t.start()
 
+    def _spawn_cost_analysis_locked(self, digest: str, provider, value) -> None:
+        """One short-lived helper thread per cold plan digest: computes the
+        static cost off the serving path and stores it (or None,
+        "unavailable") in the compile timeline.  Tracked for the leak
+        check, and in the module's drain list for the exit fence."""
+        if _shutting_down:
+            return
+        t = threading.Thread(target=self._run_cost_analysis, args=(digest, provider, value),
+                             name=f"lane-cost-analysis-{digest[:8]}", daemon=True)
+        self._track_thread(t)
+        with _cost_threads_lock:
+            _cost_threads[:] = [x for x in _cost_threads if x.is_alive()]
+            _cost_threads.append(t)
+        t.start()
+
+    def _run_cost_analysis(self, digest: str, provider, value) -> None:
+        if _shutting_down:
+            return
+        try:
+            analysis = provider(value)
+        except Exception:
+            analysis = None
+        if analysis is not None and not isinstance(analysis, dict):
+            analysis = None
+        with self._cv:
+            entry = self._compile.get(digest)
+            if entry is not None:
+                entry["costAnalysis"] = analysis
+        if self.metrics is not None:
+            self.metrics.meter(
+                "compile.costAnalyses" if analysis is not None else "compile.costAnalysisUnavailable").mark()
+
     def _spawn_watchdog_locked(self) -> None:
         if self._watchdog is not None:
             return
@@ -678,6 +876,11 @@ class DeviceLane:
                     # a batched launch wedges as a unit: every member's
                     # waiters get the stall verdict
                     self._inflight = None
+                    if self._busy_since is not None:
+                        # bank the wedged launch's window as busy: the
+                        # fresh lane thread owns _busy_since from here
+                        self._busy_s += max(0.0, now - self._busy_since)
+                        self._busy_since = None
                     self._generation += 1
                     self.restart_count += 1
                     self.device_failure_count += 1
@@ -750,6 +953,8 @@ class DeviceLane:
                 break
             if peer.batch is not None and peer.batch.key == spec.key:
                 taken.append(peer)
+        if taken:
+            self._depth_tick_locked()
         for peer in taken:
             self._queue.remove(peer)
             members.append(peer)
@@ -796,7 +1001,7 @@ class DeviceLane:
             # drop the last launch's references before waiting for the next:
             # the thread's frame would keep the dispatch, its closures and
             # the staged tensors they hold alive (a demoted table's memory)
-            d = m = members = live = dead = value = values = deliveries = mvalue = waiters = w = error = None
+            d = m = members = live = dead = value = values = deliveries = mvalue = waiters = w = error = start = None
             with self._cv:
                 if gen != self._generation:
                     return  # restarted away while we held no work
@@ -814,6 +1019,7 @@ class DeviceLane:
                     return
                 if self._closed and not self._queue:
                     return
+                self._depth_tick_locked()
                 d = self._queue.popleft()
                 self._set_depth()
                 # micro-batching: gather same-key peers (and, under
@@ -861,6 +1067,7 @@ class DeviceLane:
                     # itself both count as in-flight stalls; a batched
                     # launch is ONE in-flight unit
                     self._inflight = (members[0], now, tuple(members))
+                    self._busy_since = now  # occupancy: the card is busy
             if dead:
                 self.shed_count += len(dead)
                 self._lane_mark("shed", len(dead))
@@ -881,6 +1088,7 @@ class DeviceLane:
             error: Optional[BaseException] = None
             value: Any = None
             values: List[Any] = []
+            start = None
             try:
                 inj = self.fault_injector
                 if inj is not None:
@@ -888,6 +1096,11 @@ class DeviceLane:
                     # the plan digest by construction)
                     inj.on_launch(d.plan_digest, d.key)
                 with self._launch_context():
+                    if self.stream is not None:
+                        # the start of the launch's device span (the cost
+                        # vector's deviceMs), on the lane's stream
+                        start = torch.cuda.Event(enable_timing=True)
+                        start.record(self.stream)
                     if batched:
                         fetch, handle = d.batch.launch_batched([m.batch.inputs for m in members])
                         shared = _BatchFetch(fetch)
@@ -903,8 +1116,23 @@ class DeviceLane:
             launch_ms = (time.perf_counter() - t0) * 1000
             if isinstance(error, DeviceExecutionError) and error.sticky:
                 self.mark_dead(error)
+            via = "cold"
+            if (error is None and d.plan_digest is not None and self.persistent_cache_dir is not None
+                    and d.plan_digest not in self._compile):
+                # classify a first launch BEFORE taking the lane lock (the
+                # ledger lookup is disk I/O); the entry check proper
+                # happens under the lock below
+                if compilecache.known_plan(d.plan_digest, self._ledger_fingerprint(),
+                                           root=self.persistent_cache_dir):
+                    via = "persistent"
             with self._cv:
                 stale = gen != self._generation
+                if not stale and self._busy_since is not None:
+                    # occupancy: the launch window closed (a stale thread
+                    # must not: the watchdog banked its window, and
+                    # _busy_since belongs to the fresh lane thread)
+                    self._busy_s += max(0.0, time.monotonic() - self._busy_since)
+                    self._busy_since = None
                 if not stale and self._inflight is not None and self._inflight[0] is d:
                     self._inflight = None
                 if stale:
@@ -921,17 +1149,21 @@ class DeviceLane:
                     entry = self._compile.get(d.plan_digest)
                     if entry is None:
                         cold = True
-                        if len(self._compile) > 4096:
-                            # bounded: evict the OLDEST entry only, so every
-                            # other digest keeps its measured first call
-                            victim = min(self._compile, key=lambda k: self._compile[k]["firstAt"])
-                            self._compile.pop(victim, None)
+                        self._evict_compile_locked()
                         self._compile[d.plan_digest] = {
                             "firstCallMs": round(launch_ms, 3),
                             "firstAt": round(time.time(), 3),
                             "launches": 1,
                             "launchMsTotal": round(launch_ms, 3),
+                            # how the first launch found its kernels:
+                            # "cold", or "persistent" (the ledger shows
+                            # this topology ran the digest before)
+                            "via": via,
                         }
+                        if d.cost_provider is not None:
+                            # the static cost, once per digest, off the lane
+                            self._spawn_cost_analysis_locked(
+                                d.plan_digest, d.cost_provider, values[0] if batched else value)
                     else:
                         entry["launches"] += 1
                         entry["launchMsTotal"] = round(entry["launchMsTotal"] + launch_ms, 3)
@@ -947,6 +1179,7 @@ class DeviceLane:
                     m.completed = True
                     m.error = error
                     m.batch_size = len(members)
+                    m.device_start = start
                     m.value = None if error is not None else (values[i] if batched else value)
                     deliveries.append((m.value, list(m.waiters)))
                     m.waiters = []
@@ -967,15 +1200,26 @@ class DeviceLane:
                                         "timeout": "batch.windowClosedTimeout"}
                                        .get(window_close, "batch.windowClosedIdle")).mark()
                 if error is None and d.plan_digest is not None:
-                    if cold:
+                    if cold and via == "persistent":
+                        # not a cold first launch: the ledger shows this
+                        # topology ran the digest before
+                        self.metrics.meter("compile.persistentHit").mark()
+                    elif cold:
                         self.metrics.meter("compile.cold").mark()
                         self.metrics.timer("compile.firstCallMs").update(launch_ms)
+                        if self.persistent_cache_dir is not None:
+                            self.metrics.meter("compile.persistentMiss").mark()
                     else:
                         self.metrics.meter("compile.warm").mark()
                 self.metrics.timer("phase.laneDispatch").update(launch_ms)
+            if cold and via == "cold" and self.persistent_cache_dir is not None:
+                # ledger the digest, so the NEXT process classifies its
+                # first launch as persistent
+                compilecache.record_plan(d.plan_digest, self._ledger_fingerprint(), root=self.persistent_cache_dir)
             for mvalue, waiters in deliveries:
                 for w in waiters:
                     w.batch_size = len(members)
+                    w.device_start = start
                     w._deliver(value=mvalue, error=error)
 
 
@@ -996,6 +1240,7 @@ class LaneGroup:
         metrics=None,
         stall_timeout_s: Optional[float] = None,
         fault_injector=None,
+        precision: str = "x64",
     ) -> None:
         self.lanes: List[DeviceLane] = [
             DeviceLane(
@@ -1003,6 +1248,7 @@ class LaneGroup:
                 metrics=metrics,
                 stall_timeout_s=stall_timeout_s,
                 fault_injector=fault_injector,
+                precision=precision,
             )
         ]
 
@@ -1021,6 +1267,12 @@ class LaneGroup:
     def stats(self) -> Dict[str, Any]:
         return self.lanes[0].stats()
 
+    def compile_info(self, digest: Optional[str]) -> Optional[Dict[str, Any]]:
+        return self.lanes[0].compile_info(digest)
+
+    def occupancy_read(self, key: str = "default", min_interval_s: float = 0.0) -> Dict[str, float]:
+        return self.lanes[0].occupancy_read(key, min_interval_s)
+
     def close(self) -> None:
         for lane in self.lanes:
             lane.close()
@@ -1028,3 +1280,83 @@ class LaneGroup:
     def join(self, timeout_s: float = 5.0) -> None:
         for lane in self.lanes:
             lane.join(timeout_s)
+
+
+class OccupancySampler:
+    """Periodic lane-occupancy sampler: a small thread recording (wall
+    ts, busy fraction, mean queue depth, depth) into a bounded ring, the
+    queue-depth-over-time series behind ``status()["device"]`` and the
+    profiling workflow.
+
+    Opt-in: nothing starts it by default, and while it does not run the
+    lane's launch path allocates nothing for occupancy
+    (``OCCUPANCY_ALLOCATIONS``).  ``start()`` / ``stop()`` are
+    idempotent; the thread registers with its lane's leak-check list and
+    exits on its own when the lane closes; a closed lane is refused."""
+
+    def __init__(self, lane: DeviceLane, interval_s: float = 0.25, capacity: int = 240) -> None:
+        self.lane = lane
+        self.interval_s = max(0.02, float(interval_s))
+        self._ring: Deque[tuple] = deque(maxlen=max(8, capacity))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+        self._key = f"sampler-{id(self):x}"
+        self.samples_taken = 0
+
+    @property
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive() and not self._stop.is_set()
+
+    def start(self) -> None:
+        with self._lock:
+            if self.running or self.lane._closed:
+                return
+            prev = self._thread
+            if prev is not None and prev.is_alive():
+                # a stop() set the event but has not finished joining:
+                # finish the join before re-arming, or the old thread could
+                # miss the cleared event and sample beside the new one
+                self._stop.set()
+                prev.join(timeout=2)
+                if prev.is_alive():
+                    return
+            self._stop = threading.Event()  # one event a thread
+            t = threading.Thread(target=self._run, args=(self._stop,), name="lane-occupancy-sampler", daemon=True)
+            self._thread = t
+            self.lane._track_thread(t)
+            t.start()
+
+    def stop(self) -> None:
+        with self._lock:
+            self._stop.set()
+            t = self._thread
+        if t is not None:
+            t.join(timeout=2)
+        # drop this sampler's reader checkpoint, so repeated lifecycles on
+        # a long-lived lane do not walk the registry's bound
+        with self.lane._cv:
+            self.lane._occ_reads.pop(self._key, None)
+
+    def _run(self, stop: threading.Event) -> None:
+        global OCCUPANCY_ALLOCATIONS
+        while not stop.wait(self.interval_s):
+            if self.lane._closed:
+                return
+            occ = self.lane.occupancy_read(self._key)
+            OCCUPANCY_ALLOCATIONS += 1
+            self.samples_taken += 1
+            self._ring.append((round(time.time(), 3), occ["busyFraction"], occ["avgQueueDepth"], occ["depth"]))
+
+    def snapshot(self, last: int = 60) -> Dict[str, Any]:
+        samples = list(self._ring)[-max(1, last):]
+        return {
+            "running": self.running,
+            "intervalS": self.interval_s,
+            "samplesTaken": self.samples_taken,
+            "samples": [
+                {"ts": s[0], "busyFraction": s[1], "avgQueueDepth": s[2], "depth": s[3]}
+                for s in samples
+            ],
+        }

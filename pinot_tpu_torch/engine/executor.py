@@ -142,7 +142,9 @@ from pinot_tpu_torch.engine.packing import (
     batch_input_signature,
     dispatch_packed,
     fetch_handle,
+    kernel_cost_analysis,
     make_packed_kernel,
+    output_bytes,
     stack_query_inputs,
 )
 from pinot_tpu_torch.engine.plan import (
@@ -277,6 +279,31 @@ def _hist_partial(gdict, gids, cnts, p: int) -> HistogramPartial:
 # how long a quarantined (plan digest, segment set) stays off the device: a
 # plan poisoned by a transient burst is re-admitted after it
 POISON_TTL_S = 300.0
+
+
+def _span_start(device: torch.device):
+    """A timing CUDA event recorded on the current stream (the start of an
+    inline launch's device span), None on the CPU."""
+    if device.type != "cuda":
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(torch.cuda.current_stream(device))
+    return start
+
+
+def _device_ms(start, value, t0: float) -> float:
+    """The cost vector's ``deviceMs`` of a fetched launch: on the card its
+    device span, from the timing event recorded on the stream just before
+    the launch's work is enqueued to the packed copy's event (the kernels,
+    the torch ops around them, the packing and the device-to-host copy,
+    with any gap the host's enqueue leaves between them; not the lane's
+    queue), however much of it ran before the launch call returned.  On
+    the CPU, or without the events, the host wall since ``t0``."""
+    handle = value[1] if isinstance(value, tuple) else value
+    end = getattr(handle, "event", None)
+    if start is not None and end is not None:
+        return start.elapsed_time(end)
+    return (time.perf_counter() - t0) * 1000
 
 
 def _inputs_digest(inputs: Any) -> str:
@@ -720,6 +747,10 @@ class QueryExecutor:
         result._batch_size = int(info.get("batchSize", 1) or 1)
         self._phase("finalize", t0)
         result._served_tier = "device"
+        # the device-plan digest and the lane that ran it: the server's plan
+        # statistics join the lane's compile timeline (its static cost) on it
+        result._device_digest = pdigest
+        result._lane_index = 0
         return result
 
     def _try_bitsliced(self, request, live, ctx, total_docs: int, deadline) -> Optional[IntermediateResult]:
@@ -805,10 +836,18 @@ class QueryExecutor:
         lane = self.lane
         if lane is not None and not block and kernel is self._kernel and lane.batch_max > 1:
             spec = self._batch_spec(plan, staged, seg, q_np)
+        tensors = list(seg.values())
+        rows = staged.num_segments * staged.n_pad
+        ops = len(plan.leaves) + len(plan.aggs)
+
+        def cost_provider(value):
+            # the static roofline numerator, once per digest, off the lane
+            return kernel_cost_analysis((tensors, q_np), output_bytes(value), rows, ops)
+
         return self._dispatch(
             (plan, staged.token),
             lambda q: kernel.dispatch(plan, staged, seg, q, block),
-            kernel.fetch, list(seg.values()), q_np, deadline, pdigest, cost, spec, info,
+            kernel.fetch, tensors, q_np, deadline, pdigest, cost, spec, info, cost_provider,
         )
 
     def _dispatch(
@@ -823,6 +862,7 @@ class QueryExecutor:
         cost: Dict[str, float],
         spec: Optional[BatchSpec] = None,
         info: Optional[Dict[str, Any]] = None,
+        cost_provider=None,
     ) -> Dict[str, Any]:
         """DISPATCH + the packed fetch of one device program:
         ``dispatch(q)`` launches it over the device query inputs ``q`` and
@@ -841,7 +881,9 @@ class QueryExecutor:
         t0 = time.perf_counter()
         lane = self.lane
         if lane is None:
-            outs = fetch(dispatch(to_device_inputs(q_np, self.device)), deadline)
+            start = _span_start(self.device)
+            value = dispatch(to_device_inputs(q_np, self.device))
+            outs = fetch(value, deadline)
         else:
             if spec is None:
                 q = to_device_inputs(q_np, self.device)
@@ -860,8 +902,9 @@ class QueryExecutor:
                     return dispatch(to_device_inputs(q_np, self.device))
 
             ticket = lane.submit(program_key + (_inputs_digest(q_np),), launch, deadline, plan_digest=pdigest,
-                                 batch=spec)
+                                 cost_provider=cost_provider, batch=spec)
             value = ticket.result(deadline)
+            start = ticket.device_start
             t0 = self._phase("laneWait", t0, coalesced=ticket.coalesced, batchSize=ticket.batch_size)
             if ticket.coalesced:
                 cost["coalesceHits"] = cost.get("coalesceHits", 0) + 1
@@ -876,7 +919,7 @@ class QueryExecutor:
                 outs = member_fetch(handle, deadline)
             else:
                 outs = fetch(value, deadline)
-        cost["deviceMs"] = cost.get("deviceMs", 0.0) + round((time.perf_counter() - t0) * 1000, 3)
+        cost["deviceMs"] = cost.get("deviceMs", 0.0) + round(_device_ms(start, value, t0), 3)
         self._phase("planExec", t0)
         return outs
 
@@ -1132,7 +1175,9 @@ class QueryExecutor:
         q = to_device_inputs(inputs, self.device)
         lane = self.lane
         if lane is None:
-            outs = kernel.fetch(kernel.dispatch(plan, q), deadline)
+            start = _span_start(self.device)
+            value = kernel.dispatch(plan, q)
+            outs = kernel.fetch(value, deadline)
         else:
             ready = ready_event(self.device)
             tensors = tree_leaves(q)
@@ -1143,9 +1188,10 @@ class QueryExecutor:
 
             ticket = lane.submit(("join", object()), launch, deadline, plan_digest=jdigest)
             value = ticket.result(deadline)
+            start = ticket.device_start
             t0 = self._phase("laneWait", t0)
             outs = kernel.fetch(value, deadline)
-        cost["deviceMs"] = round((time.perf_counter() - t0) * 1000, 3)
+        cost["deviceMs"] = round(_device_ms(start, value, t0), 3)
         self._phase("planExec", t0)
         if not bool(outs["join_ok"]):
             # the parallel-claim build ran out of rounds (it cannot with
@@ -1163,6 +1209,8 @@ class QueryExecutor:
             **cost,
         )
         result._served_tier = "device"
+        result._device_digest = jdigest
+        result._lane_index = 0
         self._phase("finalize", t_fin)
         return result
 

@@ -23,16 +23,29 @@ card.  The phantom goes through the executor's own helpers
 The safety contract: plain EXPLAIN submits nothing to the lane, marks no
 cost meter and allocates nothing on the card.
 
-What the port renders as the reference does with its planes absent: the
-estimated cost is always ``"static"`` (plan statistics are a later
-slice), ``device.batching.cacheHit`` is always false (no result cache),
-``compile.state`` is never ``"persistent"`` (no compile cache) and
-``compile.costAnalysis`` is ``"unavailable"``.  The mesh record is one
-lane on one card.  Left out: the prewarm specs
-(``build_prewarm_spec``), which belong to the compile cache.
+The estimated cost reads the server's plan statistics once the shape has
+run there (``"source": "history"``), else the static byte estimate.  The
+compile record's ``state`` is "cold" before a digest's first launch on
+the lane, "persistent" when the compile cache's plan ledger shows this
+topology ran it before, "prewarmed" when the prewarm worker launched it
+ahead, and "warm" once it served; ``costAnalysis`` is the lane's static
+cost of the digest (a dict), "pending" while its helper thread runs, or
+"unavailable".  ``device.batching.cacheHit`` is always false (the result
+cache is a later slice).  The mesh record is one lane on one card.
+
+PREWARM (``build_prewarm_spec``): the same phantom, driven one step
+further.  The card compiles nothing per shape; what a digest's first
+launch pays there is the CUDA module's lazy load at the first launch of
+each kernel instantiation in the process and the caching allocator's
+first blocks.  The spec's ``compile`` step launches the digest's K1 / K2
+instantiations once, on the calling thread's own CUDA stream, over zeroed
+tensors with the phantom's dtypes, dictionary widths and group space (so
+the same tiers) but one row a segment, or one zone block on the block
+path.  It never enters the serving lane and stages nothing of the table.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -43,10 +56,12 @@ from pinot_tpu_torch.common.request import BrokerRequest
 from pinot_tpu_torch.engine import config
 from pinot_tpu_torch.engine.bitsliced import bitsliced_decision
 from pinot_tpu_torch.engine.context import get_table_context
-from pinot_tpu_torch.engine.device import StagedColumn, StagedTable
+from pinot_tpu_torch.engine import compilecache, zonemap
+from pinot_tpu_torch.engine.device import StagedColumn, StagedTable, segment_arrays, to_device_inputs
 from pinot_tpu_torch.engine.dispatch import plan_digest
 from pinot_tpu_torch.engine.invindex_path import index_path_decision
-from pinot_tpu_torch.engine.kernel import chunk_rows_limit
+from pinot_tpu_torch.engine.kernel import chunk_rows_limit, make_chunked_table_kernel
+from pinot_tpu_torch.engine.packing import fetch_handle
 from pinot_tpu_torch.engine.plan import build_query_inputs, build_static_plan, plan_forced_host
 from pinot_tpu_torch.engine.plandigest import _raw_table, plan_shape_digest, plan_shape_summary
 from pinot_tpu_torch.engine.pruner import prune_explain
@@ -193,12 +208,23 @@ def _staged_snapshot(executor, table: str, segment_names: Sequence[str]) -> Dict
 
 
 def _compile_record(lane, pdigest: str) -> Dict[str, Any]:
-    """The device node's compile record: "warm" with the lane's timeline
-    once the digest launched there, else "cold"."""
+    """The device node's compile record (module docstring)."""
     entry = lane.compile_info(pdigest) if lane is not None else None
     if entry is None:
-        return {"state": "cold", "costAnalysis": "unavailable"}
-    return {"state": "warm", **entry, "costAnalysis": "unavailable"}
+        # never launched here: the plan ledger can still show the
+        # topology ran it before
+        persistent = lane is not None and lane.persistent_cache_dir is not None and compilecache.known_plan(
+            pdigest, lane._ledger_fingerprint(), root=lane.persistent_cache_dir)
+        return {"state": "persistent" if persistent else "cold", "costAnalysis": "unavailable"}
+    # served here -> warm; a prewarmed entry that has not served yet says
+    # how its kernels arrived
+    state = "warm" if entry.get("launches", 0) > 0 else entry.get("via", "warm")
+    record = {"state": state, **entry}
+    if "costAnalysis" not in entry:
+        record["costAnalysis"] = "pending"
+    elif entry["costAnalysis"] is None:
+        record["costAnalysis"] = "unavailable"
+    return record
 
 
 def build_explain_node(
@@ -207,10 +233,12 @@ def build_explain_node(
     request: BrokerRequest,
     table: str,
     server_name: str,
+    plan_stats=None,
 ) -> Dict[str, Any]:
     """One server's EXPLAIN plan node (module docstring): the reference's
-    with its ``plan_stats`` and ``result_cache`` absent.  ``executor``
-    supplies the decision helpers and the live quarantine state."""
+    with its ``result_cache`` absent.  ``executor`` supplies the decision
+    helpers and the live quarantine state; ``plan_stats``
+    (``utils/planstats.py``) the history estimate."""
     total_docs = sum(s.num_docs for s in segments)
     records: List[Dict[str, Any]] = []
     tier_counts: Dict[str, int] = {}
@@ -340,19 +368,137 @@ def build_explain_node(
                         "cacheHit": False,
                     }
 
+    digest = plan_shape_digest(request)
+    estimated: Dict[str, Any] = dict({"source": "static", "bytesScanned": int(est_bytes)}, **tier_counts)
+    if plan_stats is not None:
+        hist = plan_stats.estimate(digest)
+        if hist is not None:
+            estimated = dict(hist)
+            estimated["source"] = "history"
     node: Dict[str, Any] = {
         "server": server_name,
         "table": table,
-        "planDigest": plan_shape_digest(request),
+        "planDigest": digest,
         "summary": plan_shape_summary(request),
         "numSegments": len(segments),
         "totalDocs": int(total_docs),
         "tierCounts": tier_counts,
         "segments": records,
         "staged": _staged_snapshot(executor, table, [s.segment_name for s in segments]),
-        "estimatedCost": dict({"source": "static", "bytesScanned": int(est_bytes)}, **tier_counts),
+        "estimatedCost": estimated,
         "generatedAtMs": round(time.time() * 1000, 3),
     }
     if device_info is not None:
         node["device"] = device_info
     return _json_safe(node)
+
+
+# ---------------------------------------------------------------------------
+# Prewarm specs (module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _zeros(shape, np_dtype, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.zeros(shape, dtype=np_dtype)).to(device)
+
+
+def _mini_staged(phantom: StagedTable, ctx, rows: int, device: torch.device) -> StagedTable:
+    """A real staged table of zeroed tensors twin to the phantom's roles,
+    dtypes and dictionary widths, ``rows`` padded rows a segment of which
+    the first is valid (a wrapper launches nothing over zero rows)."""
+    S = phantom.num_segments
+    fdt = phantom.precision.np_float_dtype
+    mini = dataclasses.replace(
+        phantom, n_pad=rows, num_docs=(1,) * S,
+        num_docs_arr=torch.ones(S, dtype=torch.int32, device=device), device=device, columns={}, zones={},
+    )
+    for name, pc in phantom.columns.items():
+        sc = dataclasses.replace(pc)
+        idt = config.index_dtype(pc.card_pad)
+        if pc.mv is not None:
+            sc.mv = _zeros((S, rows, pc.mv_pad), idt, device)
+            sc.mv_counts = _zeros((S, rows), config.count_dtype(pc.mv_pad), device)
+            if pc.mv_raw is not None:
+                sc.mv_raw = _zeros((S, rows, pc.mv_pad), fdt, device)
+        if pc.fwd is not None:
+            sc.fwd = _zeros((S, rows), idt, device)
+        if pc.dict_vals is not None:
+            sc.dict_vals = _zeros((S, pc.card_pad), fdt, device)
+        if pc.raw is not None:
+            sc.raw = _zeros((S, rows), fdt, device)
+        if pc.gfwd is not None:
+            sc.gfwd = _zeros((S, rows), config.index_dtype(config.pad_card(ctx.column(name).global_cardinality)),
+                             device)
+        if pc.hll_bucket is not None:
+            sc.hll_bucket = _zeros((S, rows), np.uint8, device)
+            sc.hll_rho = _zeros((S, rows), np.uint8, device)
+        mini.columns[name] = sc
+    return mini
+
+
+def build_prewarm_spec(executor, segments: Sequence[ImmutableSegment], request: BrokerRequest
+                       ) -> Optional[Dict[str, Any]]:
+    """The prewarm spec of one query shape, or None when it has nothing
+    to prewarm.
+
+    Walks the executor's decision order (as ``build_explain_node`` does)
+    and returns ``{"planDigest", "lane", "compile"}``, where
+    ``compile()`` launches the digest's kernel instantiations once ahead
+    of serving (module docstring).  None is a skip, not a failure:
+    host, postings, bit-sliced and star-tree shapes launch no table
+    kernel; a chunked dispatch sequence is many launches; a digest already
+    in the lane's compile timeline is warm already."""
+    lane = executor.lane
+    if lane is None:
+        return None
+    live = [seg for seg, reason in prune_explain(segments, request) if reason is None]
+    normal = [s for s in live if not is_fit_for_star_tree(request, s)]
+    if not normal:
+        return None
+    total_docs = sum(s.num_docs for s in segments)
+    needed = set(request.referenced_columns())
+    sel_columns: Optional[List[str]] = None
+    if request.is_selection:
+        sel_columns = executor._resolve_selection_columns(request, normal[0])
+        needed.update(sel_columns)
+    needed -= executor._docrange_only_columns(request, normal, sel_columns)
+    with executor._stage_lock:
+        ctx = get_table_context(normal, executor._contexts)
+    if index_path_decision(request, normal, ctx, total_docs, executor.postings)[1] is not None:
+        return None
+    if bitsliced_decision(request, normal, ctx, total_docs, executor.bitsliced, executor.zone_maps)[1] is not None:
+        return None
+    if plan_forced_host(request, ctx, executor.precision):
+        return None
+    raw_cols, gfwd_cols, hll_cols = executor._role_columns(request, normal, ctx)
+    skip_base = executor._skip_base_columns(request, normal, raw_cols, gfwd_cols, hll_cols)
+    phantom = _phantom_staged(normal, sorted(needed), raw_cols, gfwd_cols, hll_cols, skip_base,
+                              executor.device, executor.precision)
+    scratch: Dict[Any, Any] = {}
+    plan = build_static_plan(request, ctx, phantom, scratch=scratch)
+    if not plan.on_device:
+        return None
+    pdigest = plan_digest(plan)
+    if lane.compile_info(pdigest) is not None or executor.poisoned_entry((pdigest, phantom.segment_names)):
+        return None
+    q_np = build_query_inputs(request, plan, ctx, phantom, scratch=scratch)
+    block = zonemap.zone_block_rows() if executor._block_skip_ids(plan, q_np, normal, phantom) is not None else 0
+    if not block and make_chunked_table_kernel(plan, phantom.num_segments, phantom.n_pad) is not None:
+        return None
+    device = executor.device
+    kernel = executor._kernel
+
+    def compile_now() -> None:
+        mini = _mini_staged(phantom, ctx, block or config.pad_docs(1), device)
+        seg = segment_arrays(mini, needed)
+        q = dict(q_np)
+        if block:
+            q["block_ids"] = zonemap.block_ids_input(np.ones((mini.num_segments, 1), dtype=bool), 1)
+        if device.type == "cuda":
+            # the prewarm thread's own stream: never the lane's
+            with torch.cuda.device(device), torch.cuda.stream(torch.cuda.Stream(device=device)):
+                fetch_handle(kernel.dispatch(plan, mini, seg, to_device_inputs(q, device), block))
+        else:
+            fetch_handle(kernel.dispatch(plan, mini, seg, to_device_inputs(q, device), block))
+
+    return {"planDigest": pdigest, "lane": lane, "compile": compile_now}

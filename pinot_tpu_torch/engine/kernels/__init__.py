@@ -2,9 +2,13 @@
 
 Each kernel is one ``csrc/<source>.cu`` with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into ``build/lib<name>-<hash>.so`` at first
-use and loaded with ``ctypes``.  A source may build more than one library
-(``LIBRARIES``: the source and its extra ``nvcc`` flags), so that the
-halves of a large set of template instantiations compile in parallel.
+use and loaded with ``ctypes``.  With ``PINOT_TPU_COMPILE_CACHE_DIR`` set
+the libraries build under ``<root>/ext/<fingerprint>`` instead
+(``compilecache.library_dir``), keyed also by the torch and CUDA
+versions and the card, so a restarted server finds them built.  A source
+may build more than one library (``LIBRARIES``: the source and its extra
+``nvcc`` flags), so that the halves of a large set of template
+instantiations compile in parallel.
 """
 from __future__ import annotations
 
@@ -16,6 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Sequence
 
+from pinot_tpu_torch.engine import compilecache
+
 REPO_ROOT = Path(__file__).resolve().parents[3]
 CSRC = REPO_ROOT / "pinot_tpu_torch" / "csrc"
 BUILD_DIR = REPO_ROOT / "build"
@@ -24,10 +30,12 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# every library: (its csrc source, extra nvcc flags).  K2's full-scan and
-# block-table instantiations are two libraries of one source.
+# every library: (its csrc source, extra nvcc flags).  K1's float and
+# double sums, and K2's full-scan and block-table instantiations, are two
+# libraries of one source each.
 LIBRARIES = {
-    "fused_groupby": ("fused_groupby", ()),
+    "fused_groupby": ("fused_groupby", ("-DSUM_WIDTH=0",)),
+    "fused_groupby_x64": ("fused_groupby", ("-DSUM_WIDTH=1",)),
     "value_state_counts": ("value_state_counts", ("-DBLOCK_TABLE=0",)),
     "value_state_counts_blocks": ("value_state_counts", ("-DBLOCK_TABLE=1",)),
 }
@@ -44,12 +52,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
 
 
+def build_dir() -> Path:
+    """``build/``, or the compile cache's library directory when the cache
+    is on."""
+    cached = compilecache.library_dir()
+    return BUILD_DIR if cached is None else Path(cached)
+
+
 def library_path(name: str) -> Path:
     """Build output for a library, keyed by the hash of source and flags."""
     source, extra = LIBRARIES[name]
     src = CSRC / f"{source}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS + extra).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    return build_dir() / f"lib{name}-{h}.so"
 
 
 def build(names: Sequence[str]) -> None:
@@ -62,7 +77,7 @@ def build(names: Sequence[str]) -> None:
         out = library_path(name)
         if out.exists():
             continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         source, extra = LIBRARIES[name]
         cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp), str(CSRC / f"{source}.cu")]

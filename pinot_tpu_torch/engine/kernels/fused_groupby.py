@@ -437,10 +437,11 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _library():
+def _library(float_code: int):
+    """The library of the sums' width: float (0) or double (1)."""
     from pinot_tpu_torch.engine import kernels
 
-    lib = kernels.load("fused_groupby")
+    lib = kernels.load("fused_groupby_x64" if float_code else "fused_groupby")
     fn = lib.fused_groupby_launch
     if fn.argtypes is None:
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -498,7 +499,7 @@ def _launch(filter_fwd, match, num_docs, group_keys, cols, groups, group_cards, 
         raise ValueError(f"tier {tier!r} does not take this shape")
     smem = shared_bytes(tier, *shape)
     fcode_f = 1 if dtype == torch.float64 else 0
-    lib = _library()
+    lib = _library(fcode_f)
     with torch.cuda.device(dev):
         okey = (dev.index, fcode_f, kind, fcode, TIERS.index(tier), smem)  # occupancy of this block
         per_sm = _occupancy.get(okey)

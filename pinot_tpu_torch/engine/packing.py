@@ -12,6 +12,7 @@ launches and the worker that submitted waits.
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -84,7 +85,8 @@ def dispatch_packed(outs: Any) -> PackedHandle:
     if dev.type == "cuda":
         host = torch.empty(buf.numel(), dtype=torch.uint8, pin_memory=True)
         host.copy_(buf, non_blocking=True)
-        event = torch.cuda.Event()
+        # timing-enabled: the end of a launch's device span (deviceMs)
+        event = torch.cuda.Event(enable_timing=True)
         event.record(torch.cuda.current_stream(dev))
     else:
         host = buf
@@ -258,3 +260,58 @@ def integral_dictionary_values(values) -> "np.ndarray | None":
     if np.any(np.abs(v) >= 2.0**53) or not np.all(v == np.floor(v)):
         return None
     return v.astype(np.int64)
+
+
+# ---------------------------------------------------------------------------
+# Static plan cost (the utilization plane's "paper roofline" numerator):
+# flops and bytes accessed per launch of a device plan.
+# ---------------------------------------------------------------------------
+
+
+def output_bytes(value) -> int:
+    """The packed output bytes of a launch's value (a batched member's
+    value is its fetch and the batch's handle: the batch's output)."""
+    if isinstance(value, tuple):
+        value = value[1]
+    return int(getattr(value, "nbytes", 0) or 0)
+
+
+def kernel_cost_analysis(inputs, output_bytes: int, rows: int, ops_per_row: int) -> "dict | None":
+    """Static per-launch cost of a device plan, the counterpart of the
+    reference's XLA cost analysis (the card has none), computed from the
+    launch itself:
+
+    - ``bytesAccessed``: the bytes of every tensor the launch takes
+      (``inputs``: the resident segment arrays and the query inputs, any
+      tree of tensors or numpy arrays) plus the packed output it returns
+      (``output_bytes``) -- every input of the program counted once, as
+      XLA's static count does, whatever part a zone-map block launch
+      actually reads;
+    - ``flops``: counted from the kernel's loop, one operation per filter
+      leaf and one per aggregation for every row of the launch's grid
+      (``rows`` x ``ops_per_row``): K1 tests each leaf and adds each value
+      column into its group's sum once a row, K2 tests the filter and
+      increments one slot a row.
+
+    Returns ``{"flops", "bytesAccessed", "source": "static"}`` or None:
+    any gap gives None, never an exception, and
+    ``PINOT_TPU_COST_ANALYSIS=off`` (or ``0``) disables it."""
+    import os
+
+    if os.environ.get("PINOT_TPU_COST_ANALYSIS", "static") in ("0", "off"):
+        return None
+    try:
+        leaves: List[Any] = []
+        _flatten(inputs, leaves)
+        nbytes = int(output_bytes)
+        for x in leaves:
+            if isinstance(x, torch.Tensor):
+                nbytes += x.numel() * x.element_size()
+            elif isinstance(x, np.ndarray):
+                nbytes += x.nbytes
+        flops = float(rows) * float(ops_per_row)
+    except (TypeError, ValueError, AttributeError):
+        return None
+    if nbytes <= 0 or flops < 0:
+        return None
+    return {"flops": flops, "bytesAccessed": float(nbytes), "source": "static"}

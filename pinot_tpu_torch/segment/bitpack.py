@@ -4,9 +4,10 @@
 DictIds are stored with ``ceil(log2(cardinality))`` bits each, little-
 endian bit order within each byte.  The reference calls its g++ codec
 for arrays of 4096 values or more when one is built, else slices bits
-with uint64 shifts; the port does the same bit transposition with
-``np.unpackbits`` / ``np.packbits`` over each value's bytes, which writes
-the same bytes in far fewer passes over the data.
+with uint64 shifts; the port packs with ``np.unpackbits`` /
+``np.packbits`` over each value's bytes, which writes the same bytes in
+far fewer passes over the data, and unpacks with eight strided word
+reads (a segment's load was 90 % bit-unpacking before them).
 """
 from __future__ import annotations
 
@@ -46,10 +47,22 @@ def pack_bits(values: np.ndarray, nbits: int) -> np.ndarray:
 
 
 def _unpack(packed: np.ndarray, nbits: int, count: int) -> np.ndarray:
-    bits = np.unpackbits(packed, bitorder="little")[: count * nbits].reshape(count, nbits)
-    full = np.zeros((count, 32), dtype=np.uint8)
-    full[:, :nbits] = bits
-    return np.packbits(full, axis=1, bitorder="little").view("<u4").reshape(-1).astype(np.int32)
+    # eight values span nbits bytes, so value j of every group of eight
+    # starts at the same bit of its group: read the 8 bytes from there as
+    # one little-endian word (a view striding nbits bytes over the
+    # zero-padded stream), shift and mask
+    groups = -(-count // 8)
+    need = groups * nbits
+    buf = np.zeros(need + 8, dtype=np.uint8)
+    n = min(need, packed.size)
+    buf[:n] = packed[:n]
+    mask = np.uint64((1 << nbits) - 1)
+    out = np.empty((groups, 8), dtype=np.int32)
+    for j in range(8):
+        bit = j * nbits
+        words = np.ndarray((groups,), dtype="<u8", buffer=buf, offset=bit >> 3, strides=(nbits,))
+        out[:, j] = (words >> np.uint64(bit & 7)) & mask
+    return out.reshape(-1)[:count]
 
 
 def unpack_bits(packed: np.ndarray, nbits: int, count: int) -> np.ndarray:

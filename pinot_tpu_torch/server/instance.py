@@ -44,14 +44,33 @@ registers a table's schema and patches the loaded sealed segments with
 default columns for the fields they lack; ``add_segment`` patches each
 sealed segment it hosts the same way.
 
+UTILIZATION: per plan shape (``utils/planstats.py``, ``plan_stats``) the
+handled requests' latency, cost vector and tier mix, joined to the lane's
+compile timeline (the digest's static cost) through the device-plan
+digest the executor stamps; ``/debug/plans`` serves it, and EXPLAIN's
+``estimatedCost`` reads it once a shape has run here ("history").  The
+recent device-served queries' achieved bytes/s and FLOP/s against the
+card's declared peaks (``_RooflineWindow``, ``utils/platform.py``), the
+lane's windowed occupancy and the transfer totals make
+``device_utilization()`` (``/debug/device``, ``status()["device"]``, the
+``device.util.*`` gauges).  ``profile_start`` / ``profile_stop`` bracket a
+``torch.profiler`` capture (``server/profiler.py``) with the lane's
+``OccupancySampler``.
+
+WARM START (``server/prewarm.py``): with a workload feed wired (the
+starters' ``workload_source``), a segment load triggers a prewarm pass
+that launches the fleet's hot plan shapes ahead on their own stream;
+``prewarm.warming`` rides the heartbeats.
+
 Left out of the port, for later slices: the result cache (of scans and
-joins), the roofline window, plan stats, the profiler and the occupancy
-sampler, prewarm and the shadow auditor.
+joins) and the shadow auditor.
 """
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import logging
+import threading
 import time
 from typing import List, Optional, Sequence, Union
 
@@ -61,11 +80,11 @@ from pinot_tpu_torch.common.datatable import deserialize_instance_request, seria
 from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
 from pinot_tpu_torch.engine import join as join_mod
-from pinot_tpu_torch.engine.dispatch import LaneGroup
+from pinot_tpu_torch.engine.dispatch import LaneGroup, OccupancySampler
 from pinot_tpu_torch.engine.executor import QueryExecutor
 from pinot_tpu_torch.engine.explain import _json_safe, build_explain_node
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
-from pinot_tpu_torch.engine.plandigest import _raw_table
+from pinot_tpu_torch.engine.plandigest import _raw_table, plan_shape_digest, plan_shape_summary
 from pinot_tpu_torch.engine.results import SEGMENT_TIER_KEYS, IntermediateResult
 from pinot_tpu_torch.pql import optimize_request, parse_pql
 from pinot_tpu_torch.realtime.backpressure import IngestBackpressure, instance_mutable_bytes
@@ -73,6 +92,8 @@ from pinot_tpu_torch.realtime.mutable import MutableSegment
 from pinot_tpu_torch.segment.default_column import inject_default_columns
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.server.datamanager import InstanceDataManager
+from pinot_tpu_torch.server.prewarm import PrewarmWorker
+from pinot_tpu_torch.server.profiler import DeviceProfiler
 from pinot_tpu_torch.server.scheduler import (
     QueryAbandonedError,
     QueryScheduler,
@@ -80,9 +101,62 @@ from pinot_tpu_torch.server.scheduler import (
     SchedulerShutdownError,
 )
 from pinot_tpu_torch.utils.metrics import ServerMetrics, prometheus_text
+from pinot_tpu_torch.utils.planstats import PlanStatsStore
+from pinot_tpu_torch.utils.platform import platform_peaks, roofline_fractions
 from pinot_tpu_torch.utils.trace import NULL_TRACE, TraceContext, reset_current, set_current
 
 logger = logging.getLogger(__name__)
+
+
+class _RooflineWindow:
+    """Rolling window of device-served query records behind the
+    ``device.util.achieved*`` gauges: the achieved bytes/s and FLOP/s of
+    the trailing ``window_s`` seconds (each record's ``deviceMs`` and
+    ``deviceBytes`` from the cost vector, its flops from the digest's
+    static cost), and the roofline fraction against the card's declared
+    peaks.  Records happen on the request path, on the host."""
+
+    def __init__(self, window_s: float = 300.0, capacity: int = 2048) -> None:
+        self.window_s = window_s
+        self._dq = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+        self._cached: Optional[tuple] = None  # (monotonic t, snapshot)
+
+    def record(self, device_ms: float, device_bytes: float, flops: float) -> None:
+        with self._lock:
+            self._dq.append((time.monotonic(), float(device_ms), float(device_bytes), float(flops)))
+            self._cached = None
+
+    def snapshot(self, since: Optional[float] = None) -> dict:
+        """``since`` (a ``time.monotonic()`` stamp) narrows the window to
+        the records at or after it (a caller excluding warm-up queries);
+        the 0.5 s read cache serves only the full window."""
+        now = time.monotonic()
+        with self._lock:
+            if since is None and self._cached is not None and now - self._cached[0] < 0.5:
+                return dict(self._cached[1])
+            horizon = now - self.window_s
+            while self._dq and self._dq[0][0] < horizon:
+                self._dq.popleft()
+            records = list(self._dq) if since is None else [r for r in self._dq if r[0] >= since]
+        ms = sum(r[1] for r in records)
+        nbytes = sum(r[2] for r in records)
+        flops = sum(r[3] for r in records)
+        out = {
+            "windowS": self.window_s,
+            "queries": len(records),
+            "deviceMs": round(ms, 3),
+            "deviceBytes": int(nbytes),
+            "achievedBytesPerSec": round(nbytes * 1000.0 / ms, 3) if ms > 0 else 0.0,
+            "achievedFlopsPerSec": round(flops * 1000.0 / ms, 3) if ms > 0 else 0.0,
+        }
+        out["rooflineFraction"] = roofline_fractions(
+            out["achievedBytesPerSec"], out["achievedFlopsPerSec"], peaks=platform_peaks()
+        )["rooflineFraction"]
+        if since is None:
+            with self._lock:
+                self._cached = (now, dict(out))
+        return out
 
 
 class ServerInstance:
@@ -137,6 +211,7 @@ class ServerInstance:
                 metrics=self.metrics,
                 stall_timeout_s=lane_stall_timeout_s,
                 fault_injector=device_fault_injector,
+                precision=precision,
             )
             if pipeline
             else None
@@ -195,6 +270,38 @@ class ServerInstance:
             mutable_bytes_fn=lambda: instance_mutable_bytes(self),
             residency=residency,
         )
+        # the workload plane: per-plan-digest statistics of every handled
+        # request (module docstring)
+        self.plan_stats = PlanStatsStore()
+        self.metrics.meter("plan.recorded")
+        self.metrics.gauge("plan.digests").set_fn(self.plan_stats.digest_count)
+        # the utilization plane: the roofline window, the profiler and the
+        # lane's occupancy sampler (opt-in: the profiler brackets it)
+        self._roofline_window = _RooflineWindow()
+        self.profiler = DeviceProfiler(name=name, metrics=self.metrics)
+        self.occupancy_sampler = OccupancySampler(self.lane) if self.lane is not None else None
+        if self.occupancy_sampler is not None:
+            # the sampler parks again when a capture ends (stop or auto-stop)
+            self.profiler.on_capture_end = self._stop_samplers
+            lanes = self.lanes
+            self.metrics.gauge("device.util.busyFraction").set_fn(
+                lambda: lanes.occupancy_read("gauge", min_interval_s=0.05)["busyFraction"])
+            self.metrics.gauge("device.util.avgQueueDepth").set_fn(
+                lambda: lanes.occupancy_read("gauge", min_interval_s=0.05)["avgQueueDepth"])
+        else:
+            self.metrics.gauge("device.util.busyFraction").set(0)
+            self.metrics.gauge("device.util.avgQueueDepth").set(0)
+        transfers = self.executor.transfers
+        self.metrics.gauge("device.util.h2dBytes").set_fn(lambda: transfers.h2d_bytes)
+        self.metrics.gauge("device.util.d2hBytes").set_fn(lambda: transfers.d2h_bytes)
+        self.metrics.gauge("device.util.achievedBytesPerSec").set_fn(
+            lambda: self._roofline_window.snapshot()["achievedBytesPerSec"])
+        self.metrics.gauge("device.util.achievedFlopsPerSec").set_fn(
+            lambda: self._roofline_window.snapshot()["achievedFlopsPerSec"])
+        self.metrics.gauge("device.util.rooflineFraction").set_fn(
+            lambda: self._roofline_window.snapshot()["rooflineFraction"])
+        # the warm-start plane: inert until a starter wires a workload feed
+        self.prewarm = PrewarmWorker(self)
 
     # -- segment lifecycle -------------------------------------------
     def set_table_schema(self, table: str, schema) -> None:
@@ -233,6 +340,13 @@ class ServerInstance:
             inject_default_columns(segment, schema)
         self.data_manager.add_segment(table, segment)
         self.executor.evict_segment(segment.segment_name)
+        # the hot working set may have grown: a prewarm pass (debounced;
+        # inert without a workload feed)
+        self.prewarm.request_prewarm(_raw_table(table))
+
+    @staticmethod
+    def _raw_table(table: str) -> str:
+        return _raw_table(table)
 
     def remove_segment(self, table: str, name: str) -> None:
         tdm = self.data_manager.table(table)
@@ -259,6 +373,7 @@ class ServerInstance:
         timeout_s = req["timeoutMs"] / 1000.0
         deadline = time.monotonic() + timeout_s
         t_enqueue = time.monotonic()
+        outcome = "ok"  # or "shed" / "failed": the plan statistics' verdict
         try:
             result = self.scheduler.run(
                 lambda: self._process(req, deadline, t_enqueue),
@@ -269,18 +384,22 @@ class ServerInstance:
         except SchedulerSaturatedError as e:
             # overload shed: typed 210, which the broker fails over on
             self.metrics.meter("queriesShed").mark()
+            outcome = "shed"
             result = IntermediateResult(exceptions=[(ErrorCode.SERVER_SCHEDULER_DOWN, str(e))])
         except SchedulerShutdownError as e:
             # draining: typed 220 so the broker retries on a replica
+            outcome = "shed"
             result = IntermediateResult(exceptions=[(ErrorCode.SERVER_SHUTTING_DOWN, str(e))])
         except QueryAbandonedError as e:
             # the deadline expired while queued; reply without executing
             self.metrics.meter("queriesAbandoned").mark()
+            outcome = "shed"
             result = IntermediateResult(
                 exceptions=[(ErrorCode.EXECUTION_TIMEOUT, f"server {self.name}: {e}")]
             )
         except (concurrent.futures.TimeoutError, TimeoutError):
             logger.warning("query %s timed out", req.get("requestId"))
+            outcome = "failed"
             result = IntermediateResult(
                 exceptions=[
                     (ErrorCode.EXECUTION_TIMEOUT, f"server {self.name}: exceeded {req['timeoutMs']}ms")
@@ -288,6 +407,7 @@ class ServerInstance:
             )
         except Exception as e:  # execution error
             logger.exception("query %s failed", req.get("requestId"))
+            outcome = "failed"
             result = IntermediateResult(
                 exceptions=[(ErrorCode.QUERY_EXECUTION, f"{type(e).__name__}: {e}")]
             )
@@ -301,7 +421,9 @@ class ServerInstance:
             n = result.cost.get(key)
             if n:
                 self.metrics.meter(f"cost.tier.{key}").mark(int(n))
-        self.metrics.timer("queryExecution").update((time.perf_counter() - t_start) * 1000)
+        exec_ms = (time.perf_counter() - t_start) * 1000
+        self._record_plan_stats(req, result, outcome, exec_ms)
+        self.metrics.timer("queryExecution").update(exec_ms)
         self.metrics.meter("queries").mark()
         # backpressure snapshot on EVERY reply (including sheds): the
         # broker's admission window reads it
@@ -331,9 +453,66 @@ class ServerInstance:
             trace = NULL_TRACE
         token = set_current(trace if trace.enabled else None)
         try:
-            return self._process_traced(req, request, trace, deadline, t_enqueue)
+            result = self._process_traced(req, request, trace, deadline, t_enqueue)
         finally:
             reset_current(token)
+        # the plan statistics' key, where the parsed request exists, so
+        # the recording needs no second parse
+        result._plan_digest = plan_shape_digest(request)
+        result._plan_summary = plan_shape_summary(request)
+        result._explain_mode = request.explain
+        return result
+
+    def _record_plan_stats(self, req: dict, result: IntermediateResult, outcome: str, exec_ms: float) -> None:
+        """Fold one handled request into the per-plan-digest registry.
+        Plain EXPLAIN is left out (it executed nothing).  A result without
+        a digest was never parsed: a shed one is not re-parsed (the
+        overload path must stay cheap), a failed one is, so failures link
+        to their shape."""
+        digest = getattr(result, "_plan_digest", None)
+        summary = getattr(result, "_plan_summary", "")
+        explain_mode = getattr(result, "_explain_mode", None)
+        if digest is None:
+            if outcome == "shed":
+                return
+            try:
+                preq = optimize_request(parse_pql(req["pql"]))
+            except Exception:
+                return  # unparseable: nothing to key on
+            digest, summary, explain_mode = plan_shape_digest(preq), plan_shape_summary(preq), preq.explain
+        if explain_mode == "plan":
+            return
+        # the device-plan digest links the shape's measured time to the
+        # lane's static cost of that digest (the roofline numerator)
+        device_ms = float(result.cost.get("deviceMs", 0) or 0)
+        host_ms = float(result.cost.get("hostMs", 0) or 0)
+        device_info = None
+        ddigest = getattr(result, "_device_digest", None)
+        if ddigest is not None and self.lanes is not None:
+            ci = self.lanes.compile_info(ddigest)
+            if ci is not None:
+                device_info = {"digest": ddigest}
+                analysis = ci.get("costAnalysis")
+                if isinstance(analysis, dict):
+                    device_info.update({k: analysis[k] for k in ("flops", "bytesAccessed") if k in analysis})
+        if device_ms > 0:
+            self._roofline_window.record(
+                device_ms, float(result.cost.get("deviceBytes", 0) or 0),
+                float((device_info or {}).get("flops", 0) or 0))
+        self.plan_stats.record(
+            digest,
+            summary=summary,
+            table=req["table"],
+            latency_ms=exec_ms,
+            cost=result.cost,
+            num_docs=result.num_docs_scanned,
+            shed=(outcome == "shed"),
+            failed=(outcome == "failed"),
+            device_ms=device_ms or None,
+            host_ms=host_ms or None,
+            device_info=device_info,
+        )
+        self.metrics.meter("plan.recorded").mark()
 
     def _process_traced(
         self,
@@ -387,7 +566,8 @@ class ServerInstance:
                     # EXPLAIN: the plan INSTEAD of execution, with no lane
                     # submission, no cost and nothing staged
                     with trace.span("explainPlan", segments=len(acquired)):
-                        node = build_explain_node(self.executor, views, request, req["table"], self.name)
+                        node = build_explain_node(self.executor, views, request, req["table"], self.name,
+                                                  plan_stats=self.plan_stats)
                     node["mode"] = "plan"
                     self.metrics.meter("plan.explains").mark()
                     result = IntermediateResult(total_docs=int(node.get("totalDocs") or 0), plan_info=[node])
@@ -408,7 +588,7 @@ class ServerInstance:
         (so the quarantine and compile state say what just happened),
         annotated with this reply's cost: the per-server actuals sum
         exactly to the broker's merged cost."""
-        node = build_explain_node(self.executor, views, request, table, self.name)
+        node = build_explain_node(self.executor, views, request, table, self.name, plan_stats=self.plan_stats)
         node["mode"] = "analyze"
         node["actualCost"] = _json_safe(dict(result.cost))
         node["actualDocsScanned"] = int(result.num_docs_scanned)
@@ -558,7 +738,9 @@ class ServerInstance:
         heal["laneRestarts"] = 0 if self.lanes is None else self.lanes.restart_count
         return {
             "name": self.name,
-            "device": str(self.device),
+            "warming": self.prewarm.warming,
+            "ready": not self.prewarm.warming,
+            "prewarm": self.prewarm.state(),
             "scheduler": self.scheduler.stats(),
             "lane": None if self.lanes is None else self.lanes.stats(),
             "selfHealing": heal,
@@ -576,8 +758,56 @@ class ServerInstance:
             "kernelLaunches": {"k1": fused_groupby.launches, "k2": value_state_counts.launches,
                                "k1Batched": fused_groupby.batched_launches,
                                "k2Batched": value_state_counts.batched_launches},
+            # the utilization plane (device_utilization) and the plan
+            # statistics' head
+            "device": self.device_utilization(),
+            "plans": self.plan_stats.snapshot(top=20),
             "metrics": self.metrics.snapshot(),
         }
+
+    def profile_start(self, timeout_s: Optional[float] = None) -> dict:
+        """Begin (or join) an on-demand profile capture: the
+        ``torch.profiler`` session and, for its duration, the lane's
+        occupancy sampler.  Raises ``ProfilerUnavailableError`` (a typed
+        404 on the admin surface) without a working profiler."""
+        snap = self.profiler.start(timeout_s)
+        if self.occupancy_sampler is not None:
+            self.occupancy_sampler.start()
+        return snap
+
+    def _stop_samplers(self) -> None:
+        if self.occupancy_sampler is not None:
+            self.occupancy_sampler.stop()
+
+    def profile_stop(self) -> dict:
+        """Release one profile start; the sampler parks when the capture
+        ends (the count at zero, the ``on_capture_end`` hook)."""
+        return self.profiler.stop()
+
+    def device_utilization(self, roofline_since: Optional[float] = None) -> dict:
+        """The utilization snapshot (``status()["device"]``,
+        ``/debug/device``, the unit of the controller's
+        ``/debug/utilization``): the device and its declared peaks, the
+        lane's windowed occupancy, the transfer totals, the recent
+        achieved-rate window (narrowed to records at or after the
+        ``roofline_since`` monotonic stamp), the profiler's state and,
+        while the sampler runs or has run, its series."""
+        occupancy = None
+        if self.lanes is not None:
+            occupancy = self.lanes.occupancy_read("status")
+            occupancy["open"] = self.lanes.stats().get("open", 0)
+        out = {
+            "device": str(self.device),
+            "platform": platform_peaks(),
+            "occupancy": occupancy,
+            "transfers": self.executor.transfers.snapshot(),
+            "recent": self._roofline_window.snapshot(since=roofline_since),
+            "profiler": self.profiler.snapshot(),
+        }
+        sampler = self.occupancy_sampler
+        if sampler is not None and (sampler.running or sampler.samples_taken):
+            out["sampler"] = sampler.snapshot()
+        return out
 
     def _device_memory(self) -> dict:
         if self.device.type != "cuda":
@@ -590,12 +820,16 @@ class ServerInstance:
         return prometheus_text(self.metrics)
 
     def shutdown(self) -> None:
-        """Idempotent: drain-stop the scheduler and close the device lane
-        (queued lane waiters fail fast with ``LaneClosedError``), then
+        """Idempotent: drain-stop the scheduler, stop the prewarm worker,
+        the occupancy sampler and any profile capture, and close the device
+        lane (queued lane waiters fail fast with ``LaneClosedError``), then
         wait (bounded) for their threads to exit: a daemon thread still
         inside torch while the interpreter tears down aborts the
         process."""
         self.scheduler.shutdown()
+        self.prewarm.stop()
+        self._stop_samplers()
+        self.profiler.shutdown()
         if self.lanes is not None:
             self.lanes.close()
         self.scheduler.join()

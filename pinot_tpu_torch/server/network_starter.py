@@ -15,16 +15,20 @@
   threshold runs the completion protocol against the controller over
   HTTP (the committer uploads its segment file);
 - it serves broker queries on a length-framed TCP socket, and
-  ``/health``, ``/metrics``, ``/debug/metrics`` and ``/debug/residency``
-  on its admin HTTP port;
+  ``/health``, ``/metrics``, ``/debug/metrics``, ``/debug/residency``,
+  ``/debug/device``, ``/debug/plans[?top=&by=]``, ``/debug/profile``,
+  ``POST /debug/profile/start|stop`` and ``/debug/prewarm`` on its admin
+  HTTP port (``ServerAdminHttpServer``);
+- its prewarm worker (``server/prewarm.py``) pulls the controller's
+  fleet workload (``/debug/workload``) for the tables it hosts when its
+  segments load, and every heartbeat reports whether it is warming;
 - its residency caps come from the environment
   (``starter.residency_options``).
 
 The heartbeat and message loops back off with full jitter while the
 controller is unreachable and keep serving from local state.  Left out,
 ROADMAP queue 1 item 29: the high-level consumer (``HLRemoteConsumer``);
-a CONSUMING message of a highlevel table fails its transition.  Prewarm
-is a later slice.
+a CONSUMING message of a highlevel table fails its transition.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import os
 import tempfile
 import threading
 import time
+import urllib.parse
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Union
@@ -59,6 +64,7 @@ from pinot_tpu_torch.segment.format import (
     write_segment,
 )
 from pinot_tpu_torch.server.instance import ServerInstance
+from pinot_tpu_torch.server.profiler import ProfilerUnavailableError
 from pinot_tpu_torch.server.starter import quarantine_local_copy, residency_options
 from pinot_tpu_torch.transport.tcp import TcpServer
 from pinot_tpu_torch.utils.retry import FullJitterBackoff, tighten_liveness_budget
@@ -70,12 +76,17 @@ HLC_ITEM = "high-level consumer groups are item 29 of the port (ROADMAP queue 1)
 
 class ServerAdminHttpServer:
     """The server's scrape and ops surface: ``/health``, Prometheus text at
-    ``/metrics``, the status and metrics JSON at ``/debug/metrics``, and
+    ``/metrics``, the status and metrics JSON at ``/debug/metrics``,
     ``/debug/samples?timer=<name>&last=<n>``, the last n samples of one
     timer (per-query phase medians for a client that sends one query shape
-    at a time), and ``/debug/residency``, the residency tiers (bytes and
+    at a time), ``/debug/residency``, the residency tiers (bytes and
     tables a tier, the cap pressure, the demotion and promotion
-    counters).  The query data plane stays on the TCP socket."""
+    counters), ``/debug/device`` (``device_utilization()``),
+    ``/debug/plans?top=&by=count|cost`` (the plan statistics),
+    ``/debug/profile`` and ``POST /debug/profile/start`` (body
+    ``{"timeoutS": s}``) / ``stop`` (the profiler; a typed 404 without
+    one), and ``/debug/prewarm`` (the prewarm worker's state).  The query
+    data plane stays on the TCP socket."""
 
     def __init__(self, server: ServerInstance, host: str = "127.0.0.1", port: int = 0):
         inst = server
@@ -104,6 +115,20 @@ class ServerAdminHttpServer:
                     return self._send_json(inst.status())
                 if url.path == "/debug/residency":
                     return self._send_json(inst.executor.residency.snapshot())
+                if url.path == "/debug/device":
+                    return self._send_json(inst.device_utilization())
+                if url.path == "/debug/profile":
+                    return self._send_json(inst.profiler.snapshot())
+                if url.path == "/debug/prewarm":
+                    return self._send_json(inst.prewarm.state())
+                if url.path == "/debug/plans":
+                    qs = parse_qs(url.query)
+                    by = (qs.get("by") or ["count"])[0]
+                    try:
+                        top = int((qs.get("top") or ["50"])[0])
+                    except ValueError:
+                        top = 50
+                    return self._send_json(inst.plan_stats.snapshot(top=top, by=by))
                 if url.path == "/debug/samples":
                     qs = parse_qs(url.query)
                     name = (qs.get("timer") or [""])[0]
@@ -113,6 +138,26 @@ class ServerAdminHttpServer:
                         return self._send_json({"error": "last must be an integer"}, 400)
                     samples = inst.metrics.timer(name).samples()
                     return self._send_json({"timer": name, "samples": samples[-last:] if last > 0 else samples})
+                self._send_json({"error": "not found"}, 404)
+
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", "0") or 0)
+                raw = self.rfile.read(n) if n else b""
+                try:
+                    body = json.loads(raw) if raw else {}
+                except ValueError:
+                    return self._send_json({"error": "bad JSON body"}, 400)
+                path = urlparse(self.path).path
+                if path == "/debug/profile/start":
+                    try:
+                        return self._send_json(inst.profile_start(body.get("timeoutS")))
+                    except ProfilerUnavailableError as e:
+                        # typed 404: this process has no usable profiler
+                        return self._send_json({"error": str(e), "errorType": "ProfilerUnavailableError"}, 404)
+                    except Exception as e:
+                        return self._send_json({"error": str(e)}, 500)
+                if path == "/debug/profile/stop":
+                    return self._send_json(inst.profile_stop())
                 self._send_json({"error": "not found"}, 404)
 
         self._httpd = ThreadingHTTPServer((host, port), _Handler)
@@ -357,6 +402,9 @@ class NetworkedServerStarter:
         # backoff wakes the poll (queued transitions land at once)
         self._msg_wake = threading.Event()
         self._threads: list = []
+        # fleet plan prewarming: segment loads trigger passes over the
+        # controller's merged workload for the tables hosted here
+        self.server.prewarm.workload_source = self._fetch_workload
 
     # -- HTTP helpers --------------------------------------------------
     def _post(self, path: str, payload: Dict[str, Any], timeout_s: float = 10.0) -> Dict[str, Any]:
@@ -370,6 +418,15 @@ class NetworkedServerStarter:
     def _get(self, path: str) -> Dict[str, Any]:
         with urllib.request.urlopen(self.controller_url + path, timeout=10) as r:
             return json.loads(r.read())
+
+    def _fetch_workload(self, tables, n) -> list:
+        """The prewarm feed: the controller's fleet-merged top-K plan
+        shapes, narrowed to ``tables``."""
+        qs = f"?n={int(n)}"
+        if tables:
+            qs += "&tables=" + urllib.parse.quote(",".join(tables))
+        out = self._get("/debug/workload" + qs)
+        return out.get("topByCount") or out.get("top") or []
 
     def _register_payload(self) -> Dict[str, Any]:
         return {
@@ -433,8 +490,8 @@ class NetworkedServerStarter:
         unreachable = self.server.metrics.gauge("controller.unreachable")
         while not self._stop.wait(wait_s):
             try:
-                out = self._post(f"/instances/{self.name}/heartbeat", {"warming": False},
-                                 timeout_s=self._hb_timeout_s)
+                out = self._post(f"/instances/{self.name}/heartbeat",
+                                 {"warming": bool(self.server.prewarm.warming)}, timeout_s=self._hb_timeout_s)
                 self.lease.renew(out.get("lease"))
                 if out.get("reregister"):
                     reg = self._post("/instances", self._register_payload(), timeout_s=self._hb_timeout_s)

@@ -78,14 +78,21 @@ def residency_options() -> Dict[str, Any]:
 
 
 class ServerStarter:
+    """``workload_source(tables, n)``: the prewarm worker's fleet
+    workload feed (``server/prewarm.py``); an in-process harness passes a
+    closure over a broker's plan statistics, and segment loads then
+    trigger prewarm passes."""
+
     def __init__(self, server: ServerInstance, resources: ClusterResourceManager,
-                 data_dir: Optional[str] = None) -> None:
+                 data_dir: Optional[str] = None, workload_source=None) -> None:
         self.server = server
         self.resources = resources
         # server-local segment copies; None reads the store's path directly
         # (then a quarantine only pulls the segment from serving)
         self.data_dir = data_dir
         self._local_crcs: Dict[str, int] = {}  # segment -> crc loaded
+        if workload_source is not None:
+            server.prewarm.workload_source = workload_source
 
     def start(self) -> None:
         self.resources.register_instance(

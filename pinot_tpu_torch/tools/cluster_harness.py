@@ -1,6 +1,6 @@
 """In-process cluster harness: a controller, N servers and a broker in one
 process (port of ``pinot_tpu.tools.cluster_harness``, trimmed to
-``InProcessCluster``).
+``InProcessCluster`` and ``single_server_broker``).
 
 The reference's ``PerfBenchmarkDriver.java:61`` and the integration
 tests' ``ClusterTest`` start the whole cluster in one process the same
@@ -23,6 +23,7 @@ from typing import Dict, List, Optional, Union
 import torch
 
 from pinot_tpu_torch.broker.broker import OFFLINE_SUFFIX, BrokerHttpServer, BrokerRequestHandler
+from pinot_tpu_torch.broker.routing import RoutingTableProvider
 from pinot_tpu_torch.common.response import BrokerResponse
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
@@ -70,13 +71,20 @@ class InProcessCluster:
             self.add_server()
 
     def _on_view_change(self, table: str, view: Dict[str, Dict[str, str]]) -> None:
-        """The broker's routing and time boundary follow each view change."""
+        """The broker's routing, quota and time boundary follow each view
+        change."""
         resources = self.controller.resources
         if table not in resources.tables():
             self.broker.routing.remove(table)
             self.broker.time_boundary.remove(table)
             return
         self.broker.routing.update(table, view)
+        config = resources.table_configs.get(table)
+        if config is not None:
+            # idempotent for an unchanged quota (a re-notify never refills
+            # a drained bucket); None clears a removed one
+            self.broker.quota.set_quota(
+                config.raw_name, config.quota.max_queries_per_second, config.quota.burst_queries)
         if table.endswith(OFFLINE_SUFFIX):
             metas = []
             for seg in resources.segments_of(table):
@@ -135,3 +143,22 @@ class InProcessCluster:
         self.broker.shutdown()
         for s in self.servers:
             s.shutdown()
+
+
+def single_server_broker(table: str, segments, timeout_ms: float = 600_000.0, max_pending: int = 64,
+                         **server_kwargs) -> BrokerRequestHandler:
+    """One in-process server and a broker over ``LocalTransport``, the
+    smallest serving topology.  Extra keyword arguments reach the
+    ``ServerInstance`` (``device="cpu"`` in tests, ``pipeline=False`` for
+    the serial path); the instance is ``broker.local_servers[0]``."""
+    server = ServerInstance("benchServer", max_pending=max_pending, **server_kwargs)
+    for seg in segments:
+        server.add_segment(table, seg)
+    transport = LocalTransport()
+    transport.register(("benchServer", 0), server.handle_request)
+    routing = RoutingTableProvider()
+    routing.update(table, {s.segment_name: {"benchServer": "ONLINE"} for s in segments})
+    broker = BrokerRequestHandler(transport, {"benchServer": ("benchServer", 0)}, routing=routing,
+                                  timeout_ms=timeout_ms)
+    broker.local_servers = [server]
+    return broker

@@ -112,9 +112,9 @@ def test_the_row_budget_caps_and_stops_batching(monkeypatch):
     class _Lane:  # runs each launch inline; batching needs queued peers
         batch_max = 16
 
-        def submit(self, key, launch, deadline=None, plan_digest=None, batch=None):
+        def submit(self, key, launch, deadline=None, plan_digest=None, cost_provider=None, batch=None):
             class T:
-                coalesced, batch_size = False, 1
+                coalesced, batch_size, device_start = False, 1, None
 
                 def result(self, deadline=None, v=launch()):
                     return v

@@ -16,10 +16,15 @@ runs) and ``staged.hbmBytes``.  The broker's assembled tree over a
 two-server fleet and a join's shell compare the same way.  Then the
 reference's tier-1 EXPLAIN guards, on the port: the parser, the shape
 digest, the wire, the golden schema with zero device work, the compile
-timeline, ANALYZE's actuals, poison honesty and ``explain_dump``.
+timeline, ANALYZE's actuals, poison honesty and ``explain_dump``.  After
+an execution EXPLAIN reads as the reference's does: the estimate from the
+server's plan statistics ("history", held against the reference's), the
+compile record's static cost as a dict, and the compile cache's
+"persistent" and "prewarmed" states.
 """
 import copy
 import struct
+import time
 
 import numpy as np
 import pytest
@@ -41,6 +46,7 @@ from pinot_tpu.segment.builder import build_segment as ref_build_segment
 from pinot_tpu.server.instance import ServerInstance as RefServer
 from pinot_tpu.startree import StarTreeBuilderConfig as RefStarConfig
 from pinot_tpu.startree import build_star_tree as ref_build_star_tree
+from pinot_tpu.tools.cluster_harness import single_server_broker as ref_single_server_broker
 from pinot_tpu.tools.datagen import baseball_rows, baseball_schema, make_test_schema, random_rows
 from pinot_tpu.tools.datagen import synthetic_lineitem_segment as ref_synthetic
 from pinot_tpu.tools.explain_dump import render_explain as ref_render_explain
@@ -468,17 +474,93 @@ def test_explain_golden_schema_and_zero_device_work(explain_broker):
     assert staged["residency"] == {"xga": "hot", "xgb": "hot"} and "metInt" in staged["columns"]
 
 
+def _wait_cost_analysis(server, digest, timeout_s=15.0):
+    deadline = time.time() + timeout_s
+    while time.time() < deadline:
+        ci = server.lane.compile_info(digest)
+        if ci is not None and "costAnalysis" in ci:
+            return ci
+        time.sleep(0.02)
+    raise AssertionError(f"no cost analysis for {digest}")
+
+
 def test_explain_device_digest_matches_real_execution(explain_broker):
+    """Before the first launch: cold, no cost analysis, the static
+    estimate.  After it, as the reference: warm with the lane's timeline,
+    the digest's static cost as a dict, and the estimate read from the
+    server's plan statistics ("history")."""
     broker, server = explain_broker, explain_broker.local_server
     pql = "SELECT sum(metInt) FROM expTable WHERE dimInt > 40"
-    dev = broker.handle_pql("EXPLAIN " + pql).explain["servers"][0]["device"]
+    node = broker.handle_pql("EXPLAIN " + pql).explain["servers"][0]
+    dev = node["device"]
     assert dev["compile"] == {"state": "cold", "costAnalysis": "unavailable"}
     assert dev["mesh"] == {"shape": "1x1", "lanes": 1, "laneIndex": 0, "shardAxis": None, "collective": None}
+    assert node["estimatedCost"]["source"] == "static"
     assert not broker.handle_pql(pql).exceptions
     assert server.lane.stats()["compiledPlans"] >= 1
     assert server.lane.compile_info(dev["planDigest"]) is not None, "phantom digest diverged"
-    comp = broker.handle_pql("EXPLAIN " + pql).explain["servers"][0]["device"]["compile"]
+    _wait_cost_analysis(server, dev["planDigest"])
+    node = broker.handle_pql("EXPLAIN " + pql).explain["servers"][0]
+    comp = node["device"]["compile"]
     assert comp["state"] == "warm" and comp["firstCallMs"] > 0 and comp["launches"] == 1
+    assert isinstance(comp["costAnalysis"], dict) and comp["costAnalysis"]["bytesAccessed"] > 0
+    assert node["estimatedCost"]["source"] == "history" and node["estimatedCost"]["execCount"] == 1
+
+
+def test_explain_history_estimate_equals_the_reference():
+    """Once a shape has run on a server, both packages' EXPLAIN read its
+    estimate from the server's plan statistics: the same source, run
+    count and per-query tier counts."""
+    ref_clear_staging_cache()
+    port = _single_server_broker("expTable", _port(EXP_REF))
+    ref = ref_single_server_broker("expTable", EXP_REF)
+    pql = "SELECT sum(metInt), count(*) FROM expTable WHERE dimInt > 20 GROUP BY dimStr TOP 4"
+    try:
+        for broker in (port, ref):
+            for _ in range(3):
+                assert not broker.handle_pql(pql).exceptions
+        got = port.handle_pql("EXPLAIN " + pql).explain["servers"][0]["estimatedCost"]
+        want = ref.handle_pql("EXPLAIN " + pql).explain["servers"][0]["estimatedCost"]
+        assert got["source"] == want["source"] == "history"
+        assert got["execCount"] == want["execCount"] == 3
+        tiers = lambda est: {k: v for k, v in est["perQuery"].items() if k.startswith("segments")}
+        assert tiers(got) == tiers(want) and tiers(got)
+        assert set(got) <= set(want) | {"roofline"}
+    finally:
+        for broker, server in ((port, port.local_server), (ref, ref.local_servers[0])):
+            broker.shutdown()
+            server.shutdown()
+        ref_clear_staging_cache()
+
+
+def test_explain_compile_state_walk_with_the_compile_cache(tmp_path, monkeypatch):
+    """The compile states the reference reports with its compile cache:
+    cold -> warm in the first process; "persistent" in a restarted one
+    over the same cache root; "prewarmed" once the prewarm worker
+    launched the shape ahead; then warm, with no cold launch."""
+    from pinot_tpu_torch.engine.explain import build_prewarm_spec
+
+    monkeypatch.setenv("PINOT_TPU_COMPILE_CACHE_DIR", str(tmp_path))
+    pql = "SELECT sum(metInt) FROM expTable GROUP BY dimStr TOP 5"
+    states = []
+    for generation in range(3):
+        broker = _single_server_broker("expTable", _port(EXP_REF))
+        server = broker.local_server
+        try:
+            if generation == 2:
+                views = [a.query_view() for a in server.data_manager.table("expTable").acquire_segments()]
+                spec = build_prewarm_spec(server.executor, views, optimize_request(parse_pql(pql)))
+                spec["compile"]()
+                assert server.lane.record_prewarmed(spec["planDigest"], 1.0)
+            states.append(broker.handle_pql("EXPLAIN " + pql).explain["servers"][0]["device"]["compile"]["state"])
+            assert not broker.handle_pql(pql).exceptions
+            states.append(broker.handle_pql("EXPLAIN " + pql).explain["servers"][0]["device"]["compile"]["state"])
+            if generation:
+                assert server.metrics.meter("compile.cold").count == 0
+        finally:
+            broker.shutdown()
+            server.shutdown()
+    assert states == ["cold", "warm", "persistent", "warm", "prewarmed", "warm"]
 
 
 def test_compile_timeline_cold_then_warm(explain_broker):

@@ -85,6 +85,37 @@ assert tiers.enforce() > 0 and tiers.snapshot()["warmTables"] == 1
 tiers.hbm_cap_bytes = 0
 assert broker.handle_pql(Q1).aggregation_results[3].group_by_result == groups
 assert tiers.counter("promotions") == 1
+# the utilization and warm-start planes: plan statistics on both roles,
+# one torch.profiler capture, the declared peaks, the compile cache's
+# ledger, the query quota and one prewarm pass on a second server
+import os.path as _osp
+import tempfile as _tempfile
+import time as _time
+
+from pinot_tpu_torch.broker import quota
+from pinot_tpu_torch.engine import compilecache
+from pinot_tpu_torch.utils import platform
+
+assert server.plan_stats.digest_count() >= 1 and broker.planstats.digest_count() >= 1
+server.profile_start(timeout_s=60)
+assert broker.handle_pql(Q1).aggregation_results[3].group_by_result == groups
+capture = server.profile_stop()["lastCapture"]
+assert _osp.exists(_osp.join(capture["dir"], "trace.json")), capture
+assert platform.platform_peaks(refresh=True)["source"] == "unknown"
+with _tempfile.TemporaryDirectory() as root:
+    assert compilecache.record_plan("abc", root=root) and compilecache.known_plan("abc", root=root)
+assert quota.QueryQuotaManager().allow("lineitem")
+warm = ServerInstance("iso-warm", device="cpu")
+for s in segs:
+    warm.add_segment("lineitem", s)
+warm.prewarm.workload_source = lambda tables, n: broker.workload_snapshot(top=n)["topByCount"]
+warm.prewarm.request_prewarm("lineitem")
+_end = _time.monotonic() + 60
+while warm.prewarm.warming and _time.monotonic() < _end:
+    _time.sleep(0.01)
+assert warm.metrics.meter("prewarm.compiled").count >= 1, warm.prewarm.state()
+assert warm.metrics.meter("compile.prewarmed").count >= 1 and warm.executor.staged_bytes() == 0
+warm.shutdown()
 # a join through the same broker: SSB lineorder / date, every strategy
 from pinot_tpu_torch.tools.datagen import ssb_date_segment, ssb_lineorder_segment
 

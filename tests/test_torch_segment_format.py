@@ -182,6 +182,19 @@ def test_bitpack_writes_the_reference_bytes(nbits, n):
     np.testing.assert_array_equal(ref_unpack_bits(got, nbits, n), v)
 
 
+@pytest.mark.parametrize("nbits,n", [(b, 4099) for b in range(1, 33)] + [(5, (1 << 20) + 3), (27, (1 << 20) + 3)])
+def test_bitpack_unpacks_every_width_as_the_reference(nbits, n):
+    """Every width, a count that ends mid-byte, and counts past one
+    unpacking chunk, with the top bit set at 32 bits."""
+    v = np.random.default_rng(nbits).integers(0, 1 << nbits, n, dtype=np.int64)
+    v[-1] = (1 << nbits) - 1
+    packed = pack_bits(v, nbits)
+    got = unpack_bits(packed, nbits, n)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, ref_unpack_bits(packed, nbits, n))
+    np.testing.assert_array_equal(got.astype(np.int64) & ((1 << nbits) - 1), v)
+
+
 @pytest.mark.parametrize("writer", ["reference", "port"])
 def test_star_tree_segments_round_trip_with_their_zones(writer, zone_block, tmp_path):
     """A star-tree segment file beside its zone maps: each package's
