@@ -127,7 +127,9 @@ QueryExecutor.execute -> reduce_to_response on one card:
  14. realtime ingestion: lineitem as a REALTIME table consumed by two
      server processes from the port's stream broker, queried at three
      watermarks against oracles of the rows produced, K1 and K2 at a
-     server's final shape;
+     server's final shape; each block carries its produce time as its
+     event time (``l_eventms``), so every answer carries ``freshnessMs``,
+     held against the watermark of the produced events (phase 18 (b));
  15. residency: one server of the lineitem table behind the broker over
      TCP; q1, distinct_price and hll_groupby staged, then an HBM cap that
      holds two of their three sets: round-robin rounds with every answer
@@ -139,9 +141,9 @@ QueryExecutor.execute -> reduce_to_response on one card:
      card; EXPLAIN over the tiers and EXPLAIN ANALYZE with K1 / K2 held
      against their plain versions;
  16. the offline build path and schema evolution: 2 of phase 1's lineitem
-     segments' first 2^21 rows written as CSV files (vectorized numpy), a
+     segments' first 2^20 rows written as CSV files (vectorized numpy), a
      grown-schema CSV file (2^20 rows, three new columns with values) and
-     an Avro file (2^18 rows, deflate); ``BatchCreateSegments -workers 4``
+     an Avro file (2^17 rows, deflate); ``BatchCreateSegments -workers 4``
      builds the CSV files (the columnar path, the native parser) and
      pushes them to a deployed cluster (phase 10's roles), each segment's
      CRC equal to ``build_segment_from_columns`` over the file's source
@@ -180,6 +182,25 @@ QueryExecutor.execute -> reduce_to_response on one card:
      digest's first query (broker ``timeUsedMs``, ``compile.firstCallMs``)
      against the warm p50.  The cache roots hold copies of the main
      build's libraries;
+ 18. the serving planes: (a) on phase 9's two servers while lineitem is
+     staged there: the result cache on (q1, q3, hll_groupby and
+     distinct_price twice each: the miss launches K1 / K2 and equals its
+     oracle, the hit launches nothing, repeats the miss's bytes and costs
+     rescacheHits 1 a server; EXPLAIN's cacheHit; hit against miss p50;
+     a re-staged segment's q1 misses and launches K1), the shadow audit
+     1-in-1 on q1 and hll_groupby (the host oracle over 134,217,728 rows,
+     each "equivalent") and the broker p50 of q1, sel_top, pairs_distinct
+     and distinct_price with the default 1-in-64 auditor against it off
+     (each oracle in a forked child; the fork's ms), an in-flight cap of 2 and a burst of 8 q1s (the
+     excess shed with 429, ``/debug/admission``'s counters); then a
+     reduced table (2 segments of 2^20 rows) on both servers: a stalled
+     launch hedged to the other server, a wrong answer injected on the
+     device tier (``corrupt_results``) caught by the shadow audit,
+     quarantined and healed by the host tier with a flight-recorder
+     bundle, and the replica audit; (b) phase 14's ``freshnessMs``; (c) on
+     phase 17's roles every ``/debug`` surface of the planes with the
+     reference's keys, and a table config's ``slo`` block reaching the
+     networked broker;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -191,7 +212,9 @@ one-member launches, the bound and the plain version; the chunked phase
 two chunks of 8 segments against their oracles and the unchunked run);
 and the zone-map decision's host ms per query;
 
-every earlier query served by the device (no segmentsHost in its cost);
+every earlier query served by the device (no segmentsHost in its cost),
+with the shadow auditor at the deployment's default throughout
+(``PINOT_TPU_AUDIT_SAMPLE_N`` unset: 1-in-64);
 and times the queries (with their host finalize and the bytes of the one
 device-to-host copy), the kernels at each query's shapes, their plain
 versions, the torch ops that build their inputs, the one PyTorch call
@@ -200,15 +223,17 @@ its buffers.
 
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
-         | --realtime-only | --residency-only | --build-only | --warmstart-only]
+         | --realtime-only | --residency-only | --build-only | --warmstart-only | --planes-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
 ``--joins-only`` runs the build, the kernel checks and phase 11 alone,
 ``--startree-only`` phase 12 alone, ``--tiers-only`` phase 13 alone (after
 lineitem's datagen), ``--realtime-only`` phase 14 alone,
-``--residency-only`` phase 15 alone, ``--build-only`` phase 16 alone and
-``--warmstart-only`` phase 17 alone (each after lineitem's datagen).
+``--residency-only`` phase 15 alone, ``--build-only`` phase 16 alone,
+``--warmstart-only`` phase 17 alone and ``--planes-only`` phase 18 (its
+part (a) on two servers of lineitem, then phases 14 and 17 with parts (b)
+and (c); each after lineitem's datagen).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -2399,6 +2424,8 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         rec["heal"] = {n: s.executor.healing_stats() for n, s in fleet.servers.items()}
         if any(h["hostFailovers"] or h["deviceFailures"] for h in rec["heal"].values()):
             raise AssertionError(f"serve: a device error in the serving phase {rec['heal']}")
+        # phase 18 (a): the serving planes on these servers, lineitem staged
+        planes_phase(dev, fleet, segments, wants, record, fg, vsc)
     finally:
         fleet.close()
     for server in fleet.servers.values():
@@ -2506,6 +2533,471 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         fleet.close()
         server.executor.free_staging()
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 18. the serving planes: (a) on phase 9's two servers, (b) in phase 14's
+# realtime table, (c) on phase 17's deployed roles
+# ---------------------------------------------------------------------------
+
+PLANES_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price")  # the result cache's queries
+PLANES_ITERS = 10  # broker requests of the hit and the miss p50s
+PLANES_AUDIT_ITERS = 64  # requests at each auditor setting: the default 1-in-64 audits once a server
+# the auditor's cost on serving: q1's and pairs_distinct's oracles are numpy
+# (seconds at full width); the host tier runs sel_top's (every matched row)
+# and distinct_price's (no vectorized path) row by row (minutes)
+PLANES_AUDIT_COST_QUERIES = ("q1", "sel_top", "pairs_distinct", "distinct_price")
+PLANES_AUDIT_DEFAULT_N = 64  # the shadow auditor's default sample rate (PINOT_TPU_AUDIT_SAMPLE_N)
+PLANES_CAP = 2  # the lineitem table's in-flight cap for the admission burst
+PLANES_BURST = 8  # concurrent q1s of the burst
+PLANES_ADMIT_STALL_S = 0.5  # the admitted queries' launch stall, so the burst overlaps them
+PLANES_REP_SEGMENTS = 2  # the reduced table, on both servers
+PLANES_REP_ROWS = 1 << 20
+PLANES_HEDGE_MS = 50.0  # hedge_delay_ms of the reduced table's broker
+PLANES_STALL_S = 2.0  # the stalled primary's launch
+PLANES_WAIT_S = 600.0  # for a background audit
+# the reference's top-level keys of each /debug surface (pinot_tpu/broker/broker.py:1386-1442,
+# pinot_tpu/server/network_starter.py:113-151)
+PLANES_BROKER_KEYS = {
+    "admission": {"maxInflightPerTable", "serverWindows", "tableInflight"},
+    "history": {"capacity", "intervalS", "samples", "series"},
+    "slo": {"burningTables", "config", "tables", "worstBurning"},
+    "tails": {"byDigest", "capacity", "enabled", "entries", "observed", "retained", "sampleN", "slowMs"},
+    "queries": {"capacity", "entries", "thresholdMs", "totalQueries", "totalRecorded"},
+    "flightrec": {"bundles", "dir", "dumps", "enabled", "maxBundles", "minIntervalS"},
+    "audit": {"freshness", "replica"},
+}
+PLANES_SERVER_KEYS = {
+    "history": PLANES_BROKER_KEYS["history"],
+    "audit": {"budgetPerS", "divergences", "dropped", "enabled", "errors", "offered", "quarantined", "queueDepth",
+              "recentDivergences", "sampleN", "samples"},
+    "flightrec": PLANES_BROKER_KEYS["flightrec"],
+}
+PLANES_SLO = {"latencyMs": 250.0, "latencyTarget": 0.95}  # the slo block of phase 17's extra table
+
+
+def _reply(resp) -> str:
+    """A broker reply without its wall clock, request id and cost: what a
+    cache hit must repeat byte for byte."""
+    return json.dumps({k: v for k, v in resp.to_json().items() if k not in ("timeUsedMs", "requestId", "cost")},
+                      sort_keys=True)
+
+
+def _wait_for(label: str, pred, timeout_s: float = PLANES_WAIT_S) -> float:
+    """Seconds until ``pred()`` holds; raises past ``timeout_s``."""
+    t = time.perf_counter()
+    end = time.monotonic() + timeout_s
+    while not pred():
+        if time.monotonic() > end:
+            raise AssertionError(f"planes: {label} not within {timeout_s} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t
+
+
+def planes_phase(dev, fleet, segments, wants, record, fg, vsc) -> None:
+    """18 (a). On phase 9's two servers while they hold lineitem staged:
+    the result cache (a miss launches K1 / K2, its hit launches nothing and
+    repeats its bytes, EXPLAIN's cacheHit, hit against miss p50, a
+    re-staged segment misses), the shadow audit at full width (q1 and
+    hll_groupby on the host oracle over all 134,217,728 rows, each
+    "equivalent"; the p50 of q1, sel_top, pairs_distinct and
+    distinct_price with the default 1-in-64 auditor against it off, each
+    oracle in a forked child), an admission burst past an in-flight cap; then on a reduced table
+    replicated on both servers: a hedge around a stalled launch, a wrong
+    answer injected on the device tier caught, quarantined and healed, and
+    the replica audit."""
+    import dataclasses
+
+    from pinot_tpu_torch.broker.broker import BrokerHttpServer, BrokerRequestHandler
+    from pinot_tpu_torch.broker.routing import RoutingTableProvider
+    from pinot_tpu_torch.common.faults import DeviceFaultInjector
+    from pinot_tpu_torch.common.response import ErrorCode
+    from pinot_tpu_torch.engine.plandigest import plan_shape_digest
+    from pinot_tpu_torch.engine.rescache import ResultCache
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.segment.immutable import new_staging_token
+    from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+    from pinot_tpu_torch.transport.tcp import TcpTransport
+    from pinot_tpu_torch.utils.audit import ReplicaAuditor, SamplerBudget, ShadowAuditor
+
+    rec = record["planes"] = {"card": card_line()}
+    t_phase = time.perf_counter()
+    pqls = {**QUERIES, **VALUE_QUERIES, **SELECTION_QUERIES, **PAIR_QUERIES}
+    servers, broker = fleet.servers, fleet.broker
+    # the phase's path: every launch count 0 just before, read at its end
+    fg.launches = vsc.launches = fg.batched_launches = vsc.batched_launches = 0
+    rows = sum(s.num_docs for s in segments)
+
+    def launched() -> Dict[str, int]:
+        return {"k1": fg.launches + fg.batched_launches, "k2": vsc.launches + vsc.batched_launches,
+                "dispatches": sum(s.lane.dispatch_count for s in servers.values())}
+
+    # (1) the result cache, on for the phase: each miss launches, each hit
+    # launches nothing and repeats the miss's bytes; one reply a server
+    saved_caches = {n: s.result_cache for n, s in servers.items()}
+    for s in servers.values():
+        s.result_cache = ResultCache(metrics=s.metrics, enabled=True)
+    cache = rec["cache"] = {"queries": {}}
+    try:
+        saved = {"k1": 0, "k2": 0}
+        for name in PLANES_QUERIES:
+            before = launched()
+            miss = broker.handle_pql(pqls[name])
+            mid = launched()
+            hit = broker.handle_pql(pqls[name])
+            after = launched()
+            check_served(name, miss, wants[name])
+            kern = "k1" if name in QUERIES else "k2"
+            if "rescacheHits" in miss.cost or mid[kern] - before[kern] < 1:
+                raise AssertionError(f"planes cache {name}: the miss launched {mid} from {before}, cost {miss.cost}")
+            if after != mid or hit.cost != {"rescacheHits": len(servers)}:
+                raise AssertionError(f"planes cache {name}: the hit launched {after} from {mid}, cost {hit.cost}")
+            if _reply(hit) != _reply(miss):
+                raise AssertionError(f"planes cache {name}: the hit's bytes differ from the miss's")
+            for k in saved:
+                saved[k] += mid[k] - before[k]
+            cache["queries"][name] = {"miss_launches": {k: mid[k] - before[k] for k in mid},
+                                      "miss_ms": miss.time_used_ms, "hit_ms": hit.time_used_ms}
+        plan = broker.handle_pql("EXPLAIN " + Q1)
+        flags = [n["device"]["batching"]["cacheHit"] for n in plan.explain["servers"]]
+        if flags != [True] * len(servers):
+            raise AssertionError(f"planes cache: EXPLAIN's cacheHit {flags} with the entries standing")
+        hit_ms, miss_ms = [], []
+        for _ in range(PLANES_ITERS):
+            r = broker.handle_pql(Q1)
+            if r.cost != {"rescacheHits": len(servers)}:
+                raise AssertionError(f"planes cache: a hit's cost {r.cost}")
+            hit_ms.append(r.time_used_ms)
+        for _ in range(PLANES_ITERS):
+            for s in servers.values():
+                s.result_cache.clear()
+            r = broker.handle_pql(Q1)
+            if "rescacheHits" in r.cost:
+                raise AssertionError(f"planes cache: a miss's cost {r.cost}")
+            miss_ms.append(r.time_used_ms)
+        check_served("q1", r, wants["q1"])
+        broker.handle_pql(Q1)  # the entry stands again
+        # one segment re-staged: a new staging token, so the next q1 misses
+        name0 = next(iter(servers))
+        tdm = servers[name0].data_manager.table("lineitem")
+        held = tdm.acquire_segments()
+        old = held[0].segment
+        tdm.release_segments(held)
+        servers[name0].add_segment("lineitem", dataclasses.replace(old, staging_token=new_staging_token()))
+        before = launched()
+        t = time.perf_counter()
+        r = broker.handle_pql(Q1)
+        restage_ms = (time.perf_counter() - t) * 1e3
+        got = {k: v - before[k] for k, v in launched().items()}
+        check_served("q1", r, wants["q1"])
+        # the re-staged server misses and launches; the other's entry stands
+        if r.cost.get("rescacheHits", 0) != len(servers) - 1 or got["k1"] < 1:
+            raise AssertionError(f"planes cache: the re-staged q1 launched {got}, cost {r.cost}")
+        cache.update(hit_p50_ms=float(np.percentile(hit_ms, 50)), miss_p50_ms=float(np.percentile(miss_ms, 50)),
+                     launches_saved=dict(saved), restaged_q1_ms=restage_ms, restaged_launches=got,
+                     stats={n: s.result_cache.snapshot() for n, s in servers.items()})
+        log(f"planes cache: q1, q3, hll_groupby and distinct_price twice each: every miss equal to its oracle and "
+            f"launching K1 / K2, every hit byte-identical with cost rescacheHits 1 a server's reply and no launch "
+            f"(launches saved {saved}); EXPLAIN cacheHit {flags}; q1 broker p50 hit {cache['hit_p50_ms']:.3f} ms "
+            f"against miss {cache['miss_p50_ms']:.3f} ms over {PLANES_ITERS}; after a re-staged segment q1 missed on "
+            f"its server (the other's entry hit), launched {got} in {restage_ms:.1f} ms")
+    finally:
+        for n, s in servers.items():
+            s.result_cache = saved_caches[n]
+
+    # (2) the shadow audit at full width: 1-in-1 for q1 and hll_groupby,
+    # each server's host oracle over its 8 segments
+    audit = rec["audit"] = {}
+    saved_auditors = {n: s.auditor for n, s in servers.items()}
+    try:
+        for n, s in servers.items():
+            s.auditor = ShadowAuditor(s, sample_n=1, budget=SamplerBudget(per_s=1000.0))
+        for name in ("q1", "hll_groupby"):
+            samples0 = {n: s.metrics.meter("audit.samples").count for n, s in servers.items()}
+            div0 = {n: s.metrics.meter("audit.divergences").count for n, s in servers.items()}
+            t = time.perf_counter()
+            check_served(name, broker.handle_pql(pqls[name]), wants[name])
+            _wait_for(f"the {name} audit", lambda: all(
+                s.metrics.meter("audit.samples").count > samples0[n] for n, s in servers.items()))
+            wall_s = time.perf_counter() - t
+            div = {n: s.metrics.meter("audit.divergences").count - div0[n] for n, s in servers.items()}
+            if any(div.values()):
+                raise AssertionError(f"planes audit {name}: a divergence at full width {div}")
+            shadow = {n: s.metrics.timer("audit.shadowMs").samples()[-1] for n, s in servers.items()}
+            audit[name] = {"verdict": "equivalent", "rows": rows, "shadow_ms": shadow, "wall_s": wall_s}
+            log(f"planes audit {name}: 1-in-1, equivalent on both servers, the host oracle over {rows} rows "
+                f"{ {n: round(v, 1) for n, v in shadow.items()} } ms a server (8 segments each, in parallel), "
+                f"{wall_s:.1f} s from the request to both verdicts")
+    finally:
+        for n, s in servers.items():
+            s.auditor.stop()
+            s.auditor = saved_auditors[n]
+    # the serving p50 with the default auditor against it off: each
+    # server's next offer sampled, so one forked oracle a server runs beside
+    # the requests; a child still running after them is stopped (killed)
+    cost = audit["cost"] = {}
+    try:
+        for name in PLANES_AUDIT_COST_QUERIES:
+            cost[name] = {}
+            for label, n_ in (("default", PLANES_AUDIT_DEFAULT_N), ("off", 0)):
+                for n, s in servers.items():
+                    s.auditor = ShadowAuditor(s, sample_n=n_)
+                    s.auditor._count = n_ - 1 if n_ else 0
+                samples0 = {n: s.metrics.meter("audit.samples").count for n, s in servers.items()}
+                forks0 = {n: len(s.metrics.timer("audit.forkMs").samples()) for n, s in servers.items()}
+                ms = []
+                for _ in range(PLANES_AUDIT_ITERS):
+                    r = broker.handle_pql(pqls[name])
+                    ms.append(r.time_used_ms)
+                check_served(name, r, wants[name])
+                if n_:  # each server's oracle forked (a row-by-row one runs on for minutes)
+                    _wait_for(f"the {name} oracles' forks", lambda: all(
+                        len(s.metrics.timer("audit.forkMs").samples()) > forks0[n] for n, s in servers.items()))
+                fork_ms = {n: s.metrics.timer("audit.forkMs").samples()[forks0[n]:] for n, s in servers.items()}
+                if any(len(v) != (1 if n_ else 0) for v in fork_ms.values()):
+                    raise AssertionError(f"planes audit cost {name}: forks {fork_ms} at 1-in-{n_}")
+                cost[name][label] = {
+                    "sample_n": n_, "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+                    "fork_ms": fork_ms,
+                    "audits_done": {n: s.metrics.meter("audit.samples").count - samples0[n]
+                                    for n, s in servers.items()}}
+                for s in servers.values():
+                    s.auditor.stop()
+            d, o = cost[name]["default"], cost[name]["off"]
+            log(f"planes audit cost {name}: broker p50 {d['p50_ms']:.3f} ms (p99 {d['p99_ms']:.3f}) with the "
+                f"default 1-in-{d['sample_n']} auditor against {o['p50_ms']:.3f} ms (p99 {o['p99_ms']:.3f}) off, "
+                f"over {PLANES_AUDIT_ITERS} requests each; the oracle in a forked child, fork "
+                f"{ {n: [round(x, 1) for x in v] for n, v in d['fork_ms'].items()} } ms, audits done in the "
+                f"window {d['audits_done']}")
+    finally:
+        for n, s in servers.items():
+            s.auditor.stop()
+            s.auditor = saved_auditors[n]
+
+    # (3) admission: an in-flight cap of 2 and a burst of 8 q1s; the
+    # admitted queries' first launch a server is stalled, so they overlap
+    adm = broker.admission
+    cap0 = adm.max_inflight_per_table
+    injectors = {n: DeviceFaultInjector() for n in servers}
+    http = BrokerHttpServer(broker)
+    http.start()
+    try:
+        for n, s in servers.items():
+            s.lane.fault_injector = injectors[n]
+            injectors[n].stall_next(1, PLANES_ADMIT_STALL_S)
+        adm.max_inflight_per_table = PLANES_CAP
+        shed0 = broker.metrics.meter("admission.shedConcurrency").count
+        dropped0 = broker.metrics.meter("queriesDropped").count
+        out = burst(broker, [Q1] * PLANES_BURST)
+        admitted = [r for r in out if not r.exceptions]
+        shed = [r for r in out if r.exceptions]
+        for r in shed:
+            codes = [e.error_code for e in r.exceptions]
+            if codes != [ErrorCode.TOO_MANY_REQUESTS] or "in flight" not in r.exceptions[0].message:
+                raise AssertionError(f"planes admission: a shed reply {[e.to_json() for e in r.exceptions]}")
+        for r in admitted:
+            check_served("q1", r, wants["q1"])
+        snap = http_json(http.url + "/debug/admission")
+        counted = {"shedConcurrency": broker.metrics.meter("admission.shedConcurrency").count - shed0,
+                   "queriesDropped": broker.metrics.meter("queriesDropped").count - dropped0}
+        if not admitted or not shed or counted != {"shedConcurrency": len(shed), "queriesDropped": len(shed)}:
+            raise AssertionError(f"planes admission: {len(admitted)} admitted, {len(shed)} shed, counters {counted}")
+        if snap["maxInflightPerTable"] != PLANES_CAP or snap["tableInflight"] or any(
+                w["inflight"] for w in snap["serverWindows"].values()):
+            raise AssertionError(f"planes admission: /debug/admission {snap}")
+        rec["admission"] = {"sent": PLANES_BURST, "admitted": len(admitted), "shed": len(shed), "counters": counted,
+                            "debug": snap}
+        log(f"planes admission: in-flight cap {PLANES_CAP}, a burst of {PLANES_BURST} q1s: {len(admitted)} admitted "
+            f"and equal to the oracle, {len(shed)} shed with 429; /debug/admission {snap}; counters {counted}")
+    finally:
+        adm.max_inflight_per_table = cap0
+        http.stop()
+
+    # (4) a reduced table replicated on both servers, behind a broker that
+    # hedges after PLANES_HEDGE_MS and routes each segment the same way
+    table = "lineitem_rep"
+    q1r = Q1.replace("FROM lineitem", f"FROM {table}")
+    small = [synthetic_lineitem_segment(PLANES_REP_ROWS, seed=201 + i, name=f"rep{i}")
+             for i in range(PLANES_REP_SEGMENTS)]
+    want = oracle(small, "q1")
+    for s in servers.values():
+        for seg in small:
+            s.add_segment(table, seg)
+    addresses = {n: t.address for n, t in fleet.tcp.items()}
+    routing = RoutingTableProvider(num_tables=1)
+    routing.update(table, {seg.segment_name: {n: "ONLINE" for n in servers} for seg in small})
+    hb = BrokerRequestHandler(TcpTransport(), addresses, routing=routing, timeout_ms=600_000,
+                              hedge_delay_ms=PLANES_HEDGE_MS)
+    s0 = servers[next(iter(servers))]
+    cb = None
+    aud0, frec0 = s0.auditor, s0.flightrec.dir
+    frec_dir = tempfile.mkdtemp(prefix="pinot-flightrec-")
+    try:
+        for _ in range(3):
+            r = hb.handle_pql(q1r)
+            check_served("q1", r, want)
+        base_ms = [hb.handle_pql(q1r).time_used_ms for _ in range(5)]
+        cover = routing.find_servers(table)
+        stalled = sorted(cover)[0]
+        other = next(n for n in servers if n != stalled)
+        ok0 = len(injectors[other].records_for("ok"))
+        injectors[stalled].stall_next(1, PLANES_STALL_S)
+        t = time.perf_counter()
+        r = hb.handle_pql(q1r)
+        hedged_ms = (time.perf_counter() - t) * 1e3
+        check_served("q1", r, want)
+        if r.num_hedges != 1 or len(injectors[other].records_for("ok")) <= ok0:
+            raise AssertionError(f"planes hedge: numHedges {r.num_hedges}, launches on {other} "
+                                 f"{len(injectors[other].records_for('ok')) - ok0}")
+        time.sleep(PLANES_STALL_S)  # the losing launch runs to its end; its reply is dropped
+        rec["hedge"] = {"cover": {n: list(v) for n, v in cover.items()}, "stalled": stalled, "answered_by": other,
+                        "hedged_ms": hedged_ms, "broker_ms": r.time_used_ms, "stall_ms": PLANES_STALL_S * 1e3,
+                        "hedge_delay_ms": PLANES_HEDGE_MS, "base_p50_ms": float(np.percentile(base_ms, 50)),
+                        "num_hedges": r.num_hedges}
+        log(f"planes hedge: {table} ({PLANES_REP_SEGMENTS} x {PLANES_REP_ROWS} rows on both servers), {stalled}'s "
+            f"launch stalled {PLANES_STALL_S} s, the hedge after {PLANES_HEDGE_MS} ms answered from {other}'s lane "
+            f"(K1 launched there) in {hedged_ms:.1f} ms, equal to the oracle, numHedges 1 (unhedged p50 "
+            f"{rec['hedge']['base_p50_ms']:.3f} ms)")
+
+        # the replica audit: one query, the primary and the other replica
+        hb.replica_audit.stop()
+        hb.replica_audit = ReplicaAuditor(hb, sample_n=1, budget=SamplerBudget(per_s=1000.0))
+        before = launched()
+        check_served("q1", hb.handle_pql(q1r), want)
+        _wait_for("the replica audit", lambda: hb.replica_audit.snapshot()["checks"] >= 1)
+        rep = hb.replica_audit.snapshot()
+        if rep["divergences"]:
+            raise AssertionError(f"planes replica audit: {rep}")
+        rec["replica_audit"] = {"checks": rep["checks"], "divergences": rep["divergences"],
+                                "launches": {k: v - before[k] for k, v in launched().items()}}
+        log(f"planes replica audit: 1-in-1 on q1, {rep['checks']} check(s), the two lanes agree "
+            f"(launches {rec['replica_audit']['launches']})")
+        # a wrong answer on the device tier of q1's digest, caught by the
+        # shadow audit, quarantined, healed by the host tier
+        crouting = RoutingTableProvider(num_tables=1)
+        crouting.update(table, {seg.segment_name: {s0.name: "ONLINE"} for seg in small})
+        cb = BrokerRequestHandler(TcpTransport(), {s0.name: addresses[s0.name]}, routing=crouting,
+                                  timeout_ms=600_000)
+        s0.auditor = ShadowAuditor(s0, sample_n=1, budget=SamplerBudget(per_s=1000.0))
+        s0.flightrec.dir = frec_dir
+        digest = plan_shape_digest(optimize_request(parse_pql(q1r)))
+        samples0 = s0.metrics.meter("audit.samples").count
+        check_served("q1", cb.handle_pql(q1r), want)
+        _wait_for("the honest audit", lambda: s0.metrics.meter("audit.samples").count > samples0)
+        div0 = s0.metrics.meter("audit.divergences").count
+        if div0 != 0:
+            raise AssertionError(f"planes corruption: {div0} divergence(s) before any injection")
+        injectors[s0.name].corrupt_results(1, tier="device", digest_substring=digest, delta=1e6)
+        lied = cb.handle_pql(q1r)
+        if lied.exceptions:
+            raise AssertionError(f"planes corruption: {lied.exceptions}")
+        try:
+            check_response(lied, want)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError("planes corruption: the injected answer equals the oracle")
+        t = time.perf_counter()
+        detect_s = _wait_for("the divergence", lambda: s0.metrics.meter("audit.divergences").count >= 1)
+        quarantined = s0.audit_snapshot()["quarantined"]
+        if s0.metrics.meter("audit.divergences").count != 1 or [(q["planDigest"], q["tier"]) for q in quarantined] \
+                != [(digest, "device")]:
+            raise AssertionError(f"planes corruption: divergences {s0.metrics.meter('audit.divergences').count}, "
+                                 f"quarantined {quarantined}")
+        healed = cb.handle_pql(q1r)
+        if healed.exceptions or not healed.cost.get("segmentsHost"):
+            raise AssertionError(f"planes corruption: the next q1 {healed.exceptions} cost {healed.cost}")
+        check_response(healed, want)
+        bundles = [json.load(open(os.path.join(frec_dir, f))) for f in sorted(os.listdir(frec_dir))
+                   if f.endswith(".json")]
+        div = [b for b in bundles if b["reason"] == "auditDivergence"]
+        if not div or not {"producedPayload", "expectedPayload"} <= set(div[0]["detail"]):
+            raise AssertionError(f"planes corruption: bundles {[b['reason'] for b in bundles]}")
+        s0.executor.clear_poisoned()
+        rec["corruption"] = {"digest": digest, "divergences": 1, "quarantined": quarantined,
+                             "detect_s": detect_s, "healed_cost": dict(healed.cost),
+                             "bundle_reasons": [b["reason"] for b in bundles]}
+        log(f"planes corruption: corrupt_results on the device tier of q1's digest {digest}: served (nothing "
+            f"raised), audit.divergences 1 {detect_s:.2f} s later, quarantined {quarantined}; the next q1 from the "
+            f"host tier (cost {dict(healed.cost)}) equal to the oracle; a flight-recorder bundle with both payloads "
+            f"in a temporary directory")
+
+    finally:
+        s0.auditor.stop()
+        s0.auditor = aud0
+        s0.flightrec.dir = frec0
+        s0.executor.clear_poisoned()
+        for n, s in servers.items():
+            injectors[n].heal()
+            s.lane.fault_injector = None
+            for seg in small:
+                s.remove_segment(table, seg.segment_name)
+        hb.shutdown()
+        if cb is not None:
+            cb.shutdown()
+        shutil.rmtree(frec_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    totals = {"k1": fg.launches, "k2": vsc.launches}
+    record["paths"]["planes"] = {"launches": {"cache_misses": saved}, "totals": totals}
+    if totals["k1"] < 1 or totals["k2"] < 1:
+        raise AssertionError(f"planes: launches {totals}")
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"path planes: launches {totals} (one-member; the cache's misses {saved}); planes (a): {rec['wall_s']:.1f} s")
+
+
+def planes_deployed_checks(url: str, broker_url: str, admin: Dict[str, str], record) -> None:
+    """18 (c). On phase 17's roles: every /debug surface of the planes
+    answers 200 with the reference's top-level keys, and a table config's
+    ``slo`` block reaches the networked broker's SLO tracker."""
+    from pinot_tpu_torch.common.tableconfig import SloConfig, TableConfig
+    from pinot_tpu_torch.tools.datagen import lineitem_schema
+
+    t = time.perf_counter()
+    rec = record.setdefault("planes", {})["deployed"] = {}
+    for name, keys in PLANES_BROKER_KEYS.items():
+        got = http_json(f"{broker_url}/debug/{name}")
+        if set(got) != keys:
+            raise AssertionError(f"planes deployed: the broker's /debug/{name} keys {sorted(got)}")
+    for srv, a in admin.items():
+        for name, keys in PLANES_SERVER_KEYS.items():
+            got = http_json(f"{a}/debug/{name}")
+            if set(got) != keys:
+                raise AssertionError(f"planes deployed: {srv}'s /debug/{name} keys {sorted(got)}")
+    schema = dict(lineitem_schema().to_json(), schemaName="slotab")
+    http_json(url + "/schemas", json.dumps(schema).encode())
+    config = TableConfig("slotab", slo=SloConfig(latency_ms=PLANES_SLO["latencyMs"],
+                                                 latency_target=PLANES_SLO["latencyTarget"]))
+    http_json(url + "/tables", json.dumps(config.to_json()).encode())
+
+    def reached() -> bool:
+        http_json(broker_url + "/query", json.dumps({"pql": "SELECT count(*) FROM slotab"}).encode())
+        obj = http_json(broker_url + "/debug/slo")["tables"].get("slotab", {}).get("objective", {})
+        return all(obj.get(k) == v for k, v in PLANES_SLO.items())
+
+    wait_s = _wait_for("the slo block", reached, 60.0)
+    rec.update(broker_surfaces=sorted(PLANES_BROKER_KEYS), server_surfaces=sorted(PLANES_SERVER_KEYS),
+               slo_reached_s=wait_s, slo=PLANES_SLO, wall_s=time.perf_counter() - t)
+    log(f"planes (c): the broker's /debug/{{{','.join(PLANES_BROKER_KEYS)}}} and both servers' "
+        f"/debug/{{{','.join(PLANES_SERVER_KEYS)}}} answer with the reference's keys; the slotab table's slo block "
+        f"{PLANES_SLO} in the networked broker's SloTracker {wait_s:.2f} s after AddTable; "
+        f"{rec['wall_s']:.1f} s")
+
+
+def check_freshness(label: str, d: dict, watermarks: Tuple[float, float], sent_ms: float, got_ms: float) -> float:
+    """18 (b). A realtime answer's ``freshnessMs``: present, at least 0, and
+    now minus the minimum watermark the servers stamp, at a moment between
+    the request's send and its reply (the JSON's 3 decimals aside).  That
+    watermark lies in ``watermarks`` = (low, high): high is the stalest
+    partition's newest produced event; low, after a partition's segment
+    rolled over, the event of the last block its first consumer indexed,
+    which the server that committed it keeps (the registry is per process,
+    as in the reference)."""
+    low, high = watermarks
+    f = d.get("freshnessMs")
+    if f is None or f < 0 or not (sent_ms - high - 1.0 <= f <= got_ms - low + 1.0):
+        raise AssertionError(f"realtime {label}: freshnessMs {f} against the watermarks {watermarks} "
+                             f"({sent_ms - high:.1f} to {got_ms - low:.1f} ms)")
+    return f
 
 
 # ---------------------------------------------------------------------------
@@ -2888,10 +3380,10 @@ JOIN_QUERIES = {
 JOIN_STRATEGY = {"ssb_q1_1": "broadcast", "ssb_q2_1": "colocated", "ssb_q2_1_mode": "colocated"}
 JOIN_BUILD_TABLE = {"ssb_q1_1": "date", "ssb_q2_1": "part", "ssb_q2_1_mode": "part"}
 JOIN_ITERS = 1  # in-process runs on the host clock (each extracts up to 67M rows; 3 before phase 15, 2 before 16)
-JOIN_SERVE_ITERS = 2  # broker requests a query over TCP (10 before phase 13, 6 before 14, 3 before 17)
+JOIN_SERVE_ITERS = 1  # broker requests a query over TCP (10 before phase 13, 6 before 14, 3 before 17, 2 before 18)
 JOIN_SHUFFLE_ITERS = 1  # (5 before phase 13, 3 before phase 14, 2 before phase 15)
 JOIN_DEPLOY_ITERS = 1  # (3 before phase 14, 2 before 17)
-JOIN_PROGRAM_ITERS = 5  # CUDA-event medians of the device program
+JOIN_PROGRAM_ITERS = 3  # CUDA-event medians of the device program (5 before phase 18)
 
 
 def ssb_tables() -> Dict[str, list]:
@@ -4398,6 +4890,7 @@ RT_VISIBLE_S = 600.0  # from a stage's last produce to every row counted
 # consuming segments (200-370 ms of host remap at 2^22 rows), which takes
 # the server process's interpreter from its consumer
 RT_POLL_S = 0.25
+RT_EVENT_COLUMN = "l_eventms"  # the realtime schema's time column: each block's produce time (ms)
 
 
 def head_segment(seg, n: int):
@@ -4447,7 +4940,13 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
     whole of 1.5 x 2^23 rows a partition, the queries at each watermark
     against the oracles over the rows produced so far; then K1 and K2 at a
     server's final shape (its sealed segment and its consuming snapshot)
-    against their plain versions."""
+    against their plain versions.  Each produced block carries its
+    produce time as the event time (``l_eventms``, the schema's time
+    column), so every broker answer carries ``freshnessMs``, held against
+    the watermark the produced events give (phase 18 (b))."""
+    import dataclasses
+
+    from pinot_tpu_torch.common.schema import DataType, TimeFieldSpec
     from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
     from pinot_tpu_torch.engine.executor import QueryExecutor
     from pinot_tpu_torch.engine.reduce import reduce_to_response
@@ -4488,7 +4987,10 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
         producers = [NetworkStreamProvider(host, port, "lineitem") for _ in range(RT_PARTITIONS)]
         producers[0].create_topic(RT_PARTITIONS)
         url, admin, broker_url, alive = start_roles(tmp, rec, server_env={"PINOT_TPU_INGEST_BATCH_ROWS": str(RT_BLOCK)})
-        http_json(url + "/schemas", json.dumps(lineitem_schema().to_json()).encode())
+        # lineitem with an event-time column, the produce time of its block
+        rt_schema = dataclasses.replace(lineitem_schema(), time_field=TimeFieldSpec(
+            RT_EVENT_COLUMN, DataType.LONG, time_unit="MILLISECONDS"))
+        http_json(url + "/schemas", json.dumps(rt_schema.to_json()).encode())
         config = TableConfig("lineitem", table_type="REALTIME", stream=StreamConfig(
             stream_type="network", topic="lineitem", rows_per_segment=RT_SEGMENT_ROWS,
             properties={"host": host, "port": port}))
@@ -4511,6 +5013,8 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
 
         per_query, totals = {}, {"k1": 0, "k2": 0}
         done = 0
+        block_event = [{} for _ in range(RT_PARTITIONS)]  # ms: each produced block's event time, by first row
+        freshness = rec["freshness_ms"] = {}
         for share in RT_STAGES:
             target = RT_PARTITION_ROWS // share
             label = f"1/{share}" if share > 1 else "all"
@@ -4519,8 +5023,10 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
 
             def produce(p):
                 for lo in range(done, target, RT_BLOCK):
-                    producers[p].produce_columns({c: a[lo:lo + RT_BLOCK] for c, a in columns[p].items()},
-                                                 partition=p)
+                    block = {c: a[lo:lo + RT_BLOCK] for c, a in columns[p].items()}
+                    block_event[p][lo] = int(time.time() * 1e3)
+                    block[RT_EVENT_COLUMN] = np.full(len(block["l_quantity"]), block_event[p][lo], dtype=np.int64)
+                    producers[p].produce_columns(block, partition=p)
                 return time.perf_counter()
 
             with concurrent.futures.ThreadPoolExecutor(RT_PARTITIONS) as pool:
@@ -4549,10 +5055,17 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
             wants = {"q1": oracle(heads, "q1"), "count_star": RT_PARTITIONS * target,
                      "distinct_price": value_oracle(hll_mod, heads, "distinct_price")}
             st["queries"] = {}
+            high = min(ev[max(ev)] for ev in block_event)
+            last_first = min(target, RT_SEGMENT_ROWS) - 1  # the first consumer's last row
+            low = min(ev[last_first - last_first % RT_BLOCK] for ev in block_event)
+            watermark = (low, high)
             for name, pql in RT_QUERIES.items():
                 body = json.dumps({"pql": pql}).encode()
                 before = launches()
+                sent = time.time() * 1e3
                 d = http_json(broker_url + "/query", body)
+                freshness[f"{label}/{name}"] = check_freshness(f"{label} {name}", d, watermark, sent,
+                                                               time.time() * 1e3)
                 after = launches()
                 rt_check(name, d, wants)
                 got = {k: after[k] - before[k] for k in after}
@@ -4562,7 +5075,9 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
                 staging = {n: v[-1] if v else None for n, v in samples("phase.staging", 1).items()}
                 broker_ms = []
                 for _ in range(RT_ITERS):
+                    sent = time.time() * 1e3
                     d = http_json(broker_url + "/query", body)
+                    check_freshness(f"{label} {name}", d, watermark, sent, time.time() * 1e3)
                     if d["exceptions"]:
                         raise AssertionError(f"realtime {label} {name}: {d['exceptions']}")
                     broker_ms.append(d["timeUsedMs"])
@@ -4572,7 +5087,8 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
                                            "first_staging_ms": staging, "launches": got}
                 log(f"realtime {label} {name}: equal to the oracle over the rows produced; broker p50 "
                     f"{q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over {RT_ITERS}; the first request's staging "
-                    f"ms by server {staging}; launches {got}")
+                    f"ms by server {staging}; launches {got}; freshnessMs {freshness[f'{label}/{name}']:.1f} "
+                    f"(every answer's within 1 ms of now minus a watermark in {watermark})")
             status = {n: http_json(a + "/debug/metrics") for n, a in admin.items()}
             st["staged_bytes"] = {n: s_["stagedBytes"] for n, s_ in status.items()}
             st["staged_tables"] = {n: s_["stagedTables"] for n, s_ in status.items()}
@@ -5088,10 +5604,10 @@ def residency_phase(dev, segments, record, fg, vsc, wants) -> None:
 # took 117-135 s on 4 workers: the reference's build path is host Python;
 # 2^22 rows a file before phase 17)
 BUILD_FILES = 2
-BUILD_ROWS = 1 << 21  # rows a CSV file (~0.11 GB of text)
+BUILD_ROWS = 1 << 20  # rows a CSV file (~0.06 GB of text; 2^21 before phase 18)
 BUILD_WORKERS = 4  # BatchCreateSegments -workers (the CSV files and the Avro file, one worker each)
 BUILD_GROWN_ROWS = 1 << 20  # the grown-schema CSV file, with real values (2^21 before phase 17)
-BUILD_AVRO_ROWS = 1 << 18  # the Avro file (deflate): the reference's codec is pure Python
+BUILD_AVRO_ROWS = 1 << 17  # the Avro file (deflate): the reference's codec is pure Python (2^18 before phase 18)
 BUILD_SEEDS = {"grown": 97, "avro": 89}  # the CSV files are phase 1's li0.. (seeds 11, 12, ..)
 BUILD_CHUNK = 1 << 20  # rows a vectorized CSV write step
 GROWN_FIELDS = {
@@ -6078,6 +6594,7 @@ def warmstart_phase(dev, segments, wants, record, roots: List[str], fg, vsc) -> 
         totals = {k: killed[k] + got[k] for k in killed}
         record["paths"]["warmstart"] = {"launches": per_query, "totals": totals}
         log(f"path warmstart: launches per query {per_query}, total over the phase {totals}")
+        planes_deployed_checks(url, broker_url, admin, record)
         for r in list(_ROLES):
             r.check_alive()
     finally:
@@ -6120,6 +6637,10 @@ def main(argv=None) -> int:
     ap.add_argument("--warmstart-only", action="store_true",
                     help="after the build, the kernel checks and lineitem's datagen run only phase 17, "
                     "the warm start and the utilization planes (no result line)")
+    ap.add_argument("--planes-only", action="store_true",
+                    help="after the build, the kernel checks and lineitem's datagen run only phase 18, the "
+                    "serving planes: (a) on two servers of lineitem, then phases 14 and 17 with (b) and (c) "
+                    "(no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6152,6 +6673,9 @@ def run(dev: torch.device, opts) -> int:
 
     record = {}
     t_start = time.perf_counter()
+    # every phase serves with the shadow auditor as a deployment runs it
+    # (PINOT_TPU_AUDIT_SAMPLE_N, default 1-in-64); phase 18 measures its cost
+    record["audit_sample_n"] = os.environ.get("PINOT_TPU_AUDIT_SAMPLE_N", "64 (the default)")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
@@ -6186,7 +6710,7 @@ def run(dev: torch.device, opts) -> int:
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
     if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
         makers = {}
-    elif opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only:
+    elif opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only or opts.planes_only:
         makers = {"lineitem": lineitem}
     datagen = concurrent.futures.ThreadPoolExecutor(max(1, len(makers)))
     tables = {name: datagen.submit(made, make) for name, make in makers.items()}
@@ -6369,6 +6893,35 @@ def run(dev: torch.device, opts) -> int:
         warmstart_phase(dev, segments, warm_wants, record, warm_roots, fg, vsc)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
         log(f"warm start only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
+    if opts.planes_only:
+        record["paths"] = {}
+        t0 = time.perf_counter()
+        plane_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
+                       for n in set(PLANES_QUERIES) | set(WARM_QUERIES)}
+        half = len(segments) // 2
+        plane_wants.update(sel_top=selection_oracle(segments, "sel_top"),
+                           pairs_distinct=served_distinct_oracle([segments[:half], segments[half:]]))
+        fleet = _Fleet(dev, {"server0": segments[:half], "server1": segments[half:]})
+        try:
+            for name in PLANES_QUERIES:
+                check_served(name, fleet.broker.handle_pql({**QUERIES, **VALUE_QUERIES}[name]), plane_wants[name])
+            planes_phase(dev, fleet, segments, plane_wants, record, fg, vsc)
+        finally:
+            fleet.close()
+            for server in fleet.servers.values():
+                server.executor.free_staging()
+            del fleet
+            torch.cuda.empty_cache()
+        realtime_phase(dev, record, fg, vsc, hll_mod)
+        warmstart_phase(dev, segments, plane_wants, record, warm_roots, fg, vsc)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 18 done ({time.perf_counter() - t0:.1f} s with "
+            f"phases 14 and 17 as its hosts)")
+        log(f"planes only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
             record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
@@ -7229,6 +7782,9 @@ def run(dev: torch.device, opts) -> int:
     warmstart_phase(dev, segments, wants, record, warm_roots, fg, vsc)
     log(f"warm start phase: {time.perf_counter() - t0:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
+    pl = record["planes"]
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 18 done ((a) {pl['wall_s']:.1f} s inside phase 9, "
+        f"(b) inside phase 14, (c) {pl['deployed']['wall_s']:.1f} s inside phase 17)")
 
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
@@ -7303,6 +7859,7 @@ def run(dev: torch.device, opts) -> int:
             "realtime_shape": record["realtime"]["k1"],
             "build_shape": record["build"]["k1"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k1"],
+            "planes_launches": record["paths"]["planes"]["totals"]["k1"],
         },
         {
             "name": "value_state_counts",
@@ -7320,6 +7877,7 @@ def run(dev: torch.device, opts) -> int:
             "realtime_shape": record["realtime"]["k2"],
             "build_shape": record["build"]["k2"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k2"],
+            "planes_launches": record["paths"]["planes"]["totals"]["k2"],
         },
     ]}
     summary["kernels"] += [

@@ -401,6 +401,7 @@ class JoinCoordinator:
             "servers_queried": set(),
             "servers_responded": set(),
             "retries": 0,
+            "hedges": 0,
             "unserved": [],
             "server_traces": [],
         }
@@ -414,6 +415,7 @@ class JoinCoordinator:
                     request,
                     batches,
                     self._remaining_ms(deadline),
+                    table,
                     request_id,
                     ctx,
                     extra_fn=extra_fn,
@@ -422,6 +424,7 @@ class JoinCoordinator:
             sg_union["servers_queried"] |= sg["servers_queried"]
             sg_union["servers_responded"] |= sg["servers_responded"]
             sg_union["retries"] += sg["retries"]
+            sg_union["hedges"] += sg["hedges"]
             sg_union["unserved"].extend(sg["unserved"])
             sg_union["server_traces"].extend(sg["server_traces"])
             return parts
@@ -571,6 +574,7 @@ class JoinCoordinator:
         # join-partitions:N marker from _dispatch_shuffle)
         resp.partial_response = bool(sg_union["unserved"])
         resp.num_retries = sg_union["retries"]
+        resp.num_hedges = sg_union["hedges"]
         resp._server_traces = sg_union["server_traces"]
         # the actuals off the merged cost (covers colocated, whose rows
         # are known on the servers only)
@@ -628,9 +632,13 @@ class JoinCoordinator:
 
         def submit(server: str, extra: Dict[str, Any]):
             # the per-attempt accounting every _scatter_gather attempt
-            # performs: the half-open circuit probe claim
+            # performs: the half-open circuit probe claim and the AIMD
+            # window in and out
             self.broker.health.allow_request(server)
-            return self.broker._pool.submit(send, server, extra)
+            self.broker.admission.on_attempt_start(server)
+            fut = self.broker._pool.submit(send, server, extra)
+            fut.add_done_callback(lambda f, s=server: self.broker._observe_attempt(f, s))
+            return fut
 
         futs = {
             submit(owner, extra): (i, owner, extra, nbytes)

@@ -4,14 +4,14 @@
 It registers, heartbeats, and polls the controller's versioned cluster
 state (the ZK-watch analog) to rebuild the per-table routing, the server
 name -> TCP address map, the circuit breaker's dead servers and the
-hybrid time boundaries, each table's query-rate quota (updates and
-removals included) and its declared key partitioning
-(``TableConfig.partitioning``, given through ``AddTable``), which the join
-planner's colocation check reads.  Queries go HTTP front ->
-``BrokerRequestHandler`` -> TCP scatter-gather -> reduce.  While the
-controller is unreachable the broker keeps routing from its last
-snapshot.  Left out, ROADMAP queue 1 item 28: SLO objectives from the
-snapshot, the link fault injector.
+hybrid time boundaries, each table's query-rate quota and SLO objectives
+(``TableConfig.slo``; updates and removals included) and its declared key
+partitioning (``TableConfig.partitioning``, given through ``AddTable``),
+which the join planner's colocation check reads.  Queries go HTTP front
+-> ``BrokerRequestHandler`` (from a ``BrokerConf`` when one is given) ->
+TCP scatter-gather -> reduce.  While the controller is unreachable the
+broker keeps routing from its last snapshot.  Left out: the link fault
+injector (ROADMAP queue 1 item 30).
 """
 from __future__ import annotations
 
@@ -38,10 +38,17 @@ class NetworkedBrokerStarter:
         heartbeat_interval_s: float = 1.0,
         poll_interval_s: float = 0.3,
         timeout_ms: float = 15_000.0,
+        conf=None,
     ) -> None:
+        """``conf``: a ``BrokerConf`` (its retry, hedge, circuit-breaker and
+        admission knobs, ``BrokerRequestHandler.from_conf``); without one
+        the handler takes ``timeout_ms`` and the defaults."""
         self.controller_url = controller_url.rstrip("/")
         self.name = name
-        self.handler = BrokerRequestHandler(TcpTransport(), {}, timeout_ms=timeout_ms, name=name)
+        if conf is not None:
+            self.handler = BrokerRequestHandler.from_conf(TcpTransport(), {}, conf, name=name)
+        else:
+            self.handler = BrokerRequestHandler(TcpTransport(), {}, timeout_ms=timeout_ms, name=name)
         self.http = BrokerHttpServer(self.handler, host=host, port=port)
         self.heartbeat_interval_s = heartbeat_interval_s
         self.poll_interval_s = poll_interval_s
@@ -161,10 +168,16 @@ class NetworkedBrokerStarter:
             raw = q["rawName"]
             quota_raw_names.add(raw)
             self.handler.quota.set_quota(raw, q.get("maxQueriesPerSecond"), q.get("burstQueries"))
+            # the SLO objectives ride the same snapshot; an absent block
+            # clears the override back to the env defaults
+            self.handler.slo.set_objective(raw, q.get("slo"))
             p = q.get("partitioning") or {}
             self.handler.joinplan.partitions.set_partitioning(
                 raw, p.get("column"), p.get("numPartitions")
             )
-        # a removed table's quota leaves with it
+        # a removed table's quota leaves with it, and its SLO objectives (a
+        # table with an slo block and no quota has no bucket to clear)
         for stale in set(self.handler.quota.tables()) - quota_raw_names:
             self.handler.quota.set_quota(stale, None)
+        for stale in set(self.handler.slo.objective_tables()) - quota_raw_names:
+            self.handler.slo.set_objective(stale, None)

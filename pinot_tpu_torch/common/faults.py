@@ -28,6 +28,7 @@ class LaunchRecord:
 
     digest: Optional[str]
     # "ok" | "fail_next" | "alloc_fail" | "sticky" | "poison" | "stall"
+    # | "corrupt"
     outcome: str
 
 
@@ -49,6 +50,14 @@ class DeviceFaultInjector:
       timeout).
     - ``poison_plan(digest)`` — every launch whose StaticPlan digest
       matches raises a non-retryable poison error until ``heal()``.
+    - ``corrupt_results(n, tier=..., digest_substring=..., delta=...)``
+      — wrong-answer injection for the audit plane (``utils/audit.py``):
+      a corrupted execution SUCCEEDS.  The executor consults
+      ``check_corrupt`` after a tier produced its result and perturbs one
+      numeric aggregation partial by ``delta``
+      (``apply_result_corruption``).  Nothing raises, so retry, failover
+      and poison never catch it; only the shadow audit can.  The host
+      tier is never corrupted (it is the oracle).
 
     Every launch decision is recorded in ``launches``."""
 
@@ -62,6 +71,10 @@ class DeviceFaultInjector:
         self._stall_next = 0
         self._stall_s = 0.0
         self._poisoned: set = set()
+        self._corrupt_next = 0
+        self._corrupt_tier = ""
+        self._corrupt_digest = ""
+        self._corrupt_delta = 1.0
 
     # -- fault programming --------------------------------------------
     def fail_next(self, n: int, retryable: bool = True) -> None:
@@ -86,6 +99,38 @@ class DeviceFaultInjector:
         with self._lock:
             self._poisoned.add(digest)
 
+    def corrupt_results(self, n: int = 1, tier: str = "", digest_substring: str = "",
+                        delta: float = 1.0) -> None:
+        """Arm wrong-answer injection: the next ``n`` executions whose
+        serving tier matches ``tier`` (empty: any tier but the host) and
+        whose plan-shape digest contains ``digest_substring`` get one
+        numeric aggregation partial perturbed by ``delta``."""
+        with self._lock:
+            self._corrupt_next = n
+            self._corrupt_tier = tier
+            self._corrupt_digest = digest_substring
+            self._corrupt_delta = delta
+
+    @property
+    def corruption_armed(self) -> bool:
+        """Cheap pre-check: the executor derives a plan digest for the
+        consult only while a corruption budget is armed."""
+        return self._corrupt_next > 0
+
+    def check_corrupt(self, plan_digest: Optional[str], tier: str) -> Optional[float]:
+        """The executor's consult after a tier produced a result: the delta
+        to apply, or None.  A match uses one of the armed budget."""
+        with self._lock:
+            if self._corrupt_next <= 0 or tier == "host":
+                return None  # the oracle stays correct, always
+            if self._corrupt_tier and tier != self._corrupt_tier:
+                return None
+            if self._corrupt_digest and self._corrupt_digest not in (plan_digest or ""):
+                return None
+            self._corrupt_next -= 1
+            self.launches.append(LaunchRecord(plan_digest, "corrupt"))
+            return self._corrupt_delta
+
     def heal(self) -> None:
         with self._lock:
             self._fail_next = 0
@@ -94,6 +139,14 @@ class DeviceFaultInjector:
             self._stall_next = 0
             self._stall_s = 0.0
             self._poisoned.clear()
+            self._corrupt_next = 0
+            self._corrupt_tier = ""
+            self._corrupt_digest = ""
+            self._corrupt_delta = 1.0
+
+    def records_for(self, outcome: str) -> List[LaunchRecord]:
+        with self._lock:
+            return [r for r in self.launches if r.outcome == outcome]
 
     # -- lane hook -----------------------------------------------------
     def on_launch(self, digest: Optional[str], key: Any) -> None:
@@ -139,3 +192,23 @@ class DeviceFaultInjector:
             # sleep OUTSIDE the injector lock, inside the lane thread:
             # this is the wedge the watchdog must detect
             time.sleep(stall)
+
+
+def apply_result_corruption(result, delta: float) -> bool:
+    """Perturb one numeric field of ``result``'s first aggregation partial
+    (the scalar list or the first group) in place: the wrong answer the
+    armed ``corrupt_results`` injects.  Returns True when a field was
+    perturbed (a selection, or a partial with no float field, stays as it
+    is)."""
+    partials = result.aggregations
+    if not partials and result.groups:
+        partials = result.groups[next(iter(result.groups))]
+    if not partials:
+        return False
+    p = partials[0]
+    for attr in ("count", "total", "value", "mn", "mx"):
+        v = getattr(p, attr, None)
+        if isinstance(v, float):
+            setattr(p, attr, v + float(delta))
+            return True
+    return False

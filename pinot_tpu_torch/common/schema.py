@@ -186,6 +186,19 @@ class TimeFieldSpec(FieldSpec):
         )
 
 
+_TIME_UNIT_MILLIS = {
+    "MILLISECONDS": 1,
+    "SECONDS": 1000,
+    "MINUTES": 60 * 1000,
+    "HOURS": 3600 * 1000,
+    "DAYS": 24 * 3600 * 1000,
+}
+
+
+def time_unit_to_millis(unit: str) -> int:
+    return _TIME_UNIT_MILLIS[unit.upper()]
+
+
 @dataclass
 class Schema:
     """Column schema: dimensions + metrics + optional time column."""

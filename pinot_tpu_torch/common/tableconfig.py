@@ -5,7 +5,8 @@ The reference's JSON table config: table type (OFFLINE or REALTIME),
 replication, retention, indexing, quota and tenants, the declared key
 partitioning (``PartitionConfig``) the broker's join planner reads, and a
 REALTIME table's stream (``StreamConfig``, ``streamConfigs`` in the JSON).
-A table's ``slo`` block rides along as the JSON it is.  Realtime tables
+A table's ``slo`` block (``SloConfig``) sets the broker's SLO objectives
+for it (``utils/slo.py``).  Realtime tables
 consume through the low-level consumers (``realtime/llc.py``) from a
 network, file or memory stream; a high-level consumer group or a Kafka
 stream is refused (ROADMAP queue 1 item 29).
@@ -90,6 +91,32 @@ class StreamConfig:
 
 
 @dataclass
+class SloConfig:
+    """Per-table service-level objectives, which the broker evaluates as
+    multi-window burn rates (``utils/slo.py``).  An unset field falls back
+    to the env default (``PINOT_TPU_SLO_*``)."""
+
+    latency_ms: Optional[float] = None  # queries must answer under this
+    latency_target: Optional[float] = None  # the fraction that must (0.99)
+    availability_target: Optional[float] = None  # the non-failed fraction
+
+    def to_json(self) -> Dict[str, Any]:
+        return {
+            "latencyMs": self.latency_ms,
+            "latencyTarget": self.latency_target,
+            "availabilityTarget": self.availability_target,
+        }
+
+    @classmethod
+    def from_json(cls, d: Dict[str, Any]) -> "SloConfig":
+        return cls(
+            latency_ms=d.get("latencyMs"),
+            latency_target=d.get("latencyTarget"),
+            availability_target=d.get("availabilityTarget"),
+        )
+
+
+@dataclass
 class QuotaConfig:
     storage: Optional[str] = None
     max_queries_per_second: Optional[float] = None
@@ -122,7 +149,7 @@ class TableConfig:
     retention: RetentionConfig = field(default_factory=RetentionConfig)
     indexing: IndexingConfig = field(default_factory=IndexingConfig)
     quota: QuotaConfig = field(default_factory=QuotaConfig)
-    slo: Optional[Dict[str, Any]] = None
+    slo: Optional["SloConfig"] = None
     partitioning: Optional[PartitionConfig] = None
     stream: Optional[StreamConfig] = None
     broker_tenant: str = "DefaultTenant"
@@ -152,7 +179,7 @@ class TableConfig:
             "quota": self.quota.to_json(),
         }
         if self.slo is not None:
-            d["slo"] = dict(self.slo)
+            d["slo"] = self.slo.to_json()
         if self.partitioning is not None:
             d["partitioning"] = self.partitioning.to_json()
         if self.stream is not None:
@@ -207,7 +234,7 @@ class TableConfig:
                 startree_dimensions_split_order=idx.get("starTreeDimensionsSplitOrder", []),
                 startree_max_leaf_records=idx.get("starTreeMaxLeafRecords", 10_000),
             ),
-            slo=d.get("slo") or None,
+            slo=SloConfig.from_json(d["slo"]) if d.get("slo") else None,
             partitioning=(
                 PartitionConfig.from_json(d["partitioning"]) if d.get("partitioning") else None
             ),

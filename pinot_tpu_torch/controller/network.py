@@ -266,7 +266,7 @@ class ParticipantGateway:
                     "rawName": config.raw_name,
                     "maxQueriesPerSecond": config.quota.max_queries_per_second,
                     "burstQueries": config.quota.burst_queries,
-                    "slo": config.slo,
+                    "slo": config.slo.to_json() if config.slo is not None else None,
                     # declared key partitioning feeds the remote broker's
                     # join planner (colocated strategy eligibility)
                     "partitioning": (

@@ -88,6 +88,16 @@ build, a wrapper's own launch error, or an error in planning or finalize
 is the program's fault, never answered by the host tier.  On a CUDA
 device the constructor builds and loads both kernels, so a failed build
 raises there, not in a query.
+
+THE AUDIT PLANE (``utils/audit.py``): every exit of ``_execute_engine``
+goes through ``_finish_tier``, which stamps ``_served_tier`` and consults
+an armed wrong-answer injection of the lane's fault injector (tests and
+``chip_smoke.py`` only).  ``execute_host_oracle`` re-runs a request on
+the host tier over the segments' host arrays, for the shadow auditor; a
+divergence quarantines the (plan digest, tier) through the poison map
+(``audit_quarantine``), and ``_execute_engine`` then skips that tier for
+that shape: a quarantined device tier fails over to the host until the
+TTL re-admits it.
 """
 from __future__ import annotations
 
@@ -99,6 +109,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from pinot_tpu_torch.common.faults import apply_result_corruption
 from pinot_tpu_torch.common.request import BrokerRequest, FilterOperator, group_sort_ascending
 from pinot_tpu_torch.common.schema import DataType
 from pinot_tpu_torch.common.values import render_value
@@ -155,6 +166,7 @@ from pinot_tpu_torch.engine.plan import (
     hll_lowers_to_presence,
     plan_forced_host,
 )
+from pinot_tpu_torch.engine.plandigest import plan_shape_digest
 from pinot_tpu_torch.engine.pruner import prune_segments
 from pinot_tpu_torch.engine.residency import ResidencyManager
 from pinot_tpu_torch.engine.results import (
@@ -406,6 +418,9 @@ class QueryExecutor:
         self._poisoned: Dict[Any, Tuple[str, float]] = {}
         # the sticky CUDA fault that took the device off, if any
         self._sticky: Optional[DeviceExecutionError] = None
+        # True once an audit quarantine exists: the serving path derives a
+        # plan digest for the quarantine check only then
+        self._has_audit_poison = False
 
     def staged_bytes(self) -> int:
         """Bytes of the staged tables on the device (the ledger's count of
@@ -527,6 +542,78 @@ class QueryExecutor:
         """Re-admit quarantined plans to the device."""
         with self._heal_lock:
             self._poisoned.clear()
+        self._has_audit_poison = False
+
+    # -- the audit plane (utils/audit.py) ------------------------------
+    def audit_quarantine(self, digest: str, tier: str, reason: str) -> None:
+        """The shadow auditor caught ``tier`` serving a wrong answer for
+        plan shape ``digest``: the serving path skips that tier for that
+        shape (a quarantined device fails over to the host) until the TTL
+        re-admits it."""
+        self._poison(("audit", str(digest), str(tier)), f"audit: {reason}")
+        self._has_audit_poison = True
+        self._heal_mark("auditQuarantines", tier=tier)
+
+    def audit_quarantined_snapshot(self) -> List[Dict[str, Any]]:
+        """The live audit-quarantine entries (``/debug/audit``)."""
+        now = time.monotonic()
+        out: List[Dict[str, Any]] = []
+        with self._heal_lock:
+            for key, (reason, exp) in self._poisoned.items():
+                if isinstance(key, tuple) and len(key) == 3 and key[0] == "audit" and now < exp:
+                    out.append({"planDigest": key[1], "tier": key[2], "reason": reason,
+                                "ttlRemainingS": round(exp - now, 3)})
+        return out
+
+    def _audit_digest(self, request: BrokerRequest) -> Optional[str]:
+        """The shape digest for the quarantine checks, derived only while
+        some audit quarantine exists."""
+        return plan_shape_digest(request) if self._has_audit_poison else None
+
+    def _audit_blocked(self, digest: Optional[str], tier: str) -> bool:
+        if digest is None:
+            return False
+        if self._is_poisoned(("audit", digest, tier)):
+            self._heal_mark("auditTierSkips", tier=tier)
+            return True
+        return False
+
+    def _fault_injector(self):
+        lanes = self.lanes.lanes if self.lanes is not None else [self.lane]
+        for lane in lanes:
+            inj = getattr(lane, "fault_injector", None)
+            if inj is not None:
+                return inj
+        return None
+
+    def _finish_tier(self, result: IntermediateResult, request: BrokerRequest, tier: str) -> IntermediateResult:
+        """Every exit of ``_execute_engine``: stamp the serving tier that
+        produced the answer (the audit plane's quarantine key) and consult
+        the lane's armed wrong-answer injection, if any."""
+        result._served_tier = tier
+        inj = self._fault_injector()
+        if inj is not None and inj.corruption_armed:
+            delta = inj.check_corrupt(plan_shape_digest(request), tier)
+            if delta is not None:
+                apply_result_corruption(result, delta)
+        return result
+
+    def execute_host_oracle(self, segments: Sequence[ImmutableSegment], request: BrokerRequest) -> IntermediateResult:
+        """The shadow audit's oracle: ``request`` over the exact views a
+        reply served, on the host tier (numpy over the segments' own host
+        arrays, never a copy back from the card): no lane, no result
+        cache, no tier ladder.  Pruning keeps answers, so the payload
+        (accounting aside) must equal whatever tier served the reply."""
+        segments = list(segments)
+        total_docs = sum(s.num_docs for s in segments)
+        live = prune_segments(segments, request)
+        if not live:
+            res = self._empty_result(request, total_docs)
+        else:
+            sel_columns = self._resolve_selection_columns(request, live[0]) if request.is_selection else None
+            res = execute_host(live, get_table_context(live, {}), request, total_docs, sel_columns)
+        res._served_tier = "host"
+        return res
 
     def _phase(self, name: str, t0: float, **tags) -> float:
         """Record a phase timer and, when the request is traced, a span;
@@ -606,33 +693,42 @@ class QueryExecutor:
         with self._stage_lock:
             self._retire_superseded(live)
             ctx = get_table_context(live, self._contexts)
+        # a tier the shadow audit caught lying for this shape is skipped
+        audit_digest = self._audit_digest(request)
         # selective predicates answer from host postings in O(matches)
         # (engine/invindex_path.py); unselective ones fall through
         t_tier = time.perf_counter()
-        res = try_index_path(request, live, ctx, total_docs, sel_columns, self.postings)
+        res = None
+        if not self._audit_blocked(audit_digest, "postings"):
+            res = try_index_path(request, live, ctx, total_docs, sel_columns, self.postings)
         if res is not None:
             self._phase("indexPath", t0)
-            res._served_tier = "postings"
-            return res
-        if self._sticky is None:
+            return self._finish_tier(res, request, "postings")
+        if self._sticky is None and not self._audit_blocked(audit_digest, "bitsliced"):
             # mid-selectivity scalar aggregations that postings declined
             # run as bitwise passes over bit-planes (engine/bitsliced.py)
             res = self._try_bitsliced(request, live, ctx, total_docs, deadline)
             if res is not None:
                 self._phase("bitslicedPath", t0)
-                res._served_tier = "bitsliced"
-                return res
+                return self._finish_tier(res, request, "bitsliced")
         # both tiers declined: their decisions are a phase of their own, and
         # staging goes on timing the context and the upload only
         t0 += self._phase("tierDecision", t_tier) - t_tier
         if plan_forced_host(request, ctx, self.precision):
             # a plan only the host can run never pays device staging
-            return self._host(live, ctx, request, total_docs, sel_columns, "hostPath")
+            return self._finish_tier(self._host(live, ctx, request, total_docs, sel_columns, "hostPath"),
+                                     request, "host")
         if self._sticky is not None:
             # a sticky CUDA fault corrupted the context: the device is
             # not tried again
             self._heal_mark("hostFailovers", reason="deviceOff")
-            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
+            return self._finish_tier(self._host(live, ctx, request, total_docs, sel_columns, "hostFailover"),
+                                     request, "host")
+        if self._audit_blocked(audit_digest, "device"):
+            # a tier caught lying gets no device attempt inside the TTL
+            self._heal_mark("hostFailovers", reason="auditQuarantine")
+            return self._finish_tier(self._host(live, ctx, request, total_docs, sel_columns, "hostFailover"),
+                                     request, "host")
 
         ref: Dict[str, Any] = {}
         result = self._run_healing(
@@ -640,8 +736,10 @@ class QueryExecutor:
             ref,
         )
         if result is None:
-            return self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
-        return result
+            result = self._host(live, ctx, request, total_docs, sel_columns, "hostFailover")
+        # the device section's own host exits (a plan off the device, a
+        # poisoned plan, a pair overflow) are stamped "host" there
+        return self._finish_tier(result, request, result._served_tier)
 
     def _device_section(
         self,

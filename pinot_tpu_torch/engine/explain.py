@@ -30,8 +30,10 @@ the lane, "persistent" when the compile cache's plan ledger shows this
 topology ran it before, "prewarmed" when the prewarm worker launched it
 ahead, and "warm" once it served; ``costAnalysis`` is the lane's static
 cost of the digest (a dict), "pending" while its helper thread runs, or
-"unavailable".  ``device.batching.cacheHit`` is always false (the result
-cache is a later slice).  The mesh record is one lane on one card.
+"unavailable".  ``device.batching.cacheHit`` says whether the server's
+result cache holds a standing entry for this exact query over these
+exact views (``ResultCache.contains``, which marks no hit or miss).  The
+mesh record is one lane on one card.
 
 PREWARM (``build_prewarm_spec``): the same phantom, driven one step
 further.  The card compiles nothing per shape; what a digest's first
@@ -234,11 +236,12 @@ def build_explain_node(
     table: str,
     server_name: str,
     plan_stats=None,
+    result_cache=None,
 ) -> Dict[str, Any]:
-    """One server's EXPLAIN plan node (module docstring): the reference's
-    with its ``result_cache`` absent.  ``executor`` supplies the decision
-    helpers and the live quarantine state; ``plan_stats``
-    (``utils/planstats.py``) the history estimate."""
+    """One server's EXPLAIN plan node (module docstring).  ``executor``
+    supplies the decision helpers and the live quarantine state;
+    ``plan_stats`` (``utils/planstats.py``) the history estimate;
+    ``result_cache`` (``engine/rescache.py``) the cacheHit probe."""
     total_docs = sum(s.num_docs for s in segments)
     records: List[Dict[str, Any]] = []
     tier_counts: Dict[str, int] = {}
@@ -365,7 +368,9 @@ def build_explain_node(
                         "batched": scanned_rows is None and cap > 1 and (not limit or rows_total <= limit),
                         "batchMax": cap,
                         "windowMs": round(lane.batch_window_s * 1000, 3) if lane is not None else 0.0,
-                        "cacheHit": False,
+                        "cacheHit": (
+                            result_cache.contains(request, segments, table) if result_cache is not None else False
+                        ),
                     }
 
     digest = plan_shape_digest(request)

@@ -34,21 +34,14 @@ against its cap throttles new rows before allocation failures do.
 from __future__ import annotations
 
 import logging
-import os
 import threading
 import time
 from collections import deque
 from typing import Callable, Dict, Optional
 
+from pinot_tpu_torch.common.conf import env_float
+
 logger = logging.getLogger(__name__)
-
-
-def _env_bytes(name: str, default: float = 0.0) -> float:
-    """A float knob from the environment; a junk value is the default."""
-    try:
-        return float(os.environ.get(name, default))
-    except ValueError:
-        return default
 
 
 class IngestBackpressure:
@@ -69,26 +62,26 @@ class IngestBackpressure:
         residency=None,
     ) -> None:
         self.hbm_high = float(hbm_high_bytes if hbm_high_bytes is not None
-                              else _env_bytes("PINOT_TPU_INGEST_HBM_HIGH_BYTES"))
+                              else env_float("PINOT_TPU_INGEST_HBM_HIGH_BYTES"))
         self.hbm_low = float(hbm_low_bytes if hbm_low_bytes is not None
-                             else _env_bytes("PINOT_TPU_INGEST_HBM_LOW_BYTES", 0.8 * self.hbm_high))
+                             else env_float("PINOT_TPU_INGEST_HBM_LOW_BYTES", 0.8 * self.hbm_high))
         self.mutable_high = float(mutable_high_bytes if mutable_high_bytes is not None
-                                  else _env_bytes("PINOT_TPU_INGEST_MUTABLE_HIGH_BYTES"))
+                                  else env_float("PINOT_TPU_INGEST_MUTABLE_HIGH_BYTES"))
         self.mutable_low = float(mutable_low_bytes if mutable_low_bytes is not None
-                                 else _env_bytes("PINOT_TPU_INGEST_MUTABLE_LOW_BYTES", 0.8 * self.mutable_high))
+                                 else env_float("PINOT_TPU_INGEST_MUTABLE_LOW_BYTES", 0.8 * self.mutable_high))
         self._hbm_bytes = hbm_bytes_fn or (lambda: 0.0)
         self._mutable_bytes = mutable_bytes_fn or (lambda: 0.0)
         # the residency pool: fractions of the manager's HBM cap, inert
         # (pressure reads 0.0) while no cap is set
         self._residency = residency
-        self.residency_high_frac = _env_bytes("PINOT_TPU_INGEST_RESIDENCY_HIGH_FRAC", 0.95)
-        self.residency_low_frac = _env_bytes("PINOT_TPU_INGEST_RESIDENCY_LOW_FRAC",
+        self.residency_high_frac = env_float("PINOT_TPU_INGEST_RESIDENCY_HIGH_FRAC", 0.95)
+        self.residency_low_frac = env_float("PINOT_TPU_INGEST_RESIDENCY_LOW_FRAC",
                                              0.8 if self.residency_high_frac > 0 else 0.0)
         # one decision a poll interval: the watermark reads (the staging
         # lock, the data-manager walk) stay off the per-batch path
         self.poll_interval_s = poll_interval_s
         self.max_batch_rows = int(max_batch_rows if max_batch_rows is not None
-                                  else _env_bytes("PINOT_TPU_INGEST_BATCH_ROWS", 4096))
+                                  else env_float("PINOT_TPU_INGEST_BATCH_ROWS", 4096))
         self.metrics = metrics
         self._lock = threading.Lock()
         self._paused = False

@@ -32,7 +32,8 @@ import time
 from typing import Any, Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.common.fencing import StaleEpochError, epoch_int
-from pinot_tpu_torch.common.schema import Schema
+from pinot_tpu_torch.broker.freshness import WATERMARKS, batch_max_event_ms, now_ms
+from pinot_tpu_torch.common.schema import Schema, time_unit_to_millis
 from pinot_tpu_torch.common.tableconfig import TableConfig
 from pinot_tpu_torch.controller.resource_manager import CONSUMING, ONLINE, ClusterResourceManager
 from pinot_tpu_torch.realtime.mutable import MutableSegment
@@ -530,13 +531,66 @@ class RealtimeSegmentManager:
                     self._create_consuming_segment(physical, partition, max_seq + 1, max_end)
 
 
+def attach_freshness(consumer, server, schema: Schema) -> None:
+    """The event-time freshness and result-cache hooks of a consumer (a
+    ``RealtimeSegmentDataManager`` or a networked ``RemoteConsumer``, with
+    its ``table`` and ``partition`` set): every indexed batch advances the
+    process-wide (table, partition) watermark (``broker/freshness.py``) to
+    its time column's maximum, and every offset advance drops the table's
+    cached answers (``engine/rescache.py``).  The per-partition gauge
+    ``freshness.lag.<table>.p<n>`` (now minus the watermark, ms) is
+    registered again at a rollover, so its series is continuous."""
+    consumer._result_cache = getattr(server, "result_cache", None)
+    consumer._time_col = schema.time_column_name
+    consumer._time_unit_ms = (
+        time_unit_to_millis(schema.time_field.time_unit) if schema.time_field is not None else None
+    )
+    consumer._freshness_gauge_name = f"freshness.lag.{consumer.table}.p{consumer.partition}"
+
+    def probe(_t=consumer.table, _p=consumer.partition):
+        w = WATERMARKS.get(_t, _p)
+        return round(max(0.0, now_ms() - w), 3) if w is not None else 0
+
+    consumer._freshness_fn = probe
+    metrics = getattr(server, "metrics", None)
+    if metrics is not None and consumer._time_col is not None:
+        metrics.gauge(consumer._freshness_gauge_name).set_fn(probe)
+
+
+def detach_freshness(consumer, metrics) -> None:
+    """A stopped consumer's watermark gauge leaves its registry (the
+    equality guard of ``clear_fn`` keeps a successor's series)."""
+    if metrics is not None:
+        metrics.gauge(consumer._freshness_gauge_name).clear_fn(consumer._freshness_fn)
+
+
+def _advance_watermark(consumer, time_values) -> None:
+    """One indexed batch's event-time watermark advance (monotone: a
+    replay never moves it back)."""
+    if consumer._time_unit_ms is None:
+        return
+    event_ms = batch_max_event_ms(time_values, consumer._time_unit_ms)
+    if event_ms is not None:
+        WATERMARKS.advance(consumer.table, consumer.partition, event_ms)
+
+
+def _notify_offset_advance(consumer) -> None:
+    """The consume offset moved: every answer cached over the table's
+    previous watermark is superseded (the staging-token key already made
+    those entries unreachable; this drops them at once)."""
+    cache = consumer._result_cache
+    if cache is not None and cache.enabled:
+        cache.on_offset_advance(consumer.table, consumer.partition, consumer.offset)
+
+
 def fetch_and_index(consumer, limit: int) -> int:
     """One fetch and index of ``consumer`` (a ``RealtimeSegmentDataManager``
     or a networked ``RemoteConsumer``: its ``stream``, ``partition``,
     ``offset``, ``mutable`` and ``_columnar``), preferring the columnar
     block path where the stream and partition have it (netstream's
     producec topics: np.frombuffer and a vectorized dictionary encode).
-    Returns the rows consumed and advances the offset."""
+    Returns the rows consumed and advances the offset, the watermark and
+    the result cache's offset fence (``attach_freshness``)."""
     fetch_cols = getattr(consumer.stream, "fetch_columns", None)
     if consumer._columnar is not False and fetch_cols is not None:
         try:
@@ -569,12 +623,20 @@ def fetch_and_index(consumer, limit: int) -> int:
             consumer.offset = next_offset
             consumer.mutable.end_offset = next_offset
             consumer._mark_rows(n)
+            if consumer._time_col is not None:
+                _advance_watermark(consumer, cols.get(consumer._time_col))
+            _notify_offset_advance(consumer)
             return n
     rows, next_offset = consumer.stream.fetch(consumer.partition, consumer.offset, limit)
     consumer.mutable.index_batch(rows)
+    advanced = next_offset != consumer.offset
     consumer.offset = next_offset
     consumer.mutable.end_offset = next_offset
     consumer._mark_rows(len(rows))
+    if rows and consumer._time_col is not None:
+        _advance_watermark(consumer, [r.get(consumer._time_col) for r in rows if consumer._time_col in r])
+    if advanced:
+        _notify_offset_advance(consumer)
     return len(rows)
 
 
@@ -627,6 +689,7 @@ class RealtimeSegmentDataManager:
         if self._metrics is not None:
             self._metrics.gauge(self._lag_gauge_name).set_fn(self._lag_probe)
             self._metrics.gauge(self._paused_gauge_name).set_fn(self._paused_fn)
+        attach_freshness(self, server, schema)
 
     def lag(self) -> Optional[int]:
         """Rows the partition holds past the consumed offset (TTL-cached)."""
@@ -639,6 +702,7 @@ class RealtimeSegmentDataManager:
         if self._metrics is not None:
             self._metrics.gauge(self._lag_gauge_name).clear_fn(self._lag_probe)
             self._metrics.gauge(self._paused_gauge_name).clear_fn(self._paused_fn)
+        detach_freshness(self, self._metrics)
 
     def _mark_rows(self, n: int) -> None:
         if n and self._metrics is not None:

@@ -155,6 +155,12 @@ class ColumnData:
 _staging_tokens = itertools.count()
 
 
+def new_staging_token() -> int:
+    """A process-unique staging token: a segment whose data changed in
+    place (default columns patched in) takes a new one."""
+    return next(_staging_tokens)
+
+
 @dataclass
 class ImmutableSegment:
     """A sealed columnar segment: metadata + per-column index data."""

@@ -62,8 +62,17 @@ starters' ``workload_source``), a segment load triggers a prewarm pass
 that launches the fleet's hot plan shapes ahead on their own stream;
 ``prewarm.warming`` rides the heartbeats.
 
-Left out of the port, for later slices: the result cache (of scans and
-joins) and the shadow auditor.
+THE SERVING PLANES.  The result cache (``engine/rescache.py``, off unless
+``PINOT_TPU_RESULT_CACHE=1``) answers a repeated scan, or a colocated
+join, over the same data generation without launching anything; a
+segment's add or removal and an LLC offset advance invalidate the
+table's entries.  The shadow auditor (``utils/audit.py``) re-checks a
+1-in-N sample of the device's replies against the host oracle on a
+background thread and quarantines a tier that lies.  A realtime table's
+reply carries its stalest partition's event-time watermark
+(``broker/freshness.py``).  One history thread (``utils/timeseries.py``,
+``/debug/history``) samples the registry; its tick dumps a flight-recorder
+bundle (``utils/flightrec.py``) on heal activity.
 """
 from __future__ import annotations
 
@@ -76,6 +85,7 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
+from pinot_tpu_torch.broker.freshness import WATERMARKS
 from pinot_tpu_torch.common.datatable import deserialize_instance_request, serialize_result
 from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
@@ -85,12 +95,13 @@ from pinot_tpu_torch.engine.executor import QueryExecutor
 from pinot_tpu_torch.engine.explain import _json_safe, build_explain_node
 from pinot_tpu_torch.engine.kernels import fused_groupby, value_state_counts
 from pinot_tpu_torch.engine.plandigest import _raw_table, plan_shape_digest, plan_shape_summary
+from pinot_tpu_torch.engine.rescache import ResultCache
 from pinot_tpu_torch.engine.results import SEGMENT_TIER_KEYS, IntermediateResult
 from pinot_tpu_torch.pql import optimize_request, parse_pql
 from pinot_tpu_torch.realtime.backpressure import IngestBackpressure, instance_mutable_bytes
 from pinot_tpu_torch.realtime.mutable import MutableSegment
 from pinot_tpu_torch.segment.default_column import inject_default_columns
-from pinot_tpu_torch.segment.immutable import ImmutableSegment
+from pinot_tpu_torch.segment.immutable import ImmutableSegment, new_staging_token
 from pinot_tpu_torch.server.datamanager import InstanceDataManager
 from pinot_tpu_torch.server.prewarm import PrewarmWorker
 from pinot_tpu_torch.server.profiler import DeviceProfiler
@@ -100,9 +111,12 @@ from pinot_tpu_torch.server.scheduler import (
     SchedulerSaturatedError,
     SchedulerShutdownError,
 )
+from pinot_tpu_torch.utils.audit import ShadowAuditor
+from pinot_tpu_torch.utils.flightrec import FlightRecorder
 from pinot_tpu_torch.utils.metrics import ServerMetrics, prometheus_text
 from pinot_tpu_torch.utils.planstats import PlanStatsStore
 from pinot_tpu_torch.utils.platform import platform_peaks, roofline_fractions
+from pinot_tpu_torch.utils.timeseries import HistoryRecorder
 from pinot_tpu_torch.utils.trace import NULL_TRACE, TraceContext, reset_current, set_current
 
 logger = logging.getLogger(__name__)
@@ -256,8 +270,8 @@ class ServerInstance:
         self.metrics.gauge("residency.warmBytes").set_fn(residency.warm_bytes)
         self.metrics.gauge("residency.coldBytes").set_fn(residency.cold_bytes)
         self.metrics.gauge("residency.pressure").set_fn(residency.pressure)
-        for name in ("demotions", "promotions", "coldDemotions", "coldLoads", "pressureDemotions", "prefetches"):
-            self.metrics.gauge(f"residency.{name}").set_fn((lambda n: lambda: residency.counter(n))(name))
+        for counter in ("demotions", "promotions", "coldDemotions", "coldLoads", "pressureDemotions", "prefetches"):
+            self.metrics.gauge(f"residency.{counter}").set_fn((lambda n: lambda: residency.counter(n))(counter))
         for tier in ("hot", "warm", "cold"):
             self.metrics.gauge(f"residency.{tier}Tables").set_fn(
                 (lambda t: lambda: residency.snapshot()[f"{t}Tables"])(tier))
@@ -302,6 +316,29 @@ class ServerInstance:
             lambda: self._roofline_window.snapshot()["rooflineFraction"])
         # the warm-start plane: inert until a starter wires a workload feed
         self.prewarm = PrewarmWorker(self)
+        # the result cache, keyed on the exact data generation served
+        # (segment names and staging tokens); off unless enabled
+        self.result_cache = ResultCache(metrics=self.metrics)
+        # the history plane: one thread samples this registry; heal activity
+        # seen on its tick dumps a flight-recorder bundle (disabled unless
+        # PINOT_TPU_FLIGHTREC_DIR is set)
+        self.history = HistoryRecorder(self.metrics, metrics=self.metrics)
+        self.flightrec = FlightRecorder(
+            "server", name, metrics=self.metrics,
+            sources={
+                "history": lambda: self.history.query(window_s=900),
+                "plans": lambda: self.plan_stats.snapshot(top=20),
+                "device": self.device_utilization,
+                "status": self.status,
+                "audit": lambda: self.auditor.snapshot(),
+            },
+        )
+        self._last_heal_total = 0
+        self.history.add_tick_hook(self._history_tick)
+        # the shadow audit: a 1-in-N sample of the device's replies re-run
+        # on the host oracle in the background (PINOT_TPU_AUDIT_SAMPLE_N=0
+        # turns it off)
+        self.auditor = ShadowAuditor(self)
 
     # -- segment lifecycle -------------------------------------------
     def set_table_schema(self, table: str, schema) -> None:
@@ -324,10 +361,15 @@ class ServerInstance:
                     # the schema it was created with until it seals (the
                     # reference applies a schema change to consuming
                     # segments at the next rollover)
-                    if isinstance(sdm.segment, ImmutableSegment):
-                        inject_default_columns(sdm.segment, schema)
+                    if isinstance(sdm.segment, ImmutableSegment) and inject_default_columns(sdm.segment, schema):
+                        # a patched segment is a new data generation: a new
+                        # staging token, so no answer cached over its old
+                        # columns can match it again
+                        sdm.segment.staging_token = new_staging_token()
+                        self.executor.evict_segment(sdm.segment.segment_name)
             finally:
                 tdm.release_segments(acquired)
+            self.result_cache.invalidate_table(raw)
 
     def add_segment(self, table: str, segment) -> None:
         """Host ``segment`` (an ``ImmutableSegment``, or a consuming
@@ -340,6 +382,8 @@ class ServerInstance:
             inject_default_columns(segment, schema)
         self.data_manager.add_segment(table, segment)
         self.executor.evict_segment(segment.segment_name)
+        # the segment set changed: answers cached over the old cover go
+        self.result_cache.invalidate_table(_raw_table(table))
         # the hot working set may have grown: a prewarm pass (debounced;
         # inert without a workload feed)
         self.prewarm.request_prewarm(_raw_table(table))
@@ -353,6 +397,7 @@ class ServerInstance:
         if tdm is not None:
             tdm.remove_segment(name)
         self.executor.evict_segment(name)
+        self.result_cache.invalidate_table(_raw_table(table))
 
     def record_crc_failure(self, table: str, name: str) -> None:
         """A copy of ``name`` failed its CRC check."""
@@ -425,6 +470,12 @@ class ServerInstance:
         self._record_plan_stats(req, result, outcome, exec_ms)
         self.metrics.timer("queryExecution").update(exec_ms)
         self.metrics.meter("queries").mark()
+        # the event-time freshness stamp: a realtime table's reply carries
+        # its stalest consumed partition's watermark; an offline table has
+        # none and stamps nothing
+        wm = WATERMARKS.table_min_ms(req["table"])
+        if wm is not None:
+            result.freshness = {"minEventMs": wm}
         # backpressure snapshot on EVERY reply (including sheds): the
         # broker's admission window reads it
         result.backpressure = {
@@ -567,15 +618,32 @@ class ServerInstance:
                     # submission, no cost and nothing staged
                     with trace.span("explainPlan", segments=len(acquired)):
                         node = build_explain_node(self.executor, views, request, req["table"], self.name,
-                                                  plan_stats=self.plan_stats)
+                                                  plan_stats=self.plan_stats, result_cache=self.result_cache)
                     node["mode"] = "plan"
                     self.metrics.meter("plan.explains").mark()
                     result = IntermediateResult(total_docs=int(node.get("totalDocs") or 0), plan_info=[node])
                 else:
-                    with trace.span("planAndExecute", segments=len(acquired)):
-                        result = self.executor.execute(views, request, deadline=deadline)
+                    # the result cache: the key is the exact data generation
+                    # (segment names and staging tokens), so a hit is as
+                    # fresh as a re-execution and launches nothing.  EXPLAIN
+                    # ANALYZE and partial covers bypass it; a result with
+                    # exceptions is never stored
+                    cache = self.result_cache
+                    ckey = cache.key_for(request, views, req["table"]) if cache.enabled and not missing else None
+                    result = cache.get(ckey) if ckey is not None else None
+                    if result is not None:
+                        trace.event("rescacheHit")
+                    else:
+                        with trace.span("planAndExecute", segments=len(acquired)):
+                            result = self.executor.execute(views, request, deadline=deadline)
+                        if ckey is not None and not result.exceptions:
+                            cache.put(ckey, result)
                     if request.explain == "analyze":
                         result.plan_info = [self._analyze_node(views, request, req["table"], result)]
+                    if not missing:
+                        # the shadow audit's sampling hook: the job holds the
+                        # views, so it re-runs over the snapshot served
+                        self.auditor.offer(req, request, views, result)
                 result.unserved_segments = missing
             finally:
                 tdm.release_segments(acquired)
@@ -588,7 +656,8 @@ class ServerInstance:
         (so the quarantine and compile state say what just happened),
         annotated with this reply's cost: the per-server actuals sum
         exactly to the broker's merged cost."""
-        node = build_explain_node(self.executor, views, request, table, self.name, plan_stats=self.plan_stats)
+        node = build_explain_node(self.executor, views, request, table, self.name, plan_stats=self.plan_stats,
+                                  result_cache=self.result_cache)
         node["mode"] = "analyze"
         node["actualCost"] = _json_safe(dict(result.cost))
         node["actualDocsScanned"] = int(result.num_docs_scanned)
@@ -679,9 +748,20 @@ class ServerInstance:
                             ErrorCode.SERVER_SEGMENT_MISSING,
                             f"server {self.name}: local build side does not cover probe partitions",
                         )])
+                    # the result cache keys a colocated join on BOTH sides'
+                    # data generations, so an advance on either side misses
+                    cache = self.result_cache
+                    ckey = (cache.key_for_join(request, views, b_views, req["table"], build_table)
+                            if cache.enabled else None)
+                    cached = cache.get(ckey) if ckey is not None else None
+                    if cached is not None:
+                        trace.event("rescacheHit")
+                        return cached
                     result = self._join_exec(request, spec, right_f, right_cols, b_views,
                                              left_f, left_cols, views, deadline, trace)
                     result.num_segments_queried = len(views) + len(b_views)
+                    if ckey is not None and not result.exceptions:
+                        cache.put(ckey, result)
                 finally:
                     tdm_b.release_segments(b_acquired)
             elif strategy == "broadcast":
@@ -728,6 +808,26 @@ class ServerInstance:
             return self.executor.execute_join(request, build, probe, deadline=deadline)
 
     # -- observability -------------------------------------------------
+    def _history_tick(self, now: float) -> None:
+        """The flight-recorder trigger on the history cadence: heal activity
+        since the last sample (device failures, host failovers, CRC
+        failures, lane restarts) dumps a bundle."""
+        total = (
+            self.metrics.meter("heal.deviceFailures").count
+            + self.metrics.meter("heal.hostFailovers").count
+            + self.metrics.meter("crcFailures").count
+            + (0 if self.lanes is None else self.lanes.restart_count)
+        )
+        delta = total - self._last_heal_total
+        self._last_heal_total = total
+        if delta > 0:
+            self.flightrec.maybe_dump("healEvent", {"healEventsThisTick": delta})
+
+    def audit_snapshot(self) -> dict:
+        """``/debug/audit``: the shadow auditor's counters and the
+        quarantined (plan digest, tier) pairs."""
+        return self.auditor.snapshot()
+
     def status(self) -> dict:
         """Serving-surface snapshot: scheduler depth/shed, device-lane
         depth and coalesce/dispatch/shed counters and its micro-batching
@@ -761,6 +861,8 @@ class ServerInstance:
             # the utilization plane (device_utilization) and the plan
             # statistics' head
             "device": self.device_utilization(),
+            "rescache": self.result_cache.snapshot(),
+            "audit": self.auditor.snapshot(),
             "plans": self.plan_stats.snapshot(top=20),
             "metrics": self.metrics.snapshot(),
         }
@@ -825,9 +927,11 @@ class ServerInstance:
         lane (queued lane waiters fail fast with ``LaneClosedError``), then
         wait (bounded) for their threads to exit: a daemon thread still
         inside torch while the interpreter tears down aborts the
-        process."""
+        process.  The auditor and the history recorder stop first."""
         self.scheduler.shutdown()
         self.prewarm.stop()
+        self.auditor.stop()
+        self.history.stop()
         self._stop_samplers()
         self.profiler.shutdown()
         if self.lanes is not None:

@@ -17,8 +17,9 @@
 - it serves broker queries on a length-framed TCP socket, and
   ``/health``, ``/metrics``, ``/debug/metrics``, ``/debug/residency``,
   ``/debug/device``, ``/debug/plans[?top=&by=]``, ``/debug/profile``,
-  ``POST /debug/profile/start|stop`` and ``/debug/prewarm`` on its admin
-  HTTP port (``ServerAdminHttpServer``);
+  ``POST /debug/profile/start|stop``, ``/debug/prewarm``,
+  ``/debug/history``, ``/debug/audit`` and ``/debug/flightrec`` on its
+  admin HTTP port (``ServerAdminHttpServer``);
 - its prewarm worker (``server/prewarm.py``) pulls the controller's
   fleet workload (``/debug/workload``) for the tables it hosts when its
   segments load, and every heartbeat reports whether it is warming;
@@ -49,7 +50,7 @@ import torch
 from pinot_tpu_torch.common.fencing import ServingLease
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.controller.resource_manager import CONSUMING, DROPPED, OFFLINE, ONLINE
-from pinot_tpu_torch.realtime.llc import fetch_and_index
+from pinot_tpu_torch.realtime.llc import attach_freshness, detach_freshness, fetch_and_index
 from pinot_tpu_torch.realtime.mutable import MutableSegment
 from pinot_tpu_torch.realtime.pool import IngestConsumerPool
 from pinot_tpu_torch.realtime.stream import LagProbe, stream_from_descriptor
@@ -85,8 +86,11 @@ class ServerAdminHttpServer:
     ``/debug/plans?top=&by=count|cost`` (the plan statistics),
     ``/debug/profile`` and ``POST /debug/profile/start`` (body
     ``{"timeoutS": s}``) / ``stop`` (the profiler; a typed 404 without
-    one), and ``/debug/prewarm`` (the prewarm worker's state).  The query
-    data plane stays on the TCP socket."""
+    one), ``/debug/prewarm`` (the prewarm worker's state),
+    ``/debug/history?series=&windowS=`` (the metric history),
+    ``/debug/audit`` (the shadow auditor's counters and quarantines) and
+    ``/debug/flightrec`` (the flight recorder's bundles).  The query data
+    plane stays on the TCP socket."""
 
     def __init__(self, server: ServerInstance, host: str = "127.0.0.1", port: int = 0):
         inst = server
@@ -121,6 +125,12 @@ class ServerAdminHttpServer:
                     return self._send_json(inst.profiler.snapshot())
                 if url.path == "/debug/prewarm":
                     return self._send_json(inst.prewarm.state())
+                if url.path == "/debug/history":
+                    return self._send_json(inst.history.query_from_qs(url.query))
+                if url.path == "/debug/audit":
+                    return self._send_json(inst.audit_snapshot())
+                if url.path == "/debug/flightrec":
+                    return self._send_json(inst.flightrec.snapshot())
                 if url.path == "/debug/plans":
                     qs = parse_qs(url.query)
                     by = (qs.get("by") or ["count"])[0]
@@ -220,12 +230,15 @@ class RemoteConsumer:
         self._paused_fn = lambda: 1 if self._paused else 0
         self._metrics.gauge(self._lag_gauge_name).set_fn(self._lag_probe)
         self._metrics.gauge(self._paused_gauge_name).set_fn(self._paused_fn)
+        # the event-time watermark and the result cache's offset fence
+        attach_freshness(self, starter.server, self.mutable.schema)
 
     def _detach_gauges(self) -> None:
         """A finished consumer's frozen offset must not report lag; the
         equality guard of clear_fn keeps a rolled successor's series."""
         self._metrics.gauge(self._lag_gauge_name).clear_fn(self._lag_probe)
         self._metrics.gauge(self._paused_gauge_name).clear_fn(self._paused_fn)
+        detach_freshness(self, self._metrics)
 
     def start(self) -> None:
         self.starter.server.add_segment(self.table, self.mutable)

@@ -24,6 +24,7 @@ import torch
 
 from pinot_tpu_torch.broker.broker import OFFLINE_SUFFIX, BrokerHttpServer, BrokerRequestHandler
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
+from pinot_tpu_torch.common.conf import BrokerConf, ServerConf
 from pinot_tpu_torch.common.response import BrokerResponse
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
@@ -39,7 +40,12 @@ class InProcessCluster:
     """``device``: the servers' device (None: the current CUDA device;
     ``"cpu"`` for tests).  ``http=True`` also serves the broker over HTTP
     (``BrokerHttpServer``, ``self.http``), its URL registered on the
-    broker's instance."""
+    broker's instance.  ``broker_conf`` (a ``BrokerConf``) builds the
+    broker through ``BrokerRequestHandler.from_conf`` (hedging, retries,
+    admission); ``server_conf`` (a ``ServerConf``) gives each server its
+    worker count (``query_worker_threads``).  ``server_kwargs`` reach every
+    ``ServerInstance`` (a ``device_fault_injector``, a ``result_cache``
+    ...)."""
 
     def __init__(
         self,
@@ -49,15 +55,23 @@ class InProcessCluster:
         timeout_ms: float = 15_000.0,
         max_pending: int = 64,
         device: Optional[Union[str, torch.device]] = None,
+        broker_conf: Optional[BrokerConf] = None,
+        server_conf: Optional[ServerConf] = None,
+        server_kwargs: Optional[Dict] = None,
     ) -> None:
         self.data_dir = data_dir or tempfile.mkdtemp(prefix="pinot_tpu_torch_cluster_")
         self.device = device
         self.max_pending = max_pending
+        self.server_conf = server_conf
+        self.server_kwargs = dict(server_kwargs or {})
         self.controller = Controller(self.data_dir)
         self.transport = LocalTransport()
         self.servers: List[ServerInstance] = []
         self.server_starters: List[ServerStarter] = []
-        self.broker = BrokerRequestHandler(self.transport, {}, name="broker0", timeout_ms=timeout_ms)
+        if broker_conf is not None:
+            self.broker = BrokerRequestHandler.from_conf(self.transport, {}, broker_conf, name="broker0")
+        else:
+            self.broker = BrokerRequestHandler(self.transport, {}, name="broker0", timeout_ms=timeout_ms)
         self.http: Optional[BrokerHttpServer] = None
         broker_url = None
         if http:
@@ -71,12 +85,17 @@ class InProcessCluster:
             self.add_server()
 
     def _on_view_change(self, table: str, view: Dict[str, Dict[str, str]]) -> None:
-        """The broker's routing, quota and time boundary follow each view
-        change."""
+        """The broker's routing, quota, SLO objectives, declared
+        partitioning and time boundary follow each view change."""
         resources = self.controller.resources
         if table not in resources.tables():
             self.broker.routing.remove(table)
             self.broker.time_boundary.remove(table)
+            # the SLO override goes once no physical half of the raw table
+            # remains (a hybrid table's two halves share one)
+            raw = table.rsplit("_", 1)[0]
+            if not any(t.rsplit("_", 1)[0] == raw for t in resources.tables()):
+                self.broker.slo.set_objective(raw, None)
             return
         self.broker.routing.update(table, view)
         config = resources.table_configs.get(table)
@@ -85,6 +104,11 @@ class InProcessCluster:
             # a drained bucket); None clears a removed one
             self.broker.quota.set_quota(
                 config.raw_name, config.quota.max_queries_per_second, config.quota.burst_queries)
+            self.broker.slo.set_objective(config.raw_name, config.slo.to_json() if config.slo is not None else None)
+            # declared partitioning feeds the join planner's colocation check
+            p = config.partitioning
+            self.broker.joinplan.partitions.set_partitioning(
+                config.raw_name, p.column if p is not None else None, p.num_partitions if p is not None else None)
         if table.endswith(OFFLINE_SUFFIX):
             metas = []
             for seg in resources.segments_of(table):
@@ -96,7 +120,10 @@ class InProcessCluster:
     def add_server(self, name: Optional[str] = None) -> ServerInstance:
         """Join a new server into the running cluster."""
         name = name or f"server{len(self.servers)}"
-        server = ServerInstance(name, device=self.device, max_pending=self.max_pending, **residency_options())
+        kwargs = dict(residency_options(), **self.server_kwargs)
+        if self.server_conf is not None:
+            kwargs["num_workers"] = self.server_conf.query_worker_threads
+        server = ServerInstance(name, device=self.device, max_pending=self.max_pending, **kwargs)
         address = (server.name, 0)
         self.transport.register(address, server.handle_request)
         self.broker.set_server_address(server.name, address)

@@ -731,3 +731,40 @@ def test_a_plain_query_still_answers(fleet):
     assert not resp.exceptions, resp.exceptions
     assert int(resp.aggregation_results[0].value) == 400
     assert sum(c.executes for c in counts.values()) == 2
+
+
+def test_explain_cache_hit_reads_a_standing_entry_as_the_reference(monkeypatch):
+    """With the result cache on, EXPLAIN's ``device.batching.cacheHit`` is
+    false before the query ran, true once its answer stands in the cache,
+    as in the reference; the whole batching record equals the reference's
+    (``windowMs`` aside, each lane's own)."""
+    monkeypatch.setenv("PINOT_TPU_RESULT_CACHE", "1")
+    monkeypatch.setenv("PINOT_TPU_BITSLICED", "0")  # the scan tier, so the batching node appears
+    ref_clear_staging_cache()
+    port = _single_server_broker("expTable", _port(EXP_REF), bitsliced=False)
+    ref = ref_single_server_broker("expTable", EXP_REF)
+    pql = "SELECT sum(metInt), count(*) FROM expTable WHERE dimInt > 4800"
+
+    def batching(broker, prefix="EXPLAIN "):
+        resp = broker.handle_pql(prefix + pql)
+        assert not resp.exceptions, resp.exceptions
+        b = dict(resp.explain["servers"][0]["device"]["batching"])
+        b.pop("windowMs")
+        return b
+
+    try:
+        assert batching(port)["cacheHit"] is False and batching(port) == batching(ref)
+        for broker in (port, ref):
+            assert not broker.handle_pql(pql).exceptions
+            assert broker.handle_pql(pql).cost == {"rescacheHits": 1}
+        got = batching(port)
+        assert got["cacheHit"] is True and got == batching(ref)
+        # ANALYZE always executes: the standing entry is the cache signal
+        assert batching(port, "EXPLAIN ANALYZE ")["cacheHit"] is True
+        plans = port.local_server.plan_stats.snapshot(top=10)["plans"]
+        assert any(p["batching"]["cacheHits"] >= 1 for p in plans), plans
+    finally:
+        for b, s in ((port, port.local_server), (ref, ref.local_servers[0])):
+            b.shutdown()
+            s.shutdown()
+        ref_clear_staging_cache()

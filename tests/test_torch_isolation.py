@@ -133,6 +133,26 @@ for strategy in ("broadcast", "shuffle"):
     assert "deviceBytes" in joined.cost, joined.cost
     counts.add(joined.aggregation_results[0].value)
 assert len(counts) == 1 and int(counts.pop()) > 0
+# the serving planes: the result cache, the shadow audit's host oracle,
+# admission, the SLO / tail / history / flight-recorder planes, freshness
+from pinot_tpu_torch.broker import admission, freshness, querylog
+from pinot_tpu_torch.common import conf
+from pinot_tpu_torch.engine import rescache
+from pinot_tpu_torch.utils import audit, flightrec, slo, tailsample, timeseries
+
+server.result_cache.enabled = True
+first = broker.handle_pql(Q1)
+hit = broker.handle_pql(Q1)
+assert hit.cost == {"rescacheHits": 1} and hit.aggregation_results[3].group_by_result == groups
+oracle = server.executor.execute_host_oracle(segs, req)
+assert oracle._served_tier == "host"
+assert audit.payloads_equivalent(audit.canonical_payload(req, oracle), audit.strip_accounting(first.to_json()))
+assert broker.admission.snapshot()["tableInflight"] == {} and broker.tail.armed
+assert isinstance(rescache.ResultCache, type) and conf.BrokerConf().hedge_delay_ms == 0.0
+assert callable(freshness.batch_max_event_ms) and querylog.SlowQueryLog().threshold_ms == 500.0
+assert slo.default_objective()["latencyMs"] == 500.0 and tailsample.TAIL_ALLOCATIONS >= 0
+assert callable(timeseries.leaked_recorder_threads) and not flightrec.FlightRecorder("server", "iso").enabled
+assert isinstance(admission.AdmissionController().max_inflight_per_table, int)
 broker.shutdown()
 tcp.stop()
 server.shutdown()
