@@ -85,7 +85,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      nothing sent to a server, and EXPLAIN ANALYZE);
  12. star-tree tables, the reference's two cube configurations
      (pinot_tpu/tools/startree_scale.py:81-127) at full size:
-     baseball_cube (8 x 2^23 = 67,108,864 baseballStats rows,
+     baseball_cube (4 x 2^23 = 33,554,432 baseballStats rows,
      StarTreeBuilderConfig defaults) and adevents_hll_cube (phase 4's 4
      distinct ad-events segments tiled to 16, one tree per distinct
      segment: split campaign_id, site_id, HLL registers of user_id, 64
@@ -130,6 +130,11 @@ QueryExecutor.execute -> reduce_to_response on one card:
      server's final shape; each block carries its produce time as its
      event time (``l_eventms``), so every answer carries ``freshnessMs``,
      held against the watermark of the produced events (phase 18 (b));
+     after the second watermark the controller is SIGKILLed and restarted
+     on its data dir and port (``restart_controller``: READY s, the
+     recovery's ms, the epochs, the journal's bytes): both commits run
+     through the restarted one, and the last watermark counts every
+     produced row once;
  15. residency: one server of the lineitem table behind the broker over
      TCP; q1, distinct_price and hll_groupby staged, then an HBM cap that
      holds two of their three sets: round-robin rounds with every answer
@@ -201,6 +206,22 @@ QueryExecutor.execute -> reduce_to_response on one card:
      phase 17's roles every ``/debug`` surface of the planes with the
      reference's keys, and a table config's ``slo`` block reaching the
      networked broker;
+ 19. the controller, on phase 17's roles after 18 (c) (``StartController``
+     runs the managers and the stabilizer with the reference's defaults,
+     in every deployed phase): (a) the controller SIGKILLed and restarted
+     on its data dir and port while q1 loops through the broker (partial
+     answers while the views refill, none wrong), the recovery's ms, the
+     READY s, the seconds until every segment is ONLINE again, the epoch,
+     the journal's bytes, then q1, q3, hll_groupby and distinct_price
+     against their oracles with K1 / K2 launched on the servers; (b)
+     server1 drained over HTTP (the stabilizer moves its segment to
+     server0 before its last copy leaves the routing), undrained, and
+     ``RebalanceTable`` moving segments back toward 8 / 8 (the old copies
+     dropped once the new ones are ONLINE), q1 looped through both moves
+     with every answer complete and equal to its oracle, the moves' walls,
+     the servers' staged bytes, ``/debug/capacity``'s residency pressure
+     and the stabilizer's events; (c) every dashboard page 200 as HTML,
+     ``/debug/stabilizer``'s keys, ``ListTenants`` and ``AddTenant``;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -223,7 +244,8 @@ its buffers.
 
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
-         | --realtime-only | --residency-only | --build-only | --warmstart-only | --planes-only]
+         | --realtime-only | --residency-only | --build-only | --warmstart-only | --planes-only
+         | --controller-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
@@ -233,7 +255,9 @@ lineitem's datagen), ``--realtime-only`` phase 14 alone,
 ``--residency-only`` phase 15 alone, ``--build-only`` phase 16 alone,
 ``--warmstart-only`` phase 17 alone and ``--planes-only`` phase 18 (its
 part (a) on two servers of lineitem, then phases 14 and 17 with parts (b)
-and (c); each after lineitem's datagen).
+and (c)) and ``--controller-only`` phase 19 (phase 14 with its controller
+restart, then phase 17 hosting 18 (c) and 19); each after lineitem's
+datagen.
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -3171,11 +3195,8 @@ def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None
     log(f"deployed: controller {url}, servers {admin}, broker {broker_url}: every role READY in {start_s:.1f} s")
     rec["start_s"] = start_s
 
-    def alive():
-        for role in (ctrl, broker, *servers.values()):
-            role.check_alive()
-
-    return url, admin, broker_url, alive
+    # the roles of now: a controller restarted in its phase replaces ``ctrl``
+    return url, admin, broker_url, _alive_roles
 
 
 def wait_online(url: str, broker_url: str, table: str, n: int, alive) -> float:
@@ -3942,7 +3963,7 @@ def deployed_join_phase(ssb, wants, record) -> None:
 # full size
 # ---------------------------------------------------------------------------
 
-ST_BASEBALL_SEGMENTS = 8  # 8 x 2^23 = 67,108,864 baseballStats rows
+ST_BASEBALL_SEGMENTS = 4  # 4 x 2^23 = 33,554,432 baseballStats rows (8 before phase 19)
 ST_BASEBALL_SEED = 200  # segment i draws from seed 200 + i
 ST_ITERS = 5  # timed runs per cube / scan median (20 before phase 15, 10 before 17)
 ST_SERVE_ITERS = 10  # broker requests per served query, after warm-up (50 before phase 15, 20 before 17)
@@ -4090,7 +4111,7 @@ def _plain_copy(seg, name: str):
 
 
 def startree_phase(dev, record, fg, vsc, ad_distinct=None, ns_want=None) -> None:
-    """12. baseball_cube (8 x 2^23 rows, StarTreeBuilderConfig defaults) and
+    """12. baseball_cube (4 x 2^23 rows, StarTreeBuilderConfig defaults) and
     adevents_hll_cube (phase 4's 4 distinct ad-events segments tiled to 16,
     one tree per distinct segment): the builds, every query from the cube
     and from K1 / K2 with the trees detached, a mixed table, the files
@@ -5089,6 +5110,11 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
                     f"{q['p50_ms']:.3f} ms, p99 {q['p99_ms']:.3f} ms over {RT_ITERS}; the first request's staging "
                     f"ms by server {staging}; launches {got}; freshnessMs {freshness[f'{label}/{name}']:.1f} "
                     f"(every answer's within 1 ms of now minus a watermark in {watermark})")
+            if label == "1/2":
+                # the controller SIGKILLed and restarted between the second
+                # watermark and the third, whose produce crosses the commit
+                # at 2^23 rows: the commit runs through the restarted one
+                rec["restart"] = restart_controller(url, tmp, "realtime-restarted")
             status = {n: http_json(a + "/debug/metrics") for n, a in admin.items()}
             st["staged_bytes"] = {n: s_["stagedBytes"] for n, s_ in status.items()}
             st["staged_tables"] = {n: s_["stagedTables"] for n, s_ in status.items()}
@@ -5115,8 +5141,17 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
         commit = rec["commit"] = {n: {k: samples(f"ingest.commit{k}Ms")[n] for k in ("Convert", "File", "Upload", "")}
                                   for n in admin}
         commit_loads = samples("segmentLoad")
-        ctrl_ms = http_json(url + "/debug/metrics")["controller"]["timers"].get("segmentCommitMs")
+        ctrl_metrics = http_json(url + "/debug/metrics")["controller"]
+        ctrl_ms = ctrl_metrics["timers"].get("segmentCommitMs")
         rec["commit_load_ms"], rec["controller_commit"] = commit_loads, ctrl_ms
+        commits = ctrl_metrics["meters"]["segmentCommits"]["count"]
+        if commits != RT_PARTITIONS:
+            raise AssertionError(f"realtime: {commits} commits through the restarted controller, not {RT_PARTITIONS}")
+        rec["restart"]["commits_after"] = commits
+        rec["restart"]["produce_to_visible_ms"] = rec["stages"]["all"]["produce_to_visible_ms"]
+        log(f"realtime restart: both commits ran through the restarted controller (epoch "
+            f"{rec['restart']['epoch_after']}); the whole's produce-to-visible across the restart "
+            f"{rec['restart']['produce_to_visible_ms']:.1f} ms, every produced row counted once")
         log(f"realtime commits: by server convert / file / upload / all ms {commit}; the ONLINE transition's load "
             f"of the committed copy ms {commit_loads}; the controller's persistence {ctrl_ms}")
         alive()
@@ -6313,6 +6348,241 @@ def launch_bytes(fg, vsc, ex, segs, req) -> Dict[str, int]:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 19. the controller: its durable state through a SIGKILL and a restart,
+# a drain and a rebalance under a query loop, its pages and CLI
+# ---------------------------------------------------------------------------
+
+CTRL_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price")
+CTRL_NEED = {"q1": "k1", "q3": "k1", "hll_groupby": "k2", "distinct_price": "k2"}
+CTRL_WAIT_S = 600.0  # a drain, a rebalance, a restarted controller's refill
+CTRL_PAGES = ("/", "/dashboard/query", "/dashboard/table/lineitem_OFFLINE", "/dashboard/metrics",
+              "/dashboard/capacity", "/dashboard/workload", "/dashboard/utilization", "/dashboard/slo")
+CTRL_STABILIZER_KEYS = {"graceSeconds", "deadTracked", "rebalance", "events", "metrics"}
+
+
+def _alive_roles() -> None:
+    """Raise when a deployed role of now (a controller, a server, the
+    broker; a role killed on purpose has left ``_ROLES``) has exited."""
+    for role in list(_ROLES):
+        if role.name.startswith(("controller", "server", "broker")):
+            role.check_alive()
+
+
+def _journal_bytes(data_dir: str) -> int:
+    d = os.path.join(data_dir, "property_store", ".journal")
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) if os.path.isdir(d) else 0
+
+
+def restart_controller(url: str, tmp: str, label: str) -> dict:
+    """SIGKILL the phase's controller process and start a new one on the
+    same ``-data-dir`` and port: (READY s, the recovery's ms, both epochs,
+    the journal's bytes when it was killed).  The servers' heartbeats are
+    told to register again and the broker's poll moves to the new epoch."""
+    role = next(r for r in _ROLES if r.name.startswith("controller"))
+    data_dir = os.path.join(tmp, "controller")
+    old_epoch = int(http_json(url + "/clusterstate?ifNewer=-1")["epoch"])
+    journal = _journal_bytes(data_dir)
+    role.proc.kill()
+    role.proc.wait(timeout=60)
+    _ROLES.remove(role)
+    role.log.close()
+    port = url.rsplit(":", 1)[1]
+    t = time.perf_counter()
+    new = _Role(f"controller-{label}", ["StartController", "-port", port, "-data-dir", data_dir,
+                                        "-heartbeat-timeout", "60", "-device", DEPLOY_DEVICE], tmp)
+    words = new.ready(DEPLOY_READY_S)
+    ready_s = time.perf_counter() - t
+    if words[2] != url:
+        raise AssertionError(f"{label}: the restarted controller serves {words[2]}, not {url}")
+    gauges = http_json(url + "/debug/metrics")["controller"]["gauges"]
+    epoch = int(http_json(url + "/clusterstate?ifNewer=-1")["epoch"])
+    if epoch <= old_epoch:
+        raise AssertionError(f"{label}: epoch {epoch} after a restart of epoch {old_epoch}")
+    out = dict(ready_s=ready_s, recovery_ms=gauges["recoveryMs"], epoch_before=old_epoch, epoch_after=epoch,
+               journal_bytes=journal)
+    log(f"{label}: the controller SIGKILLed and restarted on the same data dir and port: READY in {ready_s:.1f} s, "
+        f"the recovery {out['recovery_ms']:.3f} ms, epoch {old_epoch} -> {epoch}, the journal {journal} bytes")
+    return out
+
+
+class QueryLoop:
+    """One query sent to the broker back to back on a thread: each answer
+    complete and equal to its oracle, partial, or wrong (an answer that
+    claims to be complete and is not).  ``stop`` returns the counts."""
+
+    def __init__(self, broker_url: str, name: str, want) -> None:
+        self.body = json.dumps({"pql": {**QUERIES, **VALUE_QUERIES}[name]}).encode()
+        self.url, self.name, self.want = broker_url, name, want
+        self.counts = {"complete": 0, "partial": 0, "wrong": 0}
+        self.wrong: List[str] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.is_set():
+            try:
+                d = http_json(self.url + "/query", self.body)
+                if d.get("partialResponse"):
+                    self.counts["partial"] += 1
+                    continue
+                check_deployed(self.name, d, self.want)
+                self.counts["complete"] += 1
+            except Exception as e:
+                self.counts["wrong"] += 1
+                if len(self.wrong) < 4:
+                    self.wrong.append(repr(e)[:400])
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=DEPLOY_REQUEST_S)
+        return dict(self.counts, first_wrong=self.wrong)
+
+
+def controller_phase(url: str, broker_url: str, admin: Dict[str, str], tmp: str, wants, record) -> None:
+    """19. On phase 17's roles (a controller, server0 with 15 lineitem
+    segments, server1 with 1, the broker): (a) the controller SIGKILLed and
+    restarted on its data dir and port, q1 looped through the restart (no
+    answer wrong), the views refilled, four queries against their oracles
+    with K1 / K2 launched; (b) server1 drained over HTTP (the stabilizer
+    moves its segment to server0), undrained, and ``RebalanceTable`` moving
+    segments back toward 8 / 8, q1 looped through both moves with every
+    answer complete and equal to its oracle, the residency pressure of
+    ``/debug/capacity`` and the stabilizer's events; (c) every dashboard
+    page, ``/debug/stabilizer``'s keys, ``ListTenants`` and ``AddTenant``."""
+    rec = record["controller"] = {"card": card_line()}
+    table = "lineitem_OFFLINE"
+    t_phase = time.perf_counter()
+
+    def launches() -> Dict[str, int]:
+        out = {"k1": 0, "k2": 0}
+        for a in admin.values():
+            got = http_json(a + "/debug/metrics")["kernelLaunches"]
+            out = {k: out[k] + got[k] for k in out}
+        return out
+
+    def hosted() -> Dict[str, int]:
+        return {n: len(http_json(a + "/debug/segments")["segments"].get(table, {})) for n, a in admin.items()}
+
+    def settled() -> bool:
+        ideal = http_json(f"{url}/tables/{table}/idealstate")
+        return http_json(f"{url}/tables/{table}/externalview") == ideal and len(ideal) == SEGMENTS
+
+    def wait(what: str, pred) -> float:
+        t = time.perf_counter()
+        end = time.monotonic() + CTRL_WAIT_S
+        while not pred():
+            _alive_roles()
+            if time.monotonic() > end:
+                raise AssertionError(f"controller: {what} not within {CTRL_WAIT_S} s")
+            time.sleep(0.2)
+        return time.perf_counter() - t
+
+    # (a) the restart, q1 looped through it
+    rec["hosted_before"] = hosted()
+    loop = QueryLoop(broker_url, "q1", wants["q1"])
+    time.sleep(0.5)
+    t = time.perf_counter()
+    rec["restart"] = restart_controller(url, tmp, "restarted")
+    refill_s = wait("the views refilled", settled)
+    online_s = wait_online(url, broker_url, table, SEGMENTS, _alive_roles)
+    rec["restart"].update(views_refilled_s=refill_s, online_s=time.perf_counter() - t, broker_online_s=online_s)
+    time.sleep(1.0)
+    rec["restart"]["loop"] = counts = loop.stop()
+    if counts["wrong"] or not counts["complete"]:
+        raise AssertionError(f"controller (a): q1 through the restart {counts}")
+    per_query = {}
+    for name in CTRL_QUERIES:
+        b = launches()
+        d = http_json(broker_url + "/query", json.dumps({"pql": {**QUERIES, **VALUE_QUERIES}[name]}).encode())
+        if d.get("partialResponse"):
+            raise AssertionError(f"controller (a) {name}: partial after the views refilled")
+        check_deployed(name, d, wants[name])
+        per_query[name] = {k: v - b[k] for k, v in launches().items()}
+        require_launch(f"controller {name}", per_query[name], CTRL_NEED[name])
+    rec["restart"]["hosted_after"] = hosted()
+    log(f"controller (a): views refilled {refill_s:.1f} s after READY, every segment ONLINE in the broker's routing "
+        f"{rec['restart']['online_s']:.1f} s after the SIGKILL; q1 looped through the restart {counts}; "
+        f"{', '.join(CTRL_QUERIES)} equal to their oracles, launches {per_query}; hosted "
+        f"{rec['hosted_before']} -> {rec['restart']['hosted_after']}")
+
+    # (b) drain server1, then undrain and rebalance, q1 looped through both
+    def staged() -> Dict[str, int]:
+        return {n: http_json(a + "/debug/metrics")["stagedBytes"] for n, a in admin.items()}
+
+    drain = rec["drain"] = {"staged_before": staged()}
+    loop = QueryLoop(broker_url, "q1", wants["q1"])
+    time.sleep(0.5)
+    out = http_json(url + "/instances/server1/drain", b"{}")
+    drain["segments_moved"] = out["remainingSegments"]
+    drain["drained_s"] = wait("server1 drained", lambda: http_json(url + "/instances/server1/drain")["drained"])
+    drain["settled_s"] = drain["drained_s"] + wait("the drain settled", lambda: settled() and hosted()["server1"] == 0)
+    time.sleep(1.0)
+    drain["loop"] = counts = loop.stop()
+    if counts["wrong"] or counts["partial"] or not counts["complete"]:
+        raise AssertionError(f"controller (b): q1 through the drain {counts}")
+    drain["hosted"] = hosted()
+    drain["staged_after"] = staged()
+    log(f"controller (b): server1 drained in {drain['drained_s']:.1f} s ({drain['segments_moved']} segment(s) "
+        f"moved to server0, settled {drain['settled_s']:.1f} s); q1 looped through it {counts}; hosted "
+        f"{drain['hosted']}, staged bytes {drain['staged_before']} -> {drain['staged_after']}")
+    reb = rec["rebalance"] = {}
+    loop = QueryLoop(broker_url, "q1", wants["q1"])
+    time.sleep(0.5)
+    http_json(url + "/instances/server1/undrain", b"{}")
+    t = time.perf_counter()
+    cli_s, printed = _admin(["RebalanceTable", "-controller", url, "-table", table], CTRL_WAIT_S)
+    plan = json.loads(printed)
+    reb.update(cli_s=cli_s, segments_moved=plan["segmentsMoved"], added=plan["added"])
+    moved_in = sum(map(len, plan["added"].values()))
+
+    def rebalanced() -> bool:
+        if not settled():
+            return False
+        h = hosted()
+        return h["server1"] == moved_in and sum(h.values()) == SEGMENTS
+
+    reb["settled_s"] = time.perf_counter() - t + wait("the rebalance settled", rebalanced)
+    time.sleep(1.0)
+    reb["loop"] = counts = loop.stop()
+    if counts["wrong"] or counts["partial"] or not counts["complete"]:
+        raise AssertionError(f"controller (b): q1 through the rebalance {counts}")
+    reb["hosted"] = hosted()
+    reb["staged"] = staged()
+    capacity = http_json(url + "/debug/capacity")
+    reb["pressure"] = {n: (v.get("residency") or {}).get("pressure") for n, v in capacity["servers"].items()}
+    stab = http_json(url + "/debug/stabilizer")
+    reb["events"] = [{k: e.get(k) for k in ("event", "class", "table", "segment", "server", "src", "dst")}
+                     for e in stab["events"]]
+    log(f"controller (b): RebalanceTable moved {reb['segments_moved']} segments ({cli_s:.1f} s the CLI), settled "
+        f"{reb['settled_s']:.1f} s after it started; q1 looped through it {counts}; hosted {reb['hosted']}, staged "
+        f"bytes {reb['staged']}; /debug/capacity's residency pressure {reb['pressure']}; the stabilizer's events "
+        f"{[e['event'] for e in reb['events']]}")
+    if abs(reb["hosted"]["server0"] - reb["hosted"]["server1"]) > 2:
+        raise AssertionError(f"controller (b): hosted after the rebalance {reb['hosted']}")
+
+    # (c) the pages and the CLI
+    pages = {}
+    for page in CTRL_PAGES:
+        with urllib.request.urlopen(url + page, timeout=DEPLOY_REQUEST_S) as r:
+            pages[page] = (r.status, r.headers["Content-Type"])
+    if any(st != 200 or not ct.startswith("text/html") for st, ct in pages.values()):
+        raise AssertionError(f"controller (c): pages {pages}")
+    if set(stab) != CTRL_STABILIZER_KEYS:
+        raise AssertionError(f"controller (c): /debug/stabilizer's keys {sorted(stab)}")
+    _, tenants = _admin(["ListTenants", "-controller", url], 120)
+    _, added = _admin(["AddTenant", "-controller", url, "-name", "ctlTenant", "-role", "broker", "-count", "1"], 120)
+    if "DefaultTenant" not in json.loads(tenants)["tenants"] or "ctlTenant" not in http_json(url + "/tenants")["tenants"]:
+        raise AssertionError(f"controller (c): tenants {tenants} {added}")
+    record["paths"]["controller"] = {"launches": per_query,
+                                     "totals": {k: sum(v[k] for v in per_query.values()) for k in ("k1", "k2")}}
+    rec.update(pages=pages, wall_s=time.perf_counter() - t_phase)
+    log(f"controller (c): {len(pages)} pages 200 as HTML, /debug/stabilizer's keys the reference's, ListTenants and "
+        f"AddTenant; phase 19 {rec['wall_s']:.1f} s on {rec['card']}")
+    log(f"path controller: launches per query {per_query}")
+
+
 def warmstart_phase(dev, segments, wants, record, roots: List[str], fg, vsc) -> None:
     """17. The lineitem table deployed with ``PINOT_TPU_COMPILE_CACHE_DIR``
     on (a controller, two servers and a broker, each its own process):
@@ -6595,6 +6865,7 @@ def warmstart_phase(dev, segments, wants, record, roots: List[str], fg, vsc) -> 
         record["paths"]["warmstart"] = {"launches": per_query, "totals": totals}
         log(f"path warmstart: launches per query {per_query}, total over the phase {totals}")
         planes_deployed_checks(url, broker_url, admin, record)
+        controller_phase(url, broker_url, admin, tmp, wants, record)
         for r in list(_ROLES):
             r.check_alive()
     finally:
@@ -6640,6 +6911,10 @@ def main(argv=None) -> int:
     ap.add_argument("--planes-only", action="store_true",
                     help="after the build, the kernel checks and lineitem's datagen run only phase 18, the "
                     "serving planes: (a) on two servers of lineitem, then phases 14 and 17 with (b) and (c) "
+                    "(no result line)")
+    ap.add_argument("--controller-only", action="store_true",
+                    help="after the build, the kernel checks and lineitem's datagen run only phase 19, the "
+                    "controller: phase 14 with its controller restart, then phase 17 hosting 18 (c) and 19 "
                     "(no result line)")
     opts = ap.parse_args(argv)
 
@@ -6710,7 +6985,8 @@ def run(dev: torch.device, opts) -> int:
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
     if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
         makers = {}
-    elif opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only or opts.planes_only:
+    elif (opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only or opts.planes_only
+          or opts.controller_only):
         makers = {"lineitem": lineitem}
     datagen = concurrent.futures.ThreadPoolExecutor(max(1, len(makers)))
     tables = {name: datagen.submit(made, make) for name, make in makers.items()}
@@ -6893,6 +7169,21 @@ def run(dev: torch.device, opts) -> int:
         warmstart_phase(dev, segments, warm_wants, record, warm_roots, fg, vsc)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
         log(f"warm start only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
+    if opts.controller_only:
+        record["paths"] = {}
+        t0 = time.perf_counter()
+        ctrl_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
+                      for n in set(WARM_QUERIES) | set(CTRL_QUERIES)}
+        realtime_phase(dev, record, fg, vsc, hll_mod)
+        warmstart_phase(dev, segments, ctrl_wants, record, warm_roots, fg, vsc)
+        log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 19 done ({time.perf_counter() - t0:.1f} s with "
+            f"phases 14 and 17 as its hosts)")
+        log(f"controller only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
             record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
@@ -7781,7 +8072,8 @@ def run(dev: torch.device, opts) -> int:
     torch.cuda.empty_cache()
     warmstart_phase(dev, segments, wants, record, warm_roots, fg, vsc)
     log(f"warm start phase: {time.perf_counter() - t0:.1f} s")
-    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
+    log(f"elapsed {time.perf_counter() - t_start:.1f} s: phases 17 and 19 done (19 {record['controller']['wall_s']:.1f} s "
+        f"inside 17)")
     pl = record["planes"]
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 18 done ((a) {pl['wall_s']:.1f} s inside phase 9, "
         f"(b) inside phase 14, (c) {pl['deployed']['wall_s']:.1f} s inside phase 17)")
@@ -7860,6 +8152,7 @@ def run(dev: torch.device, opts) -> int:
             "build_shape": record["build"]["k1"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k1"],
             "planes_launches": record["paths"]["planes"]["totals"]["k1"],
+            "controller_launches": record["paths"]["controller"]["totals"]["k1"],
         },
         {
             "name": "value_state_counts",
@@ -7878,6 +8171,7 @@ def run(dev: torch.device, opts) -> int:
             "build_shape": record["build"]["k2"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k2"],
             "planes_launches": record["paths"]["planes"]["totals"]["k2"],
+            "controller_launches": record["paths"]["controller"]["totals"]["k2"],
         },
     ]}
     summary["kernels"] += [

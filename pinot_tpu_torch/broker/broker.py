@@ -519,7 +519,12 @@ class BrokerRequestHandler:
                 exceptions: List[QueryException] = []
                 batches: List[_Batch] = []
                 routing_gap = False
+                unrouted: List[str] = []
                 for phys_table, sub_pql in physical:
+                    # a segment no replica serves (a refilling view after a
+                    # controller restart, a load in flight) makes the
+                    # answer partial, never complete over fewer segments
+                    unrouted.extend(self.routing.unrouted(phys_table))
                     routing = self.routing.find_servers(phys_table, health=self.health)
                     if not routing:
                         # unknown table, or an external view refilling
@@ -602,8 +607,8 @@ class BrokerRequestHandler:
             self.joinplan.stats.observe(table, resp.total_docs)
         resp.num_servers_queried = len(sg["servers_queried"])
         resp.num_servers_responded = len(sg["servers_responded"])
-        resp.num_segments_unserved = len(sg["unserved"])
-        resp.partial_response = bool(sg["unserved"]) or routing_gap
+        resp.num_segments_unserved = len(sg["unserved"]) + len(unrouted)
+        resp.partial_response = bool(sg["unserved"]) or bool(unrouted) or routing_gap
         resp.num_retries = sg["retries"]
         resp.num_hedges = sg["hedges"]
         # side channel for handle_pql (not serialized into the response):

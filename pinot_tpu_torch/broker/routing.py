@@ -14,6 +14,10 @@ re-cover segments whose chosen replica sits in the penalty box, and
 is what the broker's retry-with-failover and hedging paths use to
 re-issue a straggler's segment set to a different replica.
 
+A segment of the view that no replica serves is listed by ``unrouted``,
+and the broker counts it unserved (the reference leaves it out of every
+cover and answers over the other segments as if complete).
+
 (Copy of ``pinot_tpu.broker.routing``.)
 """
 from __future__ import annotations
@@ -55,6 +59,7 @@ class RoutingTableProvider:
     def __init__(self, num_tables: int = 10) -> None:
         self._routing: Dict[str, List[RoutingTable]] = {}
         self._views: Dict[str, ExternalView] = {}
+        self._unrouted: Dict[str, List[str]] = {}
         self._lock = threading.Lock()
         self._num_tables = num_tables
         self._rng = random.Random(7)
@@ -64,14 +69,24 @@ class RoutingTableProvider:
             external_view, self._num_tables, seed=self._rng.randrange(1 << 30)
         )
         view_copy = {seg: dict(replicas) for seg, replicas in external_view.items()}
+        unrouted = sorted(seg for seg, replicas in view_copy.items()
+                          if not any(st in ONLINE_STATES for st in replicas.values()))
         with self._lock:
             self._routing[table_name] = tables
             self._views[table_name] = view_copy
+            self._unrouted[table_name] = unrouted
 
     def remove(self, table_name: str) -> None:
         with self._lock:
             self._routing.pop(table_name, None)
             self._views.pop(table_name, None)
+            self._unrouted.pop(table_name, None)
+
+    def unrouted(self, table_name: str) -> List[str]:
+        """Segments of the view with no ONLINE or CONSUMING replica: no
+        cover holds them, and an answer without them is partial."""
+        with self._lock:
+            return list(self._unrouted.get(table_name, ()))
 
     def find_servers(self, table_name: str, health=None) -> Optional[RoutingTable]:
         """Pick a precomputed cover; with a health tracker, re-route any

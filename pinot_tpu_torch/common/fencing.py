@@ -72,6 +72,13 @@ class ServingLease:
         with self._lock:
             return not self._granted or self._clock() < self._expires_at
 
+    def remaining_s(self) -> float:
+        """Seconds left on the lease; infinite while unleased."""
+        with self._lock:
+            if not self._granted:
+                return float("inf")
+            return max(0.0, self._expires_at - self._clock())
+
     @property
     def epoch(self) -> int:
         with self._lock:
@@ -81,6 +88,11 @@ class ServingLease:
     def granted(self) -> bool:
         with self._lock:
             return self._granted
+
+    def expire(self) -> None:
+        """Force the lease to expire (self-fencing, tests)."""
+        with self._lock:
+            self._expires_at = 0.0
 
     def snapshot(self) -> Dict[str, Any]:
         held = self.held()

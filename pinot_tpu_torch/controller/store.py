@@ -1,11 +1,20 @@
 """Controller segment store: the durable copy of every uploaded segment
 (port of ``pinot_tpu.controller.store``, trimmed): one directory per
-table, one segment file per segment, served to servers for download."""
+table, one segment file per segment, served to servers for download and
+re-verified by the deep-store scrubber (``verify_copy``)."""
 from __future__ import annotations
 
 import os
 import shutil
-from pinot_tpu_torch.segment.format import SEGMENT_FILE_NAME, write_segment
+from typing import Optional
+
+from pinot_tpu_torch.segment.format import (
+    SEGMENT_FILE_NAME,
+    SegmentIntegrityError,
+    read_segment,
+    verify_segment_crc,
+    write_segment,
+)
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.utils.fileio import atomic_write
 
@@ -57,3 +66,25 @@ class SegmentStore:
         d = self.segment_dir(table, segment_name)
         if os.path.exists(d):
             shutil.rmtree(d)
+
+    def verify_copy(self, table: str, segment_name: str, expected_crc: Optional[int] = None) -> ImmutableSegment:
+        """Re-verify the durable copy (the deep-store scrub primitive).
+        Raises ``FileNotFoundError`` for a lost copy and
+        ``SegmentIntegrityError`` for an unreadable or CRC-failing one, or
+        one whose verifiable CRC no longer matches the registered
+        metadata (``expected_crc``)."""
+        path = self.segment_file_path(table, segment_name)
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
+        try:
+            seg = read_segment(path)
+        except SegmentIntegrityError:
+            raise
+        except Exception as e:
+            raise SegmentIntegrityError(f"store copy {table}/{segment_name} unreadable: {e!r}") from e
+        verify_segment_crc(seg, source=f"store:{table}/{segment_name}")
+        if (expected_crc and seg.metadata.crc and seg.metadata.custom.get("dataCrc")
+                and int(seg.metadata.crc) != int(expected_crc)):
+            raise SegmentIntegrityError(
+                f"store copy {table}/{segment_name}: CRC {seg.metadata.crc} != registered {expected_crc}")
+        return seg

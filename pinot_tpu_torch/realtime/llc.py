@@ -19,9 +19,10 @@ The reference's three-way exchange:
   the last committed end offset (the ValidationManager's repair).
 
 Segment names are ``{table}__{partition}__{seq}`` (LLCSegmentName).
-Left out, ROADMAP queue 1 item 29: the high-level consumer groups, the
-freshness watermarks; item 30: the property store, so a restarted
-controller does not recover a table's consumption.
+With the controller's property store every checkpoint, ideal state and
+the stream's descriptor are durable, and ``recover_table`` resumes a
+restarted controller's tables from them.  Left out, ROADMAP queue 1
+item 29: the high-level consumer groups.
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ from pinot_tpu_torch.common.schema import Schema, time_unit_to_millis
 from pinot_tpu_torch.common.tableconfig import TableConfig
 from pinot_tpu_torch.controller.resource_manager import CONSUMING, ONLINE, ClusterResourceManager
 from pinot_tpu_torch.realtime.mutable import MutableSegment
-from pinot_tpu_torch.realtime.stream import LagProbe, StreamProvider, describe_stream
+from pinot_tpu_torch.realtime.stream import LagProbe, StreamProvider, describe_stream, stream_from_descriptor
 from pinot_tpu_torch.segment.immutable import SegmentMetadata
 
 logger = logging.getLogger(__name__)
@@ -367,6 +368,12 @@ class RealtimeSegmentManager:
         physical = self.resources.add_table(config)
         with self._lock:
             self._tables[physical] = {"schema": schema, "stream": stream, "config": config}
+        if self.resources.property_store is not None:
+            # the stream's descriptor is what a restarted controller
+            # reattaches the table to (recover_table)
+            desc = describe_stream(stream)
+            if desc is not None:
+                self.resources.property_store.put("streams", physical, desc)
         for partition in range(stream.partition_count()):
             self._create_consuming_segment(physical, partition, seq=0, start_offset=0)
         return physical
@@ -384,6 +391,31 @@ class RealtimeSegmentManager:
                     tinfo["schema"] = schema
                     updated.append(physical)
         return updated
+
+    def recover_table(self, physical: str, config: TableConfig, schema: Schema) -> bool:
+        """Rebuild the in-memory realtime wiring of a table restored from
+        the property store: reattach its stream from the stored descriptor
+        and put the ``consuming_starter`` callbacks back on every CONSUMING
+        segment's record, so re-registering servers resume consuming from
+        the checkpointed offsets (the reference resumes from the
+        per-segment ZK offsets).  False when no descriptor was stored."""
+        store = self.resources.property_store
+        if store is None:
+            return False
+        desc = store.get("streams", physical)
+        if desc is None:
+            return False
+        stream = stream_from_descriptor(desc)
+        with self._lock:
+            self._tables[physical] = {"schema": schema, "stream": stream, "config": config}
+        with self.resources._lock:
+            for (tbl, seg), info in self.resources.segment_metadata.items():
+                if tbl != physical:
+                    continue
+                replicas = self.resources.ideal_states.get(physical, {}).get(seg, {})
+                if CONSUMING in replicas.values():
+                    info["consuming_starter"] = self._start_consumer
+        return True
 
     def physical_table_of(self, segment: str) -> str:
         return parse_segment_name(segment)[0]
@@ -482,6 +514,8 @@ class RealtimeSegmentManager:
             replicas = self.resources.ideal_states[physical].get(segment, {})
             for server in replicas:
                 replicas[server] = ONLINE
+        self.resources.persist_ideal_state(physical)
+        self.resources.persist_segment_record(physical, segment)
         for server in list(replicas):
             self.resources._execute_transition(physical, segment, server, ONLINE)
         self.resources._notify_view(physical)

@@ -79,6 +79,7 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import logging
+import tempfile
 import threading
 import time
 from typing import List, Optional, Sequence, Union
@@ -101,6 +102,7 @@ from pinot_tpu_torch.pql import optimize_request, parse_pql
 from pinot_tpu_torch.realtime.backpressure import IngestBackpressure, instance_mutable_bytes
 from pinot_tpu_torch.realtime.mutable import MutableSegment
 from pinot_tpu_torch.segment.default_column import inject_default_columns
+from pinot_tpu_torch.segment.format import SegmentIntegrityError, verify_segment_crc, write_segment
 from pinot_tpu_torch.segment.immutable import ImmutableSegment, new_staging_token
 from pinot_tpu_torch.server.datamanager import InstanceDataManager
 from pinot_tpu_torch.server.prewarm import PrewarmWorker
@@ -217,6 +219,8 @@ class ServerInstance:
             # a failed kernel build raises here, before any thread starts
             kernels.load_all()
         self.data_manager = InstanceDataManager()
+        # the controller's drain flag, as its heartbeat replies carry it
+        self.draining = False
         self._table_schemas = {}  # raw table name -> Schema (set_table_schema)
         self.metrics = ServerMetrics(name)
         self.lanes = (
@@ -398,6 +402,53 @@ class ServerInstance:
             tdm.remove_segment(name)
         self.executor.evict_segment(name)
         self.result_cache.invalidate_table(_raw_table(table))
+
+    def segment_crcs(self) -> dict:
+        """``/debug/segments``: every hosted sealed segment's claimed CRC,
+        for the controller's cross-replica CRC sweep (``CrcAuditManager``).
+        Consuming mutable segments claim none yet and are left out."""
+        out = {}
+        for tname in self.data_manager.table_names():
+            tdm = self.data_manager.table(tname)
+            if tdm is None:
+                continue
+            acquired = tdm.acquire_segments()
+            try:
+                for sdm in acquired:
+                    crc = getattr(getattr(sdm.segment, "metadata", None), "crc", None)
+                    if crc is not None:
+                        out.setdefault(tname, {})[sdm.name] = int(crc)
+            finally:
+                tdm.release_segments(acquired)
+        return {"segments": out}
+
+    def segment_copy_bytes(self, table: str, segment: str) -> Optional[bytes]:
+        """This server's loaded copy of a sealed segment as segment-file
+        bytes, for the deep-store scrubber repairing a lost or corrupt
+        store copy from a live replica.  The copy is CRC-verified first, so
+        a donor never launders its own rot into the store; None when the
+        segment is not hosted here, is still consuming, or fails the check."""
+        tdm = self.data_manager.table(table)
+        if tdm is None:
+            return None
+        acquired = tdm.acquire_segments()
+        try:
+            for sdm in acquired:
+                if sdm.name != segment:
+                    continue
+                seg = sdm.segment
+                if not isinstance(seg, ImmutableSegment):
+                    return None  # a consuming segment has no durable form
+                try:
+                    verify_segment_crc(seg, source=f"donor:{self.name}")
+                except SegmentIntegrityError:
+                    return None
+                with tempfile.TemporaryDirectory() as td:
+                    with open(write_segment(seg, td), "rb") as f:
+                        return f.read()
+        finally:
+            tdm.release_segments(acquired)
+        return None
 
     def record_crc_failure(self, table: str, name: str) -> None:
         """A copy of ``name`` failed its CRC check."""
@@ -838,6 +889,7 @@ class ServerInstance:
         heal["laneRestarts"] = 0 if self.lanes is None else self.lanes.restart_count
         return {
             "name": self.name,
+            "draining": self.draining,
             "warming": self.prewarm.warming,
             "ready": not self.prewarm.warming,
             "prewarm": self.prewarm.state(),

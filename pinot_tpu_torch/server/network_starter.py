@@ -18,7 +18,8 @@
   ``/health``, ``/metrics``, ``/debug/metrics``, ``/debug/residency``,
   ``/debug/device``, ``/debug/plans[?top=&by=]``, ``/debug/profile``,
   ``POST /debug/profile/start|stop``, ``/debug/prewarm``,
-  ``/debug/history``, ``/debug/audit`` and ``/debug/flightrec`` on its
+  ``/debug/history``, ``/debug/audit``, ``/debug/flightrec``,
+  ``/debug/segments`` and ``/segments/<table>/<segment>/copy`` on its
   admin HTTP port (``ServerAdminHttpServer``);
 - its prewarm worker (``server/prewarm.py``) pulls the controller's
   fleet workload (``/debug/workload``) for the tables it hosts when its
@@ -131,6 +132,17 @@ class ServerAdminHttpServer:
                     return self._send_json(inst.audit_snapshot())
                 if url.path == "/debug/flightrec":
                     return self._send_json(inst.flightrec.snapshot())
+                if url.path == "/debug/segments":
+                    # the controller's cross-replica CRC sweep
+                    return self._send_json(inst.segment_crcs())
+                if url.path.startswith("/segments/") and url.path.endswith("/copy"):
+                    # the deep-store scrubber pulls a verified replica to
+                    # repair the controller's copy
+                    p = url.path.strip("/").split("/")
+                    data = inst.segment_copy_bytes(p[1], p[2]) if len(p) == 4 else None
+                    if data is not None:
+                        return self._send(data, "application/octet-stream")
+                    return self._send_json({"error": "segment not donatable"}, 404)
                 if url.path == "/debug/plans":
                     qs = parse_qs(url.query)
                     by = (qs.get("by") or ["count"])[0]
@@ -505,6 +517,9 @@ class NetworkedServerStarter:
             try:
                 out = self._post(f"/instances/{self.name}/heartbeat",
                                  {"warming": bool(self.server.prewarm.warming)}, timeout_s=self._hb_timeout_s)
+                # the drain flag rides the reply; a "held" reply (flap
+                # hysteresis) carries no lease
+                self.server.draining = bool(out.get("draining"))
                 self.lease.renew(out.get("lease"))
                 if out.get("reregister"):
                     reg = self._post("/instances", self._register_payload(), timeout_s=self._hb_timeout_s)
@@ -647,6 +662,11 @@ class NetworkedServerStarter:
             except SegmentIntegrityError:
                 self.server.record_crc_failure(table, segment)
                 logger.exception("downloaded copy of %s/%s failed integrity verification", table, segment)
+                try:
+                    # the controller's copy is suspect: its scrubber repairs it
+                    self._post("/deepstore/suspect", {"table": table, "segment": segment, "source": uri})
+                except Exception:
+                    logger.warning("could not report the suspect copy of %s/%s", table, segment)
                 return False
         self.server.add_segment(table, seg_obj)
         # the table config's invertedIndexColumns: postings built at load

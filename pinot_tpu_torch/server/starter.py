@@ -140,6 +140,18 @@ class ServerStarter:
             self._local_crcs[segment] = crc
         return True
 
+    def _report_store_suspect(self, table: str, segment: str, uri: str) -> None:
+        """The controller's copy served bytes that failed CRC: hand it to
+        the deep-store scrubber (``resources.report_store_suspect``), which
+        repairs it from a verified replica."""
+        cb = getattr(self.resources, "report_store_suspect", None)
+        if cb is None:
+            return
+        try:
+            cb(table, segment, uri or "")
+        except Exception:
+            logger.exception("failed to report store suspect %s/%s", table, segment)
+
     def _load_from_store(self, table: str, segment: str, info: Dict[str, Any],
                          crc: Optional[int]) -> Optional[ImmutableSegment]:
         path = info.get("dir")
@@ -165,6 +177,7 @@ class ServerStarter:
             # segment from serving, never rename a directory not ours
             self.server.record_crc_failure(table, segment)
             self.server.quarantine_segment(table, segment)
+            self._report_store_suspect(table, segment, uri or path or "")
             logger.exception("segment %s/%s failed integrity verification at %s",
                              table, segment, path or uri)
             return None
@@ -204,6 +217,7 @@ class ServerStarter:
                 self.server.record_crc_failure(table, segment)
                 quarantine_local_copy(self.server, table, segment, d)
                 if attempt:
+                    self._report_store_suspect(table, segment, uri)
                     logger.exception("segment %s/%s corrupt after re-fetch from %s", table, segment, uri)
                     return None
                 logger.warning("segment %s/%s: local copy corrupt; quarantined, re-fetching from %s",

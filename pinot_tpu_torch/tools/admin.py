@@ -9,8 +9,12 @@ Commands:
                     (-no-http: print and exit)
   StartCluster      an in-process cluster with the broker and the
                     controller over HTTP
-  StartController   a controller process: segment store, cluster state,
-                    REST and control plane
+  StartController   a controller process over a durable -data-dir (the
+                    journaled property store and the segment store): it
+                    recovers what the directory holds, claims the next
+                    fencing epoch, serves REST, the control plane and the
+                    dashboard, and runs the periodic managers and the
+                    stabilizer
   StartServer       a server process joining a controller
   StartBroker       a broker process joining a controller
   AddSchema         POST a schema JSON file to a controller (a grown schema
@@ -21,6 +25,11 @@ Commands:
                     declares the key partitioning joins colocate on)
   UploadSegment     POST a segment file to a controller
   PostQuery         run PQL against a broker
+  AddTenant         tag -count untagged live servers (or brokers) with a
+                    tenant
+  ListTenants       every tenant and its instances
+  RebalanceTable    rebalance a table's segments over its tenant's live
+                    servers (-dry-run prints the plan only)
   CreateSegment     build a segment file from CSV, JSONL or Avro rows (a
                     CSV through the columnar path and its native parser;
                     -startree adds a star-tree at its defaults)
@@ -88,11 +97,13 @@ def cmd_start_controller(args) -> None:
     from pinot_tpu_torch.controller.controller import Controller, ControllerHttpServer
 
     _device(args)
-    ctrl = Controller(args.data_dir, heartbeat_timeout_s=args.heartbeat_timeout)
+    # a property store that cannot be opened or claimed raises here: the
+    # process exits with the error instead of serving from memory
+    ctrl = Controller(args.data_dir, start_managers=True, heartbeat_timeout_s=args.heartbeat_timeout)
     http = ControllerHttpServer(ctrl, port=args.port)
     http.start()
     print(f"READY controller http://127.0.0.1:{http.port}", flush=True)
-    _serve_until_signal([http.stop])
+    _serve_until_signal([http.stop, ctrl.stop])
 
 
 def cmd_start_server(args) -> None:
@@ -118,6 +129,22 @@ def cmd_start_broker(args) -> None:
     starter.start()
     print(f"READY broker http://127.0.0.1:{starter.http.port}", flush=True)
     _serve_until_signal([starter.stop])
+
+
+def cmd_rebalance_table(args) -> None:
+    url = args.controller.rstrip("/") + f"/tables/{args.table}/rebalance"
+    if args.dry_run:
+        url += "?dryRun=true"
+    print(json.dumps(_post(url, {}), indent=2))
+
+
+def cmd_add_tenant(args) -> None:
+    print(_post(args.controller.rstrip("/") + "/tenants", {"name": args.name, "role": args.role, "count": args.count}))
+
+
+def cmd_list_tenants(args) -> None:
+    with urllib.request.urlopen(args.controller.rstrip("/") + "/tenants", timeout=30) as r:
+        print(json.dumps(json.loads(r.read()), indent=2))
 
 
 def cmd_upload_segment(args) -> None:
@@ -421,6 +448,23 @@ def main(argv=None) -> None:
     sst.add_argument("-segment-dir", required=True, dest="segment_dir")
     sst.add_argument("-max-nodes", type=int, default=50, dest="max_nodes")
     sst.set_defaults(fn=cmd_show_star_tree)
+
+    rb = sub.add_parser("RebalanceTable")
+    rb.add_argument("-controller", default="http://127.0.0.1:9000")
+    rb.add_argument("-table", required=True)
+    rb.add_argument("-dry-run", action="store_true", dest="dry_run")
+    rb.set_defaults(fn=cmd_rebalance_table)
+
+    ate = sub.add_parser("AddTenant")
+    ate.add_argument("-controller", default="http://127.0.0.1:9000")
+    ate.add_argument("-name", required=True)
+    ate.add_argument("-role", choices=["server", "broker"], default="server")
+    ate.add_argument("-count", type=int, default=1)
+    ate.set_defaults(fn=cmd_add_tenant)
+
+    lt = sub.add_parser("ListTenants")
+    lt.add_argument("-controller", default="http://127.0.0.1:9000")
+    lt.set_defaults(fn=cmd_list_tenants)
 
     gd = sub.add_parser("GenerateData")
     gd.add_argument("-schema-file", required=True, dest="schema_file")
