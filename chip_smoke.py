@@ -68,7 +68,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      ones the lanes record, ANALYZE's actualCost the reply's cost); every
      role stopped with SIGTERM;
  11. joins over the Star Schema Benchmark's lineorder (16 segments of
-     2^22 rows = 67,108,864, partitioned on lo_partkey), part (800,000
+     2^21 rows = 33,554,432, partitioned on lo_partkey), part (600,000
      rows, partitioned on p_partkey) and date (2,556 rows): ssb_q1_1
      (scalar, broadcast), ssb_q2_1 (a build-side group, colocated) and
      ssb_q2_1_mode (probe x build group, build-side min), each against a
@@ -147,7 +147,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      against their plain versions;
  16. the offline build path and schema evolution: 2 of phase 1's lineitem
      segments' first 2^20 rows written as CSV files (vectorized numpy), a
-     grown-schema CSV file (2^20 rows, three new columns with values) and
+     grown-schema CSV file (2^19 rows, three new columns with values) and
      an Avro file (2^17 rows, deflate); ``BatchCreateSegments -workers 4``
      builds the CSV files (the columnar path, the native parser) and
      pushes them to a deployed cluster (phase 10's roles), each segment's
@@ -222,6 +222,21 @@ QueryExecutor.execute -> reduce_to_response on one card:
      the servers' staged bytes, ``/debug/capacity``'s residency pressure
      and the stabilizer's events; (c) every dashboard page 200 as HTML,
      ``/debug/stabilizer``'s keys, ``ListTenants`` and ``AddTenant``;
+ 20. Kafka and high-level-consumer ingestion (``kafka_phase``): a stream
+     broker process (``StartStreamBroker -kafka-port 0``) and phase 14's
+     roles; lineitem rows as JSON messages, 2 partitions a topic: (a) LLC
+     over the Kafka wire protocol, 1.5 x 2^20 rows a partition at
+     rowsPerSegment 2^20, queried at two watermarks (q1, count(*),
+     distinct_price; each row counted exactly once; K1 / K2 launched on the
+     servers; one commit a partition); (c) HLC over the Kafka group
+     protocol, two members, segments of 2^16 sealing, uploading pinned to
+     their server and rolling; (d) gzip, snappy and lz4 message sets, a
+     table each, decoded and counted; (b) HLC over the stream broker's
+     groups with server1 SIGKILLed mid-stream (the seconds until every
+     produced row is counted, at least once); K1 / K2 in process at (a)'s
+     sealed segment and Kafka-fed consuming snapshot and at (c)'s sealed
+     HLC segment against their plain versions; the hybrid quickstart
+     through the CLI and in process;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -245,7 +260,7 @@ its buffers.
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
          | --realtime-only | --residency-only | --build-only | --warmstart-only | --planes-only
-         | --controller-only]
+         | --controller-only | --kafka-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
@@ -257,7 +272,7 @@ lineitem's datagen), ``--realtime-only`` phase 14 alone,
 part (a) on two servers of lineitem, then phases 14 and 17 with parts (b)
 and (c)) and ``--controller-only`` phase 19 (phase 14 with its controller
 restart, then phase 17 hosting 18 (c) and 19); each after lineitem's
-datagen.
+datagen; ``--kafka-only`` phase 20 alone (its own data).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -3173,14 +3188,16 @@ def require_launch(label: str, launches: Dict[str, int], kernel: str) -> None:
         raise AssertionError(f"{label}: kernel {kernel} was not launched")
 
 
-def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None, device: str = DEPLOY_DEVICE):
-    """A controller, two servers (``server_env`` added to their environment)
-    and a broker, each its own process of the admin CLI on ``device``:
-    (controller URL, {server: admin URL}, broker URL, a check that raises
-    when a role exited)."""
+def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None, device: str = DEPLOY_DEVICE,
+                heartbeat_timeout: str = "60"):
+    """A controller (its liveness window ``heartbeat_timeout`` seconds), two
+    servers (``server_env`` added to their environment) and a broker, each
+    its own process of the admin CLI on ``device``: (controller URL,
+    {server: admin URL}, broker URL, a check that raises when a role
+    exited)."""
     t = time.perf_counter()
     ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
-                                "-heartbeat-timeout", "60", "-device", device], tmp)
+                                "-heartbeat-timeout", heartbeat_timeout, "-device", device], tmp)
     url = ctrl.ready(DEPLOY_READY_S)[2]
     # the servers and the broker need only the controller: they start together
     servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
@@ -3380,12 +3397,13 @@ def deployed_phase(segments, wants, record) -> None:
 
 # ---------------------------------------------------------------------------
 # 11. joins: the Star Schema Benchmark's lineorder / part / date (O'Neil,
-# O'Neil, Chen, Revilak, TPCTC 2009) at lineorder SF ~11.2, three queries
+# O'Neil, Chen, Revilak, TPCTC 2009) at lineorder SF ~5.6, three queries
 # ---------------------------------------------------------------------------
 
 SSB_PARTITIONS = 16  # lineorder and part partitioned on their part key, one segment a partition
-SSB_ROWS_PER_SEGMENT = 1 << 22  # 16 x 2^22 = 67,108,864 lineorder rows: 6,000,000 x SF at SF ~11.2
-SSB_PARTS = 800_000  # 200,000 x floor(1 + log2 SF)
+# 16 x 2^21 = 33,554,432 lineorder rows: 6,000,000 x SF at SF ~5.6 (2^22, SF ~11.2, before phase 20)
+SSB_ROWS_PER_SEGMENT = 1 << 21
+SSB_PARTS = 600_000  # 200,000 x floor(1 + log2 SF) (800,000 before phase 20)
 JOIN_QUERIES = {
     "ssb_q1_1": "SELECT count(*), sum(l.lo_extendedprice), sum(l.lo_discount) FROM lineorder l "
                 "JOIN date d ON l.lo_orderdate = d.d_datekey WHERE d.d_year = 1993 "
@@ -4899,8 +4917,8 @@ def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
 # ---------------------------------------------------------------------------
 
 RT_PARTITIONS = 2
-RT_SEGMENT_ROWS = 1 << 23  # rowsPerSegment: the offline cells' segment size
-RT_PARTITION_ROWS = 3 * (1 << 22)  # 1.5 x 2^23 a partition: one sealed segment, one consuming of 2^22
+RT_SEGMENT_ROWS = 1 << 22  # rowsPerSegment (2^23, the offline cells' segment size, before phase 20)
+RT_PARTITION_ROWS = 3 * (1 << 21)  # 1.5 x 2^22 a partition: one sealed segment, one consuming of 2^21
 RT_BLOCK = 1 << 16  # rows a produced columnar block (and a server's fetch: PINOT_TPU_INGEST_BATCH_ROWS)
 RT_STAGES = (4, 2, 1)  # the watermarks: a quarter, a half and the whole of the data
 RT_QUERIES = {"q1": Q1, "count_star": "SELECT count(*) FROM lineitem", "distinct_price": VALUE_QUERIES["distinct_price"]}
@@ -4956,9 +4974,9 @@ def rt_check(name: str, d: dict, wants: dict) -> None:
 def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
     """14. lineitem as a REALTIME table (replication 1, two stream
     partitions of a columnar topic on the port's StreamBrokerServer,
-    rowsPerSegment 2^23), a controller, two server processes running
+    rowsPerSegment 2^22), a controller, two server processes running
     RemoteConsumers and the broker: produced to a quarter, a half and the
-    whole of 1.5 x 2^23 rows a partition, the queries at each watermark
+    whole of 1.5 x 2^22 rows a partition, the queries at each watermark
     against the oracles over the rows produced so far; then K1 and K2 at a
     server's final shape (its sealed segment and its consuming snapshot)
     against their plain versions.  Each produced block carries its
@@ -5634,14 +5652,14 @@ def residency_phase(dev, segments, record, fg, vsc, wants) -> None:
 # schema grown under it
 # ---------------------------------------------------------------------------
 
-# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^21
-# rows, the first quarter of phase 1's li0 and li1 (4 files of its 2^23 rows
+# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^19
+# rows, the first rows of phase 1's li0 and li1 (4 files of its 2^23 rows
 # took 117-135 s on 4 workers: the reference's build path is host Python;
-# 2^22 rows a file before phase 17)
+# 2^22 rows a file before phase 17, 2^21 before 18, 2^20 before 20)
 BUILD_FILES = 2
-BUILD_ROWS = 1 << 20  # rows a CSV file (~0.06 GB of text; 2^21 before phase 18)
+BUILD_ROWS = 1 << 19  # rows a CSV file (~0.03 GB of text; 2^21 before phase 18, 2^20 before 20)
 BUILD_WORKERS = 4  # BatchCreateSegments -workers (the CSV files and the Avro file, one worker each)
-BUILD_GROWN_ROWS = 1 << 20  # the grown-schema CSV file, with real values (2^21 before phase 17)
+BUILD_GROWN_ROWS = 1 << 19  # the grown-schema CSV file, with real values (2^21 before phase 17, 2^20 before 20)
 BUILD_AVRO_ROWS = 1 << 17  # the Avro file (deflate): the reference's codec is pure Python (2^18 before phase 18)
 BUILD_SEEDS = {"grown": 97, "avro": 89}  # the CSV files are phase 1's li0.. (seeds 11, 12, ..)
 BUILD_CHUNK = 1 << 20  # rows a vectorized CSV write step
@@ -6878,6 +6896,508 @@ def warmstart_phase(dev, segments, wants, record, roots: List[str], fg, vsc) -> 
         raise AssertionError(f"warm start: a role did not exit cleanly {codes}")
 
 
+# ---------------------------------------------------------------------------
+# 20. Kafka and high-level-consumer ingestion: lineitem rows as JSON
+# messages through the Kafka wire protocol and the consumer groups
+# ---------------------------------------------------------------------------
+
+KAFKA_PARTITIONS = 2
+# (a)'s rowsPerSegment: a partition's rows cross the JSON row path (the
+# shim's Fetch, the client's MessageSet decode, json.loads, the mutable
+# segment's row indexing) on the host; 2^20, the least this cell keeps,
+# holds the phase near 150 s (phase 14's columnar path takes 2^22)
+KAFKA_SEGMENT_ROWS = 1 << 20
+KAFKA_PARTITION_ROWS = 3 << 19  # 1.5 x 2^20 a partition: one committed segment, one consuming of 2^19
+KAFKA_STAGES = (2, 1)  # the watermarks: half and the whole of the data (the commits land in the second)
+KAFKA_PRODUCE_ROWS = 1 << 15  # rows a produce request
+HLC_SEGMENT_ROWS = 1 << 16  # (b) and (c): a server's HLC segment (cut from 2^20: the group path's rate)
+HLC_PARTITION_ROWS = 3 << 15  # 1.5 x 2^16 a partition
+CODEC_ROWS = 1 << 16  # (d): rows a codec (the snappy and lz4 codecs are pure Python)
+KAFKA_CODECS = ("gzip", "snappy", "lz4")
+KAFKA_VISIBLE_S = 600.0  # from a stage's last produce to every row counted
+KAFKA_ITERS = 5  # timed broker requests a query at each watermark, after one checked request
+KAFKA_HEARTBEAT_TIMEOUT_S = "6"  # the controller's liveness window (the reference's default)
+KAFKA_SEEDS = {"llc": 301, "kgroup": 311, "hlc": 321, "codec": 331}
+
+
+def json_rows(cols: Dict[str, list], lo: int, hi: int) -> List[dict]:
+    """Rows [lo, hi) of a segment's value lists (``value_columns`` as
+    lists) as the JSON messages a producer sends: one dict a row."""
+    names = list(cols)
+    return [dict(zip(names, vals)) for vals in zip(*(cols[c][lo:hi] for c in names))]
+
+
+def kafka_wants(hll_mod, heads) -> dict:
+    return {"q1": oracle(heads, "q1"), "count_star": sum(h.num_docs for h in heads),
+            "distinct_price": value_oracle(hll_mod, heads, "distinct_price")}
+
+
+def at_least_once_check(name: str, d: dict, wants: dict) -> None:
+    """A reply that may count rows twice (HLC across a rebalance): every
+    group of the oracle present with at least its count and sums (every
+    lineitem value is non-negative), no group the oracle lacks; exact when
+    the counts are."""
+    resp = response_from_json(d)
+    if resp.exceptions:
+        raise AssertionError(f"{name}: {d['exceptions']}")
+    if name == "count_star":
+        if int(resp.aggregation_results[0].value) < wants["count_star"]:
+            raise AssertionError(f"{name}: {resp.aggregation_results[0].value} < {wants['count_star']} produced")
+        return
+    if name != "q1":
+        return  # a distinct count is the same with or without duplicates
+    for ar in resp.aggregation_results:
+        got = {tuple(g.group): float(g.value) for g in ar.group_by_result}
+        if set(got) != set(wants["q1"]):
+            raise AssertionError(f"{name} {ar.function}: groups {sorted(got)} != {sorted(wants['q1'])}")
+        for key, v in got.items():
+            w = wants["q1"][key]["count" if ar.function == "count_star" else ar.function]
+            if v < w * (1 - AUDIT_RTOL) - AUDIT_ATOL:
+                raise AssertionError(f"{name} {ar.function} {key}: {v} below the oracle's {w}")
+
+
+def kafka_phase(dev, record, fg, vsc, hll_mod) -> None:
+    """20. Kafka and HLC ingestion on a deployed cluster (a controller with
+    a 6 s liveness window, two server processes, the broker) and a stream
+    broker process (``StartStreamBroker -kafka-port 0``: the topics, the
+    native consumer groups and the Kafka v0 wire protocol with its group
+    coordinator over the same logs).  The stream is lineitem rows as JSON
+    messages, 2 partitions a topic:
+    (a) LLC over Kafka (``streamType: kafka``): 1.5 x 2^20 rows a partition,
+        rowsPerSegment 2^20, queried at two watermarks (q1, count(*),
+        distinct_price against the oracles of the rows produced, each row
+        counted exactly once, K1 / K2 launched on the servers); one commit a
+        partition through the completion protocol;
+    (c) HLC over the Kafka group protocol (``KafkaGroupConsumer``), two
+        members, 1.5 x 2^16 rows a partition, segments of 2^16 sealing,
+        uploading pinned to their server and rolling: the same queries;
+    (d) three more Kafka tables, one a codec: the shim serves gzip, snappy
+        and lz4 wrapped message sets, each decoded by the servers and counted;
+    (b) HLC over the native stream broker's groups, 1.5 x 2^16 rows a
+        partition: server1 SIGKILLed after half of them; the group
+        rebalances, the survivor seals at its revoke and re-reads the dead
+        member's partition from the committed offsets; the seconds until
+        every produced row is counted (at least once), then the queries;
+    then K1 and K2 in process at this phase's shapes against their plain
+    versions: (a)'s sealed segment and a consuming snapshot indexed from
+    partition 0's Kafka messages, and (c)'s sealed HLC segment after its
+    roll; and the hybrid quickstart (``HybridQuickstart`` through the CLI,
+    and in process with every row counted once across the time boundary)."""
+    import dataclasses
+
+    from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
+    from pinot_tpu_torch.engine.executor import QueryExecutor
+    from pinot_tpu_torch.engine.reduce import reduce_to_response
+    from pinot_tpu_torch.pql import optimize_request, parse_pql
+    from pinot_tpu_torch.realtime.kafka import KafkaProtocolShim, KafkaStreamProvider
+    from pinot_tpu_torch.realtime.llc import make_segment_name, parse_segment_name
+    from pinot_tpu_torch.realtime.mutable import MutableSegment
+    from pinot_tpu_torch.realtime.netstream import HLConsumer, NetworkStreamProvider, StreamBrokerServer
+    from pinot_tpu_torch.segment.format import SEGMENT_FILE_NAME, read_segment
+    from pinot_tpu_torch.tools.datagen import lineitem_schema, synthetic_lineitem_segment
+    from pinot_tpu_torch.tools.quickstart import HYBRID_SAMPLE_QUERIES, hybrid_events, run_hybrid_quickstart
+
+    rec = record["kafka"] = {"card": card_line()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pinot-kafka-")
+    t = time.perf_counter()
+    sources = {kind: [synthetic_lineitem_segment(rows, seed=KAFKA_SEEDS[kind] + p, name=f"{kind}{p}")
+                      for p in range(KAFKA_PARTITIONS)]
+               for kind, rows in (("llc", KAFKA_PARTITION_ROWS), ("kgroup", HLC_PARTITION_ROWS),
+                                  ("hlc", HLC_PARTITION_ROWS))}
+    sources["codec"] = [synthetic_lineitem_segment(CODEC_ROWS, seed=KAFKA_SEEDS["codec"], name="codec0")]
+    cols = {kind: [{c: a.tolist() for c, a in value_columns(s).items()} for s in segs]
+            for kind, segs in sources.items()}
+    rec["datagen_s"] = time.perf_counter() - t
+    log(f"kafka: rows made in {rec['datagen_s']:.1f} s ((a) {KAFKA_PARTITIONS} x "
+        f"{KAFKA_PARTITION_ROWS}, (b) and (c) {KAFKA_PARTITIONS} x {HLC_PARTITION_ROWS}, (d) {CODEC_ROWS} a codec)")
+    codec_broker = StreamBrokerServer()  # (d)'s topic, in this process: one shim a codec over it
+    codec_broker.start()
+    shims = {}
+    per_query, totals = {}, {"k1": 0, "k2": 0}
+    try:
+        sb = _Role("streambroker", ["StartStreamBroker", "-port", "0", "-kafka-port", "0"], tmp)
+        host, port = sb.ready(DEPLOY_READY_S)[2].rsplit(":", 1)
+        port = int(port)
+        end = time.monotonic() + DEPLOY_READY_S
+        while not any(ln.startswith("READY kafka ") for ln in sb.tail(1 << 20).splitlines()):
+            sb.check_alive()
+            if time.monotonic() > end:
+                raise AssertionError(f"kafka: no Kafka listener within {DEPLOY_READY_S} s:\n{sb.tail()}")
+            time.sleep(0.2)
+        k_host, k_port = next(ln for ln in sb.tail(1 << 20).splitlines()
+                              if ln.startswith("READY kafka ")).split()[2].rsplit(":", 1)
+        k_port = int(k_port)
+        url, admin, broker_url, alive = start_roles(tmp, rec, heartbeat_timeout=KAFKA_HEARTBEAT_TIMEOUT_S)
+
+        def alive_all():
+            alive()
+            sb.check_alive()
+
+        def launches():
+            out = {"k1": 0, "k2": 0}
+            for a in admin.values():
+                try:
+                    got = http_json(a + "/debug/metrics")["kernelLaunches"]
+                except OSError:
+                    continue  # a server killed on purpose
+                out = {k: out[k] + got[k] for k in out}
+            return out
+
+        def samples(timer: str) -> Dict[str, List[float]]:
+            out = {}
+            for n, a in admin.items():
+                try:
+                    out[n] = http_json(f"{a}/debug/samples?timer={timer}&last=0")["samples"]
+                except OSError:
+                    pass
+            return out
+
+        def ask(table: str, pql: str) -> dict:
+            return http_json(broker_url + "/query", json.dumps({"pql": pql.replace("FROM lineitem",
+                                                                                   f"FROM {table}")}).encode())
+
+        def count(table: str) -> int:
+            d = ask(table, RT_QUERIES["count_star"])
+            return int(response_from_json(d).aggregation_results[0].value) if not d["exceptions"] else -1
+
+        def until_counted(table: str, want: int, label: str, at_least: bool = False) -> Tuple[float, int]:
+            """Seconds until the broker counts ``want`` rows of ``table`` (at
+            least ``want`` with ``at_least``) with no exception."""
+            t0 = time.perf_counter()
+            end = time.monotonic() + KAFKA_VISIBLE_S
+            while True:
+                alive_all()
+                got = count(table)
+                if got == want or (at_least and got > want):
+                    return time.perf_counter() - t0, got
+                if time.monotonic() > end:
+                    raise AssertionError(f"kafka {label}: {got} rows counted, not {want}, in {KAFKA_VISIBLE_S} s")
+                time.sleep(RT_POLL_S)
+
+        def queries(table: str, label: str, wants: dict, check=rt_check, iters: int = KAFKA_ITERS) -> dict:
+            """Each query once, checked, with the servers' launches around it,
+            then ``iters`` timed requests."""
+            out = {}
+            for name, pql in RT_QUERIES.items():
+                before = launches()
+                d = ask(table, pql)
+                got = {k: v - before[k] for k, v in launches().items()}
+                check(name, d, wants)
+                require_launch(f"kafka {label} {name}", got, RT_NEED[name])
+                per_query[f"{label}/{name}"] = got
+                for k in totals:
+                    totals[k] += got[k]
+                ms = []
+                for _ in range(iters):
+                    d = ask(table, pql)
+                    if d["exceptions"]:
+                        raise AssertionError(f"kafka {label} {name}: {d['exceptions']}")
+                    ms.append(d["timeUsedMs"])
+                out[name] = {"p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+                             "launches": got}
+                log(f"kafka {label} {name}: equal to the oracle over the rows produced; broker p50 "
+                    f"{out[name]['p50_ms']:.3f} ms, p99 {out[name]['p99_ms']:.3f} ms over {iters}; launches {got}")
+            return out
+
+        def create(table: str, topic: str, stream_type: str, consumer: str, seg_rows: int, sh: str, sp: int):
+            schema = dataclasses.replace(lineitem_schema(), schema_name=table)
+            http_json(url + "/schemas", json.dumps(schema.to_json()).encode())
+            config = TableConfig(table, table_type="REALTIME", stream=StreamConfig(
+                stream_type=stream_type, topic=topic, rows_per_segment=seg_rows, consumer_type=consumer,
+                properties={"host": sh, "port": sp}))
+            http_json(url + "/tables", json.dumps(config.to_json()).encode())
+
+        def produce(producer, kind: str, lo: int, hi: int) -> float:
+            """Partitions' rows [lo, hi) of ``kind`` on the topic of
+            ``producer``, a request of KAFKA_PRODUCE_ROWS at a time, one
+            producer a partition in threads; the seconds it took."""
+            def one(p):
+                out = NetworkStreamProvider(producer.host, producer.port, producer.topic)
+                for a in range(lo, hi, KAFKA_PRODUCE_ROWS):
+                    out.produce_batch(json_rows(cols[kind][p], a, min(hi, a + KAFKA_PRODUCE_ROWS)), partition=p)
+
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(KAFKA_PARTITIONS) as pool:
+                list(pool.map(one, range(KAFKA_PARTITIONS)))
+            return time.perf_counter() - t0
+
+        # (a) LLC over Kafka
+        ra = rec["llc"] = {"stages": {}}
+        producer = NetworkStreamProvider(host, port, "li_kafka")
+        producer.create_topic(KAFKA_PARTITIONS)
+        create("li_kafka", "li_kafka", "kafka", "lowlevel", KAFKA_SEGMENT_ROWS, k_host, k_port)
+        commits_before = http_json(url + "/debug/metrics")["controller"]["meters"]["segmentCommits"]["count"]
+        done = 0
+        for share in KAFKA_STAGES:
+            target = KAFKA_PARTITION_ROWS // share
+            label = f"(a) 1/{share}" if share > 1 else "(a) all"
+            t0 = time.perf_counter()
+            produce_s = produce(producer, "llc", done, target)
+            visible_s, _ = until_counted("li_kafka", KAFKA_PARTITIONS * target, label)
+            st = ra["stages"][label] = {
+                "rows_per_partition": target, "produce_s": produce_s,
+                "produce_to_visible_ms": visible_s * 1e3,
+                "ingest_rows_per_s_per_partition": (target - done) / (time.perf_counter() - t0)}
+            log(f"kafka {label}: {target - done} rows a partition produced in {produce_s:.1f} s (JSON over TCP), "
+                f"all counted {st['produce_to_visible_ms']:.1f} ms after the last produce returned; ingest "
+                f"{st['ingest_rows_per_s_per_partition']:.0f} rows/s a partition through the Kafka row path")
+            done = target
+            wants = kafka_wants(hll_mod, [head_segment(s, target) for s in sources["llc"]])
+            st["queries"] = queries("li_kafka", label, wants)
+        ideal = http_json(f"{url}/tables/li_kafka_REALTIME/idealstate")
+        want_ideal = {make_segment_name("li_kafka_REALTIME", p, s): v for p in range(KAFKA_PARTITIONS)
+                      for s, v in ((0, "ONLINE"), (1, "CONSUMING"))}
+        if {s: set(r.values()) for s, r in ideal.items()} != {s: {v} for s, v in want_ideal.items()}:
+            raise AssertionError(f"kafka (a): ideal state {ideal}")
+        commits = http_json(url + "/debug/metrics")["controller"]["meters"]["segmentCommits"]["count"]
+        if commits - commits_before != KAFKA_PARTITIONS:
+            raise AssertionError(f"kafka (a): {commits - commits_before} commits, not one a partition")
+        ra["commit_ms"] = {k: samples(f"ingest.commit{k}Ms") for k in ("Convert", "File", "Upload", "")}
+        log(f"kafka (a): one commit a partition at {KAFKA_SEGMENT_ROWS} rows through the completion protocol; "
+            f"by server convert / file / upload / all ms {ra['commit_ms']}")
+        alive_all()
+        # partition 0's consuming rows, read back through the Kafka protocol
+        # in this process while (b)-(d) run: the Kafka-fed consuming snapshot
+        # K1 and K2 are held at below
+        indexer = concurrent.futures.ThreadPoolExecutor(1)
+
+        def kafka_fed_consuming():
+            t0 = time.perf_counter()
+            kp = KafkaStreamProvider(k_host, k_port, "li_kafka")
+            m = MutableSegment(dataclasses.replace(lineitem_schema(), schema_name="li_kafka"),
+                               make_segment_name("li_kafka_REALTIME", 0, 1), "li_kafka_REALTIME")
+            off = KAFKA_SEGMENT_ROWS
+            while off < KAFKA_PARTITION_ROWS:
+                got, off = kp.fetch(0, off, 8192)
+                m.index_batch(got)
+            kp.client.close()
+            return m, time.perf_counter() - t0
+
+        fed = indexer.submit(kafka_fed_consuming)
+
+        # (c) HLC over the Kafka group protocol
+        rc = rec["kgroup"] = {}
+        producer_c = NetworkStreamProvider(host, port, "li_kgroup")
+        producer_c.create_topic(KAFKA_PARTITIONS)
+        create("li_kgroup", "li_kgroup", "kafka", "highlevel", HLC_SEGMENT_ROWS, k_host, k_port)
+        t0 = time.perf_counter()
+        rc["produce_s"] = produce(producer_c, "kgroup", 0, HLC_PARTITION_ROWS)
+        visible_s, got = until_counted("li_kgroup", KAFKA_PARTITIONS * HLC_PARTITION_ROWS, "(c)", at_least=True)
+        rc.update(produce_to_visible_ms=visible_s * 1e3, counted=got,
+                  ingest_rows_per_s_per_partition=HLC_PARTITION_ROWS / (time.perf_counter() - t0))
+        log(f"kafka (c) HLC over the Kafka group protocol: {HLC_PARTITION_ROWS} rows a partition produced in "
+            f"{rc['produce_s']:.1f} s, {got} counted {rc['produce_to_visible_ms']:.1f} ms after the last produce; "
+            f"{rc['ingest_rows_per_s_per_partition']:.0f} rows/s a partition")
+        wants_c = kafka_wants(hll_mod, sources["kgroup"])
+
+        def sealed_hlc(physical: str) -> Dict[str, Dict[str, str]]:
+            view = http_json(f"{url}/tables/{physical}/externalview")
+            return {s: r for s, r in view.items() if set(r.values()) == {"ONLINE"}}
+
+        def rolled() -> Dict[str, Dict[str, str]]:
+            """The sealed segments whose idx consumes on at a later
+            sequence on the same server (the group decides which member
+            holds which partitions, so not every server need have sealed)."""
+            view = http_json(f"{url}/tables/li_kgroup_REALTIME/externalview")
+            consuming = {(parse_segment_name(s)[1], srv) for s, r in view.items() for srv, v in r.items()
+                         if v == "CONSUMING"}
+            return {s: r for s, r in sealed_hlc("li_kgroup_REALTIME").items()
+                    if any((parse_segment_name(s)[1], srv) in consuming for srv in r)}
+
+        end = time.monotonic() + KAFKA_VISIBLE_S
+        while not rolled():
+            alive_all()
+            if time.monotonic() > end:
+                raise AssertionError(f"kafka (c): no sealed HLC segment rolled on: "
+                                     f"{http_json(url + '/tables/li_kgroup_REALTIME/externalview')}")
+            time.sleep(RT_POLL_S)
+        rc["sealed"] = rolled()
+        rc["queries"] = queries("li_kgroup", "(c)", wants_c,
+                                check=rt_check if got == wants_c["count_star"] else at_least_once_check)
+        log(f"kafka (c): sealed HLC segments {rc['sealed']} (each pinned to the server that consumed it, "
+            f"consumption rolled on); {got - wants_c['count_star']} rows counted twice")
+
+        # (d) compressed message sets, one table a codec
+        rd = rec["codecs"] = {}
+        codec_broker.create_topic("li_codec", 1)
+        NetworkStreamProvider(*codec_broker.address, "li_codec").produce_batch(
+            json_rows(cols["codec"][0], 0, CODEC_ROWS), partition=0)
+        for codec in KAFKA_CODECS:
+            shims[codec] = KafkaProtocolShim(codec_broker, compression=codec).start()
+            table = f"li_{codec}"
+            t0 = time.perf_counter()
+            create(table, "li_codec", "kafka", "lowlevel", 2 * CODEC_ROWS, *shims[codec].address)
+            visible_s, _ = until_counted(table, CODEC_ROWS, f"(d) {codec}")
+            rd[codec] = {"rows": CODEC_ROWS, "create_to_counted_s": time.perf_counter() - t0,
+                         "rows_per_s": CODEC_ROWS / (time.perf_counter() - t0)}
+            log(f"kafka (d) {codec}: {CODEC_ROWS} rows in {codec}-wrapped message sets decoded by a server and "
+                f"counted {rd[codec]['create_to_counted_s']:.1f} s after the table's creation "
+                f"({rd[codec]['rows_per_s']:.0f} rows/s)")
+        d = ask("li_gzip", RT_QUERIES["q1"])
+        rt_check("q1", d, {"q1": oracle(sources["codec"], "q1")})
+
+        # (b) HLC over the native consumer groups, a member SIGKILLed
+        rb = rec["hlc"] = {}
+        producer_b = NetworkStreamProvider(host, port, "li_hlc")
+        producer_b.create_topic(KAFKA_PARTITIONS)
+        create("li_hlc", "li_hlc", "network", "highlevel", HLC_SEGMENT_ROWS, host, port)
+        probe = HLConsumer(host, port, "li_hlc", "li_hlc_REALTIME", "probe")
+        end = time.monotonic() + KAFKA_VISIBLE_S
+        while True:
+            alive_all()
+            g = probe.describe_group()
+            if len(g["members"]) == 2 and not g["syncPending"]:
+                break
+            if time.monotonic() > end:
+                raise AssertionError(f"kafka (b): the group never formed: {g}")
+            time.sleep(RT_POLL_S)
+        half = HLC_PARTITION_ROWS // 2
+        rb["produce_half_s"] = produce(producer_b, "hlc", 0, half)
+        visible_s, _ = until_counted("li_hlc", KAFKA_PARTITIONS * half, "(b) half")
+        rb["half_produce_to_visible_ms"] = visible_s * 1e3
+        rb["queries_half"] = queries("li_hlc", "(b) half", kafka_wants(
+            hll_mod, [head_segment(s, half) for s in sources["hlc"]]), iters=1)
+        victim = next(r for r in _ROLES if r.name == "server1")
+        victim.proc.kill()
+        victim.proc.wait(timeout=60)
+        victim.log.close()
+        _ROLES.remove(victim)
+        killed_at = time.perf_counter()
+        rb["produce_rest_s"] = produce(producer_b, "hlc", half, HLC_PARTITION_ROWS)
+        visible_s, got = until_counted("li_hlc", KAFKA_PARTITIONS * HLC_PARTITION_ROWS, "(b) after the kill",
+                                       at_least=True)
+        rb.update(kill_to_counted_s=time.perf_counter() - killed_at, counted=got,
+                  produced=KAFKA_PARTITIONS * HLC_PARTITION_ROWS, committed=probe.committed_offsets(),
+                  group=probe.describe_group())
+        wants_b = kafka_wants(hll_mod, sources["hlc"])
+        rb["queries"] = queries("li_hlc", "(b) after the kill", wants_b,
+                                check=rt_check if got == wants_b["count_star"] else at_least_once_check)
+        log(f"kafka (b): server1 SIGKILLed after {half} rows a partition; every one of the "
+            f"{rb['produced']} produced rows counted ({got} counted, {got - rb['produced']} twice) "
+            f"{rb['kill_to_counted_s']:.1f} s after the kill (the group's session 10 s, the controller's "
+            f"liveness {KAFKA_HEARTBEAT_TIMEOUT_S} s); the group now {rb['group']}, committed offsets "
+            f"{rb['committed']}; sealed {sorted(sealed_hlc('li_hlc_REALTIME'))}")
+        record["paths"]["kafka"] = {"launches": per_query, "totals": totals}
+
+        # K1 and K2 at this phase's shapes, in process
+        def fetch_sealed(physical: str, seg: str):
+            d_ = os.path.join(tmp, "sealed", seg)
+            os.makedirs(d_)
+            with urllib.request.urlopen(f"{url}/segments/{physical}/{seg}/file", timeout=DEPLOY_REQUEST_S) as r:
+                with open(os.path.join(d_, SEGMENT_FILE_NAME), "wb") as f:
+                    shutil.copyfileobj(r, f)
+            return read_segment(d_)
+
+        mutable, fed_s = fed.result()
+        indexer.shutdown(wait=True)
+        rec["kafka_fed_rows_per_s"] = mutable.num_docs / fed_s
+        t = time.perf_counter()
+        snap = mutable.snapshot()
+        rec["kafka_fed_snapshot_ms"] = (time.perf_counter() - t) * 1e3
+        sealed_a = fetch_sealed("li_kafka_REALTIME", make_segment_name("li_kafka_REALTIME", 0, 0))
+        hlc_seg = sorted(rc["sealed"], key=lambda s: parse_segment_name(s)[2])[0]
+        sealed_c = fetch_sealed("li_kgroup_REALTIME", hlc_seg)
+        ex = QueryExecutor(device=dev, precision="x32")
+        shapes = rec["shapes"] = {}
+        for label, segs, heads in (("(a) sealed + Kafka-fed consuming snapshot", [sealed_a, snap],
+                                    [head_segment(sources["llc"][0], KAFKA_PARTITION_ROWS)]),
+                                   ("(c) sealed HLC segment after its roll", [sealed_c], None)):
+            tbl = segs[0].metadata.table_name.replace("_REALTIME", "")
+            q1 = RT_QUERIES["q1"].replace("FROM lineitem", f"FROM {tbl}")
+            dp = RT_QUERIES["distinct_price"].replace("FROM lineitem", f"FROM {tbl}")
+            k1 = k1_captured(fg, f"kafka {label}", lambda: ex.execute(segs, optimize_request(parse_pql(q1))))
+            req = optimize_request(parse_pql(dp))
+            captured: dict = {}
+            restore = _capture(vsc, "value_state", captured, "k2")
+            try:
+                res = ex.execute(segs, req)
+            finally:
+                vsc.value_state = restore
+            if heads is not None:
+                check_response(reduce_to_response(optimize_request(parse_pql(q1)),
+                                                  [ex.execute(segs, optimize_request(parse_pql(q1)))]),
+                               oracle(heads, "q1"))
+                check_value_response(reduce_to_response(req, [res]), value_oracle(hll_mod, heads, "distinct_price"))
+            (mode, *rest), kw = captured["k2"]
+            args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+            tiers = compare_k2_value(vsc, mode, args)
+            k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+            p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+            matched = int(vsc.value_state(mode, **args)[0])
+            bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
+            k2 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
+                      tiers=tiers, mode=mode, shape=list(args["values"].shape), matched=matched, max_abs_err=0.0)
+            log(f"k2 kafka {label} distinct_price ({mode}, values {k2['shape']}, {matched} rows matched): "
+                f"{k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes; {bound / k_ms:.3f} of the "
+                f"bound), plain {p_ms:.4f} ms, bit-equal in tiers {tiers}")
+            shapes[label] = {"k1": k1, "k2": k2}
+            ex.free_staging()
+        log(f"kafka: partition 0's consuming rows read back through Fetch in this process at "
+            f"{rec['kafka_fed_rows_per_s']:.0f} rows/s, its snapshot {rec['kafka_fed_snapshot_ms']:.1f} ms")
+        rec["k1"] = shapes["(a) sealed + Kafka-fed consuming snapshot"]["k1"]
+        rec["k2"] = shapes["(a) sealed + Kafka-fed consuming snapshot"]["k2"]
+        rec["hlc_k1"] = shapes["(c) sealed HLC segment after its roll"]["k1"]
+        rec["hlc_k2"] = shapes["(c) sealed HLC segment after its roll"]["k2"]
+        del ex, segs, snap, mutable, sealed_a, sealed_c
+        torch.cuda.empty_cache()
+    finally:
+        codes = _stop_roles()
+        for shim in shims.values():
+            shim.stop()
+        codec_broker.stop()
+        rec["exit_codes"] = codes
+        shutil.rmtree(tmp, ignore_errors=True)
+    if any(codes.values()):
+        raise AssertionError(f"kafka: a role did not exit cleanly {codes}")
+
+    # the hybrid quickstart: the CLI on the card, then in process with its
+    # answers checked against the events it made
+    rh = rec["hybrid"] = {}
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pinot_tpu_torch.tools.admin", "HybridQuickstart", "-no-http",
+                          "-device", DEPLOY_DEVICE], cwd=REPO_DIR, capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    rh["cli_s"] = time.perf_counter() - t
+    if out.returncode != 0 or "DONE hybrid quickstart" not in out.stdout:
+        raise AssertionError(f"kafka hybrid CLI: exit {out.returncode}\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+    base_ms = 1_600_000_000_000
+    offline_rows, realtime_rows = hybrid_events(1500, 800, base_ms)
+    boundary = max(e["mtime"] for e in offline_rows)
+    events = offline_rows + [e for e in realtime_rows if e["mtime"] > boundary]  # each row once
+    fg.launches = vsc.launches = 0
+    cluster = run_hybrid_quickstart(verbose=False, device=dev, base_ms=base_ms)
+    try:
+        answers = [cluster.query(pql) for pql in HYBRID_SAMPLE_QUERIES]
+    finally:
+        cluster.stop()
+    rh["launches"] = {"k1": fg.launches, "k2": vsc.launches}
+    cities: Dict[str, int] = {}
+    for e in events:
+        cities[e["group_city"]] = cities.get(e["group_city"], 0) + e["rsvp_count"]
+    want = [len(events), max(e["mtime"] for e in events)]
+    got = [int(float(answers[0].aggregation_results[0].value)), int(float(answers[1].aggregation_results[0].value))]
+    by_city = {g.group[0]: int(float(g.value)) for g in answers[2].aggregation_results[0].group_by_result}
+    if got != want or by_city != cities or any(a.exceptions for a in answers):
+        raise AssertionError(f"kafka hybrid: {got} / {by_city} against {want} / {cities}")
+    require_launch("kafka hybrid", rh["launches"], "k1")
+    record["paths"]["hybrid"] = {"launches": {"all": rh["launches"]}, "totals": dict(rh["launches"])}
+    log(f"kafka hybrid: the CLI answered its three queries in {rh['cli_s']:.1f} s; in process count(*) {got[0]} "
+        f"(each of the 100 overlapping rows once across the time boundary), max(mtime) and the city sums equal to "
+        f"the events; launches {rh['launches']}")
+    summary = {label: {k: st[k] for k in ("ingest_rows_per_s_per_partition", "produce_to_visible_ms")}
+               for label, st in rec["llc"]["stages"].items()}
+    summary.update(
+        kgroup={k: rec["kgroup"][k] for k in ("ingest_rows_per_s_per_partition", "produce_to_visible_ms")},
+        codecs_rows_per_s={c: v["rows_per_s"] for c, v in rec["codecs"].items()},
+        hlc_kill_to_counted_s=rec["hlc"]["kill_to_counted_s"], commit_ms=rec["llc"]["commit_ms"],
+        k1_ms_bound_ms={lab: [s["k1"]["ms"], s["k1"]["bound_ms"]] for lab, s in rec["shapes"].items()},
+        k2_ms_bound_ms={lab: [s["k2"]["ms"], s["k2"]["bound_ms"]] for lab, s in rec["shapes"].items()})
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"kafka summary on {rec['card']}: {json.dumps(summary)}")
+    log(f"kafka: every role stopped (server1 SIGKILLed in (b)), exit codes {codes}; phase {rec['wall_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -6916,6 +7436,9 @@ def main(argv=None) -> int:
                     help="after the build, the kernel checks and lineitem's datagen run only phase 19, the "
                     "controller: phase 14 with its controller restart, then phase 17 hosting 18 (c) and 19 "
                     "(no result line)")
+    ap.add_argument("--kafka-only", action="store_true",
+                    help="after the build and the kernel checks run only phase 20, Kafka and high-level-consumer "
+                    "ingestion with the hybrid quickstart (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -6983,7 +7506,7 @@ def run(dev: torch.device, opts) -> int:
         return distinct
 
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
-    if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only:
+    if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.kafka_only:
         makers = {}
     elif (opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only or opts.planes_only
           or opts.controller_only):
@@ -6998,7 +7521,7 @@ def run(dev: torch.device, opts) -> int:
     # phase 17's compile-cache roots, given the main build's libraries
     warm_roots = []
     if not (opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.tiers_only
-            or opts.residency_only or opts.build_only):
+            or opts.residency_only or opts.build_only or opts.kafka_only):
         warm_base = tempfile.mkdtemp(prefix="pinot-compile-cache-")
         atexit.register(shutil.rmtree, warm_base, True)
         warm_roots = [os.path.join(warm_base, "cluster"), os.path.join(warm_base, "restart")]
@@ -7032,6 +7555,15 @@ def run(dev: torch.device, opts) -> int:
     check_k2_empty(vsc, dev)
     log("k2 check empty input: zero holders in every mode, no launch")
     torch.cuda.synchronize()
+    if opts.kafka_only:
+        record["paths"] = {}
+        kafka_phase(dev, record, fg, vsc, hll_mod)
+        log(f"kafka only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
     if opts.realtime_only:
         record["paths"] = {}
         realtime_phase(dev, record, fg, vsc, hll_mod)
@@ -8078,6 +8610,14 @@ def run(dev: torch.device, opts) -> int:
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 18 done ((a) {pl['wall_s']:.1f} s inside phase 9, "
         f"(b) inside phase 14, (c) {pl['deployed']['wall_s']:.1f} s inside phase 17)")
 
+    # 20. Kafka and HLC ingestion: lineitem rows as JSON messages through the
+    # Kafka wire protocol and the consumer groups, the hybrid quickstart
+    t0 = time.perf_counter()
+    ex.free_staging()
+    torch.cuda.empty_cache()
+    kafka_phase(dev, record, fg, vsc, hll_mod)
+    log(f"kafka phase: {time.perf_counter() - t0:.1f} s")
+
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
     # the shares are the same, and its postings are built once, then freed)
@@ -8149,6 +8689,8 @@ def run(dev: torch.device, opts) -> int:
             "startree_shape": record["startree"]["k1"],
             "tiers_shape": record["tiers"]["k1"],
             "realtime_shape": record["realtime"]["k1"],
+            "kafka_shape": dict(record["kafka"]["k1"], launches=record["paths"]["kafka"]["totals"]["k1"]),
+            "hlc_shape": record["kafka"]["hlc_k1"],
             "build_shape": record["build"]["k1"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k1"],
             "planes_launches": record["paths"]["planes"]["totals"]["k1"],
@@ -8168,6 +8710,8 @@ def run(dev: torch.device, opts) -> int:
             "library_ms": hg["library_ms"],
             "block_path": dict(block_path("zone_distinct", zk2), library_ms=zk2["blocks"]["library_ms"]),
             "realtime_shape": record["realtime"]["k2"],
+            "kafka_shape": dict(record["kafka"]["k2"], launches=record["paths"]["kafka"]["totals"]["k2"]),
+            "hlc_shape": record["kafka"]["hlc_k2"],
             "build_shape": record["build"]["k2"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k2"],
             "planes_launches": record["paths"]["planes"]["totals"]["k2"],

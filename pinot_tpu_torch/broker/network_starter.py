@@ -62,6 +62,7 @@ class NetworkedBrokerStarter:
         self._hb_timeout_s = 10.0
         self.handler.metrics.gauge("controller.unreachable").set(0)
         self.handler.metrics.meter("controller.pollFailures")
+        self.handler.metrics.meter("controller.allDeadSnapshotsHeld")
 
     def _post(self, path: str, payload: Dict[str, Any], timeout_s: float = 10.0) -> Dict[str, Any]:
         req = urllib.request.Request(
@@ -137,6 +138,7 @@ class NetworkedBrokerStarter:
             # every server gone while this broker routes to live ones: as
             # likely the controller is the partitioned one; keep the last
             # snapshot, and refetch on every poll (version not advanced)
+            self.handler.metrics.meter("controller.allDeadSnapshotsHeld").mark()
             logger.warning("cluster-state snapshot lists no live servers; holding version %d", self._version)
             return
         self._version = state["version"]

@@ -11,16 +11,16 @@ of ``pinot_tpu.common.fencing``, trimmed).
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Any, Dict, Optional
 
-DEFAULT_LEASE_S = 10.0
-
 
 def default_lease_s() -> float:
-    """Lease duration granted on each heartbeat, in seconds."""
-    return DEFAULT_LEASE_S
+    """Lease duration granted on each heartbeat, in seconds
+    (``PINOT_TPU_LEASE_S``, default 10)."""
+    return float(os.environ.get("PINOT_TPU_LEASE_S", "10"))
 
 
 class StaleEpochError(Exception):
@@ -51,9 +51,11 @@ class ServingLease:
         self._granted = False
         self._expires_at = 0.0
         self._epoch = -1
+        self._was_held = False
         self.metrics = metrics
         if metrics is not None:
-            metrics.meter("lease.renewals")
+            for m in ("lease.renewals", "lease.expiries"):
+                metrics.meter(m)
             metrics.gauge("lease.held").set_fn(lambda: 1 if self.held() else 0)
 
     def renew(self, lease: Optional[Dict[str, Any]]) -> None:
@@ -65,12 +67,22 @@ class ServingLease:
             self._granted = True
             self._epoch = epoch_int(lease.get("epoch"))
             self._expires_at = self._clock() + duration
+            self._was_held = True
         if self.metrics is not None:
             self.metrics.meter("lease.renewals").mark()
 
     def held(self) -> bool:
+        """True while unleased or renewed within the window; the move from
+        held to expired marks ``lease.expiries`` once."""
         with self._lock:
-            return not self._granted or self._clock() < self._expires_at
+            if not self._granted:
+                return True
+            held = self._clock() < self._expires_at
+            if not held and self._was_held:
+                self._was_held = False
+                if self.metrics is not None:
+                    self.metrics.meter("lease.expiries").mark()
+            return held
 
     def remaining_s(self) -> float:
         """Seconds left on the lease; infinite while unleased."""

@@ -6,20 +6,15 @@ replication, retention, indexing, quota and tenants, the declared key
 partitioning (``PartitionConfig``) the broker's join planner reads, and a
 REALTIME table's stream (``StreamConfig``, ``streamConfigs`` in the JSON).
 A table's ``slo`` block (``SloConfig``) sets the broker's SLO objectives
-for it (``utils/slo.py``).  Realtime tables
-consume through the low-level consumers (``realtime/llc.py``) from a
-network, file or memory stream; a high-level consumer group or a Kafka
-stream is refused (ROADMAP queue 1 item 29).
+for it (``utils/slo.py``).  Realtime tables consume from a network, Kafka,
+file or memory stream through the low-level consumers or through a
+high-level consumer group (``realtime/llc.py``).
 """
 from __future__ import annotations
 
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
-
-REALTIME_ITEM = ("high-level consumer groups and Kafka streams are item 29 of the port "
-                 "(ROADMAP queue 1)")
-STREAM_TYPES = ("network", "file", "memory")  # the stream types the port consumes
 
 
 @dataclass
@@ -76,17 +71,25 @@ class StreamConfig:
     """Realtime ingestion config (the kafka.* stream properties analog).
 
     ``stream_type`` selects the provider: ``network`` (the TCP stream
-    broker, ``realtime/netstream.py``; properties host, port), ``file``
-    (JSONL a partition; properties paths) or ``memory`` (in process;
-    properties partitions).  ``rows_per_segment`` is the flush threshold
-    of a consuming segment.  ``consumer_type`` "lowlevel" is one
-    controller-coordinated consumer a stream partition (LLC)."""
+    broker, ``realtime/netstream.py``; properties host, port), ``kafka``
+    (the Kafka v0 wire protocol, ``realtime/kafka.py``; properties host,
+    port), ``file`` (JSONL a partition; properties paths) or ``memory``
+    (in process; properties partitions).  ``rows_per_segment`` is the
+    flush threshold of a consuming segment.
 
-    stream_type: str = "file"
+    ``consumer_type`` "lowlevel" is one controller-coordinated consumer a
+    stream partition, with committer election and exact offset checkpoints
+    (LLC).  "highlevel" is one consumer a server in a consumer group the
+    stream broker coordinates: partitions rebalance across the servers as
+    members come and go, and the group's offsets are checkpointed in the
+    stream broker (HLC, ``HLRealtimeSegmentDataManager.java:54``).  It
+    needs a network or Kafka stream, where consumer groups live."""
+
+    stream_type: str = "file"  # network | kafka | file | memory
     topic: str = ""
     decoder: str = "json"
     rows_per_segment: int = 100_000
-    consumer_type: str = "lowlevel"
+    consumer_type: str = "lowlevel"  # lowlevel | highlevel
     properties: Dict[str, Any] = field(default_factory=dict)
 
 
@@ -206,8 +209,6 @@ class TableConfig:
                 consumer_type=sc.get("consumerType", "lowlevel"),
                 properties=sc.get("properties", {}),
             )
-            if stream.consumer_type != "lowlevel" or stream.stream_type not in STREAM_TYPES:
-                raise NotImplementedError(REALTIME_ITEM)
         seg = d.get("segmentsConfig", {})
         idx = d.get("tableIndexConfig", {})
         tenants = d.get("tenants", {})

@@ -26,17 +26,19 @@ segment record, LLC offset checkpoint and drain flag (``_recover``).
          /tenants   ({"name", "role", "count"})
          /tables/<table>/quota   ({"maxQueriesPerSecond", "burstQueries"})
          /tables/<table>/rebalance?dryRun=
-         /segments/<table>   (the segment file's bytes; refused past the
-                              table's storage quota)
+         /segments/<table>?server=   (the segment file's bytes; refused
+                              past the table's storage quota; ``server``
+                              pins the assignment)
          /deepstore/suspect   ({"table", "segment", "source"})
          /realtime/consumed   (segmentConsumed: {segment, server, offset, epoch})
          /realtime/commit/<segment>/<server>?epoch=   (segmentCommit: the
                               committed segment file's bytes)
+         /realtime/hlc/roll   ({table, server, idx, seq}: an HLC server's
+                              next CONSUMING segment)
   DELETE /tables/<table>  /tables/<table>/segments/<segment>
 
 A write of a fenced-off (older) controller, or a commit under an older
-epoch, answers a typed 409.  Left out, ROADMAP queue 1 item 29: the HLC
-roll route (``/realtime/hlc/roll``).
+epoch, answers a typed 409.
 """
 from __future__ import annotations
 
@@ -1176,11 +1178,20 @@ class ControllerHttpServer:
                         epoch = (parse_qs(url.query).get("epoch") or [None])[0]
                         return self._commit(parts[2], parts[3], epoch)
                     if len(parts) == 2 and parts[0] == "segments":
+                        # ?server= pins the assignment (an HLC segment stays
+                        # on the server that consumed it)
                         n = int(self.headers.get("Content-Length", "0"))
                         body = self.rfile.read(n)
                         pin = parse_qs(url.query).get("server")
                         servers = ctrl.upload_segment_bytes(parts[1], body, servers=pin)
                         return self._respond({"status": "ok", "servers": servers})
+                    if parts == ["realtime", "hlc", "roll"]:
+                        # a server sealed its HLC segment and consumes on at
+                        # the next sequence: record that CONSUMING segment
+                        body = self._read_json()
+                        seg = ctrl.realtime_manager.register_hlc_roll(
+                            body["table"], body["server"], int(body["idx"]), int(body["seq"]))
+                        return self._respond({"status": "ok", "segment": seg})
                     return self._respond({"error": "not found"}, 404)
                 except StaleEpochError as e:
                     return self._respond_stale(e)

@@ -1,5 +1,5 @@
-"""LLC (low-level consumer) realtime coordination (port of
-``pinot_tpu.realtime.llc``, without the high-level consumer groups).
+"""LLC (low-level consumer) and HLC (high-level consumer) realtime
+coordination (port of ``pinot_tpu.realtime.llc``).
 
 The reference's three-way exchange:
 
@@ -21,8 +21,14 @@ The reference's three-way exchange:
 Segment names are ``{table}__{partition}__{seq}`` (LLCSegmentName).
 With the controller's property store every checkpoint, ideal state and
 the stream's descriptor are durable, and ``recover_table`` resumes a
-restarted controller's tables from them.  Left out, ROADMAP queue 1
-item 29: the high-level consumer groups.
+restarted controller's tables from them.
+
+An HLC table (``consumerType: highlevel``) has one CONSUMING segment a
+live server instead (``ensure_hlc_consumers``), pinned to it and named
+``{table}__{idx}__{seq}``: the server's consumer is a member of the
+stream's consumer group, seals its own segment at the row threshold,
+uploads it pinned to itself and registers the next one
+(``register_hlc_roll``); no committer is elected.
 """
 from __future__ import annotations
 
@@ -374,8 +380,14 @@ class RealtimeSegmentManager:
             desc = describe_stream(stream)
             if desc is not None:
                 self.resources.property_store.put("streams", physical, desc)
-        for partition in range(stream.partition_count()):
-            self._create_consuming_segment(physical, partition, seq=0, start_offset=0)
+        if config.stream is not None and config.stream.consumer_type == "highlevel":
+            # HLC: one consumer a SERVER (not a partition) in a
+            # broker-coordinated group; its segments are server-owned and
+            # roll locally (HLRealtimeSegmentDataManager.java:54)
+            self.ensure_hlc_consumers(physical)
+        else:
+            for partition in range(stream.partition_count()):
+                self._create_consuming_segment(physical, partition, seq=0, start_offset=0)
         return physical
 
     def update_schema(self, raw_name: str, schema: Schema) -> List[str]:
@@ -391,6 +403,102 @@ class RealtimeSegmentManager:
                     tinfo["schema"] = schema
                     updated.append(physical)
         return updated
+
+    def _is_hlc(self, physical: str) -> bool:
+        with self._lock:
+            tinfo = self._tables.get(physical)
+        return bool(tinfo and tinfo["config"].stream is not None
+                    and tinfo["config"].stream.consumer_type == "highlevel")
+
+    def ensure_hlc_consumers(self, physical: str) -> None:
+        """Every live server gets one CONSUMING segment of an HLC table (a
+        new server joins the group when it registers: the server-available
+        repair hook calls this too)."""
+        if not self._is_hlc(physical):
+            return
+        with self.resources._lock:
+            live = sorted(name for name, inst in self.resources.instances.items()
+                          if inst.role == "server" and inst.alive and not inst.draining)
+        ideal = self.resources.get_ideal_state(physical)
+        # ownership from the pinned replica sets (a sealed upload replaces
+        # the segment's metadata, so its custom keys are no reliable
+        # record); the highest seq an idx has seen, so a recreated consumer
+        # never collides with a sealed segment's name
+        owners = set()
+        max_seq: Dict[int, int] = {}
+        idx_last: Dict[int, set] = {}  # the replica set of each idx's newest segment
+        consuming_idx = set()
+        for seg, replicas in ideal.items():
+            try:
+                _, idx, seq = parse_segment_name(seg)
+            except ValueError:
+                continue
+            if seq > max_seq.get(idx, -1):
+                max_seq[idx] = seq
+                idx_last[idx] = set(replicas)
+            if CONSUMING in replicas.values():
+                owners.update(replicas)
+                consuming_idx.add(idx)
+        next_idx = 0
+        for server in live:
+            if server in owners:
+                continue
+            # mid-roll (the sealed upload flipped the entry ONLINE before
+            # the roll registered its successor) or a crash after the seal:
+            # the server still owns the idx whose newest segment is pinned
+            # to it, so that idx goes on at the next sequence, under the
+            # name the server's own /realtime/hlc/roll registers (both
+            # paths dedupe, and no CONSUMING segment is opened at a fresh
+            # idx that no consumer serves)
+            resumed = False
+            for idx in sorted(max_seq):
+                if idx not in consuming_idx and server in idx_last.get(idx, ()):
+                    self._create_hlc_segment(physical, server, idx, seq=max_seq[idx] + 1)
+                    # the idx is taken: a second live server of the same
+                    # replica set goes on to a fresh idx, not to a no-op
+                    # on the deduped name
+                    max_seq[idx] += 1
+                    consuming_idx.add(idx)
+                    resumed = True
+                    break
+            if resumed:
+                continue
+            while next_idx in max_seq:
+                next_idx += 1
+            max_seq[next_idx] = -1
+            self._create_hlc_segment(physical, server, next_idx, seq=max_seq[next_idx] + 1)
+
+    def register_hlc_roll(self, physical: str, server: str, idx: int, seq: int) -> str:
+        """A server sealed its HLC segment and goes on locally at the next
+        sequence: record the new CONSUMING segment so routing covers it
+        (the server already serves it)."""
+        if not self._is_hlc(physical):
+            raise ValueError(f"{physical} is not a highlevel-consumer table")
+        return self._create_hlc_segment(physical, server, idx, seq)
+
+    def _create_hlc_segment(self, physical: str, server: str, idx: int, seq: int) -> str:
+        name = make_segment_name(physical, idx, seq)
+        with self._create_lock:
+            if name in self.resources.get_ideal_state(physical):
+                return name
+            with self._lock:
+                tinfo = self._tables.get(physical)
+            desc = describe_stream(tinfo["stream"]) if tinfo else None
+            meta = SegmentMetadata(
+                segment_name=name,
+                table_name=physical,
+                num_docs=0,
+                custom={"partition": idx, "seq": seq, "hlcServer": server, "status": "IN_PROGRESS"},
+            )
+            info: Dict[str, Any] = {"partition": idx, "startOffset": 0, "consumerType": "highlevel",
+                                    "hlcServer": server}
+            if desc is not None:
+                info["streamDescriptor"] = desc
+            if tinfo is not None:
+                info["rowsPerSegment"] = self._rows_per_segment(tinfo)
+                info["schemaJson"] = tinfo["schema"].to_json()
+            self.resources.add_segment(physical, meta, info, target_state=CONSUMING, servers=[server])
+            return name
 
     def recover_table(self, physical: str, config: TableConfig, schema: Schema) -> bool:
         """Rebuild the in-memory realtime wiring of a table restored from
@@ -459,6 +567,12 @@ class RealtimeSegmentManager:
 
     # -- server-side consumer creation (the in-process CONSUMING transition)
     def _start_consumer(self, server_instance, table: str, segment: str, info: Dict[str, Any]) -> bool:
+        if info.get("consumerType") == "highlevel":
+            # an HLC consumer lives in a networked server process (its
+            # group coordinator is the stream broker); the in-process
+            # harness hosts LLC tables only
+            logger.warning("in-process cluster cannot host HLC consumer %s", segment)
+            return False
         with self._lock:
             tinfo = self._tables.get(table)
             if (segment, server_instance.name) in self._consumers:
@@ -536,10 +650,14 @@ class RealtimeSegmentManager:
     def ensure_consuming_segments(self) -> None:
         """Recreate missing CONSUMING segments (ValidationManager.java:64's
         LLC repair) at the next sequence after the last stored one, from
-        its end offset."""
+        its end offset; for an HLC table, one a live server."""
         with self._lock:
             tables = list(self._tables.keys())
         for physical in tables:
+            if self._is_hlc(physical):
+                # the HLC repair: every live server must be consuming
+                self.ensure_hlc_consumers(physical)
+                continue
             ideal = self.resources.get_ideal_state(physical)
             with self._lock:
                 stream = self._tables[physical]["stream"]

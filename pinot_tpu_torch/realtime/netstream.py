@@ -1,6 +1,6 @@
 """Network stream broker: a TCP log of offset-addressed partitions for
-realtime ingestion (port of ``pinot_tpu.realtime.netstream``, without
-the consumer groups).
+realtime ingestion, with consumer groups (port of
+``pinot_tpu.realtime.netstream``).
 
 The reference pulls from Kafka by exact offset (``SimpleConsumerWrapper.java``);
 here a stream-broker server holds topics of append-only partition logs,
@@ -18,14 +18,24 @@ Protocol: one JSON object a frame.
       -> {"rows": [...], "nextOffset": o'}
   {"op": "latest",  "topic": t, "partition": p} -> {"offset": o}
   {"op": "meta",    "topic": t} -> {"partitions": n}
+the consumer-group ops (broker-coordinated membership, partition
+rebalance, durable group offsets; ``HLConsumer`` is the member):
+  {"op": "join",      "topic": t, "group": g, "consumer": c}
+      -> {"generation": n, "assignment": [p...], "members": [...], "offsets": {...}}
+  {"op": "heartbeat", "topic": t, "group": g, "consumer": c, "generation": n}
+      -> {"status": "ok"} | {"rebalance": true, "generation": n'}
+  {"op": "commit",    "topic": t, "group": g, "generation": n, "offsets": {p: o}}
+  {"op": "committed", "topic": t, "group": g} -> {"offsets": {p: o}}
+  {"op": "leave",     "topic": t, "group": g, "consumer": c}
+  {"op": "describe",  "topic": t, "group": g}
 and the columnar blocks (``COLUMNAR_MAGIC``, a JSON header, the column
 buffers): ``producec`` stores a block verbatim, ``fetchc`` serves the
 block that covers an offset.  A partition is row-mode or columnar from
 its first produce.
 
 With ``log_dir`` every row-mode partition is an append-only JSONL log
-replayed when the broker restarts.  Left out, ROADMAP queue 1 item 29:
-the consumer-group ops (join, heartbeat, commit, ...) and ``HLConsumer``.
+replayed when the broker restarts, and the groups' committed offsets live
+in ``__groups__.json`` beside them.
 """
 from __future__ import annotations
 
@@ -179,6 +189,46 @@ class _ColumnarLog:
         )
 
 
+class _Group:
+    """Consumer-group state for one (group, topic): membership with
+    heartbeat expiry, a generation counter bumped on every rebalance,
+    and per-partition committed offsets — the broker-side analog of the
+    reference HLC's ZK-committed consumer-group state
+    (``KafkaHighLevelConsumerStreamProvider.java``)."""
+
+    def __init__(self) -> None:
+        self.members: Dict[str, float] = {}  # consumer id -> last heartbeat
+        self.generation = 0
+        self.offsets: Dict[int, int] = {}
+        self.session_timeout = 30.0
+        self.partitions_seen = -1  # topic width at last (re)balance
+        self.acked: Dict[str, int] = {}  # consumer -> last generation it joined
+
+    def sync_pending(self) -> bool:
+        """True until every live member has (re)joined the current
+        generation — the rebalance sync barrier: members revoke-commit
+        before rejoining, so once sync completes the committed offsets
+        cover everything consumed under older generations and new
+        owners cannot replay another member's uncommitted rows."""
+        return any(self.acked.get(m, -1) != self.generation for m in self.members)
+
+    def expire(self, now: float) -> bool:
+        dead = [c for c, t in self.members.items() if now - t > self.session_timeout]
+        for c in dead:
+            del self.members[c]
+            self.acked.pop(c, None)
+        if dead:
+            self.generation += 1
+        return bool(dead)
+
+    def assignment(self, consumer: str, partitions: int) -> List[int]:
+        order = sorted(self.members)
+        if consumer not in order:
+            return []
+        i = order.index(consumer)
+        return list(range(partitions))[i :: len(order)]
+
+
 class StreamBrokerServer:
     """The broker process: topics of offset-addressed partition logs."""
 
@@ -190,9 +240,11 @@ class StreamBrokerServer:
     ) -> None:
         self.log_dir = log_dir
         self._topics: Dict[str, _Topic] = {}
+        self._groups: Dict[Tuple[str, str], _Group] = {}  # (group, topic)
         self._lock = threading.Lock()
         if log_dir is not None:
             os.makedirs(log_dir, exist_ok=True)
+            self._load_groups()
             # recover topics from on-disk logs
             for name in sorted(os.listdir(log_dir)):
                 tdir = os.path.join(log_dir, name)
@@ -241,6 +293,114 @@ class StreamBrokerServer:
                 ]
             self._topics[topic] = _Topic(partitions, log_paths)
 
+    # -- consumer-group offset durability ------------------------------
+    def _groups_path(self) -> Optional[str]:
+        if self.log_dir is None:
+            return None
+        return os.path.join(self.log_dir, "__groups__.json")
+
+    def _load_groups(self) -> None:
+        path = self._groups_path()
+        if path is None or not os.path.exists(path):
+            return
+        with open(path) as f:
+            saved = json.load(f)
+        for key, offs in saved.items():
+            group, topic = key.split("\x00", 1)
+            g = _Group()
+            g.offsets = {int(p): int(o) for p, o in offs.items()}
+            self._groups[(group, topic)] = g
+
+    def _save_groups(self) -> None:
+        path = self._groups_path()
+        if path is None:
+            return
+        data = {
+            f"{group}\x00{topic}": g.offsets
+            for (group, topic), g in self._groups.items()
+        }
+        atomic_write(path, json.dumps(data))
+
+    def _group_op(self, op: str, req: Dict[str, Any]) -> bytes:
+        """join / heartbeat / leave / commit / committed — must be
+        called with the lock held."""
+        key = (req["group"], req["topic"])
+        g = self._groups.setdefault(key, _Group())
+        now = time.monotonic()
+        consumer = req.get("consumer", "")
+        topic = self._topics.get(req["topic"])
+        partitions = len(topic.raw) if topic is not None else 0
+        if op == "join":
+            g.expire(now)
+            g.session_timeout = float(req.get("sessionTimeout", g.session_timeout))
+            if consumer not in g.members or partitions != g.partitions_seen:
+                g.generation += 1
+            g.partitions_seen = partitions
+            g.members[consumer] = now
+            g.acked[consumer] = g.generation
+            assignment = g.assignment(consumer, partitions)
+            pending = g.sync_pending()
+            logger.info(
+                "group %s: %s joined gen=%d assignment=%s members=%s "
+                "syncPending=%s offsets=%s",
+                key, consumer, g.generation, assignment, sorted(g.members),
+                pending, g.offsets,
+            )
+            return json.dumps(
+                {
+                    "generation": g.generation,
+                    "assignment": assignment,
+                    "members": sorted(g.members),
+                    "offsets": g.offsets,
+                    "syncPending": pending,
+                }
+            ).encode()
+        if op == "heartbeat":
+            changed = g.expire(now)
+            if consumer in g.members:
+                g.members[consumer] = now
+                if int(req.get("generation", -1)) == g.generation:
+                    g.acked[consumer] = g.generation
+            if partitions != g.partitions_seen:
+                # topic created or widened since the last (re)balance:
+                # force every member through a rejoin so assignments
+                # cover the new partitions
+                g.generation += 1
+                g.partitions_seen = partitions
+                changed = True
+            if changed or int(req.get("generation", -1)) != g.generation:
+                return json.dumps({"rebalance": True, "generation": g.generation}).encode()
+            return json.dumps({"status": "ok", "generation": g.generation}).encode()
+        if op == "leave":
+            if consumer in g.members:
+                del g.members[consumer]
+                g.generation += 1
+            return json.dumps({"status": "ok"}).encode()
+        if op == "commit":
+            if consumer not in g.members:
+                # a departed/expired consumer must not write offsets
+                return json.dumps({"rebalance": True, "generation": g.generation}).encode()
+            # monotonic, generation-independent: a live member commits
+            # positions for partitions it is LOSING during a rebalance
+            # (the revoke-commit) so the next owner resumes where it
+            # stopped instead of replaying — offsets only move forward
+            for p, off in req.get("offsets", {}).items():
+                pi = int(p)
+                g.offsets[pi] = max(int(g.offsets.get(pi, 0)), int(off))
+            self._save_groups()
+            return json.dumps({"status": "ok"}).encode()
+        if op == "committed":
+            return json.dumps({"offsets": g.offsets}).encode()
+        if op == "describe":
+            return json.dumps(
+                {
+                    "members": sorted(g.members),
+                    "generation": g.generation,
+                    "syncPending": g.sync_pending(),
+                }
+            ).encode()
+        return json.dumps({"error": f"unknown group op {op!r}"}).encode()
+
     def _handle(self, payload: bytes) -> bytes:
         if payload[:2] == COLUMNAR_MAGIC:
             return self._handle_columnar(payload)
@@ -250,6 +410,9 @@ class StreamBrokerServer:
             if op == "create":
                 self.create_topic(req["topic"], int(req.get("partitions", 1)))
                 return json.dumps({"status": "ok"}).encode()
+            if op in ("join", "heartbeat", "leave", "commit", "committed", "describe"):
+                with self._lock:
+                    return self._group_op(op, req)
             with self._lock:
                 topic = self._topics.get(req.get("topic", ""))
                 if topic is None:
@@ -352,7 +515,8 @@ class NetworkStreamProvider(StreamProvider):
         self.topic = topic
         self._transport = TcpTransport()
 
-    _IDEMPOTENT_OPS = ("create", "fetch", "latest", "meta")
+    _IDEMPOTENT_OPS = ("create", "fetch", "latest", "meta",
+                       "join", "heartbeat", "leave", "commit", "committed", "describe")
 
     def _call(self, req: Dict[str, Any]) -> Dict[str, Any]:
         payload = json.dumps({"topic": self.topic, **req}).encode()
@@ -462,3 +626,138 @@ class NetworkStreamProvider(StreamProvider):
             out = {c: a[skip:] for c, a in out.items()}
             n -= skip
         return out, n, int(header["nextOffset"])
+
+
+class HLConsumer:
+    """High-level consumer-group member — the HLC analog
+    (``HLRealtimeSegmentDataManager.java:54``,
+    ``KafkaHighLevelConsumerStreamProvider.java``): the broker assigns
+    partitions across the group's live members, rebalances on
+    join/leave/expiry, and stores group-committed offsets durably; the
+    consumer just polls its current assignment and commits.
+    """
+
+    def __init__(
+        self,
+        host: str,
+        port: int,
+        topic: str,
+        group: str,
+        consumer_id: str,
+        session_timeout: float = 30.0,
+    ) -> None:
+        self.provider = NetworkStreamProvider(host, port, topic)
+        self.topic = topic
+        self.group = group
+        self.consumer_id = consumer_id
+        self.session_timeout = session_timeout
+        # called when a rebalance revokes this member's assignment,
+        # BEFORE rejoining: persist consumed-but-uncommitted work (seal
+        # + commit) or discard it — returning normally means the member
+        # is clean and successors may take over its partitions
+        self.on_revoke = None
+        self.generation = -1
+        self.assignment: List[int] = []
+        self.positions: Dict[int, int] = {}
+        self.sync_pending = False
+
+    def _call(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        payload = {"group": self.group, "consumer": self.consumer_id, **req}
+        try:
+            return self.provider._call(payload)
+        except Exception:
+            # group ops are idempotent (commits are monotonic): one
+            # retry rides out a connection reset under load
+            time.sleep(0.05)
+            return self.provider._call(payload)
+
+    def join(self) -> List[int]:
+        out = self._call({"op": "join", "sessionTimeout": self.session_timeout})
+        self.generation = int(out["generation"])
+        self.assignment = [int(p) for p in out["assignment"]]
+        committed = {int(p): int(o) for p, o in out.get("offsets", {}).items()}
+        # positions restart from the group's committed offsets; a
+        # partition this member kept across the rebalance resumes from
+        # its own (possibly further) position — those rows are already
+        # in its local segment, re-reading them would duplicate
+        self.positions = {
+            p: max(committed.get(p, 0), self.positions.get(p, 0))
+            for p in self.assignment
+        }
+        self.sync_pending = bool(out.get("syncPending"))
+        return self.assignment
+
+    def poll(self, max_rows_per_partition: int = 500) -> List[Tuple[int, Row]]:
+        """Heartbeat, rejoin if the group rebalanced, then drain up to
+        ``max_rows_per_partition`` from each assigned partition.
+        Returns (partition, row) pairs."""
+        hb = self._call({"op": "heartbeat", "generation": self.generation})
+        if hb.get("rebalance"):
+            # revoke: make consumed work durable (or drop it) before
+            # the new assignment, so successors neither replay rows a
+            # live member still serves nor skip rows nobody persisted
+            try:
+                if self.on_revoke is not None:
+                    self.on_revoke()
+                else:
+                    self.commit()
+            except Exception:
+                # The hook owns persist-or-discard of locally consumed
+                # rows and handles its own failures (seal/upload errors
+                # discard + reset internally); it raising means local
+                # state is unknown.  Keep positions as-is — join() floors
+                # them at committed, and guessing here (e.g. resetting)
+                # would re-fetch rows whose seal already made them
+                # durable.  Surface the bug loudly instead of silently
+                # continuing.
+                logger.exception(
+                    "on_revoke failed for %s/%s", self.group, self.consumer_id
+                )
+            self.join()
+        if self.sync_pending:
+            # rebalance sync barrier: hold fetches until every member
+            # has revoke-committed + rejoined the current generation
+            self.join()
+            if self.sync_pending:
+                return []
+        out: List[Tuple[int, Row]] = []
+        for p in self.assignment:
+            rows, nxt = self.provider.fetch(
+                p, self.positions.get(p, 0), max_rows_per_partition
+            )
+            out.extend((p, r) for r in rows)
+            self.positions[p] = nxt
+        return out
+
+    def commit(self) -> bool:
+        """Commit current positions; False if a rebalance intervened
+        (caller rejoins on next poll and replays from committed)."""
+        out = self._call(
+            {
+                "op": "commit",
+                "generation": self.generation,
+                "offsets": {str(p): self.positions[p] for p in self.assignment},
+            }
+        )
+        return not out.get("rebalance", False)
+
+    def committed_offsets(self) -> Dict[int, int]:
+        out = self._call({"op": "committed"})
+        return {int(p): int(o) for p, o in out["offsets"].items()}
+
+    def reset_to_committed(self) -> None:
+        """Drop local positions back to the group's committed offsets —
+        required after discarding locally-consumed-but-unpersisted rows
+        (they must be re-fetched, not skipped)."""
+        committed = self.committed_offsets()
+        self.positions = {p: committed.get(p, 0) for p in self.assignment}
+
+    def describe_group(self) -> Dict[str, Any]:
+        """Group membership/state without joining (ops tooling + tests)."""
+        return self._call({"op": "describe"})
+
+    def close(self) -> None:
+        try:
+            self._call({"op": "leave"})
+        except Exception:
+            pass

@@ -1,12 +1,13 @@
 """Stream providers: offset-addressed row sources for realtime ingestion
-(port of ``pinot_tpu.realtime.stream``, without Kafka).
+(port of ``pinot_tpu.realtime.stream``).
 
 The reference consumes Kafka by exact partition offset (LLC,
 ``SimpleConsumerWrapper.java``) and ships a file-backed fake for tests
 (``FileBasedStreamProviderImpl.java``).  Every provider here speaks that
 interface: ``fetch(partition, offset, max_rows) -> (rows, next_offset)``.
-The network provider is ``realtime/netstream.py``; Kafka and consumer
-groups are ROADMAP queue 1 item 29.
+The network provider is ``realtime/netstream.py``, the Kafka wire-protocol
+provider ``realtime/kafka.py``; the high-level consumers of a consumer
+group are ``netstream.HLConsumer`` and ``kafka_group.KafkaGroupConsumer``.
 """
 from __future__ import annotations
 
@@ -149,6 +150,11 @@ def stream_provider_from_config(stream_config) -> StreamProvider:
         from pinot_tpu_torch.realtime.netstream import NetworkStreamProvider
 
         return NetworkStreamProvider(props.get("host", "127.0.0.1"), int(props["port"]), stream_config.topic)
+    if t == "kafka":
+        # the Kafka v0 wire protocol, no client library (realtime/kafka.py)
+        from pinot_tpu_torch.realtime.kafka import KafkaStreamProvider
+
+        return KafkaStreamProvider(props.get("host", "127.0.0.1"), int(props["port"]), stream_config.topic)
     if t == "file":
         return FileBasedStreamProvider(props["paths"])
     if t == "memory":
@@ -180,4 +186,8 @@ def stream_from_descriptor(desc: Dict[str, Any]) -> StreamProvider:
         from pinot_tpu_torch.realtime.netstream import NetworkStreamProvider
 
         return NetworkStreamProvider(desc["host"], int(desc["port"]), desc["topic"])
+    if t == "kafka":
+        from pinot_tpu_torch.realtime.kafka import KafkaStreamProvider
+
+        return KafkaStreamProvider(desc["host"], int(desc["port"]), desc["topic"])
     raise ValueError(f"unknown stream descriptor {desc!r}")

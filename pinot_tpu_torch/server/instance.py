@@ -88,6 +88,7 @@ import torch
 
 from pinot_tpu_torch.broker.freshness import WATERMARKS
 from pinot_tpu_torch.common.datatable import deserialize_instance_request, serialize_result
+from pinot_tpu_torch.common.fencing import ServingLease
 from pinot_tpu_torch.common.response import ErrorCode
 from pinot_tpu_torch.engine import config, kernels
 from pinot_tpu_torch.engine import join as join_mod
@@ -223,6 +224,16 @@ class ServerInstance:
         self.draining = False
         self._table_schemas = {}  # raw table name -> Schema (set_table_schema)
         self.metrics = ServerMetrics(name)
+        # the serving lease, renewed from heartbeat replies by the networked
+        # starter: while it is expired the server keeps serving but has no
+        # write authority (no commit, no new CONSUMING role); never granted
+        # (in process, no gateway) is implicit authority
+        self.lease = ServingLease(metrics=self.metrics)
+        for m in ("lease.blockedCommits", "lease.blockedTransitions"):
+            self.metrics.meter(m)
+        # 1 while consecutive heartbeats to the controller fail
+        self.metrics.gauge("controller.unreachable").set(0)
+        self.metrics.meter("controller.heartbeatFailures")
         self.lanes = (
             LaneGroup(
                 self.device,
@@ -893,6 +904,7 @@ class ServerInstance:
             "warming": self.prewarm.warming,
             "ready": not self.prewarm.warming,
             "prewarm": self.prewarm.state(),
+            "lease": self.lease.snapshot(),
             "scheduler": self.scheduler.stats(),
             "lane": None if self.lanes is None else self.lanes.stats(),
             "selfHealing": heal,

@@ -27,10 +27,13 @@
 - its residency caps come from the environment
   (``starter.residency_options``).
 
+A CONSUMING message of a highlevel table starts an ``HLRemoteConsumer``
+instead: one consumer-group member a table on its own thread, which seals
+its segment at the row threshold, uploads it pinned to this server, then
+commits the group's offsets and rolls to the next sequence.
+
 The heartbeat and message loops back off with full jitter while the
-controller is unreachable and keep serving from local state.  Left out,
-ROADMAP queue 1 item 29: the high-level consumer (``HLRemoteConsumer``);
-a CONSUMING message of a highlevel table fails its transition.
+controller is unreachable and keep serving from local state.
 """
 from __future__ import annotations
 
@@ -48,11 +51,18 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
-from pinot_tpu_torch.common.fencing import ServingLease
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.controller.resource_manager import CONSUMING, DROPPED, OFFLINE, ONLINE
-from pinot_tpu_torch.realtime.llc import attach_freshness, detach_freshness, fetch_and_index
+from pinot_tpu_torch.realtime.kafka_group import KafkaGroupConsumer
+from pinot_tpu_torch.realtime.llc import (
+    attach_freshness,
+    detach_freshness,
+    fetch_and_index,
+    make_segment_name,
+    parse_segment_name,
+)
 from pinot_tpu_torch.realtime.mutable import MutableSegment
+from pinot_tpu_torch.realtime.netstream import HLConsumer
 from pinot_tpu_torch.realtime.pool import IngestConsumerPool
 from pinot_tpu_torch.realtime.stream import LagProbe, stream_from_descriptor
 from pinot_tpu_torch.segment.fetcher import DEFAULT_FACTORY
@@ -72,9 +82,6 @@ from pinot_tpu_torch.transport.tcp import TcpServer
 from pinot_tpu_torch.utils.retry import FullJitterBackoff, tighten_liveness_budget
 
 logger = logging.getLogger(__name__)
-
-HLC_ITEM = "high-level consumer groups are item 29 of the port (ROADMAP queue 1)"
-
 
 class ServerAdminHttpServer:
     """The server's scrape and ops surface: ``/health``, Prometheus text at
@@ -307,7 +314,7 @@ class RemoteConsumer:
     def _completion_round(self) -> bool:
         """One segmentConsumed exchange; True when this consumer is done.
         Idle verdicts (HOLD, a freeze, a failed commit) set ``_park_s``."""
-        lease = self.starter.lease
+        lease = self.starter.server.lease
         if not lease.held():
             # no write authority while the lease is expired
             self._metrics.meter("lease.blockedCommits").mark()
@@ -384,6 +391,168 @@ class RemoteConsumer:
         return True
 
 
+class HLRemoteConsumer:
+    """A server's high-level consumer of one table
+    (``HLRealtimeSegmentDataManager.java:54``): this server is one member
+    of the table's consumer group, and the stream broker assigns it
+    partitions and rebalances them as members come and go.  Rows index
+    into a server-owned mutable segment; at the row threshold the segment
+    converts and uploads pinned to this server, then the group's offsets
+    commit, and consumption rolls locally to the next sequence (an HLC
+    segment has one owner, so no committer is elected).  Delivery is at
+    least once across a rebalance, as in the reference.  The group is the
+    stream broker's (``netstream.HLConsumer``) or, for a Kafka stream,
+    Kafka's group coordinator (``kafka_group.KafkaGroupConsumer``)."""
+
+    rolls_locally = True  # the ONLINE of a sealed HLC segment must not stop it
+
+    def __init__(self, starter: "NetworkedServerStarter", table: str, segment: str, msg: Dict[str, Any]) -> None:
+        self.starter = starter
+        self.table = table
+        self.segment = segment
+        _, self.idx, self.seq = parse_segment_name(segment)
+        self.rows_per_segment = int(msg.get("rowsPerSegment", 100_000))
+        self.poll_interval_s = float(msg.get("pollIntervalS", 0.2))
+        desc = msg["streamDescriptor"]
+        consumer_cls = KafkaGroupConsumer if desc.get("type") == "kafka" else HLConsumer
+        self.consumer = consumer_cls(desc["host"], int(desc["port"]), desc["topic"], group=table,
+                                     consumer_id=starter.name,
+                                     session_timeout=float(msg.get("sessionTimeoutS", 10.0)))
+        self.consumer.on_revoke = self._on_revoke
+        self.schema = Schema.from_json(msg["schemaJson"])
+        self.mutable = MutableSegment(self.schema, segment, table)
+        self._metrics = starter.server.metrics
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> None:
+        self.starter.server.add_segment(self.table, self.mutable)
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self.consumer.close()
+        except Exception:
+            pass
+        # the loop ends within a poll: joined, so no consumer thread is left
+        # inside the server after its shutdown
+        if self._thread is not None and self._thread is not threading.current_thread():
+            self._thread.join(timeout=10)
+
+    def _run(self) -> None:
+        try:
+            joined = False
+            while not self._stop.is_set():
+                if not joined:
+                    try:
+                        self.consumer.join()
+                        joined = True
+                    except Exception as e:
+                        # the stream broker is not reachable yet: a one-shot
+                        # join would strand the consumer, so it retries
+                        logger.warning("HLC join failed for %s: %s", self.segment, e)
+                        self._stop.wait(self.poll_interval_s)
+                        continue
+                try:
+                    budget = self.rows_per_segment - self.mutable.num_docs
+                    rows = self.consumer.poll() if budget > 0 else []
+                except Exception as e:
+                    logger.warning("HLC poll failed for %s: %s", self.segment, e)
+                    self._stop.wait(self.poll_interval_s)
+                    continue
+                self.mutable.index_batch([row for _, row in rows])
+                if rows:
+                    self._metrics.meter("ingest.rowsConsumed").mark(len(rows))
+                if self.mutable.num_docs >= self.rows_per_segment:
+                    if not self._seal_and_roll():
+                        self._stop.wait(self.poll_interval_s)
+                elif not rows:
+                    self._stop.wait(self.poll_interval_s)
+        except Exception:
+            logger.exception("HLC consumer for %s died", self.segment)
+
+    def _on_revoke(self) -> None:
+        """A rebalance revoked (part of) the assignment: the uncommitted
+        rows must be durable before a successor resumes, so the segment
+        seals, uploads and commits now (a small segment is fine; a
+        rebalance is rare).  If the upload fails the uncommitted rows are
+        DISCARDED instead: they stay uncommitted, the successor reads them
+        again, and keeping them here would count them twice."""
+        if self.mutable.num_docs == 0:
+            try:
+                self.consumer.commit()
+            except Exception as e:
+                # every consumed row is durable in a sealed segment already;
+                # a failed commit only makes a successor read again from
+                # older committed offsets (at least once)
+                logger.warning("HLC revoke-time offset commit failed: %s", e)
+            return
+        try:
+            sealed = self._seal_and_roll()
+        except Exception:
+            # e.g. the conversion failed: the discard path below leaves the
+            # member in a known state rather than raising into the consumer
+            logger.exception("HLC seal during revoke failed for %s", self.segment)
+            sealed = False
+        if not sealed:
+            old = self.segment
+            self.mutable = MutableSegment(self.schema, self.segment, self.table)
+            self.starter.server.add_segment(self.table, self.mutable)
+            # the discarded rows were neither persisted nor committed: the
+            # positions go back to the committed offsets, so whoever owns
+            # these partitions next (maybe this member) fetches them again
+            try:
+                self.consumer.reset_to_committed()
+            except Exception as e:
+                logger.warning("HLC position rollback failed: %s", e)
+            logger.warning("HLC revoke: upload failed; discarded uncommitted rows of %s", old)
+
+    def _seal_and_roll(self) -> bool:
+        """Convert, upload pinned to this server, THEN commit the group's
+        offsets, then roll to the next sequence (``ingest.commitConvertMs``,
+        ``ingest.commitUploadMs``)."""
+        t0 = time.perf_counter()
+        committed = self.mutable.to_committed_segment()
+        t1 = time.perf_counter()
+        try:
+            self.starter.upload_file_bytes(
+                f"/segments/{urllib.parse.quote(self.table)}?server={urllib.parse.quote(self.starter.name)}",
+                self.starter.segment_file_bytes(committed))
+        except Exception as e:
+            logger.warning("HLC upload of %s failed (will retry): %s", self.segment, e)
+            return False
+        t2 = time.perf_counter()
+        self._metrics.timer("ingest.commitConvertMs").update((t1 - t0) * 1000)
+        self._metrics.timer("ingest.commitUploadMs").update((t2 - t1) * 1000)
+        # the segment is durable on the controller: checkpoint the group's
+        # offsets, then go on at the next sequence (a crash between the
+        # upload and the commit re-reads rows: the reference's HLC contract)
+        try:
+            self.consumer.commit()
+        except Exception as e:
+            logger.warning("HLC offset commit failed for %s: %s", self.segment, e)
+        old = self.segment
+        self.seq += 1
+        self.segment = make_segment_name(self.table, self.idx, self.seq)
+        self.mutable = MutableSegment(self.schema, self.segment, self.table)
+        # re-keyed BEFORE the controller hears of it, so the CONSUMING
+        # transition of the new name dedupes against this consumer
+        self.starter._consumers.pop(old, None)
+        self.starter._consumers[self.segment] = self
+        self.starter.server.add_segment(self.table, self.mutable)
+        try:
+            self.starter._post("/realtime/hlc/roll", {"table": self.table, "server": self.starter.name,
+                                                       "idx": self.idx, "seq": self.seq})
+        except Exception as e:
+            # routing misses the new consuming segment until the validation
+            # repair registers it; the rows are safe
+            logger.warning("HLC roll notify failed for %s: %s", self.segment, e)
+        logger.info("HLC sealed %s (%d rows), rolled to %s", old, committed.num_docs, self.segment)
+        return True
+
+
 class NetworkedServerStarter:
     """``device``: the card the server stages and launches on (None: the
     current CUDA device; ``"cpu"`` for tests).  ``data_dir`` keeps a local
@@ -411,7 +580,6 @@ class NetworkedServerStarter:
         self.data_dir = data_dir
         self.heartbeat_interval_s = heartbeat_interval_s
         self.poll_interval_s = poll_interval_s
-        self.lease = ServingLease(metrics=self.server.metrics)
         # the heartbeat backoff stays under the controller's liveness
         # window (tightened from the register reply), so an asymmetric
         # partition cannot flap a live server dead
@@ -419,7 +587,9 @@ class NetworkedServerStarter:
         self._hb_timeout_s = 10.0
         self._msg_backoff = FullJitterBackoff(initial_s=max(0.1, poll_interval_s), cap_s=10.0)
         self._local_crcs: Dict[str, int] = {}
-        self._consumers: Dict[str, RemoteConsumer] = {}  # segment -> consumer
+        # segment -> consumer (a RemoteConsumer, or an HLRemoteConsumer
+        # keyed under its current segment)
+        self._consumers: Dict[str, Union[RemoteConsumer, HLRemoteConsumer]] = {}
         # one bounded worker pool drives every LLC consumer of this server
         self.ingest_pool = IngestConsumerPool(metrics=self.server.metrics, name=name)
         self._stop = threading.Event()
@@ -474,7 +644,7 @@ class NetworkedServerStarter:
         self.tcp.start()
         self.admin.start()
         out = self._post("/instances", self._register_payload())
-        self.lease.renew(out.get("lease"))
+        self.server.lease.renew(out.get("lease"))
         timeout = out.get("heartbeatTimeoutSeconds")
         if timeout:
             self._hb_timeout_s = tighten_liveness_budget(self._hb_backoff, float(timeout), self._hb_timeout_s)
@@ -520,10 +690,10 @@ class NetworkedServerStarter:
                 # the drain flag rides the reply; a "held" reply (flap
                 # hysteresis) carries no lease
                 self.server.draining = bool(out.get("draining"))
-                self.lease.renew(out.get("lease"))
+                self.server.lease.renew(out.get("lease"))
                 if out.get("reregister"):
                     reg = self._post("/instances", self._register_payload(), timeout_s=self._hb_timeout_s)
-                    self.lease.renew(reg.get("lease"))
+                    self.server.lease.renew(reg.get("lease"))
                 if self._hb_backoff.failures:
                     # the controller is back: queued transitions land at
                     # once, and frozen consumers leave their backoff
@@ -570,7 +740,7 @@ class NetworkedServerStarter:
 
     def _handle(self, msg: Dict[str, Any]) -> None:
         table, segment, target = msg["table"], msg["segment"], msg["target"]
-        if target == CONSUMING and not self.lease.held():
+        if target == CONSUMING and not self.server.lease.held():
             # no new consuming role without write authority: not acked, the
             # message comes again once the lease renews
             self.server.metrics.meter("lease.blockedTransitions").mark()
@@ -579,8 +749,12 @@ class NetworkedServerStarter:
         try:
             if target == ONLINE:
                 # CONSUMING -> ONLINE: the consumer retires before the
-                # committed copy replaces its mutable segment
-                self._retire_consumer(segment)
+                # committed copy replaces its mutable segment.  An HLC
+                # consumer rolls itself to the next sequence (it may still
+                # be keyed under the sealed name for an instant): never here
+                consumer = self._consumers.get(segment)
+                if consumer is not None and not getattr(consumer, "rolls_locally", False):
+                    self._retire_consumer(segment)
                 ok = self._load(table, segment, msg.get("crc"), msg.get("downloadUri"),
                                 msg.get("invertedIndexColumns"), msg.get("schemaJson"))
             elif target == CONSUMING:
@@ -610,10 +784,16 @@ class NetworkedServerStarter:
         if not msg.get("streamDescriptor") or not msg.get("schemaJson"):
             logger.error("CONSUMING message for %s lacks a consume spec", segment)
             return False
-        if msg.get("consumerType", "lowlevel") != "lowlevel":
-            logger.error("CONSUMING %s/%s: %s", table, segment, HLC_ITEM)
-            return False
-        consumer = RemoteConsumer(self, table, segment, msg)
+        if msg.get("consumerType") == "highlevel":
+            # one group member a (server, table): a replayed CONSUMING of an
+            # older sequence (after a controller recovery) must not start a
+            # second consumer under the same member id
+            for c in self._consumers.values():
+                if getattr(c, "rolls_locally", False) and c.table == table:
+                    return True
+            consumer = HLRemoteConsumer(self, table, segment, msg)
+        else:
+            consumer = RemoteConsumer(self, table, segment, msg)
         self._consumers[segment] = consumer
         consumer.start()
         return True

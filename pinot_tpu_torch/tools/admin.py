@@ -45,9 +45,19 @@ Commands:
                              table of an in-process cluster, then queried
   NetworkRealtimeQuickstart  the same across processes: a TCP stream
                              broker, a controller, a server and a broker
+                             (-consumer-type highlevel: a consumer group;
+                             -stream-protocol kafka: over the Kafka wire
+                             protocol)
+  HybridQuickstart  one meetupRsvp table with an OFFLINE and a REALTIME
+                    side, split at the time boundary (-no-http: print and
+                    exit)
+  StartStreamBroker  a TCP stream-broker process (topics, consumer groups;
+                    -kafka-port also serves the Kafka v0 wire protocol and
+                    its group coordinator over the same topics)
 
-StartController, StartServer and StartBroker print ``READY <role>
-<address>`` once they serve; StartCluster, StartBuildWorker and Quickstart
+StartController, StartServer, StartBroker and StartStreamBroker print
+``READY <role> <address>`` once they serve (StartStreamBroker: ``READY
+streambroker host:port``, and ``READY kafka host:port`` with -kafka-port); StartCluster, StartBuildWorker and Quickstart
 print the reference's lines.  Each serves until SIGTERM or SIGINT, when
 it stops its threads and exits 0.
 ``-device`` names the device of the role (default ``cuda``, the card;
@@ -329,10 +339,45 @@ def cmd_realtime_quickstart(args) -> None:
 def cmd_network_realtime_quickstart(args) -> None:
     from pinot_tpu_torch.tools.quickstart import run_network_realtime_quickstart
 
-    count = run_network_realtime_quickstart(num_events=args.events, device=str(_device(args)))
-    print(f"DONE networked realtime quickstart: {count} events ingested", flush=True)
+    count = run_network_realtime_quickstart(num_events=args.events, device=str(_device(args)),
+                                            consumer_type=args.consumer_type, stream_protocol=args.stream_protocol)
+    print(f"DONE networked realtime quickstart: {count} events ingested "
+          f"({args.consumer_type}, {args.stream_protocol} stream)", flush=True)
     if count < args.events:
         raise SystemExit(1)
+
+
+def cmd_hybrid_quickstart(args) -> None:
+    """The hybrid demo (HybridQuickstart.java)."""
+    from pinot_tpu_torch.tools.quickstart import run_hybrid_quickstart
+
+    cluster = run_hybrid_quickstart(num_offline=args.offline_rows, num_realtime=args.realtime_rows,
+                                    http=not args.no_http, device=_device(args))
+    if args.no_http:
+        cluster.stop()
+        print("DONE hybrid quickstart", flush=True)
+        return
+    print("Ctrl-C to exit.", flush=True)
+    _serve_until_signal([cluster.stop])
+
+
+def cmd_start_stream_broker(args) -> None:
+    """A stream-broker process: the Kafka-broker role of realtime ingestion
+    (``realtime/netstream.py``), with the Kafka wire protocol beside it on
+    -kafka-port (``realtime/kafka.py``)."""
+    from pinot_tpu_torch.realtime.netstream import StreamBrokerServer
+
+    broker = StreamBrokerServer(port=args.port, log_dir=args.log_dir)
+    broker.start()
+    stoppers = [broker.stop]
+    print(f"READY streambroker {broker.address[0]}:{broker.address[1]}", flush=True)
+    if args.kafka_port is not None:
+        from pinot_tpu_torch.realtime.kafka import KafkaProtocolShim
+
+        shim = KafkaProtocolShim(broker, port=args.kafka_port).start()
+        stoppers.insert(0, shim.stop)
+        print(f"READY kafka {shim.address[0]}:{shim.address[1]}", flush=True)
+    _serve_until_signal(stoppers)
 
 
 def main(argv=None) -> None:
@@ -478,7 +523,25 @@ def main(argv=None) -> None:
         rq = sub.add_parser(cmd)
         rq.add_argument("-events", type=int, default=2000)
         rq.add_argument("-device", default="cuda")
+        if cmd == "NetworkRealtimeQuickstart":
+            rq.add_argument("-consumer-type", default="lowlevel", choices=["lowlevel", "highlevel"],
+                            dest="consumer_type")
+            rq.add_argument("-stream-protocol", default="native", choices=["native", "kafka"],
+                            dest="stream_protocol")
         rq.set_defaults(fn=fn)
+
+    hq = sub.add_parser("HybridQuickstart")
+    hq.add_argument("-offline-rows", type=int, default=1500, dest="offline_rows")
+    hq.add_argument("-realtime-rows", type=int, default=800, dest="realtime_rows")
+    hq.add_argument("-no-http", action="store_true")
+    hq.add_argument("-device", default="cuda")
+    hq.set_defaults(fn=cmd_hybrid_quickstart)
+
+    ssb = sub.add_parser("StartStreamBroker")
+    ssb.add_argument("-port", type=int, default=0)
+    ssb.add_argument("-log-dir", default=None, dest="log_dir")
+    ssb.add_argument("-kafka-port", type=int, default=None, dest="kafka_port")
+    ssb.set_defaults(fn=cmd_start_stream_broker)
 
     args = p.parse_args(argv)
     args.fn(args)

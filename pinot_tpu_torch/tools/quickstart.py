@@ -1,11 +1,16 @@
 """Quickstarts (port of ``pinot_tpu.tools.quickstart``; the
-``Quickstart.java:33`` and ``RealtimeQuickStart.java`` analogs).
+``Quickstart.java:33``, ``RealtimeQuickStart.java`` and
+``HybridQuickstart.java`` analogs).
 
 - ``run_offline_quickstart``: baseballStats rows built into 4 segments
   (optionally with star-trees), uploaded to an in-process cluster and
   queried, optionally through the broker's HTTP front;
 - ``run_realtime_quickstart``: an in-process cluster over a memory stream,
   consumed and committed in this process;
+- ``run_hybrid_quickstart``: one logical table with an OFFLINE side of
+  two historical segments and a REALTIME side whose stream starts before
+  the offline time boundary; the broker splits each query at the boundary
+  (``broker/time_boundary.py``), so every row is counted once;
 - ``run_network_realtime_quickstart``: a stream broker in this process, a
   controller, a server and a broker each a process of
   ``python -m pinot_tpu_torch.tools.admin``, the table created over REST
@@ -23,7 +28,7 @@ import sys
 import tempfile
 import time
 import urllib.request
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from pinot_tpu_torch.common.schema import DataType, FieldSpec, FieldType, Schema, TimeFieldSpec
 
@@ -147,6 +152,70 @@ def run_realtime_quickstart(num_events: int = 2000, device=None, verbose: bool =
     return cluster
 
 
+HYBRID_SAMPLE_QUERIES = (
+    "SELECT count(*) FROM meetupRsvp",
+    "SELECT max(mtime) FROM meetupRsvp",
+    "SELECT sum(rsvp_count) FROM meetupRsvp GROUP BY group_city TOP 5",
+)
+
+
+def hybrid_events(num_offline: int, num_realtime: int, base_ms: int,
+                  seed: int = 3) -> Tuple[List[Dict[str, Any]], List[Dict[str, Any]]]:
+    """The hybrid quickstart's events, one a second from ``base_ms``, drawn
+    in the reference's order: the offline side's ``num_offline``, then the
+    stream's, which starts 100 events before the boundary (those 100 drawn
+    again: the boundary sends their times to the offline side) and goes
+    ``num_realtime`` past it."""
+    rng = random.Random(seed)
+    cities = ["sf", "nyc", "seattle", "austin", "chicago"]
+
+    def event(i: int) -> Dict[str, Any]:
+        return {"venue_name": f"venue{rng.randrange(20)}", "event_name": f"event{rng.randrange(8)}",
+                "group_city": rng.choice(cities), "rsvp_count": rng.randint(1, 5), "mtime": base_ms + i * 1000}
+
+    offline = [event(i) for i in range(num_offline)]
+    return offline, [event(i) for i in range(num_offline - 100, num_offline + num_realtime)]
+
+
+def run_hybrid_quickstart(num_offline: int = 1500, num_realtime: int = 800, http: bool = False,
+                          verbose: bool = True, device=None, base_ms: Optional[int] = None):
+    """The same logical table served by an OFFLINE side (historical
+    segments) and a REALTIME side (the live stream), split at query time
+    at the offline side's max time: the offline side answers up to the
+    boundary, the realtime side the fresh tail, and each row counts once.
+    Returns the running ``InProcessCluster`` (the caller stops it)."""
+    from pinot_tpu_torch.realtime.stream import MemoryStreamProvider
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.tools.cluster_harness import InProcessCluster
+
+    schema = meetup_schema()
+    cluster = InProcessCluster(num_servers=2, http=http, timeout_ms=_DEMO_TIMEOUT_MS, device=device)
+    if base_ms is None:
+        base_ms = int(time.time() * 1000) - 86_400_000  # yesterday
+    offline_rows, realtime_rows = hybrid_events(num_offline, num_realtime, base_ms)
+    # the offline side: two historical segments
+    offline = cluster.add_offline_table(schema, table_name="meetupRsvp")
+    half = num_offline // 2
+    for name, part in (("hist0", offline_rows[:half]), ("hist1", offline_rows[half:])):
+        cluster.upload(offline, build_segment(schema, part, offline, name))
+    # the realtime side: the live tail starts BEFORE the boundary (the
+    # overlap the boundary splits), then goes past it
+    stream = MemoryStreamProvider(num_partitions=1)
+    rt_physical = cluster.add_realtime_table(schema, stream, rows_per_segment=10_000)
+    for row in realtime_rows:
+        stream.produce(row)
+    # consume, seal and roll until dry, so counts past one segment's
+    # budget land too
+    drain_stream(cluster, rt_physical, max_rows=1_000_000)
+    if verbose:
+        for pql in HYBRID_SAMPLE_QUERIES:
+            print(f"\n>>> {pql}")
+            print(json.dumps(cluster.query(pql).to_json(), indent=2)[:900])
+        if http:
+            print(f"\nbroker listening on http://127.0.0.1:{cluster.http.port}/query")
+    return cluster
+
+
 def _post(url: str, payload: dict) -> dict:
     req = urllib.request.Request(url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=30) as r:
@@ -154,10 +223,17 @@ def _post(url: str, payload: dict) -> dict:
 
 
 def run_network_realtime_quickstart(num_events: int = 2000, device: str = "cuda", data_dir: Optional[str] = None,
-                                    verbose: bool = True, timeout_s: float = 120.0) -> int:
+                                    verbose: bool = True, timeout_s: float = 120.0, consumer_type: str = "lowlevel",
+                                    stream_protocol: str = "native") -> int:
     """The deployment shape with the stream broker in Kafka's role.
-    Returns the count the broker answered once every event was visible;
-    every process it started is stopped before it returns."""
+    ``consumer_type="highlevel"`` consumes through a consumer group (two
+    partitions); ``stream_protocol="kafka"`` puts the Kafka v0 wire
+    protocol (``realtime/kafka.py``) in front of the stream broker and
+    makes the table's stream ``kafka``, so the server consumes through
+    Metadata / ListOffsets / Fetch (and the group coordinator's APIs for
+    an HLC table), as it would from a Kafka 0.8+ broker.  Returns the
+    count the broker answered once every event was visible; every process
+    it started is stopped before it returns."""
     from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
     from pinot_tpu_torch.realtime.netstream import NetworkStreamProvider, StreamBrokerServer
 
@@ -166,7 +242,13 @@ def run_network_realtime_quickstart(num_events: int = 2000, device: str = "cuda"
     stream_broker.start()
     host, port = stream_broker.address
     producer = NetworkStreamProvider(host, port, "meetupRsvp")
-    producer.create_topic(1)
+    producer.create_topic(1 if consumer_type == "lowlevel" else 2)
+    shim = None
+    if stream_protocol == "kafka":
+        from pinot_tpu_torch.realtime.kafka import KafkaProtocolShim
+
+        shim = KafkaProtocolShim(stream_broker).start()
+        host, port = shim.address
     repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs: List[subprocess.Popen] = []
@@ -195,8 +277,8 @@ def run_network_realtime_quickstart(num_events: int = 2000, device: str = "cuda"
                             "-timeout-ms", "300000"])
         _post(ctrl_url + "/schemas", meetup_schema().to_json())
         config = TableConfig(table_name="meetupRsvp", table_type="REALTIME", stream=StreamConfig(
-            stream_type="network", topic="meetupRsvp", rows_per_segment=500,
-            properties={"host": host, "port": port}))
+            stream_type="kafka" if shim is not None else "network", topic="meetupRsvp", rows_per_segment=500,
+            consumer_type=consumer_type, properties={"host": host, "port": port}))
         _post(ctrl_url + "/tables", config.to_json())
         producer.produce_batch(meetup_events(num_events))
         deadline = time.time() + timeout_s
@@ -221,5 +303,7 @@ def run_network_realtime_quickstart(num_events: int = 2000, device: str = "cuda"
                 proc.wait(timeout=30)
             if proc.stdout is not None:
                 proc.stdout.close()
+        if shim is not None:
+            shim.stop()
         stream_broker.stop()
     return count

@@ -372,6 +372,13 @@ BROKER_METRIC_CATALOG: Dict[str, str] = {
     "cost.hostMs": "per-query host-tier ms (merged cost vector)",
     "table.*.docsScanned": "per-table documents scanned",
     "table.*.bytesScanned": "per-table column bytes touched",
+    "controller.unreachable": "1 while cluster-state polls are failing "
+    "(serving from the last versioned snapshot)",
+    "controller.pollFailures": "failed cluster-state polls (partition / "
+    "controller outage; full-jitter retried)",
+    "controller.allDeadSnapshotsHeld": "cluster-state snapshots listing "
+    "NO live servers ignored in favor of the last routing (the "
+    "controller may be the partitioned one)",
 }
 
 SERVER_METRIC_CATALOG: Dict[str, str] = {
@@ -408,6 +415,21 @@ SERVER_METRIC_CATALOG: Dict[str, str] = {
     "cost.deviceMs": "per-query device-section ms",
     "cost.hostMs": "per-query host-tier ms",
     "cost.tier.*": "segments served per tier (cost-vector segment counts)",
+    # the serving lease's fence on write authority, and the controller's
+    # reachability while a partition is ridden out
+    "lease.held": "1 while this server holds (or never needed) a "
+    "serving lease — write authority",
+    "lease.renewals": "serving-lease renewals from heartbeat replies",
+    "lease.expiries": "serving-lease expiries (partitioned past the "
+    "lease window; write authority self-fenced)",
+    "lease.blockedCommits": "completion/commit rounds frozen because "
+    "the serving lease expired",
+    "lease.blockedTransitions": "CONSUMING transitions deferred "
+    "(unacked) while the serving lease was expired",
+    "controller.unreachable": "1 while heartbeats to the controller "
+    "are failing (riding out a partition on local state)",
+    "controller.heartbeatFailures": "failed controller heartbeats "
+    "(full-jitter retried)",
 }
 
 METRIC_CATALOGS: Dict[str, Dict[str, str]] = {

@@ -277,23 +277,26 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
 
 
 def test_realtime_config_accepted_and_hlc_or_kafka_refused():
-    """A REALTIME LLC config round-trips as the reference writes it; a
-    high-level consumer group or a Kafka stream is still item 29."""
+    """A REALTIME LLC config round-trips as the reference writes it, and
+    so do a high-level consumer group and a Kafka stream: the port once
+    refused those two, and now takes them as the reference does."""
     from pinot_tpu.common.tableconfig import StreamConfig as RefStreamConfig
     from pinot_tpu.common.tableconfig import TableConfig as RefTableConfig
-    from pinot_tpu_torch.common.tableconfig import REALTIME_ITEM, TableConfig
+    from pinot_tpu_torch.common import tableconfig
+    from pinot_tpu_torch.common.tableconfig import TableConfig
 
     ref = RefTableConfig("rt", table_type="REALTIME", replication=2, stream=RefStreamConfig(
         stream_type="network", topic="rt", rows_per_segment=5000, properties={"host": "127.0.0.1", "port": 9}))
     port = TableConfig.from_json(ref.to_json())
     assert port.to_json() == ref.to_json() and port.physical_name == "rt_REALTIME"
     assert port.stream.rows_per_segment == 5000 and port.stream.consumer_type == "lowlevel"
-    for change in ({"consumerType": "highlevel"}, {"streamType": "kafka"}):
+    for change in ({"consumerType": "highlevel"}, {"streamType": "kafka"},
+                   {"streamType": "kafka", "consumerType": "highlevel"}):
         d = ref.to_json()
         d["streamConfigs"].update(change)
-        with pytest.raises(NotImplementedError, match="item 29"):
-            TableConfig.from_json(d)
-    assert "item 29" in REALTIME_ITEM
+        port = TableConfig.from_json(d)
+        assert port.to_json() == RefTableConfig.from_json(d).to_json() == d
+    assert not hasattr(tableconfig, "REALTIME_ITEM")
 
 
 def test_precision_mode_is_explicit():

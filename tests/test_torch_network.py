@@ -281,7 +281,7 @@ def test_a_port_server_serves_behind_the_reference_controller(tmp_path):
         for name in ("q1", "distinct_price", "sel_top"):
             got = _broker_answer(broker, QUERIES[name])
             assert payloads_equivalent(got, _reference_answer(QUERIES[name]), rel_tol=REL, abs_tol=ABS), name
-        assert server.lease.snapshot()["granted"]  # the reference's lease JSON renews the port's lease
+        assert server.server.lease.snapshot()["granted"]  # the reference's lease JSON renews the port's lease
     finally:
         if broker is not None:
             broker.stop()
