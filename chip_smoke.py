@@ -23,7 +23,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      host before anything is staged, and a pair overflow the host finishes
      after the device run (K1, the pair reduce), against host oracles,
      timed apart (medians of 3, with hostMs and segmentsHost);
-  8. multi-value columns over 134,217,728 rows of make_test_schema()'s
+  8. multi-value columns over 33,554,432 rows of make_test_schema()'s
      table (MV_ANY and MV_NONE leaves, the group-by expansion through K1
      over each row's entries, every MV value state through K2 over the
      flattened entries), against exact and float64 oracles over the CSR
@@ -68,7 +68,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      ones the lanes record, ANALYZE's actualCost the reply's cost); every
      role stopped with SIGTERM;
  11. joins over the Star Schema Benchmark's lineorder (16 segments of
-     2^21 rows = 33,554,432, partitioned on lo_partkey), part (600,000
+     2^20 rows = 16,777,216, partitioned on lo_partkey), part (400,000
      rows, partitioned on p_partkey) and date (2,556 rows): ssb_q1_1
      (scalar, broadcast), ssb_q2_1 (a build-side group, colocated) and
      ssb_q2_1_mode (probe x build group, build-side min), each against a
@@ -79,8 +79,9 @@ QueryExecutor.execute -> reduce_to_response on one card:
      program against its plain version, K1 at the join's shape against
      its plain version and bound, a poisoned join plan healing to the
      host join; then two servers and the broker over TCP (broker p50 /
-     p99, ssb_q1_1 forced to shuffle, the join cost keys); then a
-     deployed cluster (role processes, partitioning through AddTable,
+     p99, ssb_q1_1 forced to shuffle, the join cost keys); and on phase
+     10's deployed cluster, before its roles stop (role processes,
+     partitioning through AddTable,
      ssb_q2_1 colocated over HTTP; its EXPLAIN, the colocated plan with
      nothing sent to a server, and EXPLAIN ANALYZE);
  12. star-tree tables, the reference's two cube configurations
@@ -106,7 +107,8 @@ QueryExecutor.execute -> reduce_to_response on one card:
      answering against an oracle of the rows; and the pruner's repair: a
      time filter past every ad-events segment pruned to the empty shapes
      with no launch;
- 13. the two filter tiers ahead of the scan over phase 1's lineitem:
+ 13. the two filter tiers ahead of the scan over phase 1's first 8
+     lineitem segments:
      postings for l_shipdate, l_quantity and l_extendedprice built and
      warmed as a server loads its segments (seconds a segment, bytes by
      column, run against packed containers); two ladders with zone_in's
@@ -114,7 +116,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      l_extendedprice BETWEEN one price up to 1/80 of the table
      (unsorted), each at the default route, with postings off (zone
      blocks / a full scan) and with zone maps off too (K1's full scan),
-     answers equal, medians of 10, and the measured postings / scan
+     answers equal, medians of 3, and the measured postings / scan
      crossover; bsi_count_sum and bsi_or_minmax from the bit-sliced tier
      (both decisions taken) against the scan tier exactly, the program by
      CUDA events against its byte bound, its planes' staging and the
@@ -146,8 +148,8 @@ QueryExecutor.execute -> reduce_to_response on one card:
      card; EXPLAIN over the tiers and EXPLAIN ANALYZE with K1 / K2 held
      against their plain versions;
  16. the offline build path and schema evolution: 2 of phase 1's lineitem
-     segments' first 2^20 rows written as CSV files (vectorized numpy), a
-     grown-schema CSV file (2^19 rows, three new columns with values) and
+     segments' first 2^18 rows written as CSV files (vectorized numpy), a
+     grown-schema CSV file (2^18 rows, three new columns with values) and
      an Avro file (2^17 rows, deflate); ``BatchCreateSegments -workers 4``
      builds the CSV files (the columnar path, the native parser) and
      pushes them to a deployed cluster (phase 10's roles), each segment's
@@ -166,10 +168,10 @@ QueryExecutor.execute -> reduce_to_response on one card:
      16 segments: q1 by l_returnflag x l_newflag (K1's fused route with a
      cardinality-1 group column) and distinctcount(l_newflag) (K2) against
      their oracles and plain versions, the default column's staged bytes;
- 17. the warm start and the utilization planes: phase 1's 16 segments as
-     files through a deployed cluster (phase 10's roles) with
+ 17. the warm start and the utilization planes: phase 1's first 8
+     segments as files through a deployed cluster (phase 10's roles) with
      ``PINOT_TPU_COMPILE_CACHE_DIR`` set to a fresh directory, one server
-     holding one segment and the other fifteen: q1, q3, hll_groupby,
+     holding one segment and the other seven: q1, q3, hll_groupby,
      distinct_price and pct_quantity through the broker against their
      oracles; the servers' ``/debug/plans`` and ``/debug/device``, the
      broker's and the controller's ``/debug/workload`` and the
@@ -216,7 +218,7 @@ QueryExecutor.execute -> reduce_to_response on one card:
      against their oracles with K1 / K2 launched on the servers; (b)
      server1 drained over HTTP (the stabilizer moves its segment to
      server0 before its last copy leaves the routing), undrained, and
-     ``RebalanceTable`` moving segments back toward 8 / 8 (the old copies
+     ``RebalanceTable`` moving segments back toward 4 / 4 (the old copies
      dropped once the new ones are ONLINE), q1 looped through both moves
      with every answer complete and equal to its oracle, the moves' walls,
      the servers' staged bytes, ``/debug/capacity``'s residency pressure
@@ -225,11 +227,11 @@ QueryExecutor.execute -> reduce_to_response on one card:
  20. Kafka and high-level-consumer ingestion (``kafka_phase``): a stream
      broker process (``StartStreamBroker -kafka-port 0``) and phase 14's
      roles; lineitem rows as JSON messages, 2 partitions a topic: (a) LLC
-     over the Kafka wire protocol, 1.5 x 2^20 rows a partition at
-     rowsPerSegment 2^20, queried at two watermarks (q1, count(*),
+     over the Kafka wire protocol, 1.5 x 2^18 rows a partition at
+     rowsPerSegment 2^18, queried at two watermarks (q1, count(*),
      distinct_price; each row counted exactly once; K1 / K2 launched on the
      servers; one commit a partition); (c) HLC over the Kafka group
-     protocol, two members, segments of 2^16 sealing, uploading pinned to
+     protocol, two members, segments of 2^15 sealing, uploading pinned to
      their server and rolling; (d) gzip, snappy and lz4 message sets, a
      table each, decoded and counted; (b) HLC over the stream broker's
      groups with server1 SIGKILLed mid-stream (the seconds until every
@@ -237,6 +239,24 @@ QueryExecutor.execute -> reduce_to_response on one card:
      sealed segment and Kafka-fed consuming snapshot and at (c)'s sealed
      HLC segment against their plain versions; the hybrid quickstart
      through the CLI and in process;
+ 21. the link fault plane (``netfaults_phase``): a controller, three
+     servers and a broker in this process over HTTP and TCP
+     (``NetworkedCluster``), every link through one seeded
+     ``NetworkFaultInjector``, the OFFLINE lineitem table as 6 segments of
+     2^22 rows at replication 2, and q1 / distinct_price as closed-loop
+     load from 4 clients (every complete answer equal to the one before the
+     faults, every incomplete one flagged partial): (a) a server cut from
+     the controller past its 2.5 s lease (no failed query, nothing moved
+     inside the lease); (b) the controller cut from every role (the broker
+     serves from its snapshot, the ideal state byte-identical after the
+     heal); (c) the replies to one replica of a REALTIME lineitem table fed
+     by a file stream (2 partitions of 2^20 rows) lost while its commits
+     come due (one commit a partition, by the healthy replica, the same
+     CRC on both replicas, count(*) equal to the rows produced); (d) a
+     backup while serving, the controller and its property store lost,
+     restored, the servers reloaded (every answer equal to the one before,
+     the old controller's write refused with StaleEpochError); K1 / K2 at
+     a server's shapes against their plain versions;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -260,7 +280,7 @@ its buffers.
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
          | --realtime-only | --residency-only | --build-only | --warmstart-only | --planes-only
-         | --controller-only | --kafka-only]
+         | --controller-only | --kafka-only | --netfaults-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
@@ -272,7 +292,8 @@ lineitem's datagen), ``--realtime-only`` phase 14 alone,
 part (a) on two servers of lineitem, then phases 14 and 17 with parts (b)
 and (c)) and ``--controller-only`` phase 19 (phase 14 with its controller
 restart, then phase 17 hosting 18 (c) and 19); each after lineitem's
-datagen; ``--kafka-only`` phase 20 alone (its own data).
+datagen; ``--kafka-only`` phase 20 alone and ``--netfaults-only`` phase 21
+alone (each its own data).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -370,9 +391,10 @@ HOST_QUERIES = {
 HOST_ITERS = 1  # timed runs per host-tier query: the path's run (3 before phase 13)
 # multi-value columns: make_test_schema()'s table (the reference tests'
 # default schema), cardinality 1000, 1..3 entries a row, 4 distinct seeded
-# segments of 2^23 rows tiled to 16; the queries' pool values are picked
-# from the global dictionaries at run time ({a}, {b}, ...)
+# segments of 2^23 rows tiled to MV_SEGMENTS; the queries' pool values are
+# picked from the global dictionaries at run time ({a}, {b}, ...)
 MV_DISTINCT = 4
+MV_SEGMENTS = 4  # the distinct segments untiled (16, lineitem's count, before phase 21)
 MV_CARDINALITY = 1000
 MV_MAX = 3
 MV_QUERIES = {
@@ -440,7 +462,7 @@ DEPLOY_FEW_ITERS = 1  # (5 before phase 15, 2 before 16)
 SEGMENTS = 16
 ROWS_PER_SEGMENT = 1 << 23
 ITERS = 20  # timed runs per median, after warm-up
-QUERY_ITERS = 5  # timed runs per whole-query median (ITERS before phase 15, 10 before 16)
+QUERY_ITERS = 3  # timed runs per whole-query median (ITERS before phase 15, 10 before 16, 5 before 21)
 MV_ITERS = 1  # timed runs per mvtest query (mv_groupby takes seconds a run; 5 before phase 14, 3 before 15, 2 before 16)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
@@ -1322,7 +1344,7 @@ BATCH_DATES = SERVE_DATES + ("1992-03-10", "1992-11-11", "1993-07-07", "1994-04-
 QTY_LADDER = (5, 10, 15, 20, 25, 30, 35, 40, 2, 7, 12, 17, 22, 27, 32, 37)
 SHIP_MODES = ("AIR", "FOB", "MAIL", "RAIL", "REG AIR", "SHIP", "TRUCK")
 LIBRARY_LADDER_ITERS = 3  # torch.bincount over a ladder's B members (ITERS, 20 after 3 warm-ups, before phase 17)
-SERVE_BATCH_ROUNDS = 3  # rounds of each eight-literal burst per batching setting (6 before phase 16)
+SERVE_BATCH_ROUNDS = 2  # rounds of each eight-literal burst per batching setting (6 before phase 16, 3 before 21)
 _K1_BATCHED_ARGS = ("filter_fwd", "match", "num_docs", "value_fwds", "value_dicts", "capacity", "dtype",
                     "filter_bounds", "value_raws", "group_cols", "group_cards", "group_remaps")
 
@@ -2329,6 +2351,12 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
     from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
 
     pqls = {**QUERIES, **VALUE_QUERIES, **SELECTION_QUERIES, **PAIR_QUERIES}
+    # the distinct-literal bursts' oracles, in a thread beside the first steps
+    qtys = QTY_LADDER[:len(SERVE_DATES)]
+    literal_pool = concurrent.futures.ThreadPoolExecutor(1)
+    literal_wants = literal_pool.submit(lambda: (q1_oracles(segments, SERVE_DATES), range_oracles(segments, qtys),
+                                                 distinct_oracles(segments, qtys)))
+    literal_pool.shutdown(wait=False)
     half = len(segments) // 2
     covers = {"server0": segments[:half], "server1": segments[half:]}
     # every oracle as in the in-process phases, but pairs_distinct's: each
@@ -2422,11 +2450,9 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
         # 8 clients at once, each with its own l_shipdate literal, each held
         # to its own oracle (stream and allocator races show here)
         t = time.perf_counter()
-        want_at = q1_oracles(segments, SERVE_DATES)
-        qtys = QTY_LADDER[:len(SERVE_DATES)]
-        want_range, want_distinct = range_oracles(segments, qtys), distinct_oracles(segments, qtys)
-        log(f"serve distinct q1, range and distinct_price oracles: {len(SERVE_DATES)} literals each in "
-            f"{time.perf_counter() - t:.1f} s")
+        want_at, want_range, want_distinct = literal_wants.result()
+        log(f"serve distinct q1, range and distinct_price oracles: {len(SERVE_DATES)} literals each, waited "
+            f"{time.perf_counter() - t:.1f} s for their thread")
         worst = 0.0
         for _ in range(SERVE_DISTINCT_ROUNDS):
             out = burst(fleet.broker, [q1_at(d) for d in SERVE_DATES])
@@ -2581,7 +2607,9 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
 
 PLANES_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price")  # the result cache's queries
 PLANES_ITERS = 10  # broker requests of the hit and the miss p50s
-PLANES_AUDIT_ITERS = 64  # requests at each auditor setting: the default 1-in-64 audits once a server
+# requests at each auditor setting: each server's count is primed, so the
+# default 1-in-64 audits the first one a server (64 before phase 21)
+PLANES_AUDIT_ITERS = 32
 # the auditor's cost on serving: q1's and pairs_distinct's oracles are numpy
 # (seconds at full width); the host tier runs sel_top's (every matched row)
 # and distinct_price's (no vectorized path) row by row (minutes)
@@ -3048,15 +3076,42 @@ REPO_DIR = os.path.dirname(os.path.abspath(__file__))
 _ROLES: List["_Role"] = []  # every role process started, stopped at exit too
 
 
+# A role that joins a controller not started yet: its interpreter imports
+# the package (the most of a process's start) while the controller starts,
+# then waits for the controller's URL in a file and runs the admin CLI's
+# main() on its arguments with the URL in place of CONTROLLER_URL.
+CONTROLLER_URL = "{controller}"
+_ROLE_AFTER_URL = """
+import os, sys, time
+import pinot_tpu_torch.broker.network_starter
+import pinot_tpu_torch.server.network_starter
+from pinot_tpu_torch.tools import admin
+path, deadline = sys.argv[1], time.monotonic() + float(sys.argv[2])
+while not os.path.exists(path):
+    if time.monotonic() > deadline:
+        sys.exit("no controller URL in " + path)
+    time.sleep(0.02)
+with open(path) as f:
+    url = f.read()
+admin.main([url if a == "{controller}" else a for a in sys.argv[3:]])
+"""
+
+
 class _Role:
     """One role process: ``python -m pinot_tpu_torch.tools.admin <args>``
-    from the checkout, its output in a log file."""
+    from the checkout, its output in a log file.  With ``url_file`` the
+    process starts before its controller: it loads the package, then runs
+    the CLI once ``url_file`` holds the URL (``CONTROLLER_URL`` in
+    ``args``)."""
 
-    def __init__(self, name: str, args: List[str], log_dir: str, env: Optional[Dict[str, str]] = None) -> None:
+    def __init__(self, name: str, args: List[str], log_dir: str, env: Optional[Dict[str, str]] = None,
+                 url_file: Optional[str] = None) -> None:
         self.name = name
         self.log = open(os.path.join(log_dir, f"{name}.log"), "w+")
         env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""), **(env or {}))
-        self.proc = subprocess.Popen([sys.executable, "-m", "pinot_tpu_torch.tools.admin", *args],
+        cmd = (["-m", "pinot_tpu_torch.tools.admin"] if url_file is None
+               else ["-c", _ROLE_AFTER_URL, url_file, str(DEPLOY_READY_S)])
+        self.proc = subprocess.Popen([sys.executable, *cmd, *args],
                                      cwd=REPO_DIR, env=env, stdout=self.log, stderr=subprocess.STDOUT, text=True)
         self.terminated = False
         _ROLES.append(self)
@@ -3198,14 +3253,19 @@ def start_roles(tmp: str, rec: dict, server_env: Optional[Dict[str, str]] = None
     t = time.perf_counter()
     ctrl = _Role("controller", ["StartController", "-port", "0", "-data-dir", os.path.join(tmp, "controller"),
                                 "-heartbeat-timeout", heartbeat_timeout, "-device", device], tmp)
-    url = ctrl.ready(DEPLOY_READY_S)[2]
-    # the servers and the broker need only the controller: they start together
-    servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", url, "-name", f"server{i}",
-                                                  "-port", "0", "-device", device, "-precision", "x32"], tmp,
-                                   env=server_env)
+    # the servers and the broker load the package meanwhile and join once
+    # the controller is READY
+    url_file = os.path.join(tmp, "controller.url")
+    servers = {f"server{i}": _Role(f"server{i}", ["StartServer", "-controller", CONTROLLER_URL, "-name",
+                                                  f"server{i}", "-port", "0", "-device", device, "-precision",
+                                                  "x32"], tmp, env=server_env, url_file=url_file)
                for i in range(2)}
-    broker = _Role("broker", ["StartBroker", "-controller", url, "-port", "0", "-timeout-ms", "600000",
-                              "-device", device], tmp)
+    broker = _Role("broker", ["StartBroker", "-controller", CONTROLLER_URL, "-port", "0", "-timeout-ms", "600000",
+                              "-device", device], tmp, url_file=url_file)
+    url = ctrl.ready(DEPLOY_READY_S)[2]
+    with open(url_file + ".tmp", "w") as f:
+        f.write(url)
+    os.replace(url_file + ".tmp", url_file)
     admin = {n: r.ready(DEPLOY_READY_S)[-1] for n, r in servers.items()}
     broker_url = broker.ready(DEPLOY_READY_S)[2]
     start_s = time.perf_counter() - t
@@ -3233,11 +3293,13 @@ def wait_online(url: str, broker_url: str, table: str, n: int, alive) -> float:
         time.sleep(0.2)
 
 
-def deployed_phase(segments, wants, record) -> None:
+def deployed_phase(segments, wants, record, then=None) -> None:
     """10. The lineitem table as a deployment runs it: the segments written
     as files, a controller, two servers and a broker started as processes
     of the admin CLI, the files uploaded through the controller, and the
-    queries sent to the broker's HTTP endpoint."""
+    queries sent to the broker's HTTP endpoint.  ``then``: called with the
+    roles (controller URL, admin URLs, broker URL, alive check, the
+    phase's directory) after the queries, before they stop."""
     from pinot_tpu_torch.common.tableconfig import TableConfig
     from pinot_tpu_torch.segment.format import write_segment
     from pinot_tpu_torch.tools.datagen import lineitem_schema
@@ -3252,20 +3314,20 @@ def deployed_phase(segments, wants, record) -> None:
             path = write_segment(seg, os.path.join(tmp, "files", seg.segment_name))
             return path, time.perf_counter() - t
 
+        # the files are written while the role processes start
         threads = max(1, min(len(segments), os.cpu_count() or 1))
         t = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(threads) as pool:
-            files, write_s = map(list, zip(*pool.map(write, segments)))
+            written = [pool.submit(write, seg) for seg in segments]
+            url, admin, broker_url, alive = start_roles(tmp, rec)
+            files, write_s = map(list, zip(*(w.result() for w in written)))
         write_wall = time.perf_counter() - t
         file_bytes = sum(os.path.getsize(f) for f in files)
         log(f"deployed: wrote {len(files)} segment files ({file_bytes} bytes, zone maps included) in "
-            f"{write_wall:.1f} s wall in {threads} threads, {float(np.median(write_s)):.3f} s a segment (median, "
-            f"in its thread)")
+            f"{threads} threads while the roles started ({write_wall:.1f} s for both), "
+            f"{float(np.median(write_s)):.3f} s a segment (median, in its thread)")
         rec.update(write_s_per_segment=float(np.median(write_s)), write_s=write_wall, write_threads=threads,
                    file_bytes=file_bytes)
-
-        # the role processes
-        url, admin, broker_url, alive = start_roles(tmp, rec)
         servers = admin
 
         # schema, table, then the files through the controller
@@ -3386,6 +3448,8 @@ def deployed_phase(segments, wants, record) -> None:
                 f"(HTTP client p50 {q['client_p50_ms']:.3f}, {tail} {q[f'client_{tail}_ms']:.3f}); server medians "
                 f"{ {k: (None if v is None else round(v, 4)) for k, v in split.items()} } ms")
         alive()
+        if then is not None:
+            then((url, admin, broker_url, alive, tmp))
     finally:
         codes = _stop_roles()
         rec["exit_codes"] = codes
@@ -3397,13 +3461,14 @@ def deployed_phase(segments, wants, record) -> None:
 
 # ---------------------------------------------------------------------------
 # 11. joins: the Star Schema Benchmark's lineorder / part / date (O'Neil,
-# O'Neil, Chen, Revilak, TPCTC 2009) at lineorder SF ~5.6, three queries
+# O'Neil, Chen, Revilak, TPCTC 2009) at lineorder SF ~2.8, three queries
 # ---------------------------------------------------------------------------
 
 SSB_PARTITIONS = 16  # lineorder and part partitioned on their part key, one segment a partition
-# 16 x 2^21 = 33,554,432 lineorder rows: 6,000,000 x SF at SF ~5.6 (2^22, SF ~11.2, before phase 20)
-SSB_ROWS_PER_SEGMENT = 1 << 21
-SSB_PARTS = 600_000  # 200,000 x floor(1 + log2 SF) (800,000 before phase 20)
+# 16 x 2^20 = 16,777,216 lineorder rows: 6,000,000 x SF at SF ~2.8 (2^22, SF ~11.2, before phase 20; 2^21,
+# SF ~5.6, before phase 21)
+SSB_ROWS_PER_SEGMENT = 1 << 20
+SSB_PARTS = 400_000  # 200,000 x floor(1 + log2 SF) (800,000 before phase 20, 600,000 before 21)
 JOIN_QUERIES = {
     "ssb_q1_1": "SELECT count(*), sum(l.lo_extendedprice), sum(l.lo_discount) FROM lineorder l "
                 "JOIN date d ON l.lo_orderdate = d.d_datekey WHERE d.d_year = 1993 "
@@ -3566,7 +3631,8 @@ def join_phase(dev, ssb, wants, record, fg, vsc) -> None:
     from pinot_tpu_torch.pql import optimize_request, parse_pql
     from pinot_tpu_torch.server.instance import ServerInstance
 
-    rec = record["joins"] = {"queries": {}, "stages": {}, "serve": {}}
+    rec = record.setdefault("joins", {})
+    rec.update(queries={}, stages={}, serve={})
     lo_rows = sum(s.num_docs for s in ssb["lineorder"])
     log(f"joins: lineorder {len(ssb['lineorder'])} x {SSB_ROWS_PER_SEGMENT} = {lo_rows} rows, part "
         f"{sum(s.num_docs for s in ssb['part'])} rows in {len(ssb['part'])} segments, date "
@@ -3765,7 +3831,7 @@ def k1_captured(fg, label: str, run) -> dict:
     err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
     tier = fg.choose_tier(*k1_shape(fg, args))
     k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
-    p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
+    p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 1, warmup=0)
     matched = int(fg.fused_filtered_groupby_sums(**args)[0])
     bound, bound_by, nbytes, ops = k1_bound(args, matched)
     form = "group_keys" if args["group_keys"] is not None else "group_cols"
@@ -3860,22 +3926,29 @@ def join_serve_phase(dev, ssb, wants, record) -> None:
         torch.cuda.empty_cache()
 
 
-def deployed_join_phase(ssb, wants, record) -> None:
+def deployed_join_phase(ssb, wants, record, roles=None) -> None:
     """11c. ssb_q2_1 through a deployed cluster (phase 10's layout: a
     controller, two servers and a broker, each a process of the admin
     CLI): lineorder and part declared partitioned on their part keys
     through ``AddTable`` (part on both servers), the segment files
     uploaded through the controller, the query over HTTP: colocated, each
-    answer against the oracle, K1 launched on the servers."""
+    answer against the oracle, K1 launched on the servers.  ``roles``:
+    phase 10's (controller URL, admin URLs, broker URL, alive check, its
+    directory), left running for the caller to stop; else its own."""
     from pinot_tpu_torch.common.tableconfig import PartitionConfig, TableConfig
     from pinot_tpu_torch.segment.format import write_segment
     from pinot_tpu_torch.tools.datagen import lineorder_schema, part_schema
 
-    rec = record["joins"]["deployed"] = {}
-    tmp = tempfile.mkdtemp(prefix="pinot-joins-")
+    rec = record.setdefault("joins", {})["deployed"] = {}
     t_phase = time.perf_counter()
+    if roles is None:
+        tmp = tempfile.mkdtemp(prefix="pinot-joins-")
+    else:
+        url, admin, broker_url, alive, tmp = roles
+    codes = {}
     try:
-        url, admin, broker_url, alive = start_roles(tmp, rec)
+        if roles is None:
+            url, admin, broker_url, alive = start_roles(tmp, rec)
         env = dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", ""))
         adds = []  # the two AddTable processes run at once
         for table, schema, key, replication in (("lineorder", lineorder_schema(), "lo_partkey", 1),
@@ -3967,10 +4040,12 @@ def deployed_join_phase(ssb, wants, record) -> None:
             f"oracle, actualCost = cost; broker EXPLAIN p50 {rec['explain']['explain_p50_ms']:.3f} ms")
         alive()
     finally:
-        codes = _stop_roles()
-        rec["exit_codes"] = codes
-        log(f"deployed joins: every role stopped, exit codes {codes}; phase {time.perf_counter() - t_phase:.1f} s")
-        shutil.rmtree(tmp, ignore_errors=True)
+        if roles is None:
+            codes = _stop_roles()
+            rec["exit_codes"] = codes
+            shutil.rmtree(tmp, ignore_errors=True)
+        said = f"every role stopped, exit codes {codes}" if roles is None else "on phase 10's roles"
+        log(f"deployed joins: {said}; {time.perf_counter() - t_phase:.1f} s")
     if any(codes.values()):
         raise AssertionError(f"deployed joins: a role did not exit cleanly {codes}")
 
@@ -3983,7 +4058,7 @@ def deployed_join_phase(ssb, wants, record) -> None:
 
 ST_BASEBALL_SEGMENTS = 4  # 4 x 2^23 = 33,554,432 baseballStats rows (8 before phase 19)
 ST_BASEBALL_SEED = 200  # segment i draws from seed 200 + i
-ST_ITERS = 5  # timed runs per cube / scan median (20 before phase 15, 10 before 17)
+ST_ITERS = 3  # timed runs per cube / scan median (20 before phase 15, 10 before 17, 5 before 21)
 ST_SERVE_ITERS = 10  # broker requests per served query, after warm-up (50 before phase 15, 20 before 17)
 ST_CLI_ROWS = 10_000
 ST_QUERIES = {
@@ -4524,7 +4599,8 @@ TIER_DATES = (1, 3, 16, 64)  # l_shipdate IN lists (the last past the 1/64 cross
 # l_extendedprice BETWEEN ranges holding about these shares of the table
 # (the last just under the 1/64 crossover); 0 is one price, the needle
 TIER_PRICE_SHARES = (0.0, 1 / 4096, 1 / 1024, 1 / 256, 1 / 80)
-TIER_ITERS = 5  # medians of the ladders' routes (20 before phase 15, 10 before 16)
+TIER_SEGMENTS = 8  # phase 1's first 8 segments (all 16 before phase 21)
+TIER_ITERS = 3  # medians of the ladders' routes (20 before phase 15, 10 before 16, 5 before 21)
 _ZONE_SELECT = ("SELECT sum(l_quantity), sum(l_extendedprice), sum(l_discount), count(*) FROM lineitem "
                 "WHERE {where} GROUP BY l_returnflag, l_linestatus TOP 10")
 BSI_QUERIES = {
@@ -4608,8 +4684,8 @@ def _crossover(rows: List[int], post_ms: List[float], other_ms: List[float], tot
 
 
 def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
-    """13. postings and the bit-sliced tier over phase 1's lineitem (16 x
-    2^23 rows, x32): postings built and warmed at load, the postings
+    """13. postings and the bit-sliced tier over phase 1's first 8
+    lineitem segments (8 x 2^23 rows, x32): postings built and warmed at load, the postings
     ladders against the zone blocks and K1's full scan, the two bit-sliced
     queries against the scan tier, batched bit-sliced launches, and the
     bit-sliced programs against their byte bounds."""
@@ -4631,6 +4707,7 @@ def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
 
     parse = lambda pql: optimize_request(parse_pql(pql))  # noqa: E731
     rec = record["tiers"] = {}
+    segments = segments[:TIER_SEGMENTS]
     total = sum(s.num_docs for s in segments)
     S = len(segments)
     t_phase = time.perf_counter()
@@ -4917,8 +4994,8 @@ def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
 # ---------------------------------------------------------------------------
 
 RT_PARTITIONS = 2
-RT_SEGMENT_ROWS = 1 << 22  # rowsPerSegment (2^23, the offline cells' segment size, before phase 20)
-RT_PARTITION_ROWS = 3 * (1 << 21)  # 1.5 x 2^22 a partition: one sealed segment, one consuming of 2^21
+RT_SEGMENT_ROWS = 1 << 21  # rowsPerSegment (2^23, the offline cells' segment size, before phase 20; 2^22 before 21)
+RT_PARTITION_ROWS = 3 * (1 << 20)  # 1.5 x 2^21 a partition: one sealed segment, one consuming of 2^20
 RT_BLOCK = 1 << 16  # rows a produced columnar block (and a server's fetch: PINOT_TPU_INGEST_BATCH_ROWS)
 RT_STAGES = (4, 2, 1)  # the watermarks: a quarter, a half and the whole of the data
 RT_QUERIES = {"q1": Q1, "count_star": "SELECT count(*) FROM lineitem", "distinct_price": VALUE_QUERIES["distinct_price"]}
@@ -4974,9 +5051,9 @@ def rt_check(name: str, d: dict, wants: dict) -> None:
 def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
     """14. lineitem as a REALTIME table (replication 1, two stream
     partitions of a columnar topic on the port's StreamBrokerServer,
-    rowsPerSegment 2^22), a controller, two server processes running
+    rowsPerSegment 2^21), a controller, two server processes running
     RemoteConsumers and the broker: produced to a quarter, a half and the
-    whole of 1.5 x 2^22 rows a partition, the queries at each watermark
+    whole of 1.5 x 2^21 rows a partition, the queries at each watermark
     against the oracles over the rows produced so far; then K1 and K2 at a
     server's final shape (its sealed segment and its consuming snapshot)
     against their plain versions.  Each produced block carries its
@@ -5205,7 +5282,7 @@ def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
         args = {**dict(zip(("num_docs", "values"), rest)), **kw}
         tiers = compare_k2_value(vsc, mode, args)
         k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
-        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 1, warmup=0)
         matched = int(vsc.value_state(mode, **args)[0])
         bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
         rec["k2"] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
@@ -5652,14 +5729,16 @@ def residency_phase(dev, segments, record, fg, vsc, wants) -> None:
 # schema grown under it
 # ---------------------------------------------------------------------------
 
-# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^19
+# the cuts the time limit forced (PERF.md section 4): 2 CSV files of 2^18
 # rows, the first rows of phase 1's li0 and li1 (4 files of its 2^23 rows
 # took 117-135 s on 4 workers: the reference's build path is host Python;
-# 2^22 rows a file before phase 17, 2^21 before 18, 2^20 before 20)
+# 2^22 rows a file before phase 17, 2^21 before 18, 2^20 before 20, 2^19
+# before 21)
 BUILD_FILES = 2
-BUILD_ROWS = 1 << 19  # rows a CSV file (~0.03 GB of text; 2^21 before phase 18, 2^20 before 20)
+BUILD_ROWS = 1 << 18  # rows a CSV file (~0.015 GB of text; 2^21 before phase 18, 2^20 before 20, 2^19 before 21)
 BUILD_WORKERS = 4  # BatchCreateSegments -workers (the CSV files and the Avro file, one worker each)
-BUILD_GROWN_ROWS = 1 << 19  # the grown-schema CSV file, with real values (2^21 before phase 17, 2^20 before 20)
+BUILD_GROWN_ROWS = 1 << 18  # the grown-schema CSV file, with real values (2^21 before phase 17, 2^20 before 20, 2^19
+# before 21)
 BUILD_AVRO_ROWS = 1 << 17  # the Avro file (deflate): the reference's codec is pure Python (2^18 before phase 18)
 BUILD_SEEDS = {"grown": 97, "avro": 89}  # the CSV files are phase 1's li0.. (seeds 11, 12, ..)
 BUILD_CHUNK = 1 << 20  # rows a vectorized CSV write step
@@ -6011,6 +6090,11 @@ def build_phase(dev, segments, record, fg, vsc, hll_mod, files: int = BUILD_FILE
     grown_in = ("grown", 0, grown_rows, os.path.join(fdir, "grown.csv"))
     table = "lineitem_OFFLINE"
     t_phase = time.perf_counter()
+    # the in-process step's q1 oracle over phase 1's segments, in a thread
+    # beside the deployed steps
+    q1_pool = concurrent.futures.ThreadPoolExecutor(1)
+    q1_want = q1_pool.submit(oracle, segments, "q1")
+    q1_pool.shutdown(wait=False)
     import multiprocessing
 
     # spawned, never forked: the workers never touch the card this process holds
@@ -6237,7 +6321,7 @@ def build_phase(dev, segments, record, fg, vsc, hll_mod, files: int = BUILD_FILE
         record["paths"]["build_inprocess"] = {"totals": totals, "launches": {
             "evolved_q1": after_q1, "evolved_distinct": {k: totals[k] - after_q1[k] for k in totals}}}
         want_q1: Dict[Tuple[str, ...], Dict[str, Any]] = {}  # q1's oracle, l_linestatus folded into "null"
-        for (rf, _ls), v in oracle(segments, "q1").items():
+        for (rf, _ls), v in q1_want.result().items():
             e = want_q1.setdefault((rf, "null"), {k: 0 if k == "count" else 0.0 for k in v})
             for k in v:
                 e[k] += v[k]
@@ -6265,7 +6349,7 @@ def build_phase(dev, segments, record, fg, vsc, hll_mod, files: int = BUILD_FILE
             args = {**dict(zip(("num_docs", "values"), rest)), **kw}
             tiers = compare_k2_value(vsc, mode, args)
             k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
-            p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+            p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 1, warmup=0)
             matched = int(vsc.value_state(mode, **args)[0])
             bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
             idx, K, _ = vsc.combine_index(mode, **args)
@@ -6302,6 +6386,7 @@ WARM_NEED = {"q1": "k1", "q3": "k1", "hll_groupby": "k2", "distinct_price": "k2"
 # other server the rest): a restart reloads them, ~3.6 s a segment (cut:
 # the reload's length; the table stays 16 x 2^23 rows)
 WARM_RESTART_SEGMENTS = 1
+WARM_SEGMENTS = 8  # phase 1's first 8 segments, 7 on server0 (all 16 before phase 21)
 WARM_ITERS = 3  # warm requests a digest after each restart's first, for the warm p50
 WARM_BUSY_S = 1.0  # the query burst the occupancy sampler reads busy under (1.5 before the cuts of phase 17)
 # the restarts in order: (label, cache root index, prewarm on, the compile
@@ -6459,13 +6544,13 @@ class QueryLoop:
 
 
 def controller_phase(url: str, broker_url: str, admin: Dict[str, str], tmp: str, wants, record) -> None:
-    """19. On phase 17's roles (a controller, server0 with 15 lineitem
+    """19. On phase 17's roles (a controller, server0 with 7 lineitem
     segments, server1 with 1, the broker): (a) the controller SIGKILLed and
     restarted on its data dir and port, q1 looped through the restart (no
     answer wrong), the views refilled, four queries against their oracles
     with K1 / K2 launched; (b) server1 drained over HTTP (the stabilizer
     moves its segment to server0), undrained, and ``RebalanceTable`` moving
-    segments back toward 8 / 8, q1 looped through both moves with every
+    segments back toward 4 / 4, q1 looped through both moves with every
     answer complete and equal to its oracle, the residency pressure of
     ``/debug/capacity`` and the stabilizer's events; (c) every dashboard
     page, ``/debug/stabilizer``'s keys, ``ListTenants`` and ``AddTenant``."""
@@ -6485,7 +6570,7 @@ def controller_phase(url: str, broker_url: str, admin: Dict[str, str], tmp: str,
 
     def settled() -> bool:
         ideal = http_json(f"{url}/tables/{table}/idealstate")
-        return http_json(f"{url}/tables/{table}/externalview") == ideal and len(ideal) == SEGMENTS
+        return http_json(f"{url}/tables/{table}/externalview") == ideal and len(ideal) == WARM_SEGMENTS
 
     def wait(what: str, pred) -> float:
         t = time.perf_counter()
@@ -6504,7 +6589,7 @@ def controller_phase(url: str, broker_url: str, admin: Dict[str, str], tmp: str,
     t = time.perf_counter()
     rec["restart"] = restart_controller(url, tmp, "restarted")
     refill_s = wait("the views refilled", settled)
-    online_s = wait_online(url, broker_url, table, SEGMENTS, _alive_roles)
+    online_s = wait_online(url, broker_url, table, WARM_SEGMENTS, _alive_roles)
     rec["restart"].update(views_refilled_s=refill_s, online_s=time.perf_counter() - t, broker_online_s=online_s)
     time.sleep(1.0)
     rec["restart"]["loop"] = counts = loop.stop()
@@ -6559,7 +6644,7 @@ def controller_phase(url: str, broker_url: str, admin: Dict[str, str], tmp: str,
         if not settled():
             return False
         h = hosted()
-        return h["server1"] == moved_in and sum(h.values()) == SEGMENTS
+        return h["server1"] == moved_in and sum(h.values()) == WARM_SEGMENTS
 
     reb["settled_s"] = time.perf_counter() - t + wait("the rebalance settled", rebalanced)
     time.sleep(1.0)
@@ -6716,7 +6801,7 @@ def warmstart_phase(dev, segments, wants, record, roots: List[str], fg, vsc) -> 
                 pql = next(b["exemplarPql"] for b in bw["topByCount"] if b["digest"] == p["digest"])
                 name = next(k for k, q in pqls.items() if q == pql)
                 # data_bound's bytes of server1's launch, in process over its
-                # segments (server0's fifteen would stage 1.8 GB a query)
+                # segments (server0's seven would stage 0.9 GB a query)
                 host = segments[:nrs] if n == "server1" else None
                 bound_bytes = None
                 if host is not None:
@@ -6906,13 +6991,14 @@ KAFKA_PARTITIONS = 2
 # shim's Fetch, the client's MessageSet decode, json.loads, the mutable
 # segment's row indexing) on the host; 2^20, the least this cell keeps,
 # holds the phase near 150 s (phase 14's columnar path takes 2^22)
-KAFKA_SEGMENT_ROWS = 1 << 20
-KAFKA_PARTITION_ROWS = 3 << 19  # 1.5 x 2^20 a partition: one committed segment, one consuming of 2^19
+KAFKA_SEGMENT_ROWS = 1 << 18  # (2^20 before phase 21, then 2^19)
+KAFKA_PARTITION_ROWS = 3 << 17  # 1.5 x 2^18 a partition: one committed segment, one consuming of 2^17
 KAFKA_STAGES = (2, 1)  # the watermarks: half and the whole of the data (the commits land in the second)
 KAFKA_PRODUCE_ROWS = 1 << 15  # rows a produce request
-HLC_SEGMENT_ROWS = 1 << 16  # (b) and (c): a server's HLC segment (cut from 2^20: the group path's rate)
-HLC_PARTITION_ROWS = 3 << 15  # 1.5 x 2^16 a partition
-CODEC_ROWS = 1 << 16  # (d): rows a codec (the snappy and lz4 codecs are pure Python)
+HLC_SEGMENT_ROWS = 1 << 15  # (b) and (c): a server's HLC segment (cut from 2^20: the group path's rate; 2^16
+# before phase 21)
+HLC_PARTITION_ROWS = 3 << 14  # 1.5 x 2^15 a partition
+CODEC_ROWS = 1 << 15  # (d): rows a codec (the snappy and lz4 codecs are pure Python; 2^16 before phase 21)
 KAFKA_CODECS = ("gzip", "snappy", "lz4")
 KAFKA_VISIBLE_S = 600.0  # from a stage's last produce to every row counted
 KAFKA_ITERS = 5  # timed broker requests a query at each watermark, after one checked request
@@ -6963,17 +7049,17 @@ def kafka_phase(dev, record, fg, vsc, hll_mod) -> None:
     native consumer groups and the Kafka v0 wire protocol with its group
     coordinator over the same logs).  The stream is lineitem rows as JSON
     messages, 2 partitions a topic:
-    (a) LLC over Kafka (``streamType: kafka``): 1.5 x 2^20 rows a partition,
-        rowsPerSegment 2^20, queried at two watermarks (q1, count(*),
+    (a) LLC over Kafka (``streamType: kafka``): 1.5 x 2^18 rows a partition,
+        rowsPerSegment 2^18, queried at two watermarks (q1, count(*),
         distinct_price against the oracles of the rows produced, each row
         counted exactly once, K1 / K2 launched on the servers); one commit a
         partition through the completion protocol;
     (c) HLC over the Kafka group protocol (``KafkaGroupConsumer``), two
-        members, 1.5 x 2^16 rows a partition, segments of 2^16 sealing,
+        members, 1.5 x 2^15 rows a partition, segments of 2^15 sealing,
         uploading pinned to their server and rolling: the same queries;
     (d) three more Kafka tables, one a codec: the shim serves gzip, snappy
         and lz4 wrapped message sets, each decoded by the servers and counted;
-    (b) HLC over the native stream broker's groups, 1.5 x 2^16 rows a
+    (b) HLC over the native stream broker's groups, 1.5 x 2^15 rows a
         partition: server1 SIGKILLed after half of them; the group
         rebalances, the survivor seals at its revoke and re-reads the dead
         member's partition from the committed offsets; the seconds until
@@ -7308,29 +7394,13 @@ def kafka_phase(dev, record, fg, vsc, hll_mod) -> None:
             dp = RT_QUERIES["distinct_price"].replace("FROM lineitem", f"FROM {tbl}")
             k1 = k1_captured(fg, f"kafka {label}", lambda: ex.execute(segs, optimize_request(parse_pql(q1))))
             req = optimize_request(parse_pql(dp))
-            captured: dict = {}
-            restore = _capture(vsc, "value_state", captured, "k2")
-            try:
-                res = ex.execute(segs, req)
-            finally:
-                vsc.value_state = restore
+            k2 = k2_captured(vsc, f"kafka {label} distinct_price", lambda: ex.execute(segs, req))
             if heads is not None:
                 check_response(reduce_to_response(optimize_request(parse_pql(q1)),
                                                   [ex.execute(segs, optimize_request(parse_pql(q1)))]),
                                oracle(heads, "q1"))
-                check_value_response(reduce_to_response(req, [res]), value_oracle(hll_mod, heads, "distinct_price"))
-            (mode, *rest), kw = captured["k2"]
-            args = {**dict(zip(("num_docs", "values"), rest)), **kw}
-            tiers = compare_k2_value(vsc, mode, args)
-            k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
-            p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
-            matched = int(vsc.value_state(mode, **args)[0])
-            bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
-            k2 = dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
-                      tiers=tiers, mode=mode, shape=list(args["values"].shape), matched=matched, max_abs_err=0.0)
-            log(f"k2 kafka {label} distinct_price ({mode}, values {k2['shape']}, {matched} rows matched): "
-                f"{k_ms:.4f} ms (bound {bound:.4f} ms by {bound_by}: {nbytes} bytes; {bound / k_ms:.3f} of the "
-                f"bound), plain {p_ms:.4f} ms, bit-equal in tiers {tiers}")
+                check_value_response(reduce_to_response(req, [ex.execute(segs, req)]),
+                                     value_oracle(hll_mod, heads, "distinct_price"))
             shapes[label] = {"k1": k1, "k2": k2}
             ex.free_staging()
         log(f"kafka: partition 0's consuming rows read back through Fetch in this process at "
@@ -7398,6 +7468,619 @@ def kafka_phase(dev, record, fg, vsc, hll_mod) -> None:
     log(f"kafka: every role stopped (server1 SIGKILLed in (b)), exit codes {codes}; phase {rec['wall_s']:.1f} s")
 
 
+NF_SERVERS = 3
+NF_SEGMENTS = 6
+NF_ROWS = 1 << 22  # rows a segment (phase 14's): 6 x 2^22 = 25,165,824 rows
+NF_REPLICATION = 2
+NF_CLIENTS = 4  # closed-loop clients, each sending q1 and distinct_price in turn
+NF_QUERIES = {"q1": Q1, "distinct_price": VALUE_QUERIES["distinct_price"]}
+NF_NEED = {"q1": "k1", "distinct_price": "k2"}
+NF_SEED = 2100  # offline segment i draws from seed 2100 + i
+NF_FAULT_SEED = 21  # the NetworkFaultInjector's seed
+NF_RT_PARTITIONS = 2
+NF_RT_ROWS = 1 << 20  # (c): rows a partition, and rowsPerSegment: one commit a partition, during the cut
+NF_RT_SEED = 2110  # (c)'s partition p draws from seed 2110 + p
+NF_RT_BATCH = 1 << 16  # rows a fetch of the file stream (PINOT_TPU_INGEST_BATCH_ROWS; phase 14's block)
+NF_WAIT_S = 300.0  # a step's deadline (cluster.wait)
+NF_WINDOW_S = 0.5  # closed-loop serving before a fault and after a heal
+NF_POLL_S = 0.5  # a count(*) at most this often while a step waits on one (each stages a new snapshot)
+
+
+def nf_check(name: str, resp, want) -> None:
+    """A complete phase-21 answer against the answer from before the
+    faults: q1's counts exactly and sums within the audit band,
+    distinct_price exactly."""
+    if resp.exceptions:
+        raise AssertionError(f"{name}: exceptions on a complete answer {[e.to_json() for e in resp.exceptions]}")
+    if name == "q1":
+        check_response(resp, want)
+    else:
+        check_value_response(resp, want)
+
+
+class NetLoad:
+    """``clients`` threads sending NF_QUERIES in turn through the broker
+    back to back.  A complete answer must equal the answer from before the
+    faults (``nf_check``), an incomplete one must say so
+    (``partialResponse``); anything else is a failure.  Answers are counted
+    by the step running when they came back (``label``)."""
+
+    def __init__(self, broker, wants: dict, clients: int = NF_CLIENTS) -> None:
+        self.broker, self.wants = broker, wants
+        self.label = "warm"
+        self.counts: Dict[str, Dict[str, int]] = {}
+        self.ms: Dict[str, List[float]] = {}  # label -> client ms of its complete answers
+        self.failures: List[str] = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._loop, args=(i,), name=f"nf-load-{i}", daemon=True)
+                         for i in range(clients)]
+        for t in self._threads:
+            t.start()
+
+    def _loop(self, i: int) -> None:
+        names = list(NF_QUERIES)
+        while not self._stop.is_set():
+            name = names[i % len(names)]
+            i += 1
+            label = self.label
+            t = time.perf_counter()
+            try:
+                resp = self.broker.handle_pql(NF_QUERIES[name])
+                if resp.partial_response:
+                    kind = "partial"
+                else:
+                    nf_check(name, resp, self.wants[name])
+                    kind = "ok"
+                    with self._lock:
+                        self.ms.setdefault(label, []).append((time.perf_counter() - t) * 1e3)
+            except Exception as e:  # a raised handler or a wrong answer
+                kind = "failed"
+                with self._lock:
+                    if len(self.failures) < 8:
+                        self.failures.append(f"{label} {name}: {type(e).__name__}: {e}"[:400])
+            with self._lock:
+                c = self.counts.setdefault(label, {"ok": 0, "partial": 0, "failed": 0})
+                c[kind] += 1
+
+    def stop(self) -> Dict[str, Dict[str, int]]:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+        return self.counts
+
+    def latency(self) -> Dict[str, Dict[str, float]]:
+        """Client p50 / p99 ms of the complete answers, by step."""
+        with self._lock:
+            return {k: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)), "n": len(v)}
+                    for k, v in self.ms.items() if v}
+
+
+def k2_captured(vsc, label: str, run) -> dict:
+    """K2 at the shape a path hands it: its last launch in ``run()``,
+    captured, bit-equal to its plain version in every tier that takes it,
+    timed (CUDA events) and beside its bound on this data."""
+    captured: dict = {}
+    restore = _capture(vsc, "value_state", captured, "k2")
+    try:
+        run()
+    finally:
+        vsc.value_state = restore
+    (mode, *rest), kw = captured["k2"]
+    args = {**dict(zip(("num_docs", "values"), rest)), **kw}
+    tiers = compare_k2_value(vsc, mode, args)
+    k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
+    p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 1, warmup=0)
+    matched = int(vsc.value_state(mode, **args)[0])
+    bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
+    idx, K, _ = vsc.combine_index(mode, **args)
+    lib_ms, _ = cuda_ms(lambda: torch.bincount(idx.reshape(-1), minlength=K + 1)[:K], ITERS)
+    del idx
+    log(f"k2 {label} ({mode}, values {list(args['values'].shape)}, K={K}, {matched} rows matched): {k_ms:.4f} ms "
+        f"(bound {bound:.4f} ms by {bound_by}: {nbytes} bytes, {ops} operations; {bound / k_ms:.3f} of the bound), "
+        f"plain {p_ms:.4f} ms, torch.bincount over the combined index {lib_ms:.4f} ms, bit-equal in tiers {tiers}")
+    return dict(ms=k_ms, plain_ms=p_ms, bound_ms=bound, bound_by=bound_by, bytes=nbytes, operations=ops,
+                library_ms=lib_ms, tiers=tiers, mode=mode, K=K, shape=list(args["values"].shape), matched=matched,
+                max_abs_err=0.0)
+
+
+def nf_stream_sources(rows: int) -> list:
+    """(c)'s rows: one lineitem segment of ``rows`` a stream partition."""
+    from pinot_tpu_torch.tools.datagen import synthetic_lineitem_segment
+
+    return [synthetic_lineitem_segment(rows, seed=NF_RT_SEED + p, name=f"asym{p}") for p in range(NF_RT_PARTITIONS)]
+
+
+def nf_write_streams(out_dir: str, rows: int) -> None:
+    """(c)'s JSON lines, each partition's two halves a file
+    (``p<partition>.<half>.jsonl``).  Run in a process of its own
+    (``python -c``), so the JSON encoding holds none of the cluster's
+    interpreter."""
+    half = rows // 2
+    for p, seg in enumerate(nf_stream_sources(rows)):
+        cols = {c: a.tolist() for c, a in value_columns(seg).items()}
+        for i, (lo, hi) in enumerate(((0, half), (half, rows))):
+            with open(os.path.join(out_dir, f"p{p}.{i}.jsonl"), "w") as f:
+                f.write("".join(json.dumps(r) + "\n" for r in json_rows(cols, lo, hi)))
+
+
+def throttled(fn, period_s: float = NF_POLL_S):
+    """``fn`` called at most once a ``period_s``; the last answer between."""
+    last = {"t": -1e18, "v": False}
+
+    def call():
+        now = time.monotonic()
+        if now - last["t"] >= period_s:
+            last["t"], last["v"] = now, fn()
+        return last["v"]
+
+    return call
+
+
+def netfaults_phase(dev, record, fg, vsc, hll_mod) -> None:
+    """21. The link fault plane on a networked cluster in this process
+    (``NetworkedCluster(device="cuda")``: a controller, three servers and a
+    broker over HTTP and TCP, the lease 2.5 s, heartbeats every 0.2 s, the
+    liveness window 1.2 s, polls every 0.1 s), every link through one
+    seeded ``NetworkFaultInjector``.  The OFFLINE lineitem table: 6
+    segments of 2^22 rows at replication 2.  q1 (K1) and distinct_price
+    (K2) run as closed-loop load from 4 clients through every scenario;
+    every complete answer equals the answer from before the faults (counts
+    exactly, sums within the audit band), every incomplete one is flagged
+    ``partialResponse``, and anything else fails the phase:
+    (a) one server cut from the controller both ways past its lease: the
+        seconds from the cut to the first replica that moves against the
+        lease, ``leaseDeferrals``, the seconds to rejoin after the heal;
+    (b) the controller cut from every role: the broker serves from its
+        snapshot, nothing moves, the ideal state after the heal is
+        byte-identical to the one before; the queries served meanwhile;
+    (c) a REALTIME lineitem table fed by a file stream (2 partitions of
+        2^20 rows, rowsPerSegment 2^20, replication 2): the replies to one
+        replica lost while the second half of the rows arrives; exactly one
+        committed segment a partition, by the healthy replica, the same
+        bytes on both replicas after the heal, count(*) equal to the rows
+        produced and q1 / distinct_price to their oracles;
+    (d) disaster recovery: a backup while serving, the controller and its
+        property store lost, the archive restored, a new controller on the
+        same port and the servers reloaded through it; the backup's and
+        the restore's seconds and the archive's bytes, every answer after
+        equal to the one before, and a write of the old controller raising
+        ``StaleEpochError``;
+    then K1 and K2 at this phase's shapes against their plain versions."""
+    import dataclasses
+
+    from pinot_tpu_torch.common.fencing import StaleEpochError
+    from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
+    from pinot_tpu_torch.controller.controller import Controller, ControllerHttpServer
+    from pinot_tpu_torch.realtime.llc import make_segment_name
+    from pinot_tpu_torch.realtime.stream import FileBasedStreamProvider
+    from pinot_tpu_torch.tools.backup import create_backup, restore_backup
+    from pinot_tpu_torch.tools.cluster_harness import NetworkedCluster
+    from pinot_tpu_torch.tools.datagen import lineitem_schema, synthetic_lineitem_segment
+
+    rec = record["netfaults"] = {"card": card_line()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pinot-netfaults-")
+    t = time.perf_counter()
+    # (c)'s JSON lines in a process of its own, beside everything below
+    stream_dir = os.path.join(tmp, "stream")
+    os.makedirs(stream_dir)
+    writer = subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke; chip_smoke.nf_write_streams({stream_dir!r}, {NF_RT_ROWS})"],
+        cwd=REPO_DIR, env=dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    with concurrent.futures.ThreadPoolExecutor(NF_SEGMENTS) as pool:
+        segs = list(pool.map(lambda i: synthetic_lineitem_segment(NF_ROWS, seed=NF_SEED + i, name=f"nf{i}"),
+                             range(NF_SEGMENTS)))
+    rt_sources = nf_stream_sources(NF_RT_ROWS)
+    rec["datagen_s"] = time.perf_counter() - t
+    log(f"netfaults: {NF_SEGMENTS} x {NF_ROWS} lineitem rows and (c)'s {NF_RT_PARTITIONS} x {NF_RT_ROWS} made in "
+        f"{rec['datagen_s']:.1f} s")
+    # the oracles in threads beside the cluster's start
+    helpers = concurrent.futures.ThreadPoolExecutor(3)
+    pending = {"q1": helpers.submit(oracle, segs, "q1"),
+               "distinct_price": helpers.submit(value_oracle, hll_mod, segs, "distinct_price")}
+    rt_wants = helpers.submit(lambda: {"q1": oracle(rt_sources, "q1"),
+                                       "distinct_price": value_oracle(hll_mod, rt_sources, "distinct_price")})
+    helpers.shutdown(wait=False)
+    cluster = load = None
+    launches: Dict[str, Dict[str, int]] = {}
+    steps = rec["steps_s"] = {}
+    old_batch = os.environ.get("PINOT_TPU_INGEST_BATCH_ROWS")
+    os.environ["PINOT_TPU_INGEST_BATCH_ROWS"] = str(NF_RT_BATCH)  # read when the servers are made
+    try:
+        t = time.perf_counter()
+        cluster = NetworkedCluster(num_servers=NF_SERVERS, data_dir=os.path.join(tmp, "cluster"),
+                                   seed=NF_FAULT_SEED, device=str(dev))
+        ctrl = cluster.controller
+        ctrl.stabilizer.grace_s = 0.0  # the lease is the guard under test
+        # no skew rebalance: (a) leaves its rejoined victim without replicas,
+        # and (b) and (c) hold that nothing moves
+        ctrl.stabilizer.rebalance_enabled = False
+        res, st = ctrl.resources, ctrl.stabilizer
+        ctrl.add_schema(lineitem_schema())
+        physical = ctrl.add_table(TableConfig("lineitem", table_type="OFFLINE", replication=NF_REPLICATION))
+        for seg in segs:
+            ctrl.upload_segment(physical, seg)
+        total = NF_SEGMENTS * NF_ROWS
+
+        def converged(table: str) -> bool:
+            ideal, view = res.get_ideal_state(table), res.get_external_view(table)
+            return bool(ideal) and view == ideal and all(s == "ONLINE" for r in view.values() for s in r.values())
+
+        def count(table: str) -> int:
+            r = cluster.query(f"SELECT count(*) FROM {table}")
+            return -1 if r.exceptions or r.partial_response else r.num_docs_scanned
+
+        cluster.wait(lambda: converged(physical) and len(res.get_ideal_state(physical)) == NF_SEGMENTS,
+                     timeout_s=NF_WAIT_S, what="every replica ONLINE")
+        cluster.wait(throttled(lambda: count("lineitem") == total), timeout_s=NF_WAIT_S,
+                     what="the broker serving every row")
+        steps["start_upload_load"] = time.perf_counter() - t
+        per_server = {s.name: sum(1 for r in res.get_ideal_state(physical).values() if s.name in r)
+                      for s in cluster.server_starters}
+        log(f"netfaults: {NF_SERVERS} servers, the controller and the broker up, {NF_SEGMENTS} segments uploaded "
+            f"and every replica ONLINE ({per_server} a server) in {steps['start_upload_load']:.1f} s")
+
+        # the path: every launch count 0 just before, read just after
+        fg.launches = vsc.launches = 0
+        wants = {}
+        t = time.perf_counter()
+        for name in NF_QUERIES:
+            before = (fg.launches, vsc.launches)
+            # a few requests first: the broker spreads them over the replicas,
+            # and each server stages its segments once
+            for _ in range(NF_SERVERS * NF_REPLICATION):
+                resp = cluster.query(NF_QUERIES[name])
+                if resp.partial_response or resp.exceptions:
+                    raise AssertionError(f"netfaults baseline {name}: {resp.to_json()}")
+            got = {"k1": fg.launches - before[0], "k2": vsc.launches - before[1]}
+            require_launch(f"netfaults baseline {name}", got, NF_NEED[name])
+            if name == "q1":
+                worst = check_response(resp, pending[name].result())
+                wants[name] = response_as_want(resp)
+                log(f"netfaults baseline q1: equal to the oracle (max rel sum err {worst:.3g}); launches {got}")
+            else:
+                check_value_response(resp, pending[name].result())
+                wants[name] = pending[name].result()
+                log(f"netfaults baseline distinct_price: equal to the oracle, exact; launches {got}")
+            launches[f"baseline/{name}"] = got
+        steps["baseline"] = time.perf_counter() - t
+
+        load = NetLoad(cluster.broker, wants)
+        time.sleep(NF_WINDOW_S)
+
+        def mark(label: str) -> Tuple[int, int]:
+            load.label = label
+            return fg.launches, vsc.launches
+
+        def launched(label: str, since: Tuple[int, int]) -> None:
+            launches[label] = {"k1": fg.launches - since[0], "k2": vsc.launches - since[1]}
+
+        # (a) partition-server
+        ra = rec["partition_server"] = {}
+        since = mark("partition-server")
+        t = time.perf_counter()
+        victim = max(per_server, key=lambda n: (per_server[n], n))
+        vsrv = cluster.server(victim).server
+        ideal_pre = res.get_ideal_state(physical)
+        deferrals0 = st.metrics.meter("stabilizer.leaseDeferrals").count
+        added0 = st.metrics.meter("stabilizer.replicasAdded").count
+        t_cut = time.monotonic()
+        cluster.faults.partition(victim, "controller")
+        cluster.wait(lambda: not res.instances[victim].alive, timeout_s=NF_WAIT_S,
+                     what="the controller declaring the victim dead")
+        ra["cut_to_dead_s"] = time.monotonic() - t_cut
+        st.run_once()  # dead at the gateway, its lease still live: nothing may move
+        ra["held_through_lease"] = res.get_ideal_state(physical) == ideal_pre
+        ra["lease_deferrals"] = st.metrics.meter("stabilizer.leaseDeferrals").count - deferrals0
+        lease_until = res.instances[victim].lease_until
+        cluster.wait(lambda: not vsrv.lease.held(), timeout_s=NF_WAIT_S, what="the victim's lease expiring")
+        ra["victim_fenced_s"] = time.monotonic() - t_cut
+        moved = {}
+
+        def step_until_moved() -> bool:
+            st.run_once()
+            if "t" not in moved and res.get_ideal_state(physical) != ideal_pre:
+                moved["t"] = time.monotonic()
+            return not any(victim in r for r in res.get_ideal_state(physical).values())
+
+        cluster.wait(step_until_moved, timeout_s=NF_WAIT_S, what="the victim's replicas moved after its lease")
+        ra["cut_to_first_move_s"] = moved["t"] - t_cut
+        ra["moved_after_lease"] = lease_until is not None and moved["t"] >= lease_until
+        ra["lease_s"] = cluster.lease_s
+        cluster.wait(lambda: converged(physical)
+                     and all(len(r) == NF_REPLICATION for r in res.get_ideal_state(physical).values()),
+                     timeout_s=NF_WAIT_S, what="re-replication on the other servers")
+        ra["cut_to_rereplicated_s"] = time.monotonic() - t_cut
+        ra["replicas_added"] = st.metrics.meter("stabilizer.replicasAdded").count - added0
+        time.sleep(NF_WINDOW_S)
+        t_heal = time.monotonic()
+        cluster.faults.heal()
+        cluster.wait(lambda: res.instances[victim].alive and vsrv.lease.held(), timeout_s=NF_WAIT_S,
+                     what="the victim re-admitted with its lease renewed")
+        ra["heal_to_rejoin_s"] = time.monotonic() - t_heal
+        time.sleep(NF_WINDOW_S)
+        launched("partition-server", since)
+        ra.update(load.counts.get("partition-server", {}))
+        steps["partition_server"] = time.perf_counter() - t
+        if not (ra["held_through_lease"] and ra["moved_after_lease"] and ra["lease_deferrals"] > 0
+                and ra["failed"] == 0):
+            raise AssertionError(f"netfaults (a): {ra} {load.failures} {cluster.broker.admission.snapshot()}")
+        log(f"netfaults (a) partition-server {victim}: {ra['failed']} failed of {ra['ok'] + ra['partial']} "
+            f"answered ({ra['partial']} flagged partial); dead at the controller {ra['cut_to_dead_s']:.2f} s after "
+            f"the cut, nothing moved inside the lease (leaseDeferrals {ra['lease_deferrals']}), the first replica "
+            f"moved {ra['cut_to_first_move_s']:.2f} s after the cut against the {ra['lease_s']} s lease, "
+            f"{ra['replicas_added']} replicas re-homed in {ra['cut_to_rereplicated_s']:.2f} s; rejoined "
+            f"{ra['heal_to_rejoin_s']:.2f} s after the heal; launches {launches['partition-server']}")
+
+        # (b) partition-controller
+        rb = rec["partition_controller"] = {}
+        since = mark("partition-controller/outage")
+        t = time.perf_counter()
+        ideal_before = json.dumps(res.get_ideal_state(physical), sort_keys=True)
+        cluster.faults.partition("brk0", "controller")  # the broker first: it keeps the healthy snapshot
+        time.sleep(0.15)
+        for s in cluster.server_starters:
+            cluster.faults.partition(s.name, "controller")
+        t_cut = time.monotonic()
+        cluster.wait(lambda: all(not res.instances[s.name].alive for s in cluster.server_starters),
+                     timeout_s=NF_WAIT_S, what="the controller declaring every server dead")
+        cluster.wait(lambda: cluster.broker.metrics.gauge("controller.unreachable").value == 1, timeout_s=NF_WAIT_S,
+                     what="the broker's unreachable gauge")
+        cluster.wait(lambda: all(not s.server.lease.held() for s in cluster.server_starters), timeout_s=NF_WAIT_S,
+                     what="every server's lease expiring")
+        for _ in range(3):
+            st.run_once()
+        rb["ideal_unchanged_during"] = json.dumps(res.get_ideal_state(physical), sort_keys=True) == ideal_before
+        time.sleep(NF_WINDOW_S)
+        rb["outage_s"] = time.monotonic() - t_cut
+        mark("partition-controller/heal")
+        cluster.faults.heal()
+        t_heal = time.monotonic()
+        serving_all = throttled(lambda: count("lineitem") == total)
+        cluster.wait(lambda: all(res.instances[s.name].alive and s.server.lease.held()
+                                 for s in cluster.server_starters)
+                     and cluster.broker.metrics.gauge("controller.unreachable").value == 0
+                     and converged(physical) and serving_all(),
+                     timeout_s=NF_WAIT_S, what="every role re-admitted and the broker serving every row")
+        rb["heal_to_converged_s"] = time.monotonic() - t_heal
+        st.run_once()
+        rb["ideal_byte_identical_after"] = json.dumps(res.get_ideal_state(physical), sort_keys=True) == ideal_before
+        time.sleep(NF_WINDOW_S)
+        launched("partition-controller", since)
+        out_c, heal_c = (load.counts.get(k, {"ok": 0, "partial": 0, "failed": 0})
+                         for k in ("partition-controller/outage", "partition-controller/heal"))
+        rb.update(served_during_outage=out_c["ok"] + out_c["partial"], outage=out_c, heal=heal_c)
+        steps["partition_controller"] = time.perf_counter() - t
+        if not (rb["ideal_unchanged_during"] and rb["ideal_byte_identical_after"] and out_c["failed"] == 0
+                and heal_c["failed"] == 0 and out_c["ok"] > 0):
+            raise AssertionError(f"netfaults (b): {rb} {load.failures} {cluster.broker.admission.snapshot()}")
+        log(f"netfaults (b) partition-controller: {rb['served_during_outage']} queries served from the broker's "
+            f"snapshot during the {rb['outage_s']:.2f} s outage ({out_c['partial']} flagged partial, "
+            f"{out_c['failed']} failed), no replica moved, the ideal state byte-identical after the heal; converged "
+            f"{rb['heal_to_converged_s']:.2f} s after it ({heal_c}); launches {launches['partition-controller']}")
+
+        # (c) asymmetric partition on a REALTIME table fed by a file stream
+        rc = rec["asymmetric"] = {}
+        since = mark("asymmetric")
+        t = time.perf_counter()
+        rt_table = "li_asym"
+        paths = [os.path.join(tmp, f"{rt_table}_p{p}.jsonl") for p in range(NF_RT_PARTITIONS)]
+        if writer.wait(timeout=NF_WAIT_S) != 0:
+            raise AssertionError(f"netfaults (c): the stream writer exited {writer.returncode}")
+        rc["text_ready_s"] = time.perf_counter() - t
+        for p, path in enumerate(paths):
+            shutil.copyfile(os.path.join(stream_dir, f"p{p}.0.jsonl"), path)
+        ctrl.add_schema(dataclasses.replace(lineitem_schema(), schema_name=rt_table))
+        rt_physical = ctrl.add_realtime_table(
+            TableConfig(rt_table, table_type="REALTIME", replication=NF_REPLICATION,
+                        stream=StreamConfig(stream_type="file", rows_per_segment=NF_RT_ROWS,
+                                            properties={"paths": paths})),
+            FileBasedStreamProvider(paths))
+        seg0 = [make_segment_name(rt_physical, p, 0) for p in range(NF_RT_PARTITIONS)]
+        half = NF_RT_ROWS // 2
+
+        def consumed(rows: int) -> bool:
+            """Every replica's consumer of ``seg0`` at ``rows`` (no query:
+            a count(*) stages a new snapshot of every consuming segment)."""
+            offsets = [c.offset for s in cluster.server_starters for seg, c in list(s._consumers.items())
+                       if seg in seg0]
+            return len(offsets) == NF_RT_PARTITIONS * NF_REPLICATION and min(offsets) >= rows
+
+        cluster.wait(lambda: consumed(half), timeout_s=NF_WAIT_S, what="(c)'s first half consumed")
+        cluster.wait(throttled(lambda: count(rt_table) == NF_RT_PARTITIONS * half), timeout_s=NF_WAIT_S,
+                     what="(c)'s first half counted")
+        rc["first_half_s"] = time.perf_counter() - t
+        holders: Dict[str, int] = {}
+        for seg in seg0:
+            for s in res.get_ideal_state(rt_physical).get(seg, {}):
+                holders[s] = holders.get(s, 0) + 1
+        victim = max(holders, key=lambda n: (holders[n], n))
+        vsrv = cluster.server(victim).server
+        added0 = st.metrics.meter("stabilizer.replicasAdded").count
+        commits0 = ctrl.metrics.meter("segmentCommits").count
+        cluster.faults.cut("controller", victim)  # the replies to the victim lost, its requests delivered
+        cluster.wait(lambda: not vsrv.lease.held(), timeout_s=NF_WAIT_S, what="(c)'s victim fencing itself")
+        blocked0 = vsrv.metrics.meter("lease.blockedCommits").count
+        t_cut = time.monotonic()
+        for p, path in enumerate(paths):
+            with open(path, "ab") as f, open(os.path.join(stream_dir, f"p{p}.1.jsonl"), "rb") as src:
+                shutil.copyfileobj(src, f)
+        def online_holders(seg: str) -> List[str]:
+            return sorted(s for s, v in res.get_external_view(rt_physical).get(seg, {}).items() if v == "ONLINE")
+
+        # the commit serves from its committer at once; the victim, whose
+        # replies are lost, cannot load it until the heal
+        cluster.wait(lambda: all(online_holders(seg) for seg in seg0), timeout_s=NF_WAIT_S,
+                     what="each partition's commit by its healthy replica")
+        rc["cut_to_committed_s"] = time.monotonic() - t_cut
+        st.run_once()
+        rc["controller_saw_victim_alive"] = res.instances[victim].alive
+        rc["no_replica_movement"] = st.metrics.meter("stabilizer.replicasAdded").count == added0
+        rc["victim_blocked_commits"] = vsrv.metrics.meter("lease.blockedCommits").count - blocked0
+        committers = rc["committed_by"] = {seg: online_holders(seg) for seg in seg0}
+        during = cluster.query(f"SELECT count(*) FROM {rt_table}")
+        rc["served_during"] = {"docs": during.num_docs_scanned, "partial": during.partial_response}
+        t_heal = time.monotonic()
+        cluster.faults.heal()
+        cluster.wait(lambda: vsrv.lease.held() and all(
+            res.get_external_view(rt_physical).get(seg, {}).get(s) == "ONLINE"
+            for seg in seg0 for s in res.get_ideal_state(rt_physical)[seg]),
+            timeout_s=NF_WAIT_S, what="(c)'s victim renewing and loading the committed copies")
+        cluster.wait(throttled(lambda: count(rt_table) == NF_RT_PARTITIONS * NF_RT_ROWS), timeout_s=NF_WAIT_S,
+                     what="(c)'s every row counted after the heal")
+        rc["heal_to_caught_up_s"] = time.monotonic() - t_heal
+        crcs = {}
+        for seg in seg0:
+            for s in cluster.server_starters:
+                tdm = s.server.data_manager.table(rt_physical)
+                acquired = tdm.acquire_segments([seg]) if tdm is not None else []
+                try:
+                    crcs.setdefault(seg, []).extend(int(d.segment.metadata.crc) for d in acquired)
+                finally:
+                    if acquired:
+                        tdm.release_segments(acquired)
+        rc["crcs"] = crcs
+        rc["commits"] = ctrl.metrics.meter("segmentCommits").count - commits0
+        rc["byte_identical"] = all(len(v) == NF_REPLICATION and len(set(v)) == 1 for v in crcs.values())
+        rt_want = rt_wants.result()
+        for name, pql in NF_QUERIES.items():
+            resp = cluster.query(pql.replace("FROM lineitem", f"FROM {rt_table}"))
+            if resp.partial_response:
+                raise AssertionError(f"netfaults (c) {name}: partial after the heal")
+            nf_check(name, resp, rt_want[name])
+        rc["count"] = count(rt_table)
+        time.sleep(NF_WINDOW_S)
+        launched("asymmetric", since)
+        rc.update(load.counts.get("asymmetric", {}))
+        steps["asymmetric"] = time.perf_counter() - t
+        if not (rc["controller_saw_victim_alive"] and rc["no_replica_movement"] and rc["victim_blocked_commits"] > 0
+                and rc["byte_identical"] and all(len(v) == 1 and victim not in v for v in committers.values())
+                and rc["commits"] == NF_RT_PARTITIONS and rc["count"] == NF_RT_PARTITIONS * NF_RT_ROWS
+                and rc["failed"] == 0):
+            raise AssertionError(f"netfaults (c): {rc} {load.failures} {cluster.broker.admission.snapshot()}")
+        log(f"netfaults (c) asymmetric partition, replies to {victim} lost: the first halves ({half} rows a "
+            f"partition) counted {rc['first_half_s']:.1f} s after the table was made; {rc['commits']} commits, one a "
+            f"partition, "
+            f"by its healthy replica {committers} {rc['cut_to_committed_s']:.1f} s after the second halves arrived, "
+            f"the victim's commits blocked {rc['victim_blocked_commits']} times while the controller saw it alive, "
+            f"no replica moved, {rc['served_during']} rows counted during the cut; after the heal the same CRC on "
+            f"both replicas of each committed segment, count(*) {rc['count']} of {NF_RT_PARTITIONS * NF_RT_ROWS} "
+            f"produced, q1 and distinct_price equal to their oracles; caught up {rc['heal_to_caught_up_s']:.1f} s "
+            f"after the heal; offline load {load.counts.get('asymmetric')}; launches {launches['asymmetric']}")
+
+        # (d) disaster recovery: backup while serving, the controller and its
+        # property store lost, the archive restored, a new controller on the
+        # same port, the servers reloaded through it
+        rd = rec["disaster_recovery"] = {}
+        since = mark("disaster-recovery")
+        t = time.perf_counter()
+        archive = os.path.join(tmp, "dr_backup.tar.gz")
+        backup = create_backup(cluster.data_dir, archive)
+        rd.update(backup_s=backup["backupSeconds"], archive_bytes=backup["archiveBytes"], epoch=backup["epoch"],
+                  journal_bytes=backup["journalBytes"])
+        ideal_before = json.dumps(res.get_ideal_state(physical), sort_keys=True)
+        old_ctrl, host, port = ctrl, cluster.http.host, cluster.http.port
+        t_loss = time.monotonic()
+        cluster.http.stop()
+        old_ctrl.stop()
+        shutil.rmtree(os.path.join(cluster.data_dir, "property_store"))
+        time.sleep(NF_WINDOW_S)  # the broker serves from its snapshot meanwhile
+        t_restore = time.monotonic()
+        restored = restore_backup(archive, cluster.data_dir)
+        rd.update(restore_s=restored["restoreSeconds"], segments_verified=restored["segmentsVerified"],
+                  segments_missing=restored["segmentsMissing"], segments_corrupt=restored["segmentsCorrupt"])
+        gw = old_ctrl.gateway
+        ctrl = cluster.controller = Controller(cluster.data_dir, lease_s=cluster.lease_s)
+        ctrl.gateway.heartbeat_timeout_s, ctrl.gateway._check_interval_s = gw.heartbeat_timeout_s, gw._check_interval_s
+        ctrl.stabilizer.grace_s = 0.0
+        ctrl.stabilizer.rebalance_enabled = False
+        cluster.http = ControllerHttpServer(ctrl, host=host, port=port)
+        cluster.http.start()
+        res, st = ctrl.resources, ctrl.stabilizer
+        rd["controller_ready_s"] = time.monotonic() - t_restore
+        mark("disaster-recovery/reload")
+        serving_all = throttled(lambda: count("lineitem") == total)
+        cluster.wait(lambda: converged(physical) and all(res.instances.get(s.name) is not None
+                                                         and res.instances[s.name].alive
+                                                         for s in cluster.server_starters)
+                     and serving_all(), timeout_s=NF_WAIT_S,
+                     what="every server reloaded through the restored controller")
+        rd["restore_to_reloaded_s"] = time.monotonic() - t_restore
+        rd["loss_to_reloaded_s"] = time.monotonic() - t_loss
+        rd["epoch_after"] = ctrl.epoch
+        rd["ideal_identical"] = json.dumps(res.get_ideal_state(physical), sort_keys=True) == ideal_before
+        for name, pql in NF_QUERIES.items():
+            nf_check(name, cluster.query(pql), wants[name])
+        cluster.wait(throttled(lambda: count(rt_table) == NF_RT_PARTITIONS * NF_RT_ROWS), timeout_s=NF_WAIT_S,
+                     what="(c)'s table served through the restored controller")
+        try:
+            old_ctrl.property_store.put("tables", "zombieWrite", {"x": 1})
+            rd["zombie_write"] = "accepted"
+        except StaleEpochError as e:
+            rd["zombie_write"] = f"StaleEpochError: {e}"
+        time.sleep(NF_WINDOW_S)
+        launched("disaster-recovery", since)
+        rd.update(during=load.counts.get("disaster-recovery", {}), reload=load.counts.get("disaster-recovery/reload", {}))
+        counts, failures, latency = load.stop(), load.failures, load.latency()
+        load = None
+        steps["disaster_recovery"] = time.perf_counter() - t
+        if not (rd["zombie_write"].startswith("StaleEpochError") and rd["ideal_identical"]
+                and rd["segments_missing"] == [] and rd["segments_corrupt"] == [] and rd["epoch_after"] > rd["epoch"]
+                and all(c["failed"] == 0 for c in counts.values())):
+            raise AssertionError(f"netfaults (d): {rd} {counts} {failures} {cluster.broker.admission.snapshot()}")
+        log(f"netfaults (d) disaster recovery: backup while serving {rd['backup_s']:.3f} s, archive "
+            f"{rd['archive_bytes']} bytes (journal {rd['journal_bytes']} bytes, epoch {rd['epoch']}); the "
+            f"controller and its property store lost, restored in {rd['restore_s']:.3f} s ({rd['segments_verified']} "
+            f"store copies verified), the new controller (epoch {rd['epoch_after']}) up "
+            f"{rd['controller_ready_s']:.3f} s after the restore began, every server reloaded and every row served "
+            f"{rd['restore_to_reloaded_s']:.2f} s after it; answers equal to the ones before; the old controller's "
+            f"write: {rd['zombie_write'][:120]}; load during {rd['during']}, reload {rd['reload']}; launches "
+            f"{launches['disaster-recovery']}")
+        totals = {"k1": fg.launches, "k2": vsc.launches}
+        record.setdefault("paths", {})["netfaults"] = {"launches": launches, "totals": totals}
+        require_launch("netfaults", totals, "k1")
+        require_launch("netfaults", totals, "k2")
+        rec["load"] = counts
+        rec["latency_ms"] = latency
+        # where a server's time goes over the phase (every sample of its phase timers)
+        rec["server_ms"] = {s.name: {k: float(np.median(v)) for k in ("schedulerWait", "tierDecision", "staging",
+                                                                       "planBuild", "laneWait", "planExec",
+                                                                       "finalize")
+                                     if (v := s.server.metrics.timer(f"phase.{k}").samples())}
+                            for s in cluster.server_starters}
+        rec["audit_fork_ms"] = {s.name: s.server.metrics.timer("audit.forkMs").samples()
+                                for s in cluster.server_starters}
+        log(f"path netfaults: launches {launches}, total {totals}; answers by step {counts}; client ms of the "
+            f"complete answers by step {json.dumps({k: {m: round(x, 1) for m, x in v.items()} for k, v in latency.items()})}; "
+            f"server medians {json.dumps({n: {k: round(x, 3) for k, x in v.items()} for n, v in rec['server_ms'].items()})} "
+            f"ms; audit forks {json.dumps({n: [round(x, 1) for x in v] for n, v in rec['audit_fork_ms'].items()})} ms")
+
+        # K1 and K2 at this phase's shapes (a server's replicas), in process
+        rec["k1"] = k1_captured(fg, "netfaults q1 (a server's replicas)", lambda: cluster.query(NF_QUERIES["q1"]))
+        rec["k2"] = k2_captured(vsc, "netfaults distinct_price (a server's replicas)",
+                                lambda: cluster.query(NF_QUERIES["distinct_price"]))
+    finally:
+        if load is not None:
+            load.stop()
+        if cluster is not None:
+            cluster.stop()
+        if writer.poll() is None:
+            writer.kill()
+        writer.wait()
+        if old_batch is None:
+            os.environ.pop("PINOT_TPU_INGEST_BATCH_ROWS", None)
+        else:
+            os.environ["PINOT_TPU_INGEST_BATCH_ROWS"] = old_batch
+        shutil.rmtree(tmp, ignore_errors=True)
+        del segs, rt_sources
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"netfaults summary on {rec['card']}: {json.dumps({k: round(v, 3) for k, v in steps.items()})}; phase "
+        f"{rec['wall_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -7439,6 +8122,9 @@ def main(argv=None) -> int:
     ap.add_argument("--kafka-only", action="store_true",
                     help="after the build and the kernel checks run only phase 20, Kafka and high-level-consumer "
                     "ingestion with the hybrid quickstart (no result line)")
+    ap.add_argument("--netfaults-only", action="store_true",
+                    help="after the build and the kernel checks run only phase 21, the link fault plane: the "
+                    "partition scenarios and disaster recovery on a networked cluster (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -7506,7 +8192,8 @@ def run(dev: torch.device, opts) -> int:
         return distinct
 
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
-    if opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.kafka_only:
+    if (opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.kafka_only
+            or opts.netfaults_only):
         makers = {}
     elif (opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only or opts.planes_only
           or opts.controller_only):
@@ -7521,7 +8208,7 @@ def run(dev: torch.device, opts) -> int:
     # phase 17's compile-cache roots, given the main build's libraries
     warm_roots = []
     if not (opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.tiers_only
-            or opts.residency_only or opts.build_only or opts.kafka_only):
+            or opts.residency_only or opts.build_only or opts.kafka_only or opts.netfaults_only):
         warm_base = tempfile.mkdtemp(prefix="pinot-compile-cache-")
         atexit.register(shutil.rmtree, warm_base, True)
         warm_roots = [os.path.join(warm_base, "cluster"), os.path.join(warm_base, "restart")]
@@ -7559,6 +8246,15 @@ def run(dev: torch.device, opts) -> int:
         record["paths"] = {}
         kafka_phase(dev, record, fg, vsc, hll_mod)
         log(f"kafka only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
+    if opts.netfaults_only:
+        record["paths"] = {}
+        netfaults_phase(dev, record, fg, vsc, hll_mod)
+        log(f"netfaults only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
             record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
@@ -7696,9 +8392,10 @@ def run(dev: torch.device, opts) -> int:
         return 0
     if opts.warmstart_only:
         record["paths"] = {}
-        warm_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
+        warm_segs = segments[:WARM_SEGMENTS]
+        warm_wants = {n: oracle(warm_segs, n) if n in QUERIES else value_oracle(hll_mod, warm_segs, n)
                       for n in WARM_QUERIES}
-        warmstart_phase(dev, segments, warm_wants, record, warm_roots, fg, vsc)
+        warmstart_phase(dev, warm_segs, warm_wants, record, warm_roots, fg, vsc)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 17 done")
         log(f"warm start only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
@@ -7709,10 +8406,11 @@ def run(dev: torch.device, opts) -> int:
     if opts.controller_only:
         record["paths"] = {}
         t0 = time.perf_counter()
-        ctrl_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
+        warm_segs = segments[:WARM_SEGMENTS]
+        ctrl_wants = {n: oracle(warm_segs, n) if n in QUERIES else value_oracle(hll_mod, warm_segs, n)
                       for n in set(WARM_QUERIES) | set(CTRL_QUERIES)}
         realtime_phase(dev, record, fg, vsc, hll_mod)
-        warmstart_phase(dev, segments, ctrl_wants, record, warm_roots, fg, vsc)
+        warmstart_phase(dev, warm_segs, ctrl_wants, record, warm_roots, fg, vsc)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 19 done ({time.perf_counter() - t0:.1f} s with "
             f"phases 14 and 17 as its hosts)")
         log(f"controller only: done in {time.perf_counter() - t_start:.1f} s")
@@ -7725,7 +8423,10 @@ def run(dev: torch.device, opts) -> int:
         record["paths"] = {}
         t0 = time.perf_counter()
         plane_wants = {n: oracle(segments, n) if n in QUERIES else value_oracle(hll_mod, segments, n)
-                       for n in set(PLANES_QUERIES) | set(WARM_QUERIES)}
+                       for n in PLANES_QUERIES}
+        warm_segs = segments[:WARM_SEGMENTS]
+        warm_wants = {n: oracle(warm_segs, n) if n in QUERIES else value_oracle(hll_mod, warm_segs, n)
+                      for n in WARM_QUERIES}
         half = len(segments) // 2
         plane_wants.update(sel_top=selection_oracle(segments, "sel_top"),
                            pairs_distinct=served_distinct_oracle([segments[:half], segments[half:]]))
@@ -7741,7 +8442,7 @@ def run(dev: torch.device, opts) -> int:
             del fleet
             torch.cuda.empty_cache()
         realtime_phase(dev, record, fg, vsc, hll_mod)
-        warmstart_phase(dev, segments, plane_wants, record, warm_roots, fg, vsc)
+        warmstart_phase(dev, warm_segs, warm_wants, record, warm_roots, fg, vsc)
         log(f"elapsed {time.perf_counter() - t_start:.1f} s: phase 18 done ({time.perf_counter() - t0:.1f} s with "
             f"phases 14 and 17 as its hosts)")
         log(f"planes only: done in {time.perf_counter() - t_start:.1f} s")
@@ -7830,6 +8531,14 @@ def run(dev: torch.device, opts) -> int:
     pending["north_star"] = oracles.submit(north_star_oracle, hll_mod, ad_segments)
     for name in PAIR_QUERIES:
         pending[name] = oracles.submit(pair_oracle, hll_mod, ad_segments if name in AD_QUERIES else segments, name)
+    # phase 7's host oracles and phase 10's zone oracles too, beside phases 3f-9
+    pending["reach_overflow"] = oracles.submit(pair_oracle, hll_mod, ad_segments, "reach_overflow")
+    pending["host_groups"] = oracles.submit(host_groups_oracle, segments)
+    pending["zone_in"] = oracles.submit(oracle, segments, "zone_in")
+    pending["zone_distinct"] = oracles.submit(value_oracle, hll_mod, segments, "zone_distinct")
+    # phase 17's (and 19's) over its segments
+    warm_pending = {n: oracles.submit(oracle, segments[:WARM_SEGMENTS], n) if n in QUERIES
+                    else oracles.submit(value_oracle, hll_mod, segments[:WARM_SEGMENTS], n) for n in WARM_QUERIES}
     ns = drive("north_star", {"north_star": ns_request}, ad_segments, {"north_star": ("k1",)})
     if record["paths"]["north_star"]["totals"]["k2"]:
         raise AssertionError("north_star: the sort lowering launched the value-state kernel")
@@ -7975,7 +8684,7 @@ def run(dev: torch.device, opts) -> int:
         k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
         tier_ms = {t: cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args, tier=t), ITERS)[0]
                    for t in tiers}
-        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
+        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 1, warmup=0)
         key_ms = None
         if "keys" in captured:  # the torch-op route still combines its key (min/max need it)
             ka, kk = captured["keys"]
@@ -8024,7 +8733,7 @@ def run(dev: torch.device, opts) -> int:
         k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
         dev_ms = sum(device_ms(lambda: vsc.value_state(mode, **args)).values())
         tier_ms = {t: sum(device_ms(lambda: vsc.value_state(mode, **args, tier=t)).values()) for t in tiers}
-        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)  # ITERS before phase 14
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 1, warmup=0)  # ITERS before phase 14
         comb_ms, _ = cuda_ms(lambda: vsc.combine_index(mode, **args), ITERS)
         idx, K, _ = vsc.combine_index(mode, **args)
         counts = vsc.value_state_counts(idx, K)
@@ -8206,7 +8915,7 @@ def run(dev: torch.device, opts) -> int:
         raise AssertionError("host_groups: the executor staged a table for a query the host serves")
     if record["paths"]["host_groups"]["totals"] != {"k1": 0, "k2": 0}:
         raise AssertionError("host_groups: a kernel launched for a query the host serves")
-    sums, counts, ship, receipt = host_groups_oracle(segments)
+    sums, counts, ship, receipt = pending["host_groups"].result()
     ar_sum, ar_cnt = hosted["host_groups"].aggregation_results
     worst = max(check_top(ar_sum, host_groups_want(ar_sum, sums, counts, ship, receipt), exact=False),
                 check_top(ar_cnt, host_groups_want(ar_cnt, counts, counts, ship, receipt), exact=True))
@@ -8221,7 +8930,7 @@ def run(dev: torch.device, opts) -> int:
         kernel_mod._reduce_distinct_pairs = real_reduce
     (out,) = overflow
     n_unique, kept = int(out[3]), int(out[4])
-    want, want_unique, want_kept = pair_oracle(hll_mod, ad_segments, "reach_overflow")
+    want, want_unique, want_kept = pending["reach_overflow"].result()
     if (n_unique, kept) != (want_unique, want_kept) or n_unique <= config.DISTINCT_PAIR_CAP:
         raise AssertionError(f"reach_overflow: {n_unique} unique of {kept} kept pairs, oracle "
                              f"{want_unique} of {want_kept}, cap {config.DISTINCT_PAIR_CAP}")
@@ -8264,9 +8973,10 @@ def run(dev: torch.device, opts) -> int:
     ex.free_staging()
     torch.cuda.empty_cache()
     mv_distinct, gen_s = tables["mvtest"]
-    mv_segments = tile_segments(mv_distinct, SEGMENTS)
+    mv_segments = tile_segments(mv_distinct, MV_SEGMENTS)
+    mv_rows = MV_SEGMENTS * ROWS_PER_SEGMENT
     entries = {c: sum(int(s_.column(c).mv_offsets[-1]) for s_ in mv_segments) for c in ("dimStrMV", "dimIntMV")}
-    log(f"datagen mvtest: {MV_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to {SEGMENTS} segments, "
+    log(f"datagen mvtest: {MV_DISTINCT} distinct x {ROWS_PER_SEGMENT} rows tiled to {MV_SEGMENTS} segments, "
         f"MV entries {entries} in {gen_s:.1f} s (in a thread, beside the build)")
     values = mv_query_values(mv_segments)
     mv_requests = {k: parse(v.format(**values)) for k, v in MV_QUERIES.items()}
@@ -8275,7 +8985,7 @@ def run(dev: torch.device, opts) -> int:
     # its shape
     mv_ex = QueryExecutor(device=dev, precision="x32", postings=False)
     mv_need = {"mv_filter": ("k1",), "mv_groupby": ("k1",), "mv_aggs": ("k2",), "mv_grouped_state": ("k2",)}
-    mv_wants = {n: oracles.submit(mv_oracle, hll_mod, mv_distinct, SEGMENTS // MV_DISTINCT, n, values)
+    mv_wants = {n: oracles.submit(mv_oracle, hll_mod, mv_distinct, MV_SEGMENTS // MV_DISTINCT, n, values)
                 for n in MV_QUERIES}  # in the threads, beside the path
     oracles.shutdown(wait=False)
     mv_answers = drive("mv", mv_requests, mv_segments, mv_need, executor=mv_ex)
@@ -8303,7 +9013,7 @@ def run(dev: torch.device, opts) -> int:
     for name, req in mv_requests.items():
         # one warm-up: the path's run above staged and warmed every table
         ms, _ = cuda_ms(lambda: reduce_to_response(req, [mv_ex.execute(mv_segments, req)]), MV_ITERS, warmup=1)
-        log(f"query {name}: {ms:.3f} ms median of {MV_ITERS}, {total_rows / (ms / 1e3):.4g} rows/s")
+        log(f"query {name}: {ms:.3f} ms median of {MV_ITERS}, {mv_rows / (ms / 1e3):.4g} rows/s")
         record["query_ms"][name] = ms
     if opts.profile:
         for name, req in mv_requests.items():
@@ -8380,8 +9090,8 @@ def run(dev: torch.device, opts) -> int:
     # (zone_maps=False), each against its host oracle
     t0 = time.perf_counter()
     zone_requests = {k: parse(v) for k, v in ZONE_QUERIES.items()}
-    wants["zone_in"] = oracle(segments, "zone_in")
-    wants["zone_distinct"] = value_oracle(hll_mod, segments, "zone_distinct")
+    wants["zone_in"] = pending["zone_in"].result()
+    wants["zone_distinct"] = pending["zone_distinct"].result()
     # past the postings tier, which serves both three-date lists by default
     # (phase 13 and the deployed cluster); this phase holds the block path
     zex = QueryExecutor(device=dev, precision="x32", postings=False)
@@ -8499,7 +9209,7 @@ def run(dev: torch.device, opts) -> int:
             raise AssertionError(f"k1 zone_in {label}: block table {args.get('block_ids') is not None}")
         err, tiers = compare_k1(fg, args, AUDIT_RTOL, AUDIT_ATOL)
         k_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums(**args), ITERS)
-        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 3, warmup=1)
+        p_ms, _ = cuda_ms(lambda: fg.fused_filtered_groupby_sums_reference(**args), 1, warmup=0)
         rows = k1_bytes(args)[0]
         matched = int(fg.fused_filtered_groupby_sums(**args)[0])
         bound, bound_by, nbytes, ops = k1_bound(args, matched)
@@ -8519,7 +9229,7 @@ def run(dev: torch.device, opts) -> int:
         tiers = compare_k2_value(vsc, mode, args)
         k_ms, _ = cuda_ms(lambda: vsc.value_state(mode, **args), ITERS)
         dev_ms = sum(device_ms(lambda: vsc.value_state(mode, **args)).values())
-        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 3, warmup=1)
+        p_ms, _ = cuda_ms(lambda: vsc.value_state_reference(mode, **args), 1, warmup=0)
         rows = k2_bytes(vsc, mode, args)[0]
         matched = int(vsc.value_state(mode, **args)[0])
         bound, bound_by, nbytes, ops = k2_bound(vsc, mode, args, matched)
@@ -8546,16 +9256,17 @@ def run(dev: torch.device, opts) -> int:
     log(f"zone phase: {time.perf_counter() - t0:.1f} s")
 
     # 10b. the deployed cluster, each role its own process
-    t0 = time.perf_counter()
-    deployed_phase(segments, wants, record)
-    log(f"deployed phase: {time.perf_counter() - t0:.1f} s")
-
-    # 11. joins: SSB lineorder / part / date in process, through two servers
-    # and the broker over TCP, and through a deployed cluster
+    # and 11c. the deployed joins on its roles, before they stop
     t0 = time.perf_counter()
     ssb, join_wants = join_data()
+    deployed_phase(segments, wants, record,
+                   then=lambda roles: deployed_join_phase(ssb, join_wants, record, roles))
+    log(f"deployed phase (the deployed joins included): {time.perf_counter() - t0:.1f} s")
+
+    # 11. joins: SSB lineorder / part / date in process, through two servers
+    # and the broker over TCP (their deployed step ran on phase 10's roles)
+    t0 = time.perf_counter()
     join_phase(dev, ssb, join_wants, record, fg, vsc)
-    deployed_join_phase(ssb, join_wants, record)
     log(f"joins phase: {time.perf_counter() - t0:.1f} s")
 
     # 12. star-tree tables: baseball_cube and adevents_hll_cube (phase 4's
@@ -8602,7 +9313,8 @@ def run(dev: torch.device, opts) -> int:
     t0 = time.perf_counter()
     ex.free_staging()
     torch.cuda.empty_cache()
-    warmstart_phase(dev, segments, wants, record, warm_roots, fg, vsc)
+    warmstart_phase(dev, segments[:WARM_SEGMENTS], {n: f.result() for n, f in warm_pending.items()}, record,
+                    warm_roots, fg, vsc)
     log(f"warm start phase: {time.perf_counter() - t0:.1f} s")
     log(f"elapsed {time.perf_counter() - t_start:.1f} s: phases 17 and 19 done (19 {record['controller']['wall_s']:.1f} s "
         f"inside 17)")
@@ -8617,6 +9329,13 @@ def run(dev: torch.device, opts) -> int:
     torch.cuda.empty_cache()
     kafka_phase(dev, record, fg, vsc, hll_mod)
     log(f"kafka phase: {time.perf_counter() - t0:.1f} s")
+
+    # 21. the link fault plane: a networked cluster in this process, every
+    # link through one seeded injector, the partition scenarios and
+    # disaster recovery under closed-loop q1 / distinct_price
+    t0 = time.perf_counter()
+    netfaults_phase(dev, record, fg, vsc, hll_mod)
+    log(f"netfaults phase: {time.perf_counter() - t0:.1f} s")
 
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
@@ -8691,6 +9410,8 @@ def run(dev: torch.device, opts) -> int:
             "realtime_shape": record["realtime"]["k1"],
             "kafka_shape": dict(record["kafka"]["k1"], launches=record["paths"]["kafka"]["totals"]["k1"]),
             "hlc_shape": record["kafka"]["hlc_k1"],
+            "netfaults_shape": dict(record["netfaults"]["k1"],
+                                    launches=record["paths"]["netfaults"]["totals"]["k1"]),
             "build_shape": record["build"]["k1"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k1"],
             "planes_launches": record["paths"]["planes"]["totals"]["k1"],
@@ -8712,6 +9433,8 @@ def run(dev: torch.device, opts) -> int:
             "realtime_shape": record["realtime"]["k2"],
             "kafka_shape": dict(record["kafka"]["k2"], launches=record["paths"]["kafka"]["totals"]["k2"]),
             "hlc_shape": record["kafka"]["hlc_k2"],
+            "netfaults_shape": dict(record["netfaults"]["k2"],
+                                    launches=record["paths"]["netfaults"]["totals"]["k2"]),
             "build_shape": record["build"]["k2"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k2"],
             "planes_launches": record["paths"]["planes"]["totals"]["k2"],

@@ -10,8 +10,10 @@ partitioning (``TableConfig.partitioning``, given through ``AddTable``),
 which the join planner's colocation check reads.  Queries go HTTP front
 -> ``BrokerRequestHandler`` (from a ``BrokerConf`` when one is given) ->
 TCP scatter-gather -> reduce.  While the controller is unreachable the
-broker keeps routing from its last snapshot.  Left out: the link fault
-injector (ROADMAP queue 1 item 30).
+broker keeps routing from its last snapshot.  With a ``fault_injector``
+(``common/faults.NetworkFaultInjector``) the cluster-state poll and the
+heartbeat ride the link ``name -> controller`` and the scatter transport
+consults the injector on each server link (``LinkFaultTransport``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import urllib.request
 from typing import Any, Dict
 
 from pinot_tpu_torch.broker.broker import BrokerHttpServer, BrokerRequestHandler
+from pinot_tpu_torch.common.faults import LinkFaultTransport, call_on_controller_link
 from pinot_tpu_torch.transport.tcp import TcpTransport
 from pinot_tpu_torch.utils.retry import FullJitterBackoff, tighten_liveness_budget
 
@@ -39,16 +42,25 @@ class NetworkedBrokerStarter:
         poll_interval_s: float = 0.3,
         timeout_ms: float = 15_000.0,
         conf=None,
+        fault_injector=None,
     ) -> None:
         """``conf``: a ``BrokerConf`` (its retry, hedge, circuit-breaker and
         admission knobs, ``BrokerRequestHandler.from_conf``); without one
         the handler takes ``timeout_ms`` and the defaults."""
         self.controller_url = controller_url.rstrip("/")
         self.name = name
+        self.fault_injector = fault_injector
+        transport = TcpTransport()
+        if fault_injector is not None:
+            transport = LinkFaultTransport(transport, fault_injector, src=name, resolve=self._server_of_address)
         if conf is not None:
-            self.handler = BrokerRequestHandler.from_conf(TcpTransport(), {}, conf, name=name)
+            self.handler = BrokerRequestHandler.from_conf(transport, {}, conf, name=name)
         else:
-            self.handler = BrokerRequestHandler(TcpTransport(), {}, timeout_ms=timeout_ms, name=name)
+            self.handler = BrokerRequestHandler(transport, {}, timeout_ms=timeout_ms, name=name)
+        if fault_injector is not None:
+            # netfaults.* marks land on this broker's registry, which
+            # exists only now
+            transport.metrics = self.handler.metrics
         self.http = BrokerHttpServer(self.handler, host=host, port=port)
         self.heartbeat_interval_s = heartbeat_interval_s
         self.poll_interval_s = poll_interval_s
@@ -64,17 +76,36 @@ class NetworkedBrokerStarter:
         self.handler.metrics.meter("controller.pollFailures")
         self.handler.metrics.meter("controller.allDeadSnapshotsHeld")
 
+    def _server_of_address(self, address) -> str:
+        """A TCP address's server instance name, for the link injector
+        (``host:port`` when no server has that address)."""
+        addr = (address[0], int(address[1]))
+        # a copy: the poll thread changes the map while scatters resolve
+        for server, known in list(self.handler.server_addresses.items()):
+            if (known[0], int(known[1])) == addr:
+                return server
+        return f"{address[0]}:{address[1]}"
+
+    def _link(self, fn):
+        return call_on_controller_link(self.fault_injector, self.name, fn, metrics=self.handler.metrics)
+
     def _post(self, path: str, payload: Dict[str, Any], timeout_s: float = 10.0) -> Dict[str, Any]:
-        req = urllib.request.Request(
-            self.controller_url + path, data=json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"},
-        )
-        with urllib.request.urlopen(req, timeout=timeout_s) as r:
-            return json.loads(r.read())
+        def send():
+            req = urllib.request.Request(
+                self.controller_url + path, data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req, timeout=timeout_s) as r:
+                return json.loads(r.read())
+
+        return self._link(send)
 
     def _get(self, path: str) -> Dict[str, Any]:
-        with urllib.request.urlopen(self.controller_url + path, timeout=10) as r:
-            return json.loads(r.read())
+        def send():
+            with urllib.request.urlopen(self.controller_url + path, timeout=10) as r:
+                return json.loads(r.read())
+
+        return self._link(send)
 
     def start(self) -> None:
         self.http.start()

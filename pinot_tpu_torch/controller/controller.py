@@ -103,7 +103,10 @@ class Controller:
         start_managers: bool = False,
         lease_s: Optional[float] = None,
         heartbeat_timeout_s: float = 6.0,
+        fault_injector=None,
     ) -> None:
+        """``fault_injector``: a ``NetworkFaultInjector`` the gateway's edge
+        consults on every instance-named call (``ParticipantGateway``)."""
         self.property_store = PropertyStore(os.path.join(data_dir, "property_store"))
         # the cluster-wide fencing epoch (ZK's leader generation): from here
         # on this incarnation owns the store, and an older controller over
@@ -150,7 +153,7 @@ class Controller:
         self.stabilizer.readiness_fn = lambda name: not self.resources.is_instance_warming(name)
         self.gateway = ParticipantGateway(
             self.resources, heartbeat_timeout_s=heartbeat_timeout_s, metrics=self.metrics,
-            epoch=self.epoch, lease_s=lease_s,
+            epoch=self.epoch, lease_s=lease_s, fault_injector=fault_injector,
         )
         # a server that becomes available runs the deferred consuming
         # repairs at once instead of waiting for the validation tick

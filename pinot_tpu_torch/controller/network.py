@@ -13,8 +13,10 @@ The JSON of every call is the reference's, so a port server registers
 with the reference controller and the other way round.  A dead instance
 that keeps coming back is held out of routing for a growing window (flap
 hysteresis, ``_flap_gate``); the cluster state is built once a version.
-Left out, ROADMAP queue 1 item 30: the link fault injector
-(``common/faults.py``) at the controller's edge.
+A ``NetworkFaultInjector`` (``common/faults.py``) given as
+``fault_injector`` runs every instance-named call (register, heartbeat,
+message fetch and ack) over the link ``name -> controller`` at the
+controller's edge (``_linked``).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 from pinot_tpu_torch.broker.time_boundary import compute_boundary
+from pinot_tpu_torch.common.faults import call_on_controller_link
 from pinot_tpu_torch.common.fencing import default_lease_s, epoch_int
 from pinot_tpu_torch.controller.resource_manager import (
     CONSUMING,
@@ -155,6 +158,7 @@ class ParticipantGateway:
         clock=None,
         epoch: Optional[int] = None,
         lease_s: Optional[float] = None,
+        fault_injector=None,
     ) -> None:
         self.resources = resources
         self.board = MessageBoard()
@@ -167,6 +171,11 @@ class ParticipantGateway:
         # grants write authority for lease_s; the stabilizer will not
         # move a dead server's replicas before its lease window closes
         self.lease_s = lease_s if lease_s is not None else default_lease_s()
+        # the link-level chaos hook (common/faults.py): instance-named
+        # control-plane calls consult it at the controller's edge, so a cut
+        # server -> controller link drops heartbeats even when the client
+        # was not given the injector
+        self.fault_injector = fault_injector
         # flap hysteresis: dead->alive cycles inside flap_window_s; at
         # flap_threshold the re-admit is HELD for an escalating window
         # (doubling per extra flap, capped) so the stabilizer never
@@ -310,9 +319,17 @@ class ParticipantGateway:
         # incarnation (Controller-wired); -1 disarms the fence
         return epoch_int(self.epoch)
 
+    def _linked(self, src: str, fn):
+        """Run one instance-named control-plane call through the link
+        injector (a plain call without one).  This is the controller-edge
+        hook, for harnesses that cannot wire the client processes; a
+        harness that gives its clients the injector must not also give it
+        to the gateway, or the faults apply twice on these links."""
+        return call_on_controller_link(self.fault_injector, src, fn, metrics=self.metrics)
+
     # -- instance API (called from HTTP handlers) ----------------------
     def register(self, payload: Dict[str, Any]) -> Dict[str, Any]:
-        return self._register(payload)
+        return self._linked(payload["name"], lambda: self._register(payload))
 
     def _register(self, payload: Dict[str, Any]) -> Dict[str, Any]:
         name = payload["name"]
@@ -373,7 +390,7 @@ class ParticipantGateway:
     def heartbeat(
         self, name: str, payload: Optional[Dict[str, Any]] = None
     ) -> Dict[str, Any]:
-        return self._heartbeat(name, payload)
+        return self._linked(name, lambda: self._heartbeat(name, payload))
 
     def _heartbeat(
         self, name: str, payload: Optional[Dict[str, Any]] = None
@@ -426,10 +443,10 @@ class ParticipantGateway:
         threading.Thread(target=run, daemon=True).start()
 
     def messages(self, name: str) -> List[Dict[str, Any]]:
-        return self.board.fetch(name)
+        return self._linked(name, lambda: self.board.fetch(name))
 
     def ack(self, name: str, payload: Dict[str, Any]) -> Dict[str, Any]:
-        return self._ack(name, payload)
+        return self._linked(name, lambda: self._ack(name, payload))
 
     def _ack(self, name: str, payload: Dict[str, Any]) -> Dict[str, Any]:
         if self.metrics is not None:

@@ -1,12 +1,14 @@
 """Controller segment store: the durable copy of every uploaded segment
 (port of ``pinot_tpu.controller.store``, trimmed): one directory per
-table, one segment file per segment, served to servers for download and
-re-verified by the deep-store scrubber (``verify_copy``)."""
+table, one segment file per segment, served to servers for download,
+re-verified by the deep-store scrubber (``verify_copy``) and listed with
+byte-level CRCs in a backup's manifest (``manifest``)."""
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional
+import zlib
+from typing import Dict, List, Optional
 
 from pinot_tpu_torch.segment.format import (
     SEGMENT_FILE_NAME,
@@ -58,6 +60,38 @@ class SegmentStore:
         """On-disk bytes of a table's durable copies (the storage quota's
         input)."""
         return self._dir_bytes(os.path.join(self.base_dir, table))
+
+    def list_segments(self, table: str) -> List[str]:
+        d = os.path.join(self.base_dir, table)
+        if not os.path.isdir(d):
+            return []
+        return sorted(os.listdir(d))
+
+    def list_tables(self) -> List[str]:
+        return sorted(t for t in os.listdir(self.base_dir) if os.path.isdir(os.path.join(self.base_dir, t)))
+
+    def file_crc32(self, table: str, segment_name: str) -> Optional[int]:
+        """crc32 of the store file's raw bytes (the backup manifest's
+        fingerprint: byte-level, it catches rot the header cannot)."""
+        try:
+            with open(self.segment_file_path(table, segment_name), "rb") as f:
+                return zlib.crc32(f.read()) & 0xFFFFFFFF
+        except OSError:
+            return None
+
+    def manifest(self) -> Dict[str, Dict[str, Dict[str, int]]]:
+        """{table: {segment: {sizeBytes, crc32}}} over every durable copy
+        (the backup archive's segment manifest)."""
+        out: Dict[str, Dict[str, Dict[str, int]]] = {}
+        for table in self.list_tables():
+            for seg in self.list_segments(table):
+                path = self.segment_file_path(table, seg)
+                if not os.path.exists(path):
+                    continue
+                crc = self.file_crc32(table, seg)
+                out.setdefault(table, {})[seg] = {"sizeBytes": os.path.getsize(path),
+                                                  "crc32": crc if crc is not None else 0}
+        return out
 
     def exists(self, table: str, segment_name: str) -> bool:
         return os.path.exists(self.segment_file_path(table, segment_name))

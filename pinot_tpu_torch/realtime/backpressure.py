@@ -191,6 +191,8 @@ class IngestBackpressure:
                     "residencyHighFrac": self.residency_high_frac,
                     "residencyLowFrac": self.residency_low_frac,
                 },
+                "residencyPressure": round(
+                    self._read(self._residency.pressure) if self._residency is not None else 0.0, 4),
                 "maxBatchRows": self.max_batch_rows,
                 "events": list(self._events),
             }

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import threading
 import time
+from operator import itemgetter
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -147,15 +148,15 @@ class _MutableColumn:
     # raises on producer garbage) can never leave columns misaligned:
     # encode_batch only touches the dictionary (unreferenced entries are
     # harmless), commit_batch cannot raise.
-    def encode_batch(self, rows, name: str):
-        """-> int32[m] dictIds (SV) or per-row id lists (MV); raises on
+    def encode_batch(self, vals):
+        """The column's values of a batch (None where a row lacks it) ->
+        int32[m] dictIds (SV) or per-row id lists (MV); raises on
         unconvertible values BEFORE any row arrays mutate."""
         st = self.spec.stored_type
         conv = st.convert
         id_of = self._id_of
         default_id = None
         if self.single:
-            vals = [row.get(name) for row in rows]
             if st.is_numeric and None not in vals:
                 # Vectorized fast path (the ingest hot loop): one numpy
                 # conversion + unique, then one id_of per UNIQUE value.
@@ -181,14 +182,14 @@ class _MutableColumn:
                     arr = None
                 if arr is not None:
                     return self.encode_array(arr)
-            elif all(type(v) is str for v in vals):
+            elif set(map(type, vals)) == {str}:
                 # STRING columns from JSON payloads arrive as str:
-                # convert() would be an identity per value — skip it
-                out = np.empty(len(vals), dtype=np.int32)
-                for j, v in enumerate(vals):
-                    out[j] = id_of(v)
-                return out
-            out = np.empty(len(rows), dtype=np.int32)
+                # convert() would be an identity per value — skip it.
+                # id_of once a distinct value, in the order of first
+                # appearance (the ids a per-value loop would give)
+                ids = {v: id_of(v) for v in dict.fromkeys(vals)}
+                return np.fromiter(map(ids.__getitem__, vals), dtype=np.int32, count=len(vals))
+            out = np.empty(len(vals), dtype=np.int32)
             for j, v in enumerate(vals):
                 if v is None:
                     if default_id is None:
@@ -199,8 +200,7 @@ class _MutableColumn:
             return out
         outs = []
         default_ids = None
-        for row in rows:
-            v = row.get(name)
+        for v in vals:
             vs = v if isinstance(v, (list, tuple)) else [v] if v is not None else []
             if not vs:
                 if default_ids is None:
@@ -277,10 +277,16 @@ class MutableSegment:
         with self._lock:
             start = self._num_docs
             specs = self.schema.all_fields()
-            encoded = [
-                self._columns[spec.name].encode_batch(rows, spec.name)
-                for spec in specs
-            ]
+            names = [spec.name for spec in specs]
+            # the batch transposed into columns: one pass when every row
+            # carries every field (the first name asked twice, so a getter
+            # of one field also returns tuples), else None where a row
+            # lacks one
+            try:
+                cols = list(zip(*map(itemgetter(*names, *names[:1]), rows)))
+            except KeyError:
+                cols = [[row.get(name) for row in rows] for name in names]
+            encoded = [self._columns[name].encode_batch(col) for name, col in zip(names, cols)]
             for spec, enc in zip(specs, encoded):
                 self._columns[spec.name].commit_batch(enc, start)
             self._num_docs = start + len(rows)

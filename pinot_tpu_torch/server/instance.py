@@ -895,9 +895,13 @@ class ServerInstance:
         depth and coalesce/dispatch/shed counters and its micro-batching
         counters (``batchLaunches``, ``batchedQueries``), the phase timers
         (staging, planBuild, laneWait, planExec, finalize) inside the
-        metrics snapshot, and the self-healing counters."""
+        metrics snapshot, and the self-healing counters (device failures,
+        host failovers, lane restarts, poisoned plans, CRC failures,
+        quarantined segments)."""
         heal = self.executor.healing_stats()
         heal["laneRestarts"] = 0 if self.lanes is None else self.lanes.restart_count
+        heal["crcFailures"] = self.metrics.meter("crcFailures").count
+        heal["quarantinedSegments"] = self.metrics.meter("quarantinedSegments").count
         return {
             "name": self.name,
             "draining": self.draining,

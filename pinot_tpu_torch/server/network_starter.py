@@ -33,7 +33,11 @@ its segment at the row threshold, uploads it pinned to this server, then
 commits the group's offsets and rolls to the next sequence.
 
 The heartbeat and message loops back off with full jitter while the
-controller is unreachable and keep serving from local state.
+controller is unreachable and keep serving from local state.  With a
+``fault_injector`` (``common/faults.NetworkFaultInjector``) every
+controller-bound call (register, heartbeat, message poll and ack, the
+completion protocol and its upload, the workload feed) rides the link
+``name -> controller`` (``_link``).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from urllib.parse import parse_qs, urlparse
 
 import torch
 
+from pinot_tpu_torch.common.faults import call_on_controller_link
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.controller.resource_manager import CONSUMING, DROPPED, OFFLINE, ONLINE
 from pinot_tpu_torch.realtime.kafka_group import KafkaGroupConsumer
@@ -571,9 +576,13 @@ class NetworkedServerStarter:
         admin_port: int = 0,
         device: Optional[Union[str, torch.device]] = None,
         precision: str = "x64",
+        fault_injector=None,
     ) -> None:
         self.controller_url = controller_url.rstrip("/")
         self.name = name
+        # the link-level chaos hook: every controller-bound HTTP call rides
+        # the link (name -> "controller") through it
+        self.fault_injector = fault_injector
         self.server = ServerInstance(name, device=device, precision=precision, **residency_options())
         self.tcp = TcpServer(self.server.handle_request, host=host, port=port)
         self.admin = ServerAdminHttpServer(self.server, host=host, port=admin_port)
@@ -602,17 +611,27 @@ class NetworkedServerStarter:
         self.server.prewarm.workload_source = self._fetch_workload
 
     # -- HTTP helpers --------------------------------------------------
+    def _link(self, fn):
+        """Run one controller-bound RPC through the link injector."""
+        return call_on_controller_link(self.fault_injector, self.name, fn, metrics=self.server.metrics)
+
     def _post(self, path: str, payload: Dict[str, Any], timeout_s: float = 10.0) -> Dict[str, Any]:
-        req = urllib.request.Request(
-            self.controller_url + path, data=json.dumps(payload).encode(),
-            headers={"Content-Type": "application/json"},
-        )
-        with urllib.request.urlopen(req, timeout=timeout_s) as r:
-            return json.loads(r.read())
+        def send():
+            req = urllib.request.Request(
+                self.controller_url + path, data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"},
+            )
+            with urllib.request.urlopen(req, timeout=timeout_s) as r:
+                return json.loads(r.read())
+
+        return self._link(send)
 
     def _get(self, path: str) -> Dict[str, Any]:
-        with urllib.request.urlopen(self.controller_url + path, timeout=10) as r:
-            return json.loads(r.read())
+        def send():
+            with urllib.request.urlopen(self.controller_url + path, timeout=10) as r:
+                return json.loads(r.read())
+
+        return self._link(send)
 
     def _fetch_workload(self, tables, n) -> list:
         """The prewarm feed: the controller's fleet-merged top-K plan
@@ -663,10 +682,13 @@ class NetworkedServerStarter:
 
     def upload_file_bytes(self, path: str, data: bytes) -> Dict[str, Any]:
         """POST segment-file bytes to the controller."""
-        req = urllib.request.Request(self.controller_url + path, data=data,
-                                     headers={"Content-Type": "application/octet-stream"})
-        with urllib.request.urlopen(req, timeout=600) as r:
-            return json.loads(r.read())
+        def send():
+            req = urllib.request.Request(self.controller_url + path, data=data,
+                                         headers={"Content-Type": "application/octet-stream"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return json.loads(r.read())
+
+        return self._link(send)
 
     def stop(self) -> None:
         self._stop.set()

@@ -24,9 +24,11 @@ warming replica.
 Knobs: ``PINOT_TPU_PREWARM_TOP_K`` (shapes a pass, default 8; 0
 disables), ``PINOT_TPU_PREWARM_TIMEOUT_S`` (a pass's deadline, default
 30 s).  With no workload source wired (plain in-process instances) the
-worker never starts and the server is always ready.  The stabilizer's
-trim that waits for a warming destination is ROADMAP queue 1 item 30.
+worker never starts and the server is always ready.  The stabilizer
+holds an old replica's trim while its destination warms, up to the
+same timeout (``SelfStabilizer._destinations_ready``).
 """
+
 from __future__ import annotations
 
 import logging

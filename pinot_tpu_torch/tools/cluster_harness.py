@@ -1,6 +1,5 @@
 """In-process cluster harness: a controller, N servers and a broker in one
-process (port of ``pinot_tpu.tools.cluster_harness``, trimmed to
-``InProcessCluster`` and ``single_server_broker``).
+process (port of ``pinot_tpu.tools.cluster_harness``, trimmed).
 
 The reference's ``PerfBenchmarkDriver.java:61`` and the integration
 tests' ``ClusterTest`` start the whole cluster in one process the same
@@ -21,10 +20,18 @@ drains or every server rolls, stepping the stabilizer with ``run_once``;
 property store and checks that every write of the fenced-off first one
 raises ``StaleEpochError``.  Each returns the reference's result dict.
 
-Left out, ROADMAP queue 1 item 30: the network-partition, disaster
-recovery, elastic-fleet, noisy-neighbour, flood, backpressure,
-HBM-pressure and audit-divergence scenarios and the networked cluster
-they run on.
+``NetworkedCluster`` runs a controller, servers and a broker in one
+process over their real protocols (HTTP and TCP), every link through one
+seeded ``NetworkFaultInjector``; the partition scenarios
+(``run_partition_server_scenario``, ``run_partition_controller_scenario``,
+``run_asymmetric_partition_scenario``) run on it.
+``run_disaster_recovery_scenario`` backs an in-process cluster up while it
+serves, destroys its property store and restores it from the archive and
+the deep store (``tools/backup.py``).
+
+Left out, ROADMAP queue 1 item 30 (b): the elastic-fleet, noisy-neighbour,
+flood, backpressure, HBM-pressure and audit-divergence scenarios and the
+``--scenario`` command line.
 """
 from __future__ import annotations
 
@@ -87,19 +94,40 @@ class InProcessCluster:
         else:
             self.broker = BrokerRequestHandler(self.transport, {}, name="broker0", timeout_ms=timeout_ms)
         self.http: Optional[BrokerHttpServer] = None
-        broker_url = None
+        self.broker_url: Optional[str] = None
         if http:
             self.http = BrokerHttpServer(self.broker)
             self.http.start()
-            broker_url = f"http://{self.http.host}:{self.http.port}"
+            self.broker_url = f"http://{self.http.host}:{self.http.port}"
+        self._attach_broker()
+        for _ in range(num_servers):
+            self.add_server()
+
+    def _attach_broker(self) -> None:
+        """Register the broker on the controller and follow its views: the
+        routing of every table it already has is seeded now."""
         resources = self.controller.resources
-        resources.register_instance(InstanceState(self.broker.name, role="broker", url=broker_url))
+        resources.register_instance(InstanceState(self.broker.name, role="broker", url=self.broker_url))
         resources.add_view_listener(self._on_view_change)
         # a liveness flip reaches the broker's health tracker on the same
         # path that rebuilds its routing
         resources.add_instance_listener(self._on_instance_change)
-        for _ in range(num_servers):
-            self.add_server()
+        for table in resources.tables():
+            self._on_view_change(table, resources.get_external_view(table))
+
+    def attach_controller(self, controller: Controller) -> None:
+        """Join every server and the broker to ``controller`` (a restored or
+        restarted one over the same data directory): the servers first,
+        whose replays refill its external views, then the broker, whose
+        routing is seeded from those views (the reference restarts its
+        ``ServerStarter`` and ``BrokerStarter`` the same way)."""
+        self.controller = controller
+        self.server_starters = []
+        for server in self.servers:
+            starter = ServerStarter(server, controller.resources)
+            starter.start()
+            self.server_starters.append(starter)
+        self._attach_broker()
 
     def _on_instance_change(self, name: str, alive: bool) -> None:
         if alive:
@@ -744,3 +772,630 @@ def _zombie_stabilizer_write(ctrl_a, physical: str) -> None:
     # was attempted
     if before == ctrl_a.resources.get_ideal_state(physical):
         raise RuntimeError("stabilizer made no write attempt")
+
+
+# ---------------------------------------------------------------------------
+# Network-partition scenarios: a controller, servers and a broker as real
+# HTTP and TCP endpoints in one process, every link routed through a shared
+# NetworkFaultInjector: the topology where "unreachable" and "dead" are
+# different things.
+# ---------------------------------------------------------------------------
+
+
+class NetworkedCluster:
+    """One-process networked cluster wired for link-level chaos.
+
+    Unlike ``InProcessCluster`` (direct callbacks), every role here talks
+    over its real protocol (the servers and the broker register, heartbeat,
+    poll and scatter over HTTP and TCP) and every link consults one
+    seedable ``NetworkFaultInjector``, so a scenario can cut exactly the
+    broker -> controller poll or exactly the controller -> server reply
+    direction.  The timing knobs default tight so the partition scenarios
+    run at tier-1 speed.  ``device`` is every server's (None: the current
+    CUDA device; ``"cpu"`` for tests)."""
+
+    def __init__(
+        self,
+        num_servers: int = 3,
+        data_dir: Optional[str] = None,
+        seed: int = 0,
+        lease_s: float = 2.5,
+        heartbeat_interval_s: float = 0.2,
+        heartbeat_timeout_s: float = 1.2,
+        poll_interval_s: float = 0.1,
+        device: Optional[Union[str, torch.device]] = None,
+    ) -> None:
+        from pinot_tpu_torch.broker.network_starter import NetworkedBrokerStarter
+        from pinot_tpu_torch.common.faults import NetworkFaultInjector
+        from pinot_tpu_torch.controller.controller import ControllerHttpServer
+        from pinot_tpu_torch.server.network_starter import NetworkedServerStarter
+
+        self.data_dir = data_dir or tempfile.mkdtemp(prefix="pinot_tpu_torch_netchaos_")
+        self.faults = NetworkFaultInjector(seed=seed)
+        self.lease_s = lease_s
+        # the clients (the starters and the scatter transport) consult the
+        # injector, so the controller's gateway edge must not: wiring both
+        # would apply delay, error_rate and duplicate twice on controller
+        # links.  The gateway hook is for harnesses that cannot reach the
+        # client processes.
+        self.controller = Controller(self.data_dir, lease_s=lease_s)
+        self.controller.gateway.heartbeat_timeout_s = heartbeat_timeout_s
+        self.controller.gateway._check_interval_s = max(0.05, heartbeat_timeout_s / 4)
+        self.http = ControllerHttpServer(self.controller)
+        self.http.start()
+        self.url = f"http://{self.http.host}:{self.http.port}"
+        self.server_starters: List[NetworkedServerStarter] = []
+        for i in range(num_servers):
+            s = NetworkedServerStarter(
+                self.url, f"srv{i}", data_dir=os.path.join(self.data_dir, f"cache{i}"),
+                heartbeat_interval_s=heartbeat_interval_s, poll_interval_s=poll_interval_s,
+                device=device, fault_injector=self.faults,
+            )
+            s.start()
+            self.server_starters.append(s)
+        self.broker_starter = NetworkedBrokerStarter(
+            self.url, "brk0", heartbeat_interval_s=heartbeat_interval_s, poll_interval_s=poll_interval_s,
+            fault_injector=self.faults,
+        )
+        self.broker_starter.start()
+
+    @property
+    def broker(self):
+        """The broker's request handler (what ``ClosedLoopLoad`` drives)."""
+        return self.broker_starter.handler
+
+    def server(self, name: str):
+        return next(s for s in self.server_starters if s.name == name)
+
+    def query(self, pql: str) -> BrokerResponse:
+        return self.broker.handle_pql(pql)
+
+    def wait(self, cond, timeout_s: float = 25.0, what: str = "condition") -> None:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            try:
+                if cond():
+                    return
+            except Exception:
+                pass
+            time.sleep(0.05)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    def stop(self) -> None:
+        self.faults.heal()  # stop() never races injected cuts
+        self.broker_starter.stop()
+        for s in self.server_starters:
+            s.stop()
+        self.http.stop()
+        self.controller.stop()
+
+
+def _build_partition_cluster(num_servers: int = 3, replication: int = 2, num_segments: int = 6,
+                             data_dir: Optional[str] = None, seed: int = 5, **cluster_kwargs: Any):
+    """An OFFLINE table over a ``NetworkedCluster``, converged (every
+    replica ONLINE, the broker serving the complete count) before any
+    weather is injected."""
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.tools.datagen import make_test_schema, random_rows
+
+    cluster = NetworkedCluster(num_servers=num_servers, data_dir=data_dir, seed=seed, **cluster_kwargs)
+    try:
+        # grace zero: the lease window is the guard these scenarios test
+        cluster.controller.stabilizer.grace_s = 0.0
+        schema = make_test_schema(with_mv=False)
+        cluster.controller.add_schema(schema)
+        physical = cluster.controller.add_table(
+            TableConfig(table_name="testTable", table_type="OFFLINE", replication=replication))
+        rows = random_rows(schema, 260, seed=seed)
+        total = 0
+        for i in range(num_segments):
+            n = 30 + 45 * (i % 5)
+            cluster.controller.upload_segment(physical, build_segment(schema, rows[:n], physical, f"seg{i}"))
+            total += n
+        res = cluster.controller.resources
+
+        def converged():
+            ideal = res.get_ideal_state(physical)
+            view = res.get_external_view(physical)
+            return (len(ideal) == num_segments and view == ideal
+                    and all(len(r) == replication for r in ideal.values())
+                    and all(st == "ONLINE" for r in view.values() for st in r.values()))
+
+        cluster.wait(converged, what="all replicas ONLINE")
+
+        def serving():
+            r = cluster.query("SELECT count(*) FROM testTable")
+            return r.num_docs_scanned == total and not r.exceptions and not r.partial_response
+
+        cluster.wait(serving, what="broker serving the full count")
+    except BaseException:
+        cluster.stop()
+        raise
+    return cluster, physical, total
+
+
+def run_partition_server_scenario(num_servers: int = 3, replication: int = 2, num_segments: int = 6,
+                                  clients: int = 3, lease_s: float = 3.0, victim: str = "srv0",
+                                  data_dir: Optional[str] = None, device=None) -> Dict[str, Any]:
+    """Sever one server's controller link (both directions) for longer
+    than its lease under closed-loop load:
+
+    - zero failed queries (the broker re-covers through the replicas; the
+      victim keeps answering in-flight work: it is alive, only unreachable
+      from the controller);
+    - its replicas move only after the lease window (the stabilizer
+      defers while the lease could still be live: leaseDeferrals > 0),
+      never on the first missed heartbeat;
+    - the victim fences itself (its lease expires on its side) and rides
+      the outage visibly (the controller.unreachable gauge);
+    - on heal it rejoins cleanly: re-admitted, no duplicate replicas."""
+    cluster, physical, total = _build_partition_cluster(num_servers, replication, num_segments,
+                                                        data_dir=data_dir, lease_s=lease_s, device=device)
+    res = cluster.controller.resources
+    st = cluster.controller.stabilizer
+    vsrv = cluster.server(victim).server
+    try:
+        load = ClosedLoopLoad(cluster, "SELECT count(*) FROM testTable", total, clients).start()
+        time.sleep(0.2)  # some queries complete before the fault
+
+        ideal_pre = res.get_ideal_state(physical)
+        cluster.faults.partition(victim, "controller")
+        cluster.wait(lambda: not res.instances[victim].alive, what="controller declaring the victim dead")
+        # the single-missed-heartbeat point: dead at the gateway, but the
+        # lease has not expired; a stabilizer round must move nothing (the
+        # ideal state stays identical: a drop and a replace in one round
+        # would otherwise pass)
+        st.run_once()
+        ideal_mid = res.get_ideal_state(physical)
+        held_through_lease = ideal_mid == ideal_pre
+        moved_on_heartbeat = ideal_mid != ideal_pre
+        lease_deferrals = st.metrics.meter("stabilizer.leaseDeferrals").count
+
+        # the victim notices on its side: its lease expires, the gauge flips
+        cluster.wait(lambda: not vsrv.lease.held(), what="victim lease expiry")
+        cluster.wait(lambda: vsrv.metrics.gauge("controller.unreachable").value == 1,
+                     what="victim unreachable gauge")
+        # the controller's side: wait out the lease window, then re-replicate
+        cluster.wait(lambda: res.instances[victim].lease_until is not None
+                     and time.monotonic() >= res.instances[victim].lease_until, what="lease window elapsing")
+        # a dead replica leaves once the view shows its new copy ONLINE, so
+        # the rounds go on until the drops land (one round a check)
+        cluster.wait(lambda: st.run_once() or not any(victim in r for r in res.get_ideal_state(physical).values()),
+                     what="victim replicas dropped after lease expiry")
+        cluster.wait(lambda: res.get_external_view(physical) == res.get_ideal_state(physical)
+                     and all(len(r) == min(replication, num_servers - 1)
+                             for r in res.get_ideal_state(physical).values()),
+                     what="re-replication converged")
+
+        # heal: the victim rejoins cleanly
+        cluster.faults.heal()
+        cluster.wait(lambda: res.instances[victim].alive, what="victim re-admitted")
+        cluster.wait(lambda: vsrv.lease.held(), what="victim lease renewed")
+        st.run_once()
+        time.sleep(0.2)
+        summary = load.stop()
+
+        ideal = res.get_ideal_state(physical)
+        final = cluster.query("SELECT count(*) FROM testTable")
+        return {
+            "scenario": "partition-server",
+            "victim": victim,
+            "leaseSeconds": lease_s,
+            **summary,
+            "heldThroughLeaseWindow": held_through_lease,
+            "movedOnFirstMissedHeartbeat": moved_on_heartbeat,
+            "leaseDeferrals": lease_deferrals,
+            "victimSelfFenced": True,  # waited on lease.held() == False
+            "replicationRestored": all(len(r) == min(replication, num_servers - 1) for r in ideal.values())
+            or all(len(r) == replication for r in ideal.values()),
+            "noDuplicateReplicas": all(len(r) <= replication for r in ideal.values()),
+            "victimReadmitted": res.instances[victim].alive,
+            "finalDocs": final.num_docs_scanned,
+            "expectedDocs": total,
+            "finalComplete": not final.partial_response and not final.exceptions,
+            "stabilizer": st.metrics.snapshot()["meters"],
+        }
+    finally:
+        cluster.stop()
+
+
+def run_partition_controller_scenario(num_servers: int = 2, replication: int = 2, num_segments: int = 4,
+                                      clients: int = 3, lease_s: float = 1.2, data_dir: Optional[str] = None,
+                                      device=None) -> Dict[str, Any]:
+    """Sever the controller from every other role: the data plane rides out
+    the control-plane outage.  The broker serves from its last versioned
+    snapshot (controller.unreachable = 1), the servers fence their writes
+    but keep answering queries, the stabilizer moves nothing (no live
+    target exists), and on heal everyone is re-admitted with the ideal
+    state identical to the one before the outage."""
+    cluster, physical, total = _build_partition_cluster(num_servers, replication, num_segments,
+                                                        data_dir=data_dir, lease_s=lease_s, device=device)
+    res = cluster.controller.resources
+    st = cluster.controller.stabilizer
+    try:
+        load = ClosedLoopLoad(cluster, "SELECT count(*) FROM testTable", total, clients).start()
+        time.sleep(0.2)
+        ideal_before = res.get_ideal_state(physical)
+
+        # cut the broker first: its last applied snapshot must be the
+        # healthy one (a poll racing the server cuts could otherwise
+        # deliver a snapshot that already lists the servers dead)
+        cluster.faults.partition("brk0", "controller")
+        time.sleep(0.15)
+        for s in cluster.server_starters:
+            cluster.faults.partition(s.name, "controller")
+
+        cluster.wait(lambda: all(not res.instances[s.name].alive for s in cluster.server_starters),
+                     what="controller declaring every server dead")
+        cluster.wait(lambda: cluster.broker.metrics.gauge("controller.unreachable").value == 1,
+                     what="broker unreachable gauge")
+        cluster.wait(lambda: all(not s.server.lease.held() for s in cluster.server_starters),
+                     what="server leases expiring")
+        # stabilizer rounds during the outage: nowhere to move anything
+        for _ in range(3):
+            st.run_once()
+        unchanged_during = res.get_ideal_state(physical) == ideal_before
+
+        cluster.faults.heal()
+        cluster.wait(lambda: all(res.instances[s.name].alive for s in cluster.server_starters),
+                     what="servers re-admitted")
+        cluster.wait(lambda: cluster.broker.metrics.gauge("controller.unreachable").value == 0,
+                     what="broker poll recovery")
+        cluster.wait(lambda: all(s.server.lease.held() for s in cluster.server_starters), what="leases renewed")
+        # recovery has converged (not just re-admitted) once every
+        # replica's ONLINE re-ack has landed: the bounded unavailability
+        # ends here, and the final query must be complete
+        cluster.wait(lambda: res.get_external_view(physical) == res.get_ideal_state(physical),
+                     what="external view reconverged after heal")
+        st.run_once()
+        # ... and the broker has applied it (one poll cycle), bounded by
+        # the wait's timeout, which is the unavailability bound
+        cluster.wait(lambda: (lambda r: r.num_docs_scanned == total and not r.partial_response
+                              and not r.exceptions)(cluster.query("SELECT count(*) FROM testTable")),
+                     what="broker serving the full count after heal")
+        summary = load.stop()
+        final = cluster.query("SELECT count(*) FROM testTable")
+        return {
+            "scenario": "partition-controller",
+            "leaseSeconds": lease_s,
+            **summary,
+            "idealUnchangedDuringOutage": unchanged_during,
+            "idealUnchangedAfterHeal": res.get_ideal_state(physical) == ideal_before,
+            "brokerServedFromSnapshot": True,  # waited on the gauge flip
+            "finalDocs": final.num_docs_scanned,
+            "expectedDocs": total,
+            "finalComplete": not final.partial_response and not final.exceptions,
+        }
+    finally:
+        cluster.stop()
+
+
+def run_asymmetric_partition_scenario(data_dir: Optional[str] = None, lease_s: float = 1.2,
+                                      rows_initial: int = 40, rows_appended: int = 30, rows_per_segment: int = 30,
+                                      victim: str = "srv0", device=None) -> Dict[str, Any]:
+    """One-way partition on the REALTIME commit plane: the victim's
+    requests reach the controller (it keeps looking alive: its heartbeats
+    arrive) but every reply is lost, so only the victim knows it is
+    partitioned.  Its lease expires on its side and fences its write
+    authority: its completion rounds freeze with their offsets intact, no
+    replica moves (the controller sees a healthy server), reads keep
+    serving, and the other replica is elected committer after the hold
+    window: exactly one committed segment, nothing lost or doubled.  On
+    heal the victim renews, downloads the committed copy (the same CRC)
+    and the lagging partition catches up."""
+    import json as _json
+
+    from pinot_tpu_torch.common.schema import DataType, FieldSpec, FieldType, TimeFieldSpec
+    from pinot_tpu_torch.realtime.llc import make_segment_name
+    from pinot_tpu_torch.realtime.stream import FileBasedStreamProvider
+
+    cluster = NetworkedCluster(num_servers=2, data_dir=data_dir, lease_s=lease_s, device=device)
+    cluster.controller.stabilizer.grace_s = 0.0
+    res = cluster.controller.resources
+    st = cluster.controller.stabilizer
+    try:
+        schema = Schema(
+            "rsvpNet",
+            dimensions=[FieldSpec("venue", DataType.STRING)],
+            metrics=[FieldSpec("rsvps", DataType.INT, FieldType.METRIC)],
+            time_field=TimeFieldSpec("mtime", DataType.LONG, time_unit="MILLISECONDS"),
+        )
+
+        def _row(i: int) -> Dict[str, Any]:
+            return {"venue": f"v{i % 3}", "rsvps": i % 5, "mtime": 10_000 + i}
+
+        stream_path = os.path.join(cluster.data_dir, "stream_p0.jsonl")
+        with open(stream_path, "w") as f:
+            for i in range(rows_initial):
+                f.write(_json.dumps(_row(i)) + "\n")
+
+        cluster.controller.add_schema(schema)
+        config = TableConfig(
+            table_name="rsvpNet", table_type="REALTIME", replication=2,
+            stream=StreamConfig(stream_type="file", rows_per_segment=rows_per_segment,
+                                properties={"paths": [stream_path]}),
+        )
+        physical = cluster.controller.add_realtime_table(config, FileBasedStreamProvider([stream_path]))
+
+        def count() -> int:
+            r = cluster.query("SELECT count(*) FROM rsvpNet")
+            return -1 if r.exceptions else r.num_docs_scanned
+
+        # the first segment commits (both replicas reachable), the rest
+        # consumes into the next sequence
+        seg0 = make_segment_name(physical, 0, 0)
+        cluster.wait(lambda: res.get_ideal_state(physical).get(seg0, {})
+                     and all(stt == "ONLINE" for stt in res.get_ideal_state(physical)[seg0].values()),
+                     what="first segment committed")
+        cluster.wait(lambda: count() == rows_initial, what="all initial rows served")
+
+        # one-way cut: victim -> controller requests still flow, every
+        # controller -> victim reply is lost
+        cluster.faults.cut("controller", victim)
+        vsrv = cluster.server(victim).server
+        cluster.wait(lambda: not vsrv.lease.held(), what="victim lease self-fencing")
+        blocked_before = vsrv.metrics.meter("lease.blockedCommits").count
+
+        # the next threshold arrives mid-partition: only the healthy
+        # replica can run the completion protocol
+        with open(stream_path, "a") as f:
+            for i in range(rows_initial, rows_initial + rows_appended):
+                f.write(_json.dumps(_row(i)) + "\n")
+
+        seg1 = make_segment_name(physical, 0, 1)
+        cluster.wait(lambda: res.get_ideal_state(physical).get(seg1, {})
+                     and any(stt == "ONLINE" for stt in res.get_ideal_state(physical)[seg1].values()),
+                     timeout_s=30.0, what="mid-partition commit by the healthy replica")
+        st.run_once()
+        controller_saw_alive = res.instances[victim].alive
+        no_movement = st.metrics.meter("stabilizer.replicasAdded").count == 0
+        blocked_commits = vsrv.metrics.meter("lease.blockedCommits").count > blocked_before
+        total = rows_initial + rows_appended
+        served_during = count()
+
+        # heal: the victim renews, downloads the committed copy, catches up
+        cluster.faults.heal()
+        cluster.wait(lambda: vsrv.lease.held(), what="victim lease renewal")
+        cluster.wait(lambda: res.get_external_view(physical).get(seg1, {}).get(victim) == "ONLINE",
+                     timeout_s=30.0, what="victim downloading the committed copy")
+        cluster.wait(lambda: count() == total, what="full count after heal")
+
+        # both replicas loaded the same committed bytes
+        crcs = []
+        for s in cluster.server_starters:
+            tdm = s.server.data_manager.table(physical)
+            acquired = tdm.acquire_segments([seg1])
+            try:
+                crcs.extend(d.segment.metadata.crc for d in acquired)
+            finally:
+                tdm.release_segments(acquired)
+        byte_identical = len(crcs) == 2 and len(set(crcs)) == 1
+
+        final = cluster.query("SELECT count(*) FROM rsvpNet")
+        ok = (final.num_docs_scanned == total and not final.exceptions and blocked_commits
+              and controller_saw_alive and no_movement and byte_identical)
+        return {
+            "scenario": "asymmetric-partition",
+            "victim": victim,
+            "leaseSeconds": lease_s,
+            "victimSelfFenced": blocked_commits,
+            "controllerSawVictimAlive": controller_saw_alive,
+            "noReplicaMovement": no_movement,
+            "servedDuringPartition": served_during,
+            "committedByteIdentical": byte_identical,
+            "finalDocs": final.num_docs_scanned,
+            "expectedDocs": total,
+            "failedQueries": 0 if ok else 1,
+        }
+    finally:
+        cluster.stop()
+
+
+# ---------------------------------------------------------------------------
+# Disaster recovery: a consistent online backup under closed-loop load, a
+# seeded deep-store corruption scrubbed and repaired from a live replica,
+# then the controller's property store destroyed mid-load and the cluster
+# restored from the archive and the deep store alone.
+# ---------------------------------------------------------------------------
+
+
+def _tenant_schema(name: str):
+    from pinot_tpu_torch.tools.datagen import make_test_schema
+
+    schema = make_test_schema(with_mv=False)
+    schema.schema_name = name
+    return schema
+
+
+def run_disaster_recovery_scenario(num_servers: int = 3, replication: int = 2, num_segments: int = 6,
+                                   clients: int = 3, rt_rows_per_segment: int = 40, window_s: float = 0.5,
+                                   data_dir: Optional[str] = None, archive_path: Optional[str] = None,
+                                   seed: int = 2020, device=None) -> Dict[str, Any]:
+    """Byte-identical answers after the restore, zero committed-row loss,
+    the drain flag and the epoch fence preserved, and zero failed queries
+    throughout (the reference's scenario and report keys)."""
+    import json
+    import shutil as _shutil
+
+    from pinot_tpu_torch.common.fencing import StaleEpochError
+    from pinot_tpu_torch.realtime.llc import RESP_KEEP, make_segment_name
+    from pinot_tpu_torch.realtime.stream import FileBasedStreamProvider
+    from pinot_tpu_torch.tools.backup import create_backup, restore_backup
+    from pinot_tpu_torch.tools.datagen import random_rows
+    from pinot_tpu_torch.utils.audit import SamplerBudget, strip_accounting
+
+    cluster, physical, total = _build_scenario_cluster(num_servers, replication, num_segments, data_dir,
+                                                       seed=seed, device=device)
+    old_ctrl = cluster.controller
+    archive = archive_path or os.path.join(cluster.data_dir, "dr_backup.tar.gz")
+    try:
+        # 1. drain one server (the flag must survive the disaster)
+        drained = "server2" if num_servers >= 3 else None
+        if drained:
+            _drain_one(cluster, drained)
+
+        # 2. a realtime table: two segments' worth of rows committed
+        rt_schema = _tenant_schema("rtTable")
+        stream_file = os.path.join(cluster.data_dir, "rt_p0.jsonl")
+        rt_rows = random_rows(rt_schema, rt_rows_per_segment * 3, seed=seed + 1)
+        with open(stream_file, "w") as f:
+            for r in rt_rows[: rt_rows_per_segment * 2]:
+                f.write(json.dumps(r) + "\n")
+        cluster.controller.add_schema(rt_schema)
+        rt_config = TableConfig(table_name="rtTable", table_type="REALTIME", replication=1,
+                                stream=StreamConfig(rows_per_segment=rt_rows_per_segment))
+        rt_physical = cluster.controller.add_realtime_table(rt_config, FileBasedStreamProvider([stream_file]))
+        rt_seg = [make_segment_name(rt_physical, 0, i) for i in range(3)]
+        for seg in rt_seg[:2]:
+            dm = cluster.controller.realtime_manager.consumers_of(seg)[0]
+            dm.consume_step(max_rows=100_000)
+            if dm.try_commit() != RESP_KEEP:
+                raise AssertionError(f"{seg} did not commit")
+        rt_committed = rt_rows_per_segment * 2
+        rt_pql = "SELECT count(*) FROM rtTable"
+        if cluster.query(rt_pql).num_docs_scanned != rt_committed:
+            raise AssertionError("the committed realtime rows are not served")
+
+        # 3. the canonical answers before the disaster (the identity bar)
+        canon = ["SELECT count(*) FROM testTable",
+                 "SELECT sum(metInt), max(dimInt) FROM testTable GROUP BY dimStr", rt_pql]
+        baseline_payloads = {}
+        for q in canon:
+            resp = cluster.query(q)
+            if resp.exceptions or resp.partial_response:
+                raise AssertionError(f"{q}: {resp.to_json()}")
+            baseline_payloads[q] = strip_accounting(resp.to_json())
+
+        # 4. closed-loop load for the rest of the scenario
+        load = ClosedLoopLoad(cluster, "SELECT count(*) FROM testTable", total, clients).start()
+        t0 = time.monotonic()
+        time.sleep(window_s)
+        ok0, t_a = load.ok, time.monotonic()
+        baseline_qps = ok0 / max(1e-6, t_a - t0)
+
+        # 5. a consistent online backup (timed, under load)
+        backup_stats = create_backup(cluster.data_dir, archive)
+
+        # 6. seeded deep-store corruption; the scrub detects and repairs it
+        store = cluster.controller.store
+        victim_seg = "seg0"
+        with open(store.segment_file_path(physical, victim_seg), "r+b") as f:
+            f.seek(-16, os.SEEK_END)
+            f.write(b"\xde\xad\xbe\xef" * 4)
+
+        def in_process_copy(name, url, table, segment):
+            for s in cluster.servers:
+                if s.name == name:
+                    return s.segment_copy_bytes(table, segment)
+            return None
+
+        scrub = cluster.controller.deepstore_scrubber
+        scrub.copy_fn = in_process_copy
+        scrub.budget = SamplerBudget(per_s=100_000.0, burst=10_000.0)
+        scrub_t0 = time.monotonic()
+        ok_a = load.ok
+        scrub.run_once()
+        time.sleep(window_s)  # a serving window with the scrub round in it
+        scrub_t1, ok_b = time.monotonic(), load.ok
+        scrub_qps = (ok_b - ok_a) / max(1e-6, scrub_t1 - scrub_t0)
+        scrub_snap = scrub.snapshot()
+        scrub_repaired = False
+        try:
+            info = cluster.controller.resources.get_segment_metadata(physical, victim_seg) or {}
+            store.verify_copy(physical, victim_seg, expected_crc=getattr(info.get("metadata"), "crc", None))
+            scrub_repaired = True
+        except Exception:
+            pass
+        ok_qps_ratio = min(1.0, scrub_qps / max(1e-6, baseline_qps))
+
+        # 7. the disaster: the property store destroyed mid-load
+        _shutil.rmtree(os.path.join(cluster.data_dir, "property_store"))
+        time.sleep(0.2)  # queries keep flowing: the broker's routing survives
+        old_ctrl.stop()
+
+        # 8. restore: a new controller from the archive and the deep store;
+        # the servers first (their replays refill the external views),
+        # then the broker (its routing seeded from those views)
+        restore_t0 = time.monotonic()
+        restore_stats = restore_backup(archive, cluster.data_dir)
+        new_ctrl = Controller(cluster.data_dir)
+        new_ctrl.stabilizer.grace_s = 0.0
+        cluster.attach_controller(new_ctrl)
+        first_query_s = None
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline:
+            resp = cluster.query("SELECT count(*) FROM testTable")
+            if not resp.exceptions and not resp.partial_response and resp.num_docs_scanned == total:
+                first_query_s = time.monotonic() - restore_t0
+                break
+            time.sleep(0.05)
+        time.sleep(window_s)  # a serving window after the restore, under load
+        summary = load.stop()
+
+        # 9. the accounting
+        byte_identical = True
+        for q in canon:
+            resp = cluster.query(q)
+            if resp.exceptions or resp.partial_response or strip_accounting(resp.to_json()) != baseline_payloads[q]:
+                byte_identical = False
+        drain_preserved = drained is None or drained in new_ctrl.resources._draining_flags
+        # fencing: the controller from before the disaster is still fenced
+        # off the restored store
+        try:
+            old_ctrl.property_store.put("tables", "zombieWrite", {"x": 1})
+            fencing_preserved = False
+        except StaleEpochError:
+            fencing_preserved = True
+        # realtime: the committed rows exactly once, and consumption resumes
+        rt_after = cluster.query(rt_pql).num_docs_scanned
+        rt_committed_preserved = rt_after == rt_committed
+        rt_resumed = False
+        try:
+            with open(stream_file, "a") as f:
+                for r in rt_rows[rt_rows_per_segment * 2:]:
+                    f.write(json.dumps(r) + "\n")
+            dm2 = new_ctrl.realtime_manager.consumers_of(rt_seg[2])[0]
+            dm2.consume_step(max_rows=100_000)
+            rt_resumed = (dm2.try_commit() == RESP_KEEP
+                          and cluster.query(rt_pql).num_docs_scanned == rt_rows_per_segment * 3)
+        except Exception:
+            rt_resumed = False
+
+        scrub_detected = scrub_snap["corruptCopies"] >= 1
+        failed = (summary["failedQueries"] + (0 if first_query_s is not None else 1)
+                  + (0 if byte_identical else 1) + (0 if drain_preserved else 1)
+                  + (0 if fencing_preserved else 1) + (0 if rt_committed_preserved else 1)
+                  + (0 if rt_resumed else 1) + (0 if (scrub_detected and scrub_repaired) else 1))
+        return {
+            "scenario": "disaster-recovery",
+            "metric": "dr_restore_first_query_s",
+            "platform": str(cluster.servers[0].device.type),
+            "num_segments": num_segments,
+            "clients": clients,
+            "value": round(first_query_s, 4) if first_query_s else None,
+            "backup": backup_stats,
+            "restore": {
+                "restoreToFirstQuerySeconds": round(first_query_s, 4) if first_query_s else None,
+                "restoreSeconds": round(restore_stats["restoreSeconds"], 4),
+                "segmentsVerified": restore_stats["segmentsVerified"],
+                "segmentsMissing": restore_stats["segmentsMissing"],
+                "segmentsCorrupt": restore_stats["segmentsCorrupt"],
+                "byteIdentical": byte_identical,
+                "drainFlagPreserved": drain_preserved,
+                "fencingPreserved": fencing_preserved,
+                "rtCommittedPreserved": rt_committed_preserved,
+                "rtResumed": rt_resumed,
+            },
+            "scrub": {
+                "detected": scrub_detected,
+                "repaired": scrub_repaired,
+                "okQpsRatio": round(ok_qps_ratio, 4),
+                "baselineQps": round(baseline_qps, 2),
+                "scrubQps": round(scrub_qps, 2),
+                "snapshot": scrub_snap,
+            },
+            "load": summary,
+            "failedQueries": failed,
+        }
+    finally:
+        cluster.stop()

@@ -256,6 +256,9 @@ def test_a_corrupted_device_answer_is_caught_quarantined_and_healed(tmp_path):
         assert healed.cost.get("segmentsHost") == 2, healed.cost
         assert payloads_equivalent(_payload_of(healed), want, rel_tol=REL, abs_tol=ABS)
         assert server.metrics.meter("heal.auditTierSkips").count >= 1
+        # the auditor's thread writes the bundle after it meters and
+        # quarantines the divergence
+        assert _wait(lambda: any("-auditDivergence-" in p for p in server.flightrec.bundle_files()))
         bundles = [json.loads(open(p).read()) for p in server.flightrec.bundle_files()]
         div = [b for b in bundles if b["reason"] == "auditDivergence"]
         assert div and {"producedPayload", "expectedPayload"} <= set(div[0]["detail"])

@@ -187,9 +187,29 @@ with tempfile.TemporaryDirectory() as td:
     assert bb_res.cost["segmentsStarTree"] == 1 and bb_res.cost["segmentsFullScan"] == 1, bb_res.cost
     assert pruner.prune_segments(segs, req) == segs and callable(read_jsonl)
     assert zonemap.column_zones(segs[0], "l_shipdate", 1024) is not None
-    ctrl_http = ControllerHttpServer(Controller(os.path.join(td, "ctrl")))
+    ctrl = Controller(os.path.join(td, "ctrl"))
+    ctrl_http = ControllerHttpServer(ctrl)
     ctrl_http.start()
     ctrl_http.stop()
+    ctrl.stop()
+    # the link fault plane, and disaster recovery's backup and restore
+    from pinot_tpu_torch.common.faults import FaultInjectingTransport, LinkFaultTransport, NetworkFaultInjector
+    from pinot_tpu_torch.tools import backup
+    from pinot_tpu_torch.transport.local import LocalTransport
+
+    local = LocalTransport()
+    local.register(("s0", 0), lambda payload: b"pong")
+    links = NetworkFaultInjector(seed=1)
+    links.cut("controller", "s0")
+    assert FaultInjectingTransport(local, seed=1).request(("s0", 0), b"ping") == b"pong"
+    try:
+        LinkFaultTransport(local, links, src="controller").request(("s0", 0), b"ping")
+    except Exception as e:
+        assert type(e).__name__ == "PartitionedLinkError", e
+    else:
+        raise AssertionError("the cut link delivered")
+    archive = backup.create_backup(os.path.join(td, "ctrl"), os.path.join(td, "b.tar.gz"))["archive"]
+    assert backup.restore_backup(archive, os.path.join(td, "ctrl2"))["epoch"] == 1
     # realtime ingestion: a REALTIME table of an in-process cluster over a
     # memory stream, consumed, committed and queried; the stream broker
     from pinot_tpu_torch.realtime import backpressure, llc, mutable, netstream, pool, stream

@@ -19,6 +19,7 @@ commits while queries read whole batches, and every pool, consumer and
 server a test starts is stopped (``leaked_pool_threads`` stays empty).
 """
 import json
+import os
 import threading
 import time
 
@@ -375,6 +376,40 @@ def test_file_stream_provider(tmp_path):
     assert port.latest_offset(0) == ref.latest_offset(0) == 25
     for off in (0, 10, 20, 25):
         assert port.fetch(0, off, 10) == ref.fetch(0, off, 10)
+
+
+@pytest.mark.parametrize("change", ["append", "shorter", "same_length", "longer", "replaced"])
+def test_file_stream_provider_after_the_file_changes(tmp_path, change):
+    """The port's line index against the reference's reread: an append,
+    an in-place rewrite shorter, of the same length and longer, and a
+    file replaced by a rename give the reference's fetches."""
+    p = tmp_path / "part0.jsonl"
+
+    def text(lo, hi, pad=0):  # lines of three lengths, shifted by ``pad``
+        return "".join(json.dumps({**make_row(i), "venue_name": f"venue{i % 5}" + "-" * ((i + pad) % 3)}) + "\n"
+                       for i in range(lo, hi))
+
+    p.write_text(text(0, 20))
+    port, ref = FileBasedStreamProvider([str(p)]), RefFileStream([str(p)])
+    assert port.fetch(0, 0, 50) == ref.fetch(0, 0, 50)
+    if change == "append":
+        with open(p, "a") as f:
+            f.write(text(20, 30))
+    elif change == "shorter":
+        p.write_text(text(0, 12, pad=1))
+    elif change == "same_length":  # the first and the third line swapped (their lengths differ by 2)
+        lines = text(0, 20).splitlines(keepends=True)
+        lines[0], lines[2] = lines[2], lines[0]
+        p.write_text("".join(lines))
+    elif change == "longer":
+        p.write_text(text(0, 25, pad=1))
+    else:
+        q = tmp_path / "next.jsonl"
+        q.write_text(text(0, 20, pad=2))
+        os.replace(q, p)
+    assert port.latest_offset(0) == ref.latest_offset(0)
+    for off in (0, 1, 5, 19, 20):
+        assert port.fetch(0, off, 50) == ref.fetch(0, off, 50)
 
 
 def test_file_stream_table(pair_factory, tmp_path):
