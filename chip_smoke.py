@@ -250,13 +250,28 @@ QueryExecutor.execute -> reduce_to_response on one card:
      inside the lease); (b) the controller cut from every role (the broker
      serves from its snapshot, the ideal state byte-identical after the
      heal); (c) the replies to one replica of a REALTIME lineitem table fed
-     by a file stream (2 partitions of 2^20 rows) lost while its commits
+     by a file stream (2 partitions of 2^19 rows) lost while its commits
      come due (one commit a partition, by the healthy replica, the same
      CRC on both replicas, count(*) equal to the rows produced); (d) a
      backup while serving, the controller and its property store lost,
      restored, the servers reloaded (every answer equal to the one before,
      the old controller's write refused with StaleEpochError); K1 / K2 at
      a server's shapes against their plain versions;
+ 22. the in-process chaos scenarios (``chaos_phase``,
+     ``tools/cluster_harness.py``) with the servers on the card: (a) a
+     tenant flooding count(*) at many times its quota beside a steady
+     tenant (3 x 2^20 rows each; no steady-tenant failure, every shed
+     typed), (b) the same flood of joins, (c) a realtime consumer paused by
+     a 2^22-row query's staging and drained after, (d) 10 tables of 2 x
+     2^21 rows at ~8x the hot-tier cap cycling the residency tiers with a
+     seeded allocation failure healed, (e) a seeded wrong device answer
+     over 2 x 2^21 rows caught and quarantined by the shadow auditor, (f)
+     104 tables on 3 servers with realtime ingest through a live rebalance
+     and a controller restart in it, (g) ``python -m
+     pinot_tpu_torch.tools.cluster_harness --scenario
+     ingest-backpressure`` in a child process; each report's invariants
+     and ``failedQueries`` 0, the parts' K1 / K2 launches, K1 at (d)'s and
+     (e)'s shapes against its plain version;
 
 and between phases 7 and 8 (lineitem still staged): the batched K1 and K2
 over ladders of 16 same-plan queries at distinct literals (q1 over
@@ -280,7 +295,7 @@ its buffers.
     python3 chip_smoke.py [--out results.json]
         [--profile | --kernels-only | --joins-only | --startree-only | --tiers-only
          | --realtime-only | --residency-only | --build-only | --warmstart-only | --planes-only
-         | --controller-only | --kafka-only | --netfaults-only]
+         | --controller-only | --kafka-only | --netfaults-only | --chaos-only]
 
 ``--kernels-only`` stops after the build, the kernel checks, the tier
 probes and the batched probes (ladders over streams made on the card);
@@ -292,8 +307,8 @@ lineitem's datagen), ``--realtime-only`` phase 14 alone,
 part (a) on two servers of lineitem, then phases 14 and 17 with parts (b)
 and (c)) and ``--controller-only`` phase 19 (phase 14 with its controller
 restart, then phase 17 hosting 18 (c) and 19); each after lineitem's
-datagen; ``--kafka-only`` phase 20 alone and ``--netfaults-only`` phase 21
-alone (each its own data).
+datagen; ``--kafka-only`` phase 20 alone, ``--netfaults-only`` phase 21
+alone and ``--chaos-only`` phase 22 alone (each its own data).
 
 Needs exactly one visible CUDA card (it exits nonzero otherwise).  The last line of
 its output is ``{"ok": true, "device": {...}}``; the line before the card
@@ -2608,8 +2623,8 @@ def serve_phase(dev, segments, wants, record, fg, vsc) -> None:
 PLANES_QUERIES = ("q1", "q3", "hll_groupby", "distinct_price")  # the result cache's queries
 PLANES_ITERS = 10  # broker requests of the hit and the miss p50s
 # requests at each auditor setting: each server's count is primed, so the
-# default 1-in-64 audits the first one a server (64 before phase 21)
-PLANES_AUDIT_ITERS = 32
+# default 1-in-64 audits the first one a server (64 before phase 21, 32 before 22)
+PLANES_AUDIT_ITERS = 16
 # the auditor's cost on serving: q1's and pairs_distinct's oracles are numpy
 # (seconds at full width); the host tier runs sel_top's (every matched row)
 # and distinct_price's (no vectorized path) row by row (minutes)
@@ -3823,8 +3838,15 @@ def k1_captured(fg, label: str, run) -> dict:
         run()
     finally:
         fg.fused_filtered_groupby_sums = restore
+    return k1_held(fg, label, captured["k1"])
+
+
+def k1_held(fg, label: str, call) -> dict:
+    """K1 at a captured launch's arguments ``call`` (``(args, kwargs)``):
+    against its plain version in every tier that takes it, timed and beside
+    its bound on this data."""
     names = ("filter_fwd", "match", "num_docs", "group_keys", "value_fwds", "value_dicts", "capacity")
-    a, k = captured["k1"]
+    a, k = call
     args = {**dict(zip(names, a)), **k}
     args.setdefault("filter_bounds", None)
     args.setdefault("group_cols", None)
@@ -4994,8 +5016,9 @@ def tiers_phase(dev, segments, record, fg, vsc, drive) -> None:
 # ---------------------------------------------------------------------------
 
 RT_PARTITIONS = 2
-RT_SEGMENT_ROWS = 1 << 21  # rowsPerSegment (2^23, the offline cells' segment size, before phase 20; 2^22 before 21)
-RT_PARTITION_ROWS = 3 * (1 << 20)  # 1.5 x 2^21 a partition: one sealed segment, one consuming of 2^20
+RT_SEGMENT_ROWS = 1 << 20  # rowsPerSegment (2^23, the offline cells' segment size, before phase 20; 2^22 before 21,
+# 2^21 before 22)
+RT_PARTITION_ROWS = 3 * (1 << 19)  # 1.5 x 2^20 a partition: one sealed segment, one consuming of 2^19
 RT_BLOCK = 1 << 16  # rows a produced columnar block (and a server's fetch: PINOT_TPU_INGEST_BATCH_ROWS)
 RT_STAGES = (4, 2, 1)  # the watermarks: a quarter, a half and the whole of the data
 RT_QUERIES = {"q1": Q1, "count_star": "SELECT count(*) FROM lineitem", "distinct_price": VALUE_QUERIES["distinct_price"]}
@@ -5051,9 +5074,9 @@ def rt_check(name: str, d: dict, wants: dict) -> None:
 def realtime_phase(dev, record, fg, vsc, hll_mod) -> None:
     """14. lineitem as a REALTIME table (replication 1, two stream
     partitions of a columnar topic on the port's StreamBrokerServer,
-    rowsPerSegment 2^21), a controller, two server processes running
+    rowsPerSegment 2^20), a controller, two server processes running
     RemoteConsumers and the broker: produced to a quarter, a half and the
-    whole of 1.5 x 2^21 rows a partition, the queries at each watermark
+    whole of 1.5 x 2^20 rows a partition, the queries at each watermark
     against the oracles over the rows produced so far; then K1 and K2 at a
     server's final shape (its sealed segment and its consuming snapshot)
     against their plain versions.  Each produced block carries its
@@ -7478,7 +7501,8 @@ NF_NEED = {"q1": "k1", "distinct_price": "k2"}
 NF_SEED = 2100  # offline segment i draws from seed 2100 + i
 NF_FAULT_SEED = 21  # the NetworkFaultInjector's seed
 NF_RT_PARTITIONS = 2
-NF_RT_ROWS = 1 << 20  # (c): rows a partition, and rowsPerSegment: one commit a partition, during the cut
+NF_RT_ROWS = 1 << 19  # (c): rows a partition, and rowsPerSegment: one commit a partition, during the cut (2^20
+# before phase 22)
 NF_RT_SEED = 2110  # (c)'s partition p draws from seed 2110 + p
 NF_RT_BATCH = 1 << 16  # rows a fetch of the file stream (PINOT_TPU_INGEST_BATCH_ROWS; phase 14's block)
 NF_WAIT_S = 300.0  # a step's deadline (cluster.wait)
@@ -7635,7 +7659,7 @@ def netfaults_phase(dev, record, fg, vsc, hll_mod) -> None:
         snapshot, nothing moves, the ideal state after the heal is
         byte-identical to the one before; the queries served meanwhile;
     (c) a REALTIME lineitem table fed by a file stream (2 partitions of
-        2^20 rows, rowsPerSegment 2^20, replication 2): the replies to one
+        2^19 rows, rowsPerSegment 2^19, replication 2): the replies to one
         replica lost while the second half of the rows arrives; exactly one
         committed segment a partition, by the healthy replica, the same
         bytes on both replicas after the heal, count(*) equal to the rows
@@ -8081,6 +8105,241 @@ def netfaults_phase(dev, record, fg, vsc, hll_mod) -> None:
         f"{rec['wall_s']:.1f} s")
 
 
+CHAOS_SEGMENT_ROWS = 1 << 20  # (a), (b): rows a tenant segment (3 a tenant) and an aFact segment (2)
+CHAOS_PRESSURE_ROWS = 1 << 22  # (c): the pressure table's one segment
+CHAOS_STREAM_ROWS = 1 << 16  # (c): the memory stream's rows
+CHAOS_STREAM_SEGMENT_ROWS = 1 << 17  # (c): rowsPerSegment (the stream is half a segment: no commit)
+# (c): a quarter of the bytes the pressure query (sum(metInt) by dimStr over
+# 2^22 rows) stages on the card
+CHAOS_HBM_HIGH_BYTES = 37_748_740 / 4
+CHAOS_HBM_TABLE_ROWS = 1 << 22  # (d): 2 x 2^21 rows a table, 10 identical tables
+CHAOS_AUDIT_ROWS = 1 << 22  # (e): 2 x 2^21 rows
+# (e): the corruption; the reference's 100 is inside the audit band here
+# (rel 5e-4 of sum(metInt)'s group sums, ~1.05e9 over 2^22 rows in 20
+# groups: ~5.2e5), 1e8 is ~200x past it
+CHAOS_AUDIT_DELTA = 1e8
+CHAOS_FLEET_SCALE = 1 << 11  # (f): the reference's hot_docs 400 and fleet_docs 20 times this
+CHAOS_FLEET_RT_SEGMENT_ROWS = 1 << 14  # (f): rowsPerSegment, 2 segments a partition, 2 partitions, 2 tables
+CHAOS_CLI_TIMEOUT_S = 300.0  # (g)
+
+
+def _json(d, limit: int = 600) -> str:
+    return json.dumps(d, default=str, sort_keys=True)[:limit]
+
+
+def chaos_phase(dev, record, fg, vsc) -> None:
+    """22. The in-process chaos scenarios (``tools/cluster_harness.py``) on
+    the card, each with ``device=None`` (the current CUDA card), the
+    reference's settings and card-size data; each report's
+    ``failedQueries`` must be 0 and its own invariants hold:
+    (a) noisy-neighbour: 2 servers, tenants A and B of 3 x 2^20 rows each,
+        A flooding count(*) from 4 clients at an 8 qps quota while B's 3
+        clients loop: offeredMultiple >= 10, no tenant-B failure, every shed
+        typed (429 / 210) and some shed, B's p99 beside its limit, the
+        admission and scheduler snapshots;
+    (b) join-under-flood: the same with A flooding aFact (2 x 2^20 rows, k in
+        0-59, v in 0-98) JOIN aDim (60 rows): joins ran (join.queries);
+    (c) ingest-backpressure: a pressure table of one 2^22-row segment, a
+        memory stream of 2^16 rows at rowsPerSegment 2^17, the watermark a
+        quarter of what the pressure query stages: paused, the offset
+        frozen, nothing consumed while paused, the lag visible, resumed, the
+        lag drained to 0;
+    (d) HBM pressure: 10 identical tables of 2 x 2^21 rows on one server,
+        the hot tier capped at ~1.25 tables and the warm tier at 2.5, 3 hot
+        clients, a 1 s baseline and 4 s of load beside a cold sweep, then a
+        seeded allocation failure on a hot query: addressable / cap >= 7,
+        demotions, promotions and cold loads, the failure healed;
+    (e) audit-divergence: one server, 2 x 2^21 rows, 2 clients, 3 corrupted
+        answers: detected (the seconds, the fork included), the device tier
+        quarantined, no mismatch after;
+    (f) elastic fleet: 104 tables on 3 servers (the reference's hot / fleet
+        rows x 2^11: 6 x 819,200 hot rows on server0, 101 tables of 40,960),
+        2 realtime tables of 2 partitions x 2 segments of 2^14 rows on 4
+        pool workers, a live rebalance and a controller restart in it: no
+        failure, coverage never lost, the moves finished by the new
+        controller, the realtime rows exact, one copy a sequence, the final
+        imbalance under 1.4;
+    (g) ``python -m pinot_tpu_torch.tools.cluster_harness --scenario
+        ingest-backpressure`` in a child process, beside (a)-(f): exit 0,
+        failedQueries 0.
+    K1 and K2 launches are counted for each part (each count 0 just before
+    it); K1 at (d)'s hot query and at (e)'s query is held against its plain
+    version."""
+    from pinot_tpu_torch.tools import cluster_harness as ch
+
+    rec = record["chaos"] = {"card": card_line()}
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pinot-chaos-")
+    launches: Dict[str, Dict[str, int]] = {}
+    walls = rec["walls_s"] = {}
+    captured: Dict[str, Any] = {}
+
+    def part(key: str, run, need: Optional[str] = None, capture: bool = False) -> dict:
+        """One scenario: every launch count 0 just before, read just after;
+        with ``capture`` K1's last launch kept for its check."""
+        fg.launches = vsc.launches = 0
+        restore = _capture(fg, "fused_filtered_groupby_sums", captured, key) if capture else None
+        t = time.perf_counter()
+        try:
+            out = run(os.path.join(tmp, key))
+        finally:
+            if restore is not None:
+                fg.fused_filtered_groupby_sums = restore
+        walls[key] = time.perf_counter() - t
+        got = launches[key] = {"k1": fg.launches, "k2": vsc.launches}
+        require_launch(f"chaos {key}", got, need)
+        rec[key] = out
+        if out["failedQueries"] != 0:
+            raise AssertionError(f"chaos {key}: failedQueries {out['failedQueries']}: {_json(out, 4000)}")
+        return out
+
+    def kernels_of(key: str, none: str = "bare count(*) queries") -> str:
+        got = launches[key]
+        return f"launches {got}" if any(got.values()) else f"no kernel launched ({none})"
+
+    def isolation(key: str, out: dict) -> None:
+        a, b = out["tenantA"], out["tenantB"]
+        if not (out["offeredMultiple"] >= 10.0 and b["failedQueries"] == 0 and out["sheddingTyped"]
+                and a["shed429"] + a["shed210"] > 0):
+            raise AssertionError(f"chaos {key}: {_json(out, 4000)}")
+
+    # (g)'s child process runs beside (a)-(f): a process of its own on the
+    # card, its output to files
+    cli_out, cli_err = (open(os.path.join(tmp, f"cli.{k}"), "w+") for k in ("out", "err"))
+    t_cli = time.perf_counter()
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "pinot_tpu_torch.tools.cluster_harness", "--scenario", "ingest-backpressure"],
+        cwd=REPO_DIR, stdout=cli_out, stderr=cli_err, text=True,
+        env=dict(os.environ, PYTHONPATH=REPO_DIR + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    try:
+        # (a) noisy-neighbour
+        out = part("noisy_neighbor", lambda d: ch.run_noisy_neighbor_scenario(
+            data_dir=d, segment_rows=CHAOS_SEGMENT_ROWS))
+        isolation("noisy_neighbor", out)
+        a, b = out["tenantA"], out["tenantB"]
+        log(f"chaos (a) noisy-neighbour ({walls['noisy_neighbor']:.1f} s): A offered {out['offeredQpsA']} qps = "
+            f"{out['offeredMultiple']}x its {out['quotaQps']} qps quota, {a['okQueries']} served, {a['shed429']} shed "
+            f"429, {a['shed210']} shed 210, {a['timeouts']} timeouts, {a['otherFailures']} other; B {b['queries']} "
+            f"queries, {b['failedQueries']} failed, p99 {out['tenantBLoadedP99Ms']} ms against its limit "
+            f"{out['tenantBP99LimitMs']} ms (baseline p99 {out['tenantBBaseline']['p99Ms']} ms, within: "
+            f"{out['tenantBP99Within']}); {kernels_of('noisy_neighbor')}")
+        log(f"chaos (a) admission {_json(out['admission'], 1500)}")
+        log(f"chaos (a) scheduler {_json(out['scheduler'], 1500)}")
+
+        # (b) join-under-flood
+        out = part("join_under_flood", lambda d: ch.run_join_under_flood_scenario(
+            data_dir=d, segment_rows=CHAOS_SEGMENT_ROWS))
+        isolation("join_under_flood", out)
+        if not out["joinMeters"].get("join.queries"):
+            raise AssertionError(f"chaos join_under_flood: no join ran {out['joinMeters']}")
+        a, b = out["tenantA"], out["tenantB"]
+        log(f"chaos (b) join-under-flood ({walls['join_under_flood']:.1f} s): A offered {out['offeredQpsA']} qps "
+            f"= {out['offeredMultiple']}x, {a['okQueries']} joins served, {a['shed429']} shed 429, {a['shed210']} "
+            f"shed 210, {a['timeouts'] + a['otherFailures']} untyped; B {b['queries']} queries, "
+            f"{b['failedQueries']} failed, p99 {out['tenantBLoadedP99Ms']} ms against {out['tenantBP99LimitMs']} "
+            f"ms (within: {out['tenantBP99Within']}); join meters {out['joinMeters']}; "
+            f"{kernels_of('join_under_flood', 'bare count(*) and a scalar join, whose program is torch ops')}")
+
+        # (c) ingest-backpressure
+        out = part("ingest_backpressure", lambda d: ch.run_ingest_backpressure_scenario(
+            rows=CHAOS_STREAM_ROWS, rows_per_segment=CHAOS_STREAM_SEGMENT_ROWS, hbm_high_bytes=CHAOS_HBM_HIGH_BYTES,
+            data_dir=d, segment_rows=CHAOS_PRESSURE_ROWS), need="k1")
+        if not (out["paused"] and out["offsetFrozen"] and out["consumedWhilePaused"] == 0
+                and out["lagWhilePaused"] > 0 and out["resumed"] and out["finalLag"] == 0):
+            raise AssertionError(f"chaos ingest_backpressure: {_json(out, 4000)}")
+        log(f"chaos (c) ingest-backpressure ({walls['ingest_backpressure']:.1f} s): the pressure query staged "
+            f"{out['stagedBytesAtPause']} bytes (a quarter: {out['stagedBytesAtPause'] / 4:.0f}; the watermark "
+            f"{CHAOS_HBM_HIGH_BYTES:.0f}); {out['consumedBeforePressure']} rows consumed before, paused "
+            f"({out['reason']}), the offset frozen, {out['consumedWhilePaused']} consumed while paused with lag "
+            f"{out['lagWhilePaused']}; resumed, {out['consumedAfterResume']} drained, final lag {out['finalLag']}; "
+            f"governor pauses {out['governor']['pauses']} resumes {out['governor']['resumes']}; "
+            f"{kernels_of('ingest_backpressure')}")
+
+        # (d) HBM pressure
+        out = part("hbm_pressure", lambda d: ch.run_hbm_pressure_scenario(
+            rows_per_table=CHAOS_HBM_TABLE_ROWS, data_dir=d), need="k1", capture=True)
+        if not (out["addressable_over_cap"] >= 7.0 and out["demotions"] > 0 and out["promotions"] > 0
+                and out["cold_loads"] > 0 and out["oomHealed"]):
+            raise AssertionError(f"chaos hbm_pressure: {_json(out, 4000)}")
+        log(f"chaos (d) HBM pressure ({walls['hbm_pressure']:.1f} s): {out['num_tables']} tables of "
+            f"{out['tableBytes']} bytes, {out['addressableBytes'] / 1e9:.3f} GB addressable over a hot cap of "
+            f"{out['hbmCapBytes'] / 1e9:.3f} GB = {out['addressable_over_cap']}x; demotions {out['demotions']}, "
+            f"promotions {out['promotions']}, cold demotions {out['cold_demotions']}, cold loads "
+            f"{out['cold_loads']}, {out['coldSweeps']} cold sweeps; hot p99 {out['hot_p99_ms']} ms against its "
+            f"uncapped baseline {out['baseline_p99_ms']} ms ({out['hot_p99_over_baseline']}x; "
+            f"{out['hotLoad']['queries']} hot queries); the injected allocation failure healed: {out['oomHealed']} "
+            f"(resourceExhausted {out['selfHealing']['resourceExhausted']}, hostFailovers "
+            f"{out['selfHealing']['hostFailovers']}); platform {out['platform']}; {kernels_of('hbm_pressure')}")
+        rec["k1_hbm"] = k1_held(fg, "chaos (d) hot query (a capped table, 2 x 2^21 rows)",
+                                captured.pop("hbm_pressure"))
+
+        # (e) audit-divergence
+        out = part("audit_divergence", lambda d: ch.run_audit_divergence_scenario(
+            rows=CHAOS_AUDIT_ROWS, corrupt_delta=CHAOS_AUDIT_DELTA, data_dir=d), need="k1", capture=True)
+        if not (out["detected"] and out["quarantined"] and out["quarantined"][0]["tier"] == "device"
+                and out["postQuarantineMismatches"] == 0):
+            raise AssertionError(f"chaos audit_divergence: {_json(out, 4000)}")
+        log(f"chaos (e) audit-divergence ({walls['audit_divergence']:.1f} s): detected {out['detectWallS']} s "
+            f"after the corruption was armed (the auditor's own detectMs {out['detectMs']}), {out['divergences']} "
+            f"divergences, quarantined {[(q['planDigest'], q['tier']) for q in out['quarantined']]}, "
+            f"{out['postQuarantineMismatches']} mismatches after; load {_json(out['load'], 300)}; "
+            f"{out['audit'].get('samples')} shadow samples; {kernels_of('audit_divergence')}")
+        rec["k1_audit"] = k1_held(fg, "chaos (e) grouped sums (2 x 2^21 rows)", captured.pop("audit_divergence"))
+
+        # (f) elastic fleet
+        out = part("elastic_fleet", lambda d: ch.run_elastic_fleet_scenario(
+            hot_docs=400 * CHAOS_FLEET_SCALE, fleet_docs=20 * CHAOS_FLEET_SCALE,
+            rows_per_segment=CHAOS_FLEET_RT_SEGMENT_ROWS, data_dir=d))
+        if not (out["coverageNeverLost"] and out["movesStartedBeforeRestart"] > 0
+                and (out["pendingMovesAtRestart"] > 0 or out["surplusReplicasAtRestart"] > 0)
+                and out["movesCompletedAfterRestart"] > 0
+                and out["rtRowsServed"] == [out["rtRowsExpected"]] * len(out["rtRowsServed"])
+                and out["oneCommittedCopyPerSequence"] and out["finalImbalanceRatio"] < 1.4):
+            raise AssertionError(f"chaos elastic_fleet: {_json(out, 4000)}")
+        log(f"chaos (f) elastic fleet ({walls['elastic_fleet']:.1f} s): {out['tables']} tables on {out['servers']} "
+            f"servers, {out['queries']} queries ({out['okQueries']} ok, {out['partialQueries']} partial, "
+            f"{len(out['failures'])} failed), coverage never lost; {out['movesStartedBeforeRestart']} moves started "
+            f"before the restart ({out['pendingMovesAtRestart']} pending, {out['surplusReplicasAtRestart']} surplus "
+            f"replicas), {out['movesCompletedAfterRestart']} completed after it in {out['roundsAfterRestart']} "
+            f"rounds; realtime rows {out['rtRowsServed']} of {out['rtRowsExpected']}, one copy a sequence "
+            f"{out['oneCommittedCopyPerSequence']}; final imbalance {out['finalImbalanceRatio']} (load "
+            f"{out['finalLoadByServer']}); {kernels_of('elastic_fleet')}")
+
+        # (g) the command line's child, started with the phase
+        rc = cli.wait(timeout=CHAOS_CLI_TIMEOUT_S)
+        walls["command_line"] = time.perf_counter() - t_cli
+        cli_out.seek(0)
+        cli_err.seek(0)
+        stdout, stderr = cli_out.read(), cli_err.read()
+        lines = stdout.splitlines()
+        starts = [i for i, ln in enumerate(lines) if ln == "{"]
+        report = json.loads("\n".join(lines[starts[-1]:])) if starts else {}
+        rec["command_line"] = {"rc": rc, "failedQueries": report.get("failedQueries"),
+                               "paused": report.get("paused"), "finalLag": report.get("finalLag")}
+        if rc != 0 or report.get("failedQueries") != 0:
+            raise AssertionError(f"chaos command line: rc {rc}, {stdout[-2000:]} {stderr[-2000:]}")
+        log(f"chaos (g) python -m pinot_tpu_torch.tools.cluster_harness --scenario ingest-backpressure (a child "
+            f"process on the card beside (a)-(f), done within {walls['command_line']:.1f} s of its start; its "
+            f"launches are not counted here): exit {rc}, failedQueries {report['failedQueries']}, paused "
+            f"{report.get('paused')}, final lag {report.get('finalLag')}")
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+        cli.wait()
+        cli_out.close()
+        cli_err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        captured.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    totals = {k: sum(v[k] for v in launches.values()) for k in ("k1", "k2")}
+    record.setdefault("paths", {})["chaos"] = {"launches": launches, "totals": totals}
+    rec["wall_s"] = time.perf_counter() - t_phase
+    log(f"path chaos: launches {launches}, total {totals}")
+    log(f"chaos summary on {rec['card']}: {json.dumps({k: round(v, 2) for k, v in walls.items()})}; phase "
+        f"{rec['wall_s']:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -8125,6 +8384,9 @@ def main(argv=None) -> int:
     ap.add_argument("--netfaults-only", action="store_true",
                     help="after the build and the kernel checks run only phase 21, the link fault plane: the "
                     "partition scenarios and disaster recovery on a networked cluster (no result line)")
+    ap.add_argument("--chaos-only", action="store_true",
+                    help="after the build and the kernel checks run only phase 22, the in-process chaos "
+                    "scenarios and the harness's command line (no result line)")
     opts = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -8193,7 +8455,7 @@ def run(dev: torch.device, opts) -> int:
 
     makers = {"lineitem": lineitem, "adevents": adevents, "mvtest": mvtest}
     if (opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.kafka_only
-            or opts.netfaults_only):
+            or opts.netfaults_only or opts.chaos_only):
         makers = {}
     elif (opts.tiers_only or opts.residency_only or opts.build_only or opts.warmstart_only or opts.planes_only
           or opts.controller_only):
@@ -8208,7 +8470,8 @@ def run(dev: torch.device, opts) -> int:
     # phase 17's compile-cache roots, given the main build's libraries
     warm_roots = []
     if not (opts.kernels_only or opts.joins_only or opts.startree_only or opts.realtime_only or opts.tiers_only
-            or opts.residency_only or opts.build_only or opts.kafka_only or opts.netfaults_only):
+            or opts.residency_only or opts.build_only or opts.kafka_only or opts.netfaults_only
+            or opts.chaos_only):
         warm_base = tempfile.mkdtemp(prefix="pinot-compile-cache-")
         atexit.register(shutil.rmtree, warm_base, True)
         warm_roots = [os.path.join(warm_base, "cluster"), os.path.join(warm_base, "restart")]
@@ -8255,6 +8518,15 @@ def run(dev: torch.device, opts) -> int:
         record["paths"] = {}
         netfaults_phase(dev, record, fg, vsc, hll_mod)
         log(f"netfaults only: done in {time.perf_counter() - t_start:.1f} s")
+        if opts.out:
+            record["log_times"] = LOG_TIMES
+            with open(opts.out, "w") as f:
+                json.dump(record, f, indent=1, default=str)
+        return 0
+    if opts.chaos_only:
+        record["paths"] = {}
+        chaos_phase(dev, record, fg, vsc)
+        log(f"chaos only: done in {time.perf_counter() - t_start:.1f} s")
         if opts.out:
             record["log_times"] = LOG_TIMES
             with open(opts.out, "w") as f:
@@ -9330,13 +9602,6 @@ def run(dev: torch.device, opts) -> int:
     kafka_phase(dev, record, fg, vsc, hll_mod)
     log(f"kafka phase: {time.perf_counter() - t0:.1f} s")
 
-    # 21. the link fault plane: a networked cluster in this process, every
-    # link through one seeded injector, the partition scenarios and
-    # disaster recovery under closed-loop q1 / distinct_price
-    t0 = time.perf_counter()
-    netfaults_phase(dev, record, fg, vsc, hll_mod)
-    log(f"netfaults phase: {time.perf_counter() - t0:.1f} s")
-
     # the routes line: the tier the default executor serves each query of
     # phases 1-13 from (the mvtest queries decided on one distinct segment:
     # the shares are the same, and its postings are built once, then freed)
@@ -9358,6 +9623,30 @@ def run(dev: torch.device, opts) -> int:
     routes = {k: v[0] for k, v in record["routes"].items()}
     log(f"routes ({time.perf_counter() - t0:.1f} s; the joins take the join phase, neither tier): "
         f"{json.dumps(routes)}")
+
+    # phases 21 and 22 make their own data: the main run's tables and
+    # executors go first, so the process that every shadow oracle forks from
+    # (1-in-64 samples, a fork each batch) is gigabytes lighter
+    ex.free_staging()
+    mv_ex.free_staging()
+    tables.clear()
+    del segments, ad_distinct, ad_segments, mv_distinct, mv_segments, ssb, ex, mv_ex
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 21. the link fault plane: a networked cluster in this process, every
+    # link through one seeded injector, the partition scenarios and
+    # disaster recovery under closed-loop q1 / distinct_price
+    t0 = time.perf_counter()
+    netfaults_phase(dev, record, fg, vsc, hll_mod)
+    log(f"netfaults phase: {time.perf_counter() - t0:.1f} s")
+
+    # 22. the in-process chaos scenarios: the noisy neighbour, the join under
+    # a flood, ingest backpressure, HBM pressure, the audit divergence, the
+    # elastic fleet, and the harness's command line
+    t0 = time.perf_counter()
+    chaos_phase(dev, record, fg, vsc)
+    log(f"chaos phase: {time.perf_counter() - t0:.1f} s")
 
     launches = {"k1": 0, "k2": 0}
     for path in record["paths"].values():
@@ -9412,6 +9701,8 @@ def run(dev: torch.device, opts) -> int:
             "hlc_shape": record["kafka"]["hlc_k1"],
             "netfaults_shape": dict(record["netfaults"]["k1"],
                                     launches=record["paths"]["netfaults"]["totals"]["k1"]),
+            "chaos_shape": {"hbm_pressure": record["chaos"]["k1_hbm"], "audit_divergence": record["chaos"]["k1_audit"],
+                            "launches": record["paths"]["chaos"]["launches"]},
             "build_shape": record["build"]["k1"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k1"],
             "planes_launches": record["paths"]["planes"]["totals"]["k1"],
@@ -9435,6 +9726,7 @@ def run(dev: torch.device, opts) -> int:
             "hlc_shape": record["kafka"]["hlc_k2"],
             "netfaults_shape": dict(record["netfaults"]["k2"],
                                     launches=record["paths"]["netfaults"]["totals"]["k2"]),
+            "chaos_launches": record["paths"]["chaos"]["totals"]["k2"],
             "build_shape": record["build"]["k2"],
             "warmstart_launches": record["paths"]["warmstart"]["totals"]["k2"],
             "planes_launches": record["paths"]["planes"]["totals"]["k2"],

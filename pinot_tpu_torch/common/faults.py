@@ -137,7 +137,7 @@ class LaunchRecord:
 
     digest: Optional[str]
     # "ok" | "fail_next" | "alloc_fail" | "sticky" | "poison" | "stall"
-    # | "corrupt"
+    # | "alloc_rate" | "error_rate" | "corrupt"
     outcome: str
 
 
@@ -167,10 +167,17 @@ class DeviceFaultInjector:
       (``apply_result_corruption``).  Nothing raises, so retry, failover
       and poison never catch it; only the shadow audit can.  The host
       tier is never corrupted (it is the oracle).
+    - ``error_rate`` — each launch fails (retryable) with probability p
+      from the injector's RNG, seeded by ``seed``.
+    - ``alloc_error_rate`` — each launch raises the raw out-of-memory
+      error with probability p from the same RNG (sustained memory
+      pressure, not a one-shot).  The allocation draw comes first, so one
+      seed gives the reference's decisions at the same launches.
 
     Every launch decision is recorded in ``launches``."""
 
-    def __init__(self) -> None:
+    def __init__(self, seed: int = 0) -> None:
+        self._rng = random.Random(seed)
         self._lock = threading.Lock()
         self.launches: List[LaunchRecord] = []
         self._fail_next = 0
@@ -180,6 +187,8 @@ class DeviceFaultInjector:
         self._stall_next = 0
         self._stall_s = 0.0
         self._poisoned: set = set()
+        self.error_rate = 0.0
+        self.alloc_error_rate = 0.0
         self._corrupt_next = 0
         self._corrupt_tier = ""
         self._corrupt_digest = ""
@@ -248,6 +257,8 @@ class DeviceFaultInjector:
             self._stall_next = 0
             self._stall_s = 0.0
             self._poisoned.clear()
+            self.error_rate = 0.0
+            self.alloc_error_rate = 0.0
             self._corrupt_next = 0
             self._corrupt_tier = ""
             self._corrupt_digest = ""
@@ -290,6 +301,14 @@ class DeviceFaultInjector:
                 raise DeviceExecutionError(
                     "injected: device launch failure", retryable=retryable
                 )
+            if self.alloc_error_rate > 0.0 and self._rng.random() < self.alloc_error_rate:
+                self.launches.append(LaunchRecord(digest, "alloc_rate"))
+                raise torch.cuda.OutOfMemoryError(
+                    "injected: CUDA out of memory. Tried to allocate 2.00 GiB"
+                )
+            if self.error_rate > 0.0 and self._rng.random() < self.error_rate:
+                self.launches.append(LaunchRecord(digest, "error_rate"))
+                raise DeviceExecutionError("injected: flaky device launch", retryable=True)
             stall = 0.0
             if self._stall_next > 0:
                 self._stall_next -= 1

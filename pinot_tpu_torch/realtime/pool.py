@@ -53,8 +53,10 @@ _all_pools: "weakref.WeakSet[IngestConsumerPool]" = weakref.WeakSet()
 
 def leaked_pool_threads(grace_s: float = 2.0) -> List[threading.Thread]:
     """Worker threads still alive on stopped pools (running pools are
-    exempt: they are still ingesting)."""
-    suspects = [t for pool in list(_all_pools) if pool._stop.is_set() for t in pool._threads if t.is_alive()]
+    exempt: they are still ingesting), the workers a shrink retired
+    included."""
+    suspects = [t for pool in list(_all_pools) if pool._stop.is_set()
+                for t in pool._threads + pool._retired if t.is_alive()]
     deadline = time.monotonic() + grace_s
     leaked = []
     for t in suspects:
@@ -84,6 +86,10 @@ class IngestConsumerPool:
         self._entries: Dict[Any, _Entry] = {}  # key -> entry
         self._stop = threading.Event()
         self._threads: List[threading.Thread] = []
+        # workers a shrink superseded: they exit at their next wake-up and
+        # stay tracked until then, so stop() joins them
+        self._retired: List[threading.Thread] = []
+        self._generation = 0  # bumped by a shrink; older workers exit
         self.steps = 0
         self.errors = 0
         if metrics is not None:
@@ -105,11 +111,7 @@ class IngestConsumerPool:
             if key in self._entries:
                 return
             self._entries[key] = _Entry(consumer, time.monotonic())
-            while len(self._threads) < self.workers:
-                t = threading.Thread(target=self._worker, name=f"{self.name}-pool-{len(self._threads)}",
-                                     daemon=True)
-                self._threads.append(t)
-                t.start()
+            self._ensure_workers_locked()
             self._cv.notify_all()
 
     def remove(self, key: Any) -> None:
@@ -125,12 +127,43 @@ class IngestConsumerPool:
                 e.eligible_at = min(e.eligible_at, now)
             self._cv.notify_all()
 
+    def resize(self, workers: int) -> None:
+        """Change the worker count live.  Growing starts threads; shrinking
+        retires the surplus workers at their next wake-up.  Consumers and
+        their lag / freshness gauges are untouched, so the series stay
+        continuous."""
+        workers = max(1, int(workers))
+        with self._cv:
+            if workers == self.workers:
+                return
+            if workers < self.workers:
+                # every current worker sees the new generation at its next
+                # wake-up and exits; fresh ones take over
+                self._generation += 1
+                self._retired.extend(t for t in self._threads if t.is_alive())
+                self._threads = []
+                self._cv.notify_all()
+            self.workers = workers
+            self._ensure_workers_locked()
+
+    def _ensure_workers_locked(self) -> None:
+        if self._stop.is_set() or not self._entries:
+            return
+        self._threads = [t for t in self._threads if t.is_alive()]
+        self._retired = [t for t in self._retired if t.is_alive()]
+        while len(self._threads) < self.workers:
+            idx = len(self._threads)
+            t = threading.Thread(target=self._worker, args=(self._generation, idx),
+                                 name=f"{self.name}-pool-{idx}", daemon=True)
+            self._threads.append(t)
+            t.start()
+
     def stop(self) -> None:
         with self._cv:
             self._stop.set()
             self._entries.clear()
             self._cv.notify_all()
-        for t in self._threads:
+        for t in self._threads + self._retired:
             if t is not threading.current_thread():
                 t.join(timeout=2)
 
@@ -151,12 +184,14 @@ class IngestConsumerPool:
                 soonest = e.eligible_at
         return best_key, best, soonest
 
-    def _worker(self) -> None:
+    def _worker(self, gen: int, idx: int) -> None:
         while True:
             with self._cv:
                 while True:
                     if self._stop.is_set():
                         return
+                    if gen != self._generation or idx >= self.workers:
+                        return  # retired by resize
                     now = time.monotonic()
                     key, entry, soonest = self._claim_locked(now)
                     if entry is not None:

@@ -1,56 +1,72 @@
 """In-process cluster harness: a controller, N servers and a broker in one
-process (port of ``pinot_tpu.tools.cluster_harness``, trimmed).
+process (port of ``pinot_tpu.tools.cluster_harness``).
 
 The reference's ``PerfBenchmarkDriver.java:61`` and the integration
 tests' ``ClusterTest`` start the whole cluster in one process the same
 way.  The servers join the controller as participants
 (``server/starter.py``) and the broker's routing and hybrid time
-boundaries follow the controller's external views through a view
-listener (the reference's ``broker/starter.py``).  A REALTIME table's
-consumers are stepped by the caller (``consume_step`` / ``try_commit`` of
-``controller.realtime_manager.consumers_of(segment)``) unless an
-``IngestConsumerPool`` is set as ``controller.realtime_manager.ingest_pool``.
+boundaries follow the controller's external views (``broker/starter.py``).
+A REALTIME table's consumers are stepped by the caller (``consume_step`` /
+``try_commit`` of ``controller.realtime_manager.consumers_of(segment)``)
+unless an ``IngestConsumerPool`` is set as
+``controller.realtime_manager.ingest_pool``.
 
-The self-stabilization scenarios (``run_kill_server_scenario``,
-``run_drain_scenario``, ``run_rolling_restart_scenario``,
-``run_rolling_restart_warm_scenario``) run closed-loop query load
-(``ClosedLoopLoad``) over an in-process cluster while a server dies,
-drains or every server rolls, stepping the stabilizer with ``run_once``;
-``run_split_brain_scenario`` starts a second controller over the first's
-property store and checks that every write of the fenced-off first one
-raises ``StaleEpochError``.  Each returns the reference's result dict.
+The chaos scenarios each return the reference's result dict, whose
+``failedQueries`` is the command line's exit code, and take ``device`` (the
+servers' device: None is the current CUDA card, ``"cpu"`` for tests):
 
-``NetworkedCluster`` runs a controller, servers and a broker in one
-process over their real protocols (HTTP and TCP), every link through one
-seeded ``NetworkFaultInjector``; the partition scenarios
-(``run_partition_server_scenario``, ``run_partition_controller_scenario``,
-``run_asymmetric_partition_scenario``) run on it.
-``run_disaster_recovery_scenario`` backs an in-process cluster up while it
-serves, destroys its property store and restores it from the archive and
-the deep store (``tools/backup.py``).
+- self-stabilization (``run_kill_server_scenario``, ``run_drain_scenario``,
+  ``run_rolling_restart_scenario``, ``run_rolling_restart_warm_scenario``):
+  closed-loop query load (``ClosedLoopLoad``) while a server dies, drains
+  or every server rolls, the stabilizer stepped with ``run_once``;
+- overload (``run_noisy_neighbor_scenario``,
+  ``run_join_under_flood_scenario``): a tenant flooding scans or joins at
+  many times its quota (``FloodLoad``) beside a steady tenant, and
+  ``run_ingest_backpressure_scenario``: a consumer paused by the staging
+  ledger and drained after;
+- residency and audit (``run_hbm_pressure_scenario``,
+  ``run_audit_divergence_scenario``): tables ~8x the hot-tier cap cycling
+  the tiers with a seeded allocation failure healed, and a seeded wrong
+  device answer caught and quarantined by the shadow auditor;
+- ``run_elastic_fleet_scenario``: 100+ tables under ingest and query load,
+  a forced skew, a live rebalance and a controller restart in the middle of
+  it;
+- ``run_split_brain_scenario``: a second controller over the first's
+  property store, every write of the fenced-off first raising
+  ``StaleEpochError``;
+- on ``NetworkedCluster`` (a controller, servers and a broker in one
+  process over HTTP and TCP, every link through one seeded
+  ``NetworkFaultInjector``): ``run_partition_server_scenario``,
+  ``run_partition_controller_scenario``,
+  ``run_asymmetric_partition_scenario``;
+- ``run_disaster_recovery_scenario``: a backup while serving, the property
+  store destroyed, the cluster restored from the archive and the deep store
+  (``tools/backup.py``).
 
-Left out, ROADMAP queue 1 item 30 (b): the elastic-fleet, noisy-neighbour,
-flood, backpressure, HBM-pressure and audit-divergence scenarios and the
-``--scenario`` command line.
+The sizes are the reference's unless a size parameter says otherwise; past
+a few thousand rows a scenario's segments come from seeded numpy columns.
+
+    python -m pinot_tpu_torch.tools.cluster_harness --scenario <name> [--device cpu]
 """
 from __future__ import annotations
 
 import os
+import sys
 import tempfile
 import threading
 import time
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
-from pinot_tpu_torch.broker.broker import OFFLINE_SUFFIX, BrokerHttpServer, BrokerRequestHandler
+from pinot_tpu_torch.broker.broker import BrokerHttpServer, BrokerRequestHandler
 from pinot_tpu_torch.broker.routing import RoutingTableProvider
+from pinot_tpu_torch.broker.starter import BrokerStarter
 from pinot_tpu_torch.common.conf import BrokerConf, ServerConf
 from pinot_tpu_torch.common.response import BrokerResponse
 from pinot_tpu_torch.common.schema import Schema
 from pinot_tpu_torch.common.tableconfig import StreamConfig, TableConfig
 from pinot_tpu_torch.controller.controller import Controller
-from pinot_tpu_torch.controller.resource_manager import InstanceState
 from pinot_tpu_torch.segment.immutable import ImmutableSegment
 from pinot_tpu_torch.server.instance import ServerInstance
 from pinot_tpu_torch.server.starter import ServerStarter, residency_options
@@ -100,20 +116,19 @@ class InProcessCluster:
             self.http.start()
             self.broker_url = f"http://{self.http.host}:{self.http.port}"
         self._attach_broker()
-        for _ in range(num_servers):
-            self.add_server()
+        try:
+            for _ in range(num_servers):
+                self.add_server()
+        except BaseException:
+            self.stop()  # no card and no device given: nothing left running
+            raise
 
     def _attach_broker(self) -> None:
-        """Register the broker on the controller and follow its views: the
-        routing of every table it already has is seeded now."""
-        resources = self.controller.resources
-        resources.register_instance(InstanceState(self.broker.name, role="broker", url=self.broker_url))
-        resources.add_view_listener(self._on_view_change)
-        # a liveness flip reaches the broker's health tracker on the same
-        # path that rebuilds its routing
-        resources.add_instance_listener(self._on_instance_change)
-        for table in resources.tables():
-            self._on_view_change(table, resources.get_external_view(table))
+        """Register the broker on the controller and follow its views
+        (``BrokerStarter``): the routing of every table it already has is
+        seeded now."""
+        self.broker_starter = BrokerStarter(self.broker, self.controller.resources, url=self.broker_url)
+        self.broker_starter.start()
 
     def attach_controller(self, controller: Controller) -> None:
         """Join every server and the broker to ``controller`` (a restored or
@@ -128,45 +143,6 @@ class InProcessCluster:
             starter.start()
             self.server_starters.append(starter)
         self._attach_broker()
-
-    def _on_instance_change(self, name: str, alive: bool) -> None:
-        if alive:
-            self.broker.health.mark_alive(name)
-        else:
-            self.broker.health.mark_dead(name)
-
-    def _on_view_change(self, table: str, view: Dict[str, Dict[str, str]]) -> None:
-        """The broker's routing, quota, SLO objectives, declared
-        partitioning and time boundary follow each view change."""
-        resources = self.controller.resources
-        if table not in resources.tables():
-            self.broker.routing.remove(table)
-            self.broker.time_boundary.remove(table)
-            # the SLO override goes once no physical half of the raw table
-            # remains (a hybrid table's two halves share one)
-            raw = table.rsplit("_", 1)[0]
-            if not any(t.rsplit("_", 1)[0] == raw for t in resources.tables()):
-                self.broker.slo.set_objective(raw, None)
-            return
-        self.broker.routing.update(table, view)
-        config = resources.table_configs.get(table)
-        if config is not None:
-            # idempotent for an unchanged quota (a re-notify never refills
-            # a drained bucket); None clears a removed one
-            self.broker.quota.set_quota(
-                config.raw_name, config.quota.max_queries_per_second, config.quota.burst_queries)
-            self.broker.slo.set_objective(config.raw_name, config.slo.to_json() if config.slo is not None else None)
-            # declared partitioning feeds the join planner's colocation check
-            p = config.partitioning
-            self.broker.joinplan.partitions.set_partitioning(
-                config.raw_name, p.column if p is not None else None, p.num_partitions if p is not None else None)
-        if table.endswith(OFFLINE_SUFFIX):
-            metas = []
-            for seg in resources.segments_of(table):
-                info = resources.get_segment_metadata(table, seg)
-                if info and info.get("metadata") is not None:
-                    metas.append(info["metadata"])
-            self.broker.time_boundary.update_from_segments(table, metas)
 
     def add_server(self, name: Optional[str] = None) -> ServerInstance:
         """Join a new server into the running cluster."""
@@ -667,6 +643,997 @@ def run_rolling_restart_warm_scenario(
             os.environ.pop("PINOT_TPU_COMPILE_CACHE_DIR", None)
         else:
             os.environ["PINOT_TPU_COMPILE_CACHE_DIR"] = prev_env
+
+
+# ---------------------------------------------------------------------------
+# Overload-protection scenarios: the multi-tenant noisy neighbour, the join
+# under a flood and ingest backpressure.
+# ---------------------------------------------------------------------------
+
+
+class FloodLoad:
+    """An open-throttle tenant: ``clients`` threads sending one query back
+    to back, every reply classified by the tier that shed it: the noisy
+    neighbour whose overflow must come back as typed 429 / 210, never as
+    timeouts."""
+
+    def __init__(self, cluster: "InProcessCluster", pql: str, clients: int = 4) -> None:
+        self.cluster = cluster
+        self.pql = pql
+        self.clients = clients
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._lock = threading.Lock()
+        self.total = 0
+        self.ok = 0
+        self.shed_429 = 0  # broker admission (quota, concurrency, overload)
+        self.shed_210 = 0  # server scheduler saturation (a drain's 220 too)
+        self.timeouts = 0  # the failure mode overload protection must prevent
+        self.other_failures = 0
+        self.samples: List[str] = []
+
+    def _classify(self, codes) -> str:
+        from pinot_tpu_torch.common.response import ErrorCode
+
+        if ErrorCode.TOO_MANY_REQUESTS in codes:
+            return "429"
+        if ErrorCode.SERVER_SCHEDULER_DOWN in codes or ErrorCode.SERVER_SHUTTING_DOWN in codes:
+            return "210"
+        if ErrorCode.EXECUTION_TIMEOUT in codes or ErrorCode.BROKER_TIMEOUT in codes:
+            return "timeout"
+        return "other"
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            try:
+                resp = self.cluster.broker.handle_pql(self.pql)
+            except Exception as e:
+                with self._lock:
+                    self.total += 1
+                    self.other_failures += 1
+                    if len(self.samples) < 8:
+                        self.samples.append(f"{type(e).__name__}: {e}")
+                continue
+            with self._lock:
+                self.total += 1
+                if not resp.exceptions:
+                    self.ok += 1
+                    continue
+                kind = self._classify({e.error_code for e in resp.exceptions})
+                if kind == "429":
+                    self.shed_429 += 1
+                elif kind == "210":
+                    self.shed_210 += 1
+                elif kind == "timeout":
+                    self.timeouts += 1
+                else:
+                    self.other_failures += 1
+                    if len(self.samples) < 8:
+                        self.samples.append(f"codes={[e.error_code for e in resp.exceptions]} "
+                                            f"{resp.exceptions[0].message[:120]}")
+
+    def start(self) -> "FloodLoad":
+        for i in range(self.clients):
+            t = threading.Thread(target=self._loop, name=f"flood-{i}", daemon=True)
+            t.start()
+            self._threads.append(t)
+        return self
+
+    def stop(self) -> Dict[str, Any]:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=10)
+        return {
+            "queries": self.total,
+            "okQueries": self.ok,
+            "shed429": self.shed_429,
+            "shed210": self.shed_210,
+            "timeouts": self.timeouts,
+            "otherFailures": self.other_failures,
+            "samples": list(self.samples),
+        }
+
+
+def _tenant_schema(name: str):
+    from pinot_tpu_torch.tools.datagen import make_test_schema
+
+    schema = make_test_schema(with_mv=False)
+    schema.schema_name = name
+    return schema
+
+
+# past this many rows a scenario's segments come from seeded numpy columns;
+# at the reference's sizes they are ``random_rows``' own rows
+_COLUMNAR_ROWS = 4096
+
+
+def _random_columns(schema: Schema, num_rows: int, seed: int, cardinality: int = 20) -> Dict[str, Any]:
+    """``num_rows`` rows of a single-value schema as seeded numpy columns,
+    each drawn from a pool of ``cardinality`` values of ``random_rows``'
+    kinds (lowercase words of 3 to 8 letters, ints in 0-10,000, floats in
+    -100-100 to 3 decimals).  Strings are a fixed-width unicode array: the
+    segment build's ``np.unique`` sorts it without a Python object a row."""
+    import numpy as np
+
+    from pinot_tpu_torch.common.schema import DataType
+
+    rng = np.random.default_rng(seed)
+    cols: Dict[str, Any] = {}
+    for spec in schema.all_fields():
+        st = spec.stored_type
+        if st == DataType.STRING:
+            pool = np.array(["".join(chr(97 + c) for c in rng.integers(0, 26, int(rng.integers(3, 9))))
+                             for _ in range(cardinality)])
+        elif st in (DataType.INT, DataType.LONG):
+            pool = rng.integers(0, 10_001, cardinality).astype(np.int32 if st == DataType.INT else np.int64)
+        else:
+            pool = np.round(rng.uniform(-100.0, 100.0, cardinality), 3)
+            pool = pool.astype(np.float32 if st == DataType.FLOAT else np.float64)
+        cols[spec.name] = pool[rng.integers(0, cardinality, num_rows)]
+    return cols
+
+
+def _columns_segment(schema: Schema, cols: Dict[str, Any], lo: int, hi: int, table: str, name: str):
+    from pinot_tpu_torch.segment.columnar import build_segment_from_columns
+
+    return build_segment_from_columns(schema, {k: v[lo:hi] for k, v in cols.items()}, hi - lo, table, name)
+
+
+def _tenant_segment(schema: Schema, rows: List[Dict[str, Any]], num_rows: int, table: str, name: str,
+                    seed: int):
+    """A tenant table's segment of ``num_rows`` rows: the first rows of
+    ``rows`` (the reference's) up to ``_COLUMNAR_ROWS``, seeded numpy
+    columns past it."""
+    from pinot_tpu_torch.segment.builder import build_segment
+
+    if num_rows <= _COLUMNAR_ROWS:
+        return build_segment(schema, rows[:num_rows], table, name)
+    return _columns_segment(schema, _random_columns(schema, num_rows, seed), 0, num_rows, table, name)
+
+
+def _renamed(segment: ImmutableSegment, table: str, name: str) -> ImmutableSegment:
+    """The same column arrays under another table's and segment's name (the
+    scenarios whose tables hold identical rows build them once)."""
+    import dataclasses
+
+    return ImmutableSegment(metadata=dataclasses.replace(segment.metadata, segment_name=name, table_name=table),
+                            columns=segment.columns)
+
+
+def _isolation_report(scenario: str, quota_qps: float, flood_s: float, a_summary: Dict[str, Any],
+                      b_summary: Dict[str, Any], baseline: Dict[str, Any], p99_floor_ms: float,
+                      p99_multiple: float) -> Dict[str, Any]:
+    """The keys the noisy-neighbour and join-under-flood reports share.  The
+    absolute floor absorbs scheduler jitter on a near-zero baseline (3x of
+    2 ms is no isolation bar)."""
+    loaded_p99 = b_summary["p99Ms"]
+    p99_limit = p99_multiple * max(baseline["p99Ms"], p99_floor_ms)
+    offered_qps = a_summary["queries"] / max(flood_s, 1e-9)
+    return {
+        "scenario": scenario,
+        "quotaQps": quota_qps,
+        "offeredQpsA": round(offered_qps, 1),
+        "offeredMultiple": round(offered_qps / quota_qps, 1),
+        "tenantA": a_summary,
+        "tenantB": b_summary,
+        "tenantBBaseline": baseline,
+        "tenantBLoadedP99Ms": loaded_p99,
+        "tenantBP99LimitMs": round(p99_limit, 3),
+        "tenantBP99Within": loaded_p99 <= p99_limit,
+        "sheddingTyped": a_summary["timeouts"] == 0 and a_summary["otherFailures"] == 0,
+    }
+
+
+# the interpreter's switch interval while a flood runs in the servers'
+# process: every torch op of a server's lane releases the interpreter lock,
+# and a flood client's thread, which never blocks, then keeps it for a whole
+# interval (5 ms by default), so a lane op waits that long and tenant B's
+# queries queue behind A's admitted joins (B's p99 ~0.5 s on the CPU at 5 ms,
+# ~0.06 s at 0.1 ms).  The clients of a deployed cluster run in processes of
+# their own.
+_FLOOD_SWITCH_INTERVAL_S = 1e-4
+
+
+def _flood(cluster: "InProcessCluster", pql_a: str, pql_b: str, total_b: int, clients: int, flood_clients: int,
+           baseline_s: float, flood_s: float, quota_physical: str, quota_qps: float):
+    """Tenant B's unloaded baseline, then the quota on tenant A through the
+    live update path (as an operator applies it), then A flooding at an open
+    throttle while B keeps its closed loop: (A, B, baseline) summaries.  The
+    baseline and the flood run at ``_FLOOD_SWITCH_INTERVAL_S``."""
+    for pql in (pql_a, pql_b):  # warm both paths (staging, plan build) first
+        r = cluster.broker.handle_pql(pql)
+        assert not r.exceptions, r.exceptions
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(_FLOOD_SWITCH_INTERVAL_S)
+    try:
+        base_load = ClosedLoopLoad(cluster, pql_b, total_b, clients).start()
+        time.sleep(baseline_s)
+        baseline = base_load.stop()
+        cluster.controller.resources.update_table_quota(quota_physical, quota_qps)
+        b_load = ClosedLoopLoad(cluster, pql_b, total_b, clients).start()
+        a_flood = FloodLoad(cluster, pql_a, clients=flood_clients).start()
+        time.sleep(flood_s)
+        a_summary = a_flood.stop()
+        return a_summary, b_load.stop(), baseline
+    finally:
+        sys.setswitchinterval(interval)
+
+
+def _tenant_table(cluster: "InProcessCluster", tenant: str, replication: int, num_segments: int,
+                  segment_rows: Optional[int], built: Dict[int, ImmutableSegment]) -> Tuple[str, int]:
+    """A tenant table of ``num_segments`` segments (the reference's skewed
+    40-100 rows, or ``segment_rows`` each): (physical, rows).  Past
+    ``_COLUMNAR_ROWS`` segment i is built once into ``built`` and renamed
+    for every tenant (the reference's tenants hold the same rows)."""
+    from pinot_tpu_torch.tools.datagen import random_rows
+
+    schema = _tenant_schema(tenant)
+    physical = cluster.add_offline_table(schema, replication=replication)
+    rows = random_rows(schema, max(240, min(segment_rows or 0, _COLUMNAR_ROWS)), seed=7)
+    total = 0
+    for i in range(num_segments):
+        n = segment_rows or 40 + 30 * (i % 3)
+        name = f"{tenant}s{i}"
+        if n <= _COLUMNAR_ROWS:
+            seg = _tenant_segment(schema, rows, n, physical, name, seed=7)
+        else:
+            if i not in built:
+                built[i] = _tenant_segment(schema, rows, n, physical, name, seed=7_000 + i)
+            seg = _renamed(built[i], physical, name)
+        cluster.upload(physical, seg)
+        total += n
+    return physical, total
+
+
+def run_noisy_neighbor_scenario(num_servers: int = 2, replication: int = 1, num_segments: int = 3,
+                                clients: int = 3, flood_clients: int = 4, quota_qps: float = 8.0,
+                                baseline_s: float = 1.0, flood_s: float = 2.5, max_pending: int = 16,
+                                data_dir: Optional[str] = None, p99_floor_ms: float = 25.0,
+                                p99_multiple: float = 3.0, device=None,
+                                segment_rows: Optional[int] = None) -> Dict[str, Any]:
+    """Tenant A floods its table while tenant B runs a steady closed loop.
+    The overload plane must contain A end to end: B suffers no failed query
+    and its p99 stays within a fixed multiple of its unloaded baseline; A's
+    overflow is shed with typed errors (429 at the broker's admission, 210
+    at the servers' fair-share schedulers), never with timeouts; the quota
+    lands through the live update path (``update_table_quota``).
+    ``segment_rows``: rows a segment of each tenant (None: the reference's
+    40-100)."""
+    cluster = InProcessCluster(num_servers=num_servers, data_dir=data_dir, max_pending=max_pending, device=device)
+    try:
+        built: Dict[int, ImmutableSegment] = {}
+        physical_a, _ = _tenant_table(cluster, "tenantA", replication, num_segments, segment_rows, built)
+        _, total_b = _tenant_table(cluster, "tenantB", replication, num_segments, segment_rows, built)
+        del built
+        a_summary, b_summary, baseline = _flood(
+            cluster, "SELECT count(*) FROM tenantA", "SELECT count(*) FROM tenantB", total_b, clients,
+            flood_clients, baseline_s, flood_s, physical_a, quota_qps)
+        return {
+            **_isolation_report("noisy-neighbor", quota_qps, flood_s, a_summary, b_summary, baseline,
+                                p99_floor_ms, p99_multiple),
+            "admission": cluster.broker.admission.snapshot(),
+            "scheduler": {s.name: s.scheduler.stats() for s in cluster.servers},
+            # main()'s exit code: any tenant-B failure or any untyped
+            # tenant-A overflow fails the scenario
+            "failedQueries": b_summary["failedQueries"] + a_summary["timeouts"] + a_summary["otherFailures"],
+        }
+    finally:
+        cluster.stop()
+
+
+def run_join_under_flood_scenario(num_servers: int = 2, replication: int = 1, clients: int = 3,
+                                  flood_clients: int = 4, quota_qps: float = 8.0, baseline_s: float = 1.0,
+                                  flood_s: float = 2.5, max_pending: int = 16, data_dir: Optional[str] = None,
+                                  p99_floor_ms: float = 25.0, p99_multiple: float = 3.0, device=None,
+                                  segment_rows: Optional[int] = None) -> Dict[str, Any]:
+    """Tenant A floods two-table joins at many times its quota while tenant
+    B runs steady scans.  The broker's admission sheds A's overflow before
+    any join phase scatters (typed 429); the phase requests that run queue
+    under A's tables in the servers' fair-share schedulers, so B's p99
+    holds within a fixed multiple of its baseline and B suffers no failed
+    query.  ``segment_rows``: rows of each of ``aFact``'s two segments and
+    of each tenant-B segment (None: the reference's 150 and 40-100)."""
+    import numpy as np
+
+    from pinot_tpu_torch.common.schema import DataType, FieldSpec, FieldType
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.segment.columnar import build_segment_from_columns
+
+    cluster = InProcessCluster(num_servers=num_servers, data_dir=data_dir, max_pending=max_pending, device=device)
+    try:
+        fact_schema = Schema("aFact", dimensions=[FieldSpec("k", DataType.INT, FieldType.DIMENSION)],
+                             metrics=[FieldSpec("v", DataType.INT, FieldType.METRIC)])
+        dim_schema = Schema("aDim", dimensions=[FieldSpec("k", DataType.INT, FieldType.DIMENSION)],
+                            metrics=[FieldSpec("w", DataType.INT, FieldType.METRIC)])
+        fact_phys = cluster.add_offline_table(fact_schema, replication=replication)
+        dim_phys = cluster.add_offline_table(dim_schema, replication=replication)
+        rng = np.random.default_rng(11)
+        fact_rows = segment_rows or 150
+        for i in range(2):
+            k, v = rng.integers(0, 60, fact_rows), rng.integers(0, 99, fact_rows)
+            if segment_rows is None:
+                seg = build_segment(fact_schema, [{"k": int(a), "v": int(b)} for a, b in zip(k, v)], fact_phys,
+                                    f"aFact_s{i}")
+            else:
+                seg = build_segment_from_columns(fact_schema, {"k": k.astype(np.int32), "v": v.astype(np.int32)},
+                                                 fact_rows, fact_phys, f"aFact_s{i}")
+            cluster.upload(fact_phys, seg)
+        cluster.upload(dim_phys, build_segment(dim_schema, [{"k": k, "w": k * 2} for k in range(60)], dim_phys,
+                                               "aDim_s0"))
+        _, total_b = _tenant_table(cluster, "tenantB", replication, 3, segment_rows, {})
+        # the quota lands on the join's left table: the broker's admission
+        # keys a join on it
+        a_summary, b_summary, baseline = _flood(
+            cluster, "SELECT count(*), sum(f.v) FROM aFact f JOIN aDim d ON f.k = d.k",
+            "SELECT count(*) FROM tenantB", total_b, clients, flood_clients, baseline_s, flood_s, fact_phys,
+            quota_qps)
+        meters = cluster.broker.metrics.snapshot().get("meters", {})
+        return {
+            **_isolation_report("join-under-flood", quota_qps, flood_s, a_summary, b_summary, baseline,
+                                p99_floor_ms, p99_multiple),
+            "joinMeters": {k: v["count"] for k, v in meters.items() if k.startswith("join.")},
+            "failedQueries": b_summary["failedQueries"] + a_summary["timeouts"] + a_summary["otherFailures"],
+        }
+    finally:
+        cluster.stop()
+
+
+def run_ingest_backpressure_scenario(rows: int = 400, rows_per_segment: int = 1000, hbm_high_bytes: float = 256.0,
+                                     data_dir: Optional[str] = None, device=None,
+                                     segment_rows: Optional[int] = None) -> Dict[str, Any]:
+    """The ingest watermark contract end to end: a consumer pauses when the
+    server's staging ledger crosses the high watermark (query-driven
+    staging: the query flood squeezes ingest), its offset freezes while its
+    lag stays visible, and after the pressure clears it resumes and drains
+    its lag to 0, no row lost or skipped.  ``segment_rows``: rows of the
+    pressure table's one segment (None: the reference's 200)."""
+    from pinot_tpu_torch.realtime.backpressure import IngestBackpressure
+    from pinot_tpu_torch.realtime.llc import make_segment_name
+    from pinot_tpu_torch.realtime.stream import MemoryStreamProvider
+    from pinot_tpu_torch.tools.datagen import random_rows
+
+    cluster = InProcessCluster(num_servers=1, data_dir=data_dir, device=device)
+    try:
+        server = cluster.servers[0]
+        # tight watermarks on the server's own staging ledger, installed
+        # before the consumer exists so that it binds to this governor
+        server.ingest_backpressure = IngestBackpressure(
+            metrics=server.metrics, hbm_high_bytes=hbm_high_bytes, hbm_low_bytes=hbm_high_bytes / 2.0,
+            hbm_bytes_fn=server.executor.staged_bytes, poll_interval_s=0.0)
+
+        # an offline table whose staging pushes the ledger over the high
+        # watermark (the query side of the squeeze)
+        offline_schema = _tenant_schema("pressure")
+        offline_physical = cluster.add_offline_table(offline_schema)
+        n = segment_rows or 200
+        rows_p = random_rows(offline_schema, n, seed=3) if n <= _COLUMNAR_ROWS else []
+        cluster.upload(offline_physical, _tenant_segment(offline_schema, rows_p, n, offline_physical, "p0", seed=3))
+
+        rt_schema = _tenant_schema("rtTable")
+        stream = MemoryStreamProvider(num_partitions=1)
+        physical = cluster.add_realtime_table(rt_schema, stream, rows_per_segment=rows_per_segment)
+        for row in random_rows(rt_schema, rows, seed=5):
+            stream.produce(row)
+        dm = cluster.controller.realtime_manager.consumers_of(make_segment_name(physical, 0, 0))[0]
+        # a fetch's rows: the reference's 100, more for a larger stream
+        batch = max(100, rows // 100)
+
+        # 1. unpressured consumption advances
+        consumed_free = dm.consume_step(max_rows=batch)
+
+        # 2. a query stages the offline table's columns: the ledger crosses
+        # the high watermark and the consumer pauses, its offset frozen.  A
+        # group-by stages forward indexes and dictionaries (a bare count(*)
+        # would stage only the doc counts)
+        cluster.query("SELECT sum(metInt) FROM pressure GROUP BY dimStr TOP 5")
+        staged_bytes = server.executor.staged_bytes()
+        paused_consumed = dm.consume_step(max_rows=batch)
+        offset_at_pause = dm.offset
+        dm.consume_step(max_rows=batch)  # still paused: the offset must not move
+        paused_state = {
+            "paused": server.ingest_backpressure.paused,
+            "reason": server.ingest_backpressure.reason,
+            "lagWhilePaused": dm.lag(),
+            "offsetFrozen": dm.offset == offset_at_pause,
+        }
+
+        # 3. the pressure clears: the consumer resumes and drains its lag
+        server.executor.free_staging()
+        drained = 0
+        for _ in range(200):
+            drained += dm.consume_step(max_rows=batch)
+            if dm.lag() == 0:
+                break
+        return {
+            "scenario": "ingest-backpressure",
+            "hbmHighBytes": hbm_high_bytes,
+            "stagedBytesAtPause": staged_bytes,
+            "consumedBeforePressure": consumed_free,
+            "consumedWhilePaused": paused_consumed,
+            **paused_state,
+            "resumed": not server.ingest_backpressure.paused,
+            "consumedAfterResume": drained,
+            "finalLag": dm.lag(),
+            "governor": server.ingest_backpressure.snapshot(),
+            "failedQueries": 0 if (paused_state["offsetFrozen"] and paused_consumed == 0 and dm.lag() == 0) else 1,
+        }
+    finally:
+        cluster.stop()
+
+
+# ---------------------------------------------------------------------------
+# HBM pressure: addressable staged data ~8x the server's hot-tier cap under
+# closed-loop mixed load.  The residency manager (engine/residency.py) keeps
+# the hot set resident while cold tables cycle hot <-> warm <-> cold, and an
+# injected allocation failure heals by demotion, never by poisoning a plan.
+# ---------------------------------------------------------------------------
+
+
+def _pair_of_segments(schema: Schema, rows_per_table: int, seed: int, table: str, name: str, shared=None):
+    """A table's two halves of ``rows_per_table`` identical rows (the
+    reference's ``random_rows`` per table up to ``_COLUMNAR_ROWS``; past it
+    one seeded column set, built once into ``shared`` and renamed)."""
+    from pinot_tpu_torch.segment.builder import build_segment
+    from pinot_tpu_torch.tools.datagen import random_rows
+
+    half = rows_per_table // 2
+    if rows_per_table <= _COLUMNAR_ROWS:
+        rows = random_rows(schema, rows_per_table, seed=seed)
+        return [build_segment(schema, rows[:half], table, f"{name}s0"),
+                build_segment(schema, rows[half:], table, f"{name}s1")]
+    if not shared:
+        cols = _random_columns(schema, rows_per_table, seed)
+        shared.extend([_columns_segment(schema, cols, 0, half, table, f"{name}s0"),
+                       _columns_segment(schema, cols, half, rows_per_table, table, f"{name}s1")])
+    return [_renamed(seg, table, f"{name}s{i}") for i, seg in enumerate(shared)]
+
+
+def run_hbm_pressure_scenario(num_tables: int = 10, rows_per_table: int = 96, clients: int = 3,
+                              baseline_s: float = 1.0, load_s: float = 4.0, data_dir: Optional[str] = None,
+                              seed: int = 421, device=None) -> Dict[str, Any]:
+    """One server hosting ``num_tables`` identical tables whose staged
+    footprint is ~8x the hot-tier cap the scenario then imposes on it:
+
+    - a hot table runs a closed loop while a sweeper queries every cold
+      table in turn, forcing demotion (hot tier over its cap), spill (warm
+      tier over its cap) and promotion (cold tables queried again); the
+      counters must show all three tiers cycled, with no failed query and
+      exact counts;
+    - the hot set stays protected: its p99 under pressure beside its own
+      uncapped baseline;
+    - a seeded allocation failure (``DeviceFaultInjector.alloc_fail_next``)
+      lands on a hot query under pressure: the executor classifies
+      ``resource_exhausted``, demotes, retries and answers right, with no
+      poisoned plan and no host failover.
+
+    The caps are measured, not assumed: a table's footprint is the staging
+    ledger's growth on its first staging.  The caps go on the server's
+    residency manager and are put back at the end."""
+    from pinot_tpu_torch.common.faults import DeviceFaultInjector
+
+    cluster = InProcessCluster(num_servers=1, data_dir=data_dir, device=device)
+    server = cluster.servers[0]
+    residency = server.executor.residency
+    saved_caps = (residency.hbm_cap_bytes, residency.host_cap_bytes)
+    try:
+        names = [f"tierT{i}" for i in range(num_tables)]
+        totals: Dict[str, int] = {}
+        shared: List[ImmutableSegment] = []
+        for name in names:
+            schema = _tenant_schema(name)
+            physical = cluster.add_offline_table(schema, replication=1)
+            for seg in _pair_of_segments(schema, rows_per_table, seed, physical, name, shared):
+                cluster.upload(physical, seg)
+            totals[name] = rows_per_table
+        del shared
+        hot = names[0]
+
+        # several columns, so that each table stages a real footprint (a
+        # bare count(*) stages only the doc counts)
+        def pql_for(name: str) -> str:
+            return (f"SELECT sum(metInt), sum(metFloat), sum(metDouble), max(dimInt), max(dimLong) FROM {name} "
+                    "GROUP BY dimStr")
+
+        hot_pql = pql_for(hot)
+        # a table's footprint from the ledger's growth on its first staging,
+        # then every table warmed, so "addressable" is the uncapped total
+        before = server.executor.staged_bytes()
+        r = cluster.broker.handle_pql(hot_pql)
+        assert not r.exceptions, r.exceptions
+        table_bytes = max(1, int(server.executor.staged_bytes() - before))
+        for name in names[1:]:
+            r = cluster.broker.handle_pql(pql_for(name))
+            assert not r.exceptions, r.exceptions
+        addressable = int(server.executor.staged_bytes())
+
+        # 1. the hot table's uncapped baseline
+        base = ClosedLoopLoad(cluster, hot_pql, totals[hot], clients).start()
+        time.sleep(baseline_s)
+        baseline = base.stop()
+
+        # 2. the caps: the hot tier holds ~1.25 tables (addressable / cap ~8
+        # for 10 tables), the warm tier ~2.5 more, the rest lives on disk;
+        # enforced on the resident set at once, as an operator's change is
+        cap = max(1, int(table_bytes * num_tables / 8.0))
+        residency.hbm_cap_bytes = cap
+        residency.host_cap_bytes = int(table_bytes * 2.5)
+        residency.enforce()
+        counters0 = {n: residency.counter(n) for n in ("demotions", "promotions", "coldDemotions", "coldLoads")}
+
+        # 3. the hot closed loop and a cold-table sweeper, concurrently
+        stop = threading.Event()
+        sweep_errors: List[str] = []
+        sweeps = [0]
+
+        def sweeper() -> None:
+            i = 0
+            while not stop.is_set():
+                name = names[1 + (i % (num_tables - 1))]
+                i += 1
+                try:
+                    resp = cluster.broker.handle_pql(pql_for(name))
+                except Exception as e:
+                    sweep_errors.append(f"{name}: {type(e).__name__}: {e}")
+                    continue
+                sweeps[0] += 1
+                if (resp.exceptions or resp.num_docs_scanned != totals[name]) and len(sweep_errors) < 8:
+                    sweep_errors.append(f"{name}: docs={resp.num_docs_scanned}/{totals[name]} "
+                                        f"exc={[e.message for e in resp.exceptions][:2]}")
+
+        hot_load = ClosedLoopLoad(cluster, hot_pql, totals[hot], clients).start()
+        sweep_thread = threading.Thread(target=sweeper, daemon=True)
+        sweep_thread.start()
+        time.sleep(load_s)
+        stop.set()
+        hot_summary = hot_load.stop()
+        sweep_thread.join(timeout=10)
+
+        # 4. a seeded allocation failure on a hot query, still under the
+        # caps: it must heal by demotion, never poison
+        inj = DeviceFaultInjector(seed=seed)
+        lanes = server.lanes.lanes if server.lanes is not None else []
+        for lane in lanes:
+            lane.fault_injector = inj
+        heal_before = dict(server.executor.healing_stats())
+        inj.alloc_fail_next(1)
+        try:
+            resp = cluster.broker.handle_pql(hot_pql)
+        finally:
+            for lane in lanes:
+                lane.fault_injector = None
+        heal_after = dict(server.executor.healing_stats())
+        oom_healed = (not resp.exceptions and resp.num_docs_scanned == totals[hot]
+                      and heal_after["resourceExhausted"] > heal_before["resourceExhausted"]
+                      and heal_after["hostFailovers"] == heal_before["hostFailovers"]
+                      and heal_after["poisonedPlans"] == 0)
+        deltas = {n: residency.counter(n) - counters0[n] for n in counters0}
+        hot_p99, base_p99 = hot_summary["p99Ms"], baseline["p99Ms"]
+        failed = hot_summary["failedQueries"] + len(sweep_errors) + (0 if oom_healed else 1)
+        return {
+            "scenario": "hbm-pressure",
+            "metric": "tiered_hbm_pressure",
+            "value": round(addressable / cap, 3),
+            "addressable_over_cap": round(addressable / cap, 3),
+            "num_tables": num_tables,
+            # the reference reports jax.default_backend(); the port the
+            # server's device type ("cuda", "cpu")
+            "platform": str(server.device.type),
+            "tableBytes": table_bytes,
+            "addressableBytes": addressable,
+            "hbmCapBytes": cap,
+            "hot_p99_ms": hot_p99,
+            "baseline_p99_ms": base_p99,
+            "hot_p99_over_baseline": round(hot_p99 / max(base_p99, 1e-3), 3),
+            "demotions": deltas["demotions"],
+            "promotions": deltas["promotions"],
+            "cold_demotions": deltas["coldDemotions"],
+            "cold_loads": deltas["coldLoads"],
+            "coldSweeps": sweeps[0],
+            "hotLoad": hot_summary,
+            "hotBaseline": baseline,
+            "sweepErrors": sweep_errors,
+            "oomHealed": oom_healed,
+            "selfHealing": heal_after,
+            "residency": residency.snapshot(),
+            "failedQueries": failed,
+        }
+    finally:
+        cluster.stop()
+        residency.hbm_cap_bytes, residency.host_cap_bytes = saved_caps
+        server.executor.free_staging()  # the capped era's tiers go with the server
+
+
+# ---------------------------------------------------------------------------
+# Audit divergence: a seeded fault injector makes the device tier return
+# silently wrong aggregates under closed-loop load; the shadow differential
+# auditor must catch it and quarantine the (plan digest, tier), and the
+# cluster keeps answering right (off the quarantined tier) with no failed
+# query.
+# ---------------------------------------------------------------------------
+
+
+def run_audit_divergence_scenario(num_segments: int = 2, rows: int = 96, clients: int = 2, load_s: float = 2.0,
+                                  detect_budget_s: float = 12.0, corrupt_n: int = 3, data_dir: Optional[str] = None,
+                                  seed: int = 1907, device=None, corrupt_delta: float = 100.0) -> Dict[str, Any]:
+    """One server, one offline table, a closed query loop, and a seeded
+    ``DeviceFaultInjector.corrupt_results`` perturbing the next
+    ``corrupt_n`` served aggregates of the device tier.  Nothing raises, so
+    the self-healing ladder never sees it: only the shadow auditor can.
+    The divergence must be detected within ``detect_budget_s`` and the
+    (plan digest, tier) quarantined; every answer after the quarantine must
+    be identical to the others and equivalent to the pre-corruption one;
+    no query may fail.  The shadow oracle runs in a forked child, so the
+    detection time includes the fork.  ``corrupt_delta``: the perturbation
+    (the reference's 100 dominates the audit band at its 96 rows; a larger
+    table's group sums need one past rel 5e-4 of them)."""
+    from pinot_tpu_torch.common.faults import DeviceFaultInjector
+    from pinot_tpu_torch.tools.datagen import random_rows
+    from pinot_tpu_torch.utils.audit import SamplerBudget, payloads_equivalent, strip_accounting
+
+    # every completed query sampled (the auditor reads the rate when it is
+    # made), on an effectively unmetered budget of its own, so the
+    # detection time measures the audit loop, not the sampler
+    saved_sample_n = os.environ.get("PINOT_TPU_AUDIT_SAMPLE_N")
+    os.environ["PINOT_TPU_AUDIT_SAMPLE_N"] = "1"
+    try:
+        cluster = InProcessCluster(num_servers=1, data_dir=data_dir, device=device)
+    finally:
+        if saved_sample_n is None:
+            os.environ.pop("PINOT_TPU_AUDIT_SAMPLE_N", None)
+        else:
+            os.environ["PINOT_TPU_AUDIT_SAMPLE_N"] = saved_sample_n
+    inj = DeviceFaultInjector(seed=seed)
+    server = cluster.servers[0]
+    server.auditor.budget = SamplerBudget(per_s=1000.0, burst=64.0)
+    lanes = server.lanes.lanes if server.lanes is not None else []
+    try:
+        schema = _tenant_schema("auditT")
+        physical = cluster.add_offline_table(schema, replication=1)
+        per = max(1, rows // num_segments)
+        if rows <= _COLUMNAR_ROWS:
+            all_rows = random_rows(schema, rows, seed=seed)
+            for i in range(num_segments):
+                chunk = all_rows[i * per:(i + 1) * per] or all_rows[-per:]
+                cluster.upload(physical, _tenant_segment(schema, chunk, len(chunk), physical, f"audits{i}", seed))
+        else:
+            cols = _random_columns(schema, rows, seed)
+            for i in range(num_segments):
+                cluster.upload(physical, _columns_segment(schema, cols, i * per, (i + 1) * per, physical,
+                                                          f"audits{i}"))
+            del cols
+        pql = "SELECT sum(metInt), sum(metFloat), max(dimInt) FROM auditT GROUP BY dimStr"
+
+        # the pre-corruption payload, accounting stripped (the auditor's own
+        # comparison)
+        ref_resp = cluster.broker.handle_pql(pql)
+        assert not ref_resp.exceptions, ref_resp.exceptions
+        reference = strip_accounting(ref_resp.to_json())
+        load = ClosedLoopLoad(cluster, pql, ref_resp.num_docs_scanned, clients).start()
+        time.sleep(min(0.5, load_s))  # steady state before the fault
+
+        for lane in lanes:
+            lane.fault_injector = inj
+        # a delta orders of magnitude past the audit band on these sums: the
+        # wrong answer is unambiguously wrong, not a rounding argument
+        inj.corrupt_results(n=corrupt_n, delta=corrupt_delta)
+        armed_at = time.monotonic()
+        detected_s: Optional[float] = None
+        quarantined: List[Dict[str, Any]] = []
+        while time.monotonic() - armed_at < detect_budget_s:
+            quarantined = server.executor.audit_quarantined_snapshot()
+            if quarantined:
+                detected_s = time.monotonic() - armed_at
+                break
+            time.sleep(0.05)
+        inj.heal()  # an unfired corruption budget must not leak forward
+        time.sleep(min(1.0, load_s))  # serving after the quarantine
+        summary = load.stop()
+
+        # after the quarantine: answers identical to each other (one tier
+        # serves now, no flapping) and equivalent to the pre-corruption one
+        post_mismatches = 0
+        post_baseline = None
+        for _ in range(8):
+            resp = cluster.broker.handle_pql(pql)
+            payload = strip_accounting(resp.to_json())
+            if post_baseline is None:
+                post_baseline = payload
+            if resp.exceptions or payload != post_baseline or not payloads_equivalent(payload, reference):
+                post_mismatches += 1
+        audit_snap = server.auditor.snapshot()
+        heal = server.executor.healing_stats()
+        recent = audit_snap.get("recentDivergences") or []
+        detect_ms = max((d.get("detectMs") or 0.0) for d in recent) if recent else None
+        failed = summary["failedQueries"] + (0 if detected_s is not None else 1) + post_mismatches
+        return {
+            "scenario": "audit-divergence",
+            "metric": "audit_detect_s",
+            "value": round(detected_s, 3) if detected_s is not None else None,
+            "detected": detected_s is not None,
+            "detectWallS": round(detected_s, 3) if detected_s is not None else None,
+            "detectMs": detect_ms,
+            "divergences": audit_snap["divergences"],
+            "quarantined": quarantined,
+            "auditTierSkips": heal.get("auditTierSkips", 0),
+            "postQuarantineMismatches": post_mismatches,
+            "load": summary,
+            "audit": audit_snap,
+            "failedQueries": failed,
+        }
+    finally:
+        for lane in lanes:
+            lane.fault_injector = None
+        cluster.stop()
+
+
+# ---------------------------------------------------------------------------
+# Elastic fleet: 100+ tables under mixed ingest and query closed-loop load,
+# a forced hot-tenant skew, a live make-before-break rebalance and a
+# controller restart in the middle of it.
+# ---------------------------------------------------------------------------
+
+
+def _fleet_loads_by_server(res, tables) -> Dict[str, float]:
+    """Doc-weighted ideal-state load a server (the scenario's own balance
+    check, independent of the planner's)."""
+    load: Dict[str, float] = {}
+    for table in tables:
+        for seg, replicas in res.get_ideal_state(table).items():
+            info = res.get_segment_metadata(table, seg)
+            meta = info.get("metadata") if info else None
+            docs = max(1, int(getattr(meta, "num_docs", 0) or 0))
+            for s in replicas:
+                load[s] = load.get(s, 0.0) + docs
+    return load
+
+
+def run_elastic_fleet_scenario(num_tables: int = 104, num_servers: int = 3, clients: int = 3, hot_segments: int = 6,
+                               hot_docs: int = 400, fleet_docs: int = 20, rt_tables: int = 2, rt_partitions: int = 2,
+                               rows_per_segment: int = 40, rt_segments_per_partition: int = 2,
+                               pool_workers: int = 4, max_rounds: int = 40, data_dir: Optional[str] = None,
+                               device=None) -> Dict[str, Any]:
+    """The elastic-fleet acceptance, end to end:
+
+    1. breadth: ``num_tables`` tables on ``num_servers`` servers, mostly
+       tiny offline tables, plus ``rt_tables`` REALTIME tables whose
+       partitions the shared ``IngestConsumerPool`` consumes;
+    2. mixed load: closed-loop clients over a fleet table, the hot table
+       and a live realtime table while ingest runs;
+    3. forced skew: ``hot_segments`` doc-heavy segments pinned on server0
+       and a cost-rate hint naming the hot table, so that the stabilizer's
+       skew evaluation trips;
+    4. live rebalance: the planner's make-before-break moves run under
+       load, and every round checks that no segment loses its last serving
+       replica (against the external view);
+    5. a controller restart mid-rebalance: with moves pending, the
+       controller is stopped and a new one recovers from the property
+       store; the servers (``ServerStarter``) and the broker
+       (``BrokerStarter``) join it and its stabilizer finishes the moves
+       from derived state.
+
+    Acceptance: no failed query, no lost or duplicate row (realtime counts
+    exact), exactly one committed copy a (partition, sequence), and a final
+    doc-weighted imbalance under the skew threshold."""
+    from pinot_tpu_torch.realtime.llc import make_segment_name
+    from pinot_tpu_torch.realtime.pool import IngestConsumerPool
+    from pinot_tpu_torch.realtime.stream import MemoryStreamProvider
+    from pinot_tpu_torch.tools.datagen import random_rows
+
+    cluster = InProcessCluster(num_servers=num_servers, data_dir=data_dir, device=device)
+    ctrl_a = cluster.controller
+    res = ctrl_a.resources
+    st = ctrl_a.stabilizer
+    st.grace_s = 0.0
+    # tight knobs so the scenario converges in bounded rounds (the defaults
+    # are production-paced: ratio 2.0, 3 rounds, 2 moves)
+    st.rebalance_skew_ratio = 1.4
+    st.rebalance_hysteresis = 2
+    st.rebalance_max_moves = 4
+    pool_a = IngestConsumerPool(workers=pool_workers, name="elasticA")
+    ctrl_a.realtime_manager.ingest_pool = pool_a
+    ctrl_b: Optional[Controller] = None
+    pool_b: Optional[IngestConsumerPool] = None
+    loads: List[ClosedLoopLoad] = []
+    try:
+        # 1. breadth: the fleet of small offline tables, every one of the
+        # same rows (built once past _COLUMNAR_ROWS)
+        template = _tenant_schema("fleet0")
+        fleet_rows = random_rows(template, min(fleet_docs, _COLUMNAR_ROWS), seed=13)
+        hot_rows = random_rows(template, min(hot_docs, _COLUMNAR_ROWS), seed=14)
+        fleet_seg = (_tenant_segment(template, fleet_rows, fleet_docs, "fleet0_OFFLINE", "fleet0s0", seed=13)
+                     if fleet_docs > _COLUMNAR_ROWS else None)
+        hot_seg = (_tenant_segment(template, hot_rows, hot_docs, "hotTable_OFFLINE", "hot0", seed=14)
+                   if hot_docs > _COLUMNAR_ROWS else None)
+        num_offline = num_tables - rt_tables - 1  # -1: the hot table
+        fleet_physicals: List[str] = []
+        for i in range(num_offline):
+            schema = _tenant_schema(f"fleet{i}")
+            physical = cluster.add_offline_table(schema, replication=1)
+            fleet_physicals.append(physical)
+            cluster.upload(physical, _renamed(fleet_seg, physical, f"fleet{i}s0") if fleet_seg is not None
+                           else _tenant_segment(schema, fleet_rows, fleet_docs, physical, f"fleet{i}s0", seed=13))
+
+        # the realtime tables on the shared consumer pool
+        rt_rows_per_partition = rows_per_segment * rt_segments_per_partition
+        rt_physicals: List[str] = []
+        for i in range(rt_tables):
+            schema = _tenant_schema(f"rtFleet{i}")
+            stream = MemoryStreamProvider(num_partitions=rt_partitions)
+            physical = cluster.add_realtime_table(schema, stream, rows_per_segment=rows_per_segment)
+            rt_physicals.append(physical)
+            rows = random_rows(schema, rt_rows_per_partition, seed=20 + i)
+            for p in range(rt_partitions):
+                for row in rows:
+                    stream.produce(row, partition=p)
+
+        # 3. the forced hot-tenant skew: every hot segment on server0
+        hot_schema = _tenant_schema("hotTable")
+        hot_physical = cluster.add_offline_table(hot_schema, replication=1)
+        for i in range(hot_segments):
+            seg = (_renamed(hot_seg, hot_physical, f"hot{i}") if hot_seg is not None
+                   else _tenant_segment(hot_schema, hot_rows, hot_docs, hot_physical, f"hot{i}", seed=14))
+            path = ctrl_a.store.save(hot_physical, seg)
+            res.add_segment(hot_physical, seg.metadata,
+                            {"dir": path, "downloadUri": "file://" + os.path.abspath(path)}, servers=["server0"])
+        del fleet_seg, hot_seg
+        # the cost axis: the hot table is also the hot query tenant (what
+        # /debug/capacity reports once brokers attribute it)
+        st.cost_rate_fn = lambda: {"hotTable": 50.0}
+        expected_hot = hot_segments * hot_docs
+        total_rt = rt_partitions * rt_rows_per_partition
+
+        # 2. mixed ingest and query closed-loop load
+        loads = [
+            ClosedLoopLoad(cluster, "SELECT count(*) FROM hotTable", expected_hot, clients).start(),
+            ClosedLoopLoad(cluster, "SELECT count(*) FROM fleet0", fleet_docs, 1).start(),
+            # a live realtime table: any complete answer is right while
+            # ingest moves the count
+            ClosedLoopLoad(cluster, "SELECT count(*) FROM rtFleet0", None, 1).start(),
+        ]
+        time.sleep(0.2)
+
+        def coverage_ok(r=None) -> bool:
+            """No segment may lose its last serving replica (checked on the
+            controller that owns the round)."""
+            r = r or res
+            for table in [hot_physical] + fleet_physicals[:3]:
+                view = r.get_external_view(table)
+                for seg, replicas in r.get_ideal_state(table).items():
+                    if not any(view.get(seg, {}).get(s) == "ONLINE" for s in replicas):
+                        return False
+            return True
+
+        def surplus_of(r) -> int:
+            return sum(1 for table in [hot_physical] + fleet_physicals
+                       for replicas in r.get_ideal_state(table).values() if len(replicas) > 1)
+
+        # 4. the live rebalance, stopped mid-flight
+        coverage_never_lost = True
+        moves_started_at_restart = 0
+        rounds_a = 0
+        for _ in range(max_rounds):
+            st.run_once()
+            rounds_a += 1
+            coverage_never_lost = coverage_never_lost and coverage_ok()
+            moves_started_at_restart = st.metrics.meter("rebalance.movesStarted").count
+            if moves_started_at_restart and st._pending_moves:
+                break  # mid-rebalance: the first phase done, the second pending
+            time.sleep(0.02)
+        pending_at_restart = len(st._pending_moves)
+        surplus_at_restart = surplus_of(res)
+
+        # realtime must be quiescent before the in-process restart (a memory
+        # stream's buffered rows die with the manager, so the tip consumer
+        # must be empty: everything produced is durable)
+        def rt_quiescent() -> bool:
+            for physical in rt_physicals:
+                ideal = res.get_ideal_state(physical)
+                for p in range(rt_partitions):
+                    for seq in range(rt_segments_per_partition):
+                        seg = ideal.get(make_segment_name(physical, p, seq))
+                        if not seg or "ONLINE" not in seg.values():
+                            return False
+            return True
+
+        deadline = time.monotonic() + 30.0
+        while time.monotonic() < deadline and not rt_quiescent():
+            time.sleep(0.05)
+        rt_committed = rt_quiescent()
+
+        # 5. the controller restart mid-rebalance
+        pool_a.stop()
+        ctrl_a.stop()
+        ctrl_b = Controller(cluster.data_dir)
+        ctrl_b.stabilizer.grace_s = 0.0
+        ctrl_b.stabilizer.rebalance_skew_ratio = st.rebalance_skew_ratio
+        ctrl_b.stabilizer.rebalance_hysteresis = st.rebalance_hysteresis
+        ctrl_b.stabilizer.rebalance_max_moves = st.rebalance_max_moves
+        ctrl_b.stabilizer.cost_rate_fn = st.cost_rate_fn
+        pool_b = IngestConsumerPool(workers=pool_workers, name="elasticB")
+        ctrl_b.realtime_manager.ingest_pool = pool_b
+        # the servers first (their replays refill B's external views), then
+        # the broker (its routing seeded from those views); the broker serves
+        # from its last routing meanwhile, and make-before-break never dropped
+        # a serving replica, so no query has anywhere to fail
+        cluster.attach_controller(ctrl_b)
+        st_b = ctrl_b.stabilizer
+        rounds_b = 0
+        for _ in range(max_rounds):
+            st_b.run_once()
+            rounds_b += 1
+            coverage_never_lost = coverage_never_lost and coverage_ok(ctrl_b.resources)
+            if (surplus_of(ctrl_b.resources) == 0 and not st_b._pending_moves
+                    and st_b.metrics.gauge("rebalance.imbalanceRatio").value < st_b.rebalance_skew_ratio):
+                break
+            time.sleep(0.02)
+        time.sleep(0.2)
+        summaries = [load.stop() for load in loads]
+        loads = []
+
+        # acceptance
+        res_b = ctrl_b.resources
+        final_hot = cluster.query("SELECT count(*) FROM hotTable")
+        rt_counts = [cluster.query(f"SELECT count(*) FROM rtFleet{i}").num_docs_scanned for i in range(rt_tables)]
+        # exactly one committed copy a (partition, sequence): the ideal state
+        # holds exactly the expected segment names, each committed one with
+        # exactly one ONLINE replica
+        one_copy_per_seq = True
+        for physical in rt_physicals:
+            ideal = res_b.get_ideal_state(physical)
+            expected_names = set()
+            for p in range(rt_partitions):
+                for seq in range(rt_segments_per_partition):
+                    name = make_segment_name(physical, p, seq)
+                    expected_names.add(name)
+                    if list(ideal.get(name, {}).values()).count("ONLINE") != 1:
+                        one_copy_per_seq = False
+                # the tip consuming segment, one a partition
+                expected_names.add(make_segment_name(physical, p, rt_segments_per_partition))
+            if set(ideal) != expected_names:
+                one_copy_per_seq = False
+        balance = _fleet_loads_by_server(res_b, [hot_physical] + fleet_physicals)
+        mean_load = sum(balance.values()) / max(1, len(balance))
+        final_ratio = max(balance.values()) / mean_load if mean_load > 0 else 0.0
+        failed = sum(s["failedQueries"] for s in summaries)
+        rt_exact = rt_counts == [total_rt] * rt_tables
+        ok = (failed == 0 and coverage_never_lost and rt_committed and rt_exact and one_copy_per_seq
+              and moves_started_at_restart > 0 and (pending_at_restart > 0 or surplus_at_restart > 0)
+              and final_ratio < st.rebalance_skew_ratio
+              and final_hot.num_docs_scanned == expected_hot and not final_hot.exceptions)
+        return {
+            "scenario": "elastic-fleet",
+            "tables": num_tables,
+            "servers": num_servers,
+            "load": summaries,
+            "queries": sum(s["queries"] for s in summaries),
+            "okQueries": sum(s["okQueries"] for s in summaries),
+            "partialQueries": sum(s["partialQueries"] for s in summaries),
+            "failures": [f for s in summaries for f in s["failures"]],
+            "roundsBeforeRestart": rounds_a,
+            "roundsAfterRestart": rounds_b,
+            "movesStartedBeforeRestart": moves_started_at_restart,
+            "pendingMovesAtRestart": pending_at_restart,
+            "surplusReplicasAtRestart": surplus_at_restart,
+            "movesCompletedAfterRestart": st_b.metrics.meter("rebalance.movesCompleted").count,
+            "coverageNeverLost": coverage_never_lost,
+            "rtRowsExpected": total_rt,
+            "rtRowsServed": rt_counts,
+            "oneCommittedCopyPerSequence": one_copy_per_seq,
+            "finalLoadByServer": {k: round(v, 1) for k, v in sorted(balance.items())},
+            "finalImbalanceRatio": round(final_ratio, 3),
+            "skewRatioThreshold": st.rebalance_skew_ratio,
+            "ingestPool": {"a": pool_a.snapshot(), "b": pool_b.snapshot()},
+            "failedQueries": 0 if ok else max(1, failed),
+        }
+    finally:
+        for load in loads:
+            load.stop()
+        pool_a.stop()
+        if pool_b is not None:
+            pool_b.stop()
+        if ctrl_b is not None and cluster.controller is not ctrl_b:
+            ctrl_b.stop()  # made, but not joined: cluster.stop() stops a joined one
+        cluster.stop()
 
 
 def run_split_brain_scenario(data_dir: Optional[str] = None, device=None) -> Dict[str, Any]:
@@ -1199,14 +2166,6 @@ def run_asymmetric_partition_scenario(data_dir: Optional[str] = None, lease_s: f
 # ---------------------------------------------------------------------------
 
 
-def _tenant_schema(name: str):
-    from pinot_tpu_torch.tools.datagen import make_test_schema
-
-    schema = make_test_schema(with_mv=False)
-    schema.schema_name = name
-    return schema
-
-
 def run_disaster_recovery_scenario(num_servers: int = 3, replication: int = 2, num_segments: int = 6,
                                    clients: int = 3, rt_rows_per_segment: int = 40, window_s: float = 0.5,
                                    data_dir: Optional[str] = None, archive_path: Optional[str] = None,
@@ -1399,3 +2358,75 @@ def run_disaster_recovery_scenario(num_servers: int = 3, replication: int = 2, n
         }
     finally:
         cluster.stop()
+
+
+SCENARIOS = {
+    "kill-server": run_kill_server_scenario,
+    "drain": run_drain_scenario,
+    "rolling-restart": run_rolling_restart_scenario,
+    "rolling-restart-warm": run_rolling_restart_warm_scenario,
+    "elastic-fleet": run_elastic_fleet_scenario,
+    "noisy-neighbor": run_noisy_neighbor_scenario,
+    "join-under-flood": run_join_under_flood_scenario,
+    "ingest-backpressure": run_ingest_backpressure_scenario,
+    "hbm-pressure": run_hbm_pressure_scenario,
+    "audit-divergence": run_audit_divergence_scenario,
+    "partition-server": run_partition_server_scenario,
+    "partition-controller": run_partition_controller_scenario,
+    "asymmetric-partition": run_asymmetric_partition_scenario,
+    "split-brain": run_split_brain_scenario,
+    "disaster-recovery": run_disaster_recovery_scenario,
+}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """``python -m pinot_tpu_torch.tools.cluster_harness --scenario <name>
+    [--device cpu]``: one scenario, its report printed as JSON; exit 0 when
+    ``failedQueries`` is 0.  The reference's flags, and ``--device`` (the
+    servers' device: the current CUDA card unless ``cpu`` is given)."""
+    import argparse
+    import json
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--scenario", choices=sorted(SCENARIOS), required=True)
+    p.add_argument("--servers", type=int, default=3)
+    p.add_argument("--replication", type=int, default=2)
+    p.add_argument("--segments", type=int, default=6)
+    p.add_argument("--clients", type=int, default=3)
+    p.add_argument("--quota-qps", type=float, default=8.0)
+    p.add_argument("--flood-clients", type=int, default=4)
+    p.add_argument("--tables", type=int, default=104)
+    p.add_argument("--device", default=None, help="the servers' device (default: the current CUDA card)")
+    args = p.parse_args(argv)
+    run = SCENARIOS[args.scenario]
+    if args.scenario == "elastic-fleet":
+        out = run(num_tables=args.tables, num_servers=args.servers, clients=args.clients, device=args.device)
+    elif args.scenario in ("ingest-backpressure", "hbm-pressure", "audit-divergence", "asymmetric-partition",
+                           "split-brain"):
+        out = run(device=args.device)
+    elif args.scenario == "partition-controller":
+        out = run(num_servers=min(args.servers, 3), replication=args.replication,
+                  num_segments=min(args.segments, 4), clients=args.clients, device=args.device)
+    elif args.scenario == "rolling-restart-warm":
+        # a sequential replay (clients=1): compile.cold == 0 is deterministic
+        # only when no new micro-batched shape can first appear mid-roll
+        out = run(num_servers=args.servers, replication=args.replication, num_segments=args.segments,
+                  device=args.device)
+    elif args.scenario == "noisy-neighbor":
+        out = run(num_servers=min(args.servers, 2), replication=args.replication, num_segments=args.segments,
+                  clients=args.clients, flood_clients=args.flood_clients, quota_qps=args.quota_qps,
+                  device=args.device)
+    elif args.scenario == "join-under-flood":
+        # the reference's main sends this one --segments, which it does not
+        # take (a TypeError there); its tables have fixed segment counts
+        out = run(num_servers=min(args.servers, 2), replication=args.replication, clients=args.clients,
+                  flood_clients=args.flood_clients, quota_qps=args.quota_qps, device=args.device)
+    else:
+        out = run(num_servers=args.servers, replication=args.replication, num_segments=args.segments,
+                  clients=args.clients, device=args.device)
+    print(json.dumps(out, indent=2, default=str))
+    return 0 if out["failedQueries"] == 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -35,8 +35,13 @@ shares the server's interpreter with every serving thread for its whole
 run: one the host tier runs row by row (a distinct count without a
 group-by, an ordered selection) holds it for minutes at full width, and
 even a numpy one slows the serving threads while it runs.  The child
-costs one ``fork`` a sample (``audit.forkMs``) and a core while it runs;
-the verdicts are the reference's.  Where ``os.fork`` is missing the
+costs one ``fork`` (``audit.forkMs``) for every sample queued when it
+starts, so the auditor drains its queue at the oracles' pace, not at one
+fork a sample, and a core while it runs; the verdicts are the reference's.
+A sample whose answer to the same query over the same views already waits
+in the queue is dropped as a duplicate (``audit.duplicates``): its verdict
+would be that one's, and a closed loop of one query then never fills the
+queue, so a different (wrong) answer finds room.  Where ``os.fork`` is missing the
 check runs on the thread.
 
 Knobs:
@@ -49,6 +54,7 @@ Knobs:
 from __future__ import annotations
 
 import gc
+import hashlib
 import logging
 import os
 import pickle
@@ -113,9 +119,10 @@ def _die_with_parent(parent: int) -> None:
         os._exit(0)
 
 
-def _child_main(executor, job: dict, w: int, parent: int) -> None:
-    """The forked child's whole life: ``_shadow`` over the parent's
-    views, the verdict pickled to ``w``, then ``os._exit``.  It never
+def _child_main(executor, jobs: list, w: int, parent: int) -> None:
+    """The forked child's whole life: ``_shadow`` over the parent's views
+    for each job, the verdicts (``("ok", verdict)`` or ``("error",
+    message)`` a job) pickled to ``w``, then ``os._exit``.  It never
     returns into the parent's code, runs no cycle collection (a
     collected tensor of the parent's would reach the CUDA allocator), and
     closes every inherited descriptor but ``w`` and stderr, so a socket
@@ -129,15 +136,34 @@ def _child_main(executor, job: dict, w: int, parent: int) -> None:
         os.close(null)
         os.closerange(3, w)
         os.closerange(w + 1, max(w + 2, os.sysconf("SC_OPEN_MAX")))
-        try:
-            out = ("ok", _shadow(executor, job))
-        except BaseException as e:  # noqa: BLE001 - reported to the parent as an audit error
-            out = ("error", f"{type(e).__name__}: {e}")
+        out = []
+        for job in jobs:
+            try:
+                out.append(("ok", _shadow(executor, job)))
+            except BaseException as e:  # noqa: BLE001 - reported to the parent as an audit error
+                out.append(("error", f"{type(e).__name__}: {e}"))
         data = memoryview(pickle.dumps(out, protocol=pickle.HIGHEST_PROTOCOL))
         while data:
             data = data[os.write(w, data):]
     finally:
         os._exit(0)
+
+
+def _sample_key(request, views, result, table: str):
+    """What makes two samples' verdicts equal: the query and the exact views
+    (the result cache's key) and the answer served (its pickled partials);
+    None where either cannot be had (no dedupe then)."""
+    from pinot_tpu_torch.engine.rescache import ResultCache
+
+    try:
+        query = ResultCache.key_for(request, views, table)
+        if query is None:
+            return None
+        answer = pickle.dumps((result.aggregations, result.groups, result.selection_columns,
+                               result.selection_rows), protocol=pickle.HIGHEST_PROTOCOL)
+    except Exception:  # noqa: BLE001 - an unkeyable sample is audited, never deduped
+        return None
+    return query, hashlib.blake2b(answer, digest_size=16).digest()
 
 
 def _kill(pid: int) -> None:
@@ -316,11 +342,12 @@ class ShadowAuditor:
         self.metrics = instance.metrics
         for m in (
             "audit.samples", "audit.divergences", "audit.dropped",
-            "audit.errors", "audit.quarantines",
+            "audit.errors", "audit.quarantines", "audit.duplicates",
         ):
             self.metrics.meter(m)
         self._count = 0
         self._queue: deque = deque()
+        self._queued_keys: set = set()  # _sample_key of every queued job
         self._divergences: deque = deque(maxlen=self._DIVERGENCE_RING)
         self._trigger = threading.Event()
         self._stop = threading.Event()
@@ -363,11 +390,17 @@ class ShadowAuditor:
             "result": result,
             "enqueuedAt": time.monotonic(),
         }
+        key = _sample_key(request, views, result, job["table"])
         with self._lock:
+            if key is not None and key in self._queued_keys:
+                self.metrics.meter("audit.duplicates").mark()
+                return False
             if len(self._queue) >= self._QUEUE_MAX:
                 self.metrics.meter("audit.dropped").mark()
                 return False
             self._queue.append(job)
+            if key is not None:
+                self._queued_keys.add(key)
             if self._thread is None:
                 self._thread = threading.Thread(
                     target=self._run,
@@ -392,6 +425,7 @@ class ShadowAuditor:
             t.join(timeout=5)
         with self._lock:
             self._queue.clear()
+            self._queued_keys.clear()
 
     # -- worker --------------------------------------------------------
     def _run(self) -> None:
@@ -401,25 +435,43 @@ class ShadowAuditor:
             self._trigger.clear()
             while not self._stop.is_set():
                 with self._lock:
-                    job = self._queue.popleft() if self._queue else None
-                if job is None:
+                    jobs = list(self._queue)
+                    self._queue.clear()
+                    self._queued_keys.clear()
+                if not jobs:
                     break
-                try:
-                    self._audit_one(job)
-                except Exception:
-                    # a sick audit must never kill the worker — one
-                    # sample is lost, the next drains normally
-                    logger.exception("shadow audit failed")
-                    self.metrics.meter("audit.errors").mark()
+                if hasattr(os, "fork"):
+                    # one child for every queued sample
+                    try:
+                        verdicts = self._shadow_in_child(jobs)
+                    except Exception:
+                        logger.exception("shadow audit failed")
+                        self.metrics.meter("audit.errors").mark(len(jobs))
+                        continue
+                    if verdicts is None:
+                        return  # stopped mid-audit
+                    for job, verdict in zip(jobs, verdicts):
+                        job["verdict"] = verdict
+                for job in jobs:
+                    try:
+                        self._audit_one(job)
+                    except Exception:
+                        # a sick audit must never kill the worker — one
+                        # sample is lost, the next drains normally
+                        logger.exception("shadow audit failed")
+                        self.metrics.meter("audit.errors").mark()
 
     def _audit_one(self, job: dict) -> None:
+        """One sample's verdict: the child's (``job["verdict"]``), or
+        ``_shadow`` on this thread where there is no ``fork``."""
         request = job["request"]
-        if hasattr(os, "fork"):
-            verdict = self._shadow_in_child(job)
-            if verdict is None:
-                return  # stopped mid-audit
-        else:
+        verdict = job.pop("verdict", None)
+        if verdict is None:
             verdict = _shadow(self.instance.executor, job)
+        else:
+            status, verdict = verdict
+            if status != "ok":
+                raise RuntimeError(f"the shadow oracle failed in its child: {verdict}")
         shadow_ms, same, produced, expected = verdict
         self.metrics.timer("audit.shadowMs").update(shadow_ms)
         self.metrics.meter("audit.samples").mark()
@@ -459,9 +511,10 @@ class ShadowAuditor:
             },
         )
 
-    def _shadow_in_child(self, job: dict):
-        """``_shadow`` in a forked child (module docstring); None when
-        ``stop`` killed it."""
+    def _shadow_in_child(self, jobs: list):
+        """``_shadow`` of each job in one forked child (module docstring):
+        the verdicts, ``("ok", verdict)`` or ``("error", message)`` a job;
+        None when ``stop`` killed it."""
         global _PRCTL
         if _PRCTL is None and sys.platform.startswith("linux"):
             import ctypes
@@ -477,7 +530,7 @@ class ShadowAuditor:
             os.close(w)
             raise
         if pid == 0:
-            _child_main(self.instance.executor, job, w, parent)
+            _child_main(self.instance.executor, jobs, w, parent)
         self.metrics.timer("audit.forkMs").update((time.perf_counter() - t0) * 1000.0)
         os.close(w)
         with self._lock:
@@ -496,10 +549,7 @@ class ShadowAuditor:
             if self._stop.is_set():
                 return None
             raise RuntimeError("the shadow oracle's child exited without a verdict")
-        status, out = pickle.loads(data)
-        if status != "ok":
-            raise RuntimeError(f"the shadow oracle failed in its child: {out}")
-        return out
+        return pickle.loads(data)
 
     # -- observability -------------------------------------------------
     def snapshot(self) -> Dict[str, Any]:
